@@ -1,0 +1,505 @@
+"""Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg on one
+NVIDIA H100, end to end through the hand-written kernels.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases, one line each (any failure raises and exits non-zero):
+  1. card: name and power limit, torch / CUDA / nvcc versions
+  2. build: both CUDA kernels from starvector_tpu_torch/csrc
+  3. kernels against their plain PyTorch versions on the card, fp32 and
+     bf16, at the 1B prefill/decode shapes and at ragged cases
+  4. the slice at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
+     CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
+     seeded torch.Generator: 3 requests of 4 images through
+     StarVectorForCausalLM.generate_im2svg_ids, with launch counts; fp32
+     greedy ids against the plain attention; bf16 prefill logits against it
+  5. times on the card, each beside the card's name and power limit
+     (with --profile DIR, also where a decode step's device time goes)
+The line before the last is the kernels' JSON summary; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# Fixed token ids stand in for the tokenizer: the "<svg" prompt and the
+# "</svg>" stop sequence (no tokenizer file is needed on the card).
+PROMPT_IDS = (44, 5727, 2262)
+STOP_IDS = ((1053, 5727, 48),)
+# Decoder projections are scaled up from the 0.02 init so that greedy
+# decoding on random weights does not collapse onto one repeated token
+# (tests/test_torch_im2svg.py scales them by 10 at tiny width); phase 4
+# prints the distinct ids per row that this scale gives.
+PROJ_SCALE = 3.0
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # atol = rtol, per dtype
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 50) -> float:
+    """Device time of one fn() call in ms: `iters` calls captured in a CUDA
+    graph and replayed between two CUDA events, so the host's per-call
+    launch cost (tens of microseconds here) is not what is timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: cuBLAS handles, allocator
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(what: str, out: torch.Tensor, ref: torch.Tensor, dtype, live=None) -> float:
+    """Raise unless |out - ref| <= tol + tol*|ref| on the live rows; return max |out - ref|."""
+    if live is not None:
+        out, ref = out[live], ref[live]
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    tol = TOL[dtype]
+    err = (out - ref).abs()
+    bad = err > tol + tol * ref.abs()
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements off, max |diff| {err.max().item():.3e}")
+    return err.max().item()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_flash_prefill(tfa, dev) -> float:
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = [  # name, B, S, T, H, Hkv, q_offset, window, left_pad
+        ("1B prefill", 4, 261, 261 + 128, 16, 1, 0, None, 0),
+        ("S=37", 2, 37, 37, 16, 1, 0, None, 0),
+        ("T=53 not a tile multiple", 2, 37, 53, 16, 1, 0, None, 0),
+        ("q_offset=100", 2, 37, 200, 16, 1, 100, None, 0),
+        ("left-padded keys", 2, 64, 100, 16, 1, 0, None, 9),
+        ("window=32", 2, 100, 100, 16, 1, 0, 32, 0),
+        ("GQA Hkv=4", 2, 70, 70, 16, 4, 0, None, 0),
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, T, H, Hkv, q_off, window, pad in cases:
+            # q as the decoder passes it: a strided view of the fused c_attn
+            # output [q | k | v], rows H*D + 2*Hkv*D apart
+            qkv = torch.randn((B, S, (H + 2 * Hkv) * 128), generator=g, device=dev).to(dtype)
+            q = qkv[..., :H * 128].unflatten(-1, (H, 128))
+            k = torch.randn((B, T, Hkv, 128), generator=g, device=dev).to(dtype)
+            v = torch.randn((B, T, Hkv, 128), generator=g, device=dev).to(dtype)
+            mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+            mask[:, q_off + S:] = 0   # unwritten cache tail
+            mask[:, :pad] = 0
+            out = tfa.flash_prefill(q, k, v, mask, q_off, window=window)
+            ref = tfa.flash_prefill(q, k, v, mask, q_off, window=window, kernels=False)
+            torch.cuda.synchronize()
+            live = torch.arange(S, device=dev)[None, :] + q_off >= pad  # rows that see a key
+            live = live.expand(B, S)
+            err = compare(f"flash_prefill {name} {dtype}", out, ref, dtype, live)
+            worst = max(worst, err)
+            log("kernels", f"flash_prefill {name} {str(dtype)[6:]}: max |diff| {err:.3e}")
+    return worst
+
+
+def check_decode_attention(tfa, dev) -> float:
+    g = torch.Generator(device=dev).manual_seed(2)
+    G, D = 16, 128
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 4):
+            for T in (1, 300, 2049):
+                qg = torch.randn((B, 1, G, D), generator=g, device=dev).to(dtype)
+                kn, vn = (torch.randn((B, 1, D), generator=g, device=dev).to(dtype) for _ in "kv")
+                k, v = (torch.randn((B, T, 1, D), generator=g, device=dev).to(dtype) for _ in "kv")
+                mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+                mask[:, : T // 5] = 0  # left padding
+                # (b) merged_decode_attention: the cache plus the self token
+                out = tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5)
+                ref = tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5, kernels=False)
+                torch.cuda.synchronize()
+                err_b = compare(f"merged decode B={B} T={T} {dtype}", out, ref, dtype)
+                # (a) gqa_decode_batched: valid length and window start, no self token
+                q = qg.reshape(B, G, D)
+                lo, hi = T // 8, max(T - 3, 1)
+                out = tfa.gqa_decode_batched(q, k, v, mask, hi, lo)
+                ref = tfa.gqa_decode_batched(q, k, v, mask, hi, lo, kernels=False)
+                torch.cuda.synchronize()
+                live = (mask[:, lo:hi] > 0).any(dim=1)
+                err_a = compare(f"gqa decode B={B} T={T} {dtype}", out, ref, dtype, live)
+                worst = max(worst, err_a, err_b)
+                log("kernels", f"decode_attention B={B} T={T} {str(dtype)[6:]}: "
+                               f"merged max |diff| {err_b:.3e}, batched max |diff| {err_a:.3e}")
+    return worst
+
+
+def check_bf16_rounding(dev) -> str:
+    """The served bf16 path rounds as the JAX package does. A dense layer
+    adds its bias to the fp32 sum before its one rounding to bf16, with bf16
+    and with fp32 parameters; the tied head returns the fp32 sum itself.
+    Checked at the 1B decoder's c_attn shape for a decode step (4 rows) and a
+    prefill (4 x 261 rows), and at the head's, against float64 sums."""
+    from starvector_tpu_torch.ops.layers import DTypePolicy, dense, matmul_f32
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    w = torch.randn((2048, 2304), generator=g, device=dev) * 0.02
+    b = torch.rand((2304,), generator=g, device=dev) + 1.0  # dwarfs x @ w: a bf16 bias shows
+    parts = []
+    for rows in (4, 4 * 261):
+        x = torch.randn((rows, 2048), generator=g, device=dev).bfloat16()
+        for pdt in (torch.bfloat16, torch.float32):
+            wp, bp = w.to(pdt), b.to(pdt)
+            y = dense({"kernel": wp, "bias": bp}, x, DTypePolicy(pdt, torch.bfloat16))
+            ref = (x.double() @ wp.bfloat16().double() + bp.double()).bfloat16().double()
+            diff = (y.double() - ref).abs()
+            exact = (diff == 0).double().mean().item()
+            # off by one bf16 step where the fp32 and float64 sums straddle a
+            # rounding boundary, or by the fp32 sum's own error (~1e-6 over
+            # 2048 terms) where the sum cancels to near zero
+            if y.dtype != torch.bfloat16 or exact < 0.99 or (diff > ref.abs() * 2**-7 + 1e-4).any():
+                raise AssertionError(f"dense rows={rows} {pdt} params: {y.dtype}, equal to the "
+                                     f"rounded float64 sum on {exact:.4f}, max |diff| {diff.max():.3e}")
+            parts.append(f"dense rows={rows} {str(pdt)[6:]} params {exact:.5f}")
+    wte = (torch.randn((49152, 2048), generator=g, device=dev) * 0.02).bfloat16()
+    x = torch.randn((4, 2048), generator=g, device=dev).bfloat16()
+    logits = matmul_f32(x, wte.T)
+    ref = x.double() @ wte.double().T
+    err = (logits.double() - ref).abs().max().item()
+    in_bf16 = (logits == logits.bfloat16().float()).double().mean().item()
+    if logits.dtype != torch.float32 or in_bf16 > 0.05 or err > 1e-5 * ref.abs().max().item():
+        raise AssertionError(f"head logits {logits.dtype}: {in_bf16:.4f} are bf16 values, "
+                             f"max |diff| from float64 {err:.3e}")
+    return (f"share equal to the float64 sum rounded once: {', '.join(parts)}; head logits fp32, "
+            f"{in_bf16:.5f} of them bf16 values, max |diff| from float64 {err:.3e} "
+            f"(max |logit| {ref.abs().max().item():.3f})")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice at full width
+# ---------------------------------------------------------------------------
+
+def synthetic_images(n: int, seed: int) -> list[np.ndarray]:
+    """uint8 RGB images of assorted sizes: a gradient with a few flat
+    rectangles, like a rendered icon."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = (int(s) for s in rng.integers(180, 420, 2))
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.stack([(xx * 255 // w), (yy * 255 // h), np.full_like(xx, 200)], -1)
+        for _ in range(3):
+            y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+            img[y0:y0 + h // 3, x0:x0 + w // 3] = rng.integers(0, 256, 3)
+        out.append(img.astype(np.uint8))
+    return out
+
+
+def full_width_params(sv, cfg, dev, dtype, seed: int = 0) -> dict:
+    params = sv.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                            dtype=dtype)
+    for grp in (params["svg_transformer"]["layers"]["attn"], params["svg_transformer"]["layers"]["mlp"]):
+        for p in grp.values():
+            p["kernel"].mul_(PROJ_SCALE)
+    return params
+
+
+KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
+    ("decode_attention", ("decode_attention_kernel",)),
+    ("flash_prefill", ("flash_prefill_kernel",)),
+    ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")),
+    ("layer_norm", ("layer_norm",)),
+)
+
+
+def profile_request(request, card: str, out_dir: Path) -> None:
+    """Where the device time of a B=4, 128-token greedy request goes:
+    torch.profiler traces the whole request and a prefill-only request
+    (max_new_tokens=1); their difference over the decode steps is the
+    per-step cost. The wall times come from the same requests run just
+    before without the profiler, whose own host cost would inflate them.
+    Writes both kernel tables to out_dir and prints the per-step wall time,
+    device time, busy share and kernel classes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    images = synthetic_images(4, 21)
+
+    def traced(**kw):
+        _, _, wall = request(images, **kw)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, lengths, _ = request(images, **kw)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        by_class: dict[str, float] = {}
+        for e in rows:
+            label = next((lab for lab, keys in KERNEL_CLASSES
+                          if any(k in e.key.lower() for k in keys)), "other")
+            by_class[label] = by_class.get(label, 0.0) + e.self_device_time_total / 1e3
+        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
+        return int(lengths.max()), wall * 1e3, by_class, table
+
+    steps, wall, full, table_full = traced()
+    _, wall0, prefill, table_prefill = traced(max_new_tokens=1)
+    if not sum(full.values()):
+        raise AssertionError("the profiler recorded no device time")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "profile_im2svg.txt").write_text(
+        f"{card}\nB=4, 128 new tokens greedy\n{table_full}\n\n"
+        f"B=4, prefill only (max_new_tokens=1)\n{table_prefill}\n")
+    n = steps - 1
+    per_step = {k: (full.get(k, 0.0) - prefill.get(k, 0.0)) / n for k in full}
+    dev_step, wall_step = sum(per_step.values()), (wall - wall0) / n
+    shares = ", ".join(f"{k} {v * 1e3:.1f} us ({v / dev_step:.1%})"
+                       for k, v in sorted(per_step.items(), key=lambda kv: -kv[1]))
+    log("profile", f"{card}: B=4 decode step ({n} steps, tables in "
+                   f"{out_dir / 'profile_im2svg.txt'}): wall {wall_step:.3f} ms without the "
+                   f"profiler, device {dev_step:.3f} ms under it, busy {dev_step / wall_step:.1%}; "
+                   f"device time per step: {shares}")
+    log("profile", f"{card}: B=4 image+prefill+first token: wall "
+                   f"{wall0:.1f} ms, device {sum(prefill.values()):.3f} ms: "
+                   + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(prefill.items(),
+                                                                   key=lambda kv: -kv[1])))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", metavar="DIR", type=Path,
+                        help="also trace a B=4 request with torch.profiler and write the "
+                             "kernel tables to DIR")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device: this script runs the port on an H100", file=sys.stderr)
+        return 2
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.models import starvector as sv
+    from starvector_tpu_torch.ops import flash_attention as tfa
+    from starvector_tpu_torch.ops import kernel_lib
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    dev = torch.device("cuda")
+    # --- 1. card -------------------------------------------------------------
+    card = card_line()
+    nvcc = subprocess.run([kernel_lib.find_nvcc(), "--version"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[-1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("card", f"{card} | torch {torch.__version__} | CUDA {torch.version.cuda} | nvcc {nvcc} | "
+                f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    # --- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    kernel_lib.library()
+    built = kernel_lib.build_seconds()
+    log_text = kernel_lib.build_log()
+    regs = [int(s.split()[0]) for s in log_text.split("Used ")[1:]]
+    spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
+                 for line in log_text.splitlines() if "bytes spill stores" in line)
+    log("build", f"{kernel_lib.library_path().name}: "
+                 f"{'built in %.1f s' % built if built is not None else 'reused'} "
+                 f"(load {time.perf_counter() - t0:.1f} s); ptxas: {len(regs)} kernels, "
+                 f"{min(regs, default=0)}-{max(regs, default=0)} registers, {spills} bytes spilled")
+
+    # --- 3. kernels against their plain versions --------------------------------
+    err_prefill = check_flash_prefill(tfa, dev)
+    err_decode = check_decode_attention(tfa, dev)
+    log("kernels", f"both kernels match their plain versions (tolerance atol=rtol 1e-4 in "
+                   f"fp32, 2e-2 in bf16); max |diff| prefill {err_prefill:.3e}, "
+                   f"decode {err_decode:.3e}")
+    log("rounding", check_bf16_rounding(dev))
+
+    # --- 4. the slice at full width --------------------------------------------
+    cfg = sv.starvector_1b_config()
+    L = cfg.llm.n_layer
+    p32 = full_width_params(sv, cfg, dev, torch.float32)
+    p16 = _cast_tree(p32, torch.bfloat16)
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
+    model = StarVectorForCausalLM(p16, cfg, policy=bf16, device=dev)
+    greedy = dict(prompt_ids=[PROMPT_IDS] * 4, stop_sequences=STOP_IDS, max_new_tokens=128,
+                  use_nucleus_sampling=False)
+
+    def request(images, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = {"image": model.process_images(images)}
+        _, tokens, lengths = model.generate_im2svg_ids(batch, **{**greedy, **kw})
+        torch.cuda.synchronize()
+        return tokens, lengths, time.perf_counter() - t
+
+    request(synthetic_images(4, 99))  # warm-up: cuBLAS handles, allocator
+    tfa.flash_prefill.launches = 0
+    tfa.decode_attention.launches = 0
+    served = [request(synthetic_images(4, seed)) for seed in range(3)]
+    n_prefill, n_decode = tfa.flash_prefill.launches, tfa.decode_attention.launches
+    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    for tokens, lengths, _ in served:
+        if tokens.shape != (4, 128) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.llm.vocab_size:
+            raise AssertionError(f"bad tokens {tuple(tokens.shape)} [{tokens.min()}, {tokens.max()}]")
+        if not ((lengths >= 1) & (lengths <= 128)).all():
+            raise AssertionError(f"bad lengths {lengths.tolist()}")
+    if n_prefill != L * 3 or n_decode != L * sum(steps):
+        raise AssertionError(f"launches: flash_prefill {n_prefill} (expected {L * 3}), "
+                             f"decode_attention {n_decode} (expected {L * sum(steps)})")
+    distinct = [len(set(row.tolist())) for tokens, _, _ in served for row in tokens]
+    log("slice", f"3 requests x 4 images, greedy, 128 new tokens at full 1B width: decode steps "
+                 f"{steps}, lengths {[l.tolist() for _, l, _ in served]}, distinct ids per row "
+                 f"{distinct}; launches flash_prefill {n_prefill} = {L} x 3 prefills, "
+                 f"decode_attention {n_decode} = {L} x {sum(steps)} decode steps")
+
+    # fp32: greedy ids with the kernels against the plain attention
+    images = model.process_images(synthetic_images(2, 7))
+    ids = {}
+    for kernels in (True, False):
+        m32 = StarVectorForCausalLM(p32, cfg, policy=f32, device=dev, kernels=kernels)
+        _, ids[kernels], _ = m32.generate_im2svg_ids(
+            {"image": images}, **{**greedy, "prompt_ids": [PROMPT_IDS] * 2, "max_new_tokens": 32})
+    if not torch.equal(ids[True], ids[False]):
+        raise AssertionError(f"fp32 greedy ids differ:\n{ids[True].tolist()}\n{ids[False].tolist()}")
+    log("slice", f"fp32, B=2, 32 tokens: greedy ids with the kernels == with the plain attention "
+                 f"({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+
+    # bf16: prefill last-position logits and greedy tokens, kernels against plain
+    from starvector_tpu_torch.generation.engine import im2svg_prefix
+    from starvector_tpu_torch.models import gpt_bigcode
+
+    images = model.process_images(synthetic_images(4, 11))
+    prompt = torch.tensor([PROMPT_IDS] * 4, device=dev)
+
+    def prefill_logits(params, policy, kernels):
+        emb, mask = im2svg_prefix(params, cfg, images, prompt, policy=policy)
+        cache = gpt_bigcode.init_cache(cfg.llm, 4, emb.shape[1], dtype=policy.compute_dtype,
+                                       device=dev)
+        return gpt_bigcode.forward(params["svg_transformer"], cfg.llm, emb, mask, cache=cache,
+                                   policy=policy, last_logits_only=True, kernels=kernels)[0]
+
+    ref32 = prefill_logits(p32, f32, False)
+    logits, toks = {}, {}
+    for kernels in (True, False):
+        logits[kernels] = prefill_logits(p16, bf16, kernels)
+        _, toks[kernels], _ = StarVectorForCausalLM(p16, cfg, policy=bf16, device=dev,
+                                                    kernels=kernels).generate_im2svg_ids(
+            {"image": images}, **greedy)
+    diff = (logits[True] - logits[False]).abs().max().item()
+    err_k = (logits[True] - ref32).abs().max().item()
+    err_p = (logits[False] - ref32).abs().max().item()
+    # bound: the kernels may not add more error than bf16 itself does. Both
+    # bf16 paths leave the fp32 logits by bf16 rounding compounded over 24
+    # layers; the kernels keep P in fp32 where the plain version rounds it.
+    if not torch.isfinite(logits[True]).all() or err_k > 2.0 * err_p + 1e-3:
+        raise AssertionError(f"bf16 prefill logits: kernels {err_k:.3e} from fp32, over twice "
+                             f"the plain version's {err_p:.3e}")
+    agree = (toks[True] == toks[False]).float().mean().item()
+    log("slice", f"bf16, B=4: prefill last-position logits, max |diff| kernels vs plain {diff:.4e}; "
+                 f"from the fp32 plain logits (max |logit| {ref32.abs().max().item():.3e}): kernels "
+                 f"{err_k:.4e}, plain {err_p:.4e} (bound: kernels <= 2 x plain + 1e-3); greedy "
+                 f"tokens agree on {agree:.4f} of 4x128 positions")
+
+    # --- 5. times on the card -------------------------------------------------
+    lat = []
+    for seed in range(5):
+        img = synthetic_images(1, 100 + seed)
+        _, lengths, t = request(img, prompt_ids=[PROMPT_IDS])
+        lat.append((t, int(lengths.max())))
+    p50 = statistics.median(t for t, _ in lat)
+    log("times", f"{card}: p50 image->SVG latency, B=1, 128 new tokens greedy: {p50 * 1e3:.1f} ms "
+                 f"(5 requests: {[round(t * 1e3, 1) for t, _ in lat]} ms, tokens {[n for _, n in lat]})")
+    prefill_only = statistics.median(request(synthetic_images(4, s), max_new_tokens=1)[2]
+                                     for s in range(3))
+    full = statistics.median(t for _, _, t in served)
+    rate = 4 * statistics.median(steps) / (full - prefill_only)
+    log("times", f"{card}: decode {rate:.1f} tokens/s at B=4 (request {full * 1e3:.1f} ms, "
+                 f"image+prefill+first token {prefill_only * 1e3:.1f} ms, "
+                 f"{statistics.median(steps)} decode steps)")
+
+    kernels_json = []
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, P, T, H, D = 4, 261, 261 + 128, 16, 128
+    q = torch.randn((B, P, H, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, T, 1, D), generator=g, device=dev).bfloat16() for _ in "kv")
+    mask = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    mask[:, :P] = 1
+    times = _turns(lambda: tfa.flash_prefill(q, k, v, mask, kernels=False),
+                   lambda: tfa.flash_prefill(q, k, v, mask))
+    log("times", f"{card}: flash_prefill B=4 S=261 T=389 H=16 Hkv=1 D=128 bf16: kernel "
+                 f"{times[1]:.4f} ms, plain {times[0]:.4f} ms")
+    kernels_json.append(dict(name="flash_prefill", route="cuda",
+                             source="starvector_tpu_torch/csrc/flash_prefill.cu",
+                             replaces="starvector_tpu/ops/flash_attention.py:212",
+                             launches=n_prefill, max_abs_err=err_prefill,
+                             ms=times[1], plain_ms=times[0]))
+    idx = P + 64  # mid-generation: 64 tokens decoded
+    qg = torch.randn((B, 1, H, D), generator=g, device=dev).bfloat16()
+    kn, vn = (torch.randn((B, 1, D), generator=g, device=dev).bfloat16() for _ in "kv")
+    kc, vc, old = k[:, :idx], v[:, :idx], torch.ones((B, idx), dtype=torch.int32, device=dev)
+    times = _turns(lambda: tfa.merged_decode_attention(qg, kn, vn, kc, vc, old, D**-0.5, kernels=False),
+                   lambda: tfa.merged_decode_attention(qg, kn, vn, kc, vc, old, D**-0.5))
+    log("times", f"{card}: decode_attention B=4 T={idx} G=16 D=128 bf16: kernel "
+                 f"{times[1]:.4f} ms, plain {times[0]:.4f} ms")
+    kernels_json.append(dict(name="decode_attention", route="cuda",
+                             source="starvector_tpu_torch/csrc/decode_attention.cu",
+                             replaces="starvector_tpu/ops/flash_attention.py:2049",
+                             launches=n_decode, max_abs_err=err_decode,
+                             ms=times[1], plain_ms=times[0]))
+
+    if args.profile is not None:
+        profile_request(request, card, args.profile)
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "starvector_tpu"))
+    if leaked:
+        raise AssertionError(f"the port pulled in the JAX package: {leaked}")
+    print(card)
+    print(json.dumps({"kernels": kernels_json}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: (v if k in ("running_mean", "running_var") else _cast_tree(v, dtype))
+                for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _turns(plain, kernel) -> tuple[float, float]:
+    """(plain ms, kernel ms), each the mean of two runs taken in the order
+    plain, kernel, kernel, plain."""
+    a = cuda_ms(plain)
+    b = cuda_ms(kernel)
+    c = cuda_ms(kernel)
+    d = cuda_ms(plain)
+    return (a + d) / 2, (b + c) / 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""Token sampling: greedy, temperature, top-k, top-p, min-p, repetition,
+frequency and presence penalties, logit bias (port of
+starvector_tpu/ops/sampling.py).
+
+The logit transforms are pure functions of the logits and match the JAX
+package's. The categorical draw takes an explicit `torch.Generator`, so its
+random numbers differ from `jax.random`'s.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e10
+
+
+def _rowwise(knob, logits: torch.Tensor) -> torch.Tensor:
+    """Broadcast a knob against (B, V) logits: scalars pass through, per-row
+    (B,) knobs gain a trailing axis."""
+    knob = torch.as_tensor(knob, device=logits.device)
+    if knob.ndim == logits.ndim - 1 and knob.ndim > 0:
+        return knob[..., None]
+    return knob
+
+
+def _masked(keep: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    return torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+
+
+def apply_temperature(logits: torch.Tensor, temperature) -> torch.Tensor:
+    t = torch.clamp(_rowwise(temperature, logits).to(logits.dtype), min=1e-6)
+    return logits / t
+
+
+def apply_top_k(logits: torch.Tensor, k, max_k: int) -> torch.Tensor:
+    """Keep the top-k logits per row (k <= 0 disables; bounded by max_k)."""
+    max_k = min(max_k, logits.shape[-1])
+    k = _rowwise(k, logits)
+    vals = torch.topk(logits, max_k, dim=-1).values
+    idx = torch.clamp(k - 1, 0, max_k - 1).long().expand(*vals.shape[:-1], 1)
+    threshold = torch.gather(vals, -1, idx)
+    keep = (logits >= threshold) | (k <= 0)
+    return _masked(keep, logits)
+
+
+def apply_top_p(logits: torch.Tensor, p) -> torch.Tensor:
+    """Nucleus filtering: keep the smallest set of tokens whose cumulative
+    probability exceeds p, always keeping the most probable token."""
+    p = _rowwise(p, logits)
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) < p
+    keep_sorted[..., 0] = True
+    kept = torch.where(keep_sorted, sorted_logits, torch.full_like(sorted_logits, float("inf")))
+    threshold = kept.amin(dim=-1, keepdim=True)
+    keep = (logits >= threshold) | (p >= 1.0)
+    return _masked(keep, logits)
+
+
+def apply_min_p(logits: torch.Tensor, min_p) -> torch.Tensor:
+    """Keep tokens whose probability is at least min_p times the largest
+    (min_p <= 0 disables)."""
+    min_p = _rowwise(min_p, logits)
+    probs = torch.softmax(logits, dim=-1)
+    threshold = min_p * probs.amax(dim=-1, keepdim=True)
+    keep = (probs >= threshold) | (min_p <= 0.0)
+    return _masked(keep, logits)
+
+
+def apply_frequency_presence(logits, counts, frequency_penalty, presence_penalty):
+    """logits - frequency_penalty * count - presence_penalty * (count > 0)."""
+    fp = _rowwise(frequency_penalty, logits)
+    pp = _rowwise(presence_penalty, logits)
+    counts = counts.to(logits.dtype)
+    return logits - fp * counts - pp * (counts > 0)
+
+
+def apply_logit_bias(logits, bias_ids, bias_vals):
+    """Sparse additive bias: (B, K) ids (negative = inactive) and values."""
+    active = bias_ids >= 0
+    ids = torch.where(active, bias_ids, torch.zeros_like(bias_ids)).long()
+    vals = torch.where(active, bias_vals.to(logits.dtype), torch.zeros_like(bias_vals, dtype=logits.dtype))
+    return logits.scatter_add(-1, ids, vals)
+
+
+def apply_repetition_penalty(logits, presence, penalty):
+    """Seen tokens: positive logits / penalty, negative logits * penalty."""
+    penalty = _rowwise(penalty, logits).to(logits.dtype)
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    out = torch.where(presence > 0, penalized, logits)
+    return torch.where(penalty == 1.0, logits, out)
+
+
+def sample_token(
+    logits: torch.Tensor,  # (B, V) fp32
+    *,
+    do_sample: bool,
+    temperature=1.0,
+    top_p=1.0,
+    top_k=0,
+    presence: torch.Tensor | None = None,
+    repetition_penalty=None,
+    counts: torch.Tensor | None = None,
+    frequency_penalty=None,
+    presence_penalty=None,
+    min_p=None,
+    bias_ids: torch.Tensor | None = None,
+    bias_vals: torch.Tensor | None = None,
+    max_top_k: int = 64,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """(B,) int64 next tokens. Greedy when do_sample is False or temperature
+    <= 0. Processor order: bias, penalties, temperature, top-k, top-p, min-p."""
+    if bias_ids is not None and bias_vals is not None:
+        logits = apply_logit_bias(logits, bias_ids, bias_vals)
+    if presence is not None and repetition_penalty is not None:
+        logits = apply_repetition_penalty(logits, presence, repetition_penalty)
+    if counts is not None:
+        logits = apply_frequency_presence(
+            logits, counts,
+            frequency_penalty if frequency_penalty is not None else 0.0,
+            presence_penalty if presence_penalty is not None else 0.0,
+        )
+    greedy = torch.argmax(logits, dim=-1)
+    if not do_sample:
+        return greedy
+    filtered = apply_temperature(logits, temperature)
+    filtered = apply_top_k(filtered, top_k, max_top_k)
+    filtered = apply_top_p(filtered, top_p)
+    if min_p is not None:
+        filtered = apply_min_p(filtered, min_p)
+    probs = torch.softmax(filtered.float(), dim=-1)
+    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    t = torch.as_tensor(temperature, device=logits.device).reshape(-1)
+    return torch.where(t <= 0.0, greedy, sampled)
