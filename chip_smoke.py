@@ -1,20 +1,31 @@
-"""Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg on one
-NVIDIA H100, end to end through the hand-written kernels.
+"""Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg inference
+and training on one NVIDIA H100, end to end through the hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
 
 Phases, one line each (any failure raises and exits non-zero):
   1. card: name and power limit, torch / CUDA / nvcc versions
-  2. build: both CUDA kernels from starvector_tpu_torch/csrc
+  2. build: the CUDA sources of starvector_tpu_torch/csrc, one nvcc each in
+     parallel; registers and spills per kernel from ptxas
   3. kernels against their plain PyTorch versions on the card, fp32 and
-     bf16, at the 1B prefill/decode shapes and at ragged cases
-  4. the slice at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
+     bf16: the inference pair at the 1B prefill/decode shapes and ragged
+     cases; the training forward-with-lse and backward pair at the 1B
+     training shape (B=4, S=T=769), ragged cases, the 8k context
+     (B=1, S=T=8450), sequence-parallel chunks of the 8k and 16k windows and
+     the 16k triangle
+  4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
      StarVectorForCausalLM.generate_im2svg_ids, with launch counts; fp32
      greedy ids against the plain attention; bf16 prefill logits against it
-  5. times on the card, each beside the card's name and power limit
-     (with --profile DIR, also where a decode step's device time goes)
+  5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
+     remat, AdamW): 8 steps of the port's train loop on one synthetic batch
+     (T = 257 + 512 = 769), loss falling, 24 launches per step of each
+     training kernel, peak memory; then 2 fp32 steps with the kernels
+     against 2 with the plain attention
+  6. times on the card, each beside the card's name and power limit
+     (with --profile DIR, also where a decode step's and a train step's
+     device time goes)
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -77,6 +88,40 @@ def cuda_ms(fn, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+KERNEL_COUNTS = ("flash_prefill", "decode_attention", "flash_prefill_with_lse",
+                 "flash_bwd_dkdv", "flash_bwd_dq")
+TRAIN_KERNELS = ("flash_prefill_with_lse", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def reset_counts(tfa) -> None:
+    for name in KERNEL_COUNTS:
+        getattr(tfa, name).launches = 0
+
+
+def read_counts(tfa) -> dict:
+    return {name: getattr(tfa, name).launches for name in KERNEL_COUNTS}
+
+
+def ptxas_summary(log_text: str) -> list[str]:
+    """'<kernel><type>: N registers, S bytes spilled' for each kernel ptxas
+    compiled, read from its -v output."""
+    out, name, spill = [], None, 0
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            base = next((k for k in ("flash_prefill_kernel", "decode_attention_kernel",
+                                     "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+                         if k in mangled), mangled[:40])
+            name = base + ("<bf16>" if "bfloat16" in mangled else "<f32>")
+        elif "bytes spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name is not None:
+            regs = int(line.split("Used")[1].split()[0])
+            out.append(f"{name} {regs} registers, {spill} bytes spilled")
+            name, spill = None, 0
+    return out
 
 
 def compare(what: str, out: torch.Tensor, ref: torch.Tensor, dtype, live=None) -> float:
@@ -160,6 +205,100 @@ def check_decode_attention(tfa, dev) -> float:
                 worst = max(worst, err_a, err_b)
                 log("kernels", f"decode_attention B={B} T={T} {str(dtype)[6:]}: "
                                f"merged max |diff| {err_b:.3e}, batched max |diff| {err_a:.3e}")
+    return worst
+
+
+TRAIN_CASES = [  # name, B, S, T, H, Hkv, q_offset, window, right_pad, left_pad
+    ("1B train step", 4, 769, 769, 16, 1, 0, None, 0, 0),
+    ("right-padded keys", 2, 300, 300, 16, 1, 0, None, 120, 0),
+    ("S=37 not a tile multiple", 2, 37, 37, 16, 1, 0, None, 0, 0),
+    ("S<T, q_offset=130", 2, 70, 200, 16, 1, 130, None, 0, 0),
+    ("window=33", 2, 150, 150, 16, 1, 0, 33, 0, 0),
+    ("GQA Hkv=4", 2, 130, 130, 16, 4, 0, None, 0, 0),
+    ("left-padded keys, rows with no key", 2, 100, 100, 16, 1, 0, None, 0, 7),
+    # the long contexts of the TPU's other backward variants: the 8k
+    # triangle (one-pass tri), a sequence-parallel chunk at the end of the
+    # 8k and of the 16k window (one-pass / dq-partials, and the split pair,
+    # q_offset traced), and the 16k triangle (split tri) at 2 heads, whose
+    # plain version's (H, T, T) fp32 blocks would not fit at 16
+    ("8k context", 1, 8450, 8450, 16, 1, 0, None, 0, 0),
+    ("8k SP chunk, S=1024 at q_offset=7426", 1, 1024, 8450, 16, 1, 7426, None, 0, 0),
+    ("16k SP chunk, S=1024 at q_offset=15618", 1, 1024, 16642, 16, 1, 15618, None, 0, 0),
+    ("16k context, H=2", 1, 16642, 16642, 2, 1, 0, None, 0, 0),
+]
+
+
+def compare_training(what: str, out, plain, ref32, dtype, live=None) -> float:
+    """compare() at the dtype's tolerance; for bf16, failing that, the kernel
+    may be no further from the fp32 plain result (on the same bf16 inputs)
+    than twice the plain bf16 version's own distance, plus 1e-3: the kernels
+    keep P and dS in fp32 where the plain version rounds them to bf16."""
+    try:
+        return compare(what, out, plain, dtype, live)
+    except AssertionError:
+        if dtype != torch.bfloat16:
+            raise
+    sel = (lambda t: t[live]) if live is not None else (lambda t: t)
+    err_k = (sel(out).float() - sel(ref32)).abs().max().item()
+    err_p = (sel(plain).float() - sel(ref32)).abs().max().item()
+    if not torch.isfinite(out).all() or err_k > 2.0 * err_p + 1e-3:
+        raise AssertionError(f"{what}: kernel {err_k:.3e} from fp32, plain bf16 {err_p:.3e}")
+    return (sel(out).float() - sel(plain).float()).abs().max().item()
+
+
+def check_training_kernels(tfa, dev) -> dict:
+    """The forward with lse and the backward pair against their plain
+    versions. q is a strided view of a fused [q | k | v] projection, as the
+    decoder passes it; the backward pair gets the plain forward's out and
+    lse on both sides, so each comparison isolates one kernel."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = {name: 0.0 for name in TRAIN_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, T, H, Hkv, q_off, window, rpad, lpad in TRAIN_CASES:
+            qkv = torch.randn((B, S, (H + 2 * Hkv) * 128), generator=g, device=dev).to(dtype)
+            q = qkv[..., :H * 128].unflatten(-1, (H, 128))
+            k, v = (torch.randn((B, T, Hkv, 128), generator=g, device=dev).to(dtype) for _ in "kv")
+            do = torch.randn((B, S, H, 128), generator=g, device=dev).to(dtype)
+            mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+            if rpad:
+                mask[1, T - rpad:] = 0
+            mask[:, :lpad] = 0
+            kw = dict(window=window)
+            out, lse = tfa.flash_prefill_with_lse(q, k, v, mask, q_off, **kw)
+            ro, rl = tfa.flash_prefill_with_lse(q, k, v, mask, q_off, kernels=False, **kw)
+            delta = tfa.attention_delta(ro, do)
+            dk, dv = tfa.flash_bwd_dkdv(q, k, v, mask, do, rl, delta, q_off, **kw)
+            dq = tfa.flash_bwd_dq(q, k, v, mask, do, rl, delta, q_off, **kw)
+            pq, pk, pv = tfa.flash_backward(q, k, v, mask, ro, rl, do, q_off, kernels=False, **kw)
+            torch.cuda.synchronize()
+            ref32 = dict(out=ro, dq=pq, dk=pk, dv=pv)
+            if dtype == torch.bfloat16:  # the plain version on the same values in fp32
+                f = [t.float() for t in (q, k, v, do)]
+                o32, l32 = tfa.flash_prefill_with_lse(*f[:3], mask, q_off, kernels=False, **kw)
+                g32 = tfa.flash_backward(*f[:3], mask, o32, l32, f[3], q_off, kernels=False, **kw)
+                ref32 = dict(out=o32, dq=g32[0], dk=g32[1], dv=g32[2])
+            pos = q_off + torch.arange(S, device=dev)
+            lo = (pos - (window or T) + 1).clamp_min(0)
+            cum = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                             mask.long().cumsum(1)], 1)
+            live = cum[:, (pos + 1).clamp_max(T)] - cum[:, lo] > 0  # rows that see a key
+            tag = f"{name} {str(dtype)[6:]}"
+            err_o = compare_training(f"out {tag}", out, ro, ref32["out"], dtype, live)
+            err_l = compare(f"lse {tag}", lse.transpose(1, 2), rl.transpose(1, 2),
+                            torch.float32, live)
+            errs = [compare_training(f"{w} {tag}", a, b, ref32[w], dtype)
+                    for w, a, b in (("dq", dq, pq), ("dk", dk, pk), ("dv", dv, pv))]
+            if not live.all() and (dq.float()[~live] != 0).any():
+                raise AssertionError(f"dq {tag}: rows that see no key are not zero")
+            worst["flash_prefill_with_lse"] = max(worst["flash_prefill_with_lse"], err_o, err_l)
+            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
+            worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], errs[1], errs[2])
+            log("kernels", f"training {tag}: max |diff| out {err_o:.3e}, lse {err_l:.3e}, "
+                           f"dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}"
+                           + ("" if live.all() else f"; {int((~live).sum())} rows see no key: "
+                              "finite, dq = 0"))
+            del qkv, q, k, v, do, out, lse, ro, rl, delta, dk, dv, dq, pq, pk, pv, ref32
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -290,11 +429,231 @@ def profile_request(request, card: str, out_dir: Path) -> None:
                                                                    key=lambda kv: -kv[1])))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, LR = 8, 1e-4
+SVG_LENGTHS = (512, 431, 300, 187)  # ragged rows; the longest sets T = 257 + 512
+
+
+def training_batch(cfg, process_images, dev, seed: int = 0) -> dict:
+    """One batch in the loader's format, from a seeded numpy generator:
+    CLIP-normalised images (4, 224, 224, 3), svg ids in the vocabulary,
+    right-padded to the longest row."""
+    rng = np.random.default_rng(seed)
+    B, S = len(SVG_LENGTHS), max(SVG_LENGTHS)
+    ids = rng.integers(0, cfg.llm.vocab_size, (B, S))
+    mask = (np.arange(S)[None, :] < np.asarray(SVG_LENGTHS)[:, None]).astype(np.int32)
+    return {"image": process_images(synthetic_images(B, 1000 + seed)),
+            "svg_ids": np.where(mask > 0, ids, 0), "svg_mask": mask}
+
+
+def _optimizer(params):
+    """AdamW with configs/models/default.yaml's betas, eps, weight decay and
+    clip, at lr 1e-4 without warmup (its 500 warmup steps would give these
+    few steps almost no learning rate); cosine over its 100000 steps."""
+    from starvector_tpu_torch.train.optim import build_optimizer
+
+    return build_optimizer(params, lr=LR, warmup_steps=0, betas=(0.95, 0.999), eps=1e-8,
+                           weight_decay=1e-6, grad_clip=1.0, total_steps=100_000)
+
+
+def _run_training(sv, tfa, cfg, dev, batch, steps: int, policy, kernels: bool = True,
+                  hook=None):
+    """`steps` steps of the port's train loop from fresh seeded weights;
+    (params, per-step records of loss, grad_norm, wall time and launches).
+    `hook(step)` runs after each step's record."""
+    from starvector_tpu_torch.train.train import train_loop
+
+    params = sv.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    recs = []
+    t_last = [time.perf_counter()]
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        recs.append(dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                         seconds=now - t_last[0], launches=read_counts(tfa)))
+        if hook is not None:
+            hook(step)
+        t_last[0] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    t_last[0] = time.perf_counter()
+    params, _, _ = train_loop(params, cfg, _optimizer(params),
+                              ((0, batch) for _ in range(steps)), total_steps=steps, device=dev,
+                              policy=policy, remat="dots_flash", kernels=kernels,
+                              on_step=on_step)
+    return params, recs
+
+
+def train_slice(sv, tfa, dev, process_images) -> dict:
+    """8 steps of full-width 1B training on one fixed batch (overfitting
+    it): fp32 master weights, bf16 compute, dots_flash. Checks the loss
+    falls, every value is finite, and each step launched each training
+    kernel once per layer."""
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    cfg = sv.starvector_1b_config()
+    L = cfg.llm.n_layer
+    batch = training_batch(cfg, process_images, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tfa)
+    _, recs = _run_training(sv, tfa, cfg, dev, batch, TRAIN_STEPS,
+                            DTypePolicy(torch.float32, torch.bfloat16))
+    counts = read_counts(tfa)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in recs]
+    norms = [r["grad_norm"] for r in recs]
+    per_step = [{k: b[k] - a[k] for k in TRAIN_KERNELS}
+                for a, b in zip([dict.fromkeys(TRAIN_KERNELS, 0)] + [r["launches"] for r in recs],
+                                [r["launches"] for r in recs])]
+    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: losses {losses}, grad norms {norms}")
+    if any(n != {k: L for k in TRAIN_KERNELS} for n in per_step) or \
+            counts["flash_prefill"] or counts["decode_attention"]:
+        raise AssertionError(f"training launches per step {per_step}, in all {counts}")
+    T = 257 + max(SVG_LENGTHS)
+    log("train", f"StarVector-1B at full width, B={len(SVG_LENGTHS)}, T={T} (svg lengths "
+                 f"{list(SVG_LENGTHS)}), fp32 masters / bf16 compute, dots_flash, AdamW lr {LR}: "
+                 f"{TRAIN_STEPS} steps on one batch, loss {[round(x, 4) for x in losses]}, "
+                 f"grad_norm {[round(x, 4) for x in norms]}; launches per step "
+                 f"{per_step[0]} (each = {L} layers), in all {counts}; peak memory "
+                 f"{peak / 2**30:.2f} GiB")
+    return dict(recs=recs, counts=counts, T=T, B=len(SVG_LENGTHS), peak=peak)
+
+
+def fp32_check(sv, tfa, dev, process_images) -> None:
+    """From the same weights and batch, 2 fp32 steps with the kernels and 2
+    with the plain attention. Bound on the updated weights: each AdamW step
+    moves an element by at most about lr (the first by exactly lr x sign),
+    so elements whose gradient is rounding noise may differ by up to
+    2 lr a step; the bound is 3 lr x steps."""
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.train.optim import tree_leaves
+
+    cfg = sv.starvector_1b_config()
+    batch = training_batch(cfg, process_images, dev)
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    p_k, r_k = _run_training(sv, tfa, cfg, dev, batch, 2, f32, kernels=True)
+    p_k = [t.detach() for t in tree_leaves(p_k)]
+    p_p, r_p = _run_training(sv, tfa, cfg, dev, batch, 2, f32, kernels=False)
+    diffs = [(a - b.detach()).abs() for a, b in zip(p_k, tree_leaves(p_p))]
+    max_diff = max(d.max().item() for d in diffs)
+    n = sum(d.numel() for d in diffs)
+    close = sum((d <= 1e-6).sum().item() for d in diffs) / n
+    bound = 3 * LR * 2
+    for a, b in zip(r_k, r_p):
+        if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) or \
+                abs(a["grad_norm"] - b["grad_norm"]) > 1e-3 * abs(b["grad_norm"]):
+            raise AssertionError(f"fp32 training: kernels {r_k}, plain {r_p}")
+    if max_diff > bound:
+        raise AssertionError(f"fp32 training: updated weights differ by {max_diff:.3e} > {bound}")
+    log("train", f"fp32, 2 steps, kernels vs plain attention: loss "
+                 f"{[r['loss'] for r in r_k]} vs {[r['loss'] for r in r_p]} (rtol 1e-4), "
+                 f"grad_norm {[r['grad_norm'] for r in r_k]} vs {[r['grad_norm'] for r in r_p]} "
+                 f"(rtol 1e-3); updated weights: max |diff| {max_diff:.3e} (bound 3 lr x 2 steps "
+                 f"= {bound:.1e}), {close:.6f} of {n} elements within 1e-6")
+    del p_k, p_p, diffs
+    torch.cuda.empty_cache()
+
+
+TRAIN_KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
+    ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_prefill_with_lse", ("flash_prefill_kernel",)),
+    ("GEMM (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")),
+    ("layer_norm", ("layer_norm",)),
+)
+
+
+def profile_train_step(sv, tfa, dev, process_images, card: str, step_wall: float,
+                       out_dir: Path) -> None:
+    """Where one full-width train step's device time goes: torch.profiler
+    traces the 4th step of a fresh run (3 of warm-up); the wall time is
+    phase 5's unprofiled median. Writes the kernel table to out_dir."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    cfg = sv.starvector_1b_config()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def hook(step):
+        if step == 3:
+            prof.start()
+        elif step == 4:
+            prof.stop()
+
+    _run_training(sv, tfa, cfg, dev, training_batch(cfg, process_images, dev), 4,
+                  DTypePolicy(torch.float32, torch.bfloat16), hook=hook)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    by_class: dict[str, float] = {}
+    for e in rows:
+        label = next((lab for lab, keys in TRAIN_KERNEL_CLASSES
+                      if any(k in e.key.lower() for k in keys)), "other")
+        by_class[label] = by_class.get(label, 0.0) + e.self_device_time_total / 1e3
+    device = sum(by_class.values())
+    if not device:
+        raise AssertionError("the profiler recorded no device time")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "profile_train.txt").write_text(
+        f"{card}\nStarVector-1B train step, B=4 T=769, bf16 compute, dots_flash\n"
+        + prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    log("profile", f"{card}: 1B train step (tables in {out_dir / 'profile_train.txt'}): wall "
+                   f"{step_wall * 1e3:.1f} ms without the profiler, device {device:.1f} ms under "
+                   f"it, busy {device / step_wall / 1e3:.1%}; device time: "
+                   + ", ".join(f"{k} {v:.1f} ms ({v / device:.1%})"
+                               for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])))
+
+
+def training_times(tfa, dev, card: str, train: dict, errs: dict) -> list[dict]:
+    """Train step wall time and tokens/s from phase 5 (median of the 5 steps
+    after 3 of warm-up), and the training kernels' device times against
+    their plain versions at the 1B training shape in bf16."""
+    secs = [r["seconds"] for r in train["recs"][3:]]
+    step = statistics.median(secs)
+    B, T = train["B"], train["T"]
+    log("times", f"{card}: train step B={B} T={T} (1B, bf16 compute, dots_flash): "
+                 f"{step * 1e3:.1f} ms median of {len(secs)} steps after 3 of warm-up "
+                 f"({[round(x * 1e3, 1) for x in secs]} ms), {B * T / step:.0f} tokens/s, peak "
+                 f"memory {train['peak'] / 2**30:.2f} GiB")
+    g = torch.Generator(device=dev).manual_seed(7)
+    H, D = 16, 128
+    qkv = torch.randn((B, T, (H + 2) * D), generator=g, device=dev).bfloat16()
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    k, v = (qkv[..., (H + i) * D:(H + i + 1) * D].unflatten(-1, (1, D)) for i in (0, 1))
+    do = torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    out, lse = tfa.flash_prefill_with_lse(q, k, v, mask)
+    delta = tfa.attention_delta(out, do)
+    shape = f"B={B} S=T={T} H=16 Hkv=1 D=128 bf16"
+    rows = []
+    for name, fn, replaces in (
+            ("flash_prefill_with_lse", lambda kn: tfa.flash_prefill_with_lse(q, k, v, mask,
+                                                                             kernels=kn), 330),
+            ("flash_bwd_dkdv", lambda kn: tfa.flash_bwd_dkdv(q, k, v, mask, do, lse, delta,
+                                                             kernels=kn), 968),
+            ("flash_bwd_dq", lambda kn: tfa.flash_bwd_dq(q, k, v, mask, do, lse, delta,
+                                                         kernels=kn), 968)):
+        plain_ms, ms = _turns(lambda: fn(False), lambda: fn(True))
+        log("times", f"{card}: {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        src = "flash_prefill.cu" if name == "flash_prefill_with_lse" else "flash_backward.cu"
+        rows.append(dict(name=name, route="cuda", source=f"starvector_tpu_torch/csrc/{src}",
+                         replaces=f"starvector_tpu/ops/flash_attention.py:{replaces}",
+                         launches=train["counts"][name], max_abs_err=errs[name], ms=ms,
+                         plain_ms=plain_ms))
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
-                        help="also trace a B=4 request with torch.profiler and write the "
-                             "kernel tables to DIR")
+                        help="also trace a B=4 request and a train step with torch.profiler "
+                             "and write the kernel tables to DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs the port on an H100", file=sys.stderr)
@@ -319,14 +678,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_lib.library()
     built = kernel_lib.build_seconds()
-    log_text = kernel_lib.build_log()
-    regs = [int(s.split()[0]) for s in log_text.split("Used ")[1:]]
-    spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
-                 for line in log_text.splitlines() if "bytes spill stores" in line)
-    log("build", f"{kernel_lib.library_path().name}: "
+    sources = sorted(p.name for p in kernel_lib.CSRC_DIR.glob("*.cu"))
+    log("build", f"{kernel_lib.library_path().name} from {len(sources)} CUDA sources "
+                 f"({', '.join(sources)}): "
                  f"{'built in %.1f s' % built if built is not None else 'reused'} "
-                 f"(load {time.perf_counter() - t0:.1f} s); ptxas: {len(regs)} kernels, "
-                 f"{min(regs, default=0)}-{max(regs, default=0)} registers, {spills} bytes spilled")
+                 f"(load {time.perf_counter() - t0:.1f} s); ptxas per kernel: "
+                 + "; ".join(ptxas_summary(kernel_lib.build_log())))
 
     # --- 3. kernels against their plain versions --------------------------------
     err_prefill = check_flash_prefill(tfa, dev)
@@ -334,6 +691,10 @@ def main() -> int:
     log("kernels", f"both kernels match their plain versions (tolerance atol=rtol 1e-4 in "
                    f"fp32, 2e-2 in bf16); max |diff| prefill {err_prefill:.3e}, "
                    f"decode {err_decode:.3e}")
+    err_train = check_training_kernels(tfa, dev)
+    log("kernels", "the training kernels match their plain versions (fp32 atol=rtol 1e-4; bf16 "
+                   "2e-2, or no more than twice the plain bf16 version's own error from fp32 "
+                   "plus 1e-3); max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in err_train.items()))
     log("rounding", check_bf16_rounding(dev))
 
     # --- 4. the slice at full width --------------------------------------------
@@ -356,10 +717,12 @@ def main() -> int:
         return tokens, lengths, time.perf_counter() - t
 
     request(synthetic_images(4, 99))  # warm-up: cuBLAS handles, allocator
-    tfa.flash_prefill.launches = 0
-    tfa.decode_attention.launches = 0
+    reset_counts(tfa)
     served = [request(synthetic_images(4, seed)) for seed in range(3)]
-    n_prefill, n_decode = tfa.flash_prefill.launches, tfa.decode_attention.launches
+    counts = read_counts(tfa)
+    n_prefill, n_decode = counts["flash_prefill"], counts["decode_attention"]
+    if any(counts[k] for k in TRAIN_KERNELS):
+        raise AssertionError(f"inference launched training kernels: {counts}")
     steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
     for tokens, lengths, _ in served:
         if tokens.shape != (4, 128) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.llm.vocab_size:
@@ -423,7 +786,11 @@ def main() -> int:
                  f"{err_k:.4e}, plain {err_p:.4e} (bound: kernels <= 2 x plain + 1e-3); greedy "
                  f"tokens agree on {agree:.4f} of 4x128 positions")
 
-    # --- 5. times on the card -------------------------------------------------
+    # --- 5. training at full width ----------------------------------------------
+    train = train_slice(sv, tfa, dev, model.process_images)
+    fp32_check(sv, tfa, dev, model.process_images)
+
+    # --- 6. times on the card -------------------------------------------------
     lat = []
     for seed in range(5):
         img = synthetic_images(1, 100 + seed)
@@ -470,8 +837,12 @@ def main() -> int:
                              launches=n_decode, max_abs_err=err_decode,
                              ms=times[1], plain_ms=times[0]))
 
+    kernels_json += training_times(tfa, dev, card, train, err_train)
+
     if args.profile is not None:
         profile_request(request, card, args.profile)
+        step_wall = statistics.median(r["seconds"] for r in train["recs"][3:])
+        profile_train_step(sv, tfa, dev, model.process_images, card, step_wall, args.profile)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "starvector_tpu"))
     if leaked:

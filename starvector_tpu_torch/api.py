@@ -110,10 +110,10 @@ class StarVectorForCausalLM:
         (B, max_new_tokens), lengths (B,)). Without a tokenizer, pass
         `prompt_ids` and `stop_sequences` (tuples of ids)."""
         if int(kwargs.get("num_beams", 1)) > 1:
-            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, item 6)")
+            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, item 7)")
         if kwargs.get("use_speculative"):
             raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue 1, item 6)")
+                "speculative decoding is not ported yet (ROADMAP queue 1, item 7)")
         images = torch.as_tensor(batch["image"], device=self.device)
         B = images.shape[0]
         if prompt_ids is None:
@@ -144,7 +144,7 @@ class StarVectorForCausalLM:
         return [self.tokenizer.decode(row[:P + int(L)]) for row, L in zip(outs, lengths.tolist())]
 
     def generate_im2svg_grpo(self, batch: dict, **kwargs):
-        raise NotImplementedError("GRPO rollouts are not ported yet (ROADMAP queue 1, item 6)")
+        raise NotImplementedError("GRPO rollouts are not ported yet (ROADMAP queue 1, item 7)")
 
     def generate_text2svg(self, batch: dict, **kwargs):
-        raise NotImplementedError("text2svg is not ported yet (ROADMAP queue 1, item 4)")
+        raise NotImplementedError("text2svg is not ported yet (ROADMAP queue 1, item 5)")

@@ -1,10 +1,18 @@
-// Causal flash-attention prefill for Hopper (sm_90a).
+// Causal flash-attention prefill for Hopper (sm_90a), optionally with the
+// per-row logsumexp that the training backward needs.
 //
-// Replaces the Pallas TPU kernel starvector_tpu/ops/flash_attention.py::
-// flash_prefill -> _flash_kernel / _flash_fwd_cell: online-softmax attention
-// of q (B,S,H,D) over k, v (B,T,Hkv,D) with a key mask (B,T), an absolute
-// query offset (the cache index of query row 0), causal and sliding-window
-// masks, and MQA/GQA grouping (query head h reads KV head h / (H/Hkv)).
+// Replaces the Pallas TPU kernels of starvector_tpu/ops/flash_attention.py:
+//   * flash_prefill -> _flash_kernel / _flash_fwd_cell (inference prefill);
+//   * flash_prefill_with_lse -> _flash_lse_kernel (rectangular grid) and
+//     _flash_lse_tri_kernel (triangular grid, S == T, q_offset 0): the same
+//     math plus lse = m + log(max(l, 1e-30)) per row. The k loop below stops
+//     at the causal bound of each query tile, so it visits only the live
+//     lower triangle that the TPU's triangular grid enumerates: one kernel
+//     serves both.
+// Online-softmax attention of q (B,S,H,D) over k, v (B,T,Hkv,D) with a key
+// mask (B,T), an absolute query offset (the cache index of query row 0),
+// causal and sliding-window masks, and MQA/GQA grouping (query head h reads
+// KV head h / (H/Hkv)).
 //
 // What bounds it on the H100: at the StarVector-1B prefill (S ~ 261, D = 128,
 // one KV head) the attention is a few GFLOP, so the kernel is bound by its
@@ -22,7 +30,10 @@
 // Layout contract: q, k, v are read through their strides (last dim
 // contiguous), in the JAX package's (B, S, H, D) / (B, T, Hkv, D) layout;
 // kv_mask is (B, T) int32 with unit stride along T; out is a contiguous
-// (B, S, H, D) tensor of q's type. Rows that see no key produce zeros.
+// (B, S, H, D) tensor of q's type; lse, when not null, a contiguous
+// (B, H, S) fp32 tensor (the plain layout, not the TPU's 8-lane one). Rows
+// that see no key produce zeros and lse = -1e30 + log(1e-30), so that the
+// backward's exp(s - lse) is never taken for them (every key is masked).
 
 #include <stdint.h>
 
@@ -43,6 +54,7 @@ struct PrefillArgs {
   const void* v;
   const int* mask;
   void* out;
+  float* lse;  // (B, H, S) or null
   int B, S, T, H, G;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_st, k_sh;
@@ -190,6 +202,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(const PrefillAr
     const int row = i0 + w * kRows + r;
     if (row >= a.S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (a.lse != nullptr && lane == 0)
+      a.lse[((long long)b * a.H + h) * a.S + row] = m[r] + logf(denom);
     T* o = out + (((long long)b * a.S + row) * a.H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
@@ -221,15 +235,15 @@ constexpr int kPrefillD = 128;
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype / head size the kernel does not take
-// (it takes D = 128).
+// (it takes D = 128). lse may be null (inference).
 extern "C" int sv_flash_prefill(
     int dtype, int D, const void* q, const void* k, const void* v, const int* mask, void* out,
-    int B, int S, int T, int H, int Hkv,
+    float* lse, int B, int S, int T, int H, int Hkv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long m_sb, int q_offset, int causal, int window, float scale, void* stream) {
-  const sv::PrefillArgs a{q, k, v, mask, out, B, S, T, H, H / Hkv,
+  const sv::PrefillArgs a{q, k, v, mask, out, lse, B, S, T, H, H / Hkv,
                           q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
                           m_sb, q_offset, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

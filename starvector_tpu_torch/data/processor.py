@@ -70,5 +70,5 @@ def processor_for_encoder(image_encoder_type: str, image_size: int | None = None
                           *, device="cpu") -> ImageProcessor:
     if image_encoder_type != "clip":
         raise NotImplementedError(
-            f"the {image_encoder_type!r} processor is not ported yet (ROADMAP queue 1, item 5)")
+            f"the {image_encoder_type!r} processor is not ported yet (ROADMAP queue 1, item 6)")
     return ImageProcessor(size=image_size or 224, device=device)

@@ -74,7 +74,7 @@ def generate(
     pad-filled after their stop, and lengths include the stop tokens."""
     if gen.num_return_sequences != 1:
         raise NotImplementedError(
-            "num_return_sequences > 1 is not ported yet (ROADMAP queue 1, item 6)")
+            "num_return_sequences > 1 is not ported yet (ROADMAP queue 1, item 7)")
     if gen.top_k > gen.max_top_k:
         raise ValueError(f"top_k={gen.top_k} exceeds max_top_k={gen.max_top_k}")
     B, P, _ = inputs_embeds.shape

@@ -1,11 +1,15 @@
-"""Adapter, the vision -> LLM projector, inference (port of
+"""Adapter, the vision -> LLM projector (port of
 starvector_tpu/models/adapter.py).
 
-Linear(d -> 2d) -> Swish -> Linear(2d -> llm_d) -> Norm, where Norm is
+Dropout(p) -> Linear(d -> 2d) -> Swish -> Linear(2d -> llm_d) -> Norm, where
+Norm is
   * `layer_norm`: LayerNorm over the last two dims jointly, with a (Q, llm_d)
     affine (torch LayerNorm([Q, llm_d])), or
-  * `batch_norm`: BatchNorm1d(Q) with its running statistics (the 1B preset).
-The input dropout is off at inference and not ported.
+  * `batch_norm`: BatchNorm1d(Q) (the 1B preset): running statistics at
+    inference; in training the batch's statistics, with the running ones
+    updated after the step (`forward_with_stats`).
+The dropout applies only in training and only when a torch.Generator is
+passed, as the JAX package applies it only when given a dropout key.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import math
 
 import torch
 
-from starvector_tpu_torch.ops.layers import DTypePolicy, dense, swish, uniform_
+from starvector_tpu_torch.ops.layers import DTypePolicy, dense, dropout, swish, uniform_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +28,9 @@ class AdapterConfig:
     output_size: int         # llm hidden size
     query_length: int        # number of visual tokens
     adapter_norm: str = "layer_norm"  # "layer_norm" | "batch_norm"
+    dropout_prob: float = 0.1
     bn_eps: float = 1e-5
+    bn_momentum: float = 0.1
 
 
 def init_params(cfg: AdapterConfig, gen: torch.Generator, *, device="cpu",
@@ -64,21 +70,62 @@ def _layer_norm_2d(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
-def _batch_norm_1d(p: dict, x: torch.Tensor, cfg: AdapterConfig) -> torch.Tensor:
-    """BatchNorm1d(Q) on (B, Q, D) at inference: per-query running stats."""
+def _batch_norm_1d(p: dict, x: torch.Tensor, cfg: AdapterConfig,
+                   train: bool = False) -> torch.Tensor:
+    """BatchNorm1d(Q) on (B, Q, D): per-query statistics over (batch,
+    feature), the running ones at inference, the batch's (biased variance)
+    in training."""
     x32 = x.float()
-    mean = p["running_mean"].float()[None, :, None]
-    var = p["running_var"].float()[None, :, None]
-    y = (x32 - mean) * torch.rsqrt(var + cfg.bn_eps)
+    if train:
+        mean = x32.mean(dim=(0, 2))
+        var = x32.var(dim=(0, 2), unbiased=False)
+    else:
+        mean, var = p["running_mean"].float(), p["running_var"].float()
+    y = (x32 - mean[None, :, None]) * torch.rsqrt(var[None, :, None] + cfg.bn_eps)
     y = y * p["scale"].float()[None, :, None] + p["bias"].float()[None, :, None]
     return y.to(x.dtype)
 
 
-def forward(params: dict, cfg: AdapterConfig, x: torch.Tensor, *,
-            policy: DTypePolicy = DTypePolicy()) -> torch.Tensor:
-    """(B, Q, input_size) -> (B, Q, output_size)."""
+def batch_norm_new_stats(p: dict, x: torch.Tensor, cfg: AdapterConfig) -> dict:
+    """The running statistics after observing batch x (torch's momentum
+    update: new = (1 - m) old + m batch, with the unbiased variance).
+    Computed without a graph: they are state, not parameters."""
+    with torch.no_grad():
+        x32 = x.float()
+        n = x32.shape[0] * x32.shape[2]
+        mean = x32.mean(dim=(0, 2))
+        var = x32.var(dim=(0, 2), unbiased=False) * (n / max(n - 1, 1))
+        m = cfg.bn_momentum
+        return {"running_mean": (1 - m) * p["running_mean"] + m * mean,
+                "running_var": (1 - m) * p["running_var"] + m * var}
+
+
+def _project(params: dict, x: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
     h = swish(dense(params["c_fc"], policy.cast(x), policy))
-    h = dense(params["c_proj"], h, policy)
+    return dense(params["c_proj"], h, policy)
+
+
+def forward(params: dict, cfg: AdapterConfig, x: torch.Tensor, *,
+            policy: DTypePolicy = DTypePolicy(), train: bool = False,
+            dropout_gen: torch.Generator | None = None) -> torch.Tensor:
+    """(B, Q, input_size) -> (B, Q, output_size). `train` takes the
+    BatchNorm batch statistics and, with `dropout_gen`, the input dropout."""
+    if train:
+        x = dropout(x, cfg.dropout_prob, dropout_gen)
+    h = _project(params, x, policy)
     if cfg.adapter_norm == "layer_norm":
         return _layer_norm_2d(params["norm"], h)
-    return _batch_norm_1d(params["norm"], h, cfg)
+    return _batch_norm_1d(params["norm"], h, cfg, train)
+
+
+def forward_with_stats(params: dict, cfg: AdapterConfig, x: torch.Tensor, *,
+                       policy: DTypePolicy = DTypePolicy(),
+                       dropout_gen: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+    """Training forward: (out, the new running statistics to merge into
+    params["norm"] after the update; {} for a layer_norm adapter)."""
+    x = dropout(x, cfg.dropout_prob, dropout_gen)
+    h = _project(params, x, policy)
+    if cfg.adapter_norm == "layer_norm":
+        return _layer_norm_2d(params["norm"], h), {}
+    out = _batch_norm_1d(params["norm"], h, cfg, train=True)
+    return out, batch_norm_new_stats(params["norm"], h, cfg)

@@ -153,7 +153,7 @@ def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorC
     name = str(hf_cfg.get("starcoder_model_name", "")) + str(hf_cfg.get("_name_or_path", ""))
     if "starcoder2" in name:
         raise NotImplementedError("StarVector-8B (StarCoder2) is not ported yet "
-                                  "(ROADMAP queue 1, item 5)")
+                                  "(ROADMAP queue 1, item 6)")
     sd = _strip_model(sd)
     vocab, _ = np.shape(sd[DECODER_PREFIX + "wte.weight"])
     n_pos, hidden = np.shape(sd[DECODER_PREFIX + "wpe.weight"])

@@ -1,5 +1,5 @@
-"""GPTBigCode (StarCoder v1) decoder, cached inference (port of
-starvector_tpu/models/gpt_bigcode.py).
+"""GPTBigCode (StarCoder v1) decoder: cached inference and the uncached
+training forward (port of starvector_tpu/models/gpt_bigcode.py).
 
 Same architecture and parameter layout as the JAX package: learned
 positions `wpe`; multi-query attention through a fused
@@ -7,15 +7,21 @@ c_attn -> [Q (E) | K (Hkv*D) | V (Hkv*D)]; pre-LN blocks
 ln_1 -> attn -> +res, ln_2 -> mlp(gelu_tanh) -> +res; ln_f; lm head tied to
 `wte`. Layers are stacked on a leading axis.
 
-Only the cached (inference) forward is ported. A cached call with S == 1
-new tokens is a decode step: each layer's new k/v stay out of the cache,
-kernel 2 merges the self-score into the softmax, and the new k/v are written
-once after all layers. Every cached call with S > 1 goes through kernel 1
-(flash prefill) over the whole cache window; the JAX package sends
-1 < S <= 64 to an XLA chunk step instead, which computes the same attention.
+A cached call with S == 1 new tokens is a decode step: each layer's new
+k/v stay out of the cache, kernel 2 merges the self-score into the softmax,
+and the new k/v are written once after all layers. Every cached call with
+S > 1 goes through kernel 1 (flash prefill) over the whole cache window; the
+JAX package sends 1 < S <= 64 to an XLA chunk step instead, which computes
+the same attention.
+
+Without a cache, `forward` is the training forward: each layer's attention
+is `flash_prefill_trainable` (the forward-with-lse kernel and the backward
+pair behind one autograd Function), with activation checkpointing per
+`remat` (see `_train_block`). The loss is `causal_lm_loss_fused`, the tied
+head fused into chunks whose logits are recomputed in the backward.
 
 The config's resid/embd/attn dropout fields are declared and never applied,
-as in the JAX package: inference runs with p = 0 in effect.
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,11 +30,16 @@ import dataclasses
 
 import torch
 
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
 from starvector_tpu_torch.models import decode_common as dc
-from starvector_tpu_torch.ops.flash_attention import flash_prefill, merged_decode_attention
+from starvector_tpu_torch.ops.flash_attention import (
+    flash_prefill, flash_prefill_trainable, merged_decode_attention,
+)
 from starvector_tpu_torch.ops.layers import (
-    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, make_dense_params,
-    make_layer_norm_params, matmul_f32, normal_,
+    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, layer_unbind, make_dense_params,
+    make_layer_norm_params, matmul_f32, maybe_checkpoint, normal_,
 )
 
 
@@ -162,6 +173,59 @@ def _decode_layer_fn(cfg: GPTBigCodeConfig, old_mask, idx: int, policy, kernels:
     return fn
 
 
+def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, remat,
+                 kernels: bool):
+    """One layer of the training forward (the JAX _block without a cache).
+
+    remat False keeps every activation; True recomputes the whole layer in
+    the backward, the flash forward kernel included. "dots_flash" (the 1B
+    default) is built by structure: the part before the attention (ln_1,
+    c_attn) and the part after it (c_proj, residual, ln_2, MLP) are each
+    checkpointed, and the flash autograd Function between them stays
+    outside, so autograd keeps its out and lse and the backward never
+    re-runs the attention forward. The JAX policy also saves the MLP
+    down-projection output; here the post-attention part recomputes it."""
+    B, S, E = x.shape
+    H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
+
+    def pre(x):
+        return dense(p["attn"]["c_attn"], layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon), policy)
+
+    def attend(qkv):
+        q, k, v = _split_qkv(cfg, qkv)
+        return flash_prefill_trainable(q.unflatten(-1, (H, D)), k.unflatten(-1, (Hkv, D)),
+                                       v.unflatten(-1, (Hkv, D)), kv_mask, kernels=kernels)
+
+    def post(x, attn):
+        x = x + dense(p["attn"]["c_proj"], attn.reshape(B, S, E), policy)
+        return _mlp(p, cfg, x, policy)
+
+    if remat == "dots_flash":
+        return maybe_checkpoint(post, True)(x, attend(maybe_checkpoint(pre, True)(x)))
+    return maybe_checkpoint(lambda x: post(x, attend(pre(x))), remat)(x)
+
+
+def _forward_uncached(params, cfg, inputs_embeds, attention_mask, position_ids, policy,
+                      remat, return_hidden, last_logits_only, kernels):
+    B, S, _ = inputs_embeds.shape
+    x = policy.cast(inputs_embeds)
+    if attention_mask is None:
+        attention_mask = torch.ones((B, S), dtype=torch.int32, device=x.device)
+    kv_mask = attention_mask.to(torch.int32).contiguous()
+    if position_ids is None:
+        position_ids = compute_position_ids(kv_mask)
+    position_ids = torch.clamp(position_ids, 0, cfg.n_positions - 1)
+    x = x + policy.cast(params["wpe"][position_ids])
+    for layer in layer_unbind(params["layers"], cfg.n_layer):
+        x = _train_block(layer, cfg, x, kv_mask, policy, remat, kernels)
+    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    if return_hidden:
+        return x, None
+    if last_logits_only:
+        x = x[:, -1:]
+    return matmul_f32(policy.cast(x), policy.cast(params["wte"]).T), None
+
+
 def forward(
     params: dict,
     cfg: GPTBigCodeConfig,
@@ -171,16 +235,24 @@ def forward(
     cache: dict | None = None,
     *,
     policy: DTypePolicy = DTypePolicy(),
+    remat: bool | str = False,
+    return_hidden: bool = False,
     last_logits_only: bool = False,
     kernels: bool = True,
-) -> tuple[torch.Tensor, dict]:
-    """Cached forward: writes the S new tokens at cache["index"] (in place)
-    and attends over the whole preallocated window. Returns (logits (B, S|1,
-    V) fp32, the same cache dict with its index advanced). `kernels=False`
-    runs the attention kernels' plain versions on the card."""
+) -> tuple[torch.Tensor, dict | None]:
+    """Without `cache`: the full-sequence (training) forward, differentiable,
+    with activation checkpointing per `remat` (False | True | "dots_flash");
+    returns (logits (B, S, V) fp32, or the final hidden states if
+    `return_hidden`, None).
+
+    With `cache`: writes the S new tokens at cache["index"] (in place) and
+    attends over the whole preallocated window. Returns (logits (B, S|1, V)
+    fp32, the same cache dict with its index advanced).
+
+    `kernels=False` runs the attention kernels' plain versions on the card."""
     if cache is None:
-        raise NotImplementedError(
-            "the uncached (training) forward is not ported yet: ROADMAP queue 1, item 8")
+        return _forward_uncached(params, cfg, inputs_embeds, attention_mask, position_ids,
+                                 policy, remat, return_hidden, last_logits_only, kernels)
     B, S, _ = inputs_embeds.shape
     x = policy.cast(inputs_embeds)
     idx = cache["index"]
@@ -221,3 +293,43 @@ def forward(
     # accumulator (never rounded to bf16, which would tie near-equal logits)
     logits = matmul_f32(policy.cast(x), policy.cast(params["wte"]).T)
     return logits, cache
+
+
+def lm_head_table(params: dict, cfg: GPTBigCodeConfig) -> torch.Tensor:
+    return params["wte"]  # tied
+
+
+def _chunk_nll(h: torch.Tensor, y: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Sum of -log p(y) over the chunk's non-ignored targets; fp32 logits
+    straight from the fp32 accumulator."""
+    logp = torch.log_softmax(matmul_f32(h, table.T), dim=-1)
+    valid = y != -100
+    ll = torch.gather(logp, -1, torch.where(valid, y, 0)[..., None])[..., 0]
+    return torch.where(valid, -ll, 0.0).sum()
+
+
+def causal_lm_loss_fused(
+    head_table: torch.Tensor,  # (V, E) tied lm head
+    hidden: torch.Tensor,      # (B, S, E) final hidden states
+    labels: torch.Tensor,      # (B, S) int, -100 = ignored
+    *,
+    policy: DTypePolicy = DTypePolicy(),
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Shift-by-one cross entropy with the LM head fused into chunks of
+    `chunk` positions, each chunk checkpointed so that the backward
+    recomputes its logits: the (B, S, V) fp32 logits and their gradient never
+    exist at once. Mean over the non-ignored targets."""
+    h = policy.cast(hidden[:, :-1])
+    y = labels[:, 1:].long()
+    S = h.shape[1]
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        y = F.pad(y, (0, pad), value=-100)
+    table = policy.cast(head_table)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S + pad, chunk):
+        total = total + checkpoint(_chunk_nll, h[:, c:c + chunk], y[:, c:c + chunk], table,
+                                   use_reentrant=False)
+    return total / (y != -100).sum().clamp_min(1)

@@ -3,7 +3,7 @@ starvector_tpu/models/image_encoder.py).
 
 'clip' is the in-repo ViT followed by an external `ln_vision` LayerNorm. The
 other towers (SigLIP for the 8B model; vqgan, convnext, open-clip) are not
-ported yet: ROADMAP queue 1, items 5 and 11.
+ported yet: ROADMAP queue 1, items 6 and 11.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ class ImageEncoderConfig:
         if self.image_encoder_type != "clip":
             raise NotImplementedError(
                 f"image encoder {self.image_encoder_type!r} is not ported yet "
-                "(ROADMAP queue 1, items 5 and 11)")
+                "(ROADMAP queue 1, items 6 and 11)")
         return clip_vit.CLIPViTConfig(image_size=self.image_size)
 
 
@@ -63,7 +63,8 @@ def init_params(cfg: ImageEncoderConfig, gen: torch.Generator, *, device="cpu",
 
 
 def forward(params: dict, cfg: ImageEncoderConfig, images: torch.Tensor, *,
-            policy: DTypePolicy = DTypePolicy()) -> torch.Tensor:
+            policy: DTypePolicy = DTypePolicy(), remat: bool | str = False) -> torch.Tensor:
     """(B, H, W, 3) normalized, channels-last -> (B, query_length, hidden)."""
-    embeds = clip_vit.forward(params["visual_encoder"], cfg.tower_config, images, policy=policy)
+    embeds = clip_vit.forward(params["visual_encoder"], cfg.tower_config, images, policy=policy,
+                              remat=remat)
     return layer_norm(params["ln_vision"], embeds)

@@ -1,9 +1,11 @@
-"""StarVector task model, im2svg inference: vision tower + adapter +
-GPTBigCode decoder (port of starvector_tpu/models/starvector.py).
+"""StarVector task model, im2svg: vision tower + adapter + GPTBigCode
+decoder, for inference and training (port of
+starvector_tpu/models/starvector.py).
 
 Only the v1 model (GPTBigCode decoder, CLIP tower) is ported; the v2 model
-(StarCoder2 decoder, SigLIP tower) is ROADMAP queue 1, item 5. Generation
-lives in starvector_tpu_torch/generation/engine.py.
+(StarCoder2 decoder, SigLIP tower) is ROADMAP queue 1, item 6, and the
+text2svg loss queue 1, item 4. Generation lives in
+starvector_tpu_torch/generation/engine.py.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ class StarVectorConfig:
     image_encoder_type: str = "clip"
     adapter_norm: str = "layer_norm"
     image_size: int = 224
+    max_length_train: int = 8192
     task: str = "im2svg"
     llm: Any = None            # decoder geometry; None -> GPTBigCode 1B
     vision_tower: Any = None   # tower geometry override (a CLIPViTConfig)
@@ -32,7 +35,7 @@ class StarVectorConfig:
     def __post_init__(self):
         if self.decoder != "gpt_bigcode":
             raise NotImplementedError(
-                f"decoder {self.decoder!r} is not ported yet (ROADMAP queue 1, item 5)")
+                f"decoder {self.decoder!r} is not ported yet (ROADMAP queue 1, item 6)")
         if self.llm is None:
             object.__setattr__(self, "llm", gpt_bigcode.GPTBigCodeConfig())
 
@@ -47,6 +50,15 @@ class StarVectorConfig:
     @property
     def vision_geometry(self) -> tuple[int, int]:
         return image_encoder.ImageEncoderConfig(self.image_encoder_type, self.image_size).geometry
+
+    @property
+    def query_length(self) -> int:
+        return self.vision_geometry[1] if self.use_image_encoder else 0
+
+    @property
+    def max_svg_length(self) -> int:
+        # the JAX package's rule: minus the visual prefix and special tokens
+        return self.max_length_train - self.query_length - 4
 
     @property
     def encoder_config(self) -> image_encoder.ImageEncoderConfig:
@@ -71,8 +83,8 @@ def starvector_1b_config(**kw) -> StarVectorConfig:
 
 
 def tiny_config(task: str = "im2svg", decoder: str = "gpt_bigcode", **kw) -> StarVectorConfig:
-    base = dict(decoder=decoder, image_encoder_type="clip", image_size=28, task=task,
-                llm=gpt_bigcode.tiny_config())
+    base = dict(decoder=decoder, image_encoder_type="clip", image_size=28, max_length_train=128,
+                task=task, llm=gpt_bigcode.tiny_config())
     base.update(kw)
     return StarVectorConfig(**base)
 
@@ -111,9 +123,88 @@ def init_params(cfg: StarVectorConfig, gen: torch.Generator, *, device="cpu",
 
 
 def encode_image(params: dict, cfg: StarVectorConfig, images: torch.Tensor, *,
-                 policy: DTypePolicy = DTypePolicy()) -> torch.Tensor:
+                 policy: DTypePolicy = DTypePolicy(), train: bool = False,
+                 dropout_gen: torch.Generator | None = None,
+                 remat: bool | str = False) -> torch.Tensor:
     """Vision tower + ln_vision + adapter -> (B, query_length, llm_hidden)."""
     enc, _ = _encoder_cfg(cfg)
-    embeds = image_encoder.forward(params["image_encoder"], enc, images, policy=policy)
+    embeds = image_encoder.forward(params["image_encoder"], enc, images, policy=policy,
+                                   remat=remat)
     return adapter_mod.forward(params["image_projection"], _adapter_cfg_for(cfg, params), embeds,
-                               policy=policy)
+                               policy=policy, train=train, dropout_gen=dropout_gen)
+
+
+def _im2svg_sequence(params: dict, cond: torch.Tensor, svg_ids: torch.Tensor,
+                     svg_mask: torch.Tensor, policy: DTypePolicy):
+    """[visual prefix | svg tokens]: (inputs_embeds, attention_mask, targets).
+    Targets are -100 over the prefix and wherever svg_mask == 0: by
+    position, not by pad id, so a terminal eos equal to pad is still a
+    target."""
+    B, Q, _ = cond.shape
+    tok = gpt_bigcode.embed_tokens(params["svg_transformer"], svg_ids)
+    inputs_embeds = torch.cat([cond, policy.cast(tok)], dim=1)
+    ones = torch.ones((B, Q), dtype=torch.int32, device=cond.device)
+    attention_mask = torch.cat([ones, svg_mask.to(torch.int32)], dim=1)
+    svg_targets = torch.where(svg_mask == 0, -100, svg_ids.long())
+    targets = torch.cat([torch.full((B, Q), -100, dtype=torch.long, device=cond.device),
+                         svg_targets], dim=1)
+    return inputs_embeds, attention_mask, targets
+
+
+def im2svg_inputs(params: dict, cfg: StarVectorConfig, images, svg_ids, svg_mask,
+                  pad_token_id: int, *, policy: DTypePolicy = DTypePolicy(),
+                  train: bool = False, dropout_gen: torch.Generator | None = None,
+                  remat: bool | str = False):
+    """(inputs_embeds, attention_mask, targets) for the im2svg loss."""
+    cond = encode_image(params, cfg, images, policy=policy, train=train,
+                        dropout_gen=dropout_gen, remat=remat)
+    return _im2svg_sequence(params, cond, svg_ids, svg_mask, policy)
+
+
+def _decoder_loss(params, cfg, inputs_embeds, attention_mask, targets, policy, remat, kernels):
+    hidden, _ = gpt_bigcode.forward(params["svg_transformer"], cfg.llm, inputs_embeds,
+                                    attention_mask, policy=policy, remat=remat,
+                                    return_hidden=True, kernels=kernels)
+    return gpt_bigcode.causal_lm_loss_fused(
+        gpt_bigcode.lm_head_table(params["svg_transformer"], cfg.llm), hidden, targets,
+        policy=policy)
+
+
+def _check_task(cfg: StarVectorConfig) -> None:
+    if cfg.task != "im2svg":
+        raise NotImplementedError(
+            f"the {cfg.task} loss is not ported yet: ROADMAP queue 1, item 4")
+
+
+def loss_fn(params: dict, cfg: StarVectorConfig, batch: dict, pad_token_id: int, *,
+            policy: DTypePolicy = DTypePolicy(), train: bool = False,
+            dropout_gen: torch.Generator | None = None, remat: bool | str = False,
+            kernels: bool = True) -> torch.Tensor:
+    """The im2svg training loss; batch: image (B, H, W, 3), svg_ids and
+    svg_mask (B, S). Without `train` the BatchNorm adapter takes its
+    running statistics (the eval step)."""
+    _check_task(cfg)
+    inputs = im2svg_inputs(params, cfg, batch["image"], batch["svg_ids"], batch["svg_mask"],
+                           pad_token_id, policy=policy, train=train, dropout_gen=dropout_gen,
+                           remat=remat)
+    return _decoder_loss(params, cfg, *inputs, policy, remat, kernels)
+
+
+def loss_fn_with_bn_stats(params: dict, cfg: StarVectorConfig, batch: dict, pad_token_id: int,
+                          *, policy: DTypePolicy = DTypePolicy(),
+                          dropout_gen: torch.Generator | None = None,
+                          remat: bool | str = False, kernels: bool = True):
+    """Training loss and the BatchNorm adapter's new running statistics:
+    (loss, {"bn_stats": {...}}), or (loss, {}) for a layer_norm adapter."""
+    _check_task(cfg)
+    if cfg.adapter_norm != "batch_norm":
+        return loss_fn(params, cfg, batch, pad_token_id, policy=policy, train=True,
+                       dropout_gen=dropout_gen, remat=remat, kernels=kernels), {}
+    enc, _ = _encoder_cfg(cfg)
+    embeds = image_encoder.forward(params["image_encoder"], enc, batch["image"], policy=policy,
+                                   remat=remat)
+    cond, bn_stats = adapter_mod.forward_with_stats(
+        params["image_projection"], _adapter_cfg_for(cfg, params), embeds, policy=policy,
+        dropout_gen=dropout_gen)
+    inputs = _im2svg_sequence(params, cond, batch["svg_ids"], batch["svg_mask"], policy)
+    return _decoder_loss(params, cfg, *inputs, policy, remat, kernels), {"bn_stats": bn_stats}

@@ -15,8 +15,8 @@ import torch
 
 from starvector_tpu_torch.ops.attention import multihead_attention
 from starvector_tpu_torch.ops.layers import (
-    DTypePolicy, dense, layer_norm, layer_slice, make_dense_params, make_layer_norm_params,
-    normal_, quick_gelu,
+    DTypePolicy, dense, layer_norm, layer_unbind, make_dense_params, make_layer_norm_params,
+    maybe_checkpoint, normal_, quick_gelu,
 )
 
 
@@ -92,14 +92,17 @@ def _block(p: dict, cfg: CLIPViTConfig, x: torch.Tensor, policy: DTypePolicy) ->
 
 
 def forward(params: dict, cfg: CLIPViTConfig, images: torch.Tensor, *,
-            policy: DTypePolicy = DTypePolicy()) -> torch.Tensor:
-    """(B, H, W, 3) normalized images -> (B, num_tokens, width), before ln_vision."""
+            policy: DTypePolicy = DTypePolicy(), remat: bool | str = False) -> torch.Tensor:
+    """(B, H, W, 3) normalized images -> (B, num_tokens, width), before
+    ln_vision. Differentiable; `remat` checkpoints each block
+    (layers.maybe_checkpoint: any mode the tower takes recomputes the whole
+    block, since its attention is plain torch)."""
     B = images.shape[0]
     x = patchify(policy.cast(images), cfg.patch_size)
     x = torch.matmul(x, policy.cast(params["patch_embed"]))
     cls = policy.cast(params["class_embedding"]).expand(B, 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + policy.cast(params["positional_embedding"])[None]
     x = layer_norm(params["ln_pre"], x, cfg.ln_eps)
-    for i in range(cfg.layers):
-        x = _block(layer_slice(params["layers"], i), cfg, x, policy)
+    for layer in layer_unbind(params["layers"], cfg.layers):
+        x = maybe_checkpoint(lambda x, p=layer: _block(p, cfg, x, policy), remat)(x)
     return x

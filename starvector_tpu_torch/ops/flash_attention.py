@@ -1,6 +1,5 @@
-"""The attention kernels of the inference path, each beside its plain
-PyTorch version (port of the inference half of
-starvector_tpu/ops/flash_attention.py).
+"""The attention kernels of the inference and training paths, each beside
+its plain PyTorch version (port of starvector_tpu/ops/flash_attention.py).
 
 Kernel 1, `flash_prefill` (csrc/flash_prefill.cu)
     Replaces the Pallas TPU kernel `flash_prefill` -> `_flash_kernel` /
@@ -25,6 +24,29 @@ Kernel 2, `decode_attention` (csrc/decode_attention.cu)
     block per (row, KV head); eight warps per block split the keys between
     them (see the source's header).
 
+Kernel 1 with the logsumexp, `flash_prefill_with_lse` (csrc/flash_prefill.cu)
+    Replaces the Pallas TPU kernels `flash_prefill_with_lse` ->
+    `_flash_lse_kernel` (:307, call :512) and `_flash_lse_tri_kernel` (:330,
+    call :455): the training forward, which also writes each row's
+    logsumexp (B, H, S) fp32 for the backward. The same CUDA kernel with its
+    lse output switched on; its k loop stops at the causal bound, so it
+    visits only the live triangle that the TPU's triangular grid enumerates.
+
+Kernels 3 and 4, `flash_bwd_dkdv` and `flash_bwd_dq` (csrc/flash_backward.cu)
+    Replace the Pallas TPU backward `flash_backward` (:1257): the fused
+    `_flash_dqdkv_fused_kernel` (:968, call :1392) that the 1B training step
+    runs at T = 769, and the one-pass, dq-partial and split variants that the
+    TPU needs at longer T for its VMEM budget (same math). dK/dV per
+    (batch, KV head, 64-key tile), summed over the G query heads in one
+    block; dQ per (batch, head, 64-row tile). fp32 CUDA cores; see the
+    source's header. `flash_backward` computes delta = rowsum(dO * O) in fp32
+    with plain torch, as the JAX package computes it outside its kernels, and
+    launches both.
+
+`flash_prefill_trainable` is the autograd Function around them: its
+forward runs `flash_prefill_with_lse` and saves q, k, v, the key mask, out
+and lse; its backward runs `flash_backward`.
+
 Every wrapper takes the plain version for a tensor on the CPU, or when
 called with `kernels=False` (tests and chip_smoke.py compare the two on the
 card). For a CUDA tensor it launches its kernel or raises: nothing falls
@@ -32,6 +54,8 @@ back. Each wrapper counts its launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -41,6 +65,9 @@ from starvector_tpu_torch.ops.layers import einsum_f32
 
 # the kernels' storage types and their codes in csrc/common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' masked-score sentinel (csrc/common.cuh, the Pallas NEG_INF):
+# a row that sees no key keeps it as its max, and lse = -1e30 + log(1e-30)
+KERNEL_NEG_INF = -1e30
 
 
 def _use_plain(x: torch.Tensor, kernels: bool) -> bool:
@@ -97,6 +124,43 @@ def flash_prefill_plain(q, k, v, kv_mask, q_offset: int = 0, *, causal: bool = T
     return multihead_attention(q, k, v, bias, scale=scale)
 
 
+def _check_prefill(what, q, k, v, kv_mask, q_offset, window):
+    """Raise unless the kernel takes these operands; (B, S, T, H, Hkv, D)."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, T, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if H % Hkv or D != 128:
+        raise ValueError(f"{what}: H={H}, Hkv={Hkv}, D={D} (the kernel takes D = 128)")
+    _check_operands(what, {"q": q, "k": k, "v": v}, q.dtype, q.device)
+    _check_mask(what, kv_mask, (B, T), q.device)
+    if int(q_offset) < 0 or (window is not None and window <= 0):
+        raise ValueError(f"{what}: q_offset={q_offset}, window={window}")
+    return B, S, T, H, Hkv, D
+
+
+def _launch_prefill(what, q, k, v, kv_mask, q_offset, causal, window, scale, lse):
+    """One launch of csrc/flash_prefill.cu; out (B, S, H, D), and lse
+    (B, H, S) fp32 written when given."""
+    B, S, T, H, Hkv, D = _check_prefill(what, q, k, v, kv_mask, q_offset, window)
+    scale = D**-0.5 if scale is None else float(scale)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0:
+        return out
+    code = kernel_lib.library().sv_flash_prefill(
+        _DTYPE_CODES[q.dtype], D,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        B, S, T, H, Hkv,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        kv_mask.stride(0), int(q_offset), int(causal), int(window or 0), scale, _stream(),
+    )
+    kernel_lib.check(code, what)
+    return out
+
+
 def flash_prefill(
     q: torch.Tensor,        # (B, S, H, D)
     k: torch.Tensor,        # (B, T, Hkv, D)
@@ -117,37 +181,237 @@ def flash_prefill(
     if _use_plain(q, kernels):
         return flash_prefill_plain(q, k, v, kv_mask, q_offset, causal=causal,
                                    window=window, scale=scale)
-    B, S, H, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    if k.shape != (B, T, Hkv, D) or v.shape != k.shape:
-        raise ValueError(f"flash_prefill: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if H % Hkv or D != 128:
-        raise ValueError(f"flash_prefill: H={H}, Hkv={Hkv}, D={D} (the kernel takes D = 128)")
-    _check_operands("flash_prefill", {"q": q, "k": k, "v": v}, q.dtype, q.device)
-    _check_mask("flash_prefill", kv_mask, (B, T), q.device)
-    q_offset = int(q_offset)
-    if q_offset < 0 or (window is not None and window <= 0):
-        raise ValueError(f"flash_prefill: q_offset={q_offset}, window={window}")
-    scale = D**-0.5 if scale is None else float(scale)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    if B == 0 or S == 0:
-        return out
-    lib = kernel_lib.library()
-    code = lib.sv_flash_prefill(
-        _DTYPE_CODES[q.dtype], D,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
-        B, S, T, H, Hkv,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        kv_mask.stride(0), q_offset, int(causal), int(window or 0), scale, _stream(),
-    )
-    kernel_lib.check(code, "flash_prefill")
+    out = _launch_prefill("flash_prefill", q, k, v, kv_mask, q_offset, causal, window, scale,
+                          None)
     flash_prefill.launches += 1
     return out
 
 
 flash_prefill.launches = 0
+
+
+def _visible(kv_mask, S: int, T: int, q_offset: int, causal: bool, window, device):
+    """(B, 1, 1, S, T) bool: query row s sees key t (the kernels' masks)."""
+    q_pos = int(q_offset) + torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    allowed = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        allowed &= k_pos <= q_pos
+    if window is not None:
+        allowed &= k_pos > q_pos - window
+    return (allowed[None] & (kv_mask[:, None, :] > 0))[:, None, None]
+
+
+def flash_prefill_with_lse_plain(q, k, v, kv_mask, q_offset: int = 0, *, causal: bool = True,
+                                 window: int | None = None, scale: float | None = None):
+    """Plain version of the forward with the logsumexp: PR 1's masked
+    fp32-softmax attention, written so that a row that sees no key gives
+    what the kernel gives (zeros, lse = -1e30 + log(1e-30)). Returns
+    (out (B, S, H, D) in q's dtype, lse (B, H, S) fp32). The (S, T) score
+    block is updated in place: at the 8k context it is 4.6 GB in fp32."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    scale = D**-0.5 if scale is None else scale
+    hidden = ~_visible(kv_mask, S, T, q_offset, causal, window, q.device)
+    s = einsum_f32("bskgd,btkd->bkgst", q.reshape(B, S, Hkv, H // Hkv, D), k).mul_(scale)
+    s.masked_fill_(hidden, KERNEL_NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = s.sub_(m).exp_().masked_fill_(hidden, 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
+    lse = (m + torch.log(l)).reshape(B, H, S)
+    out = einsum_f32("bkgst,btkd->bskgd", p.div_(l).to(q.dtype), v)
+    return out.reshape(B, S, H, D).to(q.dtype), lse
+
+
+def flash_prefill_with_lse(
+    q: torch.Tensor,        # (B, S, H, D)
+    k: torch.Tensor,        # (B, T, Hkv, D)
+    v: torch.Tensor,        # (B, T, Hkv, D)
+    kv_mask: torch.Tensor,  # (B, T) int32
+    q_offset: int = 0,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    kernels: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: (out (B, S, H, D) in q's dtype, lse (B, H, S)
+    fp32), lse = m + log(max(l, 1e-30)) per row as the Pallas kernels write
+    it, in the plain (B, H, S) layout rather than the TPU's 8-lane one."""
+    if _use_plain(q, kernels):
+        return flash_prefill_with_lse_plain(q, k, v, kv_mask, q_offset, causal=causal,
+                                            window=window, scale=scale)
+    B, S, H = q.shape[:3]
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    out = _launch_prefill("flash_prefill_with_lse", q, k, v, kv_mask, q_offset, causal, window,
+                          scale, lse)
+    flash_prefill_with_lse.launches += 1
+    return out, lse
+
+
+flash_prefill_with_lse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 4: the flash backward pair
+# ---------------------------------------------------------------------------
+
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32 from the rounded forward output,
+    (B, S, H, D) -> (B, H, S), as the JAX flash_backward computes it."""
+    return (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def _backward_plain(q, k, v, kv_mask, lse, delta, do, q_offset, causal, window, scale):
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = D**-0.5 if scale is None else scale
+    hidden = ~_visible(kv_mask, S, T, q_offset, causal, window, q.device)
+    qg, dog = q.reshape(B, S, Hkv, G, D), do.reshape(B, S, Hkv, G, D)
+    s = einsum_f32("bskgd,btkd->bkgst", qg, k).mul_(scale)
+    p = s.sub_(lse.reshape(B, Hkv, G, S, 1)).exp_().masked_fill_(hidden, 0.0)
+    del s
+    # the JAX kernels' rounding points: P to dO's type, dS to q's type
+    dv = einsum_f32("bkgst,bskgd->btkd", p.to(do.dtype), dog)
+    dp = einsum_f32("bskgd,btkd->bkgst", dog, v)
+    ds = dp.sub_(delta.reshape(B, Hkv, G, S, 1)).mul_(p).mul_(scale).to(q.dtype)
+    del p, dp
+    dq = einsum_f32("bkgst,btkd->bskgd", ds, k).reshape(B, S, H, D)
+    dk = einsum_f32("bkgst,bskgd->btkd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_plain(q, k, v, kv_mask, out, lse, do, q_offset: int = 0, *,
+                         causal: bool = True, window: int | None = None,
+                         scale: float | None = None):
+    """Plain version of the backward pair: the recompute formulas on whole
+    (S, T) blocks in fp32, P = exp(S - lse) under the masks, dV = P^T dO,
+    dS = P (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q, with the JAX
+    kernels' rounding points. Returns (dq, dk, dv) in the inputs' types."""
+    return _backward_plain(q, k, v, kv_mask, lse, attention_delta(out, do), do, q_offset,
+                           causal, window, scale)
+
+
+def _check_backward(what, q, k, v, kv_mask, do, lse, delta, q_offset, window):
+    B, S, T, H, Hkv, D = _check_prefill(what, q, k, v, kv_mask, q_offset, window)
+    if do.shape != q.shape:
+        raise ValueError(f"{what}: dout {tuple(do.shape)}, q {tuple(q.shape)}")
+    _check_operands(what, {"dout": do}, q.dtype, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (B, H, S) or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be a contiguous (B, H, S) fp32 tensor on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *do.stride()[:3])
+    return B, S, T, H, Hkv, D, strides
+
+
+def flash_bwd_dkdv(q, k, v, kv_mask, do, lse, delta, q_offset: int = 0, *,
+                   causal: bool = True, window: int | None = None,
+                   scale: float | None = None, kernels: bool = True):
+    """dk, dv (B, T, Hkv, D) in k's type, given the forward's lse and
+    delta = rowsum(dO * O), both (B, H, S) fp32."""
+    if _use_plain(q, kernels):
+        return _backward_plain(q, k, v, kv_mask, lse, delta, do, q_offset, causal, window,
+                               scale)[1:]
+    B, S, T, H, Hkv, D, strides = _check_backward("flash_bwd_dkdv", q, k, v, kv_mask, do, lse,
+                                                  delta, q_offset, window)
+    scale = D**-0.5 if scale is None else float(scale)
+    dk = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
+    if B == 0 or T == 0:
+        return dk, dv
+    code = kernel_lib.library().sv_flash_bwd_dkdv(
+        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, S, T, H, Hkv, strides, kv_mask.stride(0), int(q_offset), int(causal),
+        int(window or 0), scale, _stream(),
+    )
+    kernel_lib.check(code, "flash_bwd_dkdv")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta, q_offset: int = 0, *,
+                 causal: bool = True, window: int | None = None,
+                 scale: float | None = None, kernels: bool = True):
+    """dq (B, S, H, D) in q's type, given lse and delta as flash_bwd_dkdv."""
+    if _use_plain(q, kernels):
+        return _backward_plain(q, k, v, kv_mask, lse, delta, do, q_offset, causal, window,
+                               scale)[0]
+    B, S, T, H, Hkv, D, strides = _check_backward("flash_bwd_dq", q, k, v, kv_mask, do, lse,
+                                                  delta, q_offset, window)
+    scale = D**-0.5 if scale is None else float(scale)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0:
+        return dq
+    code = kernel_lib.library().sv_flash_bwd_dq(
+        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(), dq.data_ptr(),
+        B, S, T, H, Hkv, strides, kv_mask.stride(0), int(q_offset), int(causal),
+        int(window or 0), scale, _stream(),
+    )
+    kernel_lib.check(code, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_backward(q, k, v, kv_mask, out, lse, do, q_offset: int = 0, *,
+                   causal: bool = True, window: int | None = None,
+                   scale: float | None = None, kernels: bool = True):
+    """The JAX flash_backward contract: (dq, dk, dv) of the attention whose
+    forward gave `out` and `lse`, for the output cotangent `do`."""
+    if _use_plain(q, kernels):
+        return flash_backward_plain(q, k, v, kv_mask, out, lse, do, q_offset, causal=causal,
+                                    window=window, scale=scale)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = attention_delta(out, do)
+    kw = dict(causal=causal, window=window, scale=scale)
+    dk, dv = flash_bwd_dkdv(q, k, v, kv_mask, do, lse, delta, q_offset, **kw)
+    dq = flash_bwd_dq(q, k, v, kv_mask, do, lse, delta, q_offset, **kw)
+    return dq, dk, dv
+
+
+class _FlashPrefillTrainable(torch.autograd.Function):
+    """Forward: flash_prefill_with_lse, saving q, k, v, the key mask, out and
+    lse (the JAX custom-vjp residuals); backward: flash_backward. The key
+    mask and the scalars get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, q_offset, causal, window, scale, kernels):
+        out, lse = flash_prefill_with_lse(q, k, v, kv_mask, q_offset, causal=causal,
+                                          window=window, scale=scale, kernels=kernels)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.options = (q_offset, causal, window, scale, kernels)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        q_offset, causal, window, scale, kernels = ctx.options
+        dq, dk, dv = flash_backward(q, k, v, kv_mask, out, lse, g, q_offset, causal=causal,
+                                    window=window, scale=scale, kernels=kernels)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_prefill_trainable(q, k, v, kv_mask, q_offset: int = 0, *, causal: bool = True,
+                            window: int | None = None, scale: float | None = None,
+                            kernels: bool = True) -> torch.Tensor:
+    """Differentiable flash attention (the JAX flash_prefill_trainable):
+    (B, S, H, D) in q's dtype. q, k and v may be strided views (of the fused
+    c_attn output); their gradients come back in their shapes and autograd
+    accumulates them into the projection's gradient."""
+    return _FlashPrefillTrainable.apply(q, k, v, kv_mask, int(q_offset), causal, window, scale,
+                                        kernels)
 
 
 # ---------------------------------------------------------------------------

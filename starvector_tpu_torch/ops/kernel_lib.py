@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of `starvector_tpu_torch/csrc`.
 
 The kernels are plain CUDA C++ for Hopper (`sm_90a`) behind a C interface.
-At first use, `nvcc` compiles every `csrc/*.cu` into one shared library under
-`starvector_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of
-the sources and flags, so an edit rebuilds and an unchanged tree reuses the
-library. The library is loaded with `ctypes`; callers pass tensor pointers
-and the current CUDA stream as `c_void_p`.
+At first use, `nvcc` compiles every `csrc/*.cu` into an object, one compiler
+process per source, all started together, and links the objects into one
+shared library under `starvector_tpu_torch/_build/` (listed in `.gitignore`),
+named by a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses the library. The library is loaded with `ctypes`;
+callers pass tensor pointers and the current CUDA stream as `c_void_p`.
 
 Importing this module builds nothing and needs no CUDA toolkit: only the
 first call to `library()` does.
@@ -26,7 +27,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -64,24 +65,44 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it already exists.
-    Writes the compiler's output (registers, spills per kernel) to a log
-    beside the library."""
+    """Compile csrc/*.cu into the shared library unless it already exists:
+    one nvcc per source, run in parallel, then one link. Writes the
+    compilers' output (registers, spills per kernel) to a log beside the
+    library."""
     global _build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text[-6000:]}")
+    tmp = out.with_name(f"{tag}.tmp.so")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-6000:]}")
     _build_seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -100,7 +121,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.sv_flash_prefill.restype = i32
     lib.sv_flash_prefill.argtypes = [
-        i32, i32, vp, vp, vp, vp, vp,        # dtype, D, q, k, v, mask, out
+        i32, i32, vp, vp, vp, vp, vp, vp,    # dtype, D, q, k, v, mask, out, lse
         i32, i32, i32, i32, i32,             # B, S, T, H, Hkv
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q, k, v strides
         i64, i32, i32, i32, f32, vp,         # m_sb, q_offset, causal, window, scale, stream
@@ -113,6 +134,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64,                           # k_new, v_new strides
         i64, i32, i32, f32, vp,                       # m_sb, t_begin, t_end, scale, stream
     ]
+    bwd = [
+        i32, i32, vp, vp, vp, vp, vp, vp, vp,  # dtype, D, q, k, v, dout, lse, delta, mask
+        i32, i32, i32, i32, i32,               # B, S, T, H, Hkv
+        ctypes.POINTER(i64), i64,              # 12 strides (q, k, v, dout), m_sb
+        i32, i32, i32, f32, vp,                # q_offset, causal, window, scale, stream
+    ]
+    lib.sv_flash_bwd_dkdv.restype = i32
+    lib.sv_flash_bwd_dkdv.argtypes = bwd[:9] + [vp, vp] + bwd[9:]  # dk, dv
+    lib.sv_flash_bwd_dq.restype = i32
+    lib.sv_flash_bwd_dq.argtypes = bwd[:9] + [vp] + bwd[9:]        # dq
     lib.sv_error_string.restype = ctypes.c_char_p
     lib.sv_error_string.argtypes = [i32]
 

@@ -1,0 +1,251 @@
+"""Port parity for the training attention: the forward with the logsumexp,
+the backward pair and the autograd Function around them.
+
+On the CPU the wrappers take their plain PyTorch versions, held here
+against the JAX package's Pallas kernels run in interpret mode, each Pallas
+backward variant driven by its explicit arguments at tiny shapes with small
+blocks, so that T spans several blocks: fused; one-pass rectangular and
+triangular; dq partials ("dqp"); the split pair, rectangular and
+triangular. The cases cover MQA/GQA, padded keys, ragged S, q_offset > 0 and
+window. Tolerance 1e-4 (rtol and atol) for the kernels' outputs; autograd
+through flash_prefill_trainable against jax.vjp of the JAX one at 1e-5.
+Rows that see no key are compared only in the test that is about them.
+
+Tests marked `gpu` hold each CUDA kernel against its plain version on the
+card and skip without one. They import no JAX, so on the card they run as
+    python -m pytest --noconftest -m gpu tests/test_torch_flash_backward.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from starvector_tpu_torch.ops import flash_attention as tfa
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+VJP_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def jfa():
+    return pytest.importorskip("starvector_tpu.ops.flash_attention")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card (see the module docstring)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(name, seed=0, D=16):
+    """(q, k, v, kv_mask, q_offset, window, dout, live) for a named case;
+    live (B, S) marks the query rows that see at least one key."""
+    rng = np.random.default_rng(seed)
+    B, H, Hkv, q_offset, window = 2, 4, 1, 0, None
+    S, T = {"ragged": (37, 37), "q_offset": (16, 48), "q_offset_window": (16, 48)}.get(name,
+                                                                                       (40, 40))
+    if name in ("gqa", "window", "gqa_ragged"):
+        Hkv = 2
+    if name == "gqa_ragged":
+        S = T = 37
+    if name in ("window", "q_offset_window"):
+        window = 7
+    if name.startswith("q_offset"):
+        q_offset = 16
+    mask = np.ones((B, T), np.int32)
+    if name == "padded_keys":
+        mask[1, 33:] = 0   # right padding, as the loader pads SVGs
+    if name == "no_visible_key":
+        mask[1, :6] = 0    # left padding: row 1's first queries see no key
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    g = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    pos = q_offset + np.arange(S)
+    live = np.stack([[mask[b, max(0, p - (window or T) + 1): p + 1].any() for p in pos]
+                     for b in range(B)])
+    return q, k, v, mask, q_offset, window, g, live
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _j(*arrays):
+    import jax.numpy as jnp
+
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+@pytest.mark.parametrize("name,tri", [("mqa", False), ("gqa", False), ("padded_keys", False),
+                                      ("ragged", False), ("q_offset", False), ("window", False),
+                                      ("ragged", True)])
+def test_flash_prefill_with_lse_plain_matches_pallas(jfa, name, tri):
+    """out and lse (B, H, S) against kernels 4 (rectangular) and 5
+    (triangular, S == T, q_offset 0, block_q == block_k)."""
+    q, k, v, mask, q_offset, window, _, live = _case(name)
+    ref_out, ref_lse = jfa.flash_prefill_with_lse(*_j(q, k, v, mask), q_offset, window=window,
+                                                  block_q=16, block_k=16, interpret=True,
+                                                  tri=tri)
+    out, lse = tfa.flash_prefill_with_lse(*_t(q, k, v, mask), q_offset, window=window)
+    assert out.shape == q.shape and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy()[live], np.asarray(ref_out)[live], **TOL)
+    np.testing.assert_allclose(lse.numpy().transpose(0, 2, 1)[live],
+                               np.asarray(ref_lse).transpose(0, 2, 1)[live], **TOL)
+
+
+# (variant, case): each Pallas backward variant with the explicit arguments
+# that select it, over a matrix that covers every case at least once
+BACKWARD = {
+    "fused": dict(fused=True, block_q=16),
+    "onepass": dict(onepass=True, block_q=16, block_k=16),
+    "onepass_tri": dict(onepass=True, tri=True, block_q=16, block_k=16),
+    "dqp": dict(onepass="dqp", block_q=16, block_k=16),
+    "split": dict(onepass=False, block_q=16, block_k=16),
+    "split_tri": dict(onepass=False, tri=True, block_q=16, block_k=32),
+}
+BACKWARD_CASES = [("fused", "mqa"), ("fused", "padded_keys"), ("fused", "window"),
+                  ("onepass", "gqa"), ("onepass", "q_offset_window"), ("onepass_tri", "ragged"),
+                  ("dqp", "q_offset"), ("split", "padded_keys"), ("split", "q_offset_window"),
+                  ("split_tri", "gqa_ragged")]
+
+
+@pytest.mark.parametrize("variant,name", BACKWARD_CASES)
+def test_flash_backward_plain_matches_pallas(jfa, variant, name):
+    q, k, v, mask, q_offset, window, g, _ = _case(name)
+    jq, jk, jv, jmask, jg = _j(q, k, v, mask, g)
+    jout, jlse = jfa.flash_prefill_with_lse(jq, jk, jv, jmask, q_offset, window=window,
+                                            interpret=True)
+    ref = jfa.flash_backward(jq, jk, jv, jmask, jout, jlse, jg, q_offset, window=window,
+                             interpret=True, **BACKWARD[variant])
+    tq, tk, tv, tmask, tg = _t(q, k, v, mask, g)
+    out, lse = tfa.flash_prefill_with_lse(tq, tk, tv, tmask, q_offset, window=window)
+    got = tfa.flash_backward(tq, tk, tv, tmask, out, lse, tg, q_offset, window=window)
+    for what, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape, what
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=what, **TOL)
+
+
+@pytest.mark.parametrize("name", ["mqa", "padded_keys", "gqa_ragged", "q_offset_window"])
+def test_flash_prefill_trainable_autograd_matches_jax_vjp(name):
+    """Autograd through the port's Function, with q, k and v as views of one
+    fused projection output (as the decoder passes them), against jax.vjp of
+    the JAX flash_prefill_trainable (custom VJP: Pallas forward and
+    backward). The gradients reach the fused tensor through the views."""
+    import jax
+
+    from starvector_tpu.ops.flash_attention import flash_prefill_trainable as jtrain
+
+    q, k, v, mask, q_offset, window, g, _ = _case(name, seed=3)
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    jmask = _j(mask)[0]
+    out_ref, vjp = jax.vjp(lambda q, k, v: jtrain(q, k, v, jmask, q_offset, window=window),
+                           *_j(q, k, v))
+    dq_ref, dk_ref, dv_ref = vjp(_j(g)[0])
+
+    qkv = torch.cat([torch.from_numpy(q).reshape(B, S, H * D),
+                     torch.zeros((B, S, 2 * Hkv * D))], dim=-1).requires_grad_(True)
+    tq = qkv[..., :H * D].unflatten(-1, (H, D))
+    tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (k, v))
+    out = tfa.flash_prefill_trainable(tq, tk, tv, torch.from_numpy(mask), q_offset,
+                                      window=window)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref), **VJP_TOL)
+    dq = qkv.grad[..., :H * D].reshape(B, S, H, D)
+    assert (qkv.grad[..., H * D:] == 0).all()
+    np.testing.assert_allclose(dq.numpy(), np.asarray(dq_ref), **VJP_TOL)
+    np.testing.assert_allclose(tk.grad.numpy(), np.asarray(dk_ref), **VJP_TOL)
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(dv_ref), **VJP_TOL)
+
+
+def test_rows_that_see_no_key_give_zeros():
+    """Left-padded keys leave row 1's first queries with no visible key:
+    the forward gives zeros and lse = -1e30 + log(1e-30) there, as the
+    kernel does, and the backward finite zeros, never NaN."""
+    q, k, v, mask, _, _, g, live = _case("no_visible_key")
+    assert not live.all()
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = tfa.flash_prefill_trainable(tq, tk, tv, torch.from_numpy(mask))
+    out.backward(torch.from_numpy(g))
+    _, lse = tfa.flash_prefill_with_lse(*_t(q, k, v, mask))
+    dead = ~live
+    assert (out.detach().numpy()[dead] == 0).all()
+    assert (lse.numpy().transpose(0, 2, 1)[dead] == np.float32(tfa.KERNEL_NEG_INF)).all()
+    for grad in (tq.grad, tk.grad, tv.grad):
+        assert torch.isfinite(grad).all()
+    assert (tq.grad.numpy()[dead] == 0).all()
+    assert (tk.grad.numpy()[1, :6] == 0).all() and (tv.grad.numpy()[1, :6] == 0).all()
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU the training wrappers launch nothing; a device with no
+    kernel raises instead of falling back."""
+    def counts():
+        return (tfa.flash_prefill_with_lse.launches, tfa.flash_bwd_dkdv.launches,
+                tfa.flash_bwd_dq.launches)
+
+    before = counts()
+    q, k, v, mask, _, _, g, _ = _case("mqa")
+    out, lse = tfa.flash_prefill_with_lse(*_t(q, k, v, mask))
+    tfa.flash_backward(*_t(q, k, v, mask), out, lse, torch.from_numpy(g))
+    assert counts() == before
+    meta = torch.empty((1, 4, 4, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_prefill_with_lse(meta, meta[:, :, :1], meta[:, :, :1],
+                                   torch.ones((1, 4), dtype=torch.int32, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+GPU_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+GPU_CASES = ["mqa", "gqa", "padded_keys", "ragged", "q_offset", "window", "q_offset_window"]
+
+
+def _cuda_case(name, dev, dtype):
+    q, k, v, mask, q_offset, window, g, live = _case(name, seed=5, D=128)
+    q, k, v, g = (torch.from_numpy(a).to(dev, dtype) for a in (q, k, v, g))
+    return q, k, v, torch.from_numpy(mask).to(dev), q_offset, window, g, live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", GPU_CASES)
+def test_flash_training_kernels_match_plain(cuda, name, dtype):
+    q, k, v, mask, q_offset, window, g, live = _cuda_case(name, cuda, dtype)
+    n = (tfa.flash_prefill_with_lse.launches, tfa.flash_bwd_dkdv.launches,
+         tfa.flash_bwd_dq.launches)
+    out, lse = tfa.flash_prefill_with_lse(q, k, v, mask, q_offset, window=window)
+    ref_out, ref_lse = tfa.flash_prefill_with_lse(q, k, v, mask, q_offset, window=window,
+                                                  kernels=False)
+    grads = tfa.flash_backward(q, k, v, mask, ref_out, ref_lse, g, q_offset, window=window)
+    ref = tfa.flash_backward(q, k, v, mask, ref_out, ref_lse, g, q_offset, window=window,
+                             kernels=False)
+    torch.cuda.synchronize()
+    assert (tfa.flash_prefill_with_lse.launches, tfa.flash_bwd_dkdv.launches,
+            tfa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    live = torch.from_numpy(live).to(cuda)
+    torch.testing.assert_close(out[live].float(), ref_out[live].float(), **GPU_TOL[dtype])
+    torch.testing.assert_close(lse.transpose(1, 2)[live], ref_lse.transpose(1, 2)[live],
+                               **GPU_TOL[torch.float32])
+    for a, b in zip(grads, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), **GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_trainable_on_the_card_counts_its_launches(cuda):
+    q, k, v, mask, _, _, g, _ = _cuda_case("no_visible_key", cuda, torch.float32)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    n = (tfa.flash_prefill_with_lse.launches, tfa.flash_bwd_dkdv.launches,
+         tfa.flash_bwd_dq.launches)
+    tfa.flash_prefill_trainable(q, k, v, mask).backward(g)
+    torch.cuda.synchronize()
+    assert (tfa.flash_prefill_with_lse.launches, tfa.flash_bwd_dkdv.launches,
+            tfa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))

@@ -117,10 +117,21 @@ def test_bf16_policy_logits_are_fp32_and_match_jax(setup):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **BF16_TOL)
 
 def test_uncached_forward_and_cache_overflow_raise(setup):
-    _, tcfg, _, tparams, embeds, _ = setup
+    """The uncached (training) forward, refused before it was ported, runs:
+    its logits match the JAX decoder's uncached forward (the Pallas
+    trainable flash path in interpret mode). An unknown remat mode, and a
+    cache too short for the new tokens, raise."""
+    jcfg, tcfg, jparams, tparams, embeds, mask = setup
+    jl, _ = jgbc.forward(jparams, jcfg, jnp.asarray(embeds[:, :P]),
+                         attention_mask=jnp.asarray(mask), policy=JF32)
+    tl, cache = tgbc.forward(tparams, tcfg, torch.from_numpy(embeds[:, :P]),
+                             attention_mask=torch.from_numpy(mask), policy=TF32)
+    assert cache is None and tl.dtype == torch.float32
+    live = mask.astype(bool)  # padded query rows see no key: unspecified
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live], **TOL)
     x = torch.from_numpy(embeds[:, :4])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgbc.forward(tparams, tcfg, x, policy=TF32)
+    with pytest.raises(ValueError, match="unknown gradient_checkpointing"):
+        tgbc.forward(tparams, tcfg, x, policy=TF32, remat="dots-flash")
     with pytest.raises(ValueError, match="cannot take"):
         tgbc.forward(tparams, tcfg, x, cache=tgbc.init_cache(tcfg, 2, 3, torch.float32),
                      policy=TF32)
