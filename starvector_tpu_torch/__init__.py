@@ -2,16 +2,32 @@
 Hopper (H100).
 
 The module paths mirror the JAX package's. The port imports torch and never
-jax; of the JAX package it reuses only the jax-free models/tokenizer.py, and
-only when a tokenizer is loaded (api.from_pretrained).
+jax, and nothing of the JAX package: where it needs one of that package's
+jax-free modules (config, tokenizer, datasets, loader, rasterizer) it keeps
+its own copy. Its entry points run on the card unless asked for the CPU.
 
 Layer map:
   api.py        -- StarVectorForCausalLM: process_images, generate_im2svg
   generation/   -- the cached generation loop (engine.py)
   models/       -- StarVector task model, CLIP ViT, adapter, GPTBigCode
                    decoder, KV cache, weight conversion
-  ops/          -- layers, plain attention, sampling, and the wrappers of the
-                   hand-written CUDA kernels (flash_attention.py)
+  ops/          -- layers, plain attention, sampling, int8 weights
+                   (quantization.py), and the wrappers of the hand-written
+                   CUDA kernels (flash_attention.py, quantization.py)
   csrc/         -- the CUDA C++ kernels for sm_90a, built at first use by
                    ops/kernel_lib.py into _build/
+  data/, train/, config.py -- datasets, rasterizer (native/), loader and the
+                   training entry point
 """
+
+import torch
+
+
+def require_device(device, cpu_option: str) -> torch.device:
+    """`device` as a torch.device; raises when it names CUDA and no card is
+    visible, naming the option (`cpu_option`) that asks for the CPU. The
+    port never moves to the CPU on its own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device is visible: pass {cpu_option} to run on the CPU")
+    return device

@@ -5,7 +5,8 @@ starvector_tpu/api.py::StarVectorForCausalLM, im2svg).
     batch = {"image": model.process_images([image])}
     raw_svg = model.generate_im2svg(batch, max_length=4000)[0]
 
-Greedy and sampled im2svg are ported. Beam search, speculative decoding,
+Greedy and sampled im2svg are ported, with int8 decoder weights
+(`from_pretrained(..., quantize=True)`). Beam search, speculative decoding,
 GRPO rollouts and text2svg raise NotImplementedError naming their ROADMAP
 item.
 """
@@ -18,6 +19,7 @@ from typing import Any, Sequence
 
 import torch
 
+from starvector_tpu_torch import require_device
 from starvector_tpu_torch.data.processor import processor_for_encoder
 from starvector_tpu_torch.generation.engine import GenerationConfig, generate_im2svg
 from starvector_tpu_torch.models import starvector as sv
@@ -28,16 +30,17 @@ SVG_PROMPT = "<svg"  # the generation trigger (reference starcoder.py:39)
 
 class StarVectorForCausalLM:
     def __init__(self, params: dict, cfg: sv.StarVectorConfig, tokenizer=None, *,
-                 policy: DTypePolicy | None = None, device="cpu",
+                 policy: DTypePolicy | None = None, device="cuda",
                  generator: torch.Generator | None = None, kernels: bool = True):
-        """`tokenizer` is a starvector_tpu.models.tokenizer.SVGTokenizer, or
-        None: then prompts and stop sequences are given as token ids.
-        `kernels=False` runs the attention kernels' plain versions."""
+        """`tokenizer` is a starvector_tpu_torch.models.tokenizer.SVGTokenizer,
+        or None: then prompts and stop sequences are given as token ids.
+        `kernels=False` runs the kernels' plain versions. Runs on the card;
+        `device="cpu"` asks for the CPU."""
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.policy = policy or DTypePolicy()
-        self.device = torch.device(device)
+        self.device = require_device(device, 'device="cpu"')
         self.kernels = kernels
         self.processor = processor_for_encoder(cfg.image_encoder_type, cfg.image_size,
                                                device=self.device)
@@ -46,9 +49,10 @@ class StarVectorForCausalLM:
     # -- constructors -------------------------------------------------------
     @classmethod
     def from_config(cls, cfg: sv.StarVectorConfig, *, seed: int = 0, tokenizer=None,
-                    dtype=torch.float32, device="cpu"):
+                    dtype=torch.float32, device="cuda"):
         """Random weights drawn on `device` from a torch.Generator seeded with
         `seed`; fp32 weights compute in fp32, others in bf16."""
+        device = require_device(device, 'device="cpu"')
         gen = torch.Generator(device=device).manual_seed(seed)
         params = sv.init_params(cfg, gen, device=device, dtype=dtype)
         compute = torch.float32 if dtype == torch.float32 else torch.bfloat16
@@ -56,14 +60,21 @@ class StarVectorForCausalLM:
                    policy=DTypePolicy(param_dtype=dtype, compute_dtype=compute))
 
     @classmethod
-    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device="cuda"):
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device="cuda", *,
+                        quantize: bool = False):
         """Load an HF-layout StarVector-1B checkpoint directory
         (model*.safetensors, config.json, tokenizer.json). Needs the
-        `safetensors` and `tokenizers` packages."""
+        `safetensors` and `tokenizers` packages. `quantize=True` converts the
+        decoder's large matmul weights to per-channel int8 (the JAX
+        package's rule: `quantize_tree` on the decoder only; the vision
+        tower, adapter and embeddings keep `dtype`)."""
         from safetensors.numpy import load_file
 
-        from starvector_tpu.models.tokenizer import load_tokenizer
         from starvector_tpu_torch.models.convert import config_from_hf, from_hf_state_dict
+        from starvector_tpu_torch.models.tokenizer import load_tokenizer
+        from starvector_tpu_torch.ops.quantization import quantize_tree
+
+        device = require_device(device, 'device="cpu"')
 
         sd: dict = {}
         for name in sorted(os.listdir(path)):
@@ -73,6 +84,9 @@ class StarVectorForCausalLM:
             hf_cfg = json.load(f)
         cfg = config_from_hf(sd, hf_cfg)
         params = from_hf_state_dict(sd, dtype=dtype, device=device)
+        del sd
+        if quantize:
+            params["svg_transformer"] = quantize_tree(params["svg_transformer"])
         return cls(params, cfg, load_tokenizer(path, version="v1"), device=device,
                    policy=DTypePolicy(param_dtype=dtype, compute_dtype=torch.bfloat16))
 

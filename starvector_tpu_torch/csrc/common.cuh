@@ -1,10 +1,12 @@
-// Helpers shared by the attention kernels: fp32 <-> storage-type conversion,
-// vector loads and warp reductions. Both kernels keep every score, softmax
-// statistic and accumulator in fp32 whatever the storage type (fp32 or bf16).
+// Helpers shared by the kernels: fp32 <-> storage-type conversion, vector
+// loads and warp reductions. Every kernel keeps its scores, softmax
+// statistics and accumulators in fp32 whatever the storage type (fp32, bf16,
+// or int8 codes).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace sv {
 
@@ -13,7 +15,7 @@ namespace sv {
 constexpr float kNegInf = -1e30f;
 
 // Storage type codes passed across the C interface.
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -78,6 +80,35 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* o) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = __bfloat162float(p[i]);
+  }
+}
+
+// int8 codes as fp32 (exact): N consecutive codes, 16 bytes a load for N a
+// multiple of 16 (p then 16-byte aligned), else one 8- or 4-byte load for
+// N = 8 or 4 (p aligned to N bytes).
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* p, float* o) {
+  if constexpr (N % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 16) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(p + i);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) o[i + j] = static_cast<float>(b[j]);
+    }
+  } else if constexpr (N == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = static_cast<float>(b[j]);
+  } else if constexpr (N == 4) {
+    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = static_cast<float>(b[j]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = static_cast<float>(p[i]);
   }
 }
 

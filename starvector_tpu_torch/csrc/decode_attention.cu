@@ -30,6 +30,17 @@
 // per-warp states are merged in shared memory at the end, together with the
 // self token. Splitting the keys across blocks (split-KV) and tensor-core
 // products are later work.
+//
+// int8 cache (the JAX package's init_cache(dtype=int8), decode_common.py:
+// merged_decode_attention with k_scale / v_scale): the cache holds int8
+// codes, read 16 to a 16-byte load (D = 128: 8 loads a key row), with fp32
+// scales k_scale, v_scale (B, T, Hkv) per (row, position, KV head). q, the
+// new token's k/v and out stay in the compute type T. As in the JAX
+// function: a key's score is (q . k_codes) in fp32, times the softmax scale,
+// times k_scale[t]; the denominator sums the unscaled p; the P.V operand is
+// p * v_scale[t] rounded to T; the self token's score and P.V term come from
+// its unquantized k_new / v_new in fp32. The cache bytes a step reads halve
+// against bf16.
 
 #include <stdint.h>
 
@@ -48,12 +59,15 @@ struct DecodeArgs {
   const void* k_new;  // null: no self token
   const void* v_new;
   const int* mask;
+  const float* k_scale;  // int8 cache only
+  const float* v_scale;
   void* out;
   int B, Hkv;
   long long q_sb, q_sh, q_sg;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
   long long kn_sb, kn_sh, vn_sb, vn_sh;
+  long long ks_sb, ks_st, ks_sh, vs_sb, vs_st, vs_sh;
   long long m_sb;
   int t_begin, t_end;
   float scale;
@@ -65,9 +79,13 @@ constexpr size_t decode_smem_bytes() {
          (G * D + kDecWarps * G * 32 + kDecWarps * G * D + 2 * kDecWarps * G + G);
 }
 
-template <typename T, int G, int D>
+// T: the type of q, the new token's k/v and out; C: the cache's (T, or
+// int8 codes with scales)
+template <typename T, typename C, int G, int D>
 __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(const DecodeArgs a) {
   constexpr int DC = D / 32;  // output columns per lane, contiguous
+  constexpr bool kQuant = sizeof(C) == 1;
+  constexpr int KV = kQuant ? 16 : 8;  // key elements a load (16 bytes for int8 and bf16)
   extern __shared__ float smem[];
   float* Qs = smem;                      // [G][D] query
   float* Ps = Qs + G * D;                // [warps][G][32] probabilities of a tile
@@ -84,9 +102,11 @@ __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(const Dec
   const bool has_new = a.k_new != nullptr;
 
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + hk * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const C* k = static_cast<const C*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const C* v = static_cast<const C*>(a.v) + b * a.v_sb + hk * a.v_sh;
   const int* mask = a.mask + b * a.m_sb;
+  const float* ksc = kQuant ? a.k_scale + b * a.ks_sb + hk * a.ks_sh : nullptr;
+  const float* vsc = kQuant ? a.v_scale + b * a.vs_sb + hk * a.vs_sh : nullptr;
 
   for (int e = tid; e < G * D; e += kDecThreads) {
     Qs[e] = to_f(q[(e / D) * a.q_sg + e % D]);
@@ -124,33 +144,44 @@ __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(const Dec
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = 0.f;
     if (valid) {
-      const T* kr = k + (long long)t * a.k_st;
+      const C* kr = k + (long long)t * a.k_st;
 #pragma unroll 2
-      for (int d = 0; d < D; d += 8) {
-        float kf[8];
-        load_vec<8>(kr + d, kf);
+      for (int d = 0; d < D; d += KV) {
+        float kf[KV];
+        load_vec<KV>(kr + d, kf);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const float4 qa = *reinterpret_cast<const float4*>(Qs + g * D + d);
-          const float4 qb = *reinterpret_cast<const float4*>(Qs + g * D + d + 4);
           float x = s[g];
-          x = fmaf(qa.x, kf[0], x);
-          x = fmaf(qa.y, kf[1], x);
-          x = fmaf(qa.z, kf[2], x);
-          x = fmaf(qa.w, kf[3], x);
-          x = fmaf(qb.x, kf[4], x);
-          x = fmaf(qb.y, kf[5], x);
-          x = fmaf(qb.z, kf[6], x);
-          x = fmaf(qb.w, kf[7], x);
+#pragma unroll
+          for (int u = 0; u < KV; u += 8) {
+            const float4 qa = *reinterpret_cast<const float4*>(Qs + g * D + d + u);
+            const float4 qb = *reinterpret_cast<const float4*>(Qs + g * D + d + u + 4);
+            x = fmaf(qa.x, kf[u + 0], x);
+            x = fmaf(qa.y, kf[u + 1], x);
+            x = fmaf(qa.z, kf[u + 2], x);
+            x = fmaf(qa.w, kf[u + 3], x);
+            x = fmaf(qb.x, kf[u + 4], x);
+            x = fmaf(qb.y, kf[u + 5], x);
+            x = fmaf(qb.z, kf[u + 6], x);
+            x = fmaf(qb.w, kf[u + 7], x);
+          }
           s[g] = x;
         }
+      }
+    }
+    float k_s = 1.f, v_s = 1.f;  // this lane's key's scales (int8 cache)
+    if constexpr (kQuant) {
+      if (valid) {
+        k_s = ksc[(long long)t * a.ks_st];
+        v_s = vsc[(long long)t * a.vs_st];
       }
     }
 
     // online softmax per head across the warp's 32 keys
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float x = valid ? s[g] * a.scale : kNegInf;
+      float x = kNegInf;
+      if (valid) x = kQuant ? s[g] * a.scale * k_s : s[g] * a.scale;
       const float m_new = fmaxf(m[g], warp_max(x));
       const float corr = expf(m[g] - m_new);
       const float p = valid ? expf(x - m_new) : 0.f;
@@ -158,7 +189,8 @@ __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(const Dec
       m[g] = m_new;
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[g][c] *= corr;
-      pw[g * 32 + lane] = p;
+      // int8: the P.V operand is p * v_scale rounded to T (the JAX rounding)
+      pw[g * 32 + lane] = kQuant ? to_f(from_f<T>(p * v_s)) : p;
     }
     __syncwarp();
 
@@ -214,15 +246,16 @@ __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(const Dec
   }
 }
 
-template <typename T, int G, int D>
+template <typename T, typename C, int G, int D>
 int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
   constexpr size_t smem = decode_smem_bytes<G, D>();
   // above 48 KB of dynamic shared memory a kernel has to opt in, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_attention_kernel<T, G, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      decode_attention_kernel<T, C, G, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(a.Hkv, a.B);
-  decode_attention_kernel<T, G, D><<<grid, kDecThreads, smem, stream>>>(a);
+  decode_attention_kernel<T, C, G, D><<<grid, kDecThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -238,24 +271,36 @@ constexpr int kDecD = 128;
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype, group size or head size the kernel
 // does not take (it takes G = 16, D = 128). k_new and v_new are both null
-// or both set.
+// or both set. cache_dtype is dtype, or int8 with k_scale and v_scale set
+// (they are ignored otherwise).
 extern "C" int sv_decode_attention(
-    int dtype, int G, int D, const void* q, const void* k, const void* v,
-    const void* k_new, const void* v_new, const int* mask, void* out,
-    int B, int Hkv,
+    int dtype, int cache_dtype, int G, int D, const void* q, const void* k, const void* v,
+    const void* k_new, const void* v_new, const int* mask, const float* k_scale,
+    const float* v_scale, void* out, int B, int Hkv,
     long long q_sb, long long q_sh, long long q_sg,
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long kn_sb, long long kn_sh, long long vn_sb, long long vn_sh,
+    long long ks_sb, long long ks_st, long long ks_sh,
+    long long vs_sb, long long vs_st, long long vs_sh,
     long long m_sb, int t_begin, int t_end, float scale, void* stream) {
-  const sv::DecodeArgs a{q, k, v, k_new, v_new, mask, out, B, Hkv,
+  const sv::DecodeArgs a{q, k, v, k_new, v_new, mask, k_scale, v_scale, out, B, Hkv,
                          q_sb, q_sh, q_sg, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
-                         kn_sb, kn_sh, vn_sb, vn_sh, m_sb, t_begin, t_end, scale};
+                         kn_sb, kn_sh, vn_sb, vn_sh, ks_sb, ks_st, ks_sh, vs_sb, vs_st, vs_sh,
+                         m_sb, t_begin, t_end, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G != sv::kDecG || D != sv::kDecD) return (int)cudaErrorInvalidValue;
-  if (dtype == sv::kFloat32) return sv::launch_decode<float, sv::kDecG, sv::kDecD>(a, st);
+  constexpr int G0 = sv::kDecG, D0 = sv::kDecD;
+  if (G != G0 || D != D0) return (int)cudaErrorInvalidValue;
+  if (cache_dtype == sv::kInt8) {
+    if (k_scale == nullptr || v_scale == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == sv::kFloat32) return sv::launch_decode<float, int8_t, G0, D0>(a, st);
+    if (dtype == sv::kBFloat16) return sv::launch_decode<__nv_bfloat16, int8_t, G0, D0>(a, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (cache_dtype != dtype) return (int)cudaErrorInvalidValue;
+  if (dtype == sv::kFloat32) return sv::launch_decode<float, float, G0, D0>(a, st);
   if (dtype == sv::kBFloat16) {
-    return sv::launch_decode<__nv_bfloat16, sv::kDecG, sv::kDecD>(a, st);
+    return sv::launch_decode<__nv_bfloat16, __nv_bfloat16, G0, D0>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,21 +14,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# the CLIP statistics of starvector_tpu/data/processor.py, repeated so that
-# the inference path imports nothing of the JAX package
+# the statistics of starvector_tpu/data/processor.py, repeated so that the
+# port imports nothing of the JAX package
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+SIGLIP_MEAN = (0.5, 0.5, 0.5)
+SIGLIP_STD = (0.5, 0.5, 0.5)
 
 
 class ImageProcessor:
     """__call__ takes a uint8 (H, W, 3|4) array or tensor (or a PIL image,
-    where PIL is installed) and returns (size, size, 3) float32."""
+    where PIL is installed) and returns (size, size, 3) float32, normalised
+    with `mean` and `std` (CLIP's by default)."""
 
-    def __init__(self, size: int = 224, *, device="cpu"):
+    def __init__(self, size: int = 224, mean=None, std=None, *, device="cpu"):
         self.size = size
         self.device = torch.device(device)
-        self.mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=self.device)
-        self.std = torch.tensor(CLIP_STD, dtype=torch.float32, device=self.device)
+        self.mean = torch.tensor(CLIP_MEAN if mean is None else mean, dtype=torch.float32,
+                                 device=self.device)
+        self.std = torch.tensor(CLIP_STD if std is None else std, dtype=torch.float32,
+                                device=self.device)
 
     def _to_tensor(self, img) -> torch.Tensor:
         if not isinstance(img, (np.ndarray, torch.Tensor)):

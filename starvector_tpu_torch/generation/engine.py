@@ -69,9 +69,13 @@ def generate(
     prompt_ids: torch.Tensor | None = None,
     policy: DTypePolicy = DTypePolicy(),
     kernels: bool = True,
+    kv_cache_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens (B, max_new_tokens) int64, lengths (B,)): rows are
-    pad-filled after their stop, and lengths include the stop tokens."""
+    pad-filled after their stop, and lengths include the stop tokens.
+    `kv_cache_dtype` is the cache's type (default: the compute dtype);
+    torch.int8 stores it as codes with per-(position, head) scales, as the
+    JAX generate's `kv_cache_dtype=jnp.int8`."""
     if gen.num_return_sequences != 1:
         raise NotImplementedError(
             "num_return_sequences > 1 is not ported yet (ROADMAP queue 1, item 7)")
@@ -93,7 +97,8 @@ def generate(
         bias_ids = torch.tensor([[t for t, _ in gen.logit_bias]] * B, device=device)
         bias_vals = torch.tensor([[v for _, v in gen.logit_bias]] * B, device=device)
 
-    cache = dec.init_cache(llm_cfg, B, P + n, dtype=policy.compute_dtype, device=device)
+    cache = dec.init_cache(llm_cfg, B, P + n, dtype=kv_cache_dtype or policy.compute_dtype,
+                           device=device)
     logits, cache = dec.forward(params, llm_cfg, inputs_embeds, attention_mask=attention_mask,
                                 cache=cache, policy=policy, last_logits_only=True,
                                 kernels=kernels)

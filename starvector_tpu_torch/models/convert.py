@@ -44,11 +44,12 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 def from_jax_params(tree, *, dtype: torch.dtype | None = None, device="cpu"):
     """JAX parameter pytree (numpy leaves) -> the port's tensors, same tree.
     Floating leaves are cast to `dtype` when given; BatchNorm running
-    statistics stay fp32 as in the JAX package."""
+    statistics and the fp32 scales of a quantized leaf ({"kernel_q",
+    "scale"}, whose codes stay int8) keep their type, as in the JAX
+    package."""
     if isinstance(tree, Mapping):
-        return {k: (from_jax_params(v, dtype=None, device=device)
-                    if k in ("running_mean", "running_var")
-                    else from_jax_params(v, dtype=dtype, device=device))
+        keep = {"running_mean", "running_var"} | ({"scale"} if "kernel_q" in tree else set())
+        return {k: from_jax_params(v, dtype=None if k in keep else dtype, device=device)
                 for k, v in tree.items()}
     return _tensor(tree, dtype, device)
 

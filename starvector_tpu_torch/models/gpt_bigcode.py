@@ -12,7 +12,15 @@ k/v stay out of the cache, kernel 2 merges the self-score into the softmax,
 and the new k/v are written once after all layers. Every cached call with
 S > 1 goes through kernel 1 (flash prefill) over the whole cache window; the
 JAX package sends 1 < S <= 64 to an XLA chunk step instead, which computes
-the same attention.
+the same attention (for a bf16/fp32 cache; with an int8 cache the chunk
+step keeps the chunk's own keys unquantized, so the port matches the JAX
+package's S > 64 path). An int8 cache (init_cache(dtype=torch.int8)) is
+written as codes and scales; prefill attends over the dequantized window,
+decode through kernel 2's int8 instantiation.
+
+Every dense layer of the cached path also takes `kernels`: a quantized
+parameter tree (ops/quantization.py::quantize_tree) runs its projections
+through kernel 14, or its plain version with kernels=False.
 
 Without a cache, `forward` is the training forward: each layer's attention
 is `flash_prefill_trainable` (the forward-with-lse kernel and the backward
@@ -130,45 +138,51 @@ def _split_qkv(cfg: GPTBigCodeConfig, qkv: torch.Tensor):
     return qkv[..., :E], qkv[..., E:E + kvd], qkv[..., E + kvd:]
 
 
-def _mlp(p: dict, cfg: GPTBigCodeConfig, x: torch.Tensor, policy: DTypePolicy):
+def _mlp(p: dict, cfg: GPTBigCodeConfig, x: torch.Tensor, policy: DTypePolicy,
+         kernels: bool = True):
     h = layer_norm(p["ln_2"], x, cfg.layer_norm_epsilon)
-    h = gelu_tanh(dense(p["mlp"]["c_fc"], h, policy))
-    return x + dense(p["mlp"]["c_proj"], h, policy)
+    h = gelu_tanh(dense(p["mlp"]["c_fc"], h, policy, kernels=kernels))
+    return x + dense(p["mlp"]["c_proj"], h, policy, kernels=kernels)
 
 
 def _prefill_block(p, cfg, x, layer_cache, kv_mask, idx, policy, kernels):
     """One layer over S new tokens: write their k/v into the layer's cache,
-    then flash-attend over the whole cache window from query offset idx."""
+    then flash-attend over the cache window from query offset idx (an int8
+    cache's window is dequantized and ends after the chunk)."""
     B, S, E = x.shape
     H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
-    qkv = dense(p["attn"]["c_attn"], layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon), policy)
+    qkv = dense(p["attn"]["c_attn"], layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon), policy,
+                kernels=kernels)
     q, k, v = _split_qkv(cfg, qkv)
     k_win, v_win = dc.write_prefill_kv(
-        layer_cache, k.unflatten(-1, (Hkv, D)), v.unflatten(-1, (Hkv, D)), idx)
-    out = flash_prefill(q.unflatten(-1, (H, D)), k_win, v_win, kv_mask, q_offset=idx,
-                        kernels=kernels)
-    x = x + dense(p["attn"]["c_proj"], out.reshape(B, S, E), policy)
-    return _mlp(p, cfg, x, policy)
+        layer_cache, k.unflatten(-1, (Hkv, D)), v.unflatten(-1, (Hkv, D)), idx, x.dtype)
+    out = flash_prefill(q.unflatten(-1, (H, D)), k_win, v_win, kv_mask[:, :k_win.shape[1]],
+                        q_offset=idx, kernels=kernels)
+    x = x + dense(p["attn"]["c_proj"], out.reshape(B, S, E), policy, kernels=kernels)
+    return _mlp(p, cfg, x, policy, kernels)
 
 
 def _decode_layer_fn(cfg: GPTBigCodeConfig, old_mask, idx: int, policy, kernels: bool):
     """Per-layer single-token decode for decode_common.decode_scan: ln_1 ->
     fused c_attn split -> merged-softmax attention (kernel 2) over the
-    cache's first idx slots -> residual MLP."""
+    cache's first idx slots (with their scales for an int8 cache) ->
+    residual MLP."""
     H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
     scale = D**-0.5
 
-    def fn(layer_p, h, lk, lv):
+    def fn(layer_p, h, lk, lv, lks=None, lvs=None):
         hh = layer_norm(layer_p["ln_1"], h, cfg.layer_norm_epsilon)
-        qkv = dense(layer_p["attn"]["c_attn"], hh, policy)[:, 0]  # (B, E + 2*Hkv*D)
-        q, k_new, v_new = _split_qkv(cfg, qkv)
+        qkv = dense(layer_p["attn"]["c_attn"], hh, policy, kernels=kernels)[:, 0]
+        q, k_new, v_new = _split_qkv(cfg, qkv)  # of (B, E + 2*Hkv*D)
         out = merged_decode_attention(
             q.unflatten(-1, (Hkv, H // Hkv, D)), k_new.unflatten(-1, (Hkv, D)),
             v_new.unflatten(-1, (Hkv, D)), lk[:, :idx], lv[:, :idx], old_mask, scale,
+            None if lks is None else lks[:, :idx], None if lvs is None else lvs[:, :idx],
             kernels=kernels,
         )
-        h = h + dense(layer_p["attn"]["c_proj"], out, policy)
-        return _mlp(layer_p, cfg, h, policy), k_new.unflatten(-1, (Hkv, D)), v_new.unflatten(-1, (Hkv, D))
+        h = h + dense(layer_p["attn"]["c_proj"], out, policy, kernels=kernels)
+        return (_mlp(layer_p, cfg, h, policy, kernels), k_new.unflatten(-1, (Hkv, D)),
+                v_new.unflatten(-1, (Hkv, D)))
 
     return fn
 
@@ -249,7 +263,8 @@ def forward(
     attends over the whole preallocated window. Returns (logits (B, S|1, V)
     fp32, the same cache dict with its index advanced).
 
-    `kernels=False` runs the attention kernels' plain versions on the card."""
+    `kernels=False` runs the kernels' plain versions on the card (attention,
+    and the int8 matmul of a quantized tree)."""
     if cache is None:
         return _forward_uncached(params, cfg, inputs_embeds, attention_mask, position_ids,
                                  policy, remat, return_hidden, last_logits_only, kernels)
@@ -281,9 +296,8 @@ def forward(
         dc.write_new_kv_linear(cache, news, idx)
     else:
         for i in range(cfg.n_layer):
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-            x = _prefill_block(layer_slice(layers, i), cfg, x, layer_cache, kv_mask, idx,
-                               policy, kernels)
+            x = _prefill_block(layer_slice(layers, i), cfg, x, dc.layer_cache(cache, i), kv_mask,
+                               idx, policy, kernels)
     cache["index"] = idx + S
 
     x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)

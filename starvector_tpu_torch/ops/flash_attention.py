@@ -22,7 +22,9 @@ Kernel 2, `decode_attention` (csrc/decode_attention.cu)
     the same softmax. Built for StarVector-1B's 16 query heads per KV head
     and head size 128 only. Bound on the H100 by latency and by having one
     block per (row, KV head); eight warps per block split the keys between
-    them (see the source's header).
+    them (see the source's header). An int8 cache (codes with per
+    (row, position, KV head) fp32 k_scale / v_scale, the JAX package's
+    init_cache(dtype=int8)) takes its own instantiation of the same kernel.
 
 Kernel 1 with the logsumexp, `flash_prefill_with_lse` (csrc/flash_prefill.cu)
     Replaces the Pallas TPU kernels `flash_prefill_with_lse` ->
@@ -63,8 +65,6 @@ from starvector_tpu_torch.ops import kernel_lib
 from starvector_tpu_torch.ops.attention import NEG_INF, make_attention_bias, multihead_attention
 from starvector_tpu_torch.ops.layers import einsum_f32
 
-# the kernels' storage types and their codes in csrc/common.cuh
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' masked-score sentinel (csrc/common.cuh, the Pallas NEG_INF):
 # a row that sees no key keeps it as its max, and lse = -1e30 + log(1e-30)
 KERNEL_NEG_INF = -1e30
@@ -84,7 +84,7 @@ def _check_operands(what: str, tensors: dict[str, torch.Tensor], dtype, device,
     stride in its last dim; tensors named in `aligned` must also start on,
     and step every non-last dim by, a multiple of 16 bytes (the kernels'
     vector loads)."""
-    if dtype not in _DTYPE_CODES:
+    if dtype not in kernel_lib.FLOAT_TYPES:
         raise TypeError(f"{what}: kernel takes float32 or bfloat16, not {dtype}")
     for name, t in tensors.items():
         if t.device != device:
@@ -148,7 +148,7 @@ def _launch_prefill(what, q, k, v, kv_mask, q_offset, causal, window, scale, lse
     if B == 0 or S == 0:
         return out
     code = kernel_lib.library().sv_flash_prefill(
-        _DTYPE_CODES[q.dtype], D,
+        kernel_lib.DTYPE_CODES[q.dtype], D,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         B, S, T, H, Hkv,
@@ -324,7 +324,7 @@ def flash_bwd_dkdv(q, k, v, kv_mask, do, lse, delta, q_offset: int = 0, *,
     if B == 0 or T == 0:
         return dk, dv
     code = kernel_lib.library().sv_flash_bwd_dkdv(
-        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        kernel_lib.DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, S, T, H, Hkv, strides, kv_mask.stride(0), int(q_offset), int(causal),
         int(window or 0), scale, _stream(),
@@ -351,7 +351,7 @@ def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta, q_offset: int = 0, *,
     if B == 0 or S == 0:
         return dq
     code = kernel_lib.library().sv_flash_bwd_dq(
-        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        kernel_lib.DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(), dq.data_ptr(),
         B, S, T, H, Hkv, strides, kv_mask.stride(0), int(q_offset), int(causal),
         int(window or 0), scale, _stream(),
@@ -419,11 +419,12 @@ def flash_prefill_trainable(q, k, v, kv_mask, q_offset: int = 0, *, causal: bool
 # ---------------------------------------------------------------------------
 
 def decode_attention_plain(qg, k_cache, v_cache, kv_mask, *, k_new=None, v_new=None,
-                           t_begin: int = 0, t_end: int | None = None,
-                           scale: float | None = None):
+                           k_scale=None, v_scale=None, t_begin: int = 0,
+                           t_end: int | None = None, scale: float | None = None):
     """Plain version of kernel 2, step for step the JAX
-    merged_decode_attention: fp32 scores over the visible cache, the
-    self-score merged into one softmax, probabilities cast to the compute
+    merged_decode_attention: fp32 scores over the visible cache (times
+    k_scale for an int8 cache), the self-score merged into one softmax, the
+    probabilities (times v_scale for an int8 cache) cast to the compute
     dtype for the product with V, the self term in fp32. Returns
     (B, Hkv, G, D)."""
     B, Hkv, G, D = qg.shape
@@ -434,6 +435,8 @@ def decode_attention_plain(qg, k_cache, v_cache, kv_mask, *, k_new=None, v_new=N
     pos = torch.arange(T, device=qg.device)[None, :]
     visible = (kv_mask > 0) & (pos >= int(t_begin)) & (pos < t_end)
     s_c = einsum_f32("bkgd,btkd->bkgt", qg, k_cache.to(dt)) * scale
+    if k_scale is not None:
+        s_c = s_c * k_scale.permute(0, 2, 1)[:, :, None, :]
     s_c = torch.where(visible[:, None, None, :], s_c, torch.full_like(s_c, NEG_INF))
     m = s_c.amax(dim=-1)
     if k_new is not None:
@@ -441,6 +444,8 @@ def decode_attention_plain(qg, k_cache, v_cache, kv_mask, *, k_new=None, v_new=N
         m = torch.maximum(m, s_self)
     p_c = torch.exp(s_c - m[..., None])
     denom = p_c.sum(dim=-1)
+    if v_scale is not None:
+        p_c = p_c * v_scale.permute(0, 2, 1)[:, :, None, :]
     out = einsum_f32("bkgt,btkd->bkgd", p_c.to(dt), v_cache.to(dt))
     if k_new is not None:
         p_s = torch.exp(s_self - m)
@@ -449,14 +454,38 @@ def decode_attention_plain(qg, k_cache, v_cache, kv_mask, *, k_new=None, v_new=N
     return (out / denom[..., None]).to(dt)
 
 
+def _check_scales(k_cache, v_cache, k_scale, v_scale, B: int, T: int, Hkv: int, device):
+    """Raise unless the scales fit the cache: both given, fp32 (B, T, Hkv)
+    on the device, exactly when the cache holds int8 codes."""
+    quant = k_cache.dtype == torch.int8
+    if v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"decode_attention: k cache {k_cache.dtype}, v cache {v_cache.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attention: give both k_scale and v_scale, or neither")
+    if quant and k_scale is None:
+        raise ValueError("decode_attention: an int8 cache needs k_scale and v_scale")
+    if not quant and k_scale is not None:
+        raise ValueError(f"decode_attention: k_scale / v_scale given with a {k_cache.dtype} "
+                         "cache (scales go with an int8 cache only)")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, T, Hkv) or t.device != device:
+            raise ValueError(f"decode_attention: {name} must be fp32 (B, T, Hkv) = "
+                             f"{(B, T, Hkv)} on {device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+
+
 def decode_attention(
     qg: torch.Tensor,       # (B, Hkv, G, D) the new token's query heads, grouped
-    k_cache: torch.Tensor,  # (B, T, Hkv, D)
+    k_cache: torch.Tensor,  # (B, T, Hkv, D), qg's dtype or int8 codes
     v_cache: torch.Tensor,  # (B, T, Hkv, D)
     kv_mask: torch.Tensor,  # (B, T) int32
     *,
     k_new: torch.Tensor | None = None,  # (B, Hkv, D) the new token's key
     v_new: torch.Tensor | None = None,  # (B, Hkv, D)
+    k_scale: torch.Tensor | None = None,  # (B, T, Hkv) fp32, int8 cache only
+    v_scale: torch.Tensor | None = None,  # (B, T, Hkv) fp32
     t_begin: int = 0,
     t_end: int | None = None,
     scale: float | None = None,
@@ -464,26 +493,37 @@ def decode_attention(
 ) -> torch.Tensor:
     """Kernel 2's wrapper: one query token per row over the visible cache
     slots (t_begin <= t < t_end, kv_mask set), plus the self token when
-    k_new/v_new are given. Returns (B, Hkv, G, D) in qg's dtype."""
+    k_new/v_new are given. An int8 cache comes with its k_scale / v_scale.
+    Returns (B, Hkv, G, D) in qg's dtype."""
     if (k_new is None) != (v_new is None):
         raise ValueError("decode_attention: give both k_new and v_new, or neither")
-    if _use_plain(qg, kernels):
-        return decode_attention_plain(qg, k_cache, v_cache, kv_mask, k_new=k_new, v_new=v_new,
-                                      t_begin=t_begin, t_end=t_end, scale=scale)
     B, Hkv, G, D = qg.shape
     T = k_cache.shape[1]
+    _check_scales(k_cache, v_cache, k_scale, v_scale, B, T, Hkv, qg.device)
+    if _use_plain(qg, kernels):
+        return decode_attention_plain(qg, k_cache, v_cache, kv_mask, k_new=k_new, v_new=v_new,
+                                      k_scale=k_scale, v_scale=v_scale, t_begin=t_begin,
+                                      t_end=t_end, scale=scale)
     if k_cache.shape != (B, T, Hkv, D) or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: q {tuple(qg.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}")
     if G != 16 or D != 128:
         raise ValueError(f"decode_attention: G={G}, D={D} (the kernel takes G = 16, D = 128)")
-    tensors = {"q": qg, "k_cache": k_cache, "v_cache": v_cache}
+    quant = k_cache.dtype == torch.int8
+    tensors = {"q": qg} if quant else {"q": qg, "k_cache": k_cache, "v_cache": v_cache}
     if k_new is not None:
         if k_new.shape != (B, Hkv, D) or v_new.shape != (B, Hkv, D):
             raise ValueError(f"decode_attention: k_new {tuple(k_new.shape)}, v_new {tuple(v_new.shape)}")
         tensors.update(k_new=k_new, v_new=v_new)
     _check_operands("decode_attention", tensors, qg.dtype, qg.device,
                     aligned=("k_cache", "v_cache"))
+    if quant:
+        for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+            if t.device != qg.device or t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                    any(s % 16 for s in t.stride()[:-1]):
+                raise ValueError(f"decode_attention: int8 {name} must be on {qg.device} with a "
+                                 f"contiguous last dim and 16-byte aligned rows, strides "
+                                 f"{t.stride()}")
     _check_mask("decode_attention", kv_mask, (B, T), qg.device)
     t_begin = max(int(t_begin), 0)
     t_end = T if t_end is None else min(int(t_end), T)
@@ -493,36 +533,45 @@ def decode_attention(
         return out
     kn = k_new if k_new is not None else qg  # strides are unused without a self token
     vn = v_new if v_new is not None else qg
+    ks = k_scale if quant else kv_mask[:, :, None]  # strides are unused without scales
+    vs = v_scale if quant else kv_mask[:, :, None]
     lib = kernel_lib.library()
     code = lib.sv_decode_attention(
-        _DTYPE_CODES[qg.dtype], G, D,
+        kernel_lib.DTYPE_CODES[qg.dtype], kernel_lib.DTYPE_CODES[k_cache.dtype], G, D,
         qg.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         None if k_new is None else k_new.data_ptr(),
         None if v_new is None else v_new.data_ptr(),
-        kv_mask.data_ptr(), out.data_ptr(), B, Hkv,
+        kv_mask.data_ptr(),
+        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+        out.data_ptr(), B, Hkv,
         qg.stride(0), qg.stride(1), qg.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         kn.stride(0), kn.stride(1), vn.stride(0), vn.stride(1),
+        ks.stride(0), ks.stride(1), ks.stride(2), vs.stride(0), vs.stride(1), vs.stride(2),
         kv_mask.stride(0), t_begin, t_end, scale, _stream(),
     )
     kernel_lib.check(code, "decode_attention")
     decode_attention.launches += 1
+    if quant:
+        decode_attention.int8_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.int8_launches = 0  # of which with an int8 cache
 
 
-def merged_decode_attention(qg, k_new, v_new, k_cached, v_cached, old_mask, scale, *,
-                            kernels: bool = True) -> torch.Tensor:
+def merged_decode_attention(qg, k_new, v_new, k_cached, v_cached, old_mask, scale,
+                            k_scale=None, v_scale=None, *, kernels: bool = True) -> torch.Tensor:
     """The JAX decoder's decode attention (decode_common.merged_decode_attention):
     qg (B, Hkv, G, D), the new token's k_new/v_new (B, Hkv, D), the cache
-    before the new token (B, T, Hkv, D) and its visibility old_mask (B, T).
-    Returns (B, 1, H*D)."""
+    before the new token (B, T, Hkv, D) and its visibility old_mask (B, T);
+    an int8 cache with its k_scale / v_scale (B, T, Hkv). Returns
+    (B, 1, H*D)."""
     B, Hkv, G, D = qg.shape
     out = decode_attention(qg, k_cached, v_cached, old_mask, k_new=k_new, v_new=v_new,
-                           scale=scale, kernels=kernels)
+                           k_scale=k_scale, v_scale=v_scale, scale=scale, kernels=kernels)
     return out.reshape(B, 1, Hkv * G * D)
 
 

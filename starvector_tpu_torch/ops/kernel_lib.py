@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -29,6 +31,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
+
+# the storage types the kernels take and their codes across the C
+# interface (csrc/common.cuh, enum DType); int8 is a cache's or a weight's codes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 _lib: ctypes.CDLL | None = None
 _build_seconds: float | None = None
@@ -128,11 +135,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.sv_decode_attention.restype = i32
     lib.sv_decode_attention.argtypes = [
-        i32, i32, i32, vp, vp, vp, vp, vp, vp, vp,  # dtype, G, D, q, k, v, k_new, v_new, mask, out
-        i32, i32,                                    # B, Hkv
+        i32, i32, i32, i32,                  # dtype, cache dtype, G, D
+        vp, vp, vp, vp, vp, vp, vp, vp, vp,  # q, k, v, k_new, v_new, mask, k_scale, v_scale, out
+        i32, i32,                                     # B, Hkv
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q, k, v strides
         i64, i64, i64, i64,                           # k_new, v_new strides
+        i64, i64, i64, i64, i64, i64,                 # k_scale, v_scale strides
         i64, i32, i32, f32, vp,                       # m_sb, t_begin, t_end, scale, stream
+    ]
+    lib.sv_quant_matmul.restype = i32
+    lib.sv_quant_matmul.argtypes = [
+        i32, i32, i32,               # x, out and bias dtypes
+        vp, vp, vp, vp, vp, vp,      # x, q, scale, bias, out, workspace
+        i32, i32, i32, i64, i64,     # M, K, N, x and out row strides
+        i32, i32, vp,                # K splits, rows a split, stream
     ]
     bwd = [
         i32, i32, vp, vp, vp, vp, vp, vp, vp,  # dtype, D, q, k, v, dout, lse, delta, mask

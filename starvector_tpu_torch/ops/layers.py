@@ -82,14 +82,25 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.float(), b.float())
 
 
-def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None) -> torch.Tensor:
+def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
+          kernels: bool = True) -> torch.Tensor:
     """x @ kernel (+ bias) in the compute dtype. As in the JAX version, the
     product accumulates in fp32 and the bias joins the fp32 sum before the
     one rounding to the compute dtype. When the bias is already in the
     compute dtype (fp32, or bf16 parameters on the card) one `addmm` does
     all of it, adding the bias in cuBLAS's fp32 epilogue; an fp32 bias under
     a bf16 policy, and any bf16 product on the CPU, take the fp32 sum
-    explicitly."""
+    explicitly.
+
+    A quantized leaf ({"kernel_q", "scale"}, ops/quantization.py) goes
+    through the int8 weight kernel in the policy's compute dtype (x's own
+    without a policy), as the JAX dense dispatches on "kernel_q";
+    `kernels=False` runs that kernel's plain version."""
+    if "kernel_q" in params:
+        from starvector_tpu_torch.ops.quantization import dense_quantized
+
+        compute = policy.compute_dtype if policy is not None else x.dtype
+        return dense_quantized(params, x, compute, kernels=kernels)
     w = params["kernel"]
     if policy is not None:
         x = x.to(policy.compute_dtype)

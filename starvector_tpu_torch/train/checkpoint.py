@@ -75,7 +75,7 @@ def load_checkpoint_config(path: str):
     cfg_path = os.path.join(path, "config.yaml")
     if not os.path.exists(cfg_path):
         return None
-    from starvector_tpu.config import load_yaml
+    from starvector_tpu_torch.config import load_yaml
 
     return load_yaml(cfg_path)
 

@@ -5,14 +5,15 @@
 
 The CLI and its keys are the JAX package's: configs/models/default.yaml,
 then the `config=` yaml, then dotlist overrides. One more key,
-`training.device` (default: "cuda" when a card is present, else "cpu"),
-names the device; nothing falls back from one to the other.
+`training.device` (default "cuda"), names the device; without a card the
+run stops and names `training.device=cpu`, it never switches on its own.
 
 `main(config)` reads the config, builds the model from the preset (or a
 local HF-layout checkpoint), the tokenizer, the datasets and the loader, and
-hands them to `train_loop`. It reuses the JAX package's jax-free config,
-tokenizer, dataset and loader modules, imported inside `main`; `train_loop`
-and everything below it import nothing from the JAX package.
+hands them to `train_loop`. The config, tokenizer, dataset and loader
+modules are the port's own copies of the JAX package's; a dataset `target:`
+under `starvector_tpu.data` is read as its `starvector_tpu_torch.data`
+counterpart (config.py).
 
 Left out against the JAX main: the device mesh (one device), the
 out-dir-by-config-hash rule (the run directory is `project.out_dir`, or
@@ -29,6 +30,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from starvector_tpu_torch import require_device
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.train import checkpoint as ckpt
@@ -224,12 +226,12 @@ def reimpose_checkpoint_model_block(config, out_dir: str) -> str | None:
 
 
 def main(config) -> dict:
-    from starvector_tpu.config import instantiate_from_config
-    from starvector_tpu.models.tokenizer import build_test_tokenizer, load_tokenizer
-    from starvector_tpu.train.loader import DataLoader
+    from starvector_tpu_torch.config import instantiate_from_config
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer, load_tokenizer
+    from starvector_tpu_torch.train.loader import DataLoader
 
     g = config.get_path
-    device = torch.device(g("training.device", "cuda" if torch.cuda.is_available() else "cpu"))
+    device = require_device(g("training.device", "cuda"), "training.device=cpu")
     project = g("project.name", "starvector-tpu")
     out_dir = g("project.out_dir", os.path.join("runs", str(project)))
     last = reimpose_checkpoint_model_block(config, out_dir)
@@ -284,7 +286,7 @@ def main(config) -> dict:
 
 
 def main_cli():
-    from starvector_tpu.config import get_config, resolve_repo_config
+    from starvector_tpu_torch.config import get_config, resolve_repo_config
 
     main(get_config(default_path=resolve_repo_config()))
 

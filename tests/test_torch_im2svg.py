@@ -95,7 +95,7 @@ def test_api_generate_im2svg_matches_jax_api(model):
     kw = dict(max_length=8, use_nucleus_sampling=False)
     ref = JModel(jax.tree_util.tree_map(jnp.asarray, tree), jcfg, tok,
                  policy=JF32).generate_im2svg(batch, **kw)
-    port = TModel(convert.from_jax_params(tree), tcfg, tok, policy=TF32)
+    port = TModel(convert.from_jax_params(tree), tcfg, tok, policy=TF32, device="cpu")
     assert port.generate_im2svg(batch, **kw) == ref
     for unported in (dict(num_beams=2), dict(use_speculative=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -108,8 +108,8 @@ def test_from_config_draws_weights_from_the_seed():
     from starvector_tpu_torch.api import StarVectorForCausalLM
 
     cfg = tsv.tiny_config(image_size=56, adapter_norm="batch_norm")
-    a = StarVectorForCausalLM.from_config(cfg, seed=5)
-    b = StarVectorForCausalLM.from_config(cfg, seed=5)
+    a = StarVectorForCausalLM.from_config(cfg, seed=5, device="cpu")
+    b = StarVectorForCausalLM.from_config(cfg, seed=5, device="cpu")
     wa = a.params["svg_transformer"]["layers"]["mlp"]["c_fc"]["kernel"]
     assert wa.shape == (2, 64, 256) and a.policy.compute_dtype == torch.float32
     assert torch.equal(wa, b.params["svg_transformer"]["layers"]["mlp"]["c_fc"]["kernel"])

@@ -1,0 +1,140 @@
+"""The port stands alone: no module of starvector_tpu_torch, and not
+chip_smoke.py, imports jax or the JAX package; its training entry point and
+from_pretrained run with neither in sys.modules; its entry points run on the
+card unless asked for the CPU; and its own copies of the JAX package's
+config, tokenizer, dataset and loader modules give the JAX loader's batch.
+
+The run that checks sys.modules is a subprocess: this test process has
+imported jax (tests/conftest.py)."""
+
+import ast
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "starvector_tpu")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_sources_import_nothing_of_jax():
+    files = sorted((REPO / "starvector_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 35
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_training_and_from_pretrained_leave_jax_out(tmp_path):
+    """The verify skill's CPU training command (a config whose dataset
+    targets name starvector_tpu.data.*), 2 steps, then from_pretrained
+    (quantize=True) on a tiny HF-layout checkpoint and a short generation,
+    in one fresh process: neither jax nor starvector_tpu gets imported."""
+    import jax
+
+    from starvector_tpu.models import starvector as jsv
+    from starvector_tpu.models.tokenizer import build_test_tokenizer
+    from starvector_tpu.train.hub import export_hf_checkpoint
+
+    cfg = jsv.tiny_config(image_size=56)
+    tree = jax.tree_util.tree_map(np.asarray, jsv.init_params(cfg, jax.random.PRNGKey(0)))
+    ckpt, run = tmp_path / "ckpt", tmp_path / "run"
+    export_hf_checkpoint(tree, cfg, build_test_tokenizer("v1"), str(ckpt))
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import torch
+        from starvector_tpu_torch.train.train import main_cli
+        sys.argv = ["train", "config=configs/models/starvector-1b/im2svg-icons.yaml",
+                    "model.preset=tiny", "model.image_size=28",
+                    "data.train.target=starvector_tpu.data.datasets.ToySVGDataset",
+                    "data.train.params.im_size=28", "data.val=null", "data.batch_size=2",
+                    "data.num_workers=1", "training.steps=2", "training.bf16=false",
+                    "training.device=cpu", "project.out_dir={run}"]
+        main_cli()
+        from starvector_tpu_torch.api import StarVectorForCausalLM
+        model = StarVectorForCausalLM.from_pretrained({str(ckpt)!r}, dtype=torch.float32,
+                                                      device="cpu", quantize=True)
+        img = np.random.default_rng(0).integers(0, 256, (40, 56, 3), dtype=np.uint8)
+        text = model.generate_im2svg({{"image": model.process_images([img])}}, max_length=4,
+                                     use_nucleus_sampling=False)
+        assert text[0].startswith("<svg"), text
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("clean")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("clean"), proc.stderr[-4000:]
+    steps = [json.loads(line)["step"] for line in open(run / "metrics.jsonl")
+             if "loss" in json.loads(line)]
+    assert steps == [2]  # log_every 10: the last step logs
+    assert (run / "checkpoint-2").is_dir()
+
+
+def test_entry_points_refuse_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the entry points' default runs there")
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.config import ConfigNode
+    from starvector_tpu_torch.models import starvector as tsv
+    from starvector_tpu_torch.train.train import main
+
+    cfg = tsv.tiny_config(image_size=56)
+    for call in (lambda: StarVectorForCausalLM({}, cfg),
+                 lambda: StarVectorForCausalLM.from_config(cfg),
+                 lambda: StarVectorForCausalLM.from_pretrained(str(tmp_path))):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    with pytest.raises(RuntimeError, match="training.device=cpu"):
+        main(ConfigNode({"project": {"out_dir": str(tmp_path / "run")},
+                         "model": {"preset": "tiny"}}))
+    assert not (tmp_path / "run").exists()
+
+
+def test_config_targets_map_to_the_port():
+    from starvector_tpu_torch.config import get_obj_from_str, port_target
+    from starvector_tpu_torch.data.datasets import SVGIconsDataset
+
+    assert port_target("starvector_tpu.data.datasets.SVGIconsDataset") == \
+        "starvector_tpu_torch.data.datasets.SVGIconsDataset"
+    assert get_obj_from_str("starvector_tpu.data.datasets.SVGIconsDataset") is SVGIconsDataset
+    assert port_target("numpy.zeros") == "numpy.zeros"
+    with pytest.raises(ValueError, match="starvector_tpu.models.starvector.StarVectorConfig"):
+        get_obj_from_str("starvector_tpu.models.starvector.StarVectorConfig")
+
+
+def test_loader_batch_equals_the_jax_loaders():
+    """The first batch of each loader over ToySVGDataset (seed 3): ids,
+    masks, captions and ids equal; images equal to fp32 rounding (atol
+    1e-6): the JAX package resizes with PIL and the port with torch, and at
+    the render's own size both are the identity."""
+    from starvector_tpu.data.datasets import ToySVGDataset as JToy
+    from starvector_tpu.models.tokenizer import build_test_tokenizer as jtokenizer
+    from starvector_tpu.train.loader import DataLoader as JLoader
+    from starvector_tpu_torch.data.datasets import ToySVGDataset as TToy
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer as ttokenizer
+    from starvector_tpu_torch.train.loader import DataLoader as TLoader
+
+    kw = dict(max_length=64, num_workers=1, seed=3, process_index=0, process_count=1)
+    ref = next(iter(JLoader(JToy(num_samples=6, im_size=28), jtokenizer(), 2, **kw)))
+    out = next(iter(TLoader(TToy(num_samples=6, im_size=28), ttokenizer(), 2, **kw)))
+    assert out["id"] == ref["id"] and out["caption"] == ref["caption"]
+    for key in ("svg_ids", "svg_mask"):
+        assert out[key].dtype == ref[key].dtype
+        np.testing.assert_array_equal(out[key], ref[key])
+    assert out["image"].dtype == np.float32 and out["image"].shape == ref["image"].shape
+    np.testing.assert_allclose(out["image"], ref["image"], rtol=0, atol=1e-6)
