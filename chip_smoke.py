@@ -166,11 +166,13 @@ def ptxas_summary(log_text: str) -> list[str]:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             base = next((k for k in ("flash_prefill_kernel", "decode_attention_kernel",
-                                     "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                                     "qmm_gemv_kernel", "qmm_finish_kernel", "qmm_mma_kernel",
-                                     "qmm_f32_kernel")
+                                     "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dkdv_f32_kernel",
+                                     "flash_bwd_dkdv_finish_kernel", "flash_bwd_dq_bf16_kernel",
+                                     "flash_bwd_dq_f32_kernel", "qmm_gemv_kernel",
+                                     "qmm_finish_kernel", "qmm_mma_kernel", "qmm_f32_kernel")
                          if k in mangled), mangled[:40])
-            name = base + kernel_tag(mangled)
+            # the backward's tensor-core and CUDA-core kernels carry their type in the name
+            name = base + ("" if re.search(r"_(bf16|f32)_kernel", base) else kernel_tag(mangled))
         elif "bytes spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "Used" in line and "registers" in line and name is not None:
@@ -349,8 +351,9 @@ TRAIN_CASES = [  # name, B, S, T, H, Hkv, q_offset, window, right_pad, left_pad
 def compare_training(what: str, out, plain, ref32, dtype, live=None) -> float:
     """compare() at the dtype's tolerance; for bf16, failing that, the kernel
     may be no further from the fp32 plain result (on the same bf16 inputs)
-    than twice the plain bf16 version's own distance, plus 1e-3: the kernels
-    keep P and dS in fp32 where the plain version rounds them to bf16."""
+    than twice the plain bf16 version's own distance, plus 1e-3: the forward
+    kernel keeps P in fp32 where the plain version rounds it to bf16 (the
+    backward kernels round P and dS where the plain version does)."""
     try:
         return compare(what, out, plain, dtype, live)
     except AssertionError:
@@ -408,13 +411,23 @@ def check_training_kernels(tfa, dev) -> dict:
                     for w, a, b in (("dq", dq, pq), ("dk", dk, pk), ("dv", dv, pv))]
             if not live.all() and (dq.float()[~live] != 0).any():
                 raise AssertionError(f"dq {tag}: rows that see no key are not zero")
+            same = ""
+            if name == "1B train step" and dtype == torch.bfloat16:
+                # no atomics: the head splits are summed in a fixed order
+                again = (tfa.flash_bwd_dq(q, k, v, mask, do, rl, delta, q_off, **kw),
+                         *tfa.flash_bwd_dkdv(q, k, v, mask, do, rl, delta, q_off, **kw))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+                    raise AssertionError(f"backward {tag}: two launches differ")
+                same = "; a second launch gives bit-identical dq, dk, dv"
+                del again
             worst["flash_prefill_with_lse"] = max(worst["flash_prefill_with_lse"], err_o, err_l)
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
             worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], errs[1], errs[2])
             log("kernels", f"training {tag}: max |diff| out {err_o:.3e}, lse {err_l:.3e}, "
                            f"dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}"
                            + ("" if live.all() else f"; {int((~live).sum())} rows see no key: "
-                              "finite, dq = 0"))
+                              "finite, dq = 0") + same)
             del qkv, q, k, v, do, out, lse, ro, rl, delta, dk, dv, dq, pq, pk, pv, ref32
             torch.cuda.empty_cache()
     return worst
@@ -958,8 +971,8 @@ def fp32_check(sv, tfa, dev, process_images) -> None:
 
 
 TRAIN_KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
-    ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),  # with its finish kernel
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_prefill_with_lse", ("flash_prefill_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")),
     ("layer_norm", ("layer_norm",)),
@@ -1051,7 +1064,8 @@ def training_times(tfa, dev, card: str, train: dict, errs: dict) -> list[dict]:
              3 * act + 2 * kv + 2 * stats + B * T * 4, 6 * D * pairs, lib_bwd)):
         plain_ms, ms = _turns(lambda: fn(False), lambda: fn(True))
         b_ms, b_by = bound(nbytes, flops)
-        log("times", f"{card}: {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log("times", f"{card}: {name} {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                     f"TFLOP/s, {b_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
                      f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
                      f"GFLOP), library {'n/a' if lib is None else f'{lib:.4f} ms'}")
         src = "flash_prefill.cu" if name == "flash_prefill_with_lse" else "flash_backward.cu"
@@ -1059,6 +1073,13 @@ def training_times(tfa, dev, card: str, train: dict, errs: dict) -> list[dict]:
                          replaces=f"starvector_tpu/ops/flash_attention.py:{replaces}",
                          launches=train["counts"][name], max_abs_err=errs[name], ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    # flash_bwd_dkdv at each head split (the default is dkdv_head_split's)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = tfa.dkdv_head_split(B, T, 1, H, sms)
+    sweep = {hs: cuda_ms(lambda: tfa.flash_bwd_dkdv(q, k, v, mask, do, lse, delta, head_split=hs))
+             for hs in (1, 2, 4, 8, 16)}
+    log("times", f"{card}: flash_bwd_dkdv {shape} by head_split (default {split}): "
+                 + ", ".join(f"{hs}: {ms:.4f} ms" for hs, ms in sweep.items()))
     return rows
 
 
@@ -1126,14 +1147,18 @@ def long_context_times(tfa, dev, card: str) -> None:
         t["SDPA bwd"] = sdpa_backward_ms(qh, kh, vh, doh, iters=3)
         pairs = B * H * (S * q_off + S * (S + 1) // 2)
         act, kv, stats, m = B * S * H * D * 2, B * T * D * 2, B * H * S * 4, B * T * 4
-        bounds = {"fwd": bound(2 * act + 2 * kv + stats + m, 4 * D * pairs),
-                  "dkdv": bound(2 * act + 4 * kv + 2 * stats + m, 8 * D * pairs),
-                  "dq": bound(3 * act + 2 * kv + 2 * stats + m, 6 * D * pairs)}
+        flops = {"fwd": 4 * D * pairs, "dkdv": 8 * D * pairs, "dq": 6 * D * pairs}
+        bounds = {"fwd": bound(2 * act + 2 * kv + stats + m, flops["fwd"]),
+                  "dkdv": bound(2 * act + 4 * kv + 2 * stats + m, flops["dkdv"]),
+                  "dq": bound(3 * act + 2 * kv + 2 * stats + m, flops["dq"])}
         log("times", f"{card}: long context {name} (kernel table rows {rows}), B={B} H={H} "
                      f"Hkv=1 D=128 bf16: " + ", ".join(
                          f"{k_} {'n/a' if v_ is None else f'{v_:.3f} ms'}" for k_, v_ in t.items())
                      + "; bounds " + ", ".join(f"{k_} {b_[0]:.4f} ms ({b_[1]})"
-                                               for k_, b_ in bounds.items()))
+                                               for k_, b_ in bounds.items())
+                     + "; kernels " + ", ".join(
+                         f"{k_} {flops[k_] / t[k_] / 1e9:.1f} TFLOP/s ({bounds[k_][0] / t[k_]:.1%} "
+                         "of the bound)" for k_ in bounds))
         del q, k, v, do, out, lse, delta, qh, kh, vh, doh
         torch.cuda.empty_cache()
 

@@ -39,11 +39,13 @@ Kernels 3 and 4, `flash_bwd_dkdv` and `flash_bwd_dq` (csrc/flash_backward.cu)
     `_flash_dqdkv_fused_kernel` (:968, call :1392) that the 1B training step
     runs at T = 769, and the one-pass, dq-partial and split variants that the
     TPU needs at longer T for its VMEM budget (same math). dK/dV per
-    (batch, KV head, 64-key tile), summed over the G query heads in one
-    block; dQ per (batch, head, 64-row tile). fp32 CUDA cores; see the
-    source's header. `flash_backward` computes delta = rowsum(dO * O) in fp32
-    with plain torch, as the JAX package computes it outside its kernels, and
-    launches both.
+    (batch, KV head, 64-key tile, share of the G query heads: `head_split`,
+    the shares summed by a fixed-order second kernel); dQ per (batch, head,
+    64-row tile). bf16 on the tensor cores (wgmma, fp32 sums, P and dS
+    rounded to bf16 where the JAX kernels round them), fp32 on the CUDA
+    cores; see the source's header. `flash_backward` computes delta =
+    rowsum(dO * O) in fp32 with plain torch, as the JAX package computes it
+    outside its kernels, and launches both.
 
 `flash_prefill_trainable` is the autograd Function around them: its
 forward runs `flash_prefill_with_lse` and saves q, k, v, the key mask, out
@@ -297,7 +299,9 @@ def _check_backward(what, q, k, v, kv_mask, do, lse, delta, q_offset, window):
     B, S, T, H, Hkv, D = _check_prefill(what, q, k, v, kv_mask, q_offset, window)
     if do.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(do.shape)}, q {tuple(q.shape)}")
-    _check_operands(what, {"dout": do}, q.dtype, q.device)
+    # the bf16 kernels copy rows 16 bytes at a time
+    aligned = ("q", "k", "v", "dout") if q.dtype == torch.bfloat16 else ()
+    _check_operands(what, {"q": q, "k": k, "v": v, "dout": do}, q.dtype, q.device, aligned)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != (B, H, S) or not t.is_contiguous() \
                 or t.device != q.device:
@@ -308,11 +312,46 @@ def _check_backward(what, q, k, v, kv_mask, do, lse, delta, q_offset, window):
     return B, S, T, H, Hkv, D, strides
 
 
+# flash_bwd_dkdv_bf16_kernel's blocks resident on one SM (about 100 KB of
+# shared memory each, csrc/flash_backward.cu)
+DKDV_BLOCKS_PER_SM = 2
+
+
+def dkdv_head_split(B: int, T: int, Hkv: int, G: int, sms: int) -> int:
+    """flash_bwd_dkdv's default head_split: the blocks that share each KV
+    head's G query heads (a divisor of G). Under the causal mask with S = T
+    (the train step), the block of the first 64-key tile walks G / split x
+    ceil(T / 64) (head, query tile) steps and sets the kernel's time;
+    splitting the heads shortens it but adds a workspace pass. Returns the
+    smallest divisor whose grid fills the card's `sms` SMs and whose longest
+    block walks at most twice the mean steps of a resident block slot."""
+    n_tiles = -(-T // 64)
+    total = B * Hkv * G * n_tiles * (n_tiles + 1) // 2
+    slots = sms * DKDV_BLOCKS_PER_SM
+    for split in (d for d in range(1, G + 1) if G % d == 0):
+        if B * Hkv * n_tiles * split >= sms and (G // split) * n_tiles * slots <= 2 * total:
+            return split
+    return G
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def flash_bwd_dkdv(q, k, v, kv_mask, do, lse, delta, q_offset: int = 0, *,
                    causal: bool = True, window: int | None = None,
-                   scale: float | None = None, kernels: bool = True):
+                   scale: float | None = None, head_split: int | None = None,
+                   kernels: bool = True):
     """dk, dv (B, T, Hkv, D) in k's type, given the forward's lse and
-    delta = rowsum(dO * O), both (B, H, S) fp32."""
+    delta = rowsum(dO * O), both (B, H, S) fp32. `head_split` blocks share
+    each KV head's G query heads, each summing its share into an fp32
+    workspace that a second kernel adds up in a fixed order (a divisor of
+    G; None: dkdv_head_split for this card). The result does not depend on
+    it beyond fp32 summation order."""
+    G = q.shape[2] // max(k.shape[2], 1)
+    if head_split is not None and (head_split < 1 or G % head_split):
+        raise ValueError(f"flash_bwd_dkdv: head_split={head_split} must divide the {G} query "
+                         "heads of a KV head")
     if _use_plain(q, kernels):
         return _backward_plain(q, k, v, kv_mask, lse, delta, do, q_offset, causal, window,
                                scale)[1:]
@@ -323,9 +362,15 @@ def flash_bwd_dkdv(q, k, v, kv_mask, do, lse, delta, q_offset: int = 0, *,
     dv = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
     if B == 0 or T == 0:
         return dk, dv
+    if head_split is None:
+        head_split = dkdv_head_split(B, T, Hkv, G, _sm_count(q.device))
+    ws = None
+    if head_split > 1:
+        ws = torch.empty((2, head_split, B, T, Hkv, D), dtype=torch.float32, device=k.device)
     code = kernel_lib.library().sv_flash_bwd_dkdv(
         kernel_lib.DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if ws is None else ws.data_ptr(), head_split,
         B, S, T, H, Hkv, strides, kv_mask.stride(0), int(q_offset), int(causal),
         int(window or 0), scale, _stream(),
     )

@@ -157,7 +157,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, f32, vp,                # q_offset, causal, window, scale, stream
     ]
     lib.sv_flash_bwd_dkdv.restype = i32
-    lib.sv_flash_bwd_dkdv.argtypes = bwd[:9] + [vp, vp] + bwd[9:]  # dk, dv
+    lib.sv_flash_bwd_dkdv.argtypes = bwd[:9] + [vp, vp, vp, i32] + bwd[9:]  # dk, dv, ws, head_split
     lib.sv_flash_bwd_dq.restype = i32
     lib.sv_flash_bwd_dq.argtypes = bwd[:9] + [vp] + bwd[9:]        # dq
     lib.sv_error_string.restype = ctypes.c_char_p

@@ -198,6 +198,49 @@ def test_cpu_tensors_take_the_plain_versions():
                                    torch.ones((1, 4), dtype=torch.int32, device="meta"))
 
 
+# (B, T, Hkv, G, SMs): the 1B train step on an H100, the long contexts, GQA,
+# a short batch, a smaller card
+PLAN_SHAPES = [(4, 769, 1, 16, 132), (1, 8450, 1, 16, 132), (1, 16642, 1, 2, 132),
+               (2, 130, 4, 4, 132), (2, 37, 1, 16, 132), (4, 769, 1, 16, 16)]
+
+
+@pytest.mark.parametrize("B,T,Hkv,G,sms", PLAN_SHAPES)
+def test_dkdv_head_split_plan_covers_every_head_once(B, T, Hkv, G, sms):
+    """The default head_split divides G, and the kernel's blocks of one
+    (batch, KV head, key tile), split s taking heads hk*G + s*G/split + i
+    for i < G/split, take every query head of the KV head exactly once."""
+    split = tfa.dkdv_head_split(B, T, Hkv, G, sms)
+    assert 1 <= split <= G and G % split == 0
+    for hk in range(Hkv):
+        heads = [hk * G + s * (G // split) + i for s in range(split) for i in range(G // split)]
+        assert sorted(heads) == list(range(hk * G, (hk + 1) * G))
+
+
+def test_dkdv_head_split_fills_the_card_at_the_1b_step():
+    """At B=4, T=769 (13 key tiles, one KV head of 16 query heads) on 132
+    SMs, the default split gives at least one wave of blocks, and its
+    longest block (the first key tile: 13 query tiles x its heads) walks
+    fewer steps than without a split."""
+    split = tfa.dkdv_head_split(4, 769, 1, 16, 132)
+    assert 4 * 13 * split >= 132
+    assert (16 // split) * 13 < 16 * 13
+
+
+@pytest.mark.parametrize("head_split", [0, 3, 5, 32])
+def test_flash_bwd_dkdv_rejects_a_head_split_that_does_not_divide_g(head_split):
+    """Checked before the CPU takes the plain version, so the argument is
+    refused on every device."""
+    q, k, v, mask, _, _, g, _ = _case("mqa")  # H = 4 query heads over one KV head
+    out, lse = tfa.flash_prefill_with_lse(*_t(q, k, v, mask))
+    delta = tfa.attention_delta(out, torch.from_numpy(g))
+    with pytest.raises(ValueError, match="head_split"):
+        tfa.flash_bwd_dkdv(*_t(q, k, v, mask), torch.from_numpy(g), lse, delta,
+                           head_split=head_split)
+    dk, dv = tfa.flash_bwd_dkdv(*_t(q, k, v, mask), torch.from_numpy(g), lse, delta, head_split=2)
+    ref = tfa.flash_bwd_dkdv(*_t(q, k, v, mask), torch.from_numpy(g), lse, delta)
+    torch.testing.assert_close((dk, dv), ref, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -249,3 +292,80 @@ def test_flash_trainable_on_the_card_counts_its_launches(cuda):
     assert (tfa.flash_prefill_with_lse.launches, tfa.flash_bwd_dkdv.launches,
             tfa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def _backward_inputs(q, k, v, mask, g, q_offset=0, window=None):
+    """out, lse and delta from the plain forward, so a comparison isolates
+    the backward kernels."""
+    out, lse = tfa.flash_prefill_with_lse(q, k, v, mask, q_offset, window=window, kernels=False)
+    return out, lse, tfa.attention_delta(out, g)
+
+
+def _1b_step_case(dev, seed=11):
+    """bf16 q, k, v, dout and an all-ones mask at the 1B training shape:
+    B=4, S=T=769, H=16 query heads over one KV head, D=128."""
+    rng = np.random.default_rng(seed)
+    q, g = (rng.standard_normal((4, 769, 16, 128), dtype=np.float32) for _ in "qg")
+    k, v = (rng.standard_normal((4, 769, 1, 128), dtype=np.float32) for _ in "kv")
+    q, k, v, g = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, k, v, g))
+    return q, k, v, torch.ones((4, 769), dtype=torch.int32, device=dev), g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_split", [1, 2, 4, 8, 16])
+def test_bf16_backward_at_the_1b_step_matches_plain_for_each_head_split(cuda, head_split):
+    q, k, v, mask, g = _1b_step_case(cuda)
+    _, lse, delta = _backward_inputs(q, k, v, mask, g)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, mask, g, lse, delta, head_split=head_split)
+    dq = tfa.flash_bwd_dq(q, k, v, mask, g, lse, delta)
+    ref = tfa.flash_bwd_dq(q, k, v, mask, g, lse, delta, kernels=False), \
+        *tfa.flash_bwd_dkdv(q, k, v, mask, g, lse, delta, kernels=False)
+    torch.cuda.synchronize()
+    for a, b in zip((dq, dk, dv), ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), **GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_backward_with_a_head_split_matches_plain(cuda, dtype):
+    """G = 2 query heads over each of 2 KV heads, each KV head's heads split
+    across 2 blocks."""
+    q, k, v, mask, q_offset, window, g, _ = _cuda_case("gqa", cuda, dtype)
+    _, lse, delta = _backward_inputs(q, k, v, mask, g, q_offset, window)
+    got = tfa.flash_bwd_dkdv(q, k, v, mask, g, lse, delta, q_offset, window=window, head_split=2)
+    ref = tfa.flash_bwd_dkdv(q, k, v, mask, g, lse, delta, q_offset, window=window,
+                             kernels=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close([t.float() for t in got], [t.float() for t in ref],
+                               **GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_bf16_rows_that_see_no_key_get_zero_dq(cuda):
+    q, k, v, mask, _, _, g, live = _cuda_case("no_visible_key", cuda, torch.bfloat16)
+    out, lse, delta = _backward_inputs(q, k, v, mask, g)
+    dq = tfa.flash_bwd_dq(q, k, v, mask, g, lse, delta)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, mask, g, lse, delta, head_split=4)
+    ref = tfa.flash_backward(q, k, v, mask, out, lse, g, kernels=False)
+    torch.cuda.synchronize()
+    dead = torch.from_numpy(~live).to(cuda)
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+    assert (dq[dead] == 0).all()
+    assert (dk[1, :6] == 0).all() and (dv[1, :6] == 0).all()
+    for a, b in zip((dq, dk, dv), ref):
+        torch.testing.assert_close(a.float(), b.float(), **GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_bf16_backward_is_bit_identical_across_launches(cuda):
+    """No atomics: the head splits are summed in a fixed order."""
+    q, k, v, mask, g = _1b_step_case(cuda, seed=12)
+    _, lse, delta = _backward_inputs(q, k, v, mask, g)
+    first = (tfa.flash_bwd_dq(q, k, v, mask, g, lse, delta),
+             *tfa.flash_bwd_dkdv(q, k, v, mask, g, lse, delta))
+    second = (tfa.flash_bwd_dq(q, k, v, mask, g, lse, delta),
+              *tfa.flash_bwd_dkdv(q, k, v, mask, g, lse, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
