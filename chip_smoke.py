@@ -7,15 +7,18 @@ H100, end to end through the hand-written kernels.
 Phases, one line each (any failure raises and exits non-zero):
   1. card: name and power limit, torch / CUDA / nvcc versions
   2. build: the CUDA sources of starvector_tpu_torch/csrc, one nvcc each in
-     parallel; registers and spills per kernel from ptxas
+     parallel; registers and spills per kernel from ptxas; the attention
+     kernels' tensor-core (HGMMA) instructions from cuobjdump: present in the
+     bf16 kernels, absent from the fp32 ones
   3. kernels against their plain PyTorch versions on the card, fp32 and
      bf16: the inference pair at the 1B prefill/decode shapes and ragged
      cases; the training forward-with-lse and backward pair at the 1B
-     training shape (B=4, S=T=769), ragged cases, the 8k context
-     (B=1, S=T=8450), sequence-parallel chunks of the 8k and 16k windows and
-     the 16k triangle; the int8 weight matmul (kernel 14: GEMV at M = 1, 4,
-     tile at M = 1040, the four 1B projection shapes, bf16 and fp32, with and
-     without bias) and the int8-cache decode attention
+     training shape (B=4, S=T=769; two bf16 launches bit for bit), ragged
+     cases, the 8k context (B=1, S=T=8450), sequence-parallel chunks of the
+     8k and 16k windows and the 16k triangle; the int8 weight matmul (kernel
+     14: GEMV at M = 1, 4, tile at M = 1040, the four 1B projection shapes,
+     bf16 and fp32, with and without bias) and the int8-cache decode
+     attention
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -158,20 +161,27 @@ def kernel_tag(mangled: str) -> str:
     return tag + (f" rows<={rows.group(1)}" if rows else "")
 
 
+KERNEL_NAMES = ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel", "decode_attention_kernel",
+                "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dkdv_f32_kernel",
+                "flash_bwd_dkdv_finish_kernel", "flash_bwd_dq_bf16_kernel",
+                "flash_bwd_dq_f32_kernel", "qmm_gemv_kernel", "qmm_finish_kernel",
+                "qmm_mma_kernel", "qmm_f32_kernel")
+
+
 def ptxas_summary(log_text: str) -> list[str]:
     """'<kernel><type>: N registers, S bytes spilled' for each kernel ptxas
-    compiled, read from its -v output."""
-    out, name, spill = [], None, 0
+    compiled, read from its -v output; then any kernel whose wgmma products
+    ptxas serialized, with its reason."""
+    out, name, spill, serialized = [], None, 0, []
     for line in log_text.splitlines():
+        if "wgmma" in line and "serialized" in line:
+            mangled = line.rsplit("'", 2)[-2] if line.count("'") >= 2 else ""
+            base = next((k for k in KERNEL_NAMES if k in mangled), mangled[:40])
+            serialized.append(f"{base}: wgmma serialized ({line.split(':', 1)[-1].strip()[:160]})")
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            base = next((k for k in ("flash_prefill_kernel", "decode_attention_kernel",
-                                     "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dkdv_f32_kernel",
-                                     "flash_bwd_dkdv_finish_kernel", "flash_bwd_dq_bf16_kernel",
-                                     "flash_bwd_dq_f32_kernel", "qmm_gemv_kernel",
-                                     "qmm_finish_kernel", "qmm_mma_kernel", "qmm_f32_kernel")
-                         if k in mangled), mangled[:40])
-            # the backward's tensor-core and CUDA-core kernels carry their type in the name
+            base = next((k for k in KERNEL_NAMES if k in mangled), mangled[:40])
+            # the attention tensor-core and CUDA-core kernels carry their type in the name
             name = base + ("" if re.search(r"_(bf16|f32)_kernel", base) else kernel_tag(mangled))
         elif "bytes spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
@@ -179,7 +189,30 @@ def ptxas_summary(log_text: str) -> list[str]:
             regs = int(line.split("Used")[1].split()[0])
             out.append(f"{name} {regs} registers, {spill} bytes spilled")
             name, spill = None, 0
-    return out
+    return out + serialized
+
+
+TENSOR_CORE_KERNELS = ("flash_prefill_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
+                       "flash_bwd_dq_bf16_kernel")
+CUDA_CORE_KERNELS = ("flash_prefill_f32_kernel", "flash_bwd_dkdv_f32_kernel",
+                     "flash_bwd_dq_f32_kernel")
+
+
+def sass_hgmma(lib: Path, nvcc: str) -> dict[str, int]:
+    """The warpgroup tensor-core instructions (HGMMA) of each kernel in the
+    built library's machine code, from the toolkit's cuobjdump beside nvcc."""
+    sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            mangled = line.split("Function : ", 1)[1].strip()
+            name = next((k for k in KERNEL_NAMES if k in mangled), None)
+            if name is not None:
+                counts.setdefault(name, 0)
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def compare(what: str, out: torch.Tensor, ref: torch.Tensor, dtype, live=None) -> float:
@@ -351,8 +384,10 @@ TRAIN_CASES = [  # name, B, S, T, H, Hkv, q_offset, window, right_pad, left_pad
 def compare_training(what: str, out, plain, ref32, dtype, live=None) -> float:
     """compare() at the dtype's tolerance; for bf16, failing that, the kernel
     may be no further from the fp32 plain result (on the same bf16 inputs)
-    than twice the plain bf16 version's own distance, plus 1e-3: the forward
-    kernel keeps P in fp32 where the plain version rounds it to bf16 (the
+    than twice the plain bf16 version's own distance, plus 1e-3: the kernels
+    round at the JAX kernels' points, which are not all the plain version's
+    (the forward kernel rounds the unnormalised P to bf16 against the
+    running max of its key tile, the plain version the normalised P; the
     backward kernels round P and dS where the plain version does)."""
     try:
         return compare(what, out, plain, dtype, live)
@@ -413,14 +448,18 @@ def check_training_kernels(tfa, dev) -> dict:
                 raise AssertionError(f"dq {tag}: rows that see no key are not zero")
             same = ""
             if name == "1B train step" and dtype == torch.bfloat16:
-                # no atomics: the head splits are summed in a fixed order
+                # no atomics: each output is written once, the backward's head
+                # splits summed in a fixed order
+                fwd = tfa.flash_prefill_with_lse(q, k, v, mask, q_off, **kw)
                 again = (tfa.flash_bwd_dq(q, k, v, mask, do, rl, delta, q_off, **kw),
                          *tfa.flash_bwd_dkdv(q, k, v, mask, do, rl, delta, q_off, **kw))
                 torch.cuda.synchronize()
+                if not (torch.equal(fwd[0], out) and torch.equal(fwd[1], lse)):
+                    raise AssertionError(f"forward {tag}: two launches differ")
                 if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
                     raise AssertionError(f"backward {tag}: two launches differ")
-                same = "; a second launch gives bit-identical dq, dk, dv"
-                del again
+                same = "; a second launch gives bit-identical out, lse, dq, dk, dv"
+                del again, fwd
             worst["flash_prefill_with_lse"] = max(worst["flash_prefill_with_lse"], err_o, err_l)
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
             worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], errs[1], errs[2])
@@ -505,7 +544,7 @@ def full_width_params(sv, cfg, dev, dtype, seed: int = 0) -> dict:
 
 KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
     ("decode_attention", ("decode_attention_kernel",)),
-    ("flash_prefill", ("flash_prefill_kernel",)),
+    ("flash_prefill", ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel")),
     ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")),
     ("layer_norm", ("layer_norm",)),
 )
@@ -973,7 +1012,7 @@ def fp32_check(sv, tfa, dev, process_images) -> None:
 TRAIN_KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
     ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),  # with its finish kernel
     ("flash_bwd_dq", ("flash_bwd_dq",)),
-    ("flash_prefill_with_lse", ("flash_prefill_kernel",)),
+    ("flash_prefill_with_lse", ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")),
     ("layer_norm", ("layer_norm",)),
 )
@@ -1119,13 +1158,14 @@ def long_context_times(tfa, dev, card: str) -> None:
     """The training kernels at the long-context contracts of the TPU's other
     backward variants (kernel table rows 4, 7-13), bf16: each kernel, the
     plain versions and SDPA (forward, and its backward against dkdv + dq),
-    each beside its bound. Eager calls between CUDA events (3 after 3 of
-    warm-up): each is milliseconds to seconds of device work, and the plain
-    version's (H, S, T) fp32 blocks are too large to capture 50 of in a
-    graph."""
+    each beside its bound. The kernels and SDPA's forward are graph-replayed
+    (10 kernel calls a graph); the plain versions and SDPA's backward run
+    eager between CUDA events (3 after 3 of warm-up): each is tens of
+    milliseconds to seconds of device work, and the plain version's
+    (H, S, T) fp32 blocks are too large to capture several of in a graph."""
     g = torch.Generator(device=dev).manual_seed(12)
     D = 128
-    timer = functools.partial(event_ms, iters=3)
+    timer, graphed = functools.partial(event_ms, iters=3), functools.partial(cuda_ms, iters=10)
     for name, rows, B, S, T, H, q_off in LONG_CASES:
         q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
         k, v = (torch.randn((B, T, 1, D), generator=g, device=dev).bfloat16() for _ in "kv")
@@ -1133,9 +1173,9 @@ def long_context_times(tfa, dev, card: str) -> None:
         mask = torch.ones((B, T), dtype=torch.int32, device=dev)
         out, lse = tfa.flash_prefill_with_lse(q, k, v, mask, q_off)
         delta = tfa.attention_delta(out, do)
-        t = {"fwd": timer(lambda: tfa.flash_prefill_with_lse(q, k, v, mask, q_off)),
-             "dkdv": timer(lambda: tfa.flash_bwd_dkdv(q, k, v, mask, do, lse, delta, q_off)),
-             "dq": timer(lambda: tfa.flash_bwd_dq(q, k, v, mask, do, lse, delta, q_off)),
+        t = {"fwd": graphed(lambda: tfa.flash_prefill_with_lse(q, k, v, mask, q_off)),
+             "dkdv": graphed(lambda: tfa.flash_bwd_dkdv(q, k, v, mask, do, lse, delta, q_off)),
+             "dq": graphed(lambda: tfa.flash_bwd_dq(q, k, v, mask, do, lse, delta, q_off)),
              "plain fwd": timer(lambda: tfa.flash_prefill_with_lse(q, k, v, mask, q_off,
                                                                    kernels=False)),
              "plain bwd": timer(lambda: tfa.flash_backward(q, k, v, mask, out, lse, do, q_off,
@@ -1200,6 +1240,13 @@ def main() -> int:
                  f"{'built in %.1f s' % built if built is not None else 'reused'} "
                  f"(load {time.perf_counter() - t0:.1f} s); ptxas per kernel: "
                  + "; ".join(ptxas_summary(kernel_lib.build_log())))
+    hgmma = sass_hgmma(kernel_lib.library_path(), kernel_lib.find_nvcc())
+    if not all(hgmma.get(k) for k in TENSOR_CORE_KERNELS) or \
+            any(hgmma.get(k) for k in CUDA_CORE_KERNELS):
+        raise AssertionError(f"HGMMA instructions per kernel: {hgmma}")
+    log("build", "HGMMA (wgmma) instructions in the machine code (cuobjdump -sass): "
+                 + ", ".join(f"{k} {hgmma.get(k, 0)}"
+                             for k in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS))
 
     # --- 3. kernels against their plain versions --------------------------------
     err_prefill = check_flash_prefill(tfa, dev)
@@ -1297,7 +1344,8 @@ def main() -> int:
     err_p = (logits[False] - ref32).abs().max().item()
     # bound: the kernels may not add more error than bf16 itself does. Both
     # bf16 paths leave the fp32 logits by bf16 rounding compounded over 24
-    # layers; the kernels keep P in fp32 where the plain version rounds it.
+    # layers; the prefill kernel rounds the unnormalised P where the JAX
+    # kernel does, the plain version the normalised P.
     if not torch.isfinite(logits[True]).all() or err_k > 2.0 * err_p + 1e-3:
         raise AssertionError(f"bf16 prefill logits: kernels {err_k:.3e} from fp32, over twice "
                              f"the plain version's {err_p:.3e}")
@@ -1342,10 +1390,13 @@ def main() -> int:
                   causal=True)
     # q and out, then K/V and the mask over the P keys the causal bound lets
     # the kernel read (the slots from P to T are never visible)
-    b_ms, b_by = bound(2 * B * P * H * D * 2 + 2 * B * P * D * 2 + B * P * 4,
-                       4 * D * H * B * P * (P + 1) // 2)
+    nbytes = 2 * B * P * H * D * 2 + 2 * B * P * D * 2 + B * P * 4
+    flops = 4 * D * H * B * P * (P + 1) // 2
+    b_ms, b_by = bound(nbytes, flops)
     log("times", f"{card}: flash_prefill B=4 S=261 T=389 H=16 Hkv=1 D=128 bf16: kernel "
-                 f"{times[1]:.4f} ms, plain {times[0]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                 f"{times[1]:.4f} ms ({flops / times[1] / 1e9:.1f} TFLOP/s, "
+                 f"{b_ms / times[1]:.1%} of the bound), plain {times[0]:.4f} ms, bound "
+                 f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
                  f"SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}")
     kernels_json.append(dict(name="flash_prefill", route="cuda",
                              source="starvector_tpu_torch/csrc/flash_prefill.cu",

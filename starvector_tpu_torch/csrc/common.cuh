@@ -112,6 +112,26 @@ __device__ __forceinline__ void load_vec(const int8_t* p, float* o) {
   }
 }
 
+// Whether query position qpos sees key position t under the causal and
+// sliding-window masks (window <= 0: none).
+__device__ __forceinline__ bool visible(int t, int qpos, int causal, int window) {
+  return (!causal || t <= qpos) && (window <= 0 || t > qpos - window);
+}
+
+// Keys [t_begin, t_end) that the query tile of TILE rows at r0 can see
+// (t_begin a tile multiple): up to the causal bound of its last row, from
+// the window edge of its first row. Args: an attention kernel's arguments
+// (S, T, q_offset, causal, window).
+template <int TILE, class Args>
+__device__ __forceinline__ void key_range(const Args& a, int r0, int& t_begin, int& t_end) {
+  const int rows = min(TILE, a.S - r0);
+  const int first_q = a.q_offset + r0;
+  const int last_q = first_q + rows - 1;
+  t_end = a.causal ? min(a.T, last_q + 1) : a.T;
+  t_begin = a.window > 0 ? max(0, first_q - a.window + 1) : 0;
+  t_begin -= t_begin % TILE;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

@@ -105,10 +105,6 @@ struct BwdArgs {
   float scale;
 };
 
-__device__ __forceinline__ bool visible(int t, int qpos, int causal, int window) {
-  return (!causal || t <= qpos) && (window <= 0 || t > qpos - window);
-}
-
 // Query tiles [i_lo, i_hi) that can see a key of the tile at t0: from the
 // causal bound of its first key, up to the window edge of its last key.
 __device__ __forceinline__ void query_tiles(const BwdArgs& a, int t0, int& i_lo, int& i_hi) {
@@ -118,18 +114,6 @@ __device__ __forceinline__ void query_tiles(const BwdArgs& a, int t0, int& i_lo,
   if (a.window > 0) r_hi = min(r_hi, t_last + a.window - a.q_offset);
   i_lo = r_lo / kTile;
   i_hi = r_hi > r_lo ? (r_hi + kTile - 1) / kTile : i_lo;
-}
-
-// Keys [t_begin, t_end) that the query tile at r0 can see (t_begin a tile
-// multiple): up to the causal bound of its last row, from the window edge of
-// its first row.
-__device__ __forceinline__ void key_range(const BwdArgs& a, int r0, int& t_begin, int& t_end) {
-  const int rows = min(kTile, a.S - r0);
-  const int first_q = a.q_offset + r0;
-  const int last_q = first_q + rows - 1;
-  t_end = a.causal ? min(a.T, last_q + 1) : a.T;
-  t_begin = a.window > 0 ? max(0, first_q - a.window + 1) : 0;
-  t_begin -= t_begin % kTile;
 }
 
 // Offset of the fp32 partial of (split, b, t, hk, d = 0) in the workspace
@@ -158,10 +142,6 @@ constexpr int kDkSmem = kDkMask + kTile * 4 + 1024;
 constexpr int kDqQ = 0, kDqO = kTileBytes, kDqRing = 2 * kTileBytes;
 constexpr int kDqMask = 6 * kTileBytes;
 constexpr int kDqSmem = kDqMask + 2 * kTile * 4 + 1024;
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 // Copies one (head, query tile) step of flash_bwd_dkdv into ring stage
 // `stage`: Q and dO rows [r0, r0 + 64) of head h, and their lse and delta.
@@ -226,7 +206,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) flash_bwd_dkdv_bf16_kernel(cons
   const int kr0 = 16 * w + g;
   for (int n = 0; n < steps; ++n) {
     const int stage = n & 1;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // step n landed for every thread; stage ^ 1 (step n - 1) is free
     if (n + 1 < steps) {
       dkdv_issue(a, base + kDkRing, stats, stage ^ 1, b, h0 + (n + 1) / nq,
@@ -248,7 +228,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) flash_bwd_dkdv_bf16_kernel(cons
     for (int k = 0; k < kHead / 16; ++k)
       wgmma_ss(dp, desc_k_major(base + kDkV, kTile, k), desc_k_major(ot, kTile, k), k > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
 
@@ -297,7 +277,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) flash_bwd_dkdv_bf16_kernel(cons
 #pragma unroll
       for (int k = 0; k < 4; ++k) wgmma_rs_mn(dk[c], da[k], desc_mn_major(qt, kTile, c, k), 1);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       fence_regs(dk[c]);
@@ -365,7 +345,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) flash_bwd_dq_bf16_kernel(const 
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g = lane >> 2, t4 = lane & 3;
   int t_begin, t_end;
-  key_range(a, r0, t_begin, t_end);
+  key_range<kTile>(a, r0, t_begin, t_end);
   const int steps = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile : 0;
 
   // this thread's accumulator rows are query rows r0 + 16w + g (+ 8)
@@ -396,7 +376,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) flash_bwd_dq_bf16_kernel(const 
   for (int n = 0; n < steps; ++n) {
     const int stage = n & 1;
     const int t0 = t_begin + n * kTile;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // tile n landed for every thread; stage ^ 1 (tile n - 1) is free
     if (n + 1 < steps) {
       dq_issue(a, base + kDqRing, kmask, stage ^ 1, b, hk, t0 + kTile);
@@ -416,7 +396,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) flash_bwd_dq_bf16_kernel(const 
     for (int k = 0; k < kHead / 16; ++k)
       wgmma_ss(dp, desc_k_major(base + kDqO, kTile, k), desc_k_major(vt, kTile, k), k > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
 
@@ -449,7 +429,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) flash_bwd_dq_bf16_kernel(const 
 #pragma unroll
       for (int k = 0; k < 4; ++k) wgmma_rs_mn(dq[c], da[k], desc_mn_major(kt, kTile, c, k), 1);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(dq[0]);
     fence_regs(dq[1]);
   }
@@ -728,7 +708,7 @@ __global__ void __launch_bounds__(kF32Threads, 1) flash_bwd_dq_f32_kernel(const 
   }
 
   int t_begin, t_end;
-  key_range(a, r0, t_begin, t_end);
+  key_range<kTile>(a, r0, t_begin, t_end);
 
   float acc[kWarpRows][DC];
 #pragma unroll

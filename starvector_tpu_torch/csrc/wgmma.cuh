@@ -42,6 +42,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The first 1024-byte boundary at or after p (the dynamic shared memory base
+// is only 16-byte aligned; kernels allocate 1024 bytes of slack for this).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
 // Byte offset of the 16-byte chunk `chunk` (8 columns) of row r in a
 // swizzled tile of `rows` rows.
 __device__ __forceinline__ uint32_t swizzled_chunk(int rows, int r, int chunk) {
@@ -68,11 +74,12 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Waits for this thread's copies, then makes them visible to the tensor
-// cores' (async proxy) reads; a __syncthreads() must follow before another
-// thread's copies are read.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Waits until at most N of this thread's copy groups are pending, then
+// makes the landed copies visible to the tensor cores' (async proxy) reads;
+// a __syncthreads() must follow before another thread's copies are read.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
@@ -123,8 +130,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N of the warpgroup's committed product groups are
+// pending (groups retire in commit order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accesses of an accumulator across the

@@ -6,11 +6,12 @@ Kernel 1, `flash_prefill` (csrc/flash_prefill.cu)
     `_flash_fwd_cell` (starvector_tpu/ops/flash_attention.py:212, call :254).
     Causal flash attention with online fp32 softmax, key mask, absolute
     query offset and sliding window, MQA/GQA, head size 128 (the only
-    one StarVector-1B has, and the only one built). On the H100 this first
-    version runs its products on the fp32 CUDA cores, so it is bound by
-    instruction issue, far below both the tensor-core and the HBM roof; it
-    stages each 64-key tile of K and V in shared memory once for 64 query
-    rows and stops at the causal bound (see the source's header).
+    one StarVector-1B has, and the only one built). bf16 runs on the tensor
+    cores (wgmma, fp32 sums; the unnormalised P rounded to bf16 before the
+    P V product, where the JAX cell rounds it), one warpgroup a 64-row query
+    tile, the last tiles first, K/V tiles copied by cp.async one tile ahead;
+    fp32 runs on the CUDA cores. Both stop at the causal bound (see the
+    source's header). bf16 q, k and v need 16-byte aligned rows.
 
 Kernel 2, `decode_attention` (csrc/decode_attention.cu)
     Replaces the Pallas TPU kernel `mqa_decode_batched` ->
@@ -30,9 +31,10 @@ Kernel 1 with the logsumexp, `flash_prefill_with_lse` (csrc/flash_prefill.cu)
     Replaces the Pallas TPU kernels `flash_prefill_with_lse` ->
     `_flash_lse_kernel` (:307, call :512) and `_flash_lse_tri_kernel` (:330,
     call :455): the training forward, which also writes each row's
-    logsumexp (B, H, S) fp32 for the backward. The same CUDA kernel with its
-    lse output switched on; its k loop stops at the causal bound, so it
-    visits only the live triangle that the TPU's triangular grid enumerates.
+    logsumexp (B, H, S) fp32 for the backward. The same CUDA kernels (bf16
+    on the tensor cores, fp32 on the CUDA cores) with their lse output
+    switched on; the k loop stops at the causal bound, so it visits only
+    the live triangle that the TPU's triangular grid enumerates.
 
 Kernels 3 and 4, `flash_bwd_dkdv` and `flash_bwd_dq` (csrc/flash_backward.cu)
     Replace the Pallas TPU backward `flash_backward` (:1257): the fused
@@ -134,7 +136,9 @@ def _check_prefill(what, q, k, v, kv_mask, q_offset, window):
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if H % Hkv or D != 128:
         raise ValueError(f"{what}: H={H}, Hkv={Hkv}, D={D} (the kernel takes D = 128)")
-    _check_operands(what, {"q": q, "k": k, "v": v}, q.dtype, q.device)
+    # the bf16 kernels copy rows 16 bytes at a time
+    aligned = ("q", "k", "v") if q.dtype == torch.bfloat16 else ()
+    _check_operands(what, {"q": q, "k": k, "v": v}, q.dtype, q.device, aligned)
     _check_mask(what, kv_mask, (B, T), q.device)
     if int(q_offset) < 0 or (window is not None and window <= 0):
         raise ValueError(f"{what}: q_offset={q_offset}, window={window}")
@@ -299,9 +303,9 @@ def _check_backward(what, q, k, v, kv_mask, do, lse, delta, q_offset, window):
     B, S, T, H, Hkv, D = _check_prefill(what, q, k, v, kv_mask, q_offset, window)
     if do.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(do.shape)}, q {tuple(q.shape)}")
-    # the bf16 kernels copy rows 16 bytes at a time
-    aligned = ("q", "k", "v", "dout") if q.dtype == torch.bfloat16 else ()
-    _check_operands(what, {"q": q, "k": k, "v": v, "dout": do}, q.dtype, q.device, aligned)
+    # q, k and v checked as the forward's; dout is copied 16 bytes a row too
+    aligned = ("dout",) if q.dtype == torch.bfloat16 else ()
+    _check_operands(what, {"dout": do}, q.dtype, q.device, aligned)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != (B, H, S) or not t.is_contiguous() \
                 or t.device != q.device:

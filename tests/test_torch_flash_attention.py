@@ -192,6 +192,25 @@ def test_flash_prefill_kernel_matches_plain(cuda, name, dtype):
 
 
 @pytest.mark.gpu
+def test_bf16_flash_prefill_at_the_1b_prefill_matches_plain(cuda):
+    """The 1B prefill: B=4, a 261-token prefix in a cache of 389 slots
+    (unwritten tail masked), 16 query heads over one KV head, q a strided
+    view of the fused [q | k | v] projection as the decoder passes it."""
+    rng = np.random.default_rng(6)
+    B, S, T, H, D = 4, 261, 389, 16, 128
+    qkv = torch.from_numpy(_rand(rng, (B, S, (H + 2) * D))).to(cuda, torch.bfloat16)
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    k, v = (torch.from_numpy(_rand(rng, (B, T, 1, D))).to(cuda, torch.bfloat16) for _ in "kv")
+    mask = torch.ones((B, T), dtype=torch.int32, device=cuda)
+    mask[:, S:] = 0
+    out = tfa.flash_prefill(q, k, v, mask)
+    ref = tfa.flash_prefill(q, k, v, mask, kernels=False)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), **GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T", [(1, 1), (4, 300), (1, 2049)])
 def test_decode_attention_kernel_matches_plain(cuda, B, T, dtype):

@@ -96,6 +96,36 @@ def test_flash_prefill_with_lse_plain_matches_pallas(jfa, name, tri):
                                np.asarray(ref_lse).transpose(0, 2, 1)[live], **TOL)
 
 
+@pytest.mark.parametrize("fn", ["flash_prefill", "flash_prefill_with_lse"])
+@pytest.mark.parametrize("name", ["mqa", "gqa", "padded_keys", "ragged", "q_offset", "window"])
+def test_bf16_forward_plain_matches_pallas_in_bf16(jfa, name, fn):
+    """bf16 inputs through the Pallas forward kernels (interpret mode, 16-key
+    blocks, so T spans several tiles) and the port's plain versions. The
+    Pallas cell rounds the unnormalised P to bf16 before the P V product
+    (the bf16 kernel's rounding point); the plain versions round the
+    normalised P. Outputs agree within one or two bf16 steps (atol = rtol
+    2e-2); lse, an fp32 sum of fp32 exponentials, within 1e-4."""
+    import jax.numpy as jnp
+
+    q, k, v, mask, q_offset, window, _, live = _case(name, seed=7)
+    jq, jk, jv = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    tmask = torch.from_numpy(mask)
+    blocks = dict(block_q=16, block_k=16, interpret=True)
+    if fn == "flash_prefill":
+        ref = jfa.flash_prefill(jq, jk, jv, jnp.asarray(mask), q_offset, window=window, **blocks)
+        out = tfa.flash_prefill(tq, tk, tv, tmask, q_offset, window=window)
+    else:
+        ref, ref_lse = jfa.flash_prefill_with_lse(jq, jk, jv, jnp.asarray(mask), q_offset,
+                                                  window=window, **blocks)
+        out, lse = tfa.flash_prefill_with_lse(tq, tk, tv, tmask, q_offset, window=window)
+        np.testing.assert_allclose(lse.numpy().transpose(0, 2, 1)[live],
+                                   np.asarray(ref_lse).transpose(0, 2, 1)[live], **TOL)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy()[live], np.asarray(ref, np.float32)[live],
+                               rtol=2e-2, atol=2e-2)
+
+
 # (variant, case): each Pallas backward variant with the explicit arguments
 # that select it, over a matrix that covers every case at least once
 BACKWARD = {
@@ -369,3 +399,62 @@ def test_bf16_backward_is_bit_identical_across_launches(cuda):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_forward_at_the_1b_step_matches_plain(cuda):
+    """The tensor-core forward with its lse at the 1B training shape."""
+    q, k, v, mask, _ = _1b_step_case(cuda, seed=13)
+    out, lse = tfa.flash_prefill_with_lse(q, k, v, mask)
+    ref_out, ref_lse = tfa.flash_prefill_with_lse(q, k, v, mask, kernels=False)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), **GPU_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **GPU_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_bf16_forward_rows_that_see_no_key_give_zeros(cuda):
+    """Rows with every key masked: zero output and lse = -1e30 + log(1e-30)
+    (which is -1e30 in fp32), never NaN; the other rows match the plain
+    version."""
+    q, k, v, mask, _, _, _, live = _cuda_case("no_visible_key", cuda, torch.bfloat16)
+    out, lse = tfa.flash_prefill_with_lse(q, k, v, mask)
+    ref_out, ref_lse = tfa.flash_prefill_with_lse(q, k, v, mask, kernels=False)
+    torch.cuda.synchronize()
+    live = torch.from_numpy(live).to(cuda)
+    assert torch.isfinite(out.float()).all()
+    assert (out[~live] == 0).all()
+    assert (lse.transpose(1, 2)[~live] == np.float32(tfa.KERNEL_NEG_INF)).all()
+    torch.testing.assert_close(out[live].float(), ref_out[live].float(), **GPU_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse.transpose(1, 2)[live], ref_lse.transpose(1, 2)[live],
+                               **GPU_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_bf16_forward_is_bit_identical_across_launches(cuda):
+    """Each output is written once, with no atomics."""
+    q, k, v, mask, _ = _1b_step_case(cuda, seed=14)
+    first = tfa.flash_prefill_with_lse(q, k, v, mask)
+    second = tfa.flash_prefill_with_lse(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+def test_bf16_forward_refuses_rows_that_are_not_16_byte_aligned(cuda):
+    """The bf16 kernel copies rows 16 bytes at a time: a q whose rows are
+    513 elements (1026 bytes) apart is refused, not read misaligned; fp32
+    rows are read one element at a time and need no alignment."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 8, 4 * 128 + 1), device=cuda).to(dtype)[..., :512].unflatten(-1, (4, 128))
+        k = torch.randn((1, 8, 1, 128), device=cuda).to(dtype)
+        mask = torch.ones((1, 8), dtype=torch.int32, device=cuda)
+        if dtype == torch.bfloat16:
+            for fn in (tfa.flash_prefill, tfa.flash_prefill_with_lse):
+                with pytest.raises(ValueError, match="aligned"):
+                    fn(q, k, k, mask)
+        else:
+            torch.testing.assert_close(tfa.flash_prefill(q, k, k, mask),
+                                       tfa.flash_prefill(q, k, k, mask, kernels=False),
+                                       **GPU_TOL[dtype])
