@@ -144,4 +144,42 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ---------------------------------------------------------------------------
+// mma.sync building blocks (warp-level tensor-core products, sm_80 and up)
+// ---------------------------------------------------------------------------
+
+// c += a b for one m16n8k16 bf16 product with fp32 sums. Per thread (g =
+// lane / 4, t = lane % 4): a[0..3] hold A's bf16 pairs (row g, cols 2t, 2t+1),
+// (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8); b[0..1] B's pairs (rows 2t, 2t+1
+// and 2t + 8, 2t + 9; col g); c[0..3] rows g, g, g + 8, g + 8 at cols 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 contiguous bytes); r[i] receives matrix i's
+// pair (row lane / 4, cols 2 (lane % 4), + 1), or with .trans its pair
+// (rows 2 (lane % 4), + 1; col lane / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Two floats rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 }  // namespace sv

@@ -171,14 +171,6 @@ __global__ void __launch_bounds__(256) qmm_finish_kernel(
 constexpr int kBM = 64, kBN = 64, kBK = 64, kPad = 8;
 constexpr int kTileThreads = 128;  // 4 warps, 2 x 2, each 32 x 32
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 template <typename TO>
 __global__ void __launch_bounds__(kTileThreads) qmm_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,

@@ -21,11 +21,14 @@ Kernel 2, `decode_attention` (csrc/decode_attention.cu)
     runs for every generated token. One new query token per row against
     the cache, with the new token's key and value optionally merged into
     the same softmax. Built for StarVector-1B's 16 query heads per KV head
-    and head size 128 only. Bound on the H100 by latency and by having one
-    block per (row, KV head); eight warps per block split the keys between
-    them (see the source's header). An int8 cache (codes with per
-    (row, position, KV head) fp32 k_scale / v_scale, the JAX package's
-    init_cache(dtype=int8)) takes its own instantiation of the same kernel.
+    and head size 128 only. Bound on the H100 by latency: the keys are split
+    across blocks (`decode_splits`), each block's partial softmax goes to a
+    workspace, and the last block of each (row, KV head) merges them in
+    split order in the same launch. bf16 queries run on the tensor cores
+    (mma.sync, P rounded to bf16 before P V as the JAX function rounds it),
+    fp32 queries on the CUDA cores (see the source's header). An int8 cache
+    (codes with per (row, position, KV head) fp32 k_scale / v_scale, the JAX
+    package's init_cache(dtype=int8)) takes its own instantiations.
 
 Kernel 1 with the logsumexp, `flash_prefill_with_lse` (csrc/flash_prefill.cu)
     Replaces the Pallas TPU kernels `flash_prefill_with_lse` ->
@@ -62,6 +65,7 @@ back. Each wrapper counts its launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -338,6 +342,7 @@ def dkdv_head_split(B: int, T: int, Hkv: int, G: int, sms: int) -> int:
     return G
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -525,6 +530,55 @@ def _check_scales(k_cache, v_cache, k_scale, v_scale, B: int, T: int, Hkv: int, 
                              f"on {t.device}")
 
 
+# kernel 2's split-KV grid: each block takes a chunk of keys, a multiple of
+# the 128-key tile (8 warps x 16 keys) up to 256; one block fills an SM
+DECODE_KEY_TILE = 128
+DECODE_MAX_CHUNK = 256
+DECODE_BLOCKS_PER_SM = 1
+
+
+@functools.lru_cache(maxsize=256)  # a few shapes per request; looked up every call
+def decode_splits(B: int, Hkv: int, T: int, sms: int) -> tuple[int, int]:
+    """decode_attention's plan for T keys counted from the 128-key tile that
+    holds t_begin: (splits, chunk), chunk 128 or 256 keys and splits * chunk
+    >= T (at least one split). Takes the fewest tiles a chunk for which the
+    B * Hkv * splits blocks fit the card's resident slots (one on each of
+    its `sms` SMs): about one wave of the SMs where there are keys enough,
+    and as few partials for each (row, KV head)'s last block to merge as
+    that allows."""
+    tiles = max(1, -(-T // DECODE_KEY_TILE))
+    per = -(-(B * Hkv * tiles) // (DECODE_BLOCKS_PER_SM * sms))
+    per = max(1, min(per, DECODE_MAX_CHUNK // DECODE_KEY_TILE, tiles))
+    return -(-tiles // per), per * DECODE_KEY_TILE
+
+
+# per device: one ticket counter per (row, KV head) of a launch, zeroed once,
+# and the fp32 workspace of the split partials; each grows to the largest
+# launch seen. The kernel leaves the tickets at zero, so launches (and graph
+# replays) share both. Two launches that could run at once (on two streams)
+# must not share them.
+_DECODE_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _decode_scratch(device: torch.device, n_tickets: int,
+                    n_partials: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tickets, workspace) for a launch of n_tickets (row, KV head) pairs
+    and n_partials fp32 workspace elements."""
+    tickets, ws = _DECODE_SCRATCH.get(device, (None, None))
+    if tickets is not None and tickets.numel() >= n_tickets and ws.numel() >= n_partials:
+        return tickets, ws
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        # a zeroing captured in a graph would not run until its replay
+        raise RuntimeError("decode_attention: its scratch buffers grow outside a CUDA graph "
+                           "capture; make one call at the largest shape before capturing")
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 1024), dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < n_partials:
+        ws = torch.empty(n_partials, dtype=torch.float32, device=device)
+    _DECODE_SCRATCH[device] = (tickets, ws)
+    return tickets, ws
+
+
 def decode_attention(
     qg: torch.Tensor,       # (B, Hkv, G, D) the new token's query heads, grouped
     k_cache: torch.Tensor,  # (B, T, Hkv, D), qg's dtype or int8 codes
@@ -543,7 +597,8 @@ def decode_attention(
     """Kernel 2's wrapper: one query token per row over the visible cache
     slots (t_begin <= t < t_end, kv_mask set), plus the self token when
     k_new/v_new are given. An int8 cache comes with its k_scale / v_scale.
-    Returns (B, Hkv, G, D) in qg's dtype."""
+    Returns (B, Hkv, G, D) in qg's dtype. The split-KV grid takes
+    decode_splits' chunks for this card."""
     if (k_new is None) != (v_new is None):
         raise ValueError("decode_attention: give both k_new and v_new, or neither")
     B, Hkv, G, D = qg.shape
@@ -580,6 +635,9 @@ def decode_attention(
     out = torch.empty((B, Hkv, G, D), dtype=qg.dtype, device=qg.device)
     if B == 0:
         return out
+    t_lo = t_begin - t_begin % DECODE_KEY_TILE
+    splits, chunk = decode_splits(B, Hkv, max(t_end - t_lo, 0), _sm_count(qg.device))
+    tickets, ws = _decode_scratch(qg.device, B * Hkv, B * Hkv * splits * (G * D + 2 * G))
     kn = k_new if k_new is not None else qg  # strides are unused without a self token
     vn = v_new if v_new is not None else qg
     ks = k_scale if quant else kv_mask[:, :, None]  # strides are unused without scales
@@ -592,13 +650,13 @@ def decode_attention(
         None if v_new is None else v_new.data_ptr(),
         kv_mask.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        out.data_ptr(), B, Hkv,
+        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), B, Hkv,
         qg.stride(0), qg.stride(1), qg.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         kn.stride(0), kn.stride(1), vn.stride(0), vn.stride(1),
         ks.stride(0), ks.stride(1), ks.stride(2), vs.stride(0), vs.stride(1), vs.stride(2),
-        kv_mask.stride(0), t_begin, t_end, scale, _stream(),
+        kv_mask.stride(0), t_begin, t_end, t_lo, chunk, splits, scale, _stream(),
     )
     kernel_lib.check(code, "decode_attention")
     decode_attention.launches += 1

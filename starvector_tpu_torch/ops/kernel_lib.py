@@ -137,11 +137,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sv_decode_attention.argtypes = [
         i32, i32, i32, i32,                  # dtype, cache dtype, G, D
         vp, vp, vp, vp, vp, vp, vp, vp, vp,  # q, k, v, k_new, v_new, mask, k_scale, v_scale, out
-        i32, i32,                                     # B, Hkv
+        vp, vp, i32, i32,                             # workspace, tickets, B, Hkv
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q, k, v strides
         i64, i64, i64, i64,                           # k_new, v_new strides
         i64, i64, i64, i64, i64, i64,                 # k_scale, v_scale strides
-        i64, i32, i32, f32, vp,                       # m_sb, t_begin, t_end, scale, stream
+        i64, i32, i32,                                # m_sb, t_begin, t_end
+        i32, i32, i32, f32, vp,                       # t_lo, chunk, splits, scale, stream
     ]
     lib.sv_quant_matmul.restype = i32
     lib.sv_quant_matmul.argtypes = [

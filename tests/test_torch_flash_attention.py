@@ -147,6 +147,198 @@ def test_merged_decode_attention_plain_matches_jax(Hkv, T):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("T", [1, 31, 325, 1285, 4100, 8450])
+def test_decode_splits_tile_the_keys_once(B, T):
+    """The split-KV plan: chunks of a multiple of the 128-key tile, up to
+    256 keys, tile [t_begin, t_end) exactly once (the first chunk starts at
+    the tile holding t_begin, the last is not empty), and the grid stays
+    within one resident block an SM (unless a chunk is already the largest)
+    while it fills at least half the SMs where there are keys enough."""
+    sms = 132
+    for t_begin in (0, T // 3 + 5):
+        t_begin = min(t_begin, T - 1)
+        t_lo = t_begin - t_begin % tfa.DECODE_KEY_TILE
+        span = T - t_lo
+        splits, chunk = tfa.decode_splits(B, 1, span, sms)
+        assert chunk % tfa.DECODE_KEY_TILE == 0 and tfa.DECODE_KEY_TILE <= chunk <= 256
+        starts = [t_lo + s * chunk for s in range(splits)]
+        assert starts[0] <= t_begin and starts[-1] < T <= starts[-1] + chunk
+        covered = np.zeros(T, np.int32)
+        for s0 in starts:
+            covered[max(s0, t_begin):min(s0 + chunk, T)] += 1
+        assert (covered[t_begin:] == 1).all()
+        tiles = -(-span // tfa.DECODE_KEY_TILE)
+        blocks = B * splits
+        assert blocks <= tfa.DECODE_BLOCKS_PER_SM * sms or chunk == 256 or splits == 1
+        assert 2 * blocks > min(sms, B * tiles)
+
+
+# decode_attention's kernel against its plain version. fp32 queries: 1e-4
+# (fp32 sums in another order). bf16 queries, over a bf16 or an int8 cache:
+# rtol 2^-7 for the output's own rounding (the two round fp32 values that
+# may straddle a bf16 rounding edge: a step of the output apart), atol 2e-3
+# for p rounded to bf16 against another max (the kernel's: each warp's
+# running max over its 16 keys of a tile; the plain version's: the global
+# max). At T >= 1285 the outputs are ~0.02-0.04, so 2e-2 would pass a kernel
+# that dropped the self token; the test below shows this limit admits the
+# rounding and refuses a dropped self token or 128-key split.
+DECODE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+              torch.bfloat16: dict(rtol=2**-7, atol=2e-3)}
+
+
+def _decode_p_rounded_by_groups(qg, kn, vn, k, v, ks, vs, mask, group=16):
+    """The plain decode (Hkv = 1, bf16 queries, the self token) with p
+    rounded to bf16 against the max of each group of `group` keys, as the
+    kernel's warps round it, the groups and the self token merged in fp32."""
+    import torch.nn.functional as F
+
+    T, D, pad = mask.shape[1], qg.shape[-1], -mask.shape[1] % group
+    q = qg[:, 0].float()
+    s = torch.einsum("bgd,btd->bgt", q, k[:, :, 0].float()) * D**-0.5
+    if ks is not None:
+        s = s * ks[:, None, :, 0]
+    s = torch.where(mask[:, None] > 0, s, -torch.inf)
+    s = F.pad(s, (0, pad), value=-torch.inf).unflatten(-1, (-1, group))
+    m = s.amax(-1).clamp_min(-1e30)
+    p = torch.exp(s - m[..., None])
+    w = p if vs is None else p * F.pad(vs[:, :, 0], (0, pad)).unflatten(-1, (-1, group))[:, None]
+    vg = F.pad(v[:, :, 0].float(), (0, 0, 0, pad)).unflatten(1, (-1, group))
+    acc = torch.einsum("bgnt,bntd->bgnd", w.bfloat16().float(), vg)
+    s_self = (q * kn[:, 0, None].float()).sum(-1) * D**-0.5
+    top = torch.maximum(m.amax(-1), s_self)
+    c, c_self = torch.exp(m - top[..., None]), torch.exp(s_self - top)
+    den = (p.sum(-1) * c).sum(-1) + c_self
+    out = (acc * c[..., None]).sum(2) + c_self[..., None] * vn[:, 0, None].float()
+    return (out / den[..., None]).bfloat16()[:, None]
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8 cache, bf16 q"])
+@pytest.mark.parametrize("B,T", [(1, 1285), (8, 1285), (1, 4100), (8, 4100)])
+def test_decode_tolerance_tells_a_dropped_token_or_split(cache, B, T):
+    """DECODE_TOL in bf16, with the plain version on the CPU: p rounded
+    against each 16-key group's max stays within it; the same call without
+    the self token, or with one 128-key split of every row masked, does not."""
+    qg, kn, vn, k, v, ks, vs, mask = _decode_inputs("cpu", B, T, cache, B * 10007 + T)
+    kw = dict(k_scale=ks, v_scale=vs)
+    ref = tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, **kw).float()
+    tol = DECODE_TOL[torch.bfloat16]
+
+    def within(out):
+        return bool(((out.float() - ref).abs() <= tol["atol"] + tol["rtol"] * ref.abs()).all())
+
+    assert within(_decode_p_rounded_by_groups(qg, kn, vn, k, v, ks, vs, mask))
+    assert not within(tfa.decode_attention(qg, k, v, mask, **kw))
+    split = mask.clone()
+    lo = tfa.DECODE_KEY_TILE * (3 * T // 5 // tfa.DECODE_KEY_TILE)
+    split[:, lo:lo + tfa.DECODE_KEY_TILE] = 0
+    assert not within(tfa.decode_attention(qg, k, v, split, k_new=kn, v_new=vn, **kw))
+
+
+def test_decode_scratch_is_reused_and_grows():
+    """The decode kernel's tickets and partials workspace are cached per
+    device: a launch that fits takes the same buffers (no allocation per
+    call), a larger one grows only what it outgrows, and tickets start at 0."""
+    dev = torch.device("cpu")
+    saved = tfa._DECODE_SCRATCH.pop(dev, None)
+    try:
+        t1, w1 = tfa._decode_scratch(dev, 4, 1000)
+        assert t1.dtype == torch.int32 and w1.dtype == torch.float32 and (t1 == 0).all()
+        t2, w2 = tfa._decode_scratch(dev, 8, 500)
+        assert t2 is t1 and w2 is w1
+        t3, w3 = tfa._decode_scratch(dev, 4, 5000)
+        assert t3 is t1 and w3 is not w1 and w3.numel() >= 5000
+        t4, w4 = tfa._decode_scratch(dev, 5000, 10)
+        assert w4 is w3 and t4.numel() >= 5000 and (t4 == 0).all()
+    finally:
+        tfa._DECODE_SCRATCH.pop(dev, None)
+        if saved is not None:
+            tfa._DECODE_SCRATCH[dev] = saved
+
+
+def _p_rounding_case():
+    """Two visible keys: a with score 0 (p = 1) and v = 0; b with score s < 0
+    whose p = exp(s) lies 0.3-0.45 of a bf16 step above a bf16 number lo,
+    and v = c in column 0. Returns (x, c, want, unrounded): q[:, 0] = x and
+    k_b[0] = -1 give s = fp32(-x * scale); want = bf16(c lo / (1 + p)), what
+    JAX and the plain version compute (P rounded to bf16 before P V);
+    unrounded = bf16(c p / (1 + p)), what an fp32 P would give. Each is
+    at least a tenth of a bf16 step from a rounding edge."""
+    scale = np.float32(128**-0.5)
+
+    def bf16(a):
+        return torch.tensor(np.float32(a)).bfloat16().double().item()
+
+    def edge_distance(u):  # of u from the nearest bf16 rounding edge, in bf16 steps
+        lo = torch.tensor(np.float32(u)).bfloat16()
+        step = float(abs(np.spacing(np.float32(lo.float().item())))) * 2**16
+        frac = (u - lo.double().item()) / step
+        return abs(0.5 - abs(frac))
+
+    for xi in range(200):
+        x = bf16(0.3 + 0.01 * xi)
+        s = float(np.float32(np.float32(-x) * scale))
+        p = float(np.exp(np.float64(s)))
+        lo = float(torch.tensor(p).float().bfloat16().double())
+        step = float(np.spacing(np.float32(lo))) * 2**16
+        if not 0.3 <= (p - lo) / step <= 0.45:
+            continue
+        best = None
+        for ci in range(2000):
+            c = bf16(1.0 + ci / 512)
+            u1, u2 = c * lo / (1 + p), c * p / (1 + p)
+            if bf16(u1) == bf16(u2):
+                continue
+            margin = min(edge_distance(u1), edge_distance(u2))
+            if best is None or margin > best[0]:
+                best = (margin, c, bf16(u1), bf16(u2))
+        if best is not None and best[0] >= 0.1:
+            return x, best[1], best[2], best[3]
+    raise AssertionError("no P-rounding case found")
+
+
+def _p_rounding_inputs(device, T=325):
+    """qg (1, 1, 16, 128), cache k, v (1, T, 1, 128) bf16 with keys 0 (a)
+    and 1 (b) visible, the rest masked (at T = 325 whole splits of the grid
+    see no key); (inputs, want, unrounded)."""
+    x, c, want, unrounded = _p_rounding_case()
+    qg = torch.zeros((1, 1, 16, 128), dtype=torch.bfloat16, device=device)
+    qg[..., 0] = x
+    k = torch.zeros((1, T, 1, 128), dtype=torch.bfloat16, device=device)
+    v = torch.zeros_like(k)
+    k[0, 1, 0, 0] = -1.0
+    v[0, 1, 0, 0] = c
+    mask = torch.zeros((1, T), dtype=torch.int32, device=device)
+    mask[0, :2] = 1
+    return (qg, k, v, mask), want, unrounded
+
+
+def test_decode_rounds_p_to_bf16_before_pv(jfa):
+    """The P-rounding contract on the CPU: the port's plain version and both
+    JAX functions (the Pallas decode kernel in interpret mode, and XLA's
+    merged_decode_attention with key a as the self token) give
+    bf16(c bf16(p) / (1 + p)), not the fp32-P value."""
+    import jax.numpy as jnp
+
+    from starvector_tpu.models import decode_common as jdc
+
+    (qg, k, v, mask), want, unrounded = _p_rounding_inputs("cpu")
+    assert want != unrounded
+    out = tfa.decode_attention(qg, k, v, mask)
+    assert (out[..., 0].double() == want).all() and (out[..., 1:] == 0).all()
+    to_j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)  # noqa: E731
+    ref = jfa.gqa_decode_batched(to_j(qg.reshape(1, 16, 128)), to_j(k), to_j(v),
+                                 jnp.asarray(mask.numpy()), jnp.asarray(k.shape[1]), 0,
+                                 block_k=32, interpret=True)
+    assert (np.asarray(ref.astype(jnp.float32))[..., 0] == want).all()
+    # XLA's merged attention: key a is the self token (k_new = v_new = 0)
+    zero = jnp.zeros((1, 1, 128), jnp.bfloat16)
+    ref = jdc.merged_decode_attention(to_j(qg), zero, zero, to_j(k), to_j(v),
+                                      jnp.asarray((mask.numpy() * np.arange(k.shape[1]) == 1)
+                                                  .astype(np.int32)), 128**-0.5)
+    assert (np.asarray(ref.astype(jnp.float32)).reshape(16, 128)[:, 0] == want).all()
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """On the CPU the wrappers run their plain versions and launch nothing;
     a device with no kernel raises instead of falling back."""
@@ -223,12 +415,12 @@ def test_decode_attention_kernel_matches_plain(cuda, B, T, dtype):
     mask[0, : T // 4] = 0
     out = tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5)
     ref = tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5, kernels=False)
-    torch.testing.assert_close(out.float(), ref.float(), **GPU_TOL[dtype])
+    torch.testing.assert_close(out.float(), ref.float(), **DECODE_TOL[dtype])
     q = qg.reshape(B, G, D)
     out = tfa.gqa_decode_batched(q, k, v, mask, max(T - 3, 1), min(T // 8, T - 1))
     ref = tfa.gqa_decode_batched(q, k, v, mask, max(T - 3, 1), min(T // 8, T - 1), kernels=False)
     live = (mask[:, min(T // 8, T - 1): max(T - 3, 1)] > 0).any(dim=1)
-    torch.testing.assert_close(out[live].float(), ref[live].float(), **GPU_TOL[dtype])
+    torch.testing.assert_close(out[live].float(), ref[live].float(), **DECODE_TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -250,3 +442,102 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     odd = torch.zeros((1, 8 * 129 + 1), device=cuda)[:, 1:].view(1, 8, 1, 129)[..., :128]
     with pytest.raises(ValueError, match="aligned"):
         tfa.decode_attention(qg, odd, odd, mask)
+
+
+@pytest.mark.gpu
+def test_bf16_decode_rounds_p_to_bf16_before_pv(cuda):
+    """Two visible keys in one split, the rest masked (whole splits see no
+    key): the bf16 kernel gives bf16(c bf16(p) / (1 + p)) exactly, as JAX and
+    the plain version do; an fp32 P gives another bf16 number."""
+    (qg, k, v, mask), want, unrounded = _p_rounding_inputs(cuda)
+    out = tfa.decode_attention(qg, k, v, mask)
+    ref = tfa.decode_attention(qg, k, v, mask, kernels=False)
+    torch.cuda.synchronize()
+    assert want != unrounded
+    assert (ref[..., 0].double() == want).all()
+    assert (out[..., 0].double() == want).all(), (out[..., 0], want, unrounded)
+    assert (out[..., 1:] == 0).all()
+
+
+DECODE_CACHES = ["fp32", "bf16", "int8 cache, bf16 q", "int8 cache, fp32 q"]
+
+
+def _decode_inputs(device, B, T, cache, seed):
+    """(qg, k_new, v_new, k, v, k_scale, v_scale, mask) for a cache kind:
+    random values, row 0 left-padded, and (T > 256) a masked run of keys
+    that empties a whole 128-key chunk of the last row."""
+    from starvector_tpu_torch.models import decode_common as tdc
+
+    rng = np.random.default_rng(seed)
+    G, D = 16, 128
+    dtype = torch.bfloat16 if "bf16" in cache else torch.float32
+    qg = torch.from_numpy(_rand(rng, (B, 1, G, D))).to(device, dtype)
+    kn, vn = (torch.from_numpy(_rand(rng, (B, 1, D))).to(device, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(_rand(rng, (B, T, 1, D))).to(device) for _ in range(2))
+    ks = vs = None
+    if cache.startswith("int8"):
+        (k, ks), (v, vs) = tdc.quantize_kv(k), tdc.quantize_kv(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    mask = torch.ones((B, T), dtype=torch.int32, device=device)
+    mask[0, : T // 5] = 0
+    if T > 256:
+        mask[-1, 100:300] = 0
+    mask[:, T // 2] = 0
+    return qg, kn, vn, k, v, ks, vs, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", DECODE_CACHES)
+@pytest.mark.parametrize("T", [1, 325, 1285, 4100])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_split_decode_matches_plain(cuda, B, T, cache):
+    """The split-KV kernel against its plain version: the whole cache with
+    the self token, then a window whose edges fall inside chunks without it.
+    Tolerance DECODE_TOL (its reasons are with it)."""
+    qg, kn, vn, k, v, ks, vs, mask = _decode_inputs(cuda, B, T, cache, B * 10007 + T)
+    tol = DECODE_TOL[qg.dtype]
+    n = tfa.decode_attention.launches
+    kw = dict(k_scale=ks, v_scale=vs)
+    out = tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, **kw)
+    ref = tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, kernels=False, **kw)
+    torch.cuda.synchronize()
+    assert tfa.decode_attention.launches == n + 1
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    lo, hi = (T // 3 + 5, T - 7) if T > 64 else (0, T)
+    out = tfa.decode_attention(qg, k, v, mask, t_begin=lo, t_end=hi, **kw)
+    ref = tfa.decode_attention(qg, k, v, mask, t_begin=lo, t_end=hi, kernels=False, **kw)
+    torch.cuda.synchronize()
+    live = (mask[:, lo:hi] > 0).any(dim=1)
+    torch.testing.assert_close(out[live].float(), ref[live].float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("cache", ["bf16", "int8 cache, bf16 q"])
+def test_split_decode_any_chunk_matches_plain(cuda, monkeypatch, chunk, cache):
+    """Both chunks decode_splits can choose give the plain result (B=8 at
+    the planned 1k-token cell's end, T=1285, where this card's plan takes
+    128 keys a block): the SM count it plans for is set so that it takes
+    `chunk`. Tolerance DECODE_TOL."""
+    sms = {128: 10**6, 256: 1}[chunk]
+    assert tfa.decode_splits(8, 1, 1285, sms)[1] == chunk
+    monkeypatch.setattr(tfa, "_sm_count", lambda device: sms)
+    qg, kn, vn, k, v, ks, vs, mask = _decode_inputs(cuda, 8, 1285, cache, chunk)
+    kw = dict(k_new=kn, v_new=vn, k_scale=ks, v_scale=vs)
+    out = tfa.decode_attention(qg, k, v, mask, **kw)
+    ref = tfa.decode_attention(qg, k, v, mask, kernels=False, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **DECODE_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", DECODE_CACHES)
+def test_split_decode_two_launches_are_bit_identical(cuda, cache):
+    """The partials are merged in split order by whichever block finishes
+    last: no atomics in the sums, so two launches give the same bits."""
+    qg, kn, vn, k, v, ks, vs, mask = _decode_inputs(cuda, 8, 1285, cache, 17)
+    kw = dict(k_new=kn, v_new=vn, k_scale=ks, v_scale=vs)
+    a = tfa.decode_attention(qg, k, v, mask, **kw)
+    b = tfa.decode_attention(qg, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

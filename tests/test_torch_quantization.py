@@ -146,6 +146,18 @@ def test_dense_quantized_matches_jax_default(jq, dtype):
         assert np.abs(out.float().numpy() - ref).max() <= 2e-2 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + [(300, 208), (16384, 48), (64, 16)])
+def test_gemv_split_tiles_k_once(K, N):
+    """The GEMV's split of K: slices of kc rows (a multiple of 32, at most
+    the 1024 a block stages), every slice non-empty, and the grid within one
+    wave of two blocks on each of the H100's 132 SMs unless K alone needs
+    more splits."""
+    splits, kc = tq.gemv_split(K, N)
+    assert kc % 32 == 0 and 0 < kc <= 1024
+    assert splits * kc >= K and (splits - 1) * kc < K
+    assert -(-N // 128) * splits <= 2 * 132 or splits == -(-K // 1024)
+
+
 def test_from_jax_params_keeps_int8_codes_and_fp32_scales(jq):
     import jax.numpy as jnp
 
@@ -174,7 +186,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 4, 1040])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 1040])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_quant_matmul_kernel_matches_plain(cuda, M, dtype):
     """Tolerance: fp32 atol = rtol = 1e-4 (the sums run in another order);
@@ -204,3 +216,18 @@ def test_quant_matmul_refuses_what_it_does_not_take(cuda):
         tq.quant_matmul(x.half(), p["kernel_q"], p["scale"])
     with pytest.raises(ValueError, match="scale"):
         tq.quant_matmul(x, p["kernel_q"], p["scale"].bfloat16())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_gemv_two_launches_are_bit_identical(cuda, M):
+    """The split-K partial sums are added in a fixed order by the second
+    kernel: no atomics, the same bits twice, at the four 1B projections."""
+    rng = np.random.default_rng(M)
+    for name, (K, N) in SHAPES_1B.items():
+        p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), N)).to(cuda)})
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, torch.bfloat16)
+        a = tq.quant_matmul(x, p["kernel_q"], p["scale"], out_dtype=torch.bfloat16)
+        b = tq.quant_matmul(x, p["kernel_q"], p["scale"], out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
