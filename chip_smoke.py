@@ -7,25 +7,27 @@ H100, end to end through the hand-written kernels.
 
 The second form times only the decode step (decode_attention and the
 quant_matmul GEMV beside their plain versions, bounds and library calls,
-with their host cost a call) and the bf16 and int8 serving of phase 4, for
-the package in the tree at ROOT; run for two trees in turns (a, b, b, a) on
-one card, back to back, it compares them.
+with their host cost a call), the quant_matmul prefill tile (M = 260 and
+1040, each projection and one prefill's 96 as one graph) and the bf16 and
+int8 serving of phase 4, for the package in the tree at ROOT; run for two
+trees in turns (a, b, b, a) on one card, back to back, it compares them.
 
 Phases, one line each (any failure raises and exits non-zero):
   1. card: name and power limit, torch / CUDA / nvcc versions
   2. build: the CUDA sources of starvector_tpu_torch/csrc, one nvcc each in
-     parallel; registers and spills per kernel from ptxas; the attention
-     kernels' tensor-core (HGMMA) instructions from cuobjdump: present in the
-     bf16 kernels, absent from the fp32 ones
+     parallel; registers and spills per kernel from ptxas; the tensor-core
+     (HGMMA) instructions from cuobjdump: present in the bf16 attention
+     kernels and the int8 wgmma tile, absent from the fp32 ones; the tile
+     neither spills nor has its products serialized
   3. kernels against their plain PyTorch versions on the card, fp32 and
      bf16: the inference pair at the 1B prefill/decode shapes and ragged
      cases; the training forward-with-lse and backward pair at the 1B
      training shape (B=4, S=T=769; two bf16 launches bit for bit), ragged
      cases, the 8k context (B=1, S=T=8450), sequence-parallel chunks of the
      8k and 16k windows and the 16k triangle; the int8 weight matmul (kernel
-     14: GEMV at M = 1, 4, tile at M = 1040, the four 1B projection shapes,
-     bf16 and fp32, with and without bias) and the int8-cache decode
-     attention
+     14: GEMV at M = 1, 4, 8, 16, the wgmma tile at M = 17, 260, 1040, the
+     four 1B projection shapes, bf16 and fp32, with and without bias; two
+     launches bit for bit) and the int8-cache decode attention
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -85,6 +87,13 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}  # (atol, rtol
 # token at T >= 1285, where outputs are ~0.02-0.04 (the CPU test
 # test_decode_tolerance_tells_a_dropped_token_or_split holds this limit)
 DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 2**-7)}
+# quant_matmul (kernel 14, GEMV and tile): the fp32 sums differ from the
+# plain version's only in order, which can move a bf16 result across one
+# rounding boundary (one bf16 step, 2^-7 relative at most; atol for results
+# near zero); 2e-2 would pass a kernel that drops or repeats a 16-row slab
+# of q (tests/test_torch_quantization.py::
+# test_qmm_tolerance_tells_a_dropped_or_repeated_k_slab holds this limit)
+QMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 2**-7)}
 # the H100 SXM's published peaks (NVIDIA data sheet, at 700 W): the bound of
 # a kernel is max(bytes / HBM rate, operations / dense bf16 tensor rate)
 HBM_BYTES_PER_S = 3.35e12
@@ -135,7 +144,7 @@ def cuda_ms(fn, iters: int = 50) -> float:
 KERNEL_COUNTS = ("flash_prefill", "decode_attention", "flash_prefill_with_lse",
                  "flash_bwd_dkdv", "flash_bwd_dq")
 TRAIN_KERNELS = ("flash_prefill_with_lse", "flash_bwd_dkdv", "flash_bwd_dq")
-QMM_PATHS = ("gemv", "mma", "f32_tile")
+QMM_PATHS = ("gemv", "wgmma", "f32_tile")
 
 
 def reset_counts(tfa) -> None:
@@ -165,17 +174,20 @@ def kernel_tag(mangled: str) -> str:
     ' int8 cache' for decode_attention_{bf16,f32}_kernel<int8_t>; for the
     int8 matmul its first template argument ('<bf16>' or '<f32>': x's type
     for the GEMV, the output's for the tile and finish kernels, marked
-    'out'), and for the GEMV ' rows<=MR'; nothing for the flash kernels, whose type is in
+    'out'), for the GEMV ' rows<=MR' and for the wgmma tile ' xBX' (its
+    rows of x a block); nothing for the flash kernels, whose type is in
     their names."""
     if "decode_attention" in mangled:
         return " int8 cache" if re.search(r"decode_attention_(bf16|f32)_kernelIa", mangled) else ""
     if "qmm_" not in mangled:
         return ""
     first = re.search(r"kernelI(13__nv_bfloat16|f)", mangled)
-    out = "out " if re.search(r"qmm_(mma|f32|finish)_kernel", mangled) else ""
+    out = "out " if re.search(r"qmm_(wgmma|f32|finish)_kernel", mangled) else ""
     tag = f"<{out}bf16>" if first and first.group(1) != "f" else f"<{out}f32>"
     rows = re.search(r"qmm_gemv_kernelI(?:13__nv_bfloat16|f)Li(\d+)E", mangled)
-    return tag + (f" rows<={rows.group(1)}" if rows else "")
+    tile = re.search(r"qmm_wgmma_kernelI(?:13__nv_bfloat16|f)Li(\d+)E", mangled)
+    return (tag + (f" rows<={rows.group(1)}" if rows else "")
+            + (f" x{tile.group(1)}" if tile else ""))
 
 
 KERNEL_NAMES = ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel",
@@ -183,7 +195,7 @@ KERNEL_NAMES = ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel",
                 "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dkdv_f32_kernel",
                 "flash_bwd_dkdv_finish_kernel", "flash_bwd_dq_bf16_kernel",
                 "flash_bwd_dq_f32_kernel", "qmm_gemv_kernel", "qmm_finish_kernel",
-                "qmm_mma_kernel", "qmm_f32_kernel")
+                "qmm_wgmma_kernel", "qmm_f32_kernel")
 
 
 def ptxas_summary(log_text: str) -> list[str]:
@@ -380,9 +392,11 @@ QMM_SHAPES = (  # the 1B decoder's four projections: name, K, N
 
 
 def check_quant_matmul(tq, dev) -> dict:
-    """Kernel 14 against its plain version at M = 1, 4, 8, 16 (GEMV) and
-    1040 (the tile: 4 x 260 prefill rows), the four projection shapes, bf16
-    and fp32 x, with a bias of x's type and without; the bf16 GEMV at M = 4
+    """Kernel 14 against its plain version at M = 1, 4, 8, 16 (GEMV), 17,
+    260 (a B=1 prefill) and 1040 (the wgmma tile: 4 x 260 prefill rows), the
+    four projection shapes, bf16 and fp32 x, with a bias of x's type and
+    without, to QMM_TOL; the bf16 GEMV at M = 4 and tile at M = 260
+    (where tile_plan splits K, and the finish pass sums the splits) and 1040
     launched twice, bit for bit. Returns the worst max |diff| by path
     ("gemv", "tile")."""
     g = torch.Generator(device=dev).manual_seed(8)
@@ -391,7 +405,7 @@ def check_quant_matmul(tq, dev) -> dict:
         p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
         bias = torch.randn((N,), generator=g, device=dev)
         errs = []
-        for M in (1, 4, 8, 16, 1040):
+        for M in (1, 4, 8, 16, 17, 260, 1040):
             path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn((M, K), generator=g, device=dev).to(dtype)
@@ -400,12 +414,12 @@ def check_quant_matmul(tq, dev) -> dict:
                     ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
                     torch.cuda.synchronize()
                     err = compare(f"quant_matmul {name} M={M} {dtype} bias={b is not None}",
-                                  out, ref, dtype)
-                    if M == 4 and dtype == torch.bfloat16 and b is not None:
+                                  out, ref, dtype, tols=QMM_TOL)
+                    if M in (4, 260, 1040) and dtype == torch.bfloat16 and b is not None:
                         again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
                         torch.cuda.synchronize()
                         if not torch.equal(again, out):
-                            raise AssertionError(f"quant_matmul {name} M=4: two launches differ")
+                            raise AssertionError(f"quant_matmul {name} M={M}: two launches differ")
                     worst[path] = max(worst[path], err)
                     errs.append(f"M={M} {str(dtype)[6:]}{'+bias' if b is not None else ''} "
                                 f"{err:.2e}")
@@ -653,7 +667,7 @@ def full_width_params(sv, cfg, dev, dtype, seed: int = 0) -> dict:
 
 KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
     ("decode_attention", ("decode_attention_bf16_kernel", "decode_attention_f32_kernel")),
-    ("quant_matmul", ("qmm_gemv_kernel", "qmm_finish_kernel", "qmm_mma_kernel",
+    ("quant_matmul", ("qmm_gemv_kernel", "qmm_finish_kernel", "qmm_wgmma_kernel",
                       "qmm_f32_kernel")),
     ("flash_prefill", ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel")),
     ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")),
@@ -783,7 +797,7 @@ def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
             raise AssertionError(f"int8: bad lengths {lengths.tolist()}")
     n = sum(steps)
     expected = {"quant_matmul": 4 * L * (3 + n), "quant_matmul_gemv": 4 * L * n,
-                "quant_matmul_mma": 4 * L * 3, "quant_matmul_f32_tile": 0,
+                "quant_matmul_wgmma": 4 * L * 3, "quant_matmul_f32_tile": 0,
                 "flash_prefill": L * 3, "decode_attention": L * n, "decode_attention_int8": L * n,
                 **dict.fromkeys(TRAIN_KERNELS, 0)}
     got = {k: counts[k] for k in expected}
@@ -792,7 +806,7 @@ def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
     log("slice", f"int8 weights + int8 KV cache, 3 requests x 4 images, greedy, 128 new tokens: "
                  f"decode steps {steps}, lengths {[l.tolist() for _, l, _ in served]}; launches "
                  f"quant_matmul {got['quant_matmul']} = 96 x ({3} prefills + {n} decode steps) "
-                 f"(GEMV {got['quant_matmul_gemv']}, tile {got['quant_matmul_mma']}), int8 "
+                 f"(GEMV {got['quant_matmul_gemv']}, wgmma tile {got['quant_matmul_wgmma']}), int8 "
                  f"decode_attention {got['decode_attention_int8']} = {L} x {n}, flash_prefill "
                  f"{got['flash_prefill']} = {L} x 3, no training kernel")
 
@@ -1023,17 +1037,23 @@ def sdpa_ms(q, k, v, causal: bool):
     return min(times) if times else None
 
 
+QMM_TIMES = ((1, "gemv"), (4, "gemv"), (8, "gemv"), (260, "tile"), (1040, "tile"))
+
+
 def quant_matmul_times(tq, dev, card: str) -> dict:
     """Kernel 14 against its plain version, the library's int8 weight
     matmul (torch._weight_int8pack_mm, where this torch has it for CUDA) and
-    the bf16 cuBLAS addmm, at M = 1, 4, 8 (the GEMV: decode at B = 1, 4, 8)
-    and 1040 (the tile: prefill) for the four projections, bf16 x with a
-    bf16 bias, each beside its bound; the host cost a call of the GEMV at
-    M = 4. Returns mlp.c_fc's figures, the largest, by path ("gemv" at
-    M = 4, "tile"): ms, plain_ms, bound_ms, bound_by, library_ms."""
+    the bf16 cuBLAS addmm, at M = 1, 4, 8 (the GEMV: decode at B = 1, 4, 8),
+    260 and 1040 (the tile: a B=1 and a B=4 prefill) for the four
+    projections, bf16 x with a bf16 bias, each beside its bound (the tile
+    also in TFLOP/s and share of the bound, and at every width and split of
+    K that tile_plan weighs); the host cost a call of the GEMV at M = 4;
+    then one prefill's 96 projections (prefill_projection_times). Returns
+    mlp.c_fc's figures, the largest, by path ("gemv" at M = 4, "tile" at
+    M = 1040): ms, plain_ms, bound_ms, bound_by, library_ms."""
     g = torch.Generator(device=dev).manual_seed(10)
     rows = {}
-    for M, path in ((1, "gemv"), (4, "gemv"), (8, "gemv"), (1040, "tile")):
+    for M, path in QMM_TIMES:
         total = dict(ms=0.0, plain=0.0, addmm=0.0, bound=0.0)
         for name, K, N in QMM_SHAPES:
             p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
@@ -1048,17 +1068,22 @@ def quant_matmul_times(tq, dev, card: str) -> dict:
             kq_nk, sc16 = kq.t().contiguous(), sc.bfloat16()
             lib = library_ms(lambda: torch._weight_int8pack_mm(x, kq_nk, sc16),
                              "torch._weight_int8pack_mm")
-            b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2, 2 * M * K * N)
+            flops = 2 * M * K * N
+            b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2, flops)
             for key, val in (("ms", ms), ("plain", plain_ms), ("addmm", addmm_ms), ("bound", b_ms)):
                 total[key] += val
-            host = ""
+            extra = ""
             if M == 4 and name == "mlp.c_fc":
                 us = host_us(lambda: tq.quant_matmul(x, kq, sc, b, out_dtype=torch.bfloat16))
-                host = f", {us:.1f} us of host CPU a call"
+                extra = f", {us:.1f} us of host CPU a call"
+            if path == "tile":
+                extra = f" ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound)"
             log("times", f"{card}: quant_matmul {path} {name} M={M} K={K} N={N} bf16: kernel "
-                         f"{ms:.4f} ms{host}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                         f"{ms:.4f} ms{extra}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                          f"({b_by}), int8pack_mm {'n/a' if lib is None else f'{lib:.4f} ms'}, "
                          f"bf16 addmm {addmm_ms:.4f} ms (reads 2 bytes a weight)")
+            if path == "tile" and hasattr(tq, "tile_plan"):
+                tile_plan_times(tq, x, kq, sc, b, name, card)
             if name == "mlp.c_fc" and M in (4, 1040):
                 rows[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                   library_ms=lib if lib is not None else addmm_ms)
@@ -1066,7 +1091,72 @@ def quant_matmul_times(tq, dev, card: str) -> dict:
                      f"{total['ms']:.4f} ms, plain {total['plain']:.4f} ms, bf16 addmm "
                      f"{total['addmm']:.4f} ms, bound {total['bound']:.4f} ms; x 24 layers: "
                      f"kernel {24 * total['ms']:.3f} ms, bf16 addmm {24 * total['addmm']:.3f} ms")
+    rows["prefill"] = prefill_projection_times(tq, dev, card)
     return rows
+
+
+def tile_plan_times(tq, x, kq, sc, b, name: str, card: str) -> None:
+    """The wgmma tile at each height (rows of x a block) and split of K that
+    tile_plan weighs, launched directly (bf16 out), beside the plan
+    tile_plan picks: the figures its fixed rule is held to."""
+    M, K = x.shape
+    N = kq.shape[1]
+    parts, times = [], {}
+    for tile_x in tq.TILE_XS:
+        for want in range(1, 9):
+            kc = 2 * tq.TILE_K * -(-K // (want * 2 * tq.TILE_K))
+            splits = -(-K // kc)
+            if (tile_x, splits) in times:
+                continue
+            times[tile_x, splits] = cuda_ms(lambda: tq.launch_kernel(
+                x, kq, sc, b, torch.bfloat16, "wgmma", tile_x, splits, kc))
+            parts.append(f"{tile_x} x{splits} {times[tile_x, splits]:.4f}")
+    tile_x, splits, _ = tq.tile_plan(M, K, N)
+    fastest = min(times, key=times.get)
+    log("times", f"{card}: quant_matmul tile {name} M={M}: ms by rows of x a block x splits of "
+                 f"K: {', '.join(parts)}; tile_plan picks {tile_x} x{splits} "
+                 f"({times[tile_x, splits]:.4f} ms), the fastest is {fastest[0]} x{fastest[1]}")
+
+
+def prefill_projection_times(tq, dev, card: str, layers: int = 24) -> dict:
+    """One prefill's 96 int8 projections (24 layers x 4, each with its own
+    codes: about 1 GB, so they come from HBM and not from the 50 MB L2, as
+    a single reused weight would) captured as one graph, at M = 260 (B=1)
+    and M = 1040 (B=4), beside the same 96 bf16 cuBLAS addmm calls over the
+    dequantized weights (2 GB). Returns {M: (kernel ms, addmm ms)}."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    weights = []
+    for _ in range(layers):
+        for _, K, N in QMM_SHAPES:
+            kq = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            sc = torch.rand((N,), generator=g, device=dev) * 1e-3 + 1e-4
+            weights.append((kq, sc, torch.randn((N,), generator=g, device=dev).bfloat16()))
+    w16 = [(kq.float() * sc).bfloat16() for kq, sc, _ in weights]
+    out = {}
+    for M in (260, 1040):
+        xs = {K: torch.randn((M, K), generator=g, device=dev).bfloat16()
+              for K in {K for _, K, _ in QMM_SHAPES}}
+
+        def kernel():
+            for kq, sc, b in weights:
+                tq.quant_matmul(xs[kq.shape[0]], kq, sc, b, out_dtype=torch.bfloat16)
+
+        def addmm():
+            for (kq, _, b), w in zip(weights, w16):
+                torch.addmm(b, xs[kq.shape[0]], w)
+
+        ms, addmm_ms = cuda_ms(kernel, iters=4), cuda_ms(addmm, iters=4)
+        flops = 2 * M * layers * sum(K * N for _, K, N in QMM_SHAPES)
+        codes = sum(w.numel() for w, _, _ in weights) / 1e9
+        log("times", f"{card}: quant_matmul, one prefill's {len(weights)} projections over "
+                     f"{layers} layers' own weights ({codes:.2f} GB of codes), M={M}, one "
+                     f"graph: kernel {ms:.3f} ms "
+                     f"({flops / ms / 1e9:.1f} TFLOP/s), bf16 addmm {addmm_ms:.3f} ms "
+                     f"({flops / addmm_ms / 1e9:.1f} TFLOP/s)")
+        out[M] = (ms, addmm_ms)
+    del weights, w16
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1407,8 +1497,8 @@ def long_context_times(tfa, dev, card: str) -> None:
 
 
 def times_only(card: str, dev) -> int:
-    """--times-only ROOT: phase 6's decode-step figures (decode_times,
-    quant_matmul_times) and phase 4's serving times (serving_times) for the
+    """--times-only ROOT: phase 6's decode-step and prefill-tile figures
+    (decode_times, quant_matmul_times) and phase 4's serving times (serving_times) for the
     package under ROOT, on the same seeded weights; one JSON line last. Run
     it for two trees in turns (a, b, b, a) on one card to compare them."""
     from starvector_tpu_torch.api import StarVectorForCausalLM
@@ -1441,8 +1531,9 @@ def main() -> int:
                         help="also trace a B=4 request and a train step with torch.profiler "
                              "and write the kernel tables to DIR")
     parser.add_argument("--times-only", metavar="ROOT", type=Path,
-                        help="only time the decode step's kernels and the bf16 and int8 "
-                             "serving, for the package in the tree at ROOT (to compare trees)")
+                        help="only time the decode step's kernels, the int8 prefill tile and the "
+                             "bf16 and int8 serving, for the package in the tree at ROOT (to "
+                             "compare trees)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs the port on an H100", file=sys.stderr)
@@ -1474,12 +1565,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_lib.library()
     built = kernel_lib.build_seconds()
+    summary = ptxas_summary(kernel_lib.build_log())
     sources = sorted(p.name for p in kernel_lib.CSRC_DIR.glob("*.cu"))
     log("build", f"{kernel_lib.library_path().name} from {len(sources)} CUDA sources "
                  f"({', '.join(sources)}): "
                  f"{'built in %.1f s' % built if built is not None else 'reused'} "
                  f"(load {time.perf_counter() - t0:.1f} s); ptxas per kernel: "
-                 + "; ".join(ptxas_summary(kernel_lib.build_log())))
+                 + "; ".join(summary))
     sass = sass_counts(kernel_lib.library_path(), kernel_lib.find_nvcc())
     hgmma = {k: v["HGMMA"] for k, v in sass.items()}
     hmma = {k: v["HMMA"] for k, v in sass.items()}
@@ -1489,9 +1581,16 @@ def main() -> int:
     if not all(hmma.get(k) for k in HMMA_KERNELS) or any(hmma.get(k) for k in NO_HMMA_KERNELS) \
             or not all(k in hmma for k in NO_HMMA_KERNELS):
         raise AssertionError(f"HMMA instructions per decode kernel: {hmma}")
+    qmm_tiles = sorted(k for k in hgmma if k.startswith("qmm_wgmma_kernel"))
+    if len(qmm_tiles) != 4 or not all(hgmma[k] for k in qmm_tiles):
+        raise AssertionError(f"HGMMA instructions in the int8 wgmma tile: {hgmma}")
+    faults = [line for line in summary if line.startswith("qmm_wgmma_kernel")
+              and ("serialized" in line or not line.endswith(" 0 bytes spilled"))]
+    if faults:
+        raise AssertionError(f"the int8 wgmma tile spills or its products are serialized: {faults}")
     log("build", "HGMMA (wgmma) instructions in the machine code (cuobjdump -sass): "
                  + ", ".join(f"{k} {hgmma.get(k, 0)}"
-                             for k in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS)
+                             for k in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS + tuple(qmm_tiles))
                  + "; HMMA (mma.sync): " + ", ".join(f"{k} {hmma.get(k, 0)}"
                                                      for k in HMMA_KERNELS + NO_HMMA_KERNELS))
 
@@ -1504,9 +1603,10 @@ def main() -> int:
     err_qmm = check_quant_matmul(tq, dev)
     err_int8 = check_int8_decode(tfa, dc, dev)
     log("kernels", f"the int8 kernels match their plain versions (atol=rtol 1e-4 in fp32; bf16 "
-                   f"quant_matmul atol=rtol 2e-2, int8-cache decode atol 2e-3 and rtol 2^-7); "
-                   f"max |diff| quant_matmul GEMV {err_qmm['gemv']:.3e}, tile "
-                   f"{err_qmm['tile']:.3e}, int8-cache decode {err_int8:.3e}")
+                   f"quant_matmul and int8-cache decode atol 2e-3 and rtol 2^-7; the GEMV at "
+                   f"M=4 and the wgmma tile at M=260 and 1040 bit-identical on relaunch); max |diff| "
+                   f"quant_matmul GEMV {err_qmm['gemv']:.3e}, tile {err_qmm['tile']:.3e}, "
+                   f"int8-cache decode {err_int8:.3e}")
     err_train = check_training_kernels(tfa, dev)
     log("kernels", "the training kernels match their plain versions (fp32 atol=rtol 1e-4; bf16 "
                    "2e-2, or no more than twice the plain bf16 version's own error from fp32 "
@@ -1655,7 +1755,7 @@ def main() -> int:
                                  replaces="starvector_tpu/ops/flash_attention.py:2049",
                                  launches=launches, max_abs_err=err, **decode[label]))
     qmm = quant_matmul_times(tq, dev, card)
-    for path, count in (("gemv", "quant_matmul_gemv"), ("tile", "quant_matmul_mma")):
+    for path, count in (("gemv", "quant_matmul_gemv"), ("tile", "quant_matmul_wgmma")):
         kernels_json.append(dict(name=f"quant_matmul_{path}", route="cuda",
                                  source="starvector_tpu_torch/csrc/quant_matmul.cu",
                                  replaces="starvector_tpu/ops/quantization.py:139",

@@ -24,21 +24,48 @@
 //   its partial sums to a workspace, and qmm_finish_kernel adds the splits in
 //   a fixed order and applies the epilogue. No atomics: the sum order does
 //   not change from run to run.
-// * M > 16, bf16 x (prefill rows): qmm_mma_kernel, a 64 x 64 output tile per
-//   block of 4 warps stepping through K by 64. The x tile is copied into
-//   shared memory with 16-byte loads; the int8 tile of q is converted to bf16
-//   as it lands there, transposed to n-major so that each tensor-core B
-//   fragment is two 32-bit shared loads. Products are mma.sync.m16n8k16 bf16
-//   with fp32 accumulators (each warp 32 x 32 of the tile), 4 k16 steps
-//   between barriers. Bound at these shapes by the tensor cores (M = 1040:
-//   about 8.7 to 35 GFLOP a call); this first version has no multi-stage
-//   pipeline or wgmma.
+// * M > 16, bf16 x (prefill rows): qmm_wgmma_kernel. What bounds it at
+//   the prefill shapes is the tensor cores' rate: M = 260 and 1040 do 2.2
+//   to 35 GFLOP a call against 2 to 17 MB to move (c_fc at M = 1040: 35
+//   us at 989 TFLOP/s, 7 us at 3.35 TB/s). The block computes out^T = q^T
+//   x^T on wgmma: two warpgroups (256 threads) own 128 columns of q, 64
+//   each, by tile_x = 136 or 256 rows of x (the product's N: 136 covers
+//   260 and 1040 rows in 2 and 8 blocks with 4.6% to spare), and step
+//   through K by 64 (two 136-row blocks share an SM; a 256-row one has it
+//   alone). A ring of 4 or 5 stages in dynamic shared memory takes each
+//   step's x tile and its raw int8 tile of q by TMA (thread 0 issues both
+//   boxes, the 128-byte swizzle, zeros past M, N and K, one mbarrier a
+//   stage), up to kStages - 1 steps ahead. The codes are the A
+//   operand and are made bf16 in registers: q's rows are the contraction,
+//   so ldmatrix.trans over the byte pairs of 8 staged rows hands each
+//   thread the two k values of an A fragment for two q columns at once,
+//   and int8x2_to_bf16x2 makes a pair exact with two masks and one bf16
+//   fma (no conversion instruction). x is the B operand, K-major from
+//   shared memory (m64n136k16 or m64n256k16, fp32 sums, four a step). Step
+//   k issues its products; while they run, the threads wait for step k -
+//   1's products, meet at one barrier (the slot that step read is then
+//   free, and thread 0 refills it), wait for step k + 1's copies and make
+//   its codes A fragments in the second register set. No thread writes
+//   shared memory, so no proxy fence is needed; the products are issued
+//   unconditionally and their registers written only after the wait that
+//   retires them, so ptxas keeps them asynchronous. The height, and a
+//   split of K across blocks, come from the shapes by the fixed rule of
+//   ops/quantization.py::tile_plan (cached per shape); the tensor maps are
+//   cached by pointer and shape. With more than one split each block
+//   writes its fp32 sums to the workspace and qmm_finish_kernel adds them
+//   in split order: no atomics, the same bits from launch to launch. The
+//   epilogue stores q-column pairs (bf16x2 or float2), masked at the
+//   ragged M and N edges.
 // * M > 16, fp32 x (the fp32 checks): qmm_f32_kernel, a 64 x 64 tile on the
 //   fp32 CUDA cores, 4 x 4 outputs a thread.
 
+#include <cuda.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace sv {
 namespace {
@@ -165,108 +192,265 @@ __global__ void __launch_bounds__(256) qmm_finish_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// M > 16, bf16 x: tensor-core tile
+// M > 16, bf16 x: the wgmma tile
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kBK = 64, kPad = 8;
-constexpr int kTileThreads = 128;  // 4 warps, 2 x 2, each 32 x 32
+constexpr int kTileQ = 128;                // q columns a block: two warpgroups of 64
+constexpr int kTileK = 64;                 // k rows a step
+constexpr int kTileThreads = 256;
+constexpr int kSmemMax = 232448;           // a block's shared memory on the H100
+constexpr int kSmemSm = 233472;            // an SM's, 1 KB of it reserved a block
+
+// Shared memory of a block with BX rows of x: a ring of kStages stages,
+// each an x tile (BX rows x 64 k) and a tile of codes (64 rows of q's 128
+// columns), both as TMA writes them with the 128-byte swizzle (the x tile
+// is then the K-major layout of wgmma.cuh); then one full barrier a stage.
+// Where the registers allow two blocks an SM (the 136-row tile: 126 a
+// thread), the ring is cut to fit two, so that one block's products run
+// while the other waits on its barrier or converts its codes.
+template <int BX>
+struct TileSmem {
+  static constexpr int kBlocksPerSm = BX <= 136 ? 2 : 1;
+  static constexpr int kX = BX * kTileK * 2;
+  static constexpr int kRaw = kTileK * kTileQ;
+  static constexpr int kStageBytes = kX + kRaw;
+  static constexpr int kBudget = (kBlocksPerSm == 1 ? kSmemMax : kSmemSm / kBlocksPerSm - 1024);
+  static constexpr int kStages = (kBudget - 1024 - 8 * 8) / kStageBytes;
+  static constexpr int kRawOff = kStages * kX;
+  static constexpr int kBarOff = kRawOff + kStages * kRaw;
+  static constexpr int kBytes = kBarOff + 8 * kStages + 1024;  // + slack to align the base
+  static_assert(kX % 1024 == 0, "swizzled tiles start on 1024-byte steps");
+  static_assert(kStages >= 3, "the ring keeps two stages in flight");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA writes to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase with parity `phase` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+
+// A 2-D box of `map` at coordinates (c0 inner, c1 outer) into shared memory
+// at dst, completing on the barrier at bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Two int8 codes, the low bytes of w's 16-bit lanes (the high bytes are not
+// read), as a bf16 pair, exactly and with no conversion instruction: a
+// code's low 7 bits in the mantissa of 128 give 128 + (b & 127); its sign
+// bit, on the lowest exponent bit of -128 (0xC300), makes -256 (0xC380);
+// one bf16 fma adds the two, which leaves b.
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"((w & 0x007F007Fu) | 0x43004300u), "r"(0x3F803F80u),
+        "r"((w & 0x00800080u) | 0xC300C300u));
+  return d;
+}
+
+// The A operand of the four k16 steps of a stage for this warp's 16 q
+// columns (16-byte chunk `chunk` of the staged rows of codes), from its
+// codes: ldmatrix.trans reads the codes as 8 x 8 tiles of byte pairs, k
+// rows 8i..8i+7 for tile i (row r's chunk sits at chunk ^ r % 8, so the 8
+// rows of a tile fall on 8 different bank groups), and hands thread (g, t)
+// the pairs of rows 2t and 2t + 1 at columns 2g and 2g + 1: one register
+// holds both k values of an A fragment for two q columns. The even column
+// becomes fragment row g, the odd one row g + 8 (the epilogue maps them
+// back).
+__device__ __forceinline__ void qmm_codes_to_a(uint32_t raw, int chunk, uint32_t (&a)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t at = ((chunk ^ (lane & 7)) << 4) + lane * kTileQ;
+  uint32_t r[8];
+  ldmatrix_x4_trans(r, raw + at);
+  ldmatrix_x4_trans(r + 4, raw + at + 32 * kTileQ);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a[s][0] = int8x2_to_bf16x2(r[2 * s]);
+    a[s][1] = int8x2_to_bf16x2(r[2 * s] >> 8);
+    a[s][2] = int8x2_to_bf16x2(r[2 * s + 1]);
+    a[s][3] = int8x2_to_bf16x2(r[2 * s + 1] >> 8);
+  }
+}
 
 template <typename TO>
-__global__ void __launch_bounds__(kTileThreads) qmm_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scale, const void* bias, int bias_dtype, TO* __restrict__ out,
-    int M, int K, int N, long long x_sm, long long out_sm) {
-  __shared__ __align__(16) __nv_bfloat16 As[kBM][kBK + kPad];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[kBN][kBK + kPad];  // [n][k]: q transposed
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int wm = w >> 1, wn = w & 1;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+__device__ __forceinline__ void store_pair(TO* o, float a, float b);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+// The arguments of one tile launch.
+struct TileArgs {
+  const float* scale;
+  const void* bias;
+  void* out;
+  float* ws;  // null: one split, the epilogue writes out
+  int bias_dtype, M, K, N, kc;
+  long long out_sm;
+};
 
-  for (int kt = 0; kt < K; kt += kBK) {
-    // x tile: 64 rows x 64 columns, 8 bf16 (16 bytes) a load; K % 8 == 0
-#pragma unroll
-    for (int v = tid; v < kBM * kBK / 8; v += kTileThreads) {
-      const int r = v >> 3, c = (v & 7) * 8;
-      const int gm = m0 + r, gk = kt + c;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M && gk < K) val = *reinterpret_cast<const uint4*>(x + (long long)gm * x_sm + gk);
-      *reinterpret_cast<uint4*>(&As[r][c]) = val;
-    }
-    // q tile: 64 rows x 64 columns; a thread takes 16 codes (one 16-byte
-    // load) of each of two adjacent rows, converts them to bf16 (exact) and
-    // stores each column's pair of rows as one 32-bit word, n-major
-    {
-      const int r = (tid >> 2) * 2, c = (tid & 3) * 16;
-      const int gn = n0 + c;
-      float w0[16], w1[16];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* wf = h ? w1 : w0;
-        const int gk = kt + r + h;
-        if (gk < K && gn < N) {
-          unpack_int8x16(__ldg(reinterpret_cast<const uint4*>(q + (long long)gk * N + gn)), wf);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 16; ++j) wf[j] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(&Bs[c + j][r]) = __floats2bfloat162_rn(w0[j], w1[j]);
-      }
-    }
-    __syncthreads();
+// Where step j of the ring stands: its slot and the parity of its slot's
+// barrier phase, advanced one step at a time (no division in the loop).
+struct RingPos {
+  int slot;
+  uint32_t phase;
+};
 
+template <int S>
+__device__ __forceinline__ RingPos ring_next(RingPos p) {
+  return p.slot + 1 == S ? RingPos{0, p.phase ^ 1u} : RingPos{p.slot + 1, p.phase};
+}
+
+// Thread 0: the TMA copies of step j (k rows k0..k0+63) into `slot`.
+template <int BX>
+__device__ __forceinline__ void qmm_issue_stage(uint32_t base, int slot, const CUtensorMap* xmap,
+                                                const CUtensorMap* qmap, int m0, int n0, int k0) {
+  using S = TileSmem<BX>;
+  const uint32_t bar = base + S::kBarOff + 8 * slot;
+  mbar_expect_tx(bar, S::kStageBytes);
+  tma_load_2d(base + slot * S::kX, xmap, k0, m0, bar);
+  tma_load_2d(base + S::kRawOff + slot * S::kRaw, qmap, n0, k0, bar);
+}
+
+// Step kt of the k loop: the products of step kt (A fragments `cur`, its
+// x tile in slot `now`), then, while they run, the wait for step kt - 1's
+// products (which frees `next` and the slot that step read), one barrier,
+// thread 0's copies of step kt + kStages - 1 into that slot (`ahead`,
+// where `issue`), and, where there is a step kt + 1 (`more`), its codes
+// (slot `soon`, once its copies have landed) made A fragments in `next`.
+// The products are issued unconditionally and the registers they use are
+// written only after the wait that retires them, so ptxas keeps them
+// asynchronous.
+template <int BX>
+__device__ __forceinline__ void qmm_tile_step(uint32_t base, float (&acc)[BX / 2],
+                                              const uint32_t (&cur)[4][4], uint32_t (&next)[4][4],
+                                              RingPos now, RingPos soon, RingPos ahead, bool issue,
+                                              bool more, const CUtensorMap* xmap,
+                                              const CUtensorMap* qmap, int m0, int n0, int k_ahead,
+                                              int chunk) {
+  using S = TileSmem<BX>;
+  const uint32_t xs = base + now.slot * S::kX;
+  wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t a[2][4], b[4][2];
+  for (int s = 0; s < kTileK / 16; ++s) wgmma_rs(acc, cur[s], desc_k_major(xs, BX, s), 1);
+  wgmma_commit();
+  wgmma_wait<1>();
+  __syncthreads();
+  if (issue) qmm_issue_stage<BX>(base, ahead.slot, xmap, qmap, m0, n0, k_ahead);
+  if (more) {
+    mbar_wait(base + S::kBarOff + 8 * soon.slot, soon.phase);
+    qmm_codes_to_a(base + S::kRawOff + soon.slot * S::kRaw, chunk, next);
+  }
+}
+
+// One block: q columns n0..n0+127 (warpgroup wg takes 64; its warp w the 16
+// from n0 + 64 wg + 16 w) by x rows m0..m0+BX-1, over k rows [z kc,
+// min((z + 1) kc, K)) for split z = blockIdx.z (kc a multiple of 128, so
+// every split but the last has an even count of 64-row steps). It computes
+// out^T = q^T x^T: the codes are the A operand, made bf16 in registers, x
+// the B operand (K-major in shared memory), so the accumulator's rows are q
+// columns and its columns rows of x. TMA zero-fills past M, N and K. With
+// one split it applies the epilogue and writes out; otherwise it writes its
+// fp32 sums to ws[z] for qmm_finish_kernel.
+template <typename TO, int BX>
+__global__ void __launch_bounds__(kTileThreads, TileSmem<BX>::kBlocksPerSm) qmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+    const TileArgs a) {
+  using S = TileSmem<BX>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(align_1024(smem_raw));
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n0 = blockIdx.x * kTileQ, m0 = blockIdx.y * BX;
+  const int kbeg = blockIdx.z * a.kc, kend = min(kbeg + a.kc, a.K);
+  // an even count of steps, for the loop's two register sets: the last
+  // split's extra step lies past K, where TMA reads zeros
+  const int nk = ((kend - kbeg + kTileK - 1) / kTileK + 1) & ~1;
+  const int chunk = 4 * wg + ((tid >> 5) & 3);
+
+  if (tid == 0) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = wm * 32 + i * 16 + g;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(&As[row][ks + 2 * t]);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(&As[row + 8][ks + 2 * t]);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(&As[row][ks + 2 * t + 8]);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(&As[row + 8][ks + 2 * t + 8]);
-      }
+    for (int i = 0; i < S::kStages; ++i) mbar_init(base + S::kBarOff + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = wn * 32 + j * 8 + g;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(&Bs[col][ks + 2 * t]);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(&Bs[col][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
+    for (int j = 0; j < S::kStages - 1; ++j)
+      if (j < nk) qmm_issue_stage<BX>(base, j, &xmap, &qmap, m0, n0, kbeg + j * kTileK);
   }
 
+  float acc[BX / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < BX / 2; ++i) acc[i] = 0.f;
+  uint32_t a0[4][4], a1[4][4];
+  mbar_wait(base + S::kBarOff, 0);
+  qmm_codes_to_a(base + S::kRawOff, chunk, a0);
+
+  // ring positions of steps kt, kt + 1 and kt + kStages - 1
+  RingPos now{0, 0u}, soon{1, 0u}, ahead{S::kStages - 1, 0u};
+  for (int kt = 0; kt < nk; kt += 2) {
+    int j = kt + S::kStages - 1;
+    qmm_tile_step<BX>(base, acc, a0, a1, now, soon, ahead, tid == 0 && j < nk, true, &xmap,
+                      &qmap, m0, n0, kbeg + j * kTileK, chunk);
+    now = soon;
+    soon = ring_next<S::kStages>(soon);
+    ahead = ring_next<S::kStages>(ahead);
+    ++j;
+    qmm_tile_step<BX>(base, acc, a1, a0, now, soon, ahead, tid == 0 && j < nk, kt + 2 < nk,
+                      &xmap, &qmap, m0, n0, kbeg + j * kTileK, chunk);
+    now = soon;
+    soon = ring_next<S::kStages>(soon);
+    ahead = ring_next<S::kStages>(ahead);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // acc[4j + e] is q column n, acc[4j + 2 + e] column n + 1, both at x row
+  // m0 + 8j + 2t + e; N is even, so the pair is wholly inside or outside
+  const int lane = tid & 31, t = lane & 3;
+  const int n = n0 + 16 * chunk + 2 * (lane >> 2);
+  if (n >= a.N) return;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + wm * 32 + i * 16 + g;
-      const int col = n0 + wn * 32 + j * 8 + 2 * t;  // col + 1 < N when col < N (N even)
-      if (col >= N) continue;
+  for (int j = 0; j < BX / 8; ++j) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = row + 8 * h;
-        if (rr >= M) continue;
-        TO* o = out + (long long)rr * out_sm + col;
-        o[0] = from_f<TO>(qmm_epilogue(acc[i][j][2 * h], scale, bias, bias_dtype, col));
-        o[1] = from_f<TO>(qmm_epilogue(acc[i][j][2 * h + 1], scale, bias, bias_dtype, col + 1));
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * t + e;
+      if (m >= a.M) continue;
+      const float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
+      if (a.ws != nullptr) {
+        *reinterpret_cast<float2*>(a.ws + ((long long)blockIdx.z * a.M + m) * a.N + n) =
+            make_float2(v0, v1);
+      } else {
+        store_pair<TO>(static_cast<TO*>(a.out) + (long long)m * a.out_sm + n,
+                       qmm_epilogue(v0, a.scale, a.bias, a.bias_dtype, n),
+                       qmm_epilogue(v1, a.scale, a.bias, a.bias_dtype, n + 1));
       }
     }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -339,41 +523,163 @@ __global__ void __launch_bounds__(256) qmm_f32_kernel(
 
 constexpr int kGemvMaxM = 16;
 
+// M <= 16: the split-K GEMV and its finish kernel. splits, kc: the split
+// of K (gemv_split).
+template <typename T, typename TO>
+int launch_gemv(const T* x, const int8_t* q, const float* scale, const void* bias, int bias_dtype,
+                TO* out, float* ws, int M, int K, int N, long long x_sm, long long out_sm,
+                int splits, int kc, cudaStream_t st) {
+  if (ws == nullptr || splits < 1 || kc < 1 || kc > kGemvMaxKc || kc % 32 != 0 ||
+      (long long)splits * kc < K) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int col_blocks = (N + kGemvCols - 1) / kGemvCols;
+  if (M == 1) {
+    qmm_gemv_kernel<T, 1><<<dim3(col_blocks, splits, 1), kGemvThreads, 0, st>>>(
+        x, q, ws, M, K, N, x_sm, kc);
+  } else {
+    qmm_gemv_kernel<T, 4><<<dim3(col_blocks, splits, (M + 3) / 4), kGemvThreads, 0, st>>>(
+        x, q, ws, M, K, N, x_sm, kc);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)M * N;
+  qmm_finish_kernel<TO><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      ws, splits, scale, bias, bias_dtype, out, M, N, out_sm);
+  return (int)cudaGetLastError();
+}
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// library links no driver API), or null where the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major 2-D tensor (`inner` elements a row of
+// `row_bytes`, `outer` rows) read in boxes of box_inner x box_outer with the
+// 128-byte swizzle, zeros outside it. Maps are cached by everything they
+// encode (a weight's map is made once; activations reuse a few addresses),
+// in a small table guarded by a lock.
+struct MapKey {
+  const void* ptr;
+  unsigned long long inner, outer, row_bytes;
+  unsigned box_inner, box_outer;
+  int type;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && outer == o.outer && row_bytes == o.row_bytes &&
+           box_inner == o.box_inner && box_outer == o.box_outer && type == o.type;
+  }
+};
+
+int tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+               unsigned long long inner, unsigned long long outer, unsigned long long row_bytes,
+               unsigned box_inner, unsigned box_outer) {
+  constexpr int kSlots = 1024;
+  struct Entry {
+    MapKey key;
+    CUtensorMap map;
+    bool used;
+  };
+  static Entry table[kSlots];
+  static std::mutex lock;
+  const MapKey key{ptr, inner, outer, row_bytes, box_inner, box_outer, (int)type};
+  const size_t h = (reinterpret_cast<uintptr_t>(ptr) >> 8) ^ (inner * 31 + outer) ^ box_outer;
+  Entry& e = table[h % kSlots];
+  std::lock_guard<std::mutex> guard(lock);
+  if (e.used && e.key == key) {
+    *map = e.map;
+    return 0;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  e = Entry{key, *map, true};
+  return 0;
+}
+
+// M > 16, bf16 x: the wgmma tile, tile_x rows of x a block, K in `splits`
+// ranges of kc rows (tile_plan); more than one split sums in ws and
+// finishes in qmm_finish_kernel, in split order.
+template <typename TO, int BX>
+int launch_tile_bx(const __nv_bfloat16* x, const int8_t* q, long long x_sm, const TileArgs& a,
+                   int splits, cudaStream_t st) {
+  CUtensorMap xmap, qmap;
+  int err = tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, a.K, a.M, x_sm * 2, kTileK, BX);
+  if (err == 0) {
+    err = tensor_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, a.N, a.K, a.N, kTileQ, kTileK);
+  }
+  if (err != 0) return err;
+  // above 48 KB of dynamic shared memory a kernel has to opt in, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qmm_wgmma_kernel<TO, BX>, cudaFuncAttributeMaxDynamicSharedMemorySize, TileSmem<BX>::kBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.N + kTileQ - 1) / kTileQ, (a.M + BX - 1) / BX, splits);
+  qmm_wgmma_kernel<TO, BX><<<grid, kTileThreads, TileSmem<BX>::kBytes, st>>>(xmap, qmap, a);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || splits == 1) return (int)launched;
+  const long long total = (long long)a.M * a.N;
+  qmm_finish_kernel<TO><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      a.ws, splits, a.scale, a.bias, a.bias_dtype, static_cast<TO*>(a.out), a.M, a.N, a.out_sm);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+int launch_tile(const __nv_bfloat16* x, const int8_t* q, const float* scale, const void* bias,
+                int bias_dtype, TO* out, float* ws, int M, int K, int N, long long x_sm,
+                long long out_sm, int tile_x, int splits, int kc, cudaStream_t st) {
+  if (K % 8 != 0 || x_sm % 8 != 0 || out_sm % 2 != 0 || splits < 1 || kc < 2 * kTileK ||
+      kc % (2 * kTileK) != 0 || (long long)(splits - 1) * kc >= K || (long long)splits * kc < K ||
+      (splits > 1 && ws == nullptr) || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const TileArgs a{scale, bias, out, splits > 1 ? ws : nullptr, bias_dtype, M, K, N, kc, out_sm};
+  if (tile_x == 136) return launch_tile_bx<TO, 136>(x, q, x_sm, a, splits, st);
+  if (tile_x == 256) return launch_tile_bx<TO, 256>(x, q, x_sm, a, splits, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, typename TO>
 int launch_qmm(const void* x, const int8_t* q, const float* scale, const void* bias,
                int bias_dtype, void* out, float* ws, int M, int K, int N, long long x_sm,
-               long long out_sm, int splits, int kc, cudaStream_t st) {
+               long long out_sm, int tile_x, int splits, int kc, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   TO* o = static_cast<TO*>(out);
   if (M <= kGemvMaxM) {
-    if (ws == nullptr || splits < 1 || kc < 1 || kc > kGemvMaxKc || kc % 32 != 0 ||
-        (long long)splits * kc < K) {
-      return (int)cudaErrorInvalidValue;
-    }
-    const int col_blocks = (N + kGemvCols - 1) / kGemvCols;
-    if (M == 1) {
-      qmm_gemv_kernel<T, 1><<<dim3(col_blocks, splits, 1), kGemvThreads, 0, st>>>(
-          xt, q, ws, M, K, N, x_sm, kc);
-    } else {
-      qmm_gemv_kernel<T, 4><<<dim3(col_blocks, splits, (M + 3) / 4), kGemvThreads, 0, st>>>(
-          xt, q, ws, M, K, N, x_sm, kc);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long total = (long long)M * N;
-    qmm_finish_kernel<TO><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        ws, splits, scale, bias, bias_dtype, o, M, N, out_sm);
-    return (int)cudaGetLastError();
+    return launch_gemv<T, TO>(xt, q, scale, bias, bias_dtype, o, ws, M, K, N, x_sm, out_sm,
+                              splits, kc, st);
   }
-  const dim3 grid((N + 63) / 64, (M + 63) / 64);
   if constexpr (sizeof(T) == 2) {
-    qmm_mma_kernel<TO><<<grid, kTileThreads, 0, st>>>(xt, q, scale, bias, bias_dtype, o, M, K,
-                                                      N, x_sm, out_sm);
+    return launch_tile<TO>(xt, q, scale, bias, bias_dtype, o, ws, M, K, N, x_sm, out_sm, tile_x,
+                           splits, kc, st);
   } else {
+    const dim3 grid((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM);
     qmm_f32_kernel<TO><<<grid, 256, 0, st>>>(xt, q, scale, bias, bias_dtype, o, M, K, N, x_sm,
                                              out_sm);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -385,12 +691,15 @@ int launch_qmm(const void* x, const int8_t* q, const float* scale, const void* b
 // int8 contiguous with N % 16 == 0 and 16-byte alignment; scale (N,) fp32;
 // bias (N,) of bias_dtype or null; out (M, N) with row stride out_sm. For
 // M <= 16, ws holds splits * M * N fp32 partial sums, kc rows of K each
-// (a multiple of 32, at most 1024, splits * kc >= K); for M > 16 with bf16
-// x, K % 8 == 0 and x is 16-byte aligned.
+// (a multiple of 32, at most 1024, splits * kc >= K); tile_x is not read.
+// For M > 16 with bf16 x: K % 8 == 0, x 16-byte aligned with x_sm % 8 == 0,
+// out_sm even; tile_x is 136 or 256, and K is cut into `splits` ranges of
+// kc rows (a multiple of 128, none empty), with ws holding splits * M * N
+// fp32 sums when splits > 1. fp32 x with M > 16 reads none of the four.
 extern "C" int sv_quant_matmul(int x_dtype, int out_dtype, int bias_dtype, const void* x,
                                const void* q, const float* scale, const void* bias, void* out,
                                void* ws, int M, int K, int N, long long x_sm, long long out_sm,
-                               int splits, int kc, void* stream) {
+                               int tile_x, int splits, int kc, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* qq = static_cast<const int8_t*>(q);
   float* w = static_cast<float*>(ws);
@@ -399,23 +708,23 @@ extern "C" int sv_quant_matmul(int x_dtype, int out_dtype, int bias_dtype, const
     return (int)cudaErrorInvalidValue;
   }
   if (x_dtype == sv::kBFloat16) {
-    if (M > sv::kGemvMaxM && K % 8 != 0) return (int)cudaErrorInvalidValue;
     if (out_dtype == sv::kBFloat16) {
       return sv::launch_qmm<__nv_bfloat16, __nv_bfloat16>(x, qq, scale, bias, bias_dtype, out, w,
-                                                          M, K, N, x_sm, out_sm, splits, kc, st);
+                                                          M, K, N, x_sm, out_sm, tile_x, splits,
+                                                          kc, st);
     }
     if (out_dtype == sv::kFloat32) {
       return sv::launch_qmm<__nv_bfloat16, float>(x, qq, scale, bias, bias_dtype, out, w, M, K,
-                                                  N, x_sm, out_sm, splits, kc, st);
+                                                  N, x_sm, out_sm, tile_x, splits, kc, st);
     }
   } else if (x_dtype == sv::kFloat32) {
     if (out_dtype == sv::kFloat32) {
       return sv::launch_qmm<float, float>(x, qq, scale, bias, bias_dtype, out, w, M, K, N, x_sm,
-                                          out_sm, splits, kc, st);
+                                          out_sm, tile_x, splits, kc, st);
     }
     if (out_dtype == sv::kBFloat16) {
       return sv::launch_qmm<float, __nv_bfloat16>(x, qq, scale, bias, bias_dtype, out, w, M, K,
-                                                  N, x_sm, out_sm, splits, kc, st);
+                                                  N, x_sm, out_sm, tile_x, splits, kc, st);
     }
   }
   return (int)cudaErrorInvalidValue;

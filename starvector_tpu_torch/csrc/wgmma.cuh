@@ -1,7 +1,8 @@
 // Hopper tensor-core building blocks (sm_90a): a 128-byte-swizzled
 // shared-memory layout for bf16 tiles, cp.async staging into it, and the
 // warpgroup products wgmma.m64n64k16 (fp32 sums) with A from shared memory
-// or from registers.
+// or from registers, and m64n136k16 / m64n256k16 with A from registers and
+// B K-major.
 //
 // Tile layout. A tile of R rows x C bf16 columns (C a multiple of 64) is
 // stored as C / 64 column blocks of R rows x 128 bytes; block c starts at
@@ -22,9 +23,10 @@
 //     (stride byte offset), 64-column blocks R * 128 bytes apart (leading
 //     byte offset; an n64 product reads one block).
 //
-// Accumulator of an m64n64 product, per thread (warp w of the warpgroup,
+// Accumulator of an m64nN product, per thread (warp w of the warpgroup,
 // g = lane / 4, t = lane % 4): d[4j + e] is row 16w + g, column 8j + 2t + e,
-// and d[4j + 2 + e] row 16w + g + 8, for n8 block j = 0..7 and e = 0, 1.
+// and d[4j + 2 + e] row 16w + g + 8, for n8 block j = 0..N/8 - 1 and e = 0, 1
+// (N / 2 floats: 32 for n64, 68 for n136, 128 for n256).
 // The A operand from registers for a k16 step s is the bf16 pairs of the
 // accumulator's columns 16s..16s+15 (acc_to_a), the layout in which the
 // accumulator of one product feeds the next with no shared-memory trip.
@@ -180,8 +182,60 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+#define SV_WGMMA_D68                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                               \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                      \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                      \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                      \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                      \
+  "%60, %61, %62, %63, %64, %65, %66, %67}"
+#define SV_WGMMA_D128                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                               \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "                      \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "                      \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                      \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                      \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "                      \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "                      \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                      \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "              \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "          \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
+#define SV_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define SV_F16(d, i) SV_F4(d, i), SV_F4(d, i + 4), SV_F4(d, i + 8), SV_F4(d, i + 12)
+#define SV_F64(d, i) SV_F16(d, i), SV_F16(d, i + 16), SV_F16(d, i + 32), SV_F16(d, i + 48)
+
+// d (64 x 136, fp32) = A B (+ d when accumulate): A (64 x 16) from
+// registers (acc_to_a's layout), B (16 x 136) from shared memory, K-major
+// (desc_k_major of a tile of 136 rows).
+__device__ __forceinline__ void wgmma_rs(float (&d)[68], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 " SV_WGMMA_D68
+      ", {%68, %69, %70, %71}, %72, p, 1, 1, 0;\n}\n"
+      : SV_F64(d, 0), SV_F4(d, 64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The same with B (16 x 256).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SV_WGMMA_D128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : SV_F64(d, 0), SV_F64(d, 64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 #undef SV_WGMMA_D32
 #undef SV_WGMMA_D32_OUT
+#undef SV_WGMMA_D68
+#undef SV_WGMMA_D128
+#undef SV_F4
+#undef SV_F16
+#undef SV_F64
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -149,7 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32,               # x, out and bias dtypes
         vp, vp, vp, vp, vp, vp,      # x, q, scale, bias, out, workspace
         i32, i32, i32, i64, i64,     # M, K, N, x and out row strides
-        i32, i32, vp,                # K splits, rows a split, stream
+        i32, i32, i32, vp,           # tile rows of x, K splits, rows a split, stream
     ]
     bwd = [
         i32, i32, vp, vp, vp, vp, vp, vp, vp,  # dtype, D, q, k, v, dout, lse, delta, mask

@@ -19,9 +19,11 @@ Kernel 14 replaces the Pallas TPU kernel `quant_matmul` -> `_qmm_kernel`
 is the Pallas kernel's: acc = sum_k x[m, k] * q[k, n] in fp32 (int8 -> bf16
 or fp32 is exact), then acc * scale[n] in fp32; the port adds the bias in the
 same epilogue and rounds once to the output type, so a quantized dense layer
-is one call. M <= 16 (decode) runs an HBM-bound split-K GEMV, M > 16
-(prefill) a tensor-core tile for bf16 x and a CUDA-core tile for fp32 x
-(see the source's header).
+is one call. M <= 16 (decode) runs an HBM-bound split-K GEMV; M > 16
+(prefill) with bf16 x a `wgmma` tile fed by TMA, its int8 codes made bf16
+in registers as the product's A operand, its height and any split of K
+chosen per shape by `tile_plan`; fp32 x a CUDA-core tile (see the source's
+header).
 
 Numerics against the JAX package's default `dense_quantized`
 (`use_pallas=False`, quantization.py:205-207): that path forms the weight
@@ -44,7 +46,13 @@ from starvector_tpu_torch.ops import kernel_lib
 GEMV_MAX_ROWS = 16   # rows of x up to which the GEMV path runs (decode)
 _GEMV_COLS = 128     # columns per GEMV block
 _GEMV_MAX_KC = 1024  # rows of K per GEMV block
-_TARGET_BLOCKS = 2 * 132  # GEMV blocks resident at once on the H100 (2 per SM)
+_SMS = 132           # the H100 SXM's streaming multiprocessors
+_TARGET_BLOCKS = 2 * _SMS  # GEMV blocks resident at once on the H100 (2 per SM)
+TILE_Q, TILE_K = 128, 64  # the wgmma tile's columns of q a block and k rows a step
+TILE_XS = (136, 256)      # its rows of x a block (the product's N)
+_TILE_MAX_SPLITS = 8
+_TILE_BLOCK_STEPS = 4     # a block's fill and epilogue, in k steps of 128 rows of x
+_TILE_FINISH_BYTES = 2 << 20  # fp32 partial-sum bytes the finish pass moves a k step
 _INV_127 = 1.0 / 127.0  # applied in fp32, as XLA's rewrite of "/ 127" is
 
 
@@ -131,6 +139,36 @@ def gemv_split(K: int, N: int) -> tuple[int, int]:
     return -(-K // kc), kc
 
 
+@functools.lru_cache(maxsize=256)  # one entry per prefill length and projection
+def tile_plan(M: int, K: int, N: int) -> tuple[int, int, int]:
+    """(tile_x, splits, kc) of the wgmma tile (M > 16, bf16 x): blocks of
+    TILE_Q columns of q by tile_x rows of x, K cut into `splits` ranges of
+    kc rows (a multiple of 2 TILE_K: the kernel runs its steps in pairs,
+    none empty). The fixed rule: the least modelled time, counted in k
+    steps of 128 rows of x along the busiest SM as if one block held an SM:
+    waves of blocks times (steps a block + its fill and epilogue), plus,
+    for more than one split, the partial sums that the finish pass reads
+    and writes. Ties go to fewer splits, then the shorter tile. On the
+    H100 it picks the fastest of the plans it weighs at the four 1B
+    projections at M = 260 and 1040 (chip_smoke.py's tile_plan_times)."""
+    best = None
+    for splits_wanted in range(1, _TILE_MAX_SPLITS + 1):
+        kc = 2 * TILE_K * -(-K // (splits_wanted * 2 * TILE_K))
+        splits = -(-K // kc)
+        if splits != splits_wanted:
+            continue
+        for tile_x in TILE_XS:
+            blocks = -(-N // TILE_Q) * -(-M // tile_x) * splits
+            waves = -(-blocks // _SMS)
+            cost = waves * tile_x / 128 * (kc // TILE_K + _TILE_BLOCK_STEPS)
+            if splits > 1:
+                cost += (splits + 1) * M * N * 4 / _TILE_FINISH_BYTES
+            key = (cost, splits, tile_x)
+            if best is None or key < best[0]:
+                best = (key, (tile_x, splits, kc))
+    return best[1]
+
+
 def _check_qmm(x, w_q, scale, bias, out_dtype):
     if x.ndim != 2 or w_q.ndim != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"quant_matmul: x {tuple(x.shape)} and w_q {tuple(w_q.shape)} do not "
@@ -174,29 +212,44 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: no kernel for tensors on {x.device}")
     M, K, N = _check_qmm(x, w_q, scale, bias, out_dtype)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
-        return out
-    gemv = M <= GEMV_MAX_ROWS
-    splits, kc = gemv_split(K, N) if gemv else (0, 0)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if gemv else None
+        return torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M <= GEMV_MAX_ROWS:
+        return launch_kernel(x, w_q, scale, bias, out_dtype, "gemv", 0, *gemv_split(K, N))
+    if x.dtype == torch.bfloat16:
+        return launch_kernel(x, w_q, scale, bias, out_dtype, "wgmma", *tile_plan(M, K, N))
+    return launch_kernel(x, w_q, scale, bias, out_dtype, "f32_tile", 0, 0, 0)
+
+
+def launch_kernel(x, w_q, scale, bias, out_dtype, path: str, tile_x: int, splits: int,
+                  kc: int) -> torch.Tensor:
+    """One launch of kernel 14 on inputs that `_check_qmm` passed, by `path`
+    ("gemv": splits, kc from gemv_split; "wgmma": tile_x, splits, kc from
+    tile_plan; "f32_tile": none), counted on quant_matmul. quant_matmul
+    chooses the plan; a measurement may time another."""
+    M, K = x.shape
+    N = w_q.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws = None
+    if path == "gemv" or splits > 1:
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
     codes = kernel_lib.DTYPE_CODES
     code = kernel_lib.library().sv_quant_matmul(
         codes[x.dtype], codes[out_dtype], codes[bias.dtype] if bias is not None else 0,
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(),
-        M, K, N, x.stride(0), out.stride(0), splits, kc, torch.cuda.current_stream().cuda_stream,
+        M, K, N, x.stride(0), out.stride(0), tile_x, splits, kc,
+        torch.cuda.current_stream().cuda_stream,
     )
     kernel_lib.check(code, "quant_matmul")
     quant_matmul.launches += 1
-    path = "gemv" if gemv else ("mma" if x.dtype == torch.bfloat16 else "f32_tile")
     quant_matmul.path_launches[path] += 1
     return out
 
 
 quant_matmul.launches = 0
-quant_matmul.path_launches = {"gemv": 0, "mma": 0, "f32_tile": 0}
+quant_matmul.path_launches = {"gemv": 0, "wgmma": 0, "f32_tile": 0}
 
 
 def dense_quantized(p: dict, x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16, *,

@@ -10,9 +10,17 @@ default path (`use_pallas=False`), which rounds q * scale to the compute
 dtype before the product: fp32 at 1e-5, bf16 within 2e-2 of max |y|.
 
 Tests marked `gpu` hold kernel 14 against its plain version at the 1B
-shapes and skip without a card; they import no JAX, so on the card they run
-as
+shapes and the wgmma tile's edges, and skip without a card; they import no
+JAX, so on the card they run as
     python -m pytest --noconftest -m gpu tests/test_torch_quantization.py
+
+Kernel 14's tolerance against its plain version (QMM_TOL): fp32 out atol =
+rtol = 1e-4, the fp32 sums taken in another order; bf16 out atol 2e-3 and
+rtol 2^-7: the fp32 values differ only by the sum order, which can move a
+result across one bf16 rounding boundary, one bf16 step (at most 2^-7
+relative), with atol for results near zero. 2e-2 would pass a kernel that
+drops or repeats a 16-row slab of q (test_qmm_tolerance_tells_a_dropped_
+or_repeated_k_slab holds this limit on the CPU).
 """
 
 import numpy as np
@@ -26,6 +34,11 @@ from starvector_tpu_torch.ops import quantization as tq
 # the 1B decoder's four projections, (K, N)
 SHAPES_1B = {"attn.c_attn": (2048, 2304), "attn.c_proj": (2048, 2048),
              "mlp.c_fc": (2048, 8192), "mlp.c_proj": (8192, 2048)}
+# the wgmma tile's ragged edges: N not a multiple of its columns, K not a
+# multiple of its 64-row step (a multiple of 8)
+SHAPES_RAGGED = {"K=200 N=48": (200, 48), "K=2056 N=400": (2056, 400)}
+QMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-3, rtol=2**-7)}
 
 
 @pytest.fixture(scope="module")
@@ -158,6 +171,52 @@ def test_gemv_split_tiles_k_once(K, N):
     assert -(-N // 128) * splits <= 2 * 132 or splits == -(-K // 1024)
 
 
+@pytest.mark.parametrize("M", [17, 64, 65, 260, 1040, 4160])
+@pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + list(SHAPES_RAGGED.values()))
+def test_tile_plan_tiles_k_once(M, K, N):
+    """The wgmma tile's plan: a height the kernel has, K in slices of kc
+    rows (a multiple of two of its 64-row steps), every slice non-empty, at
+    most 8 of them; the same plan on every call."""
+    tile_x, splits, kc = tq.tile_plan(M, K, N)
+    assert tile_x in tq.TILE_XS and kc % (2 * tq.TILE_K) == 0 and 0 < kc
+    assert splits * kc >= K and (splits - 1) * kc < K and 1 <= splits <= 8
+    assert tq.tile_plan(M, K, N) == (tile_x, splits, kc)
+
+
+def _slab_case(K, seed, M=64, N=256):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).bfloat16()
+    p = tq.quantize_dense({"kernel": torch.from_numpy(
+        rng.standard_normal((K, N)).astype(np.float32) * 0.02)})
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    return x, p["kernel_q"], p["scale"], bias
+
+
+@pytest.mark.parametrize("K", [2048, 8192])
+def test_qmm_tolerance_tells_a_dropped_or_repeated_k_slab(K):
+    """QMM_TOL in bf16, with the plain version on the CPU: the sums taken
+    in the tile's order (64-row steps, each step's fp32 sum added in turn)
+    stay within it; the same product with one 16-row slab of q (one k16
+    product) dropped or counted twice does not."""
+    x, q, scale, bias = _slab_case(K, K)
+    ref = tq.quant_matmul_plain(x, q, scale, bias, out_dtype=torch.bfloat16).float()
+    tol = QMM_TOL[torch.bfloat16]
+
+    def within(out):
+        return bool(((out.float() - ref).abs() <= tol["atol"] + tol["rtol"] * ref.abs()).all())
+
+    acc = torch.zeros((x.shape[0], q.shape[1]))
+    for k0 in range(0, K, 64):
+        acc += torch.mm(x[:, k0:k0 + 64].float(), q[k0:k0 + 64].float())
+    assert within((acc * scale + bias).bfloat16())
+    k0 = 16 * (5 * K // 16 // 7)
+    for factor in (0, 2):
+        slab = q.clone()
+        slab[k0:k0 + 16] = (q[k0:k0 + 16].int() * factor).clamp(-128, 127).to(torch.int8)
+        wrong = tq.quant_matmul_plain(x, slab, scale, bias, out_dtype=torch.bfloat16)
+        assert not within(wrong), f"a slab times {factor} passes"
+
+
 def test_from_jax_params_keeps_int8_codes_and_fp32_scales(jq):
     import jax.numpy as jnp
 
@@ -186,23 +245,51 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 4, 8, 16, 1040])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 63, 64, 65, 260, 1040])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_quant_matmul_kernel_matches_plain(cuda, M, dtype):
-    """Tolerance: fp32 atol = rtol = 1e-4 (the sums run in another order);
-    bf16 out 2e-2 relative (one output rounding)."""
+    """x of `dtype` at the 1B shapes and the tile's ragged edges, bias none,
+    fp32 or bf16, bf16 and fp32 out; tolerance QMM_TOL of the output type
+    (the module docstring gives its reasons)."""
     rng = np.random.default_rng(M)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for name, (K, N) in SHAPES_1B.items():
+    for name, (K, N) in {**SHAPES_1B, **SHAPES_RAGGED}.items():
         p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), K + N)).to(cuda)})
         x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
         bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(cuda)
-        for b in (None, bias):
-            out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
-            ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+        for b in (None, bias, bias.bfloat16()):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=out_dtype)
+                ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], b, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                assert out.dtype == out_dtype
+                torch.testing.assert_close(
+                    out.float(), ref.float(), **QMM_TOL[out_dtype],
+                    msg=lambda m: f"{name} M={M} bias={None if b is None else b.dtype} "
+                                  f"out {out_dtype}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_x", tq.TILE_XS)
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_wgmma_tile_matches_plain_at_every_height_and_split(cuda, tile_x, splits):
+    """Every height the tile has (rows of x a block) and splits of K that
+    tile_plan may pick, launched directly, at mlp.c_proj's K = 8192 and a
+    ragged K and N, M = 65 and 260; bf16 out, tolerance QMM_TOL."""
+    rng = np.random.default_rng(tile_x + splits)
+    for K, N in ((8192, 2048), (2056, 400)):
+        p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), K)).to(cuda)})
+        bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(cuda)
+        kc = 2 * tq.TILE_K * -(-K // (splits * 2 * tq.TILE_K))
+        for M in (65, 260):
+            x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+                cuda, torch.bfloat16)
+            out = tq.launch_kernel(x, p["kernel_q"], p["scale"], bias, torch.bfloat16, "wgmma",
+                                   tile_x, -(-K // kc), kc)
+            ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], bias,
+                                        out_dtype=torch.bfloat16)
             torch.cuda.synchronize()
-            torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
-                                       msg=f"{name} M={M} bias={b is not None}")
+            torch.testing.assert_close(out.float(), ref.float(), **QMM_TOL[torch.bfloat16],
+                                       msg=lambda m: f"K={K} N={N} M={M}: {m}")
 
 
 @pytest.mark.gpu
@@ -219,10 +306,11 @@ def test_quant_matmul_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 260, 1040])
 def test_gemv_two_launches_are_bit_identical(cuda, M):
-    """The split-K partial sums are added in a fixed order by the second
-    kernel: no atomics, the same bits twice, at the four 1B projections."""
+    """The GEMV (M <= 16) and the wgmma tile (M > 16, split or not): the
+    split-K partial sums are added in a fixed order by the second kernel,
+    no atomics, the same bits twice, at the four 1B projections."""
     rng = np.random.default_rng(M)
     for name, (K, N) in SHAPES_1B.items():
         p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), N)).to(cuda)})
