@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg inference
-(bf16, and int8 weights with an int8 KV cache) and training on one NVIDIA
-H100, end to end through the hand-written kernels.
+(bf16, and int8 weights with an int8 KV cache) and training, and
+StarVector-8B im2svg inference, on one NVIDIA H100, end to end through the
+hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --times-only ROOT
@@ -27,7 +28,11 @@ Phases, one line each (any failure raises and exits non-zero):
      8k and 16k windows and the 16k triangle; the int8 weight matmul (kernel
      14: GEMV at M = 1, 4, 8, 16, the wgmma tile at M = 17, 260, 1040, the
      four 1B projection shapes, bf16 and fp32, with and without bias; two
-     launches bit for bit) and the int8-cache decode attention
+     launches bit for bit) and the int8-cache decode attention; the 8B's
+     shapes: decode at G = 9 (36 query heads over 4 KV heads; B=4 T=708,
+     B=1 T=8192 past the 4096 window, a ragged mask) and flash_prefill at
+     H=36 Hkv=4 with the window (B=4 S=T=580; B=1 S=1024 at q_offset 7168 of
+     T=8192), fp32 and bf16, bf16 bit for bit on relaunch
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -39,18 +44,27 @@ Phases, one line each (any failure raises and exits non-zero):
      launches per step); fp32 greedy ids kernels vs plain; bf16 prefill
      logits against the fp32 plain int8 path; greedy agreement with bf16.
      Last, beside the card's name and power limit: p50 B=1 latency and B=4
-     decode tokens/s for bf16 and int8, and the memory of both; the int8
-     tree is then released
+     decode tokens/s for bf16 and int8, and the memory of both; the 1B
+     inference trees are then released
   5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
      remat, AdamW): 8 steps of the port's train loop on one synthetic batch
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
      training kernel, peak memory (also above what was held before it);
      then 2 fp32 steps with the kernels against 2 with the plain attention
-  6. times on the card, each beside the card's name and power limit: each
+  6. inference at full StarVector-8B width and depth (StarCoder2-7B 4608 x
+     32 layers, GQA 36/4, window 4096; SigLIP-L/16 at 384; LayerNorm
+     adapter) on random bf16 weights that StarVectorForCausalLM.from_config
+     draws on the card from a seed: 3 requests of 4 images with launch
+     counts (32 flash_prefill a prefill, 32 decode_attention a step); bf16
+     prefill logits against the fp32 plain ones; fp32 greedy ids kernels vs
+     plain; the window at full width (2 layers, a 4700-token prefix, fp32
+     ids kernels vs plain); p50 B=1 latency, B=4 tokens/s and memory
+  7. times on the card, each beside the card's name and power limit: each
      kernel against its plain version, its bound and one PyTorch library
-     call where there is one, the train step, also the training kernels at
-     the long contexts phase 3 drives (with --profile DIR, also where a
-     decode step's and a train step's device time goes)
+     call where there is one (the 8B's two at its shapes too), the train
+     step, also the training kernels at the long contexts phase 3 drives
+     (with --profile DIR, also where a decode step's and a train step's
+     device time goes)
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -60,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import re
 import statistics
@@ -171,14 +186,18 @@ def read_counts(tfa) -> dict:
 
 def kernel_tag(mangled: str) -> str:
     """What tells a kernel's instantiations apart, from its mangled name:
-    ' int8 cache' for decode_attention_{bf16,f32}_kernel<int8_t>; for the
+    ' int8 cache' for decode_attention_{bf16,f32}_kernel<int8_t, G> and
+    ' G=9' or ' G=16' for its query heads per KV head; for the
     int8 matmul its first template argument ('<bf16>' or '<f32>': x's type
     for the GEMV, the output's for the tile and finish kernels, marked
     'out'), for the GEMV ' rows<=MR' and for the wgmma tile ' xBX' (its
     rows of x a block); nothing for the flash kernels, whose type is in
     their names."""
     if "decode_attention" in mangled:
-        return " int8 cache" if re.search(r"decode_attention_(bf16|f32)_kernelIa", mangled) else ""
+        group = re.search(r"decode_attention_(?:bf16|f32)_kernelI(?:13__nv_bfloat16|a|f)Li(\d+)E",
+                          mangled)
+        int8 = re.search(r"decode_attention_(bf16|f32)_kernelIa", mangled)
+        return (" int8 cache" if int8 else "") + (f" G={group.group(1)}" if group else "")
     if "qmm_" not in mangled:
         return ""
     first = re.search(r"kernelI(13__nv_bfloat16|f)", mangled)
@@ -228,8 +247,10 @@ CUDA_CORE_KERNELS = ("flash_prefill_f32_kernel", "flash_bwd_dkdv_f32_kernel",
                      "flash_bwd_dq_f32_kernel")
 # decode_attention's instantiations: bf16 queries on the warp-level tensor
 # cores (mma.sync: HMMA), fp32 queries on the CUDA cores (none)
-HMMA_KERNELS = ("decode_attention_bf16_kernel", "decode_attention_bf16_kernel int8 cache")
-NO_HMMA_KERNELS = ("decode_attention_f32_kernel", "decode_attention_f32_kernel int8 cache")
+HMMA_KERNELS = tuple(f"decode_attention_bf16_kernel{tag}"
+                     for tag in (" G=16", " int8 cache G=16", " G=9"))
+NO_HMMA_KERNELS = tuple(f"decode_attention_f32_kernel{tag}"
+                        for tag in (" G=16", " int8 cache G=16", " G=9"))
 
 
 def sass_counts(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:
@@ -465,6 +486,93 @@ def check_int8_decode(tfa, dc, dev) -> float:
     return worst
 
 
+# StarVector-8B's attention: 36 query heads over 4 KV heads (G = 9), head
+# size 128, a sliding window of 4096 keys
+H8, HKV8, WINDOW8 = 36, 4, 4096
+G9_DECODE_CHECKS = (  # name, B, T, t_begin, ragged mask
+    ("B=4 T=708 (576 visual + 4 prompt + 128 new tokens)", 4, 708, 0, False),
+    ("B=1 T=8192 past the window (t_begin 4097)", 1, 8192, 4097, False),
+    ("B=4 T=708 ragged mask", 4, 708, 0, True),
+)
+
+
+def check_g9_decode(tfa, dev) -> float:
+    """decode_attention at G = 9, Hkv = 4 against its plain version, fp32
+    and bf16, the self token merged (rows 9-15 of the tensor-core product are
+    zero padding): the 8B decode at T = 708, a step past the window (the
+    first visible slot t_begin = idx - 4095), and a ragged mask (left
+    padding, a masked run that empties whole chunks, a masked slot); each
+    bf16 case launched twice, bit for bit. Returns the worst max |diff|."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    G, D = H8 // HKV8, 128
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, T, t_begin, ragged in G9_DECODE_CHECKS:
+            qg = torch.randn((B, HKV8, G, D), generator=g, device=dev).to(dtype)
+            kn, vn = (torch.randn((B, HKV8, D), generator=g, device=dev).to(dtype) for _ in "kv")
+            k, v = (torch.randn((B, T, HKV8, D), generator=g, device=dev).to(dtype) for _ in "kv")
+            mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+            if ragged:
+                mask[0, : T // 5] = 0
+                mask[-1, 100:400] = 0
+                mask[:, T // 2] = 0
+            out = tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5, t_begin=t_begin)
+            ref = tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5, t_begin=t_begin,
+                                              kernels=False)
+            torch.cuda.synchronize()
+            err = compare(f"decode G=9 {name} {dtype}", out, ref, dtype, tols=DECODE_TOL)
+            same = ""
+            if dtype == torch.bfloat16:
+                again = tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5,
+                                                    t_begin=t_begin)
+                torch.cuda.synchronize()
+                if not torch.equal(again, out):
+                    raise AssertionError(f"decode G=9 {name}: two launches differ")
+                same = "; a second launch gives the same bits"
+            worst = max(worst, err)
+            log("kernels", f"decode_attention G=9 Hkv=4 {name} {str(dtype)[6:]}: max |diff| "
+                           f"{err:.3e}{same}")
+    return worst
+
+
+PREFILL_8B_CHECKS = (  # name, B, S, T, q_offset
+    ("B=4 S=T=580 (the 8B prefill)", 4, 580, 580, 0),
+    ("B=1 S=1024 at q_offset 7168 of T=8192", 1, 1024, 8192, 7168),
+)
+
+
+def check_flash_prefill_8b(tfa, dev) -> float:
+    """flash_prefill at H = 36, Hkv = 4 with the 4096-key window against its
+    plain version, fp32 and bf16 (TOL): the 8B prefill, and a chunk past the
+    window whose first rows' windows start inside a key tile; each bf16 case
+    launched twice, bit for bit. Returns the worst max |diff|."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    D = 128
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, T, q_off in PREFILL_8B_CHECKS:
+            q = torch.randn((B, S, H8, D), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, T, HKV8, D), generator=g, device=dev).to(dtype) for _ in "kv")
+            mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+            out = tfa.flash_prefill(q, k, v, mask, q_off, window=WINDOW8)
+            ref = tfa.flash_prefill(q, k, v, mask, q_off, window=WINDOW8, kernels=False)
+            torch.cuda.synchronize()
+            err = compare(f"flash_prefill H=36 {name} {dtype}", out, ref, dtype)
+            same = ""
+            if dtype == torch.bfloat16:
+                again = tfa.flash_prefill(q, k, v, mask, q_off, window=WINDOW8)
+                torch.cuda.synchronize()
+                if not torch.equal(again, out):
+                    raise AssertionError(f"flash_prefill H=36 {name}: two launches differ")
+                same = "; a second launch gives the same bits"
+            worst = max(worst, err)
+            del ref
+            log("kernels", f"flash_prefill H=36 Hkv=4 window=4096 {name} {str(dtype)[6:]}: "
+                           f"max |diff| {err:.3e}{same}")
+    torch.cuda.empty_cache()
+    return worst
+
+
 TRAIN_CASES = [  # name, B, S, T, H, Hkv, q_offset, window, right_pad, left_pad
     ("1B train step", 4, 769, 769, 16, 1, 0, None, 0, 0),
     ("right-padded keys", 2, 300, 300, 16, 1, 0, None, 120, 0),
@@ -656,13 +764,17 @@ def api_requester(model):
     return request
 
 
-def full_width_params(sv, cfg, dev, dtype, seed: int = 0) -> dict:
-    params = sv.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
-                            dtype=dtype)
+def scale_projections(params: dict) -> dict:
+    """The decoder's attention and MLP kernels times PROJ_SCALE, in place."""
     for grp in (params["svg_transformer"]["layers"]["attn"], params["svg_transformer"]["layers"]["mlp"]):
         for p in grp.values():
             p["kernel"].mul_(PROJ_SCALE)
     return params
+
+
+def full_width_params(sv, cfg, dev, dtype, seed: int = 0) -> dict:
+    return scale_projections(sv.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                                            device=dev, dtype=dtype))
 
 
 KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
@@ -1015,12 +1127,13 @@ def _sdpa_causal(S: int, T: int) -> dict:
     return dict(is_causal=True) if S == T else dict(attn_mask=causal_lower_right(S, T))
 
 
-def sdpa_ms(q, k, v, causal: bool):
+def sdpa_ms(q, k, v, causal: bool, **kw):
     """F.scaled_dot_product_attention on (B, H, S, D) queries over
-    (B, H, T, D) keys, K/V expanded to all heads; causal with the last query
-    on the last key (lower right, which is top left when S = T). The faster
-    of the backend it dispatches to by itself and its flash or
-    memory-efficient backend (the two differ for one-token decode)."""
+    (B, H, T, D) keys, K/V expanded to all heads (or (B, Hkv, T, D) with
+    enable_gqa=True in `kw`); causal with the last query on the last key
+    (lower right, which is top left when S = T). The faster of the backend
+    it dispatches to by itself and its flash or memory-efficient backend
+    (the two differ for one-token decode)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1028,9 +1141,9 @@ def sdpa_ms(q, k, v, causal: bool):
 
     def fused():
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-            return F.scaled_dot_product_attention(q, k, v, **mask)
+            return F.scaled_dot_product_attention(q, k, v, **mask, **kw)
 
-    times = [library_ms(lambda: F.scaled_dot_product_attention(q, k, v, **mask),
+    times = [library_ms(lambda: F.scaled_dot_product_attention(q, k, v, **mask, **kw),
                         "scaled_dot_product_attention"),
              library_ms(fused, "scaled_dot_product_attention, flash/efficient")]
     times = [t for t in times if t is not None]
@@ -1496,6 +1609,236 @@ def long_context_times(tfa, dev, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: StarVector-8B inference at full width
+# ---------------------------------------------------------------------------
+
+PREFIX_8B = 4700  # the window check's prefix, past the 4096-key window
+
+
+def first_layers(params: dict, cfg, n: int):
+    """(params, cfg) of the model cut to its decoder's first n layers (views
+    of the same weights)."""
+    import dataclasses
+
+    st = dict(params["svg_transformer"])
+    st["layers"] = _map_tree(st["layers"], lambda t: t[:n])
+    return ({**params, "svg_transformer": st},
+            dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_hidden_layers=n)))
+
+
+def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
+    """StarVector-8B im2svg at full width and depth (StarCoder2-7B: 4608 x 32
+    layers, 36 query heads over 4 KV heads, window 4096; SigLIP-L/16 at 384;
+    LayerNorm adapter) on random bf16 weights drawn on the card by
+    StarVectorForCausalLM.from_config from a seed, projections scaled as in
+    phase 4. 3 requests of 4 images through generate_im2svg_ids with exact
+    launch counts (32 flash_prefill a prefill, 32 decode_attention a step, no
+    training or int8 kernel); bf16 prefill logits against the fp32 plain
+    ones (full depth where the fp32 copy fits beside the bf16 tree); fp32
+    greedy ids, kernels against plain; the window at full width (2 layers,
+    a 4700-token prefix, 32 greedy tokens, fp32 ids kernels == plain); then
+    p50 latency, B=4 tokens/s and memory (with `profile_dir`, where a B=4
+    request's device time goes). Returns the launch counts, p50, tokens/s
+    and the tree's bytes."""
+    import dataclasses
+
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.generation.engine import GenerationConfig, generate, im2svg_prefix
+    from starvector_tpu_torch.models import starcoder2
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = sv.starvector_8b_config()
+    L = cfg.llm.num_hidden_layers
+    model = StarVectorForCausalLM.from_config(cfg, seed=8, dtype=torch.bfloat16, device=dev)
+    p16 = scale_projections(model.params)
+    torch.cuda.synchronize()
+    parts = {k: tree_bytes(v) / 2**30 for k, v in p16.items()}
+    log("8b", f"StarVector-8B (StarCoder2-7B {cfg.llm.hidden_size} x {L} layers, "
+              f"{cfg.llm.num_attention_heads} heads over {cfg.llm.kv_heads}, window "
+              f"{cfg.llm.sliding_window}; {cfg.image_encoder_type}; {cfg.adapter_norm} adapter) "
+              f"from_config(seed=8) in bf16 on the card: weights "
+              f"{tree_bytes(p16) / 2**30:.2f} GiB ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+              + f"), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing them, "
+              f"{held / 2**30:.2f} GiB held before")
+
+    request = api_requester(model)
+    request(synthetic_images(4, 99), max_new_tokens=8)  # warm-up: cuBLAS handles, allocator
+    reset_counts(tfa)
+    served = [request(synthetic_images(4, seed)) for seed in range(3)]
+    counts = read_counts(tfa)
+    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    for tokens, lengths, _ in served:
+        if tokens.shape != (4, 128) or int(tokens.min()) < 0 or \
+                int(tokens.max()) >= cfg.llm.vocab_size:
+            raise AssertionError(f"8B: bad tokens {tuple(tokens.shape)} [{tokens.min()}, "
+                                 f"{tokens.max()}]")
+        if not ((lengths >= 1) & (lengths <= 128)).all():
+            raise AssertionError(f"8B: bad lengths {lengths.tolist()}")
+    expected = {"flash_prefill": L * 3, "decode_attention": L * sum(steps),
+                "decode_attention_int8": 0, "quant_matmul": 0, **dict.fromkeys(TRAIN_KERNELS, 0)}
+    got = {k: counts[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f"8B launches {got}, expected {expected}")
+    distinct = [len(set(row.tolist())) for tokens, _, _ in served for row in tokens]
+    log("8b", f"3 requests x 4 images, greedy, 128 new tokens: decode steps {steps}, lengths "
+              f"{[l.tolist() for _, l, _ in served]}, distinct ids per row {distinct}; launches "
+              f"flash_prefill {got['flash_prefill']} = {L} x 3 prefills, decode_attention "
+              f"{got['decode_attention']} = {L} x {sum(steps)} decode steps, no training or int8 "
+              f"kernel")
+
+    # fp32 at full depth where the copy fits beside what is held, else fewer layers
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    layer_bytes = tree_bytes(p16["svg_transformer"]["layers"]) / L
+    rest = tree_bytes(p16) - layer_bytes * L
+    n32 = int(min(L, (free - 12 * 2**30 - 2 * rest) // (2 * layer_bytes)))
+    if n32 < 2:
+        raise AssertionError(f"8B: {free / 2**30:.1f} GiB free holds no fp32 copy")
+    q16, cfg32 = first_layers(p16, cfg, n32)
+    p32 = _cast_tree(q16, torch.float32)
+    images = model.process_images(synthetic_images(4, 11))
+    prompt = torch.tensor([PROMPT_IDS] * 4, device=dev)
+
+    def prefill_logits(params, policy, kernels):
+        emb, mask = im2svg_prefix(params, cfg32, images, prompt, policy=policy)
+        cache = starcoder2.init_cache(cfg32.llm, 4, emb.shape[1], dtype=policy.compute_dtype,
+                                      device=dev)
+        return starcoder2.forward(params["svg_transformer"], cfg32.llm, emb, mask, cache=cache,
+                                  policy=policy, last_logits_only=True, kernels=kernels)[0]
+
+    ref32 = prefill_logits(p32, f32, False)
+    logits = {k: prefill_logits(q16, bf16, k) for k in (True, False)}
+    err_k = (logits[True] - ref32).abs().max().item()
+    err_p = (logits[False] - ref32).abs().max().item()
+    if not torch.isfinite(logits[True]).all() or err_k > 2.0 * err_p + 1e-3:
+        raise AssertionError(f"8B bf16 prefill logits: kernels {err_k:.3e} from fp32, over twice "
+                             f"the plain version's {err_p:.3e}")
+    log("8b", f"bf16, B=4, {n32} of {L} layers: prefill last-position logits from the fp32 plain "
+              f"logits (max |logit| {ref32.abs().max().item():.3e}): kernels {err_k:.4e}, plain "
+              f"{err_p:.4e} (bound: kernels <= 2 x plain + 1e-3)")
+    del logits, ref32
+    ids = {}
+    for kernels in (True, False):
+        m32 = StarVectorForCausalLM(p32, cfg32, policy=f32, device=dev, kernels=kernels)
+        _, ids[kernels], _ = m32.generate_im2svg_ids(
+            {"image": images[:2]}, **{**GREEDY, "prompt_ids": [PROMPT_IDS] * 2,
+                                      "max_new_tokens": 32})
+    if not torch.equal(ids[True], ids[False]):
+        raise AssertionError(f"8B fp32 greedy ids differ:\n{ids[True].tolist()}\n"
+                             f"{ids[False].tolist()}")
+    log("8b", f"fp32, B=2, 32 tokens, {n32} of {L} layers ({'full depth' if n32 == L else 'the '
+              'layers whose fp32 copy fits'}; {free / 2**30:.1f} GiB was free): greedy ids with "
+              f"the kernels == with the plain attention "
+              f"({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+    del m32, p32, q16
+    torch.cuda.empty_cache()
+
+    # the window at full width: 2 layers, a prefix past 4096 keys, fp32
+    q2, cfg2 = first_layers(p16, cfg, 2)
+    p2 = _cast_tree(q2, torch.float32)
+    n_visual = cfg.encoder_config.geometry[1]
+    long_ids = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.llm.vocab_size, (2, PREFIX_8B - n_visual))).to(dev)
+    emb, mask = im2svg_prefix(p2, cfg2, model.process_images(synthetic_images(2, 17)), long_ids,
+                              policy=f32)
+    gen = GenerationConfig(max_new_tokens=32, do_sample=False, stop_sequences=(),
+                           eos_token_id=None, pad_token_id=0)
+    win = {}
+    for kernels in (True, False):
+        reset_counts(tfa)
+        win[kernels] = generate(p2["svg_transformer"], cfg2.llm, emb, mask, gen, policy=f32,
+                                kernels=kernels)[0]
+        if kernels:
+            win_counts = read_counts(tfa)
+    if not torch.equal(win[True], win[False]):
+        raise AssertionError(f"8B window: fp32 greedy ids differ:\n{win[True].tolist()}\n"
+                             f"{win[False].tolist()}")
+    if (win_counts["flash_prefill"], win_counts["decode_attention"]) != (2, 2 * 31):
+        raise AssertionError(f"8B window launches {win_counts}")
+    log("8b", f"the window at full width, fp32, 2 layers, B=2: a {PREFIX_8B}-token prefix "
+              f"({n_visual} visual + {PREFIX_8B - n_visual} prompt ids), past "
+              f"the {cfg.llm.sliding_window}-key window, then 32 greedy tokens (decode steps see "
+              f"slots from {PREFIX_8B - cfg.llm.sliding_window + 1} on): ids with the kernels "
+              f"== with the plain attention ({[len(set(r.tolist())) for r in win[True]]} "
+              f"distinct ids per row; launches flash_prefill {win_counts['flash_prefill']}, "
+              f"decode_attention {win_counts['decode_attention']} = 2 x 31)")
+    del p2, q2, emb, mask
+    torch.cuda.empty_cache()
+
+    e2e = serving_times(card, {"8B bf16": request})["8B bf16"]
+    memory_times(card, {"8B bf16": request}, {"8B bf16": p16})
+    if profile_dir is not None:
+        profile_request(request, card, profile_dir, "8b")
+    out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(p16))
+    del model, request, p16, served
+    torch.cuda.empty_cache()
+    return out
+
+
+def times_8b(tfa, dev, card: str, launches: dict, errs: dict) -> list[dict]:
+    """The 8B's two attention kernels at its shapes, bf16, graph-replayed:
+    flash_prefill at B=4 S=T=580 (576 visual + 4 prompt tokens), H=36 over
+    Hkv=4, window 4096, and decode_attention at G=9, B=4 T=708 with the self
+    token, each beside its plain version, its bound and SDPA with
+    enable_gqa over the 4 KV heads.
+    Returns their rows of the kernels' JSON."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    D, rows = 128, []
+    B, S = 4, 580
+    q = torch.randn((B, S, H8, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, HKV8, D), generator=g, device=dev).bfloat16() for _ in "kv")
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    plain_ms, ms = _turns(lambda: tfa.flash_prefill(q, k, v, mask, window=WINDOW8, kernels=False),
+                          lambda: tfa.flash_prefill(q, k, v, mask, window=WINDOW8))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = sdpa_ms(qh, kh, vh, causal=True, enable_gqa=True)
+    nbytes = 2 * B * S * H8 * D * 2 + 2 * B * S * HKV8 * D * 2 + B * S * 4
+    flops = 4 * D * H8 * B * S * (S + 1) // 2
+    b_ms, b_by = bound(nbytes, flops)
+    log("times", f"{card}: flash_prefill 8B B=4 S=T=580 H=36 Hkv=4 window=4096 D=128 bf16: kernel "
+                 f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound), "
+                 f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+                 f"{flops / 1e9:.2f} GFLOP), SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}")
+    rows.append(dict(name="flash_prefill_8b", route="cuda",
+                     source="starvector_tpu_torch/csrc/flash_prefill.cu",
+                     replaces="starvector_tpu/ops/flash_attention.py:212",
+                     launches=launches["flash_prefill"], max_abs_err=errs["flash_prefill_8b"],
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    del q, k, v, qh, kh, vh
+    B, T, G = 4, 708, H8 // HKV8
+    qg = torch.randn((B, HKV8, G, D), generator=g, device=dev).bfloat16()
+    kn, vn = (torch.randn((B, HKV8, D), generator=g, device=dev).bfloat16() for _ in "kv")
+    kc, vc = (torch.randn((B, T, HKV8, D), generator=g, device=dev).bfloat16() for _ in "kv")
+    old = torch.ones((B, T), dtype=torch.int32, device=dev)
+    plain_ms, ms = _turns(
+        lambda: tfa.merged_decode_attention(qg, kn, vn, kc, vc, old, D**-0.5, kernels=False),
+        lambda: tfa.merged_decode_attention(qg, kn, vn, kc, vc, old, D**-0.5))
+    keys = [torch.cat([c, n[:, None]], 1).transpose(1, 2).contiguous() for c, n in ((kc, kn),
+                                                                                   (vc, vn))]
+    lib = sdpa_ms(qg.reshape(B, H8, 1, D), *keys, causal=False, enable_gqa=True)
+    cache_bytes = 2 * B * T * HKV8 * D * 2
+    small = 2 * B * H8 * D * 2 + 2 * B * HKV8 * D * 2 + B * T * 4
+    flops = 4 * D * H8 * B * (T + 1)
+    b_ms, b_by = bound(cache_bytes + small, flops)
+    log("times", f"{card}: decode_attention G=9 B=4 T=708 Hkv=4 D=128 bf16 cache and queries, "
+                 f"the self token merged: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                 f"{b_ms:.5f} ms ({b_by}: {cache_bytes / 1e6:.3f} MB of cache), SDPA "
+                 f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+    rows.append(dict(name="decode_attention_g9", route="cuda",
+                     source="starvector_tpu_torch/csrc/decode_attention.cu",
+                     replaces="starvector_tpu/ops/flash_attention.py:2104",
+                     launches=launches["decode_attention"], max_abs_err=errs["decode_g9"],
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    return rows
+
+
 def times_only(card: str, dev) -> int:
     """--times-only ROOT: phase 6's decode-step and prefill-tile figures
     (decode_times, quant_matmul_times) and phase 4's serving times (serving_times) for the
@@ -1541,6 +1884,7 @@ def main() -> int:
     if args.times_only is not None:
         sys.path.insert(0, str(args.times_only.resolve()))
     from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.data.processor import processor_for_encoder
     from starvector_tpu_torch.models import decode_common as dc
     from starvector_tpu_torch.models import starvector as sv
     from starvector_tpu_torch.ops import flash_attention as tfa
@@ -1549,6 +1893,11 @@ def main() -> int:
     from starvector_tpu_torch.ops.layers import DTypePolicy
 
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
+
+    def phase(n: int, what: str) -> None:
+        log("phase", f"{n}. {what}, {time.perf_counter() - t_run:.0f} s into the run")
+
     # --- 1. card -------------------------------------------------------------
     card = card_line()
     nvcc = subprocess.run([kernel_lib.find_nvcc(), "--version"], capture_output=True, text=True,
@@ -1595,6 +1944,7 @@ def main() -> int:
                                                      for k in HMMA_KERNELS + NO_HMMA_KERNELS))
 
     # --- 3. kernels against their plain versions --------------------------------
+    phase(3, "kernels against their plain versions")
     err_prefill = check_flash_prefill(tfa, dev)
     err_decode = check_decode_attention(tfa, dev)
     log("kernels", f"both kernels match their plain versions (atol=rtol 1e-4 in fp32; bf16 "
@@ -1607,6 +1957,13 @@ def main() -> int:
                    f"M=4 and the wgmma tile at M=260 and 1040 bit-identical on relaunch); max |diff| "
                    f"quant_matmul GEMV {err_qmm['gemv']:.3e}, tile {err_qmm['tile']:.3e}, "
                    f"int8-cache decode {err_int8:.3e}")
+    err_8b = {"decode_g9": check_g9_decode(tfa, dev),
+              "flash_prefill_8b": check_flash_prefill_8b(tfa, dev)}
+    log("kernels", f"the 8B's kernel shapes match their plain versions (decode G=9: fp32 "
+                   f"1e-4, bf16 atol 2e-3 and rtol 2^-7; flash_prefill H=36 Hkv=4 window 4096: "
+                   f"fp32 1e-4, bf16 2e-2; bf16 bit-identical on relaunch); max |diff| decode "
+                   f"G=9 {err_8b['decode_g9']:.3e}, flash_prefill H=36 "
+                   f"{err_8b['flash_prefill_8b']:.3e}")
     err_train = check_training_kernels(tfa, dev)
     log("kernels", "the training kernels match their plain versions (fp32 atol=rtol 1e-4; bf16 "
                    "2e-2, or no more than twice the plain bf16 version's own error from fp32 "
@@ -1614,6 +1971,7 @@ def main() -> int:
     log("rounding", check_bf16_rounding(dev))
 
     # --- 4. the slice at full width --------------------------------------------
+    phase(4, "StarVector-1B inference")
     cfg = sv.starvector_1b_config()
     L = cfg.llm.n_layer
     p32 = full_width_params(sv, cfg, dev, torch.float32)
@@ -1710,13 +2068,25 @@ def main() -> int:
         profile_request(int8["request"], card, args.profile, "int8")
     int8_counts = int8["counts"]
     del int8
+    # the 1B inference trees go, so that phases 5 and 6 hold only their own
+    clip_images = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=dev).batch
+    del model, m32, p16, p32, request, logits, ref32
+    gc.collect()
     torch.cuda.empty_cache()
 
     # --- 5. training at full width ----------------------------------------------
-    train = train_slice(sv, tfa, dev, model.process_images)
-    fp32_check(sv, tfa, dev, model.process_images)
+    phase(5, "StarVector-1B training")
+    train = train_slice(sv, tfa, dev, clip_images)
+    fp32_check(sv, tfa, dev, clip_images)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # --- 6. kernel times on the card -----------------------------------------
+    # --- 6. StarVector-8B inference at full width ---------------------------------
+    phase(6, "StarVector-8B inference")
+    s8 = slice_8b(sv, tfa, dev, card, args.profile)
+
+    # --- 7. kernel times on the card -----------------------------------------
+    phase(7, "times")
     kernels_json = []
     g = torch.Generator(device=dev).manual_seed(3)
     B, P, T, H, D = 4, 261, 261 + 128, 16, 128
@@ -1763,12 +2133,14 @@ def main() -> int:
                                  **qmm[path]))
 
     kernels_json += training_times(tfa, dev, card, train, err_train)
+    kernels_json += times_8b(tfa, dev, card, s8["counts"], err_8b)
     long_context_times(tfa, dev, card)
 
     if args.profile is not None:
         step_wall = statistics.median(r["seconds"] for r in train["recs"][3:])
-        profile_train_step(sv, tfa, dev, model.process_images, card, step_wall, args.profile)
+        profile_train_step(sv, tfa, dev, clip_images, card, step_wall, args.profile)
 
+    log("phase", f"done, {time.perf_counter() - t_run:.0f} s into the run")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "starvector_tpu"))
     if leaked:
         raise AssertionError(f"the port pulled in the JAX package: {leaked}")
@@ -1778,6 +2150,12 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _cast_tree(tree, dtype):

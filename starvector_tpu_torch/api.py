@@ -5,10 +5,11 @@ starvector_tpu/api.py::StarVectorForCausalLM, im2svg).
     batch = {"image": model.process_images([image])}
     raw_svg = model.generate_im2svg(batch, max_length=4000)[0]
 
-Greedy and sampled im2svg are ported, with int8 decoder weights
-(`from_pretrained(..., quantize=True)`). Beam search, speculative decoding,
-GRPO rollouts and text2svg raise NotImplementedError naming their ROADMAP
-item.
+Greedy and sampled im2svg are ported for StarVector-1B (with int8 decoder
+weights: `from_pretrained(..., quantize=True)`) and StarVector-8B (bf16 or
+fp32; its int8 path is ROADMAP queue 1, item 6). Beam search, speculative
+decoding, GRPO rollouts and text2svg raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 
 SVG_PROMPT = "<svg"  # the generation trigger (reference starcoder.py:39)
+
+
+def tokenizer_version(cfg: sv.StarVectorConfig) -> str:
+    """The tokenizer a decoder takes, as the JAX API chooses it: "v2"
+    (<svg-end>, left padding) for StarCoder2, "v1" for GPTBigCode."""
+    return "v2" if cfg.decoder == "starcoder2" else "v1"
 
 
 class StarVectorForCausalLM:
@@ -51,7 +58,11 @@ class StarVectorForCausalLM:
     def from_config(cls, cfg: sv.StarVectorConfig, *, seed: int = 0, tokenizer=None,
                     dtype=torch.float32, device="cuda"):
         """Random weights drawn on `device` from a torch.Generator seeded with
-        `seed`; fp32 weights compute in fp32, others in bf16."""
+        `seed`; fp32 weights compute in fp32, others in bf16. A tokenizer, if
+        given, must be the decoder's version (tokenizer_version)."""
+        if tokenizer is not None and tokenizer.version != tokenizer_version(cfg):
+            raise ValueError(f"the {cfg.decoder} decoder takes a {tokenizer_version(cfg)} "
+                             f"tokenizer, not {tokenizer.version}")
         device = require_device(device, 'device="cpu"')
         gen = torch.Generator(device=device).manual_seed(seed)
         params = sv.init_params(cfg, gen, device=device, dtype=dtype)
@@ -62,12 +73,13 @@ class StarVectorForCausalLM:
     @classmethod
     def from_pretrained(cls, path: str, dtype=torch.bfloat16, device="cuda", *,
                         quantize: bool = False):
-        """Load an HF-layout StarVector-1B checkpoint directory
-        (model*.safetensors, config.json, tokenizer.json). Needs the
-        `safetensors` and `tokenizers` packages. `quantize=True` converts the
-        decoder's large matmul weights to per-channel int8 (the JAX
-        package's rule: `quantize_tree` on the decoder only; the vision
-        tower, adapter and embeddings keep `dtype`)."""
+        """Load an HF-layout StarVector-1B or -8B checkpoint directory
+        (model*.safetensors, config.json, tokenizer.json); the tokenizer is
+        the decoder's version (tokenizer_version). Needs the `safetensors`
+        and `tokenizers` packages. `quantize=True` converts the 1B decoder's
+        large matmul weights to per-channel int8 (the JAX package's rule:
+        `quantize_tree` on the decoder only; the vision tower, adapter and
+        embeddings keep `dtype`)."""
         from safetensors.numpy import load_file
 
         from starvector_tpu_torch.models.convert import config_from_hf, from_hf_state_dict
@@ -83,11 +95,16 @@ class StarVectorForCausalLM:
         with open(os.path.join(path, "config.json")) as f:
             hf_cfg = json.load(f)
         cfg = config_from_hf(sd, hf_cfg)
+        if quantize and cfg.decoder != "gpt_bigcode":
+            raise NotImplementedError(
+                "int8 StarVector-8B is not ported yet: kernel 14 is tuned and checked at the 1B "
+                "shapes only (ROADMAP queue 1, item 6)")
         params = from_hf_state_dict(sd, dtype=dtype, device=device)
         del sd
         if quantize:
             params["svg_transformer"] = quantize_tree(params["svg_transformer"])
-        return cls(params, cfg, load_tokenizer(path, version="v1"), device=device,
+        return cls(params, cfg, load_tokenizer(path, version=tokenizer_version(cfg)),
+                   device=device,
                    policy=DTypePolicy(param_dtype=dtype, compute_dtype=torch.bfloat16))
 
     # -- reference surface --------------------------------------------------

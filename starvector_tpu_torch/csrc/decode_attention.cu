@@ -47,8 +47,10 @@
 //   summed with atomics: two launches give the same bits.
 // * bf16 queries (bf16 cache, or int8 codes converted to bf16, which is
 //   exact as JAX's k_cached.astype(dt) is) run decode_attention_bf16_kernel
-//   on the tensor cores with mma.sync.m16n8k16 (fp32 sums): G = 16 is the
-//   product's M, so S = Q K^T is (16 x 128)(128 x keys) and O += P V is
+//   on the tensor cores with mma.sync.m16n8k16 (fp32 sums): the G query
+//   heads are the product's 16 rows of M (at G = 9, rows 9-15 of Q are zero:
+//   each row's softmax is its own, and those rows' states are never
+//   written), so S = Q K^T is (16 x 128)(128 x keys) and O += P V is
 //   (16 x keys)(keys x 128). Each of 8 warps owns 16 keys of every 128-key
 //   tile with its own online softmax; the S accumulators of two adjacent n8
 //   key tiles are already the A operand of the P V product (no shared
@@ -85,13 +87,23 @@
 namespace sv {
 namespace {
 
-// The one shape instantiated: StarVector-1B's, 16 query heads per KV head
-// and head size 128. Another group or head size is another instantiation,
-// added with the model that needs it and a check of it on the card.
-constexpr int kDecG = 16;
+// The shapes instantiated: head size 128 and G query heads per KV head,
+// G = 16 (StarVector-1B, multi-query) or G = 9 (StarVector-8B, 36 query
+// heads over 4 KV heads); the int8 cache at G = 16 only. Another group or
+// head size is another instantiation, added with the model that needs it
+// and a check of it on the card.
 constexpr int kDecD = 128;
 constexpr int kKeyTile = 128;  // chunks are multiples of it (decode_splits)
-constexpr int kSelfFloats = kDecG + kDecD;  // shared: the self token's scores and v_new
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// fp32 elements of one split's partial in the workspace, acc[G][D], m[G],
+// l[G], padded to whole float4s (ops/flash_attention.py::decode_partial_floats)
+__host__ __device__ constexpr int partial_floats(int G, int D) { return round4(G * D + 2 * G); }
+
+// shared fp32 elements of the self token: its scores Ss[G], padded so that
+// v_new Vn[D] after them starts on a float4
+__host__ __device__ constexpr int self_floats(int G, int D) { return round4(G) + D; }
 
 struct DecodeArgs {
   const void* q;
@@ -103,7 +115,7 @@ struct DecodeArgs {
   const float* k_scale;  // int8 cache only
   const float* v_scale;
   void* out;
-  float* ws;     // [B * Hkv][splits][G * D + 2 G] fp32 partials (acc, m, l)
+  float* ws;     // [B * Hkv][splits][partial_floats(G, D)] fp32 partials (acc, m, l)
   int* tickets;  // [B * Hkv], zero before and after every launch
   int B, Hkv;
   long long q_sb, q_sh, q_sg;
@@ -124,8 +136,8 @@ struct DecodeArgs {
 
 // Every block, at its start: the self token's scores (fp32 dot products of
 // q with the unquantized k_new, times scale) into Ss[G] and v_new as fp32
-// into Vn[D], so that the block that merges last finds them in shared
-// memory. T is q's type.
+// into Vn[D] (Ss + round4(G): float4-aligned), so that the block that merges
+// last finds them in shared memory. T is q's type.
 template <typename T, int G, int D, int NT>
 __device__ __forceinline__ void load_self(const DecodeArgs& a, int b, int hk, float* Ss,
                                           float* Vn) {
@@ -154,10 +166,10 @@ __device__ __forceinline__ void decode_finish(const DecodeArgs& a, int b, int hk
                                               const float* Ms, const float* Ls,
                                               const float* Acc, const float* Ss,
                                               const float* Vn, int* last) {
-  constexpr int P = G * D + 2 * G;  // floats of one partial
-  constexpr int V4 = G * D / 4;     // float4s of one numerator
-  constexpr int IT = V4 / NT;       // of which each thread takes
-  static_assert(V4 % NT == 0, "the numerator must split evenly over the threads");
+  constexpr int P = partial_floats(G, D);  // floats of one partial
+  constexpr int V4 = G * D / 4;             // float4s of one numerator
+  constexpr int IT = (V4 + NT - 1) / NT;    // of which each thread takes at most
+  static_assert(D % 4 == 0, "a numerator row is whole float4s");
   const int tid = threadIdx.x;
   const long long bh = (long long)b * a.Hkv + hk;
   float* part = a.ws + (bh * a.splits + split) * P;
@@ -212,22 +224,20 @@ __device__ __forceinline__ void decode_finish(const DecodeArgs& a, int b, int hk
   const float* base = a.ws + bh * a.splits * P;
   float M[IT], L[IT];
   float4 o[IT];
+  // a thread's i-th float4 is e = tid + i NT, of row g; where G D / 4 is
+  // not a multiple of the threads, the last e of some threads lie past the
+  // numerator: they compute row G - 1's weights, read nothing and write nothing
+  auto row = [&](int i) { return min(4 * (tid + i * NT) / D, G - 1); };
 #pragma unroll
-  for (int i = 0; i < IT; ++i) {
-    const int e = tid + i * NT, g = 4 * e / D;
-    M[i] = has_new ? Ss[g] : kNegInf;
-  }
+  for (int i = 0; i < IT; ++i) M[i] = has_new ? Ss[row(i)] : kNegInf;
 #pragma unroll 4
   for (int s = 0; s < a.splits; ++s) {
 #pragma unroll
-    for (int i = 0; i < IT; ++i) {
-      const int g = 4 * (tid + i * NT) / D;
-      M[i] = fmaxf(M[i], __ldcg(base + s * P + G * D + g));
-    }
+    for (int i = 0; i < IT; ++i) M[i] = fmaxf(M[i], __ldcg(base + s * P + G * D + row(i)));
   }
 #pragma unroll
   for (int i = 0; i < IT; ++i) {
-    const int e = tid + i * NT, g = 4 * e / D;
+    const int e = tid + i * NT, g = row(i);
     const float ps = has_new ? expf(Ss[g] - M[i]) : 0.f;
     const float4 vn = has_new ? reinterpret_cast<const float4*>(Vn)[e % (D / 4)]
                               : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -239,9 +249,10 @@ __device__ __forceinline__ void decode_finish(const DecodeArgs& a, int b, int hk
     const float* ps = base + s * P;
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
-      const int e = tid + i * NT, g = 4 * e / D;
+      const int e = tid + i * NT, g = row(i);
       const float c = expf(__ldcg(ps + G * D + g) - M[i]);
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(ps) + e);
+      const float4 x = e < V4 ? __ldcg(reinterpret_cast<const float4*>(ps) + e)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
       L[i] = fmaf(__ldcg(ps + G * D + G + g), c, L[i]);
       o[i].x = fmaf(x.x, c, o[i].x);
       o[i].y = fmaf(x.y, c, o[i].y);
@@ -253,6 +264,7 @@ __device__ __forceinline__ void decode_finish(const DecodeArgs& a, int b, int hk
 #pragma unroll
   for (int i = 0; i < IT; ++i) {
     const int e = tid + i * NT;
+    if (e >= V4) break;
     const float l = fmaxf(L[i], 1e-30f);
     out[4 * e + 0] = from_f<T>(o[i].x / l);
     out[4 * e + 1] = from_f<T>(o[i].y / l);
@@ -267,6 +279,7 @@ __device__ __forceinline__ void decode_finish(const DecodeArgs& a, int b, int hk
 // ---------------------------------------------------------------------------
 
 constexpr int kSub = 16;                    // keys a warp step
+constexpr int kMmaRows = 16;                // the product's M: G query rows, zeros below them
 constexpr int kMmaWarps = kKeyTile / kSub;  // 8
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kLd = kDecD + 8;              // bf16 elements a shared row (ldmatrix without bank conflicts)
@@ -279,23 +292,25 @@ __host__ __device__ constexpr int mma_warp_bytes() {
   return sizeof(C) == 1 ? 2 * 2 * kSub * kLdQ + 2 * kSub * kLd * 2 : 2 * 2 * kSub * kLd * 2;
 }
 
-template <typename C>
+template <typename C, int G>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
   constexpr size_t ring = (size_t)kMmaWarps * mma_warp_bytes<C>();
-  constexpr size_t merge = sizeof(float) * (kMmaWarps * kDecG * kDecD + 2 * kMmaWarps * kDecG + 1);
-  return kDecG * kLd * 2 + sizeof(float) * kSelfFloats + (ring > merge ? ring : merge);
+  constexpr size_t merge = sizeof(float) * (kMmaWarps * G * kDecD + 2 * kMmaWarps * G + 1);
+  return kMmaRows * kLd * 2 + sizeof(float) * self_floats(G, kDecD) +
+         (ring > merge ? ring : merge);
 }
 
-template <typename C>
+template <typename C, int G>
 __global__ void __launch_bounds__(kMmaThreads) decode_attention_bf16_kernel(const DecodeArgs a) {
-  constexpr int G = kDecG, D = kDecD;
+  constexpr int D = kDecD;
+  static_assert(G <= kMmaRows, "the query heads of a KV head fill at most the product's 16 rows");
   constexpr bool kQuant = sizeof(C) == 1;
   constexpr int kPieces = D * (int)sizeof(C) / 16;  // 16-byte pieces of a K or V row
   constexpr int kRowBytes = kQuant ? kLdQ : kLd * 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [G][kLd]
-  float* Ss = reinterpret_cast<float*>(smem_raw + G * kLd * 2);      // [G] self scores
-  float* Vn = Ss + G;                                                 // [D] v_new
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);     // [kMmaRows][kLd]
+  float* Ss = reinterpret_cast<float*>(smem_raw + kMmaRows * kLd * 2);  // [G] self scores
+  float* Vn = Ss + round4(G);                                           // [D] v_new
   uint8_t* rings = reinterpret_cast<uint8_t*>(Vn + D);
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -341,10 +356,15 @@ __global__ void __launch_bounds__(kMmaThreads) decode_attention_bf16_kernel(cons
 
   unsigned live_cur = n_sub > 0 ? issue(0) : 0u;
 
-  // Q as bf16 into shared memory, then its A fragments into registers
+  // Q as bf16 into shared memory, rows G to 15 zero (with G < 16 their
+  // scores, partials and outputs are computed and never read), then its A
+  // fragments into registers
   {
     const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + hk * a.q_sh;
-    for (int e = tid; e < G * D; e += kMmaThreads) Qs[(e / D) * kLd + e % D] = q[(e / D) * a.q_sg + e % D];
+    for (int e = tid; e < kMmaRows * D; e += kMmaThreads) {
+      const int r = e / D, c = e % D;
+      Qs[r * kLd + c] = r < G ? q[r * a.q_sg + c] : __float2bfloat16(0.f);
+    }
   }
   load_self<__nv_bfloat16, G, D, kMmaThreads>(a, b, hk, Ss, Vn);
   __syncthreads();
@@ -492,18 +512,24 @@ __global__ void __launch_bounds__(kMmaThreads) decode_attention_bf16_kernel(cons
     l0 += __shfl_xor_sync(0xffffffffu, l0, o);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
+  // rows g and g + 8 of the product; only the G query rows are kept
+  const bool keep0 = g < G, keep1 = g + 8 < G;
   if (t4 == 0) {
-    Ms[w * G + g] = m0;
-    Ms[w * G + g + 8] = m1;
-    Ls[w * G + g] = l0;
-    Ls[w * G + g + 8] = l1;
+    if (keep0) {
+      Ms[w * G + g] = m0;
+      Ls[w * G + g] = l0;
+    }
+    if (keep1) {
+      Ms[w * G + g + 8] = m1;
+      Ls[w * G + g + 8] = l1;
+    }
   }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     float* row0 = Acc + (w * G + g) * D + 8 * n + 2 * t4;
     float* row1 = row0 + 8 * D;
-    *reinterpret_cast<float2*>(row0) = make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(row1) = make_float2(acc[n][2], acc[n][3]);
+    if (keep0) *reinterpret_cast<float2*>(row0) = make_float2(acc[n][0], acc[n][1]);
+    if (keep1) *reinterpret_cast<float2*>(row1) = make_float2(acc[n][2], acc[n][3]);
   }
   __syncthreads();
   decode_finish<__nv_bfloat16, G, D, kMmaWarps, kMmaThreads>(
@@ -517,15 +543,17 @@ __global__ void __launch_bounds__(kMmaThreads) decode_attention_bf16_kernel(cons
 constexpr int kF32Warps = 8;
 constexpr int kF32Threads = kF32Warps * 32;
 
+template <int G>
 __host__ __device__ constexpr size_t f32_smem_bytes() {
-  constexpr int G = kDecG, D = kDecD;
+  constexpr int D = kDecD;
   return sizeof(float) * (G * D + kF32Warps * G * 32 + kF32Warps * G * D + 2 * kF32Warps * G +
-                          kSelfFloats + 1);
+                          self_floats(G, D) + 1);
 }
 
-template <typename C>
+template <typename C, int G>
 __global__ void __launch_bounds__(kF32Threads) decode_attention_f32_kernel(const DecodeArgs a) {
-  constexpr int G = kDecG, D = kDecD;
+  constexpr int D = kDecD;
+  static_assert(kF32Warps * G % 2 == 0, "Ss (after 2 W G floats of Ms and Ls) on a float4");
   constexpr int DC = D / 32;  // output columns per lane, contiguous
   constexpr bool kQuant = sizeof(C) == 1;
   constexpr int KV = kQuant ? 16 : 4;  // key elements a load (16 bytes)
@@ -536,7 +564,7 @@ __global__ void __launch_bounds__(kF32Threads) decode_attention_f32_kernel(const
   float* Ms = Acc + kF32Warps * G * D;   // [warps][G] per-warp running max
   float* Ls = Ms + kF32Warps * G;        // [warps][G] per-warp denominators
   float* Ss = Ls + kF32Warps * G;        // [G] self scores
-  float* Vn = Ss + G;                    // [D] v_new
+  float* Vn = Ss + round4(G);            // [D] v_new
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -667,12 +695,12 @@ int launch(int threads, size_t smem, const DecodeArgs& a, cudaStream_t st) {
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype, group size, head size or split the
-// kernels do not take (G = 16, D = 128; chunk a multiple of 128, splits >= 1,
-// covering [t_lo, t_end)). k_new and v_new are both null or both set.
-// cache_dtype is dtype, or int8 with k_scale and v_scale set (they are
-// ignored otherwise). ws holds B * Hkv * splits * (G * D + 2 G) floats;
-// tickets B * Hkv ints, zero on entry, left zero on exit. bf16 q, k and v
-// need 16-byte aligned rows.
+// kernels do not take (G = 9 or 16, D = 128, an int8 cache at G = 16 only;
+// chunk a multiple of 128, splits >= 1, covering [t_lo, t_end)). k_new and
+// v_new are both null or both set. cache_dtype is dtype, or int8 with
+// k_scale and v_scale set (they are ignored otherwise). ws holds B * Hkv *
+// splits * partial_floats(G, D) floats; tickets B * Hkv ints, zero on
+// entry, left zero on exit. bf16 q, k and v need 16-byte aligned rows.
 extern "C" int sv_decode_attention(
     int dtype, int cache_dtype, int G, int D, const void* q, const void* k, const void* v,
     const void* k_new, const void* v_new, const int* mask, const float* k_scale,
@@ -690,7 +718,7 @@ extern "C" int sv_decode_attention(
                          kn_sb, kn_sh, vn_sb, vn_sh, ks_sb, ks_st, ks_sh, vs_sb, vs_st, vs_sh,
                          m_sb, t_begin, t_end, t_lo, chunk, splits, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G != sv::kDecG || D != sv::kDecD || ws == nullptr || tickets == nullptr) {
+  if ((G != 9 && G != 16) || D != sv::kDecD || ws == nullptr || tickets == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   if (splits < 1 || chunk < sv::kKeyTile || chunk % sv::kKeyTile != 0 || t_lo % sv::kKeyTile != 0 ||
@@ -700,22 +728,31 @@ extern "C" int sv_decode_attention(
   const bool quant = cache_dtype == sv::kInt8;
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (!quant && cache_dtype != dtype) return (int)cudaErrorInvalidValue;
+  if (quant && G != 16) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (dtype == sv::kBFloat16) {
     if (quant) {
-      return sv::launch<sv::decode_attention_bf16_kernel<int8_t>>(
-          sv::kMmaThreads, sv::mma_smem_bytes<int8_t>(), a, st);
+      return sv::launch<sv::decode_attention_bf16_kernel<int8_t, 16>>(
+          sv::kMmaThreads, sv::mma_smem_bytes<int8_t, 16>(), a, st);
     }
-    return sv::launch<sv::decode_attention_bf16_kernel<bf16>>(sv::kMmaThreads,
-                                                             sv::mma_smem_bytes<bf16>(), a, st);
+    if (G == 9) {
+      return sv::launch<sv::decode_attention_bf16_kernel<bf16, 9>>(
+          sv::kMmaThreads, sv::mma_smem_bytes<bf16, 9>(), a, st);
+    }
+    return sv::launch<sv::decode_attention_bf16_kernel<bf16, 16>>(
+        sv::kMmaThreads, sv::mma_smem_bytes<bf16, 16>(), a, st);
   }
   if (dtype == sv::kFloat32) {
     if (quant) {
-      return sv::launch<sv::decode_attention_f32_kernel<int8_t>>(sv::kF32Threads,
-                                                                 sv::f32_smem_bytes(), a, st);
+      return sv::launch<sv::decode_attention_f32_kernel<int8_t, 16>>(
+          sv::kF32Threads, sv::f32_smem_bytes<16>(), a, st);
     }
-    return sv::launch<sv::decode_attention_f32_kernel<float>>(sv::kF32Threads,
-                                                              sv::f32_smem_bytes(), a, st);
+    if (G == 9) {
+      return sv::launch<sv::decode_attention_f32_kernel<float, 9>>(
+          sv::kF32Threads, sv::f32_smem_bytes<9>(), a, st);
+    }
+    return sv::launch<sv::decode_attention_f32_kernel<float, 16>>(
+        sv::kF32Threads, sv::f32_smem_bytes<16>(), a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 """Image preprocessing: RGBA over white, pad to a white square, bicubic
-resize, CLIP normalization, channels-last (port of
+resize, CLIP or SigLIP normalization, channels-last (port of
 starvector_tpu/data/processor.py::ImageProcessor).
 
 The JAX package resizes with PIL on the host. This port resizes with
@@ -73,7 +73,12 @@ class ImageProcessor:
 
 def processor_for_encoder(image_encoder_type: str, image_size: int | None = None,
                           *, device="cpu") -> ImageProcessor:
-    if image_encoder_type != "clip":
-        raise NotImplementedError(
-            f"the {image_encoder_type!r} processor is not ported yet (ROADMAP queue 1, item 6)")
-    return ImageProcessor(size=image_size or 224, device=device)
+    """CLIP's statistics for the clip tower at 224; SigLIP's for
+    siglip_384 at 384 (the JAX package's rule)."""
+    if image_encoder_type == "clip":
+        return ImageProcessor(size=image_size or 224, device=device)
+    if image_encoder_type == "siglip_384":
+        return ImageProcessor(size=image_size or 384, mean=SIGLIP_MEAN, std=SIGLIP_STD,
+                              device=device)
+    raise NotImplementedError(
+        f"the {image_encoder_type!r} processor is not ported yet (ROADMAP queue 1, item 11)")

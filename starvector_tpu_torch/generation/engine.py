@@ -14,10 +14,15 @@ import dataclasses
 
 import torch
 
-from starvector_tpu_torch.models import gpt_bigcode as dec
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.ops.sampling import NEG_INF, sample_token
+
+
+def decoder_module(llm_cfg):
+    """The decoder module of a decoder config: models.gpt_bigcode or
+    models.starcoder2 (the JAX generate's dispatch on the decoder's name)."""
+    return next(mod for mod, cfg_type in sv.DECODERS.values() if isinstance(llm_cfg, cfg_type))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +65,7 @@ def _stop_hit(tokens: torch.Tensor, t: int, new_tok: torch.Tensor, stops: list[t
 
 def generate(
     params: dict,
-    llm_cfg,
+    llm_cfg,                       # GPTBigCodeConfig or StarCoder2Config
     inputs_embeds: torch.Tensor,   # (B, P, E)
     attention_mask: torch.Tensor,  # (B, P)
     gen: GenerationConfig,
@@ -81,6 +86,7 @@ def generate(
             "num_return_sequences > 1 is not ported yet (ROADMAP queue 1, item 7)")
     if gen.top_k > gen.max_top_k:
         raise ValueError(f"top_k={gen.top_k} exceeds max_top_k={gen.max_top_k}")
+    dec = decoder_module(llm_cfg)
     B, P, _ = inputs_embeds.shape
     V = llm_cfg.vocab_size
     device = inputs_embeds.device
@@ -146,7 +152,7 @@ def im2svg_prefix(params: dict, cfg: sv.StarVectorConfig, images: torch.Tensor,
     """[visual tokens ‖ prompt embeds] and its all-ones mask."""
     cond = sv.encode_image(params, cfg, images, policy=policy)
     B, Q, _ = cond.shape
-    prompt_embeds = dec.embed_tokens(params["svg_transformer"], prompt_ids)
+    prompt_embeds = cfg.decoder_module.embed_tokens(params["svg_transformer"], prompt_ids)
     inputs_embeds = torch.cat([cond, policy.cast(prompt_embeds)], dim=1)
     mask = torch.ones((B, Q + prompt_ids.shape[1]), dtype=torch.int32, device=cond.device)
     return inputs_embeds, mask

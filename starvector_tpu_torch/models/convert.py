@@ -1,5 +1,6 @@
-"""Weights into the port (port of starvector_tpu/models/convert.py and the
-v1 branch of starvector_tpu/models/builder.py::load_hf_starvector_checkpoint).
+"""Weights into the port (port of starvector_tpu/models/convert.py, the
+SigLIP converter of starvector_tpu/models/vision/siglip.py, and
+starvector_tpu/models/builder.py::load_hf_starvector_checkpoint).
 
 The port keeps the JAX package's parameter layout: layers stacked on a
 leading axis, dense kernels (in, out), norms {"scale", "bias"}.
@@ -9,9 +10,12 @@ leading axis, dense kernels (in, out), norms {"scale", "bias"}.
   * `from_hf_state_dict(sd)` takes the reference HF layout, as
     starvector_tpu/models/export.py writes it: torch Linear weights
     (out, in), one key per layer, the prefixes
-    `model.svg_transformer.transformer.transformer.`,
-    `model.image_encoder.visual_encoder.`, `model.image_encoder.ln_vision.`
-    and `model.image_projection.` (the leading `model.` is optional).
+    `model.svg_transformer.transformer.transformer.` (1B) or
+    `model.svg_transformer.transformer.model.` and an optional
+    `model.svg_transformer.transformer.lm_head.weight` (8B),
+    `model.image_encoder.visual_encoder.` (CLIP's or SigLIP's keys),
+    `model.image_encoder.ln_vision.` (CLIP only) and
+    `model.image_projection.` (the leading `model.` is optional).
   * `config_from_hf(sd, hf_cfg)` derives the StarVectorConfig from the
     weights and the checkpoint's config.json, as the JAX package's
     models/builder.py does.
@@ -27,10 +31,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from starvector_tpu_torch.models import gpt_bigcode, starvector as sv
+from starvector_tpu_torch.models import gpt_bigcode, starcoder2, starvector as sv
 from starvector_tpu_torch.models.vision.clip_vit import CLIPViTConfig
+from starvector_tpu_torch.models.vision.siglip import SigLIPConfig
 
 DECODER_PREFIX = "svg_transformer.transformer.transformer."
+V2_DECODER_PREFIX = "svg_transformer.transformer.model."
+V2_HEAD = "svg_transformer.transformer.lm_head.weight"
 TOWER_PREFIX = "image_encoder.visual_encoder."
 
 
@@ -94,6 +101,56 @@ def gpt_bigcode_from_hf(sd, prefix: str = DECODER_PREFIX, *, dtype=None, device=
     }
 
 
+def starcoder2_from_hf(sd, prefix: str = V2_DECODER_PREFIX, head: str = V2_HEAD, *, dtype=None,
+                       device="cpu") -> dict:
+    """HF Starcoder2ForCausalLM weights (the 8B decoder); an `lm_head` only
+    when the state dict holds one (an untied head)."""
+    L = _n_layers(sd, prefix + "layers.")
+    h = prefix + "layers.{}."
+    params = {
+        "embed_tokens": _tensor(sd[prefix + "embed_tokens.weight"], dtype, device),
+        "layers": {
+            "input_layernorm": _norm(sd, h + "input_layernorm.", L, dtype, device),
+            "attn": {name: _dense(sd, h + f"self_attn.{name}.", L, dtype, device)
+                     for name in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "post_attention_layernorm": _norm(sd, h + "post_attention_layernorm.", L, dtype,
+                                              device),
+            "mlp": {"c_fc": _dense(sd, h + "mlp.c_fc.", L, dtype, device),
+                    "c_proj": _dense(sd, h + "mlp.c_proj.", L, dtype, device)},
+        },
+        "norm": {"scale": _tensor(sd[prefix + "norm.weight"], dtype, device),
+                 "bias": _tensor(sd[prefix + "norm.bias"], dtype, device)},
+    }
+    if head in sd:
+        params["lm_head"] = _tensor(sd[head], dtype, device)
+    return params
+
+
+def siglip_from_hf(sd, prefix: str = TOWER_PREFIX, *, dtype=None, device="cpu") -> dict:
+    """HF SiglipVisionModel.vision_model weights (the 8B tower): the conv
+    patch_embedding (W, 3, P, P) becomes the (3*P*P, W) patchify matmul."""
+    L = _n_layers(sd, prefix + "encoder.layers.")
+    r = prefix + "encoder.layers.{}."
+    conv = np.asarray(sd[prefix + "embeddings.patch_embedding.weight"])
+    return {
+        "patch_embed": {"kernel": _tensor(conv.reshape(conv.shape[0], -1).T, dtype, device),
+                        "bias": _tensor(sd[prefix + "embeddings.patch_embedding.bias"], dtype,
+                                        device)},
+        "position_embedding": _tensor(sd[prefix + "embeddings.position_embedding.weight"], dtype,
+                                      device),
+        "layers": {
+            "layer_norm1": _norm(sd, r + "layer_norm1.", L, dtype, device),
+            "attn": {name: _dense(sd, r + f"self_attn.{name}.", L, dtype, device)
+                     for name in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "layer_norm2": _norm(sd, r + "layer_norm2.", L, dtype, device),
+            "mlp": {"fc1": _dense(sd, r + "mlp.fc1.", L, dtype, device),
+                    "fc2": _dense(sd, r + "mlp.fc2.", L, dtype, device)},
+        },
+        "post_layernorm": {"scale": _tensor(sd[prefix + "post_layernorm.weight"], dtype, device),
+                           "bias": _tensor(sd[prefix + "post_layernorm.bias"], dtype, device)},
+    }
+
+
 def clip_vit_from_hf(sd, prefix: str = TOWER_PREFIX, *, dtype=None, device="cpu") -> dict:
     """The reference VisionTransformer weights: conv1 (W, 3, P, P) becomes the
     (3*P*P, W) patchify matmul, fused in_proj (3W, W) becomes (W, 3W)."""
@@ -134,47 +191,108 @@ def adapter_from_hf(sd, prefix: str = "image_projection.", *, dtype=None, device
     }
 
 
+def _is_v2(sd) -> bool:
+    return V2_DECODER_PREFIX + "embed_tokens.weight" in sd
+
+
 def from_hf_state_dict(sd: Mapping[str, np.ndarray], *, dtype: torch.dtype | None = None,
                        device="cpu") -> dict:
-    """A StarVector-1B HF state dict -> the port's parameters."""
+    """A StarVector-1B or -8B HF state dict -> the port's parameters (the
+    decoder, and the tower that the keys hold)."""
     sd = _strip_model(sd)
-    params = {"svg_transformer": gpt_bigcode_from_hf(sd, dtype=dtype, device=device)}
+    decoder = starcoder2_from_hf if _is_v2(sd) else gpt_bigcode_from_hf
+    params = {"svg_transformer": decoder(sd, dtype=dtype, device=device)}
     if TOWER_PREFIX + "conv1.weight" in sd:
         params["image_encoder"] = {
             "visual_encoder": clip_vit_from_hf(sd, dtype=dtype, device=device),
             "ln_vision": {"scale": _tensor(sd["image_encoder.ln_vision.weight"], dtype, device),
                           "bias": _tensor(sd["image_encoder.ln_vision.bias"], dtype, device)},
         }
+    elif TOWER_PREFIX + "embeddings.patch_embedding.weight" in sd:
+        params["image_encoder"] = {"visual_encoder": siglip_from_hf(sd, dtype=dtype,
+                                                                    device=device)}
+    if "image_encoder" in params:
         params["image_projection"] = adapter_from_hf(sd, dtype=dtype, device=device)
     return params
 
 
-def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorConfig:
-    """StarVectorConfig from the weights' shapes and config.json."""
-    name = str(hf_cfg.get("starcoder_model_name", "")) + str(hf_cfg.get("_name_or_path", ""))
-    if "starcoder2" in name:
-        raise NotImplementedError("StarVector-8B (StarCoder2) is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
-    sd = _strip_model(sd)
+def _gpt_bigcode_config(sd) -> gpt_bigcode.GPTBigCodeConfig:
     vocab, _ = np.shape(sd[DECODER_PREFIX + "wte.weight"])
     n_pos, hidden = np.shape(sd[DECODER_PREFIX + "wpe.weight"])
     attn_out = np.shape(sd[DECODER_PREFIX + "h.0.attn.c_attn.weight"])[0]
     head_dim = max((attn_out - hidden) // 2, 1)  # MQA: E + 2 * head_dim
-    llm = gpt_bigcode.GPTBigCodeConfig(
+    return gpt_bigcode.GPTBigCodeConfig(
         vocab_size=vocab, n_positions=n_pos, hidden_size=hidden,
         n_layer=_n_layers(sd, DECODER_PREFIX + "h."), n_head=max(hidden // head_dim, 1))
-    base = sv.tiny_config() if hf_cfg.get("preset") == "tiny" else sv.starvector_1b_config()
+
+
+def _starcoder2_config(sd, hf_cfg: dict) -> starcoder2.StarCoder2Config:
+    """The JAX builder's rule: vocab from the weights (the reference adds
+    special tokens, ~49157), head size 128 unless llm_geometry says otherwise,
+    rope_theta and the window from llm_geometry (1e6 and 4096 without it),
+    untied when the state dict holds lm_head.weight."""
+    p = V2_DECODER_PREFIX
+    vocab, hidden = np.shape(sd[p + "embed_tokens.weight"])
+    geo = hf_cfg.get("llm_geometry", {})
+    head_dim = int(geo.get("head_dim") or 128)
+    return starcoder2.StarCoder2Config(
+        vocab_size=vocab, hidden_size=hidden, num_hidden_layers=_n_layers(sd, p + "layers."),
+        num_attention_heads=np.shape(sd[p + "layers.0.self_attn.q_proj.weight"])[0] // head_dim,
+        num_key_value_heads=np.shape(sd[p + "layers.0.self_attn.k_proj.weight"])[0] // head_dim,
+        intermediate_size=np.shape(sd[p + "layers.0.mlp.c_fc.weight"])[0],
+        rope_theta=float(geo.get("rope_theta") or 1e6),
+        sliding_window=geo["sliding_window"] if "sliding_window" in geo else 4096,
+        tie_word_embeddings=V2_HEAD not in sd)
+
+
+def _clip_tower(sd, heads) -> CLIPViTConfig:
+    width, _, patch, _ = np.shape(sd[TOWER_PREFIX + "conv1.weight"])
+    grid = math.isqrt(np.shape(sd[TOWER_PREFIX + "positional_embedding"])[0] - 1)
+    if heads is None:  # not recoverable from shapes: CLIP's head_dim-64 convention
+        heads = max(width // (64 if width % 64 == 0 else 16), 1)
+    return CLIPViTConfig(image_size=grid * patch, patch_size=patch, width=width,
+                         layers=_n_layers(sd, TOWER_PREFIX + "transformer.resblocks."),
+                         heads=heads)
+
+
+# SigLIP widths whose head count is known (so400m's 1152 has 16 heads of 72,
+# which the head_dim-64 rule would split as 18)
+SIGLIP_HEADS = {768: 12, 1024: 16, 1152: 16, 1280: 16}
+
+
+def _siglip_tower(sd, heads) -> SigLIPConfig:
+    p = TOWER_PREFIX
+    width, _, patch, _ = np.shape(sd[p + "embeddings.patch_embedding.weight"])
+    grid = math.isqrt(np.shape(sd[p + "embeddings.position_embedding.weight"])[0])  # no CLS
+    if heads is None:  # not in the weights: known widths, else the JAX package's rule
+        head_dim = 64 if width % 64 == 0 else max(width // 4, 1)
+        heads = SIGLIP_HEADS.get(width) or max(width // head_dim, 1)
+    return SigLIPConfig(image_size=grid * patch, patch_size=patch, hidden_size=width,
+                        layers=_n_layers(sd, p + "encoder.layers."), heads=heads,
+                        intermediate_size=np.shape(sd[p + "encoder.layers.0.mlp.fc1.weight"])[0])
+
+
+def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorConfig:
+    """StarVectorConfig from the weights' shapes and config.json, as the JAX
+    package's models/builder.py derives it: the decoder from its name
+    (starcoder2 in starcoder_model_name or _name_or_path: the 8B), its
+    geometry and the tower's from the weights."""
+    name = str(hf_cfg.get("starcoder_model_name", "")) + str(hf_cfg.get("_name_or_path", ""))
+    v2 = "starcoder2" in name
+    sd = _strip_model(sd)
+    preset = hf_cfg.get("preset")
+    if preset in ("tiny", "tiny-v2"):
+        base = sv.tiny_config(decoder="starcoder2" if preset == "tiny-v2" else "gpt_bigcode")
+    else:
+        base = sv.starvector_8b_config() if v2 else sv.starvector_1b_config()
+    llm = _starcoder2_config(sd, hf_cfg) if v2 else _gpt_bigcode_config(sd)
     overrides = {k: hf_cfg[k] for k in ("image_encoder_type", "adapter_norm", "image_size", "task")
                  if k in hf_cfg}
-    cfg = dataclasses.replace(base, llm=llm, **overrides)
+    cfg = dataclasses.replace(base, llm=llm, decoder="starcoder2" if v2 else "gpt_bigcode",
+                              **overrides)
     if cfg.use_image_encoder:
-        width, _, patch, _ = np.shape(sd[TOWER_PREFIX + "conv1.weight"])
-        grid = math.isqrt(np.shape(sd[TOWER_PREFIX + "positional_embedding"])[0] - 1)
         heads = hf_cfg.get("vision_geometry", {}).get("heads")
-        if heads is None:  # not recoverable from shapes: CLIP's head_dim-64 convention
-            heads = max(width // (64 if width % 64 == 0 else 16), 1)
-        tower = CLIPViTConfig(image_size=grid * patch, patch_size=patch, width=width,
-                              layers=_n_layers(sd, TOWER_PREFIX + "transformer.resblocks."),
-                              heads=heads)
+        tower = (_clip_tower(sd, heads) if cfg.image_encoder_type == "clip"
+                 else _siglip_tower(sd, heads))
         cfg = dataclasses.replace(cfg, vision_tower=tower)
     return cfg

@@ -1,11 +1,11 @@
-"""StarVector task model, im2svg: vision tower + adapter + GPTBigCode
-decoder, for inference and training (port of
-starvector_tpu/models/starvector.py).
+"""StarVector task model, im2svg: vision tower + adapter + code-LLM
+decoder (port of starvector_tpu/models/starvector.py).
 
-Only the v1 model (GPTBigCode decoder, CLIP tower) is ported; the v2 model
-(StarCoder2 decoder, SigLIP tower) is ROADMAP queue 1, item 6, and the
-text2svg loss queue 1, item 4. Generation lives in
-starvector_tpu_torch/generation/engine.py.
+v1, StarVector-1B: GPTBigCode decoder, CLIP tower (257 visual tokens),
+inference and training. v2, StarVector-8B: StarCoder2 decoder, SigLIP-384
+tower (576 visual tokens), LayerNorm adapter, inference only (its training
+is ROADMAP queue 1, item 6). The text2svg loss is queue 1, item 4.
+Generation lives in starvector_tpu_torch/generation/engine.py.
 """
 
 from __future__ import annotations
@@ -16,9 +16,15 @@ from typing import Any
 import torch
 
 from starvector_tpu_torch.models import adapter as adapter_mod
-from starvector_tpu_torch.models import gpt_bigcode, image_encoder
+from starvector_tpu_torch.models import gpt_bigcode, image_encoder, starcoder2
 from starvector_tpu_torch.models.vision.clip_vit import CLIPViTConfig
 from starvector_tpu_torch.ops.layers import DTypePolicy
+
+
+DECODERS = {  # decoder -> (module, its full-size config)
+    "gpt_bigcode": (gpt_bigcode, gpt_bigcode.GPTBigCodeConfig),
+    "starcoder2": (starcoder2, starcoder2.StarCoder2Config),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,15 +35,19 @@ class StarVectorConfig:
     image_size: int = 224
     max_length_train: int = 8192
     task: str = "im2svg"
-    llm: Any = None            # decoder geometry; None -> GPTBigCode 1B
-    vision_tower: Any = None   # tower geometry override (a CLIPViTConfig)
+    llm: Any = None            # decoder geometry; None -> the family's (1B / 7B)
+    vision_tower: Any = None   # tower geometry override (a CLIPViTConfig or SigLIPConfig)
 
     def __post_init__(self):
-        if self.decoder != "gpt_bigcode":
-            raise NotImplementedError(
-                f"decoder {self.decoder!r} is not ported yet (ROADMAP queue 1, item 6)")
+        if self.decoder not in DECODERS:
+            raise ValueError(f"unknown decoder {self.decoder!r}; one of {sorted(DECODERS)}")
         if self.llm is None:
-            object.__setattr__(self, "llm", gpt_bigcode.GPTBigCodeConfig())
+            object.__setattr__(self, "llm", DECODERS[self.decoder][1]())
+
+    @property
+    def decoder_module(self):
+        """models.gpt_bigcode (v1) or models.starcoder2 (v2)."""
+        return DECODERS[self.decoder][0]
 
     @property
     def use_image_encoder(self) -> bool:
@@ -82,9 +92,23 @@ def starvector_1b_config(**kw) -> StarVectorConfig:
     return StarVectorConfig(**base)
 
 
+def starvector_8b_config(**kw) -> StarVectorConfig:
+    """StarVector-8B: StarCoder2-7B decoder, SigLIP-large-patch16-384 tower,
+    LayerNorm adapter (configs/models/starvector-8b/im2svg-stack.yaml)."""
+    base = dict(
+        decoder="starcoder2",
+        image_encoder_type="siglip_384",
+        adapter_norm="layer_norm",
+        image_size=384,
+        max_length_train=16000,
+    )
+    base.update(kw)
+    return StarVectorConfig(**base)
+
+
 def tiny_config(task: str = "im2svg", decoder: str = "gpt_bigcode", **kw) -> StarVectorConfig:
     base = dict(decoder=decoder, image_encoder_type="clip", image_size=28, max_length_train=128,
-                task=task, llm=gpt_bigcode.tiny_config())
+                task=task, llm=DECODERS[decoder][0].tiny_config())
     base.update(kw)
     return StarVectorConfig(**base)
 
@@ -111,7 +135,8 @@ def _adapter_cfg_for(cfg: StarVectorConfig, params: dict) -> adapter_mod.Adapter
 
 def init_params(cfg: StarVectorConfig, gen: torch.Generator, *, device="cpu",
                 dtype=torch.float32) -> dict:
-    params = {"svg_transformer": gpt_bigcode.init_params(cfg.llm, gen, device=device, dtype=dtype)}
+    params = {"svg_transformer": cfg.decoder_module.init_params(cfg.llm, gen, device=device,
+                                                                dtype=dtype)}
     if cfg.use_image_encoder:
         enc, tower = _encoder_cfg(cfg)
         params["image_encoder"] = image_encoder.init_params(enc, gen, device=device, dtype=dtype)
@@ -134,14 +159,14 @@ def encode_image(params: dict, cfg: StarVectorConfig, images: torch.Tensor, *,
                                policy=policy, train=train, dropout_gen=dropout_gen)
 
 
-def _im2svg_sequence(params: dict, cond: torch.Tensor, svg_ids: torch.Tensor,
-                     svg_mask: torch.Tensor, policy: DTypePolicy):
+def _im2svg_sequence(params: dict, cfg: StarVectorConfig, cond: torch.Tensor,
+                     svg_ids: torch.Tensor, svg_mask: torch.Tensor, policy: DTypePolicy):
     """[visual prefix | svg tokens]: (inputs_embeds, attention_mask, targets).
     Targets are -100 over the prefix and wherever svg_mask == 0: by
     position, not by pad id, so a terminal eos equal to pad is still a
     target."""
     B, Q, _ = cond.shape
-    tok = gpt_bigcode.embed_tokens(params["svg_transformer"], svg_ids)
+    tok = cfg.decoder_module.embed_tokens(params["svg_transformer"], svg_ids)
     inputs_embeds = torch.cat([cond, policy.cast(tok)], dim=1)
     ones = torch.ones((B, Q), dtype=torch.int32, device=cond.device)
     attention_mask = torch.cat([ones, svg_mask.to(torch.int32)], dim=1)
@@ -158,7 +183,7 @@ def im2svg_inputs(params: dict, cfg: StarVectorConfig, images, svg_ids, svg_mask
     """(inputs_embeds, attention_mask, targets) for the im2svg loss."""
     cond = encode_image(params, cfg, images, policy=policy, train=train,
                         dropout_gen=dropout_gen, remat=remat)
-    return _im2svg_sequence(params, cond, svg_ids, svg_mask, policy)
+    return _im2svg_sequence(params, cfg, cond, svg_ids, svg_mask, policy)
 
 
 def _decoder_loss(params, cfg, inputs_embeds, attention_mask, targets, policy, remat, kernels):
@@ -174,6 +199,10 @@ def _check_task(cfg: StarVectorConfig) -> None:
     if cfg.task != "im2svg":
         raise NotImplementedError(
             f"the {cfg.task} loss is not ported yet: ROADMAP queue 1, item 4")
+    if cfg.decoder != "gpt_bigcode":
+        raise NotImplementedError(
+            f"training the {cfg.decoder} decoder (StarVector-8B) is not ported yet: ROADMAP "
+            "queue 1, item 6")
 
 
 def loss_fn(params: dict, cfg: StarVectorConfig, batch: dict, pad_token_id: int, *,
@@ -206,5 +235,5 @@ def loss_fn_with_bn_stats(params: dict, cfg: StarVectorConfig, batch: dict, pad_
     cond, bn_stats = adapter_mod.forward_with_stats(
         params["image_projection"], _adapter_cfg_for(cfg, params), embeds, policy=policy,
         dropout_gen=dropout_gen)
-    inputs = _im2svg_sequence(params, cond, batch["svg_ids"], batch["svg_mask"], policy)
+    inputs = _im2svg_sequence(params, cfg, cond, batch["svg_ids"], batch["svg_mask"], policy)
     return _decoder_loss(params, cfg, *inputs, policy, remat, kernels), {"bn_stats": bn_stats}

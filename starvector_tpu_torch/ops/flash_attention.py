@@ -20,10 +20,11 @@ Kernel 2, `decode_attention` (csrc/decode_attention.cu)
     `models/decode_common.py::merged_decode_attention` that the JAX decoder
     runs for every generated token. One new query token per row against
     the cache, with the new token's key and value optionally merged into
-    the same softmax. Built for StarVector-1B's 16 query heads per KV head
-    and head size 128 only. Bound on the H100 by latency: the keys are split
-    across blocks (`decode_splits`), each block's partial softmax goes to a
-    workspace, and the last block of each (row, KV head) merges them in
+    the same softmax. Built for head size 128 and 16 (StarVector-1B) or 9
+    (StarVector-8B) query heads per KV head; an int8 cache at 16 only.
+    Bound on the H100 by latency: the keys are split across blocks
+    (`decode_splits`), each block's partial softmax goes to a workspace,
+    and the last block of each (row, KV head) merges them in
     split order in the same launch. bf16 queries run on the tensor cores
     (mma.sync, P rounded to bf16 before P V as the JAX function rounds it),
     fp32 queries on the CUDA cores (see the source's header). An int8 cache
@@ -535,6 +536,16 @@ def _check_scales(k_cache, v_cache, k_scale, v_scale, B: int, T: int, Hkv: int, 
 DECODE_KEY_TILE = 128
 DECODE_MAX_CHUNK = 256
 DECODE_BLOCKS_PER_SM = 1
+# the query heads per KV head kernel 2 is built for: StarVector-1B's 16 and
+# StarVector-8B's 9 (36 over 4); over an int8 cache only 16
+DECODE_GROUPS = (9, 16)
+DECODE_INT8_GROUPS = (16,)
+
+
+def decode_partial_floats(G: int, D: int) -> int:
+    """fp32 elements of one split's partial (acc[G][D], m[G], l[G]) in
+    kernel 2's workspace, padded to whole 16-byte vectors."""
+    return -(-(G * D + 2 * G) // 4) * 4
 
 
 @functools.lru_cache(maxsize=256)  # a few shapes per request; looked up every call
@@ -611,9 +622,14 @@ def decode_attention(
     if k_cache.shape != (B, T, Hkv, D) or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: q {tuple(qg.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}")
-    if G != 16 or D != 128:
-        raise ValueError(f"decode_attention: G={G}, D={D} (the kernel takes G = 16, D = 128)")
     quant = k_cache.dtype == torch.int8
+    if G not in DECODE_GROUPS or D != 128:
+        raise ValueError(f"decode_attention: G={G}, D={D} (the kernel takes G = 9 or G = 16, "
+                         "D = 128)")
+    if quant and G not in DECODE_INT8_GROUPS:
+        raise NotImplementedError(
+            f"decode_attention over an int8 cache at G={G} is not instantiated yet (ROADMAP "
+            "queue 2, still to instantiate: the 8B's int8 cache)")
     tensors = {"q": qg} if quant else {"q": qg, "k_cache": k_cache, "v_cache": v_cache}
     if k_new is not None:
         if k_new.shape != (B, Hkv, D) or v_new.shape != (B, Hkv, D):
@@ -637,7 +653,8 @@ def decode_attention(
         return out
     t_lo = t_begin - t_begin % DECODE_KEY_TILE
     splits, chunk = decode_splits(B, Hkv, max(t_end - t_lo, 0), _sm_count(qg.device))
-    tickets, ws = _decode_scratch(qg.device, B * Hkv, B * Hkv * splits * (G * D + 2 * G))
+    tickets, ws = _decode_scratch(qg.device, B * Hkv,
+                                  B * Hkv * splits * decode_partial_floats(G, D))
     kn = k_new if k_new is not None else qg  # strides are unused without a self token
     vn = v_new if v_new is not None else qg
     ks = k_scale if quant else kv_mask[:, :, None]  # strides are unused without scales
@@ -670,15 +687,19 @@ decode_attention.int8_launches = 0  # of which with an int8 cache
 
 
 def merged_decode_attention(qg, k_new, v_new, k_cached, v_cached, old_mask, scale,
-                            k_scale=None, v_scale=None, *, kernels: bool = True) -> torch.Tensor:
+                            k_scale=None, v_scale=None, *, t_begin: int = 0,
+                            kernels: bool = True) -> torch.Tensor:
     """The JAX decoder's decode attention (decode_common.merged_decode_attention):
     qg (B, Hkv, G, D), the new token's k_new/v_new (B, Hkv, D), the cache
     before the new token (B, T, Hkv, D) and its visibility old_mask (B, T);
-    an int8 cache with its k_scale / v_scale (B, T, Hkv). Returns
+    an int8 cache with its k_scale / v_scale (B, T, Hkv). A sliding window
+    comes as `t_begin`, the first visible slot (the JAX decoder folds it
+    into old_mask; the kernel then reads no slot before it). Returns
     (B, 1, H*D)."""
     B, Hkv, G, D = qg.shape
     out = decode_attention(qg, k_cached, v_cached, old_mask, k_new=k_new, v_new=v_new,
-                           k_scale=k_scale, v_scale=v_scale, scale=scale, kernels=kernels)
+                           k_scale=k_scale, v_scale=v_scale, t_begin=t_begin, scale=scale,
+                           kernels=kernels)
     return out.reshape(B, 1, Hkv * G * D)
 
 

@@ -80,8 +80,7 @@ def config_from_model_block(block: dict) -> sv.StarVectorConfig:
     if preset in ("tiny", "tiny-v2"):
         base = sv.tiny_config(decoder="starcoder2" if preset == "tiny-v2" else "gpt_bigcode")
     elif preset in (None, "", "full"):
-        base = sv.starvector_1b_config(
-            decoder="starcoder2" if "starcoder2" in name else "gpt_bigcode")
+        base = sv.starvector_8b_config() if "starcoder2" in name else sv.starvector_1b_config()
     else:
         raise ValueError(f"unknown model.preset {preset!r}")
     import dataclasses

@@ -1,6 +1,8 @@
 """Weight carry-over into the port: from_jax_params, and the reference HF
 layout that starvector_tpu/models/export.py writes, through
-from_hf_state_dict, config_from_hf and StarVectorForCausalLM.from_pretrained."""
+from_hf_state_dict, config_from_hf and StarVectorForCausalLM.from_pretrained,
+for StarVector-1B (GPTBigCode, CLIP) and StarVector-8B (StarCoder2, SigLIP,
+tied or untied head)."""
 
 import dataclasses
 
@@ -11,7 +13,10 @@ import torch
 
 from starvector_tpu.models import export
 from starvector_tpu.models import gpt_bigcode as jgbc
+from starvector_tpu.models import starcoder2 as jsc
 from starvector_tpu.models import starvector as jsv
+from starvector_tpu.models.vision import siglip as jsig
+from starvector_tpu.ops.layers import DTypePolicy as JPolicy
 from starvector_tpu_torch.models import convert
 
 
@@ -82,8 +87,11 @@ def test_config_from_hf_derives_geometry(jax_model):
     for f in dataclasses.fields(tcfg.vision_tower):
         assert getattr(tcfg.vision_tower, f.name) == getattr(jtower, f.name), f.name
     assert (tcfg.adapter_norm, tcfg.image_size, tcfg.task) == ("batch_norm", 56, "im2svg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.config_from_hf({}, {"starcoder_model_name": "bigcode/starcoder2-7b"})
+    # a StarCoder2 checkpoint name gives the 8B's geometry (untied, from the weights)
+    cfg8, tree8 = _jax_8b_model(tied=False)
+    tcfg8 = convert.config_from_hf(_export_8b(cfg8, tree8), _hf_cfg_8b(cfg8))
+    assert (tcfg8.decoder, tcfg8.llm.vocab_size, tcfg8.llm.kv_heads) == ("starcoder2", 517, 2)
+    assert not tcfg8.llm.tie_word_embeddings and tcfg8.llm.sliding_window == 16
 
 
 def test_from_pretrained_loads_an_exported_checkpoint(jax_model, tmp_path):
@@ -102,3 +110,106 @@ def test_from_pretrained_loads_an_exported_checkpoint(jax_model, tmp_path):
     text = model.generate_im2svg({"image": model.process_images([img])}, max_length=6,
                                  use_nucleus_sampling=False)
     assert len(text) == 1 and text[0].startswith("<svg")
+
+
+def _jax_8b_model(tied: bool):
+    """A tiny 8B-shaped JAX model: StarCoder2 with 4 query heads over 2 KV
+    heads, a vocabulary of 517 (the reference adds special tokens to the
+    base 49152: the loader reads it from the weights), rope_theta 5e5 and a
+    window of 16 (both through llm_geometry), a tiny SigLIP tower."""
+    cfg = jsv.tiny_config(
+        decoder="starcoder2", image_encoder_type="siglip_384", image_size=32,
+        adapter_norm="layer_norm", vision_tower=jsig.tiny_config(),
+        llm=jsc.tiny_config(vocab_size=517, rope_theta=5e5, sliding_window=16,
+                            tie_word_embeddings=tied, max_position_embeddings=16384))
+    tree = jax.tree_util.tree_map(np.asarray, jsv.init_params(cfg, jax.random.PRNGKey(3)))
+    rng = np.random.default_rng(3)
+    tree["image_projection"]["norm"]["scale"] = (
+        1 + 0.1 * rng.standard_normal((16, 64))).astype(np.float32)
+    return cfg, tree
+
+
+def _export_8b(cfg, tree):
+    sd = export.starcoder2_to_hf(tree["svg_transformer"], cfg.llm,
+                                 prefix="model.svg_transformer.transformer.model.")
+    sd.update(export.vision_to_hf(tree, cfg))
+    return sd
+
+
+def _hf_cfg_8b(cfg):
+    """config.json as starvector_tpu/train/hub.py writes it."""
+    return {"starcoder_model_name": "bigcode/starcoder2-7b", "vision_geometry": {"heads": 4},
+            "llm_geometry": {"head_dim": cfg.llm.head_dim, "rope_theta": cfg.llm.rope_theta,
+                             "sliding_window": cfg.llm.sliding_window},
+            "image_encoder_type": "siglip_384", "adapter_norm": "layer_norm", "image_size": 32,
+            "max_length": 128, "task": "im2svg"}
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_8b_hf_round_trip_gives_the_same_model(tied):
+    """JAX tiny-8B params -> export.starcoder2_to_hf + vision_to_hf -> the
+    port's config_from_hf / from_hf_state_dict: the same geometry (vocab from
+    the weights, KV heads, the head tied or not, window and rope_theta from
+    llm_geometry, the tower from the weights), the from_jax_params tree, and
+    the JAX model's prefill logits on an image (2e-4, fp32)."""
+    from starvector_tpu_torch.generation.engine import im2svg_prefix
+    from starvector_tpu_torch.models import starcoder2 as tsc
+    from starvector_tpu_torch.ops.layers import DTypePolicy as TPolicy
+
+    cfg, tree = _jax_8b_model(tied)
+    sd = _export_8b(cfg, tree)
+    assert ("model.svg_transformer.transformer.lm_head.weight" in sd) == (not tied)
+    tcfg = convert.config_from_hf(sd, _hf_cfg_8b(cfg))
+    for f in ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+              "num_attention_heads", "num_key_value_heads", "head_dim", "rope_theta",
+              "sliding_window", "tie_word_embeddings", "max_position_embeddings"):
+        assert getattr(tcfg.llm, f) == getattr(cfg.llm, f), f
+    for f in dataclasses.fields(tcfg.vision_tower):
+        assert getattr(tcfg.vision_tower, f.name) == getattr(cfg.vision_tower, f.name), f.name
+    assert (tcfg.decoder, tcfg.image_encoder_type, tcfg.adapter_norm) == \
+        ("starcoder2", "siglip_384", "layer_norm")
+    assert tcfg.encoder_config.geometry == (32, 16)
+    params = convert.from_hf_state_dict(sd)
+    ref = dict(_leaves(convert.from_jax_params(tree)))
+    out = dict(_leaves(params))
+    assert out.keys() == ref.keys()
+    for k, v in out.items():
+        torch.testing.assert_close(v, ref[k], rtol=0, atol=0, msg=k)
+
+    images = np.random.default_rng(5).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    prompt = np.array([[60, 116, 119, 104]] * 2, np.int32)
+    f32 = JPolicy(compute_dtype=jax.numpy.float32)
+    jp = jax.tree_util.tree_map(jax.numpy.asarray, tree)
+    cond = jsv.encode_image(jp, cfg, jax.numpy.asarray(images), policy=f32)
+    emb = jax.numpy.concatenate([cond, jsc.embed_tokens(jp["svg_transformer"], prompt)], 1)
+    S = emb.shape[1]
+    cache = jsc.init_cache(cfg.llm, 2, S, dtype=jax.numpy.float32)
+    jl, _ = jsc.forward(jp["svg_transformer"], cfg.llm, emb, cache=cache, policy=f32)
+    t32 = TPolicy(compute_dtype=torch.float32)
+    temb, mask = im2svg_prefix(params, tcfg, torch.from_numpy(images),
+                               torch.from_numpy(prompt).long(), policy=t32)
+    tl, _ = tsc.forward(params["svg_transformer"], tcfg.llm, temb, mask,
+                        cache=tsc.init_cache(tcfg.llm, 2, S, dtype=torch.float32), policy=t32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-4, atol=2e-4)
+
+
+def test_from_pretrained_loads_an_exported_8b_checkpoint(tmp_path):
+    """An 8B checkpoint written by the JAX package's hub export loads with
+    the v2 tokenizer (<svg-end>, left padding), as the JAX API chooses it,
+    and generates; int8 weights for the 8B raise, naming the ROADMAP item."""
+    from starvector_tpu.models.tokenizer import build_test_tokenizer
+    from starvector_tpu.train.hub import export_hf_checkpoint
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+
+    cfg, tree = _jax_8b_model(tied=False)
+    export_hf_checkpoint(tree, cfg, build_test_tokenizer("v2"), str(tmp_path))
+    model = StarVectorForCausalLM.from_pretrained(str(tmp_path), dtype=torch.float32,
+                                                  device="cpu")
+    assert model.cfg.decoder == "starcoder2" and "lm_head" in model.params["svg_transformer"]
+    assert model.tokenizer.version == "v2" and model.tokenizer.padding_side == "left"
+    img = np.random.default_rng(1).integers(0, 256, (40, 30, 3), dtype=np.uint8)
+    text = model.generate_im2svg({"image": model.process_images([img])}, max_length=6,
+                                 use_nucleus_sampling=False)
+    assert len(text) == 1 and text[0].startswith("<svg")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+        StarVectorForCausalLM.from_pretrained(str(tmp_path), device="cpu", quantize=True)

@@ -147,6 +147,54 @@ def test_merged_decode_attention_plain_matches_jax(Hkv, T):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("idx,window", [(90, 32), (60, 200), (33, 8), (100, 100)])
+def test_windowed_g9_decode_plain_matches_jax(jfa, idx, window):
+    """The StarVector-8B decode step's attention at G = 9 (36 query heads
+    over 4 KV heads): the port passes the sliding window as t_begin =
+    max(idx - window + 1, 0) over the idx cached slots; JAX folds it into
+    old_mask (`slot > idx - window`, starcoder2._decode_step) for XLA's
+    merged_decode_attention, and gives the Pallas gqa_decode_batched the
+    window start (interpret mode, no self token)."""
+    import jax.numpy as jnp
+
+    from starvector_tpu.models import decode_common as jdc
+
+    rng = np.random.default_rng(idx + window)
+    B, Hkv, G, D, T = 2, 2, 9, 32, 100
+    qg = _rand(rng, (B, Hkv, G, D))
+    kn, vn = _rand(rng, (B, Hkv, D)), _rand(rng, (B, Hkv, D))
+    k, v = _rand(rng, (B, T, Hkv, D)), _rand(rng, (B, T, Hkv, D))
+    mask = np.ones((B, T), np.int32)
+    mask[0, :5] = 0
+    mask[1, idx - 3] = 0
+    t_begin = max(idx - window + 1, 0)
+    slot = np.arange(T)[None, :]
+    old = (mask > 0) & (slot < idx) & (slot > idx - window)
+    scale = D**-0.5
+    ref = jdc.merged_decode_attention(*(jnp.asarray(a) for a in (qg, kn, vn, k, v)),
+                                      jnp.asarray(old.astype(np.int32)), scale)
+    t = {n: torch.from_numpy(a) for n, a in dict(qg=qg, kn=kn, vn=vn, k=k, v=v, m=mask).items()}
+    out = tfa.merged_decode_attention(t["qg"], t["kn"], t["vn"], t["k"][:, :idx],
+                                      t["v"][:, :idx], t["m"][:, :idx], scale, t_begin=t_begin)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    q = qg.reshape(B, Hkv * G, D)
+    ref = jfa.gqa_decode_batched(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(mask), jnp.asarray(idx), t_begin, block_k=32,
+                                 interpret=True)
+    out = tfa.gqa_decode_batched(torch.from_numpy(q), t["k"], t["v"], t["m"], idx, t_begin)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("G", [9, 16])
+def test_decode_partials_are_whole_float4s(G):
+    """Kernel 2's workspace holds one partial of acc[G][D], m[G], l[G] a
+    split, padded so that every partial starts on a 16-byte boundary (its
+    float4 loads): at G = 9, 1170 floats become 1172."""
+    n = tfa.decode_partial_floats(G, 128)
+    assert n % 4 == 0 and G * 128 + 2 * G <= n < G * 128 + 2 * G + 4
+    assert tfa.decode_partial_floats(9, 128) == 1172 and tfa.decode_partial_floats(16, 128) == 2080
+
+
 @pytest.mark.parametrize("B", [1, 4, 8])
 @pytest.mark.parametrize("T", [1, 31, 325, 1285, 4100, 8450])
 def test_decode_splits_tile_the_keys_once(B, T):
@@ -462,18 +510,18 @@ def test_bf16_decode_rounds_p_to_bf16_before_pv(cuda):
 DECODE_CACHES = ["fp32", "bf16", "int8 cache, bf16 q", "int8 cache, fp32 q"]
 
 
-def _decode_inputs(device, B, T, cache, seed):
+def _decode_inputs(device, B, T, cache, seed, G=16, Hkv=1):
     """(qg, k_new, v_new, k, v, k_scale, v_scale, mask) for a cache kind:
     random values, row 0 left-padded, and (T > 256) a masked run of keys
     that empties a whole 128-key chunk of the last row."""
     from starvector_tpu_torch.models import decode_common as tdc
 
     rng = np.random.default_rng(seed)
-    G, D = 16, 128
+    D = 128
     dtype = torch.bfloat16 if "bf16" in cache else torch.float32
-    qg = torch.from_numpy(_rand(rng, (B, 1, G, D))).to(device, dtype)
-    kn, vn = (torch.from_numpy(_rand(rng, (B, 1, D))).to(device, dtype) for _ in range(2))
-    k, v = (torch.from_numpy(_rand(rng, (B, T, 1, D))).to(device) for _ in range(2))
+    qg = torch.from_numpy(_rand(rng, (B, Hkv, G, D))).to(device, dtype)
+    kn, vn = (torch.from_numpy(_rand(rng, (B, Hkv, D))).to(device, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(_rand(rng, (B, T, Hkv, D))).to(device) for _ in range(2))
     ks = vs = None
     if cache.startswith("int8"):
         (k, ks), (v, vs) = tdc.quantize_kv(k), tdc.quantize_kv(v)
@@ -541,3 +589,69 @@ def test_split_decode_two_launches_are_bit_identical(cuda, cache):
     b = tfa.decode_attention(qg, k, v, mask, **kw)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# StarVector-8B: 36 query heads over 4 KV heads (G = 9), a 4096-key window
+G9_CASES = [  # B, T, t_begin (the decode step's window start), ragged mask
+    (4, 708, 0, False), (1, 8192, 4097, False), (4, 708, 0, True), (2, 5000, 905, True),
+    (1, 1, 0, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,t_begin,ragged", G9_CASES)
+def test_g9_decode_matches_plain(cuda, B, T, t_begin, ragged, dtype):
+    """Kernel 2 at G = 9, Hkv = 4 (query rows 9-15 of the tensor-core
+    product are zero padding) against its plain version, with the self token
+    and the window's first slot, to DECODE_TOL."""
+    cache = "bf16" if dtype == torch.bfloat16 else "fp32"
+    qg, kn, vn, k, v, _, _, mask = _decode_inputs(cuda, B, T, cache, B * 7 + T, G=9, Hkv=4)
+    if not ragged:
+        mask.fill_(1)
+    n = tfa.decode_attention.launches
+    out = tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, t_begin=t_begin)
+    ref = tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, t_begin=t_begin,
+                               kernels=False)
+    torch.cuda.synchronize()
+    assert tfa.decode_attention.launches == n + 1 and out.shape == (B, 4, 9, 128)
+    torch.testing.assert_close(out.float(), ref.float(), **DECODE_TOL[dtype])
+    again = tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, t_begin=t_begin)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.gpu
+def test_g9_decode_refuses_an_int8_cache(cuda):
+    """Kernel 2 over an int8 cache is built for G = 16 only: G = 9 raises,
+    naming the ROADMAP item."""
+    qg, kn, vn, k, v, ks, vs, mask = _decode_inputs(cuda, 1, 300, "int8 cache, bf16 q", 3, G=9,
+                                                    Hkv=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, k_scale=ks, v_scale=vs)
+
+
+G36_CASES = [  # B, S, T, q_offset, window: the 8B prefill, and a prefix past the window
+    (4, 580, 580, 0, 4096), (1, 1024, 8192, 7168, 4096), (2, 300, 500, 100, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,q_offset,window", G36_CASES)
+def test_flash_prefill_at_the_8b_heads_matches_plain(cuda, B, S, T, q_offset, window, dtype):
+    """Kernel 1 at StarVector-8B's 36 query heads over 4 KV heads with the
+    sliding window, against its plain version (GPU_TOL); two bf16 launches
+    give the same bits."""
+    rng = np.random.default_rng(S + T)
+    H, Hkv, D = 36, 4, 128
+    q = torch.from_numpy(_rand(rng, (B, S, H, D))).to(cuda, dtype)
+    k, v = (torch.from_numpy(_rand(rng, (B, T, Hkv, D))).to(cuda, dtype) for _ in "kv")
+    mask = torch.ones((B, T), dtype=torch.int32, device=cuda)
+    mask[:, q_offset + S:] = 0
+    out = tfa.flash_prefill(q, k, v, mask, q_offset, window=window)
+    ref = tfa.flash_prefill(q, k, v, mask, q_offset, window=window, kernels=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **GPU_TOL[dtype])
+    if dtype == torch.bfloat16:
+        again = tfa.flash_prefill(q, k, v, mask, q_offset, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(again, out)

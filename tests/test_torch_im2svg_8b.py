@@ -1,0 +1,151 @@
+"""The StarVector-8B slice end to end on the CPU: image -> SVG token ids
+through the port against starvector_tpu on the same weights and images,
+greedy, in fp32.
+
+A tiny 8B-shaped model: a SigLIP tower (64 px, patch 8: 64 visual tokens),
+the LayerNorm adapter, and a StarCoder2 decoder with 18 query heads over 2
+KV heads (G = 9, as the 8B's 36 over 4) and a sliding window of 32. With the
+4 prompt ids the prefix is 68 tokens (> 64), so the JAX decoder prefills
+through the Pallas flash kernel (interpret mode) under attn_impl="mixed";
+the window is shorter than the prefix, so the prefill and every decode
+step drop keys. The decoder's projection kernels are scaled by 10 so that
+greedy decoding does not echo one token. Token ids must be identical."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from starvector_tpu.generation import engine as jengine
+from starvector_tpu.models import starcoder2 as jsc
+from starvector_tpu.models import starvector as jsv
+from starvector_tpu.models.vision import siglip as jsig
+from starvector_tpu.ops.layers import DTypePolicy as JPolicy
+from starvector_tpu_torch.generation import engine as tengine
+from starvector_tpu_torch.models import convert
+from starvector_tpu_torch.models import starcoder2 as tsc
+from starvector_tpu_torch.models import starvector as tsv
+from starvector_tpu_torch.models.vision import siglip as tsig
+from starvector_tpu_torch.ops import flash_attention as tfa
+from starvector_tpu_torch.ops.layers import DTypePolicy as TPolicy
+
+JF32 = JPolicy(compute_dtype=jnp.float32)
+TF32 = TPolicy(compute_dtype=torch.float32)
+PROMPT = [60, 116, 119, 104]
+STOP = ((355, 239),)  # row 1 emits it at tokens 14-15; row 0 runs to NEW
+NEW = 24
+GEOMETRY = dict(num_attention_heads=18, num_key_value_heads=2, hidden_size=288,
+                sliding_window=32)
+VISION = dict(decoder="starcoder2", image_encoder_type="siglip_384", image_size=64,
+              adapter_norm="layer_norm")
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jsv.tiny_config(**VISION, vision_tower=jsig.tiny_config(image_size=64),
+                           llm=jsc.tiny_config(attn_impl="mixed", **GEOMETRY))
+    tcfg = tsv.tiny_config(**VISION, vision_tower=tsig.tiny_config(image_size=64),
+                           llm=tsc.tiny_config(**GEOMETRY))
+    tree = jax.tree_util.tree_map(np.asarray, jsv.init_params(jcfg, jax.random.PRNGKey(0)))
+    for grp in tree["svg_transformer"]["layers"]["attn"], tree["svg_transformer"]["layers"]["mlp"]:
+        for p in grp.values():
+            p["kernel"] = p["kernel"] * 10.0
+    images = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    return jcfg, tcfg, tree, images
+
+
+@pytest.fixture(scope="module")
+def jax_ids(model):
+    jcfg, _, tree, images = model
+    gen = jengine.GenerationConfig(max_new_tokens=NEW, do_sample=False, stop_sequences=STOP)
+    tokens, lengths = jengine.generate_im2svg(
+        jax.tree_util.tree_map(jnp.asarray, tree), jcfg, jnp.asarray(images),
+        jnp.asarray([PROMPT] * 2, jnp.int32), gen, jax.random.PRNGKey(1), policy=JF32)
+    return np.asarray(tokens), np.asarray(lengths)
+
+
+def test_greedy_8b_im2svg_ids_match_jax(model, jax_ids, monkeypatch):
+    _, tcfg, tree, images = model
+    plain_calls = {"flash_prefill_plain": 0, "decode_attention_plain": 0}
+    for name in plain_calls:
+        fn = getattr(tfa, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            plain_calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(tfa, name, counted)
+    launches = (tfa.flash_prefill.launches, tfa.decode_attention.launches)
+
+    gen = tengine.GenerationConfig(max_new_tokens=NEW, do_sample=False, stop_sequences=STOP)
+    tokens, lengths = tengine.generate_im2svg(
+        convert.from_jax_params(tree), tcfg, torch.from_numpy(images),
+        torch.tensor([PROMPT] * 2), gen, policy=TF32)
+
+    ref_tokens, ref_lengths = jax_ids
+    np.testing.assert_array_equal(tokens.numpy(), ref_tokens)
+    np.testing.assert_array_equal(lengths.numpy(), ref_lengths)
+    for row, n in zip(ref_tokens, ref_lengths):
+        assert len(set(row[:n].tolist())) >= 3, row
+    assert (ref_lengths < NEW).any() and (ref_lengths == NEW).any()  # one row stopped on STOP
+    prefix = tcfg.query_length + len(PROMPT)
+    assert prefix > 64 and tcfg.llm.sliding_window < prefix
+    # on the CPU the kernels' plain versions ran, once per layer per forward
+    L = tcfg.llm.num_hidden_layers
+    assert plain_calls == {"flash_prefill_plain": L,
+                           "decode_attention_plain": L * (int(ref_lengths.max()) - 1)}
+    assert (tfa.flash_prefill.launches, tfa.decode_attention.launches) == launches
+
+
+def test_api_generate_im2svg_matches_jax_api(model):
+    """The API with the v2 test tokenizer (<svg-end>, left padding), as the
+    JAX API takes it for StarCoder2: the same text."""
+    from starvector_tpu.api import StarVectorForCausalLM as JModel
+    from starvector_tpu.models.tokenizer import build_test_tokenizer
+    from starvector_tpu_torch.api import StarVectorForCausalLM as TModel
+    from starvector_tpu_torch.api import tokenizer_version
+
+    jcfg, tcfg, tree, images = model
+    tok = build_test_tokenizer("v2")
+    assert tokenizer_version(tcfg) == "v2" and tok.padding_side == "left"
+    batch = {"image": images}
+    kw = dict(max_length=8, use_nucleus_sampling=False)
+    ref = JModel(jax.tree_util.tree_map(jnp.asarray, tree), jcfg, tok,
+                 policy=JF32).generate_im2svg(batch, **kw)
+    port = TModel(convert.from_jax_params(tree), tcfg, tok, policy=TF32, device="cpu")
+    assert port.generate_im2svg(batch, **kw) == ref
+    with pytest.raises(ValueError, match="v2"):
+        TModel.from_config(tcfg, tokenizer=build_test_tokenizer("v1"), device="cpu")
+
+
+def test_8b_presets_and_unported_paths():
+    """starvector_8b_config is the JAX preset (siglip_384, layer_norm adapter,
+    384 px, 16000 tokens, StarCoder2-7B); the 8B yaml reaches it; 8B training
+    raises, naming the ROADMAP item."""
+    from pathlib import Path
+
+    from starvector_tpu_torch.config import load_yaml
+    from starvector_tpu_torch.train.train import config_from_model_block
+
+    cfg, ref = tsv.starvector_8b_config(), jsv.starvector_8b_config()
+    for f in ("decoder", "image_encoder_type", "adapter_norm", "image_size", "max_length_train",
+              "query_length", "max_svg_length"):
+        assert getattr(cfg, f) == getattr(ref, f), f
+    for f in ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+              "num_attention_heads", "num_key_value_heads", "max_position_embeddings",
+              "rope_theta", "sliding_window", "head_dim", "kv_heads", "initializer_range"):
+        assert getattr(cfg.llm, f) == getattr(ref.llm, f), f
+    assert cfg.decoder_module is tsc and cfg.adapter_config.query_length == 576
+    configs = Path(__file__).parents[1] / "configs/models/starvector-8b"
+    yamls = sorted(configs.glob("im2svg-*.yaml"))
+    assert len(yamls) == 6
+    for path in yamls:
+        assert config_from_model_block(dict(load_yaml(path)["model"])) == cfg, path.name
+    tiny = tsv.tiny_config(decoder="starcoder2")
+    params = tsv.init_params(tiny, torch.Generator().manual_seed(0))
+    batch = {"image": torch.zeros((1, 28, 28, 3)),
+             "svg_ids": torch.zeros((1, 4), dtype=torch.long),
+             "svg_mask": torch.ones((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+        tsv.loss_fn(params, tiny, batch, 0)
