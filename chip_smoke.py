@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg inference
-(bf16, and int8 weights with an int8 KV cache) and training, and
-StarVector-8B im2svg inference, on one NVIDIA H100, end to end through the
+(bf16, and int8 weights with an int8 KV cache), text2svg and training, and
+StarVector-8B im2svg inference (bf16, and int8 weights with an int8 KV
+cache) and text2svg, on one NVIDIA H100, end to end through the
 hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
@@ -30,9 +31,11 @@ Phases, one line each (any failure raises and exits non-zero):
      four 1B projection shapes, bf16 and fp32, with and without bias; two
      launches bit for bit) and the int8-cache decode attention; the 8B's
      shapes: decode at G = 9 (36 query heads over 4 KV heads; B=4 T=708,
-     B=1 T=8192 past the 4096 window, a ragged mask) and flash_prefill at
+     B=1 T=8192 past the 4096 window, a ragged mask; over a bf16 and over
+     an int8 cache, with the int8 P-rounding case) and flash_prefill at
      H=36 Hkv=4 with the window (B=4 S=T=580; B=1 S=1024 at q_offset 7168 of
-     T=8192), fp32 and bf16, bf16 bit for bit on relaunch
+     T=8192), kernel 14 at the six 8B projections' four shapes (M = 1, 4,
+     580, 2320), fp32 and bf16, bf16 bit for bit on relaunch
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -43,9 +46,14 @@ Phases, one line each (any failure raises and exits non-zero):
      (96 int8 matmuls per prefill and per decode step, 24 int8-cache decode
      launches per step); fp32 greedy ids kernels vs plain; bf16 prefill
      logits against the fp32 plain int8 path; greedy agreement with bf16.
-     Last, beside the card's name and power limit: p50 B=1 latency and B=4
-     decode tokens/s for bf16 and int8, and the memory of both; the 1B
-     inference trees are then released
+     text2svg on the bf16 weights: a request of 4 captions (6-30 tokens
+     through the byte-level test tokenizer) and one of 1 through
+     generate_text2svg_ids, the prompts through the chunk step (no
+     flash_prefill), 24 decode_attention a step; fp32 greedy ids kernels vs
+     plain. Last, beside the card's name and power limit: p50 B=1 latency
+     and B=4 decode tokens/s for bf16 im2svg, int8 and text2svg in turns,
+     and the memory of bf16 and int8; the 1B inference trees are then
+     released
   5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
      remat, AdamW): 8 steps of the port's train loop on one synthetic batch
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
@@ -58,10 +66,19 @@ Phases, one line each (any failure raises and exits non-zero):
      counts (32 flash_prefill a prefill, 32 decode_attention a step); bf16
      prefill logits against the fp32 plain ones; fp32 greedy ids kernels vs
      plain; the window at full width (2 layers, a 4700-token prefix, fp32
-     ids kernels vs plain); p50 B=1 latency, B=4 tokens/s and memory
+     ids kernels vs plain); text2svg as in phase 4 (32 decode_attention a
+     step; its fp32 check on the same fp32 copy); p50 B=1 latency, B=4
+     tokens/s of im2svg and text2svg in turns, and memory. Then int8: the
+     decoder through quantize_tree, consuming the bf16 tree, with an int8
+     KV cache: requests of 4 images and of 1 with launch counts (192
+     quant_matmul a prefill and a decode step, 32 flash_prefill a prefill,
+     32 int8-cache decode_attention a step); at full depth in fp32, kernels vs plain,
+     greedy ids with an fp32 KV cache and, with the int8 cache, the logits
+     of both fed the same tokens (INT8_CACHE_LOGIT_TOL); weights and
+     memory, p50 and tokens/s beside bf16's
   7. times on the card, each beside the card's name and power limit: each
      kernel against its plain version, its bound and one PyTorch library
-     call where there is one (the 8B's two at its shapes too), the train
+     call where there is one (the 8B's at its shapes too), the train
      step, also the training kernels at the long contexts phase 3 drives
      (with --profile DIR, also where a decode step's and a train step's
      device time goes)
@@ -109,6 +126,13 @@ DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 2**-7)}
 # of q (tests/test_torch_quantization.py::
 # test_qmm_tolerance_tells_a_dropped_or_repeated_k_slab holds this limit)
 QMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 2**-7)}
+# the 8B's fp32 logits over an int8 KV cache, kernels against plain, fed the
+# same tokens: the two paths' k/v differ by fp32 sum order, so some round to
+# the next code (a scale step, 1/127 of the row's max |x|), and the flips
+# grow layer by layer: 0.026-0.049 at 32 layers on the H100 (PERF.md
+# section 6), against 2e-5-4e-5 with an fp32 cache; the limit is twice the
+# largest
+INT8_CACHE_LOGIT_TOL = 0.1
 # the H100 SXM's published peaks (NVIDIA data sheet, at 700 W): the bound of
 # a kernel is max(bytes / HBM rate, operations / dense bf16 tensor rate)
 HBM_BYTES_PER_S = 3.35e12
@@ -247,10 +271,9 @@ CUDA_CORE_KERNELS = ("flash_prefill_f32_kernel", "flash_bwd_dkdv_f32_kernel",
                      "flash_bwd_dq_f32_kernel")
 # decode_attention's instantiations: bf16 queries on the warp-level tensor
 # cores (mma.sync: HMMA), fp32 queries on the CUDA cores (none)
-HMMA_KERNELS = tuple(f"decode_attention_bf16_kernel{tag}"
-                     for tag in (" G=16", " int8 cache G=16", " G=9"))
-NO_HMMA_KERNELS = tuple(f"decode_attention_f32_kernel{tag}"
-                        for tag in (" G=16", " int8 cache G=16", " G=9"))
+DECODE_TAGS = (" G=16", " int8 cache G=16", " G=9", " int8 cache G=9")
+HMMA_KERNELS = tuple(f"decode_attention_bf16_kernel{tag}" for tag in DECODE_TAGS)
+NO_HMMA_KERNELS = tuple(f"decode_attention_f32_kernel{tag}" for tag in DECODE_TAGS)
 
 
 def sass_counts(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:
@@ -332,6 +355,20 @@ def check_flash_prefill(tfa, dev) -> float:
 DECODE_CHECKS = ((1, 1), (4, 300), (1, 1285), (8, 1285), (4, 2049), (4, 4100))  # B, T
 
 
+@functools.lru_cache(maxsize=1)
+def p_rounding_cases():
+    """tests/test_torch_flash_attention.py, loaded from its file (an
+    installed package may own the name `tests`): the P-rounding cases its
+    GPU-marked tests build (it imports no JAX at module level)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_flash_attention.py"
+    spec = importlib.util.spec_from_file_location("p_rounding_cases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def check_decode_attention(tfa, dev) -> float:
     """decode_attention against its plain version, fp32 and bf16: the cache
     with the self token (merged_decode_attention), then a window whose edges
@@ -384,15 +421,8 @@ def check_decode_attention(tfa, dev) -> float:
             worst = max(worst, err_a, err_b)
             log("kernels", f"decode_attention B={B} T={T} {str(dtype)[6:]}: "
                            f"merged max |diff| {err_b:.3e}, batched max |diff| {err_a:.3e}{same}")
-    # P rounded to bf16 before P V: the case the GPU-marked test builds, from
-    # its file (an installed package may own the name `tests`)
-    import importlib.util
-
-    path = Path(__file__).resolve().parent / "tests" / "test_torch_flash_attention.py"
-    spec = importlib.util.spec_from_file_location("p_rounding_case", path)
-    case = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(case)
-    (qg, k, v, mask), want, unrounded = case._p_rounding_inputs(dev)
+    # P rounded to bf16 before P V: the case the GPU-marked test builds
+    (qg, k, v, mask), want, unrounded = p_rounding_cases()._p_rounding_inputs(dev)
     out = tfa.decode_attention(qg, k, v, mask)
     ref = tfa.decode_attention(qg, k, v, mask, kernels=False)
     torch.cuda.synchronize()
@@ -532,6 +562,107 @@ def check_g9_decode(tfa, dev) -> float:
             worst = max(worst, err)
             log("kernels", f"decode_attention G=9 Hkv=4 {name} {str(dtype)[6:]}: max |diff| "
                            f"{err:.3e}{same}")
+    return worst
+
+
+def check_g9_int8_decode(tfa, dc, dev) -> float:
+    """Kernel 2's int8 instantiation at G = 9, Hkv = 4 (the 8B's int8 KV
+    cache) against its plain version, fp32 and bf16 queries over codes and
+    scales from quantize_kv, the self token merged: the cases of
+    check_g9_decode (T = 708, a step past the window, a ragged mask), each
+    bf16 case launched twice, bit for bit; then the int8 P-rounding case
+    (bf16(bf16(c p) / (1 + p)) exactly: v_scale folded into P before the
+    rounding). Returns the worst max |diff|."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    G, D = H8 // HKV8, 128
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, T, t_begin, ragged in G9_DECODE_CHECKS:
+            qg = torch.randn((B, HKV8, G, D), generator=g, device=dev).to(dtype)
+            kn, vn = (torch.randn((B, HKV8, D), generator=g, device=dev).to(dtype) for _ in "kv")
+            (kq, ks), (vq, vs) = (dc.quantize_kv(torch.randn((B, T, HKV8, D), generator=g,
+                                                             device=dev)) for _ in "kv")
+            mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+            if ragged:
+                mask[0, : T // 5] = 0
+                mask[-1, 100:400] = 0
+                mask[:, T // 2] = 0
+
+            def run(kernels=True):
+                return tfa.merged_decode_attention(qg, kn, vn, kq, vq, mask, D**-0.5, ks, vs,
+                                                   t_begin=t_begin, kernels=kernels)
+
+            out, ref = run(), run(False)
+            torch.cuda.synchronize()
+            err = compare(f"int8 decode G=9 {name} {dtype}", out, ref, dtype, tols=DECODE_TOL)
+            same = ""
+            if dtype == torch.bfloat16:
+                again = run()
+                torch.cuda.synchronize()
+                if not torch.equal(again, out):
+                    raise AssertionError(f"int8 decode G=9 {name}: two launches differ")
+                same = "; a second launch gives the same bits"
+            worst = max(worst, err)
+            log("kernels", f"decode_attention int8 cache G=9 Hkv=4 {name} {str(dtype)[6:]}: "
+                           f"max |diff| {err:.3e}{same}")
+    (qg, k, v, mask, ks, vs), want, others = p_rounding_cases()._int8_p_rounding_inputs(dev)
+    out = tfa.decode_attention(qg, k, v, mask, k_scale=ks, v_scale=vs)
+    ref = tfa.decode_attention(qg, k, v, mask, k_scale=ks, v_scale=vs, kernels=False)
+    torch.cuda.synchronize()
+    got, plain = (t[..., 0].double().unique().tolist() for t in (out, ref))
+    if got != [want] or plain != [want] or (out[..., 1:] != 0).any():
+        raise AssertionError(f"int8 P rounding G=9: kernel {got}, plain {plain}, JAX's value "
+                             f"{want}, the other orderings' {others}")
+    log("kernels", f"decode_attention int8 cache G=9 P rounding: two visible keys of T=325: "
+                   f"kernel {want!r} == plain == JAX's bf16(bf16(c p) / (1 + p)), not the "
+                   f"v_scale-after-rounding or fp32-P values {others}")
+    return worst
+
+
+QMM_SHAPES_8B = (  # the 8B decoder's six projections a layer, four shapes: name, K, N
+    ("attn.q_proj, o_proj", 4608, 4608), ("attn.k_proj, v_proj", 4608, 512),
+    ("mlp.c_fc", 4608, 18432), ("mlp.c_proj", 18432, 4608),
+)
+QMM_ROWS_8B = (1, 4, 580, 2320)  # decode at B = 1, 4; prefill of 580 tokens at B = 1, 4
+
+
+def check_quant_matmul_8b(tq, dev) -> dict:
+    """Kernel 14 at the 8B's shapes against its plain version, with a bias
+    of x's type: M = 1, 4 (the GEMV) and 580, 2320 (the tile) in bf16, and
+    fp32 x up to M = 580 (the fp32 greedy check's path), to QMM_TOL; the
+    bf16 tile at M = 2320 launched twice, bit for bit. Returns the worst
+    max |diff| by path ("gemv", "tile")."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    worst = {"gemv": 0.0, "tile": 0.0}
+    for name, K, N in QMM_SHAPES_8B:
+        p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
+        bias = torch.randn((N,), generator=g, device=dev)
+        errs = []
+        for M in QMM_ROWS_8B:
+            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
+            for dtype in (torch.bfloat16, torch.float32):
+                if dtype == torch.float32 and M > 580:
+                    continue
+                x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                b = bias.to(dtype)
+                out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+                ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+                torch.cuda.synchronize()
+                err = compare(f"quant_matmul 8B {name} M={M} {dtype}", out, ref, dtype,
+                              tols=QMM_TOL)
+                if M == 2320:
+                    again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    if not torch.equal(again, out):
+                        raise AssertionError(f"quant_matmul 8B {name} M={M}: two launches differ")
+                worst[path] = max(worst[path], err)
+                errs.append(f"M={M} {str(dtype)[6:]} {err:.2e}")
+                del x, out, ref
+        log("kernels", f"quant_matmul 8B {name} (K={K}, N={N}, bias), plans: GEMV "
+                       f"{tq.gemv_split(K, N)} (splits, rows), tile "
+                       f"{[tq.tile_plan(M, K, N) for M in QMM_ROWS_8B[2:]]} (rows of x, splits, "
+                       f"rows of K): max |diff| " + ", ".join(errs))
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -857,11 +988,12 @@ def quantized(params: dict) -> dict:
     return {**params, "svg_transformer": quantize_tree(params["svg_transformer"], consume=False)}
 
 
-def int8_requester(model, cfg, params, policy, dev, kernels: bool = True):
+def int8_requester(model, cfg, params, policy, dev, kernels: bool = True,
+                   kv_cache_dtype=torch.int8):
     """request(images, max_new_tokens=128) -> (tokens, lengths, seconds):
     the model's processor, the im2svg prefix, then engine.generate with an
-    int8 KV cache (kv_cache_dtype=torch.int8) and the API's greedy
-    generation config, host clock around a synchronised request."""
+    int8 KV cache (or `kv_cache_dtype`) and the API's greedy generation
+    config, host clock around a synchronised request."""
     from starvector_tpu_torch.generation.engine import GenerationConfig, generate, im2svg_prefix
 
     def request(images, max_new_tokens: int = 128, prompt_ids=None):
@@ -874,11 +1006,32 @@ def int8_requester(model, cfg, params, policy, dev, kernels: bool = True):
                                stop_sequences=STOP_IDS, eos_token_id=None, pad_token_id=0)
         tokens, lengths = generate(params["svg_transformer"], cfg.llm, emb, mask, gen,
                                    prompt_ids=prompt, policy=policy, kernels=kernels,
-                                   kv_cache_dtype=torch.int8)
+                                   kv_cache_dtype=kv_cache_dtype)
         torch.cuda.synchronize()
         return tokens, lengths, time.perf_counter() - t
 
     return request
+
+
+def forced_logits(dec, params, llm_cfg, emb, mask, n: int, policy, kernels: bool, cache_dtype,
+                  ids=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logits (B, n, V) fp32, ids (B, n - 1)): a cached prefill over (emb,
+    mask), then n - 1 decode steps, each fed ids[:, t] whatever the logits
+    pick or, without `ids`, the greedy token (engine.generate's greedy
+    loop without its stops)."""
+    B = emb.shape[0]
+    cache = dec.init_cache(llm_cfg, B, emb.shape[1] + n, dtype=cache_dtype, device=emb.device)
+    logits, cache = dec.forward(params, llm_cfg, emb, mask, cache=cache, policy=policy,
+                                last_logits_only=True, kernels=kernels)
+    out, fed = [logits[:, -1]], []
+    ones = torch.ones((B, 1), dtype=torch.int32, device=emb.device)
+    for t in range(n - 1):
+        fed.append(out[-1].argmax(-1) if ids is None else ids[:, t])
+        x = dec.embed_tokens(params, fed[-1][:, None]).to(policy.compute_dtype)
+        logits, cache = dec.forward(params, llm_cfg, x, ones, cache=cache, policy=policy,
+                                    kernels=kernels)
+        out.append(logits[:, -1])
+    return torch.stack(out, 1), torch.stack(fed, 1)
 
 
 def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
@@ -963,6 +1116,88 @@ def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
     return dict(counts=got, request=request, params=q16)
 
 
+# ---------------------------------------------------------------------------
+# text2svg: captions in, no vision tower (phases 4 and 6)
+# ---------------------------------------------------------------------------
+
+# captions of 6, 13, 26 and 30 tokens through the byte-level test tokenizer
+# (caption + <svg-start>; the last is cut at the API's max_length of 30)
+CAPTIONS = ("heart", "a red circle", "a green triangle on white",
+            "a minimalist icon of a blue house with a chimney")
+
+
+def text2svg_requester(model):
+    """request(images, max_new_tokens=128, prompt_ids=None) -> (tokens,
+    lengths, seconds): the API's generate_text2svg_ids on as many captions
+    as `images` has entries (so that serving_times drives it as it drives
+    an im2svg request), greedy, host clock around a synchronised request."""
+    calls = iter(range(1 << 30))
+
+    def request(images, max_new_tokens: int = 128, prompt_ids=None):
+        first = next(calls)  # each request starts one caption further on
+        captions = [CAPTIONS[(first + i) % len(CAPTIONS)] for i in range(len(images))]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, tokens, lengths = model.generate_text2svg_ids(
+            {"caption": captions}, max_new_tokens=max_new_tokens, use_nucleus_sampling=False)
+        torch.cuda.synchronize()
+        return tokens, lengths, time.perf_counter() - t
+
+    return request
+
+
+def text2svg_slice(tfa, label: str, model, p32, cfg32, dev, depth_note: str) -> dict:
+    """text2svg through the API at full width: a request of 4 captions (6
+    to 30 tokens, left-padded) and one of 1, greedy, 128 new tokens, with
+    exact launch counts: a prompt of at most 64 tokens takes the chunk step
+    (plain PyTorch: no flash_prefill), then one decode_attention a layer a
+    step; then fp32 greedy ids of 2 captions, 32 tokens, kernels against
+    plain, on the fp32 tree `p32` (cfg32's depth, told by `depth_note`).
+    Returns the requester and the launch counts."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    L = model.cfg.llm.n_layer
+    request = text2svg_requester(model)
+    request([None] * 4, max_new_tokens=8)  # warm-up
+    reset_counts(tfa)
+    served = [request([None] * 4), request([None])]
+    counts = read_counts(tfa)
+    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    for tokens, lengths, _ in served:
+        if tokens.shape[1] != 128 or int(tokens.min()) < 0 or \
+                int(tokens.max()) >= model.cfg.llm.vocab_size:
+            raise AssertionError(f"{label} text2svg: bad tokens {tuple(tokens.shape)}")
+        if not ((lengths >= 1) & (lengths <= 128)).all():
+            raise AssertionError(f"{label} text2svg: bad lengths {lengths.tolist()}")
+    expected = {"flash_prefill": 0, "decode_attention": L * sum(steps),
+                "decode_attention_int8": 0, "quant_matmul": 0, **dict.fromkeys(TRAIN_KERNELS, 0)}
+    got = {k: counts[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f"{label} text2svg launches {got}, expected {expected}")
+    prompt = [min(len(model.tokenizer.token_ids(c)) + 1, 30) for c in CAPTIONS]
+    log("text2svg", f"{label}: requests of 4 captions and of 1 ({prompt} prompt tokens, "
+                    f"left-padded), greedy, 128 new tokens: decode steps {steps}, "
+                    f"lengths {[l.tolist() for _, l, _ in served]}; launches flash_prefill 0 (the "
+                    f"prompts take the chunk step), decode_attention {got['decode_attention']} = "
+                    f"{L} x {sum(steps)} decode steps, no int8 or training kernel")
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    ids = {}
+    for kernels in (True, False):
+        m32 = StarVectorForCausalLM(p32, cfg32, model.tokenizer, policy=f32, device=dev,
+                                    kernels=kernels)
+        ids[kernels] = m32.generate_text2svg_ids({"caption": list(CAPTIONS[1:3])},
+                                                 max_new_tokens=32,
+                                                 use_nucleus_sampling=False)[1]
+    if not torch.equal(ids[True], ids[False]):
+        raise AssertionError(f"{label} text2svg fp32 greedy ids differ:\n{ids[True].tolist()}\n"
+                             f"{ids[False].tolist()}")
+    log("text2svg", f"{label}: fp32, B=2, 32 tokens, {depth_note}: greedy ids with the kernels "
+                    f"== with the plain versions ({[len(set(r.tolist())) for r in ids[True]]} "
+                    f"distinct ids per row)")
+    return dict(request=request, counts=got)
+
+
 def serving_times(card: str, requests: dict, rounds: int = 2) -> dict:
     """For each model: p50 B=1 image -> SVG latency, and B=4 decode
     tokens/s from full and prefill-only (max_new_tokens=1) requests. The
@@ -1030,11 +1265,12 @@ def library_ms(fn, what: str, timer=None):
     return (timer or cuda_ms)(fn)
 
 
-def event_ms(fn, iters: int = 20) -> float:
+def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """ms per eager fn() call between two CUDA events (for the autograd
-    backward, which is not captured in a graph): the host's per-op cost is
-    small beside a millisecond of device work."""
-    for _ in range(3):
+    backward, which is not captured in a graph, and library calls that take
+    tenths of a second): the host's per-op cost is small beside a
+    millisecond of device work."""
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1733,10 +1969,18 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     if not torch.equal(ids[True], ids[False]):
         raise AssertionError(f"8B fp32 greedy ids differ:\n{ids[True].tolist()}\n"
                              f"{ids[False].tolist()}")
-    log("8b", f"fp32, B=2, 32 tokens, {n32} of {L} layers ({'full depth' if n32 == L else 'the '
-              'layers whose fp32 copy fits'}; {free / 2**30:.1f} GiB was free): greedy ids with "
-              f"the kernels == with the plain attention "
-              f"({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+    depth = (f"{n32} of {L} layers ({'full depth' if n32 == L else 'the layers whose fp32 copy '
+             'fits'}; {free / 2**30:.1f} GiB was free)")
+    log("8b", f"fp32, B=2, 32 tokens, {depth}: greedy ids with the kernels == with the plain "
+              f"attention ({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+
+    # text2svg: captions through the v2 test tokenizer, the same bf16 weights;
+    # its fp32 check on the fp32 copy above
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+
+    t2s = text2svg_slice(tfa, "8B", StarVectorForCausalLM(p16, cfg, build_test_tokenizer("v2"),
+                                                          policy=model.policy, device=dev),
+                         p32, cfg32, dev, depth)
     del m32, p32, q16
     torch.cuda.empty_cache()
 
@@ -1772,23 +2016,162 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     del p2, q2, emb, mask
     torch.cuda.empty_cache()
 
-    e2e = serving_times(card, {"8B bf16": request})["8B bf16"]
+    e2e = serving_times(card, {"8B bf16": request, "8B text2svg": t2s["request"]})
+    log("times", f"{card}: 8B text2svg (prompts of 6-30 tokens, no vision tower) against "
+                 f"im2svg, bf16: p50 B=1 {e2e['8B text2svg']['p50'] * 1e3:.1f} vs "
+                 f"{e2e['8B bf16']['p50'] * 1e3:.1f} ms, B=4 decode "
+                 f"{e2e['8B text2svg']['rate']:.1f} vs {e2e['8B bf16']['rate']:.1f} tokens/s")
     memory_times(card, {"8B bf16": request}, {"8B bf16": p16})
     if profile_dir is not None:
         profile_request(request, card, profile_dir, "8b")
+    e2e = e2e["8B bf16"]
     out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(p16))
-    del model, request, p16, served
+    del request, served, t2s
+    out["int8"] = int8_slice_8b(model, tfa, cfg, p16, dev, card, e2e, profile_dir)
+    del model, p16
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def times_8b(tfa, dev, card: str, launches: dict, errs: dict) -> list[dict]:
-    """The 8B's two attention kernels at its shapes, bf16, graph-replayed:
-    flash_prefill at B=4 S=T=580 (576 visual + 4 prompt tokens), H=36 over
-    Hkv=4, window 4096, and decode_attention at G=9, B=4 T=708 with the self
-    token, each beside its plain version, its bound and SDPA with
-    enable_gqa over the 4 KV heads.
-    Returns their rows of the kernels' JSON."""
+def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict,
+                  profile_dir: Path | None = None) -> dict:
+    """StarVector-8B with int8 decoder weights and an int8 KV cache at full
+    width and depth: quantize_tree on the bf16 decoder, consuming it (each
+    bf16 leaf goes once its codes exist, so the two trees never coexist
+    beyond one leaf); requests of 4 images and of 1, greedy, 128 new
+    tokens, with
+    exact launch counts (192 = 6 x 32 kernel-14 calls a prefill, on the
+    tile, and a decode step, on the GEMV; 32 flash_prefill a prefill over
+    the dequantized window; 32 int8-cache decode_attention a step); fp32
+    compute at full depth over the same codes (the rest cast to fp32),
+    kernels vs plain: greedy ids with an fp32 KV cache, and teacher-forced
+    logits with the int8 cache (see below); weights and a request's peak
+    above them; p50 and B=4 tokens/s beside the bf16 figures of the same
+    call (with `profile_dir`, where a B=4 decode step's device time goes).
+    Returns the launch counts, p50, tokens/s and the tree's bytes."""
+    from starvector_tpu_torch.generation.engine import im2svg_prefix
+    from starvector_tpu_torch.models import starcoder2
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.ops.quantization import quantize_tree
+
+    L = cfg.llm.num_hidden_layers
+    bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    decoder16 = tree_bytes(p16["svg_transformer"])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    q8 = {**p16, "svg_transformer": quantize_tree(p16["svg_transformer"])}
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t, torch.cuda.max_memory_allocated() - held
+    layers = q8["svg_transformer"]["layers"]
+    leaves = {f"{grp}.{name}": leaf for grp in ("attn", "mlp")
+              for name, leaf in layers[grp].items()}
+    if len(leaves) != 6 or not all("kernel_q" in leaf and "bias" in leaf
+                                   for leaf in leaves.values()):
+        raise AssertionError(f"8B int8: quantize_tree took {sorted(leaves)}")
+    log("8b-int8", f"quantize_tree on the 8B decoder in {secs:.1f} s, consuming it: the six "
+                   f"projections a layer ({', '.join(leaves)}) as int8 codes with (32, N) fp32 "
+                   f"scales and their biases; decoder {decoder16 / 2**30:.2f} -> "
+                   f"{tree_bytes(q8['svg_transformer']) / 2**30:.2f} GiB, all weights "
+                   f"{tree_bytes(q8) / 2**30:.2f} GiB; peak {peak / 2**30:.2f} GiB above the "
+                   f"{held / 2**30:.2f} GiB held before")
+
+    request = int8_requester(model, cfg, q8, bf16, dev)
+    request(synthetic_images(4, 99), max_new_tokens=8)  # warm-up
+    reset_counts(tfa)
+    served = [request(synthetic_images(4, 0)), request(synthetic_images(1, 1))]
+    counts = read_counts(tfa)
+    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    for tokens, lengths, _ in served:
+        if tokens.shape[1] != 128 or int(tokens.min()) < 0 or \
+                int(tokens.max()) >= cfg.llm.vocab_size:
+            raise AssertionError(f"8B int8: bad tokens {tuple(tokens.shape)}")
+        if not ((lengths >= 1) & (lengths <= 128)).all():
+            raise AssertionError(f"8B int8: bad lengths {lengths.tolist()}")
+    n = sum(steps)
+    expected = {"quant_matmul": 6 * L * (2 + n), "quant_matmul_gemv": 6 * L * n,
+                "quant_matmul_wgmma": 6 * L * 2, "quant_matmul_f32_tile": 0,
+                "flash_prefill": L * 2, "decode_attention": L * n, "decode_attention_int8": L * n,
+                **dict.fromkeys(TRAIN_KERNELS, 0)}
+    got = {k: counts[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f"8B int8 launches {got}, expected {expected}")
+    log("8b-int8", f"requests of 4 images and of 1, greedy, 128 new tokens: decode steps {steps}, "
+                   f"lengths {[l.tolist() for _, l, _ in served]}; launches quant_matmul "
+                   f"{got['quant_matmul']} = 192 x (2 prefills + {n} decode steps) (wgmma tile "
+                   f"{got['quant_matmul_wgmma']} at M = 4 x 580 and 580, GEMV "
+                   f"{got['quant_matmul_gemv']}), flash_prefill {got['flash_prefill']} = {L} x 2, "
+                   f"int8-cache decode_attention {got['decode_attention_int8']} = {L} x {n}, no "
+                   f"training kernel")
+
+    # fp32 compute over the same codes and scales, full depth. With an fp32
+    # KV cache: greedy ids, kernels against plain. With the int8 cache the
+    # two paths' fp32 sums, which differ only in order, round some k/v to
+    # the next code, and each flip moves the next layer's inputs by a scale
+    # step, so flips grow layer by layer (tens in layer 0, a fifth of the
+    # codes by layer 31 on the H100) and greedy ids over 32 tokens would
+    # agree by chance; there the check is teacher-forced: both paths fed
+    # the plain path's greedy ids, their logits within INT8_CACHE_LOGIT_TOL
+    # at every step, and the same argmax wherever the plain path's top two
+    # are further apart than twice that step's difference.
+    q32 = _cast_tree(q8, torch.float32)
+    ids = {k: int8_requester(model, cfg, q32, f32, dev, kernels=k,
+                             kv_cache_dtype=torch.float32)(
+        synthetic_images(2, 7), max_new_tokens=32)[0] for k in (True, False)}
+    if not torch.equal(ids[True], ids[False]):
+        raise AssertionError(f"8B int8 fp32 greedy ids differ:\n{ids[True].tolist()}\n"
+                             f"{ids[False].tolist()}")
+    emb, mask = im2svg_prefix(q32, cfg, model.process_images(synthetic_images(2, 7)),
+                              torch.tensor([PROMPT_IDS] * 2, device=dev), policy=f32)
+    tf, plain8 = {}, None
+    for k in (False, True):
+        tf[k], plain8 = forced_logits(starcoder2, q32["svg_transformer"], cfg.llm, emb, mask, 32,
+                                      f32, k, torch.int8, plain8)
+    diff = (tf[True] - tf[False]).abs().amax(-1)  # (B, 32)
+    top2 = tf[False].topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    clear = margin > 2 * diff
+    agree = tf[True].argmax(-1) == tf[False].argmax(-1)
+    if diff.max().item() > INT8_CACHE_LOGIT_TOL or not agree[clear].all():
+        raise AssertionError(f"8B int8 cache, fp32, teacher-forced: max |logit diff| "
+                             f"{diff.max().item():.3e} (limit {INT8_CACHE_LOGIT_TOL}), argmax "
+                             f"differs at {int((~agree & clear).sum())} clear steps")
+    log("8b-int8", f"fp32 compute over the same codes, B=2, 32 tokens, full depth ({L} layers): "
+                   f"with an fp32 KV cache greedy ids with the kernels == with the plain versions "
+                   f"({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row); with "
+                   f"the int8 cache, fed the plain path's greedy ids: max |logit diff| per step "
+                   f"{diff.min().item():.4f}-{diff.max().item():.4f} (limit "
+                   f"{INT8_CACHE_LOGIT_TOL}; max |logit| {tf[False].abs().max().item():.2f}), "
+                   f"argmax equal at all {int(clear.sum())} of 64 steps whose top-2 margin is "
+                   f"over twice it, and at {int(agree.sum())} of 64 in all")
+    del q32, tf
+    torch.cuda.empty_cache()
+
+    memory_times(card, {"8B int8": request}, {"8B int8": q8})
+    e2e = serving_times(card, {"8B int8": request}, rounds=1)["8B int8"]
+    log("times", f"{card}: 8B int8 (weights and KV cache) against the 8B bf16 figures earlier in "
+                 f"this call: p50 B=1 {e2e['p50'] * 1e3:.1f} vs {bf16_e2e['p50'] * 1e3:.1f} ms, "
+                 f"B=4 decode {e2e['rate']:.1f} vs {bf16_e2e['rate']:.1f} tokens/s")
+    if profile_dir is not None:
+        profile_request(request, card, profile_dir, "8b_int8")
+    out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(q8))
+    del request, served, q8
+    return out
+
+
+def times_8b(tfa, dc, tq, dev, card: str, s8: dict, errs: dict) -> list[dict]:
+    """The 8B's kernels at its shapes, bf16, graph-replayed: flash_prefill
+    at B=4 S=T=580 (576 visual + 4 prompt tokens), H=36 over Hkv=4, window
+    4096, and decode_attention at G=9, B=4 T=708 with the self token, each
+    beside its plain version, its bound and SDPA with enable_gqa over the 4
+    KV heads; decode_attention over an int8 cache at the same shape (no
+    library call attends over int8 codes); kernel 14 at the six projections'
+    four shapes (quant_matmul_times_8b). Returns their rows of the kernels'
+    JSON, with launches from phase 6 (`s8`: bf16, and int8 under "int8")."""
+    launches, launches8 = s8["counts"], s8["int8"]["counts"]
     g = torch.Generator(device=dev).manual_seed(18)
     D, rows = 128, []
     B, S = 4, 580
@@ -1836,6 +2219,77 @@ def times_8b(tfa, dev, card: str, launches: dict, errs: dict) -> list[dict]:
                      replaces="starvector_tpu/ops/flash_attention.py:2104",
                      launches=launches["decode_attention"], max_abs_err=errs["decode_g9"],
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    (kq, ks), (vq, vs) = dc.quantize_kv(kc.float()), dc.quantize_kv(vc.float())
+    plain_ms, ms = _turns(
+        lambda: tfa.merged_decode_attention(qg, kn, vn, kq, vq, old, D**-0.5, ks, vs,
+                                            kernels=False),
+        lambda: tfa.merged_decode_attention(qg, kn, vn, kq, vq, old, D**-0.5, ks, vs))
+    cache_bytes = 2 * B * T * HKV8 * D + 2 * B * T * HKV8 * 4  # codes and fp32 scales
+    b_ms, b_by = bound(cache_bytes + small, flops)
+    log("times", f"{card}: decode_attention G=9 B=4 T=708 Hkv=4 D=128 int8 cache, bf16 queries, "
+                 f"the self token merged: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                 f"{b_ms:.5f} ms ({b_by}: {cache_bytes / 1e6:.3f} MB of codes and scales; no "
+                 f"single PyTorch call attends over an int8 cache)")
+    rows.append(dict(name="decode_attention_int8_g9", route="cuda",
+                     source="starvector_tpu_torch/csrc/decode_attention.cu",
+                     replaces="starvector_tpu/ops/flash_attention.py:2104",
+                     launches=launches8["decode_attention_int8"],
+                     max_abs_err=errs["decode_g9_int8"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None))
+    del qg, kn, vn, kc, vc, kq, vq, ks, vs
+    qmm = quant_matmul_times_8b(tq, dev, card)
+    for path, count in (("gemv", "quant_matmul_gemv"), ("tile", "quant_matmul_wgmma")):
+        rows.append(dict(name=f"quant_matmul_{path}_8b", route="cuda",
+                         source="starvector_tpu_torch/csrc/quant_matmul.cu",
+                         replaces="starvector_tpu/ops/quantization.py:139",
+                         launches=launches8[count], max_abs_err=errs[f"qmm_{path}_8b"],
+                         **qmm[path]))
+    return rows
+
+
+def quant_matmul_times_8b(tq, dev, card: str) -> dict:
+    """Kernel 14 at the 8B's shapes against its plain version, the bf16
+    cuBLAS addmm and torch._weight_int8pack_mm (where this torch has it for
+    CUDA; timed over 2 calls between events at prefill sizes, where it takes
+    tenths of a second), with a bf16 bias, at M = 1, 4 (the GEMV) and 580,
+    2320 (the tile; with TFLOP/s, share of the bound, and every plan
+    tile_plan weighs). Returns mlp.c_fc's figures, the largest, by path
+    ("gemv" at M = 4, "tile" at M = 2320): ms, plain_ms, bound_ms, bound_by,
+    library_ms (int8pack_mm, else addmm)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for name, K, N in QMM_SHAPES_8B:
+        p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
+        kq, sc = p["kernel_q"], p["scale"]
+        w16 = (kq.float() * sc).bfloat16()
+        kq_nk, sc16 = kq.t().contiguous(), sc.bfloat16()
+        b = torch.randn((N,), generator=g, device=dev).bfloat16()
+        for M in QMM_ROWS_8B:
+            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            plain_ms, ms = _turns(
+                lambda: tq.quant_matmul(x, kq, sc, b, out_dtype=torch.bfloat16, kernels=False),
+                lambda: tq.quant_matmul(x, kq, sc, b, out_dtype=torch.bfloat16))
+            addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w16))
+            timer = None if path == "gemv" else functools.partial(event_ms, iters=2, warmup=1)
+            lib = library_ms(lambda: torch._weight_int8pack_mm(x, kq_nk, sc16),
+                             "torch._weight_int8pack_mm", timer)
+            flops = 2 * M * K * N
+            b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2, flops)
+            extra = "" if path == "gemv" else f" ({flops / ms / 1e9:.1f} TFLOP/s)"
+            log("times", f"{card}: quant_matmul 8B {path} {name} M={M} K={K} N={N} bf16: kernel "
+                         f"{ms:.4f} ms{extra}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                         f"({b_by}, {b_ms / ms:.1%} of it), int8pack_mm "
+                         f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 addmm "
+                         f"{addmm_ms:.4f} ms (reads 2 bytes a weight)")
+            if path == "tile":
+                tile_plan_times(tq, x, kq, sc, b, f"8B {name}", card)
+            if name == "mlp.c_fc" and M in (4, 2320):
+                rows[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=lib if lib is not None else addmm_ms)
+            del x
+        del p, kq, sc, w16, kq_nk
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1958,12 +2412,19 @@ def main() -> int:
                    f"quant_matmul GEMV {err_qmm['gemv']:.3e}, tile {err_qmm['tile']:.3e}, "
                    f"int8-cache decode {err_int8:.3e}")
     err_8b = {"decode_g9": check_g9_decode(tfa, dev),
-              "flash_prefill_8b": check_flash_prefill_8b(tfa, dev)}
-    log("kernels", f"the 8B's kernel shapes match their plain versions (decode G=9: fp32 "
-                   f"1e-4, bf16 atol 2e-3 and rtol 2^-7; flash_prefill H=36 Hkv=4 window 4096: "
-                   f"fp32 1e-4, bf16 2e-2; bf16 bit-identical on relaunch); max |diff| decode "
-                   f"G=9 {err_8b['decode_g9']:.3e}, flash_prefill H=36 "
-                   f"{err_8b['flash_prefill_8b']:.3e}")
+              "flash_prefill_8b": check_flash_prefill_8b(tfa, dev),
+              "decode_g9_int8": check_g9_int8_decode(tfa, dc, dev)}
+    qmm_8b = check_quant_matmul_8b(tq, dev)
+    err_8b.update(qmm_gemv_8b=qmm_8b["gemv"], qmm_tile_8b=qmm_8b["tile"])
+    log("kernels", f"the 8B's kernel shapes match their plain versions (decode G=9 over a bf16 "
+                   f"or an int8 cache: fp32 1e-4, bf16 atol 2e-3 and rtol 2^-7; flash_prefill "
+                   f"H=36 Hkv=4 window 4096: fp32 1e-4, bf16 2e-2; quant_matmul at the six "
+                   f"projections' four shapes, M = 1, 4, 580, 2320: fp32 1e-4, bf16 atol 2e-3 and "
+                   f"rtol 2^-7; bf16 bit-identical on relaunch); max |diff| decode G=9 "
+                   f"{err_8b['decode_g9']:.3e}, int8-cache decode G=9 "
+                   f"{err_8b['decode_g9_int8']:.3e}, flash_prefill H=36 "
+                   f"{err_8b['flash_prefill_8b']:.3e}, quant_matmul 8B GEMV "
+                   f"{qmm_8b['gemv']:.3e}, tile {qmm_8b['tile']:.3e}")
     err_train = check_training_kernels(tfa, dev)
     log("kernels", "the training kernels match their plain versions (fp32 atol=rtol 1e-4; bf16 "
                    "2e-2, or no more than twice the plain bf16 version's own error from fp32 "
@@ -2052,22 +2513,34 @@ def main() -> int:
                  f"{err_k:.4e}, plain {err_p:.4e} (bound: kernels <= 2 x plain + 1e-3); greedy "
                  f"tokens agree on {agree:.4f} of 4x128 positions")
 
+    # text2svg: captions through the v1 test tokenizer, the same bf16 weights
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+
+    t2s = text2svg_slice(tfa, "1B", StarVectorForCausalLM(p16, cfg, build_test_tokenizer("v1"),
+                                                          policy=bf16, device=dev),
+                         p32, cfg, dev, "full depth")
+
     # int8 weights and an int8 KV cache
     int8 = int8_slice(model, tfa, cfg, p16, p32, dev)
 
-    # serving times and memory, bf16 and int8 side by side; then the int8
-    # tree goes, so that phase 5's peak holds only what training needs
-    e2e = serving_times(card, {"bf16": request, "int8": int8["request"]})
+    # serving times and memory, bf16, int8 and text2svg in turns; then the
+    # int8 tree goes, so that phase 5's peak holds only what training needs
+    e2e = serving_times(card, {"bf16": request, "int8": int8["request"],
+                               "text2svg": t2s["request"]})
     log("times", f"{card}: int8 (weights and KV cache) against bf16: p50 B=1 "
                  f"{e2e['int8']['p50'] * 1e3:.1f} vs {e2e['bf16']['p50'] * 1e3:.1f} ms, B=4 decode "
                  f"{e2e['int8']['rate']:.1f} vs {e2e['bf16']['rate']:.1f} tokens/s")
+    log("times", f"{card}: 1B text2svg (prompts of 6-30 tokens, no vision tower) against "
+                 f"im2svg, bf16: p50 B=1 {e2e['text2svg']['p50'] * 1e3:.1f} vs "
+                 f"{e2e['bf16']['p50'] * 1e3:.1f} ms, B=4 decode {e2e['text2svg']['rate']:.1f} vs "
+                 f"{e2e['bf16']['rate']:.1f} tokens/s")
     memory_times(card, {"bf16": request, "int8": int8["request"]},
                  {"bf16": p16, "int8": int8["params"]})
     if args.profile is not None:
         profile_request(request, card, args.profile)
         profile_request(int8["request"], card, args.profile, "int8")
     int8_counts = int8["counts"]
-    del int8
+    del int8, t2s
     # the 1B inference trees go, so that phases 5 and 6 hold only their own
     clip_images = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=dev).batch
     del model, m32, p16, p32, request, logits, ref32
@@ -2133,7 +2606,7 @@ def main() -> int:
                                  **qmm[path]))
 
     kernels_json += training_times(tfa, dev, card, train, err_train)
-    kernels_json += times_8b(tfa, dev, card, s8["counts"], err_8b)
+    kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)
     long_context_times(tfa, dev, card)
 
     if args.profile is not None:

@@ -1,15 +1,15 @@
 """High-level API mirroring the reference quickstart surface (port of
-starvector_tpu/api.py::StarVectorForCausalLM, im2svg).
+starvector_tpu/api.py::StarVectorForCausalLM, im2svg and text2svg).
 
     model = StarVectorForCausalLM.from_pretrained(path, device="cuda")
     batch = {"image": model.process_images([image])}
     raw_svg = model.generate_im2svg(batch, max_length=4000)[0]
+    svg = model.generate_text2svg({"caption": ["a red circle"]}, max_new_tokens=512)[0]
 
-Greedy and sampled im2svg are ported for StarVector-1B (with int8 decoder
-weights: `from_pretrained(..., quantize=True)`) and StarVector-8B (bf16 or
-fp32; its int8 path is ROADMAP queue 1, item 6). Beam search, speculative
-decoding, GRPO rollouts and text2svg raise NotImplementedError naming their
-ROADMAP item.
+Greedy and sampled im2svg and text2svg are ported for StarVector-1B and
+StarVector-8B, in bf16 or fp32, or with int8 decoder weights
+(`from_pretrained(..., quantize=True)`). Beam search, speculative decoding
+and GRPO rollouts raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,11 +18,14 @@ import json
 import os
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from starvector_tpu_torch import require_device
 from starvector_tpu_torch.data.processor import processor_for_encoder
-from starvector_tpu_torch.generation.engine import GenerationConfig, generate_im2svg
+from starvector_tpu_torch.generation.engine import (
+    GenerationConfig, generate_im2svg, generate_text2svg,
+)
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 
@@ -76,10 +79,11 @@ class StarVectorForCausalLM:
         """Load an HF-layout StarVector-1B or -8B checkpoint directory
         (model*.safetensors, config.json, tokenizer.json); the tokenizer is
         the decoder's version (tokenizer_version). Needs the `safetensors`
-        and `tokenizers` packages. `quantize=True` converts the 1B decoder's
+        and `tokenizers` packages. `quantize=True` converts the decoder's
         large matmul weights to per-channel int8 (the JAX package's rule:
-        `quantize_tree` on the decoder only; the vision tower, adapter and
-        embeddings keep `dtype`)."""
+        `quantize_tree` on the decoder only, at its default threshold: the
+        1B's four projections a layer, the 8B's six; the vision tower,
+        adapter, embeddings and norms keep `dtype`)."""
         from safetensors.numpy import load_file
 
         from starvector_tpu_torch.models.convert import config_from_hf, from_hf_state_dict
@@ -95,10 +99,6 @@ class StarVectorForCausalLM:
         with open(os.path.join(path, "config.json")) as f:
             hf_cfg = json.load(f)
         cfg = config_from_hf(sd, hf_cfg)
-        if quantize and cfg.decoder != "gpt_bigcode":
-            raise NotImplementedError(
-                "int8 StarVector-8B is not ported yet: kernel 14 is tuned and checked at the 1B "
-                "shapes only (ROADMAP queue 1, item 6)")
         params = from_hf_state_dict(sd, dtype=dtype, device=device)
         del sd
         if quantize:
@@ -112,8 +112,10 @@ class StarVectorForCausalLM:
         """uint8 (H, W, 3|4) arrays or PIL images -> (B, H, W, 3) normalized."""
         return self.processor.batch(images)
 
-    def _gen_config(self, kwargs: dict, stop_sequences) -> GenerationConfig:
-        """Map the reference's generation kwargs onto the engine config."""
+    def _gen_config(self, kwargs: dict, stop_sequences, *,
+                    text2svg: bool = False) -> GenerationConfig:
+        """Map the reference's generation kwargs onto the engine config;
+        text2svg also stops on the tokenizer's eos."""
         max_length = kwargs.get("max_length", 30)
         return GenerationConfig(
             max_new_tokens=int(kwargs.get("max_new_tokens", max_length)),
@@ -130,7 +132,7 @@ class StarVectorForCausalLM:
                              for t, b in dict(kwargs.get("logit_bias") or {}).items()),
             num_return_sequences=int(kwargs.get("num_return_sequences", 1)),
             stop_sequences=stop_sequences,
-            eos_token_id=None,  # im2svg stops on </svg> only
+            eos_token_id=self.tokenizer.eos_token_id if text2svg else None,
             pad_token_id=self.tokenizer.pad_token_id if self.tokenizer is not None
             else int(kwargs.get("pad_token_id", 0)),
         )
@@ -177,5 +179,45 @@ class StarVectorForCausalLM:
     def generate_im2svg_grpo(self, batch: dict, **kwargs):
         raise NotImplementedError("GRPO rollouts are not ported yet (ROADMAP queue 1, item 7)")
 
-    def generate_text2svg(self, batch: dict, **kwargs):
-        raise NotImplementedError("text2svg is not ported yet (ROADMAP queue 1, item 5)")
+    def _caption_ids(self, captions: Sequence[str], max_length: int):
+        """caption + <svg-start> ids, truncated to max_length, as (B, S)
+        int64 ids and int32 mask on the device, left-padded: a right-padded
+        row (the v1 tokenizer pads right) is moved left, since the engine
+        reads the prompt's last logits at the last position."""
+        tok = self.tokenizer
+        enc = tok([c + tok.svg_start_token for c in captions], max_length=max_length,
+                  add_special_tokens=False)
+        ids, mask = enc["input_ids"], enc["attention_mask"]
+        if (mask[:, -1] == 0).any():
+            left_ids, left_mask = np.full_like(ids, tok.pad_token_id), np.zeros_like(mask)
+            for b in range(ids.shape[0]):
+                row = ids[b][mask[b] > 0]
+                left_ids[b, ids.shape[1] - len(row):] = row
+                left_mask[b, ids.shape[1] - len(row):] = 1
+            ids, mask = left_ids, left_mask
+        return (torch.as_tensor(ids, device=self.device).long(),
+                torch.as_tensor(mask, device=self.device))
+
+    def generate_text2svg_ids(self, batch: dict, **kwargs):
+        """text2svg as token ids: batch["caption"] is a list of captions.
+        Returns (input_ids (B, S) left-padded, tokens (B, max_new_tokens),
+        lengths (B,)); generation stops on `</svg>` or eos."""
+        if self.tokenizer is None:
+            raise ValueError("text2svg tokenizes its captions and needs a tokenizer")
+        if kwargs.get("use_speculative"):
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP queue 1, item 7)")
+        ids, mask = self._caption_ids(batch["caption"], kwargs.get("max_length", 30))
+        gen = self._gen_config(kwargs, (self.tokenizer.stop_sequence_ids("</svg>"),),
+                               text2svg=True)
+        tokens, lengths = generate_text2svg(self.params, self.cfg, ids, mask, gen,
+                                            self.generator, policy=self.policy,
+                                            kernels=self.kernels)
+        return ids, tokens, lengths
+
+    def generate_text2svg(self, batch: dict, **kwargs) -> list[str]:
+        """Reference generate_text2svg: the decoded text holds the generated
+        tokens only, not the caption."""
+        _, tokens, lengths = self.generate_text2svg_ids(batch, **kwargs)
+        return [self.tokenizer.decode(row[:int(L)])
+                for row, L in zip(tokens.cpu().numpy(), lengths.tolist())]

@@ -89,9 +89,9 @@ namespace {
 
 // The shapes instantiated: head size 128 and G query heads per KV head,
 // G = 16 (StarVector-1B, multi-query) or G = 9 (StarVector-8B, 36 query
-// heads over 4 KV heads); the int8 cache at G = 16 only. Another group or
-// head size is another instantiation, added with the model that needs it
-// and a check of it on the card.
+// heads over 4 KV heads), each over a cache of q's type or of int8 codes.
+// Another group or head size is another instantiation, added with the
+// model that needs it and a check of it on the card.
 constexpr int kDecD = 128;
 constexpr int kKeyTile = 128;  // chunks are multiples of it (decode_splits)
 
@@ -695,8 +695,8 @@ int launch(int threads, size_t smem, const DecodeArgs& a, cudaStream_t st) {
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype, group size, head size or split the
-// kernels do not take (G = 9 or 16, D = 128, an int8 cache at G = 16 only;
-// chunk a multiple of 128, splits >= 1, covering [t_lo, t_end)). k_new and
+// kernels do not take (G = 9 or 16, D = 128; chunk a multiple of 128,
+// splits >= 1, covering [t_lo, t_end)). k_new and
 // v_new are both null or both set. cache_dtype is dtype, or int8 with
 // k_scale and v_scale set (they are ignored otherwise). ws holds B * Hkv *
 // splits * partial_floats(G, D) floats; tickets B * Hkv ints, zero on
@@ -728,9 +728,12 @@ extern "C" int sv_decode_attention(
   const bool quant = cache_dtype == sv::kInt8;
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (!quant && cache_dtype != dtype) return (int)cudaErrorInvalidValue;
-  if (quant && G != 16) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (dtype == sv::kBFloat16) {
+    if (quant && G == 9) {
+      return sv::launch<sv::decode_attention_bf16_kernel<int8_t, 9>>(
+          sv::kMmaThreads, sv::mma_smem_bytes<int8_t, 9>(), a, st);
+    }
     if (quant) {
       return sv::launch<sv::decode_attention_bf16_kernel<int8_t, 16>>(
           sv::kMmaThreads, sv::mma_smem_bytes<int8_t, 16>(), a, st);
@@ -743,6 +746,10 @@ extern "C" int sv_decode_attention(
         sv::kMmaThreads, sv::mma_smem_bytes<bf16, 16>(), a, st);
   }
   if (dtype == sv::kFloat32) {
+    if (quant && G == 9) {
+      return sv::launch<sv::decode_attention_f32_kernel<int8_t, 9>>(
+          sv::kF32Threads, sv::f32_smem_bytes<9>(), a, st);
+    }
     if (quant) {
       return sv::launch<sv::decode_attention_f32_kernel<int8_t, 16>>(
           sv::kF32Threads, sv::f32_smem_bytes<16>(), a, st);

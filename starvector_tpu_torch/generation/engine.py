@@ -1,6 +1,6 @@
 """Autoregressive generation: one cached prefill, then a Python loop of
-cached decode steps (port of generate / generate_im2svg of
-starvector_tpu/generation/engine.py).
+cached decode steps (port of generate / generate_im2svg /
+generate_text2svg of starvector_tpu/generation/engine.py).
 
 The first token is drawn from the prefill's last logits. Each row stops on
 its own when one of the stop sequences (the `</svg>` ids for im2svg) or eos
@@ -168,9 +168,33 @@ def generate_im2svg(
     *,
     policy: DTypePolicy = DTypePolicy(),
     kernels: bool = True,
+    kv_cache_dtype: torch.dtype | None = None,
 ):
     """Returns (tokens, lengths) of the NEW tokens; callers prepend the
     prompt ids before detokenizing."""
     inputs_embeds, mask = im2svg_prefix(params, cfg, images, prompt_ids, policy=policy)
     return generate(params["svg_transformer"], cfg.llm, inputs_embeds, mask, gen, generator,
-                    prompt_ids=prompt_ids, policy=policy, kernels=kernels)
+                    prompt_ids=prompt_ids, policy=policy, kernels=kernels,
+                    kv_cache_dtype=kv_cache_dtype)
+
+
+def generate_text2svg(
+    params: dict,
+    cfg: sv.StarVectorConfig,
+    input_ids: torch.Tensor,       # (B, S) caption + <svg-start>, left-padded
+    attention_mask: torch.Tensor,  # (B, S)
+    gen: GenerationConfig,
+    generator: torch.Generator | None = None,
+    *,
+    policy: DTypePolicy = DTypePolicy(),
+    kernels: bool = True,
+    kv_cache_dtype: torch.dtype | None = None,
+):
+    """text2svg: the caption's token embeddings are the whole prefix (no
+    vision tower). The prompt ids, pads included, are `generate`'s
+    prompt_ids, as in the JAX function, so a repetition penalty counts the
+    same tokens. Returns (tokens, lengths) of the new tokens."""
+    embeds = cfg.decoder_module.embed_tokens(params["svg_transformer"], input_ids)
+    return generate(params["svg_transformer"], cfg.llm, policy.cast(embeds), attention_mask,
+                    gen, generator, prompt_ids=input_ids, policy=policy, kernels=kernels,
+                    kv_cache_dtype=kv_cache_dtype)

@@ -15,17 +15,23 @@ and kernel 2's int8 instantiation folds the scales into its scores and
 probabilities in decode.
 
 The merged decode attention lives with kernel 2 in
-ops/flash_attention.py. Ragged (per-row length) caches and the chunk-verify
-attention are not ported yet.
+ops/flash_attention.py; the chunk step's attention (1 < S <= 64 new tokens,
+`merged_verify_attention`) is here, in plain PyTorch, as the JAX package
+computes it in XLA. Ragged (per-row length) caches are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from starvector_tpu_torch.ops.layers import layer_slice
+from starvector_tpu_torch.ops.attention import NEG_INF
+from starvector_tpu_torch.ops.layers import einsum_f32, layer_slice
 
 PAYLOAD_KEYS = ("k", "v", "k_scale", "v_scale")
+# a cached call of 2 up to this many new tokens takes the decoders' chunk
+# step (the JAX decoders' `fast_path and S <= 64`; StarCoder2 also needs
+# S <= window)
+CHUNK_STEP_MAX = 64
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -87,11 +93,63 @@ def write_prefill_kv(layer_cache: dict, k: torch.Tensor, v: torch.Tensor, cache_
     return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
 
 
+def merged_verify_attention(
+    qg: torch.Tensor,        # (B, Hkv, G, W, D) the chunk's queries, grouped
+    k_new: torch.Tensor,     # (B, W, Hkv, D) the chunk's keys
+    v_new: torch.Tensor,     # (B, W, Hkv, D)
+    k_cached: torch.Tensor,  # (B, T, Hkv, D) the cache before the chunk
+    v_cached: torch.Tensor,  # (B, T, Hkv, D)
+    old_mask: torch.Tensor,  # (B, T), or per query (B, W, T): visible cached slots
+    scale: float,
+    k_scale: torch.Tensor | None = None,  # (B, T, Hkv) int8-cache scales
+    v_scale: torch.Tensor | None = None,  # (B, T, Hkv)
+    new_mask: torch.Tensor | None = None,  # (B, W) 1 = the chunk token is real
+) -> torch.Tensor:
+    """The JAX decoders' chunk attention (decode_common.merged_verify_attention):
+    each of the W chunk queries attends to the visible cached slots and,
+    causally, to the chunk's own keys (query w sees chunk keys u <= w that
+    `new_mask` keeps) in one softmax, without the chunk in the cache. fp32
+    scores (times k_scale for an int8 cache); the cached P (times v_scale)
+    rounded to the compute dtype before P.V, the chunk's own P and V in
+    fp32; the division last. T may be 0 (a chunk at index 0). Returns
+    (B, W, H*D) in qg's dtype."""
+    B, Hkv, G, W, D = qg.shape
+    dt = qg.dtype
+    s_n = einsum_f32("bkgwd,bukd->bkgwu", qg, k_new.to(dt)) * scale  # (B, Hkv, G, W, W)
+    allowed = torch.ones((W, W), dtype=torch.bool, device=qg.device).tril()[None, None, None]
+    if new_mask is not None:
+        allowed = allowed & (new_mask > 0)[:, None, None, None, :]
+    s_n = torch.where(allowed, s_n, torch.full_like(s_n, NEG_INF))
+    m = s_n.amax(dim=-1)
+    cached = k_cached.shape[1] > 0
+    if cached:
+        s_c = einsum_f32("bkgwd,btkd->bkgwt", qg, k_cached.to(dt)) * scale  # (B, Hkv, G, W, T)
+        if k_scale is not None:
+            s_c = s_c * k_scale.permute(0, 2, 1)[:, :, None, None, :]
+        om = (old_mask[:, None, None, None, :] if old_mask.ndim == 2
+              else old_mask[:, None, None, :, :])
+        s_c = torch.where(om > 0, s_c, torch.full_like(s_c, NEG_INF))
+        m = torch.maximum(s_c.amax(dim=-1), m)
+    p_n = torch.exp(s_n - m[..., None])
+    out = einsum_f32("bkgwu,bukd->bkgwd", p_n, v_new)
+    denom = p_n.sum(dim=-1)
+    if cached:
+        p_c = torch.exp(s_c - m[..., None])
+        denom = p_c.sum(dim=-1) + denom
+        if v_scale is not None:
+            p_c = p_c * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+        out = einsum_f32("bkgwt,btkd->bkgwd", p_c.to(dt), v_cached.to(dt)) + out
+    out = (out / denom[..., None]).to(dt)
+    # (B, Hkv, G, W, D) -> (B, W, H*D), head-major as the decode path
+    return out.movedim(3, 1).reshape(B, W, Hkv * G * D)
+
+
 def decode_scan(layers: dict, cache: dict, x: torch.Tensor, layer_fn):
     """Run `layer_fn(layer_params, h, k_cached, v_cached[, k_scale, v_scale])
     -> (h, k_new, v_new)` over the stacked layers. Layers emit only their new
-    token's k/v; the caller writes the (L, B, Hkv, D) stacks back once
-    (write_new_kv_linear). An int8 cache also hands each layer its scale
+    tokens' k/v, (B, Hkv, D) for a decode step or (B, W, Hkv, D) for a
+    chunk; the caller writes the stacks back once (write_new_kv_linear,
+    write_new_kv_linear_multi). An int8 cache also hands each layer its scale
     slices, and the emitted tokens are quantized after the layers (per
     token and head, so one call over the stack equals one per layer).
     Returns (h, news): {"k", "v"} or, int8, {"k", "v", "k_scale", "v_scale"}."""
@@ -115,3 +173,10 @@ def write_new_kv_linear(cache: dict, news: dict, idx: int) -> None:
     place (codes and scales alike for an int8 cache)."""
     for key, new in news.items():
         cache[key][:, :, idx] = new.to(cache[key].dtype)
+
+
+def write_new_kv_linear_multi(cache: dict, news: dict, idx: int) -> None:
+    """Write each key's (L, B, W, Hkv[, D]) chunk stack at slots
+    [idx, idx + W), in place."""
+    for key, new in news.items():
+        cache[key][:, :, idx:idx + new.shape[2]] = new.to(cache[key].dtype)

@@ -7,16 +7,22 @@ c_attn -> [Q (E) | K (Hkv*D) | V (Hkv*D)]; pre-LN blocks
 ln_1 -> attn -> +res, ln_2 -> mlp(gelu_tanh) -> +res; ln_f; lm head tied to
 `wte`. Layers are stacked on a leading axis.
 
-A cached call with S == 1 new tokens is a decode step: each layer's new
-k/v stay out of the cache, kernel 2 merges the self-score into the softmax,
-and the new k/v are written once after all layers. Every cached call with
-S > 1 goes through kernel 1 (flash prefill) over the whole cache window; the
-JAX package sends 1 < S <= 64 to an XLA chunk step instead, which computes
-the same attention (for a bf16/fp32 cache; with an int8 cache the chunk
-step keeps the chunk's own keys unquantized, so the port matches the JAX
-package's S > 64 path). An int8 cache (init_cache(dtype=torch.int8)) is
-written as codes and scales; prefill attends over the dequantized window,
-decode through kernel 2's int8 instantiation.
+A cached call dispatches on its S new tokens as the JAX decoder does:
+  * S == 1, a decode step: each layer's new k/v stay out of the cache,
+    kernel 2 merges the self-score into the softmax, and the new k/v are
+    written once after all layers;
+  * 1 < S <= 64, the chunk step (a text2svg prompt): the same write-once
+    scan, each layer's attention decode_common.merged_verify_attention in
+    plain PyTorch (the JAX package's XLA): the cached slots with P rounded
+    to the compute dtype, the chunk's own keys unquantized with P and V in
+    fp32;
+  * S > 64, a prefill (im2svg's visual prefix): each layer writes its k/v
+    and runs kernel 1 (flash prefill) over the cache window.
+An int8 cache (init_cache(dtype=torch.int8)) is written as codes and
+scales: a prefill attends over the dequantized window, a decode step goes
+through kernel 2's int8 instantiation, and the chunk step folds the scales
+into its scores and probabilities; decode and chunk quantize their own
+k/v only when they write them after the layers.
 
 Every dense layer of the cached path also takes `kernels`: a quantized
 parameter tree (ops/quantization.py::quantize_tree) runs its projections
@@ -187,6 +193,30 @@ def _decode_layer_fn(cfg: GPTBigCodeConfig, old_mask, idx: int, policy, kernels:
     return fn
 
 
+def _verify_layer_fn(cfg: GPTBigCodeConfig, old_mask, idx: int, new_mask, policy,
+                     kernels: bool):
+    """Per-layer chunk step for decode_common.decode_scan: as
+    _decode_layer_fn, with the W chunk queries attending to the cache's
+    first idx slots and to the chunk's own keys (decode_common.
+    merged_verify_attention); `new_mask` (B, W) hides the chunk's pads."""
+    H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
+    scale = D**-0.5
+
+    def fn(layer_p, h, lk, lv, lks=None, lvs=None):
+        hh = layer_norm(layer_p["ln_1"], h, cfg.layer_norm_epsilon)
+        q, k_new, v_new = _split_qkv(cfg, dense(layer_p["attn"]["c_attn"], hh, policy,
+                                                kernels=kernels))
+        k_new, v_new = k_new.unflatten(-1, (Hkv, D)), v_new.unflatten(-1, (Hkv, D))
+        out = dc.merged_verify_attention(
+            q.unflatten(-1, (Hkv, H // Hkv, D)).movedim(1, 3), k_new, v_new, lk[:, :idx],
+            lv[:, :idx], old_mask, scale, None if lks is None else lks[:, :idx],
+            None if lvs is None else lvs[:, :idx], new_mask=new_mask)
+        h = h + dense(layer_p["attn"]["c_proj"], out, policy, kernels=kernels)
+        return _mlp(layer_p, cfg, h, policy, kernels), k_new, v_new
+
+    return fn
+
+
 def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, remat,
                  kernels: bool):
     """One layer of the training forward (the JAX _block without a cache).
@@ -259,9 +289,9 @@ def forward(
     returns (logits (B, S, V) fp32, or the final hidden states if
     `return_hidden`, None).
 
-    With `cache`: writes the S new tokens at cache["index"] (in place) and
-    attends over the whole preallocated window. Returns (logits (B, S|1, V)
-    fp32, the same cache dict with its index advanced).
+    With `cache`: writes the S new tokens at cache["index"] (in place), by
+    decode step, chunk step or prefill (see the module docstring). Returns
+    (logits (B, S|1, V) fp32, the same cache dict with its index advanced).
 
     `kernels=False` runs the kernels' plain versions on the card (attention,
     and the int8 matmul of a quantized tree)."""
@@ -294,6 +324,12 @@ def forward(
         x, news = dc.decode_scan(
             layers, cache, x, _decode_layer_fn(cfg, kv_mask[:, :idx], idx, policy, kernels))
         dc.write_new_kv_linear(cache, news, idx)
+    elif S <= dc.CHUNK_STEP_MAX:
+        # the chunk step: the chunk's k/v, too, are written once after the
+        # layers, and its pads (left-padded prompts) are hidden from its queries
+        x, news = dc.decode_scan(layers, cache, x, _verify_layer_fn(
+            cfg, kv_mask[:, :idx], idx, attention_mask, policy, kernels))
+        dc.write_new_kv_linear_multi(cache, news, idx)
     else:
         for i in range(cfg.n_layer):
             x = _prefill_block(layer_slice(layers, i), cfg, x, dc.layer_cache(cache, i), kv_mask,

@@ -16,15 +16,21 @@ key mask), clipped to max_position_embeddings - 1.
   * S > 64 new tokens, or more than the window (the im2svg prefill: 576
     visual tokens and the prompt): each layer's attention is kernel 1
     (flash_prefill) over the cache window from query offset index, with the
-    sliding window.
-  * S == 1 (a decode step): kernel 2 (decode_attention) merges the new
-    token's self-score into the softmax over the cache slots
+    sliding window (an int8 cache: codes and scales written first, the
+    window dequantized).
+  * S == 1 (a decode step): kernel 2 (decode_attention, or its int8
+    instantiation with the cache's scales) merges the new token's
+    self-score into the softmax over the cache slots
     [max(index - window + 1, 0), index), the set the JAX decoder's
     `old_mask` keeps; the kernel reads no slot outside it. The new k/v are
     written once after all layers.
-The uncached (training) forward and the 1 < S <= 64 chunk step are not
-ported yet (ROADMAP queue 1, items 6 and 5), nor the ragged, verify and
-serving functions (items 7 and 9).
+  * 1 < S <= 64 and S <= window (a text2svg prompt): the JAX chunk step,
+    decode_common.merged_verify_attention in plain PyTorch, with the JAX
+    decoder's per-query window over the cached slots (query w, at slot
+    index + w, sees slot t > index + w - window); the chunk's k/v are
+    written once after all layers.
+The uncached (training) forward is not ported yet (ROADMAP queue 1, item
+6), nor the ragged, verify and serving functions (items 7 and 9).
 """
 
 from __future__ import annotations
@@ -40,10 +46,6 @@ from starvector_tpu_torch.ops.layers import (
     make_layer_norm_params, matmul_f32, normal_,
 )
 from starvector_tpu_torch.ops.rotary import rope_frequencies, rope_tables, rotate
-
-# the JAX decoder takes its chunk step for up to this many new tokens (and
-# no more than the window)
-CHUNK_STEP_MAX = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +201,29 @@ def _decode_layer_fn(cfg: StarCoder2Config, old_mask, idx: int, rope, policy, ke
     return fn
 
 
+def _verify_layer_fn(cfg: StarCoder2Config, old_mask, t_lo: int, idx: int, new_mask, rope,
+                     policy, kernels: bool):
+    """Per-layer chunk step for decode_common.decode_scan: as
+    _decode_layer_fn, with the W chunk queries attending to the cache slots
+    [t_lo, idx) that `old_mask` (B, W, idx - t_lo) shows each of them, and
+    to the chunk's own keys (decode_common.merged_verify_attention);
+    `new_mask` (B, W) hides the chunk's pads."""
+    H, D, Hkv = cfg.num_attention_heads, cfg.head_dim, cfg.kv_heads
+    scale = D**-0.5
+
+    def fn(layer_p, h, lk, lv, lks=None, lvs=None):
+        hh = layer_norm(layer_p["input_layernorm"], h, cfg.norm_epsilon)
+        q, k_new, v_new = _qkv(layer_p["attn"], cfg, hh, rope, policy, kernels)
+        out = dc.merged_verify_attention(
+            q.unflatten(2, (Hkv, H // Hkv)).movedim(1, 3), k_new, v_new, lk[:, t_lo:idx],
+            lv[:, t_lo:idx], old_mask, scale, None if lks is None else lks[:, t_lo:idx],
+            None if lvs is None else lvs[:, t_lo:idx], new_mask=new_mask)
+        h = h + dense(layer_p["attn"]["o_proj"], out, policy, kernels=kernels)
+        return _mlp(layer_p, cfg, h, policy, kernels), k_new, v_new
+
+    return fn
+
+
 def forward(
     params: dict,
     cfg: StarCoder2Config,
@@ -221,10 +246,6 @@ def forward(
             "StarCoder2 training (the uncached forward) is not ported yet (ROADMAP queue 1, "
             "item 6)")
     B, S, _ = inputs_embeds.shape
-    if 1 < S <= CHUNK_STEP_MAX and (cfg.sliding_window is None or S <= cfg.sliding_window):
-        raise NotImplementedError(
-            f"a cached StarCoder2 call with {S} new tokens takes the JAX chunk step, which is "
-            "not ported yet (ROADMAP queue 1, item 5)")
     x = policy.cast(inputs_embeds)
     idx = cache["index"]
     T = cache["k"].shape[2]
@@ -254,6 +275,18 @@ def forward(
         x, news = dc.decode_scan(layers, cache, x, _decode_layer_fn(
             cfg, kv_mask[:, :idx], idx, rope, policy, kernels))
         dc.write_new_kv_linear(cache, news, idx)
+    elif S <= dc.CHUNK_STEP_MAX and (cfg.sliding_window is None or S <= cfg.sliding_window):
+        # the chunk step: no query sees a slot before the first query's
+        # window, so the layers read the slots from there
+        t_lo = window_begin(cfg, idx)
+        old_mask = kv_mask[:, None, t_lo:idx].expand(B, S, idx - t_lo)
+        if cfg.sliding_window is not None:
+            slot = torch.arange(t_lo, idx, device=x.device)
+            query = torch.arange(idx, idx + S, device=x.device)
+            old_mask = old_mask * (slot[None, :] > query[:, None] - cfg.sliding_window)
+        x, news = dc.decode_scan(layers, cache, x, _verify_layer_fn(
+            cfg, old_mask, t_lo, idx, attention_mask, rope, policy, kernels))
+        dc.write_new_kv_linear_multi(cache, news, idx)
     else:
         for i in range(cfg.num_hidden_layers):
             x = _prefill_block(layer_slice(layers, i), cfg, x, dc.layer_cache(cache, i), kv_mask,

@@ -4,7 +4,8 @@ decoder (port of starvector_tpu/models/starvector.py).
 v1, StarVector-1B: GPTBigCode decoder, CLIP tower (257 visual tokens),
 inference and training. v2, StarVector-8B: StarCoder2 decoder, SigLIP-384
 tower (576 visual tokens), LayerNorm adapter, inference only (its training
-is ROADMAP queue 1, item 6). The text2svg loss is queue 1, item 4.
+is ROADMAP queue 1, item 6). text2svg (a caption in, no vision tower) has
+its inputs here (`text2svg_inputs`); its loss is queue 1, item 4.
 Generation lives in starvector_tpu_torch/generation/engine.py.
 """
 
@@ -184,6 +185,18 @@ def im2svg_inputs(params: dict, cfg: StarVectorConfig, images, svg_ids, svg_mask
     cond = encode_image(params, cfg, images, policy=policy, train=train,
                         dropout_gen=dropout_gen, remat=remat)
     return _im2svg_sequence(params, cfg, cond, svg_ids, svg_mask, policy)
+
+
+def text2svg_inputs(params: dict, cfg: StarVectorConfig, input_ids: torch.Tensor,
+                    input_mask: torch.Tensor, pad_token_id: int, *,
+                    policy: DTypePolicy = DTypePolicy()):
+    """(inputs_embeds, attention_mask, targets) of caption + <svg-start> +
+    svg + eos ids (B, S): the token embeddings in the compute dtype, the
+    mask as int32, and targets -100 wherever input_mask == 0 (by position,
+    not by pad id, as in _im2svg_sequence)."""
+    tok = cfg.decoder_module.embed_tokens(params["svg_transformer"], input_ids)
+    targets = torch.where(input_mask == 0, -100, input_ids.long())
+    return policy.cast(tok), input_mask.to(torch.int32), targets
 
 
 def _decoder_loss(params, cfg, inputs_embeds, attention_mask, targets, policy, remat, kernels):

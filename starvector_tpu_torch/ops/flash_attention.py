@@ -21,7 +21,7 @@ Kernel 2, `decode_attention` (csrc/decode_attention.cu)
     runs for every generated token. One new query token per row against
     the cache, with the new token's key and value optionally merged into
     the same softmax. Built for head size 128 and 16 (StarVector-1B) or 9
-    (StarVector-8B) query heads per KV head; an int8 cache at 16 only.
+    (StarVector-8B) query heads per KV head, over either cache type.
     Bound on the H100 by latency: the keys are split across blocks
     (`decode_splits`), each block's partial softmax goes to a workspace,
     and the last block of each (row, KV head) merges them in
@@ -536,10 +536,9 @@ def _check_scales(k_cache, v_cache, k_scale, v_scale, B: int, T: int, Hkv: int, 
 DECODE_KEY_TILE = 128
 DECODE_MAX_CHUNK = 256
 DECODE_BLOCKS_PER_SM = 1
-# the query heads per KV head kernel 2 is built for: StarVector-1B's 16 and
-# StarVector-8B's 9 (36 over 4); over an int8 cache only 16
+# the query heads per KV head kernel 2 is built for, over a cache of q's
+# type or of int8 codes: StarVector-1B's 16 and StarVector-8B's 9 (36 over 4)
 DECODE_GROUPS = (9, 16)
-DECODE_INT8_GROUPS = (16,)
 
 
 def decode_partial_floats(G: int, D: int) -> int:
@@ -626,10 +625,6 @@ def decode_attention(
     if G not in DECODE_GROUPS or D != 128:
         raise ValueError(f"decode_attention: G={G}, D={D} (the kernel takes G = 9 or G = 16, "
                          "D = 128)")
-    if quant and G not in DECODE_INT8_GROUPS:
-        raise NotImplementedError(
-            f"decode_attention over an int8 cache at G={G} is not instantiated yet (ROADMAP "
-            "queue 2, still to instantiate: the 8B's int8 cache)")
     tensors = {"q": qg} if quant else {"q": qg, "k_cache": k_cache, "v_cache": v_cache}
     if k_new is not None:
         if k_new.shape != (B, Hkv, D) or v_new.shape != (B, Hkv, D):

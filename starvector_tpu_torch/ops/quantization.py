@@ -52,7 +52,11 @@ TILE_Q, TILE_K = 128, 64  # the wgmma tile's columns of q a block and k rows a s
 TILE_XS = (136, 256)      # its rows of x a block (the product's N)
 _TILE_MAX_SPLITS = 8
 _TILE_BLOCK_STEPS = 4     # a block's fill and epilogue, in k steps of 128 rows of x
-_TILE_FINISH_BYTES = 2 << 20  # fp32 partial-sum bytes the finish pass moves a k step
+# a 256-row block's time a row of x against a 136-row block's: its m64n256
+# products issue fewer instructions a row (fitted on the H100 to the 16
+# prefill cases of the 1B and 8B projections, PERF.md section 6)
+_TILE_256_ROW_COST = 0.83
+_TILE_FINISH_BYTES = 2 << 20  # fp32 partial-sum bytes moved in the time of a k step
 _INV_127 = 1.0 / 127.0  # applied in fp32, as XLA's rewrite of "/ 127" is
 
 
@@ -146,11 +150,13 @@ def tile_plan(M: int, K: int, N: int) -> tuple[int, int, int]:
     kc rows (a multiple of 2 TILE_K: the kernel runs its steps in pairs,
     none empty). The fixed rule: the least modelled time, counted in k
     steps of 128 rows of x along the busiest SM as if one block held an SM:
-    waves of blocks times (steps a block + its fill and epilogue), plus,
-    for more than one split, the partial sums that the finish pass reads
-    and writes. Ties go to fewer splits, then the shorter tile. On the
+    waves of blocks times (steps a block + its fill and epilogue), a
+    256-row block's rows at _TILE_256_ROW_COST, plus, for more than one
+    split, the fp32 partial sums the blocks write and the finish pass reads,
+    and its output. Ties go to fewer splits, then the shorter tile. On the
     H100 it picks the fastest of the plans it weighs at the four 1B
-    projections at M = 260 and 1040 (chip_smoke.py's tile_plan_times)."""
+    projections at M = 260 and 1040 and the 8B's four shapes at M = 580
+    and 2320 (chip_smoke.py's tile_plan_times)."""
     best = None
     for splits_wanted in range(1, _TILE_MAX_SPLITS + 1):
         kc = 2 * TILE_K * -(-K // (splits_wanted * 2 * TILE_K))
@@ -160,9 +166,10 @@ def tile_plan(M: int, K: int, N: int) -> tuple[int, int, int]:
         for tile_x in TILE_XS:
             blocks = -(-N // TILE_Q) * -(-M // tile_x) * splits
             waves = -(-blocks // _SMS)
-            cost = waves * tile_x / 128 * (kc // TILE_K + _TILE_BLOCK_STEPS)
+            rows = tile_x / 128 * (_TILE_256_ROW_COST if tile_x == 256 else 1.0)
+            cost = waves * rows * (kc // TILE_K + _TILE_BLOCK_STEPS)
             if splits > 1:
-                cost += (splits + 1) * M * N * 4 / _TILE_FINISH_BYTES
+                cost += (2 * splits + 1) * M * N * 4 / _TILE_FINISH_BYTES
             key = (cost, splits, tile_x)
             if best is None or key < best[0]:
                 best = (key, (tile_x, splits, kc))

@@ -196,7 +196,9 @@ def test_8b_hf_round_trip_gives_the_same_model(tied):
 def test_from_pretrained_loads_an_exported_8b_checkpoint(tmp_path):
     """An 8B checkpoint written by the JAX package's hub export loads with
     the v2 tokenizer (<svg-end>, left padding), as the JAX API chooses it,
-    and generates; int8 weights for the 8B raise, naming the ROADMAP item."""
+    and generates; with quantize=True (refused before the 8B's int8 path
+    was ported) it loads the decoder through quantize_tree, as the JAX
+    from_pretrained does, and generates too."""
     from starvector_tpu.models.tokenizer import build_test_tokenizer
     from starvector_tpu.train.hub import export_hf_checkpoint
     from starvector_tpu_torch.api import StarVectorForCausalLM
@@ -211,5 +213,74 @@ def test_from_pretrained_loads_an_exported_8b_checkpoint(tmp_path):
     text = model.generate_im2svg({"image": model.process_images([img])}, max_length=6,
                                  use_nucleus_sampling=False)
     assert len(text) == 1 and text[0].startswith("<svg")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        StarVectorForCausalLM.from_pretrained(str(tmp_path), device="cpu", quantize=True)
+    from starvector_tpu_torch.ops.quantization import quantize_tree
+
+    q = StarVectorForCausalLM.from_pretrained(str(tmp_path), dtype=torch.float32, device="cpu",
+                                              quantize=True)
+    ref = dict(_leaves(quantize_tree(model.params["svg_transformer"], consume=False)))
+    out = dict(_leaves(q.params["svg_transformer"]))
+    assert out.keys() == ref.keys()
+    for k, v in out.items():
+        torch.testing.assert_close(v, ref[k], rtol=0, atol=0, msg=k)
+    text = q.generate_im2svg({"image": q.process_images([img])}, max_length=6,
+                             use_nucleus_sampling=False)
+    assert len(text) == 1 and text[0].startswith("<svg")
+
+
+def test_8b_weights_quantize_as_the_jax_package():
+    """A tiny 8B-shaped decoder carried across in the HF layout
+    (export.starcoder2_to_hf -> from_hf_state_dict), its projections scaled
+    by 10, quantized by the port and by the JAX package (min_elems=1<<12
+    takes all six a layer): codes and scales equal bit for bit."""
+    from starvector_tpu.ops.quantization import quantize_tree as jquantize_tree
+    from starvector_tpu_torch.ops.quantization import quantize_tree
+
+    cfg, tree = _jax_8b_model(tied=True)
+    st = tree["svg_transformer"]
+    for grp in st["layers"]["attn"], st["layers"]["mlp"]:
+        for p in grp.values():
+            p["kernel"] = p["kernel"] * 10.0
+    ref = jax.tree_util.tree_map(np.asarray, jquantize_tree(st, min_elems=1 << 12,
+                                                            consume=False))
+    params = convert.from_hf_state_dict(_export_8b(cfg, tree))
+    ours = quantize_tree(params["svg_transformer"], min_elems=1 << 12)
+    names = [(grp, name) for grp in ("attn", "mlp") for name in st["layers"][grp]]
+    assert len(names) == 6
+    for grp, name in names:
+        for key in ("kernel_q", "scale", "bias"):
+            np.testing.assert_array_equal(ours["layers"][grp][name][key].numpy(),
+                                          ref["layers"][grp][name][key], err_msg=f"{name} {key}")
+
+
+def test_quantize_tree_takes_the_8b_six_projections():
+    """At StarVector-8B's shapes (meta tensors: no memory), quantize_tree at
+    its default threshold takes all six stacked projections of a layer,
+    each with (32, N) scales and its bias, and leaves the embeddings and
+    the norms alone, as the JAX package's quantize_tree does."""
+    from starvector_tpu_torch.models import starcoder2 as tsc
+    from starvector_tpu_torch.ops.quantization import quantize_tree
+
+    cfg = tsc.starcoder2_7b_config()
+    L, E, F = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    kvd = cfg.kv_heads * cfg.head_dim
+    shapes = {("attn", "q_proj"): (E, E), ("attn", "k_proj"): (E, kvd),
+              ("attn", "v_proj"): (E, kvd), ("attn", "o_proj"): (E, E),
+              ("mlp", "c_fc"): (E, F), ("mlp", "c_proj"): (F, E)}
+    meta = dict(device="meta")
+    layers = {"input_layernorm": {"scale": torch.empty((L, E), **meta),
+                                  "bias": torch.empty((L, E), **meta)},
+              "attn": {}, "mlp": {}}
+    for (grp, name), (K, N) in shapes.items():
+        layers[grp][name] = {"kernel": torch.empty((L, K, N), **meta),
+                             "bias": torch.empty((L, N), **meta)}
+    tree = {"embed_tokens": torch.empty((cfg.vocab_size, E), **meta), "layers": layers,
+            "norm": {"scale": torch.empty((E,), **meta), "bias": torch.empty((E,), **meta)}}
+    out = quantize_tree(tree)
+    assert kvd == 512  # the K/V projections are 4608 x 512
+    for (grp, name), (K, N) in shapes.items():
+        leaf = out["layers"][grp][name]
+        assert set(leaf) == {"kernel_q", "scale", "bias"}, name
+        assert leaf["kernel_q"].dtype == torch.int8 and leaf["kernel_q"].shape == (L, K, N)
+        assert leaf["scale"].shape == (L, N), name
+    assert out["embed_tokens"] is tree["embed_tokens"] and "kernel_q" not in out["norm"]
+    assert set(out["layers"]["input_layernorm"]) == {"scale", "bias"}

@@ -101,7 +101,7 @@ def test_api_generate_im2svg_matches_jax_api(model):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.generate_im2svg(batch, **kw, **unported)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.generate_text2svg({"caption": ["a red circle"]})
+        port.generate_text2svg({"caption": ["a red circle"]}, use_speculative=True)
 
 
 def test_from_config_draws_weights_from_the_seed():

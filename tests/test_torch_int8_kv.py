@@ -10,10 +10,15 @@ against starvector_tpu, on the same numpy inputs and weights.
   the first layer's are equal on >= 99.9% with scales within 1e-5, and
   since a flipped code moves the next layer's inputs by a scale step, the
   whole cache's on >= 99% with scales within one scale step (1/127);
-- greedy generate with int8 weights and an int8 cache: the same token ids.
+- greedy generate with int8 weights and an int8 cache: the same token ids;
+- StarVector-8B's int8 path at tiny width: the scaled merged decode
+  attention at G = 9 with the window as t_begin (1e-5), and a tiny
+  8B-shaped model (SigLIP tower, StarCoder2 with G = 9 and a window of 32)
+  with int8 weights and an int8 cache: greedy generate_im2svg gives JAX's
+  ids.
 
-The test marked `gpu` holds the int8 decode kernel against its plain
-version and skips without a card (on the card:
+The tests marked `gpu` hold the int8 decode kernel (G = 16 and G = 9)
+against its plain version and skip without a card (on the card:
 python -m pytest --noconftest -m gpu tests/test_torch_int8_kv.py).
 """
 
@@ -85,6 +90,35 @@ def test_scaled_merged_decode_attention_matches_jax(jdc, Hkv):
                              torch.from_numpy(mask), k_scale=ks, v_scale=vs)
     with pytest.raises(ValueError, match="needs k_scale"):
         tfa.decode_attention(torch.from_numpy(qg), kq, vq, torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("idx,window", [(90, 32), (60, 200)])
+def test_scaled_g9_decode_attention_with_window_matches_jax(jdc, idx, window):
+    """Kernel 2's int8 instantiation at the 8B's G = 9 (plain version): the
+    window as t_begin = max(idx - window + 1, 0) over the idx cached slots,
+    where JAX folds it into old_mask (starcoder2._decode_step)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(idx + window)
+    B, Hkv, G, D, T = 2, 2, 9, 32, 100
+    qg = _rand(rng, (B, Hkv, G, D))
+    kn, vn = _rand(rng, (B, Hkv, D)), _rand(rng, (B, Hkv, D))
+    (kq, ks), (vq, vs) = (tdc.quantize_kv(torch.from_numpy(_rand(rng, (B, T, Hkv, D), 3.0)))
+                          for _ in range(2))
+    mask = np.ones((B, T), np.int32)
+    mask[0, :5] = 0
+    mask[1, idx - 3] = 0
+    slot = np.arange(T)[None, :]
+    old = ((mask > 0) & (slot < idx) & (slot > idx - window)).astype(np.int32)
+    ref = jdc.merged_decode_attention(
+        jnp.asarray(qg), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kq.numpy()),
+        jnp.asarray(vq.numpy()), jnp.asarray(old), D**-0.5, k_scale=jnp.asarray(ks.numpy()),
+        v_scale=jnp.asarray(vs.numpy()))
+    out = tfa.merged_decode_attention(
+        torch.from_numpy(qg), torch.from_numpy(kn), torch.from_numpy(vn), kq[:, :idx],
+        vq[:, :idx], torch.from_numpy(mask)[:, :idx], D**-0.5, ks[:, :idx], vs[:, :idx],
+        t_begin=max(idx - window + 1, 0))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
 @pytest.fixture(scope="module")
@@ -193,6 +227,63 @@ def test_int8_greedy_generate_matches_jax(model):
     np.testing.assert_array_equal(lengths.numpy(), np.asarray(ref_len))
     assert all(len(set(row.tolist())) >= 3 for row in np.asarray(ref))
     assert tfa.decode_attention.launches == launches  # on the CPU, the plain version
+
+
+def test_int8_8b_greedy_generate_im2svg_matches_jax():
+    """A tiny 8B-shaped model (tests/test_torch_im2svg_8b.py's: a 68-token
+    prefix past the window of 32) with its decoder quantized by the JAX
+    package (projections scaled by 10, min_elems=1<<12: all six a layer)
+    and an int8 KV cache: the port's generate_im2svg gives the JAX
+    generate's greedy ids, fp32 policy."""
+    import jax
+    import jax.numpy as jnp
+
+    from starvector_tpu.generation import engine as jengine
+    from starvector_tpu.models import starcoder2 as jsc
+    from starvector_tpu.models import starvector as jsv
+    from starvector_tpu.models.vision import siglip as jsig
+    from starvector_tpu.ops.layers import DTypePolicy as JPolicy
+    from starvector_tpu.ops.quantization import quantize_tree as jquantize_tree
+    from starvector_tpu_torch.models import starcoder2 as tsc
+    from starvector_tpu_torch.models import starvector as tsv
+    from starvector_tpu_torch.models.vision import siglip as tsig
+
+    geometry = dict(num_attention_heads=18, num_key_value_heads=2, hidden_size=288,
+                    sliding_window=32)
+    vision = dict(decoder="starcoder2", image_encoder_type="siglip_384", image_size=64,
+                  adapter_norm="layer_norm")
+    jcfg = jsv.tiny_config(**vision, vision_tower=jsig.tiny_config(image_size=64),
+                           llm=jsc.tiny_config(attn_impl="mixed", **geometry))
+    tcfg = tsv.tiny_config(**vision, vision_tower=tsig.tiny_config(image_size=64),
+                           llm=tsc.tiny_config(**geometry))
+    tree = jax.tree_util.tree_map(np.asarray, jsv.init_params(jcfg, jax.random.PRNGKey(0)))
+    st = tree["svg_transformer"]
+    for grp in st["layers"]["attn"], st["layers"]["mlp"]:
+        for p in grp.values():
+            p["kernel"] = p["kernel"] * 10.0
+    tree["svg_transformer"] = jax.tree_util.tree_map(
+        np.asarray, jquantize_tree(st, min_elems=1 << 12, consume=False))
+    for grp in tree["svg_transformer"]["layers"]["attn"], tree["svg_transformer"]["layers"]["mlp"]:
+        assert all("kernel_q" in p for p in grp.values())
+    images = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    prompt = np.array([[60, 116, 119, 104]] * 2, np.int32)
+    jf32 = JPolicy(compute_dtype=jnp.float32)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    cond = jsv.encode_image(jp, jcfg, jnp.asarray(images), policy=jf32)
+    emb = jnp.concatenate([cond, jf32.cast(jsc.embed_tokens(jp["svg_transformer"], prompt))], 1)
+    assert emb.shape[1] > 64  # the prefill, past the window
+    gen = dict(max_new_tokens=NEW, do_sample=False)
+    ref, ref_len = jengine.generate(
+        jp["svg_transformer"], jcfg.llm, "starcoder2", emb, jnp.ones(emb.shape[:2], jnp.int32),
+        jengine.GenerationConfig(**gen), jax.random.PRNGKey(1), prompt_ids=jnp.asarray(prompt),
+        policy=jf32, kv_cache_dtype=jnp.int8)
+    tokens, lengths = tengine.generate_im2svg(
+        convert.from_jax_params(tree), tcfg, torch.from_numpy(images),
+        torch.from_numpy(prompt).long(), tengine.GenerationConfig(**gen), policy=TF32,
+        kv_cache_dtype=torch.int8)
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(ref_len))
+    assert all(len(set(row.tolist())) >= 3 for row in np.asarray(ref))
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,9 @@ def test_port_sources_import_nothing_of_jax():
 def test_training_and_from_pretrained_leave_jax_out(tmp_path):
     """The verify skill's CPU training command (a config whose dataset
     targets name starvector_tpu.data.*), 2 steps, then from_pretrained
-    (quantize=True) on a tiny HF-layout checkpoint and a short generation,
-    in one fresh process: neither jax nor starvector_tpu gets imported."""
+    (quantize=True) on a tiny HF-layout checkpoint and a short im2svg and
+    text2svg generation, in one fresh process: neither jax nor
+    starvector_tpu gets imported."""
     import jax
 
     from starvector_tpu.models import starvector as jsv
@@ -72,6 +73,9 @@ def test_training_and_from_pretrained_leave_jax_out(tmp_path):
         text = model.generate_im2svg({{"image": model.process_images([img])}}, max_length=4,
                                      use_nucleus_sampling=False)
         assert text[0].startswith("<svg"), text
+        text = model.generate_text2svg({{"caption": ["a red circle", "a star"]}},
+                                       max_new_tokens=4, use_nucleus_sampling=False)
+        assert len(text) == 2, text
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
         assert not leaked, leaked
         print("clean")

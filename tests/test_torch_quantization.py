@@ -9,8 +9,8 @@ in another order). The quantized dense layer is held against the JAX
 default path (`use_pallas=False`), which rounds q * scale to the compute
 dtype before the product: fp32 at 1e-5, bf16 within 2e-2 of max |y|.
 
-Tests marked `gpu` hold kernel 14 against its plain version at the 1B
-shapes and the wgmma tile's edges, and skip without a card; they import no
+Tests marked `gpu` hold kernel 14 against its plain version at the 1B and
+8B shapes and the wgmma tile's edges, and skip without a card; they import no
 JAX, so on the card they run as
     python -m pytest --noconftest -m gpu tests/test_torch_quantization.py
 
@@ -34,6 +34,10 @@ from starvector_tpu_torch.ops import quantization as tq
 # the 1B decoder's four projections, (K, N)
 SHAPES_1B = {"attn.c_attn": (2048, 2304), "attn.c_proj": (2048, 2048),
              "mlp.c_fc": (2048, 8192), "mlp.c_proj": (8192, 2048)}
+# StarVector-8B's six projections a layer, four (K, N) shapes (StarCoder2-7B:
+# 4608 wide, 4 KV heads of 128, an MLP of 18432)
+SHAPES_8B = {"attn.q_proj, o_proj": (4608, 4608), "attn.k_proj, v_proj": (4608, 512),
+             "mlp.c_fc": (4608, 18432), "mlp.c_proj": (18432, 4608)}
 # the wgmma tile's ragged edges: N not a multiple of its columns, K not a
 # multiple of its 64-row step (a multiple of 8)
 SHAPES_RAGGED = {"K=200 N=48": (200, 48), "K=2056 N=400": (2056, 400)}
@@ -159,7 +163,8 @@ def test_dense_quantized_matches_jax_default(jq, dtype):
         assert np.abs(out.float().numpy() - ref).max() <= 2e-2 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + [(300, 208), (16384, 48), (64, 16)])
+@pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + [(300, 208), (16384, 48), (64, 16)]
+                         + list(SHAPES_8B.values()))
 def test_gemv_split_tiles_k_once(K, N):
     """The GEMV's split of K: slices of kc rows (a multiple of 32, at most
     the 1024 a block stages), every slice non-empty, and the grid within one
@@ -171,8 +176,9 @@ def test_gemv_split_tiles_k_once(K, N):
     assert -(-N // 128) * splits <= 2 * 132 or splits == -(-K // 1024)
 
 
-@pytest.mark.parametrize("M", [17, 64, 65, 260, 1040, 4160])
-@pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + list(SHAPES_RAGGED.values()))
+@pytest.mark.parametrize("M", [17, 64, 65, 260, 580, 1040, 2320, 4160])
+@pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + list(SHAPES_RAGGED.values())
+                         + list(SHAPES_8B.values()))
 def test_tile_plan_tiles_k_once(M, K, N):
     """The wgmma tile's plan: a height the kernel has, K in slices of kc
     rows (a multiple of two of its 64-row steps), every slice non-empty, at
@@ -181,6 +187,29 @@ def test_tile_plan_tiles_k_once(M, K, N):
     assert tile_x in tq.TILE_XS and kc % (2 * tq.TILE_K) == 0 and 0 < kc
     assert splits * kc >= K and (splits - 1) * kc < K and 1 <= splits <= 8
     assert tq.tile_plan(M, K, N) == (tile_x, splits, kc)
+
+
+# tile_plan's picks at the 1B's prefill shapes (B = 1 and 4) and the 8B's
+# (580 and 2320 rows), the plans chip_smoke.py's tile_plan_times found the
+# fastest of those it weighs on the H100 (PERF.md section 6): a change to
+# the rule's constants keeps them
+TILE_PLANS_1B = {
+    (260, 2048, 2304): (136, 3, 768), (260, 2048, 2048): (136, 4, 512),
+    (260, 2048, 8192): (136, 1, 2048), (260, 8192, 2048): (136, 4, 2048),
+    (1040, 2048, 2304): (256, 1, 2048), (1040, 2048, 2048): (136, 1, 2048),
+    (1040, 2048, 8192): (136, 1, 2048), (1040, 8192, 2048): (136, 1, 8192)}
+
+
+TILE_PLANS_8B = {
+    (580, 4608, 4608): (256, 1, 4608), (2320, 4608, 4608): (256, 1, 4608),
+    (580, 4608, 512): (136, 6, 768), (2320, 4608, 512): (256, 3, 1536),
+    (580, 4608, 18432): (136, 1, 4608), (2320, 4608, 18432): (256, 1, 4608),
+    (580, 18432, 4608): (256, 1, 18432), (2320, 18432, 4608): (256, 1, 18432)}
+
+
+@pytest.mark.parametrize("plans", [TILE_PLANS_1B, TILE_PLANS_8B], ids=["1b", "8b"])
+def test_tile_plan_keeps_the_measured_plans(plans):
+    assert {key: tq.tile_plan(*key) for key in plans} == plans
 
 
 def _slab_case(K, seed, M=64, N=256):
@@ -266,6 +295,35 @@ def test_quant_matmul_kernel_matches_plain(cuda, M, dtype):
                     out.float(), ref.float(), **QMM_TOL[out_dtype],
                     msg=lambda m: f"{name} M={M} bias={None if b is None else b.dtype} "
                                   f"out {out_dtype}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 580, 2320])
+@pytest.mark.parametrize("name", list(SHAPES_8B))
+def test_quant_matmul_at_the_8b_shapes_matches_plain(cuda, name, M):
+    """The 8B's projections with their biases at decode (M = 1, 4: the
+    GEMV) and prefill (M = 580, 2320: B = 1 and 4 prefixes of 576 visual
+    tokens and 4 prompt ids, the tile); bf16 x, and fp32 x up to M = 580;
+    tolerance QMM_TOL; the bf16 tile at M = 2320 launched twice, bit for
+    bit."""
+    K, N = SHAPES_8B[name]
+    rng = np.random.default_rng(K + N + M)
+    p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), K + N)).to(cuda)})
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32 and M > 580:
+            continue
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
+        b = bias.to(dtype)
+        out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+        ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **QMM_TOL[dtype],
+                                   msg=lambda m: f"{name} M={M} {dtype}: {m}")
+        if M == 2320:
+            again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(again, out)
 
 
 @pytest.mark.gpu

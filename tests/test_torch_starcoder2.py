@@ -133,13 +133,17 @@ def test_decode_sees_only_the_window(monkeypatch):
 
 
 def test_unported_paths_raise_naming_roadmap():
+    """The uncached (training) forward raises, naming its ROADMAP item; the
+    cached 5-token call, which raised before the chunk step was ported
+    (item 5), now runs it (tests/test_torch_chunk_step.py holds it to JAX)."""
     _, tcfg = _configs("G=2", "xla")
     params = tsc.init_params(tcfg, torch.Generator().manual_seed(0))
     x = torch.zeros((1, 5, tcfg.hidden_size))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
         tsc.forward(params, tcfg, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        tsc.forward(params, tcfg, x, cache=tsc.init_cache(tcfg, 1, 8, dtype=torch.float32))
+    logits, cache = tsc.forward(params, tcfg, x,
+                                cache=tsc.init_cache(tcfg, 1, 8, dtype=torch.float32))
+    assert logits.shape == (1, 5, tcfg.vocab_size) and cache["index"] == 5
 
 
 @pytest.fixture(scope="module")
