@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg inference
 (bf16, and int8 weights with an int8 KV cache), text2svg and training, and
 StarVector-8B im2svg inference (bf16, and int8 weights with an int8 KV
-cache) and text2svg, on one NVIDIA H100, end to end through the
+cache), text2svg and training, on one NVIDIA H100, end to end through the
 hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
@@ -26,10 +26,12 @@ Phases, one line each (any failure raises and exits non-zero):
      cases; the training forward-with-lse and backward pair at the 1B
      training shape (B=4, S=T=769; two bf16 launches bit for bit), ragged
      cases, the 8k context (B=1, S=T=8450), sequence-parallel chunks of the
-     8k and 16k windows and the 16k triangle; the int8 weight matmul (kernel
-     14: GEMV at M = 1, 4, 8, 16, the wgmma tile at M = 17, 260, 1040, the
-     four 1B projection shapes, bf16 and fp32, with and without bias; two
-     launches bit for bit) and the int8-cache decode attention; the 8B's
+     8k and 16k windows and the 16k triangle, the 8B's heads (H=36 Hkv=4,
+     window 4096: B=2 S=T=1160, B=1 S=T=4700, and B=2 T=4700 with 700
+     right-padded keys; bf16 bit for bit on relaunch); the int8 weight
+     matmul (kernel 14: GEMV at M = 1, 4, 8, 16, the wgmma tile at M = 17,
+     260, 1040, the four 1B projection shapes, bf16 and fp32, with and
+     without bias; two launches bit for bit) and the int8-cache decode attention; the 8B's
      shapes: decode at G = 9 (36 query heads over 4 KV heads; B=4 T=708,
      B=1 T=8192 past the 4096 window, a ragged mask; over a bf16 and over
      an int8 cache, with the int8 P-rounding case) and flash_prefill at
@@ -76,12 +78,21 @@ Phases, one line each (any failure raises and exits non-zero):
      greedy ids with an fp32 KV cache and, with the int8 cache, the logits
      of both fed the same tokens (INT8_CACHE_LOGIT_TOL); weights and
      memory, p50 and tokens/s beside bf16's
+  6b. training at full StarVector-8B width and 8 of its 32 decoder layers
+     (SigLIP-L/16 and the LayerNorm adapter trainable; fp32 masters, bf16
+     compute, dots_flash, AdamW; B=1, T = 576 + 7616 = 8192, past the 4096
+     window): 8 steps of the port's train loop on one batch, loss falling,
+     8 launches a step of each training kernel, peak memory; one loss and
+     backward with remat=True (16 forwards); then 2 fp32 steps at 2 layers,
+     T = 4700, kernels against plain
   7. times on the card, each beside the card's name and power limit: each
      kernel against its plain version, its bound and one PyTorch library
-     call where there is one (the 8B's at its shapes too), the train
-     step, also the training kernels at the long contexts phase 3 drives
-     (with --profile DIR, also where a decode step's and a train step's
-     device time goes)
+     call where there is one (the 8B's at its shapes too), the 1B and 8B
+     train steps and the training kernels at the 8B's (S = T = 8192, H=36,
+     Hkv=4, window 4096; dkdv at each head split beside the plan's pick),
+     also the training kernels at the long contexts phase 3 drives (with
+     --profile DIR, also where a decode step's and the 1B and 8B train
+     steps' device time goes)
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -721,7 +732,22 @@ TRAIN_CASES = [  # name, B, S, T, H, Hkv, q_offset, window, right_pad, left_pad
     ("8k SP chunk, S=1024 at q_offset=7426", 1, 1024, 8450, 16, 1, 7426, None, 0, 0),
     ("16k SP chunk, S=1024 at q_offset=15618", 1, 1024, 16642, 16, 1, 15618, None, 0, 0),
     ("16k context, H=2", 1, 16642, 16642, 2, 1, 0, None, 0, 0),
+    # the 8B's training shapes: 36 query heads over 4 KV heads (G = 9, so
+    # dkdv_head_split's divisors 3 and 9), the 4096-key window with GQA, a
+    # short step (the TPU's fused backward, T <= 2048) and one past the
+    # window (its one-pass backward), right-padded keys past the window, and
+    # phase 6b's step itself (128 key tiles, the plan's head split)
+    ("8B train, short", 2, 1160, 1160, 36, 4, 0, 4096, 0, 0),
+    ("8B train past the window", 1, 4700, 4700, 36, 4, 0, 4096, 0, 0),
+    ("8B right-padded keys past the window", 2, 4700, 4700, 36, 4, 0, 4096, 700, 0),
+    ("8B train step", 1, 8192, 8192, 36, 4, 0, 4096, 0, 0),
 ]
+# cases whose bf16 kernels are launched twice and held to the same bits
+RELAUNCH_CASES = ("1B train step", "8B train, short", "8B train past the window",
+                  "8B right-padded keys past the window", "8B train step")
+# the case whose bf16 error each kernel's JSON row reports: the shape its
+# times are taken at (phase 7), by the row name's suffix
+ROW_CASES = {"": "1B train step", "_8b": "8B train step"}
 
 
 def compare_training(what: str, out, plain, ref32, dtype, live=None) -> float:
@@ -748,10 +774,12 @@ def compare_training(what: str, out, plain, ref32, dtype, live=None) -> float:
 def check_training_kernels(tfa, dev) -> dict:
     """The forward with lse and the backward pair against their plain
     versions. q is a strided view of a fused [q | k | v] projection, as the
-    decoder passes it; the backward pair gets the plain forward's out and
-    lse on both sides, so each comparison isolates one kernel."""
+    1B decoder passes it; the backward pair gets the plain forward's out and
+    lse on both sides, so each comparison isolates one kernel. Returns each
+    kernel's bf16 max |diff| at the 1B step's shape, and under
+    "<kernel>_8b" at the 8B step's (ROW_CASES)."""
     g = torch.Generator(device=dev).manual_seed(6)
-    worst = {name: 0.0 for name in TRAIN_KERNELS}
+    at_rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, S, T, H, Hkv, q_off, window, rpad, lpad in TRAIN_CASES:
             qkv = torch.randn((B, S, (H + 2 * Hkv) * 128), generator=g, device=dev).to(dtype)
@@ -790,7 +818,7 @@ def check_training_kernels(tfa, dev) -> dict:
             if not live.all() and (dq.float()[~live] != 0).any():
                 raise AssertionError(f"dq {tag}: rows that see no key are not zero")
             same = ""
-            if name == "1B train step" and dtype == torch.bfloat16:
+            if name in RELAUNCH_CASES and dtype == torch.bfloat16:
                 # no atomics: each output is written once, the backward's head
                 # splits summed in a fixed order
                 fwd = tfa.flash_prefill_with_lse(q, k, v, mask, q_off, **kw)
@@ -803,16 +831,18 @@ def check_training_kernels(tfa, dev) -> dict:
                     raise AssertionError(f"backward {tag}: two launches differ")
                 same = "; a second launch gives bit-identical out, lse, dq, dk, dv"
                 del again, fwd
-            worst["flash_prefill_with_lse"] = max(worst["flash_prefill_with_lse"], err_o, err_l)
-            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
-            worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], errs[1], errs[2])
+            for sfx, case in ROW_CASES.items():
+                if name == case and dtype == torch.bfloat16:
+                    at_rows.update({"flash_prefill_with_lse" + sfx: max(err_o, err_l),
+                                    "flash_bwd_dq" + sfx: errs[0],
+                                    "flash_bwd_dkdv" + sfx: max(errs[1:])})
             log("kernels", f"training {tag}: max |diff| out {err_o:.3e}, lse {err_l:.3e}, "
                            f"dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}"
                            + ("" if live.all() else f"; {int((~live).sum())} rows see no key: "
                               "finite, dq = 0") + same)
             del qkv, q, k, v, do, out, lse, ro, rl, delta, dk, dv, dq, pq, pk, pv, ref32
             torch.cuda.empty_cache()
-    return worst
+    return at_rows
 
 
 def check_bf16_rounding(dev) -> str:
@@ -1516,14 +1546,14 @@ TRAIN_STEPS, LR = 8, 1e-4
 SVG_LENGTHS = (512, 431, 300, 187)  # ragged rows; the longest sets T = 257 + 512
 
 
-def training_batch(cfg, process_images, dev, seed: int = 0) -> dict:
+def training_batch(cfg, process_images, dev, seed: int = 0, lengths=SVG_LENGTHS) -> dict:
     """One batch in the loader's format, from a seeded numpy generator:
-    CLIP-normalised images (4, 224, 224, 3), svg ids in the vocabulary,
-    right-padded to the longest row."""
+    images normalised for the tower (len(lengths), size, size, 3), svg ids
+    in the vocabulary, right-padded to the longest row."""
     rng = np.random.default_rng(seed)
-    B, S = len(SVG_LENGTHS), max(SVG_LENGTHS)
+    B, S = len(lengths), max(lengths)
     ids = rng.integers(0, cfg.llm.vocab_size, (B, S))
-    mask = (np.arange(S)[None, :] < np.asarray(SVG_LENGTHS)[:, None]).astype(np.int32)
+    mask = (np.arange(S)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
     return {"image": process_images(synthetic_images(B, 1000 + seed)),
             "svg_ids": np.where(mask > 0, ids, 0), "svg_mask": mask}
 
@@ -1585,16 +1615,7 @@ def train_slice(sv, tfa, dev, process_images) -> dict:
                             DTypePolicy(torch.float32, torch.bfloat16))
     counts = read_counts(tfa)
     peak = torch.cuda.max_memory_allocated()
-    losses = [r["loss"] for r in recs]
-    norms = [r["grad_norm"] for r in recs]
-    per_step = [{k: b[k] - a[k] for k in TRAIN_KERNELS}
-                for a, b in zip([dict.fromkeys(TRAIN_KERNELS, 0)] + [r["launches"] for r in recs],
-                                [r["launches"] for r in recs])]
-    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training: losses {losses}, grad norms {norms}")
-    if any(n != {k: L for k in TRAIN_KERNELS} for n in per_step) or \
-            counts["flash_prefill"] or counts["decode_attention"] or counts["quant_matmul"]:
-        raise AssertionError(f"training launches per step {per_step}, in all {counts}")
+    losses, norms, per_step = check_train_run("training", recs, counts, L)
     T = 257 + max(SVG_LENGTHS)
     log("train", f"StarVector-1B at full width, B={len(SVG_LENGTHS)}, T={T} (svg lengths "
                  f"{list(SVG_LENGTHS)}), fp32 masters / bf16 compute, dots_flash, AdamW lr {LR}: "
@@ -1606,21 +1627,43 @@ def train_slice(sv, tfa, dev, process_images) -> dict:
     return dict(recs=recs, counts=counts, T=T, B=len(SVG_LENGTHS), peak=peak, base=base)
 
 
-def fp32_check(sv, tfa, dev, process_images) -> None:
+def check_train_run(what: str, recs: list, counts: dict, L: int):
+    """Raise unless every loss and grad norm is finite, the loss fell, and
+    each step launched each training kernel once a layer and no other
+    kernel; (losses, grad norms, launches per step)."""
+    losses = [r["loss"] for r in recs]
+    norms = [r["grad_norm"] for r in recs]
+    per_step = [{k: b[k] - a[k] for k in TRAIN_KERNELS}
+                for a, b in zip([dict.fromkeys(TRAIN_KERNELS, 0)] + [r["launches"] for r in recs],
+                                [r["launches"] for r in recs])]
+    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: losses {losses}, grad norms {norms}")
+    if any(n != {k: L for k in TRAIN_KERNELS} for n in per_step) or \
+            counts["flash_prefill"] or counts["decode_attention"] or counts["quant_matmul"]:
+        raise AssertionError(f"{what} launches per step {per_step}, in all {counts}")
+    return losses, norms, per_step
+
+
+def fp32_check(sv, tfa, dev, cfg, batch, what: str) -> None:
     """From the same weights and batch, 2 fp32 steps with the kernels and 2
     with the plain attention. Bound on the updated weights: each AdamW step
     moves an element by at most about lr (the first by exactly lr x sign),
     so elements whose gradient is rounding noise may differ by up to
-    2 lr a step; the bound is 3 lr x steps."""
+    2 lr a step; the bound is 3 lr x steps. The kernels' run launches each
+    training kernel once a layer a step, the plain run none."""
     from starvector_tpu_torch.ops.layers import DTypePolicy
     from starvector_tpu_torch.train.optim import tree_leaves
 
-    cfg = sv.starvector_1b_config()
-    batch = training_batch(cfg, process_images, dev)
     f32 = DTypePolicy(torch.float32, torch.float32)
+    L = cfg.llm.n_layer
+    reset_counts(tfa)
     p_k, r_k = _run_training(sv, tfa, cfg, dev, batch, 2, f32, kernels=True)
     p_k = [t.detach() for t in tree_leaves(p_k)]
+    reset_counts(tfa)
     p_p, r_p = _run_training(sv, tfa, cfg, dev, batch, 2, f32, kernels=False)
+    n_k, n_p = ({k: r[-1]["launches"][k] for k in TRAIN_KERNELS} for r in (r_k, r_p))
+    if n_k != dict.fromkeys(TRAIN_KERNELS, 2 * L) or any(n_p.values()):
+        raise AssertionError(f"{what} fp32 training launches: kernels {n_k}, plain {n_p}")
     diffs = [(a - b.detach()).abs() for a, b in zip(p_k, tree_leaves(p_p))]
     max_diff = max(d.max().item() for d in diffs)
     n = sum(d.numel() for d in diffs)
@@ -1629,14 +1672,16 @@ def fp32_check(sv, tfa, dev, process_images) -> None:
     for a, b in zip(r_k, r_p):
         if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) or \
                 abs(a["grad_norm"] - b["grad_norm"]) > 1e-3 * abs(b["grad_norm"]):
-            raise AssertionError(f"fp32 training: kernels {r_k}, plain {r_p}")
+            raise AssertionError(f"{what} fp32 training: kernels {r_k}, plain {r_p}")
     if max_diff > bound:
-        raise AssertionError(f"fp32 training: updated weights differ by {max_diff:.3e} > {bound}")
-    log("train", f"fp32, 2 steps, kernels vs plain attention: loss "
+        raise AssertionError(f"{what} fp32 training: updated weights differ by {max_diff:.3e} > "
+                             f"{bound}")
+    log("train", f"{what} fp32, 2 steps, kernels vs plain attention: loss "
                  f"{[r['loss'] for r in r_k]} vs {[r['loss'] for r in r_p]} (rtol 1e-4), "
                  f"grad_norm {[r['grad_norm'] for r in r_k]} vs {[r['grad_norm'] for r in r_p]} "
                  f"(rtol 1e-3); updated weights: max |diff| {max_diff:.3e} (bound 3 lr x 2 steps "
-                 f"= {bound:.1e}), {close:.6f} of {n} elements within 1e-6")
+                 f"= {bound:.1e}), {close:.6f} of {n} elements within 1e-6; launches "
+                 f"{n_k} with the kernels (2 steps x {L} layers), none with plain")
     del p_k, p_p, diffs
     torch.cuda.empty_cache()
 
@@ -1650,16 +1695,16 @@ TRAIN_KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first
 )
 
 
-def profile_train_step(sv, tfa, dev, process_images, card: str, step_wall: float,
-                       out_dir: Path) -> None:
+def profile_train_step(sv, tfa, dev, cfg, batch, card: str, step_wall: float, out_dir: Path,
+                       label: str) -> None:
     """Where one full-width train step's device time goes: torch.profiler
     traces the 4th step of a fresh run (3 of warm-up); the wall time is
-    phase 5's unprofiled median. Writes the kernel table to out_dir."""
+    the unprofiled median of phase 5 (the 1B) or 6b (the 8B). Writes the
+    kernel table to out_dir/profile_train[_8b].txt."""
     from torch.profiler import ProfilerActivity, profile
 
     from starvector_tpu_torch.ops.layers import DTypePolicy
 
-    cfg = sv.starvector_1b_config()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def hook(step):
@@ -1668,23 +1713,27 @@ def profile_train_step(sv, tfa, dev, process_images, card: str, step_wall: float
         elif step == 4:
             prof.stop()
 
-    _run_training(sv, tfa, cfg, dev, training_batch(cfg, process_images, dev), 4,
-                  DTypePolicy(torch.float32, torch.bfloat16), hook=hook)
+    _run_training(sv, tfa, cfg, dev, batch, 4, DTypePolicy(torch.float32, torch.bfloat16),
+                  hook=hook)
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     by_class: dict[str, float] = {}
     for e in rows:
-        label = next((lab for lab, keys in TRAIN_KERNEL_CLASSES
-                      if any(k in e.key.lower() for k in keys)), "other")
-        by_class[label] = by_class.get(label, 0.0) + e.self_device_time_total / 1e3
+        cls = next((lab for lab, keys in TRAIN_KERNEL_CLASSES
+                    if any(k in e.key.lower() for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
     device = sum(by_class.values())
     if not device:
         raise AssertionError("the profiler recorded no device time")
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_train.txt").write_text(
-        f"{card}\nStarVector-1B train step, B=4 T=769, bf16 compute, dots_flash\n"
+    B, S = batch["svg_ids"].shape
+    T = cfg.encoder_config.geometry[1] + S
+    path = out_dir / ("profile_train.txt" if label == "1B" else "profile_train_8b.txt")
+    path.write_text(
+        f"{card}\nStarVector-{label} train step, B={B} T={T}, {cfg.llm.n_layer} decoder layers, "
+        "bf16 compute, dots_flash\n"
         + prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    log("profile", f"{card}: 1B train step (tables in {out_dir / 'profile_train.txt'}): wall "
+    log("profile", f"{card}: {label} train step B={B} T={T} (tables in {path}): wall "
                    f"{step_wall * 1e3:.1f} ms without the profiler, device {device:.1f} ms under "
                    f"it, busy {device / step_wall / 1e3:.1%}; device time: "
                    + ", ".join(f"{k} {v:.1f} ms ({v / device:.1%})"
@@ -1744,22 +1793,16 @@ def training_times(tfa, dev, card: str, train: dict, errs: dict) -> list[dict]:
                          replaces=f"starvector_tpu/ops/flash_attention.py:{replaces}",
                          launches=train["counts"][name], max_abs_err=errs[name], ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-    # flash_bwd_dkdv at each head split (the default is dkdv_head_split's)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    split = tfa.dkdv_head_split(B, T, 1, H, sms)
-    sweep = {hs: cuda_ms(lambda: tfa.flash_bwd_dkdv(q, k, v, mask, do, lse, delta, head_split=hs))
-             for hs in (1, 2, 4, 8, 16)}
-    log("times", f"{card}: flash_bwd_dkdv {shape} by head_split (default {split}): "
-                 + ", ".join(f"{hs}: {ms:.4f} ms" for hs, ms in sweep.items()))
     return rows
 
 
-def sdpa_backward_ms(q, k, v, do, iters: int = 20):
+def sdpa_backward_ms(q, k, v, do, iters: int = 20, mask: dict | None = None, **kw):
     """SDPA's backward on (B, H, S, D) queries over (B, H, T, D) keys,
     causal with the last query on the last key (lower right, which is top
-    left when S = T): one autograd call giving dq, dk and dv. The faster of
-    the backward of the backend SDPA dispatches to by itself and of its
-    flash or memory-efficient backend, as sdpa_ms."""
+    left when S = T), or under `mask` (SDPA's mask arguments; `kw` such as
+    enable_gqa=True go to SDPA too): one autograd call giving dq, dk and dv.
+    The faster of the backward of the backend SDPA dispatches to by itself
+    and of its flash or memory-efficient backend, as sdpa_ms."""
     import contextlib
 
     import torch.nn.functional as F
@@ -1767,13 +1810,13 @@ def sdpa_backward_ms(q, k, v, do, iters: int = 20):
 
     S, T = q.shape[2], k.shape[2]
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    mask = _sdpa_causal(S, T)
+    mask = _sdpa_causal(S, T) if mask is None else mask
     times = []
     for fused in (False, True):
         try:
             with (sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION])
                   if fused else contextlib.nullcontext()):
-                out = F.scaled_dot_product_attention(qr, kr, vr, **mask)
+                out = F.scaled_dot_product_attention(qr, kr, vr, **mask, **kw)
         except RuntimeError as e:
             log("times", f"scaled_dot_product_attention at S={S}, T={T}"
                          f"{', flash/efficient' if fused else ''}: no backend "
@@ -2162,6 +2205,222 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: StarVector-8B training at full width, reduced depth
+# ---------------------------------------------------------------------------
+
+# 8 of the 32 decoder layers: AdamW's fp32 state at 16 bytes a parameter is
+# ~120 GB for the whole 7.5 B, ~37 GB for the ~2.3 B of an 8-layer tree
+TRAIN_8B_LAYERS = 8
+# B = 1, T = 576 visual + 7616 svg tokens = 8192: the v5e-8 recipe's global
+# batch of 4 over fsdp = 4 at its 8192 context, the reference's per-device shape
+SVG_8B = (7616,)
+# the fp32 check: 2 layers, T = 576 + 4124 = 4700, past the 4096-key window
+SVG_8B_FP32 = (4124,)
+
+
+def config_8b(sv, layers: int):
+    """starvector_8b_config with its decoder cut to its first `layers`."""
+    import dataclasses
+
+    cfg = sv.starvector_8b_config()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_hidden_layers=layers))
+
+
+def train_slice_8b(sv, tfa, dev) -> dict:
+    """8 steps of StarVector-8B training at full width (StarCoder2 4608
+    wide, 36/4 heads, head 128, window 4096; SigLIP-L/16 at 384 and the
+    LayerNorm adapter, all trainable) and 8 of its 32 decoder layers, on
+    one batch of B = 1, T = 8192, through the port's train loop: fp32
+    masters, bf16 compute, dots_flash, AdamW. Checks the loss falls, every
+    value is finite, and each step launched each training kernel once a
+    layer; then one loss and backward with remat=True on the trained
+    weights, which runs the forward kernel twice a layer. Then the fp32
+    check (fp32_check) at 2 layers, T = 4700."""
+    from starvector_tpu_torch.data.processor import processor_for_encoder
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.train.optim import tree_leaves
+    from starvector_tpu_torch.train.train import to_device
+
+    cfg = config_8b(sv, TRAIN_8B_LAYERS)
+    L = cfg.llm.num_hidden_layers
+    images = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=dev).batch
+    batch = training_batch(cfg, images, dev, lengths=SVG_8B)
+    bf16 = DTypePolicy(torch.float32, torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what phase 6 leaves held
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tfa)
+    params, recs = _run_training(sv, tfa, cfg, dev, batch, TRAIN_STEPS, bf16)
+    counts = read_counts(tfa)
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms, per_step = check_train_run("8B training", recs, counts, L)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    B, T = 1, cfg.encoder_config.geometry[1] + max(SVG_8B)
+    log("train", f"StarVector-8B at full width, {L} of 32 decoder layers ({n_params / 1e9:.3f} B "
+                 f"parameters, SigLIP and the adapter trainable), B={B}, T={T} ({T - max(SVG_8B)} visual "
+                 f"+ {max(SVG_8B)} svg tokens), window {cfg.llm.sliding_window}, fp32 masters / bf16 "
+                 f"compute, dots_flash, AdamW lr {LR}: {TRAIN_STEPS} steps on one batch, loss "
+                 f"{[round(x, 4) for x in losses]}, grad_norm {[round(x, 4) for x in norms]}; "
+                 f"launches per step {per_step[0]} (each = {L} layers), in all {counts}; peak "
+                 f"memory {peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above the "
+                 f"{base / 2**30:.2f} GiB held before the first step")
+
+    reset_counts(tfa)
+    loss, _ = sv.loss_fn_with_bn_stats(params, cfg, to_device(batch, dev), 0, policy=bf16,
+                                       remat=True)
+    grads = torch.autograd.grad(loss, [p for p in tree_leaves(params) if p.requires_grad])
+    torch.cuda.synchronize()
+    remat_counts = {k: read_counts(tfa)[k] for k in TRAIN_KERNELS}
+    expected = {"flash_prefill_with_lse": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L}
+    if remat_counts != expected or not torch.isfinite(loss) or \
+            not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f"8B remat=True: loss {loss.item()}, launches {remat_counts}, "
+                             f"expected {expected}")
+    log("train", f"8B remat=True, one loss and backward on the trained weights: loss "
+                 f"{loss.item():.4f} (the last dots_flash step's {losses[-1]:.4f} was before its "
+                 f"update), launches {remat_counts} (the forward re-run in the backward)")
+    del params, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = config_8b(sv, 2)
+    fp32_check(sv, tfa, dev, cfg2, training_batch(cfg2, images, dev, lengths=SVG_8B_FP32),
+               f"8B at 2 layers, B=1, T={cfg2.encoder_config.geometry[1] + max(SVG_8B_FP32)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(recs=recs, counts=counts, T=T, B=B, peak=peak, base=base, cfg=cfg, batch=batch)
+
+
+# flash_bwd_dkdv's head_split sweep: B, S, T, q_offset, Hkv, G, window. The
+# 1B step, the 8k triangle and its SP chunk, the 16k SP chunk and triangle;
+# the 8B's heads under its window from T = 769 to 16384
+DKDV_SPLIT_SHAPES = (
+    (4, 769, 769, 0, 1, 16, None), (1, 8450, 8450, 0, 1, 16, None),
+    (1, 1024, 8450, 7426, 1, 16, None), (1, 1024, 16642, 15618, 1, 16, None),
+    (1, 16642, 16642, 0, 1, 2, None),
+    (2, 1160, 1160, 0, 4, 9, 4096), (1, 4700, 4700, 0, 4, 9, 4096),
+    (1, 8192, 8192, 0, 4, 9, 4096), (2, 8192, 8192, 0, 4, 9, 4096),
+    (1, 16384, 16384, 0, 4, 9, 4096), (4, 769, 769, 0, 4, 9, 4096),
+    (1, 2048, 2048, 0, 4, 9, 4096),
+)
+
+
+def head_split_times(tfa, dev, card: str) -> None:
+    """flash_bwd_dkdv, bf16, all keys valid, at every divisor of G as its
+    head_split, beside the pick of dkdv_head_split (the default) for this
+    card: each split graph-replayed (10 calls a graph) twice, the mean.
+    tests/test_torch_flash_backward.py::DKDV_SWEEP holds these times."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, S, T, q_off, Hkv, G, W in DKDV_SPLIT_SHAPES:
+        H, D = Hkv * G, 128
+        q, do = (torch.randn((B, S, H, D), generator=g, device=dev).bfloat16() for _ in "qo")
+        k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).bfloat16() for _ in "kv")
+        mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+        out, lse = tfa.flash_prefill_with_lse(q, k, v, mask, q_off, window=W)
+        delta = tfa.attention_delta(out, do)
+        times = {}
+        for hs in (d for d in range(1, G + 1) if G % d == 0):
+            run = functools.partial(tfa.flash_bwd_dkdv, q, k, v, mask, do, lse, delta, q_off,
+                                    window=W, head_split=hs)
+            times[hs] = (cuda_ms(run, iters=10) + cuda_ms(run, iters=10)) / 2
+        split = tfa.dkdv_head_split(B, T, Hkv, G, sms, S=S, q_offset=q_off, window=W)
+        best = min(times, key=times.get)
+        log("times", f"{card}: flash_bwd_dkdv by head_split at B={B} S={S} T={T} q_offset={q_off} "
+                     f"Hkv={Hkv} G={G} window={W} bf16 ({sms} SMs): dkdv_head_split picks {split}, "
+                     f"{times[split] / times[best] - 1:.1%} slower than the best, {best}: "
+                     + ", ".join(f"{hs}: {ms:.4f} ms" for hs, ms in times.items()))
+        del q, do, k, v, mask, out, lse, delta
+        torch.cuda.empty_cache()
+
+
+def _sdpa_window(T: int, window: int, dev) -> torch.Tensor:
+    """(T, T) bool: query q sees key t for q - window < t <= q (the kernels'
+    causal mask with the sliding window), for SDPA's attn_mask."""
+    pos = torch.arange(T, device=dev)
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+
+# the training kernels at the 8B's heads: B, T, and the line of the TPU
+# backward kernel that shape runs: the phase-6b step (the one-pass kernel,
+# 2048 < T <= 8704) and a short batch (the fused one, T <= 2048)
+TRAIN_TIMES_8B = ((1, 8192, 1092), (2, 1160, 968))
+
+
+def training_times_8b(tfa, dev, card: str, t8: dict, errs: dict) -> list[dict]:
+    """The 8B train step's wall time and tokens/s from phase 6b (median of
+    the 5 steps after 3 of warm-up), and the training kernels at the 8B's
+    heads (H = 36 over Hkv = 4, window 4096), bf16, S = T, at the step's
+    B = 1, T = 8192 and at B = 2, T = 1160: each beside its plain version,
+    its bound and SDPA with enable_gqa and the window as an explicit mask
+    (forward; backward against dkdv + dq). The kernels are graph-replayed
+    (10 calls a graph); the plain versions, whose (H, S, T) fp32 blocks are
+    9.7 GB at 8192, and SDPA's backward run eager between CUDA events (3
+    after 3 of warm-up), in turns plain, kernel, kernel, plain. Returns
+    the kernels' JSON rows at the step's shape."""
+    secs = [r["seconds"] for r in t8["recs"][3:]]
+    step = statistics.median(secs)
+    log("times", f"{card}: 8B train step B={t8['B']} T={t8['T']} ({TRAIN_8B_LAYERS} of 32 layers, "
+                 f"bf16 compute, dots_flash): {step * 1e3:.1f} ms median of {len(secs)} steps after "
+                 f"3 of warm-up ({[round(x * 1e3, 1) for x in secs]} ms), "
+                 f"{t8['B'] * t8['T'] / step:.0f} tokens/s, peak memory {t8['peak'] / 2**30:.2f} GiB "
+                 f"({(t8['peak'] - t8['base']) / 2**30:.2f} GiB above what was held before it)")
+    g = torch.Generator(device=dev).manual_seed(22)
+    H, Hkv, D, W = H8, HKV8, 128, WINDOW8
+    graphed, timer = functools.partial(cuda_ms, iters=10), functools.partial(event_ms, iters=3)
+    rows = []
+    for B, T, bwd_row in TRAIN_TIMES_8B:
+        q = torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).bfloat16() for _ in "kv")
+        do = torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+        mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+        out, lse = tfa.flash_prefill_with_lse(q, k, v, mask, window=W)
+        delta = tfa.attention_delta(out, do)
+        shape = f"B={B} S=T={T} H={H} Hkv={Hkv} D={D} window={W} bf16"
+        pos = torch.arange(T, device=dev)
+        pairs = B * H * int(torch.minimum(pos + 1, torch.full_like(pos, W)).sum())  # visible
+        qh, doh = (t.transpose(1, 2).contiguous() for t in (q, do))
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+        win = dict(attn_mask=_sdpa_window(T, W, dev))
+        lib_fwd = sdpa_ms(qh, kh, vh, causal=False, enable_gqa=True, **win)
+        lib_bwd = sdpa_backward_ms(qh, kh, vh, doh, iters=3, mask=win, enable_gqa=True)
+        del qh, kh, vh, doh, win
+        torch.cuda.empty_cache()
+        act, kv, stats, m = B * T * H * D * 2, B * T * Hkv * D * 2, B * H * T * 4, B * T * 4
+        for name, fn, replaces, nbytes, flops, lib in (
+                ("flash_prefill_with_lse", lambda kn: tfa.flash_prefill_with_lse(
+                    q, k, v, mask, window=W, kernels=kn), 307,
+                 2 * act + 2 * kv + stats + m, 4 * D * pairs, lib_fwd),
+                ("flash_bwd_dkdv", lambda kn: tfa.flash_bwd_dkdv(
+                    q, k, v, mask, do, lse, delta, window=W, kernels=kn), bwd_row,
+                 2 * act + 4 * kv + 2 * stats + m, 8 * D * pairs, lib_bwd),
+                ("flash_bwd_dq", lambda kn: tfa.flash_bwd_dq(
+                    q, k, v, mask, do, lse, delta, window=W, kernels=kn), bwd_row,
+                 3 * act + 2 * kv + 2 * stats + m, 6 * D * pairs, lib_bwd)):
+            a = timer(lambda: fn(False))
+            b, c = graphed(lambda: fn(True)), graphed(lambda: fn(True))
+            plain_ms, ms = (a + timer(lambda: fn(False))) / 2, (b + c) / 2
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound(nbytes, flops)
+            log("times", f"{card}: {name} 8B train {shape}: kernel {ms:.4f} ms "
+                         f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound), plain "
+                         f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+                         f"{flops / 1e9:.2f} GFLOP over {pairs // (B * H)} visible pairs a head), "
+                         f"SDPA {'n/a (no single PyTorch call)' if lib is None else f'{lib:.4f} ms'}")
+            if (B, T) != (t8["B"], t8["T"]):
+                continue
+            src = "flash_prefill.cu" if name == "flash_prefill_with_lse" else "flash_backward.cu"
+            rows.append(dict(name=f"{name}_8b", route="cuda",
+                             source=f"starvector_tpu_torch/csrc/{src}",
+                             replaces=f"starvector_tpu/ops/flash_attention.py:{replaces}",
+                             launches=t8["counts"][name], max_abs_err=errs[f"{name}_8b"], ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
 def times_8b(tfa, dc, tq, dev, card: str, s8: dict, errs: dict) -> list[dict]:
     """The 8B's kernels at its shapes, bf16, graph-replayed: flash_prefill
     at B=4 S=T=580 (576 visual + 4 prompt tokens), H=36 over Hkv=4, window
@@ -2349,7 +2608,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_run = time.perf_counter()
 
-    def phase(n: int, what: str) -> None:
+    def phase(n: int | str, what: str) -> None:
         log("phase", f"{n}. {what}, {time.perf_counter() - t_run:.0f} s into the run")
 
     # --- 1. card -------------------------------------------------------------
@@ -2428,7 +2687,9 @@ def main() -> int:
     err_train = check_training_kernels(tfa, dev)
     log("kernels", "the training kernels match their plain versions (fp32 atol=rtol 1e-4; bf16 "
                    "2e-2, or no more than twice the plain bf16 version's own error from fp32 "
-                   "plus 1e-3); max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in err_train.items()))
+                   "plus 1e-3); bf16 max |diff| at the 1B step's shape (B=4 T=769) and, _8b, "
+                   "at the 8B step's (B=1 T=8192 H=36 Hkv=4 window 4096): "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in err_train.items()))
     log("rounding", check_bf16_rounding(dev))
 
     # --- 4. the slice at full width --------------------------------------------
@@ -2550,13 +2811,18 @@ def main() -> int:
     # --- 5. training at full width ----------------------------------------------
     phase(5, "StarVector-1B training")
     train = train_slice(sv, tfa, dev, clip_images)
-    fp32_check(sv, tfa, dev, clip_images)
+    cfg1 = sv.starvector_1b_config()
+    fp32_check(sv, tfa, dev, cfg1, training_batch(cfg1, clip_images, dev), "1B")
     gc.collect()
     torch.cuda.empty_cache()
 
     # --- 6. StarVector-8B inference at full width ---------------------------------
     phase(6, "StarVector-8B inference")
     s8 = slice_8b(sv, tfa, dev, card, args.profile)
+
+    # --- 6b. StarVector-8B training at full width, 8 layers -------------------------
+    phase("6b", "StarVector-8B training")
+    t8 = train_slice_8b(sv, tfa, dev)
 
     # --- 7. kernel times on the card -----------------------------------------
     phase(7, "times")
@@ -2607,11 +2873,15 @@ def main() -> int:
 
     kernels_json += training_times(tfa, dev, card, train, err_train)
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)
+    kernels_json += training_times_8b(tfa, dev, card, t8, err_train)
     long_context_times(tfa, dev, card)
+    head_split_times(tfa, dev, card)
 
     if args.profile is not None:
-        step_wall = statistics.median(r["seconds"] for r in train["recs"][3:])
-        profile_train_step(sv, tfa, dev, clip_images, card, step_wall, args.profile)
+        for label, run, cfg_t in (("1B", train, cfg1), ("8B", t8, t8["cfg"])):
+            batch = t8["batch"] if label == "8B" else training_batch(cfg1, clip_images, dev)
+            step_wall = statistics.median(r["seconds"] for r in run["recs"][3:])
+            profile_train_step(sv, tfa, dev, cfg_t, batch, card, step_wall, args.profile, label)
 
     log("phase", f"done, {time.perf_counter() - t_run:.0f} s into the run")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "starvector_tpu"))

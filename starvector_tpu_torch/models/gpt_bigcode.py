@@ -53,7 +53,7 @@ from starvector_tpu_torch.ops.flash_attention import (
 )
 from starvector_tpu_torch.ops.layers import (
     DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, layer_unbind, make_dense_params,
-    make_layer_norm_params, matmul_f32, maybe_checkpoint, normal_,
+    make_layer_norm_params, matmul_f32, normal_, remat_layer,
 )
 
 
@@ -223,17 +223,17 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
 
     remat False keeps every activation; True recomputes the whole layer in
     the backward, the flash forward kernel included. "dots_flash" (the 1B
-    default) is built by structure: the part before the attention (ln_1,
-    c_attn) and the part after it (c_proj, residual, ln_2, MLP) are each
-    checkpointed, and the flash autograd Function between them stays
-    outside, so autograd keeps its out and lse and the backward never
-    re-runs the attention forward. The JAX policy also saves the MLP
+    default) checkpoints the part before the attention (ln_1, c_attn) and
+    the part after it (c_proj, residual, ln_2, MLP) each and leaves the
+    flash autograd Function between them (ops/layers.py::remat_layer), so
+    the backward never re-runs the attention forward. The JAX policy also saves the MLP
     down-projection output; here the post-attention part recomputes it."""
     B, S, E = x.shape
     H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
 
     def pre(x):
-        return dense(p["attn"]["c_attn"], layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon), policy)
+        return (dense(p["attn"]["c_attn"], layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon),
+                      policy),)
 
     def attend(qkv):
         q, k, v = _split_qkv(cfg, qkv)
@@ -244,9 +244,7 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
         x = x + dense(p["attn"]["c_proj"], attn.reshape(B, S, E), policy)
         return _mlp(p, cfg, x, policy)
 
-    if remat == "dots_flash":
-        return maybe_checkpoint(post, True)(x, attend(maybe_checkpoint(pre, True)(x)))
-    return maybe_checkpoint(lambda x: post(x, attend(pre(x))), remat)(x)
+    return remat_layer(pre, attend, post, remat)(x)
 
 
 def _forward_uncached(params, cfg, inputs_embeds, attention_mask, position_ids, policy,

@@ -1,5 +1,5 @@
-"""StarCoder2 decoder, the StarVector-8B's, for cached inference (port of
-starvector_tpu/models/starcoder2.py).
+"""StarCoder2 decoder, the StarVector-8B's: cached inference and the
+uncached training forward (port of starvector_tpu/models/starcoder2.py).
 
 Same architecture and parameter layout as the JAX package: separate
 q/k/v/o projections with bias; grouped-query attention (the 7B: 36 query
@@ -29,8 +29,12 @@ key mask), clipped to max_position_embeddings - 1.
     decoder's per-query window over the cached slots (query w, at slot
     index + w, sees slot t > index + w - window); the chunk's k/v are
     written once after all layers.
-The uncached (training) forward is not ported yet (ROADMAP queue 1, item
-6), nor the ragged, verify and serving functions (items 7 and 9).
+Without a cache, `forward` is the training forward: positions from the key
+mask, each layer's attention `flash_prefill_trainable` (the forward-with-lse
+kernel and the backward pair behind one autograd Function) with the sliding
+window, activation checkpointing per `remat` (see `_train_block`). The loss
+is gpt_bigcode.causal_lm_loss_fused over `lm_head_table`. The ragged, verify
+and serving functions are not ported yet (ROADMAP queue 1, items 7 and 9).
 """
 
 from __future__ import annotations
@@ -40,10 +44,12 @@ import dataclasses
 import torch
 
 from starvector_tpu_torch.models import decode_common as dc
-from starvector_tpu_torch.ops.flash_attention import flash_prefill, merged_decode_attention
+from starvector_tpu_torch.ops.flash_attention import (
+    flash_prefill, flash_prefill_trainable, merged_decode_attention,
+)
 from starvector_tpu_torch.ops.layers import (
-    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, make_dense_params,
-    make_layer_norm_params, matmul_f32, normal_,
+    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, layer_unbind, make_dense_params,
+    make_layer_norm_params, matmul_f32, normal_, remat_layer,
 )
 from starvector_tpu_torch.ops.rotary import rope_frequencies, rope_tables, rotate
 
@@ -63,8 +69,8 @@ class StarCoder2Config:
     use_bias: bool = True
     tie_word_embeddings: bool = True
     initializer_range: float = 0.018042
-    # no attn_impl: the port's attention is always kernel 1 for prefill and
-    # kernel 2 for decode (each with its plain version on the CPU)
+    # no attn_impl: the port's attention is always its flash kernels (each
+    # with its plain version on the CPU)
 
     @property
     def head_dim(self) -> int:
@@ -224,6 +230,33 @@ def _verify_layer_fn(cfg: StarCoder2Config, old_mask, t_lo: int, idx: int, new_m
     return fn
 
 
+def _train_block(p, cfg: StarCoder2Config, x, kv_mask, rope, policy: DTypePolicy, remat,
+                 kernels: bool):
+    """One layer of the training forward (the JAX _block without a cache),
+    with the remat modes of gpt_bigcode._train_block: False keeps every
+    activation; True recomputes the whole layer in the backward, the flash
+    forward kernel included; "dots_flash" (the 8B recipe's) checkpoints the
+    part before the attention (input_layernorm, q/k/v, RoPE) and the part
+    after it (o_proj, residual, MLP) and leaves the flash autograd Function
+    between them (ops/layers.py::remat_layer), so the backward never re-runs
+    the attention forward."""
+    B, S, _ = x.shape
+
+    def pre(x):
+        h = layer_norm(p["input_layernorm"], x, cfg.norm_epsilon)
+        return _qkv(p["attn"], cfg, h, rope, policy, kernels)
+
+    def attend(q, k, v):
+        return flash_prefill_trainable(q, k, v, kv_mask, window=cfg.sliding_window,
+                                       kernels=kernels)
+
+    def post(x, attn):
+        x = x + dense(p["attn"]["o_proj"], attn.reshape(B, S, -1), policy, kernels=kernels)
+        return _mlp(p, cfg, x, policy, kernels)
+
+    return remat_layer(pre, attend, post, remat)(x)
+
+
 def forward(
     params: dict,
     cfg: StarCoder2Config,
@@ -233,35 +266,43 @@ def forward(
     cache: dict | None = None,
     *,
     policy: DTypePolicy = DTypePolicy(),
+    remat: bool | str = False,
     return_hidden: bool = False,
     last_logits_only: bool = False,
     kernels: bool = True,
-) -> tuple[torch.Tensor, dict]:
-    """The cached forward: writes the S new tokens at cache["index"] (in
-    place) and returns (logits (B, S|1, V) fp32, or the final hidden states
-    if `return_hidden`; the same cache dict with its index advanced).
+) -> tuple[torch.Tensor, dict | None]:
+    """Without `cache`: the full-sequence (training) forward, differentiable,
+    the key mask `attention_mask`, positions compute_position_ids(mask),
+    activation checkpointing per `remat` (False | True | "dots_flash").
+
+    With `cache`: writes the S new tokens at cache["index"] (in place), by
+    decode step, chunk step or prefill (see the module docstring).
+
+    Returns (logits (B, S|1, V) fp32, or the final hidden states if
+    `return_hidden`; the cache with its index advanced, or None).
     `kernels=False` runs the attention kernels' plain versions on the card."""
-    if cache is None:
-        raise NotImplementedError(
-            "StarCoder2 training (the uncached forward) is not ported yet (ROADMAP queue 1, "
-            "item 6)")
     B, S, _ = inputs_embeds.shape
     x = policy.cast(inputs_embeds)
-    idx = cache["index"]
-    T = cache["k"].shape[2]
-    if idx + S > T:
-        raise ValueError(f"cache of {T} slots cannot take {S} tokens at index {idx}")
     if attention_mask is None:
         attention_mask = torch.ones((B, S), dtype=torch.int32, device=x.device)
     attention_mask = attention_mask.to(torch.int32)
-    if position_ids is None:
-        # positions continue from the number of real tokens each row has seen
-        prev = cache["kv_mask"].sum(dim=-1, dtype=torch.int32)
-        position_ids = prev[:, None] + compute_position_ids(attention_mask)
-        position_ids = torch.where(attention_mask == 0, torch.ones_like(position_ids),
-                                   position_ids)
-    kv_mask = cache["kv_mask"]
-    kv_mask[:, idx:idx + S] = attention_mask
+    if cache is None:
+        kv_mask = attention_mask.contiguous()
+        if position_ids is None:
+            position_ids = compute_position_ids(kv_mask)
+    else:
+        idx = cache["index"]
+        T = cache["k"].shape[2]
+        if idx + S > T:
+            raise ValueError(f"cache of {T} slots cannot take {S} tokens at index {idx}")
+        if position_ids is None:
+            # positions continue from the number of real tokens each row has seen
+            prev = cache["kv_mask"].sum(dim=-1, dtype=torch.int32)
+            position_ids = prev[:, None] + compute_position_ids(attention_mask)
+            position_ids = torch.where(attention_mask == 0, torch.ones_like(position_ids),
+                                       position_ids)
+        kv_mask = cache["kv_mask"]
+        kv_mask[:, idx:idx + S] = attention_mask
     positions = torch.clamp(position_ids, 0, cfg.max_position_embeddings - 1)
     # RoPE's cos and sin, once for every layer (JAX recomputes them per
     # layer inside one jit; eager, that would be ten ops a layer)
@@ -269,7 +310,10 @@ def forward(
                                                    device=x.device))
 
     layers = params["layers"]
-    if S == 1:
+    if cache is None:
+        for layer in layer_unbind(layers, cfg.num_hidden_layers):
+            x = _train_block(layer, cfg, x, kv_mask, rope, policy, remat, kernels)
+    elif S == 1:
         # decode: the new token's k/v stay out of the cache during the layer
         # loop and are written once after it; old_mask covers slots < idx
         x, news = dc.decode_scan(layers, cache, x, _decode_layer_fn(
@@ -291,7 +335,8 @@ def forward(
         for i in range(cfg.num_hidden_layers):
             x = _prefill_block(layer_slice(layers, i), cfg, x, dc.layer_cache(cache, i), kv_mask,
                                idx, rope, policy, kernels)
-    cache["index"] = idx + S
+    if cache is not None:
+        cache["index"] = idx + S
 
     x = layer_norm(params["norm"], x, cfg.norm_epsilon)
     if return_hidden:

@@ -1,12 +1,11 @@
 """StarVector task model, im2svg: vision tower + adapter + code-LLM
 decoder (port of starvector_tpu/models/starvector.py).
 
-v1, StarVector-1B: GPTBigCode decoder, CLIP tower (257 visual tokens),
-inference and training. v2, StarVector-8B: StarCoder2 decoder, SigLIP-384
-tower (576 visual tokens), LayerNorm adapter, inference only (its training
-is ROADMAP queue 1, item 6). text2svg (a caption in, no vision tower) has
-its inputs here (`text2svg_inputs`); its loss is queue 1, item 4.
-Generation lives in starvector_tpu_torch/generation/engine.py.
+v1, StarVector-1B: GPTBigCode decoder, CLIP tower (257 visual tokens).
+v2, StarVector-8B: StarCoder2 decoder, SigLIP-384 tower (576 visual
+tokens), LayerNorm adapter. Both infer and train, im2svg and text2svg (a
+caption in, no vision tower: `text2svg_inputs`). Generation lives in
+starvector_tpu_torch/generation/engine.py.
 """
 
 from __future__ import annotations
@@ -200,35 +199,30 @@ def text2svg_inputs(params: dict, cfg: StarVectorConfig, input_ids: torch.Tensor
 
 
 def _decoder_loss(params, cfg, inputs_embeds, attention_mask, targets, policy, remat, kernels):
-    hidden, _ = gpt_bigcode.forward(params["svg_transformer"], cfg.llm, inputs_embeds,
-                                    attention_mask, policy=policy, remat=remat,
-                                    return_hidden=True, kernels=kernels)
-    return gpt_bigcode.causal_lm_loss_fused(
-        gpt_bigcode.lm_head_table(params["svg_transformer"], cfg.llm), hidden, targets,
-        policy=policy)
-
-
-def _check_task(cfg: StarVectorConfig) -> None:
-    if cfg.task != "im2svg":
-        raise NotImplementedError(
-            f"the {cfg.task} loss is not ported yet: ROADMAP queue 1, item 4")
-    if cfg.decoder != "gpt_bigcode":
-        raise NotImplementedError(
-            f"training the {cfg.decoder} decoder (StarVector-8B) is not ported yet: ROADMAP "
-            "queue 1, item 6")
+    """The decoder's training forward, then the fused LM-head loss over its
+    head table (the JAX loss_fn's tail, either decoder)."""
+    dec = cfg.decoder_module
+    hidden, _ = dec.forward(params["svg_transformer"], cfg.llm, inputs_embeds, attention_mask,
+                            policy=policy, remat=remat, return_hidden=True, kernels=kernels)
+    return gpt_bigcode.causal_lm_loss_fused(dec.lm_head_table(params["svg_transformer"], cfg.llm),
+                                            hidden, targets, policy=policy)
 
 
 def loss_fn(params: dict, cfg: StarVectorConfig, batch: dict, pad_token_id: int, *,
             policy: DTypePolicy = DTypePolicy(), train: bool = False,
             dropout_gen: torch.Generator | None = None, remat: bool | str = False,
             kernels: bool = True) -> torch.Tensor:
-    """The im2svg training loss; batch: image (B, H, W, 3), svg_ids and
-    svg_mask (B, S). Without `train` the BatchNorm adapter takes its
-    running statistics (the eval step)."""
-    _check_task(cfg)
-    inputs = im2svg_inputs(params, cfg, batch["image"], batch["svg_ids"], batch["svg_mask"],
-                           pad_token_id, policy=policy, train=train, dropout_gen=dropout_gen,
-                           remat=remat)
+    """The training loss. batch, im2svg: image (B, H, W, 3), svg_ids and
+    svg_mask (B, S); text2svg: input_ids and input_mask (B, S) (caption +
+    <svg-start> + svg + eos). Without `train` the BatchNorm adapter takes
+    its running statistics (the eval step)."""
+    if cfg.task == "im2svg":
+        inputs = im2svg_inputs(params, cfg, batch["image"], batch["svg_ids"], batch["svg_mask"],
+                               pad_token_id, policy=policy, train=train, dropout_gen=dropout_gen,
+                               remat=remat)
+    else:
+        inputs = text2svg_inputs(params, cfg, batch["input_ids"], batch["input_mask"],
+                                 pad_token_id, policy=policy)
     return _decoder_loss(params, cfg, *inputs, policy, remat, kernels)
 
 
@@ -237,9 +231,9 @@ def loss_fn_with_bn_stats(params: dict, cfg: StarVectorConfig, batch: dict, pad_
                           dropout_gen: torch.Generator | None = None,
                           remat: bool | str = False, kernels: bool = True):
     """Training loss and the BatchNorm adapter's new running statistics:
-    (loss, {"bn_stats": {...}}), or (loss, {}) for a layer_norm adapter."""
-    _check_task(cfg)
-    if cfg.adapter_norm != "batch_norm":
+    (loss, {"bn_stats": {...}}), or (loss, {}) for a layer_norm adapter or
+    text2svg."""
+    if cfg.task != "im2svg" or cfg.adapter_norm != "batch_norm":
         return loss_fn(params, cfg, batch, pad_token_id, policy=policy, train=True,
                        dropout_gen=dropout_gen, remat=remat, kernels=kernels), {}
     enc, _ = _encoder_cfg(cfg)

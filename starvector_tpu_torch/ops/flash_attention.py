@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 
 import torch
 
@@ -324,23 +325,50 @@ def _check_backward(what, q, k, v, kv_mask, do, lse, delta, q_offset, window):
 # flash_bwd_dkdv_bf16_kernel's blocks resident on one SM (about 100 KB of
 # shared memory each, csrc/flash_backward.cu)
 DKDV_BLOCKS_PER_SM = 2
+# a dkdv block's fixed cost (its K/V tile's loads, the dk/dv writes) in
+# (head, query tile) steps: fitted to flash_bwd_dkdv's times at every head
+# split on the H100 at nine of the 1B's and the 8B's training shapes, where
+# it picks the fastest split or one within 4% of it; it does so too at the
+# sequence-parallel chunks it was not fitted to (PERF.md section 6)
+DKDV_BLOCK_STEPS = 9
+DKDV_TILE = 64  # the kernel's key and query tile
 
 
-def dkdv_head_split(B: int, T: int, Hkv: int, G: int, sms: int) -> int:
+def dkdv_query_tiles(S: int, T: int, q_offset: int = 0, causal: bool = True,
+                     window: int | None = None) -> list[int]:
+    """The query tiles a flash_bwd_dkdv block walks for each 64-key tile,
+    per query head (the kernel's query_tiles): from the causal bound of the
+    tile's first key to the window edge of its last."""
+    out = []
+    for t0 in range(0, T, DKDV_TILE):
+        r_lo = max(0, t0 - q_offset) if causal else 0
+        r_hi = S if not window else min(S, min(t0 + DKDV_TILE, T) - 1 + window - q_offset)
+        out.append(-(-r_hi // DKDV_TILE) - r_lo // DKDV_TILE if r_hi > r_lo else 0)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def dkdv_head_split(B: int, T: int, Hkv: int, G: int, sms: int, *, S: int | None = None,
+                    q_offset: int = 0, causal: bool = True, window: int | None = None) -> int:
     """flash_bwd_dkdv's default head_split: the blocks that share each KV
-    head's G query heads (a divisor of G). Under the causal mask with S = T
-    (the train step), the block of the first 64-key tile walks G / split x
-    ceil(T / 64) (head, query tile) steps and sets the kernel's time;
-    splitting the heads shortens it but adds a workspace pass. Returns the
-    smallest divisor whose grid fills the card's `sms` SMs and whose longest
-    block walks at most twice the mean steps of a resident block slot."""
-    n_tiles = -(-T // 64)
-    total = B * Hkv * G * n_tiles * (n_tiles + 1) // 2
-    slots = sms * DKDV_BLOCKS_PER_SM
+    head's G query heads (a divisor of G). A block of key tile j and a
+    share of G / split heads walks G / split x dkdv_query_tiles()[j] steps,
+    so the causal triangle and the window make the blocks unequal, and the
+    grid of B x Hkv x split x key tiles runs in waves over the card's
+    `sms` x DKDV_BLOCKS_PER_SM resident slots. Returns the split whose
+    blocks, each DKDV_BLOCK_STEPS steps more, finish first when handed in
+    launch order (key tiles fastest) to the earliest free slot; the
+    smallest such split on a tie."""
+    walks = dkdv_query_tiles(T if S is None else S, T, q_offset, causal, window)
+    best = None
     for split in (d for d in range(1, G + 1) if G % d == 0):
-        if B * Hkv * n_tiles * split >= sms and (G // split) * n_tiles * slots <= 2 * total:
-            return split
-    return G
+        slots = [0] * (sms * DKDV_BLOCKS_PER_SM)
+        for _ in range(B * Hkv * split):
+            for w in walks:
+                heapq.heapreplace(slots, slots[0] + DKDV_BLOCK_STEPS + (G // split) * w)
+        if best is None or max(slots) < best[0]:
+            best = (max(slots), split)
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -373,7 +401,8 @@ def flash_bwd_dkdv(q, k, v, kv_mask, do, lse, delta, q_offset: int = 0, *,
     if B == 0 or T == 0:
         return dk, dv
     if head_split is None:
-        head_split = dkdv_head_split(B, T, Hkv, G, _sm_count(q.device))
+        head_split = dkdv_head_split(B, T, Hkv, G, _sm_count(q.device), S=S,
+                                     q_offset=int(q_offset), causal=bool(causal), window=window)
     ws = None
     if head_split > 1:
         ws = torch.empty((2, head_split, B, T, Hkv, D), dtype=torch.float32, device=k.device)

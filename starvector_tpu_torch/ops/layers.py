@@ -157,10 +157,9 @@ def maybe_checkpoint(fn, remat):
     "dots_flash", the 1B default, keeps the flash attention's out and lse
     so that the backward never re-runs the attention forward kernel. A
     checkpoint policy sees aten ops, not the kernel's ctypes launch, so the
-    decoder builds that mode by structure instead
-    (models/gpt_bigcode.py::_train_block): it checkpoints the parts before
-    and after the attention and leaves the flash autograd Function outside.
-    Here "dots_flash" checkpoints the whole body, which is what it means for
+    decoders build that mode by structure instead (remat_layer): it
+    checkpoints the parts before and after the attention and leaves the
+    flash autograd Function outside. Here "dots_flash" checkpoints the whole body, which is what it means for
     a module without flash attention (the JAX mode saves that module's
     non-expansion matmul outputs; the numbers are the same). "dots" and
     "dots_slim" are not ported (ROADMAP queue 1, item 4)."""
@@ -178,6 +177,19 @@ def maybe_checkpoint(fn, remat):
         return checkpoint(fn, *args, use_reentrant=False)
 
     return checkpointed
+
+
+def remat_layer(pre, attend, post, remat):
+    """A decoder layer x -> post(x, attend(*pre(x))) under `remat`.
+    "dots_flash" checkpoints pre (the norm and the q/k/v projections) and
+    post (the output projection, residual and MLP) each, and leaves attend,
+    the flash autograd Function, between them, so autograd keeps the
+    attention's out and lse and the backward never re-runs its forward
+    kernel; any other mode is maybe_checkpoint over the whole layer."""
+    if remat == "dots_flash":
+        pre_c, post_c = maybe_checkpoint(pre, True), maybe_checkpoint(post, True)
+        return lambda x: post_c(x, attend(*pre_c(x)))
+    return maybe_checkpoint(lambda x: post(x, attend(*pre(x))), remat)
 
 
 def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Tensor:

@@ -109,12 +109,16 @@ def model_builder(config, device) -> tuple[dict, sv.StarVectorConfig, Any]:
     return sv.init_params(cfg, gen, device=device), cfg, None
 
 
+BATCH_TYPES = {"image": torch.float32, "svg_ids": torch.long, "svg_mask": torch.int32,
+               "input_ids": torch.long, "input_mask": torch.int32}
+
+
 def to_device(batch: dict, device) -> dict:
-    """A loader batch (numpy arrays or tensors) as the loss's tensors on
-    `device`."""
-    return {"image": torch.as_tensor(batch["image"], device=device).float(),
-            "svg_ids": torch.as_tensor(batch["svg_ids"], device=device).long(),
-            "svg_mask": torch.as_tensor(batch["svg_mask"], device=device).int()}
+    """A batch (numpy arrays or tensors) as the loss's tensors on `device`:
+    im2svg's image, svg_ids and svg_mask, and text2svg's input_ids and
+    input_mask, whichever it holds."""
+    return {k: torch.as_tensor(batch[k], device=device).to(t)
+            for k, t in BATCH_TYPES.items() if k in batch}
 
 
 def jsonl_logger(out_dir: str) -> Callable[[dict], None]:
@@ -225,6 +229,7 @@ def reimpose_checkpoint_model_block(config, out_dir: str) -> str | None:
 
 
 def main(config) -> dict:
+    from starvector_tpu_torch.api import tokenizer_version
     from starvector_tpu_torch.config import instantiate_from_config
     from starvector_tpu_torch.models.tokenizer import build_test_tokenizer, load_tokenizer
     from starvector_tpu_torch.train.loader import DataLoader
@@ -241,7 +246,9 @@ def main(config) -> dict:
     params, cfg, tokenizer = model_builder(config, device)
     if tokenizer is None:
         tok_path = g("model.tokenizer_path")
-        tokenizer = load_tokenizer(tok_path, version="v1") if tok_path else build_test_tokenizer()
+        version = tokenizer_version(cfg)
+        tokenizer = (load_tokenizer(tok_path, version=version) if tok_path
+                     else build_test_tokenizer(version))
     batch_size = int(g("data.batch_size", 2))
     loader_kw = dict(max_length=min(int(g("data.max_length", 512)), cfg.max_svg_length),
                      num_workers=int(g("data.num_workers", 4)),

@@ -256,6 +256,74 @@ def test_dkdv_head_split_fills_the_card_at_the_1b_step():
     assert (16 // split) * 13 < 16 * 13
 
 
+# flash_bwd_dkdv's bf16 ms at each head_split on an NVIDIA H100 80GB HBM3 at
+# 700 W, all keys valid (chip_smoke.py::head_split_times, PERF.md section
+# 6): (B, S, T, q_offset, Hkv, G, window) -> {split: ms}. The 1B step, the
+# 8k triangle, the 8B's 36 over 4 heads under its 4096-key window; then
+# three shapes the plan's DKDV_BLOCK_STEPS was not fitted to: the 8k and
+# 16k sequence-parallel chunks and the 16k triangle at 2 heads. At the 8k
+# triangle the pick sits at the margin: 3.7% from the best here, 4.3% in a
+# second sweep on the same card (PERF.md section 6)
+DKDV_SWEEP = {
+    (4, 769, 769, 0, 1, 16, None): {1: 0.6813, 2: 0.3524, 4: 0.1934, 8: 0.1141, 16: 0.1245},
+    (1, 8450, 8450, 0, 1, 16, None): {1: 6.7846, 2: 3.8752, 4: 2.1145, 8: 2.1333, 16: 2.1932},
+    (2, 1160, 1160, 0, 4, 9, 4096): {1: 0.5734, 3: 0.2330, 9: 0.2626},
+    (1, 4700, 4700, 0, 4, 9, 4096): {1: 2.2917, 3: 1.5305, 9: 1.5679},
+    (1, 8192, 8192, 0, 4, 9, 4096): {1: 4.3089, 3: 3.4313, 9: 3.4933},
+    (2, 8192, 8192, 0, 4, 9, 4096): {1: 6.6756, 3: 6.7669, 9: 7.0196},
+    (1, 16384, 16384, 0, 4, 9, 4096): {1: 8.5521, 3: 7.9101, 9: 8.1178},
+    (4, 769, 769, 0, 4, 9, 4096): {1: 0.4044, 3: 0.2294, 9: 0.2778},
+    (1, 2048, 2048, 0, 4, 9, 4096): {1: 0.9395, 3: 0.3790, 9: 0.3401},
+    (1, 1024, 8450, 7426, 1, 16, None): {1: 0.8512, 2: 0.5349, 4: 0.5320, 8: 0.5564, 16: 0.5935},
+    (1, 1024, 16642, 15618, 1, 16, None): {1: 1.0360, 2: 1.0409, 4: 1.0583, 8: 1.0984,
+                                           16: 1.1581},
+    (1, 16642, 16642, 0, 1, 2, None): {1: 1.8590, 2: 1.0374},
+}
+
+
+def _sweep_id(shape):
+    B, S, T, q_offset, Hkv, G, window = shape
+    if S == T and not q_offset:
+        return f"B={B} T={T} Hkv={Hkv} G={G} W={window}"
+    return f"B={B} S={S} T={T} q_offset={q_offset} Hkv={Hkv} G={G} W={window}"
+
+
+@pytest.mark.parametrize("shape", list(DKDV_SWEEP), ids=_sweep_id)
+def test_dkdv_head_split_picks_a_measured_fastest(shape):
+    """On the 132 SMs the sweep ran on, the plan picks the fastest split or
+    one within 4% of it (the causal model it replaced picked 1 at the 8B's
+    B=1 T=8192, 26% slower than 3, and 2 at the 8k triangle, 83% slower
+    than 4); at the 1B train step it picks 8, as before."""
+    B, S, T, q_offset, Hkv, G, window = shape
+    times = DKDV_SWEEP[shape]
+    split = tfa.dkdv_head_split(B, T, Hkv, G, 132, S=S, q_offset=q_offset, window=window)
+    assert times[split] <= 1.04 * min(times.values()), (split, times)
+    if shape == (4, 769, 769, 0, 1, 16, None):
+        assert split == 8
+
+
+@pytest.mark.parametrize("S,T,q_offset,window", [(100, 100, 0, None), (200, 200, 0, 70),
+                                                 (64, 300, 236, None), (90, 400, 310, 100)])
+def test_dkdv_query_tiles_cover_every_visible_pair(S, T, q_offset, window):
+    """The query tiles the plan counts for each key tile hold every query
+    row that sees one of its keys (causal with q_offset, the window), and
+    the 8B's T = 8192 under the 4096-key window walks 6240 of the causal
+    triangle's 8256 (key tile, query tile) steps."""
+    tiles = tfa.dkdv_query_tiles(S, T, q_offset, True, window)
+    q = q_offset + np.arange(S)[:, None]
+    t = np.arange(T)[None, :]
+    vis = (t <= q) & ((t > q - window) if window else True)
+    for j, n in enumerate(tiles):
+        rows = np.nonzero(vis[:, j * 64:(j + 1) * 64].any(axis=1))[0]
+        if n == 0:
+            assert rows.size == 0
+            continue
+        lo = (max(0, j * 64 - q_offset)) // 64
+        assert rows.size and lo * 64 <= rows.min() and rows.max() < (lo + n) * 64
+    assert sum(tfa.dkdv_query_tiles(8192, 8192, 0, True, 4096)) == 6240
+    assert sum(tfa.dkdv_query_tiles(8192, 8192)) == 128 * 129 // 2
+
+
 @pytest.mark.parametrize("head_split", [0, 3, 5, 32])
 def test_flash_bwd_dkdv_rejects_a_head_split_that_does_not_divide_g(head_split):
     """Checked before the CPU takes the plain version, so the argument is

@@ -121,8 +121,9 @@ def test_api_generate_im2svg_matches_jax_api(model):
 
 def test_8b_presets_and_unported_paths():
     """starvector_8b_config is the JAX preset (siglip_384, layer_norm adapter,
-    384 px, 16000 tokens, StarCoder2-7B); the 8B yaml reaches it; 8B training
-    raises, naming the ROADMAP item."""
+    384 px, 16000 tokens, StarCoder2-7B); the 8B yaml reaches it; the 8B
+    loss, which raised naming its ROADMAP item before 8B training was
+    ported, is finite (tests/test_torch_train_8b.py holds it to JAX)."""
     from pathlib import Path
 
     from starvector_tpu_torch.config import load_yaml
@@ -147,5 +148,5 @@ def test_8b_presets_and_unported_paths():
     batch = {"image": torch.zeros((1, 28, 28, 3)),
              "svg_ids": torch.zeros((1, 4), dtype=torch.long),
              "svg_mask": torch.ones((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        tsv.loss_fn(params, tiny, batch, 0)
+    loss = tsv.loss_fn(params, tiny, batch, 0)
+    assert loss.shape == () and torch.isfinite(loss)

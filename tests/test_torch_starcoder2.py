@@ -133,14 +133,23 @@ def test_decode_sees_only_the_window(monkeypatch):
 
 
 def test_unported_paths_raise_naming_roadmap():
-    """The uncached (training) forward raises, naming its ROADMAP item; the
-    cached 5-token call, which raised before the chunk step was ported
-    (item 5), now runs it (tests/test_torch_chunk_step.py holds it to JAX)."""
+    """The uncached (training) forward, which raised naming ROADMAP queue 1,
+    item 6 before it was ported, gives the cached prefill's logits on the
+    same weights and inputs (S = 70 past the window of 8, a left-padded
+    row; its padded query rows see no key and are unspecified); the cached
+    5-token call, which raised before the chunk step was ported (item 5),
+    runs it (tests/test_torch_chunk_step.py holds it to JAX)."""
     _, tcfg = _configs("G=2", "xla")
     params = tsc.init_params(tcfg, torch.Generator().manual_seed(0))
+    embeds, mask = _inputs(tcfg)
+    x, m = torch.from_numpy(embeds[:, :P]), torch.from_numpy(mask)
+    uncached, none = tsc.forward(params, tcfg, x, attention_mask=m, policy=TF32)
+    cached, _ = tsc.forward(params, tcfg, x, attention_mask=m, policy=TF32,
+                            cache=tsc.init_cache(tcfg, 2, P, dtype=torch.float32))
+    assert none is None and uncached.shape == (2, P, tcfg.vocab_size)
+    live = mask.astype(bool)
+    np.testing.assert_allclose(uncached.detach().numpy()[live], cached.numpy()[live], **TOL)
     x = torch.zeros((1, 5, tcfg.hidden_size))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        tsc.forward(params, tcfg, x)
     logits, cache = tsc.forward(params, tcfg, x,
                                 cache=tsc.init_cache(tcfg, 1, 8, dtype=torch.float32))
     assert logits.shape == (1, 5, tcfg.vocab_size) and cache["index"] == 5
@@ -183,3 +192,21 @@ def test_logits_match_hf_starcoder2_past_the_window(hf_model):
                                     policy=TF32)
         out.append(logits)
     np.testing.assert_allclose(torch.cat(out, 1).numpy(), ref, **TOL)
+
+
+def test_uncached_logits_match_hf_starcoder2_past_the_window(hf_model):
+    """The uncached (training) forward over P + STEPS tokens against HF's
+    full-sequence logits (its sliding-window mask drops keys), on HF's
+    random weights, with a right-padded row whose real tokens HF sees alone."""
+    model, tcfg, params = hf_model
+    ids = np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, P + STEPS))
+    mask = np.ones((2, P + STEPS), np.int32)
+    mask[1, P:] = 0
+    with torch.no_grad():
+        ref = model(torch.from_numpy(ids)).logits.numpy()
+        ref1 = model(torch.from_numpy(ids[1:, :P])).logits.numpy()
+    embeds = tsc.embed_tokens(params, torch.from_numpy(ids))
+    logits, _ = tsc.forward(params, tcfg, embeds, attention_mask=torch.from_numpy(mask),
+                            policy=TF32)
+    np.testing.assert_allclose(logits[0].numpy(), ref[0], **TOL)
+    np.testing.assert_allclose(logits[1, :P].numpy(), ref1[0], **TOL)

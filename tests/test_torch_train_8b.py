@@ -1,0 +1,311 @@
+"""Port parity for StarVector-8B training and the text2svg loss: the loss,
+every gradient (decoder, SigLIP tower, LayerNorm adapter), 3 train steps
+and the entry point, against starvector_tpu on the same weights (the JAX
+pytree handed over with from_jax_params) and the same numpy inputs.
+
+A tiny 8B-shaped model: a SigLIP tower (32 px, patch 8: 16 visual tokens),
+the LayerNorm adapter, and a StarCoder2 decoder with 6 query heads over 2
+KV heads and a sliding window of 8, so that the 16 + 12 = 28-token
+sequences exceed it; svg rows are right-padded as the loader pads them. The
+JAX decoder runs attn_impl="flash": its attention is the Pallas
+forward-with-lse and backward in interpret mode, with the window. Adapter
+dropout is off on both sides (the JAX train step passes a dropout key; the
+tests wrap the JAX adapter so that it gets none). Tolerances as in
+test_torch_train.py, fp32: loss 1e-5 relative; gradients rtol 1e-4 with
+atol 1e-6; parameters after 3 train steps 1e-5.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from starvector_tpu.models import adapter as jadapter
+from starvector_tpu.models import gpt_bigcode as jgbc
+from starvector_tpu.models import starcoder2 as jsc
+from starvector_tpu.models import starvector as jsv
+from starvector_tpu.models.vision import siglip as jsig
+from starvector_tpu.ops import layers as jlayers
+from starvector_tpu.train import optim as joptim
+from starvector_tpu.train import step as jstep
+from starvector_tpu_torch.models import convert
+from starvector_tpu_torch.models import gpt_bigcode as tgbc
+from starvector_tpu_torch.models import starcoder2 as tsc
+from starvector_tpu_torch.models import starvector as tsv
+from starvector_tpu_torch.models.vision import siglip as tsig
+from starvector_tpu_torch.ops import flash_attention as tfa
+from starvector_tpu_torch.ops import layers as tlayers
+from starvector_tpu_torch.train import optim as toptim
+from starvector_tpu_torch.train import step as tstep
+
+JF32 = jlayers.DTypePolicy(compute_dtype=jnp.float32)
+TF32 = tlayers.DTypePolicy(compute_dtype=torch.float32)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
+REMATS = [False, True, "dots_flash"]
+WINDOW = 8
+GEOMETRY = dict(num_attention_heads=6, num_key_value_heads=2, hidden_size=96,
+                sliding_window=WINDOW)
+VISION = dict(decoder="starcoder2", image_encoder_type="siglip_384", image_size=32,
+              adapter_norm="layer_norm")
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        return {p: leaf for k, v in tree.items() for p, leaf in _flat(v, prefix + (k,)).items()}
+    return {prefix: tree}
+
+
+def _assert_trees_close(got, ref, tol, what=""):
+    got, ref = _flat(got), _flat(ref)
+    assert set(got) == set(ref), what
+    for path, r in ref.items():
+        g = got[path]
+        g = g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        np.testing.assert_allclose(g, np.asarray(r), err_msg=f"{what} {'/'.join(path)}", **tol)
+
+
+def _configs(task="im2svg", decoder="starcoder2"):
+    """(JAX config, port config): the tiny 8B-shaped model, or for text2svg
+    a tiny 1B (gpt_bigcode) or 8B-shaped (starcoder2) decoder alone."""
+    if decoder == "gpt_bigcode":
+        jcfg = jsv.tiny_config(task=task)
+        return (dataclasses.replace(jcfg, llm=dataclasses.replace(jcfg.llm, attn_impl="flash")),
+                tsv.tiny_config(task=task))
+    vision = VISION if task == "im2svg" else dict(decoder=decoder)
+    towers = (dict(vision_tower=jsig.tiny_config()), dict(vision_tower=tsig.tiny_config())) \
+        if task == "im2svg" else ({}, {})
+    return (jsv.tiny_config(task=task, **vision, **towers[0],
+                            llm=jsc.tiny_config(attn_impl="flash", **GEOMETRY)),
+            tsv.tiny_config(task=task, **vision, **towers[1], llm=tsc.tiny_config(**GEOMETRY)))
+
+
+def _right_padded(B, S, lengths, vocab, rng):
+    mask = (np.arange(S)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
+    ids = rng.integers(1, vocab, (B, S)).astype(np.int32)
+    return np.where(mask > 0, ids, 0).astype(np.int32), mask
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, tcfg = _configs()
+    jparams = jsv.init_params(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    B, S = 3, 12
+    ids, mask = _right_padded(B, S, (12, 7, 10), jcfg.llm.vocab_size, rng)
+    batch = {"image": rng.standard_normal((B, 32, 32, 3)).astype(np.float32),
+             "svg_ids": ids, "svg_mask": mask}
+    assert tcfg.encoder_config.geometry[1] + S > WINDOW
+    return jcfg, tcfg, jparams, batch
+
+
+def _tparams(jparams):
+    return tstep.mark_trainable(convert.from_jax_params(_np_tree(jparams)))
+
+
+def _tbatch(batch):
+    return {k: torch.from_numpy(v).long() if k.endswith("ids") else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
+def _jbatch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _grads(params):
+    return toptim.tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
+
+
+@pytest.fixture
+def jax_adapter_without_dropout(monkeypatch):
+    fn = jadapter.forward
+    monkeypatch.setattr(jadapter, "forward",
+                        lambda *a, dropout_rng=None, **kw: fn(*a, dropout_rng=None, **kw))
+
+
+@pytest.fixture(scope="module")
+def jax_grads(setup):
+    """jax.value_and_grad of loss_fn_with_bn_stats per remat mode."""
+    jcfg, _, jparams, batch = setup
+    out = {}
+    for remat in REMATS:
+        fn = jax.value_and_grad(
+            lambda p, r=remat: jsv.loss_fn_with_bn_stats(p, jcfg, _jbatch(batch), 0, policy=JF32,
+                                                         remat=r), has_aux=True)
+        out[remat] = jax.jit(fn)(jparams)
+    return out
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_8b_loss_and_grads_match_jax(setup, jax_grads, remat, monkeypatch):
+    """The loss and the gradient of every leaf, SigLIP's and the adapter's
+    included, past the window, each layer's attention through the training
+    kernels' plain versions (on the CPU): the forward with lse once a layer,
+    and under remat=True once more in the backward."""
+    _, tcfg, jparams, batch = setup
+    calls = {"flash_prefill_with_lse_plain": 0, "flash_backward_plain": 0}
+    for name in calls:
+        fn = getattr(tfa, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(tfa, name, counted)
+    (ref_loss, ref_aux), ref_grads = jax_grads[remat]
+    params = _tparams(jparams)
+    loss, aux = tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32,
+                                          remat=remat)
+    loss.backward()
+    assert aux == {} and ref_aux == {}
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
+    _assert_trees_close(_grads(params), _np_tree(ref_grads), GRAD_TOL, f"remat={remat}")
+    L = tcfg.llm.num_hidden_layers
+    assert calls == {"flash_prefill_with_lse_plain": L * (2 if remat is True else 1),
+                     "flash_backward_plain": L}
+
+
+@pytest.mark.parametrize("decoder", ["gpt_bigcode", "starcoder2"])
+def test_text2svg_loss_and_grads_match_jax(decoder):
+    """The text2svg loss (caption + svg ids, no vision tower) through
+    loss_fn_with_bn_stats, for the tiny 1B and the tiny 8B-shaped decoder
+    (its window exceeded): the loss and every gradient."""
+    jcfg, tcfg = _configs("text2svg", decoder)
+    jparams = jsv.init_params(jcfg, jax.random.PRNGKey(1))
+    assert set(jparams) == {"svg_transformer"}
+    ids, mask = _right_padded(3, 20, (20, 13, 9), jcfg.llm.vocab_size,
+                              np.random.default_rng(1))
+    batch = {"input_ids": ids, "input_mask": mask}
+    (ref_loss, ref_aux), ref_grads = jax.jit(jax.value_and_grad(
+        lambda p: jsv.loss_fn_with_bn_stats(p, jcfg, _jbatch(batch), 0, policy=JF32,
+                                            remat="dots_flash"), has_aux=True))(jparams)
+    params = _tparams(jparams)
+    loss, aux = tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32,
+                                          remat="dots_flash")
+    loss.backward()
+    assert aux == {} and ref_aux == {}
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
+    _assert_trees_close(_grads(params), _np_tree(ref_grads), GRAD_TOL, decoder)
+    with torch.no_grad():  # the eval loss takes the same route
+        assert float(tsv.loss_fn(params, tcfg, _tbatch(batch), 0, policy=TF32)) == \
+            pytest.approx(float(ref_loss), rel=1e-5)
+
+
+def test_8b_train_steps_match_jax(setup, jax_adapter_without_dropout):
+    """3 steps of make_train_step (dots_flash, AdamW with warmup, decay and
+    clipping) against the JAX make_train_step: loss, grad_norm and every
+    parameter."""
+    jcfg, tcfg, jparams, batch = setup
+    kw = dict(lr=1e-3, warmup_steps=1, weight_decay=0.05, betas=(0.95, 0.999), eps=1e-6,
+              total_steps=10)
+    tx = joptim.build_optimizer(jparams, **kw)
+    jstate = tx.init(jparams)
+    jtrain = jstep.make_train_step(jcfg, tx, 0, policy=JF32, remat="dots_flash")
+    jp = jax.tree_util.tree_map(jnp.copy, jparams)
+    tparams = _tparams(jparams)
+    opt = toptim.build_optimizer(tparams, **kw)
+    tstate = opt.init(tparams)
+    ttrain = tstep.make_train_step(tcfg, opt, 0, policy=TF32, remat="dots_flash")
+    losses = []
+    for i in range(3):
+        jp, jstate, jm = jtrain(jp, jstate, _jbatch(batch), jax.random.PRNGKey(i))
+        tparams, tstate, tm = ttrain(tparams, tstate, _tbatch(batch), None)
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+        assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-4)
+        _assert_trees_close(tparams, _np_tree(jp), PARAM_TOL, f"step {i}")
+        losses.append(float(tm["loss"]))
+    assert losses[-1] < losses[0]
+
+
+def test_8b_remat_modes_refused_or_unknown(setup):
+    """"dots" and "dots_slim" raise naming their ROADMAP item, as for the
+    1B; an unknown mode raises ValueError."""
+    _, tcfg, jparams, batch = setup
+    params = _tparams(jparams)
+    for mode in ("dots", "dots_slim"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+            tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32, remat=mode)
+    with pytest.raises(ValueError, match="unknown gradient_checkpointing"):
+        tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32,
+                                  remat="dots-flash")
+
+
+TINY_V2_YAML = """
+model:
+  preset: tiny-v2
+  adapter_norm: layer_norm
+  max_length: 128
+training:
+  steps: 3
+  epochs: 2
+  lr: 1.0e-3
+  lr_scheduler: constant
+  lr_warmup_steps: 0
+  log_every: 1
+  bf16: false
+  checkpointing_steps: 3
+  gradient_checkpointing: dots_flash
+  device: cpu
+data:
+  batch_size: 2
+  max_length: 64
+  num_workers: 1
+  train:
+    target: starvector_tpu.data.datasets.ToySVGDataset
+    params: {num_samples: 4, im_size: 28}
+  val: null
+"""
+
+
+def test_train_main_tiny_v2_end_to_end(tmp_path):
+    """train.main on a tiny-v2 yaml (the StarCoder2 decoder, a LayerNorm
+    adapter: no BatchNorm statistics anywhere in the tree): the v2 test
+    tokenizer, 3 logged steps with finite losses, and a checkpoint whose
+    parameters are the returned ones."""
+    from starvector_tpu_torch.config import get_config
+    from starvector_tpu_torch.train import checkpoint as tckpt
+    from starvector_tpu_torch.train.train import main
+
+    path = tmp_path / "tiny-v2.yaml"
+    path.write_text(TINY_V2_YAML)
+    out = tmp_path / "run"
+    config = get_config([f"config={path}", f"project.out_dir={out}"])
+    params = main(config)
+    assert set(params) == {"svg_transformer", "image_encoder", "image_projection"}
+    assert "running_mean" not in params["image_projection"]["norm"]
+    recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in recs)
+    last = tckpt.get_last_checkpoint(str(out))
+    assert tckpt.step_from_path(last) == 3
+    saved = tckpt.restore_checkpoint(last)["params"]
+    for a, b in zip(toptim.tree_leaves(saved), toptim.tree_leaves(params)):
+        torch.testing.assert_close(a, b.detach(), rtol=0, atol=0)
+
+
+def test_causal_lm_loss_over_the_starcoder2_head():
+    """The 8B's loss tail: causal_lm_loss_fused over starcoder2's tied
+    head table and over an untied lm_head, as the JAX loss_fn takes it."""
+    rng = np.random.default_rng(5)
+    for tie in (True, False):
+        jcfg = jsc.tiny_config(tie_word_embeddings=tie)
+        tcfg = tsc.tiny_config(tie_word_embeddings=tie)
+        jp = jsc.init_params(jcfg, jax.random.PRNGKey(2))
+        hidden = rng.standard_normal((2, 9, jcfg.hidden_size)).astype(np.float32)
+        labels = rng.integers(0, jcfg.vocab_size, (2, 9)).astype(np.int32)
+        labels[1, 6:] = -100
+        ref = jgbc.causal_lm_loss_fused(jsc.lm_head_table(jp, jcfg), jnp.asarray(hidden),
+                                        jnp.asarray(labels), policy=JF32)
+        tp = convert.from_jax_params(_np_tree(jp))
+        got = tgbc.causal_lm_loss_fused(tsc.lm_head_table(tp, tcfg), torch.from_numpy(hidden),
+                                        torch.from_numpy(labels), policy=TF32)
+        assert ("lm_head" in tp) is not tie
+        np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
