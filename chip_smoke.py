@@ -61,6 +61,12 @@ Phases, one line each (any failure raises and exits non-zero):
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
      training kernel, peak memory (also above what was held before it);
      then 2 fp32 steps with the kernels against 2 with the plain attention
+  5b. the export round trip: the trained 1B through train/hub.py's
+     export_hf_checkpoint into a temporary directory (the reference HF
+     layout), back through models/builder.py's load_pretrained_model at
+     fp32: fp32 greedy ids for 2 images equal those of the in-memory
+     weights, with flash_prefill and decode_attention launched; the
+     directory is then deleted
   6. inference at full StarVector-8B width and depth (StarCoder2-7B 4608 x
      32 layers, GQA 36/4, window 4096; SigLIP-L/16 at 384; LayerNorm
      adapter) on random bf16 weights that StarVectorForCausalLM.from_config
@@ -85,6 +91,15 @@ Phases, one line each (any failure raises and exits non-zero):
      8 launches a step of each training kernel, peak memory; one loss and
      backward with remat=True (16 forwards); then 2 fp32 steps at 2 layers,
      T = 4700, kernels against plain
+  6c. the 8B's own recipe at full width and all 32 decoder layers, read
+     from configs/models/starvector-8b/im2svg-stack-v5e8.yaml through the
+     functions train.main uses: Adafactor, bf16 gradients (grad_dtype),
+     dots_flash (or the yaml's fallback, full remat, if that does not fit;
+     then the deepest depth that fits), fp32 masters, bf16 compute; lr
+     raised and warmup dropped so that the loss falls in 5 steps; B=1,
+     T = 8192 on phase 6b's batch: loss falling at every step, the training kernels'
+     launches a step, step time, tokens/s and peak memory beside the
+     state's bytes (masters, bf16 cast, bf16 gradients, Adafactor)
   7. times on the card, each beside the card's name and power limit: each
      kernel against its plain version, its bound and one PyTorch library
      call where there is one (the 8B's at its shapes too), the 1B and 8B
@@ -1569,10 +1584,11 @@ def _optimizer(params):
 
 
 def _run_training(sv, tfa, cfg, dev, batch, steps: int, policy, kernels: bool = True,
-                  hook=None):
+                  hook=None, *, optimizer=_optimizer, remat="dots_flash", grad_dtype=None):
     """`steps` steps of the port's train loop from fresh seeded weights;
     (params, per-step records of loss, grad_norm, wall time and launches).
-    `hook(step)` runs after each step's record."""
+    `optimizer(params)` builds the optimizer; `hook(step)` runs after each
+    step's record."""
     from starvector_tpu_torch.train.train import train_loop
 
     params = sv.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -1590,9 +1606,9 @@ def _run_training(sv, tfa, cfg, dev, batch, steps: int, policy, kernels: bool = 
 
     torch.cuda.synchronize()
     t_last[0] = time.perf_counter()
-    params, _, _ = train_loop(params, cfg, _optimizer(params),
+    params, _, _ = train_loop(params, cfg, optimizer(params),
                               ((0, batch) for _ in range(steps)), total_steps=steps, device=dev,
-                              policy=policy, remat="dots_flash", kernels=kernels,
+                              policy=policy, remat=remat, grad_dtype=grad_dtype, kernels=kernels,
                               on_step=on_step)
     return params, recs
 
@@ -1611,8 +1627,8 @@ def train_slice(sv, tfa, dev, process_images) -> dict:
     base = torch.cuda.memory_allocated()  # the inference phases' weights, still held
     torch.cuda.reset_peak_memory_stats()
     reset_counts(tfa)
-    _, recs = _run_training(sv, tfa, cfg, dev, batch, TRAIN_STEPS,
-                            DTypePolicy(torch.float32, torch.bfloat16))
+    params, recs = _run_training(sv, tfa, cfg, dev, batch, TRAIN_STEPS,
+                                 DTypePolicy(torch.float32, torch.bfloat16))
     counts = read_counts(tfa)
     peak = torch.cuda.max_memory_allocated()
     losses, norms, per_step = check_train_run("training", recs, counts, L)
@@ -1624,21 +1640,29 @@ def train_slice(sv, tfa, dev, process_images) -> dict:
                  f"{per_step[0]} (each = {L} layers), in all {counts}; peak memory "
                  f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above the "
                  f"{base / 2**30:.2f} GiB held before the first step")
-    return dict(recs=recs, counts=counts, T=T, B=len(SVG_LENGTHS), peak=peak, base=base)
+    return dict(recs=recs, counts=counts, T=T, B=len(SVG_LENGTHS), peak=peak, base=base,
+                params=params, cfg=cfg)
 
 
-def check_train_run(what: str, recs: list, counts: dict, L: int):
-    """Raise unless every loss and grad norm is finite, the loss fell, and
-    each step launched each training kernel once a layer and no other
-    kernel; (losses, grad norms, launches per step)."""
+def check_train_run(what: str, recs: list, counts: dict, L: int, forwards: int = 1,
+                    every_step: bool = False):
+    """Raise unless every loss and grad norm is finite, the loss fell (the
+    last below every loss of the first half; with `every_step`, each below
+    the one before), and each step launched each training kernel once a
+    layer (the forward `forwards` times) and no other kernel; (losses, grad
+    norms, launches per step)."""
     losses = [r["loss"] for r in recs]
     norms = [r["grad_norm"] for r in recs]
     per_step = [{k: b[k] - a[k] for k in TRAIN_KERNELS}
                 for a, b in zip([dict.fromkeys(TRAIN_KERNELS, 0)] + [r["launches"] for r in recs],
                                 [r["launches"] for r in recs])]
-    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+    fell = losses[-1] < min(losses[:max(len(losses) // 2, 1)])
+    if every_step:
+        fell = fell and all(b < a for a, b in zip(losses, losses[1:]))
+    if not all(np.isfinite(losses + norms)) or not fell:
         raise AssertionError(f"{what}: losses {losses}, grad norms {norms}")
-    if any(n != {k: L for k in TRAIN_KERNELS} for n in per_step) or \
+    expected = {k: L * (forwards if k == "flash_prefill_with_lse" else 1) for k in TRAIN_KERNELS}
+    if any(n != expected for n in per_step) or \
             counts["flash_prefill"] or counts["decode_attention"] or counts["quant_matmul"]:
         raise AssertionError(f"{what} launches per step {per_step}, in all {counts}")
     return losses, norms, per_step
@@ -1686,6 +1710,70 @@ def fp32_check(sv, tfa, dev, cfg, batch, what: str) -> None:
     torch.cuda.empty_cache()
 
 
+def export_round_trip(sv, tfa, dev, train: dict, images) -> dict:
+    """Phase 5b: the trained 1B (phase 5's fp32 masters) through
+    train/hub.py's export_hf_checkpoint into a temporary directory, back
+    through models/builder.py's load_pretrained_model at fp32; the loaded
+    model's fp32 greedy ids for `images` (2, phase 4's) equal the in-memory
+    weights', each generation launching flash_prefill once a layer and
+    decode_attention once a layer a step. The directory is deleted."""
+    import shutil
+    import tempfile
+
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.models.builder import load_pretrained_model
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.train.hub import export_hf_checkpoint
+    from starvector_tpu_torch.train.optim import tree_map
+
+    cfg = train["cfg"]
+    L = cfg.llm.n_layer
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    params = tree_map(lambda p: p.detach(), train.pop("params"))
+    out = tempfile.mkdtemp(prefix="starvector-export-")
+    try:
+        t0 = time.perf_counter()
+        export_hf_checkpoint(params, cfg, build_test_tokenizer("v1"), out)
+        t_export = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(out).iterdir())
+        t0 = time.perf_counter()
+        loaded, cfg2, tok, _, context_len = load_pretrained_model(out, torch.float32, dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if cfg2.llm != cfg.llm or context_len != cfg.max_length_train or tok.version != "v1":
+        raise AssertionError(f"export round trip: config {cfg2.llm} vs {cfg.llm}, context "
+                             f"{context_len} vs {cfg.max_length_train}, tokenizer {tok.version}")
+    kw = {**GREEDY, "prompt_ids": [PROMPT_IDS] * 2, "max_new_tokens": 32}
+    ids, launches = {}, {}
+    for name, tree, c in (("in memory", params, cfg), ("reloaded", loaded, cfg2)):
+        reset_counts(tfa)
+        _, ids[name], lengths = StarVectorForCausalLM(tree, c, policy=f32, device=dev) \
+            .generate_im2svg_ids({"image": images}, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts(tfa)
+        steps = int(lengths.max()) - 1
+        launches[name] = {k: counts[k] for k in ("flash_prefill", "decode_attention")}
+        if launches[name] != {"flash_prefill": L, "decode_attention": L * steps} or steps < 1:
+            raise AssertionError(f"export round trip, {name}: launches {launches[name]}, "
+                                 f"{steps} decode steps")
+    if not torch.equal(ids["in memory"], ids["reloaded"]):
+        raise AssertionError(f"export round trip: greedy ids differ\n{ids['in memory'].tolist()}"
+                             f"\n{ids['reloaded'].tolist()}")
+    log("export", f"the trained 1B through export_hf_checkpoint ({size / 1e9:.3f} GB written in "
+                  f"{t_export:.1f} s) and load_pretrained_model at fp32 ({t_load:.1f} s; "
+                  f"context_len {context_len}): fp32 greedy ids for 2 images, 32 tokens, equal "
+                  f"to the in-memory weights' ({[len(set(r.tolist())) for r in ids['reloaded']]} "
+                  f"distinct ids a row); launches {launches['reloaded']} (each = {L} layers); "
+                  f"the directory deleted")
+    del params, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["reloaded"]
+
+
 TRAIN_KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
     ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),  # with its finish kernel
     ("flash_bwd_dq", ("flash_bwd_dq",)),
@@ -1695,12 +1783,17 @@ TRAIN_KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first
 )
 
 
+PROFILE_FILES = {"1B": "profile_train.txt", "8B": "profile_train_8b.txt",
+                 "8B recipe": "profile_train_8b_recipe.txt"}
+
+
 def profile_train_step(sv, tfa, dev, cfg, batch, card: str, step_wall: float, out_dir: Path,
-                       label: str) -> None:
+                       label: str, remat="dots_flash", **run) -> None:
     """Where one full-width train step's device time goes: torch.profiler
     traces the 4th step of a fresh run (3 of warm-up); the wall time is
-    the unprofiled median of phase 5 (the 1B) or 6b (the 8B). Writes the
-    kernel table to out_dir/profile_train[_8b].txt."""
+    the unprofiled median of phase 5 (the 1B), 6b (the 8B) or 6c (the 8B
+    recipe; `run` its optimizer and grad_dtype). Writes the kernel table to
+    out_dir/PROFILE_FILES[label]."""
     from torch.profiler import ProfilerActivity, profile
 
     from starvector_tpu_torch.ops.layers import DTypePolicy
@@ -1714,7 +1807,9 @@ def profile_train_step(sv, tfa, dev, cfg, batch, card: str, step_wall: float, ou
             prof.stop()
 
     _run_training(sv, tfa, cfg, dev, batch, 4, DTypePolicy(torch.float32, torch.bfloat16),
-                  hook=hook)
+                  hook=hook, remat=remat, **run)
+    gc.collect()
+    torch.cuda.empty_cache()
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     by_class: dict[str, float] = {}
@@ -1728,10 +1823,11 @@ def profile_train_step(sv, tfa, dev, cfg, batch, card: str, step_wall: float, ou
     out_dir.mkdir(parents=True, exist_ok=True)
     B, S = batch["svg_ids"].shape
     T = cfg.encoder_config.geometry[1] + S
-    path = out_dir / ("profile_train.txt" if label == "1B" else "profile_train_8b.txt")
+    path = out_dir / PROFILE_FILES[label]
     path.write_text(
         f"{card}\nStarVector-{label} train step, B={B} T={T}, {cfg.llm.n_layer} decoder layers, "
-        "bf16 compute, dots_flash\n"
+        f"bf16 compute, remat {remat!r}, "
+        + ("Adafactor, bf16 gradients\n" if label == "8B recipe" else "AdamW\n")
         + prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     log("profile", f"{card}: {label} train step B={B} T={T} (tables in {path}): wall "
                    f"{step_wall * 1e3:.1f} ms without the profiler, device {device:.1f} ms under "
@@ -2292,6 +2388,109 @@ def train_slice_8b(sv, tfa, dev) -> dict:
     return dict(recs=recs, counts=counts, T=T, B=B, peak=peak, base=base, cfg=cfg, batch=batch)
 
 
+RECIPE_8B = "configs/models/starvector-8b/im2svg-stack-v5e8.yaml"
+# lr 1e-3 without warmup: the yaml's 1e-5 after 10 warmup steps moves
+# nothing in 5 steps (Adafactor's step is lr x a leaf's RMS); at 1e-2 and
+# 3e-3 the loss rose again at the 4th step (the norms' scales, RMS 1, move
+# by lr a step). The phase holds each step's loss below the one before.
+RECIPE_LR, RECIPE_STEPS = 1e-3, 5
+
+
+def train_recipe_8b(sv, tfa, dev, card: str, batch) -> dict:
+    """Phase 6c: the 8B's own recipe (RECIPE_8B, read through the port's
+    config loader and train.main's own functions: Adafactor, grad_dtype
+    bfloat16, dots_flash, fp32 masters, bf16 compute) at full width and all
+    32 decoder layers, RECIPE_STEPS steps of the port's train loop on phase
+    6b's batch (B=1, T=8192). If dots_flash runs out of memory, the yaml's
+    fallback (full remat), then the deepest depth that fits. Checks the
+    loss falls at every step, every value is finite and each step launched each training
+    kernel once a layer (the forward twice under full remat); logs step
+    time, tokens/s and peak memory beside the state's bytes."""
+    import dataclasses
+
+    from starvector_tpu_torch.config import get_config, resolve_repo_config
+    from starvector_tpu_torch.models.builder import config_from_yaml_block
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.train.optim import Adafactor, build_optimizer, tree_leaves
+    from starvector_tpu_torch.train.train import (
+        grad_dtype_from, optimizer_kwargs_from_config, remat_mode,
+    )
+
+    config = get_config([f"config={RECIPE_8B}"], default_path=resolve_repo_config())
+    g = config.get_path
+    kw = optimizer_kwargs_from_config(config)
+    yaml_lr = (kw["lr"], kw["warmup_steps"])
+    kw.update(lr=RECIPE_LR, warmup_steps=0)
+    grad_dtype = grad_dtype_from(g("training.grad_dtype"))
+    policy = DTypePolicy(torch.float32, torch.bfloat16 if g("training.bf16", True)
+                         else torch.float32)
+    full = config_from_yaml_block(dict(g("model")))
+    if kw["optimizer"] != "adafactor" or grad_dtype != torch.bfloat16 or \
+            full.llm.num_hidden_layers != 32:
+        raise AssertionError(f"{RECIPE_8B}: {kw}, grad_dtype {grad_dtype}, {full.llm}")
+    total_steps = int(g("training.steps", 10_000))
+
+    def optimizer(p):
+        return build_optimizer(p, total_steps=total_steps, **kw)
+
+    tries = [(remat_mode(g("training.gradient_checkpointing", True)), 32), (True, 32),
+             (True, 24), (True, 16)]
+    notes = []
+    for remat, layers in tries:
+        cfg = dataclasses.replace(full, llm=dataclasses.replace(full.llm,
+                                                               num_hidden_layers=layers))
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(tfa)
+        try:
+            params, recs = _run_training(sv, tfa, cfg, dev, batch, RECIPE_STEPS, policy,
+                                         remat=remat, grad_dtype=grad_dtype, optimizer=optimizer)
+        except torch.cuda.OutOfMemoryError as e:
+            notes.append(f"remat={remat!r} at {layers} layers ran out of memory "
+                         f"({str(e).splitlines()[0][:120]})")
+            continue
+        break
+    else:
+        raise AssertionError(f"8B recipe: nothing fits: {notes}")
+    counts = read_counts(tfa)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.llm.num_hidden_layers
+    losses, norms, per_step = check_train_run("8B recipe", recs, counts, L,
+                                              forwards=2 if remat is True else 1,
+                                              every_step=True)
+    n = sum(p.numel() for p in tree_leaves(params))
+    opt_state = sum(
+        (p.numel() if Adafactor.factored_dims(p.shape) is None else
+         p.numel() // p.shape[Adafactor.factored_dims(p.shape)[1]]
+         + p.numel() // p.shape[Adafactor.factored_dims(p.shape)[0]]) * 4
+        for p in tree_leaves(params))
+    state = {"fp32 masters": 4 * n, "bf16 cast": 2 * n, "bf16 gradients": 2 * n,
+             "Adafactor": opt_state}
+    T = cfg.encoder_config.geometry[1] + batch["svg_ids"].shape[1]
+    step = statistics.median(r["seconds"] for r in recs[1:])
+    log("train", f"{card}: StarVector-8B, its own recipe ({RECIPE_8B}: Adafactor, grad_dtype "
+                 f"bfloat16, gradient_checkpointing {remat!r}, fp32 masters, bf16 compute; lr "
+                 f"{RECIPE_LR} without warmup in place of the yaml's {yaml_lr[0]} after "
+                 f"{yaml_lr[1]} warmup steps) at full width and {L} of 32 decoder layers "
+                 f"({n / 1e9:.3f} B parameters), B=1, T={T}"
+                 + (f"; fell back: {'; '.join(notes)}" if notes else "")
+                 + f": {RECIPE_STEPS} steps on one batch, loss {[round(x, 4) for x in losses]}, "
+                 f"grad_norm {[round(x, 4) for x in norms]}; launches per step {per_step[0]} "
+                 f"(each = {L} layers); step {step * 1e3:.1f} ms wall (median of steps 2-"
+                 f"{RECIPE_STEPS}), {T / step:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
+                 f"({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} held before); state "
+                 + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in state.items())
+                 + f" GiB, {sum(state.values()) / 2**30:.2f} GiB in all")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, step=step, run=dict(remat=remat, grad_dtype=grad_dtype,
+                                             optimizer=optimizer))
+
+
 # flash_bwd_dkdv's head_split sweep: B, S, T, q_offset, Hkv, G, window. The
 # 1B step, the 8k triangle and its SP chunk, the 16k SP chunk and triangle;
 # the 8B's heads under its window from T = 769 to 16384
@@ -2811,6 +3010,10 @@ def main() -> int:
     # --- 5. training at full width ----------------------------------------------
     phase(5, "StarVector-1B training")
     train = train_slice(sv, tfa, dev, clip_images)
+
+    # --- 5b. the trained 1B out as an HF checkpoint and back in ------------------
+    phase("5b", "the export round trip")
+    export_round_trip(sv, tfa, dev, train, clip_images(synthetic_images(2, 7)))
     cfg1 = sv.starvector_1b_config()
     fp32_check(sv, tfa, dev, cfg1, training_batch(cfg1, clip_images, dev), "1B")
     gc.collect()
@@ -2823,6 +3026,10 @@ def main() -> int:
     # --- 6b. StarVector-8B training at full width, 8 layers -------------------------
     phase("6b", "StarVector-8B training")
     t8 = train_slice_8b(sv, tfa, dev)
+
+    # --- 6c. the 8B's own recipe at full depth -----------------------------------
+    phase("6c", "StarVector-8B training, its own recipe at full depth")
+    recipe = train_recipe_8b(sv, tfa, dev, card, t8["batch"])
 
     # --- 7. kernel times on the card -----------------------------------------
     phase(7, "times")
@@ -2882,6 +3089,8 @@ def main() -> int:
             batch = t8["batch"] if label == "8B" else training_batch(cfg1, clip_images, dev)
             step_wall = statistics.median(r["seconds"] for r in run["recs"][3:])
             profile_train_step(sv, tfa, dev, cfg_t, batch, card, step_wall, args.profile, label)
+        profile_train_step(sv, tfa, dev, recipe["cfg"], t8["batch"], card, recipe["step"],
+                           args.profile, "8B recipe", **recipe["run"])
 
     log("phase", f"done, {time.perf_counter() - t_run:.0f} s into the run")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "starvector_tpu"))

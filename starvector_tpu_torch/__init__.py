@@ -7,17 +7,20 @@ jax-free modules (config, tokenizer, datasets, loader, rasterizer) it keeps
 its own copy. Its entry points run on the card unless asked for the CPU.
 
 Layer map:
-  api.py        -- StarVectorForCausalLM: process_images, generate_im2svg
+  api.py        -- StarVectorForCausalLM: process_images, generate_im2svg,
+                   generate_text2svg, forward (the loss); StarVectorPipeline
   generation/   -- the cached generation loop (engine.py)
-  models/       -- StarVector task model, CLIP ViT, adapter, GPTBigCode
-                   decoder, KV cache, weight conversion
+  models/       -- StarVector task model, CLIP ViT and SigLIP towers, adapter,
+                   GPTBigCode and StarCoder2 decoders, KV cache, weights in
+                   (convert.py) and out (export.py), the builder (builder.py)
   ops/          -- layers, plain attention, sampling, int8 weights
                    (quantization.py), and the wrappers of the hand-written
                    CUDA kernels (flash_attention.py, quantization.py)
   csrc/         -- the CUDA C++ kernels for sm_90a, built at first use by
                    ops/kernel_lib.py into _build/
-  data/, train/, config.py -- datasets, rasterizer (native/), loader and the
-                   training entry point
+  data/, train/, config.py -- datasets, rasterizer (native/), loader, the
+                   training entry point, optimizers, HF export (train/hub.py)
+  utils/        -- run identity, code snapshot, metrics sink
 """
 
 import torch

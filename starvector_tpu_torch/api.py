@@ -5,6 +5,8 @@ starvector_tpu/api.py::StarVectorForCausalLM, im2svg and text2svg).
     batch = {"image": model.process_images([image])}
     raw_svg = model.generate_im2svg(batch, max_length=4000)[0]
     svg = model.generate_text2svg({"caption": ["a red circle"]}, max_new_tokens=512)[0]
+    loss = model.forward(batch_with_svg_ids)
+    out = StarVectorPipeline(model)(image)  # {"raw_svg", "svg", "raster"}
 
 Greedy and sampled im2svg and text2svg are ported for StarVector-1B and
 StarVector-8B, in bf16 or fp32, or with int8 decoder weights
@@ -14,8 +16,7 @@ and GRPO rollouts raise NotImplementedError naming their ROADMAP item.
 
 from __future__ import annotations
 
-import json
-import os
+import dataclasses
 from typing import Any, Sequence
 
 import numpy as np
@@ -77,40 +78,37 @@ class StarVectorForCausalLM:
     def from_pretrained(cls, path: str, dtype=torch.bfloat16, device="cuda", *,
                         quantize: bool = False):
         """Load an HF-layout StarVector-1B or -8B checkpoint directory
-        (model*.safetensors, config.json, tokenizer.json); the tokenizer is
-        the decoder's version (tokenizer_version). Needs the `safetensors`
-        and `tokenizers` packages. `quantize=True` converts the decoder's
-        large matmul weights to per-channel int8 (the JAX package's rule:
+        (model*.safetensors, config.json, tokenizer.json) through
+        models/builder.py::load_pretrained_model; the tokenizer is the
+        decoder's version (tokenizer_version). Needs the `safetensors` and
+        `tokenizers` packages. `quantize=True` converts the decoder's large
+        matmul weights to per-channel int8 (the JAX package's rule:
         `quantize_tree` on the decoder only, at its default threshold: the
         1B's four projections a layer, the 8B's six; the vision tower,
         adapter, embeddings and norms keep `dtype`)."""
-        from safetensors.numpy import load_file
-
-        from starvector_tpu_torch.models.convert import config_from_hf, from_hf_state_dict
-        from starvector_tpu_torch.models.tokenizer import load_tokenizer
+        from starvector_tpu_torch.models.builder import load_pretrained_model
         from starvector_tpu_torch.ops.quantization import quantize_tree
 
-        device = require_device(device, 'device="cpu"')
-
-        sd: dict = {}
-        for name in sorted(os.listdir(path)):
-            if name.endswith(".safetensors"):
-                sd.update(load_file(os.path.join(path, name)))
-        with open(os.path.join(path, "config.json")) as f:
-            hf_cfg = json.load(f)
-        cfg = config_from_hf(sd, hf_cfg)
-        params = from_hf_state_dict(sd, dtype=dtype, device=device)
-        del sd
+        params, cfg, tokenizer, _, _ = load_pretrained_model(path, dtype, device)
         if quantize:
             params["svg_transformer"] = quantize_tree(params["svg_transformer"])
-        return cls(params, cfg, load_tokenizer(path, version=tokenizer_version(cfg)),
-                   device=device,
+        return cls(params, cfg, tokenizer, device=device,
                    policy=DTypePolicy(param_dtype=dtype, compute_dtype=torch.bfloat16))
 
     # -- reference surface --------------------------------------------------
     def process_images(self, images: Sequence[Any]) -> torch.Tensor:
         """uint8 (H, W, 3|4) arrays or PIL images -> (B, H, W, 3) normalized."""
         return self.processor.batch(images)
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """The training loss of a batch (the loader's keys: image, svg_ids,
+        svg_mask; or text2svg's input_ids, input_mask), with the adapter's
+        running statistics and no dropout, as the JAX forward."""
+        from starvector_tpu_torch.train.train import to_device
+
+        pad = self.tokenizer.pad_token_id if self.tokenizer is not None else 0
+        return sv.loss_fn(self.params, self.cfg, to_device(batch, self.device), pad,
+                          policy=self.policy, kernels=self.kernels)
 
     def _gen_config(self, kwargs: dict, stop_sequences, *,
                     text2svg: bool = False) -> GenerationConfig:
@@ -221,3 +219,19 @@ class StarVectorForCausalLM:
         _, tokens, lengths = self.generate_text2svg_ids(batch, **kwargs)
         return [self.tokenizer.decode(row[:int(L)])
                 for row, L in zip(tokens.cpu().numpy(), lengths.tolist())]
+
+
+@dataclasses.dataclass
+class StarVectorPipeline:
+    """image -> svg -> raster, the reference quickstart's tail
+    (process_and_rasterize_svg from the port's data/rasterize.py)."""
+
+    model: StarVectorForCausalLM
+
+    def __call__(self, image, **kwargs) -> dict:
+        from starvector_tpu_torch.data.rasterize import process_and_rasterize_svg
+
+        raw = self.model.generate_im2svg({"image": self.model.process_images([image])},
+                                         **kwargs)[0]
+        svg, raster = process_and_rasterize_svg(raw)
+        return {"raw_svg": raw, "svg": svg, "raster": raster}

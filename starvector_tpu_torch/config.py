@@ -17,9 +17,7 @@ instantiates the counterpart under `starvector_tpu_torch.data`.
 from __future__ import annotations
 
 import copy
-import hashlib
 import importlib
-import json
 import os
 from typing import Any, Iterable, Mapping
 
@@ -250,10 +248,3 @@ def get_obj_from_str(path: str) -> Any:
     module_name, _, obj_name = port_target(path).rpartition(".")
     module = importlib.import_module(module_name)
     return getattr(module, obj_name)
-
-
-def experiment_id(cfg: Mapping) -> str:
-    """Deterministic run identity = md5 of the full config (reference:
-    starvector/util.py:98-146)."""
-    blob = json.dumps(_unwrap(cfg), sort_keys=True, default=str)
-    return hashlib.md5(blob.encode()).hexdigest()[:12]

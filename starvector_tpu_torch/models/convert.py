@@ -1,6 +1,7 @@
 """Weights into the port (port of starvector_tpu/models/convert.py, the
-SigLIP converter of starvector_tpu/models/vision/siglip.py, and
-starvector_tpu/models/builder.py::load_hf_starvector_checkpoint).
+SigLIP converter of starvector_tpu/models/vision/siglip.py, and the weight half of
+starvector_tpu/models/builder.py::load_hf_starvector_checkpoint, whose
+port is models/builder.py).
 
 The port keeps the JAX package's parameter layout: layers stacked on a
 leading axis, dense kernels (in, out), norms {"scale", "bias"}.
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from starvector_tpu_torch.models import gpt_bigcode, starcoder2, starvector as sv
+from starvector_tpu_torch.models.builder import config_from_yaml_block, is_v2
 from starvector_tpu_torch.models.vision.clip_vit import CLIPViTConfig
 from starvector_tpu_torch.models.vision.siglip import SigLIPConfig
 
@@ -274,22 +276,16 @@ def _siglip_tower(sd, heads) -> SigLIPConfig:
 
 def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorConfig:
     """StarVectorConfig from the weights' shapes and config.json, as the JAX
-    package's models/builder.py derives it: the decoder from its name
-    (starcoder2 in starcoder_model_name or _name_or_path: the 8B), its
-    geometry and the tower's from the weights."""
-    name = str(hf_cfg.get("starcoder_model_name", "")) + str(hf_cfg.get("_name_or_path", ""))
-    v2 = "starcoder2" in name
+    package's models/builder.py derives it: config.json through
+    builder.config_from_yaml_block (the decoder from its name, starcoder2
+    in starcoder_model_name or _name_or_path being the 8B; the overrides,
+    max_length as max_length_train among them), then the decoder's geometry
+    and the tower's from the weights."""
+    cfg = config_from_yaml_block(hf_cfg)
+    v2 = is_v2(hf_cfg)
     sd = _strip_model(sd)
-    preset = hf_cfg.get("preset")
-    if preset in ("tiny", "tiny-v2"):
-        base = sv.tiny_config(decoder="starcoder2" if preset == "tiny-v2" else "gpt_bigcode")
-    else:
-        base = sv.starvector_8b_config() if v2 else sv.starvector_1b_config()
     llm = _starcoder2_config(sd, hf_cfg) if v2 else _gpt_bigcode_config(sd)
-    overrides = {k: hf_cfg[k] for k in ("image_encoder_type", "adapter_norm", "image_size", "task")
-                 if k in hf_cfg}
-    cfg = dataclasses.replace(base, llm=llm, decoder="starcoder2" if v2 else "gpt_bigcode",
-                              **overrides)
+    cfg = dataclasses.replace(cfg, llm=llm, decoder="starcoder2" if v2 else "gpt_bigcode")
     if cfg.use_image_encoder:
         heads = hf_cfg.get("vision_geometry", {}).get("heads")
         tower = (_clip_tower(sd, heads) if cfg.image_encoder_type == "clip"

@@ -233,7 +233,7 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
 
     def pre(x):
         return (dense(p["attn"]["c_attn"], layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon),
-                      policy),)
+                      policy, tag="dense_qkv_out"),)
 
     def attend(qkv):
         q, k, v = _split_qkv(cfg, qkv)

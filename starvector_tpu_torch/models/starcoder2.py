@@ -153,9 +153,8 @@ def _qkv(p: dict, cfg: StarCoder2Config, h: torch.Tensor, rope, policy, kernels:
     """q (B, S, H, D), k and v (B, S, Hkv, D) of the normed h, q and k
     rotated by the call's rope tables (cos, sin)."""
     H, D, Hkv = cfg.num_attention_heads, cfg.head_dim, cfg.kv_heads
-    q = dense(p["q_proj"], h, policy, kernels=kernels).unflatten(-1, (H, D))
-    k = dense(p["k_proj"], h, policy, kernels=kernels).unflatten(-1, (Hkv, D))
-    v = dense(p["v_proj"], h, policy, kernels=kernels).unflatten(-1, (Hkv, D))
+    q, k, v = (dense(p[name], h, policy, kernels=kernels, tag="dense_qkv_out").unflatten(-1, (n, D))
+               for name, n in (("q_proj", H), ("k_proj", Hkv), ("v_proj", Hkv)))
     return rotate(q, *rope), rotate(k, *rope), v
 
 

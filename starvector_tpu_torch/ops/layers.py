@@ -15,12 +15,17 @@ matched to the JAX key streams (weights cross with models/convert.py).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +88,7 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
-          kernels: bool = True) -> torch.Tensor:
+          kernels: bool = True, tag: str | None = None) -> torch.Tensor:
     """x @ kernel (+ bias) in the compute dtype. As in the JAX version, the
     product accumulates in fp32 and the bias joins the fp32 sum before the
     one rounding to the compute dtype. When the bias is already in the
@@ -91,6 +96,12 @@ def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
     all of it, adding the bias in cuBLAS's fp32 epilogue; an fp32 bias under
     a bf16 policy, and any bf16 product on the CPU, take the fp32 sum
     explicitly.
+
+    While a "dots" or "dots_slim" checkpoint runs (maybe_checkpoint), the
+    op that makes the output runs under a name those modes save by, as the
+    JAX dense tags its output: `tag`, else "dense_wide_out" for an
+    expansion (out >= 4 x in: the MLP's c_fc) and "dense_out" for the rest.
+    Elsewhere (inference, the other modes) nothing is named.
 
     A quantized leaf ({"kernel_q", "scale"}, ops/quantization.py) goes
     through the int8 weight kernel in the policy's compute dtype (x's own
@@ -105,16 +116,19 @@ def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
     if policy is not None:
         x = x.to(policy.compute_dtype)
         w = w.to(policy.compute_dtype)
+    name = tag or ("dense_wide_out" if w.shape[-1] >= 4 * w.shape[-2] else "dense_out")
     bias = params.get("bias")
     if x.dtype == torch.float32 or (x.is_cuda and (bias is None or bias.dtype == x.dtype)):
+        x2 = x.reshape(-1, x.shape[-1])
         if bias is None:
-            return torch.matmul(x, w)
-        y = torch.addmm(bias.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
+            y = _named(name, torch.mm, x2, w)
+        else:
+            y = _named(name, torch.addmm, bias.to(x.dtype), x2, w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     y = matmul_f32(x, w)
     if bias is not None:
         y = y + bias.float()
-    return y.to(x.dtype)
+    return _named(name, y.to, x.dtype)
 
 
 def layer_slice(tree, i: int):
@@ -149,32 +163,86 @@ def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return y.to(x.dtype)
 
 
+# on this thread: .saving, whether a "dots"/"dots_slim" checkpoint is
+# running (its forward or its recompute); .name, what dense is making its
+# output under
+_NAMING = threading.local()
+
+
+def _named(name: str, op, *args):
+    """op(*args), under `name` while a selective checkpoint is running (the
+    only reader of the name); elsewhere just op(*args)."""
+    if not getattr(_NAMING, "saving", False):
+        return op(*args)
+    _NAMING.name = name
+    try:
+        return op(*args)
+    finally:
+        _NAMING.name = None
+
+
+@contextlib.contextmanager
+def _saving(ctx):
+    """`ctx` (a selective-checkpoint context) with dense naming its outputs."""
+    prev = getattr(_NAMING, "saving", False)
+    _NAMING.saving = True
+    try:
+        with ctx:
+            yield
+    finally:
+        _NAMING.saving = prev
+
+
+# the dense output names each mode saves (the JAX save_only_these_names)
+SAVED_NAMES = {"dots": ("dense_out", "dense_qkv_out"), "dots_slim": ("dense_out",)}
+
+
+def _save_named(names: tuple[str, ...]):
+    """The contexts of a selective checkpoint that keeps what dense makes
+    under one of `names` and recomputes every other op in the backward."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if getattr(_NAMING, "name", None) in names \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    forward, recompute = create_selective_checkpoint_contexts(policy)
+    return _saving(forward), _saving(recompute)
+
+
 def maybe_checkpoint(fn, remat):
     """Activation checkpointing of a layer body, as the JAX package's
     maybe_checkpoint: False runs fn as it is; True recomputes the whole body
     in the backward (torch.utils.checkpoint, non-reentrant).
+
+    "dots" keeps every dense output but the expansions ("dense_out" and the
+    attention's q/k/v, "dense_qkv_out") and recomputes the rest, the MLP's
+    c_fc and the attention among it; "dots_slim" also recomputes q/k/v.
+    Both are torch.utils.checkpoint's selective policy over the op that
+    dense makes each output with (its name, `_named`, given only inside
+    these checkpoints), which keeps exactly the compute-dtype tensors the
+    JAX policy saves.
 
     "dots_flash", the 1B default, keeps the flash attention's out and lse
     so that the backward never re-runs the attention forward kernel. A
     checkpoint policy sees aten ops, not the kernel's ctypes launch, so the
     decoders build that mode by structure instead (remat_layer): it
     checkpoints the parts before and after the attention and leaves the
-    flash autograd Function outside. Here "dots_flash" checkpoints the whole body, which is what it means for
-    a module without flash attention (the JAX mode saves that module's
-    non-expansion matmul outputs; the numbers are the same). "dots" and
-    "dots_slim" are not ported (ROADMAP queue 1, item 4)."""
+    flash autograd Function outside. Here "dots_flash" checkpoints the whole
+    body, which is what it means for a module without flash attention (the
+    JAX mode saves that module's non-expansion matmul outputs; the numbers
+    are the same)."""
     if not remat:
         return fn
-    if remat in ("dots", "dots_slim"):
-        raise NotImplementedError(
-            f"gradient_checkpointing={remat!r} is not ported yet: ROADMAP queue 1, item 4")
-    if isinstance(remat, str) and remat != "dots_flash":
+    if isinstance(remat, str) and remat not in SAVED_NAMES and remat != "dots_flash":
         raise ValueError(
             f"unknown gradient_checkpointing mode {remat!r}; expected "
             "true | false | 'dots' | 'dots_slim' | 'dots_flash'")
+    kw = {}
+    if remat in SAVED_NAMES:
+        kw["context_fn"] = functools.partial(_save_named, SAVED_NAMES[remat])
 
     def checkpointed(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return checkpointed
 
@@ -185,7 +253,8 @@ def remat_layer(pre, attend, post, remat):
     post (the output projection, residual and MLP) each, and leaves attend,
     the flash autograd Function, between them, so autograd keeps the
     attention's out and lse and the backward never re-runs its forward
-    kernel; any other mode is maybe_checkpoint over the whole layer."""
+    kernel; any other mode is maybe_checkpoint over the whole layer (under
+    "dots" and "dots_slim" the attention forward is re-run, as in JAX)."""
     if remat == "dots_flash":
         pre_c, post_c = maybe_checkpoint(pre, True), maybe_checkpoint(post, True)
         return lambda x: post_c(x, attend(*pre_c(x)))

@@ -13,7 +13,7 @@ import torch
 
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
-from starvector_tpu_torch.train.optim import AdamW, tree_leaves, tree_map
+from starvector_tpu_torch.train.optim import Chain, global_norm, tree_leaves, tree_map
 
 BN_STATS = ("running_mean", "running_var")
 
@@ -37,32 +37,49 @@ def mark_trainable(params: dict) -> dict:
     return params
 
 
-def make_train_step(cfg: sv.StarVectorConfig, opt: AdamW, pad_token_id: int, *,
+def make_train_step(cfg: sv.StarVectorConfig, opt: Chain, pad_token_id: int, *,
                     policy: DTypePolicy = DTypePolicy(), remat: bool | str = True,
-                    grad_dtype=None, kernels: bool = True):
+                    grad_dtype: torch.dtype | None = None, kernels: bool = True):
     """Returns train_step(params, opt_state, batch, gen) -> (params,
     opt_state, {"loss", "grad_norm"}), params marked by mark_trainable.
     `gen` is the adapter dropout's torch.Generator (None: no dropout); the
-    returned grad_norm is over all gradients, frozen ones included."""
-    if grad_dtype is not None:
-        raise NotImplementedError("grad_dtype is not ported yet: ROADMAP queue 1, item 4")
+    returned grad_norm is over all gradients, frozen ones included.
+
+    grad_dtype (e.g. torch.bfloat16), as the JAX step's: the loss is
+    differentiated with respect to a cast of every floating leaf to
+    grad_dtype, made once a step from the fp32 masters after the previous
+    update; the masters keep the optimizer's math. The forward is the same
+    (the model casts every weight to the compute type at use); the backward
+    accumulates each gradient in grad_dtype. The cast goes once the
+    backward is done, and the optimizer widens each gradient to its
+    master's type leaf by leaf inside its update (train/optim.py), a layer
+    at a time for stacked leaves: no fp32 copy of the gradient tree is
+    made. That is what fits the 8B's full-depth step on one 80 GB card:
+    fp32 masters (30 GB), the cast (15 GB) and bf16 gradients (15 GB).
+    Gradient accumulation (the optimizer's grad_accum_steps > 1) adds
+    optax's fp32 accumulator, another 30 GB at 8B, which does not fit."""
 
     def train_step(params: dict, opt_state: dict, batch: dict,
                    gen: torch.Generator | None = None):
-        leaves = tree_leaves(params)
-        wrt = [p for p in leaves if p.requires_grad]
-        loss, aux = sv.loss_fn_with_bn_stats(params, cfg, batch, pad_token_id, policy=policy,
+        if grad_dtype is None:
+            wrt_tree = params
+        else:
+            wrt_tree = tree_map(
+                lambda p: p.detach().to(grad_dtype).requires_grad_(p.requires_grad)
+                if p.is_floating_point() else p, params)
+        wrt = [p for p in tree_leaves(wrt_tree) if p.requires_grad]
+        loss, aux = sv.loss_fn_with_bn_stats(wrt_tree, cfg, batch, pad_token_id, policy=policy,
                                              dropout_gen=gen, remat=remat, kernels=kernels)
         got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        del wrt, wrt_tree
 
         def grad_of(p):
             g = next(got) if p.requires_grad else None
-            return torch.zeros_like(p) if g is None else g
+            return torch.zeros_like(p, dtype=grad_dtype or p.dtype) if g is None else g
 
         grads = tree_map(grad_of, params)
         with torch.no_grad():
-            grad_norm = torch.stack([(g.float() ** 2).sum()
-                                     for g in tree_leaves(grads)]).sum().sqrt()
+            grad_norm = global_norm(tree_leaves(grads))
             opt.update(grads, opt_state, params)
             norm = params.get("image_projection", {}).get("norm", {})
             for key, value in aux.get("bn_stats", {}).items():

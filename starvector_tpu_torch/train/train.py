@@ -9,20 +9,29 @@ then the `config=` yaml, then dotlist overrides. One more key,
 run stops and names `training.device=cpu`, it never switches on its own.
 
 `main(config)` reads the config, builds the model from the preset (or a
-local HF-layout checkpoint), the tokenizer, the datasets and the loader, and
-hands them to `train_loop`. The config, tokenizer, dataset and loader
-modules are the port's own copies of the JAX package's; a dataset `target:`
-under `starvector_tpu.data` is read as its `starvector_tpu_torch.data`
-counterpart (config.py).
+local HF-layout checkpoint, models/builder.py), the tokenizer, the
+datasets and the loader, and hands them to `train_loop`. The recipe keys
+are the JAX main's: training.optimizer (adamw | adafactor), the AdamW
+keys, training.gradient_checkpointing (true | false | dots | dots_slim |
+dots_flash) and training.grad_dtype (e.g. bfloat16: the gradients' type,
+fp32 masters). The run directory is `project.out_dir`, or
+runs/<project.name>; it gets config.yaml, experiment_id.txt (the config's
+md5, as the JAX main writes it), metrics.jsonl (utils/logging.py, wandb
+too with project.report_to: wandb), a snapshot of starvector_tpu_torch/
+(unless project.snapshot_code is false) and checkpoint-<n>/.
 
-Left out against the JAX main: the device mesh (one device), the
-out-dir-by-config-hash rule (the run directory is `project.out_dir`, or
-runs/<project.name>), the code snapshot and experiment id files, and wandb.
+Left out against the JAX main: the device mesh (one device: a `mesh:`
+block that asks for more is logged as ignored), and the rule that puts a run without
+project.out_dir under runs/<project.name>/<experiment id>.
+Where the port differs on purpose, starting from a checkpoint directory
+(model.model_name or model.pretrained_path): the run takes that
+checkpoint's own tokenizer (the JAX main takes model.tokenizer_path or
+the test tokenizer), and its weights load as fp32 masters (the JAX
+builder loads them in bf16).
 """
 
 from __future__ import annotations
 
-import json
 import os
 import time
 from typing import Any, Callable, Iterable
@@ -32,12 +41,11 @@ import torch
 
 from starvector_tpu_torch import require_device
 from starvector_tpu_torch.models import starvector as sv
+from starvector_tpu_torch.models.builder import model_builder
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.train import checkpoint as ckpt
-from starvector_tpu_torch.train.optim import AdamW, build_optimizer
+from starvector_tpu_torch.train.optim import Chain, build_optimizer
 from starvector_tpu_torch.train.step import make_eval_step, make_train_step, mark_trainable
-
-MODEL_KEYS = ("image_encoder_type", "adapter_norm", "image_size", "task")
 
 
 def optimizer_kwargs_from_config(config) -> dict:
@@ -71,42 +79,15 @@ def remat_mode(raw) -> bool | str:
     return bool(raw)
 
 
-def config_from_model_block(block: dict) -> sv.StarVectorConfig:
-    """The `model` yaml block -> StarVectorConfig (the JAX package's
-    models/builder.py::config_from_yaml_block). `attn_impl` is not read: the
-    port's attention is always its flash kernels."""
-    name = str(block.get("starcoder_model_name", "")) + str(block.get("_name_or_path", ""))
-    preset = block.get("preset")
-    if preset in ("tiny", "tiny-v2"):
-        base = sv.tiny_config(decoder="starcoder2" if preset == "tiny-v2" else "gpt_bigcode")
-    elif preset in (None, "", "full"):
-        base = sv.starvector_8b_config() if "starcoder2" in name else sv.starvector_1b_config()
-    else:
-        raise ValueError(f"unknown model.preset {preset!r}")
-    import dataclasses
-
-    overrides: dict[str, Any] = {k: block[k] for k in MODEL_KEYS if k in block}
-    if "max_length" in block:
-        overrides["max_length_train"] = int(block["max_length"])
-    return dataclasses.replace(base, **overrides)
-
-
-def model_builder(config, device) -> tuple[dict, sv.StarVectorConfig, Any]:
-    """(fp32 params on `device`, config, the checkpoint's tokenizer or
-    None): random weights from a torch.Generator seeded with model.seed, or
-    a local HF-layout checkpoint directory (model.model_name /
-    model.pretrained_path)."""
-    block = dict(config.get_path("model") or {})
-    cfg = config_from_model_block(block)
-    pretrained = block.get("model_name") or block.get("pretrained_path")
-    if pretrained and os.path.isdir(str(pretrained)):
-        from starvector_tpu_torch.api import StarVectorForCausalLM
-
-        model = StarVectorForCausalLM.from_pretrained(str(pretrained), dtype=torch.float32,
-                                                      device=device)
-        return model.params, model.cfg, model.tokenizer
-    gen = torch.Generator(device=device).manual_seed(int(block.get("seed", 0)))
-    return sv.init_params(cfg, gen, device=device), cfg, None
+def grad_dtype_from(raw) -> torch.dtype | None:
+    """training.grad_dtype (a torch dtype name, e.g. bfloat16) -> the
+    dtype, or None for the parameters' own."""
+    if not raw:
+        return None
+    dtype = getattr(torch, str(raw), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"training.grad_dtype={raw!r} is not a floating torch dtype")
+    return dtype
 
 
 BATCH_TYPES = {"image": torch.float32, "svg_ids": torch.long, "svg_mask": torch.int32,
@@ -121,29 +102,17 @@ def to_device(batch: dict, device) -> dict:
             for k, t in BATCH_TYPES.items() if k in batch}
 
 
-def jsonl_logger(out_dir: str) -> Callable[[dict], None]:
-    """Appends each record to out_dir/metrics.jsonl and prints it."""
-    path = os.path.join(out_dir, "metrics.jsonl")
-
-    def log(record: dict) -> None:
-        line = json.dumps(record)
-        with open(path, "a") as f:
-            f.write(line + "\n")
-        print(line, flush=True)
-
-    return log
-
-
 def train_loop(
     params: dict,
     cfg: sv.StarVectorConfig,
-    opt: AdamW,
+    opt: Chain,
     batches: Iterable[tuple[int, dict]],
     *,
     total_steps: int,
     device,
     policy: DTypePolicy = DTypePolicy(),
     remat: bool | str = True,
+    grad_dtype: torch.dtype | None = None,
     pad_token_id: int = 0,
     opt_state: dict | None = None,
     start_step: int = 0,
@@ -175,7 +144,7 @@ def train_loop(
     if opt_state is None:
         opt_state = opt.init(params)
     train_step = make_train_step(cfg, opt, pad_token_id, policy=policy, remat=remat,
-                                 kernels=kernels)
+                                 grad_dtype=grad_dtype, kernels=kernels)
     step = start_step
     t_last = time.perf_counter()
     for epoch, batch in batches:
@@ -233,6 +202,8 @@ def main(config) -> dict:
     from starvector_tpu_torch.config import instantiate_from_config
     from starvector_tpu_torch.models.tokenizer import build_test_tokenizer, load_tokenizer
     from starvector_tpu_torch.train.loader import DataLoader
+    from starvector_tpu_torch.utils.experiment import copy_code, generate_experiment_id
+    from starvector_tpu_torch.utils.logging import MetricsSink
 
     g = config.get_path
     device = require_device(g("training.device", "cuda"), "training.device=cpu")
@@ -240,8 +211,17 @@ def main(config) -> dict:
     out_dir = g("project.out_dir", os.path.join("runs", str(project)))
     last = reimpose_checkpoint_model_block(config, out_dir)
     os.makedirs(out_dir, exist_ok=True)
+    sink = MetricsSink(out_dir, report_to=g("project.report_to"), project=project,
+                       config=config.to_dict())
     with open(os.path.join(out_dir, "config.yaml"), "w") as f:
         f.write(config.to_yaml())
+    with open(os.path.join(out_dir, "experiment_id.txt"), "w") as f:
+        f.write(generate_experiment_id(config)[:12] + "\n")
+    if g("project.snapshot_code", True):
+        copy_code(out_dir)
+    mesh = dict(g("mesh") or {})
+    if any(int(n) > 1 for n in mesh.values()):  # a multi-device layout (fsdp -1: all devices)
+        print(f"mesh {mesh} ignored: the port trains on one device")
 
     params, cfg, tokenizer = model_builder(config, device)
     if tokenizer is None:
@@ -282,12 +262,14 @@ def main(config) -> dict:
         params, cfg, opt, epoch_batches(train_loader, step, int(g("training.epochs", 1))),
         total_steps=total_steps, device=device, policy=policy,
         remat=remat_mode(g("training.gradient_checkpointing", True)),
+        grad_dtype=grad_dtype_from(g("training.grad_dtype")),
         pad_token_id=tokenizer.pad_token_id, opt_state=opt_state, start_step=step,
-        seed=int(g("training.seed", 0)), log=jsonl_logger(out_dir),
+        seed=int(g("training.seed", 0)), log=sink.log,
         log_every=max(int(g("training.log_every", 10)), 1), out_dir=out_dir,
         ckpt_every=int(g("training.checkpointing_steps", 1000)),
         total_limit=g("training.checkpoints_total_limit", 3), config=config, validate=validate,
     )
+    sink.finish()
     return params
 
 

@@ -284,3 +284,29 @@ def test_quantize_tree_takes_the_8b_six_projections():
         assert leaf["scale"].shape == (L, N), name
     assert out["embed_tokens"] is tree["embed_tokens"] and "kernel_q" not in out["norm"]
     assert set(out["layers"]["input_layernorm"]) == {"scale", "bias"}
+
+
+@pytest.mark.parametrize("decoder", ["gpt_bigcode", "starcoder2"])
+def test_max_length_survives_a_checkpoint(decoder, tmp_path):
+    """A checkpoint's config.json `max_length` (written by the JAX package's
+    hub export from max_length_train) loads as max_length_train in both
+    packages. The port's config_from_hf used to drop it, so a checkpoint
+    trained at 1024 loaded as the preset's 8192 (1B) or 16000 (8B), and
+    train.main from it truncated SVGs at another length than the JAX main."""
+    from starvector_tpu.models.builder import load_hf_starvector_checkpoint
+    from starvector_tpu.models.tokenizer import build_test_tokenizer
+    from starvector_tpu.train.hub import export_hf_checkpoint
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+
+    if decoder == "gpt_bigcode":
+        cfg = jsv.tiny_config(image_size=56, llm=jgbc.tiny_config(attn_impl="mixed"))
+        tree = jax.tree_util.tree_map(np.asarray, jsv.init_params(cfg, jax.random.PRNGKey(0)))
+    else:
+        cfg, tree = _jax_8b_model(tied=True)
+    cfg = dataclasses.replace(cfg, max_length_train=1024)
+    version = "v2" if decoder == "starcoder2" else "v1"
+    export_hf_checkpoint(tree, cfg, build_test_tokenizer(version), str(tmp_path))
+    assert load_hf_starvector_checkpoint(str(tmp_path))[1].max_length_train == 1024
+    model = StarVectorForCausalLM.from_pretrained(str(tmp_path), dtype=torch.float32,
+                                                  device="cpu")
+    assert model.cfg.max_length_train == 1024

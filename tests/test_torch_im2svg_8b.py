@@ -127,7 +127,7 @@ def test_8b_presets_and_unported_paths():
     from pathlib import Path
 
     from starvector_tpu_torch.config import load_yaml
-    from starvector_tpu_torch.train.train import config_from_model_block
+    from starvector_tpu_torch.models.builder import config_from_yaml_block
 
     cfg, ref = tsv.starvector_8b_config(), jsv.starvector_8b_config()
     for f in ("decoder", "image_encoder_type", "adapter_norm", "image_size", "max_length_train",
@@ -142,7 +142,7 @@ def test_8b_presets_and_unported_paths():
     yamls = sorted(configs.glob("im2svg-*.yaml"))
     assert len(yamls) == 6
     for path in yamls:
-        assert config_from_model_block(dict(load_yaml(path)["model"])) == cfg, path.name
+        assert config_from_yaml_block(dict(load_yaml(path)["model"])) == cfg, path.name
     tiny = tsv.tiny_config(decoder="starcoder2")
     params = tsv.init_params(tiny, torch.Generator().manual_seed(0))
     batch = {"image": torch.zeros((1, 28, 28, 3)),

@@ -89,18 +89,57 @@ def test_training_and_from_pretrained_leave_jax_out(tmp_path):
     assert (run / "checkpoint-2").is_dir()
 
 
+def test_export_and_load_pretrained_leave_jax_out(tmp_path):
+    """The checkpoint round trip in one fresh process: a tiny 8B-shaped
+    model's export_hf_checkpoint, then builder.load_pretrained_model and
+    the Adafactor / bf16-gradient step on what it loaded; neither jax nor
+    starvector_tpu gets imported."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        from starvector_tpu_torch.models import builder, starvector as sv
+        from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+        from starvector_tpu_torch.ops.layers import DTypePolicy
+        from starvector_tpu_torch.train.hub import export_hf_checkpoint
+        from starvector_tpu_torch.train.optim import build_optimizer
+        from starvector_tpu_torch.train.step import make_train_step, mark_trainable
+        cfg = sv.tiny_config(decoder="starcoder2", adapter_norm="layer_norm")
+        params = sv.init_params(cfg, torch.Generator().manual_seed(0))
+        export_hf_checkpoint(params, cfg, build_test_tokenizer("v2"), {str(tmp_path)!r})
+        params, cfg, tok, processor, n = builder.load_pretrained_model(
+            {str(tmp_path)!r}, torch.float32, device="cpu")
+        assert n == cfg.max_length_train and tok.version == "v2"
+        mark_trainable(params)
+        opt = build_optimizer(params, optimizer="adafactor")
+        step = make_train_step(cfg, opt, tok.pad_token_id, policy=DTypePolicy(),
+                               remat="dots_slim", grad_dtype=torch.bfloat16)
+        batch = {{"image": torch.zeros(1, 28, 28, 3), "svg_ids": torch.ones(1, 8).long(),
+                  "svg_mask": torch.ones(1, 8, dtype=torch.int32)}}
+        step(params, opt.init(params), batch)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("clean")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("clean"), proc.stderr[-4000:]
+    assert (tmp_path / "model.safetensors").exists() and (tmp_path / "config.json").exists()
+
+
 def test_entry_points_refuse_to_run_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the entry points' default runs there")
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.config import ConfigNode
     from starvector_tpu_torch.models import starvector as tsv
+    from starvector_tpu_torch.models.builder import load_pretrained_model
     from starvector_tpu_torch.train.train import main
 
     cfg = tsv.tiny_config(image_size=56)
     for call in (lambda: StarVectorForCausalLM({}, cfg),
                  lambda: StarVectorForCausalLM.from_config(cfg),
-                 lambda: StarVectorForCausalLM.from_pretrained(str(tmp_path))):
+                 lambda: StarVectorForCausalLM.from_pretrained(str(tmp_path)),
+                 lambda: load_pretrained_model(str(tmp_path))):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     with pytest.raises(RuntimeError, match="training.device=cpu"):

@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from starvector_tpu.models import adapter as jadapter
 from starvector_tpu.models import gpt_bigcode as jgbc
@@ -42,7 +44,7 @@ JF32 = jlayers.DTypePolicy(compute_dtype=jnp.float32)
 TF32 = tlayers.DTypePolicy(compute_dtype=torch.float32)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
-REMATS = [False, True, "dots_flash"]
+REMATS = [False, True, "dots_flash", "dots", "dots_slim"]
 
 
 def _np_tree(tree):
@@ -171,12 +173,66 @@ def test_loss_and_grads_match_jax(setup, jax_grads, remat):
     _assert_trees_close(aux["bn_stats"], _np_tree(ref_aux["bn_stats"]), PARAM_TOL)
 
 
+class _Allocs(TorchDispatchMode):
+    """Records every storage that an op makes (by weak reference)."""
+
+    def __init__(self, keep: set):
+        super().__init__()
+        self.keep, self.made = keep, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.untyped_storage().data_ptr() not in self.keep:
+                st = t.untyped_storage()
+                self.made[st.data_ptr()] = (StorageWeakRef(st), st.nbytes())
+        return out
+
+
+def held_bytes(run, inputs) -> tuple[int, torch.Tensor]:
+    """(bytes of the storages that `run()` made and that are still alive
+    when it returns, with its result held; run()'s result): for a loss,
+    what its forward keeps for the backward. Storages of `inputs` (a dict
+    of tensors) do not count. Views share their base's storage, so
+    nothing counts twice. A saved_tensors_hooks count would not see what a
+    checkpointed region keeps: its own hooks take those tensors."""
+    keep = {t.untyped_storage().data_ptr() for t in tree_leaves(inputs)}
+    mode = _Allocs(keep)
+    with mode:
+        out = run()
+    return sum(n for ref, n in mode.made.values() if not ref.expired()), out
+
+
+def remat_bytes_and_grads(params_of, tcfg, batch, modes=(False, "dots", "dots_slim")):
+    """{mode: (held bytes after the forward, loss, {path: grad})} of
+    loss_fn_with_bn_stats at fp32, each mode on fresh params."""
+    out = {}
+    for mode in modes:
+        params = params_of()
+        held, loss = held_bytes(
+            lambda: tsv.loss_fn_with_bn_stats(params, tcfg, batch, 0, policy=TF32,
+                                              remat=mode)[0], {"params": params, "batch": batch})
+        loss.backward()
+        out[mode] = (held, float(loss.detach()),
+                     {k: v.grad for k, v in _flat(params).items() if v.grad is not None})
+    return out
+
+
 def test_remat_modes_refused_or_unknown(setup):
+    """"dots" and "dots_slim" (refused before they were ported) give
+    remat=False's loss (1e-5) and every gradient (GRAD_TOL), fp32, and keep
+    fewer bytes from the forward for the backward: dots_slim < dots < False
+    (held_bytes); an unknown mode raises ValueError."""
     _, tcfg, jparams, batch = setup
-    params = _tparams(jparams)
+    runs = remat_bytes_and_grads(lambda: _tparams(jparams), tcfg, _tbatch(batch))
+    held, ref_loss, ref_grads = runs[False]
     for mode in ("dots", "dots_slim"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32, remat=mode)
+        assert runs[mode][1] == pytest.approx(ref_loss, rel=1e-5), mode
+        assert runs[mode][2].keys() == ref_grads.keys()
+        for k, g in runs[mode][2].items():
+            torch.testing.assert_close(g, ref_grads[k], **GRAD_TOL, msg=f"{mode} {k}")
+    assert runs["dots_slim"][0] < runs["dots"][0] < held, {m: r[0] for m, r in runs.items()}
+    params = _tparams(jparams)
     with pytest.raises(ValueError, match="unknown gradient_checkpointing"):
         tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32,
                                   remat="dots-flash")
@@ -258,11 +314,23 @@ def test_optimizer_updates_match_optax(setup, case):
 
 
 def test_optimizer_refuses_what_is_not_ported(setup):
+    """Adafactor and AdamW's mu_dtype (refused before they were ported;
+    test_torch_optim.py holds them to optax) build, and one update of each
+    moves every trainable leaf; an unknown optimizer raises ValueError."""
     params = convert.from_jax_params(_np_tree(setup[2]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.build_optimizer(params, optimizer="adafactor")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.build_optimizer(params, mu_dtype=torch.bfloat16)
+    grads = toptim.tree_map(lambda p: torch.full_like(p, 1e-3), params)
+    for kw in (dict(optimizer="adafactor"), dict(mu_dtype=torch.bfloat16)):
+        fresh = toptim.tree_map(torch.clone, params)
+        opt = toptim.build_optimizer(fresh, lr=1e-2, warmup_steps=0, **kw)
+        state = opt.init(fresh)
+        opt.update(grads, state, fresh)
+        assert state["count"] == 1
+        assert all(not torch.equal(a, b) for a, b in zip(tree_leaves(fresh), tree_leaves(params)))
+    assert isinstance(toptim.build_optimizer(params, optimizer="adafactor"), toptim.Adafactor)
+    assert toptim.build_optimizer(params, mu_dtype=torch.bfloat16).init(params)["mu"][0].dtype \
+        == torch.bfloat16
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        toptim.build_optimizer(params, optimizer="lamb")
 
 
 # ---------------------------------------------------------------------------
@@ -295,8 +363,6 @@ def test_train_step_matches_jax(setup, jax_adapter_without_dropout):
         _assert_trees_close(tparams, _np_tree(jp), PARAM_TOL, f"step {i}")
     before = np.asarray(jparams["image_projection"]["norm"]["running_mean"])
     assert not np.allclose(tparams["image_projection"]["norm"]["running_mean"].numpy(), before)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_train_step(tcfg, opt, 0, grad_dtype=torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

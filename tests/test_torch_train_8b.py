@@ -46,7 +46,7 @@ JF32 = jlayers.DTypePolicy(compute_dtype=jnp.float32)
 TF32 = tlayers.DTypePolicy(compute_dtype=torch.float32)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
-REMATS = [False, True, "dots_flash"]
+REMATS = [False, True, "dots_flash", "dots", "dots_slim"]
 WINDOW = 8
 GEOMETRY = dict(num_attention_heads=6, num_key_value_heads=2, hidden_size=96,
                 sliding_window=WINDOW)
@@ -149,7 +149,8 @@ def test_8b_loss_and_grads_match_jax(setup, jax_grads, remat, monkeypatch):
     """The loss and the gradient of every leaf, SigLIP's and the adapter's
     included, past the window, each layer's attention through the training
     kernels' plain versions (on the CPU): the forward with lse once a layer,
-    and under remat=True once more in the backward."""
+    and under remat=True, "dots" and "dots_slim" once more in the backward
+    (as the JAX policies, which do not save the flash residuals)."""
     _, tcfg, jparams, batch = setup
     calls = {"flash_prefill_with_lse_plain": 0, "flash_backward_plain": 0}
     for name in calls:
@@ -169,7 +170,8 @@ def test_8b_loss_and_grads_match_jax(setup, jax_grads, remat, monkeypatch):
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
     _assert_trees_close(_grads(params), _np_tree(ref_grads), GRAD_TOL, f"remat={remat}")
     L = tcfg.llm.num_hidden_layers
-    assert calls == {"flash_prefill_with_lse_plain": L * (2 if remat is True else 1),
+    reruns = remat is True or remat in ("dots", "dots_slim")  # the forward again in the backward
+    assert calls == {"flash_prefill_with_lse_plain": L * (2 if reruns else 1),
                      "flash_backward_plain": L}
 
 
@@ -225,14 +227,97 @@ def test_8b_train_steps_match_jax(setup, jax_adapter_without_dropout):
     assert losses[-1] < losses[0]
 
 
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each of x's values (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return 2.0 ** (e - 7)
+
+
+def test_8b_grad_dtype_adafactor_steps_match_jax(setup, jax_adapter_without_dropout):
+    """grad_dtype=bf16 (the v5e-8 recipe's): the gradients with respect to
+    the bf16 cast of every leaf, and 3 steps of make_train_step with
+    Adafactor (warmup 1, clipping) and dots_flash, against the JAX step's
+    grad_dtype=jnp.bfloat16, at an fp32 compute policy so that both sides
+    round each fp32 gradient once. Gradients: at least 99% of elements
+    equal in bf16 and every one within one bf16 ulp or the fp32 gradients'
+    own tolerance (GRAD_TOL: a sum that cancels differs in its low bits
+    before the rounding); loss 1e-5 relative, grad_norm 1e-4; parameters
+    1e-5 relative with atol 1e-6 (5% of one step here: a gradient one ulp
+    apart moves its element's Adafactor step by ~2^-8). The tower's key
+    biases are the exception: attention is invariant to a shift of every
+    key, so their gradient is rounding noise, which Adafactor scales up to
+    a full step of the floor size (lr x 1e-3) with a noise-given sign on
+    each side; they may differ by two such steps a step."""
+    jcfg, tcfg, jparams, batch = setup
+    low = jax.tree_util.tree_map(lambda w: w.astype(jnp.bfloat16), jparams)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jsv.loss_fn_with_bn_stats(p, jcfg, _jbatch(batch), 0, policy=JF32,
+                                            remat="dots_flash"), has_aux=True))(low)
+    tlow = tstep.mark_trainable(convert.from_jax_params(_np_tree(jparams), dtype=torch.bfloat16))
+    loss, _ = tsv.loss_fn_with_bn_stats(tlow, tcfg, _tbatch(batch), 0, policy=TF32,
+                                        remat="dots_flash")
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
+    got, ref = _flat(_grads(tlow)), _flat(_np_tree(jg))
+    assert got.keys() == ref.keys()
+    same = total = 0
+    for k, r in ref.items():
+        g = got[k]
+        assert g.dtype == torch.bfloat16, k
+        r = np.asarray(r, np.float32)
+        g = g.float().numpy()
+        diff = np.abs(g - r)
+        bound = np.maximum(_bf16_ulp(r), GRAD_TOL["rtol"] * np.abs(r) + GRAD_TOL["atol"])
+        assert (diff <= bound).all(), (k, diff.max())
+        same += (g == r).sum()
+        total += r.size
+    assert same / total >= 0.99, same / total
+
+    kw = dict(optimizer="adafactor", lr=1e-3, warmup_steps=1, total_steps=10)
+    tx = joptim.build_optimizer(jparams, **kw)
+    jstate = tx.init(jparams)
+    jtrain = jstep.make_train_step(jcfg, tx, 0, policy=JF32, remat="dots_flash",
+                                   grad_dtype=jnp.bfloat16)
+    jp = jax.tree_util.tree_map(jnp.copy, jparams)
+    tparams = _tparams(jparams)
+    opt = toptim.build_optimizer(tparams, **kw)
+    tstate = opt.init(tparams)
+    ttrain = tstep.make_train_step(tcfg, opt, 0, policy=TF32, remat="dots_flash",
+                                   grad_dtype=torch.bfloat16)
+    for i in range(3):
+        jp, jstate, jm = jtrain(jp, jstate, _jbatch(batch), jax.random.PRNGKey(i))
+        tparams, tstate, tm = ttrain(tparams, tstate, _tbatch(batch), None)
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+        assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-4)
+        assert all(p.dtype == torch.float32 for p in toptim.tree_leaves(tparams))
+        got, ref = _flat(tparams), _flat(_np_tree(jp))
+        assert got.keys() == ref.keys()
+        for k, r in ref.items():
+            g = got[k].detach().numpy()
+            if k[0] == "image_encoder" and k[-2:] == ("k_proj", "bias"):  # noise (docstring)
+                assert np.abs(g - r).max() <= 2 * kw["lr"] * 1e-3 * (i + 1), (i, k)
+            else:
+                np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-6, err_msg=f"step {i} {k}")
+
+
 def test_8b_remat_modes_refused_or_unknown(setup):
-    """"dots" and "dots_slim" raise naming their ROADMAP item, as for the
-    1B; an unknown mode raises ValueError."""
+    """"dots" and "dots_slim" (refused before they were ported) give
+    remat=False's loss (1e-5) and every gradient (GRAD_TOL), fp32, for the
+    StarCoder2 decoder past its window, and keep fewer bytes from the
+    forward for the backward: dots_slim < dots < False; an unknown mode
+    raises ValueError."""
+    from test_torch_train import remat_bytes_and_grads
+
     _, tcfg, jparams, batch = setup
-    params = _tparams(jparams)
+    runs = remat_bytes_and_grads(lambda: _tparams(jparams), tcfg, _tbatch(batch))
+    held, ref_loss, ref_grads = runs[False]
     for mode in ("dots", "dots_slim"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-            tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32, remat=mode)
+        assert runs[mode][1] == pytest.approx(ref_loss, rel=1e-5), mode
+        assert runs[mode][2].keys() == ref_grads.keys()
+        for k, g in runs[mode][2].items():
+            torch.testing.assert_close(g, ref_grads[k], **GRAD_TOL, msg=f"{mode} {k}")
+    assert runs["dots_slim"][0] < runs["dots"][0] < held, {m: r[0] for m, r in runs.items()}
+    params = _tparams(jparams)
     with pytest.raises(ValueError, match="unknown gradient_checkpointing"):
         tsv.loss_fn_with_bn_stats(params, tcfg, _tbatch(batch), 0, policy=TF32,
                                   remat="dots-flash")
@@ -309,3 +394,94 @@ def test_causal_lm_loss_over_the_starcoder2_head():
                                         torch.from_numpy(labels), policy=TF32)
         assert ("lm_head" in tp) is not tie
         np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+
+
+V5E8 = "configs/models/starvector-8b/im2svg-stack-v5e8.yaml"
+
+
+def _v5e8_config(out, steps):
+    """The v5e-8 recipe's yaml (adafactor, grad_dtype bfloat16, dots_flash,
+    its mesh block) at the tiny-v2 preset: a tiny CLIP tower at 28 px in
+    place of SigLIP-L at 384 (too large for a CPU test), the toy dataset in
+    place of SVG-Stack, 64 svg tokens, on the CPU."""
+    from starvector_tpu_torch.config import get_config, resolve_repo_config
+
+    config = get_config(
+        [f"config={V5E8}", "model.preset=tiny-v2", "model.image_encoder_type=clip",
+         "model.image_size=28", "data.max_length=64", "data.batch_size=2",
+         "data.num_workers=1", "data.val=null", f"training.steps={steps}", "training.epochs=4",
+         "training.log_every=1", "training.checkpointing_steps=2", "training.lr=1e-3",
+         "training.lr_scheduler=constant", "training.lr_warmup_steps=0", "training.device=cpu",
+         f"project.out_dir={out}"], default_path=resolve_repo_config())
+    config["data"]["train"] = {"target": "starvector_tpu.data.datasets.ToySVGDataset",
+                               "params": {"num_samples": 6, "im_size": 28}}
+    return config
+
+
+def test_train_main_v5e8_recipe_end_to_end_with_resume(tmp_path, capsys):
+    """train.main on the v5e-8 recipe (_v5e8_config): Adafactor state,
+    bf16 gradients, fp32 masters; the mesh block logged as ignored; a run
+    cut after 2 steps and resumed to 4 continues the step count with finite
+    losses; the run directory holds config.yaml, experiment_id.txt (the
+    config's md5, 12 hex digits, as the JAX main writes it), metrics.jsonl
+    and the code snapshot."""
+    from starvector_tpu_torch.train import checkpoint as tckpt
+    from starvector_tpu_torch.train.train import main
+    from starvector_tpu_torch.utils.experiment import generate_experiment_id
+
+    out = tmp_path / "run"
+    main(_v5e8_config(out, 2))
+    logged = [line for line in capsys.readouterr().out.splitlines() if line.startswith("mesh")]
+    assert len(logged) == 1 and "'fsdp': 4, 'sequence': 2" in logged[0] and \
+        logged[0].endswith("ignored: the port trains on one device")
+    config = _v5e8_config(out, 4)
+    params = main(config)
+    assert all(p.dtype == torch.float32 for p in toptim.tree_leaves(params))
+    recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert [r["step"] for r in recs] == [1, 2, 3, 4]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in recs)
+    assert [s for s, _ in tckpt.list_checkpoints(str(out))] == [2, 4]
+    state = tckpt.restore_checkpoint(tckpt.get_last_checkpoint(str(out)))["opt_state"]
+    assert state["count"] == 4 and {"v_row", "v_col", "v"} <= set(state)
+    assert (out / "experiment_id.txt").read_text().strip() == \
+        generate_experiment_id(config)[:12]
+    assert (out / "config.yaml").exists()
+    assert (out / "code_snapshot" / "starvector_tpu_torch" / "train" / "train.py").exists()
+
+
+def test_train_main_from_a_checkpoint_takes_its_tokenizer_and_fp32_masters(tmp_path,
+                                                                           monkeypatch):
+    """Where the port's main differs from the JAX one on purpose, starting
+    from a checkpoint directory (model.model_name): the run takes the
+    checkpoint's own tokenizer (the JAX main takes the test tokenizer
+    without model.tokenizer_path), and the checkpoint's weights, written
+    from bf16 here, become fp32 masters (the JAX builder loads bf16). At
+    lr 0 the step leaves them as they were loaded."""
+    from starvector_tpu_torch.models import starvector as sv
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+    from starvector_tpu_torch.train import loader
+    from starvector_tpu_torch.train.hub import export_hf_checkpoint
+    from starvector_tpu_torch.train.train import main
+
+    cfg = tsv.tiny_config(decoder="starcoder2", adapter_norm="layer_norm")
+    weights = sv.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    tok = build_test_tokenizer("v2")
+    tok.tokenizer.add_tokens(["<only-in-this-checkpoint>"])
+    export_hf_checkpoint(weights, cfg, tok, str(tmp_path / "ckpt"))
+    seen = []
+
+    class Recording(loader.DataLoader):
+        def __init__(self, dataset, tokenizer, *a, **kw):
+            seen.append(tokenizer)
+            super().__init__(dataset, tokenizer, *a, **kw)
+
+    monkeypatch.setattr(loader, "DataLoader", Recording)
+    config = _v5e8_config(tmp_path / "run", 1)
+    config["model"]["model_name"] = str(tmp_path / "ckpt")
+    config["training"]["lr"] = 0.0
+    params = main(config)
+    assert seen and seen[0].tokenizer.token_to_id("<only-in-this-checkpoint>") is not None
+    assert build_test_tokenizer("v2").tokenizer.token_to_id("<only-in-this-checkpoint>") is None
+    for a, b in zip(toptim.tree_leaves(params), toptim.tree_leaves(weights)):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a.detach(), b.float(), rtol=0, atol=0)
