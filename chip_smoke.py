@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg inference
-(bf16, and int8 weights with an int8 KV cache), text2svg and training, and
+(bf16, and int8 weights with an int8 KV cache), text2svg, beam search,
+num_return_sequences, speculative decoding, GRPO and training, and
 StarVector-8B im2svg inference (bf16, and int8 weights with an int8 KV
-cache), text2svg and training, on one NVIDIA H100, end to end through the
-hand-written kernels.
+cache), text2svg, beam search, speculative decoding and training, on one
+NVIDIA H100, end to end through the hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --times-only ROOT
@@ -56,6 +57,21 @@ Phases, one line each (any failure raises and exits non-zero):
      and B=4 decode tokens/s for bf16 im2svg, int8 and text2svg in turns,
      and the memory of bf16 and int8; the 1B inference trees are then
      released
+  4b. the decoding variants at full 1B width on phase 4's weights, each with
+     exact launch counts: beam search (num_beams=2, B=2: flash_prefill over
+     B x K = 4 rows, decode_attention a step; fp32 ids kernels == plain);
+     num_return_sequences=4 over B=2 (the prefill once at 2 rows, the steps
+     at 8; greedy groups identical, in fp32 equal to the n=1 rows), also
+     over the int8 decoder and an int8 cache (kernel 14's GEMV at M = 8,
+     kernel 2 over the tiled codes and scales); speculative decoding at B=1
+     and B=4 (flash_prefill only; n_forwards; fp32 ids == plain greedy; the
+     bf16 rows that part from it); B=1 latency of greedy, speculative and
+     beam, and B=4 tokens/s of greedy and speculative, in turns; then GRPO:
+     one GRPOTrainer.step (B=2, G=4, 64 new tokens, a synthetic target
+     raster: the rollout's kernels 1 and 2, the update's 48 forwards and 24
+     backward pairs under remat "dots"; the decoder alone moves; rollout,
+     reward and update wall time, peak memory), and one fp32 update on one
+     rollout with the kernels against the plain attention
   5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
      remat, AdamW): 8 steps of the port's train loop on one synthetic batch
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
@@ -75,7 +91,11 @@ Phases, one line each (any failure raises and exits non-zero):
      prefill logits against the fp32 plain ones; fp32 greedy ids kernels vs
      plain; the window at full width (2 layers, a 4700-token prefix, fp32
      ids kernels vs plain); text2svg as in phase 4 (32 decode_attention a
-     step; its fp32 check on the same fp32 copy); p50 B=1 latency, B=4
+     step; its fp32 check on the same fp32 copy); beam search (num_beams=2,
+     B=1: flash_prefill over 2 rows, decode_attention at G = 9) and
+     speculative decoding (B=1, and B=4 through StarCoder2's
+     forward_ragged_verify), fp32 ids kernels == plain on the same copy;
+     p50 B=1 latency, B=4
      tokens/s of im2svg and text2svg in turns, and memory. Then int8: the
      decoder through quantize_tree, consuming the bf16 tree, with an int8
      KV cache: requests of 4 images and of 1 with launch counts (192
@@ -1554,6 +1574,465 @@ def prefill_projection_times(tq, dev, card: str, layers: int = 24) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the decoding variants and GRPO at full 1B width
+# ---------------------------------------------------------------------------
+
+class BatchSpy:
+    """Within `with BatchSpy(module) as spy:`, spy.rows lists the batch of
+    every call of module.forward (the decoders' cached and training
+    forward), to show where a prefill ran at B rows and the steps at more."""
+
+    def __init__(self, module):
+        self.module, self.rows = module, []
+
+    def __enter__(self):
+        self.forward = self.module.forward
+
+        def forward(params, cfg, x, *a, **kw):
+            self.rows.append(x.shape[0])
+            return self.forward(params, cfg, x, *a, **kw)
+
+        self.module.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.module.forward = self.forward
+
+
+def expect_counts(what: str, counts: dict, **expected) -> dict:
+    """Raise unless each named launch count is as given and every other
+    kernel (the training ones, int8 decode, quant_matmul) launched none."""
+    want = {"flash_prefill": 0, "decode_attention": 0, "decode_attention_int8": 0,
+            "quant_matmul": 0, **dict.fromkeys(TRAIN_KERNELS, 0), **expected}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what} launches {got}, expected {want}")
+    return got
+
+
+def spec_ids(P: int, prompt: torch.Tensor) -> torch.Tensor:
+    """The draft context of an im2svg prefix of P tokens: -1 over the
+    visual tokens, then the prompt ids."""
+    B, Sp = prompt.shape
+    return torch.cat([torch.full((B, P - Sp), -1, dtype=torch.int64, device=prompt.device),
+                      prompt], dim=1)
+
+
+def first_parting(tokens: torch.Tensor, ref: torch.Tensor) -> int | None:
+    """The first position where two rows of ids differ, or None."""
+    diff = (tokens != ref).nonzero()
+    return int(diff[0]) if len(diff) else None
+
+
+def same_as_greedy(tokens, lengths, ref, ref_len) -> list[bool]:
+    """Per row: the same length and the same ids up to it."""
+    return [int(a) == int(b) and torch.equal(t[:int(a)], r[:int(b)])
+            for t, a, r, b in zip(tokens, lengths, ref, ref_len)]
+
+
+def request_turns(card: str, what: str, requests: dict, images_of, rounds: int = 2) -> dict:
+    """{label: (median seconds, median tokens/s)} of requests taken in turns
+    a, b, ..., b, a each round on the same images (images_of(round)); tokens/s
+    counts each row's emitted tokens (its length) over the request's wall
+    time."""
+    labels = list(requests)
+    secs = {k: [] for k in labels}
+    rates = {k: [] for k in labels}
+    for r in range(rounds):
+        images = images_of(r)
+        for label in labels + labels[::-1]:
+            _, lengths, t = requests[label](images)
+            secs[label].append(t)
+            rates[label].append(float(lengths.sum()) / t)
+    out = {k: (statistics.median(secs[k]), statistics.median(rates[k])) for k in labels}
+    log("times", f"{card}: {what}, in turns ({2 * rounds} requests each): "
+                 + "; ".join(f"{k} {v[0] * 1e3:.1f} ms ({[round(x * 1e3, 1) for x in secs[k]]}), "
+                             f"{v[1]:.1f} tokens/s" for k, v in out.items()))
+    return out
+
+
+def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
+    """Phase 4b, the decoding variants at full 1B width on phase 4's weights
+    (projections scaled by 3, the fixed "<svg" / "</svg>" ids), each with
+    exact launch counts, through the API unless said:
+      * beam search, num_beams=2, B=2, 128 new tokens: one flash_prefill a
+        layer over B x K = 4 rows, one decode_attention a layer a step;
+        fp32 ids kernels == plain;
+      * num_return_sequences=4 over B=2, greedy: the prefill once at B=2
+        rows, the steps at 8; each group of 4 rows the same, and in fp32
+        equal to its n=1 row; fp32 ids kernels == plain. Then over the int8
+        decoder and an int8 cache (engine.generate): kernel 14's GEMV at
+        M = 8 and kernel 2's int8 instantiation over the tiled codes and
+        scales;
+      * speculative decoding, B=1 (linear cache) and B=4 (ragged):
+        flash_prefill only (the verify is the chunk step, plain PyTorch);
+        n_forwards and tokens a forward (generate_greedy_speculative*
+        directly); fp32 ids == plain greedy generate with the kernels; in
+        bf16, the rows that part from plain greedy (near-tie flips between
+        the verify's and the decode step's arithmetic);
+      * times in turns: B=1 latency of greedy, speculative and beam K=2;
+        B=4 tokens/s of greedy and batched speculative;
+      * GRPO: grpo_step (below).
+    Random weights: an acceptance rate here is no forecast for real SVG."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.generation import speculative
+    from starvector_tpu_torch.generation.engine import GenerationConfig, generate, im2svg_prefix
+    from starvector_tpu_torch.models import gpt_bigcode
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    L = cfg.llm.n_layer
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    bf16 = model.policy
+    request = api_requester(model)
+    m32 = {k: StarVectorForCausalLM(p32, cfg, policy=f32, device=dev, kernels=k)
+           for k in (True, False)}
+    two = synthetic_images(2, 31)
+    x2 = model.process_images(two)
+    greedy2 = {**GREEDY, "prompt_ids": [PROMPT_IDS] * 2}
+    fp32_2 = {**greedy2, "max_new_tokens": 32}
+
+    # --- beam search ---
+    request(two, num_beams=2, max_new_tokens=4, prompt_ids=[PROMPT_IDS] * 2)  # warm-up
+    reset_counts(tfa)
+    with BatchSpy(gpt_bigcode) as spy:
+        tokens, lengths, _ = request(two, num_beams=2, prompt_ids=[PROMPT_IDS] * 2)
+    counts = read_counts(tfa)
+    steps = len(spy.rows) - 1
+    expect_counts("beam", counts, flash_prefill=L, decode_attention=L * steps)
+    if spy.rows != [4] * (steps + 1) or not int(lengths.max()) - 1 <= steps <= 127 or \
+            tokens.shape != (2, 128):
+        raise AssertionError(f"beam: forwards at rows {spy.rows}, lengths {lengths.tolist()}")
+    ids = {k: m32[k].generate_im2svg_ids({"image": x2}, num_beams=2, **fp32_2)[1:]
+           for k in (True, False)}
+    if not all(torch.equal(a, b) for a, b in zip(ids[True], ids[False])):
+        raise AssertionError(f"beam fp32 ids differ:\n{ids[True]}\n{ids[False]}")
+    log("decoding", f"beam search, num_beams=2, B=2, 128 new tokens, bf16: lengths "
+                    f"{lengths.tolist()}; {steps + 1} forwards, all at B x K = 4 rows; launches "
+                    f"flash_prefill {counts['flash_prefill']} = {L} x 1 prefill, decode_attention "
+                    f"{counts['decode_attention']} = {L} x {steps} steps; fp32, 32 tokens: ids and "
+                    f"lengths with the kernels == plain ({ids[True][1].tolist()})")
+
+    # --- num_return_sequences ---
+    n = 4
+    reset_counts(tfa)
+    with BatchSpy(gpt_bigcode) as spy:
+        tokens, lengths, _ = request(two, num_return_sequences=n, prompt_ids=[PROMPT_IDS] * 2)
+    counts = read_counts(tfa)
+    steps = int(lengths.max()) - 1
+    expect_counts("num_return_sequences", counts, flash_prefill=L, decode_attention=L * steps)
+    if spy.rows != [2] + [2 * n] * steps or tokens.shape != (2 * n, 128):
+        raise AssertionError(f"num_return_sequences: forwards at rows {spy.rows}")
+    groups = tokens.view(2, n, -1)
+    if not all(torch.equal(g[0], g[i]) for g in groups for i in range(n)):
+        raise AssertionError("num_return_sequences: a greedy group's rows differ")
+    one, one_len, _ = request(two, prompt_ids=[PROMPT_IDS] * 2)
+    agree = (groups[:, 0] == one).float().mean().item()
+    rep32 = {k: m32[k].generate_im2svg_ids({"image": x2}, num_return_sequences=n, **fp32_2)[1:]
+             for k in (True, False)}
+    one32 = m32[True].generate_im2svg_ids({"image": x2}, **fp32_2)[1:]
+    if not all(torch.equal(a, b) for a, b in zip(rep32[True], rep32[False])) or \
+            not torch.equal(rep32[True][0], one32[0].repeat_interleave(n, 0)) or \
+            not torch.equal(rep32[True][1], one32[1].repeat_interleave(n, 0)):
+        raise AssertionError(f"num_return_sequences fp32: kernels {rep32[True]}, plain "
+                             f"{rep32[False]}, n=1 {one32}")
+    log("decoding", f"num_return_sequences={n}, B=2, greedy, 128 new tokens, bf16: one prefill "
+                    f"at 2 rows, {steps} steps at {2 * n}; launches flash_prefill "
+                    f"{counts['flash_prefill']} = {L} x 1, decode_attention "
+                    f"{counts['decode_attention']} = {L} x {steps}; each group's {n} rows "
+                    f"identical, agreeing with the n=1 rows on {agree:.4f} of the positions "
+                    f"(bf16: the decode kernel splits its keys by batch size); fp32, 32 tokens: "
+                    f"kernels == plain, and every row == its n=1 row")
+
+    prompt2 = torch.tensor([PROMPT_IDS] * 2, device=dev)
+
+    def int8_rep(params, policy, kernels, max_new_tokens, kv_cache_dtype=torch.int8):
+        emb, mask = im2svg_prefix(params, cfg, x2, prompt2, policy=policy)
+        gen = GenerationConfig(max_new_tokens=max_new_tokens, do_sample=False,
+                               stop_sequences=STOP_IDS, num_return_sequences=n)
+        return generate(params["svg_transformer"], cfg.llm, emb, mask, gen, prompt_ids=prompt2,
+                        policy=policy, kernels=kernels, kv_cache_dtype=kv_cache_dtype)
+
+    reset_counts(tfa)
+    tokens, lengths = int8_rep(q16, bf16, True, 128)
+    counts = read_counts(tfa)
+    steps = int(lengths.max()) - 1
+    got = expect_counts("num_return_sequences int8", counts, flash_prefill=L,
+                        decode_attention=L * steps, decode_attention_int8=L * steps,
+                        quant_matmul=4 * L * (1 + steps))
+    if (counts["quant_matmul_gemv"], counts["quant_matmul_wgmma"]) != (4 * L * steps, 4 * L):
+        raise AssertionError(f"num_return_sequences int8: quant_matmul paths {counts}")
+    groups = tokens.view(2, n, -1)
+    if not all(torch.equal(g[0], g[i]) for g in groups for i in range(n)):
+        raise AssertionError("num_return_sequences int8: a greedy group's rows differ")
+    # fp32 ids, kernels against plain, with the int8 weights and an fp32
+    # cache: over an int8 cache the two paths' k/v differ in fp32 sum order,
+    # some round to the next code, and greedy ids part by chance (PR 12,
+    # call 1: at token 26 of 32 in one of the 2 prompts; PERF.md section 6)
+    q32 = quantized(p32)
+    ids = {k: int8_rep(q32, f32, k, 32, torch.float32) for k in (True, False)}
+    del q32
+    if not all(torch.equal(a, b) for a, b in zip(ids[True], ids[False])):
+        raise AssertionError(f"num_return_sequences int8 fp32 ids differ:\n{ids[True]}\n"
+                             f"{ids[False]}")
+    log("decoding", f"num_return_sequences={n} over the int8 decoder and an int8 cache, B=2, "
+                    f"128 new tokens: {steps} steps at {2 * n} rows; launches quant_matmul "
+                    f"{got['quant_matmul']} (GEMV {counts['quant_matmul_gemv']} = 96 x {steps} "
+                    f"steps at M = {2 * n}, tile {counts['quant_matmul_wgmma']} = 96 x 1 prefill), "
+                    f"int8 decode_attention {got['decode_attention_int8']} = {L} x {steps} over "
+                    f"the tiled codes and scales, flash_prefill {got['flash_prefill']}; groups "
+                    f"identical; fp32, int8 weights and an fp32 cache, 32 tokens: ids kernels "
+                    f"== plain")
+
+    # --- speculative decoding ---
+    four = synthetic_images(4, 41)
+    x4 = model.process_images(four)
+    prompt4 = torch.tensor([PROMPT_IDS] * 4, device=dev)
+    spec = dict(use_speculative=True, draft_len=8)
+    for B in (1, 4):
+        request(four[:B], max_new_tokens=8, prompt_ids=[PROMPT_IDS] * B, **spec)  # warm-up
+        reset_counts(tfa)
+        tokens, lengths, _ = request(four[:B], prompt_ids=[PROMPT_IDS] * B, **spec)
+        expect_counts(f"speculative B={B}", read_counts(tfa), flash_prefill=L)
+    log("decoding", f"speculative decoding through the API (use_speculative, draft_len 8), bf16, "
+                    f"B=1 and B=4, 128 new tokens: launches flash_prefill {L} a request (the "
+                    f"prefill), no decode_attention: each verify is the chunk step, plain PyTorch")
+    sp = speculative_checks("1B", cfg, p16, bf16, cfg, p32, f32, x4, prompt4)
+    # --- times, in turns ---
+    b1 = request_turns(card, "1B bf16 B=1 image -> SVG latency, 128 new tokens", {
+        "greedy": lambda im: request(im, prompt_ids=[PROMPT_IDS]),
+        "speculative": lambda im: request(im, prompt_ids=[PROMPT_IDS], **spec),
+        "beam K=2": lambda im: request(im, prompt_ids=[PROMPT_IDS], num_beams=2),
+    }, lambda r: synthetic_images(1, 300 + r), rounds=3)
+    b4 = request_turns(card, "1B bf16 B=4 request, 128 new tokens (tokens/s = emitted tokens / "
+                             "wall time)", {
+        "greedy": lambda im: request(im),
+        "speculative": lambda im: request(im, **spec),
+    }, lambda r: synthetic_images(4, 400 + r))
+    del m32
+    return dict(b1=b1, b4=b4, **sp)
+
+
+def speculative_checks(label: str, cfg, p16, bf16, cfg32, p32, f32, x, prompt) -> dict:
+    """Speculative decoding through generate_greedy_speculative (row 0) and
+    generate_greedy_speculative_batched (all rows of x), draft_len 8: in
+    bf16 at 128 new tokens, n_forwards, tokens a verify forward and the
+    rows that part from plain greedy generate (near-tie flips between the
+    verify's chunk arithmetic and the decode kernel's; printed, not
+    checked); in fp32 at 32 tokens on (cfg32, p32), ids and lengths equal
+    to plain greedy generate with the kernels (checked)."""
+    from starvector_tpu_torch.generation import speculative
+    from starvector_tpu_torch.generation.engine import GenerationConfig, generate, im2svg_prefix
+
+    out = {}
+    for what, c, params, policy, new in (("bf16", cfg, p16, bf16, 128),
+                                         ("fp32", cfg32, p32, f32, 32)):
+        dec = params["svg_transformer"]
+        emb, mask = im2svg_prefix(params, c, x, prompt, policy=policy)
+        ids = spec_ids(emb.shape[1], prompt)
+        kw = dict(max_new_tokens=new, draft_len=8, stop_sequences=STOP_IDS, policy=policy)
+        ref, ref_len = generate(dec, c.llm, emb, mask, GenerationConfig(
+            max_new_tokens=new, do_sample=False, stop_sequences=STOP_IDS), policy=policy)
+        t1, l1, f1 = speculative.generate_greedy_speculative(dec, c.llm, emb[:1], mask[:1],
+                                                             ids[:1], **kw)
+        tb, lb, fb = speculative.generate_greedy_speculative_batched(dec, c.llm, emb, mask, ids,
+                                                                     **kw)
+        same = same_as_greedy(t1, l1, ref[:1], ref_len[:1]) + same_as_greedy(tb, lb, ref, ref_len)
+        parts = [first_parting(t, r) for t, r in zip(torch.cat([t1[:, :new], tb]),
+                                                      torch.cat([ref[:1], ref]))]
+        if what == "fp32" and not all(same):
+            raise AssertionError(f"{label} speculative fp32 ids differ from greedy:\n"
+                                 f"{t1.tolist()}\n{tb.tolist()}\n{ref.tolist()}")
+        B = x.shape[0]
+        log("decoding", f"{label} speculative decoding, {what}, draft_len 8, {new} new tokens: "
+                        f"B=1 length {int(l1[0])}, n_forwards {f1} "
+                        f"({int(l1[0]) / max(f1 - 1, 1):.2f} tokens a verify forward); batched "
+                        f"B={B}: lengths {lb.tolist()}, n_forwards {fb} "
+                        f"({float(lb.sum()) / max(fb - 1, 1):.2f} tokens a round over {B} rows); "
+                        + (f"rows parting from plain greedy generate: B=1 {int(not same[0])} of 1, "
+                           f"batched {same[1:].count(False)} of {B}, at token {parts} (None: "
+                           f"never; bf16 near-tie flips between the verify and the decode step)"
+                           if what == "bf16" else "ids and lengths == plain greedy generate "
+                                                  "with the kernels, every row"))
+        out[what] = dict(n_forwards=(f1, fb), lengths=(l1.tolist(), lb.tolist()), parts=parts)
+    log("decoding", f"{label}: random weights, so the acceptance above is no forecast for real "
+                    f"SVG")
+    return out
+
+
+GRPO_B, GRPO_G, GRPO_NEW, GRPO_LR = 2, 4, 64, 1e-5
+
+
+def grpo_rollout(roll: dict) -> dict:
+    """The update's inputs from a generate_im2svg_grpo result, as
+    GRPOTrainer.step builds them."""
+    ids, P = roll["outputs"], roll["prompt_len"]
+    pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    attn = (pos < P + roll["lengths"][:, None]).to(torch.int32)
+    return {"vision_embeds": roll["inputs_embeds"][:, :roll["inputs_embeds"].shape[1] - P],
+            "ids": ids, "attn_mask": attn, "loss_mask": attn * (pos >= P).to(torch.int32)}
+
+
+def grpo_phase(sv, tfa, cfg, dev, card: str) -> dict:
+    """GRPO at full 1B width: one GRPOTrainer.step (fp32 masters, bf16
+    compute, remat "dots", AdamW at lr 1e-5; the decoder alone trains) at
+    B=2 images, G=4 rollouts each, 64 new tokens, against a synthetic target
+    raster (where this machine has no librsvg/cairo, a stand-in reward):
+    the rollout launches flash_prefill once a layer (at B=2 rows) and
+    decode_attention once a layer a step (at 8); the update 2 x 24
+    forwards-with-lse (remat "dots" runs each layer's forward twice) and 24
+    of each backward kernel; the loss finite; then the same step again,
+    warm; the tower and the adapter unchanged, the decoder changed unless
+    every group was scored alike; wall time split into rollout, reward and
+    update for both steps, and peak memory. Then,
+    on one rollout with fixed advantages, one fp32 update with the kernels
+    against one with the plain attention from the same weights: loss rtol
+    1e-4, grad_norm rtol 1e-3, updated weights within 3 lr (phase 5's
+    bounds)."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.data.rasterize import rasterizer_available
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.train import grpo
+    from starvector_tpu_torch.train.optim import build_optimizer, tree_leaves
+
+    L = cfg.llm.n_layer
+    tok = build_test_tokenizer("v1")
+    target = np.full((224, 224, 3), 255, np.uint8)  # a red square on white
+    target[56:168, 56:168] = (220, 40, 40)
+    p32 = full_width_params(sv, cfg, dev, torch.float32, seed=5)
+    model = StarVectorForCausalLM(p32, cfg, tok, device=dev,
+                                  policy=DTypePolicy(torch.float32, torch.bfloat16),
+                                  generator=torch.Generator(device=dev).manual_seed(5))
+    before = {k: [t.clone() for t in tree_leaves(v)] for k, v in p32.items()}
+    trainer = grpo.GRPOTrainer(model, grpo.GRPOConfig(num_generations=GRPO_G,
+                                                      max_new_tokens=GRPO_NEW),
+                               lr=GRPO_LR, remat="dots")
+    images = model.process_images(synthetic_images(GRPO_B, 51))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tfa)
+    rewards = []
+    batch_rewards = grpo.batch_rewards
+    raster = rasterizer_available()
+    if raster:
+        reward_fn = batch_rewards
+    else:
+        # no librsvg/cairo here: every rollout would fall to the placeholder
+        # and score 0 (after a worker process or two each), so the advantages
+        # would be 0 and the update would move nothing. A stand-in reward,
+        # the mean of each rollout's generated ids over the vocabulary's size
+        # (its text says little: the byte-level test tokenizer decodes the
+        # ids past its 261 to nothing), keeps the update real; the reward
+        # chain itself is held to JAX's on the CPU (tests/test_torch_grpo.py)
+        rollout = model.generate_im2svg_grpo
+
+        def spied(*a, **kw):
+            roll = rollout(*a, **kw)
+            model.last_rollout = roll
+            return roll
+
+        model.generate_im2svg_grpo = spied
+
+        def reward_fn(raw_svgs, targets, **kw):
+            roll = model.last_rollout
+            P = roll["prompt_len"]
+            return np.asarray([row[P:P + n].double().mean().item() / cfg.llm.vocab_size
+                               for row, n in zip(roll["outputs"].cpu(), roll["lengths"].tolist())],
+                              np.float32)
+    grpo.batch_rewards = lambda *a, **kw: rewards.append(reward_fn(*a, **kw)) or rewards[-1]
+    try:
+        with BatchSpy(cfg.decoder_module) as spy:
+            out = trainer.step(images, [target] * GRPO_B)
+        counts = read_counts(tfa)
+        warm = trainer.step(images, [target] * GRPO_B)  # the same step again, warm
+    finally:
+        grpo.batch_rewards = batch_rewards
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(spy.rows) - 2  # the rollout's prefill and steps, then the update's forward
+    rows = [GRPO_B] + [GRPO_B * GRPO_G] * steps + [GRPO_B * GRPO_G]
+    expect_counts("GRPO step", counts, flash_prefill=L, decode_attention=L * steps,
+                  flash_prefill_with_lse=2 * L, flash_bwd_dkdv=L, flash_bwd_dq=L)
+    if spy.rows != rows or not 0 <= steps < GRPO_NEW or not np.isfinite(out["loss"]):
+        raise AssertionError(f"GRPO step: forwards at rows {spy.rows}, metrics {out}")
+    source = ("svg_pixel_reward against the target" if raster else
+              "a stand-in (no librsvg/cairo on this machine: rasterizer_available() is False)")
+    moved = {k: [not torch.equal(a, b.detach()) for a, b in zip(before[k], tree_leaves(p32[k]))]
+             for k in p32}
+    # the updates move the decoder only if a group's rewards differ (a group
+    # scored alike has advantages 0, and so no gradient)
+    varies = any(bool((r.reshape(GRPO_B, GRPO_G).std(axis=1) > 0).any()) for r in rewards)
+    if any(any(m) for k, m in moved.items() if k != "svg_transformer") or \
+            varies != any(moved["svg_transformer"]) or not np.isfinite(warm["loss"]):
+        raise AssertionError(f"GRPO step: leaves moved {moved}, metrics {out}")
+    log("grpo", f"GRPOTrainer.step, StarVector-1B full width, B={GRPO_B} x G={GRPO_G}, "
+                f"{GRPO_NEW} new tokens (sampled, T 1.0, top-p 0.9), fp32 masters / bf16 compute, "
+                f"remat dots, AdamW lr {GRPO_LR}: rollout at rows {spy.rows[0]} then {steps} "
+                f"steps at {GRPO_B * GRPO_G}; launches {counts['flash_prefill']} flash_prefill "
+                f"+ {counts['decode_attention']} decode_attention (rollout), "
+                f"{counts['flash_prefill_with_lse']} flash_prefill_with_lse + "
+                f"{counts['flash_bwd_dkdv']} dkdv + {counts['flash_bwd_dq']} dq (update); "
+                f"reward: {source}, "
+                f"{[[round(float(x), 4) for x in r] for r in rewards]} over two steps (a group's "
+                f"differ: {varies}); loss {out['loss']:.6f}, {warm['loss']:.6f}, grad_norm "
+                f"{out['grad_norm']:.4e}, {warm['grad_norm']:.4e}; decoder leaves moved "
+                f"{sum(moved['svg_transformer'])} of {len(moved['svg_transformer'])}, tower and "
+                f"adapter none")
+    log("times", f"{card}: GRPO step at 1B, B={GRPO_B} x G={GRPO_G}, {GRPO_NEW} new tokens, the "
+                 f"first step and the same step again: "
+                 + "; ".join(f"{(o['rollout_s'] + o['reward_s'] + o['update_s']) * 1e3:.1f} ms = "
+                             f"rollout {o['rollout_s'] * 1e3:.1f} + reward "
+                             f"{o['reward_s'] * 1e3:.1f} + update {o['update_s'] * 1e3:.1f} ms"
+                             for o in (out, warm))
+                 + f"; peak memory {peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above "
+                 f"the {base / 2**30:.2f} GiB held before (fp32 masters, their copy for the "
+                 f"check, the decoder's AdamW state)")
+
+    # fp32: one update with the kernels against one with the plain attention
+    roll = grpo_rollout(model.generate_im2svg_grpo({"image": images}, num_return_sequences=GRPO_G,
+                                                   max_new_tokens=GRPO_NEW))
+    adv = torch.linspace(-1.0, 1.0, GRPO_B * GRPO_G, device=dev)
+    del trainer, model, p32, before
+    torch.cuda.empty_cache()
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    res = {}
+    for kernels in (True, False):
+        params = full_width_params(sv, cfg, dev, torch.float32, seed=5)
+        for t in tree_leaves(params["svg_transformer"]):
+            t.requires_grad_()
+        opt = build_optimizer(params, lr=GRPO_LR, weight_decay=0.0, train_image_encoder=False,
+                              train_connector=False)
+        step = grpo.make_grpo_step(cfg, opt, num_generations=GRPO_G, policy=f32, remat="dots",
+                                   kernels=kernels)
+        start = [t.detach().clone() for t in tree_leaves(params)]
+        reset_counts(tfa)
+        _, _, m = step(params, opt.init(params), roll, adv)
+        n = {k: read_counts(tfa)[k] for k in TRAIN_KERNELS}
+        moved = [not torch.equal(a, b.detach()) for a, b in zip(start, tree_leaves(params))]
+        res[kernels] = (float(m["loss"]), float(m["grad_norm"]), n,
+                        [t.detach() for t in tree_leaves(params["svg_transformer"])])
+        del params, opt, step, start
+    (l_k, g_k, n_k, w_k), (l_p, g_p, n_p, w_p) = res[True], res[False]
+    diff = max((a - b).abs().max().item() for a, b in zip(w_k, w_p))
+    n_dec = len(w_k)  # the decoder's leaves come first in the tree
+    if not all(moved[:n_dec]) or any(moved[n_dec:]):
+        raise AssertionError(f"GRPO fp32 update: leaves moved {moved}")
+    if n_k != {"flash_prefill_with_lse": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L} or \
+            any(n_p.values()) or abs(l_k - l_p) > 1e-4 * abs(l_p) or \
+            abs(g_k - g_p) > 1e-3 * abs(g_p) or diff > 3 * GRPO_LR or not g_k > 0:
+        raise AssertionError(f"GRPO fp32 update: kernels {l_k}, {g_k}, {n_k}; plain {l_p}, "
+                             f"{g_p}, {n_p}; weights max |diff| {diff}")
+    log("grpo", f"fp32 update on one rollout, advantages -1..1, kernels vs plain attention: loss "
+                f"{l_k:.7f} vs {l_p:.7f} (rtol 1e-4), grad_norm {g_k:.6e} vs {g_p:.6e} (rtol "
+                f"1e-3), updated decoder weights max |diff| {diff:.3e} (bound 3 lr = "
+                f"{3 * GRPO_LR:.0e}); every decoder leaf moved, no tower or adapter leaf; "
+                f"launches {n_k} with the kernels, none with plain")
+    del res, w_k, w_p
+    torch.cuda.empty_cache()
+    return dict(out=out, peak=peak, counts=counts)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
@@ -2120,6 +2599,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     t2s = text2svg_slice(tfa, "8B", StarVectorForCausalLM(p16, cfg, build_test_tokenizer("v2"),
                                                           policy=model.policy, device=dev),
                          p32, cfg32, dev, depth)
+    decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth)
     del m32, p32, q16
     torch.cuda.empty_cache()
 
@@ -2171,6 +2651,55 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth: str) -> None:
+    """Phase 6's decoding variants on the 8B's bf16 tree (full width and
+    depth) and its fp32 copy (cfg32's depth, told by `depth`): beam search,
+    num_beams=2 at B=1 through the API (flash_prefill once a layer over
+    B x K = 2 rows, decode_attention at G = 9 once a layer a step), fp32 ids
+    kernels == plain; speculative decoding at B=1 and B=4 through the API
+    (flash_prefill only: every verify is the chunk step, B=4's through
+    StarCoder2's forward_ragged_verify), then speculative_checks."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.models import starcoder2
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    L = cfg.llm.num_hidden_layers
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    request = api_requester(model)
+    one = synthetic_images(1, 61)
+    request(one, num_beams=2, max_new_tokens=4, prompt_ids=[PROMPT_IDS])  # warm-up
+    reset_counts(tfa)
+    with BatchSpy(starcoder2) as spy:
+        tokens, lengths, secs = request(one, num_beams=2, prompt_ids=[PROMPT_IDS])
+    counts = read_counts(tfa)
+    steps = len(spy.rows) - 1
+    expect_counts("8B beam", counts, flash_prefill=L, decode_attention=L * steps)
+    if spy.rows != [2] * (steps + 1) or not int(lengths.max()) - 1 <= steps <= 127:
+        raise AssertionError(f"8B beam: forwards at rows {spy.rows}, lengths {lengths.tolist()}")
+    x1 = model.process_images(one)
+    ids = {k: StarVectorForCausalLM(p32, cfg32, policy=f32, device=dev, kernels=k)
+           .generate_im2svg_ids({"image": x1}, num_beams=2, **{
+               **GREEDY, "prompt_ids": [PROMPT_IDS], "max_new_tokens": 32})[1:]
+           for k in (True, False)}
+    if not all(torch.equal(a, b) for a, b in zip(ids[True], ids[False])):
+        raise AssertionError(f"8B beam fp32 ids differ:\n{ids[True]}\n{ids[False]}")
+    log("decoding", f"8B beam search, num_beams=2, B=1, 128 new tokens, bf16: length "
+                    f"{int(lengths[0])}, {steps + 1} forwards at B x K = 2 rows, "
+                    f"{secs * 1e3:.1f} ms; launches flash_prefill {counts['flash_prefill']} = {L} "
+                    f"x 1, decode_attention (G = 9) {counts['decode_attention']} = {L} x {steps}; "
+                    f"fp32, 32 tokens, {depth}: ids and lengths with the kernels == plain")
+    four = synthetic_images(4, 62)
+    for B in (1, 4):
+        request(four[:B], max_new_tokens=4, prompt_ids=[PROMPT_IDS] * B, use_speculative=True)
+        reset_counts(tfa)
+        request(four[:B], prompt_ids=[PROMPT_IDS] * B, use_speculative=True)
+        expect_counts(f"8B speculative B={B}", read_counts(tfa), flash_prefill=L)
+    log("decoding", f"8B speculative decoding through the API, bf16, B=1 and B=4, 128 new "
+                    f"tokens: launches flash_prefill {L} a request, no decode_attention")
+    speculative_checks("8B", cfg, p16, model.policy, cfg32, p32, f32,
+                       model.process_images(four), torch.tensor([PROMPT_IDS] * 4, device=dev))
 
 
 def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict,
@@ -2996,6 +3525,11 @@ def main() -> int:
                  f"{e2e['bf16']['rate']:.1f} tokens/s")
     memory_times(card, {"bf16": request, "int8": int8["request"]},
                  {"bf16": p16, "int8": int8["params"]})
+
+    # --- 4b. the decoding variants and GRPO -------------------------------------
+    phase("4b", "StarVector-1B decoding variants and GRPO")
+    t_4b = time.perf_counter()
+    decoding_1b(tfa, model, cfg, p16, p32, int8["params"], dev, card)
     if args.profile is not None:
         profile_request(request, card, args.profile)
         profile_request(int8["request"], card, args.profile, "int8")
@@ -3004,6 +3538,10 @@ def main() -> int:
     # the 1B inference trees go, so that phases 5 and 6 hold only their own
     clip_images = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=dev).batch
     del model, m32, p16, p32, request, logits, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+    grpo_phase(sv, tfa, cfg, dev, card)
+    log("phase", f"4b took {time.perf_counter() - t_4b:.0f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -8,8 +8,12 @@ its own copy. Its entry points run on the card unless asked for the CPU.
 
 Layer map:
   api.py        -- StarVectorForCausalLM: process_images, generate_im2svg,
-                   generate_text2svg, forward (the loss); StarVectorPipeline
-  generation/   -- the cached generation loop (engine.py)
+                   generate_text2svg (beams, speculative decoding,
+                   num_return_sequences), generate_im2svg_grpo, forward
+                   (the loss); StarVectorPipeline
+  generation/   -- the cached generation loop (engine.py), beam search
+                   (beam.py), prompt-lookup speculative decoding
+                   (speculative.py)
   models/       -- StarVector task model, CLIP ViT and SigLIP towers, adapter,
                    GPTBigCode and StarCoder2 decoders, KV cache, weights in
                    (convert.py) and out (export.py), the builder (builder.py)
@@ -19,7 +23,9 @@ Layer map:
   csrc/         -- the CUDA C++ kernels for sm_90a, built at first use by
                    ops/kernel_lib.py into _build/
   data/, train/, config.py -- datasets, rasterizer (native/), loader, the
-                   training entry point, optimizers, HF export (train/hub.py)
+                   training entry point, optimizers, HF export (train/hub.py),
+                   GRPO (train/grpo.py)
+  metrics/      -- SSIM and its per-sample loop (GRPO's reward)
   utils/        -- run identity, code snapshot, metrics sink
 """
 

@@ -10,8 +10,15 @@ starvector_tpu/api.py::StarVectorForCausalLM, im2svg and text2svg).
 
 Greedy and sampled im2svg and text2svg are ported for StarVector-1B and
 StarVector-8B, in bf16 or fp32, or with int8 decoder weights
-(`from_pretrained(..., quantize=True)`). Beam search, speculative decoding
-and GRPO rollouts raise NotImplementedError naming their ROADMAP item.
+(`from_pretrained(..., quantize=True)`), with the JAX API's routes:
+`num_beams > 1` runs beam search (generation/beam.py, with
+`length_penalty`); `use_speculative=True` runs prompt-lookup speculative
+decoding (generation/speculative.py, `draft_len`: B = 1 on the linear
+cache, more rows on the ragged one; text2svg always the latter) when decoding is greedy with every penalty and bias neutral, and
+plain decoding otherwise, as the JAX API's `spec_ok`;
+`num_return_sequences = n` gives n rows a prompt, adjacent, each text
+with its prompt. `generate_im2svg_grpo` is the rollout of
+train/grpo.py's GRPOTrainer.
 """
 
 from __future__ import annotations
@@ -24,13 +31,28 @@ import torch
 
 from starvector_tpu_torch import require_device
 from starvector_tpu_torch.data.processor import processor_for_encoder
+from starvector_tpu_torch.generation.beam import beam_search
 from starvector_tpu_torch.generation.engine import (
-    GenerationConfig, generate_im2svg, generate_text2svg,
+    GenerationConfig, generate, generate_text2svg, im2svg_prefix,
+)
+from starvector_tpu_torch.generation.speculative import (
+    generate_greedy_speculative, generate_greedy_speculative_batched,
 )
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 
 SVG_PROMPT = "<svg"  # the generation trigger (reference starcoder.py:39)
+
+
+def spec_ok(gen: GenerationConfig) -> bool:
+    """Speculative decoding emits the raw argmax: it is taken only where
+    plain decoding's logit processors do nothing (the JAX API's guard)."""
+    return (not gen.do_sample and gen.num_return_sequences == 1
+            and gen.repetition_penalty == 1.0 and gen.frequency_penalty == 0.0
+            and gen.presence_penalty == 0.0 and not gen.logit_bias
+            # min_new_tokens acts only through eos suppression, which
+            # speculative decoding does not do
+            and (gen.eos_token_id is None or gen.min_new_tokens <= 1))
 
 
 def tokenizer_version(cfg: sv.StarVectorConfig) -> str:
@@ -135,16 +157,13 @@ class StarVectorForCausalLM:
             else int(kwargs.get("pad_token_id", 0)),
         )
 
-    def generate_im2svg_ids(self, batch: dict, *, prompt_ids=None, stop_sequences=None,
-                            **kwargs):
-        """im2svg as token ids: returns (prompt_ids (B, Sp), tokens
-        (B, max_new_tokens), lengths (B,)). Without a tokenizer, pass
-        `prompt_ids` and `stop_sequences` (tuples of ids)."""
-        if int(kwargs.get("num_beams", 1)) > 1:
-            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, item 7)")
-        if kwargs.get("use_speculative"):
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue 1, item 7)")
+    def _spec_kwargs(self, gen: GenerationConfig, kwargs: dict) -> dict:
+        return dict(max_new_tokens=gen.max_new_tokens, draft_len=int(kwargs.get("draft_len", 8)),
+                    stop_sequences=gen.stop_sequences, eos_token_id=gen.eos_token_id,
+                    pad_token_id=gen.pad_token_id, policy=self.policy, kernels=self.kernels)
+
+    def _im2svg_request(self, batch: dict, prompt_ids, stop_sequences, kwargs: dict):
+        """(images, prompt_ids (B, Sp) on the device, GenerationConfig)."""
         images = torch.as_tensor(batch["image"], device=self.device)
         B = images.shape[0]
         if prompt_ids is None:
@@ -157,25 +176,90 @@ class StarVectorForCausalLM:
                 raise ValueError("no tokenizer: pass stop_sequences")
             stop_sequences = (self.tokenizer.stop_sequence_ids("</svg>"),)
         prompt_ids = torch.as_tensor(prompt_ids, device=self.device).long()
-        gen = self._gen_config(kwargs, tuple(tuple(s) for s in stop_sequences))
-        tokens, lengths = generate_im2svg(self.params, self.cfg, images, prompt_ids, gen,
-                                          self.generator, policy=self.policy,
-                                          kernels=self.kernels)
-        return prompt_ids, tokens, lengths
+        return images, prompt_ids, self._gen_config(kwargs, tuple(tuple(s) for s in stop_sequences))
+
+    @torch.no_grad()
+    def _im2svg(self, batch: dict, prompt_ids, stop_sequences, kwargs: dict):
+        """(prompt_ids (B x n, Sp), tokens, lengths, speculative?) by the
+        JAX API's route: beams, speculative or plain decoding."""
+        images, prompt_ids, gen = self._im2svg_request(batch, prompt_ids, stop_sequences, kwargs)
+        dec_params = self.params["svg_transformer"]
+        num_beams = int(kwargs.get("num_beams", 1))
+        speculative = bool(kwargs.get("use_speculative")) and spec_ok(gen) and num_beams <= 1
+        prefix, mask = im2svg_prefix(self.params, self.cfg, images, prompt_ids, policy=self.policy)
+        if num_beams > 1:
+            tokens, lengths = beam_search(
+                dec_params, self.cfg.llm, prefix, mask, num_beams=num_beams,
+                max_new_tokens=gen.max_new_tokens, stop_sequences=gen.stop_sequences,
+                eos_token_id=gen.eos_token_id, pad_token_id=gen.pad_token_id,
+                length_penalty=float(kwargs.get("length_penalty", 1.0)), policy=self.policy,
+                kernels=self.kernels)
+            return prompt_ids, tokens, lengths, False
+        if speculative:
+            B, Sp = prompt_ids.shape
+            # the draft's context: -1 over the visual tokens, then the prompt
+            ids = torch.cat([torch.full((B, prefix.shape[1] - Sp), -1, dtype=torch.int64,
+                                        device=self.device), prompt_ids], dim=1)
+            run = generate_greedy_speculative if B == 1 else generate_greedy_speculative_batched
+            tokens, lengths, _ = run(dec_params, self.cfg.llm, prefix, mask, ids,
+                                     **self._spec_kwargs(gen, kwargs))
+            return prompt_ids, tokens, lengths, True
+        tokens, lengths = generate(dec_params, self.cfg.llm, prefix, mask, gen, self.generator,
+                                   prompt_ids=prompt_ids, policy=self.policy,
+                                   kernels=self.kernels)
+        return prompt_ids.repeat_interleave(gen.num_return_sequences, dim=0), tokens, lengths, False
+
+    def generate_im2svg_ids(self, batch: dict, *, prompt_ids=None, stop_sequences=None,
+                            **kwargs):
+        """im2svg as token ids: returns (prompt_ids (B x n, Sp), tokens
+        (B x n, max_new_tokens), lengths (B x n,)), n = num_return_sequences
+        (1 for beams and speculative decoding). Without a tokenizer, pass
+        `prompt_ids` and `stop_sequences` (tuples of ids)."""
+        return self._im2svg(batch, prompt_ids, stop_sequences, kwargs)[:3]
 
     def generate_im2svg(self, batch: dict, **kwargs) -> list[str]:
         """Reference generate_im2svg: decoded text includes the prompt prefix
-        ("<svg" ...), as the reference's torch.cat([prompt, outputs]) does."""
+        ("<svg" ...), as the reference's torch.cat([prompt, outputs]) does
+        (the speculative route, as the JAX API's, decodes the two apart and
+        joins the texts)."""
         if self.tokenizer is None:
             raise ValueError("generate_im2svg decodes text and needs a tokenizer; "
                              "use generate_im2svg_ids without one")
-        prompt_ids, tokens, lengths = self.generate_im2svg_ids(batch, **kwargs)
-        outs = torch.cat([prompt_ids, tokens], dim=1).cpu().numpy()
+        prompt_ids, tokens, lengths, speculative = self._im2svg(
+            batch, kwargs.pop("prompt_ids", None), kwargs.pop("stop_sequences", None), kwargs)
         P = prompt_ids.shape[1]
+        prompts, tokens = prompt_ids.cpu().numpy(), tokens.cpu().numpy()
+        if speculative:
+            return [self.tokenizer.decode(p) + self.tokenizer.decode(row[:int(L)])
+                    for p, row, L in zip(prompts, tokens, lengths.tolist())]
+        outs = np.concatenate([prompts, tokens], axis=1)
         return [self.tokenizer.decode(row[:P + int(L)]) for row, L in zip(outs, lengths.tolist())]
 
-    def generate_im2svg_grpo(self, batch: dict, **kwargs):
-        raise NotImplementedError("GRPO rollouts are not ported yet (ROADMAP queue 1, item 7)")
+    @torch.no_grad()
+    def generate_im2svg_grpo(self, batch: dict, *, prompt_ids=None, stop_sequences=None,
+                             **kwargs) -> dict:
+        """Reference generate_im2svg_grpo: grouped rollouts for RL. The image
+        is encoded once; its [visual ‖ prompt] embeddings serve the sampling
+        (num_return_sequences rows an image, adjacent) and are returned.
+        Returns {"raw_svg": the decoded texts with their prompt (None
+        without a tokenizer), "outputs": [prompt ‖ tokens] ids (B x n,
+        Sp + max_new_tokens), "lengths": generated lengths (B x n,),
+        "inputs_embeds": (B, Q + Sp, E), "prompt_len": Sp}."""
+        images, prompt_ids, gen = self._im2svg_request(batch, prompt_ids, stop_sequences, kwargs)
+        inputs_embeds, mask = im2svg_prefix(self.params, self.cfg, images, prompt_ids,
+                                            policy=self.policy)
+        tokens, lengths = generate(self.params["svg_transformer"], self.cfg.llm, inputs_embeds,
+                                   mask, gen, self.generator, prompt_ids=prompt_ids,
+                                   policy=self.policy, kernels=self.kernels)
+        P = prompt_ids.shape[1]
+        outputs = torch.cat([prompt_ids.repeat_interleave(gen.num_return_sequences, dim=0),
+                             tokens], dim=1)
+        raw_svg = None
+        if self.tokenizer is not None:
+            raw_svg = [self.tokenizer.decode(row[:P + int(L)])
+                       for row, L in zip(outputs.cpu().numpy(), lengths.tolist())]
+        return {"raw_svg": raw_svg, "outputs": outputs, "lengths": lengths,
+                "inputs_embeds": inputs_embeds, "prompt_len": P}
 
     def _caption_ids(self, captions: Sequence[str], max_length: int):
         """caption + <svg-start> ids, truncated to max_length, as (B, S)
@@ -196,22 +280,35 @@ class StarVectorForCausalLM:
         return (torch.as_tensor(ids, device=self.device).long(),
                 torch.as_tensor(mask, device=self.device))
 
+    @torch.no_grad()
     def generate_text2svg_ids(self, batch: dict, **kwargs):
         """text2svg as token ids: batch["caption"] is a list of captions.
-        Returns (input_ids (B, S) left-padded, tokens (B, max_new_tokens),
-        lengths (B,)); generation stops on `</svg>` or eos."""
+        Returns (input_ids (B x n, S) left-padded, tokens (B x n,
+        max_new_tokens), lengths (B x n,)); generation stops on `</svg>` or
+        eos. The speculative route moves each row's ids to the right (the
+        ragged cache holds a row's keys from slot 0), as the JAX API does."""
         if self.tokenizer is None:
             raise ValueError("text2svg tokenizes its captions and needs a tokenizer")
-        if kwargs.get("use_speculative"):
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue 1, item 7)")
         ids, mask = self._caption_ids(batch["caption"], kwargs.get("max_length", 30))
         gen = self._gen_config(kwargs, (self.tokenizer.stop_sequence_ids("</svg>"),),
                                text2svg=True)
+        if kwargs.get("use_speculative") and spec_ok(gen):
+            n_real = mask.sum(dim=1, keepdim=True)
+            col = torch.arange(ids.shape[1], device=self.device)[None, :]
+            mask_r = (col < n_real).to(torch.int32)
+            # row b's real ids, moved from the end to the start
+            src = torch.clamp(col + ids.shape[1] - n_real, max=ids.shape[1] - 1)
+            ids_r = torch.where(mask_r > 0, ids.gather(1, src), 0)
+            embeds = self.policy.cast(self.cfg.decoder_module.embed_tokens(
+                self.params["svg_transformer"], ids_r))
+            tokens, lengths, _ = generate_greedy_speculative_batched(
+                self.params["svg_transformer"], self.cfg.llm, embeds, mask_r,
+                torch.where(mask_r > 0, ids_r, -1), **self._spec_kwargs(gen, kwargs))
+            return ids, tokens, lengths
         tokens, lengths = generate_text2svg(self.params, self.cfg, ids, mask, gen,
                                             self.generator, policy=self.policy,
                                             kernels=self.kernels)
-        return ids, tokens, lengths
+        return ids.repeat_interleave(gen.num_return_sequences, dim=0), tokens, lengths
 
     def generate_text2svg(self, batch: dict, **kwargs) -> list[str]:
         """Reference generate_text2svg: the decoded text holds the generated

@@ -5,7 +5,17 @@ generate_text2svg of starvector_tpu/generation/engine.py).
 The first token is drawn from the prefill's last logits. Each row stops on
 its own when one of the stop sequences (the `</svg>` ids for im2svg) or eos
 ends its output; rows that are done emit pad tokens, and the loop ends when
-every row is done. num_return_sequences > 1 is not ported yet.
+every row is done.
+
+num_return_sequences = n > 1 prefills each distinct row once, then tiles
+the filled cache, the last logits and the prompt's presence table n times
+(decode_common.tile_rows): the rows come out grouped [p0 x n, p1 x n, ...],
+HF's expand order, and the decode steps run at B x n rows.
+
+Beam search (beam.py), prompt-lookup speculative decoding
+(speculative.py) and GRPO rollouts (train/grpo.py) build on these pieces.
+The JAX package's generate_pipelined and generate_pipelined_spec raise
+NotImplementedError here (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -14,6 +24,7 @@ import dataclasses
 
 import torch
 
+from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.ops.sampling import NEG_INF, sample_token
@@ -45,24 +56,26 @@ class GenerationConfig:
     max_top_k: int = 64
 
 
-def _stop_hit(tokens: torch.Tensor, t: int, new_tok: torch.Tensor, stops: list[torch.Tensor],
-              gen: GenerationConfig):
-    """(B,) bool: a stop sequence (`stops`, on the device) is a suffix of
-    [tokens[:, :t], new_tok], or new_tok is eos."""
+def stop_hit(tokens: torch.Tensor, t: int, new_tok: torch.Tensor, stops: list[torch.Tensor],
+             eos_token_id: int | None, max_new_tokens: int) -> torch.Tensor:
+    """(...,) bool: a stop sequence (`stops`, on the device) is a suffix of
+    [tokens[..., :t], new_tok], or new_tok is eos; tokens (..., n), new_tok
+    (...,). A stop longer than max_new_tokens can never match."""
     hit = torch.zeros_like(new_tok, dtype=torch.bool)
     for s in stops:
         L = len(s)
-        if L == 0 or L > gen.max_new_tokens or t < L - 1:
+        if L == 0 or L > max_new_tokens or t < L - 1:
             continue
         match = new_tok == s[-1]
         if L > 1:
-            match &= (tokens[:, t - (L - 1):t] == s[:-1]).all(dim=-1)
+            match &= (tokens[..., t - (L - 1):t] == s[:-1]).all(dim=-1)
         hit |= match
-    if gen.eos_token_id is not None:
-        hit |= new_tok == gen.eos_token_id
+    if eos_token_id is not None:
+        hit |= new_tok == eos_token_id
     return hit
 
 
+@torch.no_grad()
 def generate(
     params: dict,
     llm_cfg,                       # GPTBigCodeConfig or StarCoder2Config
@@ -76,14 +89,13 @@ def generate(
     kernels: bool = True,
     kv_cache_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (tokens (B, max_new_tokens) int64, lengths (B,)): rows are
-    pad-filled after their stop, and lengths include the stop tokens.
-    `kv_cache_dtype` is the cache's type (default: the compute dtype);
-    torch.int8 stores it as codes with per-(position, head) scales, as the
-    JAX generate's `kv_cache_dtype=jnp.int8`."""
-    if gen.num_return_sequences != 1:
-        raise NotImplementedError(
-            "num_return_sequences > 1 is not ported yet (ROADMAP queue 1, item 7)")
+    """Returns (tokens (B x num_return_sequences, max_new_tokens) int64,
+    lengths (B x num_return_sequences,)): rows are pad-filled after their
+    stop, lengths include the stop tokens, and a prompt's n return
+    sequences are adjacent rows. `kv_cache_dtype` is the cache's type
+    (default: the compute dtype); torch.int8 stores it as codes with
+    per-(position, head) scales, as the JAX generate's
+    `kv_cache_dtype=jnp.int8`."""
     if gen.top_k > gen.max_top_k:
         raise ValueError(f"top_k={gen.top_k} exceeds max_top_k={gen.max_top_k}")
     dec = decoder_module(llm_cfg)
@@ -91,17 +103,13 @@ def generate(
     V = llm_cfg.vocab_size
     device = inputs_embeds.device
     n = gen.max_new_tokens
+    n_rep = gen.num_return_sequences
 
     use_rep = gen.repetition_penalty != 1.0
     use_freq = gen.frequency_penalty != 0.0 or gen.presence_penalty != 0.0
     presence = torch.zeros((B, V), dtype=torch.int32, device=device) if use_rep else None
     if use_rep and prompt_ids is not None:
         presence.scatter_(1, prompt_ids.long().to(device), 1)
-    counts = torch.zeros((B, V), dtype=torch.int32, device=device) if use_freq else None
-    bias_ids = bias_vals = None
-    if gen.logit_bias:
-        bias_ids = torch.tensor([[t for t, _ in gen.logit_bias]] * B, device=device)
-        bias_vals = torch.tensor([[v for _, v in gen.logit_bias]] * B, device=device)
 
     cache = dec.init_cache(llm_cfg, B, P + n, dtype=kv_cache_dtype or policy.compute_dtype,
                            device=device)
@@ -109,6 +117,19 @@ def generate(
                                 cache=cache, policy=policy, last_logits_only=True,
                                 kernels=kernels)
     last_logits = logits[:, -1]
+    if n_rep > 1:
+        # one prefill per distinct row; its cache serves the row's n samples
+        last_logits = last_logits.repeat_interleave(n_rep, dim=0)
+        cache = dc.tile_rows(cache, n_rep)
+        if use_rep:
+            presence = presence.repeat_interleave(n_rep, dim=0)
+        B *= n_rep
+
+    counts = torch.zeros((B, V), dtype=torch.int32, device=device) if use_freq else None
+    bias_ids = bias_vals = None
+    if gen.logit_bias:
+        bias_ids = torch.tensor([[t for t, _ in gen.logit_bias]] * B, device=device)
+        bias_vals = torch.tensor([[v for _, v in gen.logit_bias]] * B, device=device)
 
     tokens = torch.full((B, n), gen.pad_token_id, dtype=torch.int64, device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
@@ -129,7 +150,7 @@ def generate(
             max_top_k=gen.max_top_k, generator=generator,
         )
         nxt = torch.where(done, torch.full_like(nxt, gen.pad_token_id), nxt)
-        newly_done = _stop_hit(tokens, t, nxt, stops, gen) & ~done
+        newly_done = stop_hit(tokens, t, nxt, stops, gen.eos_token_id, n) & ~done
         lengths = torch.where(newly_done, torch.full_like(lengths, t + 1), lengths)
         tokens[:, t] = nxt
         if use_rep:
@@ -198,3 +219,16 @@ def generate_text2svg(
     return generate(params["svg_transformer"], cfg.llm, policy.cast(embeds), attention_mask,
                     gen, generator, prompt_ids=input_ids, policy=policy, kernels=kernels,
                     kv_cache_dtype=kv_cache_dtype)
+
+
+def generate_pipelined(*args, **kwargs):
+    """The JAX package's generate_pipelined (the next batch's prefill
+    riding the current batch's decode steps): not ported."""
+    raise NotImplementedError("generate_pipelined is not ported yet (ROADMAP queue 1, item 7)")
+
+
+def generate_pipelined_spec(*args, **kwargs):
+    """The JAX package's generate_pipelined_spec (generate_pipelined with
+    speculative verify rounds): not ported."""
+    raise NotImplementedError(
+        "generate_pipelined_spec is not ported yet (ROADMAP queue 1, item 7)")

@@ -14,10 +14,19 @@ An int8 cache (`init_cache(dtype=torch.int8)`) holds int8 codes with fp32
 and kernel 2's int8 instantiation folds the scales into its scores and
 probabilities in decode.
 
+A ragged cache (`init_ragged_cache`) has per-row `lengths`, a (B,) int32
+tensor, in place of the shared index: each row's keys occupy [0, length)
+and a row advances on its own. Batched speculative decoding writes a
+W-token chunk per row at its own length (`write_new_kv_ragged_multi`) and
+then commits only the accepted tokens (`commit_verify`); rejected slots
+stay masked and are overwritten by the next chunk.
+
 The merged decode attention lives with kernel 2 in
 ops/flash_attention.py; the chunk step's attention (1 < S <= 64 new tokens,
 `merged_verify_attention`) is here, in plain PyTorch, as the JAX package
-computes it in XLA. Ragged (per-row length) caches are not ported yet.
+computes it in XLA. The serving engine's ragged steps and admission
+(`ragged_step_masks`, `write_new_kv_ragged`, `insert_prefill_rows`) are not
+ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -63,6 +72,36 @@ def init_cache(n_layer: int, kv_heads: int, head_dim: int, batch: int, max_len: 
         cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
         cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
     return cache
+
+
+def init_ragged_cache(n_layer: int, kv_heads: int, head_dim: int, batch: int, max_len: int,
+                      dtype=torch.bfloat16, device="cpu") -> dict:
+    """Cache with per-row lengths (a (B,) int32 tensor) in place of the
+    linear cache's shared index."""
+    cache = init_cache(n_layer, kv_heads, head_dim, batch, max_len, dtype, device)
+    del cache["index"]
+    cache["lengths"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def tile_rows(cache: dict, n: int) -> dict:
+    """A new cache whose rows are each of `cache`'s repeated n times in
+    place, [r0 x n, r1 x n, ...] (num_return_sequences after one prefill):
+    the payloads on their batch dim 1, kv_mask on dim 0; the index and
+    anything else shared."""
+    return {key: (arr.repeat_interleave(n, dim=1) if key in PAYLOAD_KEYS
+                  else arr.repeat_interleave(n, dim=0) if key == "kv_mask" else arr)
+            for key, arr in cache.items()}
+
+
+def reorder_rows(cache: dict, rows: torch.Tensor) -> None:
+    """Gather the cache's rows by `rows` (B,) (beam search's reorder by
+    parent): each payload and kv_mask is replaced by a new tensor gathered
+    from the old one, so no row is overwritten while the gather still
+    reads it; later writes go into the new tensors in place."""
+    for key in PAYLOAD_KEYS + ("kv_mask",):
+        if key in cache:
+            cache[key] = cache[key].index_select(0 if key == "kv_mask" else 1, rows)
 
 
 def layer_cache(cache: dict, i: int) -> dict:
@@ -180,3 +219,23 @@ def write_new_kv_linear_multi(cache: dict, news: dict, idx: int) -> None:
     [idx, idx + W), in place."""
     for key, new in news.items():
         cache[key][:, :, idx:idx + new.shape[2]] = new.to(cache[key].dtype)
+
+
+def write_new_kv_ragged_multi(cache: dict, news: dict, write_pos: torch.Tensor) -> None:
+    """Ragged cache: write each key's (L, B, W, Hkv[, D]) chunk stack at
+    each row's own slots `write_pos` (B, W), in place."""
+    rows = torch.arange(write_pos.shape[0], device=write_pos.device)[:, None]
+    for key, new in news.items():
+        cache[key][:, rows, write_pos] = new.to(cache[key].dtype)
+
+
+def commit_verify(cache: dict, n_commit: torch.Tensor) -> None:
+    """After a speculative verify: advance each row's length by its
+    accepted count (B,) and show exactly those slots, in place. Rejected
+    chunk slots stay masked and are overwritten by the next write."""
+    T = cache["kv_mask"].shape[1]
+    lengths = cache["lengths"]
+    new_len = torch.clamp(lengths + n_commit.to(torch.int32), max=T)
+    slot = torch.arange(T, device=lengths.device)[None, :]
+    cache["kv_mask"][(slot >= lengths[:, None]) & (slot < new_len[:, None])] = 1
+    cache["lengths"] = new_len

@@ -28,11 +28,16 @@ Every dense layer of the cached path also takes `kernels`: a quantized
 parameter tree (ops/quantization.py::quantize_tree) runs its projections
 through kernel 14, or its plain version with kernels=False.
 
+`forward_ragged_verify` is batched speculative decoding's verify over a
+ragged cache (per-row lengths): each row's W tokens at its own positions,
+through the chunk step's attention.
+
 Without a cache, `forward` is the training forward: each layer's attention
 is `flash_prefill_trainable` (the forward-with-lse kernel and the backward
 pair behind one autograd Function), with activation checkpointing per
 `remat` (see `_train_block`). The loss is `causal_lm_loss_fused`, the tied
-head fused into chunks whose logits are recomputed in the backward.
+head fused into chunks whose logits are recomputed in the backward;
+`token_logprobs_fused` gives GRPO's per-token log-probs the same way.
 
 The config's resid/embd/attn dropout fields are declared and never applied,
 as in the JAX package.
@@ -289,7 +294,8 @@ def forward(
 
     With `cache`: writes the S new tokens at cache["index"] (in place), by
     decode step, chunk step or prefill (see the module docstring). Returns
-    (logits (B, S|1, V) fp32, the same cache dict with its index advanced).
+    (logits (B, S|1, V) fp32, or the final hidden states (B, S, E) if
+    `return_hidden`; the same cache dict with its index advanced).
 
     `kernels=False` runs the kernels' plain versions on the card (attention,
     and the int8 matmul of a quantized tree)."""
@@ -335,12 +341,46 @@ def forward(
     cache["index"] = idx + S
 
     x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    if return_hidden:
+        return x, cache
     if last_logits_only:
         x = x[:, -1:]
     # tied head: compute-dtype operands, fp32 logits straight from the fp32
     # accumulator (never rounded to bf16, which would tie near-equal logits)
     logits = matmul_f32(policy.cast(x), policy.cast(params["wte"]).T)
     return logits, cache
+
+
+def init_ragged_cache(cfg: GPTBigCodeConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                      device="cpu") -> dict:
+    """Cache with per-row lengths (decode_common.init_ragged_cache)."""
+    return dc.init_ragged_cache(cfg.n_layer, cfg.kv_heads, cfg.head_dim, batch, max_len,
+                                dtype, device)
+
+
+def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.Tensor,
+                          cache: dict, *, policy: DTypePolicy = DTypePolicy(),
+                          kernels: bool = True):
+    """Speculative verify over a ragged cache: each row's W tokens (B, W)
+    ([last accepted ‖ drafts]) at positions lengths + [0, W), attending to
+    the row's visible slots and causally to its own chunk (the chunk step's
+    merged_verify_attention). The chunk's k/v are written at those slots
+    in place; `lengths` and `kv_mask` are left for
+    decode_common.commit_verify, which shows only the accepted ones (every
+    row computes; the caller commits nothing for a finished one). Returns
+    (logits (B, W, V) fp32, the cache)."""
+    B, W = token_ids.shape
+    x = policy.cast(embed_tokens(params, token_ids))
+    positions = cache["lengths"][:, None] + torch.arange(W, device=x.device)[None, :]
+    x = x + policy.cast(params["wpe"][torch.clamp(positions, 0, cfg.n_positions - 1)])
+    T = cache["k"].shape[2]
+    # no slot at or past the longest row is visible: attend over [0, t_hi)
+    t_hi = int(cache["lengths"].max())
+    x, news = dc.decode_scan(params["layers"], cache, x, _verify_layer_fn(
+        cfg, cache["kv_mask"][:, :t_hi], t_hi, None, policy, kernels))
+    dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
+    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(params["wte"]).T), cache
 
 
 def lm_head_table(params: dict, cfg: GPTBigCodeConfig) -> torch.Tensor:
@@ -381,3 +421,29 @@ def causal_lm_loss_fused(
         total = total + checkpoint(_chunk_nll, h[:, c:c + chunk], y[:, c:c + chunk], table,
                                    use_reentrant=False)
     return total / (y != -100).sum().clamp_min(1)
+
+
+def _chunk_logprobs(h: torch.Tensor, y: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """log p(y) of the chunk's ids; fp32 logits from the fp32 accumulator."""
+    logp = torch.log_softmax(matmul_f32(h, table.T), dim=-1)
+    return torch.gather(logp, -1, y[..., None])[..., 0]
+
+
+def token_logprobs_fused(
+    head_table: torch.Tensor,  # (V, E) tied lm head
+    hidden: torch.Tensor,      # (B, S, E) hidden states at the predicting positions
+    ids: torch.Tensor,         # (B, S) realized ids
+    *,
+    policy: DTypePolicy = DTypePolicy(),
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Per-token log-probs (B, S) fp32 of the realized ids, the LM head
+    fused into chunks of `chunk` positions, each checkpointed so that the
+    backward recomputes its logits (as causal_lm_loss_fused): the
+    (B, S, V) fp32 logits never exist at once."""
+    h = policy.cast(hidden)
+    table = policy.cast(head_table)
+    y = ids.long()
+    return torch.cat([checkpoint(_chunk_logprobs, h[:, c:c + chunk], y[:, c:c + chunk], table,
+                                 use_reentrant=False)
+                      for c in range(0, h.shape[1], chunk)], dim=1)

@@ -33,8 +33,12 @@ Without a cache, `forward` is the training forward: positions from the key
 mask, each layer's attention `flash_prefill_trainable` (the forward-with-lse
 kernel and the backward pair behind one autograd Function) with the sliding
 window, activation checkpointing per `remat` (see `_train_block`). The loss
-is gpt_bigcode.causal_lm_loss_fused over `lm_head_table`. The ragged, verify
-and serving functions are not ported yet (ROADMAP queue 1, items 7 and 9).
+is gpt_bigcode.causal_lm_loss_fused over `lm_head_table`.
+
+`forward_ragged_verify` is batched speculative decoding's verify over a
+ragged cache (per-row lengths): RoPE at each row's own positions and a
+per-query window over the cached slots. The serving engine's ragged
+decode step is not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -133,6 +137,13 @@ def init_cache(cfg: StarCoder2Config, batch: int, max_len: int, dtype=torch.bflo
                device="cpu") -> dict:
     return dc.init_cache(cfg.num_hidden_layers, cfg.kv_heads, cfg.head_dim, batch, max_len,
                          dtype, device)
+
+
+def init_ragged_cache(cfg: StarCoder2Config, batch: int, max_len: int, dtype=torch.bfloat16,
+                      device="cpu") -> dict:
+    """Cache with per-row lengths (decode_common.init_ragged_cache)."""
+    return dc.init_ragged_cache(cfg.num_hidden_layers, cfg.kv_heads, cfg.head_dim, batch,
+                                max_len, dtype, device)
 
 
 def compute_position_ids(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -345,3 +356,39 @@ def forward(
     # compute-dtype operands, fp32 logits straight from the fp32 accumulator
     logits = matmul_f32(policy.cast(x), policy.cast(lm_head_table(params, cfg)).T)
     return logits, cache
+
+
+def forward_ragged_verify(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,
+                          cache: dict, *, policy: DTypePolicy = DTypePolicy(),
+                          kernels: bool = True):
+    """Speculative verify over a ragged cache (gpt_bigcode.
+    forward_ragged_verify), with RoPE at each row's positions lengths +
+    [0, W) (unclipped, as the JAX function) and the window per query: query
+    w of row b sees cached slot t iff t > lengths[b] + w - window. Raises
+    ValueError when W exceeds the window (the within-chunk attention
+    assumes the chunk fits it). Returns (logits (B, W, V) fp32, the cache
+    with the chunk written and lengths / kv_mask unchanged)."""
+    B, W = token_ids.shape
+    if cfg.sliding_window is not None and W > cfg.sliding_window:
+        raise ValueError(f"verify chunk ({W}) exceeds sliding window ({cfg.sliding_window}): "
+                         f"within-chunk visibility assumes the whole chunk fits the window")
+    x = policy.cast(embed_tokens(params, token_ids))
+    lengths = cache["lengths"]
+    positions = lengths[:, None] + torch.arange(W, device=x.device)[None, :]
+    rope = rope_tables(positions, rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                                   device=x.device))
+    T = cache["k"].shape[2]
+    # the slots any query can see: below the longest row, and past the
+    # first query's window of the shortest
+    t_hi = int(lengths.max())
+    t_lo = min(window_begin(cfg, int(lengths.min())), t_hi)
+    old_mask = cache["kv_mask"][:, None, t_lo:t_hi].expand(B, W, t_hi - t_lo)
+    if cfg.sliding_window is not None:
+        slot = torch.arange(t_lo, t_hi, device=x.device)
+        old_mask = old_mask * (slot[None, None, :]
+                               > (positions - cfg.sliding_window)[:, :, None])
+    x, news = dc.decode_scan(params["layers"], cache, x, _verify_layer_fn(
+        cfg, old_mask, t_lo, t_hi, None, rope, policy, kernels))
+    dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
+    x = layer_norm(params["norm"], x, cfg.norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(lm_head_table(params, cfg)).T), cache

@@ -5,7 +5,8 @@ v1, StarVector-1B: GPTBigCode decoder, CLIP tower (257 visual tokens).
 v2, StarVector-8B: StarCoder2 decoder, SigLIP-384 tower (576 visual
 tokens), LayerNorm adapter. Both infer and train, im2svg and text2svg (a
 caption in, no vision tower: `text2svg_inputs`). Generation lives in
-starvector_tpu_torch/generation/engine.py.
+starvector_tpu_torch/generation/; `grpo_forward` gives the per-token
+log-probs that train/grpo.py's policy gradient takes.
 """
 
 from __future__ import annotations
@@ -244,3 +245,30 @@ def loss_fn_with_bn_stats(params: dict, cfg: StarVectorConfig, batch: dict, pad_
         dropout_gen=dropout_gen)
     inputs = _im2svg_sequence(params, cfg, cond, batch["svg_ids"], batch["svg_mask"], policy)
     return _decoder_loss(params, cfg, *inputs, policy, remat, kernels), {"bn_stats": bn_stats}
+
+
+def grpo_forward(params: dict, cfg: StarVectorConfig, vision_embeds: torch.Tensor,
+                 input_ids: torch.Tensor, attention_mask: torch.Tensor, *,
+                 num_generations: int = 1, policy: DTypePolicy = DTypePolicy(),
+                 remat: bool | str = False, kernels: bool = True) -> torch.Tensor:
+    """Per-token log-probs (B x G, S) fp32 of generated ids (the JAX
+    grpo_forward, the reference forward's RL surface): each image's visual
+    prefix vision_embeds (B, Q, E) is repeated for its G = num_generations
+    rollouts, the uncached decoder runs over [prefix ‖ ids] (B x G rows;
+    flash_prefill_trainable, with activation checkpointing per `remat`),
+    and gpt_bigcode.token_logprobs_fused scores each id from the hidden
+    state before it. Positions where attention_mask is 0 get 0."""
+    dec = cfg.decoder_module
+    B, Q, _ = vision_embeds.shape
+    G = num_generations
+    cond = policy.cast(vision_embeds).repeat_interleave(G, dim=0)
+    tok = policy.cast(dec.embed_tokens(params["svg_transformer"], input_ids))
+    am = torch.cat([torch.ones((B * G, Q), dtype=torch.int32, device=cond.device),
+                    attention_mask.to(torch.int32)], dim=1)
+    hidden, _ = dec.forward(params["svg_transformer"], cfg.llm, torch.cat([cond, tok], dim=1), am,
+                            policy=policy, remat=remat, return_hidden=True, kernels=kernels)
+    # the hidden state at Q - 1 + t predicts input_ids[:, t]
+    lp = gpt_bigcode.token_logprobs_fused(
+        dec.lm_head_table(params["svg_transformer"], cfg.llm),
+        hidden[:, Q - 1:Q - 1 + input_ids.shape[1]], input_ids, policy=policy)
+    return torch.where(attention_mask > 0, lp, 0.0)

@@ -97,11 +97,13 @@ def test_api_generate_im2svg_matches_jax_api(model):
                  policy=JF32).generate_im2svg(batch, **kw)
     port = TModel(convert.from_jax_params(tree), tcfg, tok, policy=TF32, device="cpu")
     assert port.generate_im2svg(batch, **kw) == ref
-    for unported in (dict(num_beams=2), dict(use_speculative=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.generate_im2svg(batch, **kw, **unported)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.generate_text2svg({"caption": ["a red circle"]}, use_speculative=True)
+    jmodel = JModel(jax.tree_util.tree_map(jnp.asarray, tree), jcfg, tok, policy=JF32)
+    for route in (dict(num_beams=2), dict(use_speculative=True)):
+        assert port.generate_im2svg(batch, **kw, **route) == jmodel.generate_im2svg(batch, **kw,
+                                                                                    **route)
+    captions = {"caption": ["a red circle"]}
+    assert port.generate_text2svg(captions, **kw, use_speculative=True) == \
+        jmodel.generate_text2svg(captions, **kw, use_speculative=True)
 
 
 def test_from_config_draws_weights_from_the_seed():

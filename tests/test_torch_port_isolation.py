@@ -42,8 +42,9 @@ def test_training_and_from_pretrained_leave_jax_out(tmp_path):
     """The verify skill's CPU training command (a config whose dataset
     targets name starvector_tpu.data.*), 2 steps, then from_pretrained
     (quantize=True) on a tiny HF-layout checkpoint and a short im2svg and
-    text2svg generation, in one fresh process: neither jax nor
-    starvector_tpu gets imported."""
+    text2svg generation, beam search and speculative decoding, then one
+    GRPOTrainer step on the fp32 checkpoint, in one fresh process: neither
+    jax nor starvector_tpu gets imported."""
     import jax
 
     from starvector_tpu.models import starvector as jsv
@@ -76,6 +77,17 @@ def test_training_and_from_pretrained_leave_jax_out(tmp_path):
         text = model.generate_text2svg({{"caption": ["a red circle", "a star"]}},
                                        max_new_tokens=4, use_nucleus_sampling=False)
         assert len(text) == 2, text
+        batch = {{"image": model.process_images([img, img[::-1].copy()])}}
+        for route in (dict(num_beams=2), dict(use_speculative=True, draft_len=3)):
+            text = model.generate_im2svg(batch, max_length=5, use_nucleus_sampling=False, **route)
+            assert len(text) == 2 and text[0].startswith("<svg"), (route, text)
+        from starvector_tpu_torch.train.grpo import GRPOConfig, GRPOTrainer
+        model = StarVectorForCausalLM.from_pretrained({str(ckpt)!r}, dtype=torch.float32,
+                                                      device="cpu")
+        trainer = GRPOTrainer(model, GRPOConfig(num_generations=2, max_new_tokens=4,
+                                                reward_resolution=32))
+        out = trainer.step(batch["image"], [np.zeros((32, 32, 3), np.uint8)] * 2)
+        assert out["step"] == 1 and np.isfinite(out["loss"]), out
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
         assert not leaked, leaked
         print("clean")
