@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg inference
 (bf16, and int8 weights with an int8 KV cache), text2svg, beam search,
-num_return_sequences, speculative decoding, GRPO and training, and
+num_return_sequences, speculative decoding, continuous-batching serving
+(the engine, its REST worker and controller), GRPO and training, and
 StarVector-8B im2svg inference (bf16, and int8 weights with an int8 KV
-cache), text2svg, beam search, speculative decoding and training, on one
-NVIDIA H100, end to end through the hand-written kernels.
+cache), text2svg, beam search, speculative decoding, serving and training,
+on one NVIDIA H100, end to end through the hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --times-only ROOT
@@ -72,6 +73,24 @@ Phases, one line each (any failure raises and exits non-zero):
      backward pairs under remat "dots"; the decoder alone moves; rollout,
      reward and update wall time, peak memory), and one fp32 update on one
      rollout with the kernels against the plain attention
+  4c. continuous-batching serving (serve/engine.py) on phase 4's weights,
+     before they are released: fp32, 4 concurrent requests of prefixes of
+     260-291 tokens (one admission group, one chunk), 32 greedy tokens with
+     the stop: ids equal offline generate_im2svg_ids at B=1 and the engine
+     with the plain attention, launches exactly 24 flash_prefill a chunk and
+     24 decode_attention a ragged step (ticks x steps_per_tick); int8
+     weights and cache: fp32 ids equal offline int8 generate's, bf16
+     launches 96 quant_matmul a step and a chunk and 24 int8-cache
+     decode_attention a step; a bf16 mixed batch under speculative ticks
+     (greedy, sampled, stop, logit_bias, beam K=2, drafts from prompt ids),
+     every request done; the REST worker and controller (standard-library
+     servers on 127.0.0.1): 4 concurrent streamed requests through the
+     controller's relay and /v1/chat/completions; then, beside the card's
+     name and power limit, 8 concurrent greedy requests of 128 tokens at
+     steps_per_tick 1 and 4 in turns with offline generate at B=8 (tokens/s,
+     p50 time to first token, p50 latency), int8 serving beside bf16 (with
+     --profile DIR, a tick's device-busy share). Any request that ends in
+     an error fails the run
   5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
      remat, AdamW): 8 steps of the port's train loop on one synthetic batch
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
@@ -103,7 +122,13 @@ Phases, one line each (any failure raises and exits non-zero):
      32 int8-cache decode_attention a step); at full depth in fp32, kernels vs plain,
      greedy ids with an fp32 KV cache and, with the int8 cache, the logits
      of both fed the same tokens (INT8_CACHE_LOGIT_TOL); weights and
-     memory, p50 and tokens/s beside bf16's
+     memory, p50 and tokens/s beside bf16's. 6d, serving on the same
+     weights: 4 concurrent bf16 requests at full depth (launches 32
+     flash_prefill a chunk, 32 decode_attention at G = 9 a ragged step),
+     fp32 engine ids equal offline generate's on the fp32 copy, the window
+     at 2 layers in fp32 (a 4700-token prefix admitted in 8 chunks beside a
+     579-token one, decoded past the 4096-key window in the row's mask: ids
+     with the kernels == plain), tokens/s beside offline B=4
   6b. training at full StarVector-8B width and 8 of its 32 decoder layers
      (SigLIP-L/16 and the LayerNorm adapter trainable; fp32 masters, bf16
      compute, dots_flash, AdamW; B=1, T = 576 + 7616 = 8192, past the 4096
@@ -2033,6 +2058,506 @@ def grpo_phase(sv, tfa, cfg, dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 4c and 6d: continuous-batching serving (serve/engine.py, worker.py,
+# controller.py) at full width
+# ---------------------------------------------------------------------------
+
+SERVE_PROMPTS = (  # prompt ids after the visual tokens: 4 prefixes of different lengths
+    PROMPT_IDS, PROMPT_IDS + (312, 88), PROMPT_IDS + tuple(range(400, 412)),
+    PROMPT_IDS + tuple(range(500, 531)))
+SERVE_NEW = 128      # new tokens a request in the timed runs (no stop: every request runs them)
+SERVE_CHECK_NEW = 32  # new tokens a request in the id checks
+
+
+def serve_requests(engine, reqs, timeout: float = 600) -> list[dict]:
+    """Submit `reqs` at once, then start the engine if it has not started
+    (requests queued before the start admit as one group); read each
+    request's events on a thread of its own and return, per request, its
+    ids, time to first token and latency (host clock from the submission).
+    Raises unless every request ended in ("done", ids) within `timeout`
+    seconds an event."""
+    import threading
+
+    results: list = [None] * len(reqs)
+    t0 = time.perf_counter()
+
+    def consume(i, r):
+        first = None
+        while True:
+            kind, payload = r.out_queue.get(timeout=timeout)
+            now = time.perf_counter()
+            if kind == "token" and first is None:
+                first = now
+            if kind != "token":
+                results[i] = dict(kind=kind, ids=payload, ttft=(first or now) - t0,
+                                  latency=now - t0)
+                return
+
+    threads = [threading.Thread(target=consume, args=(i, r), daemon=True)
+               for i, r in enumerate(reqs)]
+    for th in threads:
+        th.start()
+    for r in reqs:
+        engine.submit(r)
+    engine.start()
+    for th in threads:
+        th.join(timeout + 5)
+    bad = [(i, res) for i, res in enumerate(results) if res is None or res["kind"] != "done"]
+    if bad:
+        raise AssertionError(f"serving: requests that did not end done: "
+                             f"{[(i, None if r is None else (r['kind'], str(r['ids'])[:300])) for i, r in bad]}")
+    return results
+
+
+def serve_prefixes(params, cfg, images, policy, prompts=SERVE_PROMPTS) -> list[torch.Tensor]:
+    """The im2svg prefix (1, P, E) of each image with its prompt ids."""
+    from starvector_tpu_torch.generation.engine import im2svg_prefix
+
+    dev = images.device
+    return [im2svg_prefix(params, cfg, images[i:i + 1], torch.tensor([p], device=dev),
+                          policy=policy)[0] for i, p in enumerate(prompts)]
+
+
+def engine_ids(params, cfg, prefixes, policy, dev, tfa, *, kernels=True, kv=None):
+    """(greedy ids of each prefix, SERVE_CHECK_NEW tokens with the stop,
+    through a fresh engine at steps_per_tick 4; the launch counts; the
+    engine's ticks): all requests queued before the start, so they admit as
+    one group."""
+    from starvector_tpu_torch.serve.engine import Request, ServeEngine
+
+    engine = ServeEngine(params["svg_transformer"], cfg.llm, cfg.decoder, max_batch=8,
+                         max_len=1024, policy=policy, kv_cache_dtype=kv, steps_per_tick=4,
+                         device=dev, kernels=kernels)
+    try:
+        reqs = [Request(prefix_embeds=p, max_new_tokens=SERVE_CHECK_NEW, do_sample=False,
+                        stop_sequences=STOP_IDS) for p in prefixes]
+        reset_counts(tfa)
+        res = serve_requests(engine, reqs)
+        counts = read_counts(tfa)
+        ticks = engine.stats()["ticks"]
+    finally:
+        engine.stop()
+    return [r["ids"] for r in res], counts, ticks
+
+
+def offline_ids(model_cls, params, cfg, images, policy, dev) -> list[list[int]]:
+    """Offline greedy ids through generate_im2svg_ids at B = 1, a request
+    an image with its SERVE_PROMPTS entry, cut at each one's length."""
+    m = model_cls(params, cfg, policy=policy, device=dev)
+    out = []
+    for i, p in enumerate(SERVE_PROMPTS):
+        _, toks, lengths = m.generate_im2svg_ids(
+            {"image": images[i:i + 1]}, prompt_ids=[p], stop_sequences=STOP_IDS,
+            max_new_tokens=SERVE_CHECK_NEW, use_nucleus_sampling=False)
+        out.append(toks[0, :int(lengths[0])].tolist())
+    return out
+
+
+def serve_rates(card: str, label: str, runs: dict) -> dict:
+    """Aggregate tokens/s, p50 time to first token and p50 latency of each
+    serving run in `runs` {name: fn() -> per-request results, or (tokens,
+    rows) of an offline call}, taken in turns a, b, ..., ..., b, a."""
+    names = list(runs)
+    rec = {n: [] for n in names}
+    for n in names + names[::-1]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = runs[n]()
+        torch.cuda.synchronize()
+        rec[n].append((time.perf_counter() - t, res))
+    out = {}
+    for n in names:
+        walls = [w for w, _ in rec[n]]
+        res = rec[n][-1][1]
+        if isinstance(res, tuple):  # offline: (tokens, rows)
+            tokens = res[0]
+            out[n] = dict(rate=tokens / statistics.median(walls), ttft=None, p50=None)
+        else:
+            tokens = sum(len(r["ids"]) for r in res)
+            ttft = statistics.median(r["ttft"] for _, rs in rec[n] for r in rs)
+            lat = statistics.median(r["latency"] for _, rs in rec[n] for r in rs)
+            out[n] = dict(rate=tokens / statistics.median(walls), ttft=ttft, p50=lat)
+        log("serve", f"{card}: {label} {n}: {out[n]['rate']:.1f} tokens/s ({tokens} tokens, "
+                     f"walls {[round(w * 1e3, 1) for w in walls]} ms)"
+                     + ("" if out[n]["ttft"] is None else
+                        f", p50 time to first token {out[n]['ttft'] * 1e3:.1f} ms, p50 request "
+                        f"latency {out[n]['p50'] * 1e3:.1f} ms"))
+    return out
+
+
+def throughput_runs(params, cfg, prefixes, policy, dev, *, kv=None, steps=(1, 4),
+                    offline: bool = True) -> tuple[dict, list]:
+    """{name: fn} of the timed runs: a warm engine a steps_per_tick value,
+    all the prefixes submitted at once, greedy, SERVE_NEW tokens each
+    without a stop; and offline generate at B = len(prefixes) over the same
+    prefixes. Returns the runs and the engines (stop them after)."""
+    from starvector_tpu_torch.generation.engine import GenerationConfig, generate
+    from starvector_tpu_torch.serve.engine import Request, ServeEngine
+
+    runs, engines = {}, []
+    for spt in steps:
+        engine = ServeEngine(params["svg_transformer"], cfg.llm, cfg.decoder,
+                             max_batch=max(8, len(prefixes)), max_len=2048, policy=policy,
+                             kv_cache_dtype=kv, steps_per_tick=spt, device=dev)
+        engines.append(engine)
+
+        def run(engine=engine):
+            return serve_requests(engine, [Request(prefix_embeds=p, max_new_tokens=SERVE_NEW,
+                                                   do_sample=False) for p in prefixes])
+
+        run()  # warm-up: the allocator's pools, cuBLAS handles
+        runs[f"engine{' int8' if kv is not None else ''} steps_per_tick={spt}"] = run
+    if offline:
+        P = max(p.shape[1] for p in prefixes)
+        emb = torch.cat([torch.nn.functional.pad(p, (0, 0, P - p.shape[1], 0)) for p in prefixes])
+        mask = torch.stack([torch.arange(P, device=dev) >= P - p.shape[1] for p in prefixes]
+                           ).to(torch.int32)
+        gen = GenerationConfig(max_new_tokens=SERVE_NEW, min_new_tokens=SERVE_NEW,
+                               do_sample=False, pad_token_id=0)
+
+        def offline_run():
+            toks, _ = generate(params["svg_transformer"], cfg.llm, emb, mask, gen, policy=policy,
+                               kv_cache_dtype=kv)
+            return (toks.numel(), len(prefixes))
+
+        offline_run()
+        runs[f"offline generate B={len(prefixes)}"] = offline_run
+    return runs, engines
+
+
+def png_b64(img: np.ndarray) -> str:
+    """A uint8 RGB image as base64 PNG (the worker's im2svg payload)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def rest_phase(p16, cfg, dev, card: str) -> None:
+    """The port's worker and controller on 127.0.0.1 (standard-library HTTP
+    servers in threads): the worker registers, then 4 concurrent streamed
+    im2svg requests (base64 PNG payloads: PIL is on the card's machine)
+    through the controller's relay, greedy, sampled, a beam group and
+    text2svg, every chunk error_code 0; and /v1/chat/completions."""
+    import concurrent.futures
+    import threading
+
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.serve import controller as ctl
+    from starvector_tpu_torch.serve import worker as wk
+    from starvector_tpu_torch.serve.httpd import post_json, post_json_reply
+
+    model = StarVectorForCausalLM(p16, cfg, build_test_tokenizer("v1"),
+                                  policy=DTypePolicy(torch.bfloat16, torch.bfloat16), device=dev)
+    worker = wk.ModelWorker(model, worker_addr="pending", max_batch=8, max_len=2048)
+    servers = [wk.build_server(worker), ctl.build_server(ctl.Controller("shortest_queue"))]
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+    for th in threads:
+        th.start()
+    wurl, curl = (f"http://127.0.0.1:{s.server_address[1]}" for s in servers)
+
+    def stream(payload):
+        t = time.perf_counter()
+        with post_json(curl + "/worker_generate_stream", payload, 300) as resp:
+            raw = resp.read()
+        return [json.loads(c) for c in raw.split(b"\0") if c], time.perf_counter() - t
+
+    try:
+        worker.worker_addr, worker.controller_addr = wurl, curl
+        worker.register()
+        imgs = synthetic_images(3, 71)
+        base = {"model": "starvector", "task": "im2svg", "max_new_tokens": SERVE_CHECK_NEW,
+                "temperature": 0.0}
+        payloads = [{**base, "image": png_b64(imgs[0])},
+                    {**base, "image": png_b64(imgs[1]), "temperature": 0.8, "top_p": 0.9},
+                    {**base, "image": png_b64(imgs[2]), "num_beams": 2},
+                    {**base, "task": "text2svg", "prompt": "a red circle"}]
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            outs = list(ex.map(stream, payloads, timeout=600))
+        for (chunks, _), p in zip(outs, payloads):
+            if not chunks or any(c["error_code"] != 0 for c in chunks):
+                raise AssertionError(f"REST: {p.get('task')} request failed: {chunks[-1:]}")
+        chat = post_json_reply(wurl + "/v1/chat/completions", {
+            "model": "starvector", "max_tokens": 8, "temperature": 0.0,
+            "messages": [{"role": "user", "content": [
+                {"type": "image_url",
+                 "image_url": {"url": "data:image/png;base64," + png_b64(imgs[0])}}]}]}, 300)
+        if chat.get("object") != "chat.completion" or not chat["choices"][0]["message"][
+                "content"].startswith("<svg"):
+            raise AssertionError(f"REST: /v1/chat/completions answered {str(chat)[:300]}")
+        status = post_json_reply(wurl + "/worker_get_status", {}, 60)
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        for th in threads:
+            th.join(60)
+        worker.shutdown()
+    log("serve", f"{card}: REST: the port's worker and controller on 127.0.0.1; 4 concurrent "
+                 f"streamed requests through the controller (greedy, sampled, beam K=2 im2svg "
+                 f"as base64 PNG; text2svg), {SERVE_CHECK_NEW} new tokens, bf16: chunks "
+                 f"{[len(c) for c, _ in outs]}, every error_code 0, seconds "
+                 f"{[round(s, 2) for _, s in outs]}; /v1/chat/completions answered; the "
+                 f"engine emitted {status['engine']['tokens_emitted']} tokens in "
+                 f"{status['engine']['ticks']} ticks")
+
+
+def mixed_batch(params, cfg, prefixes, policy, dev, card: str) -> None:
+    """bf16, one engine with speculative ticks (spec_drafts=4): greedy,
+    sampled, a stop sequence, a logit_bias, a beam group (K=2) and a
+    greedy request whose prompt ids seed the drafts, all at once; every
+    request must end done."""
+    from starvector_tpu_torch.serve.engine import Request, ServeEngine
+
+    engine = ServeEngine(params["svg_transformer"], cfg.llm, cfg.decoder, max_batch=8,
+                         max_len=1024, policy=policy, spec_drafts=4, device=dev)
+    p0, p1, p2, p3 = prefixes
+    ref = serve_requests(engine, [Request(prefix_embeds=p0, max_new_tokens=24,
+                                           do_sample=False)])[0]["ids"]
+    reqs = dict(
+        greedy=Request(prefix_embeds=p0, max_new_tokens=48, do_sample=False),
+        sampled=Request(prefix_embeds=p1, max_new_tokens=48, temperature=0.9, top_p=0.9),
+        stop=Request(prefix_embeds=p0, max_new_tokens=48, do_sample=False,
+                     stop_sequences=((ref[10], ref[11]),)),
+        logit_bias=Request(prefix_embeds=p2, max_new_tokens=48, do_sample=False,
+                           logit_bias={ref[3]: 5.0}),
+        beam=Request(prefix_embeds=p3, max_new_tokens=24, do_sample=False, num_beams=2),
+        speculative=Request(prefix_embeds=p0, max_new_tokens=48, do_sample=False,
+                            prompt_token_ids=list(PROMPT_IDS) + ref))
+    try:
+        res = dict(zip(reqs, serve_requests(engine, list(reqs.values()))))
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    if res["greedy"]["ids"][:24] != ref or res["speculative"]["ids"][:24] != ref:
+        log("serve", f"{card}: bf16 mixed batch: a greedy stream parted from the lone request's "
+                     f"(bf16 verify and decode steps differ in sum order; not a check)")
+    log("serve", f"{card}: bf16 mixed batch under speculative ticks (spec_drafts=4): "
+                 + ", ".join(f"{k} {len(v['ids'])} tokens" for k, v in res.items())
+                 + f", every request done; {stats['ticks']} ticks, {stats['spec_ticks']} "
+                 f"speculative, {stats['spec_extra_tokens']} tokens from accepted drafts")
+
+
+def profile_tick(engine_run, prefill_run, ticks: int, wall: float, wall0: float, card: str,
+                 out_dir: Path, label: str) -> None:
+    """The device-busy share of a serving tick: torch.profiler over a
+    serving run and over an admission-only run (1 new token: no tick); the
+    difference over the ticks against the unprofiled walls' difference."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        return sum(e.self_device_time_total for e in rows) / 1e3, prof
+
+    full, prof = device_ms(engine_run)
+    admit, _ = device_ms(prefill_run)
+    if not full:
+        raise AssertionError("the profiler recorded no device time")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"profile_serve_{label}.txt").write_text(
+        f"{card}\n{label}\n" + prof.key_averages().table(sort_by="self_device_time_total",
+                                                         row_limit=50))
+    dev_tick, wall_tick = (full - admit) / ticks, (wall - wall0) * 1e3 / ticks
+    log("profile", f"{card}: serving tick, {label}: wall {wall_tick:.3f} ms without the "
+                   f"profiler, device {dev_tick:.3f} ms under it, busy {dev_tick / wall_tick:.1%} "
+                   f"({ticks} ticks; table in {out_dir}/profile_serve_{label}.txt)")
+
+
+def serving_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None) -> dict:
+    """Phase 4c, on phase 4's 1B weights: the continuous-batching engine's
+    id checks with exact launch counts, a mixed bf16 batch, int8 serving,
+    the REST worker and controller, and the serving numbers."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.data.processor import processor_for_encoder
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    L = cfg.llm.n_layer
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
+    images = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=dev).batch(
+        synthetic_images(4, 31))
+    # fp32: 4 concurrent requests (prefixes of 260 to 291 tokens: one
+    # admission of 4 rows in bucket 512, one chunk) against offline B = 1
+    # and against the engine with the plain attention
+    pre32 = serve_prefixes(p32, cfg, images, f32)
+    ids_k, counts, ticks = engine_ids(p32, cfg, pre32, f32, dev, tfa)
+    ids_p, counts_p, _ = engine_ids(p32, cfg, pre32, f32, dev, tfa, kernels=False)
+    ref = offline_ids(StarVectorForCausalLM, p32, cfg, images, f32, dev)
+    if ids_k != ref or ids_p != ids_k:
+        raise AssertionError(f"1B fp32 engine ids: kernels {ids_k}\nplain {ids_p}\noffline {ref}")
+    expect_counts("1B engine fp32", counts, flash_prefill=L, decode_attention=L * 4 * ticks)
+    expect_counts("1B engine fp32, plain", counts_p)
+    log("serve", f"{card}: 1B engine, fp32, 4 concurrent requests (prefixes "
+                 f"{[p.shape[1] for p in pre32]} tokens, one admission), {SERVE_CHECK_NEW} new "
+                 f"tokens greedy with the stop: ids == offline generate_im2svg_ids B=1 == the "
+                 f"engine with the plain attention (lengths {[len(i) for i in ids_k]}); "
+                 f"launches flash_prefill {counts['flash_prefill']} = {L} x 1 chunk, "
+                 f"decode_attention {counts['decode_attention']} = {L} x 4 x {ticks} ticks")
+    # int8 weights and an int8 cache: fp32 ids against offline int8
+    # generate; bf16 launch counts (96 kernel-14 launches a step and a chunk)
+    q32 = _cast_tree(q16, torch.float32)
+    i8k, _, _ = engine_ids(q32, cfg, pre32, f32, dev, tfa, kv=torch.int8)
+    i8ref = offline_int8_ids(q32, cfg, pre32, f32)
+    if i8k != i8ref:
+        raise AssertionError(f"1B int8 fp32 engine ids {i8k}\noffline {i8ref}")
+    del q32
+    pre16 = serve_prefixes(p16, cfg, images, bf16)
+    _, c8, ticks8 = engine_ids(q16, cfg, pre16, bf16, dev, tfa, kv=torch.int8)
+    steps8 = 4 * ticks8
+    expect_counts("1B engine int8", c8, flash_prefill=L, decode_attention=L * steps8,
+                  decode_attention_int8=L * steps8, quant_matmul=4 * L * (1 + steps8))
+    log("serve", f"{card}: 1B engine, int8 weights and an int8 KV cache: fp32 ids == offline "
+                 f"int8 generate's ({[len(i) for i in i8k]} tokens); bf16 launches "
+                 f"quant_matmul {c8['quant_matmul']} = {4 * L} x (1 chunk + {steps8} steps; GEMV "
+                 f"{c8['quant_matmul_gemv']}, tile {c8['quant_matmul_wgmma']}), decode_attention "
+                 f"{c8['decode_attention']} = {L} x {steps8}, all over the int8 cache")
+    mixed_batch(p16, cfg, pre16, bf16, dev, card)
+    rest_phase(p16, cfg, dev, card)
+    # the numbers: 8 concurrent greedy requests of 128 new tokens
+    imgs8 = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=dev).batch(
+        synthetic_images(8, 41))
+    pre8 = serve_prefixes(p16, cfg, imgs8, bf16, prompts=(PROMPT_IDS,) * 8)
+    runs, engines = throughput_runs(p16, cfg, pre8, bf16, dev)
+    runs8, engines8 = throughput_runs(q16, cfg, pre8, bf16, dev, kv=torch.int8, steps=(4,),
+                                      offline=False)
+    try:
+        rates = serve_rates(card, "1B bf16, 8 concurrent greedy im2svg requests of 128 tokens",
+                            runs)
+        rates.update(serve_rates(card, "1B, 8 concurrent requests, int8 against bf16",
+                                 {**runs8, "engine steps_per_tick=4": runs["engine steps_per_tick=4"]}))
+        if profile_dir is not None:
+            from starvector_tpu_torch.serve.engine import Request
+
+            engine = engines[1]
+            t = time.perf_counter()
+            ticks0 = engine.stats()["ticks"]
+            runs["engine steps_per_tick=4"]()
+            torch.cuda.synchronize()
+            wall, ticks = time.perf_counter() - t, engine.stats()["ticks"] - ticks0
+
+            def admit_only():
+                return serve_requests(engine, [Request(prefix_embeds=p, max_new_tokens=1,
+                                                       do_sample=False) for p in pre8])
+
+            t = time.perf_counter()
+            admit_only()
+            torch.cuda.synchronize()
+            wall0 = time.perf_counter() - t
+            profile_tick(runs["engine steps_per_tick=4"], admit_only, ticks, wall, wall0, card,
+                         profile_dir, "1b_bf16_steps4")
+    finally:
+        for e in engines + engines8:
+            e.stop()
+    # the serving path's launches (the fp32 run for kernels 1 and 2, the
+    # bf16 int8 run for 2' and 14), beside phase 4's in the kernels' JSON
+    launches = dict(flash_prefill=counts["flash_prefill"],
+                    decode_attention=counts["decode_attention"],
+                    decode_attention_int8=c8["decode_attention_int8"],
+                    quant_matmul_gemv=c8["quant_matmul_gemv"],
+                    quant_matmul_tile=c8["quant_matmul_wgmma"])
+    return dict(rates=rates, launches=launches)
+
+
+def offline_int8_ids(q32, cfg, prefixes, f32) -> list[list[int]]:
+    """Offline greedy ids of each prefix at B = 1 through generate with an
+    int8 KV cache, cut at the stop."""
+    from starvector_tpu_torch.generation.engine import GenerationConfig, generate
+
+    gen = GenerationConfig(max_new_tokens=SERVE_CHECK_NEW, do_sample=False,
+                           stop_sequences=STOP_IDS, eos_token_id=None, pad_token_id=0)
+    out = []
+    for p in prefixes:
+        toks, lengths = generate(q32["svg_transformer"], cfg.llm, p,
+                                 torch.ones(p.shape[:2], dtype=torch.int32, device=p.device),
+                                 gen, policy=f32, kv_cache_dtype=torch.int8)
+        out.append(toks[0, :int(lengths[0])].tolist())
+    return out
+
+
+def serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> dict:
+    """Phase 6d, on phase 6's 8B weights: 4 concurrent bf16 requests at
+    full depth with 32 decode_attention (G = 9) launches a step; fp32 engine
+    ids against offline generate's on phase 6's fp32 copy (`depth`); at 2
+    layers in fp32, a 4700-token prefix beside a short one decoded past the
+    4096-key window, kernels against plain; tokens/s beside offline B = 4."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.serve.engine import Request, ServeEngine
+
+    L = cfg.llm.num_hidden_layers
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    images = model.process_images(synthetic_images(4, 33))
+    pre16 = serve_prefixes(p16, cfg, images, model.policy)
+    _, counts, ticks = engine_ids(p16, cfg, pre16, model.policy, dev, tfa)
+    expect_counts("8B engine bf16", counts, flash_prefill=L, decode_attention=L * 4 * ticks)
+    pre32 = serve_prefixes(p32, cfg32, images, f32)
+    ids_k, _, _ = engine_ids(p32, cfg32, pre32, f32, dev, tfa)
+    ref = offline_ids(StarVectorForCausalLM, p32, cfg32, images, f32, dev)
+    if ids_k != ref:
+        raise AssertionError(f"8B fp32 engine ids {ids_k}\noffline {ref}")
+    log("serve", f"{card}: 8B engine, bf16 at full depth, 4 concurrent requests (prefixes "
+                 f"{[p.shape[1] for p in pre16]}): launches flash_prefill {counts['flash_prefill']}"
+                 f" = {L} x 1 chunk, decode_attention (G = 9) {counts['decode_attention']} = {L} x "
+                 f"4 x {ticks} ticks; fp32 at {depth}: ids == offline generate_im2svg_ids B=1 "
+                 f"(lengths {[len(i) for i in ids_k]})")
+    # the window: 2 layers, fp32, a 4700-token prefix beside a 579-token one
+    q2, cfg2 = first_layers(p16, cfg, 2)
+    p2 = _cast_tree(q2, torch.float32)
+    n_visual = cfg.encoder_config.geometry[1]
+    long_ids = tuple(np.random.default_rng(16).integers(0, cfg.llm.vocab_size,
+                                                        PREFIX_8B - n_visual).tolist())
+    pre = serve_prefixes(p2, cfg2, images[:2], f32, prompts=(long_ids, PROMPT_IDS))
+    ids = {}
+    for kernels in (True, False):
+        engine = ServeEngine(p2["svg_transformer"], cfg2.llm, cfg2.decoder, max_batch=2,
+                             max_len=8192, policy=f32, device=dev, kernels=kernels)
+        try:
+            reset_counts(tfa)
+            res = serve_requests(engine, [Request(prefix_embeds=p, max_new_tokens=SERVE_CHECK_NEW,
+                                                  do_sample=False) for p in pre])
+            wc = read_counts(tfa)
+        finally:
+            engine.stop()
+        ids[kernels] = [r["ids"] for r in res]
+        if kernels:
+            win_counts = wc
+    if ids[True] != ids[False]:
+        raise AssertionError(f"8B engine window: fp32 ids kernels {ids[True]}\nplain {ids[False]}")
+    from starvector_tpu_torch.serve.engine import _bucket_len
+
+    chunks = [max(min(_bucket_len(p.shape[1]), 8192) // 1024, 1) for p in pre]
+    if win_counts["flash_prefill"] != 2 * sum(chunks) or not win_counts["decode_attention"]:
+        raise AssertionError(f"8B engine window launches {win_counts}: expected 2 x {chunks} "
+                             f"admission chunks of flash_prefill")
+    log("serve", f"{card}: 8B engine, the window at full width, fp32, 2 layers: a {PREFIX_8B}-token "
+                 f"prefix ({chunks[0]} admission chunks of 1024 through kernel 1, the later "
+                 f"ones at q_offset > 0) beside a {pre[1].shape[1]}-token one, {SERVE_CHECK_NEW} tokens "
+                 f"each, the long row past the {cfg.llm.sliding_window}-key window in its mask: "
+                 f"ids with the kernels == plain; launches flash_prefill "
+                 f"{win_counts['flash_prefill']}, decode_attention {win_counts['decode_attention']}")
+    del p2, q2
+    torch.cuda.empty_cache()
+    runs, engines = throughput_runs(p16, cfg, pre16, model.policy, dev, steps=(4,))
+    try:
+        rates = serve_rates(card, "8B bf16, 4 concurrent greedy im2svg requests of 128 tokens",
+                            runs)
+    finally:
+        for e in engines:
+            e.stop()
+    return rates
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
@@ -2600,6 +3125,10 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
                                                           policy=model.policy, device=dev),
                          p32, cfg32, dev, depth)
     decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth)
+    t_6d = time.perf_counter()
+    serve_8b = serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card, depth)
+    log("phase", f"6d (StarVector-8B continuous-batching serving) took "
+                 f"{time.perf_counter() - t_6d:.0f} s")
     del m32, p32, q16
     torch.cuda.empty_cache()
 
@@ -2644,7 +3173,8 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     if profile_dir is not None:
         profile_request(request, card, profile_dir, "8b")
     e2e = e2e["8B bf16"]
-    out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(p16))
+    out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(p16),
+               serve=serve_8b)
     del request, served, t2s
     out["int8"] = int8_slice_8b(model, tfa, cfg, p16, dev, card, e2e, profile_dir)
     del model, p16
@@ -3530,6 +4060,11 @@ def main() -> int:
     phase("4b", "StarVector-1B decoding variants and GRPO")
     t_4b = time.perf_counter()
     decoding_1b(tfa, model, cfg, p16, p32, int8["params"], dev, card)
+    phase("4c", "StarVector-1B continuous-batching serving")
+    t_4c = time.perf_counter()
+    serve_1b = serving_1b(tfa, cfg, p16, p32, int8["params"], dev, card, args.profile)
+    t_4c = time.perf_counter() - t_4c
+    log("phase", f"4c took {t_4c:.0f} s")
     if args.profile is not None:
         profile_request(request, card, args.profile)
         profile_request(int8["request"], card, args.profile, "int8")
@@ -3541,7 +4076,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     grpo_phase(sv, tfa, cfg, dev, card)
-    log("phase", f"4b took {time.perf_counter() - t_4b:.0f} s")
+    log("phase", f"4b took {time.perf_counter() - t_4b - t_4c:.0f} s (4c apart)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3599,7 +4134,8 @@ def main() -> int:
                              replaces="starvector_tpu/ops/flash_attention.py:212",
                              launches=n_prefill, max_abs_err=err_prefill,
                              ms=times[1], plain_ms=times[0], bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib))
+                             library_ms=lib,
+                             serve_launches=serve_1b["launches"]["flash_prefill"]))
     decode = decode_times(tfa, dc, dev, card)
     for label, name, launches, err in (
             ("bf16", "decode_attention", n_decode, err_decode),
@@ -3607,14 +4143,16 @@ def main() -> int:
         kernels_json.append(dict(name=name, route="cuda",
                                  source="starvector_tpu_torch/csrc/decode_attention.cu",
                                  replaces="starvector_tpu/ops/flash_attention.py:2049",
-                                 launches=launches, max_abs_err=err, **decode[label]))
+                                 launches=launches, max_abs_err=err, **decode[label],
+                                 serve_launches=serve_1b["launches"][name]))
     qmm = quant_matmul_times(tq, dev, card)
     for path, count in (("gemv", "quant_matmul_gemv"), ("tile", "quant_matmul_wgmma")):
         kernels_json.append(dict(name=f"quant_matmul_{path}", route="cuda",
                                  source="starvector_tpu_torch/csrc/quant_matmul.cu",
                                  replaces="starvector_tpu/ops/quantization.py:139",
                                  launches=int8_counts[count], max_abs_err=err_qmm[path],
-                                 **qmm[path]))
+                                 **qmm[path],
+                                 serve_launches=serve_1b["launches"][f"quant_matmul_{path}"]))
 
     kernels_json += training_times(tfa, dev, card, train, err_train)
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)

@@ -11,6 +11,9 @@ Layer map:
                    generate_text2svg (beams, speculative decoding,
                    num_return_sequences), generate_im2svg_grpo, forward
                    (the loss); StarVectorPipeline
+  serve/        -- continuous-batching serving: the engine (engine.py),
+                   the REST worker and controller on the standard library
+                   (worker.py, controller.py, httpd.py)
   generation/   -- the cached generation loop (engine.py), beam search
                    (beam.py), prompt-lookup speculative decoding
                    (speculative.py)

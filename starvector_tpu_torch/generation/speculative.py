@@ -45,10 +45,11 @@ def _lookup_draft(ctx: torch.Tensor, n_ctx: torch.Tensor, pending: torch.Tensor,
     which the first n_ctx (B,) are filled: the tokens after the latest
     earlier occurrence of the bigram (ctx[n_ctx - 1], pending), preferring
     one with a full K - 1 tokens after it. Holes (-1) and rows with no match
-    repeat `pending` (a mismatch only costs acceptance)."""
+    repeat `pending` (a mismatch only costs acceptance), as does a row with
+    an empty context (n_ctx 0: no position precedes it)."""
     B, C = ctx.shape
     pos = torch.arange(C, device=ctx.device)[None, :]
-    last = ctx.gather(1, (n_ctx - 1)[:, None].long())
+    last = ctx.gather(1, (n_ctx - 1).clamp_min(0)[:, None].long())
     hit = (ctx == last) & (torch.roll(ctx, -1, dims=1) == pending[:, None]) \
         & (pos < (n_ctx - 1)[:, None])
     any_hit = hit.any(dim=1)

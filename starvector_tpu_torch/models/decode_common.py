@@ -21,12 +21,20 @@ W-token chunk per row at its own length (`write_new_kv_ragged_multi`) and
 then commits only the accepted tokens (`commit_verify`); rejected slots
 stay masked and are overwritten by the next chunk.
 
+The serving engine (serve/engine.py) admits a prefilled linear cache into
+rows of its ragged cache (`insert_prefill_rows`: the whole row, its slots
+past the prefix zeroed and masked), and each ragged decode step writes
+every row's new token at that row's own length (`ragged_step_masks`,
+`write_new_kv_ragged`). A row that is not active is written at its length
+too, but neither its mask nor its length moves: the slot stays invisible,
+and the admission that later takes the row overwrites all of it. The
+engine inserts under its lock, between two ticks, on the stream the ticks
+run on, so no tick reads a row while it is replaced.
+
 The merged decode attention lives with kernel 2 in
 ops/flash_attention.py; the chunk step's attention (1 < S <= 64 new tokens,
 `merged_verify_attention`) is here, in plain PyTorch, as the JAX package
-computes it in XLA. The serving engine's ragged steps and admission
-(`ragged_step_masks`, `write_new_kv_ragged`, `insert_prefill_rows`) are not
-ported yet (ROADMAP queue 1, item 9).
+computes it in XLA.
 """
 
 from __future__ import annotations
@@ -82,6 +90,52 @@ def init_ragged_cache(n_layer: int, kv_heads: int, head_dim: int, batch: int, ma
     del cache["index"]
     cache["lengths"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return cache
+
+
+def _payload_keys(cache: dict) -> tuple[str, ...]:
+    """The per-(layer, row, position) arrays of a cache: k, v and, for an
+    int8 cache, the scales."""
+    return tuple(key for key in PAYLOAD_KEYS if key in cache)
+
+
+def _fit_time_axis(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor, *,
+                   time_axis: int) -> None:
+    """Write src's rows into dst's `rows` (the batch axis, just before
+    `time_axis`), in place, src's time axis right-padded with zeros or
+    cropped to dst's (the JAX function pads a copy to the ragged cache's
+    max_len; here the slots past the copied ones are zeroed in place)."""
+    T, Ts = dst.shape[time_axis], src.shape[time_axis]
+    n = min(T, Ts)
+    lead = (slice(None),) * (time_axis - 1)
+    dst[lead + (rows, slice(0, n))] = src[lead + (slice(None), slice(0, n))].to(dst.dtype)
+    if T > n:
+        dst[lead + (rows, slice(n, T))] = 0
+
+
+def insert_prefill_rows(ragged_cache: dict, small_cache: dict, slots: torch.Tensor,
+                        lengths: torch.Tensor) -> None:
+    """Admit a prefilled B=k linear cache into rows `slots` (k,) of a ragged
+    cache, in place: every payload array (int8 codes and scales alike) and
+    the key mask, each row whole, and the rows' `lengths` (k,). Raises
+    ValueError when the two caches' types differ: casting int8 codes as
+    values, or dropping scales, would corrupt the admitted rows."""
+    if small_cache["k"].dtype != ragged_cache["k"].dtype:
+        raise ValueError(
+            f"prefill cache dtype {small_cache['k'].dtype} != ragged cache dtype "
+            f"{ragged_cache['k'].dtype}: casting int8 codes as values (or dropping scales) "
+            f"would silently corrupt the admitted rows")
+    device = ragged_cache["k"].device
+    slots = torch.as_tensor(slots, device=device).long()
+    for key in _payload_keys(ragged_cache):
+        _fit_time_axis(ragged_cache[key], slots, small_cache[key], time_axis=2)
+    _fit_time_axis(ragged_cache["kv_mask"], slots, small_cache["kv_mask"], time_axis=1)
+    ragged_cache["lengths"][slots] = torch.as_tensor(lengths, device=device).to(torch.int32)
+
+
+def insert_prefill(ragged_cache: dict, small_cache: dict, slot: int, length: int) -> None:
+    """Admit a prefilled B=1 linear cache into row `slot` of a ragged cache
+    (the single-row case of insert_prefill_rows)."""
+    insert_prefill_rows(ragged_cache, small_cache, torch.tensor([slot]), torch.tensor([length]))
 
 
 def tile_rows(cache: dict, n: int) -> dict:
@@ -221,6 +275,14 @@ def write_new_kv_linear_multi(cache: dict, news: dict, idx: int) -> None:
         cache[key][:, :, idx:idx + new.shape[2]] = new.to(cache[key].dtype)
 
 
+def write_new_kv_ragged(cache: dict, news: dict, write_pos: torch.Tensor) -> None:
+    """Ragged cache: write each key's (L, B, Hkv[, D]) new-token stack at
+    each row's own slot `write_pos` (B,), in place."""
+    rows = torch.arange(write_pos.shape[0], device=write_pos.device)
+    for key, new in news.items():
+        cache[key][:, rows, write_pos] = new.to(cache[key].dtype)
+
+
 def write_new_kv_ragged_multi(cache: dict, news: dict, write_pos: torch.Tensor) -> None:
     """Ragged cache: write each key's (L, B, W, Hkv[, D]) chunk stack at
     each row's own slots `write_pos` (B, W), in place."""
@@ -239,3 +301,40 @@ def commit_verify(cache: dict, n_commit: torch.Tensor) -> None:
     slot = torch.arange(T, device=lengths.device)[None, :]
     cache["kv_mask"][(slot >= lengths[:, None]) & (slot < new_len[:, None])] = 1
     cache["lengths"] = new_len
+
+
+def ragged_step_masks(cache: dict, active: torch.Tensor, window: int | None):
+    """(write_pos (B,), the key mask after the step (B, T), the old slots'
+    visibility (B, T)) for one ragged decode step: each row writes at its
+    length (clipped to T - 1), shown there when the row is active; a row at
+    position p sees its visible old slots t > p - window (StarCoder2's
+    sliding window, per row: kernel 2 takes one t_begin for all rows, so
+    the window goes into the mask). The cache is not changed."""
+    T = cache["kv_mask"].shape[1]
+    lengths = cache["lengths"]
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    write_pos = torch.clamp(lengths, 0, T - 1).long()
+    old_mask = cache["kv_mask"]
+    kv_mask = old_mask.clone()
+    kv_mask[rows, write_pos] = torch.maximum(kv_mask[rows, write_pos], active.to(torch.int32))
+    if window is not None:
+        slot = torch.arange(T, device=lengths.device)[None, :]
+        old_mask = old_mask * (slot > (lengths - window)[:, None])
+    return write_pos, kv_mask, old_mask
+
+
+def ragged_key_bounds(cache: dict, key_bounds, window: int | None = None) -> tuple[int, int]:
+    """(t_lo, t_hi): the slots any row of a ragged cache may see. From
+    key_bounds where given (the caller's host bookkeeping: t_lo at most the
+    shortest row's window start, t_hi at least the longest row's length;
+    looser bounds only read masked slots), else from `lengths` (a host
+    transfer). t_lo is 0 without a window."""
+    T = cache["k"].shape[2]
+    if key_bounds is None:
+        lengths = cache["lengths"]
+        t_hi = int(lengths.max())
+        t_lo = 0 if window is None else max(int(lengths.min()) - window + 1, 0)
+    else:
+        t_lo, t_hi = (int(b) for b in key_bounds)
+    t_hi = max(0, min(t_hi, T))
+    return max(0, min(t_lo, t_hi)), t_hi

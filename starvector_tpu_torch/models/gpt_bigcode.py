@@ -28,9 +28,13 @@ Every dense layer of the cached path also takes `kernels`: a quantized
 parameter tree (ops/quantization.py::quantize_tree) runs its projections
 through kernel 14, or its plain version with kernels=False.
 
-`forward_ragged_verify` is batched speculative decoding's verify over a
-ragged cache (per-row lengths): each row's W tokens at its own positions,
-through the chunk step's attention.
+The ragged cache (per-row lengths) serves the continuous-batching engine
+(serve/engine.py): `forward_ragged_decode` is one decode step with every
+row at its own position (kernel 2 with a per-row key mask), and
+`forward_ragged_verify` is speculative decoding's verify, each row's W
+tokens at its own positions through the chunk step's attention. Both take
+the slots any row may see as host integers (`key_bounds`), so a step makes
+no host transfer; without them they read the bounds from `lengths`.
 
 Without a cache, `forward` is the training forward: each layer's attention
 is `flash_prefill_trainable` (the forward-with-lse kernel and the backward
@@ -358,9 +362,36 @@ def init_ragged_cache(cfg: GPTBigCodeConfig, batch: int, max_len: int, dtype=tor
                                 dtype, device)
 
 
+def forward_ragged_decode(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.Tensor,
+                          cache: dict, active: torch.Tensor, *,
+                          policy: DTypePolicy = DTypePolicy(), kernels: bool = True,
+                          key_bounds: tuple[int, int] | None = None):
+    """One decode step where every row sits at its own position (the JAX
+    forward_ragged_decode, the continuous-batching hot path): token_ids
+    (B,), positions wpe[lengths], each row's new k/v written at its length
+    after the layers, `lengths += active`. Attention is kernel 2
+    (merged_decode_attention) over the slots [0, t_hi) with the per-row key
+    mask; a row that is not active computes but neither shows its slot nor
+    advances. `key_bounds` (t_lo, t_hi): the slots any row may see, from
+    the caller (t_lo is unused without a window). Returns (logits (B, V)
+    fp32, the cache, updated in place)."""
+    x = policy.cast(embed_tokens(params, token_ids[:, None]))  # (B, 1, E)
+    positions = torch.clamp(cache["lengths"], 0, cfg.n_positions - 1)[:, None]
+    x = x + policy.cast(params["wpe"][positions])
+    write_pos, kv_mask, old_mask = dc.ragged_step_masks(cache, active, None)
+    t_hi = dc.ragged_key_bounds(cache, key_bounds)[1]
+    x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
+        cfg, old_mask[:, :t_hi], t_hi, policy, kernels))
+    dc.write_new_kv_ragged(cache, news, write_pos)
+    cache["kv_mask"] = kv_mask
+    cache["lengths"] = cache["lengths"] + active.to(torch.int32)
+    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(params["wte"]).T)[:, 0], cache
+
+
 def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.Tensor,
                           cache: dict, *, policy: DTypePolicy = DTypePolicy(),
-                          kernels: bool = True):
+                          kernels: bool = True, key_bounds: tuple[int, int] | None = None):
     """Speculative verify over a ragged cache: each row's W tokens (B, W)
     ([last accepted ‖ drafts]) at positions lengths + [0, W), attending to
     the row's visible slots and causally to its own chunk (the chunk step's
@@ -368,14 +399,15 @@ def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     in place; `lengths` and `kv_mask` are left for
     decode_common.commit_verify, which shows only the accepted ones (every
     row computes; the caller commits nothing for a finished one). Returns
-    (logits (B, W, V) fp32, the cache)."""
+    (logits (B, W, V) fp32, the cache). `key_bounds` as in
+    forward_ragged_decode."""
     B, W = token_ids.shape
     x = policy.cast(embed_tokens(params, token_ids))
     positions = cache["lengths"][:, None] + torch.arange(W, device=x.device)[None, :]
     x = x + policy.cast(params["wpe"][torch.clamp(positions, 0, cfg.n_positions - 1)])
     T = cache["k"].shape[2]
     # no slot at or past the longest row is visible: attend over [0, t_hi)
-    t_hi = int(cache["lengths"].max())
+    t_hi = dc.ragged_key_bounds(cache, key_bounds)[1]
     x, news = dc.decode_scan(params["layers"], cache, x, _verify_layer_fn(
         cfg, cache["kv_mask"][:, :t_hi], t_hi, None, policy, kernels))
     dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))

@@ -35,10 +35,13 @@ kernel and the backward pair behind one autograd Function) with the sliding
 window, activation checkpointing per `remat` (see `_train_block`). The loss
 is gpt_bigcode.causal_lm_loss_fused over `lm_head_table`.
 
-`forward_ragged_verify` is batched speculative decoding's verify over a
-ragged cache (per-row lengths): RoPE at each row's own positions and a
-per-query window over the cached slots. The serving engine's ragged
-decode step is not ported yet (ROADMAP queue 1, item 9).
+Over a ragged cache (per-row lengths; the serving engine's):
+`forward_ragged_decode` is one decode step with RoPE at each row's own
+position and the window per row: kernel 2 takes one t_begin for all rows,
+so each row's window goes into its key mask, and t_begin is at most the
+shortest row's window start. `forward_ragged_verify` is speculative
+decoding's verify, with a per-query window over the cached slots. Both
+take the slots any row may see from the caller (`key_bounds`).
 """
 
 from __future__ import annotations
@@ -195,13 +198,15 @@ def window_begin(cfg: StarCoder2Config, idx: int) -> int:
     return 0 if cfg.sliding_window is None else max(idx - cfg.sliding_window + 1, 0)
 
 
-def _decode_layer_fn(cfg: StarCoder2Config, old_mask, idx: int, rope, policy, kernels: bool):
+def _decode_layer_fn(cfg: StarCoder2Config, old_mask, idx: int, rope, policy, kernels: bool,
+                     t_begin: int | None = None):
     """Per-layer single-token decode for decode_common.decode_scan:
     input_layernorm -> q/k/v with RoPE -> merged-softmax attention (kernel 2)
-    over the cache slots [window_begin, idx) -> residual MLP."""
+    over the cache slots [t_begin, idx) (t_begin: window_begin(idx) unless
+    given) -> residual MLP."""
     H, D, Hkv = cfg.num_attention_heads, cfg.head_dim, cfg.kv_heads
     scale = D**-0.5
-    t_begin = window_begin(cfg, idx)
+    t_begin = window_begin(cfg, idx) if t_begin is None else t_begin
 
     def fn(layer_p, h, lk, lv, lks=None, lvs=None):
         B = h.shape[0]
@@ -358,16 +363,43 @@ def forward(
     return logits, cache
 
 
+def forward_ragged_decode(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,
+                          cache: dict, active: torch.Tensor, *,
+                          policy: DTypePolicy = DTypePolicy(), kernels: bool = True,
+                          key_bounds: tuple[int, int] | None = None):
+    """One decode step with every row at its own position (the JAX
+    forward_ragged_decode): token_ids (B,), RoPE at each row's length, each
+    row's new k/v written at its length after the layers, `lengths +=
+    active`. Attention is kernel 2 over the slots [t_lo, t_hi) of
+    `key_bounds` with the per-row key mask, each row's window (slot t >
+    length - window) folded into it. Returns (logits (B, V) fp32, the
+    cache, updated in place)."""
+    x = policy.cast(embed_tokens(params, token_ids[:, None]))  # (B, 1, E)
+    lengths = cache["lengths"]
+    rope = rope_tables(lengths[:, None], rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                                          device=x.device))
+    write_pos, kv_mask, old_mask = dc.ragged_step_masks(cache, active, cfg.sliding_window)
+    t_lo, t_hi = dc.ragged_key_bounds(cache, key_bounds, cfg.sliding_window)
+    x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
+        cfg, old_mask[:, :t_hi], t_hi, rope, policy, kernels, t_begin=t_lo))
+    dc.write_new_kv_ragged(cache, news, write_pos)
+    cache["kv_mask"] = kv_mask
+    cache["lengths"] = lengths + active.to(torch.int32)
+    x = layer_norm(params["norm"], x, cfg.norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(lm_head_table(params, cfg)).T)[:, 0], cache
+
+
 def forward_ragged_verify(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,
                           cache: dict, *, policy: DTypePolicy = DTypePolicy(),
-                          kernels: bool = True):
+                          kernels: bool = True, key_bounds: tuple[int, int] | None = None):
     """Speculative verify over a ragged cache (gpt_bigcode.
     forward_ragged_verify), with RoPE at each row's positions lengths +
     [0, W) (unclipped, as the JAX function) and the window per query: query
     w of row b sees cached slot t iff t > lengths[b] + w - window. Raises
     ValueError when W exceeds the window (the within-chunk attention
-    assumes the chunk fits it). Returns (logits (B, W, V) fp32, the cache
-    with the chunk written and lengths / kv_mask unchanged)."""
+    assumes the chunk fits it). `key_bounds` as in forward_ragged_decode.
+    Returns (logits (B, W, V) fp32, the cache with the chunk written and
+    lengths / kv_mask unchanged)."""
     B, W = token_ids.shape
     if cfg.sliding_window is not None and W > cfg.sliding_window:
         raise ValueError(f"verify chunk ({W}) exceeds sliding window ({cfg.sliding_window}): "
@@ -380,8 +412,7 @@ def forward_ragged_verify(params: dict, cfg: StarCoder2Config, token_ids: torch.
     T = cache["k"].shape[2]
     # the slots any query can see: below the longest row, and past the
     # first query's window of the shortest
-    t_hi = int(lengths.max())
-    t_lo = min(window_begin(cfg, int(lengths.min())), t_hi)
+    t_lo, t_hi = dc.ragged_key_bounds(cache, key_bounds, cfg.sliding_window)
     old_mask = cache["kv_mask"][:, None, t_lo:t_hi].expand(B, W, t_hi - t_lo)
     if cfg.sliding_window is not None:
         slot = torch.arange(t_lo, t_hi, device=x.device)

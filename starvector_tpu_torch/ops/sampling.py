@@ -92,6 +92,23 @@ def apply_repetition_penalty(logits, presence, penalty):
     return torch.where(penalty == 1.0, logits, out)
 
 
+def pruned_slab(logits: torch.Tensor, *, temperature, top_p, top_k, min_p=None,
+                max_top_k: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX sample_token(pruned=True)'s filter chain: the top-max_top_k
+    logits of each row (sorted descending) through temperature, top-k,
+    top-p and min-p. Returns (the filtered slab (B, K), its token ids (B, K)).
+    Exact wherever the nucleus fits the slab; a request's top_k <= max_top_k
+    already does."""
+    K = min(max_top_k, logits.shape[-1])
+    slab, slab_ids = torch.topk(logits, K, dim=-1)
+    filtered = apply_temperature(slab, temperature)
+    filtered = apply_top_k(filtered, top_k, K)
+    filtered = apply_top_p(filtered, top_p)
+    if min_p is not None:
+        filtered = apply_min_p(filtered, min_p)
+    return filtered, slab_ids
+
+
 def sample_token(
     logits: torch.Tensor,  # (B, V) fp32
     *,
@@ -109,9 +126,13 @@ def sample_token(
     bias_vals: torch.Tensor | None = None,
     max_top_k: int = 64,
     generator: torch.Generator | None = None,
+    pruned: bool = False,
 ) -> torch.Tensor:
     """(B,) int64 next tokens. Greedy when do_sample is False or temperature
-    <= 0. Processor order: bias, penalties, temperature, top-k, top-p, min-p."""
+    <= 0. Processor order: bias, penalties, temperature, top-k, top-p, min-p.
+    `pruned` runs the chain after the penalties on the top-max_top_k slab
+    (pruned_slab) in place of the whole vocabulary, as the serving engine's
+    ticks do: one torch.topk in place of the (B, V) sort of top-p."""
     if bias_ids is not None and bias_vals is not None:
         logits = apply_logit_bias(logits, bias_ids, bias_vals)
     if presence is not None and repetition_penalty is not None:
@@ -125,6 +146,12 @@ def sample_token(
     greedy = torch.argmax(logits, dim=-1)
     if not do_sample:
         return greedy
+    t = torch.as_tensor(temperature, device=logits.device).reshape(-1)
+    if pruned:
+        filtered, slab_ids = pruned_slab(logits, temperature=temperature, top_p=top_p,
+                                         top_k=top_k, min_p=min_p, max_top_k=max_top_k)
+        pick = torch.multinomial(torch.softmax(filtered.float(), dim=-1), 1, generator=generator)
+        return torch.where(t <= 0.0, greedy, slab_ids.gather(1, pick)[:, 0])
     filtered = apply_temperature(logits, temperature)
     filtered = apply_top_k(filtered, top_k, max_top_k)
     filtered = apply_top_p(filtered, top_p)
@@ -132,5 +159,4 @@ def sample_token(
         filtered = apply_min_p(filtered, min_p)
     probs = torch.softmax(filtered.float(), dim=-1)
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
-    t = torch.as_tensor(temperature, device=logits.device).reshape(-1)
     return torch.where(t <= 0.0, greedy, sampled)

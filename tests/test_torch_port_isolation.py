@@ -1,7 +1,8 @@
 """The port stands alone: no module of starvector_tpu_torch, and not
 chip_smoke.py, imports jax or the JAX package; its training entry point and
-from_pretrained run with neither in sys.modules; its entry points run on the
-card unless asked for the CPU; and its own copies of the JAX package's
+from_pretrained run with neither in sys.modules, and its serving stack
+without aiohttp or requests either; its entry points run on the card unless
+asked for the CPU; and its own copies of the JAX package's
 config, tokenizer, dataset and loader modules give the JAX loader's batch.
 
 The run that checks sys.modules is a subprocess: this test process has
@@ -158,6 +159,51 @@ def test_entry_points_refuse_to_run_without_a_card(tmp_path):
         main(ConfigNode({"project": {"out_dir": str(tmp_path / "run")},
                          "model": {"preset": "tiny"}}))
     assert not (tmp_path / "run").exists()
+    # serving: the engine, and the worker's and controller's main
+    from starvector_tpu_torch.models import gpt_bigcode as tgbc
+    from starvector_tpu_torch.serve import controller, worker
+    from starvector_tpu_torch.serve.engine import ServeEngine
+
+    params = tgbc.init_params(tgbc.tiny_config(), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServeEngine(params, tgbc.tiny_config(), "gpt_bigcode", max_batch=1, max_len=16)
+    for entry, argv in ((worker.main, ["--model-path", str(tmp_path), "--port", "0"]),
+                        (controller.main, ["--port", "0"])):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            entry(argv)
+
+
+def test_serving_leaves_jax_aiohttp_and_requests_out():
+    """The port's worker and controller modules, a tiny engine on the CPU
+    serving one greedy request, and the worker's and controller's HTTP
+    servers, in one fresh process: neither jax, the JAX package, aiohttp nor
+    requests gets imported."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        from starvector_tpu_torch.api import StarVectorForCausalLM
+        from starvector_tpu_torch.models import starvector as sv
+        from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+        from starvector_tpu_torch.serve import controller, worker
+        from starvector_tpu_torch.serve.engine import Request
+        model = StarVectorForCausalLM.from_config(sv.tiny_config(), tokenizer=build_test_tokenizer(),
+                                                  device="cpu")
+        w = worker.ModelWorker(model, worker_addr="http://w", max_batch=2, max_len=64)
+        emb = model.params["svg_transformer"]["wte"][torch.tensor([[3, 1, 4]])]
+        out = w.engine.generate_sync(Request(prefix_embeds=emb, max_new_tokens=3,
+                                             do_sample=False), timeout=120)
+        assert len(out) == 3, out
+        for srv in (worker.build_server(w), controller.build_server(controller.Controller())):
+            srv.server_close()
+        w.shutdown()
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + ("aiohttp", "requests")!r})
+        assert not leaked, leaked
+        print("clean")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("clean"), proc.stderr[-4000:]
 
 
 def test_config_targets_map_to_the_port():
