@@ -1,7 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: StarVector-1B im2svg inference
 (bf16, and int8 weights with an int8 KV cache), text2svg, beam search,
 num_return_sequences, speculative decoding, continuous-batching serving
-(the engine, its REST worker and controller), GRPO and training, and
+(the engine, its REST worker and controller), the eval harness (the
+in-process and REST validators, LPIPS-VGG and InceptionV3), GRPO and
+training, and
 StarVector-8B im2svg inference (bf16, and int8 weights with an int8 KV
 cache), text2svg, beam search, speculative decoding, serving and training,
 on one NVIDIA H100, end to end through the hand-written kernels.
@@ -91,6 +93,22 @@ Phases, one line each (any failure raises and exits non-zero):
      p50 time to first token, p50 latency), int8 serving beside bf16 (with
      --profile DIR, a tick's device-busy share). Any request that ends in
      an error fails the run
+  4d. the eval harness (validation/, metrics/) on phase 4's weights, before
+     they are released: the in-process validator over 8 samples (the probe
+     SVGs as ground truth, seeded synthetic images as input), B=2, 64
+     greedy tokens, configs/metrics/im2svg.yaml's metrics with LPIPS and FID
+     on full-size random VGG16 / InceptionV3 weights in a temporary
+     STARVECTOR_METRICS_DIR: bf16 texts and ids equal offline
+     generate_im2svg's on the same batches, 24 flash_prefill a batch and 24
+     decode_attention a step, the output tree and every configured key;
+     fp32 texts and ids with the kernels equal the plain attention's;
+     LPIPS-VGG16 at 224 and InceptionV3 pool3 at 299 on the card against
+     the CPU in fp32 without TF32, and the FID from either's features; the
+     REST validator through the port's worker and controller serving the
+     fp32 copy, each text equal to offline fp32 generate_im2svg at B=1;
+     whether librsvg/cairo is there, and the validator's seconds a sample by
+     stage, LPIPS and Inception ms on the card and the CPU, the REST
+     validator's seconds a sample, beside the card's name and power limit
   5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
      remat, AdamW): 8 steps of the port's train loop on one synthetic batch
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
@@ -2468,6 +2486,352 @@ def serving_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None
     return dict(rates=rates, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: the eval harness (validation/, metrics/) at full 1B width
+# ---------------------------------------------------------------------------
+
+EVAL_SEED = 51
+EVAL_NEW = 64  # greedy new tokens a sample
+EVAL_TOL = (1e-4, 1e-5)  # (rtol, atol): LPIPS and pool3 features, fp32 on the card against the CPU
+
+
+class EvalDataset:
+    """Phase 4d's in-memory dataset (a validator's `dataset.target`): the
+    probe SVGs of validation/parity_samples.py as ground truth, and as the
+    model's input seeded synthetic images (not rasters of those SVGs, so
+    the inputs differ whether or not librsvg/cairo is there), processed by
+    the port's processor on the host, beside the same images as PIL."""
+
+    def __init__(self, n: int, seed: int, image_size: int):
+        from PIL import Image
+
+        from starvector_tpu_torch.data.processor import processor_for_encoder
+        from starvector_tpu_torch.validation.parity_samples import SAMPLES
+
+        raw = synthetic_images(n, seed)
+        processed = processor_for_encoder("clip", image_size, device="cpu").batch(raw).numpy()
+        self.items = [{"svg": SAMPLES[i][1], "id": f"{SAMPLES[i][0]}.svg", "caption": "",
+                       "image": processed[i], "image_pil": Image.fromarray(raw[i])}
+                      for i in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+class IdsSpy:
+    """Within `with IdsSpy(model) as spy:`, spy.calls lists (tokens,
+    lengths) of every im2svg generation the API ran for `model`."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def __enter__(self):
+        inner = self.model._im2svg
+
+        def run(*a, **kw):
+            out = inner(*a, **kw)
+            self.calls.append((out[1].clone(), out[2].clone()))
+            return out
+
+        self.model._im2svg = run
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._im2svg
+
+
+def eval_config(out_dir: str, n: int, image_size: int, metrics: dict, engine: str = "jax",
+                **model) -> dict:
+    return {"run": {"out_dir": out_dir},
+            "model": {"task": "im2svg", "name": "starvector-1b", "generation_engine": engine,
+                      "from_checkpoint": None, **model},
+            "dataset": {"target": f"{__name__}.EvalDataset", "dataset_name": "phase-4d",
+                        "batch_size": 2, "num_samples": n,
+                        "params": {"n": n, "seed": EVAL_SEED, "image_size": image_size}},
+            "generation_params": {"max_new_tokens": EVAL_NEW, "temperature": 0.0,
+                                  "generation_sweep": False},
+            "metrics": metrics}
+
+
+def timed_validator(v) -> dict:
+    """Wrap the validator's stages in host-clock timers (synchronised);
+    returns the dict they add seconds to."""
+    secs: dict = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    v.generate_svg = timed("generation", v.generate_svg)
+    v.post_process_svg = timed("post-processing", v.post_process_svg)
+    v.save_results = timed("saving and rasterizing", v.save_results)
+    v.calculate_and_save_metrics = timed("metrics", v.calculate_and_save_metrics)
+    for name, m in v.metrics.active_metrics.items():
+        if hasattr(m, "calculate_score"):
+            m.calculate_score = timed(f"metric {name}", m.calculate_score)
+    return secs
+
+
+def within(a: torch.Tensor, b: torch.Tensor, tol=EVAL_TOL) -> tuple[bool, float, float]:
+    """(|a - b| <= atol + rtol |b| everywhere, max |a - b|, max |a - b| / |b|)."""
+    d = (a - b).abs()
+    return (bool((d <= tol[1] + tol[0] * b.abs()).all()), d.max().item(),
+            (d / b.abs().clamp_min(1e-30)).max().item())
+
+
+def neural_metrics_card_vs_cpu(dev, card: str, weights: Path) -> dict:
+    """LPIPS-VGG16 at 224 and InceptionV3 pool3 at 299 on the full-size
+    random weights in `weights`, fp32 with TF32 off, on the card and on the
+    CPU: per-pair distances and features within EVAL_TOL, the FID from the
+    card's features against the CPU's, and ms per pair / per 16 images."""
+    from PIL import Image
+
+    from starvector_tpu_torch.metrics import inception_v3, lpips_vgg
+    from starvector_tpu_torch.metrics.model_metrics import frechet_distance
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 leaves them
+    torch.backends.cudnn.allow_tf32 = False
+    gt = [Image.fromarray(im) for im in synthetic_images(8, EVAL_SEED)]
+    gen = [Image.fromarray(im) for im in synthetic_images(8, EVAL_SEED + 1)]
+    vgg_sd, lin_sd = (torch.load(weights / "lpips-vgg" / f, weights_only=True)
+                      for f in ("vgg16.pth", "lpips_vgg.pth"))
+    inc_sd = torch.load(weights / "inception" / "inception_v3.pth", weights_only=True)
+    nets = {
+        "LPIPS": (lambda d: lpips_vgg.LPIPSVGG.from_torch_state_dicts(vgg_sd, lin_sd, device=d),
+                  (lpips_vgg.preprocess(gt[:4]), lpips_vgg.preprocess(gen[:4])),
+                  lpips_vgg.lpips_distance, 1),
+        "Inception": (lambda d: inception_v3.InceptionV3.from_torch_state_dict(inc_sd, device=d),
+                      (inception_v3.preprocess(gt + gen),), inception_v3.features, 16)}
+    out = {}
+    for name, (make, inputs, run, timed_rows) in nets.items():
+        res = {}
+        for d in (dev, "cpu"):
+            net = make(d)
+            args = tuple(x.to(d) for x in inputs)
+            res["card" if d is dev else "cpu"] = run(net, *args).cpu()
+            one = tuple(x[:timed_rows] for x in args)
+            if d is dev:
+                res["card_ms"] = event_ms(lambda: run(net, *one), iters=10)
+            else:
+                t = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    run(net, *one)
+                    t.append(time.perf_counter() - t0)
+                res["cpu_ms"] = min(t) * 1e3
+            del net
+        ok, err, rel = within(res["card"], res["cpu"])
+        if not ok or not torch.isfinite(res["card"]).all():
+            raise AssertionError(f"{name} on the card against the CPU: max |diff| {err:.3e}, "
+                                 f"max relative {rel:.3e}, over rtol {EVAL_TOL[0]} atol "
+                                 f"{EVAL_TOL[1]}")
+        out[name] = dict(res, err=err, rel=rel)
+    fid = {}
+    for d in ("card", "cpu"):
+        f = out["Inception"][d].double().numpy()
+        a, b = f[:8], f[8:]
+        fid[d] = frechet_distance(a.mean(0), np.cov(a, rowvar=False), b.mean(0),
+                                  np.cov(b, rowvar=False))
+    if not np.isfinite(fid["card"]) or abs(fid["card"] - fid["cpu"]) > 1e-3 * abs(fid["cpu"]):
+        raise AssertionError(f"FID from the card's features {fid['card']!r}, from the CPU's "
+                             f"{fid['cpu']!r}: over rtol 1e-3")
+    lp, inc = out["LPIPS"], out["Inception"]
+    log("eval", f"{card}: full-size random weights, fp32, TF32 off, the card against the CPU: "
+                f"LPIPS-VGG16 at 224, 4 pairs {[round(x, 6) for x in lp['card'].tolist()]}, max "
+                f"|diff| {lp['err']:.3e} (relative {lp['rel']:.3e}); InceptionV3 pool3 at 299, "
+                f"16 images x 2048 (max |feature| {inc['cpu'].abs().max().item():.3f}), max "
+                f"|diff| {inc['err']:.3e} (relative {inc['rel']:.3e}); tolerance rtol "
+                f"{EVAL_TOL[0]} atol {EVAL_TOL[1]}; FID (8 against 8) from the card's features "
+                f"{fid['card']:.6f}, from the CPU's {fid['cpu']:.6f} (rtol 1e-3)")
+    log("times", f"{card}: LPIPS-VGG16 a pair at 224: card {lp['card_ms']:.3f} ms (CUDA events, "
+                 f"10 calls), CPU {lp['cpu_ms']:.1f} ms; InceptionV3 16 images at 299: card "
+                 f"{inc['card_ms']:.3f} ms, CPU {inc['cpu_ms']:.1f} ms (host clock, best of 2)")
+    return dict(lpips_ms=lp["card_ms"], lpips_cpu_ms=lp["cpu_ms"], inception_ms=inc["card_ms"],
+                inception_cpu_ms=inc["cpu_ms"], fid=fid)
+
+
+def eval_1b(tfa, cfg, p16, p32, dev, card: str) -> dict:
+    """Phase 4d, on phase 4's 1B weights: the in-process validator over
+    EvalDataset (8 samples, B = 2, EVAL_NEW greedy tokens, the
+    configs/metrics/im2svg.yaml set with LPIPS and FID on full-size random
+    weights in a temporary STARVECTOR_METRICS_DIR): bf16 texts and ids equal
+    offline generate_im2svg's on the same batches, exact launch counts,
+    every file of the output tree, every configured key; on the fp32 copy,
+    ids and texts with the kernels equal those with the plain attention;
+    the neural metrics on the card against the CPU; the REST validator
+    through the port's worker and controller serving the fp32 copy, each
+    text equal to offline fp32 generate_im2svg at B = 1; times beside the
+    card's name and power limit."""
+    import os
+    import tempfile
+    import threading
+
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.config import ConfigNode, load_yaml
+    from starvector_tpu_torch.data.rasterize import rasterizer_available
+    from starvector_tpu_torch.metrics import inception_v3, lpips_vgg
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.serve import controller as ctl
+    from starvector_tpu_torch.serve import worker as wk
+    from starvector_tpu_torch.validation.serve_validator import StarVectorServeValidator
+    from starvector_tpu_torch.validation.torch_validator import StarVectorTorchValidator
+
+    L, n, size = cfg.llm.n_layer, 8, cfg.image_size
+    raster = rasterizer_available()
+    log("eval", f"rasterizer_available() {raster}"
+        + ("" if raster else ": no librsvg/cairo here, so every raster is the reference's white "
+           "fallback and L2, Masked-L2, SSIM and LPIPS read white against white: their values "
+           "below are no measure of quality"))
+    tok = build_test_tokenizer("v1")
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
+    metrics = {**load_yaml("configs/metrics/im2svg.yaml")["metrics"], "LPIPS": True, "FID": True}
+    light = {"L2": False}  # the ratio metrics only: the fp32 and REST runs check texts
+    tmp = Path(tempfile.mkdtemp(prefix="phase4d_"))
+    weights = tmp / "weights"
+    (weights / "lpips-vgg").mkdir(parents=True)
+    (weights / "inception").mkdir()
+    vgg_sd, lin_sd = lpips_vgg.random_state_dicts(EVAL_SEED)
+    torch.save(vgg_sd, weights / "lpips-vgg" / "vgg16.pth")
+    torch.save(lin_sd, weights / "lpips-vgg" / "lpips_vgg.pth")
+    torch.save(inception_v3.random_state_dict(EVAL_SEED), weights / "inception" / "inception_v3.pth")
+    del vgg_sd, lin_sd
+    saved_env = os.environ.get("STARVECTOR_METRICS_DIR")
+    os.environ["STARVECTOR_METRICS_DIR"] = str(weights)
+    try:
+        # bf16: the validator against offline generate_im2svg on the same batches
+        model = StarVectorForCausalLM(p16, cfg, tok, policy=bf16, device=dev)
+        v = StarVectorTorchValidator(ConfigNode(eval_config(str(tmp / "bf16"), n, size, metrics)),
+                                     model=model)
+        secs = timed_validator(v)
+        reset_counts(tfa)
+        t = time.perf_counter()
+        with IdsSpy(model) as spy:
+            avg, per = v.validate()
+        wall = time.perf_counter() - t
+        counts = read_counts(tfa)
+        steps = [int(lengths.max()) - 1 for _, lengths in spy.calls]
+        expect_counts("eval bf16", counts, flash_prefill=L * len(spy.calls),
+                      decode_attention=L * sum(steps))
+        if len(spy.calls) != n // 2:
+            raise AssertionError(f"eval: {len(spy.calls)} generations, expected {n // 2}")
+        items = EvalDataset(n, EVAL_SEED, size)
+        sids = [it["id"].split(".")[0] for it in items.items]
+        texts = []
+        with IdsSpy(model) as ref:
+            for b in range(0, n, 2):
+                images = np.stack([items[i]["image"] for i in (b, b + 1)])
+                texts += model.generate_im2svg({"image": torch.as_tensor(images, device=dev)},
+                                               max_new_tokens=EVAL_NEW, use_nucleus_sampling=False)
+        same_ids = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    for a, b in zip(spy.calls, ref.calls)]
+        raws = [v.results[s]["svg_raw"] for s in sids]
+        if raws != texts or len(ref.calls) != len(spy.calls) or not all(same_ids):
+            raise AssertionError(f"eval bf16: validator texts {raws}\noffline {texts}\nids equal "
+                                 f"per batch {same_ids}")
+        missing = [f"{s}/{s}{x}" for s in sids for x in (".svg", "_raw.svg", "_gt.svg",
+                                                         "_generated.png", "_original.png")
+                   if not os.path.exists(os.path.join(v.out_dir, s, s + x))]
+        missing += [f"{s}/metadata.json" for s in sids
+                    if not os.path.exists(os.path.join(v.out_dir, s, "metadata.json"))]
+        missing += [f for f in ("results/results_avg.json", "results/all_results.csv",
+                                "metrics.jsonl", "config.yaml")
+                    if not os.path.exists(os.path.join(v.out_dir, f))]
+        on_disk = json.load(open(os.path.join(v.out_dir, "results", "results_avg.json")))
+        want = {k for k, on in metrics.items() if on}
+        if missing or set(on_disk) != want or len(per) != n:
+            raise AssertionError(f"eval output tree: missing {missing}; results_avg.json keys "
+                                 f"{sorted(on_disk)}, configured {sorted(want)}; {len(per)} rows")
+        distinct = [len(set(row[:int(l)].tolist())) for tk, ln in spy.calls for row, l in zip(tk, ln)]
+        log("eval", f"in-process validator, bf16, {n} samples at B=2, {EVAL_NEW} greedy tokens: "
+                    f"texts and ids == offline generate_im2svg on the same batches (lengths "
+                    f"{[ln.tolist() for _, ln in spy.calls]}, distinct ids per row {distinct}); "
+                    f"launches flash_prefill {counts['flash_prefill']} = {L} x {len(spy.calls)} "
+                    f"batches, decode_attention {counts['decode_attention']} = {L} x {sum(steps)} "
+                    f"steps; the output tree complete; results_avg.json "
+                    + ", ".join(f"{k} {avg[k]:.6g}" for k in sorted(avg)))
+        log("times", f"{card}: validator, bf16, {n} samples, {EVAL_NEW} greedy tokens at B=2: "
+                     f"{wall / n:.3f} s a sample ({wall:.2f} s); a sample's seconds by stage: "
+                     + ", ".join(f"{k} {s / n:.4f}" for k, s in secs.items()))
+        eval_launches = {"flash_prefill": counts["flash_prefill"],
+                         "decode_attention": counts["decode_attention"]}
+        del model, v
+
+        # fp32: the kernels against the plain attention, ids and texts
+        runs = {}
+        for kernels in (True, False):
+            m32 = StarVectorForCausalLM(p32, cfg, tok, policy=f32, device=dev, kernels=kernels)
+            v32 = StarVectorTorchValidator(ConfigNode(eval_config(
+                str(tmp / f"fp32_{kernels}"), n, size, light)), model=m32)
+            with IdsSpy(m32) as spy32:
+                v32.validate()
+            runs[kernels] = ([v32.results[s]["svg_raw"] for s in sids], spy32.calls)
+        (tk, ik), (tp, ip) = runs[True], runs[False]
+        if tk != tp or not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                               for a, b in zip(ik, ip)):
+            raise AssertionError(f"eval fp32: texts with the kernels {tk}\nplain {tp}")
+        log("eval", f"in-process validator, fp32: texts and ids with the kernels == with the "
+                    f"plain attention ({n} samples, lengths {[ln.tolist() for _, ln in ik]})")
+
+        neural = neural_metrics_card_vs_cpu(dev, card, weights)
+
+        # the REST validator through the port's worker and controller (fp32)
+        m32 = StarVectorForCausalLM(p32, cfg, tok, policy=f32, device=dev)
+        worker = wk.ModelWorker(m32, worker_addr="pending", max_batch=8, max_len=1024)
+        servers = [wk.build_server(worker), ctl.build_server(ctl.Controller("shortest_queue"))]
+        threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+        for th in threads:
+            th.start()
+        wurl, curl = (f"http://127.0.0.1:{s.server_address[1]}" for s in servers)
+        try:
+            worker.worker_addr, worker.controller_addr = wurl, curl
+            worker.register()
+            rv = StarVectorServeValidator(ConfigNode(eval_config(
+                str(tmp / "rest"), n, size, light, engine="vllm", api_endpoint=curl,
+                name=worker.model_names[0])))
+            t = time.perf_counter()
+            rv.validate()
+            rest_wall = time.perf_counter() - t
+        finally:
+            for s in servers:
+                s.shutdown()
+                s.server_close()
+            for th in threads:
+                th.join(60)
+            worker.shutdown()
+        rest = [rv.results[s]["svg_raw"] for s in sids]
+        offline = [m32.generate_im2svg({"image": m32.process_images([it["image_pil"]])},
+                                       max_new_tokens=EVAL_NEW, use_nucleus_sampling=False)[0]
+                   for it in items.items]
+        if rest != offline:
+            raise AssertionError(f"eval REST fp32 texts {rest}\noffline B=1 {offline}")
+        log("eval", f"REST validator through the port's worker and controller on 127.0.0.1 "
+                    f"(fp32): {n} requests done, every text == offline fp32 generate_im2svg at "
+                    f"B=1 on the same PIL image")
+        log("times", f"{card}: REST validator, fp32, {n} samples one request at a time, "
+                     f"{EVAL_NEW} greedy tokens: {rest_wall / n:.3f} s a sample")
+        del m32
+    finally:
+        if saved_env is None:
+            os.environ.pop("STARVECTOR_METRICS_DIR", None)
+        else:
+            os.environ["STARVECTOR_METRICS_DIR"] = saved_env
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(launches=eval_launches, seconds=wall / n, stages={k: s / n for k, s in secs.items()},
+                rest_seconds=rest_wall / n, neural=neural)
+
+
 def offline_int8_ids(q32, cfg, prefixes, f32) -> list[list[int]]:
     """Offline greedy ids of each prefix at B = 1 through generate with an
     int8 KV cache, cut at the stop."""
@@ -4065,6 +4429,11 @@ def main() -> int:
     serve_1b = serving_1b(tfa, cfg, p16, p32, int8["params"], dev, card, args.profile)
     t_4c = time.perf_counter() - t_4c
     log("phase", f"4c took {t_4c:.0f} s")
+    phase("4d", "StarVector-1B eval harness")
+    t_4d = time.perf_counter()
+    eval1b = eval_1b(tfa, cfg, p16, p32, dev, card)
+    t_4d = time.perf_counter() - t_4d
+    log("phase", f"4d took {t_4d:.0f} s")
     if args.profile is not None:
         profile_request(request, card, args.profile)
         profile_request(int8["request"], card, args.profile, "int8")
@@ -4076,7 +4445,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     grpo_phase(sv, tfa, cfg, dev, card)
-    log("phase", f"4b took {time.perf_counter() - t_4b - t_4c:.0f} s (4c apart)")
+    log("phase", f"4b took {time.perf_counter() - t_4b - t_4c - t_4d:.0f} s (4c and 4d apart)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4135,7 +4504,8 @@ def main() -> int:
                              launches=n_prefill, max_abs_err=err_prefill,
                              ms=times[1], plain_ms=times[0], bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib,
-                             serve_launches=serve_1b["launches"]["flash_prefill"]))
+                             serve_launches=serve_1b["launches"]["flash_prefill"],
+                             eval_launches=eval1b["launches"]["flash_prefill"]))
     decode = decode_times(tfa, dc, dev, card)
     for label, name, launches, err in (
             ("bf16", "decode_attention", n_decode, err_decode),
@@ -4144,7 +4514,9 @@ def main() -> int:
                                  source="starvector_tpu_torch/csrc/decode_attention.cu",
                                  replaces="starvector_tpu/ops/flash_attention.py:2049",
                                  launches=launches, max_abs_err=err, **decode[label],
-                                 serve_launches=serve_1b["launches"][name]))
+                                 serve_launches=serve_1b["launches"][name],
+                                 **({"eval_launches": eval1b["launches"][name]}
+                                    if name in eval1b["launches"] else {})))
     qmm = quant_matmul_times(tq, dev, card)
     for path, count in (("gemv", "quant_matmul_gemv"), ("tile", "quant_matmul_wgmma")):
         kernels_json.append(dict(name=f"quant_matmul_{path}", route="cuda",

@@ -28,8 +28,14 @@ Layer map:
   data/, train/, config.py -- datasets, rasterizer (native/), loader, the
                    training entry point, optimizers, HF export (train/hub.py),
                    GRPO (train/grpo.py)
-  metrics/      -- SSIM and its per-sample loop (GRPO's reward)
-  utils/        -- run identity, code snapshot, metrics sink
+  validation/   -- the eval harness: the validator base and registry, the
+                   in-process (torch_validator.py) and REST
+                   (serve_validator.py) validators, the CLI (validate.py),
+                   the real-checkpoint harness (parity_real.py)
+  metrics/      -- L2, SSIM, LPIPS-VGG, InceptionV3 (FID), DINO/CLIP
+                   scores and the SVGMetrics orchestrator (also GRPO's
+                   reward)
+  utils/        -- run identity, code snapshot, metrics sink, plots
 """
 
 import torch

@@ -15,7 +15,10 @@ The cairo work runs through the native librsvg/cairo module
 into starvector_tpu_torch/_build/ under a hash of the source. The
 reference's SIGALRM guard cannot actually interrupt a hung C call; here the
 timeout path runs in a disposable worker process that is killed on expiry —
-same semantics, actually enforceable.
+same semantics, actually enforceable. Where librsvg/cairo is missing
+(rasterizer_available(), decided once a process), clean_svg and
+rasterize_svg return the reference's fallbacks, '<svg></svg>' and a white
+image, without starting a worker.
 """
 
 from __future__ import annotations
@@ -182,6 +185,8 @@ def clean_svg(
 ) -> str:
     """Normalize SVG via cairo svg2svg with a hard 5 s timeout (reference
     clean_svg, data/util.py:88-117). Falls back to '<svg></svg>'."""
+    if not rasterizer_available():
+        return VOID_SVG
     try:
         from bs4 import BeautifulSoup
 
@@ -208,6 +213,9 @@ def rasterize_svg(svg_string: str, resolution: int = 224, dpi: float = 128,
     signature parity (ignored when an output size is forced, matching
     cairosvg). Fallbacks: raster → clean+raster → white image."""
     from PIL import Image
+
+    if not rasterizer_available():
+        return Image.fromarray(np.full((resolution, resolution, 3), 255, np.uint8), "RGB")
 
     def _run(svg):
         if timeout is not None:
@@ -249,9 +257,17 @@ def process_and_rasterize_svg(svg_string: str, resolution: int = 256,
     return out_svg, raster_image
 
 
+_available: bool | None = None
+
+
 def rasterizer_available() -> bool:
-    try:
-        _load_lib()
-        return True
-    except Exception:
-        return False
+    """Whether librsvg/cairo can be loaded here; decided at the first call
+    of a process."""
+    global _available
+    if _available is None:
+        try:
+            _load_lib()
+            _available = True
+        except Exception:  # noqa: BLE001 -- any failure to build or load
+            _available = False
+    return _available

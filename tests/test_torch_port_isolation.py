@@ -1,7 +1,8 @@
 """The port stands alone: no module of starvector_tpu_torch, and not
 chip_smoke.py, imports jax or the JAX package; its training entry point and
-from_pretrained run with neither in sys.modules, and its serving stack
-without aiohttp or requests either; its entry points run on the card unless
+from_pretrained run with neither in sys.modules, its serving stack without
+aiohttp or requests either, and its eval harness without pandas or
+requests; its entry points run on the card unless
 asked for the CPU; and its own copies of the JAX package's
 config, tokenizer, dataset and loader modules give the JAX loader's batch.
 
@@ -204,6 +205,71 @@ def test_serving_leaves_jax_aiohttp_and_requests_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("clean"), proc.stderr[-4000:]
+
+
+def test_eval_harness_leaves_jax_pandas_and_requests_out(tmp_path):
+    """The validator CLI's path in one fresh process: get_validator on the
+    repo's configs/generation/jax/starvector-1b/im2svg.yaml (engine "jax",
+    dataset target starvector_tpu.data.datasets.SVGDataset) with a tiny
+    checkpoint and a local jsonl split, validate() on the CPU with LPIPS
+    and FID on narrow random weights beside the pixel metrics; without
+    model.device=cpu the CLI refuses to run where no card is visible.
+    Neither jax, the JAX package, pandas nor requests gets imported."""
+    code = textwrap.dedent(f"""
+        import json, os, sys
+        import torch
+        from starvector_tpu_torch.config import get_config
+        from starvector_tpu_torch.metrics import inception_v3, lpips_vgg
+        from starvector_tpu_torch.models import starvector as sv
+        from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+        from starvector_tpu_torch.train.hub import export_hf_checkpoint
+        from starvector_tpu_torch.validation.parity_samples import SAMPLES
+        from starvector_tpu_torch.validation.validate import get_validator
+        tmp = {str(tmp_path)!r}
+        cfg = sv.tiny_config()
+        export_hf_checkpoint(sv.init_params(cfg, torch.Generator().manual_seed(0)), cfg,
+                             build_test_tokenizer("v1"), tmp + "/ckpt")
+        os.makedirs(tmp + "/data")
+        with open(tmp + "/data/test.jsonl", "w") as f:
+            for sid, svg in SAMPLES[:2]:
+                f.write(json.dumps({{"Svg": svg, "Filename": sid + ".svg"}}) + "\\n")
+        for d in ("lpips-vgg", "inception"):
+            os.makedirs(f"{{tmp}}/weights/{{d}}")
+        vgg, lin = lpips_vgg.random_state_dicts(0, (8, 16, 32, 64, 64))
+        torch.save(vgg, tmp + "/weights/lpips-vgg/vgg16.pth")
+        torch.save(lin, tmp + "/weights/lpips-vgg/lpips_vgg.pth")
+        torch.save(inception_v3.random_state_dict(0, divisor=16),
+                   tmp + "/weights/inception/inception_v3.pth")
+        os.environ["STARVECTOR_METRICS_DIR"] = tmp + "/weights"
+        argv = ["config=configs/generation/jax/starvector-1b/im2svg.yaml",
+                "model.from_checkpoint=" + tmp + "/ckpt", "run.out_dir=" + tmp + "/eval",
+                "dataset.params.dataset_name=" + tmp + "/data", "dataset.params.im_size=28",
+                "generation_params.max_new_tokens=4", "generation_params.temperature=0.0",
+                "metrics.L2=true", "metrics.SSIM=true", "metrics.CountTokenLength=true",
+                "metrics.LPIPS=true", "metrics.FID=true"]
+        if not torch.cuda.is_available():
+            try:
+                get_validator(get_config(argv))
+                raise AssertionError("the validator ran without a card")
+            except RuntimeError as e:
+                assert "model.device=cpu" in str(e), e
+        v = get_validator(get_config(argv + ["model.device=cpu"]))
+        assert type(v).__name__ == "StarVectorTorchValidator"
+        assert type(v.model).__module__ == "starvector_tpu_torch.api"
+        avg, per = v.validate()
+        assert set(avg) == {{"L2", "SSIM", "LPIPS", "FID", "CountTokenLength",
+                             "ratio_post_processed", "ratio_non_compiling"}}, avg
+        assert len(per) == 2 and all(v == v for v in avg.values()), avg
+        assert os.path.exists(os.path.join(v.out_dir, "results", "all_results.csv"))
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + ("pandas", "requests")!r})
+        assert not leaked, leaked
+        print("clean")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("clean"), \
+        proc.stdout[-2000:] + proc.stderr[-4000:]
 
 
 def test_config_targets_map_to_the_port():
