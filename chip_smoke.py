@@ -2,10 +2,10 @@
 (bf16, and int8 weights with an int8 KV cache), text2svg, beam search,
 num_return_sequences, speculative decoding, continuous-batching serving
 (the engine, its REST worker and controller), the eval harness (the
-in-process and REST validators, LPIPS-VGG and InceptionV3), GRPO and
-training, and
-StarVector-8B im2svg inference (bf16, and int8 weights with an int8 KV
-cache), text2svg, beam search, speculative decoding, serving and training,
+in-process and REST validators, LPIPS-VGG and InceptionV3), offline
+pipelined generation, GRPO and training, and StarVector-8B im2svg
+inference (bf16, and int8 weights with an int8 KV cache), text2svg, beam
+search, speculative decoding, pipelined generation, serving and training,
 on one NVIDIA H100, end to end through the hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
@@ -60,8 +60,9 @@ Phases, one line each (any failure raises and exits non-zero):
      and B=4 decode tokens/s for bf16 im2svg, int8 and text2svg in turns,
      and the memory of bf16 and int8; the 1B inference trees are then
      released
-  4b. the decoding variants at full 1B width on phase 4's weights, each with
-     exact launch counts: beam search (num_beams=2, B=2: flash_prefill over
+  4b. the decoding variants at full 1B width on the first 8 of phase 4's 24
+     layers (DEPTH_1B_EARLIER, as in 4c and 4d), each with exact launch
+     counts: beam search (num_beams=2, B=2: flash_prefill over
      B x K = 4 rows, decode_attention a step; fp32 ids kernels == plain);
      num_return_sequences=4 over B=2 (the prefill once at 2 rows, the steps
      at 8; greedy groups identical, in fp32 equal to the n=1 rows), also
@@ -71,18 +72,20 @@ Phases, one line each (any failure raises and exits non-zero):
      bf16 rows that part from it); B=1 latency of greedy, speculative and
      beam, and B=4 tokens/s of greedy and speculative, in turns; then GRPO:
      one GRPOTrainer.step (B=2, G=4, 64 new tokens, a synthetic target
-     raster: the rollout's kernels 1 and 2, the update's 48 forwards and 24
+     raster, on its own tree at all 24 layers: the rollout's kernels 1 and
+     2, the update's 48 forwards and 24
      backward pairs under remat "dots"; the decoder alone moves; rollout,
      reward and update wall time, peak memory), and one fp32 update on one
      rollout with the kernels against the plain attention
-  4c. continuous-batching serving (serve/engine.py) on phase 4's weights,
-     before they are released: fp32, 4 concurrent requests of prefixes of
-     260-291 tokens (one admission group, one chunk), 32 greedy tokens with
-     the stop: ids equal offline generate_im2svg_ids at B=1 and the engine
-     with the plain attention, launches exactly 24 flash_prefill a chunk and
-     24 decode_attention a ragged step (ticks x steps_per_tick); int8
-     weights and cache: fp32 ids equal offline int8 generate's, bf16
-     launches 96 quant_matmul a step and a chunk and 24 int8-cache
+  4c. continuous-batching serving (serve/engine.py) on phase 4's weights
+     (their first 8 layers), before they are released: fp32, 4 concurrent
+     requests of prefixes of 260-291 tokens (one admission group, one
+     chunk), 32 greedy tokens with the stop: ids equal offline
+     generate_im2svg_ids at B=1 and the engine with the plain attention,
+     launches exactly 8 flash_prefill a chunk and 8 decode_attention a
+     ragged step (ticks x steps_per_tick); int8 weights and cache: fp32 ids
+     equal offline int8 generate's, bf16 launches 32 quant_matmul a step and
+     a chunk and 8 int8-cache
      decode_attention a step; a bf16 mixed batch under speculative ticks
      (greedy, sampled, stop, logit_bias, beam K=2, drafts from prompt ids),
      every request done; the REST worker and controller (standard-library
@@ -93,13 +96,14 @@ Phases, one line each (any failure raises and exits non-zero):
      p50 time to first token, p50 latency), int8 serving beside bf16 (with
      --profile DIR, a tick's device-busy share). Any request that ends in
      an error fails the run
-  4d. the eval harness (validation/, metrics/) on phase 4's weights, before
-     they are released: the in-process validator over 8 samples (the probe
-     SVGs as ground truth, seeded synthetic images as input), B=2, 64
+  4d. the eval harness (validation/, metrics/) on phase 4's weights (their
+     first 8 layers), before they are released: the in-process validator
+     over 8 samples (the probe SVGs as ground truth, seeded synthetic
+     images as input), B=2, 64
      greedy tokens, configs/metrics/im2svg.yaml's metrics with LPIPS and FID
      on full-size random VGG16 / InceptionV3 weights in a temporary
      STARVECTOR_METRICS_DIR: bf16 texts and ids equal offline
-     generate_im2svg's on the same batches, 24 flash_prefill a batch and 24
+     generate_im2svg's on the same batches, 8 flash_prefill a batch and 8
      decode_attention a step, the output tree and every configured key;
      fp32 texts and ids with the kernels equal the plain attention's;
      LPIPS-VGG16 at 224 and InceptionV3 pool3 at 299 on the card against
@@ -109,6 +113,27 @@ Phases, one line each (any failure raises and exits non-zero):
      whether librsvg/cairo is there, and the validator's seconds a sample by
      stage, LPIPS and Inception ms on the card and the CPU, the REST
      validator's seconds a sample, beside the card's name and power limit
+  4e. offline pipelined generation on phase 4's weights, before they are
+     released: 4 batches of B=16, P=1024 random prompt embeddings, 128
+     greedy tokens, C=8, through generate_pipelined (every step of a batch
+     but the last one fused decode+chunk forward: kernel 2 and the chunk
+     step); fp32 ids == per-batch generate's and == the plain attention's,
+     launches exactly 24 flash_prefill (batch 0) and 24 decode_attention a
+     decode step; bf16 launches and each row's first token parting from
+     per-batch generate; int8 weights over an fp32 cache, fp32 ids ==
+     per-batch generate's; an int8 KV cache, and int8 weights with it, in
+     fp32: 16 teacher-forced fused steps' logits, kernels against plain,
+     within twice generate's route's own gap, and batch 1's first decode
+     step over the cache the chunk steps wrote, kernels against plain, to
+     TOL; bf16 launches exact over kernel 2' and kernel 14 (GEMV and tile
+     by rows); generate_pipelined_spec over 3 batches of 8 right-padded
+     prompts (fp32 ids == generate_pipelined's
+     and per-batch generate's; bf16 rounds, tokens a round, launches: kernel
+     1 for batch 0 only, no kernel 2); tokens/s of serial generate,
+     generate_pipelined and its int8 KV in turns; a fused step against
+     the unfused pair (the decode forward, then the chunk step), 10 pairs
+     of 8-step blocks in alternating order (with --profile DIR, a fused
+     step's and a decode-only step's wall against device time)
   5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
      remat, AdamW): 8 steps of the port's train loop on one synthetic batch
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
@@ -120,14 +145,15 @@ Phases, one line each (any failure raises and exits non-zero):
      fp32: fp32 greedy ids for 2 images equal those of the in-memory
      weights, with flash_prefill and decode_attention launched; the
      directory is then deleted
-  6. inference at full StarVector-8B width and depth (StarCoder2-7B 4608 x
-     32 layers, GQA 36/4, window 4096; SigLIP-L/16 at 384; LayerNorm
-     adapter) on random bf16 weights that StarVectorForCausalLM.from_config
-     draws on the card from a seed: 3 requests of 4 images with launch
-     counts (32 flash_prefill a prefill, 32 decode_attention a step); bf16
-     prefill logits against the fp32 plain ones; fp32 greedy ids kernels vs
-     plain; the window at full width (2 layers, a 4700-token prefix, fp32
-     ids kernels vs plain); text2svg as in phase 4 (32 decode_attention a
+  6. inference at full StarVector-8B width (StarCoder2-7B 4608 wide, GQA
+     36/4, window 4096; SigLIP-L/16 at 384; LayerNorm adapter) and 8 of its
+     32 decoder layers (DEPTH_8B) on random bf16 weights that
+     StarVectorForCausalLM.from_config draws on the card from a seed: 3
+     requests of 4 images with launch counts (8 flash_prefill a prefill, 8
+     decode_attention a step); bf16 prefill logits against the fp32 plain
+     ones and fp32 greedy ids kernels vs plain on an fp32 copy; the
+     window at full width (2 layers, a 4700-token prefix, fp32
+     ids kernels vs plain); text2svg as in phase 4 (8 decode_attention a
      step; its fp32 check on the same fp32 copy); beam search (num_beams=2,
      B=1: flash_prefill over 2 rows, decode_attention at G = 9) and
      speculative decoding (B=1, and B=4 through StarCoder2's
@@ -135,14 +161,20 @@ Phases, one line each (any failure raises and exits non-zero):
      p50 B=1 latency, B=4
      tokens/s of im2svg and text2svg in turns, and memory. Then int8: the
      decoder through quantize_tree, consuming the bf16 tree, with an int8
-     KV cache: requests of 4 images and of 1 with launch counts (192
-     quant_matmul a prefill and a decode step, 32 flash_prefill a prefill,
-     32 int8-cache decode_attention a step); at full depth in fp32, kernels vs plain,
+     KV cache: requests of 4 images and of 1 with launch counts (48
+     quant_matmul a prefill and a decode step, 8 flash_prefill a prefill,
+     8 int8-cache decode_attention a step); in fp32, kernels vs plain,
      greedy ids with an fp32 KV cache and, with the int8 cache, the logits
      of both fed the same tokens (INT8_CACHE_LOGIT_TOL); weights and
-     memory, p50 and tokens/s beside bf16's. 6d, serving on the same
-     weights: 4 concurrent bf16 requests at full depth (launches 32
-     flash_prefill a chunk, 32 decode_attention at G = 9 a ragged step),
+     memory, p50 and tokens/s beside bf16's. Pipelined generation
+     (before 6d): 2 batches of B=2 prefixes, 32 tokens, each step the decode
+     forward and the chunk step (StarCoder2 has no fused forward): fp32 ids
+     == per-batch generate's and the plain attention's, bf16 launches 8
+     flash_prefill (batch 0) and 8 decode_attention a step; the port's
+     NotImplementedError from generate_pipelined_spec; tokens/s of serial
+     and pipelined at 3 batches of B=4, 128 tokens. 6d, serving on the same
+     weights: 4 concurrent bf16 requests (launches 8
+     flash_prefill a chunk, 8 decode_attention at G = 9 a ragged step),
      fp32 engine ids equal offline generate's on the fp32 copy, the window
      at 2 layers in fp32 (a 4700-token prefix admitted in 8 chunks beside a
      579-token one, decoded past the 4096-key window in the row's mask: ids
@@ -165,7 +197,8 @@ Phases, one line each (any failure raises and exits non-zero):
      state's bytes (masters, bf16 cast, bf16 gradients, Adafactor)
   7. times on the card, each beside the card's name and power limit: each
      kernel against its plain version, its bound and one PyTorch library
-     call where there is one (the 8B's at its shapes too), the 1B and 8B
+     call where there is one (the 8B's at its shapes too; kernel 14 also at
+     M = 144, a fused step of phase 4e), the 1B and 8B
      train steps and the training kernels at the 8B's (S = T = 8192, H=36,
      Hkv=4, window 4096; dkdv at each head split beside the plan's pick),
      also the training kernels at the long contexts phase 3 drives (with
@@ -411,6 +444,7 @@ def check_flash_prefill(tfa, dev) -> float:
     g = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, B, S, T, H, Hkv, q_offset, window, left_pad
         ("1B prefill", 4, 261, 261 + 128, 16, 1, 0, None, 0),
+        ("1B pipelined batch 0 (4e)", 16, 1024, 1024 + 128, 16, 1, 0, None, 0),
         ("S=37", 2, 37, 37, 16, 1, 0, None, 0),
         ("T=53 not a tile multiple", 2, 37, 53, 16, 1, 0, None, 0),
         ("q_offset=100", 2, 37, 200, 16, 1, 100, None, 0),
@@ -441,7 +475,8 @@ def check_flash_prefill(tfa, dev) -> float:
     return worst
 
 
-DECODE_CHECKS = ((1, 1), (4, 300), (1, 1285), (8, 1285), (4, 2049), (4, 4100))  # B, T
+# B, T; (16, 1152) is phase 4e's pipelined decode: B = 16, Pn 1024 + 128 new tokens
+DECODE_CHECKS = ((1, 1), (4, 300), (1, 1285), (8, 1285), (16, 1152), (4, 2049), (4, 4100))
 
 
 @functools.lru_cache(maxsize=1)
@@ -525,6 +560,9 @@ def check_decode_attention(tfa, dev) -> float:
     return worst
 
 
+# M of kernel 14's checks: the GEMV and its edge, phase 4e's chunk-only, fused and
+# batch-0 prefill rows (B = 16: 16 x 8, 16 x 9, 16 x 1024), and 1B prefills
+QMM_CHECK_ROWS = (1, 4, 8, 16, 17, 128, 144, 260, 1040, 16384)
 QMM_SHAPES = (  # the 1B decoder's four projections: name, K, N
     ("attn.c_attn", 2048, 2304), ("attn.c_proj", 2048, 2048),
     ("mlp.c_fc", 2048, 8192), ("mlp.c_proj", 8192, 2048),
@@ -533,19 +571,21 @@ QMM_SHAPES = (  # the 1B decoder's four projections: name, K, N
 
 def check_quant_matmul(tq, dev) -> dict:
     """Kernel 14 against its plain version at M = 1, 4, 8, 16 (GEMV), 17,
-    260 (a B=1 prefill) and 1040 (the wgmma tile: 4 x 260 prefill rows), the
-    four projection shapes, bf16 and fp32 x, with a bias of x's type and
-    without, to QMM_TOL; the bf16 GEMV at M = 4 and tile at M = 260
-    (where tile_plan splits K, and the finish pass sums the splits) and 1040
-    launched twice, bit for bit. Returns the worst max |diff| by path
-    ("gemv", "tile")."""
+    128 and 144 (phase 4e's chunk-only and fused decode+chunk steps: B = 16
+    rows x C = 8, x (1 + C)), 260 (a B=1 prefill), 1040 (the wgmma tile:
+    4 x 260 prefill rows) and 16384 (phase 4e's batch 0 prefill: 16 x
+    1024), the four projection shapes, bf16 and fp32 x, with a bias of x's
+    type and without, to QMM_TOL; the bf16 GEMV at M = 4 and tile at
+    M = 144 and 260 (where tile_plan splits K, and the finish pass sums the
+    splits) and 1040 launched twice, bit for bit. Returns the worst max
+    |diff| by path ("gemv", "tile")."""
     g = torch.Generator(device=dev).manual_seed(8)
     worst = {"gemv": 0.0, "tile": 0.0}
     for name, K, N in QMM_SHAPES:
         p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
         bias = torch.randn((N,), generator=g, device=dev)
         errs = []
-        for M in (1, 4, 8, 16, 17, 260, 1040):
+        for M in QMM_CHECK_ROWS:
             path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn((M, K), generator=g, device=dev).to(dtype)
@@ -555,7 +595,7 @@ def check_quant_matmul(tq, dev) -> dict:
                     torch.cuda.synchronize()
                     err = compare(f"quant_matmul {name} M={M} {dtype} bias={b is not None}",
                                   out, ref, dtype, tols=QMM_TOL)
-                    if M in (4, 260, 1040) and dtype == torch.bfloat16 and b is not None:
+                    if M in (4, 144, 260, 1040) and dtype == torch.bfloat16 and b is not None:
                         again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
                         torch.cuda.synchronize()
                         if not torch.equal(again, out):
@@ -570,14 +610,15 @@ def check_quant_matmul(tq, dev) -> dict:
 def check_int8_decode(tfa, dc, dev) -> float:
     """The int8-cache decode attention against its plain version: B = 1, 4,
     T = 260, 389 cached tokens, and the 1k-token cell's end (B = 1, 8,
-    T = 1285), T = 4100; left padding, a masked slot and (T > 256) a masked
+    T = 1285), phase 4e's pipelined decode (B = 16, T = 1152), T = 4100; left padding, a masked slot and (T > 256) a masked
     run of whole chunks; fp32 and bf16 queries over codes and scales from
     quantize_kv; two bf16 launches at B=8 T=1285 bit for bit."""
     g = torch.Generator(device=dev).manual_seed(9)
     G, D = 16, 128
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for B, T in ((1, 260), (4, 260), (1, 389), (4, 389), (1, 1285), (8, 1285), (4, 4100)):
+        for B, T in ((1, 260), (4, 260), (1, 389), (4, 389), (1, 1285), (8, 1285), (16, 1152),
+                     (4, 4100)):
             qg = torch.randn((B, 1, G, D), generator=g, device=dev).to(dtype)
             kn, vn = (torch.randn((B, 1, D), generator=g, device=dev).to(dtype) for _ in "kv")
             (kq, ks), (vq, vs) = (dc.quantize_kv(torch.randn((B, T, 1, D), generator=g,
@@ -1494,20 +1535,22 @@ def sdpa_ms(q, k, v, causal: bool, **kw):
     return min(times) if times else None
 
 
-QMM_TIMES = ((1, "gemv"), (4, "gemv"), (8, "gemv"), (260, "tile"), (1040, "tile"))
+# M = 144: a fused decode+chunk step of phase 4e (B = 16 rows x (1 + C = 8))
+QMM_TIMES = ((1, "gemv"), (4, "gemv"), (8, "gemv"), (144, "tile"), (260, "tile"), (1040, "tile"))
 
 
 def quant_matmul_times(tq, dev, card: str) -> dict:
     """Kernel 14 against its plain version, the library's int8 weight
     matmul (torch._weight_int8pack_mm, where this torch has it for CUDA) and
     the bf16 cuBLAS addmm, at M = 1, 4, 8 (the GEMV: decode at B = 1, 4, 8),
-    260 and 1040 (the tile: a B=1 and a B=4 prefill) for the four
-    projections, bf16 x with a bf16 bias, each beside its bound (the tile
-    also in TFLOP/s and share of the bound, and at every width and split of
-    K that tile_plan weighs); the host cost a call of the GEMV at M = 4;
-    then one prefill's 96 projections (prefill_projection_times). Returns
-    mlp.c_fc's figures, the largest, by path ("gemv" at M = 4, "tile" at
-    M = 1040): ms, plain_ms, bound_ms, bound_by, library_ms."""
+    144 (the tile: a fused decode+chunk step of phase 4e), 260 and 1040 (a
+    B=1 and a B=4 prefill) for the four projections, bf16 x with a bf16
+    bias, each beside its bound (the tile also in TFLOP/s and share of the
+    bound, and at every width and split of K that tile_plan weighs); the
+    host cost a call of the GEMV at M = 4; then one prefill's 96
+    projections (prefill_projection_times). Returns mlp.c_fc's figures, the
+    largest, by path ("gemv" at M = 4, "tile" at M = 1040, "tile_m144"):
+    ms, plain_ms, bound_ms, bound_by, library_ms, addmm_ms."""
     g = torch.Generator(device=dev).manual_seed(10)
     rows = {}
     for M, path in QMM_TIMES:
@@ -1541,9 +1584,10 @@ def quant_matmul_times(tq, dev, card: str) -> dict:
                          f"bf16 addmm {addmm_ms:.4f} ms (reads 2 bytes a weight)")
             if path == "tile" and hasattr(tq, "tile_plan"):
                 tile_plan_times(tq, x, kq, sc, b, name, card)
-            if name == "mlp.c_fc" and M in (4, 1040):
-                rows[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=lib if lib is not None else addmm_ms)
+            if name == "mlp.c_fc" and M in (4, 144, 1040):
+                rows[path if M != 144 else "tile_m144"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib if lib is not None else addmm_ms, addmm_ms=addmm_ms)
         log("times", f"{card}: quant_matmul {path}, M={M}, one layer's four projections: kernel "
                      f"{total['ms']:.4f} ms, plain {total['plain']:.4f} ms, bf16 addmm "
                      f"{total['addmm']:.4f} ms, bound {total['bound']:.4f} ms; x 24 layers: "
@@ -2832,6 +2876,477 @@ def eval_1b(tfa, cfg, p16, p32, dev, card: str) -> dict:
                 rest_seconds=rest_wall / n, neural=neural)
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: offline pipelined generation (generate_pipelined, and with
+# speculative rounds generate_pipelined_spec) at full 1B width
+# ---------------------------------------------------------------------------
+
+PIPE_BATCHES, PIPE_B, PIPE_P, PIPE_NEW = 4, 16, 1024, 128  # the JAX bench's offline 1k-prefill shape
+SPEC_BATCHES, SPEC_B, SPEC_NEW, SPEC_DRAFT = 3, 8, 64, 8
+SPEC_LENGTHS = (256, 243, 230, 217, 204, 191, 178, 165)  # right-padded rows of a spec batch
+SPEC_IDS = (44, 5727, 2262, 1053, 48, 307, 912, 3001, 77, 1409, 2718, 8081)  # drafts recur
+
+
+def pipe_batches(E: int, dev, n: int, B: int, P: int, seed: int = 15) -> list:
+    """n batches of (embeds (B, P, E) fp32, mask (B, P) of ones): random
+    prompt embeddings 0.02 N(0, 1) from a seeded generator on the card, as
+    the JAX bench's offline workload builds them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn((B, P, E), generator=g, device=dev) * 0.02,
+             torch.ones((B, P), dtype=torch.int32, device=dev)) for _ in range(n)]
+
+
+def cast_batches(batches: list, dtype) -> list:
+    return [(e.to(dtype),) + tuple(rest) for e, *rest in batches]
+
+
+def pipelined_steps(outs: list, n_chunks: int) -> dict:
+    """Forwards of a generate_pipelined run by kind, from each batch's
+    lengths: a batch decodes max(length) - 1 steps and, but for the last,
+    carries n_chunks chunks of the next prompt; a step with both is fused,
+    one with a chunk only writes the chunk, one with a decode only decodes."""
+    counts = dict(decode=0, fused=0, chunk=0, decode_only=0)
+    for i, (_, lengths) in enumerate(outs):
+        d = int(lengths.max()) - 1
+        c = n_chunks if i + 1 < len(outs) else 0
+        counts["decode"] += d
+        counts["fused"] += min(d, c)
+        counts["chunk"] += max(c - d, 0)
+        counts["decode_only"] += max(d - c, 0)
+    return counts
+
+
+def timed(fn):
+    """(fn(), wall seconds of it, synchronised)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def same_ids(what: str, outs: list, refs: list) -> None:
+    """Raise unless each batch's (tokens, lengths) equal the reference's."""
+    for i, ((t, l), (rt, rl)) in enumerate(zip(outs, refs)):
+        if not (torch.equal(t, rt) and torch.equal(l, rl)):
+            raise AssertionError(f"{what}, batch {i}: first parting per row "
+                                 f"{[first_parting(a, b) for a, b in zip(t, rt)]}, lengths "
+                                 f"{l.tolist()} vs {rl.tolist()}")
+
+
+def fused_step_logits(cfg, dec: dict, batches: list, policy, kernels: bool, kv,
+                      tokens: torch.Tensor) -> torch.Tensor:
+    """generate_pipelined's first steps teacher-forced: batch 0 prefilled,
+    then one fused decode+chunk step a column of tokens (B, n) while batch
+    1's first n chunks are written. Returns the decode logits (B, n, V)."""
+    from starvector_tpu_torch.generation import engine
+    from starvector_tpu_torch.models import gpt_bigcode
+
+    (e0, m0), (e1, m1) = batches[:2]
+    B, Pn, _ = e0.shape
+    C = engine._chunk_plan(Pn, PIPE_NEW, None)[0]
+    _, cache = engine._prefill_full(dec, cfg.llm, e0, m0, Pn + PIPE_NEW, policy, kernels, kv)
+    nxt = gpt_bigcode.init_cache(cfg.llm, B, Pn + PIPE_NEW, dtype=kv or policy.compute_dtype,
+                                 device=e0.device)
+    out = []
+    for t in range(tokens.shape[1]):
+        x = gpt_bigcode.embed_tokens(dec, tokens[:, t:t + 1]).to(policy.compute_dtype)
+        logits, cache, _, nxt = gpt_bigcode.forward_decode_with_chunk(
+            dec, cfg.llm, x, cache, policy.cast(e1[:, t * C:(t + 1) * C]),
+            m1[:, t * C:(t + 1) * C], nxt, policy=policy, kernels=kernels, chunk_logits=False)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def chunk_written_decode(cfg, dec: dict, batches: list, policy, kv) -> tuple:
+    """Batch 1's decode over the cache that generate_pipelined's chunk
+    steps wrote: batch 0 prefilled and decoded by _decode_overlap (the
+    kernels on) with batch 1's n_chunks chunks fused into its steps; then
+    batch 1's first decode step over that cache, once with the kernels
+    (kernel 2, or 2' over an int8 cache) and once with the plain attention,
+    each on its own copy of the cache. Both read the same codes and scales
+    and the step's own k/v enter unquantized (the merged self token), so the
+    logits differ by fp32 sum order alone: held to TOL, not to a
+    quantization gap. Returns (max |diff|, a line for the log, batch 0's
+    greedy tokens (B, PIPE_NEW), generate_pipelined's batch 0)."""
+    from starvector_tpu_torch.generation import engine
+    from starvector_tpu_torch.models import gpt_bigcode
+
+    (e0, m0), nxt = batches[:2]
+    B, Pn, _ = e0.shape
+    C, n_chunks = engine._chunk_plan(Pn, PIPE_NEW, None)
+    gen = engine.GenerationConfig(max_new_tokens=PIPE_NEW, do_sample=False,
+                                  stop_sequences=STOP_IDS, eos_token_id=None, pad_token_id=0)
+    last, cache = engine._prefill_full(dec, cfg.llm, e0, m0, Pn + PIPE_NEW, policy, True, kv)
+    tokens, _, cache, last = engine._decode_overlap(dec, cfg.llm, cache, last, None, nxt, gen,
+                                                    None, C, n_chunks, policy, True, kv)
+    x = gpt_bigcode.embed_tokens(dec, last.argmax(-1)[:, None]).to(policy.compute_dtype)
+    ones = torch.ones((B, 1), dtype=torch.int32, device=e0.device)
+    logits = {k: gpt_bigcode.forward(dec, cfg.llm, x, attention_mask=ones,
+                                     cache={n: v.clone() if torch.is_tensor(v) else v
+                                            for n, v in cache.items()},
+                                     policy=policy, kernels=k)[0][:, -1] for k in (True, False)}
+    torch.cuda.synchronize()
+    err = compare(f"batch 1's decode over the chunk-written {kv or 'fp32'} cache", logits[True],
+                  logits[False], torch.float32)
+    return err, (f"batch 1's first decode step over the cache the {n_chunks} chunk steps wrote "
+                 f"(B={B}, T={Pn + PIPE_NEW}), kernels against plain: logits max |diff| "
+                 f"{err:.3e} (TOL, fp32)"), tokens
+
+
+def spec_batches(dec: dict, embed, dev, seed: int = 25) -> list:
+    """SPEC_BATCHES batches of SPEC_B right-padded rows of SPEC_LENGTHS ids
+    drawn from SPEC_IDS (so that prompt-lookup drafts exist): (embeds fp32,
+    mask, prompt ids -1 at the holes)."""
+    rng = np.random.default_rng(seed)
+    P = max(SPEC_LENGTHS)
+    out = []
+    for _ in range(SPEC_BATCHES):
+        ids = torch.from_numpy(rng.choice(SPEC_IDS, (SPEC_B, P))).to(dev)
+        mask = (torch.arange(P, device=dev)[None, :]
+                < torch.tensor(SPEC_LENGTHS, device=dev)[:, None]).int()
+        out.append((embed(dec, ids).float() * mask[:, :, None], mask,
+                    torch.where(mask > 0, ids, -1)))
+    return out
+
+
+def left_padded(batch) -> tuple:
+    """A right-padded (embeds, mask, ids) batch's rows moved to the right,
+    pads on the left (generate's and generate_pipelined's layout)."""
+    emb, mask, ids = batch
+    P = mask.shape[1]
+    shift = P - mask.sum(dim=1)
+    src = (torch.arange(P, device=mask.device)[None, :] - shift[:, None]) % P
+    return (emb.gather(1, src[:, :, None].expand_as(emb)), mask.gather(1, src),
+            ids.gather(1, src))
+
+
+def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None) -> dict:
+    """Phase 4e, offline pipelined generation at full 1B width and depth on
+    phase 4's trees: PIPE_BATCHES batches of B=16, P=1024 random prompt
+    embeddings, 128 greedy new tokens, C = max(4, ceil(1024 / 128)) = 8,
+    every step of a batch but the last's one fused forward
+    (forward_decode_with_chunk: kernel 2 for the decode half, the chunk
+    step for the next prompt's chunk); batch 0 prefills through kernel 1.
+      * fp32: each batch's ids and lengths equal per-batch generate's (the
+        kernels) and generate_pipelined's with kernels=False; launches
+        exactly 24 flash_prefill (batch 0) and 24 decode_attention a decode
+        step;
+      * bf16: the launches, and each batch's first token that parts from
+        per-batch generate (recorded: the fused GEMMs round M = 144 rows);
+      * int8 weights over an fp32 cache: fp32 ids equal per-batch
+        generate's. An int8 KV cache (fp32 weights), and int8 weights with
+        it: per-batch int8 generate is no exact reference there (its one
+        prefill attends over every prompt key quantized, a chunk step over
+        its own chunk's keys unquantized, in both packages), so 16
+        teacher-forced fused steps' logits, kernels against plain, within
+        twice what generate's route shows on the same tokens (both share
+        batch 0's int8 prefill, where the two's k/v round to neighbouring
+        codes), and batch 1's first decode step over the cache the chunk
+        steps wrote, kernels against plain on one copy each of that cache,
+        to TOL (chunk_written_decode). In bf16 the
+        launches over kernel 2' and kernel 14 (96 a forward: the tile at
+        M = 16 x 1024 for the prefill and 144 a fused step, the GEMV at
+        M = 16 a decode-only step);
+      * generate_pipelined_spec, 3 batches of 8 right-padded prompts of
+        165-256 ids from a set of 12, 64 new tokens, draft_len 8: fp32 ids
+        equal generate_pipelined's on the same rows left-padded, and per-
+        batch generate's (each row's plain greedy ids); in bf16 its rounds
+        a batch, tokens a round and launches (kernel 1 for batch 0's adopt,
+        no kernel 2: every verify is the chunk step);
+      * times in turns (serial, pipelined, pipelined int8 KV, and back):
+        tokens/s of each over the 4 batches; a fused step against the
+        unfused pair in alternating blocks (pipelined_step_times), and
+        with `profile_dir` a fused step's and a decode-only step's wall
+        against device time.
+    Returns the launch counts of the checked bf16 runs, the stream's
+    tokens/s, the spec results and the step times."""
+    from starvector_tpu_torch.generation import engine
+    from starvector_tpu_torch.models import gpt_bigcode
+    from starvector_tpu_torch.ops import quantization as tq
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    L = cfg.llm.n_layer
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
+    gen = engine.GenerationConfig(max_new_tokens=PIPE_NEW, do_sample=False,
+                                  stop_sequences=STOP_IDS, eos_token_id=None, pad_token_id=0)
+    C, n_chunks = engine._chunk_plan(PIPE_P, PIPE_NEW, None)
+    batches32 = pipe_batches(cfg.llm.hidden_size, dev, PIPE_BATCHES, PIPE_B, PIPE_P)
+    batches16 = cast_batches(batches32, torch.bfloat16)
+    d32, d16, dq16 = (t["svg_transformer"] for t in (p32, p16, q16))
+
+    def pipelined(dec, batches, policy, kernels=True, kv=None):
+        return engine.generate_pipelined(dec, cfg.llm, batches, gen, policy=policy,
+                                         kernels=kernels, kv_cache_dtype=kv)
+
+    def serial(dec, batches, policy, kv=None):
+        return [engine.generate(dec, cfg.llm, e, m, gen, policy=policy, kv_cache_dtype=kv)
+                for e, m in batches]
+
+    def counted(fn):
+        reset_counts(tfa)
+        out = fn()
+        return out, read_counts(tfa)
+
+    # fp32: ids against per-batch generate and the plain attention
+    out32, counts = counted(lambda: pipelined(d32, batches32, f32))
+    steps = pipelined_steps(out32, n_chunks)
+    expect_counts("pipelined fp32", counts, flash_prefill=L, decode_attention=L * steps["decode"])
+    same_ids("pipelined fp32 against per-batch generate", out32, serial(d32, batches32, f32))
+    same_ids("pipelined fp32, kernels against plain", out32,
+             pipelined(d32, batches32, f32, kernels=False))
+    log("pipelined", f"generate_pipelined, fp32, {PIPE_BATCHES} batches of B={PIPE_B}, P={PIPE_P}, "
+                     f"{PIPE_NEW} new tokens, C={C} ({n_chunks} chunks a prompt): lengths per "
+                     f"batch {[sorted(set(l.tolist())) for _, l in out32]}; {steps['fused']} fused "
+                     f"steps, {steps['chunk']} chunk-only, {steps['decode_only']} decode-only; "
+                     f"launches flash_prefill {counts['flash_prefill']} = {L} x 1 (batch 0), "
+                     f"decode_attention {counts['decode_attention']} = {L} x {steps['decode']} "
+                     f"decode steps; ids and lengths == per-batch generate's and == the plain "
+                     f"attention's, every batch")
+
+    # int8 weights over an fp32 cache: fp32 ids against per-batch generate
+    q32 = quantized(p32)["svg_transformer"]
+    two = batches32[:2]
+    same_ids("pipelined fp32 int8 weights against per-batch generate",
+             pipelined(q32, two, f32), serial(q32, two, f32))
+    log("pipelined", "generate_pipelined, int8 weights and an fp32 cache, fp32, 2 batches: ids "
+                     "and lengths == per-batch generate's")
+    # an int8 KV cache, fp32: batch 1's first decode step over the cache the
+    # chunk steps wrote, kernels against plain on one cache, to TOL; then,
+    # fed batch 0's tokens, teacher-forced fused steps, kernels against
+    # plain, within twice generate's route's own gap on the same tokens (the
+    # floor: both routes share batch 0's int8 prefill, where the two's k/v
+    # round to neighbouring codes)
+    int8_fp32 = {}
+    for label, dec32 in (("int8 KV", d32), ("int8 weights + int8 KV", q32)):
+        _, step_text, fed = chunk_written_decode(cfg, dec32, two, f32, torch.int8)
+        fed = fed[:, :16]
+        forced = [fused_step_logits(cfg, dec32, two, f32, k, torch.int8, fed)
+                  for k in (True, False)]
+        floor = [forced_logits(gpt_bigcode, dec32, cfg.llm, *two[0], 17, f32, k, torch.int8,
+                               ids=fed)[0][:, 1:] for k in (True, False)]
+        err = (forced[0] - forced[1]).abs().max().item()
+        err_floor = (floor[0] - floor[1]).abs().max().item()
+        if not torch.isfinite(forced[0]).all() or err > 2.0 * err_floor + 1e-3:
+            raise AssertionError(f"pipelined fp32 {label}: teacher-forced fused-step logits, "
+                                 f"kernels against plain, max |diff| {err:.4e}, over twice "
+                                 f"generate's route's {err_floor:.4e}")
+        int8_fp32[label] = (f"fp32, 2 batches: 16 teacher-forced fused steps' logits, kernels "
+                            f"against plain, max |diff| {err:.4e}, generate's route on the same "
+                            f"tokens {err_floor:.4e} (bound: fused <= 2 x generate's + 1e-3); "
+                            f"{step_text}")
+    del q32
+
+    # pipelined speculative decoding
+    spec = pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev)
+
+    # bf16, timed in turns beside the card; each kind's first run also
+    # gives its launches and ids
+    runs = {"serial generate": lambda: serial(d16, batches16, bf16),
+            "generate_pipelined": lambda: pipelined(d16, batches16, bf16),
+            "generate_pipelined int8 KV": lambda: pipelined(d16, batches16, bf16, kv=torch.int8)}
+    rates, first = {k: [] for k in runs}, {}
+    for label in list(runs) + list(runs)[::-1]:
+        reset_counts(tfa)
+        out, wall = timed(runs[label])
+        first.setdefault(label, (out, read_counts(tfa)))
+        rates[label].append(sum(float(l.sum()) for _, l in out) / wall)
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log("times", f"{card}: 1B offline, {PIPE_BATCHES} batches of B={PIPE_B}, P={PIPE_P}, "
+                 f"{PIPE_NEW} greedy tokens, bf16, in turns (a, b, c, c, b, a), emitted tokens "
+                 f"/ wall: " + "; ".join(f"{k} {med[k]:.1f} tokens/s "
+                                        f"({[round(x, 1) for x in v]})" for k, v in rates.items())
+                 + f"; pipelined / serial {med['generate_pipelined'] / med['serial generate']:.3f}"
+                 f", int8 KV / serial "
+                 f"{med['generate_pipelined int8 KV'] / med['serial generate']:.3f}")
+
+    def bf16_launches(label, out, counts) -> tuple[dict, str]:
+        """Exact launches of a bf16 run of the stream ("bf16", "int8 KV",
+        "int8 weights + int8 KV"): kernel 1 for batch 0, kernel 2 (2' over
+        the int8 cache) a decode step, kernel 14 (by rows: the GEMV up to
+        GEMV_MAX_ROWS, else the tile) 96 a forward."""
+        steps = pipelined_steps(out, n_chunks)
+        int8, quant = label != "bf16", label.startswith("int8 weights")
+        fwd = 1 + steps["fused"] + steps["chunk"] + steps["decode_only"]
+        got = expect_counts(f"pipelined bf16 {label}", counts, flash_prefill=L,
+                            decode_attention=L * steps["decode"],
+                            decode_attention_int8=L * steps["decode"] if int8 else 0,
+                            quant_matmul=4 * L * fwd if quant else 0)
+        rows = {"decode_only": PIPE_B, "chunk": PIPE_B * C, "fused": PIPE_B * (1 + C)}
+        gemv = 4 * L * sum(steps[k] for k, m in rows.items() if m <= tq.GEMV_MAX_ROWS)
+        tile = 4 * L * fwd - gemv
+        if quant and (counts["quant_matmul_gemv"], counts["quant_matmul_wgmma"]) != (gemv, tile):
+            raise AssertionError(f"pipelined {label}: quant_matmul paths {counts}, expected GEMV "
+                                 f"{gemv}, tile {tile}")
+        text = (f"bf16 launches flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0), "
+                f"decode_attention {got['decode_attention']} = {L} x {steps['decode']} decode "
+                f"steps ({steps['fused']} fused, {steps['decode_only']} decode-only; "
+                f"{steps['chunk']} chunk-only steps)"
+                + (f", of them over the int8 cache {got['decode_attention_int8']}" if int8 else "")
+                + (f", quant_matmul {got['quant_matmul']} = 96 x {fwd} forwards (tile {tile}: "
+                   f"the prefill at M = {PIPE_B * PIPE_P}, the fused steps at M = "
+                   f"{PIPE_B * (1 + C)}, the chunk-only at M = {PIPE_B * C}; GEMV {gemv}: the "
+                   f"decode-only steps at M = {PIPE_B})" if quant else ""))
+        return {**got, **({"quant_matmul_gemv": gemv, "quant_matmul_wgmma": tile}
+                          if quant else {})}, text
+
+    out16 = first["generate_pipelined"][0]
+    launches = {"spec": spec["launches"]}
+    launches["bf16"], text = bf16_launches("bf16", *first["generate_pipelined"])
+    ref16 = first["serial generate"][0]
+    parts = [[first_parting(t, r) for t, r in zip(o[0], ref[0])] for o, ref in zip(out16, ref16)]
+    agree = [round(float((o[0] == ref[0]).float().mean()), 4) for o, ref in zip(out16, ref16)]
+    log("pipelined", f"generate_pipelined, bf16: {text}; against per-batch generate, ids agree "
+                     f"on {agree} of each batch's positions; first parting token per row (None: "
+                     f"never; the fused GEMMs round M = {PIPE_B * (1 + C)} rows where a decode "
+                     f"step rounds {PIPE_B}, and the chunk step's attention is not kernel 1's): "
+                     f"{parts}")
+    launches["int8 KV"], text = bf16_launches("int8 KV", *first["generate_pipelined int8 KV"])
+    log("pipelined", f"generate_pipelined, int8 KV: {int8_fp32['int8 KV']}; {text}")
+    label = "int8 weights + int8 KV"
+    launches[label], text = bf16_launches(label, *counted(
+        lambda: pipelined(dq16, batches16, bf16, kv=torch.int8)))
+    log("pipelined", f"generate_pipelined, {label}: {int8_fp32[label]}; {text}")
+    step_ms = pipelined_step_times(cfg, d16, bf16, batches16, C, card, profile_dir)
+    return dict(launches=launches, rates=med, spec=spec, step_ms=step_ms)
+
+
+def pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev) -> dict:
+    """generate_pipelined_spec on phase 4e's trees (see pipelined_1b)."""
+    from starvector_tpu_torch.generation import engine, speculative
+    from starvector_tpu_torch.models import gpt_bigcode
+
+    L = cfg.llm.n_layer
+    gen = engine.GenerationConfig(max_new_tokens=SPEC_NEW, do_sample=False,
+                                  stop_sequences=STOP_IDS, eos_token_id=None, pad_token_id=0)
+    batches32 = spec_batches(d32, gpt_bigcode.embed_tokens, dev)
+    out = speculative.generate_pipelined_spec(d32, cfg.llm, batches32, gen, policy=f32,
+                                         draft_len=SPEC_DRAFT)
+    left = [left_padded(b) for b in batches32]
+    pipe = engine.generate_pipelined(d32, cfg.llm, [b[:2] for b in left], gen, policy=f32)
+    plain = [engine.generate(d32, cfg.llm, e, m, gen, policy=f32) for e, m, _ in left]
+    same_ids("pipelined_spec fp32 against generate_pipelined", out, pipe)
+    same_ids("pipelined_spec fp32 against per-batch generate", out, plain)
+    log("pipelined", f"generate_pipelined_spec, fp32, {SPEC_BATCHES} batches of {SPEC_B} "
+                     f"right-padded rows of {min(SPEC_LENGTHS)}-{max(SPEC_LENGTHS)} ids from a set "
+                     f"of {len(SPEC_IDS)}, {SPEC_NEW} new tokens, draft_len {SPEC_DRAFT}: ids and "
+                     f"lengths == generate_pipelined's on the rows left-padded and == per-batch "
+                     f"generate's, every batch")
+    stats = []
+    reset_counts(tfa)
+    out16 = speculative.generate_pipelined_spec(d16, cfg.llm, cast_batches(batches32, torch.bfloat16),
+                                           gen, policy=bf16, draft_len=SPEC_DRAFT, stats=stats)
+    got = expect_counts("pipelined_spec bf16", read_counts(tfa), flash_prefill=L)
+    emitted = [int(l.sum()) for _, l in out16]
+    per_round = [round(e / (r * SPEC_B), 3) for e, r in zip(emitted, stats)]
+    log("pipelined", f"generate_pipelined_spec, bf16: rounds a batch {stats} (verify and "
+                     f"chunk-only), emitted tokens {emitted}, {per_round} tokens a row a round; "
+                     f"launches flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0's adopt), "
+                     f"decode_attention {got['decode_attention']}: every verify is the chunk step; "
+                     f"random weights, so the acceptance is no forecast for real SVG")
+    return dict(launches=got, rounds=stats, per_round=per_round)
+
+
+def pipelined_step_times(cfg, dec, policy, batches, C: int, card: str, out_dir: Path | None,
+                         pairs: int = 10, n: int = 8) -> dict:
+    """A fused decode+chunk step against the unfused pair that
+    generate_pipelined runs where a decoder has no fused forward (the
+    decode forward, then the chunk step), at phase 4e's bf16 shapes: batch
+    0 prefilled, batch 1's chunks written from slot 0, each block of n
+    steps from that same state; `pairs` pairs of blocks in alternating
+    order after one warm-up block of each. Logs the wall ms a step of each
+    (synchronised host clock), the ratio of the medians, the quartiles and
+    how many pairs the fused step won. With `out_dir`, then a fused step's
+    and a decode-only step's wall against device time (torch.profiler over
+    n more). Returns the median ms a step by kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from starvector_tpu_torch.generation import engine
+    from starvector_tpu_torch.models import gpt_bigcode
+
+    (e0, m0), (e1, m1) = batches[:2]
+    B, Pn, _ = e0.shape
+    _, cache = engine._prefill_full(dec, cfg.llm, e0, m0, Pn + PIPE_NEW, policy, True, None)
+    nxt = gpt_bigcode.init_cache(cfg.llm, B, Pn + PIPE_NEW, dtype=policy.compute_dtype,
+                                 device=e0.device)
+    tok = gpt_bigcode.embed_tokens(dec, torch.full((B, 1), 44, device=e0.device)).to(
+        policy.compute_dtype)
+    ones = torch.ones((B, 1), dtype=torch.int32, device=e0.device)
+    i0 = cache["index"]
+    step = {"t": 0}
+
+    def reset():
+        cache["index"], nxt["index"], step["t"] = i0, 0, 0
+        cache["kv_mask"][:, i0:] = 0
+        nxt["kv_mask"].zero_()
+
+    def chunk():
+        t = step["t"]
+        step["t"] += 1
+        return e1[:, t * C:(t + 1) * C], m1[:, t * C:(t + 1) * C]
+
+    def fused():
+        ce, cm = chunk()
+        gpt_bigcode.forward_decode_with_chunk(dec, cfg.llm, tok, cache, ce, cm, nxt,
+                                              policy=policy, chunk_logits=False)
+
+    def decode():
+        gpt_bigcode.forward(dec, cfg.llm, tok, attention_mask=ones, cache=cache, policy=policy)
+
+    def unfused():
+        ce, cm = chunk()
+        decode()
+        gpt_bigcode.forward(dec, cfg.llm, ce, attention_mask=cm, cache=nxt, policy=policy,
+                            return_hidden=True, last_logits_only=True)
+
+    def block(fn) -> float:
+        """ms a step over n steps of fn from the reset state."""
+        reset()
+        _, wall = timed(lambda: [fn() for _ in range(n)])
+        return wall * 1e3 / n
+
+    kinds = {"fused": fused, "unfused": unfused}
+    for fn in kinds.values():
+        block(fn)  # warm-up
+    ms = {k: [] for k in kinds}
+    for i in range(pairs):
+        for k in (("fused", "unfused") if i % 2 == 0 else ("unfused", "fused")):
+            ms[k].append(block(kinds[k]))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    wins = sum(f < u for f, u in zip(ms["fused"], ms["unfused"]))
+    quart = {k: [round(q, 3) for q in statistics.quantiles(v, n=4)] for k, v in ms.items()}
+    log("times", f"{card}: 1B pipelined step, bf16, B={B}, C={C}, {pairs} pairs of {n}-step "
+                 f"blocks in alternating order: fused decode+chunk {med['fused']:.3f} ms a step "
+                 f"(quartiles {quart['fused']}), unfused (the decode forward, then the chunk "
+                 f"step) {med['unfused']:.3f} ms (quartiles {quart['unfused']}); unfused ms / "
+                 f"fused ms {med['unfused'] / med['fused']:.3f}; the fused step faster in {wins} of "
+                 f"{pairs} pairs")
+    if out_dir is None:
+        return med
+    parts = []
+    for label, fn in (("fused decode+chunk", fused), ("decode-only", decode)):
+        wall = block(fn)
+        reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+        if not dev_ms:
+            raise AssertionError("the profiler recorded no device time")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        name = f"profile_pipelined_{label.split()[0].replace('-', '_')}.txt"
+        (out_dir / name).write_text(f"{card}\n{label}, B={B}, C={C}\n" + prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=50))
+        parts.append(f"{label} wall {wall:.3f} ms, device {dev_ms:.3f} ms, busy "
+                     f"{dev_ms / wall:.1%} ({name})")
+    log("profile", f"{card}: 1B pipelined step, bf16, B={B}, C={C} (M = {B * (1 + C)} rows a "
+                   f"fused projection): " + "; ".join(parts))
+    return med
+
+
 def offline_int8_ids(q32, cfg, prefixes, f32) -> list[list[int]]:
     """Offline greedy ids of each prefix at B = 1 through generate with an
     int8 KV cache, cut at the stop."""
@@ -2849,9 +3364,9 @@ def offline_int8_ids(q32, cfg, prefixes, f32) -> list[list[int]]:
 
 
 def serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> dict:
-    """Phase 6d, on phase 6's 8B weights: 4 concurrent bf16 requests at
-    full depth with 32 decode_attention (G = 9) launches a step; fp32 engine
-    ids against offline generate's on phase 6's fp32 copy (`depth`); at 2
+    """Phase 6d, on phase 6's 8B weights (`depth`): 4 concurrent bf16
+    requests with a decode_attention (G = 9) launch a layer a step; fp32
+    engine ids against offline generate's on phase 6's fp32 copy; at 2
     layers in fp32, a 4700-token prefix beside a short one decoded past the
     4096-key window, kernels against plain; tokens/s beside offline B = 4."""
     from starvector_tpu_torch.api import StarVectorForCausalLM
@@ -2869,7 +3384,7 @@ def serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> 
     ref = offline_ids(StarVectorForCausalLM, p32, cfg32, images, f32, dev)
     if ids_k != ref:
         raise AssertionError(f"8B fp32 engine ids {ids_k}\noffline {ref}")
-    log("serve", f"{card}: 8B engine, bf16 at full depth, 4 concurrent requests (prefixes "
+    log("serve", f"{card}: 8B engine, bf16 at {depth}, 4 concurrent requests (prefixes "
                  f"{[p.shape[1] for p in pre16]}): launches flash_prefill {counts['flash_prefill']}"
                  f" = {L} x 1 chunk, decode_attention (G = 9) {counts['decode_attention']} = {L} x "
                  f"4 x {ticks} ticks; fp32 at {depth}: ids == offline generate_im2svg_ids B=1 "
@@ -3357,35 +3872,41 @@ def long_context_times(tfa, dev, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 PREFIX_8B = 4700  # the window check's prefix, past the 4096-key window
+# the depths of earlier slices' paths, at full width: eager decoding is
+# host-bound, so their wall time goes with the layers, and at full depth
+# the script passed its 1200-s limit on a slow host (phase 6 alone took
+# 200-400 s at all 32 layers)
+DEPTH_1B_EARLIER = 8  # of 24: 4b's decoding variants, 4c's serving, 4d's eval
+DEPTH_8B = 8  # of 32: phase 6's 8B inference
 
 
 def first_layers(params: dict, cfg, n: int):
     """(params, cfg) of the model cut to its decoder's first n layers (views
-    of the same weights)."""
+    of the same weights, which keep the whole tree's storage alive)."""
     import dataclasses
 
     st = dict(params["svg_transformer"])
     st["layers"] = _map_tree(st["layers"], lambda t: t[:n])
+    depth = "num_hidden_layers" if hasattr(cfg.llm, "num_hidden_layers") else "n_layer"
     return ({**params, "svg_transformer": st},
-            dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_hidden_layers=n)))
+            dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, **{depth: n})))
 
 
 def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
-    """StarVector-8B im2svg at full width and depth (StarCoder2-7B: 4608 x 32
-    layers, 36 query heads over 4 KV heads, window 4096; SigLIP-L/16 at 384;
-    LayerNorm adapter) on random bf16 weights drawn on the card by
-    StarVectorForCausalLM.from_config from a seed, projections scaled as in
-    phase 4. 3 requests of 4 images through generate_im2svg_ids with exact
-    launch counts (32 flash_prefill a prefill, 32 decode_attention a step, no
-    training or int8 kernel); bf16 prefill logits against the fp32 plain
-    ones (full depth where the fp32 copy fits beside the bf16 tree); fp32
-    greedy ids, kernels against plain; the window at full width (2 layers,
+    """StarVector-8B im2svg at full width (StarCoder2-7B: 4608 wide, 36
+    query heads over 4 KV heads, window 4096; SigLIP-L/16 at 384; LayerNorm
+    adapter) and the first DEPTH_8B of its 32 decoder layers, on random bf16
+    weights drawn on the card by StarVectorForCausalLM.from_config from a
+    seed, projections scaled as in phase 4. 3 requests of 4 images through
+    generate_im2svg_ids with exact launch counts (a flash_prefill a layer a
+    prefill, a decode_attention a layer a step, no training or int8
+    kernel); bf16 prefill logits against the fp32 plain ones and fp32 greedy
+    ids, kernels against plain, on an fp32 copy of the same layers; the
+    window at full width (2 layers,
     a 4700-token prefix, 32 greedy tokens, fp32 ids kernels == plain); then
     p50 latency, B=4 tokens/s and memory (with `profile_dir`, where a B=4
     request's device time goes). Returns the launch counts, p50, tokens/s
     and the tree's bytes."""
-    import dataclasses
-
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.generation.engine import GenerationConfig, generate, im2svg_prefix
     from starvector_tpu_torch.models import starcoder2
@@ -3394,13 +3915,14 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cfg = sv.starvector_8b_config()
+    cfg = config_8b(sv, DEPTH_8B)
     L = cfg.llm.num_hidden_layers
+    depth = f"{L} of {sv.starvector_8b_config().llm.num_hidden_layers} layers (DEPTH_8B)"
     model = StarVectorForCausalLM.from_config(cfg, seed=8, dtype=torch.bfloat16, device=dev)
     p16 = scale_projections(model.params)
     torch.cuda.synchronize()
     parts = {k: tree_bytes(v) / 2**30 for k, v in p16.items()}
-    log("8b", f"StarVector-8B (StarCoder2-7B {cfg.llm.hidden_size} x {L} layers, "
+    log("8b", f"StarVector-8B (StarCoder2-7B {cfg.llm.hidden_size} wide, {depth}, "
               f"{cfg.llm.num_attention_heads} heads over {cfg.llm.kv_heads}, window "
               f"{cfg.llm.sliding_window}; {cfg.image_encoder_type}; {cfg.adapter_norm} adapter) "
               f"from_config(seed=8) in bf16 on the card: weights "
@@ -3434,18 +3956,10 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
               f"{got['decode_attention']} = {L} x {sum(steps)} decode steps, no training or int8 "
               f"kernel")
 
-    # fp32 at full depth where the copy fits beside what is held, else fewer layers
+    # fp32 on a copy of the same weights
     f32 = DTypePolicy(torch.float32, torch.float32)
     bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
-    torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info(dev)[0]
-    layer_bytes = tree_bytes(p16["svg_transformer"]["layers"]) / L
-    rest = tree_bytes(p16) - layer_bytes * L
-    n32 = int(min(L, (free - 12 * 2**30 - 2 * rest) // (2 * layer_bytes)))
-    if n32 < 2:
-        raise AssertionError(f"8B: {free / 2**30:.1f} GiB free holds no fp32 copy")
-    q16, cfg32 = first_layers(p16, cfg, n32)
-    p32 = _cast_tree(q16, torch.float32)
+    p32, cfg32 = _cast_tree(p16, torch.float32), cfg
     images = model.process_images(synthetic_images(4, 11))
     prompt = torch.tensor([PROMPT_IDS] * 4, device=dev)
 
@@ -3457,13 +3971,13 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
                                   policy=policy, last_logits_only=True, kernels=kernels)[0]
 
     ref32 = prefill_logits(p32, f32, False)
-    logits = {k: prefill_logits(q16, bf16, k) for k in (True, False)}
+    logits = {k: prefill_logits(p16, bf16, k) for k in (True, False)}
     err_k = (logits[True] - ref32).abs().max().item()
     err_p = (logits[False] - ref32).abs().max().item()
     if not torch.isfinite(logits[True]).all() or err_k > 2.0 * err_p + 1e-3:
         raise AssertionError(f"8B bf16 prefill logits: kernels {err_k:.3e} from fp32, over twice "
                              f"the plain version's {err_p:.3e}")
-    log("8b", f"bf16, B=4, {n32} of {L} layers: prefill last-position logits from the fp32 plain "
+    log("8b", f"bf16, B=4, {depth}: prefill last-position logits from the fp32 plain "
               f"logits (max |logit| {ref32.abs().max().item():.3e}): kernels {err_k:.4e}, plain "
               f"{err_p:.4e} (bound: kernels <= 2 x plain + 1e-3)")
     del logits, ref32
@@ -3476,8 +3990,6 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     if not torch.equal(ids[True], ids[False]):
         raise AssertionError(f"8B fp32 greedy ids differ:\n{ids[True].tolist()}\n"
                              f"{ids[False].tolist()}")
-    depth = (f"{n32} of {L} layers ({'full depth' if n32 == L else 'the layers whose fp32 copy '
-             'fits'}; {free / 2**30:.1f} GiB was free)")
     log("8b", f"fp32, B=2, 32 tokens, {depth}: greedy ids with the kernels == with the plain "
               f"attention ({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
 
@@ -3489,11 +4001,15 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
                                                           policy=model.policy, device=dev),
                          p32, cfg32, dev, depth)
     decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth)
+    t_pipe = time.perf_counter()
+    pipe_8b = pipelined_8b(tfa, model, cfg, p16, p32, cfg32, dev, card, depth)
+    log("phase", f"6 (StarVector-8B pipelined generation) took "
+                 f"{time.perf_counter() - t_pipe:.0f} s")
     t_6d = time.perf_counter()
     serve_8b = serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card, depth)
     log("phase", f"6d (StarVector-8B continuous-batching serving) took "
                  f"{time.perf_counter() - t_6d:.0f} s")
-    del m32, p32, q16
+    del m32, p32
     torch.cuda.empty_cache()
 
     # the window at full width: 2 layers, a prefix past 4096 keys, fp32
@@ -3538,9 +4054,9 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
         profile_request(request, card, profile_dir, "8b")
     e2e = e2e["8B bf16"]
     out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(p16),
-               serve=serve_8b)
+               serve=serve_8b, pipelined=pipe_8b)
     del request, served, t2s
-    out["int8"] = int8_slice_8b(model, tfa, cfg, p16, dev, card, e2e, profile_dir)
+    out["int8"] = int8_slice_8b(model, tfa, cfg, p16, dev, card, e2e, depth, profile_dir)
     del model, p16
     gc.collect()
     torch.cuda.empty_cache()
@@ -3548,8 +4064,8 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
 
 
 def decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth: str) -> None:
-    """Phase 6's decoding variants on the 8B's bf16 tree (full width and
-    depth) and its fp32 copy (cfg32's depth, told by `depth`): beam search,
+    """Phase 6's decoding variants on the 8B's bf16 tree (full width,
+    `depth`) and its fp32 copy: beam search,
     num_beams=2 at B=1 through the API (flash_prefill once a layer over
     B x K = 2 rows, decode_attention at G = 9 once a layer a step), fp32 ids
     kernels == plain; speculative decoding at B=1 and B=4 through the API
@@ -3596,17 +4112,103 @@ def decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth: str) -> None:
                        model.process_images(four), torch.tensor([PROMPT_IDS] * 4, device=dev))
 
 
-def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict,
+PIPE_8B_NEW = 32  # new tokens of the 8B's checked pipelined runs
+
+
+def pipelined_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> dict:
+    """Phase 6's offline pipelined generation on the 8B's bf16 tree (full
+    width, `depth`) and its fp32 copy:
+    StarCoder2 has no fused forward, so each step is the cached decode
+    forward (kernel 2 at G = 9) and then the next prompt's chunk through the
+    chunk step. 2 batches of B=2 im2svg prefixes, 32 greedy new tokens
+    (C = 19): fp32 ids and lengths equal per-batch generate's and the plain
+    attention's; bf16 launches exactly a flash_prefill a layer (batch 0)
+    and a decode_attention a layer a decode step; generate_pipelined_spec
+    raises the port's NotImplementedError; then tokens/s of serial
+    per-batch generate and generate_pipelined in turns (a, b, b, a) at 3
+    batches of B=4, 128 new tokens. Returns the bf16 launches and the
+    rates."""
+    from starvector_tpu_torch.generation import engine, speculative
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    L = cfg.llm.num_hidden_layers
+    f32, bf16 = DTypePolicy(torch.float32, torch.float32), model.policy
+
+    def prefixes(params, c, policy, n, B, seed):
+        out = []
+        for i in range(n):
+            x = model.process_images(synthetic_images(B, seed + i))
+            prompt = torch.tensor([PROMPT_IDS] * B, device=dev)
+            out.append(engine.im2svg_prefix(params, c, x, prompt, policy=policy))
+        return out
+
+    def gen(n):
+        return engine.GenerationConfig(max_new_tokens=n, do_sample=False,
+                                       stop_sequences=STOP_IDS, eos_token_id=None,
+                                       pad_token_id=0)
+
+    d32, d16 = p32["svg_transformer"], p16["svg_transformer"]
+    b32 = prefixes(p32, cfg32, f32, 2, 2, 71)
+    out = engine.generate_pipelined(d32, cfg32.llm, b32, gen(PIPE_8B_NEW), policy=f32)
+    same_ids("8B pipelined fp32 against per-batch generate", out,
+             [engine.generate(d32, cfg32.llm, e, m, gen(PIPE_8B_NEW), policy=f32)
+              for e, m in b32])
+    same_ids("8B pipelined fp32, kernels against plain", out,
+             engine.generate_pipelined(d32, cfg32.llm, b32, gen(PIPE_8B_NEW), policy=f32,
+                                       kernels=False))
+    P = b32[0][0].shape[1]
+    C, n_chunks = engine._chunk_plan(P, PIPE_8B_NEW, None)
+    del b32
+    b16 = prefixes(p16, cfg, bf16, 2, 2, 71)
+    reset_counts(tfa)
+    out = engine.generate_pipelined(d16, cfg.llm, b16, gen(PIPE_8B_NEW), policy=bf16)
+    steps = pipelined_steps(out, n_chunks)
+    got = expect_counts("8B pipelined bf16", read_counts(tfa), flash_prefill=L,
+                        decode_attention=L * steps["decode"])
+    log("pipelined", f"8B generate_pipelined, 2 batches of B=2 prefixes of {P} tokens, "
+                     f"{PIPE_8B_NEW} new tokens, C={C} ({n_chunks} chunks; no fused forward: "
+                     f"each step the decode forward, then the chunk step): fp32, {depth}: ids and "
+                     f"lengths == per-batch generate's and == the plain attention's; bf16: "
+                     f"launches flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0), "
+                     f"decode_attention (G = 9) {got['decode_attention']} = {L} x "
+                     f"{steps['decode']} decode steps")
+    e, m = b16[0]
+    ids = torch.full(m.shape, -1, dtype=torch.int64, device=dev)
+    try:
+        speculative.generate_pipelined_spec(d16, cfg.llm, [(e, m, ids)] * 2, gen(4), policy=bf16)
+    except NotImplementedError as err:
+        log("pipelined", f"8B generate_pipelined_spec raises NotImplementedError: {err}")
+    else:
+        raise AssertionError("8B generate_pipelined_spec ran without a fused verify forward")
+    b16 = prefixes(p16, cfg, bf16, 3, 4, 81)
+    runs = {"serial generate": lambda: [engine.generate(d16, cfg.llm, e, m, gen(128), policy=bf16)
+                                        for e, m in b16],
+            "generate_pipelined": lambda: engine.generate_pipelined(d16, cfg.llm, b16, gen(128),
+                                                                    policy=bf16)}
+    rates = {k: [] for k in runs}
+    for label in list(runs) + list(runs)[::-1]:
+        res, wall = timed(runs[label])
+        rates[label].append(sum(float(l.sum()) for _, l in res) / wall)
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log("times", f"{card}: 8B offline, {depth}, 3 batches of B=4 "
+                 f"prefixes of {P} tokens, 128 greedy tokens, bf16, in turns (a, b, b, a), "
+                 f"emitted tokens / wall: "
+                 + "; ".join(f"{k} {med[k]:.1f} tokens/s ({[round(x, 1) for x in v]})"
+                             for k, v in rates.items())
+                 + f"; pipelined / serial {med['generate_pipelined'] / med['serial generate']:.3f}")
+    return dict(launches=got, rates=med)
+
+
+def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict, depth: str,
                   profile_dir: Path | None = None) -> dict:
     """StarVector-8B with int8 decoder weights and an int8 KV cache at full
-    width and depth: quantize_tree on the bf16 decoder, consuming it (each
-    bf16 leaf goes once its codes exist, so the two trees never coexist
-    beyond one leaf); requests of 4 images and of 1, greedy, 128 new
-    tokens, with
-    exact launch counts (192 = 6 x 32 kernel-14 calls a prefill, on the
-    tile, and a decode step, on the GEMV; 32 flash_prefill a prefill over
-    the dequantized window; 32 int8-cache decode_attention a step); fp32
-    compute at full depth over the same codes (the rest cast to fp32),
+    width and phase 6's `depth`: quantize_tree on the bf16 decoder,
+    consuming it (each bf16 leaf goes once its codes exist, so the two trees
+    never coexist beyond one leaf); requests of 4 images and of 1, greedy,
+    128 new tokens, with exact launch counts (6 kernel-14 calls a layer a prefill, on the
+    tile, and a decode step, on the GEMV; a flash_prefill a layer a prefill
+    over the dequantized window; an int8-cache decode_attention a layer a
+    step); fp32 compute over the same codes (the rest cast to fp32),
     kernels vs plain: greedy ids with an fp32 KV cache, and teacher-forced
     logits with the int8 cache (see below); weights and a request's peak
     above them; p50 and B=4 tokens/s beside the bf16 figures of the same
@@ -3635,7 +4237,7 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict,
                                    for leaf in leaves.values()):
         raise AssertionError(f"8B int8: quantize_tree took {sorted(leaves)}")
     log("8b-int8", f"quantize_tree on the 8B decoder in {secs:.1f} s, consuming it: the six "
-                   f"projections a layer ({', '.join(leaves)}) as int8 codes with (32, N) fp32 "
+                   f"projections a layer ({', '.join(leaves)}) as int8 codes with ({L}, N) fp32 "
                    f"scales and their biases; decoder {decoder16 / 2**30:.2f} -> "
                    f"{tree_bytes(q8['svg_transformer']) / 2**30:.2f} GiB, all weights "
                    f"{tree_bytes(q8) / 2**30:.2f} GiB; peak {peak / 2**30:.2f} GiB above the "
@@ -3663,13 +4265,13 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict,
         raise AssertionError(f"8B int8 launches {got}, expected {expected}")
     log("8b-int8", f"requests of 4 images and of 1, greedy, 128 new tokens: decode steps {steps}, "
                    f"lengths {[l.tolist() for _, l, _ in served]}; launches quant_matmul "
-                   f"{got['quant_matmul']} = 192 x (2 prefills + {n} decode steps) (wgmma tile "
+                   f"{got['quant_matmul']} = {6 * L} x (2 prefills + {n} decode steps) (wgmma tile "
                    f"{got['quant_matmul_wgmma']} at M = 4 x 580 and 580, GEMV "
                    f"{got['quant_matmul_gemv']}), flash_prefill {got['flash_prefill']} = {L} x 2, "
                    f"int8-cache decode_attention {got['decode_attention_int8']} = {L} x {n}, no "
                    f"training kernel")
 
-    # fp32 compute over the same codes and scales, full depth. With an fp32
+    # fp32 compute over the same codes and scales. With an fp32
     # KV cache: greedy ids, kernels against plain. With the int8 cache the
     # two paths' fp32 sums, which differ only in order, round some k/v to
     # the next code, and each flip moves the next layer's inputs by a scale
@@ -3701,7 +4303,7 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict,
         raise AssertionError(f"8B int8 cache, fp32, teacher-forced: max |logit diff| "
                              f"{diff.max().item():.3e} (limit {INT8_CACHE_LOGIT_TOL}), argmax "
                              f"differs at {int((~agree & clear).sum())} clear steps")
-    log("8b-int8", f"fp32 compute over the same codes, B=2, 32 tokens, full depth ({L} layers): "
+    log("8b-int8", f"fp32 compute over the same codes, B=2, 32 tokens, {depth}: "
                    f"with an fp32 KV cache greedy ids with the kernels == with the plain versions "
                    f"({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row); with "
                    f"the int8 cache, fed the plain path's greedy ids: max |logit diff| per step "
@@ -4421,19 +5023,30 @@ def main() -> int:
                  {"bf16": p16, "int8": int8["params"]})
 
     # --- 4b. the decoding variants and GRPO -------------------------------------
-    phase("4b", "StarVector-1B decoding variants and GRPO")
+    # 4b's decoding variants, 4c and 4d on the first DEPTH_1B_EARLIER layers
+    # of phase 4's trees (GRPO builds its own, at full depth)
+    phase("4b", f"StarVector-1B decoding variants ({DEPTH_1B_EARLIER} of {L} layers) and GRPO")
     t_4b = time.perf_counter()
-    decoding_1b(tfa, model, cfg, p16, p32, int8["params"], dev, card)
-    phase("4c", "StarVector-1B continuous-batching serving")
+    s16, cfg_cut = first_layers(p16, cfg, DEPTH_1B_EARLIER)
+    s32, sq16 = (first_layers(t, cfg, DEPTH_1B_EARLIER)[0] for t in (p32, int8["params"]))
+    decoding_1b(tfa, StarVectorForCausalLM(s16, cfg_cut, policy=bf16, device=dev), cfg_cut, s16,
+                s32, sq16, dev, card)
+    phase("4c", f"StarVector-1B continuous-batching serving, {DEPTH_1B_EARLIER} of {L} layers")
     t_4c = time.perf_counter()
-    serve_1b = serving_1b(tfa, cfg, p16, p32, int8["params"], dev, card, args.profile)
+    serve_1b = serving_1b(tfa, cfg_cut, s16, s32, sq16, dev, card, args.profile)
     t_4c = time.perf_counter() - t_4c
     log("phase", f"4c took {t_4c:.0f} s")
-    phase("4d", "StarVector-1B eval harness")
+    phase("4d", f"StarVector-1B eval harness, {DEPTH_1B_EARLIER} of {L} layers")
     t_4d = time.perf_counter()
-    eval1b = eval_1b(tfa, cfg, p16, p32, dev, card)
+    eval1b = eval_1b(tfa, cfg_cut, s16, s32, dev, card)
     t_4d = time.perf_counter() - t_4d
     log("phase", f"4d took {t_4d:.0f} s")
+    del s16, s32, sq16
+    phase("4e", "StarVector-1B offline pipelined generation")
+    t_4e = time.perf_counter()
+    pipe_1b = pipelined_1b(tfa, cfg, p16, p32, int8["params"], dev, card, args.profile)
+    t_4e = time.perf_counter() - t_4e
+    log("phase", f"4e took {t_4e:.0f} s")
     if args.profile is not None:
         profile_request(request, card, args.profile)
         profile_request(int8["request"], card, args.profile, "int8")
@@ -4445,7 +5058,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     grpo_phase(sv, tfa, cfg, dev, card)
-    log("phase", f"4b took {time.perf_counter() - t_4b - t_4c - t_4d:.0f} s (4c and 4d apart)")
+    log("phase", f"4b took {time.perf_counter() - t_4b - t_4c - t_4d - t_4e:.0f} s (4c, 4d and "
+                 f"4e apart)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4462,7 +5076,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 6. StarVector-8B inference at full width ---------------------------------
-    phase(6, "StarVector-8B inference")
+    phase(6, f"StarVector-8B inference, {DEPTH_8B} of 32 layers")
     s8 = slice_8b(sv, tfa, dev, card, args.profile)
 
     # --- 6b. StarVector-8B training at full width, 8 layers -------------------------
@@ -4505,7 +5119,9 @@ def main() -> int:
                              ms=times[1], plain_ms=times[0], bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib,
                              serve_launches=serve_1b["launches"]["flash_prefill"],
-                             eval_launches=eval1b["launches"]["flash_prefill"]))
+                             eval_launches=eval1b["launches"]["flash_prefill"],
+                             pipelined_launches=pipe_1b["launches"]["bf16"]["flash_prefill"],
+                             pipelined_spec_launches=pipe_1b["launches"]["spec"]["flash_prefill"]))
     decode = decode_times(tfa, dc, dev, card)
     for label, name, launches, err in (
             ("bf16", "decode_attention", n_decode, err_decode),
@@ -4515,6 +5131,8 @@ def main() -> int:
                                  replaces="starvector_tpu/ops/flash_attention.py:2049",
                                  launches=launches, max_abs_err=err, **decode[label],
                                  serve_launches=serve_1b["launches"][name],
+                                 pipelined_launches=pipe_1b["launches"][
+                                     "bf16" if label == "bf16" else "int8 KV"][name],
                                  **({"eval_launches": eval1b["launches"][name]}
                                     if name in eval1b["launches"] else {})))
     qmm = quant_matmul_times(tq, dev, card)
@@ -4524,7 +5142,10 @@ def main() -> int:
                                  replaces="starvector_tpu/ops/quantization.py:139",
                                  launches=int8_counts[count], max_abs_err=err_qmm[path],
                                  **qmm[path],
-                                 serve_launches=serve_1b["launches"][f"quant_matmul_{path}"]))
+                                 serve_launches=serve_1b["launches"][f"quant_matmul_{path}"],
+                                 pipelined_launches=pipe_1b["launches"][
+                                     "int8 weights + int8 KV"][count],
+                                 **({"m144": qmm["tile_m144"]} if path == "tile" else {})))
 
     kernels_json += training_times(tfa, dev, card, train, err_train)
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)

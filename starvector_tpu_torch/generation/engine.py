@@ -13,9 +13,18 @@ the filled cache, the last logits and the prompt's presence table n times
 HF's expand order, and the decode steps run at B x n rows.
 
 Beam search (beam.py), prompt-lookup speculative decoding
-(speculative.py) and GRPO rollouts (train/grpo.py) build on these pieces.
-The JAX package's generate_pipelined and generate_pipelined_spec raise
-NotImplementedError here (ROADMAP queue 1, item 7).
+(speculative.py) and GRPO rollouts (train/grpo.py) build on these pieces;
+`BatchSampler` is the per-token choice and stop test that generate and the
+pipelined loop share.
+
+Offline pipelined generation over a stream of same-shaped batches,
+generate_pipelined: batch k + 1's left-padded prompt is prefilled C
+positions a step inside batch k's decode steps, so batch k + 1 starts
+decoding when batch k ends. GPTBigCode fuses each step into one forward
+(forward_decode_with_chunk: kernel 2 for the decode row, the chunk step's
+attention for the chunk, the projections shared); StarCoder2 has none (nor
+has the JAX package) and runs the decode forward and then the chunk step.
+Its speculative counterpart, generate_pipelined_spec, is in speculative.py.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.models import starvector as sv
@@ -75,6 +85,73 @@ def stop_hit(tokens: torch.Tensor, t: int, new_tok: torch.Tensor, stops: list[to
     return hit
 
 
+def prompt_presence(gen: GenerationConfig, B: int, V: int, device,
+                    prompt_ids: torch.Tensor | None) -> torch.Tensor | None:
+    """The repetition penalty's (B, V) presence table, the prompt's ids set
+    (JAX presence_for); None without a penalty."""
+    if gen.repetition_penalty == 1.0:
+        return None
+    presence = torch.zeros((B, V), dtype=torch.int32, device=device)
+    if prompt_ids is not None:
+        presence.scatter_(1, prompt_ids.long().to(device), 1)
+    return presence
+
+
+class BatchSampler:
+    """One batch's token choice and stops, step by step (the JAX loops'
+    body, shared by generate and generate_pipelined): the min-new-tokens eos
+    mask, sample_token with the presence table, penalty counts and logit
+    bias, pad tokens for rows that are done, and stop_hit. Holds tokens
+    (B, n), lengths (B,) and done (B,)."""
+
+    def __init__(self, gen: GenerationConfig, B: int, V: int, device,
+                 presence: torch.Tensor | None, generator: torch.Generator | None):
+        self.gen, self.generator, self.presence = gen, generator, presence
+        n = gen.max_new_tokens
+        use_freq = gen.frequency_penalty != 0.0 or gen.presence_penalty != 0.0
+        self.counts = torch.zeros((B, V), dtype=torch.int32, device=device) if use_freq else None
+        self.bias_ids = self.bias_vals = None
+        if gen.logit_bias:
+            self.bias_ids = torch.tensor([[t for t, _ in gen.logit_bias]] * B, device=device)
+            self.bias_vals = torch.tensor([[v for _, v in gen.logit_bias]] * B, device=device)
+        self.tokens = torch.full((B, n), gen.pad_token_id, dtype=torch.int64, device=device)
+        self.done = torch.zeros(B, dtype=torch.bool, device=device)
+        self.lengths = torch.full((B,), n, dtype=torch.int64, device=device)
+        self.stops = [torch.tensor(s, dtype=torch.int64, device=device)
+                      for s in gen.stop_sequences]
+
+    def step(self, t: int, logits: torch.Tensor) -> torch.Tensor:
+        """Token t of every row (B,) from its logits (B, V); records it."""
+        gen = self.gen
+        if gen.eos_token_id is not None and t < gen.min_new_tokens:
+            logits = logits.clone()
+            logits[:, gen.eos_token_id] = NEG_INF
+        nxt = sample_token(
+            logits, do_sample=gen.do_sample, temperature=gen.temperature, top_p=gen.top_p,
+            top_k=gen.top_k, min_p=gen.min_p, presence=self.presence,
+            repetition_penalty=gen.repetition_penalty if self.presence is not None else None,
+            counts=self.counts, frequency_penalty=gen.frequency_penalty,
+            presence_penalty=gen.presence_penalty, bias_ids=self.bias_ids,
+            bias_vals=self.bias_vals, max_top_k=gen.max_top_k, generator=self.generator,
+        )
+        nxt = torch.where(self.done, torch.full_like(nxt, gen.pad_token_id), nxt)
+        newly_done = stop_hit(self.tokens, t, nxt, self.stops, gen.eos_token_id,
+                              gen.max_new_tokens) & ~self.done
+        self.lengths = torch.where(newly_done, torch.full_like(self.lengths, t + 1), self.lengths)
+        self.tokens[:, t] = nxt
+        if self.presence is not None:
+            self.presence.scatter_(1, nxt[:, None], 1)
+        if self.counts is not None:
+            self.counts.scatter_add_(1, nxt[:, None], (~self.done).to(torch.int32)[:, None])
+        self.done |= newly_done
+        return nxt
+
+
+def _check_top_k(gen: GenerationConfig) -> None:
+    if gen.top_k > gen.max_top_k:
+        raise ValueError(f"top_k={gen.top_k} exceeds max_top_k={gen.max_top_k}")
+
+
 @torch.no_grad()
 def generate(
     params: dict,
@@ -96,76 +173,52 @@ def generate(
     (default: the compute dtype); torch.int8 stores it as codes with
     per-(position, head) scales, as the JAX generate's
     `kv_cache_dtype=jnp.int8`."""
-    if gen.top_k > gen.max_top_k:
-        raise ValueError(f"top_k={gen.top_k} exceeds max_top_k={gen.max_top_k}")
+    _check_top_k(gen)
     dec = decoder_module(llm_cfg)
     B, P, _ = inputs_embeds.shape
     V = llm_cfg.vocab_size
     device = inputs_embeds.device
     n = gen.max_new_tokens
     n_rep = gen.num_return_sequences
-
-    use_rep = gen.repetition_penalty != 1.0
-    use_freq = gen.frequency_penalty != 0.0 or gen.presence_penalty != 0.0
-    presence = torch.zeros((B, V), dtype=torch.int32, device=device) if use_rep else None
-    if use_rep and prompt_ids is not None:
-        presence.scatter_(1, prompt_ids.long().to(device), 1)
-
-    cache = dec.init_cache(llm_cfg, B, P + n, dtype=kv_cache_dtype or policy.compute_dtype,
-                           device=device)
-    logits, cache = dec.forward(params, llm_cfg, inputs_embeds, attention_mask=attention_mask,
-                                cache=cache, policy=policy, last_logits_only=True,
-                                kernels=kernels)
-    last_logits = logits[:, -1]
+    presence = prompt_presence(gen, B, V, device, prompt_ids)
+    last_logits, cache = _prefill_full(params, llm_cfg, inputs_embeds, attention_mask, P + n,
+                                       policy, kernels, kv_cache_dtype)
     if n_rep > 1:
         # one prefill per distinct row; its cache serves the row's n samples
         last_logits = last_logits.repeat_interleave(n_rep, dim=0)
         cache = dc.tile_rows(cache, n_rep)
-        if use_rep:
+        if presence is not None:
             presence = presence.repeat_interleave(n_rep, dim=0)
         B *= n_rep
 
-    counts = torch.zeros((B, V), dtype=torch.int32, device=device) if use_freq else None
-    bias_ids = bias_vals = None
-    if gen.logit_bias:
-        bias_ids = torch.tensor([[t for t, _ in gen.logit_bias]] * B, device=device)
-        bias_vals = torch.tensor([[v for _, v in gen.logit_bias]] * B, device=device)
-
-    tokens = torch.full((B, n), gen.pad_token_id, dtype=torch.int64, device=device)
-    done = torch.zeros(B, dtype=torch.bool, device=device)
-    lengths = torch.full((B,), n, dtype=torch.int64, device=device)
+    sampler = BatchSampler(gen, B, V, device, presence, generator)
     ones = torch.ones((B, 1), dtype=torch.int32, device=device)
-    stops = [torch.tensor(s, dtype=torch.int64, device=device) for s in gen.stop_sequences]
     for t in range(n):
-        lg = last_logits
-        if gen.eos_token_id is not None and t < gen.min_new_tokens:
-            lg = lg.clone()
-            lg[:, gen.eos_token_id] = NEG_INF
-        nxt = sample_token(
-            lg, do_sample=gen.do_sample, temperature=gen.temperature, top_p=gen.top_p,
-            top_k=gen.top_k, min_p=gen.min_p, presence=presence,
-            repetition_penalty=gen.repetition_penalty if use_rep else None,
-            counts=counts, frequency_penalty=gen.frequency_penalty,
-            presence_penalty=gen.presence_penalty, bias_ids=bias_ids, bias_vals=bias_vals,
-            max_top_k=gen.max_top_k, generator=generator,
-        )
-        nxt = torch.where(done, torch.full_like(nxt, gen.pad_token_id), nxt)
-        newly_done = stop_hit(tokens, t, nxt, stops, gen.eos_token_id, n) & ~done
-        lengths = torch.where(newly_done, torch.full_like(lengths, t + 1), lengths)
-        tokens[:, t] = nxt
-        if use_rep:
-            presence.scatter_(1, nxt[:, None], 1)
-        if use_freq:
-            counts.scatter_add_(1, nxt[:, None], (~done).to(torch.int32)[:, None])
-        done |= newly_done
+        nxt = sampler.step(t, last_logits)
         # the last token needs no forward; neither does a batch that is done
-        if t == n - 1 or bool(done.all()):
+        if t == n - 1 or bool(sampler.done.all()):
             break
         embeds = dec.embed_tokens(params, nxt[:, None]).to(policy.compute_dtype)
         step_logits, cache = dec.forward(params, llm_cfg, embeds, attention_mask=ones,
                                          cache=cache, policy=policy, kernels=kernels)
         last_logits = step_logits[:, -1]
-    return tokens, lengths
+    return sampler.tokens, sampler.lengths
+
+
+def _prefill_full(params: dict, llm_cfg, inputs_embeds: torch.Tensor,
+                  attention_mask: torch.Tensor, max_len: int, policy: DTypePolicy, kernels: bool,
+                  kv_cache_dtype) -> tuple[torch.Tensor, dict]:
+    """A batch's whole prompt through the cached forward into a new cache
+    of max_len slots (kv_cache_dtype, else the compute dtype). Returns (the
+    last position's logits (B, V) fp32, the cache)."""
+    dec = decoder_module(llm_cfg)
+    cache = dec.init_cache(llm_cfg, inputs_embeds.shape[0], max_len,
+                           dtype=kv_cache_dtype or policy.compute_dtype,
+                           device=inputs_embeds.device)
+    logits, cache = dec.forward(params, llm_cfg, inputs_embeds, attention_mask=attention_mask,
+                                cache=cache, policy=policy, last_logits_only=True,
+                                kernels=kernels)
+    return logits[:, -1], cache
 
 
 def im2svg_prefix(params: dict, cfg: sv.StarVectorConfig, images: torch.Tensor,
@@ -221,14 +274,150 @@ def generate_text2svg(
                     kv_cache_dtype=kv_cache_dtype)
 
 
-def generate_pipelined(*args, **kwargs):
-    """The JAX package's generate_pipelined (the next batch's prefill
-    riding the current batch's decode steps): not ported."""
-    raise NotImplementedError("generate_pipelined is not ported yet (ROADMAP queue 1, item 7)")
+# ---------------------------------------------------------------------------
+# offline pipelined generation: the next batch's prompt prefilled a chunk
+# at a time inside the current batch's decode steps
+# ---------------------------------------------------------------------------
+
+def _chunk_plan(P: int, max_new_tokens: int, chunk_positions: int | None) -> tuple[int, int]:
+    """(C, n_chunks) of generate_pipelined: the prompt spread over the
+    decode steps, at least 4 positions a step; a chunk size that would need
+    more chunks than steps is re-derived by the rule."""
+    C = chunk_positions or max(4, -(-P // max_new_tokens))
+    n_chunks = -(-P // C)
+    if n_chunks > max_new_tokens:
+        C = max(4, -(-P // max_new_tokens))
+        n_chunks = -(-P // C)
+    return C, n_chunks
 
 
-def generate_pipelined_spec(*args, **kwargs):
-    """The JAX package's generate_pipelined_spec (generate_pipelined with
-    speculative verify rounds): not ported."""
-    raise NotImplementedError(
-        "generate_pipelined_spec is not ported yet (ROADMAP queue 1, item 7)")
+def pad_time(x: torch.Tensor, width: int, value=0, left: bool = True) -> torch.Tensor:
+    """x (B, S[, E]) padded with `value` on its second axis to `width`.
+    Raises ValueError where S > width (F.pad would crop the prompt)."""
+    d = width - x.shape[1]
+    if d < 0:
+        raise ValueError(f"a prompt of {x.shape[1]} positions does not fit in {width}")
+    if d == 0:
+        return x
+    pad = (d, 0) if left else (0, d)
+    return F.pad(x, (0, 0) * (x.ndim - 2) + pad, value=value)
+
+
+def _decode_overlap(params: dict, llm_cfg, cache: dict, last_logits: torch.Tensor,
+                    presence: torch.Tensor | None, nxt: tuple | None, gen: GenerationConfig,
+                    generator, C: int, n_chunks: int, policy: DTypePolicy, kernels: bool,
+                    kv_cache_dtype):
+    """Decode the current batch (prefilled into `cache`, its first logits
+    `last_logits`) while chunk-prefilling the next one, nxt = (embeds
+    (B, Pn, E), mask (B, Pn)) left-padded to n_chunks x C, or None for the
+    last batch. Step t samples token t; then, while a row is live and t <
+    max_new_tokens - 1, a decode forward, and while t < n_chunks, chunk t
+    of the next prompt: one fused forward where the decoder has one
+    (forward_decode_with_chunk), else the cached decode forward and then
+    the chunk through the cached forward (the chunk step for C <= 64). A
+    step whose batch is done writes its chunk alone. The next batch's
+    logits are the final chunk's last position (every row's last real
+    token: the prompts are left-padded).
+
+    Returns (tokens, lengths, the next batch's cache, its logits (B, V));
+    the last two None for the last batch."""
+    dec = decoder_module(llm_cfg)
+    B, V = last_logits.shape
+    device = last_logits.device
+    n = gen.max_new_tokens
+    fused = getattr(dec, "forward_decode_with_chunk", None)
+    next_cache = next_last = None
+    if nxt is not None:
+        next_embeds, next_mask = nxt
+        next_cache = dec.init_cache(llm_cfg, B, next_embeds.shape[1] + n,
+                                    dtype=kv_cache_dtype or policy.compute_dtype, device=device)
+    n_steps = n_chunks if nxt is not None else 0  # steps that carry a chunk
+    sampler = BatchSampler(gen, B, V, device, presence, generator)
+    ones = torch.ones((B, 1), dtype=torch.int32, device=device)
+    for t in range(n):
+        tok = sampler.step(t, last_logits)
+        decode = t < n - 1 and not bool(sampler.done.all())
+        if not decode and t >= n_steps:
+            break
+        embeds = dec.embed_tokens(params, tok[:, None]).to(policy.compute_dtype)
+        if t < n_steps:
+            ce = policy.cast(next_embeds[:, t * C:(t + 1) * C])
+            cm = next_mask[:, t * C:(t + 1) * C]
+            final = t == n_chunks - 1
+        if decode and t < n_steps and fused is not None:
+            last_logits, cache, chunk_last, next_cache = fused(
+                params, llm_cfg, embeds, cache, ce, cm, next_cache, policy=policy,
+                kernels=kernels, chunk_logits=final)
+        else:
+            if decode:
+                step_logits, cache = dec.forward(params, llm_cfg, embeds, attention_mask=ones,
+                                                 cache=cache, policy=policy, kernels=kernels)
+                last_logits = step_logits[:, -1]
+            if t < n_steps:
+                out, next_cache = dec.forward(params, llm_cfg, ce, attention_mask=cm,
+                                              cache=next_cache, policy=policy, kernels=kernels,
+                                              return_hidden=not final, last_logits_only=True)
+                chunk_last = out[:, -1]
+        if t < n_steps and final:
+            next_last = chunk_last
+    return sampler.tokens, sampler.lengths, next_cache, next_last
+
+
+@torch.no_grad()
+def generate_pipelined(
+    params: dict,
+    llm_cfg,                # GPTBigCodeConfig or StarCoder2Config
+    batches: list,          # [(inputs_embeds (B, P, E), attention_mask (B, P))], left-padded
+    gen: GenerationConfig,
+    generator: torch.Generator | None = None,
+    *,
+    prompt_ids: list | None = None,  # per batch (B, P), for the repetition penalty
+    policy: DTypePolicy = DTypePolicy(),
+    chunk_positions: int | None = None,
+    kernels: bool = True,
+    kv_cache_dtype: torch.dtype | None = None,
+) -> list:
+    """Generate over a stream of same-shaped batches, batch k + 1's prompt
+    written into its cache C positions a decode step of batch k, so that
+    its decoding starts when batch k's ends (the JAX generate_pipelined).
+    C = chunk_positions, else max(4, ceil(P / max_new_tokens)); each prompt
+    is left-padded to n_chunks x C. Batch 0 prefills whole. Every batch's
+    sampling and stops are generate's (BatchSampler), so each batch gives
+    what `generate` gives on the same left-padded batch, up to the
+    arithmetic of the chunked prefill and the fused steps' M = B x (1 + C)
+    rows. StarVector-1B's GPTBigCode fuses each step's decode and chunk into
+    one forward; StarCoder2 has no fused forward (in either package) and
+    runs the two forwards. `kv_cache_dtype=torch.int8` stores both caches
+    as codes and scales. Returns [(tokens, lengths), ...], generate's
+    per-batch result."""
+    if gen.num_return_sequences != 1:
+        raise ValueError("generate_pipelined supports num_return_sequences=1")
+    if not batches:
+        return []
+    _check_top_k(gen)
+    B, P, _ = batches[0][0].shape
+    V = llm_cfg.vocab_size
+    n = gen.max_new_tokens
+    C, n_chunks = _chunk_plan(P, n, chunk_positions)
+    Pn = n_chunks * C
+
+    def padded(i):
+        embeds, mask = batches[i]
+        return pad_time(embeds, Pn), pad_time(mask, Pn)
+
+    widths = [embeds.shape[1] for embeds, _ in batches]
+    if max(widths) > Pn:  # before any forward, not at the batch that overflows
+        raise ValueError(f"prompt widths {widths} exceed the {Pn} positions batch 0's fixes")
+    e0, m0 = padded(0)
+    last_logits, cache = _prefill_full(params, llm_cfg, e0, m0, Pn + n, policy, kernels,
+                                       kv_cache_dtype)
+    out = []
+    for i in range(len(batches)):
+        nxt = padded(i + 1) if i + 1 < len(batches) else None
+        presence = prompt_presence(gen, B, V, e0.device,
+                                   None if prompt_ids is None else torch.as_tensor(prompt_ids[i]))
+        tokens, lengths, cache, last_logits = _decode_overlap(
+            params, llm_cfg, cache, last_logits, presence, nxt, gen, generator, C, n_chunks,
+            policy, kernels, kv_cache_dtype)
+        out.append((tokens, lengths))
+    return out

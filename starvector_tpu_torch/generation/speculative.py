@@ -28,13 +28,19 @@ verify's top-1 logit leads the top-2 by at least that much.
   commits its own accepted count (decode_common.commit_verify), and a done
   row commits nothing.
 Both return n_forwards, the decoder forwards run (the prefill included).
+* generate_pipelined_spec, offline over a stream of same-shaped batches:
+  generate_greedy_speculative_batched's rounds (RaggedRows) with a chunk
+  of the next batch's right-padded prompt fused into each round
+  (forward_ragged_verify_with_chunk, GPTBigCode only); batch 0 is
+  prefilled and adopted as a ragged cache by _spec_prefill_adopt, the
+  adoption generate_greedy_speculative_batched also runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from starvector_tpu_torch.generation.engine import decoder_module
+from starvector_tpu_torch.generation.engine import decoder_module, pad_time
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.ops.layers import DTypePolicy, matmul_f32
 
@@ -171,6 +177,101 @@ def generate_greedy_speculative(
     return tokens[:, :max_new_tokens], torch.tensor([length], device=device), n_fwd
 
 
+def _greedy_head(params: dict, llm_cfg, h: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
+    """The greedy token (B,) of final hidden states h (B, E): one head
+    projection, fp32 logits from the fp32 accumulator."""
+    dec = decoder_module(llm_cfg)
+    return matmul_f32(policy.cast(h), policy.cast(dec.lm_head_table(params, llm_cfg)).T
+                      ).argmax(dim=-1)
+
+
+def _as_ragged(cache: dict, lengths: torch.Tensor) -> dict:
+    """A prefilled linear cache of right-padded rows adopted as a ragged
+    cache, in place: each row's keys at [0, length)."""
+    del cache["index"]
+    cache["lengths"] = lengths.to(torch.int32)
+    return cache
+
+
+def _spec_prefill_adopt(params: dict, llm_cfg, inputs_embeds: torch.Tensor,
+                        attention_mask: torch.Tensor, total: int, policy: DTypePolicy,
+                        kernels: bool, kv_cache_dtype=None) -> tuple[dict, torch.Tensor]:
+    """Prefill a right-padded batch into a linear cache of `total` slots
+    and adopt it as a ragged cache (lengths = the rows' prompt lengths),
+    with each row's pending token, the greedy continuation of its last
+    prompt position (the JAX _spec_prefill_adopt_jit; the start of
+    generate_greedy_speculative_batched and of generate_pipelined_spec).
+    Returns (cache, pending (B,))."""
+    dec = decoder_module(llm_cfg)
+    B = inputs_embeds.shape[0]
+    cache = dec.init_cache(llm_cfg, B, total, dtype=kv_cache_dtype or policy.compute_dtype,
+                           device=inputs_embeds.device)
+    h, cache = dec.forward(params, llm_cfg, inputs_embeds, attention_mask=attention_mask,
+                           cache=cache, policy=policy, return_hidden=True, kernels=kernels)
+    n_prompt = attention_mask.sum(dim=1, dtype=torch.int32)
+    rows = torch.arange(B, device=h.device)
+    pending = _greedy_head(params, llm_cfg, h[rows, torch.clamp(n_prompt - 1, min=0).long()],
+                          policy)
+    return _as_ragged(cache, n_prompt), pending
+
+
+class RaggedRows:
+    """Batched speculative decoding's per-row state over a ragged cache
+    (the loop body of generate_greedy_speculative_batched and of
+    generate_pipelined_spec's verify rounds): pending tokens, the draft context
+    ctx (B, Cx) of which n_ctx (B,) are filled, the emitted tokens (B,
+    max_new_tokens + K), each row's count t, done and lengths."""
+
+    def __init__(self, pending: torch.Tensor, ctx: torch.Tensor, n_ctx: torch.Tensor, *,
+                 max_new_tokens: int, draft_len: int, stop_sequences, eos_token_id,
+                 pad_token_id: int, accept_margin: float):
+        B = pending.shape[0]
+        device = pending.device
+        self.pending, self.ctx, self.n_ctx = pending, ctx, n_ctx
+        self.n, self.K = max_new_tokens, draft_len
+        self.stops, self.eos, self.pad = stop_sequences, eos_token_id, pad_token_id
+        self.accept_margin = accept_margin
+        self.tokens = torch.full((B, max_new_tokens + draft_len), pad_token_id,
+                                 dtype=torch.int64, device=device)
+        self.t = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.done = torch.zeros((B,), dtype=torch.bool, device=device)
+        self.lengths = torch.full((B,), max_new_tokens, dtype=torch.int64, device=device)
+
+    def live(self) -> bool:
+        return not bool(self.done.all())
+
+    def proposal(self) -> torch.Tensor:
+        """(B, K): [pending ‖ the looked-up draft]."""
+        return torch.cat([self.pending[:, None],
+                          _lookup_draft(self.ctx, self.n_ctx, self.pending, self.K)], dim=1)
+
+    def commit(self, cache: dict, proposal: torch.Tensor, logits: torch.Tensor) -> None:
+        """Take each live row's accepted prefix of `proposal` by the verify
+        logits (B, K, V): commit it in the ragged cache, emit it, find the
+        stops; a done row commits nothing."""
+        a, g = _accepted(proposal, logits, self.accept_margin)
+        a = torch.where(self.done, 0, a)
+        dc.commit_verify(cache, a)
+        t_new = _append_accepted(self.tokens, self.t, proposal, a)
+        self.n_ctx = _append_accepted(self.ctx, self.n_ctx, proposal, a)
+        rows = torch.arange(proposal.shape[0], device=proposal.device)
+        self.pending = torch.where(self.done, self.pending,
+                                   g[rows, torch.clamp(a - 1, 0, self.K - 1)])
+        upto = torch.clamp(t_new, max=self.n)
+        stop_at, fired = _find_stop_in(self.tokens, upto, self.stops, self.eos, self.n)
+        newly = (fired | (t_new >= self.n)) & ~self.done
+        self.lengths = torch.where(newly, torch.where(fired, stop_at, upto), self.lengths)
+        self.done |= newly
+        self.t = t_new
+
+    def result(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(tokens (B, max_new_tokens) pad-filled past each row's length,
+        lengths (B,))."""
+        tokens = self.tokens[:, :self.n]
+        keep = torch.arange(self.n, device=tokens.device)[None, :] < self.lengths[:, None]
+        return torch.where(keep, tokens, self.pad), self.lengths
+
+
 @torch.no_grad()
 def generate_greedy_speculative_batched(
     params: dict,
@@ -192,54 +293,171 @@ def generate_greedy_speculative_batched(
     row that accepts fast never waits on a slow one. The prefill runs on a
     linear cache (right padding keeps each row's keys contiguous from 0),
     its hidden state read at each row's last prompt token; the cache then
-    becomes ragged with lengths = the rows' prompt lengths. The draft's
-    context is prompt_ids' whole width per row. Returns (tokens (B,
-    max_new_tokens) pad-filled past each row's length, lengths (B,),
-    n_forwards)."""
+    becomes ragged with lengths = the rows' prompt lengths
+    (_spec_prefill_adopt). The draft's context is prompt_ids' whole
+    width per row. Returns (tokens (B, max_new_tokens) pad-filled past each
+    row's length, lengths (B,), n_forwards)."""
     dec = decoder_module(llm_cfg)
     B, P, _ = inputs_embeds.shape
     K = draft_len
-    total = P + max_new_tokens + K + 1
     device = inputs_embeds.device
-    rows = torch.arange(B, device=device)
-
-    cache = dec.init_cache(llm_cfg, B, total, dtype=policy.compute_dtype, device=device)
-    h, cache = dec.forward(params, llm_cfg, inputs_embeds, attention_mask=attention_mask,
-                           cache=cache, policy=policy, return_hidden=True, kernels=kernels)
-    n_prompt = attention_mask.sum(dim=1, dtype=torch.int32)
-    h_last = h[rows, torch.clamp(n_prompt - 1, min=0).long()]
-    pending = matmul_f32(policy.cast(h_last), policy.cast(
-        dec.lm_head_table(params, llm_cfg)).T).argmax(dim=-1)       # (B,)
-    del cache["index"]
-    cache["lengths"] = n_prompt
-
+    cache, pending = _spec_prefill_adopt(params, llm_cfg, inputs_embeds, attention_mask,
+                                         P + max_new_tokens + K + 1, policy, kernels)
     Pi = prompt_ids.shape[1]
     ctx = torch.full((B, Pi + max_new_tokens + K), -1, dtype=torch.int64, device=device)
     ctx[:, :Pi] = prompt_ids
-    n_ctx = torch.full((B,), Pi, dtype=torch.int64, device=device)
-    tokens = torch.full((B, max_new_tokens + K), pad_token_id, dtype=torch.int64, device=device)
-    t = torch.zeros((B,), dtype=torch.int64, device=device)
-    done = torch.zeros((B,), dtype=torch.bool, device=device)
-    lengths = torch.full((B,), max_new_tokens, dtype=torch.int64, device=device)
+    state = RaggedRows(pending, ctx, torch.full((B,), Pi, dtype=torch.int64, device=device),
+                       max_new_tokens=max_new_tokens, draft_len=K,
+                       stop_sequences=stop_sequences, eos_token_id=eos_token_id,
+                       pad_token_id=pad_token_id, accept_margin=accept_margin)
     n_fwd = 1
-    while not bool(done.all()):
-        proposal = torch.cat([pending[:, None], _lookup_draft(ctx, n_ctx, pending, K)], dim=1)
+    while state.live():
+        proposal = state.proposal()
         lg, cache = dec.forward_ragged_verify(params, llm_cfg, proposal, cache, policy=policy,
                                               kernels=kernels)
         n_fwd += 1
-        a, g = _accepted(proposal, lg, accept_margin)
-        a = torch.where(done, 0, a)
-        dc.commit_verify(cache, a)
-        t_new = _append_accepted(tokens, t, proposal, a)
-        n_ctx = _append_accepted(ctx, n_ctx, proposal, a)
-        pending = torch.where(done, pending, g[rows, torch.clamp(a - 1, 0, K - 1)])
-        upto = torch.clamp(t_new, max=max_new_tokens)
-        stop_at, fired = _find_stop_in(tokens, upto, stop_sequences, eos_token_id,
-                                       max_new_tokens)
-        newly = (fired | (t_new >= max_new_tokens)) & ~done
-        lengths = torch.where(newly, torch.where(fired, stop_at, upto), lengths)
-        done |= newly
-        t = t_new
-    tokens = tokens[:, :max_new_tokens]
-    keep = torch.arange(max_new_tokens, device=device)[None, :] < lengths[:, None]
-    return torch.where(keep, tokens, pad_token_id), lengths, n_fwd
+        state.commit(cache, proposal, lg)
+    return (*state.result(), n_fwd)
+
+
+# ---------------------------------------------------------------------------
+# pipelined + speculative: batched prompt-lookup verify rounds with a chunk
+# of the next batch's prompt in every round
+# ---------------------------------------------------------------------------
+
+def _spec_overlap(params: dict, llm_cfg, rag: dict, pending: torch.Tensor, ctx: torch.Tensor,
+                  n_ctx: torch.Tensor, nxt: tuple | None, *, max_new_tokens: int,
+                  draft_len: int, stop_sequences, eos_token_id, pad_token_id: int, C: int,
+                  n_chunks: int, total: int, policy: DTypePolicy, kernels: bool,
+                  kv_cache_dtype, accept_margin: float):
+    """Speculative verify rounds over the current batch (ragged cache
+    `rag`, pending tokens, draft context ctx / n_ctx) with chunk r of the
+    next prompt, nxt = (embeds (B, Pn, E), mask (B, Pn)) right-padded, fused
+    into round r (forward_ragged_verify_with_chunk); rounds past the last
+    chunk verify alone (forward_ragged_verify). Each row captures its last
+    prompt position's hidden state when it lands in a chunk. Chunks left
+    when every row is done run through the cached forward alone. Returns
+    (tokens, lengths, the next batch's ragged cache, its pending tokens,
+    rounds run, the chunk-only ones included); the next two None for the
+    last batch."""
+    dec = decoder_module(llm_cfg)
+    B = pending.shape[0]
+    device = pending.device
+    rows = torch.arange(B, device=device)
+    state = RaggedRows(pending, ctx, n_ctx, max_new_tokens=max_new_tokens, draft_len=draft_len,
+                       stop_sequences=stop_sequences, eos_token_id=eos_token_id,
+                       pad_token_id=pad_token_id, accept_margin=accept_margin)
+    n_steps = n_chunks if nxt is not None else 0
+    if nxt is not None:
+        next_embeds, next_mask = nxt
+        cache_next = dec.init_cache(llm_cfg, B, total,
+                                    dtype=kv_cache_dtype or policy.compute_dtype, device=device)
+        n_prompt = next_mask.sum(dim=1, dtype=torch.int32)
+        h_last = torch.zeros((B, next_embeds.shape[2]), dtype=policy.compute_dtype,
+                             device=device)
+
+    def capture(h_chunk, r):
+        """Keep each row's hidden state at its last prompt position if chunk r holds it."""
+        off = n_prompt - 1 - r * C
+        hit = (off >= 0) & (off < C)
+        h_sel = h_chunk[rows, torch.clamp(off, 0, C - 1).long()].to(h_last.dtype)
+        return torch.where(hit[:, None], h_sel, h_last)
+
+    r = 0
+    while state.live():
+        proposal = state.proposal()
+        if r < n_steps:
+            ce = policy.cast(next_embeds[:, r * C:(r + 1) * C])
+            cm = next_mask[:, r * C:(r + 1) * C]
+            lg, rag, h_chunk, cache_next = dec.forward_ragged_verify_with_chunk(
+                params, llm_cfg, proposal, rag, ce, cm, cache_next, policy=policy,
+                kernels=kernels)
+            h_last = capture(h_chunk, r)
+        else:
+            lg, rag = dec.forward_ragged_verify(params, llm_cfg, proposal, rag, policy=policy,
+                                                kernels=kernels)
+        state.commit(rag, proposal, lg)
+        r += 1
+    # the chunks left once every row is done, without the verify side
+    while r < n_steps:
+        ce = policy.cast(next_embeds[:, r * C:(r + 1) * C])
+        h_chunk, cache_next = dec.forward(params, llm_cfg, ce,
+                                          attention_mask=next_mask[:, r * C:(r + 1) * C],
+                                          cache=cache_next, policy=policy, return_hidden=True,
+                                          kernels=kernels)
+        h_last = capture(h_chunk, r)
+        r += 1
+    tokens, lengths = state.result()
+    if nxt is None:
+        return tokens, lengths, None, None, r
+    return (tokens, lengths, _as_ragged(cache_next, n_prompt),
+            _greedy_head(params, llm_cfg, h_last, policy), r)
+
+
+@torch.no_grad()
+def generate_pipelined_spec(
+    params: dict,
+    llm_cfg,          # GPTBigCodeConfig (StarCoder2 only for a single batch)
+    batches: list,    # [(embeds (B, P, E), mask (B, P), prompt_ids (B, P))], right-padded,
+                      # prompt_ids -1 where a position has no id
+    gen: GenerationConfig,
+    *,
+    policy: DTypePolicy = DTypePolicy(),
+    draft_len: int = 8,
+    chunk_positions: int | None = None,
+    kv_cache_dtype: torch.dtype | None = None,
+    accept_margin: float = 0.0,
+    stats: list | None = None,
+    kernels: bool = True,
+) -> list:
+    """Greedy generation over a stream of same-shaped batches: batched
+    prompt-lookup speculation (speculative.generate_greedy_speculative_
+    batched's rounds over a ragged cache) with C = chunk_positions, else
+    max(8, ceil(2 P / max_new_tokens)), positions of the next batch's
+    prompt prefilled in each verify round through the same pass over the
+    layers (the JAX generate_pipelined_spec). Rows are right-padded to
+    n_chunks x C. `stats` gets each batch's rounds (verify rounds and
+    chunk-only ones). Returns [(tokens, lengths), ...] as `generate`.
+
+    Greedy only (ValueError otherwise). StarCoder2 has no fused verify and
+    chunk forward in the JAX package either, so a stream of more than one
+    StarCoder2 batch raises NotImplementedError."""
+    if gen.do_sample:
+        raise ValueError("generate_pipelined_spec is greedy-only (do_sample=False); use "
+                         "generate_pipelined for sampled decoding")
+    if not batches:
+        return []
+    dec = decoder_module(llm_cfg)
+    if len(batches) > 1 and not hasattr(dec, "forward_ragged_verify_with_chunk"):
+        raise NotImplementedError(
+            f"generate_pipelined_spec: {dec.__name__.rsplit('.', 1)[-1]} has no fused verify and "
+            f"chunk forward (the JAX package has none for StarCoder2 either); run one batch at a "
+            f"time, or generate_pipelined")
+    B, P, _ = batches[0][0].shape
+    n, K = gen.max_new_tokens, draft_len
+    C = chunk_positions or max(8, -(-2 * P // n))
+    n_chunks = -(-P // C)
+    Pn = n_chunks * C
+    total = Pn + n + K + 1
+    CTX = Pn + n + K
+
+    padded = [(pad_time(embeds, Pn, left=False), pad_time(mask, Pn, left=False),
+               pad_time(torch.as_tensor(ids).long().to(embeds.device), Pn, value=-1, left=False))
+              for embeds, mask, ids in batches]
+    e0, m0, _ = padded[0]
+    rag, pending = _spec_prefill_adopt(params, llm_cfg, policy.cast(e0), m0, total, policy,
+                                       kernels, kv_cache_dtype)
+    out = []
+    for i, (_, _, ids) in enumerate(padded):
+        nxt = padded[i + 1][:2] if i + 1 < len(batches) else None
+        tokens, lengths, rag, pending, rounds = _spec_overlap(
+            params, llm_cfg, rag, pending, pad_time(ids, CTX, value=-1, left=False),
+            torch.full((B,), Pn, dtype=torch.int64, device=e0.device), nxt,
+            max_new_tokens=n, draft_len=K, stop_sequences=gen.stop_sequences,
+            eos_token_id=gen.eos_token_id, pad_token_id=gen.pad_token_id, C=C,
+            n_chunks=n_chunks, total=total, policy=policy, kernels=kernels,
+            kv_cache_dtype=kv_cache_dtype, accept_margin=accept_margin)
+        if stats is not None:
+            stats.append(rounds)
+        out.append((tokens, lengths))
+    return out

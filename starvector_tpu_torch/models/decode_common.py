@@ -254,11 +254,19 @@ def decode_scan(layers: dict, cache: dict, x: torch.Tensor, layer_fn):
         x, kn, vn = layer_fn(layer_slice(layers, i), x, cache["k"][i], cache["v"][i], *scales)
         ks.append(kn)
         vs.append(vn)
+    return x, emitted_kv(ks, vs, quant)
+
+
+def emitted_kv(ks: list, vs: list, quant: bool) -> dict:
+    """The layers' emitted k/v (one tensor a layer) stacked on a leading
+    layer axis for the write after the layers: {"k", "v"} or, for an int8
+    cache (`quant`), codes with their scales (quantize_kv, per token and
+    head)."""
     k, v = torch.stack(ks), torch.stack(vs)
     if not quant:
-        return x, {"k": k, "v": v}
+        return {"k": k, "v": v}
     (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
-    return x, {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+    return {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
 
 
 def write_new_kv_linear(cache: dict, news: dict, idx: int) -> None:

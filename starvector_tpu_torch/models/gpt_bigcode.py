@@ -36,6 +36,14 @@ tokens at its own positions through the chunk step's attention. Both take
 the slots any row may see as host integers (`key_bounds`), so a step makes
 no host transfer; without them they read the bounds from `lengths`.
 
+The offline pipelined engine (generation/engine.py::generate_pipelined and
+generate_pipelined_spec) runs two fused forwards: `forward_decode_with_chunk`
+(a decode step of the current batch and a chunk of the next batch's prompt)
+and `forward_ragged_verify_with_chunk` (a speculative verify and a chunk),
+each one pass over the layers with the projections shared by both row
+groups; the decode half is kernel 2, the chunk and the verify the chunk
+step's attention.
+
 Without a cache, `forward` is the training forward: each layer's attention
 is `flash_prefill_trainable` (the forward-with-lse kernel and the backward
 pair behind one autograd Function), with activation checkpointing per
@@ -413,6 +421,188 @@ def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
     x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
     return matmul_f32(policy.cast(x), policy.cast(params["wte"]).T), cache
+
+
+def _cached_slots(layer_cache: dict, t: int) -> tuple:
+    """(k, v, k_scale, v_scale) of a layer's cache over the slots [0, t);
+    the scales None for a bf16/fp32 cache."""
+    return tuple(layer_cache[key][:, :t] if key in layer_cache else None
+                 for key in dc.PAYLOAD_KEYS)
+
+
+def _chunk_side(params: dict, cfg: GPTBigCodeConfig, cache_next: dict,
+                chunk_embeds: torch.Tensor, chunk_mask: torch.Tensor, policy: DTypePolicy):
+    """The next batch's chunk in a fused forward, as forward's cached branch
+    derives it: positions from the mask (pads at 1) after the real tokens
+    the cache holds, the chunk's mask written at the cache's index. Returns
+    (x (B, C, E) with wpe added, the mask of the cached slots before the
+    chunk, the chunk's mask (B, C) int32)."""
+    idx = cache_next["index"]
+    C = chunk_embeds.shape[1]
+    if idx + C > cache_next["k"].shape[2]:
+        raise ValueError(f"cache of {cache_next['k'].shape[2]} slots cannot take {C} tokens "
+                         f"at index {idx}")
+    chunk_mask = chunk_mask.to(torch.int32)
+    prev = cache_next["kv_mask"].sum(dim=-1, dtype=torch.int32)
+    pos = prev[:, None] + compute_position_ids(chunk_mask)
+    pos = torch.where(chunk_mask == 0, torch.ones_like(pos), pos)
+    cache_next["kv_mask"][:, idx:idx + C] = chunk_mask
+    x = policy.cast(chunk_embeds) + policy.cast(
+        params["wpe"][torch.clamp(pos, 0, cfg.n_positions - 1)])
+    return x, cache_next["kv_mask"][:, :idx], chunk_mask
+
+
+def _fused_scan(params: dict, cfg: GPTBigCodeConfig, x: torch.Tensor, W: int, cache: dict,
+                attend, cache_next: dict, old_mask_c: torch.Tensor, chunk_mask: torch.Tensor,
+                policy: DTypePolicy, kernels: bool):
+    """The fused forwards' layer loop over x (B, W + C, E): each layer's
+    LayerNorms and projections run once over all rows (one weight read, the
+    point of fusing; kernel 14 for a quantized leaf); rows [0, W) attend by
+    `attend(q (B, W, Hkv, G, D), k, v (B, W, Hkv, D), layer cache) ->
+    (B, W, H*D)` over `cache`, rows [W, W + C), the next batch's chunk,
+    through merged_verify_attention over the first index slots of
+    cache_next (`old_mask_c`) and causally over the chunk's real keys.
+    Returns (x, the W rows' emitted k/v, the chunk's), each stacked over
+    the layers for the write after them (decode_common.emitted_kv)."""
+    H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
+    idx_c = cache_next["index"]
+    quant = "k_scale" in cache
+    ka, va, kc, vc = [], [], [], []
+    for i in range(cfg.n_layer):
+        p = layer_slice(params["layers"], i)
+        hh = layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon)
+        q, k, v = _split_qkv(cfg, dense(p["attn"]["c_attn"], hh, policy, kernels=kernels))
+        q = q.unflatten(-1, (Hkv, H // Hkv, D))
+        k, v = k.unflatten(-1, (Hkv, D)), v.unflatten(-1, (Hkv, D))
+        out_a = attend(q[:, :W], k[:, :W], v[:, :W], dc.layer_cache(cache, i))
+        k_c, v_c, ks, vs = _cached_slots(dc.layer_cache(cache_next, i), idx_c)
+        out_c = dc.merged_verify_attention(q[:, W:].movedim(1, 3), k[:, W:], v[:, W:], k_c, v_c,
+                                           old_mask_c, D**-0.5, ks, vs, new_mask=chunk_mask)
+        x = x + dense(p["attn"]["c_proj"], torch.cat([out_a, out_c], dim=1), policy,
+                      kernels=kernels)
+        x = _mlp(p, cfg, x, policy, kernels)
+        ka.append(k[:, :W])
+        va.append(v[:, :W])
+        kc.append(k[:, W:])
+        vc.append(v[:, W:])
+    return x, dc.emitted_kv(ka, va, quant), dc.emitted_kv(kc, vc, quant)
+
+
+def _check_cache_types(cache: dict, cache_next: dict, what: str) -> None:
+    if ("k_scale" in cache) != ("k_scale" in cache_next):
+        raise ValueError(f"fused {what}+chunk: cache dtypes must match")
+
+
+def forward_decode_with_chunk(
+    params: dict,
+    cfg: GPTBigCodeConfig,
+    dec_embeds: torch.Tensor,    # (B, 1, E) the next token's embeds (wpe added here)
+    cache: dict,                 # the current batch's linear cache
+    chunk_embeds: torch.Tensor,  # (B, C, E) a chunk of the next batch's prompt
+    chunk_mask: torch.Tensor,    # (B, C)
+    cache_next: dict,            # the next batch's linear cache, being prefilled
+    *,
+    policy: DTypePolicy = DTypePolicy(),
+    kernels: bool = True,
+    chunk_logits: bool = True,
+):
+    """One pass over the layers that decodes the current batch and
+    prefills a chunk of the next batch's prompt (the JAX
+    forward_decode_with_chunk; generation/engine.py::generate_pipelined):
+    the projections run once over the (B, 1 + C) rows. The decode row
+    attends through kernel 2 (merged_decode_attention) over the cache's
+    first index slots plus itself, as a decode step; the chunk through
+    the chunk step's merged_verify_attention (plain PyTorch) over the next
+    cache. Positions and masks as forward's cached branch derives them.
+    With int8 caches (both, or ValueError) the new k/v are quantized on
+    write. Both caches are written in place, their indices advanced by 1
+    and C.
+
+    Returns (decode logits (B, V) fp32, cache, the chunk's last-position
+    logits (B, V) fp32 (JAX's chunk_logits[:, -1], the only position the
+    engine reads; None unless `chunk_logits`), cache_next)."""
+    _check_cache_types(cache, cache_next, "decode")
+    D = cfg.head_dim
+    idx = cache["index"]
+    if idx + 1 > cache["k"].shape[2]:
+        raise ValueError(f"cache of {cache['k'].shape[2]} slots cannot take 1 token at index {idx}")
+    pos = cache["kv_mask"].sum(dim=-1, dtype=torch.int32)[:, None]
+    cache["kv_mask"][:, idx] = 1
+    old_mask = cache["kv_mask"][:, :idx]
+    x_d = policy.cast(dec_embeds) + policy.cast(
+        params["wpe"][torch.clamp(pos, 0, cfg.n_positions - 1)])
+    x_c, old_mask_c, chunk_mask = _chunk_side(params, cfg, cache_next, chunk_embeds, chunk_mask,
+                                              policy)
+
+    def attend(q, k, v, layer_cache):
+        k_c, v_c, ks, vs = _cached_slots(layer_cache, idx)
+        return merged_decode_attention(q[:, 0], k[:, 0], v[:, 0], k_c, v_c, old_mask, D**-0.5,
+                                       ks, vs, kernels=kernels)
+
+    x, news, news_c = _fused_scan(params, cfg, torch.cat([x_d, x_c], dim=1), 1, cache, attend,
+                                  cache_next, old_mask_c, chunk_mask, policy, kernels)
+    dc.write_new_kv_linear_multi(cache, news, idx)
+    dc.write_new_kv_linear_multi(cache_next, news_c, cache_next["index"])
+    cache["index"] = idx + 1
+    cache_next["index"] += chunk_embeds.shape[1]
+    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    table = policy.cast(params["wte"]).T
+    dec_logits = matmul_f32(policy.cast(x[:, 0]), table)
+    last = matmul_f32(policy.cast(x[:, -1]), table) if chunk_logits else None
+    return dec_logits, cache, last, cache_next
+
+
+def forward_ragged_verify_with_chunk(
+    params: dict,
+    cfg: GPTBigCodeConfig,
+    token_ids: torch.Tensor,     # (B, W) [pending token ‖ drafts]
+    cache: dict,                 # the current batch's ragged cache
+    chunk_embeds: torch.Tensor,  # (B, C, E) a chunk of the next batch's prompt
+    chunk_mask: torch.Tensor,    # (B, C) right-padded rows: 1 = a real token
+    cache_next: dict,            # the next batch's linear cache, being prefilled
+    *,
+    policy: DTypePolicy = DTypePolicy(),
+    kernels: bool = True,
+):
+    """One pass over the layers that verifies the current batch's W-token
+    proposals (forward_ragged_verify: each row at its own positions, the
+    chunk's k/v written at lengths + [0, W), lengths and kv_mask left for
+    decode_common.commit_verify) and prefills a chunk of the next batch's
+    prompt into its linear cache (the JAX forward_ragged_verify_with_chunk;
+    generation/engine.py::generate_pipelined_spec). The projections run
+    once over the (B, W + C) rows; both attentions are
+    merged_verify_attention, int8 scales folded in as in
+    forward_ragged_verify (both caches int8, or ValueError); the verify
+    side reads the slots below the longest row (from `lengths`).
+
+    Returns (verify logits (B, W, V) fp32, cache, the chunk's final hidden
+    states (B, C, E) after ln_f (the caller projects only the positions it
+    needs), cache_next with its index advanced by C)."""
+    _check_cache_types(cache, cache_next, "verify")
+    W = token_ids.shape[1]
+    D = cfg.head_dim
+    positions = cache["lengths"][:, None] + torch.arange(W, device=token_ids.device)[None, :]
+    x_v = policy.cast(embed_tokens(params, token_ids)) + policy.cast(
+        params["wpe"][torch.clamp(positions, 0, cfg.n_positions - 1)])
+    T = cache["k"].shape[2]
+    t_hi = dc.ragged_key_bounds(cache, None)[1]
+    old_mask = cache["kv_mask"][:, :t_hi]
+    x_c, old_mask_c, chunk_mask = _chunk_side(params, cfg, cache_next, chunk_embeds, chunk_mask,
+                                              policy)
+
+    def attend(q, k, v, layer_cache):
+        k_c, v_c, ks, vs = _cached_slots(layer_cache, t_hi)
+        return dc.merged_verify_attention(q.movedim(1, 3), k, v, k_c, v_c, old_mask, D**-0.5,
+                                          ks, vs)
+
+    x, news, news_c = _fused_scan(params, cfg, torch.cat([x_v, x_c], dim=1), W, cache, attend,
+                                  cache_next, old_mask_c, chunk_mask, policy, kernels)
+    dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
+    dc.write_new_kv_linear_multi(cache_next, news_c, cache_next["index"])
+    cache_next["index"] += chunk_embeds.shape[1]
+    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    logits = matmul_f32(policy.cast(x[:, :W]), policy.cast(params["wte"]).T)
+    return logits, cache, x[:, W:], cache_next
 
 
 def lm_head_table(params: dict, cfg: GPTBigCodeConfig) -> torch.Tensor:

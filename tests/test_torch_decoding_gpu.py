@@ -8,8 +8,9 @@ The model is a tiny GPTBigCode with the 1B's attention geometry (16 query
 heads over one KV head of 128: the kernels take D = 128 and decode G = 16),
 2 layers, an MLP of 512 and 512 ids, projections scaled by 3, fp32 (the
 kernels' fp32 versions against the plain ones: the same ids). Covered:
-beam search at K = 2 (every step a decode over B x K rows reordered by
-parent), num_return_sequences = 3 over int8 weights and an int8 cache
+generate_pipelined over 3 batches (fp32 and int8 caches), beam search at
+K = 2 (every step a decode over B x K rows reordered by parent),
+num_return_sequences = 3 over int8 weights and an int8 cache
 (kernel 2's int8 instantiation over the tiled codes and scales, kernel 14's
 GEMV at M = B x 3), B = 1 and batched speculative decoding, and one GRPO
 loss and its decoder gradients through the training kernels (loss 1e-5
@@ -108,6 +109,26 @@ def test_speculative_kernels_match_plain_greedy(cuda, params):
     tokens, lengths, _ = speculative.generate_greedy_speculative_batched(
         params, LLM, emb, mask, ids, max_new_tokens=NEW, draft_len=4, policy=F32)
     assert torch.equal(tokens, greedy) and (lengths == NEW).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, torch.int8])
+def test_pipelined_kernels_match_plain(cuda, params, kv):
+    """generate_pipelined over 3 batches: batch 0's prefill through kernel
+    1, every step's decode half through kernel 2 (over an fp32 or an int8
+    cache) inside the fused decode+chunk forward."""
+    batches = [_prefix(params, 2, seed)[:2] for seed in range(3)]
+    gen = engine.GenerationConfig(max_new_tokens=NEW, do_sample=False)
+    out = {}
+    for kernels in (True, False):
+        before = _launches()
+        out[kernels] = engine.generate_pipelined(params, LLM, batches, gen, policy=F32,
+                                                 kernels=kernels, kv_cache_dtype=kv)
+        after = _launches()
+        assert (after[0] > before[0] and after[1] > before[1]) == kernels
+        assert (after[2] > before[2]) == (kernels and kv is not None)
+    for (a, la), (b, lb) in zip(out[True], out[False]):
+        assert torch.equal(a, b) and torch.equal(la, lb)
 
 
 @pytest.mark.gpu

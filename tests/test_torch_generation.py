@@ -175,8 +175,3 @@ def test_api_num_return_sequences_matches_jax_api():
     prompt, tokens, lengths = port.generate_im2svg_ids({"image": images}, **kw)
     assert prompt.shape[0] == tokens.shape[0] == lengths.shape[0] == 4
 
-
-def test_pipelined_generation_is_not_ported():
-    for fn in (tengine.generate_pipelined, tengine.generate_pipelined_spec):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-            fn()

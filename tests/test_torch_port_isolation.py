@@ -45,7 +45,8 @@ def test_training_and_from_pretrained_leave_jax_out(tmp_path):
     targets name starvector_tpu.data.*), 2 steps, then from_pretrained
     (quantize=True) on a tiny HF-layout checkpoint and a short im2svg and
     text2svg generation, beam search and speculative decoding, then one
-    GRPOTrainer step on the fp32 checkpoint, in one fresh process: neither
+    GRPOTrainer step on the fp32 checkpoint and generate_pipelined and
+    generate_pipelined_spec over two batches, in one fresh process: neither
     jax nor starvector_tpu gets imported."""
     import jax
 
@@ -90,6 +91,14 @@ def test_training_and_from_pretrained_leave_jax_out(tmp_path):
                                                 reward_resolution=32))
         out = trainer.step(batch["image"], [np.zeros((32, 32, 3), np.uint8)] * 2)
         assert out["step"] == 1 and np.isfinite(out["loss"]), out
+        from starvector_tpu_torch.generation import engine, speculative
+        dec, llm = model.params["svg_transformer"], model.cfg.llm
+        ids = torch.tensor([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]])
+        stream = [(dec["wte"][ids], torch.ones(ids.shape, dtype=torch.int32), ids)] * 2
+        gen = engine.GenerationConfig(max_new_tokens=3, do_sample=False)
+        for out in (engine.generate_pipelined(dec, llm, [b[:2] for b in stream], gen),
+                    speculative.generate_pipelined_spec(dec, llm, stream, gen, draft_len=3)):
+            assert len(out) == 2 and out[1][0].shape == (2, 3), out
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
         assert not leaked, leaked
         print("clean")
