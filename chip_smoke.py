@@ -3,7 +3,10 @@
 num_return_sequences, speculative decoding, continuous-batching serving
 (the engine, its REST worker and controller), the eval harness (the
 in-process and REST validators, LPIPS-VGG and InceptionV3), offline
-pipelined generation, GRPO and training, and StarVector-8B im2svg
+pipelined generation, the other vision towers (vqgan, convnext, open-clip,
+SigLIP at 512 and 256) behind the 1B decoder, GRPO and training, the
+entry points (both quickstarts, the web UI, the GRPO driver), and
+StarVector-8B im2svg
 inference (bf16, and int8 weights with an int8 KV cache), text2svg, beam
 search, speculative decoding, pipelined generation, serving and training,
 on one NVIDIA H100, end to end through the hand-written kernels.
@@ -41,7 +44,8 @@ Phases, one line each (any failure raises and exits non-zero):
      an int8 cache, with the int8 P-rounding case) and flash_prefill at
      H=36 Hkv=4 with the window (B=4 S=T=580; B=1 S=1024 at q_offset 7168 of
      T=8192), kernel 14 at the six 8B projections' four shapes (M = 1, 4,
-     580, 2320), fp32 and bf16, bf16 bit for bit on relaunch
+     580, 2320), fp32 and bf16, bf16 bit for bit on relaunch; flash_prefill
+     and decode at phase 4f's prefix lengths, B=2, S=T in {51, 198, 1026}
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -130,10 +134,19 @@ Phases, one line each (any failure raises and exits non-zero):
      prompts (fp32 ids == generate_pipelined's
      and per-batch generate's; bf16 rounds, tokens a round, launches: kernel
      1 for batch 0 only, no kernel 2); tokens/s of serial generate,
-     generate_pipelined and its int8 KV in turns; a fused step against
+     generate_pipelined and its int8 KV, one run each (two rounds in turns
+     until PR 16); a fused step against
      the unfused pair (the decode forward, then the chunk step), 10 pairs
      of 8-step blocks in alternating order (with --profile DIR, a fused
      step's and a decode-only step's wall against device time)
+  4f. the other vision towers behind phase 4's 1B decoder (all 24 layers):
+     vqgan, convnext and open-clip at 224, siglip_512 and siglip_256, each
+     at its stock geometry with seeded random tower and adapter weights: the
+     bf16 tower forward within TOWER_REL_TOL of fp32 and both timed at B=2;
+     bf16 greedy generate_im2svg_ids at B=2, 32 tokens, launches exactly 24
+     flash_prefill at S = qlen + 2 (none at convnext's 51: the chunk step)
+     and 24 decode_attention a step; fp32 greedy ids kernels == plain on
+     the first 8 layers, 16 tokens
   5. training at full 1B width (fp32 masters, bf16 compute, dots_flash
      remat, AdamW): 8 steps of the port's train loop on one synthetic batch
      (T = 257 + 512 = 769), loss falling, 24 launches per step of each
@@ -143,8 +156,21 @@ Phases, one line each (any failure raises and exits non-zero):
      export_hf_checkpoint into a temporary directory (the reference HF
      layout), back through models/builder.py's load_pretrained_model at
      fp32: fp32 greedy ids for 2 images equal those of the in-memory
-     weights, with flash_prefill and decode_attention launched; the
-     directory is then deleted
+     weights, with flash_prefill and decode_attention launched
+  5c. the entry points on 5b's directory (bf16, all 24 layers):
+     quickstart.main (one image, 64 tokens, stdout captured: the SVG it
+     prints, 24 flash_prefill, 24 decode_attention a step, its load and
+     generation seconds); quickstart_serve.serve_images on the model it
+     loaded (4 images, 128 tokens, every request done, 24 flash_prefill an
+     engine chunk and 24 decode_attention a step); the web UI over a
+     ModelWorker on 127.0.0.1 (one streamed im2svg request of 32 tokens
+     through /api/generate, one vote in votes.jsonl); the directory is
+     then deleted
+  5d. the GRPO driver, train.grpo.main, on configs/models/starvector-1b/
+     im2svg-grpo.yaml at full 1B width and depth (ToySVGDataset at 224 px,
+     B=2, G=2, 64 tokens, 2 steps, a checkpoint at step 2): 2 steps logged,
+     checkpoint-2 restored to the trainer's parameters bit for bit, kernels
+     1, 2, 5 and 6 launched; its steps' seconds
   6. inference at full StarVector-8B width (StarCoder2-7B 4608 wide, GQA
      36/4, window 4096; SigLIP-L/16 at 384; LayerNorm adapter) and 8 of its
      32 decoder layers (DEPTH_8B) on random bf16 weights that
@@ -201,6 +227,7 @@ Phases, one line each (any failure raises and exits non-zero):
      M = 144, a fused step of phase 4e), the 1B and 8B
      train steps and the training kernels at the 8B's (S = T = 8192, H=36,
      Hkv=4, window 4096; dkdv at each head split beside the plan's pick),
+     flash_prefill at siglip_512's prefix (B=2, S=T=1026) beside SDPA,
      also the training kernels at the long contexts phase 3 drives (with
      --profile DIR, also where a decode step's and the 1B and 8B train
      steps' device time goes)
@@ -212,13 +239,17 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
+import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -451,6 +482,8 @@ def check_flash_prefill(tfa, dev) -> float:
         ("left-padded keys", 2, 64, 100, 16, 1, 0, None, 9),
         ("window=32", 2, 100, 100, 16, 1, 0, 32, 0),
         ("GQA Hkv=4", 2, 70, 70, 16, 4, 0, None, 0),
+        # phase 4f's prefixes: qlen + 2 prompt ids of convnext, vqgan, siglip_512
+        *((f"tower prefix S=T={S}", 2, S, S, 16, 1, 0, None, 0) for S in TOWER_PREFIXES),
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -475,8 +508,12 @@ def check_flash_prefill(tfa, dev) -> float:
     return worst
 
 
+# phase 4f's prefix lengths at B = 2: qlen + 2 prompt ids of convnext (49),
+# vqgan (196) and siglip_512 (1024); open-clip's and siglip_256's are 258
+TOWER_PREFIXES = (51, 198, 1026)
 # B, T; (16, 1152) is phase 4e's pipelined decode: B = 16, Pn 1024 + 128 new tokens
-DECODE_CHECKS = ((1, 1), (4, 300), (1, 1285), (8, 1285), (16, 1152), (4, 2049), (4, 4100))
+DECODE_CHECKS = ((1, 1), (4, 300), (1, 1285), (8, 1285), (16, 1152), (4, 2049), (4, 4100),
+                 *((2, T) for T in TOWER_PREFIXES))
 
 
 @functools.lru_cache(maxsize=1)
@@ -1502,6 +1539,32 @@ def decode_times(tfa, dc, dev, card: str) -> dict:
                 rows[label] = dict(ms=times[1], plain_ms=times[0], bound_ms=b_ms, bound_by=b_by,
                                    library_ms=lib)
     return rows
+
+
+def tower_prefix_times(tfa, dev, card: str, S: int = 1026) -> dict:
+    """flash_prefill (bf16) at siglip_512's im2svg prefix, B = 2, S = T =
+    1026 (1024 visual tokens and a 2-id prompt; phase 4f), H=16 Hkv=1,
+    against its plain version, its bound and SDPA (K/V expanded to the 16
+    heads), graph-replayed, in turns."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, D = 2, 16, 128
+    q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, 1, D), generator=g, device=dev).bfloat16() for _ in "kv")
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    plain_ms, ms = _turns(lambda: tfa.flash_prefill(q, k, v, mask, kernels=False),
+                          lambda: tfa.flash_prefill(q, k, v, mask))
+    lib = sdpa_ms(q.transpose(1, 2).contiguous(),
+                  *(t.transpose(1, 2).expand(B, H, S, D).contiguous() for t in (k, v)),
+                  causal=True)
+    nbytes = 2 * B * S * H * D * 2 + 2 * B * S * D * 2 + B * S * 4
+    flops = 4 * D * H * B * S * (S + 1) // 2
+    b_ms, b_by = bound(nbytes, flops)
+    log("times", f"{card}: flash_prefill B={B} S=T={S} H={H} Hkv=1 D={D} bf16 (siglip_512's "
+                 f"prefix): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                 f"{b_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                 f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), SDPA "
+                 f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
 
 def _sdpa_causal(S: int, T: int) -> dict:
@@ -3141,22 +3204,21 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     # pipelined speculative decoding
     spec = pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev)
 
-    # bf16, timed in turns beside the card; each kind's first run also
-    # gives its launches and ids
+    # bf16, timed once each, one after the other beside the card (one
+    # round since PR 16: two, in turns, took 213-228 s of the script's
+    # time); each run also gives its launches and ids
     runs = {"serial generate": lambda: serial(d16, batches16, bf16),
             "generate_pipelined": lambda: pipelined(d16, batches16, bf16),
             "generate_pipelined int8 KV": lambda: pipelined(d16, batches16, bf16, kv=torch.int8)}
-    rates, first = {k: [] for k in runs}, {}
-    for label in list(runs) + list(runs)[::-1]:
+    med, first = {}, {}
+    for label, run in runs.items():
         reset_counts(tfa)
-        out, wall = timed(runs[label])
-        first.setdefault(label, (out, read_counts(tfa)))
-        rates[label].append(sum(float(l.sum()) for _, l in out) / wall)
-    med = {k: statistics.median(v) for k, v in rates.items()}
+        out, wall = timed(run)
+        first[label] = (out, read_counts(tfa))
+        med[label] = sum(float(l.sum()) for _, l in out) / wall
     log("times", f"{card}: 1B offline, {PIPE_BATCHES} batches of B={PIPE_B}, P={PIPE_P}, "
-                 f"{PIPE_NEW} greedy tokens, bf16, in turns (a, b, c, c, b, a), emitted tokens "
-                 f"/ wall: " + "; ".join(f"{k} {med[k]:.1f} tokens/s "
-                                        f"({[round(x, 1) for x in v]})" for k, v in rates.items())
+                 f"{PIPE_NEW} greedy tokens, bf16, one run each (a, b, c), emitted tokens "
+                 f"/ wall: " + "; ".join(f"{k} {v:.1f} tokens/s" for k, v in med.items())
                  + f"; pipelined / serial {med['generate_pipelined'] / med['serial generate']:.3f}"
                  f", int8 KV / serial "
                  f"{med['generate_pipelined int8 KV'] / med['serial generate']:.3f}")
@@ -3437,6 +3499,111 @@ def serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> 
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the other vision towers behind the 1B decoder
+# ---------------------------------------------------------------------------
+
+TOWERS_4F = (("vqgan", 224), ("convnext", 224), ("open-clip", 224), ("siglip_512", 512),
+             ("siglip_256", 256))  # image_encoder_type, its stock image size
+TOWER_PROMPT = PROMPT_IDS[:2]  # so that S = qlen + 2: phase 3's TOWER_PREFIXES
+# the bf16 tower forward's relative L2 distance from the fp32 one: a few
+# bf16 steps (2^-8) compounded over a tower's layers
+TOWER_REL_TOL = 3e-2
+TOWER_NEW, TOWER_FP32_NEW = 32, 16
+
+
+def towers_1b(sv, tfa, dc, cfg, p16, p32, dev, card: str) -> dict:
+    """Phase 4f, on phase 4's 1B decoder (all 24 layers, its projections
+    scaled): each of vqgan, convnext, open-clip (224 px), siglip_512 and
+    siglip_256 at its stock geometry, with its tower and an adapter of its
+    width (256 / 1024 / 1024 / 768 / 768 -> 2048) drawn from a seeded
+    generator (sv.init_vision_params), 2 synthetic images through its own
+    processor:
+      * the bf16 tower forward within TOWER_REL_TOL (relative L2) of the
+        fp32 one; each one's device time at B = 2 (graph-replayed);
+      * bf16 greedy generate_im2svg_ids at B = 2, 32 new tokens, a 2-id
+        prompt: 24 flash_prefill at S = qlen + 2 (none for convnext's 51,
+        which is the chunk step's, as in the JAX package, S <= 64) and 24
+        decode_attention a decode step, exactly;
+      * fp32 greedy ids with the kernels equal those with the plain
+        attention on the first DEPTH_1B_EARLIER layers, 16 tokens.
+    Returns {tower: its launches and times}."""
+    import dataclasses
+
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.data.processor import processor_for_encoder
+    from starvector_tpu_torch.models import image_encoder
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    L = cfg.llm.n_layer
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    bf16 = DTypePolicy(torch.bfloat16, torch.bfloat16)
+    req = dict(prompt_ids=[TOWER_PROMPT] * 2, stop_sequences=STOP_IDS, use_nucleus_sampling=False)
+    out = {}
+    for i, (t, size) in enumerate(TOWERS_4F):
+        t0 = time.perf_counter()
+        tcfg = dataclasses.replace(cfg, image_encoder_type=t, image_size=size)
+        enc = tcfg.encoder_config
+        hidden, qlen = enc.geometry
+        v32 = sv.init_vision_params(tcfg, torch.Generator(device=dev).manual_seed(40 + i),
+                                    device=dev)
+        v16 = _cast_tree(v32, torch.bfloat16)
+        images = processor_for_encoder(t, size, device=dev).batch(synthetic_images(2, 40 + i))
+        fwd = {label: functools.partial(image_encoder.forward, v["image_encoder"], enc, images,
+                                        policy=policy)
+               for label, v, policy in (("fp32", v32, f32), ("bf16", v16, bf16))}
+        with torch.no_grad():
+            e32, e16 = fwd["fp32"](), fwd["bf16"]()
+            torch.cuda.synchronize()
+            if e32.shape != (2, qlen, hidden) or not torch.isfinite(e16).all():
+                raise AssertionError(f"4f {t}: tower output {tuple(e32.shape)}, finite "
+                                     f"{bool(torch.isfinite(e16).all())}")
+            rel = ((e16.float() - e32).norm() / e32.norm()).item()
+            if rel > TOWER_REL_TOL:
+                raise AssertionError(f"4f {t}: bf16 tower forward {rel:.3e} (relative L2) from "
+                                     f"fp32, over {TOWER_REL_TOL}")
+            ms = {label: cuda_ms(fn, iters=5) for label, fn in fwd.items()}
+
+        S = qlen + len(TOWER_PROMPT)
+        m16 = StarVectorForCausalLM({"svg_transformer": p16["svg_transformer"], **v16}, tcfg,
+                                    policy=bf16, device=dev)
+        reset_counts(tfa)
+        _, toks, lengths = m16.generate_im2svg_ids({"image": images}, max_new_tokens=TOWER_NEW,
+                                                   **req)
+        torch.cuda.synchronize()
+        steps = int(lengths.max()) - 1
+        got = expect_counts(f"4f {t} bf16", read_counts(tfa),
+                            flash_prefill=L if S > dc.CHUNK_STEP_MAX else 0,
+                            decode_attention=L * steps)
+
+        s32, cut = first_layers({"svg_transformer": p32["svg_transformer"], **v32}, tcfg,
+                                DEPTH_1B_EARLIER)
+        ids = {}
+        for kernels in (True, False):
+            m32 = StarVectorForCausalLM(s32, cut, policy=f32, device=dev, kernels=kernels)
+            _, ids[kernels], _ = m32.generate_im2svg_ids({"image": images},
+                                                         max_new_tokens=TOWER_FP32_NEW, **req)
+        if not torch.equal(ids[True], ids[False]):
+            raise AssertionError(f"4f {t}: fp32 greedy ids differ, kernels against plain:\n"
+                                 f"{ids[True].tolist()}\n{ids[False].tolist()}")
+        out[t] = dict(S=S, launches=got, tower_ms=ms, rel=rel)
+        log("towers", f"{card}: {t} at {size} px ({hidden} wide, {qlen} tokens) behind the 1B "
+                      f"decoder: bf16 tower forward {rel:.3e} (relative L2) from fp32 (bound "
+                      f"{TOWER_REL_TOL}); B=2 tower forward bf16 {ms['bf16']:.3f} ms, fp32 "
+                      f"{ms['fp32']:.3f} ms; bf16 greedy, {TOWER_NEW} tokens, S = {S}: "
+                      f"flash_prefill {got['flash_prefill']}"
+                      + (f" = {L} x 1" if got["flash_prefill"] else
+                         f" (S <= {dc.CHUNK_STEP_MAX}: the chunk step)")
+                      + f", decode_attention {got['decode_attention']} = {L} x {steps} steps, "
+                      f"{[len(set(r.tolist())) for r in toks]} distinct ids a row; fp32 greedy "
+                      f"ids at {DEPTH_1B_EARLIER} layers, {TOWER_FP32_NEW} tokens, kernels == "
+                      f"plain; {time.perf_counter() - t0:.1f} s")
+        del v32, v16, m16, s32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
@@ -3593,16 +3760,14 @@ def fp32_check(sv, tfa, dev, cfg, batch, what: str) -> None:
     torch.cuda.empty_cache()
 
 
-def export_round_trip(sv, tfa, dev, train: dict, images) -> dict:
+def export_round_trip(sv, tfa, dev, train: dict, images, out: str) -> dict:
     """Phase 5b: the trained 1B (phase 5's fp32 masters) through
-    train/hub.py's export_hf_checkpoint into a temporary directory, back
+    train/hub.py's export_hf_checkpoint into the directory `out`, back
     through models/builder.py's load_pretrained_model at fp32; the loaded
     model's fp32 greedy ids for `images` (2, phase 4's) equal the in-memory
     weights', each generation launching flash_prefill once a layer and
-    decode_attention once a layer a step. The directory is deleted."""
-    import shutil
-    import tempfile
-
+    decode_attention once a layer a step. Phase 5c reads the directory;
+    main deletes it after."""
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.models.builder import load_pretrained_model
     from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
@@ -3614,18 +3779,14 @@ def export_round_trip(sv, tfa, dev, train: dict, images) -> dict:
     L = cfg.llm.n_layer
     f32 = DTypePolicy(torch.float32, torch.float32)
     params = tree_map(lambda p: p.detach(), train.pop("params"))
-    out = tempfile.mkdtemp(prefix="starvector-export-")
-    try:
-        t0 = time.perf_counter()
-        export_hf_checkpoint(params, cfg, build_test_tokenizer("v1"), out)
-        t_export = time.perf_counter() - t0
-        size = sum(f.stat().st_size for f in Path(out).iterdir())
-        t0 = time.perf_counter()
-        loaded, cfg2, tok, _, context_len = load_pretrained_model(out, torch.float32, dev)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    export_hf_checkpoint(params, cfg, build_test_tokenizer("v1"), out)
+    t_export = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(out).iterdir())
+    t0 = time.perf_counter()
+    loaded, cfg2, tok, _, context_len = load_pretrained_model(out, torch.float32, dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
     if cfg2.llm != cfg.llm or context_len != cfg.max_length_train or tok.version != "v1":
         raise AssertionError(f"export round trip: config {cfg2.llm} vs {cfg.llm}, context "
                              f"{context_len} vs {cfg.max_length_train}, tokenizer {tok.version}")
@@ -3649,12 +3810,223 @@ def export_round_trip(sv, tfa, dev, train: dict, images) -> dict:
                   f"{t_export:.1f} s) and load_pretrained_model at fp32 ({t_load:.1f} s; "
                   f"context_len {context_len}): fp32 greedy ids for 2 images, 32 tokens, equal "
                   f"to the in-memory weights' ({[len(set(r.tolist())) for r in ids['reloaded']]} "
-                  f"distinct ids a row); launches {launches['reloaded']} (each = {L} layers); "
-                  f"the directory deleted")
+                  f"distinct ids a row); launches {launches['reloaded']} (each = {L} layers)")
     del params, loaded
     gc.collect()
     torch.cuda.empty_cache()
     return launches["reloaded"]
+
+
+# ---------------------------------------------------------------------------
+# phases 5c and 5d: the entry points at full 1B width and depth
+# ---------------------------------------------------------------------------
+
+class CallSpy:
+    """Within `with CallSpy(owner, name) as spy:`, owner.name (a function
+    of a module, or a classmethod) is wrapped: spy.calls lists (result,
+    seconds) of each call, the card synchronised at its end."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        self.raw, fn = vars(self.owner)[self.name], getattr(self.owner, self.name)
+
+        def spied(*a, **kw):
+            t = time.perf_counter()
+            result = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((result, time.perf_counter() - t))
+            return result
+
+        setattr(self.owner, self.name, spied)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.raw)
+
+
+ENTRY_NEW, SERVE_IMAGES, SERVE_ENTRY_NEW, WEBUI_NEW = 64, 4, 128, 32
+
+
+def entry_points_1b(tfa, dev, card: str, ckpt: str, work: Path) -> dict:
+    """Phase 5c, on phase 5b's exported 1B (`ckpt`, all 24 layers):
+      * `python -m starvector_tpu_torch.quickstart ckpt image 64` through its
+        main, on one synthetic PNG, its stdout captured: the printed SVG
+        starts with '<svg'; launches exactly 24 flash_prefill and 24
+        decode_attention a decode step; the load's and the generation's
+        seconds;
+      * quickstart_serve's serve_images on the model main loaded, 4 images,
+        128 new tokens: every request done; flash_prefill 24 an engine
+        prefill chunk (stats()["prefill_chunks"]), decode_attention 24 a
+        step (4 a tick), exactly;
+      * the web UI (serve/webui.py) over a ModelWorker on that model, both on
+        127.0.0.1: one greedy im2svg request of 32 tokens streams its chunks
+        through /api/generate, each error_code 0; one vote lands in
+        votes.jsonl.
+    Returns the launches of each."""
+    import threading
+
+    from PIL import Image
+
+    from starvector_tpu_torch import api, quickstart
+    from starvector_tpu_torch.quickstart_serve import serve_images
+    from starvector_tpu_torch.serve import webui, worker as wk
+    from starvector_tpu_torch.serve.httpd import post_json
+
+    paths = []
+    for i, img in enumerate(synthetic_images(SERVE_IMAGES, 81)):
+        paths.append(str(work / f"image{i}.png"))
+        Image.fromarray(img).save(paths[-1])
+    launches = {}
+
+    reset_counts(tfa)
+    with CallSpy(api.StarVectorForCausalLM, "from_pretrained") as load, \
+            CallSpy(api, "generate") as gen, contextlib.redirect_stdout(io.StringIO()) as stdout:
+        quickstart.main([ckpt, paths[0], str(ENTRY_NEW)])
+    counts = read_counts(tfa)
+    printed = stdout.getvalue()
+    (model, t_load), = load.calls
+    ((_, lengths), t_gen), = gen.calls
+    L = model.cfg.llm.n_layer
+    steps = int(lengths.max()) - 1
+    launches["quickstart"] = expect_counts("5c quickstart", counts, flash_prefill=L,
+                                           decode_attention=L * steps)
+    if not printed.startswith("<svg"):
+        raise AssertionError(f"5c quickstart printed {printed[:200]!r}")
+    log("entry", f"{card}: quickstart.main on the exported 1B (bf16, {L} layers), one image, "
+                 f"{ENTRY_NEW} greedy tokens: from_pretrained {t_load:.2f} s, generation "
+                 f"{t_gen:.2f} s ({int(lengths[0])} tokens); printed {len(printed)} characters "
+                 f"from '<svg'; launches {launches['quickstart']} ({L} x {steps} decode steps)")
+
+    reset_counts(tfa)
+    t0 = time.perf_counter()
+    texts, stats = serve_images(model, paths, SERVE_ENTRY_NEW)
+    wall = time.perf_counter() - t0
+    counts = read_counts(tfa)
+    launches["quickstart_serve"] = expect_counts(
+        "5c quickstart_serve", counts, flash_prefill=L * stats["prefill_chunks"],
+        decode_attention=L * 4 * stats["ticks"])
+    if len(texts) != SERVE_IMAGES or not all(t.startswith("<svg") for t in texts):
+        raise AssertionError(f"5c quickstart_serve: {[t[:40] for t in texts]}")
+    log("entry", f"{card}: quickstart_serve.serve_images on that model, {SERVE_IMAGES} images, "
+                 f"{SERVE_ENTRY_NEW} greedy tokens: every request done in {wall:.2f} s, "
+                 f"{stats['tokens_emitted']} tokens in {stats['ticks']} ticks, "
+                 f"{stats['prefill_chunks']} prefill chunks; launches "
+                 f"{launches['quickstart_serve']} ({L} a chunk, {L} x 4 a tick)")
+
+    worker = wk.ModelWorker(model, worker_addr="pending", max_batch=2, max_len=1024)
+    votes = work / "votes"
+    servers = [wk.build_server(worker)]
+    servers.append(webui.build_server(f"http://127.0.0.1:{servers[0].server_address[1]}",
+                                      str(votes)))
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+    for th in threads:
+        th.start()
+    ui = f"http://127.0.0.1:{servers[1].server_address[1]}"
+    try:
+        reset_counts(tfa)
+        t0 = time.perf_counter()
+        payload = {"task": "im2svg", "image": png_b64(synthetic_images(1, 82)[0]),
+                   "max_new_tokens": WEBUI_NEW, "temperature": 0.0}
+        with post_json(ui + "/api/generate", payload, 300) as resp:
+            raw = resp.read()
+        wall = time.perf_counter() - t0
+        counts = read_counts(tfa)
+        chunks = [json.loads(c) for c in raw.split(b"\0") if c]
+        with post_json(ui + "/api/vote", {"vote": 1, "svg": chunks[-1]["text"] if chunks else ""},
+                       60) as resp:
+            resp.read()
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        for th in threads:
+            th.join(60)
+        worker.shutdown()
+    if not chunks or any(c["error_code"] != 0 or not c["text"].startswith("<svg")
+                         for c in chunks):
+        raise AssertionError(f"5c web UI: chunks {chunks[-1:]}")
+    records = [json.loads(line) for line in open(votes / "votes.jsonl")]
+    if len(records) != 1 or records[0]["vote"] != 1:
+        raise AssertionError(f"5c web UI: votes.jsonl holds {records}")
+    if counts["flash_prefill"] % L or not counts["flash_prefill"] or \
+            counts["decode_attention"] % L or not counts["decode_attention"]:
+        raise AssertionError(f"5c web UI: launches {counts}")
+    launches["webui"] = {k: counts[k] for k in ("flash_prefill", "decode_attention")}
+    log("entry", f"{card}: the web UI over a ModelWorker on that model (127.0.0.1): one greedy "
+                 f"im2svg request of {WEBUI_NEW} tokens streamed {len(chunks)} chunks through "
+                 f"/api/generate in {wall:.2f} s, every error_code 0; one vote in votes.jsonl; "
+                 f"launches {launches['webui']}")
+    del model, worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+GRPO_YAML = "configs/models/starvector-1b/im2svg-grpo.yaml"
+
+
+def grpo_driver_1b(tfa, dev, card: str, work: Path, overrides: tuple = ()) -> dict:
+    """Phase 5d: `python -m starvector_tpu_torch.train.grpo` through its
+    main at full 1B width and all 24 layers, on GRPO_YAML (kl_beta 0.02:
+    the KL reference's log-probs each step) with ToySVGDataset at 224 px,
+    B = 2, G = 2, 64 new tokens, 2 steps, a checkpoint at step 2: 2 steps
+    logged to metrics.jsonl; checkpoint-2 restores to the trainer's
+    parameters bit for bit; kernels 1 and 2 (the rollouts) and 5 and 6 (the
+    update and the reference log-probs) launched, each a multiple of 24.
+    The card's machine has no librsvg/cairo, so every reward is 0 (the
+    update's gradients are zero; its kernels run all the same). `overrides`
+    are more dotlist entries (a rehearsal's smaller model). Returns the
+    launches and the steps' seconds."""
+    from starvector_tpu_torch.config import get_config
+    from starvector_tpu_torch.train import grpo
+    from starvector_tpu_torch.train.checkpoint import restore_checkpoint
+    from starvector_tpu_torch.train.optim import tree_leaves
+
+    out_dir = work / "grpo"
+    argv = [f"config={Path(__file__).resolve().parent / GRPO_YAML}",
+            "data.train.target=starvector_tpu.data.datasets.ToySVGDataset",
+            "data.train.params.im_size=224", "data.batch_size=2", "grpo.num_generations=2",
+            "grpo.max_new_tokens=64", "grpo.steps=2", "training.checkpointing_steps=2",
+            f"project.out_dir={out_dir}", *overrides]
+    reset_counts(tfa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as stdout:
+        model, records = grpo.main(get_config(argv))
+    wall = time.perf_counter() - t0
+    counts = read_counts(tfa)
+    L = model.cfg.llm.n_layer
+    logged = [json.loads(line) for line in open(out_dir / "metrics.jsonl")]
+    if [r["step"] for r in logged if "loss" in r] != [1, 2] or len(records) != 2:
+        raise AssertionError(f"5d: logged {logged}")
+    ckpts = sorted(p.name for p in out_dir.iterdir() if p.name.startswith("checkpoint-"))
+    if ckpts != ["checkpoint-2"]:
+        raise AssertionError(f"5d: checkpoints {ckpts}")
+    t0 = time.perf_counter()
+    saved = restore_checkpoint(str(out_dir / "checkpoint-2"), dev)["params"]
+    t_restore = time.perf_counter() - t0
+    a, b = tree_leaves(saved), tree_leaves(model.params)
+    if len(a) != len(b) or not all(torch.equal(x, y.detach()) for x, y in zip(a, b)):
+        raise AssertionError("5d: checkpoint-2 does not restore the trainer's parameters")
+    used = ("flash_prefill", "decode_attention", "flash_prefill_with_lse", "flash_bwd_dkdv",
+            "flash_bwd_dq")
+    got = {k: counts[k] for k in used}
+    if any(not n or n % L for n in got.values()):
+        raise AssertionError(f"5d: launches {got}")
+    parts = [tuple(round(r[k], 3) for k in ("rollout_s", "reward_s", "update_s"))
+             for r in records]
+    step_s = [round(sum(p), 3) for p in parts]
+    log("grpo", f"{card}: train.grpo.main on {GRPO_YAML}, StarVector-1B at full width and {L} "
+                f"layers, ToySVGDataset at 224 px, B=2, G=2, 64 tokens, 2 steps: "
+                f"{wall:.1f} s in all; steps {step_s} s (rollout / reward / update {parts}); "
+                f"printed {len(stdout.getvalue().splitlines())} lines; 2 steps in metrics.jsonl; "
+                f"checkpoint-2 restored ({len(a)} leaves, {t_restore:.1f} s) == the trainer's "
+                f"parameters bit for bit; launches {got}")
+    del model, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=got, step_s=step_s)
 
 
 TRAIN_KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
@@ -5047,6 +5419,11 @@ def main() -> int:
     pipe_1b = pipelined_1b(tfa, cfg, p16, p32, int8["params"], dev, card, args.profile)
     t_4e = time.perf_counter() - t_4e
     log("phase", f"4e took {t_4e:.0f} s")
+    phase("4f", "the other vision towers behind the StarVector-1B decoder")
+    t_4f = time.perf_counter()
+    towers = towers_1b(sv, tfa, dc, cfg, p16, p32, dev, card)
+    t_4f = time.perf_counter() - t_4f
+    log("phase", f"4f took {t_4f:.0f} s")
     if args.profile is not None:
         profile_request(request, card, args.profile)
         profile_request(int8["request"], card, args.profile, "int8")
@@ -5058,8 +5435,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     grpo_phase(sv, tfa, cfg, dev, card)
-    log("phase", f"4b took {time.perf_counter() - t_4b - t_4c - t_4d - t_4e:.0f} s (4c, 4d and "
-                 f"4e apart)")
+    log("phase", f"4b took {time.perf_counter() - t_4b - t_4c - t_4d - t_4e - t_4f:.0f} s (4c, "
+                 f"4d, 4e and 4f apart)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5069,11 +5446,28 @@ def main() -> int:
 
     # --- 5b. the trained 1B out as an HF checkpoint and back in ------------------
     phase("5b", "the export round trip")
-    export_round_trip(sv, tfa, dev, train, clip_images(synthetic_images(2, 7)))
-    cfg1 = sv.starvector_1b_config()
-    fp32_check(sv, tfa, dev, cfg1, training_batch(cfg1, clip_images, dev), "1B")
-    gc.collect()
-    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
+    try:
+        export_round_trip(sv, tfa, dev, train, clip_images(synthetic_images(2, 7)),
+                          str(work / "ckpt"))
+        cfg1 = sv.starvector_1b_config()
+        fp32_check(sv, tfa, dev, cfg1, training_batch(cfg1, clip_images, dev), "1B")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- 5c. the quickstarts and the web UI on 5b's checkpoint ---------------
+        phase("5c", "the quickstarts and the web UI on the exported 1B")
+        t_5c = time.perf_counter()
+        entry = entry_points_1b(tfa, dev, card, str(work / "ckpt"), work)
+        log("phase", f"5c took {time.perf_counter() - t_5c:.0f} s")
+
+        # --- 5d. the GRPO driver ---------------------------------------------------
+        phase("5d", "the GRPO driver at full 1B width and depth")
+        t_5d = time.perf_counter()
+        grpo_run = grpo_driver_1b(tfa, dev, card, work)
+        log("phase", f"5d took {time.perf_counter() - t_5d:.0f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # --- 6. StarVector-8B inference at full width ---------------------------------
     phase(6, f"StarVector-8B inference, {DEPTH_8B} of 32 layers")
@@ -5112,6 +5506,7 @@ def main() -> int:
                  f"{b_ms / times[1]:.1%} of the bound), plain {times[0]:.4f} ms, bound "
                  f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
                  f"SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}")
+    s1026 = tower_prefix_times(tfa, dev, card)
     kernels_json.append(dict(name="flash_prefill", route="cuda",
                              source="starvector_tpu_torch/csrc/flash_prefill.cu",
                              replaces="starvector_tpu/ops/flash_attention.py:212",
@@ -5121,7 +5516,8 @@ def main() -> int:
                              serve_launches=serve_1b["launches"]["flash_prefill"],
                              eval_launches=eval1b["launches"]["flash_prefill"],
                              pipelined_launches=pipe_1b["launches"]["bf16"]["flash_prefill"],
-                             pipelined_spec_launches=pipe_1b["launches"]["spec"]["flash_prefill"]))
+                             pipelined_spec_launches=pipe_1b["launches"]["spec"]["flash_prefill"],
+                             s1026=s1026))
     decode = decode_times(tfa, dc, dev, card)
     for label, name, launches, err in (
             ("bf16", "decode_attention", n_decode, err_decode),
@@ -5147,7 +5543,15 @@ def main() -> int:
                                      "int8 weights + int8 KV"][count],
                                  **({"m144": qmm["tile_m144"]} if path == "tile" else {})))
 
+    # the launches of phases 4f, 5c and 5d beside each kernel they ran
+    for row in kernels_json:
+        if row["name"] in ("flash_prefill", "decode_attention"):
+            row["tower_launches"] = {t: r["launches"][row["name"]] for t, r in towers.items()}
+            row["entry_launches"] = {k: v[row["name"]] for k, v in entry.items()}
     kernels_json += training_times(tfa, dev, card, train, err_train)
+    for row in kernels_json:
+        if row["name"] in grpo_run["launches"]:
+            row["grpo_driver_launches"] = grpo_run["launches"][row["name"]]
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)
     kernels_json += training_times_8b(tfa, dev, card, t8, err_train)
     long_context_times(tfa, dev, card)
@@ -5176,6 +5580,8 @@ def main() -> int:
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):  # the convolutional towers' levels and blocks
+        return [_map_tree(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -5185,6 +5591,8 @@ def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         keep = ("running_mean", "running_var") + (("scale",) if "kernel_q" in tree else ())
         return {k: (v if k in keep else _cast_tree(v, dtype)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
     return tree if tree.dtype == torch.int8 else tree.to(dtype)
 
 

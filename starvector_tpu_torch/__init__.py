@@ -11,15 +11,18 @@ Layer map:
                    generate_text2svg (beams, speculative decoding,
                    num_return_sequences), generate_im2svg_grpo, forward
                    (the loss); StarVectorPipeline
+  quickstart.py, quickstart_serve.py -- the quickstarts' mains
   serve/        -- continuous-batching serving: the engine (engine.py),
-                   the REST worker and controller on the standard library
-                   (worker.py, controller.py, httpd.py)
+                   the REST worker, controller and web UI on the standard
+                   library (worker.py, controller.py, webui.py, httpd.py)
   generation/   -- the cached generation loop (engine.py), beam search
                    (beam.py), prompt-lookup speculative decoding
                    (speculative.py)
-  models/       -- StarVector task model, CLIP ViT and SigLIP towers, adapter,
-                   GPTBigCode and StarCoder2 decoders, KV cache, weights in
-                   (convert.py) and out (export.py), the builder (builder.py)
+  models/       -- StarVector task model, the seven vision towers (CLIP
+                   ViT, SigLIP at 384/512/256, open-clip ViT, VQGAN,
+                   ConvNeXt), adapter, GPTBigCode and StarCoder2 decoders,
+                   KV cache, weights in (convert.py) and out (export.py),
+                   the builder (builder.py)
   ops/          -- layers, plain attention, sampling, int8 weights
                    (quantization.py), and the wrappers of the hand-written
                    CUDA kernels (flash_attention.py, quantization.py)
@@ -27,7 +30,7 @@ Layer map:
                    ops/kernel_lib.py into _build/
   data/, train/, config.py -- datasets, rasterizer (native/), loader, the
                    training entry point, optimizers, HF export (train/hub.py),
-                   GRPO (train/grpo.py)
+                   GRPO and its driver (train/grpo.py)
   validation/   -- the eval harness: the validator base and registry, the
                    in-process (torch_validator.py) and REST
                    (serve_validator.py) validators, the CLI (validate.py),

@@ -73,12 +73,11 @@ class ImageProcessor:
 
 def processor_for_encoder(image_encoder_type: str, image_size: int | None = None,
                           *, device="cpu") -> ImageProcessor:
-    """CLIP's statistics for the clip tower at 224; SigLIP's for
-    siglip_384 at 384 (the JAX package's rule)."""
-    if image_encoder_type == "clip":
-        return ImageProcessor(size=image_size or 224, device=device)
-    if image_encoder_type == "siglip_384":
-        return ImageProcessor(size=image_size or 384, mean=SIGLIP_MEAN, std=SIGLIP_STD,
-                              device=device)
-    raise NotImplementedError(
-        f"the {image_encoder_type!r} processor is not ported yet (ROADMAP queue 1, item 11)")
+    """The JAX package's rule: SigLIP's statistics for the SigLIP towers at
+    their own sizes (512, 384, 256); CLIP's at 224 for every other tower
+    (clip, vqgan, convnext, open-clip)."""
+    if image_encoder_type.startswith("siglip"):
+        size = image_size or {"siglip_512": 512, "siglip_384": 384,
+                              "siglip_256": 256}[image_encoder_type]
+        return ImageProcessor(size=size, mean=SIGLIP_MEAN, std=SIGLIP_STD, device=device)
+    return ImageProcessor(size=image_size or 224, device=device)

@@ -77,7 +77,7 @@ def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda"
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
     cfg = config_from_hf(sd, hf_cfg)
-    params = from_hf_state_dict(sd, dtype=dtype, device=device)
+    params = from_hf_state_dict(sd, cfg, dtype=dtype, device=device)
     del sd
     return params, cfg, load_tokenizer(path, version=tokenizer_version(cfg))
 

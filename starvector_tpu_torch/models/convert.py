@@ -8,13 +8,14 @@ leading axis, dense kernels (in, out), norms {"scale", "bias"}.
 
   * `from_jax_params(tree)` takes the JAX pytree as numpy arrays (nested
     dicts) and returns the same tree as torch tensors.
-  * `from_hf_state_dict(sd)` takes the reference HF layout, as
+  * `from_hf_state_dict(sd, cfg)` takes the reference HF layout, as
     starvector_tpu/models/export.py writes it: torch Linear weights
     (out, in), one key per layer, the prefixes
     `model.svg_transformer.transformer.transformer.` (1B) or
     `model.svg_transformer.transformer.model.` and an optional
     `model.svg_transformer.transformer.lm_head.weight` (8B),
-    `model.image_encoder.visual_encoder.` (CLIP's or SigLIP's keys),
+    `model.image_encoder.visual_encoder.` (CLIP's or SigLIP's keys, or a
+    vqgan, convnext or open-clip tower in its own checkpoint's layout),
     `model.image_encoder.ln_vision.` (CLIP only) and
     `model.image_projection.` (the leading `model.` is optional).
   * `config_from_hf(sd, hf_cfg)` derives the StarVectorConfig from the
@@ -32,7 +33,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from starvector_tpu_torch.models import gpt_bigcode, starcoder2, starvector as sv
+from starvector_tpu_torch.models import gpt_bigcode, image_encoder, starcoder2, starvector as sv
 from starvector_tpu_torch.models.builder import config_from_yaml_block, is_v2
 from starvector_tpu_torch.models.vision.clip_vit import CLIPViTConfig
 from starvector_tpu_torch.models.vision.siglip import SigLIPConfig
@@ -41,9 +42,11 @@ DECODER_PREFIX = "svg_transformer.transformer.transformer."
 V2_DECODER_PREFIX = "svg_transformer.transformer.model."
 V2_HEAD = "svg_transformer.transformer.lm_head.weight"
 TOWER_PREFIX = "image_encoder.visual_encoder."
+# towers whose StarVector checkpoint keys are in their own source's layout
+OWN_LAYOUT_TOWERS = ("vqgan", "convnext", "open-clip")
 
 
-def _tensor(x, dtype, device) -> torch.Tensor:
+def to_tensor(x, dtype, device) -> torch.Tensor:
     t = torch.from_numpy(np.array(x))  # copy: the source may alias foreign buffers
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
@@ -51,16 +54,18 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 
 def from_jax_params(tree, *, dtype: torch.dtype | None = None, device="cpu"):
-    """JAX parameter pytree (numpy leaves) -> the port's tensors, same tree.
-    Floating leaves are cast to `dtype` when given; BatchNorm running
-    statistics and the fp32 scales of a quantized leaf ({"kernel_q",
-    "scale"}, whose codes stay int8) keep their type, as in the JAX
-    package."""
+    """JAX parameter pytree (numpy leaves) -> the port's tensors, same tree
+    (lists stay lists). Floating leaves are cast to `dtype` when given;
+    BatchNorm running statistics and the fp32 scales of a quantized leaf
+    ({"kernel_q", "scale"}, whose codes stay int8) keep their type, as in
+    the JAX package."""
     if isinstance(tree, Mapping):
         keep = {"running_mean", "running_var"} | ({"scale"} if "kernel_q" in tree else set())
         return {k: from_jax_params(v, dtype=None if k in keep else dtype, device=device)
                 for k, v in tree.items()}
-    return _tensor(tree, dtype, device)
+    if isinstance(tree, (list, tuple)):  # the convolutional towers' levels and blocks
+        return [from_jax_params(v, dtype=dtype, device=device) for v in tree]
+    return to_tensor(tree, dtype, device)
 
 
 def _strip_model(sd: Mapping[str, np.ndarray]) -> dict:
@@ -76,20 +81,20 @@ def _dense(sd, fmt: str, L: int, dtype, device, weight="weight", bias="bias") ->
     """Stack per-layer torch Linear weights (out, in) as (L, in, out) kernels."""
     w = np.stack([np.asarray(sd[fmt.format(i) + weight]).T for i in range(L)])
     b = np.stack([np.asarray(sd[fmt.format(i) + bias]) for i in range(L)])
-    return {"kernel": _tensor(w, dtype, device), "bias": _tensor(b, dtype, device)}
+    return {"kernel": to_tensor(w, dtype, device), "bias": to_tensor(b, dtype, device)}
 
 
 def _norm(sd, fmt: str, L: int, dtype, device) -> dict:
-    return {"scale": _tensor(np.stack([sd[fmt.format(i) + "weight"] for i in range(L)]), dtype, device),
-            "bias": _tensor(np.stack([sd[fmt.format(i) + "bias"] for i in range(L)]), dtype, device)}
+    return {"scale": to_tensor(np.stack([sd[fmt.format(i) + "weight"] for i in range(L)]), dtype, device),
+            "bias": to_tensor(np.stack([sd[fmt.format(i) + "bias"] for i in range(L)]), dtype, device)}
 
 
 def gpt_bigcode_from_hf(sd, prefix: str = DECODER_PREFIX, *, dtype=None, device="cpu") -> dict:
     L = _n_layers(sd, prefix + "h.")
     h = prefix + "h.{}."
     return {
-        "wte": _tensor(sd[prefix + "wte.weight"], dtype, device),
-        "wpe": _tensor(sd[prefix + "wpe.weight"], dtype, device),
+        "wte": to_tensor(sd[prefix + "wte.weight"], dtype, device),
+        "wpe": to_tensor(sd[prefix + "wpe.weight"], dtype, device),
         "layers": {
             "ln_1": _norm(sd, h + "ln_1.", L, dtype, device),
             "attn": {"c_attn": _dense(sd, h + "attn.c_attn.", L, dtype, device),
@@ -98,8 +103,8 @@ def gpt_bigcode_from_hf(sd, prefix: str = DECODER_PREFIX, *, dtype=None, device=
             "mlp": {"c_fc": _dense(sd, h + "mlp.c_fc.", L, dtype, device),
                     "c_proj": _dense(sd, h + "mlp.c_proj.", L, dtype, device)},
         },
-        "ln_f": {"scale": _tensor(sd[prefix + "ln_f.weight"], dtype, device),
-                 "bias": _tensor(sd[prefix + "ln_f.bias"], dtype, device)},
+        "ln_f": {"scale": to_tensor(sd[prefix + "ln_f.weight"], dtype, device),
+                 "bias": to_tensor(sd[prefix + "ln_f.bias"], dtype, device)},
     }
 
 
@@ -110,7 +115,7 @@ def starcoder2_from_hf(sd, prefix: str = V2_DECODER_PREFIX, head: str = V2_HEAD,
     L = _n_layers(sd, prefix + "layers.")
     h = prefix + "layers.{}."
     params = {
-        "embed_tokens": _tensor(sd[prefix + "embed_tokens.weight"], dtype, device),
+        "embed_tokens": to_tensor(sd[prefix + "embed_tokens.weight"], dtype, device),
         "layers": {
             "input_layernorm": _norm(sd, h + "input_layernorm.", L, dtype, device),
             "attn": {name: _dense(sd, h + f"self_attn.{name}.", L, dtype, device)
@@ -120,11 +125,11 @@ def starcoder2_from_hf(sd, prefix: str = V2_DECODER_PREFIX, head: str = V2_HEAD,
             "mlp": {"c_fc": _dense(sd, h + "mlp.c_fc.", L, dtype, device),
                     "c_proj": _dense(sd, h + "mlp.c_proj.", L, dtype, device)},
         },
-        "norm": {"scale": _tensor(sd[prefix + "norm.weight"], dtype, device),
-                 "bias": _tensor(sd[prefix + "norm.bias"], dtype, device)},
+        "norm": {"scale": to_tensor(sd[prefix + "norm.weight"], dtype, device),
+                 "bias": to_tensor(sd[prefix + "norm.bias"], dtype, device)},
     }
     if head in sd:
-        params["lm_head"] = _tensor(sd[head], dtype, device)
+        params["lm_head"] = to_tensor(sd[head], dtype, device)
     return params
 
 
@@ -135,10 +140,10 @@ def siglip_from_hf(sd, prefix: str = TOWER_PREFIX, *, dtype=None, device="cpu") 
     r = prefix + "encoder.layers.{}."
     conv = np.asarray(sd[prefix + "embeddings.patch_embedding.weight"])
     return {
-        "patch_embed": {"kernel": _tensor(conv.reshape(conv.shape[0], -1).T, dtype, device),
-                        "bias": _tensor(sd[prefix + "embeddings.patch_embedding.bias"], dtype,
+        "patch_embed": {"kernel": to_tensor(conv.reshape(conv.shape[0], -1).T, dtype, device),
+                        "bias": to_tensor(sd[prefix + "embeddings.patch_embedding.bias"], dtype,
                                         device)},
-        "position_embedding": _tensor(sd[prefix + "embeddings.position_embedding.weight"], dtype,
+        "position_embedding": to_tensor(sd[prefix + "embeddings.position_embedding.weight"], dtype,
                                       device),
         "layers": {
             "layer_norm1": _norm(sd, r + "layer_norm1.", L, dtype, device),
@@ -148,8 +153,8 @@ def siglip_from_hf(sd, prefix: str = TOWER_PREFIX, *, dtype=None, device="cpu") 
             "mlp": {"fc1": _dense(sd, r + "mlp.fc1.", L, dtype, device),
                     "fc2": _dense(sd, r + "mlp.fc2.", L, dtype, device)},
         },
-        "post_layernorm": {"scale": _tensor(sd[prefix + "post_layernorm.weight"], dtype, device),
-                           "bias": _tensor(sd[prefix + "post_layernorm.bias"], dtype, device)},
+        "post_layernorm": {"scale": to_tensor(sd[prefix + "post_layernorm.weight"], dtype, device),
+                           "bias": to_tensor(sd[prefix + "post_layernorm.bias"], dtype, device)},
     }
 
 
@@ -160,11 +165,11 @@ def clip_vit_from_hf(sd, prefix: str = TOWER_PREFIX, *, dtype=None, device="cpu"
     r = prefix + "transformer.resblocks.{}."
     conv = np.asarray(sd[prefix + "conv1.weight"])
     return {
-        "patch_embed": _tensor(conv.reshape(conv.shape[0], -1).T, dtype, device),
-        "class_embedding": _tensor(sd[prefix + "class_embedding"], dtype, device),
-        "positional_embedding": _tensor(sd[prefix + "positional_embedding"], dtype, device),
-        "ln_pre": {"scale": _tensor(sd[prefix + "ln_pre.weight"], dtype, device),
-                   "bias": _tensor(sd[prefix + "ln_pre.bias"], dtype, device)},
+        "patch_embed": to_tensor(conv.reshape(conv.shape[0], -1).T, dtype, device),
+        "class_embedding": to_tensor(sd[prefix + "class_embedding"], dtype, device),
+        "positional_embedding": to_tensor(sd[prefix + "positional_embedding"], dtype, device),
+        "ln_pre": {"scale": to_tensor(sd[prefix + "ln_pre.weight"], dtype, device),
+                   "bias": to_tensor(sd[prefix + "ln_pre.bias"], dtype, device)},
         "layers": {
             "ln_1": _norm(sd, r + "ln_1.", L, dtype, device),
             "attn": {"in_proj": _dense(sd, r + "attn.", L, dtype, device,
@@ -179,16 +184,16 @@ def clip_vit_from_hf(sd, prefix: str = TOWER_PREFIX, *, dtype=None, device="cpu"
 
 def adapter_from_hf(sd, prefix: str = "image_projection.", *, dtype=None, device="cpu") -> dict:
     g = lambda n: sd[prefix + n]  # noqa: E731
-    norm = {"scale": _tensor(g("norm.weight"), dtype, device),
-            "bias": _tensor(g("norm.bias"), dtype, device)}
+    norm = {"scale": to_tensor(g("norm.weight"), dtype, device),
+            "bias": to_tensor(g("norm.bias"), dtype, device)}
     if prefix + "norm.running_mean" in sd:
-        norm["running_mean"] = _tensor(g("norm.running_mean"), torch.float32, device)
-        norm["running_var"] = _tensor(g("norm.running_var"), torch.float32, device)
+        norm["running_mean"] = to_tensor(g("norm.running_mean"), torch.float32, device)
+        norm["running_var"] = to_tensor(g("norm.running_var"), torch.float32, device)
     return {
-        "c_fc": {"kernel": _tensor(np.asarray(g("c_fc.weight")).T, dtype, device),
-                 "bias": _tensor(g("c_fc.bias"), dtype, device)},
-        "c_proj": {"kernel": _tensor(np.asarray(g("c_proj.weight")).T, dtype, device),
-                   "bias": _tensor(g("c_proj.bias"), dtype, device)},
+        "c_fc": {"kernel": to_tensor(np.asarray(g("c_fc.weight")).T, dtype, device),
+                 "bias": to_tensor(g("c_fc.bias"), dtype, device)},
+        "c_proj": {"kernel": to_tensor(np.asarray(g("c_proj.weight")).T, dtype, device),
+                   "bias": to_tensor(g("c_proj.bias"), dtype, device)},
         "norm": norm,
     }
 
@@ -197,18 +202,29 @@ def _is_v2(sd) -> bool:
     return V2_DECODER_PREFIX + "embed_tokens.weight" in sd
 
 
-def from_hf_state_dict(sd: Mapping[str, np.ndarray], *, dtype: torch.dtype | None = None,
-                       device="cpu") -> dict:
+def from_hf_state_dict(sd: Mapping[str, np.ndarray], cfg: sv.StarVectorConfig | None = None, *,
+                       dtype: torch.dtype | None = None, device="cpu") -> dict:
     """A StarVector-1B or -8B HF state dict -> the port's parameters (the
-    decoder, and the tower that the keys hold)."""
+    decoder, and the tower that the keys hold). CLIP and SigLIP towers are
+    found by their keys. A vqgan, convnext or open-clip tower is in its own
+    checkpoint's layout under `image_encoder.visual_encoder.` and is loaded
+    by `cfg`'s image_encoder_type through
+    image_encoder.params_from_checkpoint at cfg's tower geometry, which
+    config_from_hf makes the stock one (the JAX builder's fourth branch:
+    open-clip's ln_vision starts as the identity there, whatever the state
+    dict holds)."""
     sd = _strip_model(sd)
     decoder = starcoder2_from_hf if _is_v2(sd) else gpt_bigcode_from_hf
     params = {"svg_transformer": decoder(sd, dtype=dtype, device=device)}
-    if TOWER_PREFIX + "conv1.weight" in sd:
+    t = cfg.image_encoder_type if cfg is not None and cfg.use_image_encoder else None
+    if t in OWN_LAYOUT_TOWERS:
+        params["image_encoder"] = image_encoder.params_from_checkpoint(
+            cfg.encoder_config, sd, dtype=dtype, prefix=TOWER_PREFIX, device=device)
+    elif TOWER_PREFIX + "conv1.weight" in sd:
         params["image_encoder"] = {
             "visual_encoder": clip_vit_from_hf(sd, dtype=dtype, device=device),
-            "ln_vision": {"scale": _tensor(sd["image_encoder.ln_vision.weight"], dtype, device),
-                          "bias": _tensor(sd["image_encoder.ln_vision.bias"], dtype, device)},
+            "ln_vision": {"scale": to_tensor(sd["image_encoder.ln_vision.weight"], dtype, device),
+                          "bias": to_tensor(sd["image_encoder.ln_vision.bias"], dtype, device)},
         }
     elif TOWER_PREFIX + "embeddings.patch_embedding.weight" in sd:
         params["image_encoder"] = {"visual_encoder": siglip_from_hf(sd, dtype=dtype,
@@ -288,7 +304,12 @@ def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorC
     cfg = dataclasses.replace(cfg, llm=llm, decoder="starcoder2" if v2 else "gpt_bigcode")
     if cfg.use_image_encoder:
         heads = hf_cfg.get("vision_geometry", {}).get("heads")
-        tower = (_clip_tower(sd, heads) if cfg.image_encoder_type == "clip"
-                 else _siglip_tower(sd, heads))
+        t = cfg.image_encoder_type
+        if t == "clip":
+            tower = _clip_tower(sd, heads)
+        elif t.startswith("siglip"):
+            tower = _siglip_tower(sd, heads)
+        else:  # vqgan, convnext, open-clip: the stock tower, as the JAX builder takes it
+            tower = cfg.encoder_config.tower_config
         cfg = dataclasses.replace(cfg, vision_tower=tower)
     return cfg

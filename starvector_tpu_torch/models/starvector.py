@@ -3,10 +3,11 @@ decoder (port of starvector_tpu/models/starvector.py).
 
 v1, StarVector-1B: GPTBigCode decoder, CLIP tower (257 visual tokens).
 v2, StarVector-8B: StarCoder2 decoder, SigLIP-384 tower (576 visual
-tokens), LayerNorm adapter. Both infer and train, im2svg and text2svg (a
-caption in, no vision tower: `text2svg_inputs`). Generation lives in
-starvector_tpu_torch/generation/; `grpo_forward` gives the per-token
-log-probs that train/grpo.py's policy gradient takes.
+tokens), LayerNorm adapter. `image_encoder_type` picks any of the seven
+towers of models/image_encoder.py. Both infer and train, im2svg and
+text2svg (a caption in, no vision tower: `text2svg_inputs`). Generation
+lives in starvector_tpu_torch/generation/; `grpo_forward` gives the
+per-token log-probs that train/grpo.py's policy gradient takes.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ class StarVectorConfig:
     max_length_train: int = 8192
     task: str = "im2svg"
     llm: Any = None            # decoder geometry; None -> the family's (1B / 7B)
-    vision_tower: Any = None   # tower geometry override (a CLIPViTConfig or SigLIPConfig)
+    vision_tower: Any = None   # tower geometry override (one of models/vision/'s configs)
 
     def __post_init__(self):
         if self.decoder not in DECODERS:
@@ -134,17 +135,27 @@ def _adapter_cfg_for(cfg: StarVectorConfig, params: dict) -> adapter_mod.Adapter
                                      query_length=qlen, adapter_norm=cfg.adapter_norm)
 
 
+def init_vision_params(cfg: StarVectorConfig, gen: torch.Generator, *, device="cpu",
+                       dtype=torch.float32) -> dict:
+    """The tower's and the adapter's random weights ({"image_encoder",
+    "image_projection"}), as init_params draws them after the decoder's."""
+    enc, tower = _encoder_cfg(cfg)
+    # the adapter's geometry, by the JAX package's rule: the CLIP tower's
+    # own, else the encoder's (the stock table's for a vqgan or convnext
+    # override, which states no token count)
+    hidden, qlen = ((tower.width, tower.num_tokens) if cfg.image_encoder_type == "clip"
+                    else enc.geometry)
+    ad_cfg = dataclasses.replace(cfg.adapter_config, input_size=hidden, query_length=qlen)
+    return {"image_encoder": image_encoder.init_params(enc, gen, device=device, dtype=dtype),
+            "image_projection": adapter_mod.init_params(ad_cfg, gen, device=device, dtype=dtype)}
+
+
 def init_params(cfg: StarVectorConfig, gen: torch.Generator, *, device="cpu",
                 dtype=torch.float32) -> dict:
     params = {"svg_transformer": cfg.decoder_module.init_params(cfg.llm, gen, device=device,
                                                                 dtype=dtype)}
     if cfg.use_image_encoder:
-        enc, tower = _encoder_cfg(cfg)
-        params["image_encoder"] = image_encoder.init_params(enc, gen, device=device, dtype=dtype)
-        ad_cfg = dataclasses.replace(cfg.adapter_config, input_size=tower.width,
-                                     query_length=tower.num_tokens)
-        params["image_projection"] = adapter_mod.init_params(ad_cfg, gen, device=device,
-                                                             dtype=dtype)
+        params.update(init_vision_params(cfg, gen, device=device, dtype=dtype))
     return params
 
 

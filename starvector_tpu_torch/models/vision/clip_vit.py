@@ -3,8 +3,10 @@ starvector_tpu/models/vision/clip_vit.py).
 
 Patchify is a reshape and a matmul (no convolution); CLS token and learned
 positions; pre-LN (`ln_pre`); blocks ln_1 -> MHA (fused in_proj split into
-q, k, v) -> +res, ln_2 -> MLP(QuickGELU) -> +res. No `ln_post`: the image
-encoder applies its own `ln_vision`. Returns all tokens (257 at 224/14).
+q, k, v) -> +res, ln_2 -> MLP(`act`) -> +res: QuickGELU for the LAVIS tower,
+exact GELU for open_clip's ViTs (models/vision/open_clip_vit.py). No
+`ln_post`: the image encoder applies its own `ln_vision`. Returns all tokens
+(257 at 224/14).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from starvector_tpu_torch.ops.attention import multihead_attention
 from starvector_tpu_torch.ops.layers import (
@@ -28,6 +31,7 @@ class CLIPViTConfig:
     layers: int = 23
     heads: int = 16
     ln_eps: float = 1e-5
+    act: str = "quick_gelu"   # the LAVIS tower; open_clip's ViTs take "gelu"
 
     @property
     def num_patches(self) -> int:
@@ -87,7 +91,8 @@ def _block(p: dict, cfg: CLIPViTConfig, x: torch.Tensor, policy: DTypePolicy) ->
     attn = multihead_attention(q.reshape(B, N, H, D), k.reshape(B, N, H, D),
                                v.reshape(B, N, H, D)).reshape(B, N, W)
     x = x + dense(p["attn"]["out_proj"], attn, policy)
-    h = quick_gelu(dense(p["mlp"]["c_fc"], layer_norm(p["ln_2"], x, cfg.ln_eps), policy))
+    h = dense(p["mlp"]["c_fc"], layer_norm(p["ln_2"], x, cfg.ln_eps), policy)
+    h = quick_gelu(h) if cfg.act == "quick_gelu" else F.gelu(h, approximate="none")
     return x + dense(p["mlp"]["c_proj"], h, policy)
 
 

@@ -6,10 +6,11 @@ patchify with bias (a reshape and a matmul here), patch 16, no CLS token;
 learned positions over all patches; pre-LN blocks layer_norm1 -> MHA
 (separate q/k/v/out with bias) -> +res, layer_norm2 -> MLP (fc1 ->
 gelu_tanh -> fc2) -> +res; `post_layernorm` on the last hidden state, every
-LayerNorm at eps 1e-6. google/siglip-large-patch16-384: width 1024, 24
-layers, 16 heads, intermediate 4096, 576 tokens. The attention is plain
-torch, as the JAX package leaves it to XLA. The 512 and 256 towers wait
-(ROADMAP queue 1, item 11).
+LayerNorm at eps 1e-6. google/siglip-large-patch16-384 (the 8B's tower):
+width 1024, 24 layers, 16 heads, intermediate 4096, 576 tokens; the
+base-patch16 towers at 512 and 256 (`siglip_base_512`, `siglip_base_256`):
+width 768, 12 layers, 12 heads, intermediate 3072, 1024 and 256 tokens. The
+attention is plain torch, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -47,6 +48,18 @@ class SigLIPConfig:
 
 def siglip_large_384(**kw) -> SigLIPConfig:
     return SigLIPConfig(**kw)
+
+
+def siglip_base_512(**kw) -> SigLIPConfig:
+    base = dict(image_size=512, hidden_size=768, layers=12, heads=12, intermediate_size=3072)
+    base.update(kw)
+    return SigLIPConfig(**base)
+
+
+def siglip_base_256(**kw) -> SigLIPConfig:
+    base = dict(image_size=256, hidden_size=768, layers=12, heads=12, intermediate_size=3072)
+    base.update(kw)
+    return SigLIPConfig(**base)
 
 
 def tiny_config(**kw) -> SigLIPConfig:

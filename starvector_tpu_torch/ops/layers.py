@@ -271,6 +271,20 @@ def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Ten
     return torch.where(keep, x / (1 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def conv_nhwc(params: dict, x: torch.Tensor, *, stride: int = 1, padding="same",
+              groups: int = 1) -> torch.Tensor:
+    """A 2-D convolution of channels-last x (B, H, W, C) with the JAX
+    package's HWIO kernel (kh, kw, C / groups, out) and its bias, in x's
+    dtype; `padding` is "same" (stride 1), "valid" or F.conv2d's ints. The
+    NHWC tensor goes in as a channels-last NCHW view, so the convolution
+    keeps that memory format and the result comes back as NHWC without a
+    copy."""
+    w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, params["bias"].to(x.dtype), stride=stride,
+                 padding=padding, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """gelu_pytorch_tanh, the GPTBigCode activation."""
     return F.gelu(x, approximate="tanh")

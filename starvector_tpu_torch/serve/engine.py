@@ -480,8 +480,8 @@ class ServeEngine:
         self._tick_gen = torch.Generator(device=self.device).manual_seed(seed)
         self._admit_gen = torch.Generator(device=self.device).manual_seed(seed ^ 0x5EED)
         self._knob_cache: _Knobs | None = None
-        self._stats = {"tokens": 0, "ticks": 0, "admissions": 0, "spec_ticks": 0,
-                       "spec_extra_tokens": 0,
+        self._stats = {"tokens": 0, "ticks": 0, "admissions": 0, "prefill_chunks": 0,
+                       "spec_ticks": 0, "spec_extra_tokens": 0,
                        # tick start to the host having its tokens
                        "dispatch_s": 0.0, "dispatches": 0, "start_time": time.time()}
         # the decode loop holds _lock through each tick and yields it to any
@@ -631,12 +631,14 @@ class ServeEngine:
 
     def stats(self) -> dict:
         """Serving counters (vLLM-style gauges): emitted tokens, ticks,
-        admissions, uptime, average tokens/s."""
+        admissions, prefill chunks (each one forward of the decoder over an
+        admission group's prompts), uptime, average tokens/s."""
         up = max(time.time() - self._stats["start_time"], 1e-6)
         return {
             "tokens_emitted": self._stats["tokens"],
             "ticks": self._stats["ticks"],
             "admissions": self._stats["admissions"],
+            "prefill_chunks": self._stats["prefill_chunks"],
             "spec_ticks": self._stats["spec_ticks"],
             "spec_extra_tokens": self._stats["spec_extra_tokens"],
             "dispatch_s_total": round(self._stats["dispatch_s"], 4),
@@ -756,6 +758,7 @@ class ServeEngine:
         C = Pb // n_chunks
         last_idx = torch.tensor([P - 1 for P in lens], device=self.device)
         h_last = torch.zeros((k, cfg.hidden_size), dtype=policy.compute_dtype, device=self.device)
+        self._stats["prefill_chunks"] += n_chunks
         for ci in range(n_chunks):
             h_last = _prefill_chunk(self.dec, self.params, cfg, embeds[:, ci * C:(ci + 1) * C],
                                     mask[:, ci * C:(ci + 1) * C], small, h_last, last_idx, ci * C,
@@ -1133,6 +1136,12 @@ class ServeEngine:
     def generate_sync(self, req: Request, timeout: float = 600) -> list[int]:
         self.submit(req)
         self.start()
+        return self.result(req, timeout)
+
+    def result(self, req: Request, timeout: float = 600) -> list[int]:
+        """The ids of a request already submitted, once it is done (its
+        token events are read and dropped); raises on its error or after
+        `timeout` seconds."""
         deadline = time.time() + timeout
         while time.time() < deadline:
             try:

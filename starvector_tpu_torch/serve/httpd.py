@@ -2,9 +2,11 @@
 library (the JAX package's runs on aiohttp and requests; the port's serves
 and calls the same routes with http.server and urllib.request).
 
-A route is a function of (handler, JSON body). It answers with
-`handler.send_json(obj)`, or streams: `handler.start_stream(content_type)`
-then `handler.write_chunk(bytes)` per chunk. Responses are HTTP/1.0: a
+A POST route is a function of (handler, JSON body), a GET route of the
+handler alone. It answers with `handler.send_json(obj)` or
+`handler.send_body(bytes, content_type)`, or streams:
+`handler.start_stream(content_type)` then `handler.write_chunk(bytes)` per
+chunk. Responses are HTTP/1.0: a
 stream carries no length and ends when the connection closes, which both
 aiohttp's and urllib's clients read as the end of the body.
 """
@@ -31,7 +33,18 @@ def post_json_reply(url: str, payload: dict, timeout: float) -> dict:
 
 
 class _Handler(BaseHTTPRequestHandler):
-    routes: dict = {}  # set per server by make_server
+    routes: dict = {}      # POST routes, set per server by make_server
+    get_routes: dict = {}  # GET routes: fn(handler)
+
+    def do_GET(self):  # noqa: N802 — http.server's name
+        route = self.get_routes.get(self.path.split("?", 1)[0])
+        if route is None:
+            self.send_json({"error": f"no route {self.path}"}, status=404)
+            return
+        try:
+            route(self)
+        except (BrokenPipeError, ConnectionResetError):
+            pass
 
     def do_POST(self):  # noqa: N802 — http.server's name
         route = self.routes.get(self.path.split("?", 1)[0])
@@ -51,9 +64,11 @@ class _Handler(BaseHTTPRequestHandler):
             pass  # the client went away; the request's work has finished or goes on alone
 
     def send_json(self, obj, status: int = 200) -> None:
-        data = json.dumps(obj).encode()
+        self.send_body(json.dumps(obj).encode(), "application/json", status)
+
+    def send_body(self, data: bytes, content_type: str, status: int = 200) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
@@ -71,12 +86,15 @@ class _Handler(BaseHTTPRequestHandler):
         pass  # one line a request on stderr is noise beside a streaming server
 
 
-def make_server(host: str, port: int, routes: dict) -> ThreadingHTTPServer:
+def make_server(host: str, port: int, routes: dict,
+                get_routes: dict | None = None) -> ThreadingHTTPServer:
     """A threading HTTP server (one thread a request, daemon threads) whose
-    POST routes are `routes` {path: fn(handler, body)}. Port 0 takes a free
-    one (server.server_address). Run server.serve_forever(); end it with
+    POST routes are `routes` {path: fn(handler, body)} and GET routes
+    `get_routes` {path: fn(handler)}. Port 0 takes a free one
+    (server.server_address). Run server.serve_forever(); end it with
     shutdown() and server_close()."""
-    handler = type("Handler", (_Handler,), {"routes": dict(routes)})
+    handler = type("Handler", (_Handler,), {"routes": dict(routes),
+                                            "get_routes": dict(get_routes or {})})
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
     return server

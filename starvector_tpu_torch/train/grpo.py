@@ -17,6 +17,9 @@ rollouts) and no loop; the JAX package completes it, and this is its port:
             k3 KL to a frozen copy of the decoder, the train/optim.py chain
             with its freeze mask (only the decoder trains)
 
+`main` is the driver (the port of scripts/train_grpo.py):
+`python -m starvector_tpu_torch.train.grpo config=... [dotlist]`.
+
 Ratios take the model's raw log-probs on both sides, so the first update
 after a rollout starts at ratio 1 (old_lp is the detached new_lp); with
 updates_per_rollout > 1 the behaviour log-probs are computed once, before
@@ -32,6 +35,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from starvector_tpu_torch import require_device
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.train.optim import Chain, build_optimizer, global_norm, tree_leaves, \
@@ -264,3 +268,97 @@ class GRPOTrainer:
                    reward_max=float(rewards.max()), valid_frac=float((rewards > 0.0).mean()),
                    step=self.step_count, rollout_s=t1 - t0, reward_s=t2 - t1, update_s=t3 - t2)
         return out
+
+
+# ---------------------------------------------------------------------------
+# the driver (port of scripts/train_grpo.py)
+# ---------------------------------------------------------------------------
+
+def main(config):
+    """GRPO post-training from a config, as scripts/train_grpo.py drives the
+    JAX trainer:
+
+        python -m starvector_tpu_torch.train.grpo \\
+            config=configs/models/starvector-1b/im2svg-grpo.yaml \\
+            model.pretrained_path=/ckpts/starvector-1b grpo.steps=500
+
+    The model is `model.pretrained_path` (from_pretrained), else the
+    model block's random weights (models/builder.py::model_builder) with
+    the test tokenizer of its decoder. Each step takes data.batch_size
+    items of `data.train` in order, rasterizes their SVGs at
+    grpo.reward_resolution as the reward's targets, logs the step's metrics
+    to MetricsSink under project.out_dir, and saves {"params"} as
+    checkpoint-<step> every training.checkpointing_steps steps and at the
+    last (rotated to training.checkpoints_total_limit). Runs on the card
+    unless training.device=cpu. The JAX driver first turns on XLA's
+    persistent compilation cache; the port compiles nothing at run time
+    (its kernels build once, ops/kernel_lib.py), so it has no counterpart.
+    Returns (model, the logged metrics of every step)."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM, tokenizer_version
+    from starvector_tpu_torch.config import instantiate_from_config
+    from starvector_tpu_torch.data.rasterize import rasterize_svg
+    from starvector_tpu_torch.models.builder import model_builder
+    from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+    from starvector_tpu_torch.train import checkpoint as ckpt
+    from starvector_tpu_torch.utils.logging import MetricsSink
+
+    g = config.get_path
+    device = require_device(g("training.device", "cuda"), "training.device=cpu")
+    pretrained = g("model.pretrained_path")
+    if pretrained:
+        model = StarVectorForCausalLM.from_pretrained(pretrained, device=device)
+    else:
+        params, cfg, tok = model_builder(config, device)
+        model = StarVectorForCausalLM(params, cfg, tok or build_test_tokenizer(
+            tokenizer_version(cfg)), device=device)
+    # the JAX driver's defaults (512 new tokens where GRPOConfig has 256)
+    gcfg = GRPOConfig(
+        num_generations=int(g("grpo.num_generations", 8)),
+        max_new_tokens=int(g("grpo.max_new_tokens", 512)),
+        temperature=float(g("grpo.temperature", 1.0)),
+        top_p=float(g("grpo.top_p", 0.9)),
+        clip_eps=float(g("grpo.clip_eps", 0.2)),
+        kl_beta=float(g("grpo.kl_beta", 0.0)),
+        updates_per_rollout=int(g("grpo.updates_per_rollout", 1)),
+        reward_resolution=int(g("grpo.reward_resolution", 224)),
+        ssim_weight=float(g("grpo.ssim_weight", 0.5)),
+    )
+    steps = int(g("grpo.steps", 1000))
+    trainer = GRPOTrainer(model, gcfg, lr=float(g("grpo.lr", 1e-6)), total_steps=steps,
+                          warmup_steps=int(g("grpo.warmup_steps", 0)),
+                          grad_clip=float(g("training.grad_clip", 1.0)))
+    ds = instantiate_from_config(g("data.train"))
+    batch_size = int(g("data.batch_size", 4))
+    out_dir = g("project.out_dir", f"runs/{g('project.name', 'starvector-grpo')}")
+    sink = MetricsSink(out_dir)
+    every = int(g("training.checkpointing_steps", 200))
+    records, idx = [], 0
+    for step in range(steps):
+        images, targets = [], []
+        while len(images) < batch_size:
+            item = ds[idx % len(ds)]
+            idx += 1
+            images.append(np.asarray(item["image"]))
+            targets.append(np.asarray(rasterize_svg(item["svg"],
+                                                    resolution=gcfg.reward_resolution)))
+        metrics = trainer.step(torch.as_tensor(np.stack(images), device=device), targets)
+        sink.log(metrics, step=metrics["step"])
+        records.append(metrics)
+        print(f"step {metrics['step']}: loss {metrics['loss']:.4f} "
+              f"reward {metrics['reward_mean']:.3f} "
+              f"valid {metrics['valid_frac']:.2f} kl {metrics['kl']:.4f}")
+        if (step + 1) % every == 0 or step + 1 >= steps:
+            ckpt.save_checkpoint(out_dir, metrics["step"], {"params": model.params},
+                                 total_limit=g("training.checkpoints_total_limit", 3))
+    sink.finish()
+    return model, records
+
+
+def main_cli():
+    from starvector_tpu_torch.config import get_config, resolve_repo_config
+
+    main(get_config(default_path=resolve_repo_config()))
+
+
+if __name__ == "__main__":
+    main_cli()

@@ -55,15 +55,20 @@ Schedule = Callable[[int], float]
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a nested dict, in insertion order."""
+    """Leaves of nested dicts and lists (the convolutional towers' levels),
+    in insertion order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 

@@ -1,10 +1,11 @@
 """The port stands alone: no module of starvector_tpu_torch, and not
 chip_smoke.py, imports jax or the JAX package; its training entry point and
-from_pretrained run with neither in sys.modules, its serving stack without
-aiohttp or requests either, and its eval harness without pandas or
-requests; its entry points run on the card unless
-asked for the CPU; and its own copies of the JAX package's
-config, tokenizer, dataset and loader modules give the JAX loader's batch.
+from_pretrained run with neither in sys.modules, its serving stack (the web
+UI too) without aiohttp or requests either, and its eval harness without
+pandas or requests; its entry points (the quickstarts, the GRPO driver and
+the web UI among them) run on the card unless asked for the CPU; and its
+own copies of the JAX package's config, tokenizer, dataset and loader
+modules give the JAX loader's batch.
 
 The run that checks sys.modules is a subprocess: this test process has
 imported jax (tests/conftest.py)."""
@@ -181,13 +182,29 @@ def test_entry_points_refuse_to_run_without_a_card(tmp_path):
                         (controller.main, ["--port", "0"])):
         with pytest.raises(RuntimeError, match="--device cpu"):
             entry(argv)
+    # the quickstarts, the web UI and the GRPO driver
+    from starvector_tpu_torch import quickstart, quickstart_serve
+    from starvector_tpu_torch.serve import webui
+    from starvector_tpu_torch.train import grpo
+
+    for entry, argv in ((quickstart.main, ["--random-tiny", str(tmp_path / "x.png")]),
+                        (quickstart_serve.main, ["--random-tiny", str(tmp_path / "x.png")]),
+                        (webui.main, ["--port", "0", "--log-dir", str(tmp_path / "votes")])):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            entry(argv)
+    assert not (tmp_path / "votes").exists()
+    with pytest.raises(RuntimeError, match="training.device=cpu"):
+        grpo.main(ConfigNode({"project": {"out_dir": str(tmp_path / "grpo")},
+                              "model": {"preset": "tiny"}}))
+    assert not (tmp_path / "grpo").exists()
 
 
-def test_serving_leaves_jax_aiohttp_and_requests_out():
+def test_serving_leaves_jax_aiohttp_and_requests_out(tmp_path):
     """The port's worker and controller modules, a tiny engine on the CPU
-    serving one greedy request, and the worker's and controller's HTTP
-    servers, in one fresh process: neither jax, the JAX package, aiohttp nor
-    requests gets imported."""
+    serving one greedy request, the worker's, controller's and web UI's HTTP
+    servers, and the quickstart_serve and GRPO driver modules, in one fresh
+    process: neither jax, the JAX package, aiohttp nor requests gets
+    imported."""
     code = textwrap.dedent(f"""
         import sys
         import torch
@@ -203,8 +220,11 @@ def test_serving_leaves_jax_aiohttp_and_requests_out():
         out = w.engine.generate_sync(Request(prefix_embeds=emb, max_new_tokens=3,
                                              do_sample=False), timeout=120)
         assert len(out) == 3, out
-        for srv in (worker.build_server(w), controller.build_server(controller.Controller())):
+        from starvector_tpu_torch.serve import webui
+        for srv in (worker.build_server(w), controller.build_server(controller.Controller()),
+                    webui.build_server("http://w", {str(tmp_path / "votes")!r})):
             srv.server_close()
+        import starvector_tpu_torch.quickstart_serve, starvector_tpu_torch.train.grpo  # noqa: F401
         w.shutdown()
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in {FORBIDDEN + ("aiohttp", "requests")!r})

@@ -5,10 +5,11 @@ image-encoder dispatch and processor, and the LayerNorm adapter at the 8B's
 Tolerance 2e-4 (the JAX package's HF parity tolerance), 1e-5 for the
 adapter norm."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from starvector_tpu.models import adapter as jad
@@ -75,7 +76,8 @@ def test_siglip_matches_hf_siglip_vision_model():
 def test_siglip_384_encoder_and_processor():
     """The 8B tower's dispatch: siglip_384 is SigLIP-large-patch16-384 at
     (1024 wide, 576 tokens) with no ln_vision, as in the JAX package; its
-    processor resizes to 384 with SigLIP's statistics (0.5, 0.5)."""
+    processor resizes to 384 with SigLIP's statistics (0.5, 0.5). The
+    512 and 256 towers' configs equal the JAX package's."""
     enc = tie.ImageEncoderConfig("siglip_384", 384)
     jenc = jie.ImageEncoderConfig("siglip_384", 384)
     assert enc.geometry == jenc.geometry == (1024, 576)
@@ -92,10 +94,12 @@ def test_siglip_384_encoder_and_processor():
     assert proc.size == 384 and proc.mean.tolist() == proc.std.tolist() == [0.5] * 3
     img = np.full((20, 30, 3), 255, np.uint8)
     assert torch.allclose(proc(img), torch.ones((384, 384, 3)))  # white -> (1 - 0.5) / 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        tproc.processor_for_encoder("siglip_512")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        tie.ImageEncoderConfig("siglip_256").tower_config
+    # the base towers at 512 and 256, refused until the other towers were
+    # ported, now take the JAX package's geometry and statistics
+    assert tproc.processor_for_encoder("siglip_512").size == 512
+    for name in ("siglip_512", "siglip_256"):
+        assert tie.ImageEncoderConfig(name).tower_config == \
+            tsig.SigLIPConfig(**dataclasses.asdict(jie.ImageEncoderConfig(name).tower_config))
 
 
 def test_layer_norm_adapter_at_the_8b_shape():
