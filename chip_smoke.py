@@ -171,6 +171,19 @@ Phases, one line each (any failure raises and exits non-zero):
      B=2, G=2, 64 tokens, 2 steps, a checkpoint at step 2): 2 steps logged,
      checkpoint-2 restored to the trainer's parameters bit for bit, kernels
      1, 2, 5 and 6 launched; its steps' seconds
+  5e. data-parallel / ZeRO-3 training's path on one card: train.main on
+     configs/models/starvector-1b/im2svg-icons.yaml at full 1B width and
+     all 24 layers, bf16 compute, dots_flash, B=2, T=257+512=769, 3 steps,
+     in a process group of world size 1 over NCCL (torchrun's variables;
+     mesh fsdp: -1, parameters and AdamW state registered as shards, the
+     loss's count, the BatchNorm statistics and the gradients summed over
+     the one rank) and again as one plain process: each step's loss and the
+     parameters after the last equal (the first loss bit for bit, the rest
+     1e-4 relative, each parameter within AdamW's two steps of lr a step);
+     24 + 24 + 24 launches of kernels 5 and 6 a step; the mesh run's peak
+     memory and seconds. The multi-rank layouts need a second card (NCCL
+     takes one rank a device) and are held on the CPU over gloo
+     (tests/test_torch_fsdp_train.py, tests/test_torch_parallel.py)
   6. inference at full StarVector-8B width (StarCoder2-7B 4608 wide, GQA
      36/4, window 4096; SigLIP-L/16 at 384; LayerNorm adapter) and 8 of its
      32 decoder layers (DEPTH_8B) on random bf16 weights that
@@ -244,6 +257,7 @@ import functools
 import gc
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -3965,6 +3979,153 @@ def entry_points_1b(tfa, dev, card: str, ckpt: str, work: Path) -> dict:
 
 
 GRPO_YAML = "configs/models/starvector-1b/im2svg-grpo.yaml"
+MESH_YAML = "configs/models/starvector-1b/im2svg-icons.yaml"
+MESH_STEPS = 3
+
+
+class LongSVGDataset:
+    """Phase 5e's in-memory dataset (the train split's `target`): seeded
+    synthetic images processed for the CLIP tower at `size` px, and SVGs
+    of 120 paths, long enough that every row fills the loader's 512 svg
+    tokens (T = 257 + 512 at 224 px). The yaml's hub keys are taken and
+    ignored."""
+
+    def __init__(self, n: int = 4, seed: int = 0, size: int = 224, **_):
+        from starvector_tpu_torch.data.processor import processor_for_encoder
+
+        images = processor_for_encoder("clip", size, device="cpu").batch(
+            synthetic_images(n, seed)).numpy()
+        rng = np.random.default_rng(seed)
+        self.items = []
+        for i in range(n):
+            paths = "".join(f'<path d="M{a} {b} L{c} {d} Z" fill="#{e:06x}"/>'
+                            for a, b, c, d, e in rng.integers(0, size, (120, 5)))
+            self.items.append({"svg": f'<svg xmlns="http://www.w3.org/2000/svg" width="{size}" '
+                                      f'height="{size}">{paths}</svg>',
+                               "image": images[i], "caption": "", "id": f"long-{i}"})
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return dict(self.items[i])
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_train_1b(tfa, dev, card: str, work: Path, overrides: tuple = ()) -> dict:
+    """Phase 5e: `python -m starvector_tpu_torch.train.train` through its
+    main on MESH_YAML at full 1B width and all 24 layers (LongSVGDataset,
+    B=2, T=769, bf16 compute, dots_flash, no warm-up, MESH_STEPS steps),
+    first in a process group of world size 1 over NCCL (torchrun's
+    variables set in this process: main joins the group, lays out the mesh,
+    fsdp: -1 over the one rank, and ends the group), then as one plain
+    process. Each run's checkpoint at the last step is recorded, not
+    written (the 1B's state is 17 GB). The runs must log the same losses
+    (the first bit for bit, the others 1e-4 relative) and end with the same
+    parameters, each within 2 x lr x MESH_STEPS (AdamW moves an element at
+    most lr a step; the embedding's backward adds in an order of its own a
+    run), and the mesh run must launch exactly 24 forwards (kernel 5) and
+    24 + 24 backward kernels (kernel 6) a step and nothing else. `overrides`
+    are more dotlist entries (a rehearsal's smaller model). Returns the
+    launches, peak memory and seconds of the mesh run."""
+    import torch.distributed as dist
+
+    from starvector_tpu_torch.config import get_config, resolve_repo_config
+    from starvector_tpu_torch.train import checkpoint as ckpt
+    from starvector_tpu_torch.train import train as train_mod
+    from starvector_tpu_torch.train.optim import tree_leaves
+
+    if not overrides:  # every row fills the 512 svg tokens: T = 257 + 512
+        from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
+
+        tok = build_test_tokenizer("v1")
+        lengths = [tok([item["svg"]], max_length=4096)["input_ids"].shape[1]
+                   for item in LongSVGDataset(4, 31).items]
+        if min(lengths) < 512:
+            raise AssertionError(f"5e: svg token lengths {lengths}")
+
+    def run(name: str, env: dict) -> dict:
+        out = work / name
+        argv = [f"config={Path(__file__).resolve().parent / MESH_YAML}",
+                f"data.train.target={__name__}.LongSVGDataset", "data.train.params.n=4",
+                "data.train.params.seed=31", "data.val=null", "data.batch_size=2",
+                "data.max_length=512", "data.num_workers=2", f"training.steps={MESH_STEPS}",
+                "training.grad_accum_steps=1", "training.lr_warmup_steps=0",
+                "training.log_every=1", "project.snapshot_code=false",
+                f"project.out_dir={out}", *overrides]
+        config = get_config(argv, default_path=resolve_repo_config())
+        saved = []
+        real_save = ckpt.save_checkpoint
+        ckpt.save_checkpoint = lambda base, step, state, **kw: saved.append(
+            (step, len(tree_leaves(state["params"]))))
+        os.environ.update(env)
+        reset_counts(tfa)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as stdout:
+                params = train_mod.main(config)
+            torch.cuda.synchronize()
+        finally:
+            ckpt.save_checkpoint = real_save
+            for k in env:
+                os.environ.pop(k, None)
+        wall = time.perf_counter() - t0
+        logged = [json.loads(line) for line in open(out / "metrics.jsonl")]
+        return dict(params=params, losses=[r["loss"] for r in logged if "loss" in r],
+                    steps=[r["step"] for r in logged if "loss" in r], counts=read_counts(tfa),
+                    peak=torch.cuda.max_memory_allocated(), wall=wall, saved=saved,
+                    printed=stdout.getvalue(), lr=float(config.get_path("training.lr")))
+
+    mesh = run("mesh", {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                        "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())})
+    if dist.is_initialized():
+        raise AssertionError("5e: train.main left its process group open")
+    summary = [line for line in mesh["printed"].splitlines() if line.startswith("Mesh(")]
+    plain = run("plain", {})
+    n_layers = mesh["params"]["svg_transformer"]["layers"]["ln_1"]["scale"].shape[0]
+    per_step = {k: mesh["counts"][k] / MESH_STEPS for k in TRAIN_KERNELS}
+    others = {k: mesh["counts"][k] for k in ("flash_prefill", "decode_attention", "quant_matmul")}
+    if any(v != n_layers for v in per_step.values()) or any(others.values()):
+        raise AssertionError(f"5e launches {mesh['counts']}")
+    if mesh["steps"] != list(range(1, MESH_STEPS + 1)) or plain["steps"] != mesh["steps"]:
+        raise AssertionError(f"5e steps logged {mesh['steps']} / {plain['steps']}")
+    if mesh["saved"] != [(MESH_STEPS, len(tree_leaves(plain["params"])))] or \
+            mesh["saved"] != plain["saved"]:
+        raise AssertionError(f"5e checkpoints {mesh['saved']} / {plain['saved']}")
+    if len(summary) != 1 or "; 1 devices)" not in summary[0]:
+        raise AssertionError(f"5e mesh summary {summary}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"], plain["losses"])]
+    diffs = [float((a.detach() - b.detach()).abs().max())
+             for a, b in zip(tree_leaves(mesh["params"]), tree_leaves(plain["params"]))]
+    moved = sum(d > 0 for d in diffs)
+    bound_p = 2 * mesh["lr"] * MESH_STEPS
+    if mesh["losses"][0] != plain["losses"][0] or max(rel) > 1e-4 or max(diffs) > bound_p:
+        raise AssertionError(f"5e: losses {mesh['losses']} / {plain['losses']}, parameter "
+                             f"max |diff| {max(diffs):.3e} (bound {bound_p:.1e})")
+    log("mesh", f"{card}: train.main on {MESH_YAML} at full 1B width, {n_layers} layers, bf16 "
+                f"compute, dots_flash, B=2, T=769, {MESH_STEPS} steps, in an NCCL process group "
+                f"of world size 1 ({summary[0]}): losses {mesh['losses']} == one plain "
+                f"process's {plain['losses']} (first bit for bit, max relative "
+                f"{max(rel):.2e}); parameters after step {MESH_STEPS}: max |diff| "
+                f"{max(diffs):.3e} over {len(diffs)} leaves, {moved} not bit for bit (bound "
+                f"{bound_p:.1e}); launches a step {per_step} ({n_layers} layers: kernel 5 "
+                f"forward, kernel 6 dkdv + dq); rank 0 wrote the checkpoint at step {MESH_STEPS}; "
+                f"seconds: mesh {mesh['wall']:.1f}, plain {plain['wall']:.1f}")
+    log("mesh", f"{card}: peak memory of the mesh run {mesh['peak'] / 2**30:.2f} GiB "
+                f"(plain {plain['peak'] / 2**30:.2f} GiB)")
+    del mesh["params"], plain["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=mesh["counts"], peak=mesh["peak"], wall=mesh["wall"])
 
 
 def grpo_driver_1b(tfa, dev, card: str, work: Path, overrides: tuple = ()) -> dict:
@@ -5466,6 +5627,13 @@ def main() -> int:
         t_5d = time.perf_counter()
         grpo_run = grpo_driver_1b(tfa, dev, card, work)
         log("phase", f"5d took {time.perf_counter() - t_5d:.0f} s")
+
+        # --- 5e. train.main on an NCCL process group of one rank --------------------
+        phase("5e", "train.main in an NCCL process group of world size 1 (fsdp: -1) against "
+                    "one plain process, full 1B")
+        t_5e = time.perf_counter()
+        mesh_run = mesh_train_1b(tfa, dev, card, work)
+        log("phase", f"5e took {time.perf_counter() - t_5e:.0f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5552,6 +5720,8 @@ def main() -> int:
     for row in kernels_json:
         if row["name"] in grpo_run["launches"]:
             row["grpo_driver_launches"] = grpo_run["launches"][row["name"]]
+        if row["name"] in TRAIN_KERNELS:  # phase 5e's run, all its steps
+            row["mesh_launches"] = mesh_run["launches"][row["name"]]
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)
     kernels_json += training_times_8b(tfa, dev, card, t8, err_train)
     long_context_times(tfa, dev, card)

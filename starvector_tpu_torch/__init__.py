@@ -31,6 +31,9 @@ Layer map:
   data/, train/, config.py -- datasets, rasterizer (native/), loader, the
                    training entry point, optimizers, HF export (train/hub.py),
                    GRPO and its driver (train/grpo.py)
+  parallel/     -- data-parallel and ZeRO-3 training under torchrun: the
+                   mesh, the partition rules' machinery, the collectives
+                   of a sharded step (zero.py)
   validation/   -- the eval harness: the validator base and registry, the
                    in-process (torch_validator.py) and REST
                    (serve_validator.py) validators, the CLI (validate.py),

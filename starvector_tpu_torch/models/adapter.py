@@ -20,6 +20,8 @@ import math
 import torch
 
 from starvector_tpu_torch.ops.layers import DTypePolicy, dense, dropout, swish, uniform_
+from starvector_tpu_torch.parallel import zero
+from starvector_tpu_torch.parallel.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +63,17 @@ def init_params(cfg: AdapterConfig, gen: torch.Generator, *, device="cpu",
     return params
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Path regex -> PartitionSpec, the JAX package's list."""
+    return [
+        (r"c_fc/kernel", P("fsdp", "tensor")),
+        (r"c_fc/bias", P("tensor")),
+        (r"c_proj/kernel", P("tensor", "fsdp")),
+        (r"c_proj/bias", P(None)),
+        (r"norm/", P(None, None)),
+    ]
+
+
 def _layer_norm_2d(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last two dims (torch LayerNorm([Q, D]))."""
     x32 = x.float()
@@ -70,6 +83,22 @@ def _layer_norm_2d(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
+def _batch_stats(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(mean, biased variance, count) per query over (batch, feature) of
+    the batch, as the JAX package takes them (the sum over the count, then
+    the mean squared deviation). On a data-parallel layout x32 holds this
+    rank's rows and the statistics are the global batch's, as JAX takes
+    them over its batch-sharded array: each sum is summed over the batch
+    ranks, in the forward and (for the gradient) in the backward. One batch
+    rank computes what one process does, bit for bit."""
+    rows = zero.global_rows(x32.shape[0])
+    total = zero.batch_sum_grad if rows is not None else (lambda t: t)
+    n = (x32.shape[0] if rows is None else rows[1]) * x32.shape[2]
+    mean = total(x32.sum(dim=(0, 2))) / n
+    var = total((x32 - mean[None, :, None]).square().sum(dim=(0, 2))) / n
+    return mean, var, n
+
+
 def _batch_norm_1d(p: dict, x: torch.Tensor, cfg: AdapterConfig,
                    train: bool = False) -> torch.Tensor:
     """BatchNorm1d(Q) on (B, Q, D): per-query statistics over (batch,
@@ -77,8 +106,7 @@ def _batch_norm_1d(p: dict, x: torch.Tensor, cfg: AdapterConfig,
     in training."""
     x32 = x.float()
     if train:
-        mean = x32.mean(dim=(0, 2))
-        var = x32.var(dim=(0, 2), unbiased=False)
+        mean, var, _ = _batch_stats(x32)
     else:
         mean, var = p["running_mean"].float(), p["running_var"].float()
     y = (x32 - mean[None, :, None]) * torch.rsqrt(var[None, :, None] + cfg.bn_eps)
@@ -91,10 +119,8 @@ def batch_norm_new_stats(p: dict, x: torch.Tensor, cfg: AdapterConfig) -> dict:
     update: new = (1 - m) old + m batch, with the unbiased variance).
     Computed without a graph: they are state, not parameters."""
     with torch.no_grad():
-        x32 = x.float()
-        n = x32.shape[0] * x32.shape[2]
-        mean = x32.mean(dim=(0, 2))
-        var = x32.var(dim=(0, 2), unbiased=False) * (n / max(n - 1, 1))
+        mean, var, n = _batch_stats(x.float())
+        var = var * (n / max(n - 1, 1))
         m = cfg.bn_momentum
         return {"running_mean": (1 - m) * p["running_mean"] + m * mean,
                 "running_var": (1 - m) * p["running_var"] + m * var}
@@ -110,6 +136,7 @@ def forward(params: dict, cfg: AdapterConfig, x: torch.Tensor, *,
             dropout_gen: torch.Generator | None = None) -> torch.Tensor:
     """(B, Q, input_size) -> (B, Q, output_size). `train` takes the
     BatchNorm batch statistics and, with `dropout_gen`, the input dropout."""
+    params = zero.gathered(params, policy)
     if train:
         x = dropout(x, cfg.dropout_prob, dropout_gen)
     h = _project(params, x, policy)
@@ -123,6 +150,7 @@ def forward_with_stats(params: dict, cfg: AdapterConfig, x: torch.Tensor, *,
                        dropout_gen: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
     """Training forward: (out, the new running statistics to merge into
     params["norm"] after the update; {} for a layer_norm adapter)."""
+    params = zero.gathered(params, policy)
     x = dropout(x, cfg.dropout_prob, dropout_gen)
     h = _project(params, x, policy)
     if cfg.adapter_norm == "layer_norm":

@@ -65,6 +65,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from starvector_tpu_torch.models import decode_common as dc
+from starvector_tpu_torch.parallel.mesh import BATCH_AXES, P
+from starvector_tpu_torch.parallel import zero
+from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, flash_prefill_trainable, merged_decode_attention,
 )
@@ -138,10 +141,38 @@ def init_params(cfg: GPTBigCodeConfig, gen: torch.Generator, *, device="cpu",
     }
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Path regex -> PartitionSpec, the JAX package's list (the leading
+    layer axis of a stacked leaf is "stage"): c_attn and c_fc
+    column-parallel (out dim on "tensor"), c_proj row-parallel (in dim on
+    "tensor"); the embedding tables over fsdp only."""
+    return [
+        (r"wte$|wpe$", P("fsdp", None)),
+        (r"layers/.*c_attn/kernel", P("stage", "fsdp", "tensor")),
+        (r"layers/.*c_attn/bias", P("stage", "tensor")),
+        (r"layers/.*attn/c_proj/kernel", P("stage", "tensor", "fsdp")),
+        (r"layers/.*attn/c_proj/bias", P("stage", None)),
+        (r"layers/.*c_fc/kernel", P("stage", "fsdp", "tensor")),
+        (r"layers/.*c_fc/bias", P("stage", "tensor")),
+        (r"layers/.*mlp/c_proj/kernel", P("stage", "tensor", "fsdp")),
+        (r"layers/.*mlp/c_proj/bias", P("stage", None)),
+        (r"layers/.*ln_[12]/", P("stage", None)),
+        (r"ln_f/", P(None)),
+    ]
+
+
 def init_cache(cfg: GPTBigCodeConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
     return dc.init_cache(cfg.n_layer, cfg.kv_heads, cfg.head_dim, batch, max_len,
                          dtype, device)
+
+
+def cache_partition_rules() -> list[tuple[str, P]]:
+    """The KV cache's specs (the JAX package's): rows over the batch axes."""
+    return [(r"k$|v$", P(None, BATCH_AXES, None, None, None)),
+            (r"k_scale$|v_scale$", P(None, BATCH_AXES, None, None)),
+            (r"kv_mask$", P(BATCH_AXES, None)),
+            (r"index$", P())]
 
 
 def compute_position_ids(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -151,7 +182,7 @@ def compute_position_ids(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["wte"][input_ids]
+    return gathered(params["wte"])[input_ids]
 
 
 def _split_qkv(cfg: GPTBigCodeConfig, qkv: torch.Tensor):
@@ -244,12 +275,17 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
     the part after it (c_proj, residual, ln_2, MLP) each and leaves the
     flash autograd Function between them (ops/layers.py::remat_layer), so
     the backward never re-runs the attention forward. The JAX policy also saves the MLP
-    down-projection output; here the post-attention part recomputes it."""
+    down-projection output; here the post-attention part recomputes it.
+
+    On a ZeRO-3 layout each part gathers its own weights first
+    (parallel/zero.py), inside its checkpoint, so that the backward gathers
+    them again rather than keep them."""
     B, S, E = x.shape
     H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
 
     def pre(x):
-        return (dense(p["attn"]["c_attn"], layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon),
+        g = gathered({"ln_1": p["ln_1"], "c_attn": p["attn"]["c_attn"]}, policy)
+        return (dense(g["c_attn"], layer_norm(g["ln_1"], x, cfg.layer_norm_epsilon),
                       policy, tag="dense_qkv_out"),)
 
     def attend(qkv):
@@ -258,8 +294,9 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
                                        v.unflatten(-1, (Hkv, D)), kv_mask, kernels=kernels)
 
     def post(x, attn):
-        x = x + dense(p["attn"]["c_proj"], attn.reshape(B, S, E), policy)
-        return _mlp(p, cfg, x, policy)
+        g = gathered({"c_proj": p["attn"]["c_proj"], "ln_2": p["ln_2"], "mlp": p["mlp"]}, policy)
+        x = x + dense(g["c_proj"], attn.reshape(B, S, E), policy)
+        return _mlp(g, cfg, x, policy)
 
     return remat_layer(pre, attend, post, remat)(x)
 
@@ -274,15 +311,15 @@ def _forward_uncached(params, cfg, inputs_embeds, attention_mask, position_ids, 
     if position_ids is None:
         position_ids = compute_position_ids(kv_mask)
     position_ids = torch.clamp(position_ids, 0, cfg.n_positions - 1)
-    x = x + policy.cast(params["wpe"][position_ids])
+    x = x + policy.cast(gathered(params["wpe"])[position_ids])
     for layer in layer_unbind(params["layers"], cfg.n_layer):
         x = _train_block(layer, cfg, x, kv_mask, policy, remat, kernels)
-    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
     if return_hidden:
         return x, None
     if last_logits_only:
         x = x[:, -1:]
-    return matmul_f32(policy.cast(x), policy.cast(params["wte"]).T), None
+    return matmul_f32(policy.cast(x), policy.cast(gathered(params["wte"])).T), None
 
 
 def forward(
@@ -629,7 +666,9 @@ def causal_lm_loss_fused(
     """Shift-by-one cross entropy with the LM head fused into chunks of
     `chunk` positions, each chunk checkpointed so that the backward
     recomputes its logits: the (B, S, V) fp32 logits and their gradient never
-    exist at once. Mean over the non-ignored targets."""
+    exist at once. Mean over the non-ignored targets; on a data-parallel
+    layout over those of the global batch (the count summed over the batch
+    ranks), so that the ranks' losses add up to the one-process loss."""
     h = policy.cast(hidden[:, :-1])
     y = labels[:, 1:].long()
     S = h.shape[1]
@@ -642,7 +681,7 @@ def causal_lm_loss_fused(
     for c in range(0, S + pad, chunk):
         total = total + checkpoint(_chunk_nll, h[:, c:c + chunk], y[:, c:c + chunk], table,
                                    use_reentrant=False)
-    return total / (y != -100).sum().clamp_min(1)
+    return total / zero.batch_sum((y != -100).sum()).clamp_min(1)
 
 
 def _chunk_logprobs(h: torch.Tensor, y: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

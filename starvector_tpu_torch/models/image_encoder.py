@@ -22,6 +22,8 @@ import torch
 
 from starvector_tpu_torch.models.vision import clip_vit, convnext, open_clip_vit, siglip, vqgan
 from starvector_tpu_torch.ops.layers import DTypePolicy, layer_norm, make_layer_norm_params
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
 
 ENCODER_GEOMETRY = {
     # type -> (hidden_size, query_length)
@@ -123,11 +125,26 @@ def params_from_checkpoint(cfg: ImageEncoderConfig, sd, *, dtype=None, prefix: s
     return params
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Every tower's specific rules first, then the towers' catch-alls
+    (first match wins: clip's `layers/.*` must not shadow SigLIP's
+    projections), as the JAX package orders them."""
+    specific, catchall = [], []
+    for mod in (clip_vit, siglip, vqgan, convnext):
+        for pattern, spec in mod.partition_rules():
+            full = r"visual_encoder/" + pattern.lstrip("^")
+            is_catchall = pattern.rstrip("$") in (r"layers/.*", r".*")
+            (catchall if is_catchall else specific).append((full, spec))
+    specific.append((r"visual_encoder/ln_post/", P(None)))
+    specific.append((r"ln_vision/", P(None)))
+    return specific + catchall
+
+
 def forward(params: dict, cfg: ImageEncoderConfig, images: torch.Tensor, *,
             policy: DTypePolicy = DTypePolicy(), remat: bool | str = False) -> torch.Tensor:
     """(B, H, W, 3) normalized, channels-last -> (B, query_length, hidden)."""
     embeds = _tower_module(cfg.image_encoder_type).forward(
         params["visual_encoder"], cfg.tower_config, images, policy=policy, remat=remat)
     if cfg.uses_ln_vision:
-        embeds = layer_norm(params["ln_vision"], embeds)
+        embeds = layer_norm(gathered(params["ln_vision"]), embeds)
     return embeds

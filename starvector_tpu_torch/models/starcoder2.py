@@ -51,6 +51,8 @@ import dataclasses
 import torch
 
 from starvector_tpu_torch.models import decode_common as dc
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, flash_prefill_trainable, merged_decode_attention,
 )
@@ -136,6 +138,24 @@ def init_params(cfg: StarCoder2Config, gen: torch.Generator, *, device="cpu",
     return params
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Path regex -> PartitionSpec, the JAX package's list (the tables over
+    fsdp only, as gpt_bigcode's)."""
+    return [
+        (r"embed_tokens$|lm_head$", P("fsdp", None)),
+        (r"layers/.*(q_proj|k_proj|v_proj)/kernel", P("stage", "fsdp", "tensor")),
+        (r"layers/.*(q_proj|k_proj|v_proj)/bias", P("stage", "tensor")),
+        (r"layers/.*o_proj/kernel", P("stage", "tensor", "fsdp")),
+        (r"layers/.*o_proj/bias", P("stage", None)),
+        (r"layers/.*c_fc/kernel", P("stage", "fsdp", "tensor")),
+        (r"layers/.*c_fc/bias", P("stage", "tensor")),
+        (r"layers/.*mlp/c_proj/kernel", P("stage", "tensor", "fsdp")),
+        (r"layers/.*mlp/c_proj/bias", P("stage", None)),
+        (r"layers/.*layernorm/", P("stage", None)),
+        (r"norm/", P(None)),
+    ]
+
+
 def init_cache(cfg: StarCoder2Config, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
     return dc.init_cache(cfg.num_hidden_layers, cfg.kv_heads, cfg.head_dim, batch, max_len,
@@ -156,7 +176,7 @@ def compute_position_ids(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][input_ids]
+    return gathered(params["embed_tokens"])[input_ids]
 
 
 def lm_head_table(params: dict, cfg: StarCoder2Config) -> torch.Tensor:
@@ -254,20 +274,25 @@ def _train_block(p, cfg: StarCoder2Config, x, kv_mask, rope, policy: DTypePolicy
     part before the attention (input_layernorm, q/k/v, RoPE) and the part
     after it (o_proj, residual, MLP) and leaves the flash autograd Function
     between them (ops/layers.py::remat_layer), so the backward never re-runs
-    the attention forward."""
+    the attention forward. On a ZeRO-3 layout each part gathers its own
+    weights inside its checkpoint (gpt_bigcode._train_block)."""
     B, S, _ = x.shape
 
     def pre(x):
-        h = layer_norm(p["input_layernorm"], x, cfg.norm_epsilon)
-        return _qkv(p["attn"], cfg, h, rope, policy, kernels)
+        g = gathered({"input_layernorm": p["input_layernorm"],
+                      "attn": {k: p["attn"][k] for k in ("q_proj", "k_proj", "v_proj")}}, policy)
+        h = layer_norm(g["input_layernorm"], x, cfg.norm_epsilon)
+        return _qkv(g["attn"], cfg, h, rope, policy, kernels)
 
     def attend(q, k, v):
         return flash_prefill_trainable(q, k, v, kv_mask, window=cfg.sliding_window,
                                        kernels=kernels)
 
     def post(x, attn):
-        x = x + dense(p["attn"]["o_proj"], attn.reshape(B, S, -1), policy, kernels=kernels)
-        return _mlp(p, cfg, x, policy, kernels)
+        g = gathered({"o_proj": p["attn"]["o_proj"], "mlp": p["mlp"],
+                      "post_attention_layernorm": p["post_attention_layernorm"]}, policy)
+        x = x + dense(g["o_proj"], attn.reshape(B, S, -1), policy, kernels=kernels)
+        return _mlp(g, cfg, x, policy, kernels)
 
     return remat_layer(pre, attend, post, remat)(x)
 
@@ -353,13 +378,13 @@ def forward(
     if cache is not None:
         cache["index"] = idx + S
 
-    x = layer_norm(params["norm"], x, cfg.norm_epsilon)
+    x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
     if return_hidden:
         return x, cache
     if last_logits_only:
         x = x[:, -1:]
     # compute-dtype operands, fp32 logits straight from the fp32 accumulator
-    logits = matmul_f32(policy.cast(x), policy.cast(lm_head_table(params, cfg)).T)
+    logits = matmul_f32(policy.cast(x), policy.cast(gathered(lm_head_table(params, cfg))).T)
     return logits, cache
 
 

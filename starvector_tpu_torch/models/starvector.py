@@ -21,6 +21,8 @@ from starvector_tpu_torch.models import adapter as adapter_mod
 from starvector_tpu_torch.models import gpt_bigcode, image_encoder, starcoder2
 from starvector_tpu_torch.models.vision.clip_vit import CLIPViTConfig
 from starvector_tpu_torch.ops.layers import DTypePolicy
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
 
 
 DECODERS = {  # decoder -> (module, its full-size config)
@@ -113,6 +115,15 @@ def tiny_config(task: str = "im2svg", decoder: str = "gpt_bigcode", **kw) -> Sta
                 task=task, llm=DECODERS[decoder][0].tiny_config())
     base.update(kw)
     return StarVectorConfig(**base)
+
+
+def partition_rules() -> list[tuple[str, P]]:
+    """The whole model's rules: each component's under its subtree."""
+    rules: list[tuple[str, P]] = []
+    for prefix, mod in (("svg_transformer/", gpt_bigcode), ("svg_transformer/", starcoder2),
+                        ("image_encoder/", image_encoder), ("image_projection/", adapter_mod)):
+        rules += [(prefix + pat.lstrip("^"), spec) for pat, spec in mod.partition_rules()]
+    return rules
 
 
 def _encoder_cfg(cfg: StarVectorConfig):
@@ -216,8 +227,9 @@ def _decoder_loss(params, cfg, inputs_embeds, attention_mask, targets, policy, r
     dec = cfg.decoder_module
     hidden, _ = dec.forward(params["svg_transformer"], cfg.llm, inputs_embeds, attention_mask,
                             policy=policy, remat=remat, return_hidden=True, kernels=kernels)
-    return gpt_bigcode.causal_lm_loss_fused(dec.lm_head_table(params["svg_transformer"], cfg.llm),
-                                            hidden, targets, policy=policy)
+    return gpt_bigcode.causal_lm_loss_fused(
+        gathered(dec.lm_head_table(params["svg_transformer"], cfg.llm)), hidden, targets,
+        policy=policy)
 
 
 def loss_fn(params: dict, cfg: StarVectorConfig, batch: dict, pad_token_id: int, *,
@@ -280,6 +292,6 @@ def grpo_forward(params: dict, cfg: StarVectorConfig, vision_embeds: torch.Tenso
                             policy=policy, remat=remat, return_hidden=True, kernels=kernels)
     # the hidden state at Q - 1 + t predicts input_ids[:, t]
     lp = gpt_bigcode.token_logprobs_fused(
-        dec.lm_head_table(params["svg_transformer"], cfg.llm),
+        gathered(dec.lm_head_table(params["svg_transformer"], cfg.llm)),
         hidden[:, Q - 1:Q - 1 + input_ids.shape[1]], input_ids, policy=policy)
     return torch.where(attention_mask > 0, lp, 0.0)

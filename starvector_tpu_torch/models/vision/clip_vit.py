@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from starvector_tpu_torch.ops.attention import multihead_attention
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
+from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.layers import (
     DTypePolicy, dense, layer_norm, layer_unbind, make_dense_params, make_layer_norm_params,
     maybe_checkpoint, normal_, quick_gelu,
@@ -73,6 +76,23 @@ def init_params(cfg: CLIPViTConfig, gen: torch.Generator, *, device="cpu",
     }
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Path regex -> PartitionSpec, the JAX package's list."""
+    return [
+        (r"patch_embed$", P(None, "tensor")),
+        (r"positional_embedding$", P(None, None)),
+        (r"class_embedding$", P(None)),
+        (r"layers/.*in_proj/kernel", P(None, "fsdp", "tensor")),
+        (r"layers/.*in_proj/bias", P(None, "tensor")),
+        (r"layers/.*out_proj/kernel", P(None, "tensor", "fsdp")),
+        (r"layers/.*c_fc/kernel", P(None, "fsdp", "tensor")),
+        (r"layers/.*c_fc/bias", P(None, "tensor")),
+        (r"layers/.*c_proj/kernel", P(None, "tensor", "fsdp")),
+        (r"layers/.*", P(None, None)),
+        (r"ln_pre/", P(None)),
+    ]
+
+
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     """(B, H, W, 3) -> (B, N, 3*patch*patch), ordered (C, ph, pw) within a
     patch like a Conv2d weight."""
@@ -101,13 +121,16 @@ def forward(params: dict, cfg: CLIPViTConfig, images: torch.Tensor, *,
     """(B, H, W, 3) normalized images -> (B, num_tokens, width), before
     ln_vision. Differentiable; `remat` checkpoints each block
     (layers.maybe_checkpoint: any mode the tower takes recomputes the whole
-    block, since its attention is plain torch)."""
+    block, since its attention is plain torch). On a ZeRO-3 layout each
+    block gathers its weights inside its checkpoint (parallel/zero.py)."""
     B = images.shape[0]
+    top = gathered({k: v for k, v in params.items() if k != "layers"})
     x = patchify(policy.cast(images), cfg.patch_size)
-    x = torch.matmul(x, policy.cast(params["patch_embed"]))
-    cls = policy.cast(params["class_embedding"]).expand(B, 1, cfg.width)
-    x = torch.cat([cls, x], dim=1) + policy.cast(params["positional_embedding"])[None]
-    x = layer_norm(params["ln_pre"], x, cfg.ln_eps)
+    x = torch.matmul(x, policy.cast(top["patch_embed"]))
+    cls = policy.cast(top["class_embedding"]).expand(B, 1, cfg.width)
+    x = torch.cat([cls, x], dim=1) + policy.cast(top["positional_embedding"])[None]
+    x = layer_norm(top["ln_pre"], x, cfg.ln_eps)
     for layer in layer_unbind(params["layers"], cfg.layers):
-        x = maybe_checkpoint(lambda x, p=layer: _block(p, cfg, x, policy), remat)(x)
+        x = maybe_checkpoint(lambda x, p=layer: _block(gathered(p, policy), cfg, x, policy),
+                             remat)(x)
     return x

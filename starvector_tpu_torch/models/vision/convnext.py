@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from starvector_tpu_torch.ops.layers import DTypePolicy, conv_nhwc, layer_norm, normal_
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +105,17 @@ def _block(p: dict, cfg: ConvNeXtConfig, x: torch.Tensor) -> torch.Tensor:
     return x + h * p["gamma"].to(h.dtype)
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Every leaf replicated (the JAX package's rule)."""
+    return [(r".*", P(None))]
+
+
 def forward(params: dict, cfg: ConvNeXtConfig, images: torch.Tensor, *,
             policy: DTypePolicy = DTypePolicy(), remat: bool | str = False) -> torch.Tensor:
     """(B, H, W, 3) normalized images -> (B, tokens, dims[-1]), the last
     stage's map flattened. `remat` is taken and ignored, as in the JAX
     package."""
+    params = gathered(params)  # replicated by its rules; whole on a layout
     x = conv_nhwc(params["stem"]["conv"], policy.cast(images), stride=cfg.patch, padding="valid")
     x = layer_norm(params["stem"]["norm"], x, cfg.ln_eps)
     for stage in params["stages"]:

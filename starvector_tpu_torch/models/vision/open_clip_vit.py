@@ -18,6 +18,8 @@ import torch
 
 from starvector_tpu_torch.models.vision import clip_vit
 from starvector_tpu_torch.ops.layers import DTypePolicy, layer_norm, make_layer_norm_params
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,12 +55,17 @@ def init_params(cfg: OpenCLIPViTConfig, gen: torch.Generator, *, device="cpu",
     return params
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """The trunk's rules and ln_post, the JAX package's list."""
+    return clip_vit.partition_rules() + [(r"ln_post/", P(None))]
+
+
 def forward(params: dict, cfg: OpenCLIPViTConfig, images: torch.Tensor, *,
             policy: DTypePolicy = DTypePolicy(), remat: bool | str = False) -> torch.Tensor:
     """(B, H, W, 3) normalized images -> the patch tokens (B, num_tokens,
     width), ln_post applied, before ln_vision."""
     x = clip_vit.forward(params, cfg.trunk, images, policy=policy, remat=remat)
-    return layer_norm(params["ln_post"], x, cfg.ln_eps)[:, 1:]
+    return layer_norm(gathered(params["ln_post"]), x, cfg.ln_eps)[:, 1:]
 
 
 def from_torch_state_dict(sd, cfg: OpenCLIPViTConfig, *, dtype=None, prefix: str = "visual.",

@@ -21,6 +21,8 @@ import torch
 
 from starvector_tpu_torch.models.vision.clip_vit import patchify
 from starvector_tpu_torch.ops.attention import multihead_attention
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.layers import (
     DTypePolicy, dense, gelu_tanh, layer_norm, layer_unbind, make_dense_params,
     make_layer_norm_params, matmul_f32, maybe_checkpoint, normal_,
@@ -94,6 +96,22 @@ def init_params(cfg: SigLIPConfig, gen: torch.Generator, *, device="cpu",
     }
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Path regex -> PartitionSpec, the JAX package's list."""
+    return [
+        (r"patch_embed/kernel", P(None, "tensor")),
+        (r"position_embedding$", P(None, None)),
+        (r"layers/.*(q_proj|k_proj|v_proj)/kernel", P(None, "fsdp", "tensor")),
+        (r"layers/.*(q_proj|k_proj|v_proj)/bias", P(None, "tensor")),
+        (r"layers/.*out_proj/kernel", P(None, "tensor", "fsdp")),
+        (r"layers/.*fc1/kernel", P(None, "fsdp", "tensor")),
+        (r"layers/.*fc1/bias", P(None, "tensor")),
+        (r"layers/.*fc2/kernel", P(None, "tensor", "fsdp")),
+        (r"layers/.*", P(None, None)),
+        (r"post_layernorm/", P(None)),
+    ]
+
+
 def _block(p: dict, cfg: SigLIPConfig, x: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
     B, N, W = x.shape
     H = cfg.heads
@@ -110,11 +128,14 @@ def forward(params: dict, cfg: SigLIPConfig, images: torch.Tensor, *,
     """(B, H, W, 3) normalized images -> last_hidden_state
     (B, num_tokens, hidden_size), post_layernorm included. The patch
     product accumulates in fp32 and takes its bias in fp32 before the one
-    rounding, as the JAX einsum does."""
+    rounding, as the JAX einsum does. On a ZeRO-3 layout each block gathers
+    its weights inside its checkpoint (parallel/zero.py)."""
+    top = gathered({k: v for k, v in params.items() if k != "layers"}, policy)
     x = patchify(policy.cast(images), cfg.patch_size)
-    x = matmul_f32(x, policy.cast(params["patch_embed"]["kernel"]))
-    x = (x + params["patch_embed"]["bias"].float()).to(policy.compute_dtype)
-    x = x + policy.cast(params["position_embedding"])[None]
+    x = matmul_f32(x, policy.cast(top["patch_embed"]["kernel"]))
+    x = (x + top["patch_embed"]["bias"].float()).to(policy.compute_dtype)
+    x = x + policy.cast(top["position_embedding"])[None]
     for layer in layer_unbind(params["layers"], cfg.layers):
-        x = maybe_checkpoint(lambda x, p=layer: _block(p, cfg, x, policy), remat)(x)
-    return layer_norm(params["post_layernorm"], x, cfg.ln_eps)
+        x = maybe_checkpoint(lambda x, p=layer: _block(gathered(p, policy), cfg, x, policy),
+                             remat)(x)
+    return layer_norm(top["post_layernorm"], x, cfg.ln_eps)

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from starvector_tpu_torch.ops.layers import DTypePolicy, conv_nhwc, normal_, swish
+from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.zero import gathered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,12 +135,19 @@ def _attn_block(p: dict, x: torch.Tensor, groups: int) -> torch.Tensor:
     return x + conv_nhwc(p["proj_out"], out)
 
 
+def partition_rules() -> list[tuple[str, P]]:
+    """Every leaf replicated: the convolutions are small beside the
+    decoders (the JAX package's rule)."""
+    return [(r".*", P(None))]
+
+
 def forward(params: dict, cfg: VQGANEncoderConfig, images: torch.Tensor, *,
             policy: DTypePolicy = DTypePolicy(), remat: bool | str = False) -> torch.Tensor:
     """(B, H, W, 3) normalized images -> (B, tokens, z_channels), the
     flattened feature map (the reference's view(B, C, -1).permute(0, 2, 1)).
     `remat` is taken and ignored, as in the JAX package: the tower is
     shallow."""
+    params = gathered(params)  # replicated by its rules; whole on a layout
     g = cfg.group_norm_groups
     x = conv_nhwc(params["conv_in"], policy.cast(images))
     for level in params["down"]:

@@ -27,6 +27,8 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from starvector_tpu_torch.parallel import zero
+
 
 @dataclasses.dataclass(frozen=True)
 class DTypePolicy:
@@ -143,11 +145,14 @@ def layer_unbind(tree, n: int) -> list:
     """All n layers of a stacked parameter dict, as views. For training:
     one `unbind` per leaf has one backward node that stacks the n layers'
     gradients, where n `layer_slice` calls would each scatter into a
-    zero-filled copy of the whole stack."""
+    zero-filled copy of the whole stack. The layers of a ZeRO-3 shard lie
+    as their stack does (parallel/zero.py::note_views)."""
     if isinstance(tree, dict):
         per_key = {k: layer_unbind(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(tree.unbind(0))
+    views = list(tree.unbind(0))
+    zero.note_views(tree, views)
+    return views
 
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -264,10 +269,19 @@ def remat_layer(pre, attend, post, remat):
 def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout with keep-probability 1 - p, drawn from `gen`
     (no generator, or p = 0: the identity). A torch.Generator does not give
-    jax.random's bits: the distribution is the same, the mask is not."""
+    jax.random's bits: the distribution is the same, the mask is not. On a
+    data-parallel layout x is this rank's block of the global batch's rows:
+    the mask is drawn for the global batch and the block's rows taken, so
+    that N ranks drop what one process would."""
     if gen is None or p <= 0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1 - p
+    rows = zero.global_rows(x.shape[0])
+    if rows is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1 - p
+    else:
+        lo, total = rows
+        keep = torch.rand((total, *x.shape[1:]), generator=gen,
+                          device=x.device)[lo:lo + x.shape[0]] < 1 - p
     return torch.where(keep, x / (1 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

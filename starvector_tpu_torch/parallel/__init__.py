@@ -1,0 +1,27 @@
+"""Data-parallel and ZeRO-3 training across GPUs (port of
+starvector_tpu/parallel/): the mesh (mesh.py), the partition rules'
+machinery (sharding.py) and the collectives of a sharded step (zero.py).
+Sequence, tensor and pipeline parallelism are not ported yet (ROADMAP
+queue 1, item 12)."""
+
+from starvector_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    batch_spec,
+    create_mesh,
+    local_mesh_summary,
+)
+from starvector_tpu_torch.parallel.sharding import (
+    apply_partition_rules,
+    make_param_shardings,
+    shard_pytree,
+)
+
+__all__ = [
+    "MeshConfig",
+    "create_mesh",
+    "batch_spec",
+    "local_mesh_summary",
+    "make_param_shardings",
+    "apply_partition_rules",
+    "shard_pytree",
+]

@@ -1,0 +1,157 @@
+"""Partition rules: parameter-tree paths -> PartitionSpecs (port of
+starvector_tpu/parallel/sharding.py).
+
+Each model module exports `partition_rules()`, an ordered list of
+(path regex, P) pairs, first match wins, matched against the "/"-joined
+path of a leaf in the parameter tree (dict keys and list indices), the same
+lists over the same paths as the JAX package's. The spec functions are pure
+functions of (path, shape, mesh shape), where a mesh is a DeviceMesh over
+MESH_AXES or a mapping {axis: size}.
+
+Conventions of the rules (the JAX package's):
+  * 2-D weights shard (fsdp, tensor) or (tensor, fsdp), column- or
+    row-parallel; a stacked leaf's leading layer axis is "stage" or None;
+  * embedding tables shard their vocabulary over fsdp only;
+  * biases and norms replicate, or shard over tensor with their weight.
+
+The port keeps each rank's shard as a plain local tensor and records the
+spec's split beside it (parallel/zero.py): `shard_pytree`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Iterable
+
+from starvector_tpu_torch.parallel import zero
+from starvector_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SEQUENCE, P, axis_sizes
+
+Rules = Iterable[tuple[str, P]]
+
+
+def spec_for_path(path_s: str, rules: Rules, default: P = P()) -> P:
+    for pattern, spec in rules:
+        if re.search(pattern, path_s):
+            return spec
+    return default
+
+
+def _shrink_spec_to_shape(spec, ndim: int) -> P:
+    """Drop trailing entries beyond the array's rank (one rule covers a
+    weight and its bias)."""
+    return P(*tuple(spec)[:ndim])
+
+
+def _divisible(dim: int, axes, sizes: dict[str, int]) -> bool:
+    if axes is None:
+        return True
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    return dim % math.prod(sizes[n] for n in names) == 0
+
+
+def sanitize_spec(spec, shape: tuple[int, ...], mesh) -> P:
+    """Entries whose axes do not divide their dimension become None (tiny
+    heads and dims stay replicated)."""
+    sizes = axis_sizes(mesh)
+    entries = list(_shrink_spec_to_shape(spec, len(shape)))
+    entries += [None] * (len(shape) - len(entries))
+    return P(*(a if _divisible(d, a, sizes) else None for d, a in zip(shape, entries)))
+
+
+# embedding tables keep single-axis sharding and are not widened
+_TABLE_RE = r"wte$|wpe$|embed_tokens$|lm_head$"
+
+
+def widen_fsdp_over_sequence(spec, path_s: str, shape: tuple[int, ...], mesh) -> P:
+    """ZeRO over the `sequence` axis: on a mesh with sequence > 1 each plain
+    "fsdp" weight entry whose dimension divides fsdp x sequence becomes
+    ("fsdp", "sequence"), so that the gradient's combine over sequence is a
+    reduce-scatter; tables are left alone. A no-op without a sequence axis.
+    Shape logic only: the port does not execute sequence meshes yet."""
+    sizes = axis_sizes(mesh)
+    if sizes[AXIS_SEQUENCE] == 1 or re.search(_TABLE_RE, path_s):
+        return P(*spec)
+    combined = sizes[AXIS_FSDP] * sizes[AXIS_SEQUENCE]
+    entries = list(_shrink_spec_to_shape(spec, len(shape)))
+    entries += [None] * (len(shape) - len(entries))
+    return P(*((AXIS_FSDP, AXIS_SEQUENCE) if a == AXIS_FSDP and dim % combined == 0 else a
+               for dim, a in zip(shape, entries)))
+
+
+def _paths(tree, prefix: str = ""):
+    """(path, leaf) of every leaf, "/"-joined dict keys and list indices."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, tree
+
+
+def _rebuild(tree, leaves):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rebuild(v, leaves) for v in tree]
+    return next(leaves)
+
+
+def apply_partition_rules(params: Any, rules: Rules, mesh) -> Any:
+    """A tree of P matching `params`' structure."""
+    rules = list(rules)
+
+    def leaf_spec(path_s, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        s = spec_for_path(path_s, rules)
+        s = widen_fsdp_over_sequence(s, path_s, shape, mesh)
+        return sanitize_spec(s, shape, mesh)
+
+    return _rebuild(params, iter([leaf_spec(p, leaf) for p, leaf in _paths(params)]))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's spec on a mesh and the one dimension it splits over fsdp
+    (None: every rank holds the whole leaf)."""
+    spec: P
+    dim: int | None
+
+
+def _split_dim(spec: P, sizes: dict[str, int]) -> int | None:
+    """The dimension the spec splits over more than one rank, on a mesh of
+    the batch axes, where only fsdp splits a parameter (each rule names it
+    once)."""
+    split = [i for i, a in enumerate(spec) if a is not None and
+             math.prod(sizes[n] for n in ((a,) if isinstance(a, str) else a)) > 1]
+    return split[0] if split else None
+
+
+def make_param_shardings(params: Any, rules: Rules, mesh) -> Any:
+    """A tree of Sharding matching `params`: each leaf's spec and the
+    dimension it splits over fsdp."""
+    sizes = axis_sizes(mesh)
+    specs = apply_partition_rules(params, rules, mesh)
+    return zero._map(specs, lambda s: Sharding(s, _split_dim(s, sizes)))
+
+
+def shard_pytree(params: Any, rules: Rules, mesh) -> Any:
+    """This rank's shard of every leaf: a contiguous copy of its slice along
+    the dimension its spec splits over fsdp (the leaf itself when it splits
+    none), registered with the layout so that the model gathers it at use.
+    `mesh` is a DeviceMesh or a zero.Layout over one; sequence, stage or
+    tensor above 1 raises NotImplementedError (zero.Layout)."""
+    layout = mesh if isinstance(mesh, zero.Layout) else zero.Layout(mesh)
+
+    def shard(leaf, sh: Sharding):
+        local = leaf
+        if sh.dim is not None:
+            n = leaf.shape[sh.dim] // layout.fsdp
+            local = leaf.detach().narrow(sh.dim, layout.fsdp_rank * n, n).clone()
+            local.requires_grad_(leaf.requires_grad)
+        return zero.register(local, zero.Shard(layout, sh.dim, tuple(leaf.shape)))
+
+    return zero._map(params, shard, make_param_shardings(params, rules, layout.mesh))

@@ -73,8 +73,9 @@ def serve_kwargs_from_leaf(leaf) -> dict:
     mesh_axes = {k: int(v) for k, v in dict(s.get("mesh") or {}).items()}
     if any(v > 1 for v in mesh_axes.values()):
         raise NotImplementedError(
-            f"serve.mesh {mesh_axes}: mesh-sharded serving is not ported yet (ROADMAP queue 1, "
-            f"item 12); the port's engine runs on one card")
+            f"serve.mesh {mesh_axes}: mesh-sharded serving (tensor parallelism, as the tp4dp2 "
+            f"and tp8 configs ask) is not ported yet (ROADMAP queue 1, item 12); the port's "
+            f"engine runs on one card")
     return {
         "mesh_axes": mesh_axes,
         "max_batch": int(get("max_batch", 8)),

@@ -65,9 +65,12 @@ def save_checkpoint(base: str, step: int, state: dict[str, Any], *,
     return path
 
 
-def restore_checkpoint(path: str, device="cpu") -> dict[str, Any]:
-    """The saved state, its tensors on `device`."""
-    return torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
+def restore_checkpoint(path: str, device="cpu", *, mmap: bool = False) -> dict[str, Any]:
+    """The saved state, its tensors on `device`. With `mmap` (on the CPU)
+    the tensors map the file rather than load it: ranks that each take
+    their shards of it read only those, and share the host's page cache."""
+    return torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True,
+                      mmap=mmap)
 
 
 def load_checkpoint_config(path: str):

@@ -24,10 +24,18 @@ Ratios take the model's raw log-probs on both sides, so the first update
 after a rollout starts at ratio 1 (old_lp is the detached new_lp); with
 updates_per_rollout > 1 the behaviour log-probs are computed once, before
 the first update.
+
+Sharded parameters (parallel/sharding.py::shard_pytree on a mesh of the
+batch axes, one process a device), as the JAX trainer takes them: the
+optimizer state lies beside each shard, each rank rolls out its own
+prompts on the parameters gathered whole, and the update gathers at use
+and sums over the ranks (parallel/zero.py), the batch means taken over
+every rank's rows. The driver, like the JAX one, builds no mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Sequence
@@ -38,6 +46,7 @@ import torch
 from starvector_tpu_torch import require_device
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
+from starvector_tpu_torch.parallel import zero
 from starvector_tpu_torch.train.optim import Chain, build_optimizer, global_norm, tree_leaves, \
     tree_map
 
@@ -126,7 +135,10 @@ def grpo_loss(params: dict, cfg: sv.StarVectorConfig, vision_embeds: torch.Tenso
     the batch mean. ids (B·G, L) [prompt ‖ generated], right-padded;
     attn_mask their valid positions, loss_mask the generated ones; old_lp
     the behaviour log-probs, or None (one update a rollout: the detached
-    new log-probs). Returns (loss, {"kl", "clip_frac", "mean_ratio"})."""
+    new log-probs). Returns (loss, {"kl", "clip_frac", "mean_ratio"}). On
+    a data-parallel layout the rows are this rank's and the means are over
+    every rank's rows and tokens: the ranks' losses add up to the global
+    one."""
     new_lp = sv.grpo_forward(params, cfg, vision_embeds, ids, attn_mask,
                              num_generations=num_generations, policy=policy, remat=remat,
                              kernels=kernels)
@@ -142,12 +154,20 @@ def grpo_loss(params: dict, cfg: sv.StarVectorConfig, vision_embeds: torch.Tenso
         d = ref_lp - new_lp
         k3 = torch.exp(d) - d - 1.0  # an unbiased, positive KL estimator
         per_tok = per_tok + kl_beta * k3
-        kl = ((k3 * m).sum(dim=1) / denom).mean()
-    loss = ((per_tok * m).sum(dim=1) / denom).mean()
-    n_tok = m.sum().clamp_min(1.0)
-    return loss, {"kl": kl.detach(),
-                  "clip_frac": (((ratio - 1.0).abs() > clip_eps).float() * m).sum().detach() / n_tok,
-                  "mean_ratio": (ratio * m).sum().detach() / n_tok}
+        kl = _batch_mean((k3 * m).sum(dim=1) / denom)
+    loss = _batch_mean((per_tok * m).sum(dim=1) / denom)
+    n_tok = zero.batch_sum(m.sum()).clamp_min(1.0)
+    return loss, {"kl": zero.batch_sum(kl.detach()),
+                  "clip_frac": zero.batch_sum(
+                      (((ratio - 1.0).abs() > clip_eps).float() * m).sum().detach()) / n_tok,
+                  "mean_ratio": zero.batch_sum((ratio * m).sum().detach()) / n_tok}
+
+
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """x's mean, or on a layout this rank's share of the mean over every
+    rank's rows."""
+    rows = zero.global_rows(x.shape[0])
+    return x.mean() if rows is None else x.sum() / rows[1]
 
 
 def make_grpo_step(cfg: sv.StarVectorConfig, opt: Chain, *, num_generations: int,
@@ -165,12 +185,18 @@ def make_grpo_step(cfg: sv.StarVectorConfig, opt: Chain, *, num_generations: int
 
     def grpo_step(params: dict, opt_state: dict, rollout: dict, advantages: torch.Tensor):
         wrt = [p for p in tree_leaves(params["svg_transformer"]) if p.requires_grad]
-        loss, aux = grpo_loss(params, cfg, rollout["vision_embeds"], rollout["ids"],
-                              rollout["attn_mask"], rollout["loss_mask"], rollout.get("old_lp"),
-                              advantages, rollout.get("ref_lp") if use_kl else None,
-                              num_generations=num_generations, clip_eps=clip_eps,
-                              kl_beta=kl_beta, policy=policy, remat=remat, kernels=kernels)
-        got = dict(zip(map(id, wrt), torch.autograd.grad(loss, wrt, allow_unused=True)))
+        layout = zero.layout_of(params)
+        with layout.step() if layout is not None else contextlib.nullcontext():
+            loss, aux = grpo_loss(params, cfg, rollout["vision_embeds"], rollout["ids"],
+                                  rollout["attn_mask"], rollout["loss_mask"],
+                                  rollout.get("old_lp"), advantages,
+                                  rollout.get("ref_lp") if use_kl else None,
+                                  num_generations=num_generations, clip_eps=clip_eps,
+                                  kl_beta=kl_beta, policy=policy, remat=remat, kernels=kernels)
+            grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+            loss = zero.batch_sum(loss.detach())
+        zero.reduce_grads(wrt, grads)
+        got = dict(zip(map(id, wrt), grads))
 
         def grad_of(p):
             g = got.get(id(p))
@@ -180,9 +206,9 @@ def make_grpo_step(cfg: sv.StarVectorConfig, opt: Chain, *, num_generations: int
 
         grads = tree_map(grad_of, params)
         with torch.no_grad():
-            grad_norm = global_norm(tree_leaves(grads))
+            grad_norm = global_norm(tree_leaves(grads), tree_leaves(params))
             opt.update(grads, opt_state, params)
-        return params, opt_state, {**aux, "loss": loss.detach(), "grad_norm": grad_norm}
+        return params, opt_state, {**aux, "loss": loss, "grad_norm": grad_norm}
 
     return grpo_step
 
@@ -197,7 +223,14 @@ class GRPOTrainer:
     stage-2 freezes the vision tower; the adapter stays frozen because
     grpo_forward conditions on the rollout's visual prefix): its leaves get
     requires_grad, the optimizer's mask freezes the rest. With kl_beta > 0
-    a copy of the decoder taken here is the KL reference."""
+    a copy of the decoder taken here is the KL reference.
+
+    When model.params are shards on a layout (parallel/), the optimizer
+    state takes each shard's split, each rank rolls out the images it is
+    given on the parameters gathered whole (for the rollout only), and the
+    update runs through the gathers and sums of the sharded step. A mesh
+    with sequence, stage or tensor above 1 cannot be made (ROADMAP queue 1,
+    item 12)."""
 
     def __init__(self, model, grpo: GRPOConfig = GRPOConfig(), *, lr: float = 1e-6,
                  total_steps: int = 1000, warmup_steps: int = 0, grad_clip: float = 1.0,
@@ -211,7 +244,9 @@ class GRPOTrainer:
                                    grad_clip=grad_clip, train_image_encoder=False,
                                    train_connector=False, train_LLM=True)
         self.opt_state = self.opt.init(model.params)
-        self.ref_decoder = (tree_map(lambda p: p.detach().clone(), model.params["svg_transformer"])
+        self.layout = zero.layout_of(model.params)
+        self.ref_decoder = (tree_map(lambda p: zero.register_like(p.detach().clone(), p),
+                                     model.params["svg_transformer"])
                             if grpo.kl_beta > 0.0 else None)
         self._step_fn = make_grpo_step(model.cfg, self.opt, num_generations=grpo.num_generations,
                                        clip_eps=grpo.clip_eps, kl_beta=grpo.kl_beta,
@@ -219,11 +254,26 @@ class GRPOTrainer:
         self.step_count = 0
 
     def _log_probs(self, params: dict, rollout: dict) -> torch.Tensor:
-        with torch.no_grad():
+        with torch.no_grad(), (self.layout.step() if self.layout is not None
+                               else contextlib.nullcontext()):
             return sv.grpo_forward(params, self.model.cfg, rollout["vision_embeds"],
                                    rollout["ids"], rollout["attn_mask"],
                                    num_generations=self.grpo.num_generations,
                                    policy=self.model.policy, kernels=self.model.kernels)
+
+    @contextlib.contextmanager
+    def _whole_params(self):
+        """model.params gathered whole while the rollout runs (its
+        generation reads plain tensors); the shards again after."""
+        if self.layout is None:
+            yield
+            return
+        shards = self.model.params
+        self.model.params = zero.full_tree(shards)
+        try:
+            yield
+        finally:
+            self.model.params = shards
 
     def step(self, images: torch.Tensor, target_rasters: Sequence[np.ndarray],
              **gen_kwargs: Any) -> dict:
@@ -234,11 +284,12 @@ class GRPOTrainer:
         rollout, the reward and the update (each ends at a host read)."""
         g = self.grpo
         t0 = time.perf_counter()
-        roll = self.model.generate_im2svg_grpo(
-            {"image": images}, num_return_sequences=g.num_generations,
-            temperature=gen_kwargs.pop("temperature", g.temperature),
-            top_p=gen_kwargs.pop("top_p", g.top_p),
-            max_new_tokens=gen_kwargs.pop("max_new_tokens", g.max_new_tokens), **gen_kwargs)
+        with self._whole_params():
+            roll = self.model.generate_im2svg_grpo(
+                {"image": images}, num_return_sequences=g.num_generations,
+                temperature=gen_kwargs.pop("temperature", g.temperature),
+                top_p=gen_kwargs.pop("top_p", g.top_p),
+                max_new_tokens=gen_kwargs.pop("max_new_tokens", g.max_new_tokens), **gen_kwargs)
         t1 = time.perf_counter()
         rewards = batch_rewards(roll["raw_svg"], target_rasters, num_generations=g.num_generations,
                                 resolution=g.reward_resolution, ssim_weight=g.ssim_weight)

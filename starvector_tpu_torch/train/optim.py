@@ -41,6 +41,13 @@ each leaf whole, fp32 temporaries of its size included. Accumulation
 layer at a time, and on the k-th the core reads that buffer itself before
 it is zeroed, so there is no second copy; but the buffer alone puts the
 8B recipe (~56 GiB of state at k = 1) past one 80 GB card.
+
+On a ZeRO-3 layout (parallel/) each parameter is this rank's shard and its
+state lies beside it, split the same way (a factored moment that reduced
+the split dimension away whole on every rank): the elementwise math is
+local, and each reduction over a leaf (the global norm, Adafactor's row and
+column means and its two RMS values) sums over the fsdp ranks, so every
+rank takes the step the whole leaf would. Frozen leaves take none.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from starvector_tpu_torch.parallel import zero
 
 Schedule = Callable[[int], float]
 
@@ -126,9 +135,18 @@ def _sq_sum(t: torch.Tensor) -> torch.Tensor:
     return sum((x.float().square().sum() for x in _pieces(t)), torch.zeros((), device=t.device))
 
 
-def global_norm(leaves: list[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of every element's square, in fp32."""
-    return torch.stack([_sq_sum(g) for g in leaves]).sum().sqrt()
+def global_norm(leaves: list[torch.Tensor], like: list | None = None) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of every element's square, in fp32.
+    `like` gives each leaf's parameter: where that is a ZeRO-3 shard, the
+    leaf is too, and its squares are summed over the fsdp ranks (once for
+    all such leaves); the other leaves are whole on every rank."""
+    sq = torch.stack([_sq_sum(g) for g in leaves])
+    split = [zero.sharded(p) for p in like] if like is not None else [None] * len(leaves)
+    if not any(split):
+        return sq.sum().sqrt()
+    is_split = torch.tensor([s is not None for s in split], device=sq.device)
+    layout = next(s.layout for s in split if s is not None)
+    return (layout.fsdp_sum(sq[is_split].sum()) + sq[~is_split].sum()).sqrt()
 
 
 class Chain:
@@ -160,7 +178,8 @@ class Chain:
                                 for k in keys}}
         if self.k > 1:
             state["mini_step"] = 0
-            state["acc"] = [torch.zeros_like(p) for p in tree_leaves(params)]
+            state["acc"] = [zero.register_like(torch.zeros_like(p), p)
+                            for p in tree_leaves(params)]
         return state
 
     @torch.no_grad()
@@ -180,7 +199,7 @@ class Chain:
                    for i, (p, g, t) in enumerate(zip(tree_leaves(params), gs,
                                                      self._trainable(params))) if t]
         if trained:
-            norm = global_norm([g for _, g, _ in trained])
+            norm = global_norm([g for _, g, _ in trained], [p for p, _, _ in trained])
             under = norm < self.grad_clip
             one = torch.ones_like(norm)
             # optax's g / norm * clip past the clip (g unchanged under it)
@@ -203,8 +222,8 @@ class AdamW(Chain):
         self.mu_dtype = mu_dtype
 
     def _init_leaf(self, p: torch.Tensor) -> dict:
-        return {"mu": torch.zeros_like(p, dtype=self.mu_dtype or p.dtype),
-                "nu": torch.zeros_like(p)}
+        return {"mu": zero.register_like(torch.zeros_like(p, dtype=self.mu_dtype or p.dtype), p),
+                "nu": zero.register_like(torch.zeros_like(p), p)}
 
     def _update(self, trained, state, clip, count) -> None:
         c1, c2 = 1 - self.b1**(count + 1), 1 - self.b2**(count + 1)
@@ -248,26 +267,41 @@ class Adafactor(Chain):
         return order[-2], order[-1]
 
     def _init_leaf(self, p: torch.Tensor) -> dict:
-        dims = self.factored_dims(p.shape)
+        """The second moment: whole, or a row and a column mean, chosen by
+        the whole leaf's shape (a shard's would factor otherwise)."""
+        dims = self.factored_dims(zero.full_shape(p))
         if dims is None:
-            return {"v_row": None, "v_col": None, "v": torch.zeros_like(p)}
+            return {"v_row": None, "v_col": None, "v": zero.register_like(torch.zeros_like(p), p)}
         d1, d0 = dims
         shape = list(p.shape)
-        return {"v_row": p.new_zeros(shape[:d0] + shape[d0 + 1:]),
-                "v_col": p.new_zeros(shape[:d1] + shape[d1 + 1:]), "v": None}
+        return {"v_row": zero.register_like(p.new_zeros(shape[:d0] + shape[d0 + 1:]), p, d0),
+                "v_col": zero.register_like(p.new_zeros(shape[:d1] + shape[d1 + 1:]), p, d1),
+                "v": None}
 
     def _update(self, trained, state, clip, count) -> None:
         decay = float(1.0 - np.float32(count + 1) ** np.float32(-self.DECAY_RATE))
         lr = self.schedule(count)
         for p, g, s in trained:
-            dims = self.factored_dims(p.shape)
+            shape = zero.full_shape(p)
+            dims = self.factored_dims(shape)
             # a stacked leaf goes a layer at a time when its layer axis is
             # not one it factors over: every statistic is then per layer
-            by_layer = p.dim() >= 3 and (dims is None or 0 not in dims)
+            by_layer = len(shape) >= 3 and (dims is None or 0 not in dims)
             shift = 1 if by_layer else 0
             views = [dict(p=p[i], g=g[i], **{k: None if v is None else v[i]
                                               for k, v in s.items()})
                      for i in range(p.shape[0])] if by_layer else [dict(p=p, g=g, **s)]
+            # a ZeRO-3 shard: the dimension (of a view) split over fsdp,
+            # whose sums span the fsdp ranks
+            split = zero.sharded(p)
+            sd = None if split is None else split.dim - shift
+            fsdp_sum = (lambda t: t) if split is None else split.layout.fsdp_sum
+
+            def mean(t: torch.Tensor, dim: int, split_dim, keepdim: bool = False) -> torch.Tensor:
+                """t's mean over `dim`, whole-leaf when `dim` is the split one."""
+                if dim != split_dim:
+                    return t.mean(dim=dim, keepdim=keepdim)
+                return fsdp_sum(t.sum(dim=dim, keepdim=keepdim)) / (t.shape[dim] * split.layout.fsdp)
 
             def scaled(view, first: bool) -> torch.Tensor:
                 """The view's update after the factored scaling; on the
@@ -280,17 +314,24 @@ class Adafactor(Chain):
                     return gv * view["v"] ** -0.5
                 d1, d0 = dims[0] - shift, dims[1] - shift
                 if first:
-                    view["v_row"].mul_(decay).add_(sq.mean(dim=d0), alpha=1 - decay)
-                    view["v_col"].mul_(decay).add_(sq.mean(dim=d1), alpha=1 - decay)
+                    view["v_row"].mul_(decay).add_(mean(sq, d0, sd), alpha=1 - decay)
+                    view["v_col"].mul_(decay).add_(mean(sq, d1, sd), alpha=1 - decay)
                 vr, vc = view["v_row"], view["v_col"]
-                row = (vr / vr.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)) ** -0.5
+                # v_row lacks d0: d1 and the split dim move down past it
+                row = (vr / mean(vr, d1 - 1 if d1 > d0 else d1,
+                                 None if sd is None or sd == d0 else sd - (sd > d0),
+                                 keepdim=True)) ** -0.5
                 return gv * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
 
             # clip_by_block_rms over the whole leaf: a first pass for its
             # sum of squares, a second that recomputes and applies
-            ss = sum(scaled(v, True).square().sum() for v in views)
-            denom = torch.clamp(torch.sqrt(ss / p.numel()) / self.CLIPPING_THRESHOLD, min=1.0)
-            rms = torch.linalg.vector_norm(p) / math.sqrt(p.numel())
+            ss = fsdp_sum(sum(scaled(v, True).square().sum() for v in views))
+            numel = math.prod(shape)
+            denom = torch.clamp(torch.sqrt(ss / numel) / self.CLIPPING_THRESHOLD, min=1.0)
+            if split is None:
+                rms = torch.linalg.vector_norm(p) / math.sqrt(numel)
+            else:
+                rms = fsdp_sum(p.float().square().sum()).sqrt() / math.sqrt(numel)
             rms = torch.where(rms <= self.MIN_PARAM_SCALE,
                               torch.full_like(rms, self.MIN_PARAM_SCALE), rms)
             step = lr * rms / denom

@@ -20,8 +20,22 @@ md5, as the JAX main writes it), metrics.jsonl (utils/logging.py, wandb
 too with project.report_to: wandb), a snapshot of starvector_tpu_torch/
 (unless project.snapshot_code is false) and checkpoint-<n>/.
 
-Left out against the JAX main: the device mesh (one device: a `mesh:`
-block that asks for more is logged as ignored), and the rule that puts a run without
+The mesh: under `torchrun --nproc_per_node N` (one process a device) the
+`mesh:` block, fsdp: -1 over every rank without one, lays the N ranks out
+as the JAX main lays out its devices (parallel/): plain DP, ZeRO-3/FSDP
+and HSDP over the batch axes (replica, data, fsdp); sequence, stage or
+tensor above 1 raises NotImplementedError (ROADMAP queue 1, item 12).
+Each rank keeps its shards of the parameters and optimizer state and
+trains on its contiguous block of the global batch that a one-process run
+draws, so N ranks take the one-process steps. Rank 0 alone logs, writes
+the run directory and writes each checkpoint, from the state gathered
+whole (the files a one-process run writes); a resume re-shards it on the
+run's own mesh. A CUDA run takes NCCL, training.device=cpu gloo. Started
+without torchrun, main is one process on one device, and a mesh that
+asks for more raises ValueError (the JAX rule: the mesh must cover the
+devices).
+
+Left out against the JAX main: the rule that puts a run without
 project.out_dir under runs/<project.name>/<experiment id>.
 Where the port differs on purpose, starting from a checkpoint directory
 (model.model_name or model.pretrained_path): the run takes that
@@ -32,20 +46,28 @@ builder loads them in bf16).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from starvector_tpu_torch import require_device
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.models.builder import model_builder
 from starvector_tpu_torch.ops.layers import DTypePolicy
+from starvector_tpu_torch.parallel import zero
+from starvector_tpu_torch.parallel.mesh import (
+    create_mesh, initialize_distributed, local_mesh_summary, mesh_config_from, require_batch_axes,
+)
 from starvector_tpu_torch.train import checkpoint as ckpt
 from starvector_tpu_torch.train.optim import Chain, build_optimizer
-from starvector_tpu_torch.train.step import make_eval_step, make_train_step, mark_trainable
+from starvector_tpu_torch.train.step import (
+    make_eval_step, make_train_step, mark_trainable, shard_train_state,
+)
 
 
 def optimizer_kwargs_from_config(config) -> dict:
@@ -102,6 +124,29 @@ def to_device(batch: dict, device) -> dict:
             for k, t in BATCH_TYPES.items() if k in batch}
 
 
+def rank_rows(batch: dict, layout: zero.Layout | None) -> dict:
+    """This rank's contiguous block of a global batch's rows (the JAX
+    batch_spec layout), the batch itself without a layout."""
+    if layout is None:
+        return batch
+    B = len(next(batch[k] for k in BATCH_TYPES if k in batch))
+    if B % layout.batch:
+        raise ValueError(f"a batch of {B} rows does not split over {layout.batch} batch ranks")
+    n = B // layout.batch
+    lo = layout.batch_rank * n
+    return {k: batch[k][lo:lo + n] for k in BATCH_TYPES if k in batch}
+
+
+def _save(out_dir: str, step: int, state: dict, layout, **kw) -> None:
+    """Write a checkpoint: on a layout every rank gathers the state whole
+    (each gathered leaf to the host) and rank 0 writes it."""
+    if layout is not None:
+        state = zero.full_tree(state, to_cpu=True)
+        if dist.get_rank():
+            return
+    ckpt.save_checkpoint(out_dir, step, state, **kw)
+
+
 def train_loop(
     params: dict,
     cfg: sv.StarVectorConfig,
@@ -135,11 +180,17 @@ def train_loop(
     seeded with (seed, step), so a resumed run draws what the uninterrupted
     one would. Every `log_every` steps (and at the last) `log` gets
     {step, epoch, loss, grad_norm, step_time}; every `ckpt_every` steps (and
-    at the last) `validate(params)` is logged and a checkpoint with
-    {params, opt_state} is written to `out_dir` when one is given.
+    at the last) `validate(params)` runs and is logged, and a checkpoint
+    with {params, opt_state} is written to `out_dir` when one is given.
     `on_step(step, metrics)` sees every step's metrics (tensors on the
-    device). Returns (params, opt_state, step)."""
+    device). Returns (params, opt_state, step).
+
+    On a ZeRO-3 layout (params from step.shard_train_state) each rank
+    passes the same global batches and trains on its block of their rows
+    (rank_rows); every rank must call validate and reach each checkpoint,
+    whose state rank 0 writes gathered whole; give `log` on one rank."""
     device = torch.device(device)
+    layout = zero.layout_of(params)
     mark_trainable(params)
     if opt_state is None:
         opt_state = opt.init(params)
@@ -151,7 +202,8 @@ def train_loop(
         if step >= total_steps:
             break
         gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
-        params, opt_state, metrics = train_step(params, opt_state, to_device(batch, device), gen)
+        params, opt_state, metrics = train_step(params, opt_state,
+                                                to_device(rank_rows(batch, layout), device), gen)
         step += 1
         if on_step is not None:
             on_step(step, metrics)
@@ -161,11 +213,13 @@ def train_loop(
                  "grad_norm": float(metrics["grad_norm"]), "step_time": (now - t_last) / log_every})
             t_last = now
         if step % ckpt_every == 0 or step >= total_steps:
-            if validate is not None and log is not None:
-                log({"step": step, "val_loss": validate(params)})
+            if validate is not None:
+                val_loss = validate(params)
+                if log is not None:
+                    log({"step": step, "val_loss": val_loss})
             if out_dir is not None:
-                ckpt.save_checkpoint(out_dir, step, {"params": params, "opt_state": opt_state},
-                                     total_limit=total_limit, config=config)
+                _save(out_dir, step, {"params": params, "opt_state": opt_state}, layout,
+                      total_limit=total_limit, config=config)
     return params, opt_state, step
 
 
@@ -198,6 +252,25 @@ def reimpose_checkpoint_model_block(config, out_dir: str) -> str | None:
 
 
 def main(config) -> dict:
+    """Train from a config (the module docstring); returns this rank's
+    parameters (its shards on a mesh). A process group that main starts
+    (torchrun's variables) it also ends."""
+    g = config.get_path
+    device = require_device(g("training.device", "cuda"), "training.device=cpu")
+    mesh_cfg = mesh_config_from(config)
+    require_batch_axes(dataclasses.asdict(mesh_cfg), "train.main")
+    owns_group = not dist.is_initialized()
+    device = initialize_distributed(device)
+    owns_group = owns_group and dist.is_initialized()
+    try:
+        return _main(config, device, mesh_cfg)
+    finally:
+        if owns_group:
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _main(config, device: torch.device, mesh_cfg) -> dict:
     from starvector_tpu_torch.api import tokenizer_version
     from starvector_tpu_torch.config import instantiate_from_config
     from starvector_tpu_torch.models.tokenizer import build_test_tokenizer, load_tokenizer
@@ -206,22 +279,29 @@ def main(config) -> dict:
     from starvector_tpu_torch.utils.logging import MetricsSink
 
     g = config.get_path
-    device = require_device(g("training.device", "cuda"), "training.device=cpu")
+    layout = None
+    if dist.is_initialized():
+        mesh = create_mesh(mesh_cfg, device_type=device.type)
+        layout = zero.Layout(mesh)
+    else:
+        mesh_cfg.resolve(1)  # one process, one device: the mesh must cover it
+    rank0 = layout is None or dist.get_rank() == 0
+    if layout is not None and rank0:
+        print(local_mesh_summary(mesh))
     project = g("project.name", "starvector-tpu")
     out_dir = g("project.out_dir", os.path.join("runs", str(project)))
     last = reimpose_checkpoint_model_block(config, out_dir)
-    os.makedirs(out_dir, exist_ok=True)
-    sink = MetricsSink(out_dir, report_to=g("project.report_to"), project=project,
-                       config=config.to_dict())
-    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
-        f.write(config.to_yaml())
-    with open(os.path.join(out_dir, "experiment_id.txt"), "w") as f:
-        f.write(generate_experiment_id(config)[:12] + "\n")
-    if g("project.snapshot_code", True):
-        copy_code(out_dir)
-    mesh = dict(g("mesh") or {})
-    if any(int(n) > 1 for n in mesh.values()):  # a multi-device layout (fsdp -1: all devices)
-        print(f"mesh {mesh} ignored: the port trains on one device")
+    sink = None
+    if rank0:
+        os.makedirs(out_dir, exist_ok=True)
+        sink = MetricsSink(out_dir, report_to=g("project.report_to"), project=project,
+                           config=config.to_dict())
+        with open(os.path.join(out_dir, "config.yaml"), "w") as f:
+            f.write(config.to_yaml())
+        with open(os.path.join(out_dir, "experiment_id.txt"), "w") as f:
+            f.write(generate_experiment_id(config)[:12] + "\n")
+        if g("project.snapshot_code", True):
+            copy_code(out_dir)
 
     params, cfg, tokenizer = model_builder(config, device)
     if tokenizer is None:
@@ -245,18 +325,30 @@ def main(config) -> dict:
         eval_step = make_eval_step(cfg, tokenizer.pad_token_id, policy=policy)
 
         def validate(params, max_batches: int = 16) -> float:
-            losses = [float(eval_step(params, to_device(b, device)))
+            # each batch's loss is the global batch's (eval_step sums the ranks')
+            losses = [float(eval_step(params, to_device(rank_rows(b, layout), device)))
                       for _, b in zip(range(max_batches), val_loader)]
             return float(np.mean(losses)) if losses else float("nan")
 
     total_steps = int(g("training.steps", 10_000))
     opt = build_optimizer(params, total_steps=total_steps, **optimizer_kwargs_from_config(config))
-    opt_state, step = None, 0
+    opt_state, step, saved = None, 0, None
     if last and g("training.resume", True):
-        state = ckpt.restore_checkpoint(last, device)
-        params, opt_state = state["params"], state["opt_state"]
+        # on a mesh each rank copies its shards out of the file mapped on the
+        # host: no rank holds the whole state on its device
+        saved = (ckpt.restore_checkpoint(last, device) if layout is None
+                 else ckpt.restore_checkpoint(last, "cpu", mmap=True))
         step = ckpt.step_from_path(last)
-        print(f"resumed from {last} at step {step}")
+        if rank0:
+            print(f"resumed from {last} at step {step}")
+    if layout is not None:
+        params, opt_state = shard_train_state(params, opt, layout)
+        if saved is not None:
+            state = zero.load_shards({"params": params, "opt_state": opt_state}, saved)
+            params, opt_state = state["params"], state["opt_state"]
+    elif saved is not None:
+        params, opt_state = saved["params"], saved["opt_state"]
+    del saved
 
     params, _, _ = train_loop(
         params, cfg, opt, epoch_batches(train_loader, step, int(g("training.epochs", 1))),
@@ -264,12 +356,13 @@ def main(config) -> dict:
         remat=remat_mode(g("training.gradient_checkpointing", True)),
         grad_dtype=grad_dtype_from(g("training.grad_dtype")),
         pad_token_id=tokenizer.pad_token_id, opt_state=opt_state, start_step=step,
-        seed=int(g("training.seed", 0)), log=sink.log,
+        seed=int(g("training.seed", 0)), log=sink.log if sink is not None else None,
         log_every=max(int(g("training.log_every", 10)), 1), out_dir=out_dir,
         ckpt_every=int(g("training.checkpointing_steps", 1000)),
         total_limit=g("training.checkpoints_total_limit", 3), config=config, validate=validate,
     )
-    sink.finish()
+    if sink is not None:
+        sink.finish()
     return params
 
 

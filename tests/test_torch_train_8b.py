@@ -399,15 +399,17 @@ def test_causal_lm_loss_over_the_starcoder2_head():
 V5E8 = "configs/models/starvector-8b/im2svg-stack-v5e8.yaml"
 
 
-def _v5e8_config(out, steps):
-    """The v5e-8 recipe's yaml (adafactor, grad_dtype bfloat16, dots_flash,
-    its mesh block) at the tiny-v2 preset: a tiny CLIP tower at 28 px in
-    place of SigLIP-L at 384 (too large for a CPU test), the toy dataset in
-    place of SVG-Stack, 64 svg tokens, on the CPU."""
+def _v5e8_config(out, steps, one_device=True):
+    """The v5e-8 recipe's yaml (adafactor, grad_dtype bfloat16, dots_flash)
+    at the tiny-v2 preset: a tiny CLIP tower at 28 px in place of SigLIP-L
+    at 384 (too large for a CPU test), the toy dataset in place of
+    SVG-Stack, 64 svg tokens, on the CPU; with `one_device` its mesh block
+    (fsdp 4 x sequence 2) overridden to one process's (fsdp -1, sequence 1)."""
     from starvector_tpu_torch.config import get_config, resolve_repo_config
 
+    mesh = ["mesh.fsdp=-1", "mesh.sequence=1"] if one_device else []
     config = get_config(
-        [f"config={V5E8}", "model.preset=tiny-v2", "model.image_encoder_type=clip",
+        [f"config={V5E8}", *mesh, "model.preset=tiny-v2", "model.image_encoder_type=clip",
          "model.image_size=28", "data.max_length=64", "data.batch_size=2",
          "data.num_workers=1", "data.val=null", f"training.steps={steps}", "training.epochs=4",
          "training.log_every=1", "training.checkpointing_steps=2", "training.lr=1e-3",
@@ -418,22 +420,23 @@ def _v5e8_config(out, steps):
     return config
 
 
-def test_train_main_v5e8_recipe_end_to_end_with_resume(tmp_path, capsys):
-    """train.main on the v5e-8 recipe (_v5e8_config): Adafactor state,
-    bf16 gradients, fp32 masters; the mesh block logged as ignored; a run
-    cut after 2 steps and resumed to 4 continues the step count with finite
-    losses; the run directory holds config.yaml, experiment_id.txt (the
-    config's md5, 12 hex digits, as the JAX main writes it), metrics.jsonl
-    and the code snapshot."""
+def test_train_main_v5e8_recipe_end_to_end_with_resume(tmp_path):
+    """train.main on the v5e-8 recipe (_v5e8_config): its mesh block
+    (sequence 2) raises NotImplementedError naming ROADMAP item 12 before
+    anything is written; on one device, Adafactor state, bf16 gradients,
+    fp32 masters; a run cut after 2 steps and resumed to 4 continues the
+    step count with finite losses; the run directory holds config.yaml,
+    experiment_id.txt (the config's md5, 12 hex digits, as the JAX main
+    writes it), metrics.jsonl and the code snapshot."""
     from starvector_tpu_torch.train import checkpoint as tckpt
     from starvector_tpu_torch.train.train import main
     from starvector_tpu_torch.utils.experiment import generate_experiment_id
 
     out = tmp_path / "run"
+    with pytest.raises(NotImplementedError, match=r"'sequence': 2.*item 12"):
+        main(_v5e8_config(out, 2, one_device=False))
+    assert not out.exists()
     main(_v5e8_config(out, 2))
-    logged = [line for line in capsys.readouterr().out.splitlines() if line.startswith("mesh")]
-    assert len(logged) == 1 and "'fsdp': 4, 'sequence': 2" in logged[0] and \
-        logged[0].endswith("ignored: the port trains on one device")
     config = _v5e8_config(out, 4)
     params = main(config)
     assert all(p.dtype == torch.float32 for p in toptim.tree_leaves(params))
