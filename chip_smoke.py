@@ -184,6 +184,18 @@ Phases, one line each (any failure raises and exits non-zero):
      memory and seconds. The multi-rank layouts need a second card (NCCL
      takes one rank a device) and are held on the CPU over gloo
      (tests/test_torch_fsdp_train.py, tests/test_torch_parallel.py)
+  5f. sequence parallelism's per-rank attention at StarVector-8B's width
+     (im2svg-stack-v5e8.yaml: sequence 2; H=36 over Hkv=4, window 4096,
+     bf16, B=1), the two ranks one after the other in this process through
+     parallel/sequence.py::sp_chunk_attention (what sp_flash_attention runs
+     after its all-gather), the gather's result and the reduce-scatter's
+     sum formed by hand, at S_total = 576 + 8192 and 576 + 4096: out and dQ
+     concatenated and dK, dV summed equal one unsharded
+     flash_prefill_trainable (phase 3's bf16 tolerance for the training
+     kernels); each rank's chunk, fp32, kernels == plain (1e-4); every
+     launch of rank 1 at q_offset = S_total / 2; each rank's and the
+     unsharded forward + backward times. The multi-rank path itself is held
+     on the CPU over gloo (tests/test_torch_sequence_parallel.py)
   6. inference at full StarVector-8B width (StarCoder2-7B 4608 wide, GQA
      36/4, window 4096; SigLIP-L/16 at 384; LayerNorm adapter) and 8 of its
      32 decoder layers (DEPTH_8B) on random bf16 weights that
@@ -4128,6 +4140,131 @@ def mesh_train_1b(tfa, dev, card: str, work: Path, overrides: tuple = ()) -> dic
     return dict(launches=mesh["counts"], peak=mesh["peak"], wall=mesh["wall"])
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: sequence parallelism's per-rank attention at the 8B's width
+# ---------------------------------------------------------------------------
+
+SP_RANKS = 2  # im2svg-stack-v5e8.yaml's mesh: fsdp 4 x sequence 2
+SP_TOTALS = (576 + 8192, 576 + 4096)  # SigLIP's 576 visual tokens + the svg bucket
+SP_H, SP_HKV, SP_WINDOW = 36, 4, 4096
+# where the launches' q_offset sits among a training wrapper's positional arguments
+Q_OFFSET_ARG = {"flash_prefill_with_lse": 4, "flash_bwd_dkdv": 7, "flash_bwd_dq": 7}
+
+
+@contextlib.contextmanager
+def launch_offsets(tfa):
+    """{kernel: [q_offset of each launch]} of the three training kernels
+    while within: each wrapper is replaced in the module, where the autograd
+    Function looks it up and where the wrapper finds the counter it bumps
+    (so the counter lives on the replacement while within, and goes back
+    after); calls that take the plain version are not launches and are not
+    recorded."""
+    real = {name: getattr(tfa, name) for name in TRAIN_KERNELS}
+    seen = {name: [] for name in TRAIN_KERNELS}
+
+    def wrapped(name):
+        fn, at = real[name], Q_OFFSET_ARG[name]
+
+        def call(*args, **kw):
+            before = call.launches
+            out = fn(*args, **kw)
+            if call.launches > before:
+                seen[name].append(int(args[at] if len(args) > at else kw.get("q_offset", 0)))
+            return out
+
+        call.launches = fn.launches
+        return call
+
+    for name in TRAIN_KERNELS:
+        setattr(tfa, name, wrapped(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            fn.launches = getattr(tfa, name).launches
+            setattr(tfa, name, fn)
+
+
+def sequence_attention_8b(tfa, dev, card: str) -> dict:
+    """Phase 5f (see the module docstring). Returns each training kernel's
+    launches (the bf16 ranks' run of both lengths) and each length's
+    errors and times."""
+    from starvector_tpu_torch.parallel.sequence import sp_chunk_attention
+
+    def fwd_bwd(q, k, v, mask, do, rank=None, kernels=True):
+        """(out, dq, dk, dv): one rank's chunk (rank given) or the whole
+        sequence, through autograd as the training step runs it."""
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        if rank is None:
+            out = tfa.flash_prefill_trainable(q, k, v, mask, window=SP_WINDOW, kernels=kernels)
+        else:
+            out = sp_chunk_attention(q, k, v, mask, rank, window=SP_WINDOW, kernels=kernels)
+        out.backward(do)
+        return out.detach(), q.grad, k.grad, v.grad
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    res = {}
+    for T in SP_TOTALS:
+        c = T // SP_RANKS
+        q, do = (torch.randn((1, T, SP_H, 128), generator=g, device=dev).bfloat16() for _ in "qo")
+        k, v = (torch.randn((1, T, SP_HKV, 128), generator=g, device=dev).bfloat16() for _ in "kv")
+        mask = torch.ones((1, T), dtype=torch.int32, device=dev)
+        chunk = [slice(r * c, (r + 1) * c) for r in range(SP_RANKS)]
+        # bf16: the ranks' results assembled against one unsharded call
+        reset_counts(tfa)
+        with launch_offsets(tfa) as offsets:
+            ranks = [fwd_bwd(q[:, sl], k, v, mask, do[:, sl], r) for r, sl in enumerate(chunk)]
+        torch.cuda.synchronize()
+        want = {name: [r * c for r in range(SP_RANKS)] for name in TRAIN_KERNELS}
+        if offsets != want:
+            raise AssertionError(f"5f T={T}: the kernels' q_offset by launch {offsets}, "
+                                 f"expected {want}")
+        for name in TRAIN_KERNELS:
+            launches[name] += len(offsets[name])
+        assembled = dict(out=torch.cat([r[0] for r in ranks], 1),
+                         dq=torch.cat([r[1] for r in ranks], 1),
+                         dk=sum(r[2].float() for r in ranks).bfloat16(),
+                         dv=sum(r[3].float() for r in ranks).bfloat16())
+        whole = dict(zip(("out", "dq", "dk", "dv"), fwd_bwd(q, k, v, mask, do)))
+        ref32 = dict(zip(("out", "dq", "dk", "dv"),
+                         fwd_bwd(*(t.float() for t in (q, k, v)), mask, do.float())))
+        errs = {w: compare_training(f"5f T={T} sequence-parallel {w} (bf16)", assembled[w],
+                                    whole[w], ref32[w], torch.bfloat16) for w in assembled}
+        del assembled, whole, ref32, ranks
+        # fp32: each rank's chunk, kernels against plain
+        f32 = [t.float() for t in (q, k, v, do)]
+        err32 = 0.0
+        for r, sl in enumerate(chunk):
+            got = fwd_bwd(f32[0][:, sl], f32[1], f32[2], mask, f32[3][:, sl], r)
+            plain = fwd_bwd(f32[0][:, sl], f32[1], f32[2], mask, f32[3][:, sl], r,
+                            kernels=False)
+            err32 = max([err32] + [compare(f"5f T={T} rank {r} {w} (fp32)", a, b,
+                                           torch.float32)
+                                   for w, a, b in zip(("out", "dq", "dk", "dv"), got, plain)])
+            del got, plain
+        del f32
+        torch.cuda.empty_cache()
+        # times: each rank's forward + backward beside the unsharded call's
+        ms = [event_ms(lambda sl=sl, r=r: fwd_bwd(q[:, sl], k, v, mask, do[:, sl], r), iters=10)
+              for r, sl in enumerate(chunk)]
+        ms_whole = event_ms(lambda: fwd_bwd(q, k, v, mask, do), iters=10)
+        res[T] = dict(errs=errs, err32=err32, ms=ms, whole_ms=ms_whole)
+        log("sp", f"{card}: S_total={T} (B=1 H={SP_H} Hkv={SP_HKV} window {SP_WINDOW} bf16) "
+                  f"over sequence "
+                  f"{SP_RANKS}, chunks of {c} at q_offset {[r * c for r in range(SP_RANKS)]}: "
+                  f"assembled vs unsharded max |diff| "
+                  + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+                  + f"; fp32 each rank kernels vs plain {err32:.3e}; launches a rank: one "
+                  f"each of {', '.join(TRAIN_KERNELS)}, q_offset {offsets['flash_bwd_dq']}; "
+                  f"forward + backward ms: rank 0 {ms[0]:.3f}, rank 1 {ms[1]:.3f}, unsharded "
+                  f"{ms_whole:.3f} (unsharded / slowest rank {ms_whole / max(ms):.2f}x, rank 1 / "
+                  f"rank 0 {ms[1] / ms[0]:.2f}x)")
+        del q, k, v, do, mask
+        torch.cuda.empty_cache()
+    return dict(launches=launches, cases=res)
+
+
 def grpo_driver_1b(tfa, dev, card: str, work: Path, overrides: tuple = ()) -> dict:
     """Phase 5d: `python -m starvector_tpu_torch.train.grpo` through its
     main at full 1B width and all 24 layers, on GRPO_YAML (kl_beta 0.02:
@@ -5637,6 +5774,12 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # --- 5f. sequence parallelism's per-rank attention at the 8B's width ----------
+    phase("5f", "sequence-parallel attention, rank by rank, at StarVector-8B's width")
+    t_5f = time.perf_counter()
+    sp_run = sequence_attention_8b(tfa, dev, card)
+    log("phase", f"5f took {time.perf_counter() - t_5f:.0f} s")
+
     # --- 6. StarVector-8B inference at full width ---------------------------------
     phase(6, f"StarVector-8B inference, {DEPTH_8B} of 32 layers")
     s8 = slice_8b(sv, tfa, dev, card, args.profile)
@@ -5720,8 +5863,9 @@ def main() -> int:
     for row in kernels_json:
         if row["name"] in grpo_run["launches"]:
             row["grpo_driver_launches"] = grpo_run["launches"][row["name"]]
-        if row["name"] in TRAIN_KERNELS:  # phase 5e's run, all its steps
+        if row["name"] in TRAIN_KERNELS:  # phase 5e's run, all its steps; 5f's ranks
             row["mesh_launches"] = mesh_run["launches"][row["name"]]
+            row["sp_launches"] = sp_run["launches"][row["name"]]
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)
     kernels_json += training_times_8b(tfa, dev, card, t8, err_train)
     long_context_times(tfa, dev, card)

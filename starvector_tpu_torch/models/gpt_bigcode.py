@@ -49,7 +49,10 @@ is `flash_prefill_trainable` (the forward-with-lse kernel and the backward
 pair behind one autograd Function), with activation checkpointing per
 `remat` (see `_train_block`). The loss is `causal_lm_loss_fused`, the tied
 head fused into chunks whose logits are recomputed in the backward;
-`token_logprobs_fused` gives GRPO's per-token log-probs the same way.
+`token_logprobs_fused` gives GRPO's per-token log-probs the same way. On a
+sequence-parallel layout the training forward splits the positions after
+wpe and each rank runs its chunk, its attention through
+parallel/sequence.py::sp_flash_attention.
 
 The config's resid/embd/attn dropout fields are declared and never applied,
 as in the JAX package.
@@ -66,10 +69,10 @@ from torch.utils.checkpoint import checkpoint
 
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.parallel.mesh import BATCH_AXES, P
-from starvector_tpu_torch.parallel import zero
+from starvector_tpu_torch.parallel import sequence, zero
 from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.flash_attention import (
-    flash_prefill, flash_prefill_trainable, merged_decode_attention,
+    flash_prefill, merged_decode_attention,
 )
 from starvector_tpu_torch.ops.layers import (
     DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, layer_unbind, make_dense_params,
@@ -290,8 +293,8 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
 
     def attend(qkv):
         q, k, v = _split_qkv(cfg, qkv)
-        return flash_prefill_trainable(q.unflatten(-1, (H, D)), k.unflatten(-1, (Hkv, D)),
-                                       v.unflatten(-1, (Hkv, D)), kv_mask, kernels=kernels)
+        return sequence.sp_flash_attention(q.unflatten(-1, (H, D)), k.unflatten(-1, (Hkv, D)),
+                                           v.unflatten(-1, (Hkv, D)), kv_mask, kernels=kernels)
 
     def post(x, attn):
         g = gathered({"c_proj": p["attn"]["c_proj"], "ln_2": p["ln_2"], "mlp": p["mlp"]}, policy)
@@ -312,6 +315,9 @@ def _forward_uncached(params, cfg, inputs_embeds, attention_mask, position_ids, 
         position_ids = compute_position_ids(kv_mask)
     position_ids = torch.clamp(position_ids, 0, cfg.n_positions - 1)
     x = x + policy.cast(gathered(params["wpe"])[position_ids])
+    span = sequence.split_sequence(S)  # a sequence-parallel rank's chunk of positions
+    if span is not None:
+        x = x[:, span[0]:span[1]]
     for layer in layer_unbind(params["layers"], cfg.n_layer):
         x = _train_block(layer, cfg, x, kv_mask, policy, remat, kernels)
     x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
@@ -339,7 +345,8 @@ def forward(
     """Without `cache`: the full-sequence (training) forward, differentiable,
     with activation checkpointing per `remat` (False | True | "dots_flash");
     returns (logits (B, S, V) fp32, or the final hidden states if
-    `return_hidden`, None).
+    `return_hidden`, None); on a sequence-parallel split those of this
+    rank's chunk of the positions (parallel/sequence.py::chunk_span).
 
     With `cache`: writes the S new tokens at cache["index"] (in place), by
     decode step, chunk step or prefill (see the module docstring). Returns
@@ -662,15 +669,19 @@ def causal_lm_loss_fused(
     *,
     policy: DTypePolicy = DTypePolicy(),
     chunk: int = 128,
+    shifted: bool = False,
 ) -> torch.Tensor:
     """Shift-by-one cross entropy with the LM head fused into chunks of
     `chunk` positions, each chunk checkpointed so that the backward
     recomputes its logits: the (B, S, V) fp32 logits and their gradient never
     exist at once. Mean over the non-ignored targets; on a data-parallel
-    layout over those of the global batch (the count summed over the batch
-    ranks), so that the ranks' losses add up to the one-process loss."""
-    h = policy.cast(hidden[:, :-1])
-    y = labels[:, 1:].long()
+    layout over those of the global batch (the count summed over the ranks
+    that split the step, zero.batch_sum), so that the ranks' losses add up
+    to the one-process loss. `shifted`: labels[:, p] is already the target
+    of hidden[:, p] (a sequence-parallel chunk's, shifted over the whole
+    sequence)."""
+    h = policy.cast(hidden if shifted else hidden[:, :-1])
+    y = (labels if shifted else labels[:, 1:]).long()
     S = h.shape[1]
     pad = (-S) % chunk
     if pad:
@@ -705,6 +716,7 @@ def token_logprobs_fused(
     h = policy.cast(hidden)
     table = policy.cast(head_table)
     y = ids.long()
+    # at least one chunk, empty for S = 0, so that the result hangs off hidden
     return torch.cat([checkpoint(_chunk_logprobs, h[:, c:c + chunk], y[:, c:c + chunk], table,
                                  use_reentrant=False)
-                      for c in range(0, h.shape[1], chunk)], dim=1)
+                      for c in range(0, max(h.shape[1], 1), chunk)], dim=1)

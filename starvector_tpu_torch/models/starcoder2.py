@@ -33,7 +33,10 @@ Without a cache, `forward` is the training forward: positions from the key
 mask, each layer's attention `flash_prefill_trainable` (the forward-with-lse
 kernel and the backward pair behind one autograd Function) with the sliding
 window, activation checkpointing per `remat` (see `_train_block`). The loss
-is gpt_bigcode.causal_lm_loss_fused over `lm_head_table`.
+is gpt_bigcode.causal_lm_loss_fused over `lm_head_table`. On a
+sequence-parallel layout it splits the positions, RoPE at the chunk's
+absolute positions, and each rank runs its chunk, its attention through
+parallel/sequence.py::sp_flash_attention.
 
 Over a ragged cache (per-row lengths; the serving engine's):
 `forward_ragged_decode` is one decode step with RoPE at each row's own
@@ -51,10 +54,11 @@ import dataclasses
 import torch
 
 from starvector_tpu_torch.models import decode_common as dc
+from starvector_tpu_torch.parallel import sequence
 from starvector_tpu_torch.parallel.mesh import P
 from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.flash_attention import (
-    flash_prefill, flash_prefill_trainable, merged_decode_attention,
+    flash_prefill, merged_decode_attention,
 )
 from starvector_tpu_torch.ops.layers import (
     DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, layer_unbind, make_dense_params,
@@ -285,8 +289,8 @@ def _train_block(p, cfg: StarCoder2Config, x, kv_mask, rope, policy: DTypePolicy
         return _qkv(g["attn"], cfg, h, rope, policy, kernels)
 
     def attend(q, k, v):
-        return flash_prefill_trainable(q, k, v, kv_mask, window=cfg.sliding_window,
-                                       kernels=kernels)
+        return sequence.sp_flash_attention(q, k, v, kv_mask, window=cfg.sliding_window,
+                                           kernels=kernels)
 
     def post(x, attn):
         g = gathered({"o_proj": p["attn"]["o_proj"], "mlp": p["mlp"],
@@ -319,7 +323,9 @@ def forward(
     decode step, chunk step or prefill (see the module docstring).
 
     Returns (logits (B, S|1, V) fp32, or the final hidden states if
-    `return_hidden`; the cache with its index advanced, or None).
+    `return_hidden`; the cache with its index advanced, or None). Without a
+    cache, on a sequence-parallel split, those of this rank's chunk of the
+    positions (parallel/sequence.py::chunk_span).
     `kernels=False` runs the attention kernels' plain versions on the card."""
     B, S, _ = inputs_embeds.shape
     x = policy.cast(inputs_embeds)
@@ -344,6 +350,9 @@ def forward(
         kv_mask = cache["kv_mask"]
         kv_mask[:, idx:idx + S] = attention_mask
     positions = torch.clamp(position_ids, 0, cfg.max_position_embeddings - 1)
+    span = sequence.split_sequence(S) if cache is None else None
+    if span is not None:  # a sequence-parallel rank's chunk of positions
+        x, positions = x[:, span[0]:span[1]], positions[:, span[0]:span[1]]
     # RoPE's cos and sin, once for every layer (JAX recomputes them per
     # layer inside one jit; eager, that would be ten ops a layer)
     rope = rope_tables(positions, rope_frequencies(cfg.head_dim, cfg.rope_theta,

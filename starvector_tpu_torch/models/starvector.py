@@ -16,12 +16,14 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from starvector_tpu_torch.models import adapter as adapter_mod
 from starvector_tpu_torch.models import gpt_bigcode, image_encoder, starcoder2
 from starvector_tpu_torch.models.vision.clip_vit import CLIPViTConfig
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.sequence import chunk_span
 from starvector_tpu_torch.parallel.zero import gathered
 
 
@@ -223,13 +225,20 @@ def text2svg_inputs(params: dict, cfg: StarVectorConfig, input_ids: torch.Tensor
 
 def _decoder_loss(params, cfg, inputs_embeds, attention_mask, targets, policy, remat, kernels):
     """The decoder's training forward, then the fused LM-head loss over its
-    head table (the JAX loss_fn's tail, either decoder)."""
+    head table (the JAX loss_fn's tail, either decoder). On a
+    sequence-parallel split the hidden states are this rank's chunk of the
+    positions: the targets are shifted over the whole sequence, then cut to
+    the chunk (a chunk's last position predicts the next chunk's first
+    target), and the loss's count spans the ranks."""
     dec = cfg.decoder_module
     hidden, _ = dec.forward(params["svg_transformer"], cfg.llm, inputs_embeds, attention_mask,
                             policy=policy, remat=remat, return_hidden=True, kernels=kernels)
+    span = chunk_span(targets.shape[1])
+    if span is not None:
+        targets = F.pad(targets[:, 1:], (0, 1), value=-100)[:, span[0]:span[1]]
     return gpt_bigcode.causal_lm_loss_fused(
         gathered(dec.lm_head_table(params["svg_transformer"], cfg.llm)), hidden, targets,
-        policy=policy)
+        policy=policy, shifted=span is not None)
 
 
 def loss_fn(params: dict, cfg: StarVectorConfig, batch: dict, pad_token_id: int, *,
@@ -280,18 +289,39 @@ def grpo_forward(params: dict, cfg: StarVectorConfig, vision_embeds: torch.Tenso
     rollouts, the uncached decoder runs over [prefix ‖ ids] (B x G rows;
     flash_prefill_trainable, with activation checkpointing per `remat`),
     and gpt_bigcode.token_logprobs_fused scores each id from the hidden
-    state before it. Positions where attention_mask is 0 get 0."""
+    state before it. Positions where attention_mask is 0 get 0. On a
+    sequence-parallel split only the ids this rank's chunk predicts
+    (grpo_scored_ids) are scored; the others get 0."""
     dec = cfg.decoder_module
     B, Q, _ = vision_embeds.shape
     G = num_generations
+    L = input_ids.shape[1]
     cond = policy.cast(vision_embeds).repeat_interleave(G, dim=0)
     tok = policy.cast(dec.embed_tokens(params["svg_transformer"], input_ids))
     am = torch.cat([torch.ones((B * G, Q), dtype=torch.int32, device=cond.device),
                     attention_mask.to(torch.int32)], dim=1)
     hidden, _ = dec.forward(params["svg_transformer"], cfg.llm, torch.cat([cond, tok], dim=1), am,
                             policy=policy, remat=remat, return_hidden=True, kernels=kernels)
-    # the hidden state at Q - 1 + t predicts input_ids[:, t]
+    # the hidden state at Q - 1 + t predicts input_ids[:, t]; on a
+    # sequence-parallel split hidden starts at its chunk's first position
+    lo, hi = grpo_scored_ids(Q, L)
+    start = (chunk_span(Q + L) or (0, Q + L))[0]
+    first = Q - 1 + lo - start
     lp = gpt_bigcode.token_logprobs_fused(
         gathered(dec.lm_head_table(params["svg_transformer"], cfg.llm)),
-        hidden[:, Q - 1:Q - 1 + input_ids.shape[1]], input_ids, policy=policy)
+        hidden[:, first:first + hi - lo], input_ids[:, lo:hi], policy=policy)
+    if (lo, hi) != (0, L):
+        lp = F.pad(lp, (lo, L - hi))
     return torch.where(attention_mask > 0, lp, 0.0)
+
+
+def grpo_scored_ids(Q: int, L: int) -> tuple[int, int]:
+    """(first, end) of the L generated ids after a Q-token prefix whose
+    log-probs this rank computes: all of them, or on a sequence-parallel
+    split those its chunk of the Q + L positions predicts (position Q - 1 + t
+    predicts id t), possibly none."""
+    span = chunk_span(Q + L)
+    if span is None:
+        return 0, L
+    lo = min(max(span[0] - (Q - 1), 0), L)
+    return lo, max(min(span[1] - (Q - 1), L), lo)

@@ -1,5 +1,5 @@
-"""The device mesh of data-parallel and ZeRO-3 training (port of
-starvector_tpu/parallel/mesh.py).
+"""The device mesh of data-parallel, ZeRO-3 and sequence-parallel training
+(port of starvector_tpu/parallel/mesh.py).
 
 The JAX package declares one global `Mesh` with the axes
 
@@ -15,13 +15,19 @@ over the same axes and puts the collectives in by hand (parallel/zero.py):
           (ZeRO-3): each leaf is all-gathered at use and its gradient
           reduce-scattered back;
   * HSDP  "replica" keeps whole copies of the "fsdp" shards, as torch's
-          HYBRID_SHARD.
+          HYBRID_SHARD;
+  * SP    "sequence" splits the training activations' positions: each
+          rank of a sequence group holds the same rows, computes its chunk
+          of their positions and all-gathers K and V for its attention
+          (parallel/sequence.py); weights split over ("fsdp", "sequence")
+          where the dimension divides (ZeRO over sequence,
+          sharding.widen_fsdp_over_sequence).
 
 Axes of size 1 are always there, so the partition specs are those of the
-JAX package whatever the mesh. The port executes meshes of the batch axes
-only: `sequence`, `stage` or `tensor` above 1 raises NotImplementedError
-(require_batch_axes). A `PartitionSpec` here is `P`, a tuple with one
-entry a dimension, each None, an axis name or a tuple of names, as JAX's.
+JAX package whatever the mesh. `stage` or `tensor` above 1 raises
+NotImplementedError (refuse_unported_axes). A `PartitionSpec` here is
+`P`, a tuple with one entry a dimension, each None, an axis name or a
+tuple of names, as JAX's.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 AXIS_REPLICA = "replica"    # whole copies of the fsdp shards (HSDP's outer axis)
 AXIS_DATA = "data"          # plain data parallelism
 AXIS_FSDP = "fsdp"          # parameter and optimizer-state sharding (ZeRO-3)
-AXIS_SEQUENCE = "sequence"  # context parallelism (not executed by the port yet)
+AXIS_SEQUENCE = "sequence"  # context parallelism (training activations' positions)
 AXIS_STAGE = "stage"        # pipeline parallelism (not executed by the port yet)
 AXIS_TENSOR = "tensor"      # tensor parallelism (not executed by the port yet)
 
@@ -105,15 +111,18 @@ def axis_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-def require_batch_axes(mesh, what: str) -> None:
-    """Raise NotImplementedError when `sequence`, `stage` or `tensor` is
-    above 1: the port executes the batch axes only."""
+UNPORTED_AXES = (AXIS_STAGE, AXIS_TENSOR)
+
+
+def refuse_unported_axes(mesh, what: str) -> None:
+    """Raise NotImplementedError when `stage` or `tensor` is above 1: the
+    port executes the batch axes and `sequence` only."""
     sizes = axis_sizes(mesh)
-    extra = {a: n for a, n in sizes.items() if a not in BATCH_AXES and n > 1}
+    extra = {a: sizes[a] for a in UNPORTED_AXES if sizes[a] > 1}
     if extra:
         raise NotImplementedError(
             f"{what}: mesh axes {extra} are not ported yet ({NOT_PORTED}); the port runs "
-            f"the batch axes {BATCH_AXES} (DP, FSDP/ZeRO-3, HSDP)")
+            f"the batch axes {BATCH_AXES} (DP, FSDP/ZeRO-3, HSDP) and {AXIS_SEQUENCE!r}")
 
 
 def create_mesh(config: MeshConfig | None = None, *, device_type: str | None = None):

@@ -15,7 +15,10 @@ Conventions of the rules (the JAX package's):
   * biases and norms replicate, or shard over tensor with their weight.
 
 The port keeps each rank's shard as a plain local tensor and records the
-spec's split beside it (parallel/zero.py): `shard_pytree`.
+spec's split beside it (parallel/zero.py): `shard_pytree`. On a mesh with
+sequence > 1 a weight entry widened to ("fsdp", "sequence") splits over
+fsdp x sequence, rank f * sequence + s holding part f * sequence + s, as
+JAX's devices do.
 """
 
 from __future__ import annotations
@@ -68,8 +71,7 @@ def widen_fsdp_over_sequence(spec, path_s: str, shape: tuple[int, ...], mesh) ->
     """ZeRO over the `sequence` axis: on a mesh with sequence > 1 each plain
     "fsdp" weight entry whose dimension divides fsdp x sequence becomes
     ("fsdp", "sequence"), so that the gradient's combine over sequence is a
-    reduce-scatter; tables are left alone. A no-op without a sequence axis.
-    Shape logic only: the port does not execute sequence meshes yet."""
+    reduce-scatter; tables are left alone. A no-op without a sequence axis."""
     sizes = axis_sizes(mesh)
     if sizes[AXIS_SEQUENCE] == 1 or re.search(_TABLE_RE, path_s):
         return P(*spec)
@@ -115,43 +117,49 @@ def apply_partition_rules(params: Any, rules: Rules, mesh) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """A leaf's spec on a mesh and the one dimension it splits over fsdp
-    (None: every rank holds the whole leaf)."""
+    """A leaf's spec on a mesh, the one dimension it splits over more than
+    one rank (None: every rank holds the whole leaf), and whether that split
+    is fsdp x sequence (`wide`) rather than fsdp."""
     spec: P
     dim: int | None
+    wide: bool = False
 
 
-def _split_dim(spec: P, sizes: dict[str, int]) -> int | None:
-    """The dimension the spec splits over more than one rank, on a mesh of
-    the batch axes, where only fsdp splits a parameter (each rule names it
-    once)."""
-    split = [i for i, a in enumerate(spec) if a is not None and
-             math.prod(sizes[n] for n in ((a,) if isinstance(a, str) else a)) > 1]
-    return split[0] if split else None
+def _sharding(spec: P, sizes: dict[str, int]) -> Sharding:
+    """The spec's split on a mesh where only fsdp, or fsdp x sequence,
+    splits a parameter (each rule names fsdp once)."""
+    split = [(i, names) for i, a in enumerate(spec) if a is not None
+             for names in [(a,) if isinstance(a, str) else a]
+             if math.prod(sizes[n] for n in names) > 1]
+    if not split:
+        return Sharding(spec, None)
+    dim, names = split[0]
+    return Sharding(spec, dim, AXIS_SEQUENCE in names)
 
 
 def make_param_shardings(params: Any, rules: Rules, mesh) -> Any:
     """A tree of Sharding matching `params`: each leaf's spec and the
-    dimension it splits over fsdp."""
+    dimension it splits."""
     sizes = axis_sizes(mesh)
     specs = apply_partition_rules(params, rules, mesh)
-    return zero._map(specs, lambda s: Sharding(s, _split_dim(s, sizes)))
+    return zero._map(specs, lambda s: _sharding(s, sizes))
 
 
 def shard_pytree(params: Any, rules: Rules, mesh) -> Any:
     """This rank's shard of every leaf: a contiguous copy of its slice along
-    the dimension its spec splits over fsdp (the leaf itself when it splits
-    none), registered with the layout so that the model gathers it at use.
-    `mesh` is a DeviceMesh or a zero.Layout over one; sequence, stage or
-    tensor above 1 raises NotImplementedError (zero.Layout)."""
+    the dimension its spec splits (the leaf itself when it splits none),
+    registered with the layout so that the model gathers it at use. `mesh`
+    is a DeviceMesh or a zero.Layout over one; stage or tensor above 1
+    raises NotImplementedError (zero.Layout)."""
     layout = mesh if isinstance(mesh, zero.Layout) else zero.Layout(mesh)
 
     def shard(leaf, sh: Sharding):
+        info = zero.Shard(layout, sh.dim, tuple(leaf.shape), sh.wide)
         local = leaf
         if sh.dim is not None:
-            n = leaf.shape[sh.dim] // layout.fsdp
-            local = leaf.detach().narrow(sh.dim, layout.fsdp_rank * n, n).clone()
+            n = leaf.shape[sh.dim] // info.n
+            local = leaf.detach().narrow(sh.dim, info.index * n, n).clone()
             local.requires_grad_(leaf.requires_grad)
-        return zero.register(local, zero.Shard(layout, sh.dim, tuple(leaf.shape)))
+        return zero.register(local, info)
 
     return zero._map(params, shard, make_param_shardings(params, rules, layout.mesh))

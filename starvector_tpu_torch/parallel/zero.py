@@ -1,10 +1,13 @@
-"""Data parallelism and ZeRO-3 at run time: the collectives that XLA
-inserts into the JAX package's GSPMD step, put in by hand.
+"""Data parallelism, ZeRO-3 and sequence parallelism at run time: the
+collectives that XLA inserts into the JAX package's GSPMD step, put in by
+hand.
 
 One process a device. Every parameter leaf is a plain local tensor, this
 rank's shard (parallel/sharding.py::shard_pytree), and the registry here
-records which of its dimensions is split over the `fsdp` axis (`Shard`).
-The kernels and the model code see only plain contiguous tensors:
+records which of its dimensions is split and over which ranks (`Shard`):
+the `fsdp` axis, or `fsdp` x `sequence` for a leaf widened over the
+sequence axis (ZeRO over sequence). The kernels and the model code see
+only plain contiguous tensors:
 
   * gather at use: `gathered(tree)` all-gathers each sharded leaf just
     before the model reads it (a decoder or ViT layer at a time, the small
@@ -14,14 +17,25 @@ The kernels and the model code see only plain contiguous tensors:
     the backward recomputes, and elsewhere `Layout.step()`'s saved-tensor
     hooks store the shard in its place and gather again when the backward
     reads it, as FSDP does;
-  * gradients: a sharded leaf's shard is summed over the ranks that hold
-    the same shard (`replica` x `data`); every other leaf over all batch
-    ranks (`reduce_grads`);
+  * gradients: a sharded leaf's shard is summed over the other ranks that
+    hold the same shard; every other leaf over the ranks that split the
+    step's work (`reduce_grads`);
   * the rank-local reductions of the step that must span the global batch:
     the loss's count of targets (`batch_sum`), the BatchNorm adapter's
     statistics (`batch_sum_grad`, summed in the forward and the backward),
     the rows of the dropout mask (`global_rows`), and the optimizer's
-    reductions over a sharded leaf (train/optim.py through `fsdp_sum`).
+    reductions over a sharded leaf (train/optim.py through `Shard.sum`).
+
+The ranks of a `sequence` group hold the same rows. Whether they also split
+the rows' positions is decided each step, by the decoder, from the
+sequence's length (parallel/sequence.py::split_sequence; the JAX package's
+sanitize_for_mesh drops the axis where the length does not divide it), and
+recorded on the layout (`Layout.seq_split`). With the split, each of them
+holds a part of the loss and of every gradient, so the count of targets,
+the loss and the gradients sum over batch x sequence; without it, each
+computes the whole rows, its gradients are copies of its peers', and they
+sum over the batch ranks only. The BatchNorm statistics and the dropout
+rows always span the batch ranks only.
 
 With no `Layout` active (`Layout.step()`), every function here returns
 its input: the one-device path is the code it was.
@@ -37,72 +51,175 @@ import torch
 import torch.distributed as dist
 from torch.utils.weak import WeakIdKeyDictionary
 
-from starvector_tpu_torch.parallel.mesh import AXIS_FSDP, BATCH_AXES, axis_sizes, \
-    require_batch_axes
+from starvector_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, AXIS_REPLICA, \
+    AXIS_SEQUENCE, BATCH_AXES, MESH_AXES, axis_sizes, refuse_unported_axes
 
 # the collectives' newer names, where this torch has them
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
+def _subgroup(grid: torch.Tensor, over: tuple[str, ...]):
+    """This rank's group among the ranks of the mesh's rank grid that differ
+    only in the axes `over` (every rank makes every such group); None when
+    it holds this rank alone, the world when it holds every rank."""
+    dims = [MESH_AXES.index(a) for a in over]
+    rest = [i for i in range(grid.dim()) if i not in dims]
+    lists = grid.permute(*rest, *dims).reshape(-1, math.prod(grid.shape[d] for d in dims))
+    if lists.shape[1] == 1:
+        return None
+    if lists.shape[0] == 1:
+        return dist.group.WORLD
+    return dist.new_subgroups_by_enumeration(lists.tolist())[0]
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """t summed in place over `group` (None: this rank alone)."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def _gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The concatenation along `dim` of the n ranks' `shard` (group order)."""
+    shard = shard.contiguous()
+    out = shard.new_empty((n * shard.shape[0], *shard.shape[1:]))
+    _all_gather(out, shard, group=group)
+    if dim == 0:
+        return out
+    return out.view(n, *shard.shape).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _scatter(full: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """This rank's part along `dim` of the sum of the n ranks' `full`."""
+    parts = full.chunk(n, dim)
+    out = parts[0].new_empty(parts[0].shape)
+    _reduce_scatter(out, torch.cat(parts) if dim else full.contiguous(), group=group)
+    return out
+
+
 class Layout:
-    """This rank's place on a DeviceMesh of the batch axes, and its groups:
-    `fsdp_group` (the ranks that split each sharded leaf), `shard_group`
-    (the ranks that hold the same shard: replica x data; None when there is
-    one) and the world, which is the batch group since every other axis is
-    1."""
+    """This rank's place on a DeviceMesh of the batch axes and `sequence`,
+    and its groups. Ranks are row-major over (replica, data, fsdp,
+    sequence): the sequence coordinate is `seq_rank`, the batch coordinate
+    (the row block of the global batch) `batch_rank` = rank // sequence.
+
+      fsdp_group    the ranks that split a leaf over fsdp (same sequence
+                    coordinate)
+      wide_group    the ranks that split a leaf widened over fsdp x
+                    sequence, in the order f * sequence + s of JAX's
+                    ("fsdp", "sequence")
+      sequence_group  the ranks that hold the same rows
+      batch_group   the ranks with this rank's sequence coordinate
+      shard_group   the ranks that hold the same shard of a leaf split over
+                    fsdp x sequence, or of a fsdp leaf in a step without the
+                    split (replica x data)
+      fsdp_shard_group  the ranks that hold the same fsdp shard in a step
+                    with the split (replica x data x sequence)
+
+    A group of one rank is None (no collective); the world is
+    dist.group.WORLD."""
 
     def __init__(self, mesh):
-        require_batch_axes(mesh, "the training mesh")
+        refuse_unported_axes(mesh, "the training mesh")
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.fsdp = sizes[AXIS_FSDP]
+        self.sequence = sizes[AXIS_SEQUENCE]
         self.batch = math.prod(sizes[a] for a in BATCH_AXES)
         self.fsdp_group = mesh.get_group(AXIS_FSDP)
         self.fsdp_rank = mesh.get_local_rank(AXIS_FSDP)
-        # ranks are row-major over (replica, data, fsdp): the fsdp coordinate
-        # is rank % fsdp and the row block of the batch is the rank itself
-        self.batch_rank = dist.get_rank()
-        self.shard_group = None
-        if self.batch > self.fsdp:
-            self.shard_group, _ = dist.new_subgroups_by_enumeration(
-                [list(range(f, self.batch, self.fsdp)) for f in range(self.fsdp)])
+        self.seq_rank = mesh.get_local_rank(AXIS_SEQUENCE)
+        self.batch_rank = dist.get_rank() // self.sequence
+        self.seq_split = False  # whether this step's decoder split the positions
+        grid = mesh.mesh
+        rows = (AXIS_REPLICA, AXIS_DATA)
+        self.shard_group = _subgroup(grid, rows)
+        if self.sequence == 1:
+            self.sequence_group, self.wide_group = None, self.fsdp_group
+            self.batch_group, self.fsdp_shard_group = dist.group.WORLD, self.shard_group
+        else:
+            self.sequence_group = mesh.get_group(AXIS_SEQUENCE)
+            self.wide_group = _subgroup(grid, (AXIS_FSDP, AXIS_SEQUENCE))
+            self.batch_group = _subgroup(grid, BATCH_AXES)
+            self.fsdp_shard_group = _subgroup(grid, rows + (AXIS_SEQUENCE,))
 
-    # --- collectives ---------------------------------------------------------
-    def all_gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
-        """The whole leaf from each fsdp rank's shard, split along `dim`."""
-        shard = shard.contiguous()
-        out = shard.new_empty((self.fsdp * shard.shape[0], *shard.shape[1:]))
-        _all_gather(out, shard, group=self.fsdp_group)
-        if dim == 0:
-            return out
-        return out.view(self.fsdp, *shard.shape).movedim(0, dim).flatten(dim, dim + 1)
+    # --- a leaf's split --------------------------------------------------------
+    def split(self, wide: bool) -> tuple[object, int, int]:
+        """(group, ranks, this rank's index) of a leaf split over fsdp, or
+        widened over fsdp x sequence."""
+        if wide:
+            return self.wide_group, self.fsdp * self.sequence, \
+                self.fsdp_rank * self.sequence + self.seq_rank
+        return self.fsdp_group, self.fsdp, self.fsdp_rank
 
-    def reduce_scatter(self, full: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's shard of the sum of `full` over the fsdp ranks."""
-        parts = full.chunk(self.fsdp, dim)
-        out = parts[0].new_empty(parts[0].shape)
-        _reduce_scatter(out, torch.cat(parts) if dim else full.contiguous(),
-                        group=self.fsdp_group)
-        return out
+    def all_gather(self, shard: torch.Tensor, dim: int, wide: bool = False) -> torch.Tensor:
+        """The whole leaf from each rank's shard, split along `dim`."""
+        group, n, _ = self.split(wide)
+        return _gather(shard, dim, group, n)
 
-    def fsdp_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of `t` over the fsdp ranks (a new tensor, no gradient)."""
-        t = t.detach().clone()
-        dist.all_reduce(t, group=self.fsdp_group)
-        return t
+    def reduce_scatter(self, full: torch.Tensor, dim: int, wide: bool = False) -> torch.Tensor:
+        """This rank's shard of the sum of `full` over the ranks that split
+        the leaf. A widened leaf in a step without the split: its sequence
+        peers' `full` are copies, so the sum spans the fsdp ranks, and this
+        rank takes its part of their shard."""
+        if wide and self.sequence > 1 and not self.seq_split:
+            part = _scatter(full, dim, self.fsdp_group, self.fsdp)
+            return part.chunk(self.sequence, dim)[self.seq_rank].contiguous()
+        group, n, _ = self.split(wide)
+        return _scatter(full, dim, group, n)
+
+    def split_sum(self, t: torch.Tensor, wide: bool = False) -> torch.Tensor:
+        """Sum of `t` over the ranks that split a leaf (a new tensor, no
+        gradient)."""
+        return _all_reduce(t.detach().clone(), self.split(wide)[0])
+
+    # --- the sequence axis -----------------------------------------------------
+    def seq_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sequence group's `t` concatenated along `dim`."""
+        return _gather(t, dim, self.sequence_group, self.sequence)
+
+    def seq_reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's part along `dim` of the sum of the sequence group's `t`."""
+        return _scatter(t, dim, self.sequence_group, self.sequence)
+
+    def seq_broadcast(self, tree: dict) -> dict:
+        """A dict of tensors and plain objects as the first rank of this
+        rank's sequence group has it (through the host), each tensor on the
+        device this rank's own value of it was on."""
+        if self.sequence_group is None:
+            return tree
+        devices = {k: v.device for k, v in tree.items() if isinstance(v, torch.Tensor)}
+        box = [{k: v.cpu() if k in devices else v for k, v in tree.items()}]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.sequence_group, 0),
+                                   group=self.sequence_group)
+        return {k: v.to(devices[k]) if k in devices else v for k, v in box[0].items()}
+
+    # --- the step's reductions -------------------------------------------------
+    def work_group(self):
+        """The ranks that split this step's work: batch x sequence with the
+        split, else the batch ranks."""
+        return dist.group.WORLD if self.seq_split else self.batch_group
 
     def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of `t` over the batch ranks (a new tensor, no gradient)."""
-        t = t.detach().clone()
-        dist.all_reduce(t)
-        return t
+        """Sum of `t` over the ranks that split the step's work (a new
+        tensor, no gradient)."""
+        return _all_reduce(t.detach().clone(), self.work_group())
+
+    def grad_group(self, info: "Shard"):
+        """The ranks over which a leaf's gradient (a sharded leaf's after its
+        reduce-scatter) is summed."""
+        if info.dim is None:
+            return self.work_group()
+        return self.fsdp_shard_group if self.seq_split and not info.wide else self.shard_group
 
     @contextlib.contextmanager
     def step(self):
         """Within: the model's gathers, reductions and dropout follow this
         layout, and a gathered weight that autograd saves is kept as its
-        shard and gathered again in the backward."""
+        shard and gathered again in the backward. The step starts without
+        the sequence split; the decoder records it."""
+        self.seq_split = False
         _ACTIVE.append(self)
         try:
             with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
@@ -113,11 +230,31 @@ class Layout:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
-    """Where a local tensor lies: its layout, the dimension split over fsdp
-    (None: the whole leaf on every rank) and the whole leaf's shape."""
+    """Where a local tensor lies: its layout, the dimension split (None: the
+    whole leaf on every rank), the whole leaf's shape, and whether the split
+    spans fsdp x sequence (`wide`, ZeRO over sequence) or fsdp."""
     layout: Layout
     dim: int | None
     full_shape: tuple[int, ...]
+    wide: bool = False
+
+    @property
+    def n(self) -> int:
+        """The ranks that split the leaf."""
+        return self.layout.split(self.wide)[1]
+
+    @property
+    def index(self) -> int:
+        """This rank's shard among them."""
+        return self.layout.split(self.wide)[2]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of `t` over the ranks that split the leaf (no gradient)."""
+        return self.layout.split_sum(t, self.wide)
+
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from this rank's shard (no gradient)."""
+        return self.layout.all_gather(shard, self.dim, self.wide)
 
 
 _INFO = WeakIdKeyDictionary()      # local tensor -> Shard
@@ -174,7 +311,7 @@ def register_like(t: torch.Tensor, like: torch.Tensor, dropped: int | None = Non
     if dim is not None:
         dim = None if dim == dropped else dim - (dim > dropped)
     shape = info.full_shape[:dropped] + info.full_shape[dropped + 1:]
-    return register(t, Shard(info.layout, dim, shape))
+    return register(t, dataclasses.replace(info, dim=dim, full_shape=shape))
 
 
 def note_views(stacked: torch.Tensor, views) -> None:
@@ -185,7 +322,8 @@ def note_views(stacked: torch.Tensor, views) -> None:
         return
     if info.dim == 0:
         raise ValueError("a stacked leaf's layer axis is split over fsdp")
-    sub = Shard(info.layout, None if info.dim is None else info.dim - 1, info.full_shape[1:])
+    sub = dataclasses.replace(info, dim=None if info.dim is None else info.dim - 1,
+                              full_shape=info.full_shape[1:])
     for v in views:
         _INFO[v] = sub
 
@@ -193,18 +331,20 @@ def note_views(stacked: torch.Tensor, views) -> None:
 # --- gather at use ----------------------------------------------------------
 
 class _Gather(torch.autograd.Function):
-    """all-gather over fsdp in the forward (then the cast to `dtype`), the
-    gradient reduce-scattered back to the shard in the backward."""
+    """all-gather over the leaf's ranks in the forward (then the cast to
+    `dtype`), the gradient reduce-scattered back to the shard in the
+    backward."""
 
     @staticmethod
     def forward(ctx, shard, info: Shard, dtype):
         ctx.info, ctx.shard_dtype = info, shard.dtype
-        full = info.layout.all_gather(shard, info.dim)
+        full = info.gather(shard)
         return full if dtype is None else full.to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.info.layout.reduce_scatter(g.to(ctx.shard_dtype), ctx.info.dim), None, None
+        info = ctx.info
+        return info.layout.reduce_scatter(g.to(ctx.shard_dtype), info.dim, info.wide), None, None
 
 
 def gather(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -244,7 +384,7 @@ class _Regather:
 
     def __call__(self) -> torch.Tensor:
         with torch.no_grad():
-            return self.info.layout.all_gather(self.shard, self.info.dim).to(self.dtype)
+            return self.info.gather(self.shard).to(self.dtype)
 
 
 def _pack(t):
@@ -259,32 +399,31 @@ def _unpack(x):
 # --- batch reductions -------------------------------------------------------
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the batch ranks of a detached value (a count); t itself
-    without an active layout."""
+    """Sum of a detached value (a count, a loss) over the ranks that split
+    the step's work (Layout.batch_sum); t itself without an active layout."""
     layout = active()
     return t if layout is None else layout.batch_sum(t)
 
 
 class _BatchSum(torch.autograd.Function):
     """Sum over the batch ranks; the gradient of each rank's addend is the
-    sum of every rank's gradient of the result."""
+    sum of every batch rank's gradient of the result. A sequence group's
+    ranks hold the same rows, so neither sum spans them: in a step with the
+    split each holds a part of the gradient, which reduce_grads sums."""
 
     @staticmethod
-    def forward(ctx, t):
-        t = t.clone()
-        dist.all_reduce(t)
-        return t
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce(t.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g)
-        return g
+        return _all_reduce(g.clone(), ctx.group), None
 
 
 def batch_sum_grad(t: torch.Tensor) -> torch.Tensor:
     """Differentiable sum over the batch ranks (requires an active layout)."""
-    return _BatchSum.apply(t)
+    return _BatchSum.apply(t, active().batch_group)
 
 
 def global_rows(n: int) -> tuple[int, int] | None:
@@ -295,15 +434,18 @@ def global_rows(n: int) -> tuple[int, int] | None:
 
 
 def reduce_grads(params: list, grads: list) -> None:
-    """Sum each gradient, in place, over the ranks that hold the same piece
-    of its parameter: a sharded leaf's (already reduce-scattered over fsdp)
-    over replica x data, any other over every batch rank. Parameters
-    outside a layout, and None gradients, are left alone."""
+    """Sum each gradient, in place, over the other ranks that hold the same
+    piece of its parameter (Layout.grad_group): a sharded leaf's, already
+    reduce-scattered over the ranks that split it, over replica x data (and
+    sequence, for a fsdp leaf in a step with the split); any other over the
+    ranks that split the step's work. Call it after the step's forward:
+    the split is the step's. Parameters outside a layout, and None
+    gradients, are left alone."""
     for p, g in zip(params, grads):
         info = info_of(p)
         if info is None or g is None:
             continue
-        group = info.layout.shard_group if info.dim is not None else dist.group.WORLD
+        group = info.layout.grad_group(info)
         if group is None:
             continue
         t = g if g.is_contiguous() else g.contiguous()
@@ -324,7 +466,7 @@ def full_tree(tree, to_cpu: bool = False):
         if info is None:
             return t
         with torch.no_grad():
-            full = info.layout.all_gather(t.detach(), info.dim)
+            full = info.gather(t.detach())
         return full.cpu() if to_cpu else full
 
     return _map(tree, leaf)
@@ -340,7 +482,7 @@ def load_shards(local, full):
         info = sharded(t)
         if info is not None:
             n = t.shape[info.dim]
-            f = f.narrow(info.dim, info.layout.fsdp_rank * n, n)
+            f = f.narrow(info.dim, info.index * n, n)
         with torch.no_grad():
             t.copy_(f)
         return t

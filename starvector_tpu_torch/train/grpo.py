@@ -26,11 +26,13 @@ updates_per_rollout > 1 the behaviour log-probs are computed once, before
 the first update.
 
 Sharded parameters (parallel/sharding.py::shard_pytree on a mesh of the
-batch axes, one process a device), as the JAX trainer takes them: the
-optimizer state lies beside each shard, each rank rolls out its own
-prompts on the parameters gathered whole, and the update gathers at use
-and sums over the ranks (parallel/zero.py), the batch means taken over
-every rank's rows. The driver, like the JAX one, builds no mesh.
+batch axes and `sequence`, one process a device), as the JAX trainer
+takes them: the optimizer state lies beside each shard, each batch rank
+rolls out its own prompts on the parameters gathered whole (a sequence
+group takes its first rank's rollout), and the update gathers at use and
+sums over the ranks (parallel/zero.py), the batch means taken over every
+rank's rows, through the sequence split where the rollout's length
+divides. `main`, like the JAX script, builds no mesh.
 """
 
 from __future__ import annotations
@@ -138,7 +140,10 @@ def grpo_loss(params: dict, cfg: sv.StarVectorConfig, vision_embeds: torch.Tenso
     new log-probs). Returns (loss, {"kl", "clip_frac", "mean_ratio"}). On
     a data-parallel layout the rows are this rank's and the means are over
     every rank's rows and tokens: the ranks' losses add up to the global
-    one."""
+    one. On a sequence-parallel split each rank of a sequence group scores
+    its share of the rows' tokens (sv.grpo_scored_ids) and sums only those,
+    over each row's whole count of tokens: the group's sums add up to the
+    rows' token means."""
     new_lp = sv.grpo_forward(params, cfg, vision_embeds, ids, attn_mask,
                              num_generations=num_generations, policy=policy, remat=remat,
                              kernels=kernels)
@@ -149,6 +154,10 @@ def grpo_loss(params: dict, cfg: sv.StarVectorConfig, vision_embeds: torch.Tenso
     per_tok = -torch.minimum(ratio * adv, torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv)
     m = loss_mask.float()
     denom = m.sum(dim=1).clamp_min(1.0)
+    lo, hi = sv.grpo_scored_ids(vision_embeds.shape[1], ids.shape[1])
+    if (lo, hi) != (0, ids.shape[1]):
+        pos = torch.arange(ids.shape[1], device=m.device)
+        m = m * ((pos >= lo) & (pos < hi))
     kl = torch.zeros((), device=new_lp.device)
     if ref_lp is not None and kl_beta > 0.0:
         d = ref_lp - new_lp
@@ -226,11 +235,12 @@ class GRPOTrainer:
     a copy of the decoder taken here is the KL reference.
 
     When model.params are shards on a layout (parallel/), the optimizer
-    state takes each shard's split, each rank rolls out the images it is
-    given on the parameters gathered whole (for the rollout only), and the
-    update runs through the gathers and sums of the sharded step. A mesh
-    with sequence, stage or tensor above 1 cannot be made (ROADMAP queue 1,
-    item 12)."""
+    state takes each shard's split, each batch rank rolls out the images it
+    is given on the parameters gathered whole (for the rollout only; the
+    ranks of a sequence group take its first rank's rollout, so that they
+    hold the same rows), and the update runs through the gathers, the
+    sequence split and the sums of the sharded step. A mesh with stage or
+    tensor above 1 cannot be made (ROADMAP queue 1, item 12)."""
 
     def __init__(self, model, grpo: GRPOConfig = GRPOConfig(), *, lr: float = 1e-6,
                  total_steps: int = 1000, warmup_steps: int = 0, grad_clip: float = 1.0,
@@ -290,6 +300,8 @@ class GRPOTrainer:
                 temperature=gen_kwargs.pop("temperature", g.temperature),
                 top_p=gen_kwargs.pop("top_p", g.top_p),
                 max_new_tokens=gen_kwargs.pop("max_new_tokens", g.max_new_tokens), **gen_kwargs)
+        if self.layout is not None:
+            roll = self.layout.seq_broadcast(roll)
         t1 = time.perf_counter()
         rewards = batch_rewards(roll["raw_svg"], target_rasters, num_generations=g.num_generations,
                                 resolution=g.reward_resolution, ssim_weight=g.ssim_weight)

@@ -46,8 +46,9 @@ On a ZeRO-3 layout (parallel/) each parameter is this rank's shard and its
 state lies beside it, split the same way (a factored moment that reduced
 the split dimension away whole on every rank): the elementwise math is
 local, and each reduction over a leaf (the global norm, Adafactor's row and
-column means and its two RMS values) sums over the fsdp ranks, so every
-rank takes the step the whole leaf would. Frozen leaves take none.
+column means and its two RMS values) sums over the ranks that split it
+(fsdp, or fsdp x sequence for a leaf widened over sequence), so every rank
+takes the step the whole leaf would. Frozen leaves take none.
 """
 
 from __future__ import annotations
@@ -138,15 +139,21 @@ def _sq_sum(t: torch.Tensor) -> torch.Tensor:
 def global_norm(leaves: list[torch.Tensor], like: list | None = None) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum of every element's square, in fp32.
     `like` gives each leaf's parameter: where that is a ZeRO-3 shard, the
-    leaf is too, and its squares are summed over the fsdp ranks (once for
-    all such leaves); the other leaves are whole on every rank."""
+    leaf is too, and its squares are summed over the ranks that split it
+    (once for all leaves split over fsdp, once for all split over fsdp x
+    sequence); the other leaves are whole on every rank."""
     sq = torch.stack([_sq_sum(g) for g in leaves])
     split = [zero.sharded(p) for p in like] if like is not None else [None] * len(leaves)
     if not any(split):
         return sq.sum().sqrt()
-    is_split = torch.tensor([s is not None for s in split], device=sq.device)
-    layout = next(s.layout for s in split if s is not None)
-    return (layout.fsdp_sum(sq[is_split].sum()) + sq[~is_split].sum()).sqrt()
+    whole = torch.tensor([s is None for s in split], device=sq.device)
+    total = sq[whole].sum()
+    for wide in (False, True):
+        pick = [s is not None and s.wide == wide for s in split]
+        if any(pick):
+            over = split[pick.index(True)]  # the ranks that split every picked leaf
+            total = total + over.sum(sq[torch.tensor(pick, device=sq.device)].sum())
+    return total.sqrt()
 
 
 class Chain:
@@ -291,17 +298,17 @@ class Adafactor(Chain):
             views = [dict(p=p[i], g=g[i], **{k: None if v is None else v[i]
                                               for k, v in s.items()})
                      for i in range(p.shape[0])] if by_layer else [dict(p=p, g=g, **s)]
-            # a ZeRO-3 shard: the dimension (of a view) split over fsdp,
-            # whose sums span the fsdp ranks
+            # a ZeRO-3 shard: the dimension (of a view) split over ranks,
+            # whose sums span them
             split = zero.sharded(p)
             sd = None if split is None else split.dim - shift
-            fsdp_sum = (lambda t: t) if split is None else split.layout.fsdp_sum
+            split_sum = (lambda t: t) if split is None else split.sum
 
             def mean(t: torch.Tensor, dim: int, split_dim, keepdim: bool = False) -> torch.Tensor:
                 """t's mean over `dim`, whole-leaf when `dim` is the split one."""
                 if dim != split_dim:
                     return t.mean(dim=dim, keepdim=keepdim)
-                return fsdp_sum(t.sum(dim=dim, keepdim=keepdim)) / (t.shape[dim] * split.layout.fsdp)
+                return split_sum(t.sum(dim=dim, keepdim=keepdim)) / (t.shape[dim] * split.n)
 
             def scaled(view, first: bool) -> torch.Tensor:
                 """The view's update after the factored scaling; on the
@@ -325,13 +332,13 @@ class Adafactor(Chain):
 
             # clip_by_block_rms over the whole leaf: a first pass for its
             # sum of squares, a second that recomputes and applies
-            ss = fsdp_sum(sum(scaled(v, True).square().sum() for v in views))
+            ss = split_sum(sum(scaled(v, True).square().sum() for v in views))
             numel = math.prod(shape)
             denom = torch.clamp(torch.sqrt(ss / numel) / self.CLIPPING_THRESHOLD, min=1.0)
             if split is None:
                 rms = torch.linalg.vector_norm(p) / math.sqrt(numel)
             else:
-                rms = fsdp_sum(p.float().square().sum()).sqrt() / math.sqrt(numel)
+                rms = split_sum(p.float().square().sum()).sqrt() / math.sqrt(numel)
             rms = torch.where(rms <= self.MIN_PARAM_SCALE,
                               torch.full_like(rms, self.MIN_PARAM_SCALE), rms)
             step = lr * rms / denom

@@ -7,12 +7,14 @@ freezing live in the optimizer (train/optim.py). Parameters and optimizer
 state are updated in place; the step returns them for the JAX signature.
 
 On a ZeRO-3 layout (`shard_train_state`, parallel/) the step runs on this
-rank's shards and its block of the batch's rows: the model gathers each
-sharded leaf at use and reduce-scatters its gradient (parallel/zero.py),
-the other gradients are summed over the batch ranks, the loss's count of
-targets and the BatchNorm statistics are the global batch's, and the
-optimizer's reductions span the shards, so that N ranks take the step one
-process takes on the whole batch. The returned loss is the global one.
+rank's shards and its block of the batch's rows (on a sequence-parallel
+mesh, its chunk of their positions where the length divides): the model
+gathers each sharded leaf at use and reduce-scatters its gradient
+(parallel/zero.py), the other gradients are summed over the ranks that
+split the step, the loss's count of targets and the BatchNorm statistics
+are the global batch's, and the optimizer's reductions span the shards,
+so that N ranks take the step one process takes on the whole batch. The
+returned loss is the global one.
 """
 
 from __future__ import annotations
@@ -158,8 +160,8 @@ def shard_train_state(params: dict, opt: Chain, mesh) -> tuple[dict, dict]:
     """This rank's shards of params by the model's partition rules
     (sv.partition_rules, parallel/sharding.py::shard_pytree) and a fresh
     optimizer state made on them: every moment lies beside its parameter's
-    shard (ZeRO-3). `mesh`: a DeviceMesh of the batch axes or a
-    parallel.zero.Layout over one."""
+    shard (ZeRO-3). `mesh`: a DeviceMesh of the batch axes and `sequence`,
+    or a parallel.zero.Layout over one."""
     params = shard_pytree(params, sv.partition_rules(), mesh)
     return params, opt.init(params)
 

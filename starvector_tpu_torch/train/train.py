@@ -23,11 +23,15 @@ too with project.report_to: wandb), a snapshot of starvector_tpu_torch/
 The mesh: under `torchrun --nproc_per_node N` (one process a device) the
 `mesh:` block, fsdp: -1 over every rank without one, lays the N ranks out
 as the JAX main lays out its devices (parallel/): plain DP, ZeRO-3/FSDP
-and HSDP over the batch axes (replica, data, fsdp); sequence, stage or
-tensor above 1 raises NotImplementedError (ROADMAP queue 1, item 12).
-Each rank keeps its shards of the parameters and optimizer state and
-trains on its contiguous block of the global batch that a one-process run
-draws, so N ranks take the one-process steps. Rank 0 alone logs, writes
+and HSDP over the batch axes (replica, data, fsdp), and sequence
+parallelism with ZeRO over sequence (parallel/sequence.py; the 8B recipe
+im2svg-stack-v5e8.yaml asks for fsdp 4 x sequence 2); stage or tensor
+above 1 raises NotImplementedError (ROADMAP queue 1, item 12). Each rank
+keeps its shards of the parameters and optimizer state and trains on its
+batch coordinate's contiguous block of the global batch that a
+one-process run draws (the ranks of a sequence group the same block,
+each its chunk of the positions where the batch's length divides), so
+N ranks take the one-process steps. Rank 0 alone logs, writes
 the run directory and writes each checkpoint, from the state gathered
 whole (the files a one-process run writes); a resume re-shards it on the
 run's own mesh. A CUDA run takes NCCL, training.device=cpu gloo. Started
@@ -61,7 +65,7 @@ from starvector_tpu_torch.models.builder import model_builder
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.parallel import zero
 from starvector_tpu_torch.parallel.mesh import (
-    create_mesh, initialize_distributed, local_mesh_summary, mesh_config_from, require_batch_axes,
+    create_mesh, initialize_distributed, local_mesh_summary, mesh_config_from, refuse_unported_axes,
 )
 from starvector_tpu_torch.train import checkpoint as ckpt
 from starvector_tpu_torch.train.optim import Chain, build_optimizer
@@ -125,8 +129,9 @@ def to_device(batch: dict, device) -> dict:
 
 
 def rank_rows(batch: dict, layout: zero.Layout | None) -> dict:
-    """This rank's contiguous block of a global batch's rows (the JAX
-    batch_spec layout), the batch itself without a layout."""
+    """This rank's contiguous block of a global batch's rows by its batch
+    coordinate (the JAX batch_spec layout: the ranks of a sequence group
+    take the same block), the batch itself without a layout."""
     if layout is None:
         return batch
     B = len(next(batch[k] for k in BATCH_TYPES if k in batch))
@@ -258,7 +263,7 @@ def main(config) -> dict:
     g = config.get_path
     device = require_device(g("training.device", "cuda"), "training.device=cpu")
     mesh_cfg = mesh_config_from(config)
-    require_batch_axes(dataclasses.asdict(mesh_cfg), "train.main")
+    refuse_unported_axes(dataclasses.asdict(mesh_cfg), "train.main")
     owns_group = not dist.is_initialized()
     device = initialize_distributed(device)
     owns_group = owns_group and dist.is_initialized()

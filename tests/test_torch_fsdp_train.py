@@ -143,7 +143,7 @@ def _steps_job(model: str, params: dict, batch: dict, mesh: dict, remat, opt: di
     loss0, _, grads = step.loss_and_grads(params, cfg, rows, 0, policy=policy, remat=remat,
                                           trainable=tx._trainable(params))
     out = {"loss0": float(loss0), "grads0": zero.full_tree(grads),
-           "local_rows": int(rows["svg_ids"].shape[0])}
+           "local_rows": int(rows["svg_ids"].shape[0]), "seq_split": layout.seq_split}
     shards = [(tuple(p.shape), zero.full_shape(p)) for p in optim.tree_leaves(params)]
     out["split"] = sum(a != b for a, b in shards)
     where = step.opt_state_shardings(state)
@@ -212,10 +212,11 @@ def _grpo_job(params: dict, mesh: dict, rollout: dict, advantages, updates: int)
 
     run = grpo_updates(model, rollout, advantages, updates, rows)
     trainer = run["trainer"]
+    seq_split = layout.seq_split
     mu = [m for m in trainer.opt_state["mu"] if m is not None]
     whole = zero.full_tree(model.params["svg_transformer"])  # unsplit leaves are the live ones
     out = {"metrics": run["metrics"], "decoder": tree_map(lambda t: t.detach().clone(), whole),
-           "moments_split": sum(zero.sharded(m) is not None for m in mu)}
+           "moments_split": sum(zero.sharded(m) is not None for m in mu), "seq_split": seq_split}
     grpo.batch_rewards = lambda raw, targets, *, num_generations, **kw: np.linspace(
         0.0, 1.0, len(raw), dtype=np.float32)
     images = torch.from_numpy(np.random.RandomState(layout.batch_rank).standard_normal(
@@ -434,11 +435,11 @@ def _toy_yaml(path: Path, out_dir: Path) -> Path:
     return path
 
 
-def _torchrun(yaml_path: Path, steps: int) -> None:
+def _torchrun(yaml_path: Path, steps: int, nproc: int = 2) -> None:
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
     run = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
          "-m", "starvector_tpu_torch.train.train", f"config={yaml_path}",
          f"training.steps={steps}"], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=300)

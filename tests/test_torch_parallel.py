@@ -14,9 +14,15 @@ test_torch_fsdp_train.launch; the worker imports torch and the port only)
 computes, for each place where a rank-local computation parts from the
 global one, the sharded result against the one-process result on the whole
 input, and what the rank-local computation without its collective gives;
-each test holds the first to 1e-5 and the second to be wrong.
+each test holds the first to 1e-5 and the second to be wrong. A run of 4
+ranks on (fsdp 2, sequence 2) does the same for each reduction that the
+sequence axis changes, the wrong one being that reduction over the wrong
+ranks, and shards the 1B's and 8B's trees, which must be the JAX
+package's device shards.
 """
 
+import contextlib
+import math
 import re
 from pathlib import Path
 
@@ -29,7 +35,7 @@ from test_torch_fsdp_train import launch, worker_main
 HERE = Path(__file__).resolve()
 MESHES = {"fsdp8": dict(fsdp=8), "data2_fsdp4": dict(data=2, fsdp=4),
           "replica2_fsdp2_tensor2": dict(replica=2, fsdp=2, tensor=2),
-          "fsdp4_sequence2": dict(fsdp=4, sequence=2)}
+          "fsdp4_sequence2": dict(fsdp=4, sequence=2), "fsdp2_sequence2": dict(fsdp=2, sequence=2)}
 EXACT = 1e-5     # sharded against one process, relative to the result's scale
 WRONG = 1e-3     # the rank-local result without its collective is off by more
 
@@ -226,7 +232,175 @@ def _reductions_job() -> dict:
     return out
 
 
-JOBS = {"reductions": _reductions_job}
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _flipped(fn):
+    """fn run with the active step's sequence split taken the other way:
+    the reduction over the wrong ranks."""
+    def run(layout, *args):
+        layout.seq_split = not layout.seq_split
+        try:
+            return fn(layout, *args)
+        finally:
+            layout.seq_split = not layout.seq_split
+
+    return run
+
+
+def _seq_reductions_job(trees: dict) -> dict:
+    """4 ranks on (fsdp 2, sequence 2), batch coordinate = rank // 2: each
+    check as (error of the sharded computation, error with the reduction
+    over the wrong ranks), the larger over the ranks, under "seq_*"; and
+    every rank's shards of `trees` ("shards": per rank, {path: shard})."""
+    import torch.distributed as dist
+
+    from starvector_tpu_torch.models import adapter
+    from starvector_tpu_torch.models import starvector as tsv
+    from starvector_tpu_torch.ops.layers import DTypePolicy, dropout
+    from starvector_tpu_torch.parallel import MeshConfig, create_mesh, shard_pytree, zero
+    from starvector_tpu_torch.train import optim
+    from starvector_tpu_torch.train.step import loss_and_grads, mark_trainable
+
+    layout = zero.Layout(create_mesh(MeshConfig(fsdp=2, sequence=2)))
+    rank, n = layout.batch_rank, layout.batch
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    rng = np.random.RandomState(1)  # the same draws on every rank
+    out = {}
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        return t.chunk(n)[rank]
+
+    def record(name, sharded, wrong):
+        pair = torch.tensor([sharded, wrong], dtype=torch.float64)
+        dist.all_reduce(pair, op=dist.ReduceOp.MAX)
+        out["seq_" + name] = pair.tolist()
+
+    # --- BatchNorm statistics span the batch ranks, not the sequence peers
+    acfg = adapter.AdapterConfig(input_size=8, output_size=16, query_length=6,
+                                 adapter_norm="batch_norm")
+    params = adapter.init_params(acfg, torch.Generator().manual_seed(1))
+    x = torch.tensor(rng.standard_normal((4, 6, 8)) * 2 + 1, dtype=torch.float32)
+    y, stats = adapter.forward_with_stats(params, acfg, x, policy=f32)
+
+    def batch_norm() -> float:
+        with layout.step():
+            yr, stats_r = adapter.forward_with_stats(params, acfg, rows(x), policy=f32)
+        return max([_err(yr, rows(y))] + [_err(stats_r[k], stats[k]) for k in stats])
+
+    good = batch_norm()
+    with _patched(layout, "batch_group", dist.group.WORLD):
+        record("batch_norm", good, batch_norm())
+
+    # --- dropout: the sequence peers draw the same rows
+    xd = torch.tensor(rng.standard_normal((4, 5, 7)), dtype=torch.float32)
+    ref_d = dropout(xd, 0.5, torch.Generator().manual_seed(11))
+
+    def drop() -> float:
+        with layout.step():
+            return _err(dropout(rows(xd), 0.5, torch.Generator().manual_seed(11)), rows(ref_d))
+
+    good = drop()
+    with _patched(layout, "batch_rank", dist.get_rank()), \
+            _patched(layout, "batch", dist.get_world_size()):
+        record("dropout", good, drop())
+
+    # --- the count of targets and the gradients: over batch x sequence in a
+    # step with the split (17 + 47 positions), over the batch ranks without
+    # it (17 + 46); the error is the largest over the loss and every
+    # gradient, relative to the largest gradient
+    cfg = tsv.tiny_config(adapter_norm="batch_norm")
+    whole = mark_trainable(tsv.init_params(cfg, torch.Generator().manual_seed(3)))
+    shards = mark_trainable(shard_pytree(tsv.init_params(cfg, torch.Generator().manual_seed(3)),
+                                         tsv.partition_rules(), layout))
+    for S, tag in ((47, "split"), (46, "nosplit")):
+        mask = (np.arange(S)[None, :] < np.asarray([S, S - 7, S - 30, S - 2])[:, None])
+        batch = {"image": torch.tensor(rng.standard_normal((4, 28, 28, 3)), dtype=torch.float32),
+                 "svg_ids": torch.tensor(np.where(mask, rng.randint(1, 512, (4, S)), 0)),
+                 "svg_mask": torch.tensor(mask.astype(np.int32))}
+        ref_loss, _, ref_grads = loss_and_grads(whole, cfg, batch, 0, policy=f32, remat=False)
+        ref_leaves = optim.tree_leaves(ref_grads)
+        scale = max(float(g.abs().max()) for g in ref_leaves)
+
+        def step() -> float:
+            loss, _, grads = loss_and_grads(shards, cfg, {k: rows(v) for k, v in batch.items()},
+                                            0, policy=f32, remat=False)
+            got = optim.tree_leaves(zero.full_tree(grads))
+            return max([_err(loss, ref_loss)] + [float((g - r).abs().max()) / scale
+                                                 for g, r in zip(got, ref_leaves)])
+
+        good = step()
+        out[f"seq_split_{tag}"] = layout.seq_split
+        with _patched(zero.Layout, "batch_sum", _flipped(zero.Layout.batch_sum)):
+            record(f"count_{tag}", good, step())
+        real = zero.reduce_grads
+        with _patched(zero, "reduce_grads", lambda ps, gs: _flipped(
+                lambda lay: real(ps, gs))(layout)):
+            record(f"grads_{tag}", good, step())
+
+    # --- ZeRO over sequence: the global norm and Adafactor's reductions over
+    # a leaf widened to fsdp x sequence span its 4 ranks; registered as a
+    # fsdp leaf (its sums over fsdp alone) they do not
+    _, parts, index = layout.split(True)
+    shapes = {"a": ((256, 128), 0), "b": ((2, 128, 256), 1)}  # split on d0; on d1, by layer
+    whole_p = {k: torch.tensor(rng.standard_normal(s) * 0.05, dtype=torch.float32)
+               for k, (s, _) in shapes.items()}
+    gs = [{k: torch.tensor(rng.standard_normal(s) * scale, dtype=torch.float32)
+           for k, (s, _) in shapes.items()} for scale in (1e-3, 1e-1)]
+    split = {k: d for k, (_, d) in shapes.items()}
+
+    def part(t, dim):
+        return t if dim is None else t.chunk(parts, dim)[index].clone()
+
+    def adafactor(ps, dims):
+        tx = optim.build_optimizer(ps, optimizer="adafactor", lr=1e-2, warmup_steps=0,
+                                   total_steps=10)
+        st = tx.init(ps)
+        for g in gs:
+            tx.update({k: part(v, dims[k]) for k, v in g.items()}, st, ps)
+        return st
+
+    ref_p = {k: v.clone() for k, v in whole_p.items()}
+    ref_st = adafactor(ref_p, dict.fromkeys(shapes))
+    ref_norm = optim.global_norm(list(gs[1].values()))
+    errs = {}
+    for wide in (True, False):
+        sh_p = {k: zero.register(part(v, split[k]), zero.Shard(layout, split[k], tuple(v.shape),
+                                                               wide))
+                for k, v in whole_p.items()}
+        st = adafactor(sh_p, split)
+        moments = [(t, r) for key in ("v_row", "v_col") for t, r in zip(st[key], ref_st[key])]
+        errs[wide] = (
+            _err(optim.global_norm([part(v, split[k]) for k, v in gs[1].items()],
+                                   list(sh_p.values())), ref_norm),
+            max(_err(t, part(r, None if zero.info_of(t).dim is None else zero.info_of(t).dim))
+                for t, r in moments),
+            max(_err(sh_p[k], part(ref_p[k], split[k])) for k in shapes))
+    for i, name in enumerate(("global_norm", "adafactor_factored", "adafactor_block_rms")):
+        record(name, errs[True][i], errs[False][i])
+
+    # --- every rank's shards of the 1B's and 8B's trees, by _flat's paths
+    def flat(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {p: v for k, t in tree.items() for p, v in flat(t, prefix + (k,)).items()}
+        return {prefix: tree.detach()}
+
+    mine = {model: flat(shard_pytree(tree, tsv.partition_rules(), layout))
+            for model, tree in trees.items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out["shards"] = every
+    return out
+
+
+JOBS = {"reductions": _reductions_job, "seq_reductions": _seq_reductions_job}
 
 
 if __name__ == "__main__":
@@ -235,7 +409,10 @@ if __name__ == "__main__":
 
 @pytest.fixture(scope="module")
 def reductions(tmp_path_factory):
-    return launch(HERE, "reductions", 2, {}, tmp_path_factory.mktemp("reductions"))
+    tmp = tmp_path_factory.mktemp("reductions")
+    trees = {model: _trees(model)[1] for model in ("1b", "8b")}
+    return {**launch(HERE, "reductions", 2, {}, tmp),
+            **launch(HERE, "seq_reductions", 4, dict(trees=trees), tmp)}
 
 
 def _held(reductions, name):
@@ -290,6 +467,38 @@ def test_block_rms_clip_spans_the_shards(reductions):
     _held(reductions, "adafactor_block_rms")
 
 
+@pytest.mark.parametrize("name", ["batch_norm", "dropout"])
+def test_sequence_peers_share_batch_statistics_and_dropout_rows(reductions, name):
+    """On (fsdp 2, sequence 2) the BatchNorm statistics and the dropout
+    rows span the batch ranks only: the sequence peers hold the same rows,
+    so the statistics summed over them too, or rows drawn by the global
+    rank, give another output."""
+    _held(reductions, "seq_" + name)
+
+
+@pytest.mark.parametrize("which", ["count", "grads"])
+@pytest.mark.parametrize("split", ["split", "nosplit"])
+def test_count_and_gradients_span_sequence_only_with_the_split(reductions, which, split):
+    """On (fsdp 2, sequence 2), the tiny 1B's loss and every gradient (a
+    row a rank) equal one process's on the 4 rows: with the split (17 + 47
+    positions) the count of targets and the gradients sum over batch x
+    sequence, without it (17 + 46) over the batch ranks, where each
+    sequence peer's gradients are copies. Either sum over the other ranks
+    (the count, or the gradients) gives another loss or gradient."""
+    assert reductions[f"seq_split_{split}"] is (split == "split")
+    _held(reductions, f"seq_{which}_{split}")
+
+
+@pytest.mark.parametrize("name", ["global_norm", "adafactor_factored", "adafactor_block_rms"])
+def test_widened_leaf_reductions_span_fsdp_and_sequence(reductions, name):
+    """A leaf widened over (fsdp, sequence) (ZeRO over sequence), split in
+    4 on its largest dim (256 x 128) and on its second (2 x 128 x 256, a
+    layer at a time): the global norm and Adafactor's factored moments and
+    block-RMS clip after two updates equal the whole leaf's; sums over the
+    fsdp ranks alone do not."""
+    _held(reductions, "seq_" + name)
+
+
 def test_dropout_draws_the_global_rows(reductions):
     """On a layout the dropout mask is the global batch's, drawn from the
     one generator state, and each rank takes its rows: N ranks drop what
@@ -341,9 +550,12 @@ def test_mesh_config_resolves_as_jax():
 
 
 def _jax_mesh(axes: dict):
+    """The JAX mesh over the first devices of the 8 that it covers."""
+    import jax
+
     from starvector_tpu.parallel import MeshConfig, create_mesh
 
-    return create_mesh(MeshConfig(**axes))
+    return create_mesh(MeshConfig(**axes), devices=jax.devices()[:math.prod(axes.values())])
 
 
 def _trees(model: str):
@@ -390,11 +602,14 @@ def _flat(tree, prefix=()):
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("model", ["1b", "8b", "vqgan", "convnext", "open-clip"])
-def test_partition_specs_equal_jax(model, mesh):
+def test_partition_specs_equal_jax(model, mesh, request):
     """Every leaf's spec from the port's apply_partition_rules (a mesh
     shape, no devices) equals the JAX package's on its 8-device CPU mesh,
-    entry for entry; the sequence mesh widens fsdp to (fsdp, sequence)
-    where the JAX package does."""
+    entry for entry; the sequence meshes widen fsdp to (fsdp, sequence)
+    where the JAX package does. On (fsdp 2, sequence 2) the 1B's and 8B's
+    shards that shard_pytree executes on 4 gloo ranks are, rank for rank,
+    the shards of the JAX device at the same mesh position (its
+    make_param_shardings' index map), widened leaves included."""
     import jax
 
     from starvector_tpu.models import starvector as jsv
@@ -414,8 +629,22 @@ def test_partition_specs_equal_jax(model, mesh):
     assert got == ref
     split = [s for s in ref.values() if any(e is not None for e in s)]
     assert split, "the mesh splits no leaf: the comparison says nothing"
-    if mesh == "fsdp4_sequence2" and model in ("1b", "8b"):
+    if "sequence" in mesh and model in ("1b", "8b"):
         assert any(("fsdp", "sequence") in s for s in got.values())
+    if mesh == "fsdp2_sequence2" and model in ("1b", "8b"):
+        from starvector_tpu.parallel import make_param_shardings
+
+        shardings = _flat(jax.tree_util.tree_map(
+            lambda s: s, make_param_shardings(jtree, jsv.partition_rules(), jmesh),
+            is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding)))
+        whole = _flat(jtree)
+        ranks = request.getfixturevalue("reductions")["shards"]
+        for r, shards in enumerate(ranks):
+            device = jmesh.devices[0, 0, r // 2, r % 2, 0, 0]
+            for path, sharding in shardings.items():
+                index = sharding.devices_indices_map(whole[path].shape)[device]
+                np.testing.assert_array_equal(shards[model][path].numpy(), whole[path][index],
+                                              err_msg=f"rank {r} {path}")
 
 
 MODULES = ["gpt_bigcode", "starcoder2", "adapter", "image_encoder", "starvector",
@@ -462,26 +691,29 @@ def test_batch_specs_sanitize_and_summary_equal_jax():
 # refusals
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("axis", ["sequence", "stage", "tensor"])
+@pytest.mark.parametrize("axis", ["stage", "tensor", "stage+sequence"])
 def test_model_parallel_axes_raise_citing_item_12(axis, tmp_path):
-    """sequence, stage or tensor above 1 raises NotImplementedError naming
-    ROADMAP queue 1, item 12: in train.main before anything runs or is
-    written, and in shard_pytree, the way GRPOTrainer's parameters reach a
-    mesh."""
+    """stage or tensor above 1 raises NotImplementedError naming ROADMAP
+    queue 1, item 12, with or without a sequence axis beside it (the JAX
+    package's pp_layer_scan refuses stage with sequence): in train.main
+    before anything runs or is written, and in shard_pytree, the way
+    GRPOTrainer's parameters reach a mesh."""
     from starvector_tpu_torch.config import ConfigNode
     from starvector_tpu_torch.models import starvector as tsv
     from starvector_tpu_torch.parallel import shard_pytree
     from starvector_tpu_torch.train.train import main
 
+    axes = dict.fromkeys(axis.split("+"), 2)
+    refused = axis.split("+")[0]
     out = tmp_path / "run"
-    config = ConfigNode({"project": {"out_dir": str(out)}, "mesh": {"fsdp": 2, axis: 2},
+    config = ConfigNode({"project": {"out_dir": str(out)}, "mesh": {"fsdp": 2, **axes},
                          "model": {"preset": "tiny"}, "training": {"device": "cpu"}})
-    with pytest.raises(NotImplementedError, match=rf"'{axis}': 2.*item 12"):
+    with pytest.raises(NotImplementedError, match=rf"\{{'{refused}': 2\}}.*item 12"):
         main(config)
     assert not out.exists()
     params = tsv.init_params(tsv.tiny_config(), torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 12"):
-        shard_pytree(params, tsv.partition_rules(), {"fsdp": 1, axis: 2})
+        shard_pytree(params, tsv.partition_rules(), {"fsdp": 1, **axes})
 
 
 def test_distributed_init_never_falls_back(monkeypatch):

@@ -422,7 +422,8 @@ def _v5e8_config(out, steps, one_device=True):
 
 def test_train_main_v5e8_recipe_end_to_end_with_resume(tmp_path):
     """train.main on the v5e-8 recipe (_v5e8_config): its mesh block
-    (sequence 2) raises NotImplementedError naming ROADMAP item 12 before
+    (fsdp 4 x sequence 2, 8 devices) started as one process raises
+    ValueError (the JAX rule: the mesh must cover the devices) before
     anything is written; on one device, Adafactor state, bf16 gradients,
     fp32 masters; a run cut after 2 steps and resumed to 4 continues the
     step count with finite losses; the run directory holds config.yaml,
@@ -433,7 +434,7 @@ def test_train_main_v5e8_recipe_end_to_end_with_resume(tmp_path):
     from starvector_tpu_torch.utils.experiment import generate_experiment_id
 
     out = tmp_path / "run"
-    with pytest.raises(NotImplementedError, match=r"'sequence': 2.*item 12"):
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         main(_v5e8_config(out, 2, one_device=False))
     assert not out.exists()
     main(_v5e8_config(out, 2))
