@@ -8,8 +8,9 @@ SigLIP at 512 and 256) behind the 1B decoder, GRPO and training, the
 entry points (both quickstarts, the web UI, the GRPO driver), and
 StarVector-8B im2svg
 inference (bf16, and int8 weights with an int8 KV cache), text2svg, beam
-search, speculative decoding, pipelined generation, serving and training,
-on one NVIDIA H100, end to end through the hand-written kernels.
+search, speculative decoding, pipelined generation, serving (also over a
+tensor mesh: its two tensor-parallel serve configs) and training, on one
+NVIDIA H100, end to end through the hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --times-only ROOT
@@ -45,7 +46,10 @@ Phases, one line each (any failure raises and exits non-zero):
      H=36 Hkv=4 with the window (B=4 S=T=580; B=1 S=1024 at q_offset 7168 of
      T=8192), kernel 14 at the six 8B projections' four shapes (M = 1, 4,
      580, 2320), fp32 and bf16, bf16 bit for bit on relaunch; flash_prefill
-     and decode at phase 4f's prefix lengths, B=2, S=T in {51, 198, 1026}
+     and decode at phase 4f's prefix lengths, B=2, S=T in {51, 198, 1026};
+     a tensor rank's shapes (phase 6e): flash_prefill at H = 9, 5, 4 over
+     Hkv = 1 (B=2 S=T=1024, right-padded), decode at G = 9 over Hkv = 1 (32
+     slots) and over an int8 cache at G = 5 and 4 (16 slots)
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -229,7 +233,21 @@ Phases, one line each (any failure raises and exits non-zero):
      fp32 engine ids equal offline generate's on the fp32 copy, the window
      at 2 layers in fp32 (a 4700-token prefix admitted in 8 chunks beside a
      579-token one, decoded past the 4096-key window in the row's mask: ids
-     with the kernels == plain), tokens/s beside offline B=4
+     with the kernels == plain), tokens/s beside offline B=4. 6e, the 8B
+     served over a tensor mesh on the same weights: TP_WORLD = 8 processes
+     on the one card over a gloo group the phase makes (NCCL takes one rank
+     a card; gloo takes CUDA tensors for the all-reduce and broadcast this
+     path uses), the trees shared by CUDA IPC, each rank through the
+     functions serve/worker.py's main calls: tp4dp2 in fp32 (2 replicas of
+     tensor 4, 32 slots; 9 query heads over 1 KV head a rank), the
+     first-step logits within fp32 TOL of one process, 4 concurrent
+     greedy requests of 64 tokens == the one-process fp32 engine's ids;
+     tp8-int8kv in bf16 (tensor 8, 16 slots, int8 cache; 5 or 4 query
+     heads over 1 KV head), teacher-forced logits against one process's
+     within twice its own kernels-vs-plain gap plus 1e-3, and the greedy
+     agreement of the engines' ids; every rank's launches equal its
+     leader's run (kernel 1 a layer an admission, kernel 2 / 2' a layer a
+     step); wall times are gloo's over one card, no serving speed
   6b. training at full StarVector-8B width and 8 of its 32 decoder layers
      (SigLIP-L/16 and the LayerNorm adapter trainable; fp32 masters, bf16
      compute, dots_flash, AdamW; B=1, T = 576 + 7616 = 8192, past the 4096
@@ -253,6 +271,8 @@ Phases, one line each (any failure raises and exits non-zero):
      train steps and the training kernels at the 8B's (S = T = 8192, H=36,
      Hkv=4, window 4096; dkdv at each head split beside the plan's pick),
      flash_prefill at siglip_512's prefix (B=2, S=T=1026) beside SDPA,
+     a tensor rank's kernel 1 (H = 9, 5, 4) and kernel 2 (G = 9; 5 and 4
+     over an int8 cache) beside their bounds and SDPA with enable_gqa,
      also the training kernels at the long contexts phase 3 drives (with
      --profile DIR, also where a decode step's and the 1B and 8B train
      steps' device time goes)
@@ -390,7 +410,7 @@ def read_counts(tfa) -> dict:
 def kernel_tag(mangled: str) -> str:
     """What tells a kernel's instantiations apart, from its mangled name:
     ' int8 cache' for decode_attention_{bf16,f32}_kernel<int8_t, G> and
-    ' G=9' or ' G=16' for its query heads per KV head; for the
+    ' G=16', ' G=9', ' G=5' or ' G=4' for its query heads per KV head; for the
     int8 matmul its first template argument ('<bf16>' or '<f32>': x's type
     for the GEMV, the output's for the tile and finish kernels, marked
     'out'), for the GEMV ' rows<=MR' and for the wgmma tile ' xBX' (its
@@ -450,7 +470,7 @@ CUDA_CORE_KERNELS = ("flash_prefill_f32_kernel", "flash_bwd_dkdv_f32_kernel",
                      "flash_bwd_dq_f32_kernel")
 # decode_attention's instantiations: bf16 queries on the warp-level tensor
 # cores (mma.sync: HMMA), fp32 queries on the CUDA cores (none)
-DECODE_TAGS = (" G=16", " int8 cache G=16", " G=9", " int8 cache G=9")
+DECODE_TAGS = tuple(f"{cache}G={G}" for G in (16, 9, 5, 4) for cache in (" ", " int8 cache "))
 HMMA_KERNELS = tuple(f"decode_attention_bf16_kernel{tag}" for tag in DECODE_TAGS)
 NO_HMMA_KERNELS = tuple(f"decode_attention_f32_kernel{tag}" for tag in DECODE_TAGS)
 
@@ -810,6 +830,95 @@ def check_g9_int8_decode(tfa, dc, dev) -> float:
                    f"kernel {want!r} == plain == JAX's bf16(bf16(c p) / (1 + p)), not the "
                    f"v_scale-after-rounding or fp32-P values {others}")
     return worst
+
+
+# one tensor rank's heads at the 8B's serve configs (parallel/tensor.py::
+# head_layout): tensor 4 holds 9 query heads over 1 KV head; tensor 8
+# splits each KV head's 9 over two ranks, 5 + 4
+TP_PREFILL_HEADS = (9, 5, 4)
+TP_DECODE_CHECKS = (  # name, G, int8 cache, B, T, ragged mask
+    ("tensor 4, B=32 slots T=708", 9, False, 32, 708, True),
+    ("tensor 8, B=16 slots T=708 (int8 cache)", 5, True, 16, 708, True),
+    ("tensor 8, B=16 slots T=708 (int8 cache)", 4, True, 16, 708, True),
+)
+
+
+def check_tp_shapes(tfa, dc, dev) -> dict:
+    """The kernels at one tensor rank's shapes (phase 6e) against their plain
+    versions, fp32 and bf16 (bf16 launched twice, bit for bit): kernel 1
+    at H = 9, 5 and 4 over Hkv = 1, the window 4096, an admission of two
+    prompts right-padded in their 1024 bucket; kernel 2 at G = 9 over Hkv
+    = 1 (tensor 4: the serve config's 32 slots), and over an int8 cache at
+    G = 5 and 4 (tensor 8: 16 slots; their own instantiations), a ragged
+    mask, the self token merged. Returns the worst max |diff| by row
+    name."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    D, errs = 128, {}
+    for H in TP_PREFILL_HEADS:
+        worst = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            B, S = 2, 1024
+            q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, S, 1, D), generator=g, device=dev).to(dtype) for _ in "kv")
+            mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+            mask[0, 579:] = 0
+            mask[1, 610:] = 0
+            out = tfa.flash_prefill(q, k, v, mask, window=WINDOW8)
+            ref = tfa.flash_prefill(q, k, v, mask, window=WINDOW8, kernels=False)
+            torch.cuda.synchronize()
+            live = torch.zeros((B, S), dtype=torch.bool, device=dev)
+            live[0, :579], live[1, :610] = True, True
+            err = compare(f"flash_prefill H={H} Hkv=1 {dtype}", out, ref, dtype, live=live)
+            same = ""
+            if dtype == torch.bfloat16:
+                again = tfa.flash_prefill(q, k, v, mask, window=WINDOW8)
+                torch.cuda.synchronize()
+                if not torch.equal(again, out):
+                    raise AssertionError(f"flash_prefill H={H} Hkv=1: two launches differ")
+                same = "; a second launch gives the same bits"
+            worst = max(worst, err)
+            log("kernels", f"flash_prefill H={H} Hkv=1 window=4096 B=2 S=T=1024 (prompts of 579 "
+                           f"and 610 right-padded) {str(dtype)[6:]}: max |diff| {err:.3e} on the "
+                           f"real rows{same}")
+        errs[f"flash_prefill_h{H}"] = worst
+    for name, G, quant, B, T, ragged in TP_DECODE_CHECKS:
+        worst = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            qg = torch.randn((B, 1, G, D), generator=g, device=dev).to(dtype)
+            kn, vn = (torch.randn((B, 1, D), generator=g, device=dev).to(dtype) for _ in "kv")
+            if quant:
+                (k, ks), (v, vs) = (dc.quantize_kv(torch.randn((B, T, 1, D), generator=g,
+                                                               device=dev)) for _ in "kv")
+            else:
+                k, v = (torch.randn((B, T, 1, D), generator=g, device=dev).to(dtype)
+                        for _ in "kv")
+                ks = vs = None
+            mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+            if ragged:
+                mask[0, : T // 5] = 0
+                mask[-1, 100:400] = 0
+                mask[:, T // 2] = 0
+
+            def run(kernels=True):
+                return tfa.merged_decode_attention(qg, kn, vn, k, v, mask, D**-0.5, ks, vs,
+                                                   kernels=kernels)
+
+            out, ref = run(), run(False)
+            torch.cuda.synchronize()
+            err = compare(f"decode G={G} Hkv=1 {name} {dtype}", out, ref, dtype, tols=DECODE_TOL)
+            same = ""
+            if dtype == torch.bfloat16:
+                again = run()
+                torch.cuda.synchronize()
+                if not torch.equal(again, out):
+                    raise AssertionError(f"decode G={G} Hkv=1 {name}: two launches differ")
+                same = "; a second launch gives the same bits"
+            worst = max(worst, err)
+            log("kernels", f"decode_attention {'int8 cache ' if quant else ''}G={G} Hkv=1 {name} "
+                           f"{str(dtype)[6:]}: max |diff| {err:.3e}{same}")
+        errs[f"decode{'_int8' if quant else ''}_g{G}_hkv1"] = worst
+    torch.cuda.empty_cache()
+    return errs
 
 
 QMM_SHAPES_8B = (  # the 8B decoder's six projections a layer, four shapes: name, K, N
@@ -2269,19 +2378,20 @@ def serve_prefixes(params, cfg, images, policy, prompts=SERVE_PROMPTS) -> list[t
                           policy=policy)[0] for i, p in enumerate(prompts)]
 
 
-def engine_ids(params, cfg, prefixes, policy, dev, tfa, *, kernels=True, kv=None):
-    """(greedy ids of each prefix, SERVE_CHECK_NEW tokens with the stop,
-    through a fresh engine at steps_per_tick 4; the launch counts; the
-    engine's ticks): all requests queued before the start, so they admit as
-    one group."""
+def engine_ids(params, cfg, prefixes, policy, dev, tfa, *, kernels=True, kv=None,
+               new=SERVE_CHECK_NEW, stops=STOP_IDS):
+    """(greedy ids of each prefix, `new` tokens with the stops, through a
+    fresh engine at steps_per_tick 4; the launch counts; the engine's
+    ticks): all requests queued before the start, so they admit as one
+    group."""
     from starvector_tpu_torch.serve.engine import Request, ServeEngine
 
     engine = ServeEngine(params["svg_transformer"], cfg.llm, cfg.decoder, max_batch=8,
                          max_len=1024, policy=policy, kv_cache_dtype=kv, steps_per_tick=4,
                          device=dev, kernels=kernels)
     try:
-        reqs = [Request(prefix_embeds=p, max_new_tokens=SERVE_CHECK_NEW, do_sample=False,
-                        stop_sequences=STOP_IDS) for p in prefixes]
+        reqs = [Request(prefix_embeds=p, max_new_tokens=new, do_sample=False,
+                        stop_sequences=stops) for p in prefixes]
         reset_counts(tfa)
         res = serve_requests(engine, reqs)
         counts = read_counts(tfa)
@@ -3117,8 +3227,8 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     every step of a batch but the last's one fused forward
     (forward_decode_with_chunk: kernel 2 for the decode half, the chunk
     step for the next prompt's chunk); batch 0 prefills through kernel 1.
-      * fp32: each batch's ids and lengths equal per-batch generate's (the
-        kernels) and generate_pipelined's with kernels=False; launches
+      * fp32: each batch's ids and lengths equal generate_pipelined's with
+        kernels=False, and the first two batches' per-batch generate's; launches
         exactly 24 flash_prefill (batch 0) and 24 decode_attention a decode
         step;
       * bf16: the launches, and each batch's first token that parts from
@@ -3182,7 +3292,11 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     out32, counts = counted(lambda: pipelined(d32, batches32, f32))
     steps = pipelined_steps(out32, n_chunks)
     expect_counts("pipelined fp32", counts, flash_prefill=L, decode_attention=L * steps["decode"])
-    same_ids("pipelined fp32 against per-batch generate", out32, serial(d32, batches32, f32))
+    # per-batch generate for the first two batches only: each batch is
+    # generated alone, so the third and fourth would repeat the same check
+    # (the script's time budget)
+    same_ids("pipelined fp32 against per-batch generate", out32[:2],
+             serial(d32, batches32[:2], f32))
     same_ids("pipelined fp32, kernels against plain", out32,
              pipelined(d32, batches32, f32, kernels=False))
     log("pipelined", f"generate_pipelined, fp32, {PIPE_BATCHES} batches of B={PIPE_B}, P={PIPE_P}, "
@@ -3191,8 +3305,8 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
                      f"steps, {steps['chunk']} chunk-only, {steps['decode_only']} decode-only; "
                      f"launches flash_prefill {counts['flash_prefill']} = {L} x 1 (batch 0), "
                      f"decode_attention {counts['decode_attention']} = {L} x {steps['decode']} "
-                     f"decode steps; ids and lengths == per-batch generate's and == the plain "
-                     f"attention's, every batch")
+                     f"decode steps; ids and lengths == the plain attention's, every batch, and "
+                     f"== per-batch generate's, batches 0 and 1")
 
     # int8 weights over an fp32 cache: fp32 ids against per-batch generate
     q32 = quantized(p32)["svg_transformer"]
@@ -3522,6 +3636,296 @@ def serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> 
         for e in engines:
             e.stop()
     return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: StarVector-8B served over a tensor mesh (parallel/tensor.py)
+# ---------------------------------------------------------------------------
+
+TP_CONFIGS = (  # name, the serve config, compute dtype of the check, greedy new tokens a request
+    ("tp4dp2", "configs/generation/serve/starvector-8b/im2svg-tp4dp2.yaml", torch.float32, 64),
+    ("tp8-int8kv", "configs/generation/serve/starvector-8b/im2svg-tp8-int8kv.yaml",
+     torch.bfloat16, 8),
+)
+TP_WORLD = 8     # both configs' ranks, each a process on the one card
+# teacher-forced positions of the tensor-8 check (a decode step's 16
+# all-reduces over gloo among 8 processes on one card took 0.3-0.9 s)
+TP_FORCED = 8
+TP_TIMEOUT = 600  # seconds the ranks may take before the phase fails
+
+
+def _group_tensor(group, t: torch.Tensor | None, dtype, dev) -> torch.Tensor:
+    """The tensor group leader's `t` on every rank of its group."""
+    shape = group.broadcast_object(None if t is None else tuple(t.shape))
+    return group.broadcast(t if t is not None else torch.empty(shape, dtype=dtype, device=dev))
+
+
+def _tp_config(tfa, name: str, kw: dict, policy, new: int, whole: dict, cfg, images,
+               forced_ids, dev) -> dict:
+    """One tensor rank's run of one serve config, through the functions
+    serve/worker.py's main calls (tensor.serving_group, the rank's slices by
+    starvector.tensor_parallel, worker.make_engine): the check's forward on
+    every rank of the group (the first step's logits in fp32, or
+    teacher-forced logits over the int8 cache), then the group's engine,
+    the leader serving its data group's share of 4 greedy requests of
+    `new` tokens (request i on data group i % data), the followers
+    replaying. Returns the heads, the launch counts of the engine run, and
+    on the leader its logits, ids, ticks and wall time."""
+    from starvector_tpu_torch.api import StarVectorForCausalLM
+    from starvector_tpu_torch.generation.engine import im2svg_prefix
+    from starvector_tpu_torch.models import starcoder2
+    from starvector_tpu_torch.models import starvector as sv
+    from starvector_tpu_torch.parallel.tensor import serving_group
+    from starvector_tpu_torch.serve.engine import Request
+    from starvector_tpu_torch.serve.worker import make_engine
+
+    axes, kv = kw["mesh_axes"], kw["kv_cache_dtype"]
+    data = axes.get("data", 1)
+    group = serving_group(axes)
+    params, rcfg = sv.tensor_parallel(whole, cfg, group)
+    model = StarVectorForCausalLM(params, rcfg, policy=policy, device=dev)
+    out = dict(heads=(rcfg.llm.num_attention_heads, rcfg.llm.kv_heads), tensor_rank=group.rank,
+               data_rank=group.data_rank)
+    st, n = params["svg_transformer"], 2
+    emb = None
+    if group.is_leader:
+        emb = im2svg_prefix(model.params, model.cfg, images[:n],
+                            torch.tensor([PROMPT_IDS] * n, device=dev), policy=policy)[0]
+    emb = _group_tensor(group, emb, policy.compute_dtype, dev)
+    mask = torch.ones(emb.shape[:2], dtype=torch.int32, device=dev)
+    if kv is None:  # the first step's logits: the admission prefill's last position
+        cache = starcoder2.init_cache(rcfg.llm, n, emb.shape[1], dtype=policy.compute_dtype,
+                                      device=dev)
+        check = starcoder2.forward(st, rcfg.llm, emb, mask, cache=cache, policy=policy,
+                                   last_logits_only=True)[0][:, -1]
+    else:
+        check = forced_logits(starcoder2, st, rcfg.llm, emb, mask, TP_FORCED, policy, True, kv,
+                              forced_ids)[0]
+    if group.is_leader:
+        out["check"] = check.float().cpu()
+    del emb, check
+    engine = make_engine(model, tensor=group, max_batch=kw["max_batch"] // data, max_len=1024,
+                         kv_cache_dtype=kv)
+    torch.cuda.synchronize()
+    reset_counts(tfa)
+    t = time.perf_counter()
+    if group.is_leader:
+        mine = [i for i in range(4) if i % data == group.data_rank]
+        pre = serve_prefixes(model.params, model.cfg, images[mine], policy,
+                             prompts=[SERVE_PROMPTS[i] for i in mine])
+        res = serve_requests(engine, [Request(prefix_embeds=p, max_new_tokens=new,
+                                              do_sample=False) for p in pre])
+        stats = engine.stats()
+        engine.stop()
+        out.update(ids={i: r["ids"] for i, r in zip(mine, res)}, ticks=stats["ticks"],
+                   prefill_chunks=stats["prefill_chunks"])
+    else:
+        engine.follow()
+        out["checked"] = engine.checked_steps
+    torch.cuda.synchronize()
+    out.update(wall=time.perf_counter() - t, counts=read_counts(tfa))
+    return out
+
+
+def _tp_rank(rank: int, port: int, weights, kws: dict, cfg, results) -> None:
+    """A rank of phase 6e, a process of its own on the one card: joins a
+    gloo group of TP_WORLD ranks (NCCL refuses two ranks on one card),
+    then runs each of TP_CONFIGS over it (_tp_config) on the weights the
+    main process shares through the queue `weights` (CUDA IPC: the unsplit
+    leaves are its tensors, each rank copies its slices; every reference
+    is dropped before the rank reports, so that the main process can free
+    them). Puts (rank, results) or (rank, the error) on `results`."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        shared = weights.get(timeout=TP_TIMEOUT)
+        dev = shared["images"].device  # the card the main process shares its weights on
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=TP_WORLD)
+        from starvector_tpu_torch.ops import flash_attention as tfa
+        from starvector_tpu_torch.ops import kernel_lib
+        from starvector_tpu_torch.ops.layers import DTypePolicy
+
+        kernel_lib.library()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = {}
+        for name, _, dtype, new in TP_CONFIGS:
+            whole = shared["p32"] if dtype == torch.float32 else shared["p16"]
+            out[name] = _tp_config(tfa, name, kws[name], DTypePolicy(dtype, dtype), new, whole,
+                                   cfg, shared["images"], shared["forced_ids"], dev)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        del shared
+        gc.collect()
+        results.put((rank, out))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — the main process reports it and stops the others
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def tensor_serving_8b(tfa, model, cfg, p16, p32, dev, card: str, depth: str) -> dict:
+    """Phase 6e, on phase 6's 8B weights (`depth`): the two tensor-parallel
+    serve configs over TP_WORLD ranks, processes on the one card over a
+    gloo group (_tp_rank): tp4dp2 in fp32 (2 replicas of tensor 4, 32
+    slots each, the fp32 cache that "bfloat16" names under fp32 compute):
+    the first step's logits within fp32 TOL of one process's, and the 4
+    requests' greedy ids equal to the one-process fp32 engine's; tp8-int8kv
+    in bf16 (tensor 8, 16 slots, int8 cache): teacher-forced logits against
+    one process's over the int8 cache (kernels), within twice that path's
+    own gap to its plain version plus 1e-3, and the greedy agreement of
+    the engines' ids. Every rank's launches: kernel 1 a layer an admission,
+    kernel 2 (2' over the int8 cache) a layer a step, equal across a
+    group. Wall times over gloo on one card are no serving speed. Returns
+    the per-rank results by config."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from starvector_tpu_torch.config import load_yaml
+    from starvector_tpu_torch.generation.engine import im2svg_prefix
+    from starvector_tpu_torch.models import starcoder2
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.serve.worker import serve_kwargs_from_leaf
+
+    t0 = time.perf_counter()
+    L = cfg.llm.num_hidden_layers
+    f32, bf16 = DTypePolicy(torch.float32, torch.float32), DTypePolicy(torch.bfloat16,
+                                                                        torch.bfloat16)
+    kws = {name: serve_kwargs_from_leaf(load_yaml(Path(__file__).parent / path))
+           for name, path, _, _ in TP_CONFIGS}
+    new = {name: n for name, _, _, n in TP_CONFIGS}
+    images = model.process_images(synthetic_images(4, 33))
+    # one process: the references
+    ref_ids = {"tp4dp2": engine_ids(p32, cfg, serve_prefixes(p32, cfg, images, f32), f32, dev,
+                                    tfa, new=new["tp4dp2"], stops=())[0],
+               "tp8-int8kv": engine_ids(p16, cfg, serve_prefixes(p16, cfg, images, bf16), bf16,
+                                        dev, tfa, kv=torch.int8, new=new["tp8-int8kv"],
+                                        stops=())[0]}
+    emb, mask = im2svg_prefix(p32, cfg, images[:2], torch.tensor([PROMPT_IDS] * 2, device=dev),
+                              policy=f32)
+    cache = starcoder2.init_cache(cfg.llm, 2, emb.shape[1], dtype=torch.float32, device=dev)
+    ref_first = starcoder2.forward(p32["svg_transformer"], cfg.llm, emb, mask, cache=cache,
+                                   policy=f32, last_logits_only=True)[0][:, -1]
+    emb, mask = im2svg_prefix(p16, cfg, images[:2], torch.tensor([PROMPT_IDS] * 2, device=dev),
+                              policy=bf16)
+    forced, forced_ids = forced_logits(starcoder2, p16["svg_transformer"], cfg.llm, emb, mask,
+                                       TP_FORCED, bf16, True, torch.int8)
+    forced_plain = forced_logits(starcoder2, p16["svg_transformer"], cfg.llm, emb, mask,
+                                 TP_FORCED, bf16, False, torch.int8, forced_ids)[0]
+    del emb, mask, cache
+    t_ref = time.perf_counter() - t0
+
+    ctx = mp.get_context("spawn")
+    results, weights = ctx.Queue(), ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, weights, kws, cfg, results))
+             for r in range(TP_WORLD)]
+    t1 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+        weights.put(dict(p32=p32, p16=p16, images=images, forced_ids=forced_ids))
+    ranks: dict[int, dict] = {}
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT
+        while len(ranks) < TP_WORLD:
+            try:
+                rank, res = results.get(timeout=5)
+            except Exception:  # noqa: BLE001 — queue.Empty: look at the processes
+                if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(f"phase 6e: ranks {sorted(ranks)} reported, exit codes "
+                                         f"{[p.exitcode for p in procs]}")
+                continue
+            if "error" in res:
+                raise AssertionError(f"phase 6e: rank {rank} failed:\n{res['error']}")
+            ranks[rank] = res
+        for proc in procs:
+            proc.join(timeout=60)
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase 6e: exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        if dev.type == "cuda":  # the blocks the ranks held through CUDA IPC, released by them
+            torch.cuda.ipc_collect()
+    t_ranks = time.perf_counter() - t1
+
+    out = {}
+    for name, _, dtype, _ in TP_CONFIGS:
+        runs = [ranks[r][name] for r in range(TP_WORLD)]
+        data = kws[name]["mesh_axes"].get("data", 1)
+        tp = TP_WORLD // data
+        leaders = [run for run in runs if run["tensor_rank"] == 0]
+        for lead in leaders:  # every rank of a group launched what its leader did
+            group = [run for run in runs if run["data_rank"] == lead["data_rank"]]
+            want = {"flash_prefill": L * lead["prefill_chunks"],
+                    "decode_attention": L * 4 * lead["ticks"],
+                    "decode_attention_int8": L * 4 * lead["ticks"] if dtype == torch.bfloat16
+                    else 0, "quant_matmul": 0, **dict.fromkeys(TRAIN_KERNELS, 0)}
+            for run in group:
+                got = {k: run["counts"][k] for k in want}
+                if got != want:
+                    raise AssertionError(f"6e {name}: data group {lead['data_rank']} tensor rank "
+                                         f"{run['tensor_rank']} launched {got}, its leader's run "
+                                         f"needs {want}")
+                if run is not lead and run["checked"] < new[name] - 4:
+                    raise AssertionError(f"6e {name}: a follower checked {run['checked']} steps")
+        ids = {i: v for lead in leaders for i, v in lead["ids"].items()}
+        ids = [ids[i] for i in range(4)]
+        heads = sorted({run["heads"] for run in runs})
+        walls = [run["wall"] for run in leaders]
+        if dtype == torch.float32:
+            err = compare(f"6e {name} first-step logits", leaders[0]["check"].to(dev), ref_first,
+                          torch.float32)
+            if ids != ref_ids[name]:
+                raise AssertionError(f"6e {name}: fp32 greedy ids {ids}\none process "
+                                     f"{ref_ids[name]}")
+            log("tp", f"{card}: {name} ({data} replicas of tensor {tp}, "
+                      f"{kws[name]['max_batch'] // data} slots each, fp32 at {depth}; heads a "
+                      f"rank {heads} as (query, KV)): first-step logits of 2 prefixes within "
+                      f"fp32 TOL of one process (max |diff| {err:.3e}); 4 concurrent greedy "
+                      f"requests of {new[name]} tokens, 2 a replica: ids == the one-process fp32 "
+                      f"engine's; every rank launched flash_prefill {runs[0]['counts']['flash_prefill']}"
+                      f" (H=9 Hkv=1), decode_attention {runs[0]['counts']['decode_attention']} "
+                      f"(G=9 Hkv=1); wall {', '.join(f'{w:.2f}' for w in walls)} s a replica over "
+                      f"gloo on one card (not a serving speed)")
+            out[name] = dict(err=err, ranks=runs)
+        else:
+            got = leaders[0]["check"].to(dev)
+            gap_tp = (got - forced).abs().max().item()
+            gap_plain = (forced_plain - forced).abs().max().item()
+            if not torch.isfinite(got).all() or gap_tp > 2.0 * gap_plain + 1e-3:
+                raise AssertionError(f"6e {name}: teacher-forced logits {gap_tp:.3e} from one "
+                                     f"process's, over twice its plain path's {gap_plain:.3e}")
+            forced_agree = (got[:, :-1].argmax(-1) == forced_ids).float().mean().item()
+            same = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+                    for x, y in zip(ids, ref_ids[name])]
+            log("tp", f"{card}: {name} (tensor {tp}, {kws[name]['max_batch']} slots, bf16, int8 "
+                      f"cache, at {depth}; heads a rank {heads}): teacher-forced logits over "
+                      f"{TP_FORCED} positions, B=2, max |diff| from one process {gap_tp:.4f} "
+                      f"(one process's plain path: {gap_plain:.4f}; bound 2 x that + 1e-3), argmax "
+                      f"== the fed ids at {forced_agree:.4f}; 4 greedy requests of {new[name]}: ids "
+                      f"equal to the one-process int8-cache engine's for the first {same} tokens; "
+                      f"launches a rank flash_prefill {runs[0]['counts']['flash_prefill']}, "
+                      f"int8-cache decode_attention (G=5 on even ranks, 4 on odd) "
+                      f"{runs[0]['counts']['decode_attention_int8']}; wall {walls[0]:.2f} s over "
+                      f"gloo on one card (not a serving speed)")
+            out[name] = dict(err=gap_tp, plain_gap=gap_plain, agree=forced_agree, same=same,
+                             ranks=runs)
+    log("phase", f"6e took {time.perf_counter() - t0:.0f} s: one-process references "
+                 f"{t_ref:.0f} s, {TP_WORLD} ranks (start, shards, both configs) {t_ranks:.0f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4679,6 +5083,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     serve_8b = serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card, depth)
     log("phase", f"6d (StarVector-8B continuous-batching serving) took "
                  f"{time.perf_counter() - t_6d:.0f} s")
+    tp_8b = tensor_serving_8b(tfa, model, cfg, p16, p32, dev, card, depth)
     del m32, p32
     torch.cuda.empty_cache()
 
@@ -4724,7 +5129,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
         profile_request(request, card, profile_dir, "8b")
     e2e = e2e["8B bf16"]
     out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(p16),
-               serve=serve_8b, pipelined=pipe_8b)
+               serve=serve_8b, pipelined=pipe_8b, tp=tp_8b)
     del request, served, t2s
     out["int8"] = int8_slice_8b(model, tfa, cfg, p16, dev, card, e2e, depth, profile_dir)
     del model, p16
@@ -5400,6 +5805,104 @@ def times_8b(tfa, dc, tq, dev, card: str, s8: dict, errs: dict) -> list[dict]:
     return rows
 
 
+def tp_counts(tp: dict) -> dict:
+    """Phase 6e's launches by counter: {config: [count on rank 0, 1, ...]}."""
+    names = next(iter(tp.values()))["ranks"][0]["counts"]
+    return {c: {name: [run["counts"][c] for run in res["ranks"]] for name, res in tp.items()}
+            for c in names}
+
+
+def tp_times(tfa, dc, dev, card: str, tp: dict, errs: dict) -> list[dict]:
+    """The kernels at one tensor rank's shapes, bf16 (the configs' serving
+    type), graph-replayed beside the plain version, the bound and SDPA
+    with enable_gqa over the one KV head: kernel 1 at H = 9 (tensor 4), 5
+    and 4 (tensor 8) over Hkv = 1, B=4 S=T=580, window 4096 (phase 6's H=36
+    row's shape); kernel 2 at G = 9 over Hkv = 1 and, over an int8 cache,
+    at G = 5 and 4, B=4 T=708, the self token merged, beside the int8 G = 9
+    launch at the same shape. Returns the rows
+    of the kernels' JSON, launches from phase 6e's rank that runs each
+    shape (`tp`), tp_launches every rank's."""
+    counts = tp_counts(tp)
+    g = torch.Generator(device=dev).manual_seed(23)
+    D, rows = 128, []
+    B, S = 4, 580
+    for H, config, rank in ((9, "tp4dp2", 0), (5, "tp8-int8kv", 0), (4, "tp8-int8kv", 1)):
+        q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, 1, D), generator=g, device=dev).bfloat16() for _ in "kv")
+        mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+        plain_ms, ms = _turns(
+            lambda: tfa.flash_prefill(q, k, v, mask, window=WINDOW8, kernels=False),
+            lambda: tfa.flash_prefill(q, k, v, mask, window=WINDOW8))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = sdpa_ms(qh, kh, vh, causal=True, enable_gqa=True)
+        nbytes = 2 * B * S * H * D * 2 + 2 * B * S * D * 2 + B * S * 4
+        flops = 4 * D * H * B * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes, flops)
+        log("times", f"{card}: flash_prefill a tensor rank's B=4 S=T=580 H={H} Hkv=1 window=4096 "
+                     f"D=128 bf16 ({config}): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"{b_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                     f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), SDPA "
+                     f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+        rows.append(dict(name=f"flash_prefill_{config.split('-')[0][:3]}_h{H}", route="cuda",
+                         source="starvector_tpu_torch/csrc/flash_prefill.cu",
+                         replaces="starvector_tpu/ops/flash_attention.py:212",
+                         launches=counts["flash_prefill"][config][rank],
+                         max_abs_err=errs[f"flash_prefill_h{H}"], ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         tp_launches=counts["flash_prefill"]))
+        del q, k, v, qh, kh, vh
+    B, T = 4, 708
+    small_kv = 2 * B * D * 2 + B * T * 4  # k_new, v_new, the mask
+    int8_g9 = None
+    for G, quant, config, rank in ((9, False, "tp4dp2", 0), (9, True, None, None),
+                                   (5, True, "tp8-int8kv", 0), (4, True, "tp8-int8kv", 1)):
+        qg = torch.randn((B, 1, G, D), generator=g, device=dev).bfloat16()
+        kn, vn = (torch.randn((B, 1, D), generator=g, device=dev).bfloat16() for _ in "kv")
+        kc, vc = (torch.randn((B, T, 1, D), generator=g, device=dev).bfloat16() for _ in "kv")
+        old = torch.ones((B, T), dtype=torch.int32, device=dev)
+        cache = (kc, vc, None, None)
+        if quant:
+            (kq, ks), (vq, vs) = dc.quantize_kv(kc.float()), dc.quantize_kv(vc.float())
+            cache = (kq, vq, ks, vs)
+        kk, vv, sk, sv_ = cache
+        plain_ms, ms = _turns(
+            lambda: tfa.merged_decode_attention(qg, kn, vn, kk, vv, old, D**-0.5, sk, sv_,
+                                                kernels=False),
+            lambda: tfa.merged_decode_attention(qg, kn, vn, kk, vv, old, D**-0.5, sk, sv_))
+        if config is None:  # beside the tensor-8 ranks' groups of 5 and 4
+            int8_g9 = ms
+            log("times", f"{card}: decode_attention int8 cache G=9 Hkv=1 B=4 T=708 bf16 queries: "
+                         f"kernel {ms:.4f} ms")
+            continue
+        cache_bytes = 2 * B * T * D * (1 if quant else 2) + (2 * B * T * 4 if quant else 0)
+        flops = 4 * D * G * B * (T + 1)
+        b_ms, b_by = bound(cache_bytes + 2 * B * G * D * 2 + small_kv, flops)
+        lib = None
+        if not quant:
+            keys = [torch.cat([c, n[:, None]], 1).transpose(1, 2).contiguous()
+                    for c, n in ((kc, kn), (vc, vn))]
+            lib = sdpa_ms(qg.reshape(B, G, 1, D), *keys, causal=False, enable_gqa=True)
+        pad = "" if not quant else (f"; the G = 9 launch at this shape {int8_g9:.4f} ms "
+                                    f"({(ms - int8_g9) / ms:+.1%} of this launch)")
+        name = f"decode_attention{'_int8' if quant else ''}_{config.split('-')[0][:3]}_g{G}"
+        log("times", f"{card}: decode_attention {'int8' if quant else 'bf16'} cache G={G} Hkv=1 "
+                     f"B=4 T=708 D=128 bf16 queries, the self token merged ({config}): kernel "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+                     f"{cache_bytes / 1e6:.3f} MB of cache), SDPA "
+                     f"{'n/a (no single PyTorch call attends over an int8 cache)' if quant else f'{lib:.4f} ms' if lib is not None else 'n/a'}{pad}")
+        counter = "decode_attention_int8" if quant else "decode_attention"
+        rows.append(dict(name=name, route="cuda",
+                         source="starvector_tpu_torch/csrc/decode_attention.cu",
+                         replaces="starvector_tpu/ops/flash_attention.py:2104",
+                         launches=counts[counter][config][rank],
+                         max_abs_err=errs[f"decode{'_int8' if quant else ''}_g{G}_hkv1"], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         tp_launches=counts[counter],
+                         **({"g9_ms": int8_g9} if quant else {})))
+        del qg, kn, vn, kc, vc
+    return rows
+
+
 def quant_matmul_times_8b(tq, dev, card: str) -> dict:
     """Kernel 14 at the 8B's shapes against its plain version, the bf16
     cuBLAS addmm and torch._weight_int8pack_mm (where this torch has it for
@@ -5569,6 +6072,7 @@ def main() -> int:
               "decode_g9_int8": check_g9_int8_decode(tfa, dc, dev)}
     qmm_8b = check_quant_matmul_8b(tq, dev)
     err_8b.update(qmm_gemv_8b=qmm_8b["gemv"], qmm_tile_8b=qmm_8b["tile"])
+    err_8b.update(check_tp_shapes(tfa, dc, dev))
     log("kernels", f"the 8B's kernel shapes match their plain versions (decode G=9 over a bf16 "
                    f"or an int8 cache: fp32 1e-4, bf16 atol 2e-3 and rtol 2^-7; flash_prefill "
                    f"H=36 Hkv=4 window 4096: fp32 1e-4, bf16 2e-2; quant_matmul at the six "
@@ -5867,6 +6371,15 @@ def main() -> int:
             row["mesh_launches"] = mesh_run["launches"][row["name"]]
             row["sp_launches"] = sp_run["launches"][row["name"]]
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)
+    launches_tp = tp_counts(s8["tp"])
+    for row in kernels_json:  # phase 6e's launches, every rank's, beside each kernel's row
+        counter = next((c for c in ("decode_attention_int8", "decode_attention",
+                                    "flash_prefill_with_lse", "flash_bwd_dkdv", "flash_bwd_dq",
+                                    "flash_prefill", "quant_matmul") if row["name"].startswith(c)),
+                       None)
+        if counter is not None:
+            row["tp_launches"] = launches_tp[counter]
+    kernels_json += tp_times(tfa, dc, dev, card, s8["tp"], err_8b)
     kernels_json += training_times_8b(tfa, dev, card, t8, err_train)
     long_context_times(tfa, dev, card)
     head_split_times(tfa, dev, card)

@@ -98,7 +98,7 @@ class StarVectorForCausalLM:
 
     @classmethod
     def from_pretrained(cls, path: str, dtype=torch.bfloat16, device="cuda", *,
-                        quantize: bool = False):
+                        quantize: bool = False, tensor=None):
         """Load an HF-layout StarVector-1B or -8B checkpoint directory
         (model*.safetensors, config.json, tokenizer.json) through
         models/builder.py::load_pretrained_model; the tokenizer is the
@@ -107,11 +107,21 @@ class StarVectorForCausalLM:
         matmul weights to per-channel int8 (the JAX package's rule:
         `quantize_tree` on the decoder only, at its default threshold: the
         1B's four projections a layer, the 8B's six; the vision tower,
-        adapter, embeddings and norms keep `dtype`)."""
+        adapter, embeddings and norms keep `dtype`).
+
+        With a serving `tensor` group (parallel/tensor.py::TensorGroup), the
+        model of one tensor rank: its own slices of the decoder, read from
+        the files alone, and its config (starvector.tensor_parallel); such
+        a model feeds serve/engine.py's tensor-parallel ServeEngine, not
+        this class's generate calls. `quantize` with a group of more than
+        one rank raises NotImplementedError (ROADMAP queue 1, item 12)."""
         from starvector_tpu_torch.models.builder import load_pretrained_model
         from starvector_tpu_torch.ops.quantization import quantize_tree
 
-        params, cfg, tokenizer, _, _ = load_pretrained_model(path, dtype, device)
+        if quantize and tensor is not None and tensor.size > 1:
+            raise NotImplementedError("an int8-weight decoder (quantize) on a tensor mesh is not "
+                                      "ported yet (ROADMAP queue 1, item 12)")
+        params, cfg, tokenizer, _, _ = load_pretrained_model(path, dtype, device, tensor=tensor)
         if quantize:
             params["svg_transformer"] = quantize_tree(params["svg_transformer"])
         return cls(params, cfg, tokenizer, device=device,

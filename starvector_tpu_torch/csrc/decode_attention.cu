@@ -88,10 +88,12 @@ namespace sv {
 namespace {
 
 // The shapes instantiated: head size 128 and G query heads per KV head,
-// G = 16 (StarVector-1B, multi-query) or G = 9 (StarVector-8B, 36 query
-// heads over 4 KV heads), each over a cache of q's type or of int8 codes.
-// Another group or head size is another instantiation, added with the
-// model that needs it and a check of it on the card.
+// G = 16 (StarVector-1B, multi-query), G = 9 (StarVector-8B, 36 query
+// heads over 4 KV heads, whole or on a tensor-4 rank) and G = 5 and 4 (the
+// 8B's tensor-8 ranks: each KV head's 9 query heads split 5 + 4), each over
+// a cache of q's type or of int8 codes (launch_group). Another group or
+// head size is another instantiation, added with the model that needs it
+// and a check of it on the card.
 constexpr int kDecD = 128;
 constexpr int kKeyTile = 128;  // chunks are multiples of it (decode_splits)
 
@@ -690,12 +692,36 @@ int launch(int threads, size_t smem, const DecodeArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// one instantiation: bf16 queries (T = __nv_bfloat16) on the tensor cores,
+// fp32 queries on the CUDA cores; C is the cache's element type (T's, or
+// int8 codes), G the query heads a KV head
+template <typename T, typename C, int G>
+int launch_decode(const DecodeArgs& a, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {
+    return launch<decode_attention_bf16_kernel<C, G>>(kMmaThreads, mma_smem_bytes<C, G>(), a, st);
+  } else {
+    return launch<decode_attention_f32_kernel<C, G>>(kF32Threads, f32_smem_bytes<G>(), a, st);
+  }
+}
+
+// the groups instantiated (ops/flash_attention.py::DECODE_GROUPS)
+template <typename T, typename C>
+int launch_group(int G, const DecodeArgs& a, cudaStream_t st) {
+  switch (G) {
+    case 4: return launch_decode<T, C, 4>(a, st);
+    case 5: return launch_decode<T, C, 5>(a, st);
+    case 9: return launch_decode<T, C, 9>(a, st);
+    case 16: return launch_decode<T, C, 16>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace sv
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype, group size, head size or split the
-// kernels do not take (G = 9 or 16, D = 128; chunk a multiple of 128,
+// kernels do not take (G = 4, 5, 9 or 16, D = 128; chunk a multiple of 128,
 // splits >= 1, covering [t_lo, t_end)). k_new and
 // v_new are both null or both set. cache_dtype is dtype, or int8 with
 // k_scale and v_scale set (they are ignored otherwise). ws holds B * Hkv *
@@ -718,7 +744,7 @@ extern "C" int sv_decode_attention(
                          kn_sb, kn_sh, vn_sb, vn_sh, ks_sb, ks_st, ks_sh, vs_sb, vs_st, vs_sh,
                          m_sb, t_begin, t_end, t_lo, chunk, splits, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((G != 9 && G != 16) || D != sv::kDecD || ws == nullptr || tickets == nullptr) {
+  if (D != sv::kDecD || ws == nullptr || tickets == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   if (splits < 1 || chunk < sv::kKeyTile || chunk % sv::kKeyTile != 0 || t_lo % sv::kKeyTile != 0 ||
@@ -730,36 +756,11 @@ extern "C" int sv_decode_attention(
   if (!quant && cache_dtype != dtype) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (dtype == sv::kBFloat16) {
-    if (quant && G == 9) {
-      return sv::launch<sv::decode_attention_bf16_kernel<int8_t, 9>>(
-          sv::kMmaThreads, sv::mma_smem_bytes<int8_t, 9>(), a, st);
-    }
-    if (quant) {
-      return sv::launch<sv::decode_attention_bf16_kernel<int8_t, 16>>(
-          sv::kMmaThreads, sv::mma_smem_bytes<int8_t, 16>(), a, st);
-    }
-    if (G == 9) {
-      return sv::launch<sv::decode_attention_bf16_kernel<bf16, 9>>(
-          sv::kMmaThreads, sv::mma_smem_bytes<bf16, 9>(), a, st);
-    }
-    return sv::launch<sv::decode_attention_bf16_kernel<bf16, 16>>(
-        sv::kMmaThreads, sv::mma_smem_bytes<bf16, 16>(), a, st);
+    return quant ? sv::launch_group<bf16, int8_t>(G, a, st) : sv::launch_group<bf16, bf16>(G, a, st);
   }
   if (dtype == sv::kFloat32) {
-    if (quant && G == 9) {
-      return sv::launch<sv::decode_attention_f32_kernel<int8_t, 9>>(
-          sv::kF32Threads, sv::f32_smem_bytes<9>(), a, st);
-    }
-    if (quant) {
-      return sv::launch<sv::decode_attention_f32_kernel<int8_t, 16>>(
-          sv::kF32Threads, sv::f32_smem_bytes<16>(), a, st);
-    }
-    if (G == 9) {
-      return sv::launch<sv::decode_attention_f32_kernel<float, 9>>(
-          sv::kF32Threads, sv::f32_smem_bytes<9>(), a, st);
-    }
-    return sv::launch<sv::decode_attention_f32_kernel<float, 16>>(
-        sv::kF32Threads, sv::f32_smem_bytes<16>(), a, st);
+    return quant ? sv::launch_group<float, int8_t>(G, a, st)
+                 : sv::launch_group<float, float>(G, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

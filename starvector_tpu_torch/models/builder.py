@@ -17,6 +17,7 @@ writes: model*.safetensors, config.json, tokenizer.json.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -58,27 +59,41 @@ def config_from_yaml_block(block: dict) -> sv.StarVectorConfig:
     return dataclasses.replace(base, **overrides)
 
 
-def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda"):
+def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda", *,
+                                  tensor=None):
     """(params, cfg, tokenizer) from an HF-layout StarVector checkpoint
     directory: the weights converted into the port's layout (convert.py),
     the config from config.json and the weights' shapes, and the
-    decoder's tokenizer version from tokenizer.json."""
-    from safetensors.numpy import load_file
+    decoder's tokenizer version from tokenizer.json.
+
+    With a serving `tensor` group (parallel/tensor.py::TensorGroup) the
+    rank reads only its own slices of the decoder's projections through
+    safetensors' get_slice (and the tower and adapter on the leader
+    only), and returns starvector.tensor_parallel's tree and config."""
+    from safetensors import safe_open
 
     from starvector_tpu_torch.api import tokenizer_version
-    from starvector_tpu_torch.models.convert import config_from_hf, from_hf_state_dict
+    from starvector_tpu_torch.models.convert import (
+        config_from_hf, from_hf_state_dict, stored_state_dict, tensor_rank_state_dict,
+    )
     from starvector_tpu_torch.models.tokenizer import load_tokenizer
+    from starvector_tpu_torch.parallel.tensor import register_rows
 
     device = require_device(device, 'device="cpu"')
-    sd: dict = {}
-    for name in sorted(os.listdir(path)):
-        if name.endswith(".safetensors"):
-            sd.update(load_file(os.path.join(path, name)))
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
-    cfg = config_from_hf(sd, hf_cfg)
-    params = from_hf_state_dict(sd, cfg, dtype=dtype, device=device)
-    del sd
+    with contextlib.ExitStack() as files:
+        handles = [files.enter_context(safe_open(os.path.join(path, name), framework="np"))
+                   for name in sorted(os.listdir(path)) if name.endswith(".safetensors")]
+        sd = stored_state_dict(handles)
+        cfg = config_from_hf(sd, hf_cfg)
+        if tensor is not None:
+            sd = tensor_rank_state_dict(sd, cfg, tensor)
+        params = from_hf_state_dict(sd, cfg, dtype=dtype, device=device)
+    if tensor is not None:
+        dec = cfg.decoder_module
+        register_rows(params["svg_transformer"], dec.partition_rules(), tensor)
+        cfg = dataclasses.replace(cfg, llm=dec.tensor_config(cfg.llm, tensor.size, tensor.rank))
     return params, cfg, load_tokenizer(path, version=tokenizer_version(cfg))
 
 
@@ -96,12 +111,13 @@ def model_builder(config, device) -> tuple[dict, sv.StarVectorConfig, Any]:
     return sv.init_params(cfg, gen, device=device), cfg, None
 
 
-def load_pretrained_model(path: str, dtype=torch.bfloat16, device="cuda"):
+def load_pretrained_model(path: str, dtype=torch.bfloat16, device="cuda", *, tensor=None):
     """The serving path: (params, cfg, tokenizer, processor, context_len),
-    context_len being the checkpoint's max_length_train."""
+    context_len being the checkpoint's max_length_train; with a `tensor`
+    group, this rank's (load_hf_starvector_checkpoint)."""
     from starvector_tpu_torch.data.processor import processor_for_encoder
 
     device = require_device(device, 'device="cpu"')
-    params, cfg, tokenizer = load_hf_starvector_checkpoint(path, dtype, device)
+    params, cfg, tokenizer = load_hf_starvector_checkpoint(path, dtype, device, tensor=tensor)
     processor = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=device)
     return params, cfg, tokenizer, processor, cfg.max_length_train

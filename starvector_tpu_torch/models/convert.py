@@ -21,6 +21,10 @@ leading axis, dense kernels (in, out), norms {"scale", "bias"}.
   * `config_from_hf(sd, hf_cfg)` derives the StarVectorConfig from the
     weights and the checkpoint's config.json, as the JAX package's
     models/builder.py does.
+  * `tensor_rank_state_dict(handles, cfg, group)` is the state dict of one
+    rank of a serving tensor group, read lazily from open safetensors
+    files: each decoder projection's slice of the rank (get_slice), the
+    tower and adapter on the leader only, for from_hf_state_dict.
 """
 
 from __future__ import annotations
@@ -313,3 +317,70 @@ def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorC
             tower = cfg.encoder_config.tower_config
         cfg = dataclasses.replace(cfg, vision_tower=tower)
     return cfg
+
+
+# --- one tensor rank's slices of a checkpoint ----------------------------------------
+
+# an HF decoder projection key -> the port's stacked leaf
+_HF_PROJECTION = re.compile(r"layers\.\d+\.(self_attn|mlp)\.(\w+)\.(weight|bias)$")
+
+
+class _Stored:
+    """A tensor of an open safetensors file, read when numpy asks for it:
+    whole, or the contiguous `cut` (dim, start, length) of it. `shape` is
+    the stored tensor's, so config_from_hf reads the whole model's
+    geometry from the same mapping without reading any data."""
+
+    def __init__(self, handle, key: str, cut: tuple[int, int, int] | None = None):
+        self.handle, self.key, self.cut = handle, key, cut
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.handle.get_slice(self.key).get_shape())
+
+    def __array__(self, dtype=None, copy=None):
+        if self.cut is None:
+            arr = self.handle.get_tensor(self.key)
+        else:
+            dim, start, n = self.cut
+            arr = self.handle.get_slice(self.key)[(slice(None),) * dim + (slice(start, start + n),)]
+        return arr if dtype is None else arr.astype(dtype)
+
+
+def stored_state_dict(handles) -> dict:
+    """{key: _Stored} over open safetensors files (safe_open(..., "np"))."""
+    return {key: _Stored(h, key) for h in handles for key in h.keys()}
+
+
+def tensor_rank_state_dict(stored: dict, cfg: sv.StarVectorConfig, group) -> dict:
+    """The state dict of one rank of a serving tensor group (parallel/
+    tensor.py::TensorGroup) over `stored` (stored_state_dict): each decoder
+    projection cut to the rank's slice by the decoder's partition rules
+    and `tensor_units` (the HF Linear layout's (out, in) for the port's
+    (in, out) kernels), the rest whole; the tower and adapter on the
+    leader only. from_hf_state_dict of it equals
+    starvector.tensor_parallel of the whole load."""
+    from starvector_tpu_torch.parallel.tensor import leaf_slice
+
+    dec = cfg.decoder_module
+    dec.tensor_config(cfg.llm, group.size, group.rank)  # the 1B raises here
+    rules = dec.partition_rules()
+    units = dec.tensor_units(cfg.llm, group.size, group.rank)
+    out = {}
+    for key, t in stored.items():
+        bare = key.removeprefix("model.")
+        if not bare.startswith("svg_transformer."):
+            if group.is_leader:
+                out[key] = t
+            continue
+        m = _HF_PROJECTION.search(bare)
+        cut = None
+        if m and group.size > 1:
+            kind = "kernel" if m.group(3) == "weight" else "bias"
+            path = f"layers/{'attn' if m.group(1) == 'self_attn' else 'mlp'}/{m.group(2)}/{kind}"
+            cut = leaf_slice(path, 3 if kind == "kernel" else 2, rules, units)
+            if cut is not None:  # the port's stacked (L, in, out) dim -> HF (out, in) / (out,)
+                dim, start, n = cut
+                cut = (2 - dim if kind == "kernel" else dim - 1, start, n)
+        out[key] = _Stored(t.handle, t.key, cut)
+    return out

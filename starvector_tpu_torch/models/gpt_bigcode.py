@@ -164,6 +164,16 @@ def partition_rules() -> list[tuple[str, P]]:
     ]
 
 
+def tensor_config(cfg: GPTBigCodeConfig, tp: int, rank: int):
+    """Tensor-parallel serving of the 1B is not ported: its fused c_attn
+    holds every query head beside the one KV head (MQA), whose columns a
+    rank would need whole (ROADMAP queue 1, item 12)."""
+    raise NotImplementedError(
+        f"tensor {tp}: tensor parallelism of GPTBigCode (StarVector-1B: the fused c_attn "
+        f"with MQA) is not ported yet (ROADMAP queue 1, item 12); StarCoder2 (StarVector-8B) "
+        f"serves on a tensor mesh")
+
+
 def init_cache(cfg: GPTBigCodeConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
     return dc.init_cache(cfg.n_layer, cfg.kv_heads, cfg.head_dim, batch, max_len,

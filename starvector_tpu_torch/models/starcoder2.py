@@ -98,6 +98,17 @@ class StarCoder2Config:
         return self.num_hidden_layers
 
 
+@dataclasses.dataclass(frozen=True)
+class StarCoder2RankConfig(StarCoder2Config):
+    """The decoder of one tensor-parallel rank (tensor_config): its own
+    heads and MLP columns, the whole model's head size."""
+    head_size: int = 128
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_size
+
+
 def starcoder2_7b_config(**kw) -> StarCoder2Config:
     """bigcode/starcoder2-7b geometry (the 8B model's decoder)."""
     return StarCoder2Config(**kw)
@@ -158,6 +169,33 @@ def partition_rules() -> list[tuple[str, P]]:
         (r"layers/.*layernorm/", P("stage", None)),
         (r"norm/", P(None)),
     ]
+
+
+def tensor_units(cfg: StarCoder2Config, tp: int, rank: int) -> dict[str, tuple[int, int]]:
+    """Tensor rank `rank` of tp's (start, length) along each projection's
+    split dimension (partition_rules' "tensor" entries): whole heads of
+    q/k/v_proj's columns and o_proj's rows (parallel/tensor.py::
+    head_layout), a contiguous 1/tp of c_fc's columns and mlp/c_proj's rows."""
+    from starvector_tpu_torch.parallel.tensor import even_split, head_layout
+
+    D = cfg.head_dim
+    h = head_layout(cfg.num_attention_heads, cfg.kv_heads, tp)[rank]
+    q, kv = (h.q_start * D, h.q_count * D), (h.kv_start * D, h.kv_count * D)
+    mlp = even_split(cfg.intermediate_size, tp, rank)
+    return {"q_proj": q, "k_proj": kv, "v_proj": kv, "o_proj": q, "c_fc": mlp, "c_proj": mlp}
+
+
+def tensor_config(cfg: StarCoder2Config, tp: int, rank: int) -> StarCoder2Config:
+    """The config of tensor rank `rank`'s decoder: its own heads and 1/tp of
+    the MLP; hidden size, head size, RoPE, window and vocabulary whole."""
+    from starvector_tpu_torch.parallel.tensor import head_layout
+
+    h = head_layout(cfg.num_attention_heads, cfg.kv_heads, tp)[rank]
+    _, mlp = tensor_units(cfg, tp, rank)["c_fc"]
+    whole = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(StarCoder2Config)}
+    return StarCoder2RankConfig(**{**whole, "num_attention_heads": h.q_count,
+                                   "num_key_value_heads": h.kv_count, "intermediate_size": mlp},
+                                head_size=cfg.head_dim)
 
 
 def init_cache(cfg: StarCoder2Config, batch: int, max_len: int, dtype=torch.bfloat16,

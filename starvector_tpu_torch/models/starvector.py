@@ -128,6 +128,25 @@ def partition_rules() -> list[tuple[str, P]]:
     return rules
 
 
+def tensor_parallel(params: dict, cfg: StarVectorConfig, group) -> tuple[dict, StarVectorConfig]:
+    """(params, cfg) of one rank of a serving tensor group (parallel/
+    tensor.py::TensorGroup): the decoder's slices, the config with the
+    rank's decoder geometry (`tensor_config`), and the vision tower and
+    adapter whole on the leader, which computes every request's prefix;
+    the followers hold no tower. A 1B decoder, or an int8-weight one,
+    raises NotImplementedError (ROADMAP queue 1, item 12)."""
+    from starvector_tpu_torch.parallel import tensor
+
+    dec = cfg.decoder_module
+    llm = dec.tensor_config(cfg.llm, group.size, group.rank)
+    out = {"svg_transformer": tensor.shard_tree(
+        params["svg_transformer"], dec.partition_rules(),
+        dec.tensor_units(cfg.llm, group.size, group.rank), group)}
+    if group.is_leader:
+        out.update({k: v for k, v in params.items() if k != "svg_transformer"})
+    return out, dataclasses.replace(cfg, llm=llm)
+
+
 def _encoder_cfg(cfg: StarVectorConfig):
     """(encoder config, tower config). A CLIP tower at an image size other
     than 224 without an explicit tower is the tiny test tower: patch 7,

@@ -566,8 +566,11 @@ DECODE_KEY_TILE = 128
 DECODE_MAX_CHUNK = 256
 DECODE_BLOCKS_PER_SM = 1
 # the query heads per KV head kernel 2 is built for, over a cache of q's
-# type or of int8 codes: StarVector-1B's 16 and StarVector-8B's 9 (36 over 4)
-DECODE_GROUPS = (9, 16)
+# type or of int8 codes: StarVector-1B's 16, StarVector-8B's 9 (36 over 4,
+# whole or on a tensor-4 rank) and its tensor-8 ranks' 5 and 4 (a group of
+# 5 padded with zero query rows to 9 took 0.0130 ms a launch on the H100
+# against 0.0095 for its own instantiation: PERF.md §6)
+DECODE_GROUPS = (4, 5, 9, 16)
 
 
 def decode_partial_floats(G: int, D: int) -> int:
@@ -652,8 +655,8 @@ def decode_attention(
                          f"v {tuple(v_cache.shape)}")
     quant = k_cache.dtype == torch.int8
     if G not in DECODE_GROUPS or D != 128:
-        raise ValueError(f"decode_attention: G={G}, D={D} (the kernel takes G = 9 or G = 16, "
-                         "D = 128)")
+        raise ValueError(f"decode_attention: G={G}, D={D} (the kernel takes G in "
+                         f"{DECODE_GROUPS}, D = 128)")
     tensors = {"q": qg} if quant else {"q": qg, "k_cache": k_cache, "v_cache": v_cache}
     if k_new is not None:
         if k_new.shape != (B, Hkv, D) or v_new.shape != (B, Hkv, D):

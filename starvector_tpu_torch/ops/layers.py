@@ -27,7 +27,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from starvector_tpu_torch.parallel import zero
+from starvector_tpu_torch.parallel import tensor, zero
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,18 +108,29 @@ def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
     A quantized leaf ({"kernel_q", "scale"}, ops/quantization.py) goes
     through the int8 weight kernel in the policy's compute dtype (x's own
     without a policy), as the JAX dense dispatches on "kernel_q";
-    `kernels=False` runs that kernel's plain version."""
+    `kernels=False` runs that kernel's plain version.
+
+    A row-parallel kernel of a tensor group (parallel/tensor.py) holds this
+    rank's rows, x its columns: the fp32 partial product is summed over the
+    group in fp32, the whole bias added once after the sum, and the result
+    rounded once, the same contract as one device's product."""
     if "kernel_q" in params:
         from starvector_tpu_torch.ops.quantization import dense_quantized
 
         compute = policy.compute_dtype if policy is not None else x.dtype
         return dense_quantized(params, x, compute, kernels=kernels)
     w = params["kernel"]
+    group = tensor.row_group(w)
     if policy is not None:
         x = x.to(policy.compute_dtype)
         w = w.to(policy.compute_dtype)
     name = tag or ("dense_wide_out" if w.shape[-1] >= 4 * w.shape[-2] else "dense_out")
     bias = params.get("bias")
+    if group is not None:
+        y = group.all_reduce(matmul_f32(x, w))
+        if bias is not None:
+            y = y + bias.float()
+        return y.to(x.dtype)
     if x.dtype == torch.float32 or (x.is_cuda and (bias is None or bias.dtype == x.dtype)):
         x2 = x.reshape(-1, x.shape[-1])
         if bias is None:
@@ -138,7 +149,9 @@ def layer_slice(tree, i: int):
     (views, no copy)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+    view = tree[i]
+    tensor.note_views(tree, (view,))
+    return view
 
 
 def layer_unbind(tree, n: int) -> list:
@@ -152,6 +165,7 @@ def layer_unbind(tree, n: int) -> list:
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     views = list(tree.unbind(0))
     zero.note_views(tree, views)
+    tensor.note_views(tree, views)
     return views
 
 

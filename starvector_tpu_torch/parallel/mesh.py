@@ -1,5 +1,5 @@
 """The device mesh of data-parallel, ZeRO-3 and sequence-parallel training
-(port of starvector_tpu/parallel/mesh.py).
+and of tensor-parallel serving (port of starvector_tpu/parallel/mesh.py).
 
 The JAX package declares one global `Mesh` with the axes
 
@@ -23,9 +23,14 @@ over the same axes and puts the collectives in by hand (parallel/zero.py):
           where the dimension divides (ZeRO over sequence,
           sharding.widen_fsdp_over_sequence).
 
+  * TP    serving only: "tensor" splits the decoder's heads and MLP
+          columns, one all-reduce after each row-parallel projection
+          (parallel/tensor.py), on a serving mesh of "data" x "tensor".
+
 Axes of size 1 are always there, so the partition specs are those of the
-JAX package whatever the mesh. `stage` or `tensor` above 1 raises
-NotImplementedError (refuse_unported_axes). A `PartitionSpec` here is
+JAX package whatever the mesh. A training mesh with `stage` or `tensor`
+above 1 raises NotImplementedError (refuse_unported_axes); a serving mesh
+takes `data` and `tensor` only (tensor.serving_mesh_config). A `PartitionSpec` here is
 `P`, a tuple with one entry a dimension, each None, an axis name or a
 tuple of names, as JAX's.
 """
@@ -44,7 +49,7 @@ AXIS_DATA = "data"          # plain data parallelism
 AXIS_FSDP = "fsdp"          # parameter and optimizer-state sharding (ZeRO-3)
 AXIS_SEQUENCE = "sequence"  # context parallelism (training activations' positions)
 AXIS_STAGE = "stage"        # pipeline parallelism (not executed by the port yet)
-AXIS_TENSOR = "tensor"      # tensor parallelism (not executed by the port yet)
+AXIS_TENSOR = "tensor"      # tensor parallelism (serving only, parallel/tensor.py)
 
 MESH_AXES = (AXIS_REPLICA, AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR)
 
@@ -116,7 +121,8 @@ UNPORTED_AXES = (AXIS_STAGE, AXIS_TENSOR)
 
 def refuse_unported_axes(mesh, what: str) -> None:
     """Raise NotImplementedError when `stage` or `tensor` is above 1: the
-    port executes the batch axes and `sequence` only."""
+    port trains over the batch axes and `sequence` only (tensor parallelism
+    serves, parallel/tensor.py)."""
     sizes = axis_sizes(mesh)
     extra = {a: sizes[a] for a in UNPORTED_AXES if sizes[a] > 1}
     if extra:

@@ -1,0 +1,243 @@
+"""Tensor parallelism of serving, Megatron style (the `tensor` axis of
+starvector_tpu/parallel/mesh.py, which the JAX package leaves to GSPMD).
+
+A tensor group of tp ranks serves one decoder: each rank holds its columns
+of the column-parallel projections (q/k/v_proj and c_fc, kernels and
+biases) and the same rows of the row-parallel ones (o_proj and
+mlp/c_proj), computes with them, and one all-reduce over the group follows
+each row-parallel product (ops/layers.py::dense, for a leaf registered
+here). Embeddings, the head, the norms and the row-parallel biases stay
+whole on every rank, so every rank holds the same residual stream.
+
+Attention heads split along whole heads (`head_layout`): where tp divides
+the KV heads, rank r holds KV heads [r Hkv / tp, (r + 1) Hkv / tp) with
+their query groups, which is the JAX package's device shard of each leaf;
+where the KV heads divide tp, each KV head is held by tp / Hkv ranks that
+split its query group as evenly as it goes (the 8B's 36 over 4 on 8 ranks:
+5 + 4 query heads over one KV head a rank). The JAX shard there is 576
+columns, 4.5 heads, and GSPMD reshards at the head reshape; the port keeps
+heads whole instead.
+
+Serving needs no backward: the collectives here run in the forward only.
+Training's `tensor` axis (and `stage`) is not ported (ROADMAP queue 1,
+item 12): parallel/zero.py's training layout refuses it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+from torch.utils.weak import WeakIdKeyDictionary
+
+from starvector_tpu_torch.parallel.mesh import (
+    AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR, NOT_PORTED, MeshConfig,
+    axis_sizes, create_mesh,
+)
+
+# the axes a serving mesh may set above 1
+SERVING_AXES = (AXIS_DATA, AXIS_TENSOR)
+
+
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """One rank's attention heads: query heads [q_start, q_start + q_count)
+    and KV heads [kv_start, kv_start + kv_count) of the whole model."""
+    q_start: int
+    q_count: int
+    kv_start: int
+    kv_count: int
+
+
+def head_layout(H: int, Hkv: int, tp: int) -> list[Heads]:
+    """Each of tp ranks' heads of a model with H query heads over Hkv KV
+    heads. Raises ValueError where whole heads cannot be split so: Hkv
+    neither a multiple nor a divisor of tp, or fewer query heads in a group
+    than ranks sharing it."""
+    if H % Hkv:
+        raise ValueError(f"{H} query heads do not group over {Hkv} KV heads")
+    G = H // Hkv
+    if Hkv % tp == 0:
+        n = Hkv // tp
+        return [Heads(r * n * G, n * G, r * n, n) for r in range(tp)]
+    if tp % Hkv == 0 and G >= tp // Hkv:
+        per = tp // Hkv
+        base, extra = divmod(G, per)
+        out = []
+        for r in range(tp):
+            g, j = divmod(r, per)
+            out.append(Heads(g * G + j * base + min(j, extra), base + (j < extra), g, 1))
+        return out
+    raise ValueError(f"cannot split {H} query heads over {Hkv} KV heads into whole heads on "
+                     f"{tp} ranks: tp must divide the KV heads, or the KV heads divide tp "
+                     f"with at least tp / Hkv query heads a group")
+
+
+class TensorGroup:
+    """This rank's tensor group: its size, this rank's place in it, the
+    process group (None for one rank) and the global rank of its leader
+    (tensor rank 0), which drives the group's engine (serve/engine.py)."""
+
+    def __init__(self, group, size: int, rank: int, leader: int, data_rank: int = 0):
+        self.group, self.size, self.rank, self.leader = group, size, rank, leader
+        self.data_rank = data_rank
+
+    @classmethod
+    def of(cls, mesh) -> "TensorGroup":
+        """The tensor group of this rank on a DeviceMesh over MESH_AXES."""
+        sizes = axis_sizes(mesh)
+        data = mesh.get_local_rank(AXIS_DATA)
+        if sizes[AXIS_TENSOR] == 1:
+            return cls(None, 1, 0, dist.get_rank(), data)
+        group = mesh.get_group(AXIS_TENSOR)
+        return cls(group, sizes[AXIS_TENSOR], mesh.get_local_rank(AXIS_TENSOR),
+                   dist.get_global_rank(group, 0), data)
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == 0
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the group, in place."""
+        if self.group is not None:
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """The leader's t on every rank (a follower's t, contiguous, is
+        overwritten). A collective sends a tensor's storage as it lies, so
+        a strided view (a column of a tick's tokens) goes as a copy."""
+        if self.group is not None:
+            t = t.contiguous()
+            dist.broadcast(t, src=self.leader, group=self.group)
+        return t
+
+    def broadcast_object(self, obj=None):
+        """A small host object (a dict of ints and lists), the leader's."""
+        if self.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]
+
+
+def serving_mesh_config(axes: dict) -> MeshConfig:
+    """The serving mesh of a serve config's `mesh:` block ({axis: size});
+    the unnamed axes 1. Raises NotImplementedError for an axis other than
+    data and tensor above 1 (fsdp, sequence and stage shards are training's,
+    and `stage` is not ported: item 12)."""
+    extra = {a: int(n) for a, n in axes.items() if a not in SERVING_AXES and int(n) > 1}
+    if extra:
+        raise NotImplementedError(
+            f"serving mesh axes {extra}: the port serves over {SERVING_AXES} only "
+            f"({AXIS_FSDP}, {AXIS_SEQUENCE} and {AXIS_STAGE} shards are not ported for serving, "
+            f"{NOT_PORTED})")
+    return MeshConfig(fsdp=1, **{a: int(axes.get(a, 1)) for a in SERVING_AXES})
+
+
+def serving_group(axes: dict, device_type: str | None = None) -> TensorGroup:
+    """This rank's tensor group on the serving mesh of `axes` over the
+    default process group (ranks row-major over (data, tensor))."""
+    return TensorGroup.of(create_mesh(serving_mesh_config(axes), device_type=device_type))
+
+
+# --- the row-parallel leaves ----------------------------------------------------
+
+_ROW = WeakIdKeyDictionary()  # local tensor -> its TensorGroup
+
+
+def register_row(t: torch.Tensor, group: TensorGroup) -> torch.Tensor:
+    """Mark t as a row-parallel kernel: its product is summed over `group`."""
+    if group.size > 1:
+        _ROW[t] = group
+    return t
+
+
+def row_group(t: torch.Tensor) -> TensorGroup | None:
+    """The group a row-parallel kernel's product is summed over, else None."""
+    return _ROW.get(t) if _ROW else None
+
+
+def note_views(stacked: torch.Tensor, views) -> None:
+    """The layers of a stacked row-parallel kernel are row-parallel too."""
+    if _ROW:
+        group = _ROW.get(stacked)
+        if group is not None:
+            for v in views:
+                _ROW[v] = group
+
+
+# --- a rank's slices --------------------------------------------------------------
+
+def _tensor_dim(spec, ndim: int) -> int | None:
+    """The dimension a partition spec splits over `tensor`, if any."""
+    for i, a in enumerate(tuple(spec)[:ndim]):
+        names = (a,) if isinstance(a, str) else tuple(a or ())
+        if AXIS_TENSOR in names:
+            return i
+    return None
+
+
+def leaf_slice(path: str, ndim: int, rules, units: dict) -> tuple[int, int, int] | None:
+    """(dim, start, length) of this rank's slice of the leaf at `path`, or
+    None when every rank holds it whole. `rules` are the decoder's
+    partition rules, first match wins; `units` maps each split
+    projection's name to this rank's (start, length) along its split
+    dimension (the decoder's `tensor_units`)."""
+    from starvector_tpu_torch.parallel.sharding import spec_for_path
+
+    dim = _tensor_dim(spec_for_path(path, rules), ndim)
+    if dim is None:
+        return None
+    name = path.split("/")[-2]
+    if name not in units:
+        raise NotImplementedError(f"{path}: no tensor-parallel split of this leaf ({NOT_PORTED})")
+    return (dim, *units[name])
+
+
+def is_row_parallel(path: str, dim: int, ndim: int) -> bool:
+    """A kernel split along its input (rows): its product is a partial sum."""
+    return path.endswith("/kernel") and dim == ndim - 2
+
+
+def shard_tree(params: dict, rules, units: dict, group: TensorGroup) -> dict:
+    """This rank's tree: a contiguous copy of its slice of each split leaf
+    (the leaf itself where unsplit), row-parallel kernels registered with
+    `group`. A quantized leaf raises NotImplementedError (item 12)."""
+    from starvector_tpu_torch.parallel.sharding import _paths, _rebuild
+
+    out = []
+    for path, leaf in _paths(params):
+        if path.endswith("kernel_q"):
+            raise NotImplementedError(f"{path}: an int8-weight decoder on a tensor mesh is not "
+                                      f"ported ({NOT_PORTED})")
+        cut = None if group.size == 1 else leaf_slice(path, leaf.dim(), rules, units)
+        if cut is None:
+            out.append(leaf)
+            continue
+        dim, start, n = cut
+        local = leaf.detach().narrow(dim, start, n).clone()
+        if is_row_parallel(path, dim, leaf.dim()):
+            register_row(local, group)
+        out.append(local)
+    return _rebuild(params, iter(out))
+
+
+def register_rows(params: dict, rules, group: TensorGroup) -> dict:
+    """Register the row-parallel kernels of a tree that already holds this
+    rank's slices (a per-rank checkpoint load)."""
+    from starvector_tpu_torch.parallel.sharding import _paths, spec_for_path
+
+    for path, leaf in _paths(params):
+        dim = _tensor_dim(spec_for_path(path, rules), leaf.dim())
+        if dim is not None and is_row_parallel(path, dim, leaf.dim()):
+            register_row(leaf, group)
+    return params
+
+
+def even_split(n: int, tp: int, rank: int) -> tuple[int, int]:
+    """(start, length) of rank's contiguous 1/tp of n (n divisible by tp)."""
+    if n % tp:
+        raise ValueError(f"{n} does not split over {tp} tensor ranks")
+    return rank * (n // tp), n // tp

@@ -200,6 +200,9 @@ class _Knobs:
     bias_ids: torch.Tensor
     bias_vals: torch.Tensor
     greedy_only: bool  # every active slot greedy: the ticks take the argmax alone
+    # greedy with no penalty or bias: each token is the logits' argmax, which
+    # a tensor group's followers check against their own
+    plain_greedy: bool = False
 
 
 def _lm_logits(dec, params: dict, cfg, h: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
@@ -257,21 +260,28 @@ def _tick_sample(logits, kn: _Knobs, counts, prompt_presence, generator, max_top
         max_top_k=max_top_k, generator=generator)
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _fused_ragged_step(dec, params: dict, cfg, tokens, cache: dict, kn: _Knobs, generator,
                        counts, prompt_presence, *, policy: DTypePolicy, max_top_k: int,
-                       n_steps: int, kernels: bool, key_bounds: tuple[int, int]):
+                       n_steps: int, kernels: bool, key_bounds: tuple[int, int], share=_same):
     """`n_steps` ragged decode steps with per-slot sampling: tokens (B,) in,
     (B, n_steps) out, on the device. counts (B, V) counts each active slot's
     tokens, in place. key_bounds (t_lo, t_hi): the slots any active row may
-    see at the first step; each step's t_hi is one more."""
+    see at the first step; each step's t_hi is one more. `share` sends the
+    input tokens and each step's tokens to a tensor group's followers
+    (_follow_step)."""
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     t_lo, t_hi = key_bounds
     out = []
+    tokens = share(tokens)
     for i in range(n_steps):
         logits, cache = dec.forward_ragged_decode(params, cfg, tokens, cache, kn.active,
                                                   policy=policy, kernels=kernels,
                                                   key_bounds=(t_lo, t_hi + i))
-        tokens = _tick_sample(logits, kn, counts, prompt_presence, generator, max_top_k)
+        tokens = share(_tick_sample(logits, kn, counts, prompt_presence, generator, max_top_k))
         counts.index_put_((rows, tokens), kn.active, accumulate=True)
         out.append(tokens)
     return torch.stack(out, dim=1)
@@ -280,7 +290,8 @@ def _fused_ragged_step(dec, params: dict, cfg, tokens, cache: dict, kn: _Knobs, 
 def _fused_verify_multi(dec, params: dict, cfg, tokens, cache: dict, ctx, ctx_len,
                         kn: _Knobs, generator, counts, prompt_presence, *,
                         policy: DTypePolicy, max_top_k: int, n_rounds: int, draft_len: int,
-                        accept_margin: float, kernels: bool, key_bounds: tuple[int, int]):
+                        accept_margin: float, kernels: bool, key_bounds: tuple[int, int],
+                        share=_same):
     """`n_rounds` speculative rounds, drafting on the device from ctx (B, C)
     ([prompt ids || accepted proposal tokens], ctx_len filled, -1 holes).
 
@@ -294,7 +305,8 @@ def _fused_verify_multi(dec, params: dict, cfg, tokens, cache: dict, ctx, ctx_le
     cumulative accept flags as int32, the new ctx_len, the pending tokens
     (B,): each slot's last accepted sample); ctx, counts and the cache
     change in place. key_bounds as in _fused_ragged_step, each round's t_hi
-    W more."""
+    W more. `share` sends each round's proposal and accepted counts to a
+    tensor group's followers (_follow_verify)."""
     B = tokens.shape[0]
     W = draft_len + 1
     rows = torch.arange(B, device=tokens.device)
@@ -303,7 +315,8 @@ def _fused_verify_multi(dec, params: dict, cfg, tokens, cache: dict, ctx, ctx_le
     pending = tokens
     toks_all, chains_all = [], []
     for m in range(n_rounds):
-        proposal = torch.cat([pending[:, None], _lookup_draft(ctx, ctx_len, pending, W)], dim=1)
+        proposal = share(torch.cat([pending[:, None], _lookup_draft(ctx, ctx_len, pending, W)],
+                                   dim=1))
         logits_all, cache = dec.forward_ragged_verify(params, cfg, proposal, cache,
                                                       policy=policy, kernels=kernels,
                                                       key_bounds=(t_lo, t_hi + m * W))
@@ -328,7 +341,7 @@ def _fused_verify_multi(dec, params: dict, cfg, tokens, cache: dict, ctx, ctx_le
             toks.append(t)
             oks.append(ok)
         toks, chain = torch.stack(toks, dim=1), torch.stack(oks, dim=1)   # (B, W)
-        n_out = chain.sum(dim=1)
+        n_out = share(chain.sum(dim=1))
         dc.commit_verify(cache, n_out)
         ctx_len = _append_accepted(ctx, ctx_len, proposal, n_out)
         pending = torch.where(n_out > 0, toks[rows, torch.clamp(n_out - 1, 0, W - 1)], pending)
@@ -375,26 +388,34 @@ def _beam_first(dec, params: dict, cfg, h_last, *, policy: DTypePolicy, n: int):
     return _top_k(logp, 2 * n)
 
 
-def _beam_step(dec, params: dict, cfg, cache: dict, group_slots, parent_perm, toks, scores,
-               last_tokens, *, policy: DTypePolicy, n: int, kernels: bool,
-               key_bounds: tuple[int, int]):
-    """One beam-group round: the group's cache rows reordered by parent over
-    the slots [0, t_hi) any of them may see (the gathered copy is taken
-    before any row is written), a ragged decode of the n beam rows with the
-    other slots inactive (kernel 2), and the top-2n candidates of the
-    beam-extended log-probs. Returns (scores, parents, tokens), (2n,) each."""
+def _beam_decode(dec, params: dict, cfg, cache: dict, group_slots, parent_perm, tokens_full, *,
+                 policy: DTypePolicy, kernels: bool, key_bounds: tuple[int, int]):
+    """A beam round's device work before its selection: the group's cache
+    rows reordered by parent over the slots [0, t_hi) any of them may see
+    (the gathered copy is taken before any row is written), then a ragged
+    decode of tokens_full (B,) with the group's rows active (kernel 2).
+    Returns the (B, V) logits."""
     src = group_slots[parent_perm]
     t_hi = key_bounds[1]
     for key in dc._payload_keys(cache):
         cache[key][:, group_slots, :t_hi] = cache[key][:, src, :t_hi]
-    B = cache["lengths"].shape[0]
+    active = torch.zeros(tokens_full.shape[0], dtype=torch.int32, device=tokens_full.device)
+    active[group_slots] = 1
+    return dec.forward_ragged_decode(params, cfg, tokens_full, cache, active, policy=policy,
+                                     kernels=kernels, key_bounds=key_bounds)[0]
+
+
+def _beam_step(dec, params: dict, cfg, cache: dict, group_slots, parent_perm, toks, scores,
+               last_tokens, *, policy: DTypePolicy, n: int, kernels: bool,
+               key_bounds: tuple[int, int], share=_same):
+    """One beam-group round: _beam_decode of the n beam rows (the other
+    slots inactive) fed the group's tokens, then the top-2n candidates of
+    the beam-extended log-probs. Returns (scores, parents, tokens), (2n,)
+    each. `share` sends the round's tokens to a tensor group's followers."""
     tokens_full = last_tokens.clone()
     tokens_full[group_slots] = toks
-    active = torch.zeros(B, dtype=torch.int32, device=last_tokens.device)
-    active[group_slots] = 1
-    logits, cache = dec.forward_ragged_decode(params, cfg, tokens_full, cache, active,
-                                              policy=policy, kernels=kernels,
-                                              key_bounds=key_bounds)
+    logits = _beam_decode(dec, params, cfg, cache, group_slots, parent_perm, share(tokens_full),
+                          policy=policy, kernels=kernels, key_bounds=key_bounds)
     logp = torch.log_softmax(logits[group_slots].float(), dim=-1)
     cand_scores, cand_idx = _top_k((scores[:, None] + logp).reshape(-1), 2 * n)
     V = cfg.vocab_size
@@ -421,14 +442,36 @@ class ServeEngine:
         spec_accept_margin: float = 0.0,  # reject drafts whose verify margin is below
         device="cuda",
         kernels: bool = True,
+        tensor=None,              # parallel/tensor.py::TensorGroup of a tensor-parallel rank
     ):
         """`params` is the decoder's tree on `device`. Runs on the card;
         `device="cpu"` asks for the CPU. `kernels=False` runs the kernels'
-        plain versions."""
+        plain versions.
+
+        With a `tensor` group of more than one rank, `params` and `llm_cfg`
+        are this rank's (models/starvector.py::tensor_parallel). The leader
+        (tensor rank 0) runs the threads and the host state; before each
+        device call it broadcasts a command over the group, and each
+        follower, inside `follow()`, replays it on its own shards: the
+        admission prefill (with the prefix embeddings), the insert into the
+        ragged cache, a plain tick, a speculative tick, a beam round, a
+        rebuild, the stop. Each tick's input tokens and sampled tokens go to
+        the followers on the device (and a speculative round's proposal and
+        accepted counts), so followers never sample and never decide a
+        tick's kind. A follower whose own greedy tokens differ from the
+        leader's, or whose command comes out of order, raises; a failure
+        on the leader after a command went out leaves the group out of step,
+        and the engine then fails every request (`broken`)."""
         self.device = require_device(device, 'device="cpu"')
         if self.device.type == "cuda" and self.device.index is None:
             # the threads set their device by index
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.tp = tensor if tensor is not None and tensor.size > 1 else None
+        self._tp_lock = threading.RLock()  # a command and its device calls, one at a time
+        self._seq = 0                      # commands sent (leader) or replayed (follower)
+        self._prefilled: dict[int, dict] = {}  # a follower's prefill caches by command
+        self.checked_steps = 0  # a follower's steps whose tokens it checked against its own
+        self.broken: BaseException | None = None
         self.dec = DECODERS[dec_name]
         self.dec_name = dec_name
         self.params = params
@@ -491,6 +534,7 @@ class ServeEngine:
         self._waiters = 0
         self._waiters_lock = threading.Lock()
         self._stop = threading.Event()
+        self._stopped_group = False
         self._decode_thread: threading.Thread | None = None
         self._admit_thread: threading.Thread | None = None
         self._idle_wait = 0.005
@@ -540,6 +584,9 @@ class ServeEngine:
                 t.join(timeout=5)
         self._decode_thread = None
         self._admit_thread = None
+        if self.tp is not None and self.broken is None and not self._stopped_group:
+            with self._device_call("stop"):
+                self._stopped_group = True
         # fail anything still queued: callers blocked on out_queue see an event
         while True:
             try:
@@ -670,6 +717,120 @@ class ServeEngine:
             with self._waiters_lock:
                 self._waiters -= 1
 
+    # -- the tensor group -----------------------------------------------------
+    @contextlib.contextmanager
+    def _device_call(self, op: str, **args):
+        """Around one device call of the engine: a tensor group's leader
+        first sends `op` and its host arguments to the followers (one
+        command at a time, in the order the leader's threads take them).
+        Yields the command's number (0 without a group). An exception
+        inside, once the command is out, leaves the followers out of step:
+        the engine is `broken` and takes no further device call."""
+        if self.tp is None:
+            yield 0
+            return
+        with self._tp_lock:
+            if self.broken is not None:
+                raise RuntimeError(f"the tensor group is out of step since "
+                                   f"{type(self.broken).__name__}: {self.broken}")
+            self._seq += 1
+            self.tp.broadcast_object({"seq": self._seq, "op": op, **args})
+            try:
+                yield self._seq
+            except BaseException as e:
+                self.broken = e
+                raise
+
+    def _share(self, t: torch.Tensor) -> torch.Tensor:
+        """t, sent from the leader to a tensor group's followers (on the
+        device: no host sync); t itself without a group."""
+        return t if self.tp is None else self.tp.broadcast(t)
+
+    def _receive(self, shape, dtype) -> torch.Tensor:
+        """A follower's copy of the leader's next _share."""
+        return self.tp.broadcast(torch.empty(shape, dtype=dtype, device=self.device))
+
+    def follow(self) -> None:
+        """A tensor group's follower: replay the leader's commands on this
+        rank's shards until its stop. Raises on a command out of order or
+        unknown, on a device call that fails, and where this rank's own
+        greedy tokens part from the leader's."""
+        if self.tp is None or self.tp.is_leader:
+            raise RuntimeError("follow() runs on a tensor group's followers only")
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        replay = {"prefill": self._follow_prefill, "insert": self._follow_insert,
+                  "step": self._follow_step, "verify": self._follow_verify,
+                  "beam": self._follow_beam, "rebuild": lambda cmd: self._rebuild_state_locked()}
+        with torch.inference_mode():
+            while True:
+                cmd = self.tp.broadcast_object()
+                self._seq += 1
+                if not isinstance(cmd, dict) or cmd.get("seq") != self._seq:
+                    raise RuntimeError(f"tensor rank {self.tp.rank}: command {cmd!r} out of "
+                                       f"step (expected number {self._seq})")
+                if cmd["op"] == "stop":
+                    return
+                if cmd["op"] not in replay:
+                    raise RuntimeError(f"tensor rank {self.tp.rank}: unknown command {cmd!r}")
+                replay[cmd["op"]](cmd)
+
+    def _follow_prefill(self, cmd: dict) -> None:
+        lens, Pb = cmd["lens"], cmd["Pb"]
+        embeds = self._receive((len(lens), Pb, self.llm_cfg.hidden_size),
+                               self.policy.compute_dtype)
+        self._prefilled[cmd["seq"]] = self._prefill_embeds(embeds, lens, Pb)[0]
+
+    def _follow_insert(self, cmd: dict) -> None:
+        small = self._prefilled.pop(cmd["prefill"])
+        for seq in [s for s in self._prefilled if s < cmd["prefill"]]:
+            del self._prefilled[seq]  # admissions the leader gave up
+        if cmd["tile"] > 1:
+            small = dc.tile_rows(small, cmd["tile"])
+        dc.insert_prefill_rows(self.cache, small, torch.tensor(cmd["slots"]),
+                               torch.tensor(cmd["lens"]))
+
+    def _follow_step(self, cmd: dict) -> None:
+        """_fused_ragged_step's forwards, fed the leader's tokens; with
+        `check` (plain greedy traffic) each token must be this rank's own
+        argmax on every active row."""
+        B = self.max_batch
+        active = torch.tensor(cmd["active"], dtype=torch.int32, device=self.device)
+        tokens = self._receive((B,), torch.int64)
+        t_lo, t_hi = cmd["key_bounds"]
+        agree = torch.ones(B, dtype=torch.bool, device=self.device)
+        for i in range(cmd["n"]):
+            logits, _ = self.dec.forward_ragged_decode(
+                self.params, self.llm_cfg, tokens, self.cache, active, policy=self.policy,
+                kernels=self.kernels, key_bounds=(t_lo, t_hi + i))
+            tokens = self._receive((B,), torch.int64)
+            if cmd["check"]:
+                agree &= (logits.argmax(-1) == tokens) | (active == 0)
+        self.checked_steps += cmd["n"] if cmd["check"] else 0
+        if cmd["check"] and not bool(agree.all()):
+            raise RuntimeError(f"tensor rank {self.tp.rank}: its greedy tokens part from the "
+                               f"leader's in rows {torch.nonzero(~agree).flatten().tolist()} "
+                               f"(command {cmd['seq']})")
+
+    def _follow_verify(self, cmd: dict) -> None:
+        """_fused_verify_multi's forwards and commits, fed the leader's
+        proposals and accepted counts."""
+        B, W = self.max_batch, cmd["W"]
+        t_lo, t_hi = cmd["key_bounds"]
+        for m in range(cmd["n"]):
+            proposal = self._receive((B, W), torch.int64)
+            self.dec.forward_ragged_verify(self.params, self.llm_cfg, proposal, self.cache,
+                                           policy=self.policy, kernels=self.kernels,
+                                           key_bounds=(t_lo, t_hi + m * W))
+            dc.commit_verify(self.cache, self._receive((B,), torch.int64))
+
+    def _follow_beam(self, cmd: dict) -> None:
+        slots = torch.tensor(cmd["slots"], device=self.device)
+        perm = torch.tensor(cmd["perm"], device=self.device)
+        _beam_decode(self.dec, self.params, self.llm_cfg, self.cache, slots, perm,
+                     self._receive((self.max_batch,), torch.int64), policy=self.policy,
+                     kernels=self.kernels, key_bounds=tuple(cmd["key_bounds"]))
+
     # -- admission (its own thread; the prefill runs off the lock) -----------
     def _reserve_slot(self) -> int | None:
         with self._locked():
@@ -744,12 +905,21 @@ class ServeEngine:
     def _prefill(self, embeds_list, Pb: int):
         """Right-pad k prompts (1, P, E) to the bucket Pb and prefill them in
         chunks into a B=k linear cache. Returns (the cache, h_last (k, E),
-        lengths)."""
-        cfg, policy = self.llm_cfg, self.policy
+        lengths, the prefill's command number: a tensor group's insert
+        names it)."""
         lens = [int(e.shape[1]) for e in embeds_list]
-        rows = [F.pad(torch.as_tensor(e).to(self.device, policy.compute_dtype),
+        rows = [F.pad(torch.as_tensor(e).to(self.device, self.policy.compute_dtype),
                       (0, 0, 0, max(Pb - P, 0)))[:, :Pb] for e, P in zip(embeds_list, lens)]
         embeds = torch.cat(rows, dim=0)                                        # (k, Pb, E)
+        with self._device_call("prefill", lens=lens, Pb=Pb) as seq:
+            small, h_last = self._prefill_embeds(self._share(embeds), lens, Pb)
+        self._stats["prefill_chunks"] += max(Pb // self.prefill_chunk, 1)
+        return small, h_last, lens, seq
+
+    def _prefill_embeds(self, embeds, lens: list[int], Pb: int):
+        """The chunked prefill of right-padded prompts (k, Pb, E) of lengths
+        `lens`. Returns (the B=k linear cache, h_last (k, E))."""
+        cfg, policy = self.llm_cfg, self.policy
         k = embeds.shape[0]
         mask = (torch.arange(Pb, device=self.device)[None, :]
                 < torch.tensor(lens, device=self.device)[:, None]).to(torch.int32)
@@ -758,12 +928,11 @@ class ServeEngine:
         C = Pb // n_chunks
         last_idx = torch.tensor([P - 1 for P in lens], device=self.device)
         h_last = torch.zeros((k, cfg.hidden_size), dtype=policy.compute_dtype, device=self.device)
-        self._stats["prefill_chunks"] += n_chunks
         for ci in range(n_chunks):
             h_last = _prefill_chunk(self.dec, self.params, cfg, embeds[:, ci * C:(ci + 1) * C],
                                     mask[:, ci * C:(ci + 1) * C], small, h_last, last_idx, ci * C,
                                     policy=policy, kernels=self.kernels)
-        return small, h_last, lens
+        return small, h_last
 
     def _admit_beam(self, req: Request):
         """Admit one beam request into num_beams slots: the prompt's chunked
@@ -781,7 +950,8 @@ class ServeEngine:
             if len(idxs) < n:
                 raise RuntimeError("engine stopped")
             P = int(req.prefix_embeds.shape[1])
-            small, h_last, _ = self._prefill([req.prefix_embeds], min(_bucket_len(P), self.max_len))
+            small, h_last, _, seq = self._prefill([req.prefix_embeds],
+                                                  min(_bucket_len(P), self.max_len))
             scores, toks = _beam_first(self.dec, self.params, self.llm_cfg, h_last,
                                        policy=self.policy, n=n)
             group = _BeamGroup(req=req, slot_idxs=list(idxs), histories=[[]], scores=[0.0],
@@ -789,11 +959,12 @@ class ServeEngine:
                                next_tokens=np.zeros((n,), np.int64))
             # HF t = 0: only beam 0 exists, every candidate's parent
             group.select(scores.cpu().numpy(), np.zeros((2 * n,), np.int64), toks.cpu().numpy())
-            rep = dc.tile_rows(small, n)
             with self._locked():
                 try:
-                    dc.insert_prefill_rows(self.cache, rep, torch.tensor(idxs),
-                                           torch.full((n,), P, dtype=torch.int32))
+                    with self._device_call("insert", prefill=seq, slots=list(idxs),
+                                           lens=[P] * n, tile=n):
+                        dc.insert_prefill_rows(self.cache, dc.tile_rows(small, n),
+                                               torch.tensor(idxs), torch.tensor([P] * n))
                 except Exception as ie:  # noqa: BLE001
                     # a partial in-place insert may have touched any row:
                     # every active request fails with the rebuilt cache
@@ -816,7 +987,7 @@ class ServeEngine:
         """Bucketed batch prefill (no lock held), first tokens, then one
         locked insert of the k rows and their sampling state."""
         k = len(reqs)
-        small, h_last, lens = self._prefill([r.prefix_embeds for r in reqs], Pb)
+        small, h_last, lens, seq = self._prefill([r.prefix_embeds for r in reqs], Pb)
         # prompt ids bucketed like the embeds (-1 padding); empty when no
         # request gives them (the repetition penalty then sees output only)
         pid_rows = np.full((k, Pb), -1, np.int64)
@@ -842,7 +1013,9 @@ class ServeEngine:
         slots = torch.tensor(slot_idxs, device=self.device)
         with self._locked():
             try:
-                dc.insert_prefill_rows(self.cache, small, slots, torch.tensor(lens))
+                with self._device_call("insert", prefill=seq, slots=list(slot_idxs), lens=lens,
+                                       tile=1):
+                    dc.insert_prefill_rows(self.cache, small, slots, torch.tensor(lens))
                 _admit_sampling_state(self._counts, self._prompt_presence, slots, firsts,
                                       presence_rows)
                 self._last_tokens[slots] = firsts
@@ -870,7 +1043,12 @@ class ServeEngine:
     def _rebuild_state_locked(self):
         """Allocate the device state anew (the cache, the sampling tables,
         the draft context) after a failed step may have left it half
-        written. Caller holds _lock (or is the constructor)."""
+        written. Caller holds _lock (or is the constructor). A tensor
+        group's followers rebuild theirs too, unless the group is out of
+        step (`broken`)."""
+        if self.tp is not None and self.tp.is_leader and self._seq and self.broken is None:
+            with self._device_call("rebuild"):
+                pass
         B, V = self.max_batch, self.llm_cfg.vocab_size
         self.cache = self.dec.init_ragged_cache(self.llm_cfg, B, self.max_len, dtype=self.kv_dtype,
                                                 device=self.device)
@@ -959,6 +1137,10 @@ class ServeEngine:
                 bias_ids=bias_ids, bias_vals=bias_vals,
                 greedy_only=all((not r.do_sample) or r.temperature == 0.0
                                 for r in reqs if r is not None),
+                plain_greedy=all(((not r.do_sample) or r.temperature == 0.0)
+                                 and r.repetition_penalty == 1.0 and not r.frequency_penalty
+                                 and not r.presence_penalty and not r.logit_bias
+                                 for r in reqs if r is not None),
             )
         return self._knob_cache
 
@@ -984,11 +1166,14 @@ class ServeEngine:
         live = [i for i, r in enumerate(reqs) if r is not None]
         self._stats["ticks"] += 1
         t_disp = time.time()
-        nxt = _fused_ragged_step(
-            self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, kn,
-            self._tick_gen, self._counts, self._prompt_presence, policy=self.policy,
-            max_top_k=self.max_top_k, n_steps=K, kernels=self.kernels,
-            key_bounds=self._key_bounds(live))
+        bounds = self._key_bounds(live)
+        with self._device_call("step", n=K, key_bounds=bounds, active=[
+                int(r is not None) for r in reqs], check=kn.plain_greedy):
+            nxt = _fused_ragged_step(
+                self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, kn,
+                self._tick_gen, self._counts, self._prompt_presence, policy=self.policy,
+                max_top_k=self.max_top_k, n_steps=K, kernels=self.kernels, key_bounds=bounds,
+                share=self._share)
         self._last_tokens = nxt[:, -1]
         nxt = nxt.cpu().numpy()  # (B, K): the tick's one host transfer
         self._stats["dispatch_s"] += time.time() - t_disp
@@ -1035,12 +1220,14 @@ class ServeEngine:
         self._stats["ticks"] += 1
         self._stats["spec_ticks"] += 1
         t_disp = time.time()
-        toks, chain, self._ctx_len, self._last_tokens = _fused_verify_multi(
-            self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, self._ctx,
-            self._ctx_len, kn, self._tick_gen, self._counts, self._prompt_presence,
-            policy=self.policy, max_top_k=self.max_top_k, n_rounds=M,
-            draft_len=self.spec_drafts, accept_margin=self.spec_accept_margin,
-            kernels=self.kernels, key_bounds=self._key_bounds(live))
+        bounds = self._key_bounds(live)
+        with self._device_call("verify", n=M, W=self.spec_drafts + 1, key_bounds=bounds):
+            toks, chain, self._ctx_len, self._last_tokens = _fused_verify_multi(
+                self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, self._ctx,
+                self._ctx_len, kn, self._tick_gen, self._counts, self._prompt_presence,
+                policy=self.policy, max_top_k=self.max_top_k, n_rounds=M,
+                draft_len=self.spec_drafts, accept_margin=self.spec_accept_margin,
+                kernels=self.kernels, key_bounds=bounds, share=self._share)
         both = torch.stack([toks, chain.to(toks.dtype)]).cpu().numpy()   # the one host transfer
         toks, chain = both[0], both[1]
         self._stats["dispatch_s"] += time.time() - t_disp
@@ -1069,13 +1256,16 @@ class ServeEngine:
         try:
             idxs = torch.tensor(group.slot_idxs, device=self.device)
             for _ in range(self.steps_per_tick):
-                cand_scores, parents, toks = _beam_step(
-                    self.dec, self.params, self.llm_cfg, self.cache, idxs,
-                    torch.from_numpy(group.parent_perm).to(self.device),
-                    torch.from_numpy(group.next_tokens).to(self.device),
-                    torch.tensor(group.scores, dtype=torch.float32, device=self.device),
-                    self._last_tokens, policy=self.policy, n=len(group.slot_idxs),
-                    kernels=self.kernels, key_bounds=self._key_bounds(group.slot_idxs))
+                bounds = self._key_bounds(group.slot_idxs)
+                with self._device_call("beam", slots=list(group.slot_idxs),
+                                       perm=group.parent_perm.tolist(), key_bounds=bounds):
+                    cand_scores, parents, toks = _beam_step(
+                        self.dec, self.params, self.llm_cfg, self.cache, idxs,
+                        torch.from_numpy(group.parent_perm).to(self.device),
+                        torch.from_numpy(group.next_tokens).to(self.device),
+                        torch.tensor(group.scores, dtype=torch.float32, device=self.device),
+                        self._last_tokens, policy=self.policy, n=len(group.slot_idxs),
+                        kernels=self.kernels, key_bounds=bounds, share=self._share)
                 for i in group.slot_idxs:
                     self._lens[i] += 1
                 cand = torch.stack([cand_scores.double(), parents.double(),

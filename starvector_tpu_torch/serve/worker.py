@@ -16,6 +16,21 @@ Run on the card:
     python -m starvector_tpu_torch.serve.worker --model-path /ckpt --port 21002 \\
         --controller http://localhost:21001
 (`--device cpu` runs it on the CPU.)
+
+A serve config whose mesh sets `tensor` or `data` above 1 (the 8B's
+im2svg-tp4dp2.yaml and im2svg-tp8-int8kv.yaml) runs under torchrun, one
+process a card:
+    python -m torch.distributed.run --nproc-per-node 8 \\
+        -m starvector_tpu_torch.serve.worker --model-path /ckpt --port 21002 \\
+        --controller http://localhost:21001 \\
+        --serve-config configs/generation/serve/starvector-8b/im2svg-tp4dp2.yaml
+Ranks are row-major over (data, tensor). Each rank reads its own slices of
+the decoder (parallel/tensor.py); tensor rank 0 of data group d computes
+the prefixes with the whole tower, runs the engine with max_batch / data
+slots and serves HTTP on --port + d, registered with the controller, whose
+shortest-queue dispatch spreads requests over the data groups; the other
+ranks of its group replay its device calls (ServeEngine.follow) and serve
+no HTTP.
 """
 
 from __future__ import annotations
@@ -61,21 +76,20 @@ def render_chat_template(messages, template_path: str | None = None) -> str:
 
 def serve_kwargs_from_leaf(leaf) -> dict:
     """Map a serve config leaf's `serve:` block (configs/generation/serve/)
-    onto engine and worker kwargs: max_batch / max_len, kv_cache_dtype
-    ("int8" -> torch.int8, "bfloat16" or absent -> None: the compute
-    dtype). A mesh with an axis above 1 (a sharded serve) raises
-    NotImplementedError: the port serves on one card."""
+    onto engine and worker kwargs: the mesh axes ({axis: size}; `data` and
+    `tensor` above 1 run under torchrun, main), max_batch / max_len,
+    kv_cache_dtype ("int8" -> torch.int8, "bfloat16" or absent -> None:
+    the compute dtype). A mesh with another axis above 1 (fsdp, sequence,
+    stage) raises NotImplementedError (ROADMAP queue 1, item 12)."""
+    from starvector_tpu_torch.parallel.tensor import serving_mesh_config
+
     s = leaf.get("serve") or {}
     get = s.get_path if hasattr(s, "get_path") else lambda k, d=None: s.get(k, d)
     kv_raw = str(get("kv_cache_dtype", "bfloat16") or "bfloat16")
     if kv_raw not in ("bfloat16", "int8"):
         raise ValueError(f"serve.kv_cache_dtype={kv_raw!r}: expected bfloat16 | int8")
     mesh_axes = {k: int(v) for k, v in dict(s.get("mesh") or {}).items()}
-    if any(v > 1 for v in mesh_axes.values()):
-        raise NotImplementedError(
-            f"serve.mesh {mesh_axes}: mesh-sharded serving (tensor parallelism, as the tp4dp2 "
-            f"and tp8 configs ask) is not ported yet (ROADMAP queue 1, item 12); the port's "
-            f"engine runs on one card")
+    serving_mesh_config(mesh_axes)
     return {
         "mesh_axes": mesh_axes,
         "max_batch": int(get("max_batch", 8)),
@@ -99,17 +113,17 @@ class ModelWorker:
         kv_cache_dtype=None,
         spec_drafts: int = 0,       # engine prompt-lookup speculation
         steps_per_tick: int = 4,
+        tensor=None,                # the leader's TensorGroup on a tensor mesh
     ):
         self.model = model
         self.worker_addr = worker_addr
         self.controller_addr = controller_addr
         self.model_names = model_names or ["starvector"]
         self.limit = threading.Semaphore(limit_model_concurrency)
-        self.engine = ServeEngine(
-            model.params["svg_transformer"], model.cfg.llm, model.cfg.decoder,
-            max_batch=max_batch, max_len=max_len, policy=model.policy,
-            kv_cache_dtype=kv_cache_dtype, spec_drafts=spec_drafts,
-            steps_per_tick=steps_per_tick, device=model.device, kernels=model.kernels)
+        self.tensor = tensor
+        self.engine = make_engine(model, tensor=tensor, max_batch=max_batch, max_len=max_len,
+                                  kv_cache_dtype=kv_cache_dtype, spec_drafts=spec_drafts,
+                                  steps_per_tick=steps_per_tick)
         self.engine.start()
         self._hb_thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -182,6 +196,9 @@ class ModelWorker:
         Routed by `use_speculative` in the payload."""
         from starvector_tpu_torch.generation.speculative import generate_greedy_speculative
 
+        if self.tensor is not None and self.tensor.size > 1:
+            raise NotImplementedError("use_speculative runs one process's decoder; a tensor-"
+                                      "parallel worker speculates in its engine (--spec-drafts)")
         prefix, prompt_text, ids_aligned = self._prefix_for(payload)
         tok = self.model.tokenizer
         mask = torch.ones(prefix.shape[:2], dtype=torch.int32, device=prefix.device)
@@ -242,6 +259,71 @@ class ModelWorker:
     def shutdown(self):
         self._stop.set()
         self.engine.stop()
+
+
+def make_engine(model, *, tensor=None, max_batch: int = 8, max_len: int = 8192,
+                kv_cache_dtype=None, spec_drafts: int = 0, steps_per_tick: int = 4) -> ServeEngine:
+    """The ServeEngine of `model`'s decoder, on its device; with a tensor
+    group (model being that rank's, starvector.tensor_parallel or
+    from_pretrained(tensor=)), the rank's part of the group's engine: the
+    leader's, which the worker starts, or a follower's, which then runs
+    `follow()`."""
+    return ServeEngine(model.params["svg_transformer"], model.cfg.llm, model.cfg.decoder,
+                       max_batch=max_batch, max_len=max_len, policy=model.policy,
+                       kv_cache_dtype=kv_cache_dtype, spec_drafts=spec_drafts,
+                       steps_per_tick=steps_per_tick, device=model.device, kernels=model.kernels,
+                       tensor=tensor)
+
+
+def serve_tensor_rank(model, tensor, *, data: int, port: int, host: str = "0.0.0.0",
+                      worker_address: str | None = None, controller: str | None = None,
+                      max_batch: int = 8, warmup: bool = False,
+                      limit_model_concurrency: int = 5, **engine_kw) -> None:
+    """One rank of a serving mesh of `data` groups of `tensor.size` ranks:
+    the leader of data group d serves a ModelWorker of max_batch / data
+    slots on port + d (registered with the controller) until the process
+    is stopped or its tensor group falls out of step (then it raises, and
+    torchrun stops the group); a follower replays its leader's device
+    calls until the leader stops."""
+    if max_batch % data:
+        raise ValueError(f"max_batch {max_batch} does not split over {data} data groups")
+    slots = max_batch // data
+    if not tensor.is_leader:
+        make_engine(model, tensor=tensor, max_batch=slots, **engine_kw).follow()
+        return
+    d = tensor.data_rank
+    if worker_address is not None and data > 1:
+        raise ValueError("--worker-address names one worker; a mesh with data > 1 serves one "
+                         "on each of --port + d")
+    worker = ModelWorker(model, worker_addr=worker_address or f"http://localhost:{port + d}",
+                         controller_addr=controller, max_batch=slots, tensor=tensor,
+                         limit_model_concurrency=limit_model_concurrency, **engine_kw)
+    run_worker(worker, host, port + d, warmup)
+
+
+def run_worker(worker: ModelWorker, host: str, port: int, warmup: bool = False) -> None:
+    """Register with the controller, heartbeat and serve HTTP until the
+    process is stopped; a tensor group's leader also stops (raising) when
+    its group falls out of step."""
+    if warmup:
+        worker.engine.warmup([worker.model.cfg.query_length + 8, 512, 1024, 2048])
+    try:
+        worker.register()
+    except OSError as e:  # the controller is not up yet
+        print(f"register error: {e} (the heartbeat retries)")
+    worker.start_heartbeat()
+    server = build_server(worker, host, port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        while thread.is_alive() and worker.engine.broken is None:
+            thread.join(timeout=1.0)
+        if worker.engine.broken is not None:
+            raise RuntimeError("the tensor group fell out of step") from worker.engine.broken
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.shutdown()
 
 
 def _chunk(text: str, error_code: int) -> bytes:
@@ -374,33 +456,42 @@ def main(argv=None):
 
     from starvector_tpu_torch.api import StarVectorForCausalLM
 
-    max_batch, max_len = args.max_batch, 8192
+    max_batch, max_len, axes = args.max_batch, 8192, {}
     kv_dtype = torch.int8 if args.kv_int8 else None
     if args.serve_config:
         from starvector_tpu_torch.config import load_yaml
 
         kw = serve_kwargs_from_leaf(load_yaml(args.serve_config))
         max_batch, max_len, kv_dtype = kw["max_batch"], kw["max_len"], kw["kv_cache_dtype"]
+        axes = kw["mesh_axes"]
+    worker_kw = dict(max_len=max_len, kv_cache_dtype=kv_dtype, spec_drafts=args.spec_drafts,
+                     limit_model_concurrency=args.limit_model_concurrency)
+    if any(v > 1 for v in axes.values()):
+        from starvector_tpu_torch.parallel.mesh import initialize_distributed
+        from starvector_tpu_torch.parallel.tensor import serving_group
+
+        if args.quantize and axes.get("tensor", 1) > 1:
+            raise NotImplementedError("--quantize on a tensor mesh: an int8-weight decoder is "
+                                      "not tensor-parallel yet (ROADMAP queue 1, item 12)")
+        device = initialize_distributed(device)
+        tensor = serving_group(axes)
+        model = StarVectorForCausalLM.from_pretrained(
+            args.model_path, device=device, quantize=args.quantize,
+            tensor=tensor if tensor.size > 1 else None)
+        print(f"serve-config {kw.get('hbm_proof_case') or ''}: mesh {axes}, data group "
+              f"{tensor.data_rank} tensor rank {tensor.rank} of {tensor.size}, B={max_batch} "
+              f"over {axes.get('data', 1)} groups, max_len={max_len}, "
+              f"kv={'int8' if kv_dtype is not None else 'bf16'}", flush=True)
+        serve_tensor_rank(model, tensor, data=axes.get("data", 1), port=args.port,
+                          host=args.host, worker_address=args.worker_address,
+                          controller=args.controller, max_batch=max_batch, warmup=args.warmup,
+                          **worker_kw)
+        return
     model = StarVectorForCausalLM.from_pretrained(args.model_path, device=device,
                                                   quantize=args.quantize)
     worker = ModelWorker(model, worker_addr=args.worker_address or f"http://localhost:{args.port}",
-                         controller_addr=args.controller,
-                         limit_model_concurrency=args.limit_model_concurrency,
-                         max_batch=max_batch, max_len=max_len, kv_cache_dtype=kv_dtype,
-                         spec_drafts=args.spec_drafts)
-    if args.warmup:
-        worker.engine.warmup([model.cfg.query_length + 8, 512, 1024, 2048])
-    try:
-        worker.register()
-    except OSError as e:  # the controller is not up yet
-        print(f"register error: {e} (the heartbeat retries)")
-    worker.start_heartbeat()
-    server = build_server(worker, args.host, args.port)
-    try:
-        server.serve_forever()
-    finally:
-        server.server_close()
-        worker.shutdown()
+                         controller_addr=args.controller, max_batch=max_batch, **worker_kw)
+    run_worker(worker, args.host, args.port, args.warmup)
 
 
 if __name__ == "__main__":

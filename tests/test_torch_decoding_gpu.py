@@ -16,7 +16,9 @@ GEMV at M = B x 3), B = 1 and batched speculative decoding, and one GRPO
 loss and its decoder gradients through the training kernels (loss 1e-5
 relative; gradients rtol 1e-4 with atol 1e-5 of the leaf's largest
 element: the attention backward sums in another order, and a few elements
-near zero of 1M moved by 1.6e-6 on the H100).
+near zero of 1M moved by 1.6e-6 on the H100). Also kernel 2 at a
+tensor-8 rank's query groups of 5 and 4 over one KV head (their own
+instantiations), bf16 and int8 caches.
 """
 
 import pytest
@@ -151,3 +153,37 @@ def test_grpo_loss_and_gradients_kernels_match_plain(cuda, params):
     torch.testing.assert_close(res[True][0], res[False][0], rtol=1e-5, atol=0)
     for a, b in zip(res[True][1], res[False][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [5, 4])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_tensor_rank_decode_groups_kernels_match_plain(cuda, G, int8):
+    """decode_attention at G = 5 and 4 over one KV head (StarVector-8B's
+    ranks on tensor 8), bf16 queries, the self token merged, a masked run:
+    the kernel within atol 2e-3, rtol 2^-7 of its plain version, and the
+    same bits on a second launch."""
+    from starvector_tpu_torch.models import decode_common as dc
+
+    g = torch.Generator(device=cuda).manual_seed(G)
+    B, T, D = 4, 300, 128
+    qg = torch.randn((B, 1, G, D), generator=g, device=cuda).bfloat16()
+    kn, vn = (torch.randn((B, 1, D), generator=g, device=cuda).bfloat16() for _ in "kv")
+    if int8:
+        (k, ks), (v, vs) = (dc.quantize_kv(torch.randn((B, T, 1, D), generator=g, device=cuda))
+                            for _ in "kv")
+    else:
+        k, v = (torch.randn((B, T, 1, D), generator=g, device=cuda).bfloat16() for _ in "kv")
+        ks = vs = None
+    mask = torch.ones((B, T), dtype=torch.int32, device=cuda)
+    mask[1, 40:200] = 0
+
+    def run(kernels=True):
+        return tfa.decode_attention(qg, k, v, mask, k_new=kn, v_new=vn, k_scale=ks, v_scale=vs,
+                                    kernels=kernels)
+
+    before = tfa.decode_attention.launches
+    out = run()
+    assert tfa.decode_attention.launches == before + 1 and out.shape == (B, 1, G, D)
+    torch.testing.assert_close(out.float(), run(False).float(), atol=2e-3, rtol=2**-7)
+    assert torch.equal(run(), out)

@@ -743,9 +743,16 @@ def test_distributed_init_never_falls_back(monkeypatch):
 
 
 def test_sharded_serving_still_raises_citing_item_12():
+    """A serve leaf on a (tensor 4, data 2) mesh maps onto the worker's
+    kwargs (parallel/tensor.py serves it); a leaf that asks for stage (or
+    fsdp) above 1 still raises citing item 12."""
     from starvector_tpu_torch.config import ConfigNode
     from starvector_tpu_torch.serve.worker import serve_kwargs_from_leaf
 
     leaf = ConfigNode({"serve": {"mesh": {"tensor": 4, "data": 2}}})
-    with pytest.raises(NotImplementedError, match="tensor parallelism.*item 12"):
-        serve_kwargs_from_leaf(leaf)
+    assert serve_kwargs_from_leaf(leaf) == {
+        "mesh_axes": {"tensor": 4, "data": 2}, "max_batch": 8, "max_len": 8192,
+        "kv_cache_dtype": None, "hbm_proof_case": None}
+    for axis in ("stage", "fsdp"):
+        with pytest.raises(NotImplementedError, match=rf"\{{'{axis}': 2\}}.*item 12"):
+            serve_kwargs_from_leaf(ConfigNode({"serve": {"mesh": {"tensor": 2, axis: 2}}}))

@@ -243,6 +243,7 @@ def test_render_chat_template_and_serve_config(tmp_path):
     assert serve_kwargs_from_leaf({"serve": {"kv_cache_dtype": "int8", "max_batch": 4}}) == {
         "mesh_axes": {}, "max_batch": 4, "max_len": 8192, "kv_cache_dtype": torch.int8,
         "hbm_proof_case": None}
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        serve_kwargs_from_leaf(load_yaml("configs/generation/serve/starvector-8b/"
-                                         "im2svg-tp4dp2.yaml"))
+    assert serve_kwargs_from_leaf(load_yaml("configs/generation/serve/starvector-8b/"
+                                            "im2svg-tp4dp2.yaml")) == {
+        "mesh_axes": {"tensor": 4, "data": 2}, "max_batch": 64, "max_len": 8192,
+        "kv_cache_dtype": None, "hbm_proof_case": "serve_decode/tp4xdp2"}
