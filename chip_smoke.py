@@ -9,7 +9,9 @@ entry points (both quickstarts, the web UI, the GRPO driver), and
 StarVector-8B im2svg
 inference (bf16, and int8 weights with an int8 KV cache), text2svg, beam
 search, speculative decoding, pipelined generation, serving (also over a
-tensor mesh: its two tensor-parallel serve configs) and training, on one
+tensor mesh: its two tensor-parallel serve configs, one with int8 weights,
+and the 1B's, one with int8 weights and one with a use_speculative
+request) and training, on one
 NVIDIA H100, end to end through the hand-written kernels.
 
     python3 chip_smoke.py [--profile DIR]
@@ -48,8 +50,12 @@ Phases, one line each (any failure raises and exits non-zero):
      580, 2320), fp32 and bf16, bf16 bit for bit on relaunch; flash_prefill
      and decode at phase 4f's prefix lengths, B=2, S=T in {51, 198, 1026};
      a tensor rank's shapes (phase 6e): flash_prefill at H = 9, 5, 4 over
-     Hkv = 1 (B=2 S=T=1024, right-padded), decode at G = 9 over Hkv = 1 (32
-     slots) and over an int8 cache at G = 5 and 4 (16 slots)
+     Hkv = 1 with the window and at the 1B's H = 8, 2 (B=2 S=T=1024,
+     right-padded), decode at G = 9 over Hkv = 1 (32 slots), over an int8
+     cache at G = 5 and 4 (16 slots), and at the 1B's G = 8 and 2 over
+     either cache; kernel 14 at a tensor-8 rank's slices of both models
+     (row-parallel ones with an fp32 result and no bias), the GEMV at M = 4
+     and the tile at an admission's rows, bit for bit on relaunch
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -121,12 +127,13 @@ Phases, one line each (any failure raises and exits non-zero):
      whether librsvg/cairo is there, and the validator's seconds a sample by
      stage, LPIPS and Inception ms on the card and the CPU, the REST
      validator's seconds a sample, beside the card's name and power limit
-  4e. offline pipelined generation on phase 4's weights, before they are
+  4e. offline pipelined generation on phase 4's weights at 8 of their 24
+     layers (DEPTH_1B_EARLIER, since PR 21), before they are
      released: 4 batches of B=16, P=1024 random prompt embeddings, 128
      greedy tokens, C=8, through generate_pipelined (every step of a batch
      but the last one fused decode+chunk forward: kernel 2 and the chunk
      step); fp32 ids == per-batch generate's and == the plain attention's,
-     launches exactly 24 flash_prefill (batch 0) and 24 decode_attention a
+     launches exactly 8 flash_prefill (batch 0) and 8 decode_attention a
      decode step; bf16 launches and each row's first token parting from
      per-batch generate; int8 weights over an fp32 cache, fp32 ids ==
      per-batch generate's; an int8 KV cache, and int8 weights with it, in
@@ -233,21 +240,29 @@ Phases, one line each (any failure raises and exits non-zero):
      fp32 engine ids equal offline generate's on the fp32 copy, the window
      at 2 layers in fp32 (a 4700-token prefix admitted in 8 chunks beside a
      579-token one, decoded past the 4096-key window in the row's mask: ids
-     with the kernels == plain), tokens/s beside offline B=4. 6e, the 8B
-     served over a tensor mesh on the same weights: TP_WORLD = 8 processes
-     on the one card over a gloo group the phase makes (NCCL takes one rank
-     a card; gloo takes CUDA tensors for the all-reduce and broadcast this
-     path uses), the trees shared by CUDA IPC, each rank through the
-     functions serve/worker.py's main calls: tp4dp2 in fp32 (2 replicas of
-     tensor 4, 32 slots; 9 query heads over 1 KV head a rank), the
-     first-step logits within fp32 TOL of one process, 4 concurrent
-     greedy requests of 64 tokens == the one-process fp32 engine's ids;
-     tp8-int8kv in bf16 (tensor 8, 16 slots, int8 cache; 5 or 4 query
-     heads over 1 KV head), teacher-forced logits against one process's
-     within twice its own kernels-vs-plain gap plus 1e-3, and the greedy
-     agreement of the engines' ids; every rank's launches equal its
-     leader's run (kernel 1 a layer an admission, kernel 2 / 2' a layer a
-     step); wall times are gloo's over one card, no serving speed
+     with the kernels == plain), tokens/s beside offline B=4. 6e, serving
+     over a tensor mesh: TP_WORLD = 8 processes on the one card over a gloo
+     group the phase makes (NCCL takes one rank a card; gloo takes CUDA
+     tensors for the all-reduce and broadcast this path uses), the trees
+     shared by CUDA IPC, each rank through the functions serve/worker.py's
+     main calls, five runs (TP_CONFIGS): the 8B's tp4dp2 in fp32 (2
+     replicas of tensor 4, 32 slots; 9 query heads over 1 KV head a rank)
+     and the 1B's 1b-tp2dp4 in fp32 (phase 4c's trees drawn again: 4
+     replicas of tensor 2; 8 query heads over the KV head), the first-step
+     logits within fp32 TOL of one process, the greedy requests' ids == the
+     one-process fp32 engine's, and on the 1B one use_speculative request
+     through the group's engine whose ids and forward count equal one
+     process's; the 8B's tp8-int8kv in bf16 (tensor 8, 16 slots, int8
+     cache; 5 or 4 query heads over 1 KV head), 1b-tp8-int8 (the 1B's
+     quantize_tree sliced, int8 cache; 2 query heads a rank) and
+     tp8-int8kv-q (the 8B's leaf with --quantize: each rank quantizes its
+     own slices, a row-parallel column's scale from the group's maximum),
+     teacher-forced logits against one process's within twice its own
+     kernels-vs-plain gap plus 1e-3, and the greedy agreement of the
+     engines' ids; every rank's launches equal its leader's run (kernel 1
+     a layer an admission, kernel 2 / 2' a layer a step, kernel 14 a
+     projection a layer a forward); wall times are gloo's over one card,
+     no serving speed
   6b. training at full StarVector-8B width and 8 of its 32 decoder layers
      (SigLIP-L/16 and the LayerNorm adapter trainable; fp32 masters, bf16
      compute, dots_flash, AdamW; B=1, T = 576 + 7616 = 8192, past the 4096
@@ -271,8 +286,11 @@ Phases, one line each (any failure raises and exits non-zero):
      train steps and the training kernels at the 8B's (S = T = 8192, H=36,
      Hkv=4, window 4096; dkdv at each head split beside the plan's pick),
      flash_prefill at siglip_512's prefix (B=2, S=T=1026) beside SDPA,
-     a tensor rank's kernel 1 (H = 9, 5, 4) and kernel 2 (G = 9; 5 and 4
-     over an int8 cache) beside their bounds and SDPA with enable_gqa,
+     a tensor rank's kernel 1 (H = 9, 5, 4; the 1B's 8 and 2) and kernel 2
+     (G = 9; 5 and 4 over an int8 cache; the 1B's 8 and 2) beside their
+     bounds and SDPA with enable_gqa, kernel 14 at a tensor-8 rank's
+     slices (a layer's projections, GEMV and tile) beside bf16 addmm and
+     _weight_int8pack_mm,
      also the training kernels at the long contexts phase 3 drives (with
      --profile DIR, also where a decode step's and the 1B and 8B train
      steps' device time goes)
@@ -336,12 +354,13 @@ INT8_CACHE_LOGIT_TOL = 0.1
 # a kernel is max(bytes / HBM rate, operations / dense bf16 tensor rate)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores (the fp32 kernels' CUDA-core path)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it) for work that must
-    move `nbytes` and do `flops`."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    move `nbytes` and do `flops` at `flop_rate`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -410,7 +429,8 @@ def read_counts(tfa) -> dict:
 def kernel_tag(mangled: str) -> str:
     """What tells a kernel's instantiations apart, from its mangled name:
     ' int8 cache' for decode_attention_{bf16,f32}_kernel<int8_t, G> and
-    ' G=16', ' G=9', ' G=5' or ' G=4' for its query heads per KV head; for the
+    ' G=16', ' G=9', ' G=8', ' G=5', ' G=4' or ' G=2' for its query heads
+    per KV head; for the
     int8 matmul its first template argument ('<bf16>' or '<f32>': x's type
     for the GEMV, the output's for the tile and finish kernels, marked
     'out'), for the GEMV ' rows<=MR' and for the wgmma tile ' xBX' (its
@@ -470,7 +490,8 @@ CUDA_CORE_KERNELS = ("flash_prefill_f32_kernel", "flash_bwd_dkdv_f32_kernel",
                      "flash_bwd_dq_f32_kernel")
 # decode_attention's instantiations: bf16 queries on the warp-level tensor
 # cores (mma.sync: HMMA), fp32 queries on the CUDA cores (none)
-DECODE_TAGS = tuple(f"{cache}G={G}" for G in (16, 9, 5, 4) for cache in (" ", " int8 cache "))
+DECODE_TAGS = tuple(f"{cache}G={G}" for G in (16, 9, 8, 5, 4, 2)
+                    for cache in (" ", " int8 cache "))
 HMMA_KERNELS = tuple(f"decode_attention_bf16_kernel{tag}" for tag in DECODE_TAGS)
 NO_HMMA_KERNELS = tuple(f"decode_attention_f32_kernel{tag}" for tag in DECODE_TAGS)
 
@@ -834,27 +855,55 @@ def check_g9_int8_decode(tfa, dc, dev) -> float:
 
 # one tensor rank's heads at the 8B's serve configs (parallel/tensor.py::
 # head_layout): tensor 4 holds 9 query heads over 1 KV head; tensor 8
-# splits each KV head's 9 over two ranks, 5 + 4
-TP_PREFILL_HEADS = (9, 5, 4)
+# splits each KV head's 9 over two ranks, 5 + 4; the 1B's 16 query heads
+# over its one KV head are 8 a rank on tensor 2 and 2 on tensor 8
+TP_PREFILL_HEADS = ((9, 4096), (5, 4096), (4, 4096), (8, None), (2, None))  # H, window
 TP_DECODE_CHECKS = (  # name, G, int8 cache, B, T, ragged mask
     ("tensor 4, B=32 slots T=708", 9, False, 32, 708, True),
     ("tensor 8, B=16 slots T=708 (int8 cache)", 5, True, 16, 708, True),
     ("tensor 8, B=16 slots T=708 (int8 cache)", 4, True, 16, 708, True),
+    ("1B tensor 2, B=2 slots T=325", 8, False, 2, 325, True),
+    ("1B tensor 2, B=2 slots T=325 (int8 cache)", 8, True, 2, 325, True),
+    ("1B tensor 8, B=16 slots T=325 (int8 cache)", 2, True, 16, 325, True),
+    ("1B tensor 8, B=16 slots T=325", 2, False, 16, 325, True),
 )
+# kernel 14 at a tensor rank's shapes: name, K, N, row-parallel (fp32 out,
+# no bias: ops/quantization.py::dense_quantized), model. The 8B on tensor 8
+# (q 5 or 4 heads of 128, k/v one, o_proj their rows, 1/8 of the MLP) and
+# the 1B on tensor 8 (c_attn 2 query heads + the whole K and V, attn/c_proj
+# their rows, 1/8 of the MLP)
+QMM_TP_SHAPES = (
+    ("8B tp8 q_proj (5 heads)", 4608, 640, False, "8b"),
+    ("8B tp8 q_proj (4 heads)", 4608, 512, False, "8b"),
+    ("8B tp8 k_proj, v_proj", 4608, 128, False, "8b"),
+    ("8B tp8 o_proj (5 heads)", 640, 4608, True, "8b"),
+    ("8B tp8 o_proj (4 heads)", 512, 4608, True, "8b"),
+    ("8B tp8 mlp.c_fc", 4608, 2304, False, "8b"),
+    ("8B tp8 mlp.c_proj", 2304, 4608, True, "8b"),
+    ("1B tp8 attn.c_attn", 2048, 512, False, "1b"),
+    ("1B tp8 attn.c_proj", 256, 2048, True, "1b"),
+    ("1B tp8 mlp.c_fc", 2048, 1024, False, "1b"),
+    ("1B tp8 mlp.c_proj", 1024, 2048, True, "1b"),
+)
+# rows of x: the GEMV at a decode step of 4 rows; the tile at an admission
+# of 2 prompts in their bucket (the 8B's 576 visual tokens and prompt in
+# 1024, the 1B's 257 in 512)
+QMM_TP_ROWS = {"8b": (4, 2048), "1b": (4, 1024)}
 
 
 def check_tp_shapes(tfa, dc, dev) -> dict:
     """The kernels at one tensor rank's shapes (phase 6e) against their plain
     versions, fp32 and bf16 (bf16 launched twice, bit for bit): kernel 1
-    at H = 9, 5 and 4 over Hkv = 1, the window 4096, an admission of two
-    prompts right-padded in their 1024 bucket; kernel 2 at G = 9 over Hkv
-    = 1 (tensor 4: the serve config's 32 slots), and over an int8 cache at
-    G = 5 and 4 (tensor 8: 16 slots; their own instantiations), a ragged
-    mask, the self token merged. Returns the worst max |diff| by row
-    name."""
+    at H = 9, 5 and 4 over Hkv = 1 with the window 4096 (the 8B) and at H
+    = 8 and 2 without one (the 1B), an admission of two prompts
+    right-padded in their 1024 bucket; kernel 2 at G = 9 over Hkv = 1
+    (tensor 4: the serve config's 32 slots), over an int8 cache at G = 5
+    and 4 (tensor 8: 16 slots; their own instantiations), and at the 1B's
+    G = 8 and 2 over either cache, a ragged mask, the self token merged.
+    Returns the worst max |diff| by row name."""
     g = torch.Generator(device=dev).manual_seed(21)
     D, errs = 128, {}
-    for H in TP_PREFILL_HEADS:
+    for H, window in TP_PREFILL_HEADS:
         worst = 0.0
         for dtype in (torch.float32, torch.bfloat16):
             B, S = 2, 1024
@@ -863,21 +912,21 @@ def check_tp_shapes(tfa, dc, dev) -> dict:
             mask = torch.ones((B, S), dtype=torch.int32, device=dev)
             mask[0, 579:] = 0
             mask[1, 610:] = 0
-            out = tfa.flash_prefill(q, k, v, mask, window=WINDOW8)
-            ref = tfa.flash_prefill(q, k, v, mask, window=WINDOW8, kernels=False)
+            out = tfa.flash_prefill(q, k, v, mask, window=window)
+            ref = tfa.flash_prefill(q, k, v, mask, window=window, kernels=False)
             torch.cuda.synchronize()
             live = torch.zeros((B, S), dtype=torch.bool, device=dev)
             live[0, :579], live[1, :610] = True, True
             err = compare(f"flash_prefill H={H} Hkv=1 {dtype}", out, ref, dtype, live=live)
             same = ""
             if dtype == torch.bfloat16:
-                again = tfa.flash_prefill(q, k, v, mask, window=WINDOW8)
+                again = tfa.flash_prefill(q, k, v, mask, window=window)
                 torch.cuda.synchronize()
                 if not torch.equal(again, out):
                     raise AssertionError(f"flash_prefill H={H} Hkv=1: two launches differ")
                 same = "; a second launch gives the same bits"
             worst = max(worst, err)
-            log("kernels", f"flash_prefill H={H} Hkv=1 window=4096 B=2 S=T=1024 (prompts of 579 "
+            log("kernels", f"flash_prefill H={H} Hkv=1 window={window} B=2 S=T=1024 (prompts of 579 "
                            f"and 610 right-padded) {str(dtype)[6:]}: max |diff| {err:.3e} on the "
                            f"real rows{same}")
         errs[f"flash_prefill_h{H}"] = worst
@@ -916,9 +965,48 @@ def check_tp_shapes(tfa, dc, dev) -> dict:
             worst = max(worst, err)
             log("kernels", f"decode_attention {'int8 cache ' if quant else ''}G={G} Hkv=1 {name} "
                            f"{str(dtype)[6:]}: max |diff| {err:.3e}{same}")
-        errs[f"decode{'_int8' if quant else ''}_g{G}_hkv1"] = worst
+        key = f"decode{'_int8' if quant else ''}_g{G}_hkv1"
+        errs[key] = max(errs.get(key, 0.0), worst)
     torch.cuda.empty_cache()
     return errs
+
+
+def check_quant_matmul_tp(tq, dev) -> dict:
+    """Kernel 14 at a tensor rank's shapes (QMM_TP_SHAPES) against its plain
+    version, bf16 x, as a rank's dense runs it: a column-parallel slice with
+    its bias and a bf16 result, a row-parallel one with no bias and an fp32
+    result (the partial its group sums); the GEMV at M = 4 and the tile at
+    an admission's rows (QMM_TP_ROWS), to QMM_TOL, each launched twice, bit
+    for bit. Returns the worst max |diff| by model and path
+    ("qmm_gemv_tp_8b", "qmm_tile_tp_1b", ...)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    worst = {}
+    for name, K, N, row, model in QMM_TP_SHAPES:
+        p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
+        bias = None if row else torch.randn((N,), generator=g, device=dev).bfloat16()
+        out_dtype = torch.float32 if row else torch.bfloat16
+        errs = []
+        for M in QMM_TP_ROWS[model]:
+            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            out = tq.quant_matmul(x, p["kernel_q"], p["scale"], bias, out_dtype=out_dtype)
+            ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], bias, out_dtype=out_dtype)
+            again = tq.quant_matmul(x, p["kernel_q"], p["scale"], bias, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            err = compare(f"quant_matmul {name} M={M}", out, ref, torch.bfloat16, tols=QMM_TOL)
+            if not torch.equal(again, out):
+                raise AssertionError(f"quant_matmul {name} M={M}: two launches differ")
+            key = f"qmm_{path}_tp_{model}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            errs.append(f"M={M} {path} {err:.2e}")
+            del x, out, ref, again
+        log("kernels", f"quant_matmul {name} (K={K}, N={N}, "
+                       f"{'row-parallel: fp32 out, no bias' if row else 'bias, bf16 out'}), "
+                       f"plans: GEMV {tq.gemv_split(K, N)}, tile "
+                       f"{tq.tile_plan(QMM_TP_ROWS[model][1], K, N)}: max |diff| "
+                       + ", ".join(errs) + "; a second launch gives the same bits")
+    torch.cuda.empty_cache()
+    return worst
 
 
 QMM_SHAPES_8B = (  # the 8B decoder's six projections a layer, four shapes: name, K, N
@@ -3221,15 +3309,17 @@ def left_padded(batch) -> tuple:
 
 
 def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None) -> dict:
-    """Phase 4e, offline pipelined generation at full 1B width and depth on
-    phase 4's trees: PIPE_BATCHES batches of B=16, P=1024 random prompt
+    """Phase 4e, offline pipelined generation at full 1B width on phase 4's
+    trees cut to their first DEPTH_1B_EARLIER layers (L; since PR 21, for
+    the script's time: the steps are host-bound, so the phase's wall goes
+    with the layers): PIPE_BATCHES batches of B=16, P=1024 random prompt
     embeddings, 128 greedy new tokens, C = max(4, ceil(1024 / 128)) = 8,
     every step of a batch but the last's one fused forward
     (forward_decode_with_chunk: kernel 2 for the decode half, the chunk
     step for the next prompt's chunk); batch 0 prefills through kernel 1.
       * fp32: each batch's ids and lengths equal generate_pipelined's with
         kernels=False, and the first two batches' per-batch generate's; launches
-        exactly 24 flash_prefill (batch 0) and 24 decode_attention a decode
+        exactly L flash_prefill (batch 0) and L decode_attention a decode
         step;
       * bf16: the launches, and each batch's first token that parts from
         per-batch generate (recorded: the fused GEMMs round M = 144 rows);
@@ -3244,7 +3334,7 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
         codes), and batch 1's first decode step over the cache the chunk
         steps wrote, kernels against plain on one copy each of that cache,
         to TOL (chunk_written_decode). In bf16 the
-        launches over kernel 2' and kernel 14 (96 a forward: the tile at
+        launches over kernel 2' and kernel 14 (4 L a forward: the tile at
         M = 16 x 1024 for the prefill and 144 a fused step, the GEMV at
         M = 16 a decode-only step);
       * generate_pipelined_spec, 3 batches of 8 right-padded prompts of
@@ -3639,19 +3729,34 @@ def serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> 
 
 
 # ---------------------------------------------------------------------------
-# phase 6e: StarVector-8B served over a tensor mesh (parallel/tensor.py)
+# phase 6e: StarVector-8B and -1B served over a tensor mesh (parallel/tensor.py)
 # ---------------------------------------------------------------------------
 
-TP_CONFIGS = (  # name, the serve config, compute dtype of the check, greedy new tokens a request
-    ("tp4dp2", "configs/generation/serve/starvector-8b/im2svg-tp4dp2.yaml", torch.float32, 64),
-    ("tp8-int8kv", "configs/generation/serve/starvector-8b/im2svg-tp8-int8kv.yaml",
-     torch.bfloat16, 8),
+TP8_LEAF = "configs/generation/serve/starvector-8b/im2svg-tp8-int8kv.yaml"
+# each run: name, model, its serve leaf (a path in the repo, or a `serve:`
+# block that the phase writes to a temporary file, which the rank reads as
+# worker.main reads --serve-config), compute dtype, int8 weights (None;
+# "whole": each rank's slices of quantize_tree of the whole bf16 tree;
+# "rank": each rank quantizes its own bf16 slices with the group's column
+# maxima, as worker.main's --quantize loads them), greedy new tokens a
+# request, requests
+TP_CONFIGS = (
+    ("tp4dp2", "8b", "configs/generation/serve/starvector-8b/im2svg-tp4dp2.yaml",
+     torch.float32, None, 64, 4),
+    ("tp8-int8kv", "8b", TP8_LEAF, torch.bfloat16, None, 8, 4),
+    ("1b-tp2dp4", "1b", {"mesh": {"data": 4, "tensor": 2}, "max_batch": 8, "max_len": 1024,
+                         "kv_cache_dtype": "bfloat16"}, torch.float32, None, 16, 4),
+    ("1b-tp8-int8", "1b", {"mesh": {"tensor": 8}, "max_batch": 16, "max_len": 1024,
+                           "kv_cache_dtype": "int8"}, torch.bfloat16, "whole", 8, 2),
+    ("tp8-int8kv-q", "8b", TP8_LEAF, torch.bfloat16, "rank", 8, 2),
 )
-TP_WORLD = 8     # both configs' ranks, each a process on the one card
-# teacher-forced positions of the tensor-8 check (a decode step's 16
+TP_WORLD = 8     # every run's ranks, each a process on the one card
+# teacher-forced positions of the int8-cache checks (a decode step's 16
 # all-reduces over gloo among 8 processes on one card took 0.3-0.9 s)
 TP_FORCED = 8
-TP_TIMEOUT = 600  # seconds the ranks may take before the phase fails
+TP_SPEC_NEW = 16  # the use_speculative request of 1b-tp2dp4, on data group 0's leader
+TP_TIMEOUT = 900  # seconds the ranks may take before the phase fails
+TP_PROJECTIONS = {"1b": 4, "8b": 6}  # kernel-14 launches a layer a forward of an int8 decoder
 
 
 def _group_tensor(group, t: torch.Tensor | None, dtype, dev) -> torch.Tensor:
@@ -3660,32 +3765,52 @@ def _group_tensor(group, t: torch.Tensor | None, dtype, dev) -> torch.Tensor:
     return group.broadcast(t if t is not None else torch.empty(shape, dtype=dtype, device=dev))
 
 
-def _tp_config(tfa, name: str, kw: dict, policy, new: int, whole: dict, cfg, images,
-               forced_ids, dev) -> dict:
+def _tp_tree(run) -> str:
+    """The key of a run's whole tree among the shared trees."""
+    _, model, _, dtype, quant, _, _ = run
+    return f"{model}_" + ("int8" if quant == "whole" else
+                          "fp32" if dtype == torch.float32 else "bf16")
+
+
+def _heads(llm) -> tuple[int, int]:
+    return getattr(llm, "num_attention_heads", None) or llm.n_head, llm.kv_heads
+
+
+def _tp_config(tfa, run, kw: dict, whole: dict, cfg, images, forced_ids, dev) -> dict:
     """One tensor rank's run of one serve config, through the functions
     serve/worker.py's main calls (tensor.serving_group, the rank's slices by
-    starvector.tensor_parallel, worker.make_engine): the check's forward on
-    every rank of the group (the first step's logits in fp32, or
-    teacher-forced logits over the int8 cache), then the group's engine,
-    the leader serving its data group's share of 4 greedy requests of
-    `new` tokens (request i on data group i % data), the followers
-    replaying. Returns the heads, the launch counts of the engine run, and
-    on the leader its logits, ids, ticks and wall time."""
+    starvector.tensor_parallel, with "rank" quantization those slices
+    quantized by tensor.quantize_slices as from_pretrained(quantize=True,
+    tensor=) does, worker.make_engine): the check's forward on every rank
+    of the group (the first step's logits in fp32, or teacher-forced logits
+    over the int8 cache), then the group's engine, the leader serving its
+    data group's share of the run's greedy requests (request i on data
+    group i % data), the followers replaying; on 1b-tp2dp4, data group 0's
+    leader then sends one use_speculative request through the engine
+    (ServeEngine.generate_speculative, the worker's route). Returns the
+    heads, the launch counts of the engine run, and on the leader its
+    logits, ids, ticks and wall time."""
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.generation.engine import im2svg_prefix
-    from starvector_tpu_torch.models import starcoder2
     from starvector_tpu_torch.models import starvector as sv
-    from starvector_tpu_torch.parallel.tensor import serving_group
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.parallel.tensor import quantize_slices, serving_group
     from starvector_tpu_torch.serve.engine import Request
     from starvector_tpu_torch.serve.worker import make_engine
 
+    name, _, _, dtype, quant, new, n_req = run
+    policy = DTypePolicy(dtype, dtype)
     axes, kv = kw["mesh_axes"], kw["kv_cache_dtype"]
     data = axes.get("data", 1)
     group = serving_group(axes)
     params, rcfg = sv.tensor_parallel(whole, cfg, group)
+    dec = cfg.decoder_module
+    if quant == "rank":
+        params["svg_transformer"] = quantize_slices(
+            params["svg_transformer"], dec.partition_rules(),
+            [dec.tensor_units(cfg.llm, group.size, r) for r in range(group.size)], group)
     model = StarVectorForCausalLM(params, rcfg, policy=policy, device=dev)
-    out = dict(heads=(rcfg.llm.num_attention_heads, rcfg.llm.kv_heads), tensor_rank=group.rank,
-               data_rank=group.data_rank)
+    out = dict(heads=_heads(rcfg.llm), tensor_rank=group.rank, data_rank=group.data_rank)
     st, n = params["svg_transformer"], 2
     emb = None
     if group.is_leader:
@@ -3694,12 +3819,11 @@ def _tp_config(tfa, name: str, kw: dict, policy, new: int, whole: dict, cfg, ima
     emb = _group_tensor(group, emb, policy.compute_dtype, dev)
     mask = torch.ones(emb.shape[:2], dtype=torch.int32, device=dev)
     if kv is None:  # the first step's logits: the admission prefill's last position
-        cache = starcoder2.init_cache(rcfg.llm, n, emb.shape[1], dtype=policy.compute_dtype,
-                                      device=dev)
-        check = starcoder2.forward(st, rcfg.llm, emb, mask, cache=cache, policy=policy,
-                                   last_logits_only=True)[0][:, -1]
+        cache = dec.init_cache(rcfg.llm, n, emb.shape[1], dtype=policy.compute_dtype, device=dev)
+        check = dec.forward(st, rcfg.llm, emb, mask, cache=cache, policy=policy,
+                            last_logits_only=True)[0][:, -1]
     else:
-        check = forced_logits(starcoder2, st, rcfg.llm, emb, mask, TP_FORCED, policy, True, kv,
+        check = forced_logits(dec, st, rcfg.llm, emb, mask, TP_FORCED, policy, True, kv,
                               forced_ids)[0]
     if group.is_leader:
         out["check"] = check.float().cpu()
@@ -3710,11 +3834,17 @@ def _tp_config(tfa, name: str, kw: dict, policy, new: int, whole: dict, cfg, ima
     reset_counts(tfa)
     t = time.perf_counter()
     if group.is_leader:
-        mine = [i for i in range(4) if i % data == group.data_rank]
+        mine = [i for i in range(n_req) if i % data == group.data_rank]
         pre = serve_prefixes(model.params, model.cfg, images[mine], policy,
                              prompts=[SERVE_PROMPTS[i] for i in mine])
         res = serve_requests(engine, [Request(prefix_embeds=p, max_new_tokens=new,
                                               do_sample=False) for p in pre])
+        if name == "1b-tp2dp4" and group.data_rank == 0:
+            prompt = torch.tensor([SERVE_PROMPTS[0]], device=dev)
+            tokens, length, n_fwd = engine.generate_speculative(
+                pre[0], spec_ids(pre[0].shape[1], prompt), max_new_tokens=TP_SPEC_NEW,
+                draft_len=8, stop_sequences=(), pad_token_id=0)
+            out["spec"] = (tokens[0, :int(length[0])].tolist(), n_fwd)
         stats = engine.stats()
         engine.stop()
         out.update(ids={i: r["ids"] for i, r in zip(mine, res)}, ticks=stats["ticks"],
@@ -3727,7 +3857,7 @@ def _tp_config(tfa, name: str, kw: dict, policy, new: int, whole: dict, cfg, ima
     return out
 
 
-def _tp_rank(rank: int, port: int, weights, kws: dict, cfg, results) -> None:
+def _tp_rank(rank: int, port: int, weights, kws: dict, cfgs: dict, results) -> None:
     """A rank of phase 6e, a process of its own on the one card: joins a
     gloo group of TP_WORLD ranks (NCCL refuses two ranks on one card),
     then runs each of TP_CONFIGS over it (_tp_config) on the weights the
@@ -3741,23 +3871,22 @@ def _tp_rank(rank: int, port: int, weights, kws: dict, cfg, results) -> None:
 
     try:
         shared = weights.get(timeout=TP_TIMEOUT)
-        dev = shared["images"].device  # the card the main process shares its weights on
+        dev = shared["images"]["8b"].device  # the card the main process shares its weights on
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                                 world_size=TP_WORLD)
         from starvector_tpu_torch.ops import flash_attention as tfa
         from starvector_tpu_torch.ops import kernel_lib
-        from starvector_tpu_torch.ops.layers import DTypePolicy
 
         kernel_lib.library()
         torch.backends.cuda.matmul.allow_tf32 = False
         out = {}
-        for name, _, dtype, new in TP_CONFIGS:
-            whole = shared["p32"] if dtype == torch.float32 else shared["p16"]
-            out[name] = _tp_config(tfa, name, kws[name], DTypePolicy(dtype, dtype), new, whole,
-                                   cfg, shared["images"], shared["forced_ids"], dev)
-            del whole
+        for run in TP_CONFIGS:
+            name, model = run[:2]
+            out[name] = _tp_config(tfa, run, kws[name], shared["trees"][_tp_tree(run)],
+                                   cfgs[model], shared["images"][model],
+                                   shared["forced_ids"].get(name), dev)
             gc.collect()
             torch.cuda.empty_cache()
             dist.barrier()
@@ -3771,56 +3900,117 @@ def _tp_rank(rank: int, port: int, weights, kws: dict, cfg, results) -> None:
         raise
 
 
-def tensor_serving_8b(tfa, model, cfg, p16, p32, dev, card: str, depth: str) -> dict:
-    """Phase 6e, on phase 6's 8B weights (`depth`): the two tensor-parallel
-    serve configs over TP_WORLD ranks, processes on the one card over a
-    gloo group (_tp_rank): tp4dp2 in fp32 (2 replicas of tensor 4, 32
-    slots each, the fp32 cache that "bfloat16" names under fp32 compute):
-    the first step's logits within fp32 TOL of one process's, and the 4
-    requests' greedy ids equal to the one-process fp32 engine's; tp8-int8kv
-    in bf16 (tensor 8, 16 slots, int8 cache): teacher-forced logits against
-    one process's over the int8 cache (kernels), within twice that path's
-    own gap to its plain version plus 1e-3, and the greedy agreement of
-    the engines' ids. Every rank's launches: kernel 1 a layer an admission,
-    kernel 2 (2' over the int8 cache) a layer a step, equal across a
-    group. Wall times over gloo on one card are no serving speed. Returns
-    the per-rank results by config."""
+def _tp_serve_kwargs(leaf, work: Path) -> dict:
+    """serve_kwargs_from_leaf of a run's leaf: a path in the repo, or a
+    `serve:` block written to a yaml file in `work` first."""
+    from starvector_tpu_torch.config import load_yaml
+    from starvector_tpu_torch.serve.worker import serve_kwargs_from_leaf
+
+    if isinstance(leaf, dict):
+        path = work / f"serve-{len(list(work.iterdir()))}.yaml"
+        path.write_text(json.dumps({"serve": leaf}))  # JSON is YAML
+    else:
+        path = Path(__file__).parent / leaf
+    return serve_kwargs_from_leaf(load_yaml(str(path)))
+
+
+def _tp_references(tfa, models: dict, kws: dict, dev) -> dict:
+    """One process's references of each run, on the run's whole tree: the
+    greedy ids of its requests through one engine; the first step's logits
+    of 2 prefixes (fp32), or teacher-forced logits over the int8 cache with
+    the kernels and with their plain versions and the ids they feed
+    (bf16); for 1b-tp2dp4 generate_greedy_speculative's ids and forward
+    count on request 0's prefix."""
+    from starvector_tpu_torch.generation.engine import im2svg_prefix
+    from starvector_tpu_torch.generation.speculative import generate_greedy_speculative
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+
+    refs = {}
+    for run in TP_CONFIGS:
+        name, model, _, dtype, _, new, n_req = run
+        m, params = models[model], models[model]["trees"][_tp_tree(run)]
+        if run[4] == "rank":  # the reference of per-rank quantization is the whole tree's
+            params = models[model]["trees"][f"{model}_int8"]
+        cfg, images, kv = m["cfg"], m["images"], kws[name]["kv_cache_dtype"]
+        policy = DTypePolicy(dtype, dtype)
+        dec, st = cfg.decoder_module, params["svg_transformer"]
+        pre = serve_prefixes(params, cfg, images[:n_req], policy, prompts=SERVE_PROMPTS[:n_req])
+        ref = {"ids": engine_ids(params, cfg, pre, policy, dev, tfa, kv=kv, new=new,
+                                 stops=())[0]}
+        emb, mask = im2svg_prefix(params, cfg, images[:2],
+                                  torch.tensor([PROMPT_IDS] * 2, device=dev), policy=policy)
+        if kv is None:
+            cache = dec.init_cache(cfg.llm, 2, emb.shape[1], dtype=policy.compute_dtype,
+                                   device=dev)
+            ref["first"] = dec.forward(st, cfg.llm, emb, mask, cache=cache, policy=policy,
+                                       last_logits_only=True)[0][:, -1]
+        else:
+            ref["forced"], ref["forced_ids"] = forced_logits(dec, st, cfg.llm, emb, mask,
+                                                             TP_FORCED, policy, True, kv)
+            ref["forced_plain"] = forced_logits(dec, st, cfg.llm, emb, mask, TP_FORCED, policy,
+                                                False, kv, ref["forced_ids"])[0]
+        if name == "1b-tp2dp4":
+            prompt = torch.tensor([SERVE_PROMPTS[0]], device=dev)
+            tokens, length, n_fwd = generate_greedy_speculative(
+                st, cfg.llm, pre[0], torch.ones(pre[0].shape[:2], dtype=torch.int32, device=dev),
+                spec_ids(pre[0].shape[1], prompt), max_new_tokens=TP_SPEC_NEW, draft_len=8,
+                stop_sequences=(), pad_token_id=0, policy=policy)
+            ref["spec"] = (tokens[0, :int(length[0])].tolist(), n_fwd)
+        refs[name] = ref
+        del emb, mask, pre
+    return refs
+
+
+def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) -> dict:
+    """Phase 6e: the serve configs of TP_CONFIGS over TP_WORLD ranks,
+    processes on the one card over a gloo group (_tp_rank), on phase 6's
+    8B weights (`depth`) and on phase 4c's 1B trees (phase 4's seed, the
+    first DEPTH_1B_EARLIER of 24 layers, drawn again here). The 8B's
+    tp4dp2 in fp32 (2 replicas of tensor 4, 32 slots each, the fp32 cache
+    that "bfloat16" names under fp32 compute) and the 1B's 1b-tp2dp4 (4
+    replicas of tensor 2, 2 slots each): the first step's logits within
+    fp32 TOL of one process's, the requests' greedy ids equal to the
+    one-process fp32 engine's, and on the 1B one use_speculative request's
+    ids and forward count equal to one process's; tp8-int8kv (bf16, tensor
+    8, 16 slots, int8 cache), 1b-tp8-int8 (the same over the 1B's
+    quantize_tree) and tp8-int8kv-q (the 8B's leaf with --quantize, each
+    rank quantizing its own slices): teacher-forced logits against one
+    process's over the int8 cache (kernels) within twice that path's own
+    gap to its plain version plus 1e-3, and the greedy agreement of the
+    engines' ids. Every rank's launches: kernel 1 a layer an admission
+    (and the speculative prefill), kernel 2 (2' over the int8 cache) a
+    layer a step, kernel 14 a projection a layer a forward of an int8
+    decoder, equal across a group. Wall times over gloo on one card are no
+    serving speed. Returns the per-rank results by run."""
     import socket
 
     import torch.multiprocessing as mp
 
-    from starvector_tpu_torch.config import load_yaml
-    from starvector_tpu_torch.generation.engine import im2svg_prefix
-    from starvector_tpu_torch.models import starcoder2
+    from starvector_tpu_torch.data.processor import processor_for_encoder
     from starvector_tpu_torch.ops.layers import DTypePolicy
-    from starvector_tpu_torch.serve.worker import serve_kwargs_from_leaf
 
     t0 = time.perf_counter()
-    L = cfg.llm.num_hidden_layers
-    f32, bf16 = DTypePolicy(torch.float32, torch.float32), DTypePolicy(torch.bfloat16,
-                                                                        torch.bfloat16)
-    kws = {name: serve_kwargs_from_leaf(load_yaml(Path(__file__).parent / path))
-           for name, path, _, _ in TP_CONFIGS}
-    new = {name: n for name, _, _, n in TP_CONFIGS}
-    images = model.process_images(synthetic_images(4, 33))
-    # one process: the references
-    ref_ids = {"tp4dp2": engine_ids(p32, cfg, serve_prefixes(p32, cfg, images, f32), f32, dev,
-                                    tfa, new=new["tp4dp2"], stops=())[0],
-               "tp8-int8kv": engine_ids(p16, cfg, serve_prefixes(p16, cfg, images, bf16), bf16,
-                                        dev, tfa, kv=torch.int8, new=new["tp8-int8kv"],
-                                        stops=())[0]}
-    emb, mask = im2svg_prefix(p32, cfg, images[:2], torch.tensor([PROMPT_IDS] * 2, device=dev),
-                              policy=f32)
-    cache = starcoder2.init_cache(cfg.llm, 2, emb.shape[1], dtype=torch.float32, device=dev)
-    ref_first = starcoder2.forward(p32["svg_transformer"], cfg.llm, emb, mask, cache=cache,
-                                   policy=f32, last_logits_only=True)[0][:, -1]
-    emb, mask = im2svg_prefix(p16, cfg, images[:2], torch.tensor([PROMPT_IDS] * 2, device=dev),
-                              policy=bf16)
-    forced, forced_ids = forced_logits(starcoder2, p16["svg_transformer"], cfg.llm, emb, mask,
-                                       TP_FORCED, bf16, True, torch.int8)
-    forced_plain = forced_logits(starcoder2, p16["svg_transformer"], cfg.llm, emb, mask,
-                                 TP_FORCED, bf16, False, torch.int8, forced_ids)[0]
-    del emb, mask, cache
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    cfg1 = sv.starvector_1b_config()
+    full = full_width_params(sv, cfg1, dev, torch.float32)
+    cut, cfg1 = first_layers(full, cfg1, DEPTH_1B_EARLIER)
+    p32_1b = _map_tree(cut, lambda t: t.clone())  # the first layers alone: the rest goes
+    del full, cut
+    p16_1b = _cast_tree(p32_1b, torch.bfloat16)
+    L1 = cfg1.llm.n_layer
+    images1 = processor_for_encoder(cfg1.image_encoder_type, cfg1.image_size,
+                                    device=dev).batch(synthetic_images(4, 33))
+    models = {"8b": dict(cfg=cfg, images=model.process_images(synthetic_images(4, 33)),
+                         trees={"8b_fp32": p32, "8b_bf16": p16, "8b_int8": quantized(p16)}),
+              "1b": dict(cfg=cfg1, images=images1,
+                         trees={"1b_fp32": p32_1b, "1b_int8": quantized(p16_1b)})}
+    del p16_1b
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-"))
+    try:
+        kws = {run[0]: _tp_serve_kwargs(run[2], work) for run in TP_CONFIGS}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    refs = _tp_references(tfa, models, kws, dev)
     t_ref = time.perf_counter() - t0
 
     ctx = mp.get_context("spawn")
@@ -3828,12 +4018,17 @@ def tensor_serving_8b(tfa, model, cfg, p16, p32, dev, card: str, depth: str) -> 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    procs = [ctx.Process(target=_tp_rank, args=(r, port, weights, kws, cfg, results))
+    cfgs = {k: m["cfg"] for k, m in models.items()}
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, weights, kws, cfgs, results))
              for r in range(TP_WORLD)]
+    shared = dict(trees={k: t for m in models.values() for k, t in m["trees"].items()
+                         if k != "8b_int8"},
+                  images={k: m["images"] for k, m in models.items()},
+                  forced_ids={k: r["forced_ids"] for k, r in refs.items() if "forced_ids" in r})
     t1 = time.perf_counter()
     for proc in procs:
         proc.start()
-        weights.put(dict(p32=p32, p16=p16, images=images, forced_ids=forced_ids))
+        weights.put(shared)
     ranks: dict[int, dict] = {}
     try:
         deadline = time.monotonic() + TP_TIMEOUT
@@ -3857,74 +4052,101 @@ def tensor_serving_8b(tfa, model, cfg, p16, p32, dev, card: str, depth: str) -> 
             if proc.is_alive():
                 proc.kill()
                 proc.join()
+        del shared
         if dev.type == "cuda":  # the blocks the ranks held through CUDA IPC, released by them
             torch.cuda.ipc_collect()
     t_ranks = time.perf_counter() - t1
 
     out = {}
-    for name, _, dtype, _ in TP_CONFIGS:
+    for name, model_name, _, dtype, quant, new, n_req in TP_CONFIGS:
+        ref, kw = refs[name], kws[name]
+        L = L1 if model_name == "1b" else cfg.llm.num_hidden_layers
         runs = [ranks[r][name] for r in range(TP_WORLD)]
-        data = kws[name]["mesh_axes"].get("data", 1)
+        data = kw["mesh_axes"].get("data", 1)
         tp = TP_WORLD // data
+        int8_kv = kw["kv_cache_dtype"] is not None
         leaders = [run for run in runs if run["tensor_rank"] == 0]
-        for lead in leaders:  # every rank of a group launched what its leader did
+        for lead in leaders:  # every rank of a group launched what its leader's run needs
             group = [run for run in runs if run["data_rank"] == lead["data_rank"]]
-            want = {"flash_prefill": L * lead["prefill_chunks"],
-                    "decode_attention": L * 4 * lead["ticks"],
-                    "decode_attention_int8": L * 4 * lead["ticks"] if dtype == torch.bfloat16
-                    else 0, "quant_matmul": 0, **dict.fromkeys(TRAIN_KERNELS, 0)}
+            steps = 4 * lead["ticks"]
+            want = {"flash_prefill": L * (lead["prefill_chunks"] + ("spec" in lead)),
+                    "decode_attention": L * steps,
+                    "decode_attention_int8": L * steps if int8_kv else 0,
+                    "quant_matmul": L * TP_PROJECTIONS[model_name]
+                    * (lead["prefill_chunks"] + steps) if quant else 0,
+                    **dict.fromkeys(TRAIN_KERNELS, 0)}
             for run in group:
                 got = {k: run["counts"][k] for k in want}
                 if got != want:
                     raise AssertionError(f"6e {name}: data group {lead['data_rank']} tensor rank "
                                          f"{run['tensor_rank']} launched {got}, its leader's run "
                                          f"needs {want}")
-                if run is not lead and run["checked"] < new[name] - 4:
+                if run is not lead and run["checked"] < (new - 4 if lead["ids"] else 0):
                     raise AssertionError(f"6e {name}: a follower checked {run['checked']} steps")
         ids = {i: v for lead in leaders for i, v in lead["ids"].items()}
-        ids = [ids[i] for i in range(4)]
+        ids = [ids[i] for i in range(n_req)]
         heads = sorted({run["heads"] for run in runs})
         walls = [run["wall"] for run in leaders]
+        counts = runs[0]["counts"]
+        qmm = (f", quant_matmul {counts['quant_matmul']} (GEMV {counts['quant_matmul_gemv']}, "
+               f"tile {counts['quant_matmul_wgmma']})" if quant else "")
+        where = (f"{data} replicas of tensor {tp}, {kw['max_batch'] // data} slots each"
+                 if data > 1 else f"tensor {tp}, {kw['max_batch']} slots")
+        weights_kind = {None: "", "whole": ", int8 weights (the whole quantize_tree's slices)",
+                        "rank": ", int8 weights (each rank quantizing its own slices)"}[quant]
+        launches = (f"every rank launched flash_prefill {counts['flash_prefill']} (H={heads[0][0]}"
+                    f"{'/' + str(heads[-1][0]) if len(heads) > 1 else ''} Hkv=1), "
+                    f"{'int8-cache ' if int8_kv else ''}decode_attention "
+                    f"{counts['decode_attention']} (G={'/'.join(str(h[0]) for h in heads)})"
+                    f"{qmm}")
         if dtype == torch.float32:
-            err = compare(f"6e {name} first-step logits", leaders[0]["check"].to(dev), ref_first,
-                          torch.float32)
-            if ids != ref_ids[name]:
+            err = compare(f"6e {name} first-step logits", leaders[0]["check"].to(dev),
+                          ref["first"], torch.float32)
+            if ids != ref["ids"]:
                 raise AssertionError(f"6e {name}: fp32 greedy ids {ids}\none process "
-                                     f"{ref_ids[name]}")
-            log("tp", f"{card}: {name} ({data} replicas of tensor {tp}, "
-                      f"{kws[name]['max_batch'] // data} slots each, fp32 at {depth}; heads a "
-                      f"rank {heads} as (query, KV)): first-step logits of 2 prefixes within "
-                      f"fp32 TOL of one process (max |diff| {err:.3e}); 4 concurrent greedy "
-                      f"requests of {new[name]} tokens, 2 a replica: ids == the one-process fp32 "
-                      f"engine's; every rank launched flash_prefill {runs[0]['counts']['flash_prefill']}"
-                      f" (H=9 Hkv=1), decode_attention {runs[0]['counts']['decode_attention']} "
-                      f"(G=9 Hkv=1); wall {', '.join(f'{w:.2f}' for w in walls)} s a replica over "
-                      f"gloo on one card (not a serving speed)")
+                                     f"{ref['ids']}")
+            spec = ""
+            if "spec" in ref:
+                got_spec = next(run["spec"] for run in leaders if "spec" in run)
+                if got_spec != ref["spec"]:
+                    raise AssertionError(f"6e {name}: use_speculative ids and forwards "
+                                         f"{got_spec}, one process {ref['spec']}")
+                spec = (f"; one use_speculative request of {TP_SPEC_NEW} tokens on data group "
+                        f"0: ids and forward count ({got_spec[1]}) == one process's "
+                        f"generate_greedy_speculative")
+            log("tp", f"{card}: {name} ({where}, fp32 at {depth if model_name == '8b' else f'{L} of 24 layers'}; "
+                      f"heads a rank {heads} as (query, KV)): first-step logits of 2 prefixes "
+                      f"within fp32 TOL of one process (max |diff| {err:.3e}); {n_req} "
+                      f"concurrent greedy requests of {new} tokens: ids == the one-process fp32 "
+                      f"engine's{spec}; {launches}; wall "
+                      f"{', '.join(f'{w:.2f}' for w in walls)} s a replica over gloo on one card "
+                      f"(not a serving speed)")
             out[name] = dict(err=err, ranks=runs)
-        else:
-            got = leaders[0]["check"].to(dev)
-            gap_tp = (got - forced).abs().max().item()
-            gap_plain = (forced_plain - forced).abs().max().item()
-            if not torch.isfinite(got).all() or gap_tp > 2.0 * gap_plain + 1e-3:
-                raise AssertionError(f"6e {name}: teacher-forced logits {gap_tp:.3e} from one "
-                                     f"process's, over twice its plain path's {gap_plain:.3e}")
-            forced_agree = (got[:, :-1].argmax(-1) == forced_ids).float().mean().item()
-            same = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
-                    for x, y in zip(ids, ref_ids[name])]
-            log("tp", f"{card}: {name} (tensor {tp}, {kws[name]['max_batch']} slots, bf16, int8 "
-                      f"cache, at {depth}; heads a rank {heads}): teacher-forced logits over "
-                      f"{TP_FORCED} positions, B=2, max |diff| from one process {gap_tp:.4f} "
-                      f"(one process's plain path: {gap_plain:.4f}; bound 2 x that + 1e-3), argmax "
-                      f"== the fed ids at {forced_agree:.4f}; 4 greedy requests of {new[name]}: ids "
-                      f"equal to the one-process int8-cache engine's for the first {same} tokens; "
-                      f"launches a rank flash_prefill {runs[0]['counts']['flash_prefill']}, "
-                      f"int8-cache decode_attention (G=5 on even ranks, 4 on odd) "
-                      f"{runs[0]['counts']['decode_attention_int8']}; wall {walls[0]:.2f} s over "
-                      f"gloo on one card (not a serving speed)")
-            out[name] = dict(err=gap_tp, plain_gap=gap_plain, agree=forced_agree, same=same,
-                             ranks=runs)
+            continue
+        got = leaders[0]["check"].to(dev)
+        gap_tp = (got - ref["forced"]).abs().max().item()
+        gap_plain = (ref["forced_plain"] - ref["forced"]).abs().max().item()
+        if not torch.isfinite(got).all() or gap_tp > 2.0 * gap_plain + 1e-3:
+            raise AssertionError(f"6e {name}: teacher-forced logits {gap_tp:.3e} from one "
+                                 f"process's, over twice its plain path's {gap_plain:.3e}")
+        agree = (got[:, :-1].argmax(-1) == ref["forced_ids"]).float().mean().item()
+        same = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+                for x, y in zip(ids, ref["ids"])]
+        log("tp", f"{card}: {name} ({where}, bf16{weights_kind}, int8 cache, at "
+                  f"{depth if model_name == '8b' else f'{L} of 24 layers'}; heads a rank "
+                  f"{heads}): teacher-forced logits over {TP_FORCED} positions, B=2, max |diff| "
+                  f"from one process {gap_tp:.4f} (one process's plain path: {gap_plain:.4f}; "
+                  f"bound 2 x that + 1e-3), argmax == the fed ids at {agree:.4f}; {n_req} greedy "
+                  f"requests of {new}: ids equal to the one-process engine's for the first "
+                  f"{same} tokens; {launches}; wall {walls[0]:.2f} s over gloo on one card (not "
+                  f"a serving speed)")
+        out[name] = dict(err=gap_tp, plain_gap=gap_plain, agree=agree, same=same, ranks=runs)
     log("phase", f"6e took {time.perf_counter() - t0:.0f} s: one-process references "
-                 f"{t_ref:.0f} s, {TP_WORLD} ranks (start, shards, both configs) {t_ranks:.0f} s")
+                 f"{t_ref:.0f} s, {TP_WORLD} ranks (start, shards, {len(TP_CONFIGS)} runs) "
+                 f"{t_ranks:.0f} s")
+    del models, refs
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4950,7 +5172,7 @@ PREFIX_8B = 4700  # the window check's prefix, past the 4096-key window
 # host-bound, so their wall time goes with the layers, and at full depth
 # the script passed its 1200-s limit on a slow host (phase 6 alone took
 # 200-400 s at all 32 layers)
-DEPTH_1B_EARLIER = 8  # of 24: 4b's decoding variants, 4c's serving, 4d's eval
+DEPTH_1B_EARLIER = 8  # of 24: 4b's decoding variants, 4c's serving, 4d's eval, 4e's streams
 DEPTH_8B = 8  # of 32: phase 6's 8B inference
 
 
@@ -5083,7 +5305,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     serve_8b = serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card, depth)
     log("phase", f"6d (StarVector-8B continuous-batching serving) took "
                  f"{time.perf_counter() - t_6d:.0f} s")
-    tp_8b = tensor_serving_8b(tfa, model, cfg, p16, p32, dev, card, depth)
+    tp_8b = tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card, depth)
     del m32, p32
     torch.cuda.empty_cache()
 
@@ -5819,7 +6041,8 @@ def tp_times(tfa, dc, dev, card: str, tp: dict, errs: dict) -> list[dict]:
     and 4 (tensor 8) over Hkv = 1, B=4 S=T=580, window 4096 (phase 6's H=36
     row's shape); kernel 2 at G = 9 over Hkv = 1 and, over an int8 cache,
     at G = 5 and 4, B=4 T=708, the self token merged, beside the int8 G = 9
-    launch at the same shape. Returns the rows
+    launch at the same shape; then the 1B's ranks (tp_times_1b) and kernel
+    14 at a tensor-8 rank's slices (quant_matmul_times_tp). Returns the rows
     of the kernels' JSON, launches from phase 6e's rank that runs each
     shape (`tp`), tp_launches every rank's."""
     counts = tp_counts(tp)
@@ -5900,6 +6123,209 @@ def tp_times(tfa, dc, dev, card: str, tp: dict, errs: dict) -> list[dict]:
                          tp_launches=counts[counter],
                          **({"g9_ms": int8_g9} if quant else {})))
         del qg, kn, vn, kc, vc
+    rows += tp_times_1b(tfa, dc, dev, card, counts, errs)
+    rows += quant_matmul_times_tp(dev, card, counts, errs)
+    return rows
+
+
+def _decode_case(dev, g, B: int, T: int, G: int, dtype, quant: bool):
+    """(qg, k_new, v_new, k, v, k_scale, v_scale, mask) of a decode step over
+    one KV head: a cache of the queries' type, or int8 codes with scales."""
+    from starvector_tpu_torch.models import decode_common as dc
+
+    D = 128
+    qg = torch.randn((B, 1, G, D), generator=g, device=dev).to(dtype)
+    kn, vn = (torch.randn((B, 1, D), generator=g, device=dev).to(dtype) for _ in "kv")
+    kc, vc = (torch.randn((B, T, 1, D), generator=g, device=dev) for _ in "kv")
+    if quant:
+        (k, ks), (v, vs) = dc.quantize_kv(kc), dc.quantize_kv(vc)
+    else:
+        (k, v), ks, vs = (kc.to(dtype), vc.to(dtype)), None, None
+    return qg, kn, vn, k, v, ks, vs, torch.ones((B, T), dtype=torch.int32, device=dev)
+
+
+def tp_times_1b(tfa, dc, dev, card: str, counts: dict, errs: dict) -> list[dict]:
+    """The 1B's tensor ranks' attention kernels (phase 6e's 1b-tp2dp4 in
+    fp32, 1b-tp8-int8 in bf16), graph-replayed beside the plain version,
+    the bound and SDPA with enable_gqa over the one KV head: kernel 1 at H
+    = 8 (fp32; bf16 beside it) and H = 2 (bf16) over Hkv = 1, B=4 S=T=261
+    (phase 7's 1B prefill, no window); kernel 2 at G = 8 (fp32 over an fp32
+    cache; bf16 over a bf16 and an int8 cache beside it) and at G = 2 over
+    an int8 cache (bf16; a bf16 cache beside it), B=4 T=325, the self token
+    merged. Rows of the kernels' JSON, launches from the rank 0 of the run
+    that runs each."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    D, rows = 128, []
+    B, S = 4, 261
+    for H, config, dtype in ((8, "1b-tp2dp4", torch.float32), (2, "1b-tp8-int8", torch.bfloat16)):
+        times = {}
+        for dt in dict.fromkeys((dtype, torch.bfloat16)):
+            q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((B, S, 1, D), generator=g, device=dev).to(dt) for _ in "kv")
+            mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+            times[dt] = _turns(lambda: tfa.flash_prefill(q, k, v, mask, kernels=False),
+                               lambda: tfa.flash_prefill(q, k, v, mask))
+            if dt == dtype:
+                qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                lib = sdpa_ms(qh, kh, vh, causal=True, enable_gqa=True)
+                del qh, kh, vh
+            del q, k, v
+        size = dtype.itemsize
+        nbytes = 2 * B * S * H * D * size + 2 * B * S * D * size + B * S * 4
+        flops = 4 * D * H * B * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S if dtype == torch.bfloat16
+                           else F32_FLOP_PER_S)
+        plain_ms, ms = times[dtype]
+        also = "" if dtype == torch.bfloat16 else \
+            f"; bf16 at the same shape: kernel {times[torch.bfloat16][1]:.4f} ms, plain " \
+            f"{times[torch.bfloat16][0]:.4f} ms"
+        log("times", f"{card}: flash_prefill a 1B tensor rank's B=4 S=T=261 H={H} Hkv=1 D=128 "
+                     f"{str(dtype)[6:]} ({config}): kernel {ms:.4f} ms ({b_ms / ms:.1%} of the "
+                     f"bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                     f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), SDPA "
+                     f"{'n/a' if lib is None else f'{lib:.4f} ms'}{also}")
+        rows.append(dict(name=f"flash_prefill_1b_h{H}", route="cuda",
+                         source="starvector_tpu_torch/csrc/flash_prefill.cu",
+                         replaces="starvector_tpu/ops/flash_attention.py:212",
+                         launches=counts["flash_prefill"][config][0],
+                         max_abs_err=errs[f"flash_prefill_h{H}"], ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib, dtype=str(dtype)[6:],
+                         **({"bf16_ms": times[torch.bfloat16][1],
+                             "bf16_plain_ms": times[torch.bfloat16][0]}
+                            if dtype != torch.bfloat16 else {}),
+                         tp_launches=counts["flash_prefill"]))
+    B, T = 4, 325
+    for G, config, dtype, quant, others in (
+            (8, "1b-tp2dp4", torch.float32, False, ((torch.bfloat16, False),
+                                                     (torch.bfloat16, True))),
+            (2, "1b-tp8-int8", torch.bfloat16, True, ((torch.bfloat16, False),))):
+        times = {}
+        for dt, qu in ((dtype, quant),) + others:
+            qg, kn, vn, k, v, ks, vs, old = _decode_case(dev, g, B, T, G, dt, qu)
+            times[(dt, qu)] = _turns(
+                lambda: tfa.merged_decode_attention(qg, kn, vn, k, v, old, D**-0.5, ks, vs,
+                                                    kernels=False),
+                lambda: tfa.merged_decode_attention(qg, kn, vn, k, v, old, D**-0.5, ks, vs))
+            if (dt, qu) == (dtype, quant):
+                lib = None
+                if not quant:
+                    keys = [torch.cat([c, n[:, None]], 1).transpose(1, 2).contiguous()
+                            for c, n in ((k, kn), (v, vn))]
+                    lib = sdpa_ms(qg.reshape(B, G, 1, D), *keys, causal=False, enable_gqa=True)
+                    del keys
+            del qg, kn, vn, k, v, ks, vs, old
+        size = 1 if quant else dtype.itemsize
+        cache_bytes = 2 * B * T * D * size + (2 * B * T * 4 if quant else 0)
+        nbytes = cache_bytes + 2 * B * G * D * dtype.itemsize + 2 * B * D * dtype.itemsize \
+            + B * T * 4
+        flops = 4 * D * G * B * (T + 1)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S if dtype == torch.bfloat16
+                           else F32_FLOP_PER_S)
+        plain_ms, ms = times[(dtype, quant)]
+        also = "; ".join(f"{str(dt)[6:]} queries over {'an int8' if qu else 'a ' + str(dt)[6:]} "
+                         f"cache: kernel {times[(dt, qu)][1]:.4f} ms, plain "
+                         f"{times[(dt, qu)][0]:.4f} ms" for dt, qu in others)
+        label = "int8" if quant else str(dtype)[6:]
+        log("times", f"{card}: decode_attention a 1B tensor rank's G={G} Hkv=1 B=4 T=325 D=128, "
+                     f"{str(dtype)[6:]} queries over {'an int8' if quant else 'a ' + label} cache, "
+                     f"the self token merged ({config}): kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {cache_bytes / 1e6:.3f} MB "
+                     f"of cache), SDPA "
+                     f"{'n/a (no single PyTorch call attends over an int8 cache)' if quant else f'{lib:.4f} ms' if lib is not None else 'n/a'}"
+                     f"; beside it, {also}")
+        counter = "decode_attention_int8" if quant else "decode_attention"
+        rows.append(dict(name=f"decode_attention{'_int8' if quant else ''}_1b_g{G}", route="cuda",
+                         source="starvector_tpu_torch/csrc/decode_attention.cu",
+                         replaces="starvector_tpu/ops/flash_attention.py:2049",
+                         launches=counts[counter][config][0],
+                         max_abs_err=errs[f"decode{'_int8' if quant else ''}_g{G}_hkv1"], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         dtype=str(dtype)[6:], others={
+                             f"{str(dt)[6:]}{' int8 cache' if qu else ''}": times[(dt, qu)][1]
+                             for dt, qu in others},
+                         tp_launches=counts[counter]))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def quant_matmul_times_tp(dev, card: str, counts: dict, errs: dict) -> list[dict]:
+    """Kernel 14 at a tensor-8 rank's shapes (QMM_TP_SHAPES), bf16 x, as a
+    rank's dense runs it (a column slice with its bias and a bf16 result, a
+    row slice with no bias and an fp32 result): the GEMV at M = 4 and the
+    tile at the admission's rows, graph-replayed beside the plain version,
+    the bound, bf16 addmm and torch._weight_int8pack_mm (over 2 calls
+    between events at the tile's rows). One row per model and path: the
+    times summed over one layer's projections on the rank with the larger
+    heads (the 8B's rank of 5 query heads: q, k, v, o_proj, c_fc, c_proj;
+    the 1B's: c_attn, attn/c_proj, c_fc, mlp/c_proj), launches from
+    tp8-int8kv-q's or 1b-tp8-int8's rank 0."""
+    from starvector_tpu_torch.ops import quantization as tq
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    sums: dict = {}
+    for name, K, N, row, model in QMM_TP_SHAPES:
+        p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
+        kq, sc = p["kernel_q"], p["scale"]
+        w16 = (kq.float() * sc).bfloat16()
+        kq_nk, sc16 = kq.t().contiguous(), sc.bfloat16()
+        bias = None if row else torch.randn((N,), generator=g, device=dev).bfloat16()
+        out_dtype = torch.float32 if row else torch.bfloat16
+        layer = "(4 heads)" not in name  # k_proj, v_proj twice a layer
+        for M in QMM_TP_ROWS[model]:
+            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            plain_ms, ms = _turns(
+                lambda: tq.quant_matmul(x, kq, sc, bias, out_dtype=out_dtype, kernels=False),
+                lambda: tq.quant_matmul(x, kq, sc, bias, out_dtype=out_dtype))
+            addmm_ms = cuda_ms((lambda: torch.mm(x, w16)) if row else
+                               (lambda: torch.addmm(bias, x, w16)))
+            timer = None if path == "gemv" else functools.partial(event_ms, iters=2, warmup=1)
+            lib = library_ms(lambda: torch._weight_int8pack_mm(x, kq_nk, sc16),
+                             "torch._weight_int8pack_mm", timer)
+            nbytes = M * K * 2 + K * N + N * 4 + (0 if row else N * 2) + \
+                M * N * out_dtype.itemsize
+            b_ms, b_by = bound(nbytes, 2 * M * K * N)
+            log("times", f"{card}: quant_matmul {path} {name} M={M} K={K} N={N} "
+                         f"({'fp32 out, no bias' if row else 'bias, bf16 out'}): kernel "
+                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                         f"{b_ms / ms:.1%} of it), int8pack_mm "
+                         f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 "
+                         f"{'mm' if row else 'addmm'} {addmm_ms:.4f} ms")
+            if layer:
+                n = 2 if "k_proj, v_proj" in name else 1
+                acc = sums.setdefault((model, path), dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                                          addmm_ms=0.0, lib_ms=0.0, lib=True,
+                                                          bytes=0, flops=0, M=M, shapes=[]))
+                acc["ms"] += n * ms
+                acc["plain_ms"] += n * plain_ms
+                acc["addmm_ms"] += n * addmm_ms
+                acc["lib"] &= lib is not None
+                acc["lib_ms"] += n * (lib or 0.0)
+                acc["bytes"] += n * nbytes
+                acc["flops"] += n * 2 * M * K * N
+                acc["shapes"].append(dict(name=name, K=K, N=N, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms))
+            del x
+        del p, kq, sc, w16, kq_nk
+        torch.cuda.empty_cache()
+    rows = []
+    for (model, path), acc in sums.items():
+        config = "tp8-int8kv-q" if model == "8b" else "1b-tp8-int8"
+        b_ms, b_by = bound(acc["bytes"], acc["flops"])
+        lib = acc["lib_ms"] if acc["lib"] else acc["addmm_ms"]
+        log("times", f"{card}: quant_matmul {path} at M={acc['M']}, one layer's projections on a "
+                     f"{model.upper()} tensor-8 rank ({config}): kernel {acc['ms']:.4f} ms, plain "
+                     f"{acc['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                     f"{b_ms / acc['ms']:.1%} of it), "
+                     f"{'int8pack_mm' if acc['lib'] else 'bf16 addmm'} {lib:.4f} ms")
+        launches = counts[f"quant_matmul_{'gemv' if path == 'gemv' else 'wgmma'}"][config]
+        rows.append(dict(name=f"quant_matmul_{path}_tp8_{model}", route="cuda",
+                         source="starvector_tpu_torch/csrc/quant_matmul.cu",
+                         replaces="starvector_tpu/ops/quantization.py:139",
+                         launches=launches[0], max_abs_err=errs[f"qmm_{path}_tp_{model}"],
+                         ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, rows_of_x=acc["M"], shapes=acc["shapes"],
+                         tp_launches=launches))
     return rows
 
 
@@ -6073,6 +6499,7 @@ def main() -> int:
     qmm_8b = check_quant_matmul_8b(tq, dev)
     err_8b.update(qmm_gemv_8b=qmm_8b["gemv"], qmm_tile_8b=qmm_8b["tile"])
     err_8b.update(check_tp_shapes(tfa, dc, dev))
+    err_8b.update(check_quant_matmul_tp(tq, dev))
     log("kernels", f"the 8B's kernel shapes match their plain versions (decode G=9 over a bf16 "
                    f"or an int8 cache: fp32 1e-4, bf16 atol 2e-3 and rtol 2^-7; flash_prefill "
                    f"H=36 Hkv=4 window 4096: fp32 1e-4, bf16 2e-2; quant_matmul at the six "
@@ -6197,8 +6624,8 @@ def main() -> int:
                  {"bf16": p16, "int8": int8["params"]})
 
     # --- 4b. the decoding variants and GRPO -------------------------------------
-    # 4b's decoding variants, 4c and 4d on the first DEPTH_1B_EARLIER layers
-    # of phase 4's trees (GRPO builds its own, at full depth)
+    # 4b's decoding variants, 4c, 4d and 4e on the first DEPTH_1B_EARLIER
+    # layers of phase 4's trees (GRPO builds its own, at full depth)
     phase("4b", f"StarVector-1B decoding variants ({DEPTH_1B_EARLIER} of {L} layers) and GRPO")
     t_4b = time.perf_counter()
     s16, cfg_cut = first_layers(p16, cfg, DEPTH_1B_EARLIER)
@@ -6215,11 +6642,11 @@ def main() -> int:
     eval1b = eval_1b(tfa, cfg_cut, s16, s32, dev, card)
     t_4d = time.perf_counter() - t_4d
     log("phase", f"4d took {t_4d:.0f} s")
-    del s16, s32, sq16
-    phase("4e", "StarVector-1B offline pipelined generation")
+    phase("4e", f"StarVector-1B offline pipelined generation, {DEPTH_1B_EARLIER} of {L} layers")
     t_4e = time.perf_counter()
-    pipe_1b = pipelined_1b(tfa, cfg, p16, p32, int8["params"], dev, card, args.profile)
+    pipe_1b = pipelined_1b(tfa, cfg_cut, s16, s32, sq16, dev, card, args.profile)
     t_4e = time.perf_counter() - t_4e
+    del s16, s32, sq16
     log("phase", f"4e took {t_4e:.0f} s")
     phase("4f", "the other vision towers behind the StarVector-1B decoder")
     t_4f = time.perf_counter()

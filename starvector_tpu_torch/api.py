@@ -113,17 +113,14 @@ class StarVectorForCausalLM:
         model of one tensor rank: its own slices of the decoder, read from
         the files alone, and its config (starvector.tensor_parallel); such
         a model feeds serve/engine.py's tensor-parallel ServeEngine, not
-        this class's generate calls. `quantize` with a group of more than
-        one rank raises NotImplementedError (ROADMAP queue 1, item 12)."""
+        this class's generate calls. With `quantize` the rank quantizes its
+        own slices, each row-parallel column's scale from its maximum over
+        the group (parallel/tensor.py::quantize_slices): the codes and
+        scales are the slices of the whole model's."""
         from starvector_tpu_torch.models.builder import load_pretrained_model
-        from starvector_tpu_torch.ops.quantization import quantize_tree
 
-        if quantize and tensor is not None and tensor.size > 1:
-            raise NotImplementedError("an int8-weight decoder (quantize) on a tensor mesh is not "
-                                      "ported yet (ROADMAP queue 1, item 12)")
-        params, cfg, tokenizer, _, _ = load_pretrained_model(path, dtype, device, tensor=tensor)
-        if quantize:
-            params["svg_transformer"] = quantize_tree(params["svg_transformer"])
+        params, cfg, tokenizer, _, _ = load_pretrained_model(path, dtype, device, tensor=tensor,
+                                                             quantize=quantize)
         return cls(params, cfg, tokenizer, device=device,
                    policy=DTypePolicy(param_dtype=dtype, compute_dtype=torch.bfloat16))
 

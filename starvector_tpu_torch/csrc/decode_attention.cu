@@ -89,9 +89,11 @@ namespace {
 
 // The shapes instantiated: head size 128 and G query heads per KV head,
 // G = 16 (StarVector-1B, multi-query), G = 9 (StarVector-8B, 36 query
-// heads over 4 KV heads, whole or on a tensor-4 rank) and G = 5 and 4 (the
-// 8B's tensor-8 ranks: each KV head's 9 query heads split 5 + 4), each over
-// a cache of q's type or of int8 codes (launch_group). Another group or
+// heads over 4 KV heads, whole or on a tensor-4 rank), G = 5 and 4 (the
+// 8B's tensor-8 ranks: each KV head's 9 query heads split 5 + 4) and G = 8,
+// 4 and 2 (the 1B's tensor-2, -4 and -8 ranks: 16 / tp query heads over its
+// one KV head), each over a cache of q's type or of int8 codes
+// (launch_group). Another group or
 // head size is another instantiation, added with the model that needs it
 // and a check of it on the card.
 constexpr int kDecD = 128;
@@ -708,8 +710,10 @@ int launch_decode(const DecodeArgs& a, cudaStream_t st) {
 template <typename T, typename C>
 int launch_group(int G, const DecodeArgs& a, cudaStream_t st) {
   switch (G) {
+    case 2: return launch_decode<T, C, 2>(a, st);
     case 4: return launch_decode<T, C, 4>(a, st);
     case 5: return launch_decode<T, C, 5>(a, st);
+    case 8: return launch_decode<T, C, 8>(a, st);
     case 9: return launch_decode<T, C, 9>(a, st);
     case 16: return launch_decode<T, C, 16>(a, st);
     default: return (int)cudaErrorInvalidValue;
@@ -721,7 +725,7 @@ int launch_group(int G, const DecodeArgs& a, cudaStream_t st) {
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype, group size, head size or split the
-// kernels do not take (G = 4, 5, 9 or 16, D = 128; chunk a multiple of 128,
+// kernels do not take (G = 2, 4, 5, 8, 9 or 16, D = 128; chunk a multiple of 128,
 // splits >= 1, covering [t_lo, t_end)). k_new and
 // v_new are both null or both set. cache_dtype is dtype, or int8 with
 // k_scale and v_scale set (they are ignored otherwise). ws holds B * Hkv *

@@ -60,16 +60,20 @@ def config_from_yaml_block(block: dict) -> sv.StarVectorConfig:
 
 
 def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda", *,
-                                  tensor=None):
+                                  tensor=None, quantize: bool = False):
     """(params, cfg, tokenizer) from an HF-layout StarVector checkpoint
     directory: the weights converted into the port's layout (convert.py),
     the config from config.json and the weights' shapes, and the
-    decoder's tokenizer version from tokenizer.json.
+    decoder's tokenizer version from tokenizer.json. `quantize=True`
+    quantizes the decoder (ops/quantization.py::quantize_tree, its default
+    threshold).
 
     With a serving `tensor` group (parallel/tensor.py::TensorGroup) the
     rank reads only its own slices of the decoder's projections through
     safetensors' get_slice (and the tower and adapter on the leader
-    only), and returns starvector.tensor_parallel's tree and config."""
+    only), and returns starvector.tensor_parallel's tree and config; with
+    `quantize` it quantizes its own slices to the whole tree's codes and
+    scales (parallel/tensor.py::quantize_slices)."""
     from safetensors import safe_open
 
     from starvector_tpu_torch.api import tokenizer_version
@@ -77,7 +81,8 @@ def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda"
         config_from_hf, from_hf_state_dict, stored_state_dict, tensor_rank_state_dict,
     )
     from starvector_tpu_torch.models.tokenizer import load_tokenizer
-    from starvector_tpu_torch.parallel.tensor import register_rows
+    from starvector_tpu_torch.ops.quantization import quantize_tree
+    from starvector_tpu_torch.parallel.tensor import quantize_slices, register_rows
 
     device = require_device(device, 'device="cpu"')
     with open(os.path.join(path, "config.json")) as f:
@@ -90,9 +95,16 @@ def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda"
         if tensor is not None:
             sd = tensor_rank_state_dict(sd, cfg, tensor)
         params = from_hf_state_dict(sd, cfg, dtype=dtype, device=device)
+    dec = cfg.decoder_module
     if tensor is not None:
-        dec = cfg.decoder_module
         register_rows(params["svg_transformer"], dec.partition_rules(), tensor)
+    if quantize and tensor is not None and tensor.size > 1:
+        params["svg_transformer"] = quantize_slices(
+            params["svg_transformer"], dec.partition_rules(),
+            [dec.tensor_units(cfg.llm, tensor.size, r) for r in range(tensor.size)], tensor)
+    elif quantize:
+        params["svg_transformer"] = quantize_tree(params["svg_transformer"])
+    if tensor is not None:
         cfg = dataclasses.replace(cfg, llm=dec.tensor_config(cfg.llm, tensor.size, tensor.rank))
     return params, cfg, load_tokenizer(path, version=tokenizer_version(cfg))
 
@@ -111,13 +123,16 @@ def model_builder(config, device) -> tuple[dict, sv.StarVectorConfig, Any]:
     return sv.init_params(cfg, gen, device=device), cfg, None
 
 
-def load_pretrained_model(path: str, dtype=torch.bfloat16, device="cuda", *, tensor=None):
+def load_pretrained_model(path: str, dtype=torch.bfloat16, device="cuda", *, tensor=None,
+                          quantize: bool = False):
     """The serving path: (params, cfg, tokenizer, processor, context_len),
     context_len being the checkpoint's max_length_train; with a `tensor`
-    group, this rank's (load_hf_starvector_checkpoint)."""
+    group, this rank's; `quantize`: an int8-weight decoder
+    (load_hf_starvector_checkpoint)."""
     from starvector_tpu_torch.data.processor import processor_for_encoder
 
     device = require_device(device, 'device="cpu"')
-    params, cfg, tokenizer = load_hf_starvector_checkpoint(path, dtype, device, tensor=tensor)
+    params, cfg, tokenizer = load_hf_starvector_checkpoint(path, dtype, device, tensor=tensor,
+                                                           quantize=quantize)
     processor = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=device)
     return params, cfg, tokenizer, processor, cfg.max_length_train

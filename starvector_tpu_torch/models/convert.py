@@ -321,17 +321,19 @@ def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorC
 
 # --- one tensor rank's slices of a checkpoint ----------------------------------------
 
-# an HF decoder projection key -> the port's stacked leaf
-_HF_PROJECTION = re.compile(r"layers\.\d+\.(self_attn|mlp)\.(\w+)\.(weight|bias)$")
+# an HF decoder projection key (the 8B's layers.i.self_attn / mlp, the 1B's
+# h.i.attn / mlp) -> the port's stacked leaf
+_HF_PROJECTION = re.compile(r"(?:layers|h)\.\d+\.(self_attn|attn|mlp)\.(\w+)\.(weight|bias)$")
 
 
 class _Stored:
     """A tensor of an open safetensors file, read when numpy asks for it:
-    whole, or the contiguous `cut` (dim, start, length) of it. `shape` is
-    the stored tensor's, so config_from_hf reads the whole model's
-    geometry from the same mapping without reading any data."""
+    whole, or the `cut` (dim, ranges) of it, the ranges' (start, length)
+    along dim concatenated. `shape` is the stored tensor's, so
+    config_from_hf reads the whole model's geometry from the same mapping
+    without reading any data."""
 
-    def __init__(self, handle, key: str, cut: tuple[int, int, int] | None = None):
+    def __init__(self, handle, key: str, cut=None):
         self.handle, self.key, self.cut = handle, key, cut
 
     @property
@@ -342,8 +344,10 @@ class _Stored:
         if self.cut is None:
             arr = self.handle.get_tensor(self.key)
         else:
-            dim, start, n = self.cut
-            arr = self.handle.get_slice(self.key)[(slice(None),) * dim + (slice(start, start + n),)]
+            dim, ranges = self.cut
+            stored = self.handle.get_slice(self.key)
+            arr = np.concatenate([stored[(slice(None),) * dim + (slice(start, start + n),)]
+                                  for start, n in ranges], axis=dim)
         return arr if dtype is None else arr.astype(dtype)
 
 
@@ -363,7 +367,6 @@ def tensor_rank_state_dict(stored: dict, cfg: sv.StarVectorConfig, group) -> dic
     from starvector_tpu_torch.parallel.tensor import leaf_slice
 
     dec = cfg.decoder_module
-    dec.tensor_config(cfg.llm, group.size, group.rank)  # the 1B raises here
     rules = dec.partition_rules()
     units = dec.tensor_units(cfg.llm, group.size, group.rank)
     out = {}
@@ -377,10 +380,10 @@ def tensor_rank_state_dict(stored: dict, cfg: sv.StarVectorConfig, group) -> dic
         cut = None
         if m and group.size > 1:
             kind = "kernel" if m.group(3) == "weight" else "bias"
-            path = f"layers/{'attn' if m.group(1) == 'self_attn' else 'mlp'}/{m.group(2)}/{kind}"
+            path = f"layers/{'mlp' if m.group(1) == 'mlp' else 'attn'}/{m.group(2)}/{kind}"
             cut = leaf_slice(path, 3 if kind == "kernel" else 2, rules, units)
             if cut is not None:  # the port's stacked (L, in, out) dim -> HF (out, in) / (out,)
-                dim, start, n = cut
-                cut = (2 - dim if kind == "kernel" else dim - 1, start, n)
+                dim, ranges = cut
+                cut = (2 - dim if kind == "kernel" else dim - 1, ranges)
         out[key] = _Stored(t.handle, t.key, cut)
     return out

@@ -110,6 +110,18 @@ class GPTBigCodeConfig:
         return self.n_inner or 4 * self.hidden_size
 
 
+@dataclasses.dataclass(frozen=True)
+class GPTBigCodeRankConfig(GPTBigCodeConfig):
+    """The decoder of one tensor-parallel rank (tensor_config): its own
+    query heads (n_head) and MLP columns (n_inner), the whole model's
+    hidden size and head size."""
+    head_size: int = 128
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_size
+
+
 def tiny_config(**kw) -> GPTBigCodeConfig:
     base = dict(vocab_size=512, n_positions=128, hidden_size=64, n_layer=2, n_head=4)
     base.update(kw)
@@ -164,14 +176,38 @@ def partition_rules() -> list[tuple[str, P]]:
     ]
 
 
-def tensor_config(cfg: GPTBigCodeConfig, tp: int, rank: int):
-    """Tensor-parallel serving of the 1B is not ported: its fused c_attn
-    holds every query head beside the one KV head (MQA), whose columns a
-    rank would need whole (ROADMAP queue 1, item 12)."""
-    raise NotImplementedError(
-        f"tensor {tp}: tensor parallelism of GPTBigCode (StarVector-1B: the fused c_attn "
-        f"with MQA) is not ported yet (ROADMAP queue 1, item 12); StarCoder2 (StarVector-8B) "
-        f"serves on a tensor mesh")
+def tensor_units(cfg: GPTBigCodeConfig, tp: int, rank: int) -> dict:
+    """Tensor rank `rank` of tp's ranges along each projection's split
+    dimension (partition_rules' "tensor" entries; parallel/tensor.py::
+    leaf_slice): c_attn's columns are this rank's whole query heads
+    (head_layout), then its KV heads' K columns and V columns (the 1B's one
+    KV head: K and V whole on every rank, one range), attn/c_proj's rows the
+    same query heads, and a contiguous 1/tp of c_fc's columns and
+    mlp/c_proj's rows."""
+    from starvector_tpu_torch.parallel.tensor import even_split, head_layout
+
+    D, Hkv = cfg.head_dim, cfg.kv_heads
+    E = cfg.n_head * D
+    h = head_layout(cfg.n_head, Hkv, tp)[rank]
+    q = (h.q_start * D, h.q_count * D)
+    k = (E + h.kv_start * D, h.kv_count * D)
+    v = (E + (Hkv + h.kv_start) * D, h.kv_count * D)
+    qkv = [q, (k[0], 2 * k[1])] if k[0] + k[1] == v[0] else [q, k, v]
+    mlp = even_split(cfg.inner_dim, tp, rank)
+    return {"c_attn": qkv, "attn/c_proj": q, "c_fc": mlp, "mlp/c_proj": mlp}
+
+
+def tensor_config(cfg: GPTBigCodeConfig, tp: int, rank: int) -> "GPTBigCodeRankConfig":
+    """The config of tensor rank `rank`'s decoder: its own query heads over
+    the whole KV head, and 1/tp of the MLP; hidden size, head size,
+    positions and vocabulary whole."""
+    from starvector_tpu_torch.parallel.tensor import head_layout
+
+    h = head_layout(cfg.n_head, cfg.kv_heads, tp)[rank]
+    _, inner = tensor_units(cfg, tp, rank)["c_fc"]
+    whole = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(GPTBigCodeConfig)}
+    return GPTBigCodeRankConfig(**{**whole, "n_head": h.q_count, "n_inner": inner},
+                                head_size=cfg.head_dim)
 
 
 def init_cache(cfg: GPTBigCodeConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -199,9 +235,10 @@ def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _split_qkv(cfg: GPTBigCodeConfig, qkv: torch.Tensor):
-    """Views of the fused projection (..., E + 2*Hkv*D): q (..., H*D), k and
-    v (..., Hkv*D)."""
-    E, kvd = cfg.hidden_size, cfg.kv_heads * cfg.head_dim
+    """Views of the fused projection (..., H*D + 2*Hkv*D): q (..., H*D), k
+    and v (..., Hkv*D). H*D is the hidden size but on a tensor rank, which
+    holds fewer query heads."""
+    E, kvd = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
     return qkv[..., :E], qkv[..., E:E + kvd], qkv[..., E + kvd:]
 
 
@@ -225,7 +262,7 @@ def _prefill_block(p, cfg, x, layer_cache, kv_mask, idx, policy, kernels):
         layer_cache, k.unflatten(-1, (Hkv, D)), v.unflatten(-1, (Hkv, D)), idx, x.dtype)
     out = flash_prefill(q.unflatten(-1, (H, D)), k_win, v_win, kv_mask[:, :k_win.shape[1]],
                         q_offset=idx, kernels=kernels)
-    x = x + dense(p["attn"]["c_proj"], out.reshape(B, S, E), policy, kernels=kernels)
+    x = x + dense(p["attn"]["c_proj"], out.reshape(B, S, H * D), policy, kernels=kernels)
     return _mlp(p, cfg, x, policy, kernels)
 
 
@@ -308,7 +345,7 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
 
     def post(x, attn):
         g = gathered({"c_proj": p["attn"]["c_proj"], "ln_2": p["ln_2"], "mlp": p["mlp"]}, policy)
-        x = x + dense(g["c_proj"], attn.reshape(B, S, E), policy)
+        x = x + dense(g["c_proj"], attn.reshape(B, S, H * D), policy)
         return _mlp(g, cfg, x, policy)
 
     return remat_layer(pre, attend, post, remat)(x)

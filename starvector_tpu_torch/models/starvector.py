@@ -133,8 +133,9 @@ def tensor_parallel(params: dict, cfg: StarVectorConfig, group) -> tuple[dict, S
     tensor.py::TensorGroup): the decoder's slices, the config with the
     rank's decoder geometry (`tensor_config`), and the vision tower and
     adapter whole on the leader, which computes every request's prefix;
-    the followers hold no tower. A 1B decoder, or an int8-weight one,
-    raises NotImplementedError (ROADMAP queue 1, item 12)."""
+    the followers hold no tower. Either decoder (the 1B's with its one KV
+    head whole on every rank), bf16/fp32 or int8-weight (the slices of a
+    tree quantized whole: parallel/tensor.py::shard_tree)."""
     from starvector_tpu_torch.parallel import tensor
 
     dec = cfg.decoder_module

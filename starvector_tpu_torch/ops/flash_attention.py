@@ -566,11 +566,12 @@ DECODE_KEY_TILE = 128
 DECODE_MAX_CHUNK = 256
 DECODE_BLOCKS_PER_SM = 1
 # the query heads per KV head kernel 2 is built for, over a cache of q's
-# type or of int8 codes: StarVector-1B's 16, StarVector-8B's 9 (36 over 4,
-# whole or on a tensor-4 rank) and its tensor-8 ranks' 5 and 4 (a group of
-# 5 padded with zero query rows to 9 took 0.0130 ms a launch on the H100
-# against 0.0095 for its own instantiation: PERF.md §6)
-DECODE_GROUPS = (4, 5, 9, 16)
+# type or of int8 codes: StarVector-1B's 16 and its tensor-2, -4 and -8
+# ranks' 8, 4 and 2; StarVector-8B's 9 (36 over 4, whole or on a tensor-4
+# rank) and its tensor-8 ranks' 5 and 4 (a group of 5 padded with zero
+# query rows to 9 took 0.0130 ms a launch on the H100 against 0.0095 for
+# its own instantiation: PERF.md §6)
+DECODE_GROUPS = (2, 4, 5, 8, 9, 16)
 
 
 def decode_partial_floats(G: int, D: int) -> int:

@@ -113,7 +113,8 @@ def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
     A row-parallel kernel of a tensor group (parallel/tensor.py) holds this
     rank's rows, x its columns: the fp32 partial product is summed over the
     group in fp32, the whole bias added once after the sum, and the result
-    rounded once, the same contract as one device's product."""
+    rounded once, the same contract as one device's product (for int8 codes
+    too: dense_quantized)."""
     if "kernel_q" in params:
         from starvector_tpu_torch.ops.quantization import dense_quantized
 

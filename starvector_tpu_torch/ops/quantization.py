@@ -42,6 +42,7 @@ import math
 import torch
 
 from starvector_tpu_torch.ops import kernel_lib
+from starvector_tpu_torch.parallel import tensor
 
 GEMV_MAX_ROWS = 16   # rows of x up to which the GEMV path runs (decode)
 _GEMV_COLS = 128     # columns per GEMV block
@@ -64,28 +65,36 @@ _INV_127 = 1.0 / 127.0  # applied in fp32, as XLA's rewrite of "/ 127" is
 # quantization of the weights
 # ---------------------------------------------------------------------------
 
-def _quantize_2d(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    w32 = w.float()
-    scale = (w32.abs().amax(dim=0) * _INV_127).clamp_min(1e-12)
-    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
-    return q, scale
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    return (amax * _INV_127).clamp_min(1e-12)
 
 
-def _quantize(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _codes(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(w.float() / scale), -127, 127).to(torch.int8)
+
+
+def _quantize(w: torch.Tensor, reduce=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(K, N) -> (codes, (N,) scales); (L, K, N) -> (codes, (L, N) scales),
-    one layer at a time."""
+    one layer at a time. `reduce` maps the per-column absolute maxima
+    before the scales are taken (a tensor rank's row slice: the maximum
+    over its group, parallel/tensor.py::quantize_slices)."""
     if w.ndim == 2:
-        return _quantize_2d(w)
+        amax = w.float().abs().amax(dim=0)
+    else:
+        amax = torch.stack([w[i].float().abs().amax(dim=0) for i in range(w.shape[0])])
+    scale = _scale(amax if reduce is None else reduce(amax))
+    if w.ndim == 2:
+        return _codes(w, scale), scale
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-    scale = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32, device=w.device)
     for i in range(w.shape[0]):
-        q[i], scale[i] = _quantize_2d(w[i])
+        q[i] = _codes(w[i], scale[i])
     return q, scale
 
 
-def quantize_dense(p: dict) -> dict:
-    """Per-output-channel symmetric int8 of p["kernel"] (K, N) or (L, K, N)."""
-    q, scale = _quantize(p["kernel"])
+def quantize_dense(p: dict, reduce=None) -> dict:
+    """Per-output-channel symmetric int8 of p["kernel"] (K, N) or (L, K, N)
+    (`reduce` as in _quantize)."""
+    q, scale = _quantize(p["kernel"], reduce)
     out = {"kernel_q": q, "scale": scale}
     if "bias" in p:
         out["bias"] = p["bias"]
@@ -263,9 +272,20 @@ def dense_quantized(p: dict, x: torch.Tensor, compute_dtype: torch.dtype = torch
                     kernels: bool = True) -> torch.Tensor:
     """The quantized dense layer: (..., K) @ int8 (K, N) * scale + bias in
     fp32, rounded once to `compute_dtype` (the unquantized dense's output
-    type). One quant_matmul call."""
+    type). One quant_matmul call. Row-parallel codes of a tensor group
+    (parallel/tensor.py) follow ops/layers.py::dense's contract: this
+    rank's fp32 partial (kernel 14 with no bias), summed over the group in
+    fp32, the whole bias added once, one rounding."""
     K = x.shape[-1]
     x2 = x.reshape(-1, K).to(compute_dtype)
-    y = quant_matmul(x2, p["kernel_q"], p["scale"], p.get("bias"), out_dtype=compute_dtype,
-                     kernels=kernels)
+    group = tensor.row_group(p["kernel_q"])
+    if group is None:
+        y = quant_matmul(x2, p["kernel_q"], p["scale"], p.get("bias"), out_dtype=compute_dtype,
+                         kernels=kernels)
+    else:
+        y = group.all_reduce(quant_matmul(x2, p["kernel_q"], p["scale"], None,
+                                          out_dtype=torch.float32, kernels=kernels))
+        if "bias" in p:
+            y = y + p["bias"].float()
+        y = y.to(compute_dtype)
     return y.reshape(*x.shape[:-1], y.shape[-1])

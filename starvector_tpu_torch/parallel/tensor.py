@@ -16,7 +16,16 @@ where the KV heads divide tp, each KV head is held by tp / Hkv ranks that
 split its query group as evenly as it goes (the 8B's 36 over 4 on 8 ranks:
 5 + 4 query heads over one KV head a rank). The JAX shard there is 576
 columns, 4.5 heads, and GSPMD reshards at the head reshape; the port keeps
-heads whole instead.
+heads whole instead. StarVector-1B's fused c_attn (2048 query columns, then
+128 K and 128 V columns of its one KV head) gives a rank two ranges: its
+query heads' columns, then the 256 KV columns, which every rank holds whole
+(the JAX rules split the 2304 columns evenly and GSPMD reshards).
+
+An int8-weight decoder (ops/quantization.py) splits its codes as their
+kernel; a column-split leaf's per-column scales go with its columns, a
+row-split leaf's stay whole. The scales are the whole tree's: slices of a
+tree quantized whole, or a rank's own slices quantized with each
+row-parallel column's maximum taken over the group (`quantize_slices`).
 
 Serving needs no backward: the collectives here run in the forward only.
 Training's `tensor` axis (and `stage`) is not ported (ROADMAP queue 1,
@@ -104,6 +113,12 @@ class TensorGroup:
             dist.all_reduce(t, group=self.group)
         return t
 
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """t's elementwise maximum over the group, in place."""
+        if self.group is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """The leader's t on every rank (a follower's t, contiguous, is
         overwritten). A collective sends a tensor's storage as it lies, so
@@ -179,45 +194,77 @@ def _tensor_dim(spec, ndim: int) -> int | None:
     return None
 
 
-def leaf_slice(path: str, ndim: int, rules, units: dict) -> tuple[int, int, int] | None:
-    """(dim, start, length) of this rank's slice of the leaf at `path`, or
+def _ranges(unit) -> tuple[tuple[int, int], ...]:
+    """A `tensor_units` entry as its ranges: one (start, length), or a list
+    of them (the 1B's fused c_attn: its query heads' columns, then the KV
+    columns whole)."""
+    return (tuple(unit),) if isinstance(unit[0], int) else tuple(tuple(r) for r in unit)
+
+
+def leaf_slice(path: str, ndim: int, rules, units: dict):
+    """(dim, ranges) of this rank's slice of the leaf at `path`, ranges a
+    tuple of (start, length) along dim whose concatenation is the slice, or
     None when every rank holds it whole. `rules` are the decoder's
-    partition rules, first match wins; `units` maps each split
-    projection's name to this rank's (start, length) along its split
-    dimension (the decoder's `tensor_units`)."""
+    partition rules, first match wins (a quantized leaf's codes, kernel_q,
+    match its kernel's rule); `units` maps each split projection's name, or
+    "parent/name" where two projections share a name (GPTBigCode's
+    attn/c_proj and mlp/c_proj), to this rank's range or ranges along its
+    split dimension (the decoder's `tensor_units`)."""
     from starvector_tpu_torch.parallel.sharding import spec_for_path
 
     dim = _tensor_dim(spec_for_path(path, rules), ndim)
     if dim is None:
         return None
-    name = path.split("/")[-2]
-    if name not in units:
-        raise NotImplementedError(f"{path}: no tensor-parallel split of this leaf ({NOT_PORTED})")
-    return (dim, *units[name])
+    parts = path.split("/")
+    for name in ("/".join(parts[-3:-1]), parts[-2]):
+        if name in units:
+            return dim, _ranges(units[name])
+    raise NotImplementedError(f"{path}: no tensor-parallel split of this leaf ({NOT_PORTED})")
+
+
+def take(t: torch.Tensor, dim: int, ranges) -> torch.Tensor:
+    """A contiguous copy of t's `ranges` along dim, concatenated."""
+    parts = [t.detach().narrow(dim, start, n) for start, n in ranges]
+    return parts[0].clone() if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def is_row_parallel(path: str, dim: int, ndim: int) -> bool:
-    """A kernel split along its input (rows): its product is a partial sum."""
-    return path.endswith("/kernel") and dim == ndim - 2
+    """A kernel (or its int8 codes) split along its input (rows): its
+    product is a partial sum."""
+    return path.endswith(("/kernel", "/kernel_q")) and dim == ndim - 2
+
+
+def _cut(path: str, leaf: torch.Tensor, leaves: dict, rules, units: dict):
+    """leaf_slice of one leaf of a tree (`leaves`: path -> leaf). The
+    per-column scales of a quantized kernel match no rule: they follow their
+    codes' columns where those are split, and stay whole where the codes
+    are split by rows (each scale belongs to a column every rank holds)."""
+    codes = path[:-len("scale")] + "kernel_q"
+    if path.endswith("/scale") and codes in leaves:
+        cut = leaf_slice(codes, leaves[codes].dim(), rules, units)
+        if cut is None or cut[0] != leaves[codes].dim() - 1:
+            return None
+        return leaf.dim() - 1, cut[1]
+    return leaf_slice(path, leaf.dim(), rules, units)
 
 
 def shard_tree(params: dict, rules, units: dict, group: TensorGroup) -> dict:
     """This rank's tree: a contiguous copy of its slice of each split leaf
     (the leaf itself where unsplit), row-parallel kernels registered with
-    `group`. A quantized leaf raises NotImplementedError (item 12)."""
+    `group`. A quantized tree (ops/quantization.py::quantize_tree of the
+    whole decoder) gives the slices of its codes and scales as they are
+    (_cut): the rank computes with the whole tree's rounding."""
     from starvector_tpu_torch.parallel.sharding import _paths, _rebuild
 
+    leaves = dict(_paths(params))
     out = []
-    for path, leaf in _paths(params):
-        if path.endswith("kernel_q"):
-            raise NotImplementedError(f"{path}: an int8-weight decoder on a tensor mesh is not "
-                                      f"ported ({NOT_PORTED})")
-        cut = None if group.size == 1 else leaf_slice(path, leaf.dim(), rules, units)
+    for path, leaf in leaves.items():
+        cut = None if group.size == 1 else _cut(path, leaf, leaves, rules, units)
         if cut is None:
             out.append(leaf)
             continue
-        dim, start, n = cut
-        local = leaf.detach().narrow(dim, start, n).clone()
+        dim, ranges = cut
+        local = take(leaf, dim, ranges)
         if is_row_parallel(path, dim, leaf.dim()):
             register_row(local, group)
         out.append(local)
@@ -225,8 +272,8 @@ def shard_tree(params: dict, rules, units: dict, group: TensorGroup) -> dict:
 
 
 def register_rows(params: dict, rules, group: TensorGroup) -> dict:
-    """Register the row-parallel kernels of a tree that already holds this
-    rank's slices (a per-rank checkpoint load)."""
+    """Register the row-parallel kernels (or codes) of a tree that already
+    holds this rank's slices (a per-rank checkpoint load)."""
     from starvector_tpu_torch.parallel.sharding import _paths, spec_for_path
 
     for path, leaf in _paths(params):
@@ -234,6 +281,48 @@ def register_rows(params: dict, rules, group: TensorGroup) -> dict:
         if dim is not None and is_row_parallel(path, dim, leaf.dim()):
             register_row(leaf, group)
     return params
+
+
+def quantize_slices(params: dict, rules, all_units: list, group: TensorGroup,
+                    min_elems: int = 1 << 16) -> dict:
+    """quantize_tree of a tree of this rank's slices (a per-rank load),
+    made to equal the slices of the whole tree's quantize_tree bit for bit:
+    a kernel is quantized where the whole leaf reaches `min_elems` (its
+    split dimension the union of every rank's ranges, `all_units` being
+    each rank's tensor_units in rank order), and a row-parallel kernel's
+    per-column absolute maximum is a MAX all-reduce over the group before
+    it rounds (this rank's rows alone would give another scale). A
+    column-split kernel holds whole columns, so its own maxima are the
+    whole leaf's. Row-parallel codes are registered with the group. Each
+    quantized leaf's kernel leaves the input tree (quantize_tree's
+    `consume`)."""
+    from starvector_tpu_torch.ops.quantization import quantize_dense
+
+    def whole_numel(path: str, w: torch.Tensor) -> tuple[int, int | None]:
+        cut = leaf_slice(path, w.ndim, rules, all_units[group.rank])
+        if cut is None:
+            return w.numel(), None
+        # the ranks' ranges are disjoint or the same (a range every rank holds)
+        ranges = {r for units in all_units for r in leaf_slice(path, w.ndim, rules, units)[1]}
+        return w.numel() // w.shape[cut[0]] * sum(n for _, n in ranges), cut[0]
+
+    def rec(node, path):
+        if not isinstance(node, dict):
+            return node
+        w = node.get("kernel")
+        if not (isinstance(w, torch.Tensor) and w.ndim in (2, 3)):
+            return {k: rec(v, f"{path}/{k}" if path else k) for k, v in node.items()}
+        numel, dim = whole_numel(f"{path}/kernel", w)
+        if numel < min_elems:
+            return node
+        row = dim is not None and is_row_parallel(f"{path}/kernel", dim, w.ndim)
+        out = quantize_dense(node, reduce=group.all_reduce_max if row else None)
+        del node["kernel"], w
+        if row:
+            register_row(out["kernel_q"], group)
+        return out
+
+    return rec(params, "")
 
 
 def even_split(n: int, tp: int, rank: int) -> tuple[int, int]:

@@ -61,7 +61,9 @@ import torch.nn.functional as F
 
 from starvector_tpu_torch import require_device
 from starvector_tpu_torch.generation.beam import _top_k
-from starvector_tpu_torch.generation.speculative import _append_accepted, _lookup_draft
+from starvector_tpu_torch.generation.speculative import (
+    _append_accepted, _lookup_draft, generate_greedy_speculative,
+)
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.models import gpt_bigcode, starcoder2
 from starvector_tpu_torch.ops.layers import DTypePolicy, matmul_f32
@@ -455,7 +457,7 @@ class ServeEngine:
         follower, inside `follow()`, replays it on its own shards: the
         admission prefill (with the prefix embeddings), the insert into the
         ragged cache, a plain tick, a speculative tick, a beam round, a
-        rebuild, the stop. Each tick's input tokens and sampled tokens go to
+        rebuild, one speculative stream (generate_speculative), the stop. Each tick's input tokens and sampled tokens go to
         the followers on the device (and a speculative round's proposal and
         accepted counts), so followers never sample and never decide a
         tick's kind. A follower whose own greedy tokens differ from the
@@ -761,7 +763,8 @@ class ServeEngine:
             torch.cuda.set_device(self.device)
         replay = {"prefill": self._follow_prefill, "insert": self._follow_insert,
                   "step": self._follow_step, "verify": self._follow_verify,
-                  "beam": self._follow_beam, "rebuild": lambda cmd: self._rebuild_state_locked()}
+                  "beam": self._follow_beam, "speculative": self._follow_speculative,
+                  "rebuild": lambda cmd: self._rebuild_state_locked()}
         with torch.inference_mode():
             while True:
                 cmd = self.tp.broadcast_object()
@@ -830,6 +833,10 @@ class ServeEngine:
         _beam_decode(self.dec, self.params, self.llm_cfg, self.cache, slots, perm,
                      self._receive((self.max_batch,), torch.int64), policy=self.policy,
                      kernels=self.kernels, key_bounds=tuple(cmd["key_bounds"]))
+
+    def _follow_speculative(self, cmd: dict) -> None:
+        prefix = self._receive((1, cmd["P"], self.llm_cfg.hidden_size), self.policy.compute_dtype)
+        self._speculate(prefix, self._receive((1, cmd["n_ids"]), torch.int64), cmd["kw"])
 
     # -- admission (its own thread; the prefill runs off the lock) -----------
     def _reserve_slot(self) -> int | None:
@@ -1321,6 +1328,31 @@ class ServeEngine:
                     time.sleep(1e-4)  # let an admission or a caller take the lock
                 if not worked:
                     time.sleep(self._idle_wait)
+
+    # -- one speculative stream ---------------------------------------------------
+    def generate_speculative(self, prefix_embeds: torch.Tensor, prompt_ids: torch.Tensor,
+                             **kw):
+        """Prompt-lookup speculative decoding of one greedy stream beside the
+        slots, over its own linear cache (generation/speculative.py::
+        generate_greedy_speculative): `prefix_embeds` (1, P, E), `prompt_ids`
+        (1, n) aligned with it (-1 where a position has no id), `kw` that
+        function's host arguments (max_new_tokens, draft_len,
+        stop_sequences, eos_token_id, pad_token_id). One device call under
+        the engine lock, so that a tensor group's collectives keep one
+        order against admissions and ticks; the followers replay it on
+        their slices (_follow_speculative) and check each round's tokens.
+        Returns (tokens (1, max_new_tokens), lengths (1,), n_forwards)."""
+        with self._locked(), self._device_call("speculative", P=int(prefix_embeds.shape[1]),
+                                               n_ids=int(prompt_ids.shape[1]), kw=kw):
+            prefix = self._share(prefix_embeds.to(self.device, self.policy.compute_dtype))
+            return self._speculate(prefix, self._share(prompt_ids.to(self.device, torch.int64)),
+                                   kw)
+
+    def _speculate(self, prefix: torch.Tensor, prompt_ids: torch.Tensor, kw: dict):
+        mask = torch.ones(prefix.shape[:2], dtype=torch.int32, device=self.device)
+        return generate_greedy_speculative(self.params, self.llm_cfg, prefix, mask, prompt_ids,
+                                           policy=self.policy, kernels=self.kernels,
+                                           tensor=self.tp, **kw)
 
     # -- synchronous convenience ---------------------------------------------
     def generate_sync(self, req: Request, timeout: float = 600) -> list[int]:

@@ -18,8 +18,9 @@ Run on the card:
 (`--device cpu` runs it on the CPU.)
 
 A serve config whose mesh sets `tensor` or `data` above 1 (the 8B's
-im2svg-tp4dp2.yaml and im2svg-tp8-int8kv.yaml) runs under torchrun, one
-process a card:
+im2svg-tp4dp2.yaml and im2svg-tp8-int8kv.yaml, or a leaf of the same form
+for the 1B, whose 16 query heads split over tensor 2, 4 or 8) runs under
+torchrun, one process a card:
     python -m torch.distributed.run --nproc-per-node 8 \\
         -m starvector_tpu_torch.serve.worker --model-path /ckpt --port 21002 \\
         --controller http://localhost:21001 \\
@@ -30,7 +31,9 @@ the prefixes with the whole tower, runs the engine with max_batch / data
 slots and serves HTTP on --port + d, registered with the controller, whose
 shortest-queue dispatch spreads requests over the data groups; the other
 ranks of its group replay its device calls (ServeEngine.follow) and serve
-no HTTP.
+no HTTP. With --quantize each rank quantizes its own slices of the decoder
+(api.StarVectorForCausalLM.from_pretrained), and `use_speculative`
+requests run as one command of the group's engine.
 """
 
 from __future__ import annotations
@@ -193,22 +196,24 @@ class ModelWorker:
     def generate_speculative(self, payload: dict) -> str:
         """Prompt-lookup speculative decoding (greedy, one stream: the
         port's generate_greedy_speculative); the same tokens as greedy.
-        Routed by `use_speculative` in the payload."""
+        Routed by `use_speculative` in the payload. On a tensor group it
+        runs through the engine (ServeEngine.generate_speculative), whose
+        followers replay it on their slices."""
         from starvector_tpu_torch.generation.speculative import generate_greedy_speculative
 
-        if self.tensor is not None and self.tensor.size > 1:
-            raise NotImplementedError("use_speculative runs one process's decoder; a tensor-"
-                                      "parallel worker speculates in its engine (--spec-drafts)")
         prefix, prompt_text, ids_aligned = self._prefix_for(payload)
         tok = self.model.tokenizer
-        mask = torch.ones(prefix.shape[:2], dtype=torch.int32, device=prefix.device)
-        tokens, lengths, _ = generate_greedy_speculative(
-            self.model.params["svg_transformer"], self.model.cfg.llm, prefix, mask, ids_aligned,
-            max_new_tokens=int(payload.get("max_new_tokens", 512)),
-            draft_len=int(payload.get("draft_len", 8)),
-            stop_sequences=(tuple(tok.stop_sequence_ids("</svg>")),),
-            eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
-            policy=self.model.policy, kernels=self.model.kernels)
+        kw = dict(max_new_tokens=int(payload.get("max_new_tokens", 512)),
+                  draft_len=int(payload.get("draft_len", 8)),
+                  stop_sequences=(tuple(tok.stop_sequence_ids("</svg>")),),
+                  eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+        if self.tensor is not None and self.tensor.size > 1:
+            tokens, lengths, _ = self.engine.generate_speculative(prefix, ids_aligned, **kw)
+        else:
+            mask = torch.ones(prefix.shape[:2], dtype=torch.int32, device=prefix.device)
+            tokens, lengths, _ = generate_greedy_speculative(
+                self.model.params["svg_transformer"], self.model.cfg.llm, prefix, mask,
+                ids_aligned, policy=self.model.policy, kernels=self.model.kernels, **kw)
         row = tokens[0, :int(lengths[0])].cpu().numpy()
         return prompt_text + tok.decode(row)
 
@@ -470,9 +475,6 @@ def main(argv=None):
         from starvector_tpu_torch.parallel.mesh import initialize_distributed
         from starvector_tpu_torch.parallel.tensor import serving_group
 
-        if args.quantize and axes.get("tensor", 1) > 1:
-            raise NotImplementedError("--quantize on a tensor mesh: an int8-weight decoder is "
-                                      "not tensor-parallel yet (ROADMAP queue 1, item 12)")
         device = initialize_distributed(device)
         tensor = serving_group(axes)
         model = StarVectorForCausalLM.from_pretrained(

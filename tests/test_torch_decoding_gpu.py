@@ -156,11 +156,12 @@ def test_grpo_loss_and_gradients_kernels_match_plain(cuda, params):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", [5, 4])
+@pytest.mark.parametrize("G", [5, 4, 8, 2])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_tensor_rank_decode_groups_kernels_match_plain(cuda, G, int8):
     """decode_attention at G = 5 and 4 over one KV head (StarVector-8B's
-    ranks on tensor 8), bf16 queries, the self token merged, a masked run:
+    ranks on tensor 8) and G = 8 and 2 (StarVector-1B's on tensor 2 and
+    8), bf16 queries, the self token merged, a masked run:
     the kernel within atol 2e-3, rtol 2^-7 of its plain version, and the
     same bits on a second launch."""
     from starvector_tpu_torch.models import decode_common as dc

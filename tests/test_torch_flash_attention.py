@@ -561,8 +561,8 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="D = 128"):
         tfa.flash_prefill(q[..., :64], k[..., :64], k[..., :64], mask)
     qg = torch.zeros((1, 1, 16, 128), device=cuda)
-    with pytest.raises(ValueError, match="G = 16"):
-        tfa.decode_attention(qg[:, :, :4], k, k, mask)
+    with pytest.raises(ValueError, match="G=3"):
+        tfa.decode_attention(qg[:, :, :3], k, k, mask)
     odd = torch.zeros((1, 8 * 129 + 1), device=cuda)[:, 1:].view(1, 8, 1, 129)[..., :128]
     with pytest.raises(ValueError, match="aligned"):
         tfa.decode_attention(qg, odd, odd, mask)

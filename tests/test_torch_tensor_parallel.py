@@ -20,8 +20,9 @@ one process and to the JAX package.
 - one run of (data 2, tensor 2): two leaders load their slices from an
   exported checkpoint, register ModelWorkers with the controller, and 4
   requests through it land on both and give the one-process worker's text;
-- refusals citing item 12: a 1B, an int8-weight decoder, stage above 1,
-  a training mesh with tensor above 1.
+- refusals citing item 12: stage above 1, a training mesh with tensor
+  above 1 (the 1B, int8 weights and use_speculative on a tensor mesh:
+  tests/test_torch_tensor_parallel_rest.py).
 
 Ranks are this file run as a script (test_torch_fsdp_train.launch); their
 code imports torch and the port only, the JAX references run in the pytest
@@ -628,30 +629,14 @@ def test_data2_tensor2_workers_serve_the_one_process_text(tmp_path):
 # refusals
 # ---------------------------------------------------------------------------
 
-def test_refusals_cite_item_12(tmp_path):
-    """A 1B on a tensor mesh, an int8-weight decoder (quantize_tree, or the
-    worker's --quantize), a serve mesh with stage above 1 and a training
-    mesh with tensor above 1 raise NotImplementedError citing item 12."""
-    from starvector_tpu_torch.models import starcoder2 as tsc
-    from starvector_tpu_torch.models import starvector as tsv
-    from starvector_tpu_torch.ops.quantization import quantize_tree
+def test_refusals_cite_item_12():
+    """A serve mesh with stage above 1 and a training mesh with tensor above
+    1 raise NotImplementedError citing item 12. (The 1B, an int8-weight
+    decoder and use_speculative on a tensor mesh are served:
+    tests/test_torch_tensor_parallel_rest.py.)"""
     from starvector_tpu_torch.parallel import tensor, zero
     from starvector_tpu_torch.parallel.mesh import refuse_unported_axes
-    from starvector_tpu_torch.serve import worker
 
-    group = tensor.TensorGroup(None, 2, 0, 0)
-    one_b = tsv.tiny_config()
-    with pytest.raises(NotImplementedError, match="GPTBigCode.*item 12"):
-        tsv.tensor_parallel(tsv.init_params(one_b, torch.Generator().manual_seed(0)), one_b,
-                            group)
-    cfg = tsc.tiny_config(**LLM)
-    q = quantize_tree(tsc.init_params(cfg, torch.Generator().manual_seed(0)), min_elems=1 << 10)
-    with pytest.raises(NotImplementedError, match="int8-weight.*item 12"):
-        tensor.shard_tree(q, tsc.partition_rules(), tsc.tensor_units(cfg, 2, 0), group)
-    with pytest.raises(NotImplementedError, match="quantize.*item 12"):
-        worker.main(["--model-path", str(tmp_path), "--device", "cpu", "--quantize",
-                     "--serve-config",
-                     "configs/generation/serve/starvector-8b/im2svg-tp8-int8kv.yaml"])
     with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
         tensor.serving_mesh_config({"tensor": 2, "stage": 2})
     with pytest.raises(NotImplementedError, match=r"\{'tensor': 2\}.*item 12"):
