@@ -4,9 +4,9 @@ num_return_sequences, speculative decoding, continuous-batching serving
 (the engine, its REST worker and controller), the eval harness (the
 in-process and REST validators, LPIPS-VGG and InceptionV3), offline
 pipelined generation, the other vision towers (vqgan, convnext, open-clip,
-SigLIP at 512 and 256) behind the 1B decoder, GRPO and training, the
-entry points (both quickstarts, the web UI, the GRPO driver), and
-StarVector-8B im2svg
+SigLIP at 512 and 256) behind the 1B decoder, GRPO and training (also on
+a tensor mesh, with the 8B), the entry points (both quickstarts, the web
+UI, the GRPO driver), and StarVector-8B im2svg
 inference (bf16, and int8 weights with an int8 KV cache), text2svg, beam
 search, speculative decoding, pipelined generation, serving (also over a
 tensor mesh: its two tensor-parallel serve configs, one with int8 weights,
@@ -55,7 +55,11 @@ Phases, one line each (any failure raises and exits non-zero):
      cache at G = 5 and 4 (16 slots), and at the 1B's G = 8 and 2 over
      either cache; kernel 14 at a tensor-8 rank's slices of both models
      (row-parallel ones with an fp32 result and no bias), the GEMV at M = 4
-     and the tile at an admission's rows, bit for bit on relaunch
+     and the tile at an admission's rows, bit for bit on relaunch; the
+     training pair at a tensor rank's heads (phase 5g): the 1B's H = 8, 4
+     and 2 over its KV head (B=4 S=T=769) and the 8B's 18 over 2, 9, 5 and
+     4 over 1 (B=1 S=T=4700, window 4096), fp32 and bf16, bf16 bit for bit
+     on relaunch, with dkdv_head_split's pick at each
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -207,6 +211,21 @@ Phases, one line each (any failure raises and exits non-zero):
      launch of rank 1 at q_offset = S_total / 2; each rank's and the
      unsharded forward + backward times. The multi-rank path itself is held
      on the CPU over gloo (tests/test_torch_sequence_parallel.py)
+  5g. tensor-parallel training: TPT_WORLD = 4 processes on the one card
+     over a gloo group (as 6e), each on its tensor slices of the whole
+     tree (decoder, vision tower, adapter; parallel/tensor.py's two
+     collectives under autograd), against one process on the same card,
+     weights and batch (run first, its state released before the ranks
+     start), both with the kernels, fp32, 2 steps: 1b-fsdp2-tp2 (fsdp 2 x
+     tensor 2; the 1B at full width, 8 of its 24 decoder layers, the whole
+     CLIP ViT-L/14 and the BatchNorm adapter; AdamW, dots_flash, B=4,
+     T=769) and 8b-tp4 (tensor 4; the 8B at full width, 2 of 32 layers,
+     SigLIP-L/16, the LayerNorm adapter; Adafactor, dots_flash, B=1,
+     T=4700 past the window): each step's loss and grad norm within rtol
+     1e-4 on every rank, the parameters gathered whole within fp32 TOL;
+     each rank launches the forward with lse and the backward pair once a
+     decoder layer a step at its heads (8 over 1; 9 over 1); each rank's
+     peak memory; walls are gloo's
   6. inference at full StarVector-8B width (StarCoder2-7B 4608 wide, GQA
      36/4, window 4096; SigLIP-L/16 at 384; LayerNorm adapter) and 8 of its
      32 decoder layers (DEPTH_8B) on random bf16 weights that
@@ -290,7 +309,9 @@ Phases, one line each (any failure raises and exits non-zero):
      (G = 9; 5 and 4 over an int8 cache; the 1B's 8 and 2) beside their
      bounds and SDPA with enable_gqa, kernel 14 at a tensor-8 rank's
      slices (a layer's projections, GEMV and tile) beside bf16 addmm and
-     _weight_int8pack_mm,
+     _weight_int8pack_mm, the training pair at 5g's rank heads (the 1B's
+     H = 8 at B=4 T=769; the 8B's H = 9 over 1 at B=1 T=4700, window)
+     beside SDPA with enable_gqa,
      also the training kernels at the long contexts phase 3 drives (with
      --profile DIR, also where a decode step's and the 1B and 8B train
      steps' device time goes)
@@ -1120,13 +1141,26 @@ TRAIN_CASES = [  # name, B, S, T, H, Hkv, q_offset, window, right_pad, left_pad
     ("8B train past the window", 1, 4700, 4700, 36, 4, 0, 4096, 0, 0),
     ("8B right-padded keys past the window", 2, 4700, 4700, 36, 4, 0, 4096, 700, 0),
     ("8B train step", 1, 8192, 8192, 36, 4, 0, 4096, 0, 0),
+    # a tensor rank's heads in training (phase 5g): the 1B's 16 over 1 at
+    # tensor 2, 4 and 8 (the KV head on every rank), at its step's shape;
+    # the 8B's 36 over 4 at tensor 2 (18 over 2), 4 (9 over 1) and 8 (5 or
+    # 4 over 1: dkdv_head_split's divisors of 5 are 1 and 5), past the window
+    ("1B tensor rank H=8", 4, 769, 769, 8, 1, 0, None, 0, 0),
+    ("1B tensor rank H=4", 4, 769, 769, 4, 1, 0, None, 0, 0),
+    ("1B tensor rank H=2", 4, 769, 769, 2, 1, 0, None, 0, 0),
+    ("8B tensor rank H=18 Hkv=2", 1, 4700, 4700, 18, 2, 0, 4096, 0, 0),
+    ("8B tensor rank H=9", 1, 4700, 4700, 9, 1, 0, 4096, 0, 0),
+    ("8B tensor rank H=5", 1, 4700, 4700, 5, 1, 0, 4096, 0, 0),
+    ("8B tensor rank H=4", 1, 4700, 4700, 4, 1, 0, 4096, 0, 0),
 ]
 # cases whose bf16 kernels are launched twice and held to the same bits
 RELAUNCH_CASES = ("1B train step", "8B train, short", "8B train past the window",
-                  "8B right-padded keys past the window", "8B train step")
+                  "8B right-padded keys past the window", "8B train step") + tuple(
+    case[0] for case in TRAIN_CASES if "tensor rank" in case[0])
 # the case whose bf16 error each kernel's JSON row reports: the shape its
 # times are taken at (phase 7), by the row name's suffix
-ROW_CASES = {"": "1B train step", "_8b": "8B train step"}
+ROW_CASES = {"": "1B train step", "_8b": "8B train step", "_tp1b": "1B tensor rank H=8",
+             "_tp8b": "8B tensor rank H=9"}
 
 
 def compare_training(what: str, out, plain, ref32, dtype, live=None) -> float:
@@ -1197,6 +1231,11 @@ def check_training_kernels(tfa, dev) -> dict:
             if not live.all() and (dq.float()[~live] != 0).any():
                 raise AssertionError(f"dq {tag}: rows that see no key are not zero")
             same = ""
+            if "tensor rank" in name and dtype == torch.bfloat16:
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                split = tfa.dkdv_head_split(B, T, Hkv, H // Hkv, sms, S=S, q_offset=q_off,
+                                            window=window)
+                same = f"; dkdv_head_split picks {split} of G = {H // Hkv}"
             if name in RELAUNCH_CASES and dtype == torch.bfloat16:
                 # no atomics: each output is written once, the backward's head
                 # splits summed in a fixed order
@@ -1208,7 +1247,7 @@ def check_training_kernels(tfa, dev) -> dict:
                     raise AssertionError(f"forward {tag}: two launches differ")
                 if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
                     raise AssertionError(f"backward {tag}: two launches differ")
-                same = "; a second launch gives bit-identical out, lse, dq, dk, dv"
+                same += "; a second launch gives bit-identical out, lse, dq, dk, dv"
                 del again, fwd
             for sfx, case in ROW_CASES.items():
                 if name == case and dtype == torch.bfloat16:
@@ -5071,6 +5110,77 @@ def training_times(tfa, dev, card: str, train: dict, errs: dict) -> list[dict]:
     return rows
 
 
+# the training kernels at a tensor rank's heads (phase 5g's two cases):
+# the row suffix, the case, B, T, H, Hkv, window, and the line of the TPU
+# backward kernel that shape runs (fused for T <= 2048, one-pass above)
+TP_TRAIN_TIMES = (("_tp1b", "1b-fsdp2-tp2", 4, 769, 8, 1, None, 968),
+                  ("_tp8b", "8b-tp4", 1, 4700, 9, 1, 4096, 1092))
+
+
+def tp_training_times(tfa, dev, card: str, tpt: dict, errs: dict) -> list[dict]:
+    """The training kernels at a tensor rank's heads, bf16, S = T: the 1B's
+    8 over its one KV head at its step's B=4, T=769 (tensor 2) and the 8B's
+    9 over 1 at B=1, T=4700 past the 4096 window (tensor 4), each beside its
+    plain version, its bound and SDPA with enable_gqa (the window as an
+    explicit mask; the backward against dkdv + dq). The kernels are
+    graph-replayed (10 calls a graph); the plain versions and SDPA's
+    backward run eager between CUDA events (3 after 3 of warm-up), in turns
+    plain, kernel, kernel, plain. Returns the kernels' JSON rows, their
+    launches every rank's in phase 5g (`tpt`)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    graphed, timer = functools.partial(cuda_ms, iters=10), functools.partial(event_ms, iters=3)
+    D, rows = 128, []
+    for sfx, case, B, T, H, Hkv, W, bwd_row in TP_TRAIN_TIMES:
+        q = torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).bfloat16() for _ in "kv")
+        do = torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+        mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+        out, lse = tfa.flash_prefill_with_lse(q, k, v, mask, window=W)
+        delta = tfa.attention_delta(out, do)
+        shape = f"B={B} S=T={T} H={H} Hkv={Hkv} D={D}{'' if W is None else f' window={W}'} bf16"
+        pos = torch.arange(T, device=dev)
+        pairs = B * H * int(torch.minimum(pos + 1, torch.full_like(pos, W or T)).sum())
+        qh, doh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, do, k, v))
+        sdpa = dict(causal=True) if W is None else dict(
+            causal=False, attn_mask=_sdpa_window(T, W, dev))
+        lib_fwd = sdpa_ms(qh, kh, vh, enable_gqa=True, **sdpa)
+        lib_bwd = sdpa_backward_ms(qh, kh, vh, doh, iters=3, enable_gqa=True,
+                                   mask=None if W is None else {"attn_mask": sdpa["attn_mask"]})
+        del qh, kh, vh, doh, sdpa
+        torch.cuda.empty_cache()
+        act, kv, stats, m = B * T * H * D * 2, B * T * Hkv * D * 2, B * H * T * 4, B * T * 4
+        for name, fn, replaces, nbytes, flops, lib in (
+                ("flash_prefill_with_lse", lambda kn: tfa.flash_prefill_with_lse(
+                    q, k, v, mask, window=W, kernels=kn), 330 if W is None else 307,
+                 2 * act + 2 * kv + stats + m, 4 * D * pairs, lib_fwd),
+                ("flash_bwd_dkdv", lambda kn: tfa.flash_bwd_dkdv(
+                    q, k, v, mask, do, lse, delta, window=W, kernels=kn), bwd_row,
+                 2 * act + 4 * kv + 2 * stats + m, 8 * D * pairs, lib_bwd),
+                ("flash_bwd_dq", lambda kn: tfa.flash_bwd_dq(
+                    q, k, v, mask, do, lse, delta, window=W, kernels=kn), bwd_row,
+                 3 * act + 2 * kv + 2 * stats + m, 6 * D * pairs, lib_bwd)):
+            a = timer(lambda: fn(False))
+            b, c = graphed(lambda: fn(True)), graphed(lambda: fn(True))
+            plain_ms, ms = (a + timer(lambda: fn(False))) / 2, (b + c) / 2
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound(nbytes, flops)
+            log("times", f"{card}: {name} at a tensor rank's heads ({case}) {shape}: kernel "
+                         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the "
+                         f"bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), SDPA (enable_gqa) "
+                         f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+            src = "flash_prefill.cu" if name == "flash_prefill_with_lse" else "flash_backward.cu"
+            rows.append(dict(name=f"{name}{sfx}", route="cuda",
+                             source=f"starvector_tpu_torch/csrc/{src}",
+                             replaces=f"starvector_tpu/ops/flash_attention.py:{replaces}",
+                             launches=tpt[case]["launches"][name], max_abs_err=errs[name + sfx],
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib))
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
 def sdpa_backward_ms(q, k, v, do, iters: int = 20, mask: dict | None = None, **kw):
     """SDPA's backward on (B, H, S, D) queries over (B, H, T, D) keys,
     causal with the last query on the last key (lower right, which is top
@@ -5161,6 +5271,302 @@ def long_context_times(tfa, dev, card: str) -> None:
                          "of the bound)" for k_ in bounds))
         del q, k, v, do, out, lse, delta, qh, kh, vh, doh
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: tensor-parallel training (parallel/tensor.py under autograd)
+# ---------------------------------------------------------------------------
+
+TPT_WORLD = 4       # each case's ranks, each a process on the one card
+TPT_STEPS = 2
+TPT_TIMEOUT = 900   # seconds the ranks may take before the phase fails
+# decoder layers of each case: the 1B's DEPTH_1B_EARLIER (8 of 24), the 8B's
+# 2 of 32 (its fp32 check's, phase 6b)
+TPT_LAYERS = {"1b": 8, "8b": 2}
+# name, model, mesh, optimizer, svg lengths (B rows), remat, the heads a rank's
+# training kernels run at (H, Hkv); the 8B's one row of 4124 svg tokens makes
+# T = 576 + 4124 = 4700, past the window (phase 6b's SVG_8B_FP32)
+TPT_CASES = (
+    ("1b-fsdp2-tp2", "1b", dict(fsdp=2, tensor=2), "adamw", SVG_LENGTHS, "dots_flash", (8, 1)),
+    ("8b-tp4", "8b", dict(fsdp=1, tensor=4), "adafactor", (4124,), "dots_flash", (9, 1)),
+)
+# AdamW at eps 1e-6 (an element whose gradient is fp32 summation noise,
+# ~1e-9, moves by lr x 1e-3, not by lr x its sign), Adafactor at the 6c lr
+TPT_OPT = {"adamw": dict(lr=1e-4, warmup_steps=0, betas=(0.95, 0.999), eps=1e-6,
+                         weight_decay=1e-6, grad_clip=1.0, total_steps=100_000),
+           "adafactor": dict(optimizer="adafactor", lr=1e-3, warmup_steps=0, grad_clip=1.0,
+                             total_steps=100_000)}
+
+
+def tpt_config(sv, model: str):
+    """The case's config: the 1B or the 8B at full width, its decoder cut
+    to TPT_LAYERS."""
+    import dataclasses
+
+    if model == "8b":
+        return config_8b(sv, TPT_LAYERS["8b"])
+    cfg = sv.starvector_1b_config()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, n_layer=TPT_LAYERS["1b"]))
+
+
+def tpt_steps(sv, cfg, params, batch, opt_kw: dict, remat, layout=None) -> dict:
+    """TPT_STEPS fp32 train steps of the port with the kernels, on `params`
+    (this rank's shards on a layout) and the rows `batch` gives this rank:
+    each step's loss, grad norm and wall seconds."""
+    from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.train.optim import build_optimizer
+    from starvector_tpu_torch.train.step import make_train_step, mark_trainable
+    from starvector_tpu_torch.train.train import rank_rows
+
+    mark_trainable(params)
+    opt = build_optimizer(params, **opt_kw)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, 0, policy=DTypePolicy(torch.float32, torch.float32),
+                           remat=remat)
+    rows = rank_rows(batch, layout)
+    out = {"losses": [], "norms": [], "seconds": []}
+    for _ in range(TPT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, rows, None)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        out["seconds"].append(time.perf_counter() - t)
+    return out | {"params": params}
+
+
+@contextlib.contextmanager
+def launch_heads(tfa):
+    """{kernel: {(H, Hkv) of each launch}} of the three training kernels
+    while within (the wrappers replaced in the module as launch_offsets
+    replaces them)."""
+    real = {name: getattr(tfa, name) for name in TRAIN_KERNELS}
+    seen = {name: set() for name in TRAIN_KERNELS}
+
+    def wrapped(name):
+        fn = real[name]
+
+        def call(q, k, *args, **kw):
+            before = call.launches
+            out = fn(q, k, *args, **kw)
+            if call.launches > before:
+                seen[name].add((int(q.shape[2]), int(k.shape[2])))
+            return out
+
+        call.launches = fn.launches
+        return call
+
+    for name in TRAIN_KERNELS:
+        setattr(tfa, name, wrapped(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            fn.launches = getattr(tfa, name).launches
+            setattr(tfa, name, fn)
+
+
+def _tpt_case(sv, tfa, run, shared: dict, dev) -> dict:
+    """One case of phase 5g on this rank: its shards of the shared initial
+    weights (copies: no rank writes the main process's tensors), TPT_STEPS
+    steps on its rows, and the parameters after them gathered whole leaf by
+    leaf and held, on rank 0, to one process's within fp32 TOL."""
+    import torch.distributed as dist
+
+    from starvector_tpu_torch.parallel import MeshConfig, create_mesh, zero
+    from starvector_tpu_torch.train.optim import tree_leaves, tree_map
+
+    name, model, axes, opt, _, remat, _ = run
+    cfg = tpt_config(sv, model)
+    torch.cuda.reset_peak_memory_stats()
+    layout = zero.Layout(create_mesh(MeshConfig(**axes), device_type="cpu"))
+    params = sv.shard_params(shared["init"], cfg, layout)
+    params = tree_map(lambda t: t if zero.sharded(t) is not None
+                      else zero.register_like(t.detach().clone(), t), params)
+    reset_counts(tfa)
+    with launch_heads(tfa) as heads:
+        res = tpt_steps(sv, cfg, params, shared["batch"], TPT_OPT[opt], remat, layout)
+    res.update(counts={k: read_counts(tfa)[k] for k in TRAIN_KERNELS},
+               heads={k: sorted(v) for k, v in heads.items()}, peak=torch.cuda.max_memory_allocated())
+    atol, rtol = TOL[torch.float32]
+    worst, bad = 0.0, []
+    for leaf, ref in zip(tree_leaves(res.pop("params")), tree_leaves(shared["ref"])):
+        whole = zero.full_tree(leaf)
+        if dist.get_rank() == 0:
+            worst = max(worst, (whole - ref).abs().max().item())
+            if not torch.allclose(whole, ref, atol=atol, rtol=rtol):
+                bad.append(tuple(whole.shape))
+        del whole
+    res.update(worst=worst, bad=bad)
+    return res
+
+
+def _tpt_rank(rank: int, port: int, inbox, results) -> None:
+    """A rank of phase 5g, a process of its own on the one card: joins a
+    gloo group of TPT_WORLD ranks (NCCL takes one rank a card), then runs
+    each of TPT_CASES (_tpt_case) on the weights and batch the main process
+    shares through the queue (CUDA IPC). Puts (rank, results) or (rank,
+    the error) on `results`."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        shared = inbox.get(timeout=TPT_TIMEOUT)
+        dev = next(iter(shared.values()))["batch"]["svg_ids"].device
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=TPT_WORLD)
+        from starvector_tpu_torch.models import starvector as sv
+        from starvector_tpu_torch.ops import flash_attention as tfa
+        from starvector_tpu_torch.ops import kernel_lib
+
+        kernel_lib.library()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = {}
+        for run in TPT_CASES:
+            t = time.perf_counter()
+            out[run[0]] = _tpt_case(sv, tfa, run, shared[run[0]], dev)
+            out[run[0]]["wall"] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        del shared
+        gc.collect()
+        results.put((rank, out))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — the main process reports it and stops the others
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def tensor_training(sv, tfa, dev, card: str, clip_images) -> dict:
+    """Phase 5g: train.step on a mesh with tensor above 1, TPT_WORLD gloo
+    ranks on the one card (_tpt_rank), against one process on the same
+    card, weights and batch, both with the kernels, fp32. 1b-fsdp2-tp2:
+    StarVector-1B at full width, the first TPT_LAYERS["1b"] of its 24
+    decoder layers, the whole CLIP ViT-L/14 and the BatchNorm adapter,
+    AdamW, dots_flash, B=4, T=769; 8b-tp4: StarVector-8B at full width, 2 of
+    its 32 decoder layers, SigLIP-L/16 and the LayerNorm adapter,
+    Adafactor, dots_flash, B=1, T=4700 past the window. Each step's loss and
+    grad norm within rtol 1e-4 of one process's, the parameters after
+    TPT_STEPS steps gathered whole within fp32 TOL; each rank's launches a
+    step: one forward-with-lse and one backward pair a decoder layer, at the
+    case's rank heads. One process's reference runs first, and its state
+    goes before the ranks start; the ranks' walls are gloo's. Returns the
+    launches, the heads and the walls by case."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from starvector_tpu_torch.data.processor import processor_for_encoder
+    from starvector_tpu_torch.train.optim import tree_map
+    from starvector_tpu_torch.train.train import to_device
+
+    t0 = time.perf_counter()
+    shared, refs = {}, {}
+    for run in TPT_CASES:
+        name, model, axes, opt, lengths, remat, _ = run
+        cfg = tpt_config(sv, model)
+        images = clip_images if model == "1b" else processor_for_encoder(
+            cfg.image_encoder_type, cfg.image_size, device=dev).batch
+        batch = to_device(training_batch(cfg, images, dev, seed=5, lengths=lengths), dev)
+        init = sv.init_params(cfg, torch.Generator(device=dev).manual_seed(22), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(tfa)
+        ref = tpt_steps(sv, cfg, tree_map(lambda t: t.clone(), init), batch, TPT_OPT[opt], remat)
+        ref["counts"] = {k: read_counts(tfa)[k] for k in TRAIN_KERNELS}
+        ref["peak"] = torch.cuda.max_memory_allocated() - base
+        shared[name] = dict(init=init, batch=batch, ref=tree_map(
+            lambda t: t.detach(), ref.pop("params")))
+        refs[name] = ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+
+    ctx = mp.get_context("spawn")
+    results, inbox = ctx.Queue(), ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=_tpt_rank, args=(r, port, inbox, results))
+             for r in range(TPT_WORLD)]
+    t1 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+        inbox.put(shared)
+    ranks: dict[int, dict] = {}
+    try:
+        deadline = time.monotonic() + TPT_TIMEOUT
+        while len(ranks) < TPT_WORLD:
+            try:
+                rank, res = results.get(timeout=5)
+            except Exception:  # noqa: BLE001 — queue.Empty: look at the processes
+                if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(f"phase 5g: ranks {sorted(ranks)} reported, exit codes "
+                                         f"{[p.exitcode for p in procs]}")
+                continue
+            if "error" in res:
+                raise AssertionError(f"phase 5g: rank {rank} failed:\n{res['error']}")
+            ranks[rank] = res
+        for proc in procs:
+            proc.join(timeout=60)
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase 5g: exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        del shared
+        gc.collect()
+        if dev.type == "cuda":  # the blocks the ranks held through CUDA IPC, released by them
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+    t_ranks = time.perf_counter() - t1
+
+    out = {}
+    for name, model, axes, opt, lengths, remat, heads in TPT_CASES:
+        ref, L = refs[name], TPT_LAYERS[model]
+        per_step = dict.fromkeys(TRAIN_KERNELS, L * TPT_STEPS)
+        for r, res in sorted(ranks.items()):
+            got = res[name]
+            for what in ("losses", "norms"):
+                if not np.allclose(got[what], ref[what], rtol=1e-4, atol=0):
+                    raise AssertionError(f"5g {name} rank {r}: {what} {got[what]}, one process "
+                                         f"{ref[what]}")
+            if got["counts"] != per_step or any(v != [heads] for v in got["heads"].values()):
+                raise AssertionError(f"5g {name} rank {r}: launches {got['counts']} at heads "
+                                     f"{got['heads']}, expected {per_step} at {heads}")
+        if ref["counts"] != per_step:
+            raise AssertionError(f"5g {name} one process: launches {ref['counts']}")
+        lead = ranks[0][name]
+        if lead["bad"]:
+            raise AssertionError(f"5g {name}: parameters after {TPT_STEPS} steps beyond fp32 TOL "
+                                 f"(leaves of shapes {lead['bad'][:8]}; max |diff| "
+                                 f"{lead['worst']:.3e})")
+        T = max(lengths) + (257 if model == "1b" else 576)
+        log("train", f"5g {name} ({TPT_WORLD} gloo ranks on one card, mesh {axes}; {model.upper()} "
+                     f"at full width, {L} decoder layers, fp32, {opt}, {remat}, B={len(lengths)} "
+                     f"T={T}): losses {lead['losses']} (one process {ref['losses']}), grad norms "
+                     f"{lead['norms']} (one process {ref['norms']}), rtol 1e-4 on every rank; "
+                     f"parameters after {TPT_STEPS} steps gathered whole: max |diff| "
+                     f"{lead['worst']:.3e} (fp32 TOL atol=rtol 1e-4); launches a rank "
+                     f"{lead['counts']} = {L} layers x {TPT_STEPS} steps at (H, Hkv) {heads}; peak "
+                     f"memory a rank (GiB) {[round(ranks[r][name]['peak'] / 2**30, 2) for r in sorted(ranks)]}"
+                     f", one process {ref['peak'] / 2**30:.2f} GiB above what was held; step wall "
+                     f"(s, gloo's) rank 0 {[round(x, 2) for x in lead['seconds']]}, one process "
+                     f"{[round(x, 2) for x in ref['seconds']]}; the case {lead['wall']:.1f} s a rank")
+        out[name] = dict(launches={k: sum(ranks[r][name]["counts"][k] for r in ranks)
+                                   for k in TRAIN_KERNELS},
+                         per_rank=lead["counts"], heads=heads, wall=lead["wall"])
+    log("phase", f"5g took {time.perf_counter() - t0:.0f} s: one-process references "
+                 f"{t_ref:.0f} s, the ranks {t_ranks:.0f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5824,6 +6230,8 @@ DKDV_SPLIT_SHAPES = (
     (1, 8192, 8192, 0, 4, 9, 4096), (2, 8192, 8192, 0, 4, 9, 4096),
     (1, 16384, 16384, 0, 4, 9, 4096), (4, 769, 769, 0, 4, 9, 4096),
     (1, 2048, 2048, 0, 4, 9, 4096),
+    # a tensor rank's training shapes (phase 5g): the 1B's 8 heads, the 8B's 9 over 1
+    (4, 769, 769, 0, 1, 8, None), (1, 4700, 4700, 0, 1, 9, 4096),
 )
 
 
@@ -6711,6 +7119,13 @@ def main() -> int:
     sp_run = sequence_attention_8b(tfa, dev, card)
     log("phase", f"5f took {time.perf_counter() - t_5f:.0f} s")
 
+    # --- 5g. tensor-parallel training: gloo ranks on the card against one process --
+    phase("5g", "tensor-parallel training, 1b-fsdp2-tp2 and 8b-tp4, gloo ranks on one card "
+                "against one process")
+    tpt = tensor_training(sv, tfa, dev, card, clip_images)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # --- 6. StarVector-8B inference at full width ---------------------------------
     phase(6, f"StarVector-8B inference, {DEPTH_8B} of 32 layers")
     s8 = slice_8b(sv, tfa, dev, card, args.profile)
@@ -6797,6 +7212,8 @@ def main() -> int:
         if row["name"] in TRAIN_KERNELS:  # phase 5e's run, all its steps; 5f's ranks
             row["mesh_launches"] = mesh_run["launches"][row["name"]]
             row["sp_launches"] = sp_run["launches"][row["name"]]
+            row["tp_train_launches"] = {case: r["launches"][row["name"]]
+                                        for case, r in tpt.items()}
     kernels_json += times_8b(tfa, dc, tq, dev, card, s8, err_8b)
     launches_tp = tp_counts(s8["tp"])
     for row in kernels_json:  # phase 6e's launches, every rank's, beside each kernel's row
@@ -6808,6 +7225,7 @@ def main() -> int:
             row["tp_launches"] = launches_tp[counter]
     kernels_json += tp_times(tfa, dc, dev, card, s8["tp"], err_8b)
     kernels_json += training_times_8b(tfa, dev, card, t8, err_train)
+    kernels_json += tp_training_times(tfa, dev, card, tpt, err_train)
     long_context_times(tfa, dev, card)
     head_split_times(tfa, dev, card)
 

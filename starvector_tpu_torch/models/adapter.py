@@ -22,6 +22,7 @@ import torch
 from starvector_tpu_torch.ops.layers import DTypePolicy, dense, dropout, swish, uniform_
 from starvector_tpu_torch.parallel import zero
 from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.tensor import copy_to_group, even_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +73,13 @@ def partition_rules() -> list[tuple[str, P]]:
         (r"c_proj/bias", P(None)),
         (r"norm/", P(None, None)),
     ]
+
+
+def tensor_units(cfg: AdapterConfig, tp: int, rank: int) -> dict:
+    """Tensor rank `rank` of tp's ranges, for training: an even 1/tp of
+    c_fc's 2d columns and the same rows of c_proj."""
+    hidden = even_split(2 * cfg.input_size, tp, rank)
+    return {"c_fc": hidden, "c_proj": hidden}
 
 
 def _layer_norm_2d(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -127,7 +135,10 @@ def batch_norm_new_stats(p: dict, x: torch.Tensor, cfg: AdapterConfig) -> dict:
 
 
 def _project(params: dict, x: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
-    h = swish(dense(params["c_fc"], policy.cast(x), policy))
+    """c_fc -> swish -> c_proj; on a tensor rank over its 1/tp of the 2d
+    hidden units, x (which every rank holds) entering through
+    copy_to_group."""
+    h = swish(dense(params["c_fc"], copy_to_group(policy.cast(x)), policy))
     return dense(params["c_proj"], h, policy)
 
 

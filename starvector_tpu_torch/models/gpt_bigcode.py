@@ -70,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.parallel.mesh import BATCH_AXES, P
 from starvector_tpu_torch.parallel import sequence, zero
+from starvector_tpu_torch.parallel.tensor import copy_to_group
 from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, merged_decode_attention,
@@ -244,7 +245,7 @@ def _split_qkv(cfg: GPTBigCodeConfig, qkv: torch.Tensor):
 
 def _mlp(p: dict, cfg: GPTBigCodeConfig, x: torch.Tensor, policy: DTypePolicy,
          kernels: bool = True):
-    h = layer_norm(p["ln_2"], x, cfg.layer_norm_epsilon)
+    h = copy_to_group(layer_norm(p["ln_2"], x, cfg.layer_norm_epsilon))
     h = gelu_tanh(dense(p["mlp"]["c_fc"], h, policy, kernels=kernels))
     return x + dense(p["mlp"]["c_proj"], h, policy, kernels=kernels)
 
@@ -329,14 +330,17 @@ def _train_block(p, cfg: GPTBigCodeConfig, x, kv_mask, policy: DTypePolicy, rema
 
     On a ZeRO-3 layout each part gathers its own weights first
     (parallel/zero.py), inside its checkpoint, so that the backward gathers
-    them again rather than keep them."""
+    them again rather than keep them. On a tensor-parallel layout `cfg` is
+    the rank's (tensor_config): ln_1's and ln_2's outputs enter their
+    column-parallel projections through parallel/tensor.py::copy_to_group,
+    and c_proj's partials are summed in dense."""
     B, S, E = x.shape
     H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
 
     def pre(x):
         g = gathered({"ln_1": p["ln_1"], "c_attn": p["attn"]["c_attn"]}, policy)
-        return (dense(g["c_attn"], layer_norm(g["ln_1"], x, cfg.layer_norm_epsilon),
-                      policy, tag="dense_qkv_out"),)
+        h = copy_to_group(layer_norm(g["ln_1"], x, cfg.layer_norm_epsilon))
+        return (dense(g["c_attn"], h, policy, tag="dense_qkv_out"),)
 
     def attend(qkv):
         q, k, v = _split_qkv(cfg, qkv)

@@ -140,6 +140,19 @@ def partition_rules() -> list[tuple[str, P]]:
     return specific + catchall
 
 
+def tensor_units(cfg: ImageEncoderConfig, tp: int, rank: int) -> dict:
+    """Tensor rank `rank` of tp's ranges of the tower's split projections
+    in training (a CLIP trunk's, open-clip's included, or SigLIP's); the
+    convolutional towers have no `tensor` rules and stay whole."""
+    tower = cfg.tower_config
+    if cfg.image_encoder_type in ("clip", "open-clip"):
+        trunk = tower.trunk if cfg.image_encoder_type == "open-clip" else tower
+        return clip_vit.tensor_units(trunk, tp, rank)
+    if cfg.image_encoder_type.startswith("siglip"):
+        return siglip.tensor_units(tower, tp, rank)
+    return {}
+
+
 def forward(params: dict, cfg: ImageEncoderConfig, images: torch.Tensor, *,
             policy: DTypePolicy = DTypePolicy(), remat: bool | str = False) -> torch.Tensor:
     """(B, H, W, 3) normalized, channels-last -> (B, query_length, hidden)."""

@@ -56,6 +56,7 @@ import torch
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.parallel import sequence
 from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.tensor import copy_to_group
 from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, merged_decode_attention,
@@ -235,7 +236,7 @@ def _qkv(p: dict, cfg: StarCoder2Config, h: torch.Tensor, rope, policy, kernels:
 
 
 def _mlp(p: dict, cfg: StarCoder2Config, x: torch.Tensor, policy: DTypePolicy, kernels: bool):
-    h = layer_norm(p["post_attention_layernorm"], x, cfg.norm_epsilon)
+    h = copy_to_group(layer_norm(p["post_attention_layernorm"], x, cfg.norm_epsilon))
     h = gelu_tanh(dense(p["mlp"]["c_fc"], h, policy, kernels=kernels))
     return x + dense(p["mlp"]["c_proj"], h, policy, kernels=kernels)
 
@@ -317,13 +318,15 @@ def _train_block(p, cfg: StarCoder2Config, x, kv_mask, rope, policy: DTypePolicy
     after it (o_proj, residual, MLP) and leaves the flash autograd Function
     between them (ops/layers.py::remat_layer), so the backward never re-runs
     the attention forward. On a ZeRO-3 layout each part gathers its own
-    weights inside its checkpoint (gpt_bigcode._train_block)."""
+    weights inside its checkpoint, and on a tensor-parallel one `cfg` is
+    the rank's, the normed input entering q/k/v (one copy_to_group for the
+    three) and the MLP (gpt_bigcode._train_block)."""
     B, S, _ = x.shape
 
     def pre(x):
         g = gathered({"input_layernorm": p["input_layernorm"],
                       "attn": {k: p["attn"][k] for k in ("q_proj", "k_proj", "v_proj")}}, policy)
-        h = layer_norm(g["input_layernorm"], x, cfg.norm_epsilon)
+        h = copy_to_group(layer_norm(g["input_layernorm"], x, cfg.norm_epsilon))
         return _qkv(g["attn"], cfg, h, rope, policy, kernels)
 
     def attend(q, k, v):

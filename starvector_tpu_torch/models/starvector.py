@@ -23,6 +23,7 @@ from starvector_tpu_torch.models import gpt_bigcode, image_encoder, starcoder2
 from starvector_tpu_torch.models.vision.clip_vit import CLIPViTConfig
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel import zero
 from starvector_tpu_torch.parallel.sequence import chunk_span
 from starvector_tpu_torch.parallel.zero import gathered
 
@@ -148,6 +149,43 @@ def tensor_parallel(params: dict, cfg: StarVectorConfig, group) -> tuple[dict, S
     return out, dataclasses.replace(cfg, llm=llm)
 
 
+def tensor_units(cfg: StarVectorConfig, tp: int, rank: int) -> dict:
+    """Tensor rank `rank` of tp's ranges of every split projection of the
+    whole training tree, by its top-level key (parallel/sharding.py::
+    shard_pytree): the decoder's (`tensor_units`: whole heads, the 1B's KV
+    columns on every rank), the vision tower's and the adapter's."""
+    units = {"svg_transformer": cfg.decoder_module.tensor_units(cfg.llm, tp, rank)}
+    if cfg.use_image_encoder:
+        enc, _ = _encoder_cfg(cfg)
+        units["image_encoder"] = image_encoder.tensor_units(enc, tp, rank)
+        units["image_projection"] = adapter_mod.tensor_units(
+            dataclasses.replace(cfg.adapter_config, input_size=_tower_geometry(cfg)[0]), tp, rank)
+    return units
+
+
+def shard_params(params: dict, cfg: StarVectorConfig, mesh) -> dict:
+    """This rank's shards of a whole training tree on a mesh (a DeviceMesh
+    or a parallel.zero.Layout): partition_rules' fsdp and sequence splits,
+    and on a mesh with tensor above 1 its tensor ranges first
+    (tensor_units of every tensor rank)."""
+    from starvector_tpu_torch.parallel.sharding import shard_pytree
+
+    layout = mesh if isinstance(mesh, zero.Layout) else zero.Layout(mesh)
+    units = [tensor_units(cfg, layout.tensor, r) for r in range(layout.tensor)] \
+        if layout.tensor > 1 else None
+    return shard_pytree(params, partition_rules(), layout, units)
+
+
+def decoder_config(cfg: StarVectorConfig):
+    """The decoder config the model runs with: on a tensor-parallel
+    training layout (parallel/zero.py) its rank's (the decoder's
+    `tensor_config`: its own heads and MLP columns), else cfg.llm."""
+    layout = zero.active()
+    if layout is None or layout.tensor == 1:
+        return cfg.llm
+    return cfg.decoder_module.tensor_config(cfg.llm, layout.tensor, layout.tensor_group.rank)
+
+
 def _encoder_cfg(cfg: StarVectorConfig):
     """(encoder config, tower config). A CLIP tower at an image size other
     than 224 without an explicit tower is the tiny test tower: patch 7,
@@ -168,16 +206,20 @@ def _adapter_cfg_for(cfg: StarVectorConfig, params: dict) -> adapter_mod.Adapter
                                      query_length=qlen, adapter_norm=cfg.adapter_norm)
 
 
+def _tower_geometry(cfg: StarVectorConfig) -> tuple[int, int]:
+    """(width, tokens) the adapter takes, by the JAX package's rule: the
+    CLIP tower's own, else the encoder's (the stock table's for a vqgan or
+    convnext override, which states no token count)."""
+    enc, tower = _encoder_cfg(cfg)
+    return (tower.width, tower.num_tokens) if cfg.image_encoder_type == "clip" else enc.geometry
+
+
 def init_vision_params(cfg: StarVectorConfig, gen: torch.Generator, *, device="cpu",
                        dtype=torch.float32) -> dict:
     """The tower's and the adapter's random weights ({"image_encoder",
     "image_projection"}), as init_params draws them after the decoder's."""
-    enc, tower = _encoder_cfg(cfg)
-    # the adapter's geometry, by the JAX package's rule: the CLIP tower's
-    # own, else the encoder's (the stock table's for a vqgan or convnext
-    # override, which states no token count)
-    hidden, qlen = ((tower.width, tower.num_tokens) if cfg.image_encoder_type == "clip"
-                    else enc.geometry)
+    enc, _ = _encoder_cfg(cfg)
+    hidden, qlen = _tower_geometry(cfg)
     ad_cfg = dataclasses.replace(cfg.adapter_config, input_size=hidden, query_length=qlen)
     return {"image_encoder": image_encoder.init_params(enc, gen, device=device, dtype=dtype),
             "image_projection": adapter_mod.init_params(ad_cfg, gen, device=device, dtype=dtype)}
@@ -251,8 +293,9 @@ def _decoder_loss(params, cfg, inputs_embeds, attention_mask, targets, policy, r
     the chunk (a chunk's last position predicts the next chunk's first
     target), and the loss's count spans the ranks."""
     dec = cfg.decoder_module
-    hidden, _ = dec.forward(params["svg_transformer"], cfg.llm, inputs_embeds, attention_mask,
-                            policy=policy, remat=remat, return_hidden=True, kernels=kernels)
+    hidden, _ = dec.forward(params["svg_transformer"], decoder_config(cfg), inputs_embeds,
+                            attention_mask, policy=policy, remat=remat, return_hidden=True,
+                            kernels=kernels)
     span = chunk_span(targets.shape[1])
     if span is not None:
         targets = F.pad(targets[:, 1:], (0, 1), value=-100)[:, span[0]:span[1]]
@@ -320,8 +363,9 @@ def grpo_forward(params: dict, cfg: StarVectorConfig, vision_embeds: torch.Tenso
     tok = policy.cast(dec.embed_tokens(params["svg_transformer"], input_ids))
     am = torch.cat([torch.ones((B * G, Q), dtype=torch.int32, device=cond.device),
                     attention_mask.to(torch.int32)], dim=1)
-    hidden, _ = dec.forward(params["svg_transformer"], cfg.llm, torch.cat([cond, tok], dim=1), am,
-                            policy=policy, remat=remat, return_hidden=True, kernels=kernels)
+    hidden, _ = dec.forward(params["svg_transformer"], decoder_config(cfg),
+                            torch.cat([cond, tok], dim=1), am, policy=policy, remat=remat,
+                            return_hidden=True, kernels=kernels)
     # the hidden state at Q - 1 + t predicts input_ids[:, t]; on a
     # sequence-parallel split hidden starts at its chunk's first position
     lo, hi = grpo_scored_ids(Q, L)

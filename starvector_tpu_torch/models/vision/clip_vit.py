@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from starvector_tpu_torch.ops.attention import multihead_attention
 from starvector_tpu_torch.parallel.mesh import P
-from starvector_tpu_torch.parallel.zero import gathered
+from starvector_tpu_torch.parallel.tensor import copy_to_group
 from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.layers import (
     DTypePolicy, dense, layer_norm, layer_unbind, make_dense_params, make_layer_norm_params,
@@ -102,16 +102,34 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, C * patch * patch)
 
 
+def tensor_units(cfg: CLIPViTConfig, tp: int, rank: int) -> dict:
+    """Tensor rank `rank` of tp's ranges along each split projection
+    (parallel/tensor.py::leaf_slice), for training: the fused in_proj's
+    columns of the rank's whole heads in each of q, k and v, out_proj's
+    rows of the same heads, an even 1/tp of the MLP's 4W. The patch
+    embedding, which JAX splits over its output features and GSPMD gathers
+    again before ln_pre, stays whole on every rank."""
+    from starvector_tpu_torch.parallel.tensor import even_split, head_layout
+
+    W, D = cfg.width, cfg.width // cfg.heads
+    h = head_layout(cfg.heads, cfg.heads, tp)[rank]
+    q = (h.q_start * D, h.q_count * D)
+    mlp = even_split(4 * W, tp, rank)
+    return {"in_proj": [q, (W + q[0], q[1]), (2 * W + q[0], q[1])], "out_proj": q,
+            "c_fc": mlp, "c_proj": mlp, "patch_embed": None}
+
+
 def _block(p: dict, cfg: CLIPViTConfig, x: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
+    """One block; on a tensor rank (tensor_units) over its own heads and
+    MLP columns, the normed inputs entering through copy_to_group."""
     B, N, W = x.shape
-    H = cfg.heads
-    D = W // H
-    h = layer_norm(p["ln_1"], x, cfg.ln_eps)
+    D = W // cfg.heads
+    h = copy_to_group(layer_norm(p["ln_1"], x, cfg.ln_eps))
     q, k, v = dense(p["attn"]["in_proj"], h, policy).chunk(3, dim=-1)
-    attn = multihead_attention(q.reshape(B, N, H, D), k.reshape(B, N, H, D),
-                               v.reshape(B, N, H, D)).reshape(B, N, W)
+    attn = multihead_attention(q.unflatten(-1, (-1, D)), k.unflatten(-1, (-1, D)),
+                               v.unflatten(-1, (-1, D))).flatten(-2)
     x = x + dense(p["attn"]["out_proj"], attn, policy)
-    h = dense(p["mlp"]["c_fc"], layer_norm(p["ln_2"], x, cfg.ln_eps), policy)
+    h = dense(p["mlp"]["c_fc"], copy_to_group(layer_norm(p["ln_2"], x, cfg.ln_eps)), policy)
     h = quick_gelu(h) if cfg.act == "quick_gelu" else F.gelu(h, approximate="none")
     return x + dense(p["mlp"]["c_proj"], h, policy)
 

@@ -22,6 +22,7 @@ import torch
 from starvector_tpu_torch.models.vision.clip_vit import patchify
 from starvector_tpu_torch.ops.attention import multihead_attention
 from starvector_tpu_torch.parallel.mesh import P
+from starvector_tpu_torch.parallel.tensor import copy_to_group
 from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.layers import (
     DTypePolicy, dense, gelu_tanh, layer_norm, layer_unbind, make_dense_params,
@@ -112,14 +113,32 @@ def partition_rules() -> list[tuple[str, P]]:
     ]
 
 
+def tensor_units(cfg: SigLIPConfig, tp: int, rank: int) -> dict:
+    """Tensor rank `rank` of tp's ranges along each split projection, for
+    training: q/k/v_proj's columns and out_proj's rows of the rank's whole
+    heads, an even 1/tp of fc1's columns and fc2's rows; the patch
+    embedding whole on every rank (clip_vit.tensor_units)."""
+    from starvector_tpu_torch.parallel.tensor import even_split, head_layout
+
+    D = cfg.hidden_size // cfg.heads
+    h = head_layout(cfg.heads, cfg.heads, tp)[rank]
+    q = (h.q_start * D, h.q_count * D)
+    mlp = even_split(cfg.intermediate_size, tp, rank)
+    return {"q_proj": q, "k_proj": q, "v_proj": q, "out_proj": q, "fc1": mlp, "fc2": mlp,
+            "patch_embed": None}
+
+
 def _block(p: dict, cfg: SigLIPConfig, x: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
+    """One block; on a tensor rank (tensor_units) over its own heads and
+    MLP columns, the normed inputs entering through copy_to_group."""
     B, N, W = x.shape
-    H = cfg.heads
-    h = layer_norm(p["layer_norm1"], x, cfg.ln_eps)
-    q, k, v = (dense(p["attn"][name], h, policy).reshape(B, N, H, W // H)
+    D = W // cfg.heads
+    h = copy_to_group(layer_norm(p["layer_norm1"], x, cfg.ln_eps))
+    q, k, v = (dense(p["attn"][name], h, policy).unflatten(-1, (-1, D))
                for name in ("q_proj", "k_proj", "v_proj"))
-    x = x + dense(p["attn"]["out_proj"], multihead_attention(q, k, v).reshape(B, N, W), policy)
-    h = gelu_tanh(dense(p["mlp"]["fc1"], layer_norm(p["layer_norm2"], x, cfg.ln_eps), policy))
+    x = x + dense(p["attn"]["out_proj"], multihead_attention(q, k, v).flatten(-2), policy)
+    h = copy_to_group(layer_norm(p["layer_norm2"], x, cfg.ln_eps))
+    h = gelu_tanh(dense(p["mlp"]["fc1"], h, policy))
     return x + dense(p["mlp"]["fc2"], h, policy)
 
 

@@ -112,9 +112,11 @@ def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
 
     A row-parallel kernel of a tensor group (parallel/tensor.py) holds this
     rank's rows, x its columns: the fp32 partial product is summed over the
-    group in fp32, the whole bias added once after the sum, and the result
-    rounded once, the same contract as one device's product (for int8 codes
-    too: dense_quantized)."""
+    group in fp32 (under autograd through tensor.reduce_from_group, whose
+    backward passes the gradient through), the whole bias added once after
+    the sum, and the result rounded once, the same contract as one
+    device's product (for int8 codes too: dense_quantized); the op that
+    makes the output runs under the name, as above."""
     if "kernel_q" in params:
         from starvector_tpu_torch.ops.quantization import dense_quantized
 
@@ -128,10 +130,12 @@ def dense(params: dict, x: torch.Tensor, policy: DTypePolicy | None = None, *,
     name = tag or ("dense_wide_out" if w.shape[-1] >= 4 * w.shape[-2] else "dense_out")
     bias = params.get("bias")
     if group is not None:
-        y = group.all_reduce(matmul_f32(x, w))
+        y = tensor.reduce_from_group(matmul_f32(x, w), group)
+        if x.dtype == torch.float32:
+            return y if bias is None else _named(name, torch.add, y, bias.float())
         if bias is not None:
             y = y + bias.float()
-        return y.to(x.dtype)
+        return _named(name, y.to, x.dtype)
     if x.dtype == torch.float32 or (x.is_cuda and (bias is None or bias.dtype == x.dtype)):
         x2 = x.reshape(-1, x.shape[-1])
         if bias is None:

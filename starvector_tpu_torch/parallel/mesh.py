@@ -1,5 +1,6 @@
-"""The device mesh of data-parallel, ZeRO-3 and sequence-parallel training
-and of tensor-parallel serving (port of starvector_tpu/parallel/mesh.py).
+"""The device mesh of data-parallel, ZeRO-3, sequence- and tensor-parallel
+training and of tensor-parallel serving (port of
+starvector_tpu/parallel/mesh.py).
 
 The JAX package declares one global `Mesh` with the axes
 
@@ -23,13 +24,19 @@ over the same axes and puts the collectives in by hand (parallel/zero.py):
           where the dimension divides (ZeRO over sequence,
           sharding.widen_fsdp_over_sequence).
 
-  * TP    serving only: "tensor" splits the decoder's heads and MLP
-          columns, one all-reduce after each row-parallel projection
-          (parallel/tensor.py), on a serving mesh of "data" x "tensor".
+  * TP    "tensor" splits the heads and MLP columns of the decoder (and,
+          in training, of the vision tower and the adapter): each rank
+          holds its columns of the column-parallel projections and the
+          same rows of the row-parallel ones, one all-reduce after each
+          row-parallel product and, in training, one on the gradient at
+          each column-parallel block's input (parallel/tensor.py); on a
+          serving mesh of "data" x "tensor", or beside the batch axes and
+          "sequence" in training (the fastest axis: the ranks of a tensor
+          group hold the same rows).
 
 Axes of size 1 are always there, so the partition specs are those of the
-JAX package whatever the mesh. A training mesh with `stage` or `tensor`
-above 1 raises NotImplementedError (refuse_unported_axes); a serving mesh
+JAX package whatever the mesh. A training mesh with `stage` above 1 raises
+NotImplementedError (refuse_unported_axes); a serving mesh
 takes `data` and `tensor` only (tensor.serving_mesh_config). A `PartitionSpec` here is
 `P`, a tuple with one entry a dimension, each None, an axis name or a
 tuple of names, as JAX's.
@@ -49,7 +56,7 @@ AXIS_DATA = "data"          # plain data parallelism
 AXIS_FSDP = "fsdp"          # parameter and optimizer-state sharding (ZeRO-3)
 AXIS_SEQUENCE = "sequence"  # context parallelism (training activations' positions)
 AXIS_STAGE = "stage"        # pipeline parallelism (not executed by the port yet)
-AXIS_TENSOR = "tensor"      # tensor parallelism (serving only, parallel/tensor.py)
+AXIS_TENSOR = "tensor"      # tensor parallelism (parallel/tensor.py)
 
 MESH_AXES = (AXIS_REPLICA, AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR)
 
@@ -116,19 +123,20 @@ def axis_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-UNPORTED_AXES = (AXIS_STAGE, AXIS_TENSOR)
+UNPORTED_AXES = (AXIS_STAGE,)
 
 
 def refuse_unported_axes(mesh, what: str) -> None:
-    """Raise NotImplementedError when `stage` or `tensor` is above 1: the
-    port trains over the batch axes and `sequence` only (tensor parallelism
-    serves, parallel/tensor.py)."""
+    """Raise NotImplementedError when `stage` is above 1: the port trains
+    over the batch axes, `sequence` and `tensor` (pipeline parallelism is
+    not ported)."""
     sizes = axis_sizes(mesh)
     extra = {a: sizes[a] for a in UNPORTED_AXES if sizes[a] > 1}
     if extra:
         raise NotImplementedError(
             f"{what}: mesh axes {extra} are not ported yet ({NOT_PORTED}); the port runs "
-            f"the batch axes {BATCH_AXES} (DP, FSDP/ZeRO-3, HSDP) and {AXIS_SEQUENCE!r}")
+            f"the batch axes {BATCH_AXES} (DP, FSDP/ZeRO-3, HSDP), {AXIS_SEQUENCE!r} and "
+            f"{AXIS_TENSOR!r}")
 
 
 def create_mesh(config: MeshConfig | None = None, *, device_type: str | None = None):

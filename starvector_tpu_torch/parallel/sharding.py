@@ -18,7 +18,10 @@ The port keeps each rank's shard as a plain local tensor and records the
 spec's split beside it (parallel/zero.py): `shard_pytree`. On a mesh with
 sequence > 1 a weight entry widened to ("fsdp", "sequence") splits over
 fsdp x sequence, rank f * sequence + s holding part f * sequence + s, as
-JAX's devices do.
+JAX's devices do. On a mesh with tensor > 1 a leaf whose rule names
+`tensor` is first cut to the tensor rank's ranges along that dimension
+(whole heads, the model's `tensor_units`, parallel/tensor.py), and its fsdp
+split then cuts that slice along the spec's fsdp dimension.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ import math
 import re
 from typing import Any, Iterable
 
-from starvector_tpu_torch.parallel import zero
-from starvector_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SEQUENCE, P, axis_sizes
+import torch
+
+from starvector_tpu_torch.parallel import tensor, zero
+from starvector_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SEQUENCE, AXIS_TENSOR, P, axis_sizes
 
 Rules = Iterable[tuple[str, P]]
 
@@ -126,10 +131,11 @@ class Sharding:
 
 
 def _sharding(spec: P, sizes: dict[str, int]) -> Sharding:
-    """The spec's split on a mesh where only fsdp, or fsdp x sequence,
-    splits a parameter (each rule names fsdp once)."""
+    """The spec's fsdp split: fsdp, or fsdp x sequence (each rule names
+    fsdp once). Its `tensor` entry is the leaf's tensor split (shard_pytree)."""
     split = [(i, names) for i, a in enumerate(spec) if a is not None
-             for names in [(a,) if isinstance(a, str) else a]
+             for names in [tuple(n for n in ((a,) if isinstance(a, str) else a)
+                                 if n != AXIS_TENSOR)]
              if math.prod(sizes[n] for n in names) > 1]
     if not split:
         return Sharding(spec, None)
@@ -145,21 +151,36 @@ def make_param_shardings(params: Any, rules: Rules, mesh) -> Any:
     return zero._map(specs, lambda s: _sharding(s, sizes))
 
 
-def shard_pytree(params: Any, rules: Rules, mesh) -> Any:
+def shard_pytree(params: Any, rules: Rules, mesh, units: list | None = None) -> Any:
     """This rank's shard of every leaf: a contiguous copy of its slice along
-    the dimension its spec splits (the leaf itself when it splits none),
+    the dimensions its spec splits (the leaf itself when it splits none),
     registered with the layout so that the model gathers it at use. `mesh`
-    is a DeviceMesh or a zero.Layout over one; stage or tensor above 1
-    raises NotImplementedError (zero.Layout)."""
+    is a DeviceMesh or a zero.Layout over one; stage above 1 raises
+    NotImplementedError (zero.Layout). On a mesh with tensor above 1,
+    `units` gives each tensor rank's ranges of the split projections by the
+    tree's top-level key (models/starvector.py::tensor_units); row-parallel
+    kernels are registered with the tensor group (parallel/tensor.py)."""
     layout = mesh if isinstance(mesh, zero.Layout) else zero.Layout(mesh)
+    slices = {}
+    if layout.tensor > 1:
+        if units is None:
+            raise ValueError("a mesh with tensor > 1 needs the model's tensor_units")
+        slices = tensor.tensor_slices(params, rules, units, layout.tensor_group,
+                                      layout.holder_groups)
+    paths = iter(p for p, _ in _paths(params))
 
     def shard(leaf, sh: Sharding):
-        info = zero.Shard(layout, sh.dim, tuple(leaf.shape), sh.wide)
-        local = leaf
-        if sh.dim is not None:
-            n = leaf.shape[sh.dim] // info.n
-            local = leaf.detach().narrow(sh.dim, info.index * n, n).clone()
-            local.requires_grad_(leaf.requires_grad)
+        path = next(paths)
+        ts = slices.get(path)
+        if ts is not None and ts.dim == sh.dim:
+            raise ValueError(f"{path}: split over fsdp and tensor along one dimension")
+        info = zero.Shard(layout, sh.dim, tuple(leaf.shape), sh.wide, ts)
+        if sh.dim is None and ts is None:
+            return zero.register(leaf, info)
+        local = info.local_of(leaf.detach()).clone(memory_format=torch.contiguous_format)
+        local.requires_grad_(leaf.requires_grad)
+        if ts is not None and tensor.is_row_parallel(path, ts.dim, leaf.dim()):
+            tensor.register_row(local, layout.tensor_group)
         return zero.register(local, info)
 
     return zero._map(params, shard, make_param_shardings(params, rules, layout.mesh))

@@ -1,5 +1,6 @@
-"""Tensor parallelism of serving, Megatron style (the `tensor` axis of
-starvector_tpu/parallel/mesh.py, which the JAX package leaves to GSPMD).
+"""Tensor parallelism, Megatron style, for serving and training (the
+`tensor` axis of starvector_tpu/parallel/mesh.py, which the JAX package
+leaves to GSPMD).
 
 A tensor group of tp ranks serves one decoder: each rank holds its columns
 of the column-parallel projections (q/k/v_proj and c_fc, kernels and
@@ -27,9 +28,25 @@ row-split leaf's stay whole. The scales are the whole tree's: slices of a
 tree quantized whole, or a rank's own slices quantized with each
 row-parallel column's maximum taken over the group (`quantize_slices`).
 
-Serving needs no backward: the collectives here run in the forward only.
-Training's `tensor` axis (and `stage`) is not ported (ROADMAP queue 1,
-item 12): parallel/zero.py's training layout refuses it.
+Training on a mesh with `tensor` above 1 splits the same leaves of the
+decoder, and those of the vision tower and the adapter (their own
+`tensor_units`), the tensor ranges first and then each rank's fsdp shard
+of its slice (parallel/sharding.py::shard_pytree, the split recorded as a
+`TensorSlice` beside the fsdp one in parallel/zero.py). Two collectives
+carry the backward, Megatron's f and g (`copy_to_group` and
+`reduce_from_group`): a column-parallel block's input (a norm's output,
+which every rank of the group holds) is the identity in the forward and
+sums its gradient over the group in the backward; a row-parallel product's
+fp32 partial is summed in the forward and passes its gradient through.
+Leaves every rank of the group holds whole (norms, tables, row-parallel
+biases) then take the same whole gradient on each rank. A range of a leaf
+that several ranks hold (the 1B's K and V columns of c_attn on every rank;
+at tensor 8 the 8B's k/v_proj slice of a KV head on the pair of ranks that
+split its query heads) takes on each only the part of its gradient that
+comes from the rank's own query heads: that part is summed over exactly
+its holders (`TensorSlice.sum_shared`), and a sum over the whole leaf (the
+global norm, Adafactor's statistics) counts it once, on its first holder
+(`TensorSlice.owned`). `stage` is not ported (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -209,16 +226,19 @@ def leaf_slice(path: str, ndim: int, rules, units: dict):
     match its kernel's rule); `units` maps each split projection's name, or
     "parent/name" where two projections share a name (GPTBigCode's
     attn/c_proj and mlp/c_proj), to this rank's range or ranges along its
-    split dimension (the decoder's `tensor_units`)."""
+    split dimension (the decoder's `tensor_units`), or None for a leaf
+    that every rank holds whole although its rule names `tensor` (the
+    towers' patch embedding in training; it may be keyed by the leaf's own
+    name)."""
     from starvector_tpu_torch.parallel.sharding import spec_for_path
 
     dim = _tensor_dim(spec_for_path(path, rules), ndim)
     if dim is None:
         return None
     parts = path.split("/")
-    for name in ("/".join(parts[-3:-1]), parts[-2]):
+    for name in ("/".join(parts[-3:-1]), parts[-2], parts[-1]):
         if name in units:
-            return dim, _ranges(units[name])
+            return None if units[name] is None else (dim, _ranges(units[name]))
     raise NotImplementedError(f"{path}: no tensor-parallel split of this leaf ({NOT_PORTED})")
 
 
@@ -330,3 +350,154 @@ def even_split(n: int, tp: int, rank: int) -> tuple[int, int]:
     if n % tp:
         raise ValueError(f"{n} does not split over {tp} tensor ranks")
     return rank * (n // tp), n // tp
+
+
+# --- training: a leaf's tensor split and the collectives under autograd -----------
+
+def _spans(ranges) -> list[tuple[int, int]]:
+    """(local offset, length) of each of `ranges` in their concatenation."""
+    out, off = [], 0
+    for _, n in ranges:
+        out.append((off, n))
+        off += n
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TensorSlice:
+    """Where a training leaf split over `tensor` lies: its dimension `dim`,
+    every tensor rank's ranges of the whole leaf along it (`ranges[r]`, in
+    the order their concatenation keeps), this rank's place `rank` in the
+    group `group`, and, per range of this rank, the process group of the
+    ranks that hold that range too (None: this rank alone, or the range's
+    holders when it is not this rank's)."""
+    dim: int
+    ranges: tuple
+    rank: int
+    group: TensorGroup
+    shared: tuple
+
+    @property
+    def mine(self) -> tuple:
+        return self.ranges[self.rank]
+
+    def holders(self, rng) -> tuple[int, ...]:
+        """The tensor ranks that hold the range `rng`."""
+        return tuple(r for r, rs in enumerate(self.ranges) if tuple(rng) in rs)
+
+    def owned(self, t: torch.Tensor, dim: int | None = None) -> list[torch.Tensor]:
+        """Views of t (this rank's slice, or a view of it whose split
+        dimension is `dim`) covering the ranges it counts in a sum over the
+        whole leaf: every range but those a lower rank holds too (an empty
+        view where that leaves none)."""
+        dim = self.dim if dim is None else dim
+        keep = [(off, n) for (off, n), rng in zip(_spans(self.mine), self.mine)
+                if self.holders(rng)[0] == self.rank]
+        if keep == [(0, t.shape[dim])]:
+            return [t]
+        return [t.narrow(dim, off, n) for off, n in keep or [(0, 0)]]
+
+    def sum_shared(self, g: torch.Tensor) -> None:
+        """Sum, in place, each range of this rank's gradient g that other
+        ranks hold too over exactly its holders."""
+        for (off, n), group in zip(_spans(self.mine), self.shared):
+            if group is not None:
+                part = g.narrow(self.dim, off, n).contiguous()
+                dist.all_reduce(part, group=group)
+                g.narrow(self.dim, off, n).copy_(part)
+
+    def narrow_view(self, dropped: int) -> "TensorSlice | None":
+        """The split of a view or reduction of the leaf without dimension
+        `dropped` (None when that is the split one)."""
+        if dropped == self.dim:
+            return None
+        return dataclasses.replace(self, dim=self.dim - (self.dim > dropped))
+
+
+def tensor_slices(params: dict, rules, all_units: list, group: TensorGroup,
+                  holder_group) -> dict:
+    """{path: TensorSlice} of every leaf of a training tree that its rule
+    splits over `tensor` and `all_units` (each tensor rank's units by the
+    tree's top-level key: {"svg_transformer": ..., "image_encoder": ...,
+    "image_projection": ...}) cuts; the other leaves are absent.
+    `holder_group(lists)` makes the process groups of ranges several ranks
+    hold (every rank calls it alike: the holders come from every rank's
+    units)."""
+    from starvector_tpu_torch.parallel.sharding import _paths
+
+    out = {}
+    for path, leaf in _paths(params):
+        comp = path.split("/", 1)[0]
+        cuts = [leaf_slice(path, leaf.dim(), rules, units.get(comp, {})) for units in all_units]
+        if cuts[0] is None:
+            continue
+        dim = cuts[0][0]
+        ranges = tuple(c[1] for c in cuts)
+        sets = sorted({tuple(r for r, rs in enumerate(ranges) if rng in rs)
+                       for rs in ranges for rng in rs} - {(r,) for r in range(group.size)})
+        groups = holder_group(tuple(sets)) if sets else {}
+        ts = TensorSlice(dim, ranges, group.rank, group, ())
+        shared = tuple(groups.get(ts.holders(rng)) for rng in ts.mine)
+        out[path] = dataclasses.replace(ts, shared=shared)
+    return out
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: the identity in the forward; in the backward the
+    gradient, each rank's part from its own columns, summed over the
+    group."""
+
+    @staticmethod
+    def forward(ctx, t, group: TensorGroup):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: the sum over the group in the forward (a row-parallel
+    product's fp32 partials); the identity in the backward, each rank's
+    partial taking the whole sum's gradient. (torch.distributed.nn's
+    all_reduce sums the gradient again in its backward: that is f's
+    backward, and on a row-parallel output it multiplies every upstream
+    gradient by the group's size.)"""
+
+    @staticmethod
+    def forward(ctx, t, group: TensorGroup):
+        return group.all_reduce(t.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def training_group() -> TensorGroup | None:
+    """The tensor group of the active training layout (parallel/zero.py),
+    None without one or at tensor 1."""
+    from starvector_tpu_torch.parallel import zero
+
+    layout = zero.active()
+    group = None if layout is None else layout.tensor_group
+    return group if group is not None and group.size > 1 else None
+
+
+def copy_to_group(t: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel block (every rank of the training
+    layout's tensor group holds it whole): t, its gradient summed over the
+    group. t itself outside a tensor-parallel training step or without
+    autograd."""
+    group = training_group()
+    if group is None or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _CopyToGroup.apply(t, group)
+
+
+def reduce_from_group(t: torch.Tensor, group: TensorGroup) -> torch.Tensor:
+    """A row-parallel product's partial t summed over `group`: in place
+    without autograd (serving), through _ReduceFromGroup under it."""
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return group.all_reduce(t)
+    return _ReduceFromGroup.apply(t, group)

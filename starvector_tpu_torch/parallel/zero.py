@@ -1,6 +1,6 @@
-"""Data parallelism, ZeRO-3 and sequence parallelism at run time: the
-collectives that XLA inserts into the JAX package's GSPMD step, put in by
-hand.
+"""Data parallelism, ZeRO-3, sequence and tensor parallelism at run time:
+the collectives that XLA inserts into the JAX package's GSPMD step, put in
+by hand.
 
 One process a device. Every parameter leaf is a plain local tensor, this
 rank's shard (parallel/sharding.py::shard_pytree), and the registry here
@@ -37,6 +37,18 @@ computes the whole rows, its gradients are copies of its peers', and they
 sum over the batch ranks only. The BatchNorm statistics and the dropout
 rows always span the batch ranks only.
 
+The ranks of a `tensor` group hold the same rows and the same positions;
+each holds its slice of the leaves the rules split over `tensor`
+(parallel/tensor.py::TensorSlice, recorded in the leaf's `Shard` beside
+its fsdp split, which then cuts that slice), and the model's two tensor
+collectives (tensor.copy_to_group, tensor.reduce_from_group) make every
+whole leaf's gradient the same whole gradient on each of them. So no
+reduction of the step's work spans the tensor ranks: the loss, its count,
+the BatchNorm statistics, the dropout rows and the gradients of leaves
+they hold whole sum over the batch (and sequence) ranks alone. A range of a
+leaf that several tensor ranks hold sums its gradient over those ranks,
+and the sums over a whole leaf count it once (`Shard.sum`).
+
 With no `Layout` active (`Layout.step()`), every function here returns
 its input: the one-device path is the code it was.
 """
@@ -51,8 +63,9 @@ import torch
 import torch.distributed as dist
 from torch.utils.weak import WeakIdKeyDictionary
 
+from starvector_tpu_torch.parallel import tensor as tp
 from starvector_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, AXIS_REPLICA, \
-    AXIS_SEQUENCE, BATCH_AXES, MESH_AXES, axis_sizes, refuse_unported_axes
+    AXIS_SEQUENCE, AXIS_TENSOR, BATCH_AXES, MESH_AXES, axis_sizes, refuse_unported_axes
 
 # the collectives' newer names, where this torch has them
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -99,18 +112,24 @@ def _scatter(full: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 
 class Layout:
-    """This rank's place on a DeviceMesh of the batch axes and `sequence`,
-    and its groups. Ranks are row-major over (replica, data, fsdp,
-    sequence): the sequence coordinate is `seq_rank`, the batch coordinate
-    (the row block of the global batch) `batch_rank` = rank // sequence.
+    """This rank's place on a DeviceMesh of the batch axes, `sequence` and
+    `tensor`, and its groups. Ranks are row-major over (replica, data,
+    fsdp, sequence, tensor): the sequence coordinate is `seq_rank`, the
+    tensor group `tensor_group` (parallel/tensor.py::TensorGroup), the
+    batch coordinate (the row block of the global batch) `batch_rank` =
+    rank // (sequence x tensor). Every group below holds ranks of one
+    tensor coordinate but `rows_group`.
 
-      fsdp_group    the ranks that split a leaf over fsdp (same sequence
-                    coordinate)
+      fsdp_group    the ranks that split a leaf over fsdp
       wide_group    the ranks that split a leaf widened over fsdp x
                     sequence, in the order f * sequence + s of JAX's
                     ("fsdp", "sequence")
-      sequence_group  the ranks that hold the same rows
+      sequence_group  the ranks of one tensor coordinate that hold the same
+                    rows
+      rows_group    every rank that holds the same rows (sequence x tensor)
       batch_group   the ranks with this rank's sequence coordinate
+      split_group   the ranks that split a step's work when its positions
+                    are split (batch x sequence)
       shard_group   the ranks that hold the same shard of a leaf split over
                     fsdp x sequence, or of a fsdp leaf in a step without the
                     split (replica x data)
@@ -126,23 +145,45 @@ class Layout:
         self.mesh = mesh
         self.fsdp = sizes[AXIS_FSDP]
         self.sequence = sizes[AXIS_SEQUENCE]
+        self.tensor = sizes[AXIS_TENSOR]
         self.batch = math.prod(sizes[a] for a in BATCH_AXES)
         self.fsdp_group = mesh.get_group(AXIS_FSDP)
         self.fsdp_rank = mesh.get_local_rank(AXIS_FSDP)
         self.seq_rank = mesh.get_local_rank(AXIS_SEQUENCE)
-        self.batch_rank = dist.get_rank() // self.sequence
+        self.tensor_group = tp.TensorGroup.of(mesh)
+        self.batch_rank = dist.get_rank() // (self.sequence * self.tensor)
         self.seq_split = False  # whether this step's decoder split the positions
         grid = mesh.mesh
+        self.grid = grid
         rows = (AXIS_REPLICA, AXIS_DATA)
         self.shard_group = _subgroup(grid, rows)
+        self.batch_group = _subgroup(grid, BATCH_AXES)
+        self.rows_group = _subgroup(grid, (AXIS_SEQUENCE, AXIS_TENSOR))
         if self.sequence == 1:
             self.sequence_group, self.wide_group = None, self.fsdp_group
-            self.batch_group, self.fsdp_shard_group = dist.group.WORLD, self.shard_group
+            self.split_group, self.fsdp_shard_group = self.batch_group, self.shard_group
         else:
             self.sequence_group = mesh.get_group(AXIS_SEQUENCE)
             self.wide_group = _subgroup(grid, (AXIS_FSDP, AXIS_SEQUENCE))
-            self.batch_group = _subgroup(grid, BATCH_AXES)
+            self.split_group = _subgroup(grid, BATCH_AXES + (AXIS_SEQUENCE,))
             self.fsdp_shard_group = _subgroup(grid, rows + (AXIS_SEQUENCE,))
+        self._holders: dict = {}
+
+    def holder_groups(self, sets: tuple) -> dict:
+        """{tensor ranks: process group} of the sets of tensor ranks that
+        hold one range of a leaf (disjoint, more than one rank each), in
+        every tensor group of the mesh. Every rank calls it with the same
+        sets in the same order (parallel/tensor.py::tensor_slices)."""
+        if sets not in self._holders:
+            if sets == (tuple(range(self.tensor)),):
+                self._holders[sets] = {sets[0]: self.tensor_group.group}
+            else:
+                tensor_groups = self.grid.reshape(-1, self.tensor).tolist()
+                lists = [[g[t] for t in s] for g in tensor_groups for s in sets]
+                mine, _ = dist.new_subgroups_by_enumeration(lists)
+                t = self.tensor_group.rank
+                self._holders[sets] = {s: mine for s in sets if t in s}
+        return self._holders[sets]
 
     # --- a leaf's split --------------------------------------------------------
     def split(self, wide: bool) -> tuple[object, int, int]:
@@ -183,23 +224,25 @@ class Layout:
         """This rank's part along `dim` of the sum of the sequence group's `t`."""
         return _scatter(t, dim, self.sequence_group, self.sequence)
 
-    def seq_broadcast(self, tree: dict) -> dict:
-        """A dict of tensors and plain objects as the first rank of this
-        rank's sequence group has it (through the host), each tensor on the
-        device this rank's own value of it was on."""
-        if self.sequence_group is None:
+    def rows_broadcast(self, tree: dict) -> dict:
+        """A dict of tensors and plain objects as the first of the ranks
+        that hold this rank's rows (its sequence and tensor ranks) has it
+        (through the host), each tensor on the device this rank's own value
+        of it was on."""
+        if self.rows_group is None:
             return tree
         devices = {k: v.device for k, v in tree.items() if isinstance(v, torch.Tensor)}
         box = [{k: v.cpu() if k in devices else v for k, v in tree.items()}]
-        dist.broadcast_object_list(box, src=dist.get_global_rank(self.sequence_group, 0),
-                                   group=self.sequence_group)
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.rows_group, 0),
+                                   group=self.rows_group)
         return {k: v.to(devices[k]) if k in devices else v for k, v in box[0].items()}
 
     # --- the step's reductions -------------------------------------------------
     def work_group(self):
         """The ranks that split this step's work: batch x sequence with the
-        split, else the batch ranks."""
-        return dist.group.WORLD if self.seq_split else self.batch_group
+        split, else the batch ranks (never the tensor ranks, which hold the
+        same work)."""
+        return self.split_group if self.seq_split else self.batch_group
 
     def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of `t` over the ranks that split the step's work (a new
@@ -208,7 +251,8 @@ class Layout:
 
     def grad_group(self, info: "Shard"):
         """The ranks over which a leaf's gradient (a sharded leaf's after its
-        reduce-scatter) is summed."""
+        reduce-scatter) is summed; a range several tensor ranks hold sums
+        over them besides (TensorSlice.sum_shared)."""
         if info.dim is None:
             return self.work_group()
         return self.fsdp_shard_group if self.seq_split and not info.wide else self.shard_group
@@ -230,31 +274,82 @@ class Layout:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
-    """Where a local tensor lies: its layout, the dimension split (None: the
-    whole leaf on every rank), the whole leaf's shape, and whether the split
-    spans fsdp x sequence (`wide`, ZeRO over sequence) or fsdp."""
+    """Where a local tensor lies: its layout, the dimension split over fsdp
+    (None: none), the whole leaf's shape, whether that split spans fsdp x
+    sequence (`wide`, ZeRO over sequence) or fsdp, and its tensor split
+    (None: every tensor rank holds the leaf whole). A leaf split both ways
+    is this rank's tensor slice, cut over fsdp."""
     layout: Layout
     dim: int | None
     full_shape: tuple[int, ...]
     wide: bool = False
+    tensor: "tp.TensorSlice | None" = None
 
     @property
     def n(self) -> int:
-        """The ranks that split the leaf."""
+        """The ranks that split the leaf over fsdp."""
         return self.layout.split(self.wide)[1]
 
     @property
     def index(self) -> int:
-        """This rank's shard among them."""
+        """This rank's fsdp shard among them."""
         return self.layout.split(self.wide)[2]
 
+    def fsdp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of `t` over the ranks that split the leaf over fsdp (no
+        gradient)."""
+        return t if self.dim is None else self.layout.split_sum(t, self.wide)
+
+    def tensor_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of `t` over the tensor group (no gradient)."""
+        return t if self.tensor is None else self.tensor.group.all_reduce(t.detach().clone())
+
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of `t` over the ranks that split the leaf (no gradient)."""
-        return self.layout.split_sum(t, self.wide)
+        """Sum of `t` over every rank that splits the leaf (no gradient).
+        A range several tensor ranks hold must be in one rank's t only
+        (`owned`)."""
+        return self.tensor_sum(self.fsdp_sum(t))
+
+    def owned(self, t: torch.Tensor, dim: int | None = None) -> list[torch.Tensor]:
+        """Views of t (this rank's piece, or a view of it whose tensor-split
+        dimension is `dim`) that a sum over the whole leaf counts."""
+        return [t] if self.tensor is None else self.tensor.owned(t, dim)
 
     def gather(self, shard: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from this rank's shard (no gradient)."""
+        """This rank's tensor slice of the leaf (the whole leaf without a
+        tensor split) from its fsdp shard (no gradient)."""
         return self.layout.all_gather(shard, self.dim, self.wide)
+
+    def whole(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from this rank's piece (no gradient): its fsdp
+        shards gathered, then the tensor ranks' slices put where their
+        ranges lie (a range several hold taken from its first holder)."""
+        if self.dim is not None:
+            local = self.gather(local)
+        ts = self.tensor
+        if ts is None:
+            return local
+        d = ts.dim
+        lens = [sum(n for _, n in rs) for rs in ts.ranges]
+        pad = max(lens) - local.shape[d]
+        if pad:
+            local = torch.cat([local, local.new_zeros(
+                (*local.shape[:d], pad, *local.shape[d + 1:]))], d)
+        parts = _gather(local, d, ts.group.group, ts.group.size).chunk(ts.group.size, d)
+        out = local.new_empty(self.full_shape)
+        for r in reversed(range(ts.group.size)):  # the first holder writes last
+            for (start, n), (off, _) in zip(ts.ranges[r], tp._spans(ts.ranges[r])):
+                out.narrow(d, start, n).copy_(parts[r].narrow(d, off, n))
+        return out
+
+    def local_of(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the whole leaf (a view or a copy)."""
+        if self.tensor is not None:
+            full = tp.take(full, self.tensor.dim, self.tensor.mine)
+        if self.dim is not None:
+            n = full.shape[self.dim] // self.n
+            full = full.narrow(self.dim, self.index * n, n)
+        return full
 
 
 _INFO = WeakIdKeyDictionary()      # local tensor -> Shard
@@ -277,9 +372,11 @@ def info_of(t) -> Shard | None:
 
 
 def sharded(t) -> Shard | None:
-    """t's Shard when a dimension of it is split over ranks, else None."""
+    """t's Shard when a dimension of it is split over ranks (fsdp or
+    tensor), else None."""
     info = info_of(t)
-    return info if info is not None and info.dim is not None else None
+    return info if info is not None and (info.dim is not None or info.tensor is not None) \
+        else None
 
 
 def full_shape(t: torch.Tensor) -> tuple[int, ...]:
@@ -302,6 +399,7 @@ def layout_of(tree) -> Layout | None:
 def register_like(t: torch.Tensor, like: torch.Tensor, dropped: int | None = None) -> torch.Tensor:
     """Register t as `like` lies, or, with `dropped`, as `like` with that
     dimension reduced away (a factored second moment)."""
+    tp.note_views(like, (t,))
     info = info_of(like)
     if info is None:
         return t
@@ -311,7 +409,8 @@ def register_like(t: torch.Tensor, like: torch.Tensor, dropped: int | None = Non
     if dim is not None:
         dim = None if dim == dropped else dim - (dim > dropped)
     shape = info.full_shape[:dropped] + info.full_shape[dropped + 1:]
-    return register(t, dataclasses.replace(info, dim=dim, full_shape=shape))
+    ts = None if info.tensor is None else info.tensor.narrow_view(dropped)
+    return register(t, dataclasses.replace(info, dim=dim, full_shape=shape, tensor=ts))
 
 
 def note_views(stacked: torch.Tensor, views) -> None:
@@ -320,10 +419,11 @@ def note_views(stacked: torch.Tensor, views) -> None:
     info = info_of(stacked)
     if info is None:
         return
-    if info.dim == 0:
-        raise ValueError("a stacked leaf's layer axis is split over fsdp")
+    if info.dim == 0 or (info.tensor is not None and info.tensor.dim == 0):
+        raise ValueError("a stacked leaf's layer axis is split over fsdp or tensor")
     sub = dataclasses.replace(info, dim=None if info.dim is None else info.dim - 1,
-                              full_shape=info.full_shape[1:])
+                              full_shape=info.full_shape[1:],
+                              tensor=None if info.tensor is None else info.tensor.narrow_view(0))
     for v in views:
         _INFO[v] = sub
 
@@ -348,12 +448,15 @@ class _Gather(torch.autograd.Function):
 
 
 def gather(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The whole leaf of a sharded local tensor (differentiable), else t."""
-    info = sharded(t)
-    if info is None:
+    """The whole leaf (this rank's tensor slice of it) of a local tensor
+    split over fsdp (differentiable), else t. A row-parallel mark
+    (parallel/tensor.py) goes with it."""
+    info = info_of(t)
+    if info is None or info.dim is None:
         return t
     full = _Gather.apply(t, info, None if dtype == t.dtype else dtype)
     _GATHERED[full] = (t.detach(), info, full.dtype)
+    tp.note_views(t, (full,))
     return full
 
 
@@ -438,20 +541,22 @@ def reduce_grads(params: list, grads: list) -> None:
     piece of its parameter (Layout.grad_group): a sharded leaf's, already
     reduce-scattered over the ranks that split it, over replica x data (and
     sequence, for a fsdp leaf in a step with the split); any other over the
-    ranks that split the step's work. Call it after the step's forward:
-    the split is the step's. Parameters outside a layout, and None
-    gradients, are left alone."""
+    ranks that split the step's work; and a range several tensor ranks hold
+    over those ranks. Call it after the step's forward: the split is the
+    step's. Parameters outside a layout, and None gradients, are left
+    alone."""
     for p, g in zip(params, grads):
         info = info_of(p)
         if info is None or g is None:
             continue
         group = info.layout.grad_group(info)
-        if group is None:
-            continue
-        t = g if g.is_contiguous() else g.contiguous()
-        dist.all_reduce(t, group=group)
-        if t is not g:
-            g.copy_(t)
+        if group is not None:
+            t = g if g.is_contiguous() else g.contiguous()
+            dist.all_reduce(t, group=group)
+            if t is not g:
+                g.copy_(t)
+        if info.tensor is not None:
+            info.tensor.sum_shared(g)
 
 
 # --- whole trees for checkpoints ----------------------------------------------
@@ -466,7 +571,7 @@ def full_tree(tree, to_cpu: bool = False):
         if info is None:
             return t
         with torch.no_grad():
-            full = info.gather(t.detach())
+            full = info.whole(t.detach())
         return full.cpu() if to_cpu else full
 
     return _map(tree, leaf)
@@ -481,8 +586,7 @@ def load_shards(local, full):
             return f
         info = sharded(t)
         if info is not None:
-            n = t.shape[info.dim]
-            f = f.narrow(info.dim, info.index * n, n)
+            f = info.local_of(f)
         with torch.no_grad():
             t.copy_(f)
         return t

@@ -25,14 +25,16 @@ after a rollout starts at ratio 1 (old_lp is the detached new_lp); with
 updates_per_rollout > 1 the behaviour log-probs are computed once, before
 the first update.
 
-Sharded parameters (parallel/sharding.py::shard_pytree on a mesh of the
-batch axes and `sequence`, one process a device), as the JAX trainer
-takes them: the optimizer state lies beside each shard, each batch rank
-rolls out its own prompts on the parameters gathered whole (a sequence
-group takes its first rank's rollout), and the update gathers at use and
-sums over the ranks (parallel/zero.py), the batch means taken over every
-rank's rows, through the sequence split where the rollout's length
-divides. `main`, like the JAX script, builds no mesh.
+Sharded parameters (models/starvector.py::shard_params on a mesh of the
+batch axes, `sequence` and `tensor`, one process a device), as the JAX
+trainer takes them: the optimizer state lies beside each shard, each batch
+rank rolls out its own prompts on the parameters gathered whole (the ranks
+that hold the same rows, a sequence and a tensor group, take their first
+rank's rollout), and the update gathers at use and sums over the ranks
+(parallel/zero.py), the batch means taken over every rank's rows, through
+the sequence split where the rollout's length divides and on each tensor
+rank's heads and MLP columns. `main`, like the JAX script, builds no
+mesh.
 """
 
 from __future__ import annotations
@@ -234,13 +236,14 @@ class GRPOTrainer:
     requires_grad, the optimizer's mask freezes the rest. With kl_beta > 0
     a copy of the decoder taken here is the KL reference.
 
-    When model.params are shards on a layout (parallel/), the optimizer
-    state takes each shard's split, each batch rank rolls out the images it
-    is given on the parameters gathered whole (for the rollout only; the
-    ranks of a sequence group take its first rank's rollout, so that they
-    hold the same rows), and the update runs through the gathers, the
-    sequence split and the sums of the sharded step. A mesh with stage or
-    tensor above 1 cannot be made (ROADMAP queue 1, item 12)."""
+    When model.params are shards on a layout (parallel/; sv.shard_params),
+    the optimizer state takes each shard's split, each batch rank rolls out
+    the images it is given on the parameters gathered whole (for the
+    rollout only; the ranks that hold the same rows, its sequence and
+    tensor ranks, take their first rank's rollout), and the update runs
+    through the gathers, the sequence split, the tensor ranks' heads and
+    the sums of the sharded step. A mesh with stage above 1 cannot be made
+    (ROADMAP queue 1, item 12)."""
 
     def __init__(self, model, grpo: GRPOConfig = GRPOConfig(), *, lr: float = 1e-6,
                  total_steps: int = 1000, warmup_steps: int = 0, grad_clip: float = 1.0,
@@ -301,7 +304,7 @@ class GRPOTrainer:
                 top_p=gen_kwargs.pop("top_p", g.top_p),
                 max_new_tokens=gen_kwargs.pop("max_new_tokens", g.max_new_tokens), **gen_kwargs)
         if self.layout is not None:
-            roll = self.layout.seq_broadcast(roll)
+            roll = self.layout.rows_broadcast(roll)
         t1 = time.perf_counter()
         rewards = batch_rewards(roll["raw_svg"], target_rasters, num_generations=g.num_generations,
                                 resolution=g.reward_resolution, ssim_weight=g.ssim_weight)

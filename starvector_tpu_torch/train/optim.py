@@ -47,8 +47,10 @@ state lies beside it, split the same way (a factored moment that reduced
 the split dimension away whole on every rank): the elementwise math is
 local, and each reduction over a leaf (the global norm, Adafactor's row and
 column means and its two RMS values) sums over the ranks that split it
-(fsdp, or fsdp x sequence for a leaf widened over sequence), so every rank
-takes the step the whole leaf would. Frozen leaves take none.
+(fsdp, or fsdp x sequence for a leaf widened over sequence, and the tensor
+group for a leaf split over `tensor`, whose ranges several tensor ranks
+hold count once: zero.Shard.owned), so every rank takes the step the whole
+leaf would. Frozen leaves take none.
 """
 
 from __future__ import annotations
@@ -138,21 +140,23 @@ def _sq_sum(t: torch.Tensor) -> torch.Tensor:
 
 def global_norm(leaves: list[torch.Tensor], like: list | None = None) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum of every element's square, in fp32.
-    `like` gives each leaf's parameter: where that is a ZeRO-3 shard, the
+    `like` gives each leaf's parameter: where that is split over ranks, the
     leaf is too, and its squares are summed over the ranks that split it
-    (once for all leaves split over fsdp, once for all split over fsdp x
-    sequence); the other leaves are whole on every rank."""
-    sq = torch.stack([_sq_sum(g) for g in leaves])
+    (once for all leaves of one kind of split: fsdp, fsdp x sequence, each
+    with or without tensor, or tensor alone), a range several tensor ranks
+    hold counted once; the other leaves are whole on every rank."""
     split = [zero.sharded(p) for p in like] if like is not None else [None] * len(leaves)
+    sq = torch.stack([sum((_sq_sum(v) for v in (s.owned(g) if s is not None else [g])),
+                          torch.zeros((), device=g.device)) for g, s in zip(leaves, split)])
     if not any(split):
         return sq.sum().sqrt()
-    whole = torch.tensor([s is None for s in split], device=sq.device)
-    total = sq[whole].sum()
-    for wide in (False, True):
-        pick = [s is not None and s.wide == wide for s in split]
-        if any(pick):
-            over = split[pick.index(True)]  # the ranks that split every picked leaf
-            total = total + over.sum(sq[torch.tensor(pick, device=sq.device)].sum())
+    kinds = [None if s is None else (None if s.dim is None else s.wide, s.tensor is not None)
+             for s in split]
+    total = sq[torch.tensor([k is None for k in kinds], device=sq.device)].sum()
+    for kind in dict.fromkeys(k for k in kinds if k is not None):
+        pick = [k == kind for k in kinds]
+        over = split[pick.index(True)]  # the ranks that split every picked leaf
+        total = total + over.sum(sq[torch.tensor(pick, device=sq.device)].sum())
     return total.sqrt()
 
 
@@ -298,17 +302,33 @@ class Adafactor(Chain):
             views = [dict(p=p[i], g=g[i], **{k: None if v is None else v[i]
                                               for k, v in s.items()})
                      for i in range(p.shape[0])] if by_layer else [dict(p=p, g=g, **s)]
-            # a ZeRO-3 shard: the dimension (of a view) split over ranks,
-            # whose sums span them
+            # a leaf split over ranks: the dimensions (of a view) split over
+            # fsdp and over tensor, whose sums span those ranks
             split = zero.sharded(p)
-            sd = None if split is None else split.dim - shift
-            split_sum = (lambda t: t) if split is None else split.sum
+            sd = None if split is None or split.dim is None else split.dim - shift
+            td = None if split is None or split.tensor is None else split.tensor.dim - shift
 
-            def mean(t: torch.Tensor, dim: int, split_dim, keepdim: bool = False) -> torch.Tensor:
-                """t's mean over `dim`, whole-leaf when `dim` is the split one."""
-                if dim != split_dim:
-                    return t.mean(dim=dim, keepdim=keepdim)
-                return split_sum(t.sum(dim=dim, keepdim=keepdim)) / (t.shape[dim] * split.n)
+            def owned_sum(t: torch.Tensor, tdim) -> torch.Tensor:
+                """This rank's share of the sum of every element of the whole
+                leaf (of a view whose tensor-split dimension is tdim)."""
+                return t.sum() if split is None else sum(x.sum() for x in split.owned(t, tdim))
+
+            def total(t: torch.Tensor) -> torch.Tensor:
+                return t if split is None else split.sum(t)
+
+            def mean(t: torch.Tensor, dim: int, split_dim, tensor_dim,
+                     keepdim: bool = False) -> torch.Tensor:
+                """t's mean over `dim`, whole-leaf when `dim` is a split one."""
+                if dim == split_dim:
+                    return split.fsdp_sum(t.sum(dim=dim, keepdim=keepdim)) / (t.shape[dim] * split.n)
+                if dim == tensor_dim:
+                    owned = sum(x.sum(dim=dim, keepdim=keepdim) for x in split.owned(t, dim))
+                    return split.tensor_sum(owned) / shape[split.tensor.dim]
+                return t.mean(dim=dim, keepdim=keepdim)
+
+            def less(d, dropped):
+                """A split dimension of a view after it loses `dropped`."""
+                return None if d is None or d == dropped else d - (d > dropped)
 
             def scaled(view, first: bool) -> torch.Tensor:
                 """The view's update after the factored scaling; on the
@@ -321,24 +341,23 @@ class Adafactor(Chain):
                     return gv * view["v"] ** -0.5
                 d1, d0 = dims[0] - shift, dims[1] - shift
                 if first:
-                    view["v_row"].mul_(decay).add_(mean(sq, d0, sd), alpha=1 - decay)
-                    view["v_col"].mul_(decay).add_(mean(sq, d1, sd), alpha=1 - decay)
+                    view["v_row"].mul_(decay).add_(mean(sq, d0, sd, td), alpha=1 - decay)
+                    view["v_col"].mul_(decay).add_(mean(sq, d1, sd, td), alpha=1 - decay)
                 vr, vc = view["v_row"], view["v_col"]
-                # v_row lacks d0: d1 and the split dim move down past it
-                row = (vr / mean(vr, d1 - 1 if d1 > d0 else d1,
-                                 None if sd is None or sd == d0 else sd - (sd > d0),
+                # v_row lacks d0: d1 and the split dims move down past it
+                row = (vr / mean(vr, d1 - 1 if d1 > d0 else d1, less(sd, d0), less(td, d0),
                                  keepdim=True)) ** -0.5
                 return gv * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
 
             # clip_by_block_rms over the whole leaf: a first pass for its
             # sum of squares, a second that recomputes and applies
-            ss = split_sum(sum(scaled(v, True).square().sum() for v in views))
+            ss = total(sum(owned_sum(scaled(v, True).square(), td) for v in views))
             numel = math.prod(shape)
             denom = torch.clamp(torch.sqrt(ss / numel) / self.CLIPPING_THRESHOLD, min=1.0)
             if split is None:
                 rms = torch.linalg.vector_norm(p) / math.sqrt(numel)
             else:
-                rms = split_sum(p.float().square().sum()).sqrt() / math.sqrt(numel)
+                rms = total(owned_sum(p.float().square(), None)).sqrt() / math.sqrt(numel)
             rms = torch.where(rms <= self.MIN_PARAM_SCALE,
                               torch.full_like(rms, self.MIN_PARAM_SCALE), rms)
             step = lr * rms / denom

@@ -14,7 +14,9 @@ gathers each sharded leaf at use and reduce-scatters its gradient
 split the step, the loss's count of targets and the BatchNorm statistics
 are the global batch's, and the optimizer's reductions span the shards,
 so that N ranks take the step one process takes on the whole batch. The
-returned loss is the global one.
+returned loss is the global one. On a mesh with tensor above 1 the ranks of
+a tensor group take the same rows and each its slices of the split leaves
+(the model reads its rank's decoder config, sv.decoder_config).
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ import torch
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.parallel import zero
-from starvector_tpu_torch.parallel.sharding import shard_pytree
 from starvector_tpu_torch.train.optim import Chain, global_norm, tree_leaves, tree_map
 
 BN_STATS = ("running_mean", "running_var")
@@ -156,13 +157,14 @@ def make_eval_step(cfg: sv.StarVectorConfig, pad_token_id: int, *,
     return eval_step
 
 
-def shard_train_state(params: dict, opt: Chain, mesh) -> tuple[dict, dict]:
-    """This rank's shards of params by the model's partition rules
-    (sv.partition_rules, parallel/sharding.py::shard_pytree) and a fresh
-    optimizer state made on them: every moment lies beside its parameter's
-    shard (ZeRO-3). `mesh`: a DeviceMesh of the batch axes and `sequence`,
-    or a parallel.zero.Layout over one."""
-    params = shard_pytree(params, sv.partition_rules(), mesh)
+def shard_train_state(params: dict, opt: Chain, mesh,
+                      cfg: sv.StarVectorConfig) -> tuple[dict, dict]:
+    """This rank's shards of params by the model's partition rules and,
+    on a mesh with tensor above 1, `cfg`'s tensor_units (sv.shard_params)
+    and a fresh optimizer state made on them: every moment lies beside its
+    parameter's shard (ZeRO-3). `mesh`: a DeviceMesh of the batch axes,
+    `sequence` and `tensor`, or a parallel.zero.Layout over one."""
+    params = sv.shard_params(params, cfg, mesh)
     return params, opt.init(params)
 
 

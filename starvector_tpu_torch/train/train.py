@@ -23,15 +23,18 @@ too with project.report_to: wandb), a snapshot of starvector_tpu_torch/
 The mesh: under `torchrun --nproc_per_node N` (one process a device) the
 `mesh:` block, fsdp: -1 over every rank without one, lays the N ranks out
 as the JAX main lays out its devices (parallel/): plain DP, ZeRO-3/FSDP
-and HSDP over the batch axes (replica, data, fsdp), and sequence
-parallelism with ZeRO over sequence (parallel/sequence.py; the 8B recipe
-im2svg-stack-v5e8.yaml asks for fsdp 4 x sequence 2); stage or tensor
-above 1 raises NotImplementedError (ROADMAP queue 1, item 12). Each rank
-keeps its shards of the parameters and optimizer state and trains on its
-batch coordinate's contiguous block of the global batch that a
-one-process run draws (the ranks of a sequence group the same block,
-each its chunk of the positions where the batch's length divides), so
-N ranks take the one-process steps. Rank 0 alone logs, writes
+and HSDP over the batch axes (replica, data, fsdp), sequence parallelism
+with ZeRO over sequence (parallel/sequence.py; the 8B recipe
+im2svg-stack-v5e8.yaml asks for fsdp 4 x sequence 2) and tensor
+parallelism (`tensor`: each rank its whole heads and MLP columns of the
+decoder, the vision tower and the adapter, parallel/tensor.py), alone or
+with the others; stage above 1 raises NotImplementedError (ROADMAP queue
+1, item 12). Each rank keeps its shards of the parameters and optimizer
+state and trains on its batch coordinate's contiguous block of the global
+batch that a one-process run draws (the ranks of a sequence or tensor
+group the same block, a sequence rank its chunk of the positions where
+the batch's length divides), so N ranks take the one-process steps. Rank
+0 alone logs, writes
 the run directory and writes each checkpoint, from the state gathered
 whole (the files a one-process run writes); a resume re-shards it on the
 run's own mesh. A CUDA run takes NCCL, training.device=cpu gloo. Started
@@ -130,8 +133,8 @@ def to_device(batch: dict, device) -> dict:
 
 def rank_rows(batch: dict, layout: zero.Layout | None) -> dict:
     """This rank's contiguous block of a global batch's rows by its batch
-    coordinate (the JAX batch_spec layout: the ranks of a sequence group
-    take the same block), the batch itself without a layout."""
+    coordinate (the JAX batch_spec layout: the ranks of a sequence or a
+    tensor group take the same block), the batch itself without a layout."""
     if layout is None:
         return batch
     B = len(next(batch[k] for k in BATCH_TYPES if k in batch))
@@ -347,7 +350,7 @@ def _main(config, device: torch.device, mesh_cfg) -> dict:
         if rank0:
             print(f"resumed from {last} at step {step}")
     if layout is not None:
-        params, opt_state = shard_train_state(params, opt, layout)
+        params, opt_state = shard_train_state(params, opt, layout, cfg)
         if saved is not None:
             state = zero.load_shards({"params": params, "opt_state": opt_state}, saved)
             params, opt_state = state["params"], state["opt_state"]

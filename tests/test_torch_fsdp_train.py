@@ -62,10 +62,25 @@ def _free_port() -> int:
 
 
 def launch(script: Path, job: str, world: int, args: dict, tmp_path: Path,
-           timeout: float = 300.0):
+           timeout: float = 300.0, attempts: int = 3):
     """Run `job` of `script` in `world` gloo ranks, one process each with
     torchrun's variables, and return what rank 0 saved. A rank that fails
-    stops the others."""
+    stops the others. A run whose rendezvous port another process took
+    between _free_port and rank 0's bind (EADDRINUSE: tests in parallel
+    pick ports too) starts again on a new port."""
+    for attempt in range(attempts):
+        try:
+            return _launch(script, job, world, args, tmp_path, timeout)
+        except _PortTaken:
+            if attempt == attempts - 1:
+                raise
+
+
+class _PortTaken(AssertionError):
+    pass
+
+
+def _launch(script: Path, job: str, world: int, args: dict, tmp_path: Path, timeout: float):
     tag = f"{job}-{time.monotonic_ns()}"
     argf, out = tmp_path / f"{tag}-args.pt", tmp_path / f"{tag}-out.pt"
     torch.save(args, argf)
@@ -89,7 +104,11 @@ def launch(script: Path, job: str, world: int, args: dict, tmp_path: Path,
                 p.kill()
                 p.wait()
     for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} of {job}:\n" + logs[r].read_text()[-6000:]
+        if p.returncode != 0:
+            text = logs[r].read_text()
+            if "EADDRINUSE" in logs[0].read_text():
+                raise _PortTaken(f"rank 0 of {job} could not bind its port")
+            raise AssertionError(f"rank {r} of {job}:\n" + text[-6000:])
     return torch.load(out, weights_only=False)
 
 
@@ -137,7 +156,7 @@ def _steps_job(model: str, params: dict, batch: dict, mesh: dict, remat, opt: di
     policy = DTypePolicy(torch.float32, torch.float32)
     layout = zero.Layout(create_mesh(MeshConfig(**mesh)))
     tx = optim.build_optimizer(params, **opt)
-    params, state = step.shard_train_state(params, tx, layout)
+    params, state = step.shard_train_state(params, tx, layout, cfg)
     step.mark_trainable(params)
     rows = to_device(rank_rows(batch, layout), "cpu")
     loss0, _, grads = step.loss_and_grads(params, cfg, rows, 0, policy=policy, remat=remat,
@@ -198,13 +217,14 @@ def _grpo_job(params: dict, mesh: dict, rollout: dict, advantages, updates: int)
     from starvector_tpu_torch.models import starvector as tsv
     from starvector_tpu_torch.models.tokenizer import build_test_tokenizer
     from starvector_tpu_torch.ops.layers import DTypePolicy
-    from starvector_tpu_torch.parallel import MeshConfig, create_mesh, shard_pytree, zero
+    from starvector_tpu_torch.parallel import MeshConfig, create_mesh, zero
     from starvector_tpu_torch.train import grpo
     from starvector_tpu_torch.train.optim import tree_leaves, tree_map
 
     layout = zero.Layout(create_mesh(MeshConfig(**mesh)))
-    model = StarVectorForCausalLM(shard_pytree(params, tsv.partition_rules(), layout),
-                                  tsv.tiny_config(), build_test_tokenizer("v1"), device="cpu",
+    cfg = tsv.tiny_config()
+    model = StarVectorForCausalLM(tsv.shard_params(params, cfg, layout), cfg,
+                                  build_test_tokenizer("v1"), device="cpu",
                                   policy=DTypePolicy(torch.float32, torch.float32))
 
     def rows(tree):

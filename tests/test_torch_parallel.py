@@ -691,11 +691,11 @@ def test_batch_specs_sanitize_and_summary_equal_jax():
 # refusals
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("axis", ["stage", "tensor", "stage+sequence"])
+@pytest.mark.parametrize("axis", ["stage", "stage+tensor", "stage+sequence"])
 def test_model_parallel_axes_raise_citing_item_12(axis, tmp_path):
-    """stage or tensor above 1 raises NotImplementedError naming ROADMAP
-    queue 1, item 12, with or without a sequence axis beside it (the JAX
-    package's pp_layer_scan refuses stage with sequence): in train.main
+    """stage above 1 raises NotImplementedError naming ROADMAP queue 1,
+    item 12, with or without a tensor or a sequence axis beside it (the
+    JAX package's pp_layer_scan refuses stage with sequence): in train.main
     before anything runs or is written, and in shard_pytree, the way
     GRPOTrainer's parameters reach a mesh."""
     from starvector_tpu_torch.config import ConfigNode

@@ -630,19 +630,20 @@ def test_data2_tensor2_workers_serve_the_one_process_text(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_refusals_cite_item_12():
-    """A serve mesh with stage above 1 and a training mesh with tensor above
-    1 raise NotImplementedError citing item 12. (The 1B, an int8-weight
-    decoder and use_speculative on a tensor mesh are served:
-    tests/test_torch_tensor_parallel_rest.py.)"""
+    """A serve mesh and a training mesh with stage above 1 raise
+    NotImplementedError citing item 12. (The 1B, an int8-weight decoder and
+    use_speculative on a tensor mesh are served:
+    tests/test_torch_tensor_parallel_rest.py; tensor-parallel training:
+    tests/test_torch_tensor_train.py.)"""
     from starvector_tpu_torch.parallel import tensor, zero
     from starvector_tpu_torch.parallel.mesh import refuse_unported_axes
 
     with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
         tensor.serving_mesh_config({"tensor": 2, "stage": 2})
-    with pytest.raises(NotImplementedError, match=r"\{'tensor': 2\}.*item 12"):
-        refuse_unported_axes({"tensor": 2}, "the training mesh")
-    with pytest.raises(NotImplementedError, match=r"\{'tensor': 2\}.*item 12"):
-        zero.Layout({"tensor": 2})
+    with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
+        refuse_unported_axes({"stage": 2, "tensor": 2}, "the training mesh")
+    with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
+        zero.Layout({"stage": 2, "tensor": 2})
 
 
 def test_both_serve_configs_map_onto_their_meshes():
