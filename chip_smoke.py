@@ -59,7 +59,9 @@ Phases, one line each (any failure raises and exits non-zero):
      training pair at a tensor rank's heads (phase 5g): the 1B's H = 8, 4
      and 2 over its KV head (B=4 S=T=769) and the 8B's 18 over 2, 9, 5 and
      4 over 1 (B=1 S=T=4700, window 4096), fp32 and bf16, bf16 bit for bit
-     on relaunch, with dkdv_head_split's pick at each
+     on relaunch, with dkdv_head_split's pick at each; and at a pipeline
+     stage's microbatch (phase 5g's 1b-stage2-fsdp2: B=1 S=T=769, H=16
+     over 1)
   4. inference at full StarVector-1B width (GPTBigCode 2048 x 24 layers,
      CLIP ViT-L/14 at 224, BatchNorm adapter) on random weights from a
      seeded torch.Generator: 3 requests of 4 images through
@@ -211,21 +213,26 @@ Phases, one line each (any failure raises and exits non-zero):
      launch of rank 1 at q_offset = S_total / 2; each rank's and the
      unsharded forward + backward times. The multi-rank path itself is held
      on the CPU over gloo (tests/test_torch_sequence_parallel.py)
-  5g. tensor-parallel training: TPT_WORLD = 4 processes on the one card
-     over a gloo group (as 6e), each on its tensor slices of the whole
-     tree (decoder, vision tower, adapter; parallel/tensor.py's two
-     collectives under autograd), against one process on the same card,
-     weights and batch (run first, its state released before the ranks
-     start), both with the kernels, fp32, 2 steps: 1b-fsdp2-tp2 (fsdp 2 x
-     tensor 2; the 1B at full width, 8 of its 24 decoder layers, the whole
-     CLIP ViT-L/14 and the BatchNorm adapter; AdamW, dots_flash, B=4,
-     T=769) and 8b-tp4 (tensor 4; the 8B at full width, 2 of 32 layers,
-     SigLIP-L/16, the LayerNorm adapter; Adafactor, dots_flash, B=1,
-     T=4700 past the window): each step's loss and grad norm within rtol
-     1e-4 on every rank, the parameters gathered whole within fp32 TOL;
-     each rank launches the forward with lse and the backward pair once a
-     decoder layer a step at its heads (8 over 1; 9 over 1); each rank's
-     peak memory; walls are gloo's
+  5g. tensor- and pipeline-parallel training: TPT_WORLD = 4 processes on
+     the one card over a gloo group (as 6e), each on its tensor slices of
+     the whole tree (decoder, vision tower, adapter; parallel/tensor.py's
+     two collectives under autograd) or its stage's block of the decoder's
+     layers (parallel/pipeline.py's GPipe ticks), against one process on
+     the same card, weights and batch (run first, its state released
+     before the ranks start), both with the kernels, fp32, 2 steps:
+     1b-fsdp2-tp2 (fsdp 2 x tensor 2; the 1B at full width, 4 of its 24
+     decoder layers, the whole CLIP ViT-L/14 and the BatchNorm adapter;
+     AdamW, dots_flash, B=4, T=769), 1b-stage2-fsdp2 (fsdp 2 x stage 2;
+     the same model, weights and batch: 2 layers a stage, each rank's 2
+     rows 2 microbatches of 1) and 8b-tp4 (tensor 4; the 8B at full width,
+     2 of 32 layers, SigLIP-L/16, the LayerNorm adapter; Adafactor,
+     dots_flash, B=1, T=4700 past the window): each step's loss and grad
+     norm within rtol 1e-4 on every rank, the parameters gathered whole
+     within fp32 TOL; each rank launches the forward with lse and the
+     backward pair once a decoder layer a step at its heads (8 over 1;
+     9 over 1), and on the stage mesh once a layer of its stage a
+     microbatch, at B=1 and 16 over 1; each rank's microbatches and peak
+     memory; walls are gloo's
   6. inference at full StarVector-8B width (StarCoder2-7B 4608 wide, GQA
      36/4, window 4096; SigLIP-L/16 at 384; LayerNorm adapter) and 8 of its
      32 decoder layers (DEPTH_8B) on random bf16 weights that
@@ -311,7 +318,8 @@ Phases, one line each (any failure raises and exits non-zero):
      slices (a layer's projections, GEMV and tile) beside bf16 addmm and
      _weight_int8pack_mm, the training pair at 5g's rank heads (the 1B's
      H = 8 at B=4 T=769; the 8B's H = 9 over 1 at B=1 T=4700, window)
-     beside SDPA with enable_gqa,
+     and at 5g's pipeline microbatch (B=1 T=769 H=16) beside SDPA with
+     enable_gqa,
      also the training kernels at the long contexts phase 3 drives (with
      --profile DIR, also where a decode step's and the 1B and 8B train
      steps' device time goes)
@@ -328,6 +336,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -1152,15 +1161,18 @@ TRAIN_CASES = [  # name, B, S, T, H, Hkv, q_offset, window, right_pad, left_pad
     ("8B tensor rank H=9", 1, 4700, 4700, 9, 1, 0, 4096, 0, 0),
     ("8B tensor rank H=5", 1, 4700, 4700, 5, 1, 0, 4096, 0, 0),
     ("8B tensor rank H=4", 1, 4700, 4700, 4, 1, 0, 4096, 0, 0),
+    # a pipeline stage's microbatch (phase 5g's 1b-stage2-fsdp2): one row
+    ("1B pipeline microbatch", 1, 769, 769, 16, 1, 0, None, 0, 0),
 ]
 # cases whose bf16 kernels are launched twice and held to the same bits
 RELAUNCH_CASES = ("1B train step", "8B train, short", "8B train past the window",
-                  "8B right-padded keys past the window", "8B train step") + tuple(
+                  "8B right-padded keys past the window", "8B train step",
+                  "1B pipeline microbatch") + tuple(
     case[0] for case in TRAIN_CASES if "tensor rank" in case[0])
 # the case whose bf16 error each kernel's JSON row reports: the shape its
 # times are taken at (phase 7), by the row name's suffix
 ROW_CASES = {"": "1B train step", "_8b": "8B train step", "_tp1b": "1B tensor rank H=8",
-             "_tp8b": "8B tensor rank H=9"}
+             "_tp8b": "8B tensor rank H=9", "_pp1b": "1B pipeline microbatch"}
 
 
 def compare_training(what: str, out, plain, ref32, dtype, live=None) -> float:
@@ -5110,17 +5122,20 @@ def training_times(tfa, dev, card: str, train: dict, errs: dict) -> list[dict]:
     return rows
 
 
-# the training kernels at a tensor rank's heads (phase 5g's two cases):
-# the row suffix, the case, B, T, H, Hkv, window, and the line of the TPU
-# backward kernel that shape runs (fused for T <= 2048, one-pass above)
+# the training kernels at a tensor rank's heads (phase 5g's two tensor
+# cases) and at a pipeline stage's microbatch (its stage case): the row
+# suffix, the case, B, T, H, Hkv, window, and the line of the TPU backward
+# kernel that shape runs (fused for T <= 2048, one-pass above)
 TP_TRAIN_TIMES = (("_tp1b", "1b-fsdp2-tp2", 4, 769, 8, 1, None, 968),
-                  ("_tp8b", "8b-tp4", 1, 4700, 9, 1, 4096, 1092))
+                  ("_tp8b", "8b-tp4", 1, 4700, 9, 1, 4096, 1092),
+                  ("_pp1b", "1b-stage2-fsdp2", 1, 769, 16, 1, None, 968))
 
 
 def tp_training_times(tfa, dev, card: str, tpt: dict, errs: dict) -> list[dict]:
     """The training kernels at a tensor rank's heads, bf16, S = T: the 1B's
     8 over its one KV head at its step's B=4, T=769 (tensor 2) and the 8B's
-    9 over 1 at B=1, T=4700 past the 4096 window (tensor 4), each beside its
+    9 over 1 at B=1, T=4700 past the 4096 window (tensor 4), and at a
+    pipeline stage's microbatch (the 1B's 16 over 1 at B=1, T=769), each beside its
     plain version, its bound and SDPA with enable_gqa (the window as an
     explicit mask; the backward against dkdv + dq). The kernels are
     graph-replayed (10 calls a graph); the plain versions and SDPA's
@@ -5164,7 +5179,7 @@ def tp_training_times(tfa, dev, card: str, tpt: dict, errs: dict) -> list[dict]:
             plain_ms, ms = (a + timer(lambda: fn(False))) / 2, (b + c) / 2
             torch.cuda.empty_cache()
             b_ms, b_by = bound(nbytes, flops)
-            log("times", f"{card}: {name} at a tensor rank's heads ({case}) {shape}: kernel "
+            log("times", f"{card}: {name} at phase 5g's {case} shape, {shape}: kernel "
                          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the "
                          f"bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
                          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), SDPA (enable_gqa) "
@@ -5274,22 +5289,38 @@ def long_context_times(tfa, dev, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5g: tensor-parallel training (parallel/tensor.py under autograd)
+# phase 5g: tensor- and pipeline-parallel training (parallel/tensor.py and
+# parallel/pipeline.py under autograd)
 # ---------------------------------------------------------------------------
 
 TPT_WORLD = 4       # each case's ranks, each a process on the one card
 TPT_STEPS = 2
 TPT_TIMEOUT = 900   # seconds the ranks may take before the phase fails
-# decoder layers of each case: the 1B's DEPTH_1B_EARLIER (8 of 24), the 8B's
-# 2 of 32 (its fp32 check's, phase 6b)
-TPT_LAYERS = {"1b": 8, "8b": 2}
+# decoder layers of each case: the 1B's 4 of 24 (2 a stage on the stage
+# mesh; cut from 8 to pay for the stage case), the 8B's 2 of 32 (its fp32
+# check's, phase 6b)
+TPT_LAYERS = {"1b": 4, "8b": 2}
 # name, model, mesh, optimizer, svg lengths (B rows), remat, the heads a rank's
 # training kernels run at (H, Hkv); the 8B's one row of 4124 svg tokens makes
 # T = 576 + 4124 = 4700, past the window (phase 6b's SVG_8B_FP32)
 TPT_CASES = (
     ("1b-fsdp2-tp2", "1b", dict(fsdp=2, tensor=2), "adamw", SVG_LENGTHS, "dots_flash", (8, 1)),
+    ("1b-stage2-fsdp2", "1b", dict(fsdp=2, stage=2), "adamw", SVG_LENGTHS, "dots_flash",
+     (16, 1)),
     ("8b-tp4", "8b", dict(fsdp=1, tensor=4), "adafactor", (4124,), "dots_flash", (9, 1)),
 )
+
+
+def tpt_plan(axes: dict, lengths) -> tuple[int, int, int]:
+    """(microbatches, rows a launch, stages) of a case's rank: its batch
+    coordinate's rows, split into the pipeline's microbatches on a stage
+    mesh (parallel/pipeline.py::micro_count)."""
+    from starvector_tpu_torch.parallel.pipeline import micro_count
+
+    stage = axes.get("stage", 1)
+    rows = len(lengths) // math.prod(axes.get(a, 1) for a in ("replica", "data", "fsdp"))
+    nm = micro_count(rows, stage) if stage > 1 else 1
+    return nm, rows // nm, stage
 # AdamW at eps 1e-6 (an element whose gradient is fp32 summation noise,
 # ~1e-9, moves by lr x 1e-3, not by lr x its sign), Adafactor at the 6c lr
 TPT_OPT = {"adamw": dict(lr=1e-4, warmup_steps=0, betas=(0.95, 0.999), eps=1e-6,
@@ -5337,11 +5368,12 @@ def tpt_steps(sv, cfg, params, batch, opt_kw: dict, remat, layout=None) -> dict:
 
 @contextlib.contextmanager
 def launch_heads(tfa):
-    """{kernel: {(H, Hkv) of each launch}} of the three training kernels
-    while within (the wrappers replaced in the module as launch_offsets
-    replaces them)."""
+    """({kernel: {(H, Hkv) of each launch}}, {kernel: {B of each launch}})
+    of the three training kernels while within (the wrappers replaced in
+    the module as launch_offsets replaces them)."""
     real = {name: getattr(tfa, name) for name in TRAIN_KERNELS}
     seen = {name: set() for name in TRAIN_KERNELS}
+    rows = {name: set() for name in TRAIN_KERNELS}
 
     def wrapped(name):
         fn = real[name]
@@ -5351,6 +5383,7 @@ def launch_heads(tfa):
             out = fn(q, k, *args, **kw)
             if call.launches > before:
                 seen[name].add((int(q.shape[2]), int(k.shape[2])))
+                rows[name].add(int(q.shape[0]))
             return out
 
         call.launches = fn.launches
@@ -5359,7 +5392,7 @@ def launch_heads(tfa):
     for name in TRAIN_KERNELS:
         setattr(tfa, name, wrapped(name))
     try:
-        yield seen
+        yield seen, rows
     finally:
         for name, fn in real.items():
             fn.launches = getattr(tfa, name).launches
@@ -5384,10 +5417,12 @@ def _tpt_case(sv, tfa, run, shared: dict, dev) -> dict:
     params = tree_map(lambda t: t if zero.sharded(t) is not None
                       else zero.register_like(t.detach().clone(), t), params)
     reset_counts(tfa)
-    with launch_heads(tfa) as heads:
+    with launch_heads(tfa) as (heads, rows):
         res = tpt_steps(sv, cfg, params, shared["batch"], TPT_OPT[opt], remat, layout)
     res.update(counts={k: read_counts(tfa)[k] for k in TRAIN_KERNELS},
-               heads={k: sorted(v) for k, v in heads.items()}, peak=torch.cuda.max_memory_allocated())
+               heads={k: sorted(v) for k, v in heads.items()},
+               rows={k: sorted(v) for k, v in rows.items()},
+               micro=tpt_plan(axes, run[4])[0], peak=torch.cuda.max_memory_allocated())
     atol, rtol = TOL[torch.float32]
     worst, bad = 0.0, []
     for leaf, ref in zip(tree_leaves(res.pop("params")), tree_leaves(shared["ref"])):
@@ -5443,20 +5478,22 @@ def _tpt_rank(rank: int, port: int, inbox, results) -> None:
 
 
 def tensor_training(sv, tfa, dev, card: str, clip_images) -> dict:
-    """Phase 5g: train.step on a mesh with tensor above 1, TPT_WORLD gloo
-    ranks on the one card (_tpt_rank), against one process on the same
-    card, weights and batch, both with the kernels, fp32. 1b-fsdp2-tp2:
-    StarVector-1B at full width, the first TPT_LAYERS["1b"] of its 24
-    decoder layers, the whole CLIP ViT-L/14 and the BatchNorm adapter,
-    AdamW, dots_flash, B=4, T=769; 8b-tp4: StarVector-8B at full width, 2 of
-    its 32 decoder layers, SigLIP-L/16 and the LayerNorm adapter,
-    Adafactor, dots_flash, B=1, T=4700 past the window. Each step's loss and
-    grad norm within rtol 1e-4 of one process's, the parameters after
-    TPT_STEPS steps gathered whole within fp32 TOL; each rank's launches a
-    step: one forward-with-lse and one backward pair a decoder layer, at the
-    case's rank heads. One process's reference runs first, and its state
-    goes before the ranks start; the ranks' walls are gloo's. Returns the
-    launches, the heads and the walls by case."""
+    """Phase 5g: train.step on a mesh with tensor or stage above 1,
+    TPT_WORLD gloo ranks on the one card (_tpt_rank), against one process
+    on the same card, weights and batch, both with the kernels, fp32.
+    1b-fsdp2-tp2 and 1b-stage2-fsdp2: StarVector-1B at full width, the
+    first TPT_LAYERS["1b"] of its 24 decoder layers, the whole CLIP
+    ViT-L/14 and the BatchNorm adapter, AdamW, dots_flash, B=4, T=769 (one
+    reference for both); 8b-tp4: StarVector-8B at full width, 2 of its 32
+    decoder layers, SigLIP-L/16 and the LayerNorm adapter, Adafactor,
+    dots_flash, B=1, T=4700 past the window. Each step's loss and grad norm
+    within rtol 1e-4 of one process's, the parameters after TPT_STEPS steps
+    gathered whole within fp32 TOL; each rank's launches a step: one
+    forward-with-lse and one backward pair a decoder layer of its own a
+    microbatch (tpt_plan), at the case's heads and rows. One process's
+    reference runs first, and its state goes before the ranks start; the
+    ranks' walls are gloo's. Returns the launches, the heads and the walls
+    by case."""
     import socket
 
     import torch.multiprocessing as mp
@@ -5469,6 +5506,11 @@ def tensor_training(sv, tfa, dev, card: str, clip_images) -> dict:
     shared, refs = {}, {}
     for run in TPT_CASES:
         name, model, axes, opt, lengths, remat, _ = run
+        same = next((r[0] for r in TPT_CASES if r[0] in shared
+                     and (r[1], r[3], r[4], r[5]) == (model, opt, lengths, remat)), None)
+        if same is not None:  # the same model, weights, batch and recipe: one reference
+            shared[name], refs[name] = shared[same], refs[same]
+            continue
         cfg = tpt_config(sv, model)
         images = clip_images if model == "1b" else processor_for_encoder(
             cfg.image_encoder_type, cfg.image_size, device=dev).batch
@@ -5532,17 +5574,20 @@ def tensor_training(sv, tfa, dev, card: str, clip_images) -> dict:
     out = {}
     for name, model, axes, opt, lengths, remat, heads in TPT_CASES:
         ref, L = refs[name], TPT_LAYERS[model]
-        per_step = dict.fromkeys(TRAIN_KERNELS, L * TPT_STEPS)
+        nm, per_launch, stages = tpt_plan(axes, lengths)
+        per_step = dict.fromkeys(TRAIN_KERNELS, L // stages * nm * TPT_STEPS)
         for r, res in sorted(ranks.items()):
             got = res[name]
             for what in ("losses", "norms"):
                 if not np.allclose(got[what], ref[what], rtol=1e-4, atol=0):
                     raise AssertionError(f"5g {name} rank {r}: {what} {got[what]}, one process "
                                          f"{ref[what]}")
-            if got["counts"] != per_step or any(v != [heads] for v in got["heads"].values()):
+            if got["counts"] != per_step or any(v != [heads] for v in got["heads"].values()) \
+                    or any(v != [per_launch] for v in got["rows"].values()):
                 raise AssertionError(f"5g {name} rank {r}: launches {got['counts']} at heads "
-                                     f"{got['heads']}, expected {per_step} at {heads}")
-        if ref["counts"] != per_step:
+                                     f"{got['heads']} and rows {got['rows']}, expected "
+                                     f"{per_step} at {heads} and {per_launch}")
+        if ref["counts"] != dict.fromkeys(TRAIN_KERNELS, L * TPT_STEPS):
             raise AssertionError(f"5g {name} one process: launches {ref['counts']}")
         lead = ranks[0][name]
         if lead["bad"]:
@@ -5555,15 +5600,17 @@ def tensor_training(sv, tfa, dev, card: str, clip_images) -> dict:
                      f"T={T}): losses {lead['losses']} (one process {ref['losses']}), grad norms "
                      f"{lead['norms']} (one process {ref['norms']}), rtol 1e-4 on every rank; "
                      f"parameters after {TPT_STEPS} steps gathered whole: max |diff| "
-                     f"{lead['worst']:.3e} (fp32 TOL atol=rtol 1e-4); launches a rank "
-                     f"{lead['counts']} = {L} layers x {TPT_STEPS} steps at (H, Hkv) {heads}; peak "
+                     f"{lead['worst']:.3e} (fp32 TOL atol=rtol 1e-4); microbatches a rank "
+                     f"{[ranks[r][name]['micro'] for r in sorted(ranks)]}; launches a rank "
+                     f"{lead['counts']} = {L // stages} layers x {nm} microbatches x {TPT_STEPS} "
+                     f"steps at (H, Hkv) {heads}, B={per_launch}; peak "
                      f"memory a rank (GiB) {[round(ranks[r][name]['peak'] / 2**30, 2) for r in sorted(ranks)]}"
                      f", one process {ref['peak'] / 2**30:.2f} GiB above what was held; step wall "
                      f"(s, gloo's) rank 0 {[round(x, 2) for x in lead['seconds']]}, one process "
                      f"{[round(x, 2) for x in ref['seconds']]}; the case {lead['wall']:.1f} s a rank")
         out[name] = dict(launches={k: sum(ranks[r][name]["counts"][k] for r in ranks)
                                    for k in TRAIN_KERNELS},
-                         per_rank=lead["counts"], heads=heads, wall=lead["wall"])
+                         per_rank=lead["counts"], heads=heads, micro=nm, wall=lead["wall"])
     log("phase", f"5g took {time.perf_counter() - t0:.0f} s: one-process references "
                  f"{t_ref:.0f} s, the ranks {t_ranks:.0f} s")
     return out
@@ -6839,8 +6886,15 @@ def main() -> int:
     dev = torch.device("cuda")
     t_run = time.perf_counter()
 
+    took: list[list] = []  # [phase, its start, its seconds]
+
     def phase(n: int | str, what: str) -> None:
-        log("phase", f"{n}. {what}, {time.perf_counter() - t_run:.0f} s into the run")
+        now = time.perf_counter()
+        if took:
+            took[-1][2] = now - took[-1][1]
+            log("phase", f"{took[-1][0]} took {took[-1][2]:.0f} s")
+        took.append([n, now, None])
+        log("phase", f"{n}. {what}, {now - t_run:.0f} s into the run")
 
     # --- 1. card -------------------------------------------------------------
     card = card_line()
@@ -7120,8 +7174,8 @@ def main() -> int:
     log("phase", f"5f took {time.perf_counter() - t_5f:.0f} s")
 
     # --- 5g. tensor-parallel training: gloo ranks on the card against one process --
-    phase("5g", "tensor-parallel training, 1b-fsdp2-tp2 and 8b-tp4, gloo ranks on one card "
-                "against one process")
+    phase("5g", "tensor- and pipeline-parallel training, 1b-fsdp2-tp2, 1b-stage2-fsdp2 and "
+                "8b-tp4, gloo ranks on one card against one process")
     tpt = tensor_training(sv, tfa, dev, card, clip_images)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7237,7 +7291,8 @@ def main() -> int:
         profile_train_step(sv, tfa, dev, recipe["cfg"], t8["batch"], card, recipe["step"],
                            args.profile, "8B recipe", **recipe["run"])
 
-    log("phase", f"done, {time.perf_counter() - t_run:.0f} s into the run")
+    phase("done", "every phase")
+    log("phase", "seconds a phase: " + ", ".join(f"{n} {sec:.0f}" for n, _, sec in took[:-1]))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "starvector_tpu"))
     if leaked:
         raise AssertionError(f"the port pulled in the JAX package: {leaked}")

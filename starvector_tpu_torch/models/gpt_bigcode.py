@@ -52,7 +52,9 @@ head fused into chunks whose logits are recomputed in the backward;
 `token_logprobs_fused` gives GRPO's per-token log-probs the same way. On a
 sequence-parallel layout the training forward splits the positions after
 wpe and each rank runs its chunk, its attention through
-parallel/sequence.py::sp_flash_attention.
+parallel/sequence.py::sp_flash_attention; on a stage mesh the layers run
+through parallel/pipeline.py::pipeline_layers (GPipe over the stage ranks,
+each its block of the layers; the plain loop elsewhere).
 
 The config's resid/embd/attn dropout fields are declared and never applied,
 as in the JAX package.
@@ -69,14 +71,14 @@ from torch.utils.checkpoint import checkpoint
 
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.parallel.mesh import BATCH_AXES, P
-from starvector_tpu_torch.parallel import sequence, zero
+from starvector_tpu_torch.parallel import pipeline, sequence, zero
 from starvector_tpu_torch.parallel.tensor import copy_to_group
 from starvector_tpu_torch.parallel.zero import gathered
 from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, merged_decode_attention,
 )
 from starvector_tpu_torch.ops.layers import (
-    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, layer_unbind, make_dense_params,
+    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, make_dense_params,
     make_layer_norm_params, matmul_f32, normal_, remat_layer,
 )
 
@@ -369,8 +371,9 @@ def _forward_uncached(params, cfg, inputs_embeds, attention_mask, position_ids, 
     span = sequence.split_sequence(S)  # a sequence-parallel rank's chunk of positions
     if span is not None:
         x = x[:, span[0]:span[1]]
-    for layer in layer_unbind(params["layers"], cfg.n_layer):
-        x = _train_block(layer, cfg, x, kv_mask, policy, remat, kernels)
+    x = pipeline.pipeline_layers(
+        params["layers"], x, {"kv_mask": kv_mask},
+        lambda h, layer, a: _train_block(layer, cfg, h, a["kv_mask"], policy, remat, kernels))
     x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
     if return_hidden:
         return x, None

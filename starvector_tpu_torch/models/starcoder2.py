@@ -36,7 +36,9 @@ window, activation checkpointing per `remat` (see `_train_block`). The loss
 is gpt_bigcode.causal_lm_loss_fused over `lm_head_table`. On a
 sequence-parallel layout it splits the positions, RoPE at the chunk's
 absolute positions, and each rank runs its chunk, its attention through
-parallel/sequence.py::sp_flash_attention.
+parallel/sequence.py::sp_flash_attention; on a stage mesh the layers run
+through parallel/pipeline.py::pipeline_layers, the key mask and the RoPE
+tables travelling with each microbatch.
 
 Over a ragged cache (per-row lengths; the serving engine's):
 `forward_ragged_decode` is one decode step with RoPE at each row's own
@@ -54,7 +56,7 @@ import dataclasses
 import torch
 
 from starvector_tpu_torch.models import decode_common as dc
-from starvector_tpu_torch.parallel import sequence
+from starvector_tpu_torch.parallel import pipeline, sequence
 from starvector_tpu_torch.parallel.mesh import P
 from starvector_tpu_torch.parallel.tensor import copy_to_group
 from starvector_tpu_torch.parallel.zero import gathered
@@ -62,7 +64,7 @@ from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, merged_decode_attention,
 )
 from starvector_tpu_torch.ops.layers import (
-    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, layer_unbind, make_dense_params,
+    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, make_dense_params,
     make_layer_norm_params, matmul_f32, normal_, remat_layer,
 )
 from starvector_tpu_torch.ops.rotary import rope_frequencies, rope_tables, rotate
@@ -401,8 +403,10 @@ def forward(
 
     layers = params["layers"]
     if cache is None:
-        for layer in layer_unbind(layers, cfg.num_hidden_layers):
-            x = _train_block(layer, cfg, x, kv_mask, rope, policy, remat, kernels)
+        x = pipeline.pipeline_layers(
+            layers, x, {"kv_mask": kv_mask, "cos": rope[0], "sin": rope[1]},
+            lambda h, layer, a: _train_block(layer, cfg, h, a["kv_mask"], (a["cos"], a["sin"]),
+                                             policy, remat, kernels))
     elif S == 1:
         # decode: the new token's k/v stay out of the cache during the layer
         # loop and are written once after it; old_mask covers slots < idx

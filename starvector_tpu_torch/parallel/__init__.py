@@ -1,10 +1,11 @@
-"""Data-parallel, ZeRO-3, sequence- and tensor-parallel training and
-tensor-parallel serving across GPUs (port of starvector_tpu/parallel/): the
-mesh (mesh.py), the partition rules' machinery (sharding.py), the
-collectives of a sharded step (zero.py), the sequence split of the
-training forward (sequence.py) and a tensor rank's slices and collectives
-(tensor.py). Pipeline parallelism is not ported yet (ROADMAP queue 1,
-item 12)."""
+"""Data-parallel, ZeRO-3, sequence-, tensor- and pipeline-parallel
+training and tensor-parallel serving across GPUs (port of
+starvector_tpu/parallel/): the mesh (mesh.py), the partition rules'
+machinery (sharding.py), the collectives of a sharded step (zero.py), the
+sequence split of the training forward (sequence.py), a tensor rank's
+slices and collectives (tensor.py) and GPipe's ticks over the stage ranks'
+blocks of layers (pipeline.py). Serving takes data and tensor meshes only
+(ROADMAP queue 1, item 12)."""
 
 from starvector_tpu_torch.parallel.mesh import (
     MeshConfig,

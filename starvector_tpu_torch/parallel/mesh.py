@@ -1,5 +1,5 @@
-"""The device mesh of data-parallel, ZeRO-3, sequence- and tensor-parallel
-training and of tensor-parallel serving (port of
+"""The device mesh of data-parallel, ZeRO-3, sequence-, tensor- and
+pipeline-parallel training and of tensor-parallel serving (port of
 starvector_tpu/parallel/mesh.py).
 
 The JAX package declares one global `Mesh` with the axes
@@ -32,12 +32,18 @@ over the same axes and puts the collectives in by hand (parallel/zero.py):
           each column-parallel block's input (parallel/tensor.py); on a
           serving mesh of "data" x "tensor", or beside the batch axes and
           "sequence" in training (the fastest axis: the ranks of a tensor
-          group hold the same rows).
+          group hold the same rows);
+
+  * PP    "stage" cuts the decoder's stacked layers into contiguous blocks
+          over the stage ranks, which hold the same rows; the training
+          forward runs GPipe's microbatch ticks over them
+          (parallel/pipeline.py), beside the batch axes and "tensor".
 
 Axes of size 1 are always there, so the partition specs are those of the
-JAX package whatever the mesh. A training mesh with `stage` above 1 raises
-NotImplementedError (refuse_unported_axes); a serving mesh
-takes `data` and `tensor` only (tensor.serving_mesh_config). A `PartitionSpec` here is
+JAX package whatever the mesh. A training mesh with `stage` and `sequence`
+both above 1 raises ValueError, as the JAX pipeline does
+(check_training_mesh); a serving mesh takes `data` and `tensor` only
+(tensor.serving_mesh_config). A `PartitionSpec` here is
 `P`, a tuple with one entry a dimension, each None, an axis name or a
 tuple of names, as JAX's.
 """
@@ -55,7 +61,7 @@ AXIS_REPLICA = "replica"    # whole copies of the fsdp shards (HSDP's outer axis
 AXIS_DATA = "data"          # plain data parallelism
 AXIS_FSDP = "fsdp"          # parameter and optimizer-state sharding (ZeRO-3)
 AXIS_SEQUENCE = "sequence"  # context parallelism (training activations' positions)
-AXIS_STAGE = "stage"        # pipeline parallelism (not executed by the port yet)
+AXIS_STAGE = "stage"        # pipeline parallelism (parallel/pipeline.py)
 AXIS_TENSOR = "tensor"      # tensor parallelism (parallel/tensor.py)
 
 MESH_AXES = (AXIS_REPLICA, AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR)
@@ -123,20 +129,14 @@ def axis_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-UNPORTED_AXES = (AXIS_STAGE,)
-
-
-def refuse_unported_axes(mesh, what: str) -> None:
-    """Raise NotImplementedError when `stage` is above 1: the port trains
-    over the batch axes, `sequence` and `tensor` (pipeline parallelism is
-    not ported)."""
+def check_training_mesh(mesh) -> None:
+    """Raise ValueError for a training mesh with `stage` and `sequence` both
+    above 1: pipeline and sequence parallelism do not nest, in either
+    package (the JAX pp_layer_scan raises the same words)."""
     sizes = axis_sizes(mesh)
-    extra = {a: sizes[a] for a in UNPORTED_AXES if sizes[a] > 1}
-    if extra:
-        raise NotImplementedError(
-            f"{what}: mesh axes {extra} are not ported yet ({NOT_PORTED}); the port runs "
-            f"the batch axes {BATCH_AXES} (DP, FSDP/ZeRO-3, HSDP), {AXIS_SEQUENCE!r} and "
-            f"{AXIS_TENSOR!r}")
+    if sizes[AXIS_STAGE] > 1 and sizes[AXIS_SEQUENCE] > 1:
+        raise ValueError("mesh has both stage > 1 and sequence > 1 — pipeline and "
+                         "sequence parallelism cannot nest; pick one")
 
 
 def create_mesh(config: MeshConfig | None = None, *, device_type: str | None = None):

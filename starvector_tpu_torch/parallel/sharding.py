@@ -18,8 +18,12 @@ The port keeps each rank's shard as a plain local tensor and records the
 spec's split beside it (parallel/zero.py): `shard_pytree`. On a mesh with
 sequence > 1 a weight entry widened to ("fsdp", "sequence") splits over
 fsdp x sequence, rank f * sequence + s holding part f * sequence + s, as
-JAX's devices do. On a mesh with tensor > 1 a leaf whose rule names
-`tensor` is first cut to the tensor rank's ranges along that dimension
+JAX's devices do. On a mesh with stage > 1 a stacked leaf whose rule
+leads with "stage" (the decoders' layers) is first cut into contiguous
+blocks of L / stage layers, stage s holding block s; where stage does not
+divide L the sanitizer drops the entry and every stage holds the stack
+whole, as JAX's does. On a mesh with tensor > 1 a leaf whose rule names
+`tensor` is then cut to the tensor rank's ranges along that dimension
 (whole heads, the model's `tensor_units`, parallel/tensor.py), and its fsdp
 split then cuts that slice along the spec's fsdp dimension.
 """
@@ -34,7 +38,9 @@ from typing import Any, Iterable
 import torch
 
 from starvector_tpu_torch.parallel import tensor, zero
-from starvector_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SEQUENCE, AXIS_TENSOR, P, axis_sizes
+from starvector_tpu_torch.parallel.mesh import (
+    AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR, P, axis_sizes,
+)
 
 Rules = Iterable[tuple[str, P]]
 
@@ -122,25 +128,29 @@ def apply_partition_rules(params: Any, rules: Rules, mesh) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """A leaf's spec on a mesh, the one dimension it splits over more than
-    one rank (None: every rank holds the whole leaf), and whether that split
-    is fsdp x sequence (`wide`) rather than fsdp."""
+    """A leaf's spec on a mesh, the one dimension it splits over fsdp
+    ranks (None: none), whether that split is fsdp x sequence (`wide`)
+    rather than fsdp, and whether its leading layer axis is cut over the
+    stage ranks (`stage`)."""
     spec: P
     dim: int | None
     wide: bool = False
+    stage: bool = False
 
 
 def _sharding(spec: P, sizes: dict[str, int]) -> Sharding:
     """The spec's fsdp split: fsdp, or fsdp x sequence (each rule names
-    fsdp once). Its `tensor` entry is the leaf's tensor split (shard_pytree)."""
+    fsdp once), and its stage split. Its `tensor` entry is the leaf's tensor
+    split (shard_pytree)."""
+    stage = bool(spec) and spec[0] == AXIS_STAGE and sizes[AXIS_STAGE] > 1
     split = [(i, names) for i, a in enumerate(spec) if a is not None
              for names in [tuple(n for n in ((a,) if isinstance(a, str) else a)
-                                 if n != AXIS_TENSOR)]
+                                 if n not in (AXIS_TENSOR, AXIS_STAGE))]
              if math.prod(sizes[n] for n in names) > 1]
     if not split:
-        return Sharding(spec, None)
+        return Sharding(spec, None, stage=stage)
     dim, names = split[0]
-    return Sharding(spec, dim, AXIS_SEQUENCE in names)
+    return Sharding(spec, dim, AXIS_SEQUENCE in names, stage)
 
 
 def make_param_shardings(params: Any, rules: Rules, mesh) -> Any:
@@ -155,8 +165,10 @@ def shard_pytree(params: Any, rules: Rules, mesh, units: list | None = None) -> 
     """This rank's shard of every leaf: a contiguous copy of its slice along
     the dimensions its spec splits (the leaf itself when it splits none),
     registered with the layout so that the model gathers it at use. `mesh`
-    is a DeviceMesh or a zero.Layout over one; stage above 1 raises
-    NotImplementedError (zero.Layout). On a mesh with tensor above 1,
+    is a DeviceMesh or a zero.Layout over one. On a mesh with stage above
+    1 a stacked leaf whose rule leads with "stage" keeps this stage's
+    contiguous block of layers (parallel/pipeline.py runs them), cut
+    before the tensor and fsdp splits. On a mesh with tensor above 1,
     `units` gives each tensor rank's ranges of the split projections by the
     tree's top-level key (models/starvector.py::tensor_units); row-parallel
     kernels are registered with the tensor group (parallel/tensor.py)."""
@@ -174,8 +186,8 @@ def shard_pytree(params: Any, rules: Rules, mesh, units: list | None = None) -> 
         ts = slices.get(path)
         if ts is not None and ts.dim == sh.dim:
             raise ValueError(f"{path}: split over fsdp and tensor along one dimension")
-        info = zero.Shard(layout, sh.dim, tuple(leaf.shape), sh.wide, ts)
-        if sh.dim is None and ts is None:
+        info = zero.Shard(layout, sh.dim, tuple(leaf.shape), sh.wide, ts, sh.stage)
+        if sh.dim is None and ts is None and not sh.stage:
             return zero.register(leaf, info)
         local = info.local_of(leaf.detach()).clone(memory_format=torch.contiguous_format)
         local.requires_grad_(leaf.requires_grad)

@@ -46,7 +46,9 @@ split its query heads) takes on each only the part of its gradient that
 comes from the rank's own query heads: that part is summed over exactly
 its holders (`TensorSlice.sum_shared`), and a sum over the whole leaf (the
 global norm, Adafactor's statistics) counts it once, on its first holder
-(`TensorSlice.owned`). `stage` is not ported (ROADMAP queue 1, item 12).
+(`TensorSlice.owned`). Beside `stage` in training each stage's block of
+layers is split so (parallel/pipeline.py); serving refuses `stage`
+(ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -157,8 +159,8 @@ class TensorGroup:
 def serving_mesh_config(axes: dict) -> MeshConfig:
     """The serving mesh of a serve config's `mesh:` block ({axis: size});
     the unnamed axes 1. Raises NotImplementedError for an axis other than
-    data and tensor above 1 (fsdp, sequence and stage shards are training's,
-    and `stage` is not ported: item 12)."""
+    data and tensor above 1 (fsdp, sequence and stage shards are training's;
+    serving on them is item 12's part still to port)."""
     extra = {a: int(n) for a, n in axes.items() if a not in SERVING_AXES and int(n) > 1}
     if extra:
         raise NotImplementedError(

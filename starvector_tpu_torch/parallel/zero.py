@@ -1,4 +1,5 @@
-"""Data parallelism, ZeRO-3, sequence and tensor parallelism at run time:
+"""Data parallelism, ZeRO-3, sequence, tensor and pipeline parallelism at run
+time:
 the collectives that XLA inserts into the JAX package's GSPMD step, put in
 by hand.
 
@@ -49,6 +50,19 @@ they hold whole sum over the batch (and sequence) ranks alone. A range of a
 leaf that several tensor ranks hold sums its gradient over those ranks,
 and the sums over a whole leaf count it once (`Shard.sum`).
 
+The ranks of a `stage` group hold the same rows too, and each holds its
+contiguous block of the decoder's stacked layers (`Shard.stage`, cut before
+the tensor and fsdp splits); parallel/pipeline.py runs the layers over them.
+The last stage alone differentiates the step's loss (`step_grads`): the
+other stages differentiate only what the pipeline hands them (the end of
+their chain of ticks, with a zero gradient), so a leaf every stage holds
+whole (the towers, the adapter, the tables, ln_f) takes its gradient where
+it arises, the part before the pipeline on stage 0 and the part after it on
+the last stage, and sums it over the stage ranks once (`reduce_grads`); a
+stage's layers take theirs on their own stage. The sums over a whole leaf
+add the stage ranks' blocks of a stage-split leaf (`Shard.sum`), and a
+leaf every stage holds whole counts once.
+
 With no `Layout` active (`Layout.step()`), every function here returns
 its input: the one-device path is the code it was.
 """
@@ -65,7 +79,8 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from starvector_tpu_torch.parallel import tensor as tp
 from starvector_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, AXIS_REPLICA, \
-    AXIS_SEQUENCE, AXIS_TENSOR, BATCH_AXES, MESH_AXES, axis_sizes, refuse_unported_axes
+    AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR, BATCH_AXES, MESH_AXES, axis_sizes, \
+    check_training_mesh
 
 # the collectives' newer names, where this torch has them
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -112,13 +127,15 @@ def _scatter(full: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 
 class Layout:
-    """This rank's place on a DeviceMesh of the batch axes, `sequence` and
-    `tensor`, and its groups. Ranks are row-major over (replica, data,
-    fsdp, sequence, tensor): the sequence coordinate is `seq_rank`, the
-    tensor group `tensor_group` (parallel/tensor.py::TensorGroup), the
+    """This rank's place on a DeviceMesh of the batch axes, `sequence`,
+    `stage` and `tensor`, and its groups. Ranks are row-major over
+    (replica, data, fsdp, sequence, stage, tensor): the sequence coordinate
+    is `seq_rank`, the stage coordinate `stage_rank` (in `stage_group`),
+    the tensor group `tensor_group` (parallel/tensor.py::TensorGroup), the
     batch coordinate (the row block of the global batch) `batch_rank` =
-    rank // (sequence x tensor). Every group below holds ranks of one
-    tensor coordinate but `rows_group`.
+    rank // (sequence x stage x tensor). Every group below holds ranks of
+    one tensor coordinate but `rows_group`, and ranks of one stage
+    coordinate but `rows_group`, `stage_group` and the two stage_* groups.
 
       fsdp_group    the ranks that split a leaf over fsdp
       wide_group    the ranks that split a leaf widened over fsdp x
@@ -126,7 +143,8 @@ class Layout:
                     ("fsdp", "sequence")
       sequence_group  the ranks of one tensor coordinate that hold the same
                     rows
-      rows_group    every rank that holds the same rows (sequence x tensor)
+      rows_group    every rank that holds the same rows (sequence x stage x
+                    tensor)
       batch_group   the ranks with this rank's sequence coordinate
       split_group   the ranks that split a step's work when its positions
                     are split (batch x sequence)
@@ -135,30 +153,45 @@ class Layout:
                     split (replica x data)
       fsdp_shard_group  the ranks that hold the same fsdp shard in a step
                     with the split (replica x data x sequence)
+      stage_batch_group, stage_shard_group  batch_group and shard_group
+                    with the stage ranks beside them: the sums of the
+                    gradient of a leaf every stage holds whole
 
     A group of one rank is None (no collective); the world is
-    dist.group.WORLD."""
+    dist.group.WORLD. A mesh with stage and sequence both above 1 raises
+    ValueError (mesh.check_training_mesh)."""
 
     def __init__(self, mesh):
-        refuse_unported_axes(mesh, "the training mesh")
+        check_training_mesh(mesh)
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.fsdp = sizes[AXIS_FSDP]
         self.sequence = sizes[AXIS_SEQUENCE]
+        self.stage = sizes[AXIS_STAGE]
         self.tensor = sizes[AXIS_TENSOR]
         self.batch = math.prod(sizes[a] for a in BATCH_AXES)
         self.fsdp_group = mesh.get_group(AXIS_FSDP)
         self.fsdp_rank = mesh.get_local_rank(AXIS_FSDP)
         self.seq_rank = mesh.get_local_rank(AXIS_SEQUENCE)
+        self.stage_rank = mesh.get_local_rank(AXIS_STAGE)
         self.tensor_group = tp.TensorGroup.of(mesh)
-        self.batch_rank = dist.get_rank() // (self.sequence * self.tensor)
+        self.batch_rank = dist.get_rank() // (self.sequence * self.stage * self.tensor)
         self.seq_split = False  # whether this step's decoder split the positions
+        self.stage_roots: list = []  # what a stage but the last differentiates (step_grads)
+        self.stage_token = None      # the leaf every pipeline chain starts from
         grid = mesh.mesh
         self.grid = grid
         rows = (AXIS_REPLICA, AXIS_DATA)
         self.shard_group = _subgroup(grid, rows)
         self.batch_group = _subgroup(grid, BATCH_AXES)
-        self.rows_group = _subgroup(grid, (AXIS_SEQUENCE, AXIS_TENSOR))
+        self.rows_group = _subgroup(grid, (AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR))
+        if self.stage == 1:
+            self.stage_group = None
+            self.stage_batch_group, self.stage_shard_group = self.batch_group, self.shard_group
+        else:
+            self.stage_group = mesh.get_group(AXIS_STAGE)
+            self.stage_batch_group = _subgroup(grid, BATCH_AXES + (AXIS_STAGE,))
+            self.stage_shard_group = _subgroup(grid, rows + (AXIS_STAGE,))
         if self.sequence == 1:
             self.sequence_group, self.wide_group = None, self.fsdp_group
             self.split_group, self.fsdp_shard_group = self.batch_group, self.shard_group
@@ -215,6 +248,24 @@ class Layout:
         gradient)."""
         return _all_reduce(t.detach().clone(), self.split(wide)[0])
 
+    # --- the stage axis ----------------------------------------------------------
+    def stage_peer(self, s: int) -> int:
+        """The global rank of stage s of this rank's stage group."""
+        return dist.get_global_rank(self.stage_group, s)
+
+    def stage_broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Stage `src`'s t on every stage rank (a new tensor; t gives the
+        shape elsewhere)."""
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, src=self.stage_peer(src), group=self.stage_group)
+        return out
+
+    def stage_reduce(self, t: torch.Tensor, dst: int) -> torch.Tensor:
+        """On stage `dst` the sum of the stage ranks' t, elsewhere zeros."""
+        total = _all_reduce(t.detach().clone(memory_format=torch.contiguous_format),
+                            self.stage_group)
+        return total if self.stage_rank == dst else torch.zeros_like(total)
+
     # --- the sequence axis -----------------------------------------------------
     def seq_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The sequence group's `t` concatenated along `dim`."""
@@ -252,7 +303,11 @@ class Layout:
     def grad_group(self, info: "Shard"):
         """The ranks over which a leaf's gradient (a sharded leaf's after its
         reduce-scatter) is summed; a range several tensor ranks hold sums
-        over them besides (TensorSlice.sum_shared)."""
+        over them besides (TensorSlice.sum_shared). On a stage mesh a leaf
+        every stage holds whole sums over the stage ranks too; a stage's
+        layers over the ranks of their stage."""
+        if self.stage > 1 and not info.stage:
+            return self.stage_batch_group if info.dim is None else self.stage_shard_group
         if info.dim is None:
             return self.work_group()
         return self.fsdp_shard_group if self.seq_split and not info.wide else self.shard_group
@@ -262,8 +317,10 @@ class Layout:
         """Within: the model's gathers, reductions and dropout follow this
         layout, and a gathered weight that autograd saves is kept as its
         shard and gathered again in the backward. The step starts without
-        the sequence split; the decoder records it."""
+        the sequence split; the decoder records it. The pipeline records
+        its roots and token (step_grads)."""
         self.seq_split = False
+        self.stage_roots, self.stage_token = [], None
         _ACTIVE.append(self)
         try:
             with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
@@ -276,14 +333,20 @@ class Layout:
 class Shard:
     """Where a local tensor lies: its layout, the dimension split over fsdp
     (None: none), the whole leaf's shape, whether that split spans fsdp x
-    sequence (`wide`, ZeRO over sequence) or fsdp, and its tensor split
-    (None: every tensor rank holds the leaf whole). A leaf split both ways
-    is this rank's tensor slice, cut over fsdp."""
+    sequence (`wide`, ZeRO over sequence) or fsdp, its tensor split (None:
+    every tensor rank holds the leaf whole), and whether its leading layer
+    axis is cut into contiguous blocks over the stage ranks (`stage`). A
+    leaf split several ways is this stage's block, its tensor slice, cut
+    over fsdp. `owner`, on a layer view only: the view stands in for the
+    same layer of stage `owner`'s block, which `gather` fetches from there
+    (the pipeline's fallback, parallel/pipeline.py)."""
     layout: Layout
     dim: int | None
     full_shape: tuple[int, ...]
     wide: bool = False
     tensor: "tp.TensorSlice | None" = None
+    stage: bool = False
+    owner: int | None = None
 
     @property
     def n(self) -> int:
@@ -304,11 +367,16 @@ class Shard:
         """Sum of `t` over the tensor group (no gradient)."""
         return t if self.tensor is None else self.tensor.group.all_reduce(t.detach().clone())
 
+    def stage_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of `t` over the stage ranks of a stage-split leaf (no
+        gradient)."""
+        return _all_reduce(t.detach().clone(), self.layout.stage_group) if self.stage else t
+
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of `t` over every rank that splits the leaf (no gradient).
         A range several tensor ranks hold must be in one rank's t only
         (`owned`)."""
-        return self.tensor_sum(self.fsdp_sum(t))
+        return self.stage_sum(self.tensor_sum(self.fsdp_sum(t)))
 
     def owned(self, t: torch.Tensor, dim: int | None = None) -> list[torch.Tensor]:
         """Views of t (this rank's piece, or a view of it whose tensor-split
@@ -317,18 +385,26 @@ class Shard:
 
     def gather(self, shard: torch.Tensor) -> torch.Tensor:
         """This rank's tensor slice of the leaf (the whole leaf without a
-        tensor split) from its fsdp shard (no gradient)."""
-        return self.layout.all_gather(shard, self.dim, self.wide)
+        tensor split) from its fsdp shard (no gradient); the owner's, for a
+        stand-in."""
+        if self.owner is not None:
+            shard = self.layout.stage_broadcast(shard, self.owner)
+        return shard if self.dim is None else self.layout.all_gather(shard, self.dim, self.wide)
 
     def whole(self, local: torch.Tensor) -> torch.Tensor:
         """The whole leaf from this rank's piece (no gradient): its fsdp
-        shards gathered, then the tensor ranks' slices put where their
-        ranges lie (a range several hold taken from its first holder)."""
+        shards gathered, the tensor ranks' slices put where their ranges
+        lie (a range several hold taken from its first holder), then the
+        stage ranks' blocks of layers concatenated."""
         if self.dim is not None:
             local = self.gather(local)
+        if self.tensor is not None:
+            local = self._tensor_whole(local)
+        return _gather(local, 0, self.layout.stage_group, self.layout.stage) if self.stage \
+            else local
+
+    def _tensor_whole(self, local: torch.Tensor) -> torch.Tensor:
         ts = self.tensor
-        if ts is None:
-            return local
         d = ts.dim
         lens = [sum(n for _, n in rs) for rs in ts.ranges]
         pad = max(lens) - local.shape[d]
@@ -336,7 +412,8 @@ class Shard:
             local = torch.cat([local, local.new_zeros(
                 (*local.shape[:d], pad, *local.shape[d + 1:]))], d)
         parts = _gather(local, d, ts.group.group, ts.group.size).chunk(ts.group.size, d)
-        out = local.new_empty(self.full_shape)
+        out = local.new_empty((local.shape[0], *self.full_shape[1:]) if self.stage
+                              else self.full_shape)
         for r in reversed(range(ts.group.size)):  # the first holder writes last
             for (start, n), (off, _) in zip(ts.ranges[r], tp._spans(ts.ranges[r])):
                 out.narrow(d, start, n).copy_(parts[r].narrow(d, off, n))
@@ -344,6 +421,9 @@ class Shard:
 
     def local_of(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's piece of the whole leaf (a view or a copy)."""
+        if self.stage:
+            n = full.shape[0] // self.layout.stage
+            full = full.narrow(0, self.layout.stage_rank * n, n)
         if self.tensor is not None:
             full = tp.take(full, self.tensor.dim, self.tensor.mine)
         if self.dim is not None:
@@ -372,11 +452,11 @@ def info_of(t) -> Shard | None:
 
 
 def sharded(t) -> Shard | None:
-    """t's Shard when a dimension of it is split over ranks (fsdp or
-    tensor), else None."""
+    """t's Shard when a dimension of it is split over ranks (fsdp, tensor
+    or stage), else None."""
     info = info_of(t)
-    return info if info is not None and (info.dim is not None or info.tensor is not None) \
-        else None
+    return info if info is not None and (info.dim is not None or info.tensor is not None
+                                         or info.stage) else None
 
 
 def full_shape(t: torch.Tensor) -> tuple[int, ...]:
@@ -410,22 +490,35 @@ def register_like(t: torch.Tensor, like: torch.Tensor, dropped: int | None = Non
         dim = None if dim == dropped else dim - (dim > dropped)
     shape = info.full_shape[:dropped] + info.full_shape[dropped + 1:]
     ts = None if info.tensor is None else info.tensor.narrow_view(dropped)
-    return register(t, dataclasses.replace(info, dim=dim, full_shape=shape, tensor=ts))
+    return register(t, dataclasses.replace(info, dim=dim, full_shape=shape, tensor=ts,
+                                           stage=info.stage and dropped != 0))
 
 
 def note_views(stacked: torch.Tensor, views) -> None:
     """Register the layers of a stacked leaf (layer_unbind): each lies as
-    the stack with its leading layer axis, which is never split, removed."""
+    the stack with its leading layer axis removed (split over no rank but
+    the stage ranks, whose block each view is a layer of)."""
     info = info_of(stacked)
     if info is None:
         return
     if info.dim == 0 or (info.tensor is not None and info.tensor.dim == 0):
         raise ValueError("a stacked leaf's layer axis is split over fsdp or tensor")
     sub = dataclasses.replace(info, dim=None if info.dim is None else info.dim - 1,
-                              full_shape=info.full_shape[1:],
+                              full_shape=info.full_shape[1:], stage=False,
                               tensor=None if info.tensor is None else info.tensor.narrow_view(0))
     for v in views:
         _INFO[v] = sub
+
+
+def stand_in(view: torch.Tensor, owner: int) -> torch.Tensor:
+    """A view of a layer of this stage's block (layer_unbind's) that stands
+    in for the same layer of stage `owner`'s block: `gather` broadcasts
+    that layer from its owner, and its gradient sums back there
+    (_Gather)."""
+    v = view.view_as(view)
+    _INFO[v] = dataclasses.replace(info_of(view), owner=owner)
+    tp.note_views(view, (v,))
+    return v
 
 
 # --- gather at use ----------------------------------------------------------
@@ -433,7 +526,8 @@ def note_views(stacked: torch.Tensor, views) -> None:
 class _Gather(torch.autograd.Function):
     """all-gather over the leaf's ranks in the forward (then the cast to
     `dtype`), the gradient reduce-scattered back to the shard in the
-    backward."""
+    backward; a stand-in's layer broadcast from its owner first, and its
+    gradient summed back there last."""
 
     @staticmethod
     def forward(ctx, shard, info: Shard, dtype):
@@ -443,16 +537,20 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        info = ctx.info
-        return info.layout.reduce_scatter(g.to(ctx.shard_dtype), info.dim, info.wide), None, None
+        info, g = ctx.info, g.to(ctx.shard_dtype)
+        if info.dim is not None:
+            g = info.layout.reduce_scatter(g, info.dim, info.wide)
+        if info.owner is not None:
+            g = info.layout.stage_reduce(g, info.owner)
+        return g, None, None
 
 
 def gather(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """The whole leaf (this rank's tensor slice of it) of a local tensor
-    split over fsdp (differentiable), else t. A row-parallel mark
-    (parallel/tensor.py) goes with it."""
+    split over fsdp, or the owner's layer of a stand-in (differentiable),
+    else t. A row-parallel mark (parallel/tensor.py) goes with it."""
     info = info_of(t)
-    if info is None or info.dim is None:
+    if info is None or (info.dim is None and info.owner is None):
         return t
     full = _Gather.apply(t, info, None if dtype == t.dtype else dtype)
     _GATHERED[full] = (t.detach(), info, full.dtype)
@@ -536,15 +634,40 @@ def global_rows(n: int) -> tuple[int, int] | None:
     return None if layout is None else (layout.batch_rank * n, layout.batch * n)
 
 
+def step_grads(loss: torch.Tensor, wrt: list) -> list:
+    """The gradients of the step's loss with respect to `wrt` (None where a
+    leaf takes none), as torch.autograd.grad(loss, wrt, allow_unused=True).
+    On a stage mesh the last stage differentiates the loss and every other
+    stage what the pipeline recorded (Layout.stage_roots) with a zero
+    gradient (nothing, where it recorded none); both differentiate the
+    pipeline's token too, so that no rank's autograd prunes a tick that
+    another rank's waits on; and a leaf that takes none gets zeros."""
+    layout = active()
+    if layout is None or layout.stage == 1:
+        return list(torch.autograd.grad(loss, wrt, allow_unused=True))
+    last = layout.stage_rank == layout.stage - 1
+    roots = [loss] if last else [r for r in layout.stage_roots if r.requires_grad]
+    got = [None] * len(wrt)
+    if roots and wrt:
+        token = [] if layout.stage_token is None else [layout.stage_token]
+        got = torch.autograd.grad(roots, wrt + token,
+                                  None if last else [torch.zeros_like(r) for r in roots],
+                                  allow_unused=True)
+    # a leaf may take a gradient on one stage and none on another: every
+    # stage sums each one (reduce_grads)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(wrt, got)]
+
+
 def reduce_grads(params: list, grads: list) -> None:
     """Sum each gradient, in place, over the other ranks that hold the same
     piece of its parameter (Layout.grad_group): a sharded leaf's, already
     reduce-scattered over the ranks that split it, over replica x data (and
     sequence, for a fsdp leaf in a step with the split); any other over the
     ranks that split the step's work; and a range several tensor ranks hold
-    over those ranks. Call it after the step's forward: the split is the
-    step's. Parameters outside a layout, and None gradients, are left
-    alone."""
+    over those ranks. On a stage mesh a leaf every stage holds whole sums
+    over the stage ranks besides (step_grads). Call it after the step's
+    forward: the split is the step's. Parameters outside a layout, and None
+    gradients, are left alone."""
     for p, g in zip(params, grads):
         info = info_of(p)
         if info is None or g is None:

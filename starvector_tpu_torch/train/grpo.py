@@ -204,7 +204,7 @@ def make_grpo_step(cfg: sv.StarVectorConfig, opt: Chain, *, num_generations: int
                                   rollout.get("ref_lp") if use_kl else None,
                                   num_generations=num_generations, clip_eps=clip_eps,
                                   kl_beta=kl_beta, policy=policy, remat=remat, kernels=kernels)
-            grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+            grads = zero.step_grads(loss, wrt)
             loss = zero.batch_sum(loss.detach())
         zero.reduce_grads(wrt, grads)
         got = dict(zip(map(id, wrt), grads))
@@ -239,11 +239,12 @@ class GRPOTrainer:
     When model.params are shards on a layout (parallel/; sv.shard_params),
     the optimizer state takes each shard's split, each batch rank rolls out
     the images it is given on the parameters gathered whole (for the
-    rollout only; the ranks that hold the same rows, its sequence and
-    tensor ranks, take their first rank's rollout), and the update runs
-    through the gathers, the sequence split, the tensor ranks' heads and
-    the sums of the sharded step. A mesh with stage above 1 cannot be made
-    (ROADMAP queue 1, item 12)."""
+    rollout only, on the cached decoder, unpipelined; the ranks that hold
+    the same rows, its sequence, stage and tensor ranks, take their first
+    rank's rollout), and the update runs through the gathers, the sequence
+    split, the tensor ranks' heads, the pipeline over the stage ranks'
+    blocks of layers (parallel/pipeline.py) and the sums of the sharded
+    step."""
 
     def __init__(self, model, grpo: GRPOConfig = GRPOConfig(), *, lr: float = 1e-6,
                  total_steps: int = 1000, warmup_steps: int = 0, grad_clip: float = 1.0,

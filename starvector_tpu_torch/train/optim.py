@@ -47,10 +47,11 @@ state lies beside it, split the same way (a factored moment that reduced
 the split dimension away whole on every rank): the elementwise math is
 local, and each reduction over a leaf (the global norm, Adafactor's row and
 column means and its two RMS values) sums over the ranks that split it
-(fsdp, or fsdp x sequence for a leaf widened over sequence, and the tensor
+(fsdp, or fsdp x sequence for a leaf widened over sequence, the tensor
 group for a leaf split over `tensor`, whose ranges several tensor ranks
-hold count once: zero.Shard.owned), so every rank takes the step the whole
-leaf would. Frozen leaves take none.
+hold count once: zero.Shard.owned, and the stage group for the decoder's
+layers on a stage mesh), so every rank takes the step the whole leaf
+would. Frozen leaves take none.
 """
 
 from __future__ import annotations
@@ -143,15 +144,16 @@ def global_norm(leaves: list[torch.Tensor], like: list | None = None) -> torch.T
     `like` gives each leaf's parameter: where that is split over ranks, the
     leaf is too, and its squares are summed over the ranks that split it
     (once for all leaves of one kind of split: fsdp, fsdp x sequence, each
-    with or without tensor, or tensor alone), a range several tensor ranks
-    hold counted once; the other leaves are whole on every rank."""
+    with or without tensor and stage, or tensor or stage alone), a range
+    several tensor ranks hold counted once; the other leaves are whole on
+    every rank."""
     split = [zero.sharded(p) for p in like] if like is not None else [None] * len(leaves)
     sq = torch.stack([sum((_sq_sum(v) for v in (s.owned(g) if s is not None else [g])),
                           torch.zeros((), device=g.device)) for g, s in zip(leaves, split)])
     if not any(split):
         return sq.sum().sqrt()
-    kinds = [None if s is None else (None if s.dim is None else s.wide, s.tensor is not None)
-             for s in split]
+    kinds = [None if s is None else (None if s.dim is None else s.wide, s.tensor is not None,
+                                     s.stage) for s in split]
     total = sq[torch.tensor([k is None for k in kinds], device=sq.device)].sum()
     for kind in dict.fromkeys(k for k in kinds if k is not None):
         pick = [k == kind for k in kinds]
@@ -283,6 +285,12 @@ class Adafactor(Chain):
         dims = self.factored_dims(zero.full_shape(p))
         if dims is None:
             return {"v_row": None, "v_col": None, "v": zero.register_like(torch.zeros_like(p), p)}
+        split = zero.sharded(p)
+        if split is not None and split.stage and 0 in dims:
+            # a stack of 128 layers or more: its row and column means would
+            # span the stage ranks' blocks, which _update does not sum
+            raise NotImplementedError(f"Adafactor over the layer axis of a stage-split leaf "
+                                      f"{zero.full_shape(p)}")
         d1, d0 = dims
         shape = list(p.shape)
         return {"v_row": zero.register_like(p.new_zeros(shape[:d0] + shape[d0 + 1:]), p, d0),

@@ -16,7 +16,11 @@ are the global batch's, and the optimizer's reductions span the shards,
 so that N ranks take the step one process takes on the whole batch. The
 returned loss is the global one. On a mesh with tensor above 1 the ranks of
 a tensor group take the same rows and each its slices of the split leaves
-(the model reads its rank's decoder config, sv.decoder_config).
+(the model reads its rank's decoder config, sv.decoder_config). On a mesh
+with stage above 1 the ranks of a stage group take the same rows, each
+its block of the decoder's layers, and the decoder pipelines the rows
+over them (parallel/pipeline.py); the last stage differentiates the loss
+(zero.step_grads).
 """
 
 from __future__ import annotations
@@ -119,7 +123,7 @@ def loss_and_grads(params: dict, cfg: sv.StarVectorConfig, batch: dict, pad_toke
     with layout.step() if layout is not None else contextlib.nullcontext():
         loss, aux = sv.loss_fn_with_bn_stats(wrt_tree, cfg, batch, pad_token_id, policy=policy,
                                              dropout_gen=gen, remat=remat, kernels=kernels)
-        got = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+        got = zero.step_grads(loss, wrt)
         loss = zero.batch_sum(loss.detach())
     zero.reduce_grads(wrt, got)
     got = iter(got)
@@ -163,7 +167,7 @@ def shard_train_state(params: dict, opt: Chain, mesh,
     on a mesh with tensor above 1, `cfg`'s tensor_units (sv.shard_params)
     and a fresh optimizer state made on them: every moment lies beside its
     parameter's shard (ZeRO-3). `mesh`: a DeviceMesh of the batch axes,
-    `sequence` and `tensor`, or a parallel.zero.Layout over one."""
+    `sequence`, `stage` and `tensor`, or a parallel.zero.Layout over one."""
     params = sv.shard_params(params, cfg, mesh)
     return params, opt.init(params)
 

@@ -27,13 +27,16 @@ and HSDP over the batch axes (replica, data, fsdp), sequence parallelism
 with ZeRO over sequence (parallel/sequence.py; the 8B recipe
 im2svg-stack-v5e8.yaml asks for fsdp 4 x sequence 2) and tensor
 parallelism (`tensor`: each rank its whole heads and MLP columns of the
-decoder, the vision tower and the adapter, parallel/tensor.py), alone or
-with the others; stage above 1 raises NotImplementedError (ROADMAP queue
-1, item 12). Each rank keeps its shards of the parameters and optimizer
-state and trains on its batch coordinate's contiguous block of the global
-batch that a one-process run draws (the ranks of a sequence or tensor
-group the same block, a sequence rank its chunk of the positions where
-the batch's length divides), so N ranks take the one-process steps. Rank
+decoder, the vision tower and the adapter, parallel/tensor.py) and
+pipeline parallelism (`stage`: each rank its contiguous block of the
+decoder's layers, the rows pipelined over them in GPipe's microbatch
+ticks, parallel/pipeline.py), alone or with the others; stage and
+sequence both above 1 raise ValueError, as in the JAX package. Each rank
+keeps its shards of the parameters and optimizer state and trains on its
+batch coordinate's contiguous block of the global batch that a
+one-process run draws (the ranks of a sequence, stage or tensor group the
+same block, a sequence rank its chunk of the positions where the batch's
+length divides), so N ranks take the one-process steps. Rank
 0 alone logs, writes
 the run directory and writes each checkpoint, from the state gathered
 whole (the files a one-process run writes); a resume re-shards it on the
@@ -68,7 +71,7 @@ from starvector_tpu_torch.models.builder import model_builder
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.parallel import zero
 from starvector_tpu_torch.parallel.mesh import (
-    create_mesh, initialize_distributed, local_mesh_summary, mesh_config_from, refuse_unported_axes,
+    check_training_mesh, create_mesh, initialize_distributed, local_mesh_summary, mesh_config_from,
 )
 from starvector_tpu_torch.train import checkpoint as ckpt
 from starvector_tpu_torch.train.optim import Chain, build_optimizer
@@ -133,8 +136,9 @@ def to_device(batch: dict, device) -> dict:
 
 def rank_rows(batch: dict, layout: zero.Layout | None) -> dict:
     """This rank's contiguous block of a global batch's rows by its batch
-    coordinate (the JAX batch_spec layout: the ranks of a sequence or a
-    tensor group take the same block), the batch itself without a layout."""
+    coordinate (the JAX batch_spec layout: the ranks of a sequence, stage
+    or tensor group take the same block), the batch itself without a
+    layout."""
     if layout is None:
         return batch
     B = len(next(batch[k] for k in BATCH_TYPES if k in batch))
@@ -266,7 +270,7 @@ def main(config) -> dict:
     g = config.get_path
     device = require_device(g("training.device", "cuda"), "training.device=cpu")
     mesh_cfg = mesh_config_from(config)
-    refuse_unported_axes(dataclasses.asdict(mesh_cfg), "train.main")
+    check_training_mesh(dataclasses.asdict(mesh_cfg))
     owns_group = not dist.is_initialized()
     device = initialize_distributed(device)
     owns_group = owns_group and dist.is_initialized()

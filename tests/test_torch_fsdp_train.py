@@ -162,7 +162,8 @@ def _steps_job(model: str, params: dict, batch: dict, mesh: dict, remat, opt: di
     loss0, _, grads = step.loss_and_grads(params, cfg, rows, 0, policy=policy, remat=remat,
                                           trainable=tx._trainable(params))
     out = {"loss0": float(loss0), "grads0": zero.full_tree(grads),
-           "local_rows": int(rows["svg_ids"].shape[0]), "seq_split": layout.seq_split}
+           "local_rows": int(rows["svg_ids"].shape[0]), "seq_split": layout.seq_split,
+           "pipelined": layout.stage_token is not None}
     shards = [(tuple(p.shape), zero.full_shape(p)) for p in optim.tree_leaves(params)]
     out["split"] = sum(a != b for a, b in shards)
     where = step.opt_state_shardings(state)

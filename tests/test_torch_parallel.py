@@ -1,5 +1,6 @@
 """The port's mesh and partition rules against the JAX package's, the
-refusals of the axes it does not execute, and each reduction that a
+stage axis in train.main and the refusals of what it does not execute, and
+each reduction that a
 rank-local step needs to equal the JAX package's global one.
 
 Specs: `MeshConfig.resolve` and every leaf's spec from
@@ -400,7 +401,34 @@ def _seq_reductions_job(trees: dict) -> dict:
     return out
 
 
-JOBS = {"reductions": _reductions_job, "seq_reductions": _seq_reductions_job}
+def _stage_main_job(yaml_path: str, out_dir: str) -> dict:
+    """train.main for one step on the yaml's stage mesh, then the tiny 1B's
+    tree through sv.shard_params (shard_pytree with the model's tensor
+    units) on that mesh: the steps whose loss was
+    logged and this rank's and the whole stack's layer counts."""
+    import json
+
+    from starvector_tpu_torch.config import get_config, resolve_repo_config
+    from starvector_tpu_torch.models import starvector as tsv
+    from starvector_tpu_torch.parallel import MeshConfig, create_mesh, zero
+    from starvector_tpu_torch.parallel.mesh import mesh_config_from
+    from starvector_tpu_torch.train.train import main
+
+    config = get_config([f"config={yaml_path}", "training.steps=1"],
+                        default_path=resolve_repo_config())
+    main(config)
+    layout = zero.Layout(create_mesh(MeshConfig(**vars(mesh_config_from(config)))))
+    cfg = tsv.tiny_config()
+    params = tsv.init_params(cfg, torch.Generator().manual_seed(0))
+    stack = tsv.shard_params(params, cfg, layout)["svg_transformer"]["layers"]
+    scale = stack["ln_1"]["scale"]
+    steps = [r["step"] for r in map(json.loads, open(Path(out_dir) / "metrics.jsonl"))
+             if "loss" in r]
+    return {"steps": steps, "layers": (scale.shape[0], zero.full_shape(scale)[0])}
+
+
+JOBS = {"reductions": _reductions_job, "seq_reductions": _seq_reductions_job,
+        "stage_main": _stage_main_job}
 
 
 if __name__ == "__main__":
@@ -693,26 +721,35 @@ def test_batch_specs_sanitize_and_summary_equal_jax():
 
 @pytest.mark.parametrize("axis", ["stage", "stage+tensor", "stage+sequence"])
 def test_model_parallel_axes_raise_citing_item_12(axis, tmp_path):
-    """stage above 1 raises NotImplementedError naming ROADMAP queue 1,
-    item 12, with or without a tensor or a sequence axis beside it (the
-    JAX package's pp_layer_scan refuses stage with sequence): in train.main
-    before anything runs or is written, and in shard_pytree, the way
-    GRPOTrainer's parameters reach a mesh."""
+    """stage above 1 trains (ROADMAP queue 1, item 12, is done for
+    training): on (stage 2) and (stage 2, tensor 2) gloo ranks run
+    train.main for a step and shard_pytree (through sv.shard_params, the
+    way GRPOTrainer's parameters reach a mesh) gives each stage its one
+    layer of the tiny 1B's two. stage with sequence raises the JAX pipeline's ValueError in
+    train.main, before anything runs or is written, and in shard_pytree."""
+    import test_torch_sequence_parallel as seq_par
+
     from starvector_tpu_torch.config import ConfigNode
     from starvector_tpu_torch.models import starvector as tsv
     from starvector_tpu_torch.parallel import shard_pytree
     from starvector_tpu_torch.train.train import main
 
     axes = dict.fromkeys(axis.split("+"), 2)
-    refused = axis.split("+")[0]
     out = tmp_path / "run"
+    if "sequence" not in axes:
+        yaml_path = seq_par._seq_yaml(tmp_path / "run.yaml", out, {"fsdp": 1, **axes})
+        got = launch(HERE, "stage_main", 2 * len(axes),
+                     dict(yaml_path=str(yaml_path), out_dir=str(out)), tmp_path)
+        assert got == {"steps": [1], "layers": (1, 2)}
+        return
     config = ConfigNode({"project": {"out_dir": str(out)}, "mesh": {"fsdp": 2, **axes},
                          "model": {"preset": "tiny"}, "training": {"device": "cpu"}})
-    with pytest.raises(NotImplementedError, match=rf"\{{'{refused}': 2\}}.*item 12"):
+    nest = "pipeline and sequence parallelism cannot nest"
+    with pytest.raises(ValueError, match=nest):
         main(config)
     assert not out.exists()
     params = tsv.init_params(tsv.tiny_config(), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match=nest):
         shard_pytree(params, tsv.partition_rules(), {"fsdp": 1, **axes})
 
 

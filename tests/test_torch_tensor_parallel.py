@@ -20,9 +20,9 @@ one process and to the JAX package.
 - one run of (data 2, tensor 2): two leaders load their slices from an
   exported checkpoint, register ModelWorkers with the controller, and 4
   requests through it land on both and give the one-process worker's text;
-- refusals citing item 12: stage above 1, a training mesh with tensor
-  above 1 (the 1B, int8 weights and use_speculative on a tensor mesh:
-  tests/test_torch_tensor_parallel_rest.py).
+- refusals citing item 12: a serving mesh with stage above 1 (a training
+  mesh of stage x tensor is laid out; the 1B, int8 weights and
+  use_speculative on a tensor mesh: tests/test_torch_tensor_parallel_rest.py).
 
 Ranks are this file run as a script (test_torch_fsdp_train.launch); their
 code imports torch and the port only, the JAX references run in the pytest
@@ -272,7 +272,22 @@ def _replicas_job(ckpt: str, config: str, controller_port: int, worker_port: int
     return out
 
 
-JOBS = {"tensor4": _tensor4_job, "replicas": _replicas_job}
+def _stage_layout_job() -> dict:
+    """A training layout on (stage 2, tensor 2): this rank's coordinates
+    and the sizes of its stage and tensor groups."""
+    import torch.distributed as dist
+
+    from starvector_tpu_torch.parallel import MeshConfig, create_mesh, zero
+
+    layout = zero.Layout(create_mesh(MeshConfig(fsdp=1, stage=2, tensor=2)))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (layout.stage_rank, layout.tensor_group.rank,
+                                   layout.batch_rank))
+    return {"ranks": ranks, "stage_group": dist.get_world_size(layout.stage_group),
+            "tensor_group": layout.tensor_group.size}
+
+
+JOBS = {"tensor4": _tensor4_job, "replicas": _replicas_job, "stage_layout": _stage_layout_job}
 
 
 # ---------------------------------------------------------------------------
@@ -629,21 +644,24 @@ def test_data2_tensor2_workers_serve_the_one_process_text(tmp_path):
 # refusals
 # ---------------------------------------------------------------------------
 
-def test_refusals_cite_item_12():
-    """A serve mesh and a training mesh with stage above 1 raise
-    NotImplementedError citing item 12. (The 1B, an int8-weight decoder and
-    use_speculative on a tensor mesh are served:
-    tests/test_torch_tensor_parallel_rest.py; tensor-parallel training:
-    tests/test_torch_tensor_train.py.)"""
-    from starvector_tpu_torch.parallel import tensor, zero
-    from starvector_tpu_torch.parallel.mesh import refuse_unported_axes
+def test_refusals_cite_item_12(tmp_path):
+    """A serve mesh with stage above 1 raises NotImplementedError citing
+    item 12; a training mesh of (stage 2, tensor 2) is accepted: the
+    training mesh's check passes it, and 4 gloo ranks lay it out (stage
+    coordinate, tensor rank, one batch coordinate; row-major over (stage,
+    tensor)). (The 1B, an int8-weight decoder and use_speculative on a
+    tensor mesh are served: tests/test_torch_tensor_parallel_rest.py;
+    tensor-parallel training: tests/test_torch_tensor_train.py; pipeline
+    parallelism: tests/test_torch_pipeline_parallel.py.)"""
+    from starvector_tpu_torch.parallel import tensor
+    from starvector_tpu_torch.parallel.mesh import check_training_mesh
 
     with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
         tensor.serving_mesh_config({"tensor": 2, "stage": 2})
-    with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
-        refuse_unported_axes({"stage": 2, "tensor": 2}, "the training mesh")
-    with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
-        zero.Layout({"stage": 2, "tensor": 2})
+    check_training_mesh({"stage": 2, "tensor": 2})
+    got = launch(HERE, "stage_layout", 4, {}, tmp_path)
+    assert got["ranks"] == [(0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)]
+    assert (got["stage_group"], got["tensor_group"]) == (2, 2)
 
 
 def test_both_serve_configs_map_onto_their_meshes():
