@@ -39,9 +39,11 @@ Phases, one line each (any failure raises and exits non-zero):
      8k and 16k windows and the 16k triangle, the 8B's heads (H=36 Hkv=4,
      window 4096: B=2 S=T=1160, B=1 S=T=4700, and B=2 T=4700 with 700
      right-padded keys; bf16 bit for bit on relaunch); the int8 weight
-     matmul (kernel 14: GEMV at M = 1, 4, 8, 16, the wgmma tile at M = 17,
-     260, 1040, the four 1B projection shapes, bf16 and fp32, with and
-     without bias; two launches bit for bit) and the int8-cache decode attention; the 8B's
+     matmul (kernel 14: GEMV at M = 1, 4, 8, 16, the design gemv_path picks
+     (the tensor-core GEMV, or the pair for fp32 x and the shapes where it
+     is faster), the wgmma tile at M = 17, 260, 1040, the four 1B
+     projection shapes, bf16 and fp32, with and without bias; two launches
+     bit for bit) and the int8-cache decode attention; the 8B's
      shapes: decode at G = 9 (36 query heads over 4 KV heads; B=4 T=708,
      B=1 T=8192 past the 4096 window, a ragged mask; over a bf16 and over
      an int8 cache, with the int8 P-rounding case) and flash_prefill at
@@ -54,8 +56,8 @@ Phases, one line each (any failure raises and exits non-zero):
      right-padded), decode at G = 9 over Hkv = 1 (32 slots), over an int8
      cache at G = 5 and 4 (16 slots), and at the 1B's G = 8 and 2 over
      either cache; kernel 14 at a tensor-8 rank's slices of both models
-     (row-parallel ones with an fp32 result and no bias), the GEMV at M = 4
-     and the tile at an admission's rows, bit for bit on relaunch; the
+     (row-parallel ones with an fp32 result and no bias), the GEMV at M = 1,
+     4, 8, 16 and the tile at an admission's rows, bit for bit on relaunch; the
      training pair at a tensor rank's heads (phase 5g): the 1B's H = 8, 4
      and 2 over its KV head (B=4 S=T=769) and the 8B's 18 over 2, 9, 5 and
      4 over 1 (B=1 S=T=4700, window 4096), fp32 and bf16, bf16 bit for bit
@@ -307,8 +309,10 @@ Phases, one line each (any failure raises and exits non-zero):
      state's bytes (masters, bf16 cast, bf16 gradients, Adafactor)
   7. times on the card, each beside the card's name and power limit: each
      kernel against its plain version, its bound and one PyTorch library
-     call where there is one (the 8B's at its shapes too; kernel 14 also at
-     M = 144, a fused step of phase 4e), the 1B and 8B
+     call where there is one (the 8B's at its shapes too; kernel 14's GEMV
+     in both designs, in turns, at M = 1, 4, 8, 16 over weight copies past
+     the L2, with each design's host cost a call; its tile also at M = 144,
+     a fused step of phase 4e), the 1B and 8B
      train steps and the training kernels at the 8B's (S = T = 8192, H=36,
      Hkv=4, window 4096; dkdv at each head split beside the plan's pick),
      flash_prefill at siglip_512's prefix (B=2, S=T=1026) beside SDPA,
@@ -431,7 +435,7 @@ def cuda_ms(fn, iters: int = 50) -> float:
 KERNEL_COUNTS = ("flash_prefill", "decode_attention", "flash_prefill_with_lse",
                  "flash_bwd_dkdv", "flash_bwd_dq")
 TRAIN_KERNELS = ("flash_prefill_with_lse", "flash_bwd_dkdv", "flash_bwd_dq")
-QMM_PATHS = ("gemv", "wgmma", "f32_tile")
+QMM_PATHS = ("gemv_tc", "gemv", "wgmma", "f32_tile")
 
 
 def reset_counts(tfa) -> None:
@@ -462,10 +466,11 @@ def kernel_tag(mangled: str) -> str:
     ' G=16', ' G=9', ' G=8', ' G=5', ' G=4' or ' G=2' for its query heads
     per KV head; for the
     int8 matmul its first template argument ('<bf16>' or '<f32>': x's type
-    for the GEMV, the output's for the tile and finish kernels, marked
-    'out'), for the GEMV ' rows<=MR' and for the wgmma tile ' xBX' (its
-    rows of x a block); nothing for the flash kernels, whose type is in
-    their names."""
+    for the GEMV pair, the output's for the tile, finish and tensor-core
+    GEMV kernels, marked 'out'), for the GEMVs ' rows<=MR' (and the
+    tensor-core one's rows of K a unit / 64, ' ku4') and for the wgmma
+    tile ' xBX' (its rows of x a block); nothing for the flash kernels,
+    whose type is in their names."""
     if "decode_attention" in mangled:
         group = re.search(r"decode_attention_(?:bf16|f32)_kernelI(?:13__nv_bfloat16|a|f)Li(\d+)E",
                           mangled)
@@ -474,20 +479,22 @@ def kernel_tag(mangled: str) -> str:
     if "qmm_" not in mangled:
         return ""
     first = re.search(r"kernelI(13__nv_bfloat16|f)", mangled)
-    out = "out " if re.search(r"qmm_(wgmma|f32|finish)_kernel", mangled) else ""
+    out = "out " if re.search(r"qmm_(wgmma|f32|finish|gemv_tc)_kernel", mangled) else ""
     tag = f"<{out}bf16>" if first and first.group(1) != "f" else f"<{out}f32>"
     rows = re.search(r"qmm_gemv_kernelI(?:13__nv_bfloat16|f)Li(\d+)E", mangled)
     tile = re.search(r"qmm_wgmma_kernelI(?:13__nv_bfloat16|f)Li(\d+)E", mangled)
+    tc = re.search(r"qmm_gemv_tc_kernelI(?:13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
     return (tag + (f" rows<={rows.group(1)}" if rows else "")
-            + (f" x{tile.group(1)}" if tile else ""))
+            + (f" x{tile.group(1)}" if tile else "")
+            + (f" rows<={8 * int(tc.group(1))} ku{tc.group(2)}" if tc else ""))
 
 
 KERNEL_NAMES = ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel",
                 "decode_attention_bf16_kernel", "decode_attention_f32_kernel",
                 "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dkdv_f32_kernel",
                 "flash_bwd_dkdv_finish_kernel", "flash_bwd_dq_bf16_kernel",
-                "flash_bwd_dq_f32_kernel", "qmm_gemv_kernel", "qmm_finish_kernel",
-                "qmm_wgmma_kernel", "qmm_f32_kernel")
+                "flash_bwd_dq_f32_kernel", "qmm_gemv_kernel", "qmm_gemv_tc_kernel",
+                "qmm_finish_kernel", "qmm_wgmma_kernel", "qmm_f32_kernel")
 
 
 def ptxas_summary(log_text: str) -> list[str]:
@@ -703,25 +710,45 @@ QMM_SHAPES = (  # the 1B decoder's four projections: name, K, N
 )
 
 
+def qmm_path(tq, M: int, K: int, N: int, dtype=torch.bfloat16) -> str:
+    """Kernel 14's design for a call: the tensor-core GEMV ("gemv_tc") or
+    the CUDA-core pair ("gemv") by gemv_path's rule up to GEMV_MAX_ROWS
+    rows, else the tile ("tile")."""
+    return tq.gemv_path(M, K, N, dtype) if M <= tq.GEMV_MAX_ROWS else "tile"
+
+
+def gemv_counts(tq, shapes, forwards) -> dict:
+    """The GEMV launches by design (quant_matmul_gemv_tc, quant_matmul_gemv)
+    that bf16 forwards make: `forwards` [(rows of x, forwards at them)],
+    each forward calling kernel 14 once at each (K, N) of `shapes` (its
+    layers' projections)."""
+    out = {"quant_matmul_gemv_tc": 0, "quant_matmul_gemv": 0}
+    for M, n in forwards:
+        for K, N in shapes:
+            out["quant_matmul_" + tq.gemv_path(M, K, N, torch.bfloat16)] += n
+    return out
+
+
 def check_quant_matmul(tq, dev) -> dict:
     """Kernel 14 against its plain version at M = 1, 4, 8, 16 (GEMV), 17,
     128 and 144 (phase 4e's chunk-only and fused decode+chunk steps: B = 16
     rows x C = 8, x (1 + C)), 260 (a B=1 prefill), 1040 (the wgmma tile:
     4 x 260 prefill rows) and 16384 (phase 4e's batch 0 prefill: 16 x
-    1024), the four projection shapes, bf16 and fp32 x, with a bias of x's
-    type and without, to QMM_TOL; the bf16 GEMV at M = 4 and tile at
-    M = 144 and 260 (where tile_plan splits K, and the finish pass sums the
-    splits) and 1040 launched twice, bit for bit. Returns the worst max
-    |diff| by path ("gemv", "tile")."""
+    1024), the four projection shapes, bf16 and fp32 x (fp32 runs the
+    pair), with a bias of x's type and without, to QMM_TOL; the bf16 GEMV
+    at M = 1, 4, 8, 16 and tile at M = 144 and 260 (where tile_plan splits
+    K, and the finish pass sums the splits) and 1040 launched twice, bit for
+    bit. Returns the worst max |diff| by design ("gemv_tc", "gemv",
+    "tile")."""
     g = torch.Generator(device=dev).manual_seed(8)
-    worst = {"gemv": 0.0, "tile": 0.0}
+    worst = {"gemv_tc": 0.0, "gemv": 0.0, "tile": 0.0}
     for name, K, N in QMM_SHAPES:
         p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
         bias = torch.randn((N,), generator=g, device=dev)
         errs = []
         for M in QMM_CHECK_ROWS:
-            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
             for dtype in (torch.float32, torch.bfloat16):
+                path = qmm_path(tq, M, K, N, dtype)
                 x = torch.randn((M, K), generator=g, device=dev).to(dtype)
                 for b in (None, bias.to(dtype)):
                     out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
@@ -729,7 +756,7 @@ def check_quant_matmul(tq, dev) -> dict:
                     torch.cuda.synchronize()
                     err = compare(f"quant_matmul {name} M={M} {dtype} bias={b is not None}",
                                   out, ref, dtype, tols=QMM_TOL)
-                    if M in (4, 144, 260, 1040) and dtype == torch.bfloat16 and b is not None:
+                    if M in (1, 4, 8, 16, 144, 260, 1040) and dtype == torch.bfloat16:
                         again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
                         torch.cuda.synchronize()
                         if not torch.equal(again, out):
@@ -915,10 +942,12 @@ QMM_TP_SHAPES = (
     ("1B tp8 mlp.c_fc", 2048, 1024, False, "1b"),
     ("1B tp8 mlp.c_proj", 1024, 2048, True, "1b"),
 )
-# rows of x: the GEMV at a decode step of 4 rows; the tile at an admission
-# of 2 prompts in their bucket (the 8B's 576 visual tokens and prompt in
-# 1024, the 1B's 257 in 512)
-QMM_TP_ROWS = {"8b": (4, 2048), "1b": (4, 1024)}
+# rows of x: the GEMV at a decode step of the engine's 16 slots (the rows
+# every step of 6e's int8 runs feeds it); the tile at an admission of 2
+# prompts in their bucket (the 8B's 576 visual tokens and prompt in 1024,
+# the 1B's 257 in 512)
+QMM_TP_ROWS = {"8b": (16, 2048), "1b": (16, 1024)}
+QMM_TP_CHECK_ROWS = {"8b": (1, 4, 8, 16, 2048), "1b": (1, 4, 8, 16, 1024)}
 
 
 def check_tp_shapes(tfa, dc, dev) -> dict:
@@ -1005,10 +1034,10 @@ def check_quant_matmul_tp(tq, dev) -> dict:
     """Kernel 14 at a tensor rank's shapes (QMM_TP_SHAPES) against its plain
     version, bf16 x, as a rank's dense runs it: a column-parallel slice with
     its bias and a bf16 result, a row-parallel one with no bias and an fp32
-    result (the partial its group sums); the GEMV at M = 4 and the tile at
-    an admission's rows (QMM_TP_ROWS), to QMM_TOL, each launched twice, bit
-    for bit. Returns the worst max |diff| by model and path
-    ("qmm_gemv_tp_8b", "qmm_tile_tp_1b", ...)."""
+    result (the partial its group sums); the GEMV at M = 1, 4, 8, 16 and the
+    tile at an admission's rows (QMM_TP_CHECK_ROWS), to QMM_TOL, each
+    launched twice, bit for bit. Returns the worst max |diff| by model and
+    design ("qmm_gemv_tc_tp_8b", "qmm_tile_tp_1b", ...)."""
     g = torch.Generator(device=dev).manual_seed(22)
     worst = {}
     for name, K, N, row, model in QMM_TP_SHAPES:
@@ -1016,8 +1045,8 @@ def check_quant_matmul_tp(tq, dev) -> dict:
         bias = None if row else torch.randn((N,), generator=g, device=dev).bfloat16()
         out_dtype = torch.float32 if row else torch.bfloat16
         errs = []
-        for M in QMM_TP_ROWS[model]:
-            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
+        for M in QMM_TP_CHECK_ROWS[model]:
+            path = qmm_path(tq, M, K, N)
             x = torch.randn((M, K), generator=g, device=dev).bfloat16()
             out = tq.quant_matmul(x, p["kernel_q"], p["scale"], bias, out_dtype=out_dtype)
             ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], bias, out_dtype=out_dtype)
@@ -1032,8 +1061,9 @@ def check_quant_matmul_tp(tq, dev) -> dict:
             del x, out, ref, again
         log("kernels", f"quant_matmul {name} (K={K}, N={N}, "
                        f"{'row-parallel: fp32 out, no bias' if row else 'bias, bf16 out'}), "
-                       f"plans: GEMV {tq.gemv_split(K, N)}, tile "
-                       f"{tq.tile_plan(QMM_TP_ROWS[model][1], K, N)}: max |diff| "
+                       f"plans: tensor-core GEMV {tq.gemv_plan(K, N)}, pair "
+                       f"{tq.gemv_split(K, N)}, tile "
+                       f"{tq.tile_plan(QMM_TP_CHECK_ROWS[model][-1], K, N)}: max |diff| "
                        + ", ".join(errs) + "; a second launch gives the same bits")
     torch.cuda.empty_cache()
     return worst
@@ -1043,26 +1073,32 @@ QMM_SHAPES_8B = (  # the 8B decoder's six projections a layer, four shapes: name
     ("attn.q_proj, o_proj", 4608, 4608), ("attn.k_proj, v_proj", 4608, 512),
     ("mlp.c_fc", 4608, 18432), ("mlp.c_proj", 18432, 4608),
 )
-QMM_ROWS_8B = (1, 4, 580, 2320)  # decode at B = 1, 4; prefill of 580 tokens at B = 1, 4
+# decode at B = 1, 4, 8 (num_return_sequences) and 16 (phase 4e's slots);
+# prefill of 580 tokens at B = 1, 4
+QMM_ROWS_8B = (1, 4, 8, 16, 580, 2320)
+# the 8B decoder's projections a layer: q, k, v, o_proj, c_fc, c_proj
+LAYER_SHAPES_8B = ((4608, 4608), (4608, 512), (4608, 512), (4608, 4608), (4608, 18432),
+                   (18432, 4608))
 
 
 def check_quant_matmul_8b(tq, dev) -> dict:
     """Kernel 14 at the 8B's shapes against its plain version, with a bias
-    of x's type: M = 1, 4 (the GEMV) and 580, 2320 (the tile) in bf16, and
-    fp32 x up to M = 580 (the fp32 greedy check's path), to QMM_TOL; the
-    bf16 tile at M = 2320 launched twice, bit for bit. Returns the worst
-    max |diff| by path ("gemv", "tile")."""
+    of x's type: M = 1, 4, 8, 16 (the GEMV) and 580, 2320 (the tile) in
+    bf16, and fp32 x up to M = 580 (the fp32 greedy check's path: the pair
+    for M <= 16), to QMM_TOL; the bf16 GEMV and the tile at M = 2320
+    launched twice, bit for bit. Returns the worst max |diff| by design
+    ("gemv_tc", "gemv", "tile")."""
     g = torch.Generator(device=dev).manual_seed(20)
-    worst = {"gemv": 0.0, "tile": 0.0}
+    worst = {"gemv_tc": 0.0, "gemv": 0.0, "tile": 0.0}
     for name, K, N in QMM_SHAPES_8B:
         p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
         bias = torch.randn((N,), generator=g, device=dev)
         errs = []
         for M in QMM_ROWS_8B:
-            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
             for dtype in (torch.bfloat16, torch.float32):
                 if dtype == torch.float32 and M > 580:
                     continue
+                path = qmm_path(tq, M, K, N, dtype)
                 x = torch.randn((M, K), generator=g, device=dev).to(dtype)
                 b = bias.to(dtype)
                 out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
@@ -1070,18 +1106,18 @@ def check_quant_matmul_8b(tq, dev) -> dict:
                 torch.cuda.synchronize()
                 err = compare(f"quant_matmul 8B {name} M={M} {dtype}", out, ref, dtype,
                               tols=QMM_TOL)
-                if M == 2320:
+                if M == 2320 or path == "gemv_tc":
                     again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
                     torch.cuda.synchronize()
                     if not torch.equal(again, out):
                         raise AssertionError(f"quant_matmul 8B {name} M={M}: two launches differ")
                 worst[path] = max(worst[path], err)
-                errs.append(f"M={M} {str(dtype)[6:]} {err:.2e}")
+                errs.append(f"M={M} {str(dtype)[6:]} {path} {err:.2e}")
                 del x, out, ref
-        log("kernels", f"quant_matmul 8B {name} (K={K}, N={N}, bias), plans: GEMV "
-                       f"{tq.gemv_split(K, N)} (splits, rows), tile "
-                       f"{[tq.tile_plan(M, K, N) for M in QMM_ROWS_8B[2:]]} (rows of x, splits, "
-                       f"rows of K): max |diff| " + ", ".join(errs))
+        log("kernels", f"quant_matmul 8B {name} (K={K}, N={N}, bias), plans: tensor-core GEMV "
+                       f"{tq.gemv_plan(K, N)} (blocks, waves of whole tiles, rows of K a unit / "
+                       f"64), pair {tq.gemv_split(K, N)} (splits, rows), tile {[tq.tile_plan(M, K, N) for M in QMM_ROWS_8B[-2:]]} (rows of "
+                       f"x, splits, rows of K): max |diff| " + ", ".join(errs))
     torch.cuda.empty_cache()
     return worst
 
@@ -1370,8 +1406,8 @@ def full_width_params(sv, cfg, dev, dtype, seed: int = 0) -> dict:
 
 KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match wins
     ("decode_attention", ("decode_attention_bf16_kernel", "decode_attention_f32_kernel")),
-    ("quant_matmul", ("qmm_gemv_kernel", "qmm_finish_kernel", "qmm_wgmma_kernel",
-                      "qmm_f32_kernel")),
+    ("quant_matmul", ("qmm_gemv_kernel", "qmm_gemv_tc_kernel", "qmm_finish_kernel",
+                      "qmm_wgmma_kernel", "qmm_f32_kernel")),
     ("flash_prefill", ("flash_prefill_bf16_kernel", "flash_prefill_f32_kernel")),
     ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")),
     ("layer_norm", ("layer_norm",)),
@@ -1501,6 +1537,7 @@ def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
     prefill logits against the fp32 plain int8 path, and the share of
     greedy tokens on which int8 agrees with bf16 (random weights: printed,
     not checked)."""
+    from starvector_tpu_torch.ops import quantization as tq
     from starvector_tpu_torch.generation.engine import im2svg_prefix
     from starvector_tpu_torch.models import gpt_bigcode
     from starvector_tpu_torch.ops.layers import DTypePolicy
@@ -1521,7 +1558,8 @@ def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
         if not ((lengths >= 1) & (lengths <= 128)).all():
             raise AssertionError(f"int8: bad lengths {lengths.tolist()}")
     n = sum(steps)
-    expected = {"quant_matmul": 4 * L * (3 + n), "quant_matmul_gemv": 4 * L * n,
+    gemv = gemv_counts(tq, [(K, N) for _, K, N in QMM_SHAPES], [(4, L * n)])
+    expected = {"quant_matmul": 4 * L * (3 + n), **gemv,
                 "quant_matmul_wgmma": 4 * L * 3, "quant_matmul_f32_tile": 0,
                 "flash_prefill": L * 3, "decode_attention": L * n, "decode_attention_int8": L * n,
                 **dict.fromkeys(TRAIN_KERNELS, 0)}
@@ -1531,19 +1569,25 @@ def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
     log("slice", f"int8 weights + int8 KV cache, 3 requests x 4 images, greedy, 128 new tokens: "
                  f"decode steps {steps}, lengths {[l.tolist() for _, l, _ in served]}; launches "
                  f"quant_matmul {got['quant_matmul']} = 96 x ({3} prefills + {n} decode steps) "
-                 f"(GEMV {got['quant_matmul_gemv']}, wgmma tile {got['quant_matmul_wgmma']}), int8 "
+                 f"(tensor-core GEMV {got['quant_matmul_gemv_tc']}, GEMV pair "
+                 f"{got['quant_matmul_gemv']}, wgmma tile {got['quant_matmul_wgmma']}), int8 "
                  f"decode_attention {got['decode_attention_int8']} = {L} x {n}, flash_prefill "
                  f"{got['flash_prefill']} = {L} x 3, no training kernel")
 
-    # fp32: greedy ids with the kernels against the plain versions
+    # fp32: greedy ids with the kernels against the plain versions (fp32 x
+    # runs the GEMV pair: its launches there go beside the bf16 run's)
     q32 = quantized(p32)
+    reset_counts(tfa)
     ids = {k: int8_requester(model, cfg, q32, f32, dev, kernels=k)(
         synthetic_images(2, 7), max_new_tokens=32)[0] for k in (True, False)}
-    if not torch.equal(ids[True], ids[False]):
+    got["quant_matmul_gemv_fp32"] = read_counts(tfa)["quant_matmul_gemv"]
+    if not torch.equal(ids[True], ids[False]) or not got["quant_matmul_gemv_fp32"]:
         raise AssertionError(f"int8 fp32 greedy ids differ:\n{ids[True].tolist()}\n"
-                             f"{ids[False].tolist()}")
+                             f"{ids[False].tolist()}\nor the GEMV pair did not run "
+                             f"({got['quant_matmul_gemv_fp32']} launches)")
     log("slice", f"int8 fp32, B=2, 32 tokens: greedy ids with the kernels == with the plain "
-                 f"versions ({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+                 f"versions ({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row); "
+                 f"GEMV pair launches {got['quant_matmul_gemv_fp32']}")
     del q32
 
     # bf16: prefill last-position logits against the fp32 plain int8 path
@@ -1872,24 +1916,116 @@ def sdpa_ms(q, k, v, causal: bool, **kw):
     return min(times) if times else None
 
 
+GEMV_TIME_ROWS = (1, 4, 8, 16)  # decode at B = 1, 4; num_return_sequences; 4e's 16 slots
+GEMV_ROTATE_BYTES = 160 << 20  # weights a timed GEMV runs through: past the 50 MB L2
 # M = 144: a fused decode+chunk step of phase 4e (B = 16 rows x (1 + C = 8))
-QMM_TIMES = ((1, "gemv"), (4, "gemv"), (8, "gemv"), (144, "tile"), (260, "tile"), (1040, "tile"))
+QMM_TIMES = ((144, "tile"), (260, "tile"), (1040, "tile"))
+
+
+def gemv_times(tq, dev, card: str, shapes, label: str, seed: int) -> dict:
+    """Kernel 14's two GEMV designs, the tensor-core GEMV (on gemv_plan's
+    plan) and the CUDA-core pair, in turns with the plain version (plain,
+    tensor-core, pair, pair, tensor-core, plain), at M = GEMV_TIME_ROWS and
+    each (name, K, N) of `shapes`, bf16 x with a bf16 bias; beside each its
+    bound, the bf16 cuBLAS addmm over the dequantized weight,
+    torch._weight_int8pack_mm and each design's host CPU us a call. Every
+    timed launch reads another copy of the codes, of copies passing
+    GEMV_ROTATE_BYTES together, so that it streams them from HBM as a
+    decode step does (its layers' weights pass the 50 MB L2). Returns
+    {(name, M): figures}; the design gemv_path picks is `kernel`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = {}
+    for name, K, N in shapes:
+        n = max(2, min(64, -(-GEMV_ROTATE_BYTES // (K * N))))
+        ws = [(torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8),
+               torch.rand((N,), generator=g, device=dev) * 1e-3 + 1e-4,
+               torch.randn((N,), generator=g, device=dev).bfloat16()) for _ in range(n)]
+        w16 = [(kq.float() * sc).bfloat16() for kq, sc, _ in ws]
+        kq_nk, sc16 = ws[0][0].t().contiguous(), ws[0][1].bfloat16()
+        plan, split = tq.gemv_plan(K, N), tq.gemv_split(K, N)
+        for M in GEMV_TIME_ROWS:
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            calls = {
+                "plain": lambda w: tq.quant_matmul(x, w[0], w[1], w[2], out_dtype=torch.bfloat16,
+                                                   kernels=False),
+                "gemv_tc": lambda w: tq.launch_gemv_tc(x, w[0], w[1], w[2], torch.bfloat16,
+                                                       *plan),
+                "gemv": lambda w: tq.launch_kernel(x, w[0], w[1], w[2], torch.bfloat16, "gemv", 0,
+                                                   *split)}
+            got = {k: [] for k in calls}
+            for k in ("plain", "gemv_tc", "gemv", "gemv", "gemv_tc", "plain"):
+                got[k].append(rotated_ms(calls[k], ws))
+            ms = {k: sum(v) / len(v) for k, v in got.items()}
+            addmm = rotated_ms(lambda w: torch.addmm(ws[0][2], x, w), w16)
+            lib = library_ms(lambda: torch._weight_int8pack_mm(x, kq_nk, sc16),
+                             "torch._weight_int8pack_mm")
+            host = {k: host_us(lambda: calls[k](ws[0]), iters=4000, rounds=1)
+                    for k in ("gemv_tc", "gemv")}
+            b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2, 2 * M * K * N)
+            path = tq.gemv_path(M, K, N, torch.bfloat16)
+            rows[name, M] = dict(ms=ms[path], plain_ms=ms["plain"], bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib if lib is not None else addmm, addmm_ms=addmm,
+                                 int8pack_ms=lib, tc_ms=ms["gemv_tc"], pair_ms=ms["gemv"],
+                                 tc_host_us=host["gemv_tc"], pair_host_us=host["gemv"],
+                                 path=path)
+            log("times", f"{card}: quant_matmul GEMV {label} {name} M={M} K={K} N={N} bf16: "
+                         f"tensor-core {ms['gemv_tc']:.4f} ms ({b_ms / ms['gemv_tc']:.1%} of the "
+                         f"bound; plan {plan}), pair {ms['gemv']:.4f} ms "
+                         f"({b_ms / ms['gemv']:.1%}), gemv_path keeps {path}; plain "
+                         f"{ms['plain']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), bf16 addmm "
+                         f"{addmm:.4f} ms (reads 2 bytes a weight), int8pack_mm "
+                         f"{'n/a' if lib is None else f'{lib:.4f} ms'}; host CPU a call "
+                         f"{host['gemv_tc']:.1f} us tensor-core, {host['gemv']:.1f} us pair")
+            del x
+        del ws, w16, kq_nk
+        torch.cuda.empty_cache()
+    for M in GEMV_TIME_ROWS:
+        total = {k: sum(rows[nm, M][k] for nm, _, _ in shapes)
+                 for k in ("ms", "tc_ms", "pair_ms", "addmm_ms", "bound_ms")}
+        log("times", f"{card}: quant_matmul GEMV {label}, M={M}, the projections "
+                     f"{', '.join(nm for nm, _, _ in shapes)} once each: gemv_path's picks "
+                     f"{total['ms']:.4f} ms (tensor-core {total['tc_ms']:.4f}, pair "
+                     f"{total['pair_ms']:.4f}), bf16 addmm {total['addmm_ms']:.4f} ms, bound "
+                     f"{total['bound_ms']:.4f} ms")
+    return rows
+
+
+def rotated_ms(fn, items: list) -> float:
+    """Device ms a call of fn(item), the graph's calls going through
+    `items` in turn (cuda_ms)."""
+    state = {"i": 0}
+
+    def one():
+        fn(items[state["i"] % len(items)])
+        state["i"] += 1
+
+    return cuda_ms(one, iters=max(48, 2 * len(items)))
+
+
+def gemv_rows(rows: dict, name: str, M: int = 4) -> dict:
+    """The kernels' JSON figures of each GEMV design at one shape."""
+    r = rows[name, M]
+    keys = ("plain_ms", "bound_ms", "bound_by", "library_ms", "addmm_ms")
+    return {"gemv_tc": dict(ms=r["tc_ms"], **{k: r[k] for k in keys}),
+            "gemv": dict(ms=r["pair_ms"], **{k: r[k] for k in keys})}
 
 
 def quant_matmul_times(tq, dev, card: str) -> dict:
     """Kernel 14 against its plain version, the library's int8 weight
     matmul (torch._weight_int8pack_mm, where this torch has it for CUDA) and
-    the bf16 cuBLAS addmm, at M = 1, 4, 8 (the GEMV: decode at B = 1, 4, 8),
-    144 (the tile: a fused decode+chunk step of phase 4e), 260 and 1040 (a
-    B=1 and a B=4 prefill) for the four projections, bf16 x with a bf16
-    bias, each beside its bound (the tile also in TFLOP/s and share of the
-    bound, and at every width and split of K that tile_plan weighs); the
-    host cost a call of the GEMV at M = 4; then one prefill's 96
-    projections (prefill_projection_times). Returns mlp.c_fc's figures, the
-    largest, by path ("gemv" at M = 4, "tile" at M = 1040, "tile_m144"):
-    ms, plain_ms, bound_ms, bound_by, library_ms, addmm_ms."""
+    the bf16 cuBLAS addmm: the GEMV's two designs at M = 1, 4, 8, 16
+    (gemv_times: decode at B = 1, 4, num_return_sequences, 4e's slots) and
+    the tile at M = 144 (a fused decode+chunk step of phase 4e), 260 and
+    1040 (a B=1 and a B=4 prefill) for the four projections, bf16 x with a
+    bf16 bias, each beside its bound (the tile also in TFLOP/s and share of
+    the bound, and at every width and split of K that tile_plan weighs);
+    then one prefill's 96 projections (prefill_projection_times). Returns
+    mlp.c_fc's figures, the largest, by design ("gemv_tc" and "gemv" at
+    M = 4, "tile" at M = 1040, "tile_m144"): ms, plain_ms, bound_ms,
+    bound_by, library_ms, addmm_ms."""
+    rows = gemv_rows(gemv_times(tq, dev, card, QMM_SHAPES, "1B", 10), "mlp.c_fc") \
+        if hasattr(tq, "gemv_plan") else {}
     g = torch.Generator(device=dev).manual_seed(10)
-    rows = {}
     for M, path in QMM_TIMES:
         total = dict(ms=0.0, plain=0.0, addmm=0.0, bound=0.0)
         for name, K, N in QMM_SHAPES:
@@ -1909,19 +2045,13 @@ def quant_matmul_times(tq, dev, card: str) -> dict:
             b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2, flops)
             for key, val in (("ms", ms), ("plain", plain_ms), ("addmm", addmm_ms), ("bound", b_ms)):
                 total[key] += val
-            extra = ""
-            if M == 4 and name == "mlp.c_fc":
-                us = host_us(lambda: tq.quant_matmul(x, kq, sc, b, out_dtype=torch.bfloat16))
-                extra = f", {us:.1f} us of host CPU a call"
-            if path == "tile":
-                extra = f" ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound)"
             log("times", f"{card}: quant_matmul {path} {name} M={M} K={K} N={N} bf16: kernel "
-                         f"{ms:.4f} ms{extra}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                         f"({b_by}), int8pack_mm {'n/a' if lib is None else f'{lib:.4f} ms'}, "
-                         f"bf16 addmm {addmm_ms:.4f} ms (reads 2 bytes a weight)")
-            if path == "tile" and hasattr(tq, "tile_plan"):
-                tile_plan_times(tq, x, kq, sc, b, name, card)
-            if name == "mlp.c_fc" and M in (4, 144, 1040):
+                         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the "
+                         f"bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                         f"int8pack_mm {'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 addmm "
+                         f"{addmm_ms:.4f} ms (reads 2 bytes a weight)")
+            tile_plan_times(tq, x, kq, sc, b, name, card)
+            if name == "mlp.c_fc" and M in (144, 1040):
                 rows[path if M != 144 else "tile_m144"] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib if lib is not None else addmm_ms, addmm_ms=addmm_ms)
@@ -2098,6 +2228,7 @@ def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
         B=4 tokens/s of greedy and batched speculative;
       * GRPO: grpo_step (below).
     Random weights: an acceptance rate here is no forecast for real SVG."""
+    from starvector_tpu_torch.ops import quantization as tq
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.generation import speculative
     from starvector_tpu_torch.generation.engine import GenerationConfig, generate, im2svg_prefix
@@ -2183,8 +2314,11 @@ def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
     got = expect_counts("num_return_sequences int8", counts, flash_prefill=L,
                         decode_attention=L * steps, decode_attention_int8=L * steps,
                         quant_matmul=4 * L * (1 + steps))
-    if (counts["quant_matmul_gemv"], counts["quant_matmul_wgmma"]) != (4 * L * steps, 4 * L):
-        raise AssertionError(f"num_return_sequences int8: quant_matmul paths {counts}")
+    want = {**gemv_counts(tq, [(K, N) for _, K, N in QMM_SHAPES], [(2 * n, L * steps)]),
+            "quant_matmul_wgmma": 4 * L}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"num_return_sequences int8: quant_matmul paths {counts}, "
+                             f"expected {want}")
     groups = tokens.view(2, n, -1)
     if not all(torch.equal(g[0], g[i]) for g in groups for i in range(n)):
         raise AssertionError("num_return_sequences int8: a greedy group's rows differ")
@@ -2818,7 +2952,8 @@ def serving_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None
                   decode_attention_int8=L * steps8, quant_matmul=4 * L * (1 + steps8))
     log("serve", f"{card}: 1B engine, int8 weights and an int8 KV cache: fp32 ids == offline "
                  f"int8 generate's ({[len(i) for i in i8k]} tokens); bf16 launches "
-                 f"quant_matmul {c8['quant_matmul']} = {4 * L} x (1 chunk + {steps8} steps; GEMV "
+                 f"quant_matmul {c8['quant_matmul']} = {4 * L} x (1 chunk + {steps8} steps; "
+                 f"tensor-core GEMV {c8['quant_matmul_gemv_tc']}, GEMV pair "
                  f"{c8['quant_matmul_gemv']}, tile {c8['quant_matmul_wgmma']}), decode_attention "
                  f"{c8['decode_attention']} = {L} x {steps8}, all over the int8 cache")
     mixed_batch(p16, cfg, pre16, bf16, dev, card)
@@ -2863,6 +2998,7 @@ def serving_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None
     launches = dict(flash_prefill=counts["flash_prefill"],
                     decode_attention=counts["decode_attention"],
                     decode_attention_int8=c8["decode_attention_int8"],
+                    quant_matmul_gemv_tc=c8["quant_matmul_gemv_tc"],
                     quant_matmul_gemv=c8["quant_matmul_gemv"],
                     quant_matmul_tile=c8["quant_matmul_wgmma"])
     return dict(rates=rates, launches=launches)
@@ -3517,11 +3653,15 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
                             decode_attention_int8=L * steps["decode"] if int8 else 0,
                             quant_matmul=4 * L * fwd if quant else 0)
         rows = {"decode_only": PIPE_B, "chunk": PIPE_B * C, "fused": PIPE_B * (1 + C)}
-        gemv = 4 * L * sum(steps[k] for k, m in rows.items() if m <= tq.GEMV_MAX_ROWS)
+        by_path = gemv_counts(tq, [(K, N) for _, K, N in QMM_SHAPES],
+                              [(m, L * steps[k]) for k, m in rows.items()
+                               if m <= tq.GEMV_MAX_ROWS])
+        gemv = sum(by_path.values())
         tile = 4 * L * fwd - gemv
-        if quant and (counts["quant_matmul_gemv"], counts["quant_matmul_wgmma"]) != (gemv, tile):
+        if quant and {**{k: counts[k] for k in by_path}, "tile": counts["quant_matmul_wgmma"]} \
+                != {**by_path, "tile": tile}:
             raise AssertionError(f"pipelined {label}: quant_matmul paths {counts}, expected GEMV "
-                                 f"{gemv}, tile {tile}")
+                                 f"{by_path}, tile {tile}")
         text = (f"bf16 launches flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0), "
                 f"decode_attention {got['decode_attention']} = {L} x {steps['decode']} decode "
                 f"steps ({steps['fused']} fused, {steps['decode_only']} decode-only; "
@@ -3530,8 +3670,10 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
                 + (f", quant_matmul {got['quant_matmul']} = 96 x {fwd} forwards (tile {tile}: "
                    f"the prefill at M = {PIPE_B * PIPE_P}, the fused steps at M = "
                    f"{PIPE_B * (1 + C)}, the chunk-only at M = {PIPE_B * C}; GEMV {gemv}: the "
-                   f"decode-only steps at M = {PIPE_B})" if quant else ""))
-        return {**got, **({"quant_matmul_gemv": gemv, "quant_matmul_wgmma": tile}
+                   f"decode-only steps at M = {PIPE_B}, tensor-core "
+                   f"{by_path['quant_matmul_gemv_tc']}, pair {by_path['quant_matmul_gemv']})"
+                   if quant else ""))
+        return {**got, **({**by_path, "quant_matmul_wgmma": tile}
                           if quant else {})}, text
 
     out16 = first["generate_pipelined"][0]
@@ -4139,7 +4281,8 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
         heads = sorted({run["heads"] for run in runs})
         walls = [run["wall"] for run in leaders]
         counts = runs[0]["counts"]
-        qmm = (f", quant_matmul {counts['quant_matmul']} (GEMV {counts['quant_matmul_gemv']}, "
+        qmm = (f", quant_matmul {counts['quant_matmul']} (tensor-core GEMV "
+               f"{counts['quant_matmul_gemv_tc']}, GEMV pair {counts['quant_matmul_gemv']}, "
                f"tile {counts['quant_matmul_wgmma']})" if quant else "")
         where = (f"{data} replicas of tensor {tp}, {kw['max_batch'] // data} slots each"
                  if data > 1 else f"tensor {tp}, {kw['max_batch']} slots")
@@ -5964,6 +6107,7 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict, depth: s
     above them; p50 and B=4 tokens/s beside the bf16 figures of the same
     call (with `profile_dir`, where a B=4 decode step's device time goes).
     Returns the launch counts, p50, tokens/s and the tree's bytes."""
+    from starvector_tpu_torch.ops import quantization as tq
     from starvector_tpu_torch.generation.engine import im2svg_prefix
     from starvector_tpu_torch.models import starcoder2
     from starvector_tpu_torch.ops.layers import DTypePolicy
@@ -6006,7 +6150,8 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict, depth: s
         if not ((lengths >= 1) & (lengths <= 128)).all():
             raise AssertionError(f"8B int8: bad lengths {lengths.tolist()}")
     n = sum(steps)
-    expected = {"quant_matmul": 6 * L * (2 + n), "quant_matmul_gemv": 6 * L * n,
+    gemv = gemv_counts(tq, LAYER_SHAPES_8B, [(4, L * steps[0]), (1, L * steps[1])])
+    expected = {"quant_matmul": 6 * L * (2 + n), **gemv,
                 "quant_matmul_wgmma": 6 * L * 2, "quant_matmul_f32_tile": 0,
                 "flash_prefill": L * 2, "decode_attention": L * n, "decode_attention_int8": L * n,
                 **dict.fromkeys(TRAIN_KERNELS, 0)}
@@ -6016,8 +6161,9 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict, depth: s
     log("8b-int8", f"requests of 4 images and of 1, greedy, 128 new tokens: decode steps {steps}, "
                    f"lengths {[l.tolist() for _, l, _ in served]}; launches quant_matmul "
                    f"{got['quant_matmul']} = {6 * L} x (2 prefills + {n} decode steps) (wgmma tile "
-                   f"{got['quant_matmul_wgmma']} at M = 4 x 580 and 580, GEMV "
-                   f"{got['quant_matmul_gemv']}), flash_prefill {got['flash_prefill']} = {L} x 2, "
+                   f"{got['quant_matmul_wgmma']} at M = 4 x 580 and 580, tensor-core GEMV "
+                   f"{got['quant_matmul_gemv_tc']} and GEMV pair {got['quant_matmul_gemv']} at "
+                   f"M = 4 and 1), flash_prefill {got['flash_prefill']} = {L} x 2, "
                    f"int8-cache decode_attention {got['decode_attention_int8']} = {L} x {n}, no "
                    f"training kernel")
 
@@ -6473,7 +6619,8 @@ def times_8b(tfa, dc, tq, dev, card: str, s8: dict, errs: dict) -> list[dict]:
                      bound_by=b_by, library_ms=None))
     del qg, kn, vn, kc, vc, kq, vq, ks, vs
     qmm = quant_matmul_times_8b(tq, dev, card)
-    for path, count in (("gemv", "quant_matmul_gemv"), ("tile", "quant_matmul_wgmma")):
+    for path, count in (("gemv_tc", "quant_matmul_gemv_tc"), ("gemv", "quant_matmul_gemv"),
+                        ("tile", "quant_matmul_wgmma")):
         rows.append(dict(name=f"quant_matmul_{path}_8b", route="cuda",
                          source="starvector_tpu_torch/csrc/quant_matmul.cu",
                          replaces="starvector_tpu/ops/quantization.py:139",
@@ -6706,8 +6853,9 @@ def tp_times_1b(tfa, dc, dev, card: str, counts: dict, errs: dict) -> list[dict]
 def quant_matmul_times_tp(dev, card: str, counts: dict, errs: dict) -> list[dict]:
     """Kernel 14 at a tensor-8 rank's shapes (QMM_TP_SHAPES), bf16 x, as a
     rank's dense runs it (a column slice with its bias and a bf16 result, a
-    row slice with no bias and an fp32 result): the GEMV at M = 4 and the
-    tile at the admission's rows, graph-replayed beside the plain version,
+    row slice with no bias and an fp32 result): the GEMV at a step's 16
+    slots (the design gemv_path picks: the tensor-core GEMV) and the tile
+    at the admission's rows, graph-replayed beside the plain version,
     the bound, bf16 addmm and torch._weight_int8pack_mm (over 2 calls
     between events at the tile's rows). One row per model and path: the
     times summed over one layer's projections on the rank with the larger
@@ -6727,14 +6875,14 @@ def quant_matmul_times_tp(dev, card: str, counts: dict, errs: dict) -> list[dict
         out_dtype = torch.float32 if row else torch.bfloat16
         layer = "(4 heads)" not in name  # k_proj, v_proj twice a layer
         for M in QMM_TP_ROWS[model]:
-            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
+            path = qmm_path(tq, M, K, N)
             x = torch.randn((M, K), generator=g, device=dev).bfloat16()
             plain_ms, ms = _turns(
                 lambda: tq.quant_matmul(x, kq, sc, bias, out_dtype=out_dtype, kernels=False),
                 lambda: tq.quant_matmul(x, kq, sc, bias, out_dtype=out_dtype))
             addmm_ms = cuda_ms((lambda: torch.mm(x, w16)) if row else
                                (lambda: torch.addmm(bias, x, w16)))
-            timer = None if path == "gemv" else functools.partial(event_ms, iters=2, warmup=1)
+            timer = functools.partial(event_ms, iters=2, warmup=1) if path == "tile" else None
             lib = library_ms(lambda: torch._weight_int8pack_mm(x, kq_nk, sc16),
                              "torch._weight_int8pack_mm", timer)
             nbytes = M * K * 2 + K * N + N * 4 + (0 if row else N * 2) + \
@@ -6773,7 +6921,7 @@ def quant_matmul_times_tp(dev, card: str, counts: dict, errs: dict) -> list[dict
                      f"{acc['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                      f"{b_ms / acc['ms']:.1%} of it), "
                      f"{'int8pack_mm' if acc['lib'] else 'bf16 addmm'} {lib:.4f} ms")
-        launches = counts[f"quant_matmul_{'gemv' if path == 'gemv' else 'wgmma'}"][config]
+        launches = counts[f"quant_matmul_{'wgmma' if path == 'tile' else path}"][config]
         rows.append(dict(name=f"quant_matmul_{path}_tp8_{model}", route="cuda",
                          source="starvector_tpu_torch/csrc/quant_matmul.cu",
                          replaces="starvector_tpu/ops/quantization.py:139",
@@ -6788,42 +6936,40 @@ def quant_matmul_times_8b(tq, dev, card: str) -> dict:
     """Kernel 14 at the 8B's shapes against its plain version, the bf16
     cuBLAS addmm and torch._weight_int8pack_mm (where this torch has it for
     CUDA; timed over 2 calls between events at prefill sizes, where it takes
-    tenths of a second), with a bf16 bias, at M = 1, 4 (the GEMV) and 580,
-    2320 (the tile; with TFLOP/s, share of the bound, and every plan
-    tile_plan weighs). Returns mlp.c_fc's figures, the largest, by path
-    ("gemv" at M = 4, "tile" at M = 2320): ms, plain_ms, bound_ms, bound_by,
-    library_ms (int8pack_mm, else addmm)."""
+    tenths of a second), with a bf16 bias: the GEMV's two designs at M = 1,
+    4, 8, 16 (gemv_times) and the tile at M = 580, 2320 (with TFLOP/s,
+    share of the bound, and every plan tile_plan weighs). Returns mlp.c_fc's
+    figures, the largest, by design ("gemv_tc" and "gemv" at M = 4, "tile"
+    at M = 2320): ms, plain_ms, bound_ms, bound_by, library_ms (int8pack_mm,
+    else addmm)."""
+    rows = gemv_rows(gemv_times(tq, dev, card, QMM_SHAPES_8B, "8B", 21), "mlp.c_fc")
     g = torch.Generator(device=dev).manual_seed(21)
-    rows = {}
     for name, K, N in QMM_SHAPES_8B:
         p = tq.quantize_dense({"kernel": torch.randn((K, N), generator=g, device=dev) * 0.02})
         kq, sc = p["kernel_q"], p["scale"]
         w16 = (kq.float() * sc).bfloat16()
         kq_nk, sc16 = kq.t().contiguous(), sc.bfloat16()
         b = torch.randn((N,), generator=g, device=dev).bfloat16()
-        for M in QMM_ROWS_8B:
-            path = "gemv" if M <= tq.GEMV_MAX_ROWS else "tile"
+        for M in QMM_ROWS_8B[-2:]:
             x = torch.randn((M, K), generator=g, device=dev).bfloat16()
             plain_ms, ms = _turns(
                 lambda: tq.quant_matmul(x, kq, sc, b, out_dtype=torch.bfloat16, kernels=False),
                 lambda: tq.quant_matmul(x, kq, sc, b, out_dtype=torch.bfloat16))
             addmm_ms = cuda_ms(lambda: torch.addmm(b, x, w16))
-            timer = None if path == "gemv" else functools.partial(event_ms, iters=2, warmup=1)
             lib = library_ms(lambda: torch._weight_int8pack_mm(x, kq_nk, sc16),
-                             "torch._weight_int8pack_mm", timer)
+                             "torch._weight_int8pack_mm",
+                             functools.partial(event_ms, iters=2, warmup=1))
             flops = 2 * M * K * N
             b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2, flops)
-            extra = "" if path == "gemv" else f" ({flops / ms / 1e9:.1f} TFLOP/s)"
-            log("times", f"{card}: quant_matmul 8B {path} {name} M={M} K={K} N={N} bf16: kernel "
-                         f"{ms:.4f} ms{extra}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                         f"({b_by}, {b_ms / ms:.1%} of it), int8pack_mm "
+            log("times", f"{card}: quant_matmul 8B tile {name} M={M} K={K} N={N} bf16: kernel "
+                         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                         f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it), int8pack_mm "
                          f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 addmm "
                          f"{addmm_ms:.4f} ms (reads 2 bytes a weight)")
-            if path == "tile":
-                tile_plan_times(tq, x, kq, sc, b, f"8B {name}", card)
-            if name == "mlp.c_fc" and M in (4, 2320):
-                rows[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=lib if lib is not None else addmm_ms)
+            tile_plan_times(tq, x, kq, sc, b, f"8B {name}", card)
+            if name == "mlp.c_fc" and M == 2320:
+                rows["tile"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib if lib is not None else addmm_ms)
             del x
         del p, kq, sc, w16, kq_nk
         torch.cuda.empty_cache()
@@ -6935,11 +7081,19 @@ def main() -> int:
               and ("serialized" in line or not line.endswith(" 0 bytes spilled"))]
     if faults:
         raise AssertionError(f"the int8 wgmma tile spills or its products are serialized: {faults}")
+    # the tensor-core GEMV: mma.sync (HMMA) in every instantiation, no spill
+    qmm_tc = sorted(k for k in hmma if k.startswith("qmm_gemv_tc_kernel"))
+    faults = [line for line in summary if line.startswith("qmm_gemv_tc_kernel")
+              and not line.endswith(" 0 bytes spilled")]
+    if len(qmm_tc) != 8 or not all(hmma[k] for k in qmm_tc) or faults:
+        raise AssertionError(f"the tensor-core GEMV: HMMA {[(k, hmma[k]) for k in qmm_tc]}, "
+                             f"spills {faults}")
     log("build", "HGMMA (wgmma) instructions in the machine code (cuobjdump -sass): "
                  + ", ".join(f"{k} {hgmma.get(k, 0)}"
                              for k in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS + tuple(qmm_tiles))
                  + "; HMMA (mma.sync): " + ", ".join(f"{k} {hmma.get(k, 0)}"
-                                                     for k in HMMA_KERNELS + NO_HMMA_KERNELS))
+                                                     for k in HMMA_KERNELS + NO_HMMA_KERNELS
+                                                     + tuple(qmm_tc)))
 
     # --- 3. kernels against their plain versions --------------------------------
     phase(3, "kernels against their plain versions")
@@ -6951,26 +7105,31 @@ def main() -> int:
     err_qmm = check_quant_matmul(tq, dev)
     err_int8 = check_int8_decode(tfa, dc, dev)
     log("kernels", f"the int8 kernels match their plain versions (atol=rtol 1e-4 in fp32; bf16 "
-                   f"quant_matmul and int8-cache decode atol 2e-3 and rtol 2^-7; the GEMV at "
-                   f"M=4 and the wgmma tile at M=260 and 1040 bit-identical on relaunch); max |diff| "
-                   f"quant_matmul GEMV {err_qmm['gemv']:.3e}, tile {err_qmm['tile']:.3e}, "
+                   f"quant_matmul and int8-cache decode atol 2e-3 and rtol 2^-7; the bf16 GEMV "
+                   f"at M=1, 4, 8, 16 and the wgmma tile at M=144, 260 and 1040 bit-identical on "
+                   f"relaunch); max |diff| quant_matmul tensor-core GEMV "
+                   f"{err_qmm['gemv_tc']:.3e}, GEMV pair {err_qmm['gemv']:.3e}, tile "
+                   f"{err_qmm['tile']:.3e}, "
                    f"int8-cache decode {err_int8:.3e}")
     err_8b = {"decode_g9": check_g9_decode(tfa, dev),
               "flash_prefill_8b": check_flash_prefill_8b(tfa, dev),
               "decode_g9_int8": check_g9_int8_decode(tfa, dc, dev)}
     qmm_8b = check_quant_matmul_8b(tq, dev)
-    err_8b.update(qmm_gemv_8b=qmm_8b["gemv"], qmm_tile_8b=qmm_8b["tile"])
+    err_8b.update(qmm_gemv_tc_8b=qmm_8b["gemv_tc"], qmm_gemv_8b=qmm_8b["gemv"],
+                  qmm_tile_8b=qmm_8b["tile"])
     err_8b.update(check_tp_shapes(tfa, dc, dev))
     err_8b.update(check_quant_matmul_tp(tq, dev))
     log("kernels", f"the 8B's kernel shapes match their plain versions (decode G=9 over a bf16 "
                    f"or an int8 cache: fp32 1e-4, bf16 atol 2e-3 and rtol 2^-7; flash_prefill "
                    f"H=36 Hkv=4 window 4096: fp32 1e-4, bf16 2e-2; quant_matmul at the six "
-                   f"projections' four shapes, M = 1, 4, 580, 2320: fp32 1e-4, bf16 atol 2e-3 and "
+                   f"projections' four shapes, M = 1, 4, 8, 16, 580, 2320: fp32 1e-4, bf16 atol "
+                   f"2e-3 and "
                    f"rtol 2^-7; bf16 bit-identical on relaunch); max |diff| decode G=9 "
                    f"{err_8b['decode_g9']:.3e}, int8-cache decode G=9 "
                    f"{err_8b['decode_g9_int8']:.3e}, flash_prefill H=36 "
-                   f"{err_8b['flash_prefill_8b']:.3e}, quant_matmul 8B GEMV "
-                   f"{qmm_8b['gemv']:.3e}, tile {qmm_8b['tile']:.3e}")
+                   f"{err_8b['flash_prefill_8b']:.3e}, quant_matmul 8B tensor-core GEMV "
+                   f"{qmm_8b['gemv_tc']:.3e}, GEMV pair {qmm_8b['gemv']:.3e}, tile "
+                   f"{qmm_8b['tile']:.3e}")
     err_train = check_training_kernels(tfa, dev)
     log("kernels", "the training kernels match their plain versions (fp32 atol=rtol 1e-4; bf16 "
                    "2e-2, or no more than twice the plain bf16 version's own error from fp32 "
@@ -7243,11 +7402,14 @@ def main() -> int:
                                  **({"eval_launches": eval1b["launches"][name]}
                                     if name in eval1b["launches"] else {})))
     qmm = quant_matmul_times(tq, dev, card)
-    for path, count in (("gemv", "quant_matmul_gemv"), ("tile", "quant_matmul_wgmma")):
+    for path, count in (("gemv_tc", "quant_matmul_gemv_tc"), ("gemv", "quant_matmul_gemv"),
+                        ("tile", "quant_matmul_wgmma")):
         kernels_json.append(dict(name=f"quant_matmul_{path}", route="cuda",
                                  source="starvector_tpu_torch/csrc/quant_matmul.cu",
                                  replaces="starvector_tpu/ops/quantization.py:139",
-                                 launches=int8_counts[count], max_abs_err=err_qmm[path],
+                                 launches=int8_counts[count] + (
+                                     int8_counts["quant_matmul_gemv_fp32"] if path == "gemv"
+                                     else 0), max_abs_err=err_qmm[path],
                                  **qmm[path],
                                  serve_launches=serve_1b["launches"][f"quant_matmul_{path}"],
                                  pipelined_launches=pipe_1b["launches"][

@@ -10,20 +10,48 @@
 // (sum_k x * q) * scale in fp32; the bias add and the one rounding are the
 // port's dense_quantized epilogue, fused here so a dense layer is one call.
 //
-// Three code paths, chosen by the launcher from M and x's type:
+// Four code paths, chosen from M and x's type (ops/quantization.py):
 //
-// * M <= 16 (decode rows): qmm_gemv_kernel. What bounds it on the H100 is
-//   reading q: K * N bytes over 3.35 TB/s (c_fc of StarVector-1B, 16.8 MB,
-//   about 5 us), so the design is about streaming q at the HBM rate. Each
-//   lane reads 16 int8 codes (16 bytes) of one row of q; a warp covers 4 rows
-//   x 128 contiguous columns (128-byte segments, coalesced), a block of 8
-//   warps 32 rows x 128 columns per step, with up to 4 x rows staged in
-//   shared memory as fp32. At N = 2048 there are only 16 column blocks, so K
-//   is split across blocks as well (one wave of up to 2 blocks per SM); the
-//   codes become fp32 by a byte permute and a subtraction. Each block writes
-//   its partial sums to a workspace, and qmm_finish_kernel adds the splits in
-//   a fixed order and applies the epilogue. No atomics: the sum order does
-//   not change from run to run.
+// * M <= 16 (decode rows), bf16 x: qmm_gemv_tc_kernel, the tensor-core
+//   GEMV (sv_quant_gemv). What bounds it on the H100 is reading q: K * N
+//   bytes over 3.35 TB/s (the 8B's c_fc, 85 MB, 25 us; the 1B's, 16.8 MB,
+//   5 us); the x rows, scales and output are a few kB. So the design is
+//   about streaming q at the HBM rate, with nothing else in the way:
+//   - the products run on the tensor cores, out^T = q^T x^T as the tile
+//     computes it: codes staged in shared memory are the A operand,
+//     ldmatrix.trans and int8x2_to_bf16x2 make two of them an exact bf16
+//     pair in about one instruction, and x's rows (one or two n8 tiles of
+//     mma.sync.m16n8k16, zero rows past M) are the B operand, so a code
+//     costs the CUDA cores neither a conversion nor M multiply-adds;
+//   - every code is read once whatever M is: all of x's rows are one
+//     block's B operand (no grid axis over groups of rows);
+//   - one producer thread streams the codes by TMA (boxes of 64 or 256
+//     k rows x 128 columns, with their x boxes) into a ring of stages
+//     guarded by a full and an empty mbarrier each, a few stages in flight
+//     a block (more in flight measured slower: queues, not latency, then
+//     bound the stream); eight consumer warps own 16 columns each;
+//   - the grid is one block on each SM (the plan of ops/quantization.py::
+//     gemv_plan, cached per shape): the blocks first take waves of whole
+//     column tiles, side by side on the same rows of q, then share the
+//     units of the tiles left in runs that differ by one unit at most, so
+//     that they all end together; K is no longer cut to fit x in shared
+//     memory;
+//   - one launch, the same bits every launch: a run that is a whole column
+//     tile goes through the epilogue to out; a part of one goes to a
+//     workspace, and at the block's end the tile's ticket (an atomic add,
+//     release and acquire at device scope) tells the last of its blocks to
+//     add the parts in k order and reset the ticket, so the tickets are
+//     zero before and after every launch (graph replay) and no sum is an
+//     atomic. The workspace and tickets are kept per device.
+// * M <= 16, fp32 x, and the shape classes where it measured faster
+//   (ops/quantization.py::gemv_path): the CUDA-core pair,
+//   qmm_gemv_kernel then qmm_finish_kernel. Each lane reads 16 codes of
+//   one row of q; a warp covers 4 rows x 128 contiguous columns, a block of
+//   8 warps 32 rows x 128 columns per step, with up to 4 x rows staged in
+//   shared memory as fp32, so its fp32 sums keep x unrounded (the fp32
+//   greedy checks). K is split across blocks (gemv_split); each block
+//   writes its partial sums to a workspace, and qmm_finish_kernel adds the
+//   splits in a fixed order and applies the epilogue. No atomics.
 // * M > 16, bf16 x (prefill rows): qmm_wgmma_kernel. What bounds it at
 //   the prefill shapes is the tensor cores' rate: M = 260 and 1040 do 2.2
 //   to 35 GFLOP a call against 2 to 17 MB to move (c_fc at M = 1040: 35
@@ -454,6 +482,321 @@ __global__ void __launch_bounds__(kTileThreads, TileSmem<BX>::kBlocksPerSm) qmm_
 }
 
 // ---------------------------------------------------------------------------
+// M <= 16, bf16 x: the tensor-core GEMV (one launch over a TMA ring)
+// ---------------------------------------------------------------------------
+
+constexpr int kGvCols = 128;                     // q columns of a unit: a 128-byte TMA box row
+constexpr int kGvK = 64;                         // k rows of an x box and of an A fragment set
+constexpr int kGvWarps = 8;                      // consumer warps, 16 columns each
+constexpr int kGvThreads = 32 * kGvWarps + 32;   // and one producer warp
+constexpr int kGvPartial = 16 * kGvCols;         // floats of a block's part of a column tile
+
+// Shared memory of a block whose x tiles have 8 NT rows and whose units are
+// 64 KU k rows: a ring of kRing stages, each a unit's KU x tiles (8 NT rows
+// x 64 k, bf16) and its codes (64 KU k rows x 128 columns), as TMA writes
+// them with the 128-byte swizzle; a full and an empty barrier a stage; the
+// last-block flags. The ring keeps 48 kB (KU 1) or 96 kB (KU 4) of codes
+// in flight, the fastest measured (more in flight queued, not hid, the
+// latency); the block takes the SM's whole shared memory, so that each of
+// the grid's blocks has an SM to itself.
+template <int NT, int KU>
+struct GvSmem {
+  static constexpr int kRing = KU == 1 ? 6 : 3;
+  static constexpr int kXBox = 8 * NT * kGvK * 2;
+  static constexpr int kX = KU * kXBox;
+  static constexpr int kRaw = KU * kGvK * kGvCols;
+  static constexpr int kStageBytes = kX + kRaw;
+  static constexpr int kRawOff = kRing * kX;
+  static constexpr int kFullOff = kRawOff + kRing * kRaw;
+  static constexpr int kEmptyOff = kFullOff + 8 * kRing;
+  static constexpr int kFlagOff = kEmptyOff + 8 * kRing;
+  static constexpr int kBytes = kSmemMax;
+  static_assert(kXBox % 1024 == 0, "swizzled tiles start on 1024-byte steps");
+  static_assert(kFlagOff + 16 + 1024 <= kBytes, "the ring fits (+ slack to align the base)");
+};
+
+// The arguments of one GEMV launch. The work is column tiles of k_units
+// units (64 KU k rows x 128 columns). Block b of G first takes the whole
+// tiles b, b + G, ..., one a wave for dp_waves waves; the units of the
+// tiles left (sk_units, tile by tile) are then shared: block b takes
+// [sk_units b / G, sk_units (b + 1) / G).
+struct GemvArgs {
+  const float* scale;
+  const void* bias;
+  void* out;
+  float* ws;           // [G][2][16][128] partial sums: a block's first and last shared tile
+  unsigned* tickets;   // [tiles], zero before and after every launch
+  int bias_dtype, M, N, k_units, dp_waves;
+  long long out_sm, sk_units;
+};
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The 256 consumer threads meet (the producer warp takes no part).
+__device__ __forceinline__ void gv_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kGvWarps) : "memory");
+}
+
+// The block whose range holds shared unit u: the largest b with
+// units b / G <= u.
+__device__ __forceinline__ int gv_owner(long long units, long long u, int G) {
+  return (int)(((u + 1) * G + units - 1) / units - 1);
+}
+
+// Where the ring stands: the slot of the next stage and the parity of its
+// barriers' phase.
+template <int R>
+struct GvRing {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++slot == R) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// The producer (one thread): unit kt of column tile c into the next slot,
+// once the consumers have freed it.
+template <int NT, int KU>
+__device__ __forceinline__ void gv_issue(uint32_t base, GvRing<GvSmem<NT, KU>::kRing>& r,
+                                         const CUtensorMap* xmap, const CUtensorMap* qmap, int c,
+                                         int kt) {
+  using S = GvSmem<NT, KU>;
+  const uint32_t bar = base + S::kFullOff + 8 * r.slot;
+  mbar_wait(base + S::kEmptyOff + 8 * r.slot, r.phase ^ 1u);  // the first round passes at once
+  mbar_expect_tx(bar, S::kStageBytes);
+#pragma unroll
+  for (int i = 0; i < KU; ++i) {
+    tma_load_2d(base + r.slot * S::kX + i * S::kXBox, xmap, (kt * KU + i) * kGvK, 0, bar);
+  }
+  tma_load_2d(base + S::kRawOff + r.slot * S::kRaw, qmap, c * kGvCols, kt * KU * kGvK, bar);
+  r.next();
+}
+
+// A consumer warp: the next n units into acc (its 16 columns of each).
+// ldmatrix.trans and int8x2_to_bf16x2 make the codes the A fragments of
+// four k16 steps (qmm_codes_to_a, as the tile does); x, staged K-major, is
+// the B operand of mma.sync m16n8k16, its fragments by ldmatrix (x row
+// 8j + lane % 8, 16-byte chunk 4h + lane / 8, which sits at chunk ^ row % 8
+// of its row).
+template <int NT, int KU>
+__device__ __forceinline__ void gv_consume(uint32_t base, GvRing<GvSmem<NT, KU>::kRing>& r, int n,
+                                           float (&acc)[4 * NT], int warp, int lane) {
+  using S = GvSmem<NT, KU>;
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(base + S::kFullOff + 8 * r.slot, r.phase);
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const uint32_t xs = base + r.slot * S::kX + u * S::kXBox;
+      uint32_t bf[NT][4][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 8 * j + (lane & 7), chunk = 4 * h + (lane >> 3);
+          uint32_t q4[4];
+          ldmatrix_x4(q4, xs + row * 128 + ((chunk ^ (row & 7)) << 4));
+          bf[j][2 * h][0] = q4[0];
+          bf[j][2 * h][1] = q4[1];
+          bf[j][2 * h + 1][0] = q4[2];
+          bf[j][2 * h + 1][1] = q4[3];
+        }
+      uint32_t af[4][4];
+      qmm_codes_to_a(base + S::kRawOff + r.slot * S::kRaw + u * kGvK * kGvCols, warp, af);
+#pragma unroll
+      for (int s = 0; s < kGvK / 16; ++s)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16_16816(acc + 4 * j, af[s], bf[j][s]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(base + S::kEmptyOff + 8 * r.slot);
+    r.next();
+  }
+}
+
+// This thread's outputs, acc[4j + e] at q column n and acc[4j + 2 + e] at
+// n + 1, both at x row 8j + 2t + e, through the epilogue into out.
+template <typename TO, int NT>
+__device__ __forceinline__ void gv_store(const GemvArgs& a, const float (&acc)[4 * NT], int n,
+                                         int t) {
+  if (n >= a.N) return;  // N % 16 == 0: n + 1 is inside with n
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * j + 2 * t + e;
+      if (m < a.M) {
+        store_pair<TO>(static_cast<TO*>(a.out) + (long long)m * a.out_sm + n,
+                       qmm_epilogue(acc[4 * j + e], a.scale, a.bias, a.bias_dtype, n),
+                       qmm_epilogue(acc[4 * j + 2 + e], a.scale, a.bias, a.bias_dtype, n + 1));
+      }
+    }
+}
+
+// out^T = q^T x^T for M <= 16 rows of bf16 x (NT = 1: M <= 8, one n8 tile
+// of x; 2: two), units of 64 KU k rows, one block an SM. The producer
+// warp's lane 0 walks the block's units (its whole tiles, then its shared
+// range) and copies each one's x (8 NT rows x its 64 KU k) and codes into
+// the ring by TMA (an empty barrier a stage, one arrival a consumer warp,
+// says the slot is free); consumer warp w owns the 16 columns from 16 w of
+// every unit (gv_consume). A whole tile, and a shared run that is one, goes
+// through the epilogue to out; a part of a shared tile goes to ws, and at
+// the block's end the tile's ticket (an atomic add with release and acquire
+// semantics at device scope, after a barrier of the consumers) tells the
+// last of its blocks to add the parts in block order, which is k order,
+// apply the epilogue and reset the ticket.
+template <typename TO, int NT, int KU>
+__global__ void __launch_bounds__(kGvThreads, 1) qmm_gemv_tc_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+    const GemvArgs a) {
+  using S = GvSmem<NT, KU>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = align_1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = gridDim.x, b = blockIdx.x, k_units = a.k_units;
+  const long long u0 = a.sk_units * b / G, u1 = a.sk_units * (b + 1) / G;
+  const int sk_tile0 = a.dp_waves * G;  // the first shared tile
+
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&qmap)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&xmap)) : "memory");
+#pragma unroll
+    for (int i = 0; i < S::kRing; ++i) {
+      mbar_init(base + S::kFullOff + 8 * i, 1);
+      mbar_init(base + S::kEmptyOff + 8 * i, kGvWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  GvRing<S::kRing> r;
+  if (warp == kGvWarps) {  // the producer
+    if (lane == 0) {
+      for (int w = 0; w < a.dp_waves; ++w)
+        for (int kt = 0; kt < k_units; ++kt) gv_issue<NT, KU>(base, r, &xmap, &qmap, b + w * G, kt);
+      for (long long u = u0; u < u1; ++u) {
+        const int c = (int)(u / k_units);
+        gv_issue<NT, KU>(base, r, &xmap, &qmap, sk_tile0 + c, (int)(u - (long long)c * k_units));
+      }
+    }
+    return;
+  }
+
+  const int t = lane & 3;
+  const int col = 16 * warp + 2 * (lane >> 2);  // the even one of this thread's two columns
+  float acc[4 * NT];
+  for (int w = 0; w < a.dp_waves; ++w) {
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.f;
+    gv_consume<NT, KU>(base, r, k_units, acc, warp, lane);
+    gv_store<TO, NT>(a, acc, (b + w * G) * kGvCols + col, t);
+  }
+
+  // the shared runs: a whole tile goes to out; a part of one goes to this
+  // block's slot for it in ws (0: its first tile, 1: its last), and its
+  // ticket waits for the block's end, so that no merge stalls the stream
+  volatile int* last_flag = reinterpret_cast<volatile int*>(smem + S::kFlagOff);
+  const long long first_tile = u0 / k_units;
+  int parts[2];
+  int n_parts = 0;
+  long long u = u0;
+  while (u < u1) {
+    const int c = (int)(u / k_units);
+    const long long tile_end = (long long)(c + 1) * k_units;
+    const bool whole = u == (long long)c * k_units && u1 >= tile_end;
+    const long long run_end = u1 < tile_end ? u1 : tile_end;
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.f;
+    gv_consume<NT, KU>(base, r, (int)(run_end - u), acc, warp, lane);
+    u = run_end;
+    if (whole) {
+      gv_store<TO, NT>(a, acc, (sk_tile0 + c) * kGvCols + col, t);
+      continue;
+    }
+    float* part = a.ws + ((long long)b * 2 + (c == first_tile ? 0 : 1)) * kGvPartial;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        *reinterpret_cast<float2*>(part + (8 * j + 2 * t + e) * kGvCols + col) =
+            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+      }
+    parts[n_parts++] = c;
+  }
+  if (n_parts == 0) return;
+
+  // the tickets of the tiles whose parts this block wrote. The barrier
+  // orders the consumers' writes before thread 0's tickets, atomic adds with
+  // release and acquire semantics at device scope: they publish this
+  // block's parts and, for the last block of a tile, make the others'
+  // visible to the reads after the second barrier.
+  gv_consumers_sync();
+  if (tid == 0) {
+    for (int i = 0; i < n_parts; ++i) {
+      const long long c0 = (long long)parts[i] * k_units;
+      const unsigned expected = gv_owner(a.sk_units, c0 + k_units - 1, G) -
+                                gv_owner(a.sk_units, c0, G) + 1;
+      unsigned prev;
+      asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                   : "=r"(prev)
+                   : "l"(a.tickets + sk_tile0 + parts[i])
+                   : "memory");
+      const int is_last = prev == expected - 1u;
+      // every part is in: ready for the next launch
+      if (is_last) a.tickets[sk_tile0 + parts[i]] = 0;
+      last_flag[i] = is_last;
+    }
+  }
+  gv_consumers_sync();
+  for (int i = 0; i < n_parts; ++i) {
+    if (last_flag[i] == 0) continue;
+    // the parts in block order, 8 at a time: their reads in flight
+    // together, their sums in order
+    const int c = parts[i];
+    const long long c0 = (long long)c * k_units;
+    const int b_first = gv_owner(a.sk_units, c0, G);
+    const int b_last = gv_owner(a.sk_units, c0 + k_units - 1, G);
+    float sum[4 * NT];
+#pragma unroll
+    for (int k = 0; k < 4 * NT; ++k) sum[k] = 0.f;
+    for (int b8 = b_first; b8 <= b_last; b8 += 8) {
+      float2 val[8][2 * NT];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int bb = b8 + k;
+        if (bb > b_last) break;
+        const bool first = c == a.sk_units * bb / G / k_units;
+        const float* pp = a.ws + ((long long)bb * 2 + (first ? 0 : 1)) * kGvPartial + col;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            val[k][2 * j + e] =
+                __ldcg(reinterpret_cast<const float2*>(pp + (8 * j + 2 * t + e) * kGvCols));
+          }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (b8 + k > b_last) break;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sum[4 * j + e] += val[k][2 * j + e].x;
+            sum[4 * j + 2 + e] += val[k][2 * j + e].y;
+          }
+      }
+    }
+    gv_store<TO, NT>(a, sum, (sk_tile0 + c) * kGvCols + col, t);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // M > 16, fp32 x: CUDA-core tile
 // ---------------------------------------------------------------------------
 
@@ -661,6 +1004,36 @@ int launch_tile(const __nv_bfloat16* x, const int8_t* q, const float* scale, con
   return (int)cudaErrorInvalidValue;
 }
 
+// M <= 16, bf16 x: the tensor-core GEMV on `blocks` blocks, units of 64 KU
+// k rows.
+template <typename TO, int NT, int KU>
+int launch_gemv_tc_nt(const __nv_bfloat16* x, const int8_t* q, long long x_sm, int K,
+                      const GemvArgs& a, int blocks, cudaStream_t st) {
+  using S = GvSmem<NT, KU>;
+  CUtensorMap xmap, qmap;
+  int err = tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, a.M, x_sm * 2, kGvK, 8 * NT);
+  if (err == 0) {
+    err = tensor_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, a.N, K, a.N, kGvCols, KU * kGvK);
+  }
+  if (err != 0) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qmm_gemv_tc_kernel<TO, NT, KU>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  qmm_gemv_tc_kernel<TO, NT, KU><<<blocks, kGvThreads, S::kBytes, st>>>(xmap, qmap, a);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+int launch_gemv_tc(const __nv_bfloat16* x, const int8_t* q, long long x_sm, int K,
+                   const GemvArgs& a, int blocks, int ku, cudaStream_t st) {
+  if (a.M <= 8) {
+    return ku == 1 ? launch_gemv_tc_nt<TO, 1, 1>(x, q, x_sm, K, a, blocks, st)
+                   : launch_gemv_tc_nt<TO, 1, 4>(x, q, x_sm, K, a, blocks, st);
+  }
+  return ku == 1 ? launch_gemv_tc_nt<TO, 2, 1>(x, q, x_sm, K, a, blocks, st)
+                 : launch_gemv_tc_nt<TO, 2, 4>(x, q, x_sm, K, a, blocks, st);
+}
+
 template <typename T, typename TO>
 int launch_qmm(const void* x, const int8_t* q, const float* scale, const void* bias,
                int bias_dtype, void* out, float* ws, int M, int K, int N, long long x_sm,
@@ -727,5 +1100,44 @@ extern "C" int sv_quant_matmul(int x_dtype, int out_dtype, int bias_dtype, const
                                                   N, x_sm, out_sm, tile_x, splits, kc, st);
     }
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core GEMV: out (M, N) = round(x q * scale + bias), M <= 16,
+// x (M, K) bf16 with row stride x_sm (a multiple of 8 where M > 1; unit
+// column stride), 16-byte aligned, K % 8 == 0; q, scale, bias and out as
+// sv_quant_matmul's (out_sm even). The work is ceil(N / 128) column tiles of
+// ceil(K / (64 ku)) units (ku 1 or 4); `blocks` blocks first take dp_waves
+// waves of whole tiles, one each a wave, and then share the units of the
+// tiles left: none, or at least one a block. ws holds blocks * 2 * 16 * 128
+// floats, tickets ceil(N / 128) counters that are zero before the launch
+// and are zero after it.
+extern "C" int sv_quant_gemv(int out_dtype, int bias_dtype, const void* x, const void* q,
+                             const float* scale, const void* bias, void* out, void* ws,
+                             void* tickets, int M, int K, int N, long long x_sm, long long out_sm,
+                             int blocks, int dp_waves, int ku, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int k_units = (K + ku * sv::kGvK - 1) / (ku * sv::kGvK);
+  const long long tiles = (N + sv::kGvCols - 1) / sv::kGvCols;
+  const long long sk_units = (tiles - (long long)dp_waves * blocks) * k_units;
+  if (M < 1 || M > 16 || K < 1 || K % 8 != 0 || N < 16 || N % 16 != 0 || out_sm % 2 != 0 ||
+      (M > 1 && x_sm % 8 != 0) || (ku != 1 && ku != 4) || blocks < 1 || dp_waves < 0 ||
+      sk_units < 0 || (sk_units > 0 && sk_units < blocks) || ws == nullptr ||
+      tickets == nullptr || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (bias != nullptr && bias_dtype != sv::kFloat32 && bias_dtype != sv::kBFloat16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const sv::GemvArgs a{scale, bias, out, static_cast<float*>(ws), static_cast<unsigned*>(tickets),
+                       bias_dtype, M, N, k_units, dp_waves, out_sm, sk_units};
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* qq = static_cast<const int8_t*>(q);
+  const long long xs = M > 1 ? x_sm : ((K + 7) / 8) * 8;  // one row: any stride TMA takes
+  if (out_dtype == sv::kBFloat16) {
+    return sv::launch_gemv_tc<__nv_bfloat16>(xb, qq, xs, K, a, blocks, ku, st);
+  }
+  if (out_dtype == sv::kFloat32) return sv::launch_gemv_tc<float>(xb, qq, xs, K, a, blocks, ku, st);
   return (int)cudaErrorInvalidValue;
 }

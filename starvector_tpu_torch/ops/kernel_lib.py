@@ -151,6 +151,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i64, i64,     # M, K, N, x and out row strides
         i32, i32, i32, vp,           # tile rows of x, K splits, rows a split, stream
     ]
+    lib.sv_quant_gemv.restype = i32
+    lib.sv_quant_gemv.argtypes = [
+        i32, i32,                    # out and bias dtypes
+        vp, vp, vp, vp, vp, vp, vp,  # x, q, scale, bias, out, workspace, tickets
+        i32, i32, i32, i64, i64,     # M, K, N, x and out row strides
+        i32, i32, i32, vp,           # blocks, waves of whole tiles, rows of a unit / 64, stream
+    ]
     bwd = [
         i32, i32, vp, vp, vp, vp, vp, vp, vp,  # dtype, D, q, k, v, dout, lse, delta, mask
         i32, i32, i32, i32, i32,               # B, S, T, H, Hkv

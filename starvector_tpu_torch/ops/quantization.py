@@ -19,7 +19,10 @@ Kernel 14 replaces the Pallas TPU kernel `quant_matmul` -> `_qmm_kernel`
 is the Pallas kernel's: acc = sum_k x[m, k] * q[k, n] in fp32 (int8 -> bf16
 or fp32 is exact), then acc * scale[n] in fp32; the port adds the bias in the
 same epilogue and rounds once to the output type, so a quantized dense layer
-is one call. M <= 16 (decode) runs an HBM-bound split-K GEMV; M > 16
+is one call. M <= 16 (decode) runs an HBM-bound GEMV: with bf16 x the
+tensor-core GEMV (one launch; codes streamed by TMA and made bf16 as the A
+operand of mma.sync; its blocks planned by `gemv_plan`), with fp32 x the
+CUDA-core split-K pair (`gemv_split`), as `gemv_path` rules; M > 16
 (prefill) with bf16 x a `wgmma` tile fed by TMA, its int8 codes made bf16
 in registers as the product's A operand, its height and any split of K
 chosen per shape by `tile_plan`; fp32 x a CUDA-core tile (see the source's
@@ -59,6 +62,17 @@ _TILE_BLOCK_STEPS = 4     # a block's fill and epilogue, in k steps of 128 rows 
 _TILE_256_ROW_COST = 0.83
 _TILE_FINISH_BYTES = 2 << 20  # fp32 partial-sum bytes moved in the time of a k step
 _INV_127 = 1.0 / 127.0  # applied in fp32, as XLA's rewrite of "/ 127" is
+# the tensor-core GEMV (M <= 16, bf16 x): its unit of work is ku x GEMV_TC_K
+# rows of K by GEMV_TC_COLS columns of q (a TMA box of codes); one block an
+# SM takes whole column tiles a wave, and the blocks share the units of the
+# tiles left, at least 4 GEMV_TC_K rows a block; launches with
+# _GEMV_TC_WIDE column tiles or more run units of 64 rows, the others of
+# 256 (the faster in scripts/bench_gemv.py's sweep, PERF.md section 6)
+GEMV_TC_COLS, GEMV_TC_K = 128, 64
+_GEMV_TC_SLOTS = _SMS
+_GEMV_TC_WIDE = 64
+_GEMV_TC_PARTIAL = 16 * GEMV_TC_COLS  # floats of one block's part of a shared tile
+_GEMV_SCRATCH: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +166,107 @@ def gemv_split(K: int, N: int) -> tuple[int, int]:
     return -(-K // kc), kc
 
 
+def gemv_path(M: int, K: int, N: int, dtype: torch.dtype) -> str:
+    """Which GEMV runs M <= 16 rows, a fixed rule of the shape and x's
+    type: "gemv", the CUDA-core split-K pair, for fp32 x (a bf16
+    tensor-core product would round it), K % 8 != 0 (TMA copies x rows of
+    16-byte steps), and where the pair measured faster on the H100 (PERF.md
+    section 6): one row of x unless the columns fill a wave of whole tiles
+    (N >= 132 x 128), up to 4 rows at N <= 1024, up to 8 at N <= 128;
+    else "gemv_tc", the tensor-core GEMV."""
+    if dtype != torch.bfloat16 or K % 8:
+        return "gemv"
+    if M == 1:
+        return "gemv_tc" if N >= _GEMV_TC_SLOTS * GEMV_TC_COLS else "gemv"
+    if (M <= 4 and N <= 1024) or (M <= 8 and N <= 128):
+        return "gemv"
+    return "gemv_tc"
+
+
+def gemv_units(K: int, N: int, ku: int = 1) -> tuple[int, int]:
+    """(column tiles, units of K a column tile) of the tensor-core GEMV with
+    units of ku GEMV_TC_K rows."""
+    return -(-N // GEMV_TC_COLS), -(-K // (ku * GEMV_TC_K))
+
+
+def gemv_shared_units(K: int, N: int, blocks: int, dp_waves: int, ku: int) -> int:
+    """Units the blocks share after dp_waves waves of whole tiles."""
+    tiles, k_units = gemv_units(K, N, ku)
+    return (tiles - dp_waves * blocks) * k_units
+
+
+def gemv_plan_ok(K: int, N: int, blocks: int, dp_waves: int, ku: int) -> bool:
+    """Whether the kernel takes the plan: units of 64 or 256 rows, whole
+    tiles for every block in each wave, and at least one shared unit a
+    block (or none)."""
+    shared = gemv_shared_units(K, N, blocks, dp_waves, ku)
+    return ku in (1, 4) and blocks >= 1 and dp_waves >= 0 and shared >= 0 and \
+        not 0 < shared < blocks
+
+
+@functools.lru_cache(maxsize=256)  # a few (K, N) shapes per model; looked up every call
+def gemv_plan(K: int, N: int) -> tuple[int, int, int]:
+    """(blocks, dp_waves, ku) of the tensor-core GEMV: units of 64 rows of
+    K (ku 1) where there are _GEMV_TC_WIDE column tiles or more, else of 256
+    (ku 4); one block on each of the 132 SMs where the launch has 256 rows
+    of K for each, else one for every 256; the blocks take as many waves of
+    whole column tiles as there are, then share the units of the tiles left
+    in runs that differ by one unit at most, so that they end together
+    (gemv_runs)."""
+    tiles = gemv_units(K, N)[0]
+    ku = 1 if tiles >= _GEMV_TC_WIDE else 4
+    k_units = gemv_units(K, N, ku)[1]
+    blocks = max(1, min(_GEMV_TC_SLOTS, tiles * k_units // (4 // ku)))
+    waves = tiles // blocks
+    while not gemv_plan_ok(K, N, blocks, waves, ku):
+        waves -= 1
+    return blocks, waves, ku
+
+
+def gemv_runs(K: int, N: int, blocks: int, dp_waves: int,
+              ku: int) -> list[list[tuple[int, int, int]]]:
+    """The kernel's split of the work, by column tile: the (block, first
+    unit of K, end) runs that make it, in block order, which is k order
+    (the order in which the tile's last block adds their partial sums): a
+    whole tile of a wave, or the shared units, tile by tile."""
+    tiles, k_units = gemv_units(K, N, ku)
+    runs = [[] for _ in range(tiles)]
+    for w in range(dp_waves):
+        for b in range(blocks):
+            runs[w * blocks + b].append((b, 0, k_units))
+    first = dp_waves * blocks
+    units = gemv_shared_units(K, N, blocks, dp_waves, ku)
+    for b in range(blocks):
+        u, end = units * b // blocks, units * (b + 1) // blocks
+        while u < end:
+            c = u // k_units
+            stop = min(end, (c + 1) * k_units)
+            runs[first + c].append((b, u - c * k_units, stop - c * k_units))
+            u = stop
+    return runs
+
+
+def _gemv_scratch(device: torch.device, n_tickets: int,
+                  n_partials: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tickets, workspace) of the tensor-core GEMV, kept per device: the
+    tickets are zero between launches (the last block of a column tile
+    resets its own), so they are zeroed once, when they grow."""
+    tickets, ws = _GEMV_SCRATCH.get(device, (None, None))
+    if tickets is not None and tickets.numel() >= n_tickets and ws.numel() >= n_partials:
+        return tickets, ws
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        # a zeroing captured in a graph would not run until its replay
+        raise RuntimeError("quant_matmul: the GEMV's scratch buffers grow outside a CUDA graph "
+                           "capture; make one call at the largest shape before capturing")
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 256), dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < n_partials:
+        ws = torch.empty(max(n_partials, 2 * _GEMV_TC_SLOTS * _GEMV_TC_PARTIAL),
+                         dtype=torch.float32, device=device)
+    _GEMV_SCRATCH[device] = (tickets, ws)
+    return tickets, ws
+
+
 @functools.lru_cache(maxsize=256)  # one entry per prefill length and projection
 def tile_plan(M: int, K: int, N: int) -> tuple[int, int, int]:
     """(tile_x, splits, kc) of the wgmma tile (M > 16, bf16 x): blocks of
@@ -231,6 +346,8 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     if M == 0:
         return torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M <= GEMV_MAX_ROWS:
+        if gemv_path(M, K, N, x.dtype) == "gemv_tc":
+            return launch_gemv_tc(x, w_q, scale, bias, out_dtype, *gemv_plan(K, N))
         return launch_kernel(x, w_q, scale, bias, out_dtype, "gemv", 0, *gemv_split(K, N))
     if x.dtype == torch.bfloat16:
         return launch_kernel(x, w_q, scale, bias, out_dtype, "wgmma", *tile_plan(M, K, N))
@@ -264,8 +381,37 @@ def launch_kernel(x, w_q, scale, bias, out_dtype, path: str, tile_x: int, splits
     return out
 
 
+def launch_gemv_tc(x, w_q, scale, bias, out_dtype, blocks: int, dp_waves: int,
+                   ku: int) -> torch.Tensor:
+    """One launch of the tensor-core GEMV (bf16 x, M <= 16, K % 8 == 0) on
+    inputs that `_check_qmm` passed, by a plan: `blocks` blocks, dp_waves
+    waves of whole tiles before the shared units, units of ku GEMV_TC_K
+    rows of K (gemv_plan's, or another that gemv_plan_ok takes, for a
+    measurement); counted on quant_matmul as path "gemv_tc". x rows that
+    TMA cannot copy where they lie (not on 16-byte boundaries) are copied
+    first."""
+    M, K = x.shape
+    N = w_q.shape[1]
+    if x.data_ptr() % 16 or (M > 1 and x.stride(0) % 8):
+        x = x.clone(memory_format=torch.contiguous_format)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    tickets, ws = _gemv_scratch(x.device, gemv_units(K, N)[0], blocks * 2 * _GEMV_TC_PARTIAL)
+    codes = kernel_lib.DTYPE_CODES
+    code = kernel_lib.library().sv_quant_gemv(
+        codes[out_dtype], codes[bias.dtype] if bias is not None else 0,
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        tickets.data_ptr(), M, K, N, x.stride(0), out.stride(0), blocks, dp_waves, ku,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    kernel_lib.check(code, "quant_matmul")
+    quant_matmul.launches += 1
+    quant_matmul.path_launches["gemv_tc"] += 1
+    return out
+
+
 quant_matmul.launches = 0
-quant_matmul.path_launches = {"gemv": 0, "wgmma": 0, "f32_tile": 0}
+quant_matmul.path_launches = {"gemv_tc": 0, "gemv": 0, "wgmma": 0, "f32_tile": 0}
 
 
 def dense_quantized(p: dict, x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16, *,

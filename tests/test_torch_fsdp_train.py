@@ -18,6 +18,7 @@ holds the port's N-rank dropout to its one-process one, and
 with it on.
 """
 
+import contextlib
 import json
 import os
 import socket
@@ -55,19 +56,43 @@ STEPS = 3
 # the ranks
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def reserved_ports(n: int = 1):
+    """Yield a port p with p, ..., p + n - 1 held for the block: each is
+    bound, not listening, by a socket with SO_REUSEADDR. The kernel hands a
+    held port to no bind(0) and no outgoing connection (a port that was
+    only picked and closed can go to any of them while the ranks start),
+    yet a server that sets SO_REUSEADDR itself (http.server's, c10d's
+    TCPStore) binds and listens on it from another process."""
+    while True:
+        held = [socket.socket()]
+        held[0].setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        held[0].bind(("localhost", 0))
+        port = held[0].getsockname()[1]
+        try:
+            for i in range(1, n):
+                held.append(socket.socket())
+                held[-1].setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                held[-1].bind(("localhost", port + i))
+        except OSError:  # a neighbour is taken: draw again
+            for s in held:
+                s.close()
+            continue
+        try:
+            yield port
+        finally:
+            for s in held:
+                s.close()
+        return
 
 
 def launch(script: Path, job: str, world: int, args: dict, tmp_path: Path,
            timeout: float = 300.0, attempts: int = 3):
     """Run `job` of `script` in `world` gloo ranks, one process each with
     torchrun's variables, and return what rank 0 saved. A rank that fails
-    stops the others. A run whose rendezvous port another process took
-    between _free_port and rank 0's bind (EADDRINUSE: tests in parallel
-    pick ports too) starts again on a new port."""
+    stops the others. The rendezvous port is held (reserved_ports) until
+    the ranks end; a run in which any rank still met EADDRINUSE starts
+    again on a new port."""
     for attempt in range(attempts):
         try:
             return _launch(script, job, world, args, tmp_path, timeout)
@@ -84,30 +109,33 @@ def _launch(script: Path, job: str, world: int, args: dict, tmp_path: Path, time
     tag = f"{job}-{time.monotonic_ns()}"
     argf, out = tmp_path / f"{tag}-args.pt", tmp_path / f"{tag}-out.pt"
     torch.save(args, argf)
-    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
-           "WORLD_SIZE": str(world), "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
     logs = [tmp_path / f"{tag}-rank{r}.log" for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(script), job, str(argf), str(out)],
-                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
-                              stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
-             for r in range(world)]
-    deadline = time.monotonic() + timeout
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.returncode not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                break
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    with reserved_ports() as master:
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(master),
+               "WORLD_SIZE": str(world), "OMP_NUM_THREADS": "1",
+               "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
+        procs = [subprocess.Popen([sys.executable, str(script), job, str(argf), str(out)],
+                                  env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                                  stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.returncode not in (None, 0) for p in procs) or \
+                        time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     for r, p in enumerate(procs):
         if p.returncode != 0:
             text = logs[r].read_text()
-            if "EADDRINUSE" in logs[0].read_text():
-                raise _PortTaken(f"rank 0 of {job} could not bind its port")
+            for q, log in enumerate(logs):
+                if any(w in log.read_text() for w in ("EADDRINUSE", "Address already in use")):
+                    raise _PortTaken(f"rank {q} of {job} could not bind its port")
             raise AssertionError(f"rank {r} of {job}:\n" + text[-6000:])
     return torch.load(out, weights_only=False)
 
@@ -506,3 +534,39 @@ def test_train_main_under_torchrun_writes_the_one_process_checkpoint(tmp_path):
         for k in ("loss", "val_loss"):
             if k in a:
                 assert a[k] == pytest.approx(b[k], rel=TOL["rtol"]), (k, a["step"])
+
+
+def test_reserved_ports_are_held_yet_servers_bind_them():
+    """reserved_ports(2): while held, neither port is given to a plain bind
+    (EADDRINUSE) nor drawn by bind(0); another process's c10d TCPStore
+    (the rendezvous) and the port's HTTP server (a serve worker's) bind and
+    answer on them. A launch's ports were picked and closed before, and an
+    outgoing connection of a test running beside it could take one in the
+    minutes before its rank bound it."""
+    import errno
+
+    code = ("import datetime, sys, threading, torch.distributed as dist\n"
+            "from starvector_tpu_torch.serve.httpd import make_server, post_json_reply\n"
+            "p = int(sys.argv[1])\n"
+            "store = dist.TCPStore('localhost', p, 1, True,\n"
+            "                      timeout=datetime.timedelta(seconds=30))\n"
+            "store.set('k', 'v')\n"
+            "srv = make_server('127.0.0.1', p + 1, {'/ping': lambda h, b: h.send_json(b)})\n"
+            "threading.Thread(target=srv.serve_forever, daemon=True).start()\n"
+            "print(store.get('k').decode(), post_json_reply(f'http://127.0.0.1:{p + 1}/ping',"
+            " {'x': 1}, 10))\n"
+            "srv.shutdown(); srv.server_close()\n")
+    with reserved_ports(2) as port:
+        for p in (port, port + 1):
+            with socket.socket() as s, pytest.raises(OSError) as e:
+                s.bind(("localhost", p))
+            assert e.value.errno == errno.EADDRINUSE
+        for _ in range(2000):
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                assert s.getsockname()[1] not in (port, port + 1)
+        run = subprocess.run([sys.executable, "-c", code, str(port)], capture_output=True,
+                             text=True, timeout=120, cwd=REPO,
+                             env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout.split("\n")[0] == "v {'x': 1}"

@@ -10,8 +10,9 @@ default path (`use_pallas=False`), which rounds q * scale to the compute
 dtype before the product: fp32 at 1e-5, bf16 within 2e-2 of max |y|.
 
 Tests marked `gpu` hold kernel 14 against its plain version at the 1B and
-8B shapes and the wgmma tile's edges, and skip without a card; they import no
-JAX, so on the card they run as
+8B shapes and the wgmma tile's edges, the tensor-core GEMV at every height
+and on many plans, and skip without a card; they import no JAX, so on the
+card they run as
     python -m pytest --noconftest -m gpu tests/test_torch_quantization.py
 
 Kernel 14's tolerance against its plain version (QMM_TOL): fp32 out atol =
@@ -176,6 +177,59 @@ def test_gemv_split_tiles_k_once(K, N):
     assert -(-N // 128) * splits <= 2 * 132 or splits == -(-K // 1024)
 
 
+# a tensor-8 rank's slices of both models (chip_smoke.py's QMM_TP_SHAPES):
+# the 8B's q (5 and 4 heads), k/v, o_proj rows, MLP; the 1B's c_attn,
+# attn/c_proj rows, MLP
+SHAPES_TP8 = [(4608, 640), (4608, 512), (4608, 128), (640, 4608), (512, 4608), (4608, 2304),
+              (2304, 4608), (2048, 512), (256, 2048), (2048, 1024), (1024, 2048)]
+
+
+@pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + list(SHAPES_8B.values()) + SHAPES_TP8
+                         + list(SHAPES_RAGGED.values()))
+def test_gemv_plan_tiles_k_once_in_whole_waves(K, N):
+    """The tensor-core GEMV's plan: every column tile's runs cover its
+    units of K once, in k order, none empty; at most one block on each of
+    the H100's 132 SMs, each holding parts of two shared tiles at most
+    (the kernel's two partial slots); every block gets the same units give
+    or take one, so the blocks end together: one whole wave wherever the
+    launch has 256 rows of K for each of 132 blocks, else one block for
+    every 256 rows; units of 64 rows where there are 64 column tiles or
+    more, else of 256."""
+    blocks, waves, ku = tq.gemv_plan(K, N)
+    tiles, k_units = tq.gemv_units(K, N, ku)
+    assert tq.gemv_plan_ok(K, N, blocks, waves, ku)
+    assert ku == (1 if tiles >= 64 else 4)
+    assert blocks == max(1, min(132, tiles * k_units // (4 // ku)))
+    load = [0] * blocks
+    partial = [0] * blocks
+    for runs in tq.gemv_runs(K, N, blocks, waves, ku):
+        assert runs[0][1] == 0 and runs[-1][2] == k_units
+        assert all(a[2] == b[1] for a, b in zip(runs, runs[1:]))
+        for b, k0, k1 in runs:
+            assert k0 < k1
+            load[b] += k1 - k0
+            partial[b] += len(runs) > 1
+    assert max(load) - min(load) <= 1 and sum(load) == tiles * k_units
+    assert max(partial) <= 2
+    assert tq.gemv_plan(K, N) == (blocks, waves, ku)
+
+
+@pytest.mark.parametrize("M", list(range(1, 17)))
+def test_gemv_path_keeps_the_pair_for_fp32_x(M):
+    """fp32 x (the fp32 greedy checks) runs the CUDA-core pair at every M:
+    a bf16 tensor-core product would round x. bf16 x runs the tensor-core
+    GEMV, except where the pair measured faster (gemv_path's rule: M = 1
+    below a wave of whole column tiles, M <= 4 at N <= 1024, M <= 8 at
+    N <= 128) and where K % 8 != 0 (TMA copies x in 16-byte rows): at
+    M > 8 every shape of the path runs it, and the 8B's c_fc at every M."""
+    for K, N in list(SHAPES_1B.values()) + list(SHAPES_8B.values()) + SHAPES_TP8:
+        assert tq.gemv_path(M, K, N, torch.float32) == "gemv"
+        tc = M > 8 or (M > 4 and N > 128) or (M > 1 and N > 1024) or N >= 132 * 128
+        assert tq.gemv_path(M, K, N, torch.bfloat16) == ("gemv_tc" if tc else "gemv")
+    assert tq.gemv_path(M, 4612, 4608, torch.bfloat16) == "gemv"
+    assert tq.gemv_path(M, 4608, 18432, torch.bfloat16) == "gemv_tc"
+
+
 @pytest.mark.parametrize("M", [17, 64, 65, 260, 580, 1040, 2320, 4160])
 @pytest.mark.parametrize("K,N", list(SHAPES_1B.values()) + list(SHAPES_RAGGED.values())
                          + list(SHAPES_8B.values()))
@@ -274,12 +328,14 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 63, 64, 65, 260, 1040])
+@pytest.mark.parametrize("M", list(range(1, 17)) + [17, 63, 64, 65, 260, 1040])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_quant_matmul_kernel_matches_plain(cuda, M, dtype):
-    """x of `dtype` at the 1B shapes and the tile's ragged edges, bias none,
-    fp32 or bf16, bf16 and fp32 out; tolerance QMM_TOL of the output type
-    (the module docstring gives its reasons)."""
+    """x of `dtype` at the 1B shapes and the tile's ragged edges, every GEMV
+    height (M = 1..16: the tensor-core GEMV with bf16 x, the pair with
+    fp32) and the tile's, bias none, fp32 or bf16, bf16 and fp32 out (fp32
+    out with no bias: a row-parallel rank's partial); tolerance QMM_TOL of
+    the output type (the module docstring gives its reasons)."""
     rng = np.random.default_rng(M)
     for name, (K, N) in {**SHAPES_1B, **SHAPES_RAGGED}.items():
         p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), K + N)).to(cuda)})
@@ -298,14 +354,15 @@ def test_quant_matmul_kernel_matches_plain(cuda, M, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 4, 580, 2320])
+@pytest.mark.parametrize("M", [1, 2, 4, 7, 8, 9, 12, 16, 580, 2320])
 @pytest.mark.parametrize("name", list(SHAPES_8B))
 def test_quant_matmul_at_the_8b_shapes_matches_plain(cuda, name, M):
-    """The 8B's projections with their biases at decode (M = 1, 4: the
-    GEMV) and prefill (M = 580, 2320: B = 1 and 4 prefixes of 576 visual
-    tokens and 4 prompt ids, the tile); bf16 x, and fp32 x up to M = 580;
-    tolerance QMM_TOL; the bf16 tile at M = 2320 launched twice, bit for
-    bit."""
+    """The 8B's projections at decode (M = 1..16: the GEMV; bf16 x with
+    bias none, fp32 or bf16 and bf16 or fp32 out, the fp32-out no-bias case
+    being a row-parallel rank's partial) and prefill (M = 580, 2320: B = 1
+    and 4 prefixes of 576 visual tokens and 4 prompt ids, the tile) with
+    their biases; bf16 x, and fp32 x up to M = 580; tolerance QMM_TOL; the
+    bf16 GEMV and the tile at M = 2320 launched twice, bit for bit."""
     K, N = SHAPES_8B[name]
     rng = np.random.default_rng(K + N + M)
     p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), K + N)).to(cuda)})
@@ -314,16 +371,22 @@ def test_quant_matmul_at_the_8b_shapes_matches_plain(cuda, name, M):
         if dtype == torch.float32 and M > 580:
             continue
         x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
-        b = bias.to(dtype)
-        out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
-        ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), ref.float(), **QMM_TOL[dtype],
-                                   msg=lambda m: f"{name} M={M} {dtype}: {m}")
-        if M == 2320:
-            again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=dtype)
+        cases = [(bias.to(dtype), dtype)]
+        if dtype == torch.bfloat16 and M <= tq.GEMV_MAX_ROWS:
+            cases = [(b, o) for b in (None, bias, bias.bfloat16())
+                     for o in (torch.bfloat16, torch.float32)]
+        for b, out_dtype in cases:
+            out = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=out_dtype)
+            ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], b, out_dtype=out_dtype)
             torch.cuda.synchronize()
-            assert torch.equal(again, out)
+            torch.testing.assert_close(
+                out.float(), ref.float(), **QMM_TOL[out_dtype],
+                msg=lambda m: f"{name} M={M} {dtype} bias={None if b is None else b.dtype} "
+                              f"out {out_dtype}: {m}")
+            if M == 2320 or (dtype == torch.bfloat16 and M <= tq.GEMV_MAX_ROWS):
+                again = tq.quant_matmul(x, p["kernel_q"], p["scale"], b, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                assert torch.equal(again, out)
 
 
 @pytest.mark.gpu
@@ -363,17 +426,48 @@ def test_quant_matmul_refuses_what_it_does_not_take(cuda):
         tq.quant_matmul(x, p["kernel_q"], p["scale"].bfloat16())
 
 
+def _gemv_plans(K: int, N: int) -> list[tuple]:
+    """Plans (blocks, waves of whole tiles, ku) of the tensor-core GEMV that
+    cover its cases: gemv_plan's, and for units of 64 and of 256 rows one
+    block, a few, a whole wave and one unit a block, with and without waves
+    of whole tiles; each that the kernel takes."""
+    plans = [tq.gemv_plan(K, N)]
+    for ku in (1, 4):
+        tiles, k_units = tq.gemv_units(K, N, ku)
+        for blocks in (1, 2, 3, 7, 132, tiles * k_units):
+            plans += [(blocks, waves, ku) for waves in (0, tiles // blocks)]
+    return sorted({p for p in plans if tq.gemv_plan_ok(K, N, *p)})
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 4, 16, 17, 260, 1040])
 def test_gemv_two_launches_are_bit_identical(cuda, M):
-    """The GEMV (M <= 16) and the wgmma tile (M > 16, split or not): the
-    split-K partial sums are added in a fixed order by the second kernel,
-    no atomics, the same bits twice, at the four 1B projections."""
+    """The GEMV (M <= 16: the tensor-core GEMV, whose last block of a column
+    tile adds the parts in k order, on gemv_plan's plan and every other
+    count of blocks, waves of whole tiles and splits of K that _gemv_plans
+    lists; and the pair, whose second kernel adds the splits in order) and
+    the wgmma tile (M > 16, split or not): no atomics on the sums, the same
+    bits twice, at the four 1B projections and the 8B's k/v; each GEMV plan
+    to QMM_TOL of the plain version."""
     rng = np.random.default_rng(M)
-    for name, (K, N) in SHAPES_1B.items():
+    for name, (K, N) in {**SHAPES_1B, "8B k/v": SHAPES_8B["attn.k_proj, v_proj"]}.items():
         p = tq.quantize_dense({"kernel": torch.from_numpy(_weights((K, N), N)).to(cuda)})
         x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, torch.bfloat16)
         a = tq.quant_matmul(x, p["kernel_q"], p["scale"], out_dtype=torch.bfloat16)
         b = tq.quant_matmul(x, p["kernel_q"], p["scale"], out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         assert torch.equal(a, b), name
+        if M > tq.GEMV_MAX_ROWS:
+            continue
+        ref = tq.quant_matmul_plain(x, p["kernel_q"], p["scale"], out_dtype=torch.bfloat16)
+        runs = [("pair", lambda: tq.launch_kernel(x, p["kernel_q"], p["scale"], None,
+                                                  torch.bfloat16, "gemv", 0, *tq.gemv_split(K, N)))]
+        runs += [(plan, (lambda plan: lambda: tq.launch_gemv_tc(
+            x, p["kernel_q"], p["scale"], None, torch.bfloat16, *plan))(plan))
+                 for plan in _gemv_plans(K, N)]
+        for plan, fn in runs:
+            a, b = fn(), fn()
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (name, plan)
+            torch.testing.assert_close(a.float(), ref.float(), **QMM_TOL[torch.bfloat16],
+                                       msg=lambda m: f"{name} M={M} plan {plan}: {m}")

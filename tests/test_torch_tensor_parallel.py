@@ -608,7 +608,7 @@ def test_data2_tensor2_workers_serve_the_one_process_text(tmp_path):
     two leaders register with the controller, 4 im2svg requests land on
     both, and each text is the one-process worker's for the same image
     (fp32)."""
-    from test_torch_fsdp_train import _free_port
+    from test_torch_fsdp_train import reserved_ports
 
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.serve.worker import ModelWorker
@@ -620,10 +620,10 @@ def test_data2_tensor2_workers_serve_the_one_process_text(tmp_path):
     payloads = [{"model": "starvector", "image": _png(c), "max_new_tokens": 10,
                  "temperature": 0.0} for c in ((250, 10, 10), (10, 250, 10), (10, 10, 250),
                                                (200, 200, 30))]
-    port = _free_port()
-    got = launch(HERE, "replicas", 4, dict(ckpt=ckpt, config=str(config),
-                                           controller_port=_free_port(), worker_port=port,
-                                           payloads=payloads), tmp_path)
+    with reserved_ports() as controller, reserved_ports(2) as port:
+        got = launch(HERE, "replicas", 4, dict(ckpt=ckpt, config=str(config),
+                                               controller_port=controller, worker_port=port,
+                                               payloads=payloads), tmp_path)
     assert set(got["served"]) == {f"http://localhost:{port}", f"http://localhost:{port + 1}"}
     assert got["models"] == ["starvector"]
     model = StarVectorForCausalLM.from_pretrained(ckpt, torch.float32, "cpu")

@@ -46,7 +46,7 @@ import torch
 HERE = Path(__file__).resolve()
 sys.path.insert(0, str(HERE.parent))
 
-from test_torch_fsdp_train import _free_port, launch, worker_main  # noqa: E402
+from test_torch_fsdp_train import launch, reserved_ports, worker_main  # noqa: E402
 
 # a tiny 1B: 8 query heads over one KV head (G = 4 a rank on tensor 2, 2 on
 # tensor 4), head size 16
@@ -599,9 +599,10 @@ def launches(refs, tmp_path_factory):
     box = {}
 
     def run():
-        try:
-            box["got"] = launch(HERE, "tensor", 4, dict(refs, port=_free_port()),
-                                tmp_path_factory.mktemp("tensor"), timeout=400)
+        try:  # the two leaders' HTTP ports stay held until the ranks end
+            with reserved_ports(2) as port:
+                box["got"] = launch(HERE, "tensor", 4, dict(refs, port=port),
+                                    tmp_path_factory.mktemp("tensor"), timeout=400)
         except BaseException as e:  # noqa: BLE001 — raised below, in the fixture
             box["error"] = e
 
