@@ -11,11 +11,18 @@ inference (bf16, and int8 weights with an int8 KV cache), text2svg, beam
 search, speculative decoding, pipelined generation, serving (also over a
 tensor mesh: its two tensor-parallel serve configs, one with int8 weights,
 and the 1B's, one with int8 weights and one with a use_speculative
-request) and training, on one
+request; and over fsdp, sequence and stage meshes: the decoder's weights
+as ZeRO shards and stage blocks gathered at use) and training, on one
 NVIDIA H100, end to end through the hand-written kernels.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--timings] [--profile DIR]
     python3 chip_smoke.py --times-only ROOT
+
+--timings also runs the work whose only output is a time (TIMINGS: phase
+4's and 6's serving p50 / tokens/s and memory turns, 4b's request turns,
+4e's fused-step timing, phase 7's tile-plan and prefill-graph sweeps, the
+siglip_512 prefix, the long-context backward and the head_split sweep);
+the default run keeps every check, launch count and kernel row.
 
 The second form times only the decode step (decode_attention and the
 quant_matmul GEMV beside their plain versions, bounds and library calls,
@@ -287,10 +294,21 @@ Phases, one line each (any failure raises and exits non-zero):
      own slices, a row-parallel column's scale from the group's maximum),
      teacher-forced logits against one process's within twice its own
      kernels-vs-plain gap plus 1e-3, and the greedy agreement of the
-     engines' ids; every rank's launches equal its leader's run (kernel 1
-     a layer an admission, kernel 2 / 2' a layer a step, kernel 14 a
-     projection a layer a forward); wall times are gloo's over one card,
-     no serving speed
+     engines' ids; then three sharded runs, each data group one engine
+     over its ranks, the decoder's weights as the JAX rules place them
+     and gathered at use: 1b-fsdp4dp2 (bf16, 2 data groups of fsdp 4, 8
+     of 24 layers: each group's first-step logits and greedy ids bit for
+     bit one process's with the group's slots and requests),
+     1b-stage2-seq2-tp2 (fp32, stage 2 x sequence 2 x tensor 2: as
+     1b-tp2dp4, with a use_speculative request) and 8b-fsdp8-int8 (the
+     8B's first 2 layers, bf16, fsdp 8, each rank quantizing its own
+     shards: its codes and scales its shards of quantize_tree's,
+     teacher-forced logits and greedy ids bit for bit one process's, int8
+     cache); every rank's launches equal its leader's run (kernel 1 a
+     layer an admission, kernel 2 / 2' a layer a step, kernel 14 a
+     projection a layer a forward) and its resident decoder bytes beside
+     the whole tree's; wall times are gloo's over one card, no serving
+     speed
   6b. training at full StarVector-8B width and 8 of its 32 decoder layers
      (SigLIP-L/16 and the LayerNorm adapter trainable; fp32 masters, bf16
      compute, dots_flash, AdamW; B=1, T = 576 + 7616 = 8192, past the 4096
@@ -307,7 +325,9 @@ Phases, one line each (any failure raises and exits non-zero):
      T = 8192 on phase 6b's batch: loss falling at every step, the training kernels'
      launches a step, step time, tokens/s and peak memory beside the
      state's bytes (masters, bf16 cast, bf16 gradients, Adafactor)
-  7. times on the card, each beside the card's name and power limit: each
+  7. times on the card, each beside the card's name and power limit (with
+     --timings all of what follows; without, the sweeps named above
+     stay out): each
      kernel against its plain version, its bound and one PyTorch library
      call where there is one (the 8B's at its shapes too; kernel 14's GEMV
      in both designs, in turns, at M = 1, 4, 8, 16 over weight copies past
@@ -386,6 +406,14 @@ QMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 2**-7)}
 INT8_CACHE_LOGIT_TOL = 0.1
 # the H100 SXM's published peaks (NVIDIA data sheet, at 700 W): the bound of
 # a kernel is max(bytes / HBM rate, operations / dense bf16 tensor rate)
+# --timings: the work whose only output is a time, off in the default run
+# (phase 4's and 6's serving p50 / tokens/s and memory turns, 4b's request
+# turns, 4e's fused-step timing, and phase 7's sweeps: tile plans, the
+# 96-projection prefill graph, the siglip_512 prefix, the long-context
+# backward and the dkdv head_split sweep); every check, launch count and
+# kernel row stays in the default run
+TIMINGS = False
+
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores (the fp32 kernels' CUDA-core path)
@@ -396,6 +424,11 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S) -> tu
     move `nbytes` and do `flops` at `flop_rate`."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_only(what: str, t0: float) -> None:
+    """Log the seconds of `what`, work that runs only with --timings."""
+    log("phase", f"--timings: {what} took {time.perf_counter() - t0:.1f} s")
 
 
 def log(phase: str, msg: str) -> None:
@@ -2050,7 +2083,8 @@ def quant_matmul_times(tq, dev, card: str) -> dict:
                          f"bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                          f"int8pack_mm {'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 addmm "
                          f"{addmm_ms:.4f} ms (reads 2 bytes a weight)")
-            tile_plan_times(tq, x, kq, sc, b, name, card)
+            if TIMINGS:
+                tile_plan_times(tq, x, kq, sc, b, name, card)
             if name == "mlp.c_fc" and M in (144, 1040):
                 rows[path if M != 144 else "tile_m144"] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -2059,7 +2093,8 @@ def quant_matmul_times(tq, dev, card: str) -> dict:
                      f"{total['ms']:.4f} ms, plain {total['plain']:.4f} ms, bf16 addmm "
                      f"{total['addmm']:.4f} ms, bound {total['bound']:.4f} ms; x 24 layers: "
                      f"kernel {24 * total['ms']:.3f} ms, bf16 addmm {24 * total['addmm']:.3f} ms")
-    rows["prefill"] = prefill_projection_times(tq, dev, card)
+    if TIMINGS:
+        rows["prefill"] = prefill_projection_times(tq, dev, card)
     return rows
 
 
@@ -2355,17 +2390,21 @@ def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
                     f"B=1 and B=4, 128 new tokens: launches flash_prefill {L} a request (the "
                     f"prefill), no decode_attention: each verify is the chunk step, plain PyTorch")
     sp = speculative_checks("1B", cfg, p16, bf16, cfg, p32, f32, x4, prompt4)
-    # --- times, in turns ---
-    b1 = request_turns(card, "1B bf16 B=1 image -> SVG latency, 128 new tokens", {
-        "greedy": lambda im: request(im, prompt_ids=[PROMPT_IDS]),
-        "speculative": lambda im: request(im, prompt_ids=[PROMPT_IDS], **spec),
-        "beam K=2": lambda im: request(im, prompt_ids=[PROMPT_IDS], num_beams=2),
-    }, lambda r: synthetic_images(1, 300 + r), rounds=3)
-    b4 = request_turns(card, "1B bf16 B=4 request, 128 new tokens (tokens/s = emitted tokens / "
-                             "wall time)", {
-        "greedy": lambda im: request(im),
-        "speculative": lambda im: request(im, **spec),
-    }, lambda r: synthetic_images(4, 400 + r))
+    # --- times, in turns (--timings) ---
+    b1 = b4 = None
+    if TIMINGS:
+        t_times = time.perf_counter()
+        b1 = request_turns(card, "1B bf16 B=1 image -> SVG latency, 128 new tokens", {
+            "greedy": lambda im: request(im, prompt_ids=[PROMPT_IDS]),
+            "speculative": lambda im: request(im, prompt_ids=[PROMPT_IDS], **spec),
+            "beam K=2": lambda im: request(im, prompt_ids=[PROMPT_IDS], num_beams=2),
+        }, lambda r: synthetic_images(1, 300 + r), rounds=3)
+        b4 = request_turns(card, "1B bf16 B=4 request, 128 new tokens (tokens/s = emitted "
+                                 "tokens / wall time)", {
+            "greedy": lambda im: request(im),
+            "speculative": lambda im: request(im, **spec),
+        }, lambda r: synthetic_images(4, 400 + r))
+        timed_only("4b's request turns", t_times)
     del m32
     return dict(b1=b1, b4=b4, **sp)
 
@@ -2652,14 +2691,14 @@ def serve_prefixes(params, cfg, images, policy, prompts=SERVE_PROMPTS) -> list[t
 
 
 def engine_ids(params, cfg, prefixes, policy, dev, tfa, *, kernels=True, kv=None,
-               new=SERVE_CHECK_NEW, stops=STOP_IDS):
+               new=SERVE_CHECK_NEW, stops=STOP_IDS, slots: int = 8):
     """(greedy ids of each prefix, `new` tokens with the stops, through a
-    fresh engine at steps_per_tick 4; the launch counts; the engine's
-    ticks): all requests queued before the start, so they admit as one
-    group."""
+    fresh engine of `slots` slots at steps_per_tick 4; the launch counts;
+    the engine's ticks): all requests queued before the start, so they
+    admit as one group."""
     from starvector_tpu_torch.serve.engine import Request, ServeEngine
 
-    engine = ServeEngine(params["svg_transformer"], cfg.llm, cfg.decoder, max_batch=8,
+    engine = ServeEngine(params["svg_transformer"], cfg.llm, cfg.decoder, max_batch=slots,
                          max_len=1024, policy=policy, kv_cache_dtype=kv, steps_per_tick=4,
                          device=dev, kernels=kernels)
     try:
@@ -3693,7 +3732,11 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     launches[label], text = bf16_launches(label, *counted(
         lambda: pipelined(dq16, batches16, bf16, kv=torch.int8)))
     log("pipelined", f"generate_pipelined, {label}: {int8_fp32[label]}; {text}")
-    step_ms = pipelined_step_times(cfg, d16, bf16, batches16, C, card, profile_dir)
+    step_ms = None
+    if TIMINGS or profile_dir is not None:
+        t_times = time.perf_counter()
+        step_ms = pipelined_step_times(cfg, d16, bf16, batches16, C, card, profile_dir)
+        timed_only("4e's fused-step timing", t_times)
     return dict(launches=launches, rates=med, spec=spec, step_ms=step_ms)
 
 
@@ -3922,32 +3965,51 @@ def serving_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> 
 
 
 # ---------------------------------------------------------------------------
-# phase 6e: StarVector-8B and -1B served over a tensor mesh (parallel/tensor.py)
+# phase 6e: StarVector-8B and -1B served over tensor, fsdp, sequence and
+# stage meshes (parallel/tensor.py::ServingGroup)
 # ---------------------------------------------------------------------------
 
 TP8_LEAF = "configs/generation/serve/starvector-8b/im2svg-tp8-int8kv.yaml"
+TP_SPEC_NEW = 16  # the use_speculative request of 1b-tp2dp4, on data group 0's leader
 # each run: name, model, its serve leaf (a path in the repo, or a `serve:`
 # block that the phase writes to a temporary file, which the rank reads as
 # worker.main reads --serve-config), compute dtype, int8 weights (None;
 # "whole": each rank's slices of quantize_tree of the whole bf16 tree;
 # "rank": each rank quantizes its own bf16 slices with the group's column
-# maxima, as worker.main's --quantize loads them), greedy new tokens a
-# request, requests
+# maxima, as worker.main's --quantize loads them; "shards": each rank
+# quantizes its own fsdp shards, parallel/sharding.py::quantize_shards),
+# greedy new tokens a request, requests, and options: "depth" (the decoder
+# cut to its first layers: every forward gathers every layer over gloo's
+# host TCP), "bitwise" (tensor 1: each
+# data group's first-step or teacher-forced logits and greedy ids bit for
+# bit one process's with the group's slots and requests), "spec" (one
+# use_speculative request of that many new tokens on data group 0); the
+# sharded runs take 5 new tokens, one engine tick of 4 steps
 TP_CONFIGS = (
     ("tp4dp2", "8b", "configs/generation/serve/starvector-8b/im2svg-tp4dp2.yaml",
-     torch.float32, None, 64, 4),
-    ("tp8-int8kv", "8b", TP8_LEAF, torch.bfloat16, None, 8, 4),
+     torch.float32, None, 64, 4, {}),
+    ("tp8-int8kv", "8b", TP8_LEAF, torch.bfloat16, None, 8, 4, {}),
     ("1b-tp2dp4", "1b", {"mesh": {"data": 4, "tensor": 2}, "max_batch": 8, "max_len": 1024,
-                         "kv_cache_dtype": "bfloat16"}, torch.float32, None, 16, 4),
+                         "kv_cache_dtype": "bfloat16"}, torch.float32, None, 16, 4,
+     {"spec": TP_SPEC_NEW}),
     ("1b-tp8-int8", "1b", {"mesh": {"tensor": 8}, "max_batch": 16, "max_len": 1024,
-                           "kv_cache_dtype": "int8"}, torch.bfloat16, "whole", 8, 2),
-    ("tp8-int8kv-q", "8b", TP8_LEAF, torch.bfloat16, "rank", 8, 2),
+                           "kv_cache_dtype": "int8"}, torch.bfloat16, "whole", 8, 2, {}),
+    ("tp8-int8kv-q", "8b", TP8_LEAF, torch.bfloat16, "rank", 8, 2, {}),
+    ("1b-fsdp4dp2", "1b", {"mesh": {"data": 2, "fsdp": 4}, "max_batch": 8, "max_len": 1024,
+                           "kv_cache_dtype": "bfloat16"}, torch.bfloat16, None, 5, 4,
+     {"bitwise": True}),
+    ("1b-stage2-seq2-tp2", "1b", {"mesh": {"stage": 2, "sequence": 2, "tensor": 2},
+                                  "max_batch": 4, "max_len": 1024,
+                                  "kv_cache_dtype": "bfloat16"}, torch.float32, None, 5, 4,
+     {"spec": 8}),
+    ("8b-fsdp8-int8", "8b", {"mesh": {"fsdp": 8}, "max_batch": 4, "max_len": 1024,
+                             "kv_cache_dtype": "int8"}, torch.bfloat16, "shards", 5, 2,
+     {"depth": 2, "bitwise": True}),
 )
 TP_WORLD = 8     # every run's ranks, each a process on the one card
 # teacher-forced positions of the int8-cache checks (a decode step's 16
 # all-reduces over gloo among 8 processes on one card took 0.3-0.9 s)
 TP_FORCED = 8
-TP_SPEC_NEW = 16  # the use_speculative request of 1b-tp2dp4, on data group 0's leader
 TP_TIMEOUT = 900  # seconds the ranks may take before the phase fails
 TP_PROJECTIONS = {"1b": 4, "8b": 6}  # kernel-14 launches a layer a forward of an int8 decoder
 
@@ -3960,82 +4022,133 @@ def _group_tensor(group, t: torch.Tensor | None, dtype, dev) -> torch.Tensor:
 
 def _tp_tree(run) -> str:
     """The key of a run's whole tree among the shared trees."""
-    _, model, _, dtype, quant, _, _ = run
+    _, model, _, dtype, quant = run[:5]
     return f"{model}_" + ("int8" if quant == "whole" else
                           "fp32" if dtype == torch.float32 else "bf16")
+
+
+def _serve_ctx(group):
+    """The serving group's layout active on this thread (its shards
+    gathered at use) for a forward outside the engine, where it has one."""
+    return group.layout.serve() if group.layout is not None else contextlib.nullcontext()
+
+
+def _codes_match(st: dict, ref: dict) -> int:
+    """The count of a rank's int8 leaves (codes and scales) that equal its
+    shards of the whole tree's quantize_tree `ref` bit for bit; raises at
+    the first that does not."""
+    from starvector_tpu_torch.parallel import zero
+    from starvector_tpu_torch.parallel.sharding import _paths
+
+    want, mine, n = dict(_paths(ref)), dict(_paths(st)), 0
+    for codes in (p for p in mine if p.endswith("/kernel_q")):
+        for path in (codes, codes[:-len("kernel_q")] + "scale"):
+            info = zero.info_of(mine[path])
+            expect = want[path] if info is None else info.local_of(want[path])
+            if not torch.equal(mine[path], expect):
+                raise AssertionError(f"6e: {path} on this rank is not its shard of "
+                                     f"quantize_tree's")
+            n += 1
+    return n
+
+
+def launches_of(counts: dict, heads: list, int8_kv: bool, quant) -> str:
+    """The launches line of a phase 6e run on its first rank."""
+    qmm = (f", quant_matmul {counts['quant_matmul']} (tensor-core GEMV "
+           f"{counts['quant_matmul_gemv_tc']}, GEMV pair {counts['quant_matmul_gemv']}, "
+           f"tile {counts['quant_matmul_wgmma']})" if quant else "")
+    return (f"every rank launched flash_prefill {counts['flash_prefill']} (H={heads[0][0]}"
+            f"{'/' + str(heads[-1][0]) if len(heads) > 1 else ''} Hkv={heads[0][1]}), "
+            f"{'int8-cache ' if int8_kv else ''}decode_attention {counts['decode_attention']} "
+            f"(G={'/'.join(str(h[0] // h[1]) for h in heads)}){qmm}")
 
 
 def _heads(llm) -> tuple[int, int]:
     return getattr(llm, "num_attention_heads", None) or llm.n_head, llm.kv_heads
 
 
-def _tp_config(tfa, run, kw: dict, whole: dict, cfg, images, forced_ids, dev) -> dict:
-    """One tensor rank's run of one serve config, through the functions
-    serve/worker.py's main calls (tensor.serving_group, the rank's slices by
-    starvector.tensor_parallel, with "rank" quantization those slices
-    quantized by tensor.quantize_slices as from_pretrained(quantize=True,
-    tensor=) does, worker.make_engine): the check's forward on every rank
-    of the group (the first step's logits in fp32, or teacher-forced logits
-    over the int8 cache), then the group's engine, the leader serving its
-    data group's share of the run's greedy requests (request i on data
-    group i % data), the followers replaying; on 1b-tp2dp4, data group 0's
-    leader then sends one use_speculative request through the engine
+def _tp_config(tfa, run, kw: dict, whole: dict, cfg, images, forced_ids, int8_ref, dev) -> dict:
+    """One rank's run of one serve config, through the functions
+    serve/worker.py's main calls (tensor.serving_group, the rank's shards
+    by starvector.serving_params: its tensor slices and, on a layout, its
+    stage block and fsdp shards of them; with "rank" quantization those
+    slices quantized by tensor.quantize_slices, with "shards" the rank's
+    shards by sharding.quantize_shards, as from_pretrained(quantize=True,
+    group=) does; worker.make_engine): the check's forward on every rank
+    of the group (the first step's logits, or teacher-forced logits over
+    the int8 cache), then the group's engine, the leader serving its data
+    group's share of the run's greedy requests (request i on data group i
+    % data), the followers replaying; with "spec", data group 0's leader
+    then sends one use_speculative request through the engine
     (ServeEngine.generate_speculative, the worker's route). Returns the
-    heads, the launch counts of the engine run, and on the leader its
-    logits, ids, ticks and wall time."""
+    heads, the rank's resident decoder bytes, the launch counts of the
+    engine run, with "shards" the count of its int8 leaves that equal its
+    shards of `int8_ref` (quantize_tree of the whole tree), and on the
+    leader its logits, ids, ticks and wall time."""
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.generation.engine import im2svg_prefix
     from starvector_tpu_torch.models import starvector as sv
     from starvector_tpu_torch.ops.layers import DTypePolicy
+    from starvector_tpu_torch.parallel.sharding import quantize_shards
     from starvector_tpu_torch.parallel.tensor import quantize_slices, serving_group
     from starvector_tpu_torch.serve.engine import Request
-    from starvector_tpu_torch.serve.worker import make_engine
+    from starvector_tpu_torch.serve.worker import make_engine, prefix_params
 
-    name, _, _, dtype, quant, new, n_req = run
+    name, _, _, dtype, quant, new, n_req, opts = run
     policy = DTypePolicy(dtype, dtype)
     axes, kv = kw["mesh_axes"], kw["kv_cache_dtype"]
     data = axes.get("data", 1)
+    if opts.get("depth"):
+        whole, cfg = first_layers(whole, cfg, opts["depth"])
     group = serving_group(axes)
-    params, rcfg = sv.tensor_parallel(whole, cfg, group)
+    params, rcfg = sv.serving_params(whole, cfg, group)
     dec = cfg.decoder_module
+    tg = group.tensor
+    out = dict(heads=_heads(rcfg.llm), group_rank=group.rank, tensor_rank=tg.rank,
+               data_rank=group.data_rank)
     if quant == "rank":
         params["svg_transformer"] = quantize_slices(
             params["svg_transformer"], dec.partition_rules(),
-            [dec.tensor_units(cfg.llm, group.size, r) for r in range(group.size)], group)
+            [dec.tensor_units(cfg.llm, tg.size, r) for r in range(tg.size)], tg)
+    elif quant == "shards":
+        params["svg_transformer"] = quantize_shards(params["svg_transformer"])
+        out["codes"] = _codes_match(params["svg_transformer"], int8_ref["svg_transformer"])
+    out["bytes"] = tree_bytes(params["svg_transformer"])
     model = StarVectorForCausalLM(params, rcfg, policy=policy, device=dev)
-    out = dict(heads=_heads(rcfg.llm), tensor_rank=group.rank, data_rank=group.data_rank)
     st, n = params["svg_transformer"], 2
     emb = None
     if group.is_leader:
-        emb = im2svg_prefix(model.params, model.cfg, images[:n],
+        emb = im2svg_prefix(prefix_params(model.params), model.cfg, images[:n],
                             torch.tensor([PROMPT_IDS] * n, device=dev), policy=policy)[0]
     emb = _group_tensor(group, emb, policy.compute_dtype, dev)
     mask = torch.ones(emb.shape[:2], dtype=torch.int32, device=dev)
-    if kv is None:  # the first step's logits: the admission prefill's last position
-        cache = dec.init_cache(rcfg.llm, n, emb.shape[1], dtype=policy.compute_dtype, device=dev)
-        check = dec.forward(st, rcfg.llm, emb, mask, cache=cache, policy=policy,
-                            last_logits_only=True)[0][:, -1]
-    else:
-        check = forced_logits(dec, st, rcfg.llm, emb, mask, TP_FORCED, policy, True, kv,
-                              forced_ids)[0]
+    with _serve_ctx(group):
+        if kv is None:  # the first step's logits: the admission prefill's last position
+            cache = dec.init_cache(rcfg.llm, n, emb.shape[1], dtype=policy.compute_dtype,
+                                   device=dev)
+            check = dec.forward(st, rcfg.llm, emb, mask, cache=cache, policy=policy,
+                                last_logits_only=True)[0][:, -1]
+        else:
+            check = forced_logits(dec, st, rcfg.llm, emb, mask, TP_FORCED, policy, True, kv,
+                                  forced_ids)[0]
     if group.is_leader:
         out["check"] = check.float().cpu()
     del emb, check
-    engine = make_engine(model, tensor=group, max_batch=kw["max_batch"] // data, max_len=1024,
+    engine = make_engine(model, group=group, max_batch=kw["max_batch"] // data, max_len=1024,
                          kv_cache_dtype=kv)
     torch.cuda.synchronize()
     reset_counts(tfa)
     t = time.perf_counter()
     if group.is_leader:
         mine = [i for i in range(n_req) if i % data == group.data_rank]
-        pre = serve_prefixes(model.params, model.cfg, images[mine], policy,
+        pre = serve_prefixes(prefix_params(model.params), model.cfg, images[mine], policy,
                              prompts=[SERVE_PROMPTS[i] for i in mine])
         res = serve_requests(engine, [Request(prefix_embeds=p, max_new_tokens=new,
                                               do_sample=False) for p in pre])
-        if name == "1b-tp2dp4" and group.data_rank == 0:
+        if opts.get("spec") and group.data_rank == 0:
             prompt = torch.tensor([SERVE_PROMPTS[0]], device=dev)
             tokens, length, n_fwd = engine.generate_speculative(
-                pre[0], spec_ids(pre[0].shape[1], prompt), max_new_tokens=TP_SPEC_NEW,
+                pre[0], spec_ids(pre[0].shape[1], prompt), max_new_tokens=opts["spec"],
                 draft_len=8, stop_sequences=(), pad_token_id=0)
             out["spec"] = (tokens[0, :int(length[0])].tolist(), n_fwd)
         stats = engine.stats()
@@ -4079,7 +4192,8 @@ def _tp_rank(rank: int, port: int, weights, kws: dict, cfgs: dict, results) -> N
             name, model = run[:2]
             out[name] = _tp_config(tfa, run, kws[name], shared["trees"][_tp_tree(run)],
                                    cfgs[model], shared["images"][model],
-                                   shared["forced_ids"].get(name), dev)
+                                   shared["forced_ids"].get(name),
+                                   shared["trees"].get(f"{name}_int8"), dev)
             gc.collect()
             torch.cuda.empty_cache()
             dist.barrier()
@@ -4108,28 +4222,42 @@ def _tp_serve_kwargs(leaf, work: Path) -> dict:
 
 
 def _tp_references(tfa, models: dict, kws: dict, dev) -> dict:
-    """One process's references of each run, on the run's whole tree: the
-    greedy ids of its requests through one engine; the first step's logits
-    of 2 prefixes (fp32), or teacher-forced logits over the int8 cache with
-    the kernels and with their plain versions and the ids they feed
-    (bf16); for 1b-tp2dp4 generate_greedy_speculative's ids and forward
-    count on request 0's prefix."""
+    """One process's references of each run, on the run's whole tree (cut
+    to its depth; quantized whole for "shards", kept in `models` for the
+    ranks' code checks): the greedy ids of its requests through one engine
+    (with "bitwise", each data group's through an engine of the group's
+    slots); the first step's logits of 2 prefixes, or teacher-forced logits
+    over the int8 cache with the kernels and with their plain versions and
+    the ids they feed; with "spec" generate_greedy_speculative's ids and
+    forward count on request 0's prefix; the decoder's bytes."""
     from starvector_tpu_torch.generation.engine import im2svg_prefix
     from starvector_tpu_torch.generation.speculative import generate_greedy_speculative
     from starvector_tpu_torch.ops.layers import DTypePolicy
 
     refs = {}
     for run in TP_CONFIGS:
-        name, model, _, dtype, _, new, n_req = run
+        name, model, _, dtype, quant, new, n_req, opts = run
         m, params = models[model], models[model]["trees"][_tp_tree(run)]
-        if run[4] == "rank":  # the reference of per-rank quantization is the whole tree's
-            params = models[model]["trees"][f"{model}_int8"]
         cfg, images, kv = m["cfg"], m["images"], kws[name]["kv_cache_dtype"]
+        if quant == "rank":  # the reference of per-rank quantization is the whole tree's
+            params = models[model]["trees"][f"{model}_int8"]
+        if opts.get("depth"):
+            params, cfg = first_layers(params, cfg, opts["depth"])
+        if quant == "shards":  # the whole tree's quantize_tree, which the ranks hold shards of
+            params = models[model]["trees"][f"{name}_int8"] = quantized(params)
         policy = DTypePolicy(dtype, dtype)
         dec, st = cfg.decoder_module, params["svg_transformer"]
         pre = serve_prefixes(params, cfg, images[:n_req], policy, prompts=SERVE_PROMPTS[:n_req])
-        ref = {"ids": engine_ids(params, cfg, pre, policy, dev, tfa, kv=kv, new=new,
-                                 stops=())[0]}
+        ref = {"bytes": tree_bytes(st)}
+        if opts.get("bitwise"):  # each data group's requests through an engine of its slots
+            data = kws[name]["mesh_axes"].get("data", 1)
+            by_group = [engine_ids(params, cfg, pre[d::data], policy, dev, tfa, kv=kv, new=new,
+                                   stops=(), slots=kws[name]["max_batch"] // data)[0]
+                        for d in range(data)]
+            ref["ids"] = [by_group[i % data][i // data] for i in range(n_req)]
+        else:
+            ref["ids"] = engine_ids(params, cfg, pre, policy, dev, tfa, kv=kv, new=new,
+                                    stops=())[0]
         emb, mask = im2svg_prefix(params, cfg, images[:2],
                                   torch.tensor([PROMPT_IDS] * 2, device=dev), policy=policy)
         if kv is None:
@@ -4142,11 +4270,11 @@ def _tp_references(tfa, models: dict, kws: dict, dev) -> dict:
                                                              TP_FORCED, policy, True, kv)
             ref["forced_plain"] = forced_logits(dec, st, cfg.llm, emb, mask, TP_FORCED, policy,
                                                 False, kv, ref["forced_ids"])[0]
-        if name == "1b-tp2dp4":
+        if opts.get("spec"):
             prompt = torch.tensor([SERVE_PROMPTS[0]], device=dev)
             tokens, length, n_fwd = generate_greedy_speculative(
                 st, cfg.llm, pre[0], torch.ones(pre[0].shape[:2], dtype=torch.int32, device=dev),
-                spec_ids(pre[0].shape[1], prompt), max_new_tokens=TP_SPEC_NEW, draft_len=8,
+                spec_ids(pre[0].shape[1], prompt), max_new_tokens=opts["spec"], draft_len=8,
                 stop_sequences=(), pad_token_id=0, policy=policy)
             ref["spec"] = (tokens[0, :int(length[0])].tolist(), n_fwd)
         refs[name] = ref
@@ -4170,11 +4298,20 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
     rank quantizing its own slices): teacher-forced logits against one
     process's over the int8 cache (kernels) within twice that path's own
     gap to its plain version plus 1e-3, and the greedy agreement of the
-    engines' ids. Every rank's launches: kernel 1 a layer an admission
-    (and the speculative prefill), kernel 2 (2' over the int8 cache) a
-    layer a step, kernel 14 a projection a layer a forward of an int8
-    decoder, equal across a group. Wall times over gloo on one card are no
-    serving speed. Returns the per-rank results by run."""
+    engines' ids. The sharded runs: 1b-fsdp4dp2 (bf16, 2 data groups of
+    fsdp 4: each group's first-step logits and greedy ids bit for bit one
+    process's with the group's 4 slots and requests), 1b-stage2-seq2-tp2
+    (fp32, stage 2 x sequence 2 x tensor 2: as 1b-tp2dp4, with its
+    use_speculative request) and 8b-fsdp8-int8 (the 8B's first 2 layers,
+    bf16, fsdp 8, each rank quantizing its own shards: its codes and scales
+    its shards of quantize_tree's, teacher-forced logits over the int8 cache
+    and greedy ids bit for bit one process's on the whole quantize_tree).
+    Every rank's launches: kernel 1 a layer an admission (and the
+    speculative prefill), kernel 2 (2' over the int8 cache) a layer a step,
+    kernel 14 a projection a layer a forward of an int8 decoder, equal
+    across a group; each rank's resident decoder bytes beside the whole
+    tree's. Wall times over gloo on one card are no serving speed. Returns
+    the per-rank results by run."""
     import socket
 
     import torch.multiprocessing as mp
@@ -4196,7 +4333,8 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
     models = {"8b": dict(cfg=cfg, images=model.process_images(synthetic_images(4, 33)),
                          trees={"8b_fp32": p32, "8b_bf16": p16, "8b_int8": quantized(p16)}),
               "1b": dict(cfg=cfg1, images=images1,
-                         trees={"1b_fp32": p32_1b, "1b_int8": quantized(p16_1b)})}
+                         trees={"1b_fp32": p32_1b, "1b_bf16": p16_1b,
+                                "1b_int8": quantized(p16_1b)})}
     del p16_1b
     work = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-"))
     try:
@@ -4251,14 +4389,15 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
     t_ranks = time.perf_counter() - t1
 
     out = {}
-    for name, model_name, _, dtype, quant, new, n_req in TP_CONFIGS:
+    for name, model_name, _, dtype, quant, new, n_req, opts in TP_CONFIGS:
         ref, kw = refs[name], kws[name]
-        L = L1 if model_name == "1b" else cfg.llm.num_hidden_layers
+        L = opts.get("depth") or (L1 if model_name == "1b" else cfg.llm.num_hidden_layers)
         runs = [ranks[r][name] for r in range(TP_WORLD)]
-        data = kw["mesh_axes"].get("data", 1)
-        tp = TP_WORLD // data
+        axes = kw["mesh_axes"]
+        data = axes.get("data", 1)
+        tp = axes.get("tensor", 1)
         int8_kv = kw["kv_cache_dtype"] is not None
-        leaders = [run for run in runs if run["tensor_rank"] == 0]
+        leaders = [run for run in runs if run["group_rank"] == 0]
         for lead in leaders:  # every rank of a group launched what its leader's run needs
             group = [run for run in runs if run["data_rank"] == lead["data_rank"]]
             steps = 4 * lead["ticks"]
@@ -4271,8 +4410,8 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
             for run in group:
                 got = {k: run["counts"][k] for k in want}
                 if got != want:
-                    raise AssertionError(f"6e {name}: data group {lead['data_rank']} tensor rank "
-                                         f"{run['tensor_rank']} launched {got}, its leader's run "
+                    raise AssertionError(f"6e {name}: data group {lead['data_rank']} rank "
+                                         f"{run['group_rank']} launched {got}, its leader's run "
                                          f"needs {want}")
                 if run is not lead and run["checked"] < (new - 4 if lead["ids"] else 0):
                     raise AssertionError(f"6e {name}: a follower checked {run['checked']} steps")
@@ -4281,18 +4420,47 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
         heads = sorted({run["heads"] for run in runs})
         walls = [run["wall"] for run in leaders]
         counts = runs[0]["counts"]
-        qmm = (f", quant_matmul {counts['quant_matmul']} (tensor-core GEMV "
-               f"{counts['quant_matmul_gemv_tc']}, GEMV pair {counts['quant_matmul_gemv']}, "
-               f"tile {counts['quant_matmul_wgmma']})" if quant else "")
-        where = (f"{data} replicas of tensor {tp}, {kw['max_batch'] // data} slots each"
-                 if data > 1 else f"tensor {tp}, {kw['max_batch']} slots")
+        resident = sorted({run["bytes"] for run in runs})
+        held = (f"; resident decoder bytes a rank {'/'.join(f'{b / 1e9:.3f}' for b in resident)} "
+                f"GB of the whole tree's {ref['bytes'] / 1e9:.3f} GB")
+        if quant == "shards":
+            codes = [run["codes"] for run in runs]
+            if len(set(codes)) != 1 or not codes[0]:
+                raise AssertionError(f"6e {name}: int8 leaves checked a rank {codes}")
+            held += (f"; every rank's {codes[0]} int8 leaves (codes and scales) == its shards of "
+                     f"the whole tree's quantize_tree")
+        mesh = " x ".join(f"{a} {n}" for a, n in axes.items() if a != "data" and n > 1)
+        where = (f"{data} replicas of {mesh}, {kw['max_batch'] // data} slots each"
+                 if data > 1 else f"{mesh}, {kw['max_batch']} slots")
         weights_kind = {None: "", "whole": ", int8 weights (the whole quantize_tree's slices)",
-                        "rank": ", int8 weights (each rank quantizing its own slices)"}[quant]
-        launches = (f"every rank launched flash_prefill {counts['flash_prefill']} (H={heads[0][0]}"
-                    f"{'/' + str(heads[-1][0]) if len(heads) > 1 else ''} Hkv=1), "
-                    f"{'int8-cache ' if int8_kv else ''}decode_attention "
-                    f"{counts['decode_attention']} (G={'/'.join(str(h[0]) for h in heads)})"
-                    f"{qmm}")
+                        "rank": ", int8 weights (each rank quantizing its own slices)",
+                        "shards": ", int8 weights (each rank quantizing its own fsdp shards)"
+                        }[quant]
+        at = f"{L} of 24 layers" if model_name == "1b" else (
+            f"{L} of 32 layers" if opts.get("depth") else depth)
+        if opts.get("bitwise"):
+            what = "first-step logits" if kw["kv_cache_dtype"] is None else (
+                f"teacher-forced logits over {TP_FORCED} positions")
+            want = ref["first"] if kw["kv_cache_dtype"] is None else ref["forced"]
+            for lead in leaders:
+                if not torch.equal(lead["check"].to(dev), want.float()):
+                    err = (lead["check"].to(dev) - want.float()).abs().max().item()
+                    raise AssertionError(f"6e {name}: data group {lead['data_rank']}'s {what} "
+                                         f"part from one process's (max |diff| {err:.3e})")
+            if ids != ref["ids"]:
+                raise AssertionError(f"6e {name}: greedy ids {ids}\none process with each "
+                                     f"group's slots {ref['ids']}")
+            log("tp", f"{card}: {name} ({where}, {str(dtype)[6:]}{weights_kind}, "
+                      f"{'int8' if int8_kv else str(dtype)[6:]} cache, at {at}; heads a rank "
+                      f"{heads}): each data group's {what} of 2 prefixes bit for bit one "
+                      f"process's; {n_req} greedy requests of {new} tokens: ids bit for bit the "
+                      f"one-process engine's with each group's slots and requests; "
+                      f"{launches_of(counts, heads, int8_kv, quant)}{held}; wall "
+                      f"{', '.join(f'{w:.2f}' for w in walls)} s a replica over gloo on one card "
+                      f"(not a serving speed)")
+            out[name] = dict(err=0.0, ranks=runs)
+            continue
+        launches = launches_of(counts, heads, int8_kv, quant)
         if dtype == torch.float32:
             err = compare(f"6e {name} first-step logits", leaders[0]["check"].to(dev),
                           ref["first"], torch.float32)
@@ -4305,14 +4473,14 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
                 if got_spec != ref["spec"]:
                     raise AssertionError(f"6e {name}: use_speculative ids and forwards "
                                          f"{got_spec}, one process {ref['spec']}")
-                spec = (f"; one use_speculative request of {TP_SPEC_NEW} tokens on data group "
+                spec = (f"; one use_speculative request of {opts['spec']} tokens on data group "
                         f"0: ids and forward count ({got_spec[1]}) == one process's "
                         f"generate_greedy_speculative")
-            log("tp", f"{card}: {name} ({where}, fp32 at {depth if model_name == '8b' else f'{L} of 24 layers'}; "
+            log("tp", f"{card}: {name} ({where}, fp32 at {at}; "
                       f"heads a rank {heads} as (query, KV)): first-step logits of 2 prefixes "
                       f"within fp32 TOL of one process (max |diff| {err:.3e}); {n_req} "
                       f"concurrent greedy requests of {new} tokens: ids == the one-process fp32 "
-                      f"engine's{spec}; {launches}; wall "
+                      f"engine's{spec}; {launches}{held}; wall "
                       f"{', '.join(f'{w:.2f}' for w in walls)} s a replica over gloo on one card "
                       f"(not a serving speed)")
             out[name] = dict(err=err, ranks=runs)
@@ -4327,13 +4495,13 @@ def tensor_serving(sv, tfa, model, cfg, p16, p32, dev, card: str, depth: str) ->
         same = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
                 for x, y in zip(ids, ref["ids"])]
         log("tp", f"{card}: {name} ({where}, bf16{weights_kind}, int8 cache, at "
-                  f"{depth if model_name == '8b' else f'{L} of 24 layers'}; heads a rank "
+                  f"{at}; heads a rank "
                   f"{heads}): teacher-forced logits over {TP_FORCED} positions, B=2, max |diff| "
                   f"from one process {gap_tp:.4f} (one process's plain path: {gap_plain:.4f}; "
                   f"bound 2 x that + 1e-3), argmax == the fed ids at {agree:.4f}; {n_req} greedy "
                   f"requests of {new}: ids equal to the one-process engine's for the first "
-                  f"{same} tokens; {launches}; wall {walls[0]:.2f} s over gloo on one card (not "
-                  f"a serving speed)")
+                  f"{same} tokens; {launches}{held}; wall {walls[0]:.2f} s over gloo on one card "
+                  f"(not a serving speed)")
         out[name] = dict(err=gap_tp, plain_gap=gap_plain, agree=agree, same=same, ranks=runs)
     log("phase", f"6e took {time.perf_counter() - t0:.0f} s: one-process references "
                  f"{t_ref:.0f} s, {TP_WORLD} ranks (start, shards, {len(TP_CONFIGS)} runs) "
@@ -5937,17 +6105,20 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     del p2, q2, emb, mask
     torch.cuda.empty_cache()
 
-    e2e = serving_times(card, {"8B bf16": request, "8B text2svg": t2s["request"]})
-    log("times", f"{card}: 8B text2svg (prompts of 6-30 tokens, no vision tower) against "
-                 f"im2svg, bf16: p50 B=1 {e2e['8B text2svg']['p50'] * 1e3:.1f} vs "
-                 f"{e2e['8B bf16']['p50'] * 1e3:.1f} ms, B=4 decode "
-                 f"{e2e['8B text2svg']['rate']:.1f} vs {e2e['8B bf16']['rate']:.1f} tokens/s")
-    memory_times(card, {"8B bf16": request}, {"8B bf16": p16})
+    e2e = None
+    if TIMINGS:
+        t_times = time.perf_counter()
+        e2e = serving_times(card, {"8B bf16": request, "8B text2svg": t2s["request"]})
+        log("times", f"{card}: 8B text2svg (prompts of 6-30 tokens, no vision tower) against "
+                     f"im2svg, bf16: p50 B=1 {e2e['8B text2svg']['p50'] * 1e3:.1f} vs "
+                     f"{e2e['8B bf16']['p50'] * 1e3:.1f} ms, B=4 decode "
+                     f"{e2e['8B text2svg']['rate']:.1f} vs {e2e['8B bf16']['rate']:.1f} tokens/s")
+        memory_times(card, {"8B bf16": request}, {"8B bf16": p16})
+        e2e = e2e["8B bf16"]
+        timed_only("phase 6's serving and memory turns", t_times)
     if profile_dir is not None:
         profile_request(request, card, profile_dir, "8b")
-    e2e = e2e["8B bf16"]
-    out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(p16),
-               serve=serve_8b, pipelined=pipe_8b, tp=tp_8b)
+    out = dict(counts=got, weights=tree_bytes(p16), serve=serve_8b, pipelined=pipe_8b, tp=tp_8b)
     del request, served, t2s
     out["int8"] = int8_slice_8b(model, tfa, cfg, p16, dev, card, e2e, depth, profile_dir)
     del model, p16
@@ -6210,14 +6381,18 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict, depth: s
     del q32, tf
     torch.cuda.empty_cache()
 
-    memory_times(card, {"8B int8": request}, {"8B int8": q8})
-    e2e = serving_times(card, {"8B int8": request}, rounds=1)["8B int8"]
-    log("times", f"{card}: 8B int8 (weights and KV cache) against the 8B bf16 figures earlier in "
-                 f"this call: p50 B=1 {e2e['p50'] * 1e3:.1f} vs {bf16_e2e['p50'] * 1e3:.1f} ms, "
-                 f"B=4 decode {e2e['rate']:.1f} vs {bf16_e2e['rate']:.1f} tokens/s")
+    if TIMINGS:
+        t_times = time.perf_counter()
+        memory_times(card, {"8B int8": request}, {"8B int8": q8})
+        e2e = serving_times(card, {"8B int8": request}, rounds=1)["8B int8"]
+        log("times", f"{card}: 8B int8 (weights and KV cache) against the 8B bf16 figures "
+                     f"earlier in this call: p50 B=1 {e2e['p50'] * 1e3:.1f} vs "
+                     f"{bf16_e2e['p50'] * 1e3:.1f} ms, B=4 decode {e2e['rate']:.1f} vs "
+                     f"{bf16_e2e['rate']:.1f} tokens/s")
+        timed_only("phase 6's int8 serving and memory turns", t_times)
     if profile_dir is not None:
         profile_request(request, card, profile_dir, "8b_int8")
-    out = dict(counts=got, p50=e2e["p50"], rate=e2e["rate"], weights=tree_bytes(q8))
+    out = dict(counts=got, weights=tree_bytes(q8))
     del request, served, q8
     return out
 
@@ -6966,7 +7141,8 @@ def quant_matmul_times_8b(tq, dev, card: str) -> dict:
                          f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it), int8pack_mm "
                          f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 addmm "
                          f"{addmm_ms:.4f} ms (reads 2 bytes a weight)")
-            tile_plan_times(tq, x, kq, sc, b, f"8B {name}", card)
+            if TIMINGS:
+                tile_plan_times(tq, x, kq, sc, b, f"8B {name}", card)
             if name == "mlp.c_fc" and M == 2320:
                 rows["tile"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                     library_ms=lib if lib is not None else addmm_ms)
@@ -7010,11 +7186,15 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR", type=Path,
                         help="also trace a B=4 request and a train step with torch.profiler "
                              "and write the kernel tables to DIR")
+    parser.add_argument("--timings", action="store_true",
+                        help="also run the work whose only output is a time (TIMINGS)")
     parser.add_argument("--times-only", metavar="ROOT", type=Path,
                         help="only time the decode step's kernels, the int8 prefill tile and the "
                              "bf16 and int8 serving, for the package in the tree at ROOT (to "
                              "compare trees)")
     args = parser.parse_args()
+    global TIMINGS
+    TIMINGS = args.timings or args.times_only is not None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs the port on an H100", file=sys.stderr)
         return 2
@@ -7230,19 +7410,23 @@ def main() -> int:
     # int8 weights and an int8 KV cache
     int8 = int8_slice(model, tfa, cfg, p16, p32, dev)
 
-    # serving times and memory, bf16, int8 and text2svg in turns; then the
-    # int8 tree goes, so that phase 5's peak holds only what training needs
-    e2e = serving_times(card, {"bf16": request, "int8": int8["request"],
-                               "text2svg": t2s["request"]})
-    log("times", f"{card}: int8 (weights and KV cache) against bf16: p50 B=1 "
-                 f"{e2e['int8']['p50'] * 1e3:.1f} vs {e2e['bf16']['p50'] * 1e3:.1f} ms, B=4 decode "
-                 f"{e2e['int8']['rate']:.1f} vs {e2e['bf16']['rate']:.1f} tokens/s")
-    log("times", f"{card}: 1B text2svg (prompts of 6-30 tokens, no vision tower) against "
-                 f"im2svg, bf16: p50 B=1 {e2e['text2svg']['p50'] * 1e3:.1f} vs "
-                 f"{e2e['bf16']['p50'] * 1e3:.1f} ms, B=4 decode {e2e['text2svg']['rate']:.1f} vs "
-                 f"{e2e['bf16']['rate']:.1f} tokens/s")
-    memory_times(card, {"bf16": request, "int8": int8["request"]},
-                 {"bf16": p16, "int8": int8["params"]})
+    # serving times and memory, bf16, int8 and text2svg in turns (--timings);
+    # then the int8 tree goes, so that phase 5's peak holds only what
+    # training needs
+    if TIMINGS:
+        t_times = time.perf_counter()
+        e2e = serving_times(card, {"bf16": request, "int8": int8["request"],
+                                   "text2svg": t2s["request"]})
+        log("times", f"{card}: int8 (weights and KV cache) against bf16: p50 B=1 "
+                     f"{e2e['int8']['p50'] * 1e3:.1f} vs {e2e['bf16']['p50'] * 1e3:.1f} ms, B=4 "
+                     f"decode {e2e['int8']['rate']:.1f} vs {e2e['bf16']['rate']:.1f} tokens/s")
+        log("times", f"{card}: 1B text2svg (prompts of 6-30 tokens, no vision tower) against "
+                     f"im2svg, bf16: p50 B=1 {e2e['text2svg']['p50'] * 1e3:.1f} vs "
+                     f"{e2e['bf16']['p50'] * 1e3:.1f} ms, B=4 decode "
+                     f"{e2e['text2svg']['rate']:.1f} vs {e2e['bf16']['rate']:.1f} tokens/s")
+        memory_times(card, {"bf16": request, "int8": int8["request"]},
+                     {"bf16": p16, "int8": int8["params"]})
+        timed_only("phase 4's serving and memory turns", t_times)
 
     # --- 4b. the decoding variants and GRPO -------------------------------------
     # 4b's decoding variants, 4c, 4d and 4e on the first DEPTH_1B_EARLIER
@@ -7376,7 +7560,7 @@ def main() -> int:
                  f"{b_ms / times[1]:.1%} of the bound), plain {times[0]:.4f} ms, bound "
                  f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
                  f"SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}")
-    s1026 = tower_prefix_times(tfa, dev, card)
+    s1026 = tower_prefix_times(tfa, dev, card) if TIMINGS else None
     kernels_json.append(dict(name="flash_prefill", route="cuda",
                              source="starvector_tpu_torch/csrc/flash_prefill.cu",
                              replaces="starvector_tpu/ops/flash_attention.py:212",
@@ -7442,8 +7626,11 @@ def main() -> int:
     kernels_json += tp_times(tfa, dc, dev, card, s8["tp"], err_8b)
     kernels_json += training_times_8b(tfa, dev, card, t8, err_train)
     kernels_json += tp_training_times(tfa, dev, card, tpt, err_train)
-    long_context_times(tfa, dev, card)
-    head_split_times(tfa, dev, card)
+    if TIMINGS:
+        t_times = time.perf_counter()
+        long_context_times(tfa, dev, card)
+        head_split_times(tfa, dev, card)
+        timed_only("phase 7's long-context and head_split sweeps", t_times)
 
     if args.profile is not None:
         for label, run, cfg_t in (("1B", train, cfg1), ("8B", t8, t8["cfg"])):

@@ -98,7 +98,7 @@ class StarVectorForCausalLM:
 
     @classmethod
     def from_pretrained(cls, path: str, dtype=torch.bfloat16, device="cuda", *,
-                        quantize: bool = False, tensor=None):
+                        quantize: bool = False, group=None):
         """Load an HF-layout StarVector-1B or -8B checkpoint directory
         (model*.safetensors, config.json, tokenizer.json) through
         models/builder.py::load_pretrained_model; the tokenizer is the
@@ -109,17 +109,19 @@ class StarVectorForCausalLM:
         1B's four projections a layer, the 8B's six; the vision tower,
         adapter, embeddings and norms keep `dtype`).
 
-        With a serving `tensor` group (parallel/tensor.py::TensorGroup), the
-        model of one tensor rank: its own slices of the decoder, read from
-        the files alone, and its config (starvector.tensor_parallel); such
-        a model feeds serve/engine.py's tensor-parallel ServeEngine, not
-        this class's generate calls. With `quantize` the rank quantizes its
-        own slices, each row-parallel column's scale from its maximum over
-        the group (parallel/tensor.py::quantize_slices): the codes and
-        scales are the slices of the whole model's."""
+        With a serving `group` (parallel/tensor.py::ServingGroup), the
+        model of one rank of it: its own pieces of the decoder (tensor
+        slices, and on a layout its stage block and fsdp shards), read from
+        the files alone, and its config (starvector.serving_params); such a
+        model feeds serve/engine.py's ServeEngine over the group, not this
+        class's generate calls. With `quantize` the rank quantizes its own
+        pieces, each column's scale from its maximum over the ranks that
+        split the column's rows (parallel/tensor.py::quantize_slices,
+        parallel/sharding.py::quantize_shards): the codes and scales are
+        the pieces of the whole model's."""
         from starvector_tpu_torch.models.builder import load_pretrained_model
 
-        params, cfg, tokenizer, _, _ = load_pretrained_model(path, dtype, device, tensor=tensor,
+        params, cfg, tokenizer, _, _ = load_pretrained_model(path, dtype, device, group=group,
                                                              quantize=quantize)
         return cls(params, cfg, tokenizer, device=device,
                    policy=DTypePolicy(param_dtype=dtype, compute_dtype=torch.bfloat16))

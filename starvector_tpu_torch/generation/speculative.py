@@ -128,19 +128,19 @@ def generate_greedy_speculative(
     policy: DTypePolicy = DTypePolicy(),
     accept_margin: float = 0.0,
     kernels: bool = True,
-    tensor=None,
+    group=None,
 ):
     """B = 1 over the linear cache. Returns (tokens (1, max_new_tokens),
     lengths (1,), n_forwards). As in the JAX function, tokens past the
     length are not pad-filled: the last round's accepted tokens may run past
     a stop.
 
-    On a serving tensor group (parallel/tensor.py::TensorGroup; params and
+    On a serving group (parallel/tensor.py::ServingGroup; params and
     llm_cfg this rank's) every rank runs this call on the same inputs, so
-    that the decoder's all-reduces meet in the same forwards: each round
-    the leader sends its accepted tokens and its next pending token, and a
-    follower whose own differ raises (serve/engine.py runs the call as one
-    command of its group)."""
+    that the decoder's all-reduces and gathers meet in the same forwards:
+    each round the leader sends its accepted tokens and its next pending
+    token, and a follower whose own differ raises (serve/engine.py runs the
+    call as one command of its group)."""
     dec = decoder_module(llm_cfg)
     _, P, _ = inputs_embeds.shape
     K = draft_len
@@ -165,8 +165,8 @@ def generate_greedy_speculative(
             policy.compute_dtype), attention_mask=ones, cache=cache, policy=policy,
             kernels=kernels)
         a, g = _accepted(proposal, lg, accept_margin)
-        if tensor is not None and tensor.size > 1:
-            _check_round(tensor, proposal, a, g)
+        if group is not None and group.size > 1:
+            _check_round(group, proposal, a, g)
         a = int(a)
         n_fwd += 1
         # emit the a verified tokens; roll the cache back over the K - a rejected
@@ -187,16 +187,16 @@ def generate_greedy_speculative(
     return tokens[:, :max_new_tokens], torch.tensor([length], device=device), n_fwd
 
 
-def _check_round(tensor, proposal: torch.Tensor, a: torch.Tensor, g: torch.Tensor) -> None:
-    """A tensor group's speculative round: the leader's accepted count,
+def _check_round(group, proposal: torch.Tensor, a: torch.Tensor, g: torch.Tensor) -> None:
+    """A serving group's speculative round: the leader's accepted count,
     accepted tokens and next pending token on every rank; a follower whose
     own differ raises."""
     K = proposal.shape[1]
     accepted = torch.where(torch.arange(K, device=proposal.device) < a, proposal[0], -1)
     mine = torch.cat([a.reshape(1).long(), accepted, g[0, a - 1].reshape(1)])
-    lead = tensor.broadcast(mine.clone())
-    if not tensor.is_leader and not torch.equal(lead, mine):
-        raise RuntimeError(f"tensor rank {tensor.rank}: its speculative round (accepted count, "
+    lead = group.broadcast(mine.clone())
+    if not group.is_leader and not torch.equal(lead, mine):
+        raise RuntimeError(f"serving rank {group.rank}: its speculative round (accepted count, "
                            f"tokens, pending) {mine.tolist()} parts from the leader's "
                            f"{lead.tolist()}")
 

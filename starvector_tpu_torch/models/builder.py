@@ -60,7 +60,7 @@ def config_from_yaml_block(block: dict) -> sv.StarVectorConfig:
 
 
 def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda", *,
-                                  tensor=None, quantize: bool = False):
+                                  group=None, quantize: bool = False):
     """(params, cfg, tokenizer) from an HF-layout StarVector checkpoint
     directory: the weights converted into the port's layout (convert.py),
     the config from config.json and the weights' shapes, and the
@@ -68,44 +68,69 @@ def load_hf_starvector_checkpoint(path: str, dtype=torch.bfloat16, device="cuda"
     quantizes the decoder (ops/quantization.py::quantize_tree, its default
     threshold).
 
-    With a serving `tensor` group (parallel/tensor.py::TensorGroup) the
-    rank reads only its own slices of the decoder's projections through
-    safetensors' get_slice (and the tower and adapter on the leader
-    only), and returns starvector.tensor_parallel's tree and config; with
-    `quantize` it quantizes its own slices to the whole tree's codes and
-    scales (parallel/tensor.py::quantize_slices)."""
+    With a serving `group` (parallel/tensor.py::ServingGroup) the rank
+    reads only its own pieces of the decoder through safetensors'
+    get_slice (convert.serving_state_dict: its tensor slices, and on a
+    group with a layout its stage block's layers and fsdp shards of them),
+    the tower and adapter on the leader only (with the token table whole
+    where the decoder's is split), and returns starvector.serving_params'
+    tree and config; with `quantize` it quantizes its own pieces to the
+    whole tree's codes and scales (parallel/tensor.py::quantize_slices on
+    tensor slices alone, parallel/sharding.py::quantize_shards on a
+    layout's shards)."""
     from safetensors import safe_open
 
     from starvector_tpu_torch.api import tokenizer_version
     from starvector_tpu_torch.models.convert import (
-        config_from_hf, from_hf_state_dict, stored_state_dict, tensor_rank_state_dict,
+        config_from_hf, from_hf_state_dict, serving_state_dict, stored_state_dict, to_tensor,
     )
     from starvector_tpu_torch.models.tokenizer import load_tokenizer
     from starvector_tpu_torch.ops.quantization import quantize_tree
+    from starvector_tpu_torch.parallel import zero
+    from starvector_tpu_torch.parallel.sharding import _paths, quantize_shards, register_local
     from starvector_tpu_torch.parallel.tensor import quantize_slices, register_rows
 
     device = require_device(device, 'device="cpu"')
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
+    infos, prompt = {}, None
     with contextlib.ExitStack() as files:
         handles = [files.enter_context(safe_open(os.path.join(path, name), framework="np"))
                    for name in sorted(os.listdir(path)) if name.endswith(".safetensors")]
-        sd = stored_state_dict(handles)
-        cfg = config_from_hf(sd, hf_cfg)
-        if tensor is not None:
-            sd = tensor_rank_state_dict(sd, cfg, tensor)
+        stored = stored_state_dict(handles)
+        cfg = config_from_hf(stored, hf_cfg)
+        sd = stored
+        if group is not None:
+            sd, infos = serving_state_dict(stored, cfg, group)
         params = from_hf_state_dict(sd, cfg, dtype=dtype, device=device)
+        table = "wte" if cfg.decoder == "gpt_bigcode" else "embed_tokens"
+        if group is not None and group.is_leader and infos.get(table) is not None \
+                and infos[table].dim is not None:
+            key = next(k for k in stored if k.endswith(f".{table}.weight"))
+            prompt = {table: to_tensor(stored[key], dtype, device)}
     dec = cfg.decoder_module
-    if tensor is not None:
-        register_rows(params["svg_transformer"], dec.partition_rules(), tensor)
-    if quantize and tensor is not None and tensor.size > 1:
+    tg = None if group is None else group.tensor
+    if infos:
+        for p, leaf in _paths(params["svg_transformer"]):
+            info = infos[p]
+            want = tuple(info.local_of(torch.empty(info.full_shape, device="meta")).shape)
+            if tuple(leaf.shape) != want:
+                raise ValueError(f"{p}: read {tuple(leaf.shape)}, its shard is {want}")
+            register_local(p, leaf, info)
+        if prompt is not None:
+            params["prompt_decoder"] = prompt
+    elif tg is not None:
+        register_rows(params["svg_transformer"], dec.partition_rules(), tg)
+    if quantize and infos:
+        params["svg_transformer"] = quantize_shards(params["svg_transformer"])
+    elif quantize and tg is not None and tg.size > 1:
         params["svg_transformer"] = quantize_slices(
             params["svg_transformer"], dec.partition_rules(),
-            [dec.tensor_units(cfg.llm, tensor.size, r) for r in range(tensor.size)], tensor)
+            [dec.tensor_units(cfg.llm, tg.size, r) for r in range(tg.size)], tg)
     elif quantize:
         params["svg_transformer"] = quantize_tree(params["svg_transformer"])
-    if tensor is not None:
-        cfg = dataclasses.replace(cfg, llm=dec.tensor_config(cfg.llm, tensor.size, tensor.rank))
+    if tg is not None:
+        cfg = dataclasses.replace(cfg, llm=dec.tensor_config(cfg.llm, tg.size, tg.rank))
     return params, cfg, load_tokenizer(path, version=tokenizer_version(cfg))
 
 
@@ -123,16 +148,16 @@ def model_builder(config, device) -> tuple[dict, sv.StarVectorConfig, Any]:
     return sv.init_params(cfg, gen, device=device), cfg, None
 
 
-def load_pretrained_model(path: str, dtype=torch.bfloat16, device="cuda", *, tensor=None,
+def load_pretrained_model(path: str, dtype=torch.bfloat16, device="cuda", *, group=None,
                           quantize: bool = False):
     """The serving path: (params, cfg, tokenizer, processor, context_len),
-    context_len being the checkpoint's max_length_train; with a `tensor`
-    group, this rank's; `quantize`: an int8-weight decoder
+    context_len being the checkpoint's max_length_train; with a serving
+    `group`, this rank's; `quantize`: an int8-weight decoder
     (load_hf_starvector_checkpoint)."""
     from starvector_tpu_torch.data.processor import processor_for_encoder
 
     device = require_device(device, 'device="cpu"')
-    params, cfg, tokenizer = load_hf_starvector_checkpoint(path, dtype, device, tensor=tensor,
+    params, cfg, tokenizer = load_hf_starvector_checkpoint(path, dtype, device, group=group,
                                                            quantize=quantize)
     processor = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=device)
     return params, cfg, tokenizer, processor, cfg.max_length_train

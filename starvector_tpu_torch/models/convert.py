@@ -21,10 +21,11 @@ leading axis, dense kernels (in, out), norms {"scale", "bias"}.
   * `config_from_hf(sd, hf_cfg)` derives the StarVectorConfig from the
     weights and the checkpoint's config.json, as the JAX package's
     models/builder.py does.
-  * `tensor_rank_state_dict(handles, cfg, group)` is the state dict of one
-    rank of a serving tensor group, read lazily from open safetensors
-    files: each decoder projection's slice of the rank (get_slice), the
-    tower and adapter on the leader only, for from_hf_state_dict.
+  * `serving_state_dict(stored, cfg, group)` is the state dict of one rank
+    of a serving group, read lazily from open safetensors files: each
+    decoder leaf's piece of the rank (get_slice: its tensor slice, and on a
+    layout its stage block's layers and its fsdp shard of them), the tower
+    and adapter on the leader only, for from_hf_state_dict.
 """
 
 from __future__ import annotations
@@ -323,31 +324,35 @@ def config_from_hf(sd: Mapping[str, np.ndarray], hf_cfg: dict) -> sv.StarVectorC
 
 # an HF decoder projection key (the 8B's layers.i.self_attn / mlp, the 1B's
 # h.i.attn / mlp) -> the port's stacked leaf
-_HF_PROJECTION = re.compile(r"(?:layers|h)\.\d+\.(self_attn|attn|mlp)\.(\w+)\.(weight|bias)$")
-
-
 class _Stored:
     """A tensor of an open safetensors file, read when numpy asks for it:
-    whole, or the `cut` (dim, ranges) of it, the ranges' (start, length)
-    along dim concatenated. `shape` is the stored tensor's, so
-    config_from_hf reads the whole model's geometry from the same mapping
-    without reading any data."""
+    whole, or the `cuts` of it, each a (dim, ranges) on its own dimension,
+    the ranges' (start, length) along dim concatenated; only the cut
+    elements are read. `shape` is the stored tensor's, so config_from_hf
+    reads the whole model's geometry from the same mapping without reading
+    any data."""
 
-    def __init__(self, handle, key: str, cut=None):
-        self.handle, self.key, self.cut = handle, key, cut
+    def __init__(self, handle, key: str, cuts=()):
+        self.handle, self.key, self.cuts = handle, key, tuple(cuts)
 
     @property
     def shape(self) -> tuple[int, ...]:
         return tuple(self.handle.get_slice(self.key).get_shape())
 
     def __array__(self, dtype=None, copy=None):
-        if self.cut is None:
+        if not self.cuts:
             arr = self.handle.get_tensor(self.key)
         else:
-            dim, ranges = self.cut
             stored = self.handle.get_slice(self.key)
-            arr = np.concatenate([stored[(slice(None),) * dim + (slice(start, start + n),)]
-                                  for start, n in ranges], axis=dim)
+
+            def read(cuts, index):
+                if not cuts:
+                    return stored[tuple(index)]
+                (dim, ranges), rest = cuts[0], cuts[1:]
+                return np.concatenate([read(rest, index[:dim] + [slice(start, start + n)]
+                                            + index[dim + 1:]) for start, n in ranges], axis=dim)
+
+            arr = read(self.cuts, [slice(None)] * len(self.shape))
         return arr if dtype is None else arr.astype(dtype)
 
 
@@ -356,19 +361,65 @@ def stored_state_dict(handles) -> dict:
     return {key: _Stored(h, key) for h in handles for key in h.keys()}
 
 
-def tensor_rank_state_dict(stored: dict, cfg: sv.StarVectorConfig, group) -> dict:
-    """The state dict of one rank of a serving tensor group (parallel/
-    tensor.py::TensorGroup) over `stored` (stored_state_dict): each decoder
-    projection cut to the rank's slice by the decoder's partition rules
-    and `tensor_units` (the HF Linear layout's (out, in) for the port's
-    (in, out) kernels), the rest whole; the tower and adapter on the
-    leader only. from_hf_state_dict of it equals
-    starvector.tensor_parallel of the whole load."""
+_LAYER_KEY = re.compile(r"(?<=\.)((?:layers|h)\.)\d+\.")
+_HF_NORMS = ("ln_1", "ln_2", "input_layernorm", "post_attention_layernorm")
+
+
+def _decoder_path(bare: str) -> tuple[str, int | None]:
+    """(the port's path of an HF decoder key (without "model."), its layer
+    or None)."""
+    if bare == V2_HEAD:
+        return "lm_head", None
+    rest = bare.removeprefix(DECODER_PREFIX).removeprefix(V2_DECODER_PREFIX)
+    m = re.match(r"(?:layers|h)\.(\d+)\.(.*)$", rest)
+    if m is None:  # wte, wpe, embed_tokens, ln_f, norm
+        name, what = rest.rsplit(".", 1)
+        if name in ("wte", "wpe", "embed_tokens"):
+            return name, None
+        return f"{name}/{'scale' if what == 'weight' else 'bias'}", None
+    parts = m.group(2).split(".")
+    if parts[0] in _HF_NORMS:
+        return f"layers/{parts[0]}/{'scale' if parts[1] == 'weight' else 'bias'}", int(m.group(1))
+    kind = "kernel" if parts[-1] == "weight" else "bias"
+    return f"layers/{'mlp' if parts[0] == 'mlp' else 'attn'}/{parts[1]}/{kind}", int(m.group(1))
+
+
+def _hf_dim(path: str, dim: int) -> int:
+    """The HF tensor's dimension of a port leaf's `dim`: a stacked kernel
+    (L, in, out) is one (out, in) a layer, a stacked bias or norm (L, n)
+    one (n,); tables and ln_f / norm keep theirs."""
+    if not path.startswith("layers/"):
+        return dim
+    return 2 - dim if path.endswith("/kernel") else dim - 1
+
+
+def serving_state_dict(stored: dict, cfg: sv.StarVectorConfig, group) -> tuple[dict, dict]:
+    """The state dict of one rank of a serving group (parallel/tensor.py::
+    ServingGroup) over `stored` (stored_state_dict), and the {decoder
+    path: zero.Shard} its leaves are to be registered with (empty without
+    the group's layout). Each decoder leaf is read as the rank's piece of
+    it (the HF Linear layout's (out, in) for the port's (in, out)
+    kernels): without a layout, each projection's tensor slice by the
+    decoder's partition rules and `tensor_units`; with one, the leaf's
+    piece by sharding.shard_infos of the whole decoder (on the meta device):
+    only the layers of the rank's stage block (renumbered from 0), its
+    tensor ranges and its fsdp (or fsdp x sequence) shard of them. The
+    tower and adapter on the leader only. from_hf_state_dict of it equals
+    starvector.serving_params of the whole load."""
+    from starvector_tpu_torch.parallel.sharding import shard_infos
     from starvector_tpu_torch.parallel.tensor import leaf_slice
 
     dec = cfg.decoder_module
+    tg, layout = group.tensor, group.layout
+    units = dec.tensor_units(cfg.llm, tg.size, tg.rank)
+    infos = {}
+    if layout is not None:
+        meta = {"svg_transformer": dec.init_params(cfg.llm, torch.Generator(), device="meta")}
+        every = [{"svg_transformer": dec.tensor_units(cfg.llm, tg.size, r)}
+                 for r in range(tg.size)] if tg.size > 1 else None
+        infos = {p.removeprefix("svg_transformer/"): info
+                 for p, info in shard_infos(meta, sv.partition_rules(), layout, every).items()}
     rules = dec.partition_rules()
-    units = dec.tensor_units(cfg.llm, group.size, group.rank)
     out = {}
     for key, t in stored.items():
         bare = key.removeprefix("model.")
@@ -376,14 +427,26 @@ def tensor_rank_state_dict(stored: dict, cfg: sv.StarVectorConfig, group) -> dic
             if group.is_leader:
                 out[key] = t
             continue
-        m = _HF_PROJECTION.search(bare)
-        cut = None
-        if m and group.size > 1:
-            kind = "kernel" if m.group(3) == "weight" else "bias"
-            path = f"layers/{'mlp' if m.group(1) == 'mlp' else 'attn'}/{m.group(2)}/{kind}"
-            cut = leaf_slice(path, 3 if kind == "kernel" else 2, rules, units)
-            if cut is not None:  # the port's stacked (L, in, out) dim -> HF (out, in) / (out,)
-                dim, ranges = cut
-                cut = (2 - dim if kind == "kernel" else dim - 1, ranges)
-        out[key] = _Stored(t.handle, t.key, cut)
-    return out
+        path, layer = _decoder_path(bare)
+        cuts = []
+        if layout is None:
+            if tg.size > 1 and path.startswith("layers/") and path.split("/")[1] not in _HF_NORMS:
+                cut = leaf_slice(path, 3 if path.endswith("/kernel") else 2, rules, units)
+                if cut is not None:
+                    cuts.append((_hf_dim(path, cut[0]), cut[1]))
+            out[key] = _Stored(t.handle, t.key, cuts)
+            continue
+        info = infos[path]
+        if layer is not None and info.stage:
+            n = info.full_shape[0] // layout.stage
+            if layer // n != layout.stage_rank:
+                continue
+            key = _LAYER_KEY.sub(lambda m: f"{m.group(1)}{layer % n}.", key, count=1)
+        if info.tensor is not None:
+            cuts.append((_hf_dim(path, info.tensor.dim), info.tensor.mine))
+        if info.dim is not None:
+            part = info.full_shape[info.dim] // info.n
+            cuts.append((_hf_dim(path, info.dim), ((info.index * part, part),)))
+        out[key] = _Stored(t.handle, t.key, cuts)
+    return out, infos
+

@@ -42,7 +42,8 @@ from __future__ import annotations
 import torch
 
 from starvector_tpu_torch.ops.attention import NEG_INF
-from starvector_tpu_torch.ops.layers import einsum_f32, layer_slice
+from starvector_tpu_torch.ops.layers import einsum_f32
+from starvector_tpu_torch.parallel import zero
 
 PAYLOAD_KEYS = ("k", "v", "k_scale", "v_scale")
 # a cached call of 2 up to this many new tokens takes the decoders' chunk
@@ -239,7 +240,9 @@ def merged_verify_attention(
 
 def decode_scan(layers: dict, cache: dict, x: torch.Tensor, layer_fn):
     """Run `layer_fn(layer_params, h, k_cached, v_cached[, k_scale, v_scale])
-    -> (h, k_new, v_new)` over the stacked layers. Layers emit only their new
+    -> (h, k_new, v_new)` over the stacked layers, each gathered whole just
+    before its call on a serving layout (parallel/zero.py::layer_at: from
+    the stage that holds it, then over fsdp). Layers emit only their new
     tokens' k/v, (B, Hkv, D) for a decode step or (B, W, Hkv, D) for a
     chunk; the caller writes the stacks back once (write_new_kv_linear,
     write_new_kv_linear_multi). An int8 cache also hands each layer its scale
@@ -251,7 +254,7 @@ def decode_scan(layers: dict, cache: dict, x: torch.Tensor, layer_fn):
     ks, vs = [], []
     for i in range(n_layer):
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if quant else ()
-        x, kn, vn = layer_fn(layer_slice(layers, i), x, cache["k"][i], cache["v"][i], *scales)
+        x, kn, vn = layer_fn(zero.layer_at(layers, i), x, cache["k"][i], cache["v"][i], *scales)
         ks.append(kn)
         vs.append(vn)
     return x, emitted_kv(ks, vs, quant)

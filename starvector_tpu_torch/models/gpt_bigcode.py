@@ -56,6 +56,13 @@ parallel/sequence.py::sp_flash_attention; on a stage mesh the layers run
 through parallel/pipeline.py::pipeline_layers (GPipe over the stage ranks,
 each its block of the layers; the plain loop elsewhere).
 
+On a serving layout (parallel/zero.py; a serving mesh with fsdp, sequence
+or stage above 1) every cached path gathers each layer whole just before
+it reads it (zero.layer_at: a stage's layer from its owner, fsdp shards
+all-gathered) and `wte`, `wpe` and `ln_f` where it reads them
+(zero.gathered), and drops them after. Off a layout both are the plain
+views.
+
 The config's resid/embd/attn dropout fields are declared and never applied,
 as in the JAX package.
 """
@@ -78,7 +85,7 @@ from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, merged_decode_attention,
 )
 from starvector_tpu_torch.ops.layers import (
-    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, make_dense_params,
+    DTypePolicy, dense, gelu_tanh, layer_norm, make_dense_params,
     make_layer_norm_params, matmul_f32, normal_, remat_layer,
 )
 
@@ -429,7 +436,7 @@ def forward(
     kv_mask = cache["kv_mask"]
     kv_mask[:, idx:idx + S] = attention_mask
     position_ids = torch.clamp(position_ids, 0, cfg.n_positions - 1)
-    x = x + policy.cast(params["wpe"][position_ids])
+    x = x + policy.cast(gathered(params["wpe"])[position_ids])
 
     layers = params["layers"]
     if S == 1:
@@ -446,18 +453,18 @@ def forward(
         dc.write_new_kv_linear_multi(cache, news, idx)
     else:
         for i in range(cfg.n_layer):
-            x = _prefill_block(layer_slice(layers, i), cfg, x, dc.layer_cache(cache, i), kv_mask,
-                               idx, policy, kernels)
+            x = _prefill_block(zero.layer_at(layers, i), cfg, x, dc.layer_cache(cache, i),
+                               kv_mask, idx, policy, kernels)
     cache["index"] = idx + S
 
-    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
     if return_hidden:
         return x, cache
     if last_logits_only:
         x = x[:, -1:]
     # tied head: compute-dtype operands, fp32 logits straight from the fp32
     # accumulator (never rounded to bf16, which would tie near-equal logits)
-    logits = matmul_f32(policy.cast(x), policy.cast(params["wte"]).T)
+    logits = matmul_f32(policy.cast(x), policy.cast(gathered(params["wte"])).T)
     return logits, cache
 
 
@@ -481,9 +488,10 @@ def forward_ragged_decode(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     advances. `key_bounds` (t_lo, t_hi): the slots any row may see, from
     the caller (t_lo is unused without a window). Returns (logits (B, V)
     fp32, the cache, updated in place)."""
-    x = policy.cast(embed_tokens(params, token_ids[:, None]))  # (B, 1, E)
+    table = gathered(params["wte"])
+    x = policy.cast(table[token_ids[:, None]])  # (B, 1, E)
     positions = torch.clamp(cache["lengths"], 0, cfg.n_positions - 1)[:, None]
-    x = x + policy.cast(params["wpe"][positions])
+    x = x + policy.cast(gathered(params["wpe"])[positions])
     write_pos, kv_mask, old_mask = dc.ragged_step_masks(cache, active, None)
     t_hi = dc.ragged_key_bounds(cache, key_bounds)[1]
     x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
@@ -491,8 +499,8 @@ def forward_ragged_decode(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     dc.write_new_kv_ragged(cache, news, write_pos)
     cache["kv_mask"] = kv_mask
     cache["lengths"] = cache["lengths"] + active.to(torch.int32)
-    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
-    return matmul_f32(policy.cast(x), policy.cast(params["wte"]).T)[:, 0], cache
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(table).T)[:, 0], cache
 
 
 def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.Tensor,
@@ -508,17 +516,18 @@ def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     (logits (B, W, V) fp32, the cache). `key_bounds` as in
     forward_ragged_decode."""
     B, W = token_ids.shape
-    x = policy.cast(embed_tokens(params, token_ids))
+    table = gathered(params["wte"])
+    x = policy.cast(table[token_ids])
     positions = cache["lengths"][:, None] + torch.arange(W, device=x.device)[None, :]
-    x = x + policy.cast(params["wpe"][torch.clamp(positions, 0, cfg.n_positions - 1)])
+    x = x + policy.cast(gathered(params["wpe"])[torch.clamp(positions, 0, cfg.n_positions - 1)])
     T = cache["k"].shape[2]
     # no slot at or past the longest row is visible: attend over [0, t_hi)
     t_hi = dc.ragged_key_bounds(cache, key_bounds)[1]
     x, news = dc.decode_scan(params["layers"], cache, x, _verify_layer_fn(
         cfg, cache["kv_mask"][:, :t_hi], t_hi, None, policy, kernels))
     dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
-    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
-    return matmul_f32(policy.cast(x), policy.cast(params["wte"]).T), cache
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(table).T), cache
 
 
 def _cached_slots(layer_cache: dict, t: int) -> tuple:
@@ -528,11 +537,12 @@ def _cached_slots(layer_cache: dict, t: int) -> tuple:
                  for key in dc.PAYLOAD_KEYS)
 
 
-def _chunk_side(params: dict, cfg: GPTBigCodeConfig, cache_next: dict,
+def _chunk_side(wpe: torch.Tensor, cfg: GPTBigCodeConfig, cache_next: dict,
                 chunk_embeds: torch.Tensor, chunk_mask: torch.Tensor, policy: DTypePolicy):
     """The next batch's chunk in a fused forward, as forward's cached branch
     derives it: positions from the mask (pads at 1) after the real tokens
-    the cache holds, the chunk's mask written at the cache's index. Returns
+    the cache holds, the chunk's mask written at the cache's index (`wpe`
+    the whole position table). Returns
     (x (B, C, E) with wpe added, the mask of the cached slots before the
     chunk, the chunk's mask (B, C) int32)."""
     idx = cache_next["index"]
@@ -545,8 +555,7 @@ def _chunk_side(params: dict, cfg: GPTBigCodeConfig, cache_next: dict,
     pos = prev[:, None] + compute_position_ids(chunk_mask)
     pos = torch.where(chunk_mask == 0, torch.ones_like(pos), pos)
     cache_next["kv_mask"][:, idx:idx + C] = chunk_mask
-    x = policy.cast(chunk_embeds) + policy.cast(
-        params["wpe"][torch.clamp(pos, 0, cfg.n_positions - 1)])
+    x = policy.cast(chunk_embeds) + policy.cast(wpe[torch.clamp(pos, 0, cfg.n_positions - 1)])
     return x, cache_next["kv_mask"][:, :idx], chunk_mask
 
 
@@ -567,7 +576,7 @@ def _fused_scan(params: dict, cfg: GPTBigCodeConfig, x: torch.Tensor, W: int, ca
     quant = "k_scale" in cache
     ka, va, kc, vc = [], [], [], []
     for i in range(cfg.n_layer):
-        p = layer_slice(params["layers"], i)
+        p = zero.layer_at(params["layers"], i)
         hh = layer_norm(p["ln_1"], x, cfg.layer_norm_epsilon)
         q, k, v = _split_qkv(cfg, dense(p["attn"]["c_attn"], hh, policy, kernels=kernels))
         q = q.unflatten(-1, (Hkv, H // Hkv, D))
@@ -627,9 +636,9 @@ def forward_decode_with_chunk(
     pos = cache["kv_mask"].sum(dim=-1, dtype=torch.int32)[:, None]
     cache["kv_mask"][:, idx] = 1
     old_mask = cache["kv_mask"][:, :idx]
-    x_d = policy.cast(dec_embeds) + policy.cast(
-        params["wpe"][torch.clamp(pos, 0, cfg.n_positions - 1)])
-    x_c, old_mask_c, chunk_mask = _chunk_side(params, cfg, cache_next, chunk_embeds, chunk_mask,
+    wpe = gathered(params["wpe"])
+    x_d = policy.cast(dec_embeds) + policy.cast(wpe[torch.clamp(pos, 0, cfg.n_positions - 1)])
+    x_c, old_mask_c, chunk_mask = _chunk_side(wpe, cfg, cache_next, chunk_embeds, chunk_mask,
                                               policy)
 
     def attend(q, k, v, layer_cache):
@@ -643,8 +652,8 @@ def forward_decode_with_chunk(
     dc.write_new_kv_linear_multi(cache_next, news_c, cache_next["index"])
     cache["index"] = idx + 1
     cache_next["index"] += chunk_embeds.shape[1]
-    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
-    table = policy.cast(params["wte"]).T
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    table = policy.cast(gathered(params["wte"])).T
     dec_logits = matmul_f32(policy.cast(x[:, 0]), table)
     last = matmul_f32(policy.cast(x[:, -1]), table) if chunk_logits else None
     return dec_logits, cache, last, cache_next
@@ -680,12 +689,13 @@ def forward_ragged_verify_with_chunk(
     W = token_ids.shape[1]
     D = cfg.head_dim
     positions = cache["lengths"][:, None] + torch.arange(W, device=token_ids.device)[None, :]
-    x_v = policy.cast(embed_tokens(params, token_ids)) + policy.cast(
-        params["wpe"][torch.clamp(positions, 0, cfg.n_positions - 1)])
+    table, wpe = gathered(params["wte"]), gathered(params["wpe"])
+    x_v = policy.cast(table[token_ids]) + policy.cast(
+        wpe[torch.clamp(positions, 0, cfg.n_positions - 1)])
     T = cache["k"].shape[2]
     t_hi = dc.ragged_key_bounds(cache, None)[1]
     old_mask = cache["kv_mask"][:, :t_hi]
-    x_c, old_mask_c, chunk_mask = _chunk_side(params, cfg, cache_next, chunk_embeds, chunk_mask,
+    x_c, old_mask_c, chunk_mask = _chunk_side(wpe, cfg, cache_next, chunk_embeds, chunk_mask,
                                               policy)
 
     def attend(q, k, v, layer_cache):
@@ -698,8 +708,8 @@ def forward_ragged_verify_with_chunk(
     dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
     dc.write_new_kv_linear_multi(cache_next, news_c, cache_next["index"])
     cache_next["index"] += chunk_embeds.shape[1]
-    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
-    logits = matmul_f32(policy.cast(x[:, :W]), policy.cast(params["wte"]).T)
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    logits = matmul_f32(policy.cast(x[:, :W]), policy.cast(table).T)
     return logits, cache, x[:, W:], cache_next
 
 

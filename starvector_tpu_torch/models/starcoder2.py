@@ -47,6 +47,13 @@ so each row's window goes into its key mask, and t_begin is at most the
 shortest row's window start. `forward_ragged_verify` is speculative
 decoding's verify, with a per-query window over the cached slots. Both
 take the slots any row may see from the caller (`key_bounds`).
+
+On a serving layout (parallel/zero.py; a serving mesh with fsdp, sequence
+or stage above 1) every cached path gathers each layer whole just before
+it reads it (zero.layer_at: a stage's layer from its owner, fsdp shards
+all-gathered) and the tables and `norm` where it reads them
+(zero.gathered); the window's t_begin is the same. Off a layout both are
+the plain views.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ import dataclasses
 import torch
 
 from starvector_tpu_torch.models import decode_common as dc
-from starvector_tpu_torch.parallel import pipeline, sequence
+from starvector_tpu_torch.parallel import pipeline, sequence, zero
 from starvector_tpu_torch.parallel.mesh import P
 from starvector_tpu_torch.parallel.tensor import copy_to_group
 from starvector_tpu_torch.parallel.zero import gathered
@@ -64,7 +71,7 @@ from starvector_tpu_torch.ops.flash_attention import (
     flash_prefill, merged_decode_attention,
 )
 from starvector_tpu_torch.ops.layers import (
-    DTypePolicy, dense, gelu_tanh, layer_norm, layer_slice, make_dense_params,
+    DTypePolicy, dense, gelu_tanh, layer_norm, make_dense_params,
     make_layer_norm_params, matmul_f32, normal_, remat_layer,
 )
 from starvector_tpu_torch.ops.rotary import rope_frequencies, rope_tables, rotate
@@ -427,8 +434,8 @@ def forward(
         dc.write_new_kv_linear_multi(cache, news, idx)
     else:
         for i in range(cfg.num_hidden_layers):
-            x = _prefill_block(layer_slice(layers, i), cfg, x, dc.layer_cache(cache, i), kv_mask,
-                               idx, rope, policy, kernels)
+            x = _prefill_block(zero.layer_at(layers, i), cfg, x, dc.layer_cache(cache, i),
+                               kv_mask, idx, rope, policy, kernels)
     if cache is not None:
         cache["index"] = idx + S
 
@@ -464,8 +471,9 @@ def forward_ragged_decode(params: dict, cfg: StarCoder2Config, token_ids: torch.
     dc.write_new_kv_ragged(cache, news, write_pos)
     cache["kv_mask"] = kv_mask
     cache["lengths"] = lengths + active.to(torch.int32)
-    x = layer_norm(params["norm"], x, cfg.norm_epsilon)
-    return matmul_f32(policy.cast(x), policy.cast(lm_head_table(params, cfg)).T)[:, 0], cache
+    x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
+    return matmul_f32(policy.cast(x),
+                      policy.cast(gathered(lm_head_table(params, cfg))).T)[:, 0], cache
 
 
 def forward_ragged_verify(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,
@@ -500,5 +508,5 @@ def forward_ragged_verify(params: dict, cfg: StarCoder2Config, token_ids: torch.
     x, news = dc.decode_scan(params["layers"], cache, x, _verify_layer_fn(
         cfg, old_mask, t_lo, t_hi, None, rope, policy, kernels))
     dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
-    x = layer_norm(params["norm"], x, cfg.norm_epsilon)
-    return matmul_f32(policy.cast(x), policy.cast(lm_head_table(params, cfg)).T), cache
+    x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(gathered(lm_head_table(params, cfg))).T), cache

@@ -129,24 +129,44 @@ def partition_rules() -> list[tuple[str, P]]:
     return rules
 
 
-def tensor_parallel(params: dict, cfg: StarVectorConfig, group) -> tuple[dict, StarVectorConfig]:
-    """(params, cfg) of one rank of a serving tensor group (parallel/
-    tensor.py::TensorGroup): the decoder's slices, the config with the
-    rank's decoder geometry (`tensor_config`), and the vision tower and
-    adapter whole on the leader, which computes every request's prefix;
-    the followers hold no tower. Either decoder (the 1B's with its one KV
-    head whole on every rank), bf16/fp32 or int8-weight (the slices of a
-    tree quantized whole: parallel/tensor.py::shard_tree)."""
+def serving_params(params: dict, cfg: StarVectorConfig, group) -> tuple[dict, StarVectorConfig]:
+    """(params, cfg) of one rank of a serving group (parallel/tensor.py::
+    ServingGroup): the decoder's shards and the config with the rank's
+    decoder geometry (`tensor_config`). The decoder: its tensor slices
+    (whole heads; the 1B's one KV head on every tensor rank), and on a
+    group with a layout its stage block and fsdp (or fsdp x sequence)
+    shards of them as the rules place them (parallel/sharding.py::
+    shard_pytree): this rank's share of the JAX worker's placement, which
+    the cached forwards gather at use. bf16/fp32, or int8 (a tree quantized
+    whole: codes split as their kernel; scales whole, as no rule names
+    them, but a tensor rank's columns).
+
+    The vision tower and the adapter stay whole on the leader, which alone
+    computes every request's prefix outside the engine's device calls (the
+    JAX rules shard the tower over fsdp too); where the token table is
+    split, the leader also keeps it whole as `prompt_decoder` (the prompt
+    ids' embeddings, serve/worker.py). The followers hold no tower."""
     from starvector_tpu_torch.parallel import tensor
+    from starvector_tpu_torch.parallel.sharding import shard_pytree
 
     dec = cfg.decoder_module
-    llm = dec.tensor_config(cfg.llm, group.size, group.rank)
-    out = {"svg_transformer": tensor.shard_tree(
-        params["svg_transformer"], dec.partition_rules(),
-        dec.tensor_units(cfg.llm, group.size, group.rank), group)}
+    tg = group.tensor
+    whole = params["svg_transformer"]
+    if group.layout is None:
+        decoder = tensor.shard_tree(whole, dec.partition_rules(),
+                                    dec.tensor_units(cfg.llm, tg.size, tg.rank), tg)
+    else:
+        units = [{"svg_transformer": dec.tensor_units(cfg.llm, tg.size, r)}
+                 for r in range(tg.size)] if tg.size > 1 else None
+        decoder = shard_pytree({"svg_transformer": whole}, partition_rules(), group.layout,
+                               units)["svg_transformer"]
+    out = {"svg_transformer": decoder}
     if group.is_leader:
         out.update({k: v for k, v in params.items() if k != "svg_transformer"})
-    return out, dataclasses.replace(cfg, llm=llm)
+        table = "wte" if "wte" in whole else "embed_tokens"
+        if zero.sharded(decoder[table]) is not None:
+            out["prompt_decoder"] = {table: whole[table]}
+    return out, dataclasses.replace(cfg, llm=dec.tensor_config(cfg.llm, tg.size, tg.rank))
 
 
 def tensor_units(cfg: StarVectorConfig, tp: int, rank: int) -> dict:
@@ -181,7 +201,7 @@ def decoder_config(cfg: StarVectorConfig):
     training layout (parallel/zero.py) its rank's (the decoder's
     `tensor_config`: its own heads and MLP columns), else cfg.llm."""
     layout = zero.active()
-    if layout is None or layout.tensor == 1:
+    if layout is None or layout.tensor == 1 or layout.serving:
         return cfg.llm
     return cfg.decoder_module.tensor_config(cfg.llm, layout.tensor, layout.tensor_group.rank)
 

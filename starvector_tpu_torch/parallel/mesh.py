@@ -1,5 +1,5 @@
 """The device mesh of data-parallel, ZeRO-3, sequence-, tensor- and
-pipeline-parallel training and of tensor-parallel serving (port of
+pipeline-parallel training and of sharded serving (port of
 starvector_tpu/parallel/mesh.py).
 
 The JAX package declares one global `Mesh` with the axes
@@ -29,10 +29,9 @@ over the same axes and puts the collectives in by hand (parallel/zero.py):
           holds its columns of the column-parallel projections and the
           same rows of the row-parallel ones, one all-reduce after each
           row-parallel product and, in training, one on the gradient at
-          each column-parallel block's input (parallel/tensor.py); on a
-          serving mesh of "data" x "tensor", or beside the batch axes and
-          "sequence" in training (the fastest axis: the ranks of a tensor
-          group hold the same rows);
+          each column-parallel block's input (parallel/tensor.py); beside
+          every other axis (the fastest axis: the ranks of a tensor group
+          hold the same rows);
 
   * PP    "stage" cuts the decoder's stacked layers into contiguous blocks
           over the stage ranks, which hold the same rows; the training
@@ -42,8 +41,12 @@ over the same axes and puts the collectives in by hand (parallel/zero.py):
 Axes of size 1 are always there, so the partition specs are those of the
 JAX package whatever the mesh. A training mesh with `stage` and `sequence`
 both above 1 raises ValueError, as the JAX pipeline does
-(check_training_mesh); a serving mesh takes `data` and `tensor` only
-(tensor.serving_mesh_config). A `PartitionSpec` here is
+(check_training_mesh). A serving mesh takes every axis, as the JAX worker
+places its parameters on any mesh (tensor.serving_mesh_config): the ranks
+of one (replica, data) coordinate serve one engine together, the
+decoder's weights split as the rules place them and gathered at use
+(zero.Layout.serve), and no axis splits a serving step's rows or
+positions. A `PartitionSpec` here is
 `P`, a tuple with one entry a dimension, each None, an axis name or a
 tuple of names, as JAX's.
 """
@@ -68,8 +71,6 @@ MESH_AXES = (AXIS_REPLICA, AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS
 
 # batch dims split over every axis but the model-parallel ones
 BATCH_AXES = (AXIS_REPLICA, AXIS_DATA, AXIS_FSDP)
-
-NOT_PORTED = "ROADMAP queue 1, item 12"
 
 
 class P(tuple):

@@ -21,6 +21,8 @@ its chunk. The gathered K and V are what the flash Function saves for its
 backward, as JAX's residuals; under remat True the gather sits inside the
 layer's checkpoint and runs again in the recompute.
 
+In serving nothing is split: the JAX engine's arrays are not placed on
+the mesh, so a serving mesh's sequence axis widens weight shards alone.
 Where S does not divide (JAX's sanitize_for_mesh drops the axis), nothing
 is split: each rank of the group computes the whole rows, and
 sp_flash_attention is the plain trainable call. The split is decided per
@@ -37,10 +39,12 @@ from starvector_tpu_torch.parallel import zero
 
 
 def sp_enabled(seq_len: int | None = None) -> bool:
-    """True iff a layout with a sequence axis above 1 is active (and, when
-    given, the sequence's length divides over it)."""
+    """True iff a training layout with a sequence axis above 1 is active
+    (and, when given, the sequence's length divides over it). A serving
+    layout's sequence ranks only split weight shards (ZeRO over sequence):
+    no serving step's positions are split."""
     layout = zero.active()
-    if layout is None or layout.sequence <= 1:
+    if layout is None or layout.sequence <= 1 or getattr(layout, "serving", False):
         return False
     return seq_len is None or seq_len % layout.sequence == 0
 

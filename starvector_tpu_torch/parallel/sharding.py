@@ -161,38 +161,116 @@ def make_param_shardings(params: Any, rules: Rules, mesh) -> Any:
     return zero._map(specs, lambda s: _sharding(s, sizes))
 
 
-def shard_pytree(params: Any, rules: Rules, mesh, units: list | None = None) -> Any:
-    """This rank's shard of every leaf: a contiguous copy of its slice along
-    the dimensions its spec splits (the leaf itself when it splits none),
-    registered with the layout so that the model gathers it at use. `mesh`
-    is a DeviceMesh or a zero.Layout over one. On a mesh with stage above
-    1 a stacked leaf whose rule leads with "stage" keeps this stage's
-    contiguous block of layers (parallel/pipeline.py runs them), cut
-    before the tensor and fsdp splits. On a mesh with tensor above 1,
-    `units` gives each tensor rank's ranges of the split projections by the
-    tree's top-level key (models/starvector.py::tensor_units); row-parallel
-    kernels are registered with the tensor group (parallel/tensor.py)."""
-    layout = mesh if isinstance(mesh, zero.Layout) else zero.Layout(mesh)
+def shard_infos(params: Any, rules: Rules, layout: "zero.Layout",
+                units: list | None = None) -> dict:
+    """{path: zero.Shard} of every leaf of a whole tree on `layout`: the
+    spec's fsdp (or fsdp x sequence) split and stage split, and on a mesh
+    with tensor above 1 the leaf's tensor ranges (`units`, as
+    shard_pytree takes them). The leaves' shapes are all it reads (a tree
+    on the meta device will do)."""
     slices = {}
     if layout.tensor > 1:
         if units is None:
             raise ValueError("a mesh with tensor > 1 needs the model's tensor_units")
         slices = tensor.tensor_slices(params, rules, units, layout.tensor_group,
                                       layout.holder_groups)
-    paths = iter(p for p, _ in _paths(params))
-
-    def shard(leaf, sh: Sharding):
-        path = next(paths)
-        ts = slices.get(path)
+    shardings = dict(_paths(make_param_shardings(params, rules, layout.mesh)))
+    out = {}
+    for path, leaf in _paths(params):
+        sh, ts = shardings[path], slices.get(path)
         if ts is not None and ts.dim == sh.dim:
             raise ValueError(f"{path}: split over fsdp and tensor along one dimension")
-        info = zero.Shard(layout, sh.dim, tuple(leaf.shape), sh.wide, ts, sh.stage)
-        if sh.dim is None and ts is None and not sh.stage:
+        out[path] = zero.Shard(layout, sh.dim, tuple(leaf.shape), sh.wide, ts, sh.stage)
+    return out
+
+
+def register_local(path: str, local: torch.Tensor, info: "zero.Shard") -> torch.Tensor:
+    """Register a leaf that holds this rank's piece as `info` places it,
+    and a row-parallel kernel (or its codes) with the tensor group."""
+    ts = info.tensor
+    if ts is not None and tensor.is_row_parallel(path, ts.dim, len(info.full_shape)):
+        tensor.register_row(local, info.layout.tensor_group)
+    return zero.register(local, info)
+
+
+def shard_pytree(params: Any, rules: Rules, mesh, units: list | None = None) -> Any:
+    """This rank's shard of every leaf: a contiguous copy of its slice along
+    the dimensions its spec splits (the leaf itself when it splits none),
+    registered with the layout so that the model gathers it at use. `mesh`
+    is a DeviceMesh or a zero.Layout over one. On a mesh with stage above
+    1 a stacked leaf whose rule leads with "stage" (the decoders' layers)
+    keeps this stage's contiguous block of layers (parallel/pipeline.py
+    runs them in training; a serving layout fetches each from its stage at
+    use), cut before the tensor and fsdp splits. On a mesh with tensor
+    above 1, `units` gives each tensor rank's ranges of the split
+    projections by the tree's top-level key (models/starvector.py::
+    tensor_units); row-parallel kernels are registered with the tensor
+    group (parallel/tensor.py), and a quantized kernel's scales follow its
+    codes' columns."""
+    layout = mesh if isinstance(mesh, zero.Layout) else zero.Layout(mesh)
+    infos = iter(shard_infos(params, rules, layout, units).items())
+
+    def shard(leaf):
+        path, info = next(infos)
+        if info.dim is None and info.tensor is None and not info.stage:
             return zero.register(leaf, info)
         local = info.local_of(leaf.detach()).clone(memory_format=torch.contiguous_format)
         local.requires_grad_(leaf.requires_grad)
-        if ts is not None and tensor.is_row_parallel(path, ts.dim, leaf.dim()):
-            tensor.register_row(local, layout.tensor_group)
-        return zero.register(local, info)
+        return register_local(path, local, info)
 
-    return zero._map(params, shard, make_param_shardings(params, rules, layout.mesh))
+    return zero._map(params, shard)
+
+
+def quantize_shards(params: Any, min_elems: int = 1 << 16) -> Any:
+    """ops/quantization.py::quantize_tree of a tree of this rank's shards
+    (shard_pytree's, or a per-rank checkpoint load), equal bit for bit to
+    this rank's shards of the whole tree's quantize_tree as shard_pytree
+    places it. A kernel is quantized where the whole leaf reaches
+    `min_elems`; each column's absolute maximum is taken over the ranks
+    that split the kernel's rows (K), a MAX all-reduce over its fsdp (or
+    widened) ranks or, for a row-parallel kernel, its tensor group, before
+    it rounds. The codes keep the kernel's split and marks. The per-column
+    scales come out whole, as no rule names them: a rank's columns of a
+    kernel split over fsdp along them are all-gathered, and a stage's block
+    of layers gathered over the stage ranks (a tensor rank keeps its own
+    columns' scales, as parallel/tensor.py cuts them). Each quantized
+    leaf's kernel leaves the input tree (quantize_tree's `consume`)."""
+    import torch.distributed as dist
+
+    from starvector_tpu_torch.ops.quantization import quantize_dense
+
+    def rec(node):
+        if not isinstance(node, dict):
+            return node
+        w = node.get("kernel")
+        if not (isinstance(w, torch.Tensor) and w.ndim in (2, 3)):
+            return {k: rec(v) for k, v in node.items()}
+        if math.prod(zero.full_shape(w)) < min_elems:
+            return node
+        info, row = zero.info_of(w), tensor.row_group(w)
+        rows = w.ndim - 2
+        reduce = None
+        if info is not None and info.dim == rows:
+            group = info.layout.split(info.wide)[0]
+
+            def reduce(t):
+                if group is not None:
+                    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+                return t
+        elif info is not None and info.tensor is not None and info.tensor.dim == rows:
+            reduce = info.tensor.group.all_reduce_max
+        out = quantize_dense(node, reduce=reduce)
+        del node["kernel"], w
+        if info is not None:
+            zero.register(out["kernel_q"], info)
+            scale = out["scale"]
+            if info.dim == rows + 1:
+                scale = info.layout.all_gather(scale, scale.dim() - 1, info.wide)
+            if info.stage:
+                scale = zero._gather(scale, 0, info.layout.stage_group, info.layout.stage)
+            out["scale"] = scale
+        if row is not None:
+            tensor.register_row(out["kernel_q"], row)
+        return out
+
+    return rec(params)

@@ -46,26 +46,34 @@ split its query heads) takes on each only the part of its gradient that
 comes from the rank's own query heads: that part is summed over exactly
 its holders (`TensorSlice.sum_shared`), and a sum over the whole leaf (the
 global norm, Adafactor's statistics) counts it once, on its first holder
-(`TensorSlice.owned`). Beside `stage` in training each stage's block of
-layers is split so (parallel/pipeline.py); serving refuses `stage`
-(ROADMAP queue 1, item 12).
+(`TensorSlice.owned`). Beside `stage` each stage's block of layers is
+split so (parallel/pipeline.py in training).
+
+Serving runs one engine over every rank of a data group (`ServingGroup`:
+the ranks of one (replica, data) coordinate, fsdp x sequence x stage x
+tensor of them). Its leader runs the engine's threads and broadcasts each
+device call to the others (serve/engine.py); the tensor group within it
+(`TensorGroup`) only sums the row-parallel products. Where fsdp, sequence
+or stage is above 1 the group's weights are also split as the rules place
+them and gathered at use (`ServingGroup.layout`, parallel/zero.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
 from torch.utils.weak import WeakIdKeyDictionary
 
 from starvector_tpu_torch.parallel.mesh import (
-    AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR, NOT_PORTED, MeshConfig,
-    axis_sizes, create_mesh,
+    AXIS_DATA, AXIS_FSDP, AXIS_REPLICA, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR, MESH_AXES,
+    MeshConfig, axis_sizes, create_mesh,
 )
 
-# the axes a serving mesh may set above 1
-SERVING_AXES = (AXIS_DATA, AXIS_TENSOR)
+# the axes whose ranks serve one engine together (a data group)
+GROUP_AXES = (AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE, AXIS_TENSOR)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,28 +111,20 @@ def head_layout(H: int, Hkv: int, tp: int) -> list[Heads]:
 
 
 class TensorGroup:
-    """This rank's tensor group: its size, this rank's place in it, the
-    process group (None for one rank) and the global rank of its leader
-    (tensor rank 0), which drives the group's engine (serve/engine.py)."""
+    """This rank's tensor group: its size, this rank's place in it and the
+    process group (None for one rank, or for slicing without one), over
+    which the row-parallel products are summed."""
 
-    def __init__(self, group, size: int, rank: int, leader: int, data_rank: int = 0):
-        self.group, self.size, self.rank, self.leader = group, size, rank, leader
-        self.data_rank = data_rank
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
 
     @classmethod
     def of(cls, mesh) -> "TensorGroup":
         """The tensor group of this rank on a DeviceMesh over MESH_AXES."""
-        sizes = axis_sizes(mesh)
-        data = mesh.get_local_rank(AXIS_DATA)
-        if sizes[AXIS_TENSOR] == 1:
-            return cls(None, 1, 0, dist.get_rank(), data)
-        group = mesh.get_group(AXIS_TENSOR)
-        return cls(group, sizes[AXIS_TENSOR], mesh.get_local_rank(AXIS_TENSOR),
-                   dist.get_global_rank(group, 0), data)
-
-    @property
-    def is_leader(self) -> bool:
-        return self.rank == 0
+        if axis_sizes(mesh)[AXIS_TENSOR] == 1:
+            return cls(None, 1, 0)
+        return cls(mesh.get_group(AXIS_TENSOR), axis_sizes(mesh)[AXIS_TENSOR],
+                   mesh.get_local_rank(AXIS_TENSOR))
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """t summed over the group, in place."""
@@ -137,6 +137,54 @@ class TensorGroup:
         if self.group is not None:
             dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
+
+
+class ServingGroup:
+    """This rank's serving group: the ranks of its data group (one
+    (replica, data) coordinate; fsdp x sequence x stage x tensor ranks,
+    row-major), which hold the same rows of every request and serve one
+    engine. `rank` is this rank's place in it, `leader` the global rank of
+    its first, which runs the engine's threads and host state and sends
+    every device call to the others (serve/engine.py), `data_rank` the
+    group's place among the data groups, `tensor` the rank's TensorGroup
+    (the row-parallel sums) and `layout` the parallel/zero.py Layout of the
+    weights' fsdp, sequence and stage splits (None where all three are 1:
+    the decoder is then its tensor slices alone)."""
+
+    def __init__(self, group, size: int, rank: int, leader: int, data_rank: int,
+                 tensor: TensorGroup, layout=None):
+        self.group, self.size, self.rank, self.leader = group, size, rank, leader
+        self.data_rank, self.tensor, self.layout = data_rank, tensor, layout
+
+    @classmethod
+    def of_tensor(cls, tensor: TensorGroup, leader: int = 0, data_rank: int = 0):
+        """The serving group of a data x tensor mesh: the tensor group
+        itself (a group without a process group slices and registers
+        without collectives)."""
+        return cls(tensor.group, tensor.size, tensor.rank, leader, data_rank, tensor)
+
+    @classmethod
+    def of(cls, mesh) -> "ServingGroup":
+        """This rank's serving group on a serving DeviceMesh over MESH_AXES."""
+        from starvector_tpu_torch.parallel import zero
+
+        sizes = axis_sizes(mesh)
+        data_rank = mesh.get_local_rank(AXIS_REPLICA) * sizes[AXIS_DATA] + \
+            mesh.get_local_rank(AXIS_DATA)
+        if all(sizes[a] == 1 for a in (AXIS_FSDP, AXIS_SEQUENCE, AXIS_STAGE)):
+            tensor = TensorGroup.of(mesh)
+            leader = dist.get_rank() - tensor.rank
+            return cls.of_tensor(tensor, leader, data_rank)
+        layout = zero.Layout(mesh, serving=True)
+        size = math.prod(sizes[a] for a in GROUP_AXES)
+        rank = dist.get_rank() % size
+        group = zero._subgroup(layout.grid, GROUP_AXES)
+        return cls(group, size, rank, dist.get_rank() - rank, data_rank, layout.tensor_group,
+                   layout)
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == 0
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """The leader's t on every rank (a follower's t, contiguous, is
@@ -158,22 +206,18 @@ class TensorGroup:
 
 def serving_mesh_config(axes: dict) -> MeshConfig:
     """The serving mesh of a serve config's `mesh:` block ({axis: size});
-    the unnamed axes 1. Raises NotImplementedError for an axis other than
-    data and tensor above 1 (fsdp, sequence and stage shards are training's;
-    serving on them is item 12's part still to port)."""
-    extra = {a: int(n) for a, n in axes.items() if a not in SERVING_AXES and int(n) > 1}
-    if extra:
-        raise NotImplementedError(
-            f"serving mesh axes {extra}: the port serves over {SERVING_AXES} only "
-            f"({AXIS_FSDP}, {AXIS_SEQUENCE} and {AXIS_STAGE} shards are not ported for serving, "
-            f"{NOT_PORTED})")
-    return MeshConfig(fsdp=1, **{a: int(axes.get(a, 1)) for a in SERVING_AXES})
+    the unnamed axes 1 (fsdp too: a serving mesh absorbs no ranks).
+    Raises ValueError for a name that is not a mesh axis."""
+    unknown = sorted(set(axes) - set(MESH_AXES))
+    if unknown:
+        raise ValueError(f"serving mesh axes {unknown}: not among {MESH_AXES}")
+    return MeshConfig(**{a: int(axes.get(a, 1)) for a in MESH_AXES})
 
 
-def serving_group(axes: dict, device_type: str | None = None) -> TensorGroup:
-    """This rank's tensor group on the serving mesh of `axes` over the
-    default process group (ranks row-major over (data, tensor))."""
-    return TensorGroup.of(create_mesh(serving_mesh_config(axes), device_type=device_type))
+def serving_group(axes: dict, device_type: str | None = None) -> ServingGroup:
+    """This rank's serving group on the serving mesh of `axes` over the
+    default process group (ranks row-major over MESH_AXES)."""
+    return ServingGroup.of(create_mesh(serving_mesh_config(axes), device_type=device_type))
 
 
 # --- the row-parallel leaves ----------------------------------------------------
@@ -241,7 +285,8 @@ def leaf_slice(path: str, ndim: int, rules, units: dict):
     for name in ("/".join(parts[-3:-1]), parts[-2], parts[-1]):
         if name in units:
             return None if units[name] is None else (dim, _ranges(units[name]))
-    raise NotImplementedError(f"{path}: no tensor-parallel split of this leaf ({NOT_PORTED})")
+    raise NotImplementedError(f"{path}: its rule splits it over {AXIS_TENSOR}, and the model's "
+                              f"tensor_units give no range of it")
 
 
 def take(t: torch.Tensor, dim: int, ranges) -> torch.Tensor:
@@ -418,19 +463,21 @@ class TensorSlice:
 
 def tensor_slices(params: dict, rules, all_units: list, group: TensorGroup,
                   holder_group) -> dict:
-    """{path: TensorSlice} of every leaf of a training tree that its rule
-    splits over `tensor` and `all_units` (each tensor rank's units by the
-    tree's top-level key: {"svg_transformer": ..., "image_encoder": ...,
-    "image_projection": ...}) cuts; the other leaves are absent.
+    """{path: TensorSlice} of every leaf of a tree that its rule splits
+    over `tensor` and `all_units` (each tensor rank's units by the tree's
+    top-level key: {"svg_transformer": ..., "image_encoder": ...,
+    "image_projection": ...}) cuts, and of a quantized kernel's scales
+    that follow their codes' columns (_cut); the other leaves are absent.
     `holder_group(lists)` makes the process groups of ranges several ranks
     hold (every rank calls it alike: the holders come from every rank's
     units)."""
     from starvector_tpu_torch.parallel.sharding import _paths
 
     out = {}
-    for path, leaf in _paths(params):
+    leaves = dict(_paths(params))
+    for path, leaf in leaves.items():
         comp = path.split("/", 1)[0]
-        cuts = [leaf_slice(path, leaf.dim(), rules, units.get(comp, {})) for units in all_units]
+        cuts = [_cut(path, leaf, leaves, rules, units.get(comp, {})) for units in all_units]
         if cuts[0] is None:
             continue
         dim = cuts[0][0]

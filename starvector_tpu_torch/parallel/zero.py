@@ -65,6 +65,16 @@ leaf every stage holds whole counts once.
 
 With no `Layout` active (`Layout.step()`), every function here returns
 its input: the one-device path is the code it was.
+
+Serving takes a Layout of its own (`Layout(mesh, serving=True)`, on a mesh
+with any axes: stage and sequence may nest, since nothing splits a serving
+step's rows or positions). Its ranks hold the same rows and positions of
+every request; each holds its shards of the decoder as the rules place
+them, and the cached forwards gather each layer whole just before they
+read it (`layer_at`, `gathered`) and drop it after. `Layout.serve()` makes
+it active on the calling thread alone (the engine's device calls, a
+follower's replay), with no autograd: request threads that run beside it
+see no layout and gather nothing.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 
 import torch
 import torch.distributed as dist
@@ -158,11 +169,14 @@ class Layout:
                     gradient of a leaf every stage holds whole
 
     A group of one rank is None (no collective); the world is
-    dist.group.WORLD. A mesh with stage and sequence both above 1 raises
-    ValueError (mesh.check_training_mesh)."""
+    dist.group.WORLD. A training mesh with stage and sequence both above 1
+    raises ValueError (mesh.check_training_mesh); a `serving` layout takes
+    any mesh."""
 
-    def __init__(self, mesh):
-        check_training_mesh(mesh)
+    def __init__(self, mesh, *, serving: bool = False):
+        if not serving:
+            check_training_mesh(mesh)
+        self.serving = serving
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.fsdp = sizes[AXIS_FSDP]
@@ -328,6 +342,21 @@ class Layout:
         finally:
             _ACTIVE.pop()
 
+    @contextlib.contextmanager
+    def serve(self):
+        """Within, on the calling thread only and under inference mode: the
+        cached forwards gather this serving layout's shards at use. No
+        saved-tensor hooks, no step state."""
+        if not self.serving:
+            raise ValueError("Layout.serve() takes a serving layout (Layout(mesh, serving=True))")
+        stack = _LOCAL.__dict__.setdefault("serving", [])
+        stack.append(self)
+        try:
+            with torch.inference_mode():
+                yield self
+        finally:
+            stack.pop()
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
@@ -434,10 +463,16 @@ class Shard:
 
 _INFO = WeakIdKeyDictionary()      # local tensor -> Shard
 _GATHERED = WeakIdKeyDictionary()  # gathered tensor -> (its shard, Shard, dtype)
-_ACTIVE: list[Layout] = []
+_ACTIVE: list[Layout] = []         # training steps (Layout.step), process-wide
+_LOCAL = threading.local()         # .serving: this thread's serving layouts (Layout.serve)
 
 
 def active() -> Layout | None:
+    """The calling thread's serving layout, else the training step's, else
+    None."""
+    serving = getattr(_LOCAL, "serving", None)
+    if serving:
+        return serving[-1]
     return _ACTIVE[-1] if _ACTIVE else None
 
 
@@ -552,8 +587,12 @@ def gather(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     info = info_of(t)
     if info is None or (info.dim is None and info.owner is None):
         return t
-    full = _Gather.apply(t, info, None if dtype == t.dtype else dtype)
-    _GATHERED[full] = (t.detach(), info, full.dtype)
+    if torch.is_grad_enabled():
+        full = _Gather.apply(t, info, None if dtype == t.dtype else dtype)
+        _GATHERED[full] = (t.detach(), info, full.dtype)
+    else:  # serving, or a forward without autograd: nothing to save
+        full = info.gather(t)
+        full = full if dtype is None else full.to(dtype)
     tp.note_views(t, (full,))
     return full
 
@@ -563,7 +602,7 @@ def gathered(tree, policy=None):
     the tree itself). With a policy, dense kernels (leaves named
     "kernel") come in its compute dtype, the cast the model makes anyway, so
     that the tensor a product saves for its backward is the gathered one."""
-    if not _ACTIVE:
+    if active() is None:
         return tree
     dtype = None if policy is None else policy.compute_dtype
 
@@ -575,6 +614,31 @@ def gathered(tree, policy=None):
         return gather(node, dtype if key == "kernel" else None)
 
     return walk(tree)
+
+
+def layer_at(layers: dict, i: int) -> dict:
+    """Layer i of the stacked `layers` as a cached forward reads it: views
+    of the stacks (as ops/layers.py::layer_slice) without an active layout;
+    on one, each leaf of the layer whole (this rank's tensor slice of it),
+    a leaf cut into stage blocks fetched from the stage that holds layer i
+    (`stand_in`), a fsdp shard all-gathered (`gather`). Every rank of the
+    layout calls it for the same layers in the same order."""
+    if active() is None:
+        from starvector_tpu_torch.ops.layers import layer_slice
+
+        return layer_slice(layers, i)
+
+    def leaf(t):
+        info = info_of(t)
+        n = t.shape[0]
+        view = t[i % n if info is not None and info.stage else i]
+        note_views(t, (view,))
+        tp.note_views(t, (view,))
+        if info is not None and info.stage:
+            view = stand_in(view, i // n)
+        return gather(view)
+
+    return _map(layers, leaf)
 
 
 class _Regather:

@@ -41,6 +41,14 @@ from two seeded torch.Generators on the device, one for the ticks and one
 for the admissions, so sampled tokens are reproducible for a seed but not
 equal to the JAX engine's.
 
+On a serving mesh (parallel/tensor.py::ServingGroup: every rank of one
+data group) one engine runs over the group: the leader's threads drive it
+and every device call goes to the followers as a command that they replay
+on their own shards (`follow`), so that the group's collectives (the
+tensor group's row-parallel sums; the fsdp and stage gathers of a layout)
+meet. Each row's first-token logits come out of the prefill's own device
+call, since the head's table may be one of the gathered weights.
+
 Runs on the card; `device="cpu"` asks for the CPU. `kernels=False` runs
 the kernels' plain versions (the card's reference run).
 """
@@ -68,6 +76,7 @@ from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.models import gpt_bigcode, starcoder2
 from starvector_tpu_torch.ops.layers import DTypePolicy, matmul_f32
 from starvector_tpu_torch.ops.sampling import sample_token
+from starvector_tpu_torch.parallel.zero import gathered
 
 DECODERS = {"gpt_bigcode": gpt_bigcode, "starcoder2": starcoder2}
 
@@ -203,13 +212,14 @@ class _Knobs:
     bias_vals: torch.Tensor
     greedy_only: bool  # every active slot greedy: the ticks take the argmax alone
     # greedy with no penalty or bias: each token is the logits' argmax, which
-    # a tensor group's followers check against their own
+    # a serving group's followers check against their own
     plain_greedy: bool = False
 
 
 def _lm_logits(dec, params: dict, cfg, h: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
-    """(k, V) fp32 logits of hidden states (k, E) through the LM head."""
-    return matmul_f32(policy.cast(h), policy.cast(dec.lm_head_table(params, cfg)).T)
+    """(k, V) fp32 logits of hidden states (k, E) through the LM head
+    (gathered whole on a serving layout)."""
+    return matmul_f32(policy.cast(h), policy.cast(gathered(dec.lm_head_table(params, cfg))).T)
 
 
 def _prefill_chunk(dec, params: dict, cfg, embeds, mask, cache: dict, h_last, last_idx,
@@ -235,14 +245,13 @@ def _presence_from_ids(ids: torch.Tensor, vocab: int) -> torch.Tensor:
     return out.scatter_reduce_(1, torch.where(ids >= 0, ids, 0).long(), real, reduce="amax")
 
 
-def _sample_first(dec, params: dict, cfg, h_last, generator, temp, top_p, top_k, min_p,
-                  rep_pen, prompt_ids, bias_ids, bias_vals, *, policy: DTypePolicy,
-                  max_top_k: int):
-    """Each admitted row's first token from its last hidden state (no
-    (P, V) logits), and the rows' prompt presence tables. The full-vocabulary
-    chain, as the JAX _sample_first."""
-    logits = _lm_logits(dec, params, cfg, h_last, policy)
-    presence = _presence_from_ids(prompt_ids, cfg.vocab_size)
+def _sample_first(logits, vocab: int, generator, temp, top_p, top_k, min_p, rep_pen,
+                  prompt_ids, bias_ids, bias_vals, *, max_top_k: int):
+    """Each admitted row's first token from its last position's logits
+    (k, V) (the prefill's head, _prefill_embeds: no (P, V) logits), and the
+    rows' prompt presence tables. The full-vocabulary chain, as the JAX
+    _sample_first."""
+    presence = _presence_from_ids(prompt_ids, vocab)
     first = sample_token(logits, do_sample=True, temperature=temp, top_p=top_p, top_k=top_k,
                          min_p=min_p, presence=presence, repetition_penalty=rep_pen,
                          bias_ids=bias_ids, bias_vals=bias_vals, max_top_k=max_top_k,
@@ -273,7 +282,7 @@ def _fused_ragged_step(dec, params: dict, cfg, tokens, cache: dict, kn: _Knobs, 
     (B, n_steps) out, on the device. counts (B, V) counts each active slot's
     tokens, in place. key_bounds (t_lo, t_hi): the slots any active row may
     see at the first step; each step's t_hi is one more. `share` sends the
-    input tokens and each step's tokens to a tensor group's followers
+    input tokens and each step's tokens to a serving group's followers
     (_follow_step)."""
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     t_lo, t_hi = key_bounds
@@ -308,7 +317,7 @@ def _fused_verify_multi(dec, params: dict, cfg, tokens, cache: dict, ctx, ctx_le
     (B,): each slot's last accepted sample); ctx, counts and the cache
     change in place. key_bounds as in _fused_ragged_step, each round's t_hi
     W more. `share` sends each round's proposal and accepted counts to a
-    tensor group's followers (_follow_verify)."""
+    serving group's followers (_follow_verify)."""
     B = tokens.shape[0]
     W = draft_len + 1
     rows = torch.arange(B, device=tokens.device)
@@ -382,11 +391,11 @@ def _admit_sampling_state(counts, prompt_presence, slots, firsts, presence_rows)
     prompt_presence[slots] = presence_rows
 
 
-def _beam_first(dec, params: dict, cfg, h_last, *, policy: DTypePolicy, n: int):
-    """First beam round from the prompt's last hidden state (1, E): the
-    top-2n continuations of beam 0 (HF: only beam 0 is live at t = 0).
+def _beam_first(logits, *, n: int):
+    """First beam round from the prompt's last position's logits (1, V):
+    the top-2n continuations of beam 0 (HF: only beam 0 is live at t = 0).
     Returns (scores (2n,), tokens (2n,))."""
-    logp = torch.log_softmax(_lm_logits(dec, params, cfg, h_last, policy)[0], dim=-1)
+    logp = torch.log_softmax(logits[0], dim=-1)
     return _top_k(logp, 2 * n)
 
 
@@ -413,7 +422,7 @@ def _beam_step(dec, params: dict, cfg, cache: dict, group_slots, parent_perm, to
     """One beam-group round: _beam_decode of the n beam rows (the other
     slots inactive) fed the group's tokens, then the top-2n candidates of
     the beam-extended log-probs. Returns (scores, parents, tokens), (2n,)
-    each. `share` sends the round's tokens to a tensor group's followers."""
+    each. `share` sends the round's tokens to a serving group's followers."""
     tokens_full = last_tokens.clone()
     tokens_full[group_slots] = toks
     logits = _beam_decode(dec, params, cfg, cache, group_slots, parent_perm, share(tokens_full),
@@ -444,17 +453,20 @@ class ServeEngine:
         spec_accept_margin: float = 0.0,  # reject drafts whose verify margin is below
         device="cuda",
         kernels: bool = True,
-        tensor=None,              # parallel/tensor.py::TensorGroup of a tensor-parallel rank
+        group=None,               # parallel/tensor.py::ServingGroup of a sharded serving rank
     ):
         """`params` is the decoder's tree on `device`. Runs on the card;
         `device="cpu"` asks for the CPU. `kernels=False` runs the kernels'
         plain versions.
 
-        With a `tensor` group of more than one rank, `params` and `llm_cfg`
-        are this rank's (models/starvector.py::tensor_parallel). The leader
-        (tensor rank 0) runs the threads and the host state; before each
-        device call it broadcasts a command over the group, and each
-        follower, inside `follow()`, replays it on its own shards: the
+        With a serving `group` of more than one rank, `params` and
+        `llm_cfg` are this rank's (models/starvector.py::serving_params):
+        its tensor slices, and where the group has a layout its fsdp and
+        stage shards of them, gathered at use inside every device call
+        (parallel/zero.py::Layout.serve). The leader (group rank 0) runs
+        the threads and the host state; before each device call it
+        broadcasts a command over the group, and each follower, inside
+        `follow()`, replays it on its own shards: the
         admission prefill (with the prefix embeddings), the insert into the
         ragged cache, a plain tick, a speculative tick, a beam round, a
         rebuild, one speculative stream (generate_speculative), the stop. Each tick's input tokens and sampled tokens go to
@@ -468,7 +480,7 @@ class ServeEngine:
         if self.device.type == "cuda" and self.device.index is None:
             # the threads set their device by index
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.tp = tensor if tensor is not None and tensor.size > 1 else None
+        self.group = group if group is not None and group.size > 1 else None
         self._tp_lock = threading.RLock()  # a command and its device calls, one at a time
         self._seq = 0                      # commands sent (leader) or replayed (follower)
         self._prefilled: dict[int, dict] = {}  # a follower's prefill caches by command
@@ -586,7 +598,7 @@ class ServeEngine:
                 t.join(timeout=5)
         self._decode_thread = None
         self._admit_thread = None
-        if self.tp is not None and self.broken is None and not self._stopped_group:
+        if self.group is not None and self.broken is None and not self._stopped_group:
             with self._device_call("stop"):
                 self._stopped_group = True
         # fail anything still queued: callers blocked on out_queue see an event
@@ -719,63 +731,70 @@ class ServeEngine:
             with self._waiters_lock:
                 self._waiters -= 1
 
-    # -- the tensor group -----------------------------------------------------
+    # -- the serving group ----------------------------------------------------
     @contextlib.contextmanager
     def _device_call(self, op: str, **args):
-        """Around one device call of the engine: a tensor group's leader
+        """Around one device call of the engine: a serving group's leader
         first sends `op` and its host arguments to the followers (one
         command at a time, in the order the leader's threads take them).
         Yields the command's number (0 without a group). An exception
         inside, once the command is out, leaves the followers out of step:
         the engine is `broken` and takes no further device call."""
-        if self.tp is None:
+        if self.group is None:
             yield 0
             return
         with self._tp_lock:
             if self.broken is not None:
-                raise RuntimeError(f"the tensor group is out of step since "
+                raise RuntimeError(f"the serving group is out of step since "
                                    f"{type(self.broken).__name__}: {self.broken}")
             self._seq += 1
-            self.tp.broadcast_object({"seq": self._seq, "op": op, **args})
+            self.group.broadcast_object({"seq": self._seq, "op": op, **args})
             try:
-                yield self._seq
+                with self._serving():
+                    yield self._seq
             except BaseException as e:
                 self.broken = e
                 raise
 
+    def _serving(self):
+        """The serving group's layout, active on this thread (its shards
+        gathered at use), where it has one; else inference mode alone."""
+        layout = None if self.group is None else self.group.layout
+        return torch.inference_mode() if layout is None else layout.serve()
+
     def _share(self, t: torch.Tensor) -> torch.Tensor:
-        """t, sent from the leader to a tensor group's followers (on the
+        """t, sent from the leader to a serving group's followers (on the
         device: no host sync); t itself without a group."""
-        return t if self.tp is None else self.tp.broadcast(t)
+        return t if self.group is None else self.group.broadcast(t)
 
     def _receive(self, shape, dtype) -> torch.Tensor:
         """A follower's copy of the leader's next _share."""
-        return self.tp.broadcast(torch.empty(shape, dtype=dtype, device=self.device))
+        return self.group.broadcast(torch.empty(shape, dtype=dtype, device=self.device))
 
     def follow(self) -> None:
-        """A tensor group's follower: replay the leader's commands on this
+        """A serving group's follower: replay the leader's commands on this
         rank's shards until its stop. Raises on a command out of order or
         unknown, on a device call that fails, and where this rank's own
         greedy tokens part from the leader's."""
-        if self.tp is None or self.tp.is_leader:
-            raise RuntimeError("follow() runs on a tensor group's followers only")
+        if self.group is None or self.group.is_leader:
+            raise RuntimeError("follow() runs on a serving group's followers only")
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         replay = {"prefill": self._follow_prefill, "insert": self._follow_insert,
                   "step": self._follow_step, "verify": self._follow_verify,
                   "beam": self._follow_beam, "speculative": self._follow_speculative,
                   "rebuild": lambda cmd: self._rebuild_state_locked()}
-        with torch.inference_mode():
+        with self._serving():
             while True:
-                cmd = self.tp.broadcast_object()
+                cmd = self.group.broadcast_object()
                 self._seq += 1
                 if not isinstance(cmd, dict) or cmd.get("seq") != self._seq:
-                    raise RuntimeError(f"tensor rank {self.tp.rank}: command {cmd!r} out of "
+                    raise RuntimeError(f"serving rank {self.group.rank}: command {cmd!r} out of "
                                        f"step (expected number {self._seq})")
                 if cmd["op"] == "stop":
                     return
                 if cmd["op"] not in replay:
-                    raise RuntimeError(f"tensor rank {self.tp.rank}: unknown command {cmd!r}")
+                    raise RuntimeError(f"serving rank {self.group.rank}: unknown command {cmd!r}")
                 replay[cmd["op"]](cmd)
 
     def _follow_prefill(self, cmd: dict) -> None:
@@ -811,7 +830,7 @@ class ServeEngine:
                 agree &= (logits.argmax(-1) == tokens) | (active == 0)
         self.checked_steps += cmd["n"] if cmd["check"] else 0
         if cmd["check"] and not bool(agree.all()):
-            raise RuntimeError(f"tensor rank {self.tp.rank}: its greedy tokens part from the "
+            raise RuntimeError(f"serving rank {self.group.rank}: its greedy tokens part from the "
                                f"leader's in rows {torch.nonzero(~agree).flatten().tolist()} "
                                f"(command {cmd['seq']})")
 
@@ -911,21 +930,23 @@ class ServeEngine:
 
     def _prefill(self, embeds_list, Pb: int):
         """Right-pad k prompts (1, P, E) to the bucket Pb and prefill them in
-        chunks into a B=k linear cache. Returns (the cache, h_last (k, E),
-        lengths, the prefill's command number: a tensor group's insert
-        names it)."""
+        chunks into a B=k linear cache. Returns (the cache, each row's last
+        position's logits (k, V), lengths, the prefill's command number: a
+        serving group's insert names it)."""
         lens = [int(e.shape[1]) for e in embeds_list]
         rows = [F.pad(torch.as_tensor(e).to(self.device, self.policy.compute_dtype),
                       (0, 0, 0, max(Pb - P, 0)))[:, :Pb] for e, P in zip(embeds_list, lens)]
         embeds = torch.cat(rows, dim=0)                                        # (k, Pb, E)
         with self._device_call("prefill", lens=lens, Pb=Pb) as seq:
-            small, h_last = self._prefill_embeds(self._share(embeds), lens, Pb)
+            small, logits = self._prefill_embeds(self._share(embeds), lens, Pb)
         self._stats["prefill_chunks"] += max(Pb // self.prefill_chunk, 1)
-        return small, h_last, lens, seq
+        return small, logits, lens, seq
 
     def _prefill_embeds(self, embeds, lens: list[int], Pb: int):
         """The chunked prefill of right-padded prompts (k, Pb, E) of lengths
-        `lens`. Returns (the B=k linear cache, h_last (k, E))."""
+        `lens`. Returns (the B=k linear cache, each row's last position's
+        logits (k, V) fp32: the head runs inside the prefill's device call,
+        where a serving group gathers its table)."""
         cfg, policy = self.llm_cfg, self.policy
         k = embeds.shape[0]
         mask = (torch.arange(Pb, device=self.device)[None, :]
@@ -939,7 +960,7 @@ class ServeEngine:
             h_last = _prefill_chunk(self.dec, self.params, cfg, embeds[:, ci * C:(ci + 1) * C],
                                     mask[:, ci * C:(ci + 1) * C], small, h_last, last_idx, ci * C,
                                     policy=policy, kernels=self.kernels)
-        return small, h_last
+        return small, _lm_logits(self.dec, self.params, cfg, h_last, policy)
 
     def _admit_beam(self, req: Request):
         """Admit one beam request into num_beams slots: the prompt's chunked
@@ -957,10 +978,9 @@ class ServeEngine:
             if len(idxs) < n:
                 raise RuntimeError("engine stopped")
             P = int(req.prefix_embeds.shape[1])
-            small, h_last, _, seq = self._prefill([req.prefix_embeds],
+            small, logits, _, seq = self._prefill([req.prefix_embeds],
                                                   min(_bucket_len(P), self.max_len))
-            scores, toks = _beam_first(self.dec, self.params, self.llm_cfg, h_last,
-                                       policy=self.policy, n=n)
+            scores, toks = _beam_first(logits, n=n)
             group = _BeamGroup(req=req, slot_idxs=list(idxs), histories=[[]], scores=[0.0],
                                parent_perm=np.zeros((n,), np.int64),
                                next_tokens=np.zeros((n,), np.int64))
@@ -994,7 +1014,7 @@ class ServeEngine:
         """Bucketed batch prefill (no lock held), first tokens, then one
         locked insert of the k rows and their sampling state."""
         k = len(reqs)
-        small, h_last, lens, seq = self._prefill([r.prefix_embeds for r in reqs], Pb)
+        small, logits, lens, seq = self._prefill([r.prefix_embeds for r in reqs], Pb)
         # prompt ids bucketed like the embeds (-1 padding); empty when no
         # request gives them (the repetition penalty then sees output only)
         pid_rows = np.full((k, Pb), -1, np.int64)
@@ -1009,13 +1029,13 @@ class ServeEngine:
             return torch.tensor(values, dtype=dtype, device=self.device)
 
         firsts, presence_rows = _sample_first(
-            self.dec, self.params, self.llm_cfg, h_last, self._admit_gen,
+            logits, self.llm_cfg.vocab_size, self._admit_gen,
             knob([r.temperature if r.do_sample else 0.0 for r in reqs], torch.float32),
             knob([r.top_p for r in reqs], torch.float32),
             knob([r.top_k for r in reqs], torch.int32),
             knob([r.min_p for r in reqs], torch.float32),
             knob([r.repetition_penalty for r in reqs], torch.float32),
-            pid_rows, bias_ids, bias_vals, policy=self.policy, max_top_k=self.max_top_k)
+            pid_rows, bias_ids, bias_vals, max_top_k=self.max_top_k)
         first_ids = firsts.tolist()
         slots = torch.tensor(slot_idxs, device=self.device)
         with self._locked():
@@ -1050,10 +1070,10 @@ class ServeEngine:
     def _rebuild_state_locked(self):
         """Allocate the device state anew (the cache, the sampling tables,
         the draft context) after a failed step may have left it half
-        written. Caller holds _lock (or is the constructor). A tensor
+        written. Caller holds _lock (or is the constructor). A serving
         group's followers rebuild theirs too, unless the group is out of
         step (`broken`)."""
-        if self.tp is not None and self.tp.is_leader and self._seq and self.broken is None:
+        if self.group is not None and self.group.is_leader and self._seq and self.broken is None:
             with self._device_call("rebuild"):
                 pass
         B, V = self.max_batch, self.llm_cfg.vocab_size
@@ -1338,7 +1358,7 @@ class ServeEngine:
         (1, n) aligned with it (-1 where a position has no id), `kw` that
         function's host arguments (max_new_tokens, draft_len,
         stop_sequences, eos_token_id, pad_token_id). One device call under
-        the engine lock, so that a tensor group's collectives keep one
+        the engine lock, so that a serving group's collectives keep one
         order against admissions and ticks; the followers replay it on
         their slices (_follow_speculative) and check each round's tokens.
         Returns (tokens (1, max_new_tokens), lengths (1,), n_forwards)."""
@@ -1352,7 +1372,7 @@ class ServeEngine:
         mask = torch.ones(prefix.shape[:2], dtype=torch.int32, device=self.device)
         return generate_greedy_speculative(self.params, self.llm_cfg, prefix, mask, prompt_ids,
                                            policy=self.policy, kernels=self.kernels,
-                                           tensor=self.tp, **kw)
+                                           group=self.group, **kw)
 
     # -- synchronous convenience ---------------------------------------------
     def generate_sync(self, req: Request, timeout: float = 600) -> list[int]:

@@ -17,21 +17,26 @@ Run on the card:
         --controller http://localhost:21001
 (`--device cpu` runs it on the CPU.)
 
-A serve config whose mesh sets `tensor` or `data` above 1 (the 8B's
-im2svg-tp4dp2.yaml and im2svg-tp8-int8kv.yaml, or a leaf of the same form
-for the 1B, whose 16 query heads split over tensor 2, 4 or 8) runs under
-torchrun, one process a card:
+A serve config whose mesh sets any axis above 1 (the 8B's
+im2svg-tp4dp2.yaml and im2svg-tp8-int8kv.yaml; a leaf of the same form for
+the 1B, whose 16 query heads split over tensor 2, 4 or 8; or a leaf whose
+mesh sets fsdp, sequence or stage, alone or beside data and tensor) runs
+under torchrun, one process a card:
     python -m torch.distributed.run --nproc-per-node 8 \\
         -m starvector_tpu_torch.serve.worker --model-path /ckpt --port 21002 \\
         --controller http://localhost:21001 \\
         --serve-config configs/generation/serve/starvector-8b/im2svg-tp4dp2.yaml
-Ranks are row-major over (data, tensor). Each rank reads its own slices of
-the decoder (parallel/tensor.py); tensor rank 0 of data group d computes
-the prefixes with the whole tower, runs the engine with max_batch / data
-slots and serves HTTP on --port + d, registered with the controller, whose
-shortest-queue dispatch spreads requests over the data groups; the other
-ranks of its group replay its device calls (ServeEngine.follow) and serve
-no HTTP. With --quantize each rank quantizes its own slices of the decoder
+Ranks are row-major over (replica, data, fsdp, sequence, stage, tensor).
+The ranks of one data group (parallel/tensor.py::ServingGroup) serve one
+engine: each reads its own shards of the decoder (its tensor slices, and
+its stage block and fsdp shards of them as the JAX rules place them,
+gathered at use in every cached forward); the group's first rank computes
+the prefixes with the whole tower (and a whole token table), runs the
+engine with max_batch / data slots and serves HTTP on --port + d,
+registered with the controller, whose shortest-queue dispatch spreads
+requests over the data groups; the other ranks of its group replay its
+device calls (ServeEngine.follow) and serve no HTTP. With --quantize each
+rank quantizes its own shards of the decoder
 (api.StarVectorForCausalLM.from_pretrained), and `use_speculative`
 requests run as one command of the group's engine.
 """
@@ -79,11 +84,12 @@ def render_chat_template(messages, template_path: str | None = None) -> str:
 
 def serve_kwargs_from_leaf(leaf) -> dict:
     """Map a serve config leaf's `serve:` block (configs/generation/serve/)
-    onto engine and worker kwargs: the mesh axes ({axis: size}; `data` and
-    `tensor` above 1 run under torchrun, main), max_batch / max_len,
-    kv_cache_dtype ("int8" -> torch.int8, "bfloat16" or absent -> None:
-    the compute dtype). A mesh with another axis above 1 (fsdp, sequence,
-    stage) raises NotImplementedError (ROADMAP queue 1, item 12)."""
+    onto engine and worker kwargs: the mesh axes ({axis: size}: any axis
+    above 1 runs under torchrun, main; each data group of fsdp x sequence x
+    stage x tensor ranks serves one engine, parallel/tensor.py::
+    ServingGroup), max_batch / max_len, kv_cache_dtype ("int8" ->
+    torch.int8, "bfloat16" or absent -> None: the compute dtype). A mesh
+    axis the mesh does not have raises ValueError."""
     from starvector_tpu_torch.parallel.tensor import serving_mesh_config
 
     s = leaf.get("serve") or {}
@@ -116,15 +122,15 @@ class ModelWorker:
         kv_cache_dtype=None,
         spec_drafts: int = 0,       # engine prompt-lookup speculation
         steps_per_tick: int = 4,
-        tensor=None,                # the leader's TensorGroup on a tensor mesh
+        group=None,                 # the leader's ServingGroup on a serving mesh
     ):
         self.model = model
         self.worker_addr = worker_addr
         self.controller_addr = controller_addr
         self.model_names = model_names or ["starvector"]
         self.limit = threading.Semaphore(limit_model_concurrency)
-        self.tensor = tensor
-        self.engine = make_engine(model, tensor=tensor, max_batch=max_batch, max_len=max_len,
+        self.group = group
+        self.engine = make_engine(model, group=group, max_batch=max_batch, max_len=max_len,
                                   kv_cache_dtype=kv_cache_dtype, spec_drafts=spec_drafts,
                                   steps_per_tick=steps_per_tick)
         self.engine.start()
@@ -141,6 +147,7 @@ class ModelWorker:
 
         tok = self.model.tokenizer
         device = self.model.device
+        params = prefix_params(self.model.params)
         if payload.get("task", "im2svg") == "im2svg":
             from PIL import Image
 
@@ -149,7 +156,7 @@ class ModelWorker:
             prompt = payload.get("prompt") or tok.prompt
             ids = torch.tensor(tok([prompt], add_special_tokens=False)["input_ids"],
                                device=device)
-            prefix, _ = im2svg_prefix(self.model.params, self.model.cfg, images, ids,
+            prefix, _ = im2svg_prefix(params, self.model.cfg, images, ids,
                                       policy=self.model.policy)
             visual = prefix.shape[1] - ids.shape[1]
             ids_aligned = torch.cat([torch.full((1, visual), -1, dtype=ids.dtype, device=device),
@@ -158,7 +165,7 @@ class ModelWorker:
         text = payload.get("prompt", "") + tok.svg_start_token
         ids = torch.tensor(tok([text], add_special_tokens=False)["input_ids"], device=device)
         dec = self.model.cfg.decoder_module
-        prefix = self.model.policy.cast(dec.embed_tokens(self.model.params["svg_transformer"], ids))
+        prefix = self.model.policy.cast(dec.embed_tokens(params["svg_transformer"], ids))
         return prefix, "", ids
 
     def make_request(self, payload: dict) -> tuple[Request, str]:
@@ -196,7 +203,7 @@ class ModelWorker:
     def generate_speculative(self, payload: dict) -> str:
         """Prompt-lookup speculative decoding (greedy, one stream: the
         port's generate_greedy_speculative); the same tokens as greedy.
-        Routed by `use_speculative` in the payload. On a tensor group it
+        Routed by `use_speculative` in the payload. On a serving group it
         runs through the engine (ServeEngine.generate_speculative), whose
         followers replay it on their slices."""
         from starvector_tpu_torch.generation.speculative import generate_greedy_speculative
@@ -207,7 +214,7 @@ class ModelWorker:
                   draft_len=int(payload.get("draft_len", 8)),
                   stop_sequences=(tuple(tok.stop_sequence_ids("</svg>")),),
                   eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
-        if self.tensor is not None and self.tensor.size > 1:
+        if self.group is not None and self.group.size > 1:
             tokens, lengths, _ = self.engine.generate_speculative(prefix, ids_aligned, **kw)
         else:
             mask = torch.ones(prefix.shape[:2], dtype=torch.int32, device=prefix.device)
@@ -266,49 +273,60 @@ class ModelWorker:
         self.engine.stop()
 
 
-def make_engine(model, *, tensor=None, max_batch: int = 8, max_len: int = 8192,
+def prefix_params(params: dict) -> dict:
+    """The weights a request's prefix is made of: the tower, the adapter
+    and the decoder's token table, whole. A serving group's leader holds
+    them whole (models/starvector.py::serving_params: the table as
+    `prompt_decoder` where the decoder's is split), so that no request
+    thread gathers."""
+    if "prompt_decoder" not in params:
+        return params
+    return {**params, "svg_transformer": params["prompt_decoder"]}
+
+
+def make_engine(model, *, group=None, max_batch: int = 8, max_len: int = 8192,
                 kv_cache_dtype=None, spec_drafts: int = 0, steps_per_tick: int = 4) -> ServeEngine:
-    """The ServeEngine of `model`'s decoder, on its device; with a tensor
-    group (model being that rank's, starvector.tensor_parallel or
-    from_pretrained(tensor=)), the rank's part of the group's engine: the
+    """The ServeEngine of `model`'s decoder, on its device; with a serving
+    group (model being that rank's, starvector.serving_params or
+    from_pretrained(group=)), the rank's part of the group's engine: the
     leader's, which the worker starts, or a follower's, which then runs
     `follow()`."""
     return ServeEngine(model.params["svg_transformer"], model.cfg.llm, model.cfg.decoder,
                        max_batch=max_batch, max_len=max_len, policy=model.policy,
                        kv_cache_dtype=kv_cache_dtype, spec_drafts=spec_drafts,
                        steps_per_tick=steps_per_tick, device=model.device, kernels=model.kernels,
-                       tensor=tensor)
+                       group=group)
 
 
-def serve_tensor_rank(model, tensor, *, data: int, port: int, host: str = "0.0.0.0",
-                      worker_address: str | None = None, controller: str | None = None,
-                      max_batch: int = 8, warmup: bool = False,
-                      limit_model_concurrency: int = 5, **engine_kw) -> None:
-    """One rank of a serving mesh of `data` groups of `tensor.size` ranks:
+def serve_rank(model, group, *, data: int, port: int, host: str = "0.0.0.0",
+               worker_address: str | None = None, controller: str | None = None,
+               max_batch: int = 8, warmup: bool = False, limit_model_concurrency: int = 5,
+               **engine_kw) -> None:
+    """One rank of a serving mesh of `data` groups of `group.size` ranks:
     the leader of data group d serves a ModelWorker of max_batch / data
     slots on port + d (registered with the controller) until the process
-    is stopped or its tensor group falls out of step (then it raises, and
+    is stopped or its serving group falls out of step (then it raises, and
     torchrun stops the group); a follower replays its leader's device
     calls until the leader stops."""
     if max_batch % data:
         raise ValueError(f"max_batch {max_batch} does not split over {data} data groups")
     slots = max_batch // data
-    if not tensor.is_leader:
-        make_engine(model, tensor=tensor, max_batch=slots, **engine_kw).follow()
+    if not group.is_leader:
+        make_engine(model, group=group, max_batch=slots, **engine_kw).follow()
         return
-    d = tensor.data_rank
+    d = group.data_rank
     if worker_address is not None and data > 1:
         raise ValueError("--worker-address names one worker; a mesh with data > 1 serves one "
                          "on each of --port + d")
     worker = ModelWorker(model, worker_addr=worker_address or f"http://localhost:{port + d}",
-                         controller_addr=controller, max_batch=slots, tensor=tensor,
+                         controller_addr=controller, max_batch=slots, group=group,
                          limit_model_concurrency=limit_model_concurrency, **engine_kw)
     run_worker(worker, host, port + d, warmup)
 
 
 def run_worker(worker: ModelWorker, host: str, port: int, warmup: bool = False) -> None:
     """Register with the controller, heartbeat and serve HTTP until the
-    process is stopped; a tensor group's leader also stops (raising) when
+    process is stopped; a serving group's leader also stops (raising) when
     its group falls out of step."""
     if warmup:
         worker.engine.warmup([worker.model.cfg.query_length + 8, 512, 1024, 2048])
@@ -324,7 +342,7 @@ def run_worker(worker: ModelWorker, host: str, port: int, warmup: bool = False) 
         while thread.is_alive() and worker.engine.broken is None:
             thread.join(timeout=1.0)
         if worker.engine.broken is not None:
-            raise RuntimeError("the tensor group fell out of step") from worker.engine.broken
+            raise RuntimeError("the serving group fell out of step") from worker.engine.broken
     finally:
         server.shutdown()
         server.server_close()
@@ -476,18 +494,18 @@ def main(argv=None):
         from starvector_tpu_torch.parallel.tensor import serving_group
 
         device = initialize_distributed(device)
-        tensor = serving_group(axes)
+        group = serving_group(axes)
         model = StarVectorForCausalLM.from_pretrained(
             args.model_path, device=device, quantize=args.quantize,
-            tensor=tensor if tensor.size > 1 else None)
+            group=group if group.size > 1 else None)
+        data = axes.get("replica", 1) * axes.get("data", 1)
         print(f"serve-config {kw.get('hbm_proof_case') or ''}: mesh {axes}, data group "
-              f"{tensor.data_rank} tensor rank {tensor.rank} of {tensor.size}, B={max_batch} "
-              f"over {axes.get('data', 1)} groups, max_len={max_len}, "
-              f"kv={'int8' if kv_dtype is not None else 'bf16'}", flush=True)
-        serve_tensor_rank(model, tensor, data=axes.get("data", 1), port=args.port,
-                          host=args.host, worker_address=args.worker_address,
-                          controller=args.controller, max_batch=max_batch, warmup=args.warmup,
-                          **worker_kw)
+              f"{group.data_rank} rank {group.rank} of {group.size} (tensor rank "
+              f"{group.tensor.rank} of {group.tensor.size}), B={max_batch} over {data} groups, "
+              f"max_len={max_len}, kv={'int8' if kv_dtype is not None else 'bf16'}", flush=True)
+        serve_rank(model, group, data=data, port=args.port, host=args.host,
+                   worker_address=args.worker_address, controller=args.controller,
+                   max_batch=max_batch, warmup=args.warmup, **worker_kw)
         return
     model = StarVectorForCausalLM.from_pretrained(args.model_path, device=device,
                                                   quantize=args.quantize)

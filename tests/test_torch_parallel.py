@@ -780,16 +780,20 @@ def test_distributed_init_never_falls_back(monkeypatch):
 
 
 def test_sharded_serving_still_raises_citing_item_12():
-    """A serve leaf on a (tensor 4, data 2) mesh maps onto the worker's
-    kwargs (parallel/tensor.py serves it); a leaf that asks for stage (or
-    fsdp) above 1 still raises citing item 12."""
+    """Sharded serving is accepted now (item 12's serving rest is done): a
+    serve leaf on a (tensor 4, data 2) mesh, and leaves that ask for stage
+    or fsdp above 1 beside tensor, map onto the worker's kwargs, and
+    serving_mesh_config gives their meshes (every unnamed axis 1; ranks
+    row-major over (replica, data, fsdp, sequence, stage, tensor))."""
     from starvector_tpu_torch.config import ConfigNode
+    from starvector_tpu_torch.parallel.tensor import serving_mesh_config
     from starvector_tpu_torch.serve.worker import serve_kwargs_from_leaf
 
     leaf = ConfigNode({"serve": {"mesh": {"tensor": 4, "data": 2}}})
     assert serve_kwargs_from_leaf(leaf) == {
         "mesh_axes": {"tensor": 4, "data": 2}, "max_batch": 8, "max_len": 8192,
         "kv_cache_dtype": None, "hbm_proof_case": None}
-    for axis in ("stage", "fsdp"):
-        with pytest.raises(NotImplementedError, match=rf"\{{'{axis}': 2\}}.*item 12"):
-            serve_kwargs_from_leaf(ConfigNode({"serve": {"mesh": {"tensor": 2, axis: 2}}}))
+    for axis, grid in (("stage", (1, 1, 1, 1, 2, 2)), ("fsdp", (1, 1, 2, 1, 1, 2))):
+        kw = serve_kwargs_from_leaf(ConfigNode({"serve": {"mesh": {"tensor": 2, axis: 2}}}))
+        assert kw["mesh_axes"] == {"tensor": 2, axis: 2}
+        assert serving_mesh_config(kw["mesh_axes"]).resolve(4) == grid

@@ -142,7 +142,7 @@ def _tensor4_job(tree: dict, emb: np.ndarray, toks: np.ndarray, prompts: list) -
     cfg = tsc.tiny_config(**LLM)
     local_cfg = tsc.tensor_config(cfg, group.size, group.rank)
     params = tensor.shard_tree(whole, tsc.partition_rules(),
-                               tsc.tensor_units(cfg, group.size, group.rank), group)
+                               tsc.tensor_units(cfg, group.size, group.rank), group.tensor)
     out = {"tp": scenario(params, local_cfg, emb, toks),
            "heads": (local_cfg.num_attention_heads, local_cfg.kv_heads)}
     reduce = tensor.TensorGroup.all_reduce
@@ -161,7 +161,7 @@ def _tensor4_job(tree: dict, emb: np.ndarray, toks: np.ndarray, prompts: list) -
     for kv in ("bfloat16", "int8"):
         engine = ServeEngine(params, local_cfg, "starcoder2", max_batch=3, max_len=64,
                              policy=_f32(), kv_cache_dtype=getattr(torch, kv), device="cpu",
-                             tensor=group)
+                             group=group)
         if not group.is_leader:
             engine.follow()
             checked[kv] = engine.checked_steps
@@ -171,7 +171,7 @@ def _tensor4_job(tree: dict, emb: np.ndarray, toks: np.ndarray, prompts: list) -
                     do_sample=False) for p in prompts])
     for mode, kw in (("spec", dict(spec_drafts=3)), ("beam", {})):
         engine = ServeEngine(params, local_cfg, "starcoder2", max_batch=3, max_len=64,
-                             policy=_f32(), device="cpu", tensor=group, **kw)
+                             policy=_f32(), device="cpu", group=group, **kw)
         if not group.is_leader:
             engine.follow()
             continue
@@ -457,7 +457,7 @@ def test_rank_slices_are_the_jax_device_shards(tp):
     whole = dict(_paths(tree))
     cfg = tsc.tiny_config(**EVEN)
     for r in range(tp):
-        group = tensor.TensorGroup(None, tp, r, 0)
+        group = tensor.TensorGroup(None, tp, r)
         local = dict(_paths(tensor.shard_tree(convert.from_jax_params(tree), tsc.partition_rules(),
                                               tsc.tensor_units(cfg, tp, r), group)))
         device = mesh.devices.reshape(-1)[r]
@@ -507,18 +507,18 @@ def test_per_rank_checkpoint_load_is_the_shard_of_the_whole_load(tp, tmp_path):
     ckpt, _, _ = _export(tmp_path, LLM)
     params, cfg, _ = builder.load_hf_starvector_checkpoint(ckpt, torch.float32, "cpu")
     for r in range(tp):
-        group = tensor.TensorGroup(None, tp, r, 0)
+        group = tensor.ServingGroup.of_tensor(tensor.TensorGroup(None, tp, r))
         got, got_cfg, _ = builder.load_hf_starvector_checkpoint(ckpt, torch.float32, "cpu",
-                                                                tensor=group)
-        ref, ref_cfg = tsv.tensor_parallel(params, cfg, group)
+                                                                group=group)
+        ref, ref_cfg = tsv.serving_params(params, cfg, group)
         assert got_cfg == ref_cfg and type(got_cfg.llm) is type(ref_cfg.llm)
         got, ref = dict(_paths(got)), dict(_paths(ref))
         assert got.keys() == ref.keys()
         assert any(k.startswith("image_encoder") for k in got) == (r == 0)
         for path in ref:
             assert torch.equal(got[path], ref[path]), (r, path)
-            assert (tensor.row_group(got[path]) is group) == \
-                (tensor.row_group(ref[path]) is group), path
+            assert (tensor.row_group(got[path]) is group.tensor) == \
+                (tensor.row_group(ref[path]) is group.tensor), path
 
 
 # ---------------------------------------------------------------------------
@@ -645,19 +645,28 @@ def test_data2_tensor2_workers_serve_the_one_process_text(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_refusals_cite_item_12(tmp_path):
-    """A serve mesh with stage above 1 raises NotImplementedError citing
-    item 12; a training mesh of (stage 2, tensor 2) is accepted: the
-    training mesh's check passes it, and 4 gloo ranks lay it out (stage
-    coordinate, tensor rank, one batch coordinate; row-major over (stage,
-    tensor)). (The 1B, an int8-weight decoder and use_speculative on a
-    tensor mesh are served: tests/test_torch_tensor_parallel_rest.py;
-    tensor-parallel training: tests/test_torch_tensor_train.py; pipeline
-    parallelism: tests/test_torch_pipeline_parallel.py.)"""
+    """A serve mesh with stage above 1 is accepted now (item 12's serving
+    rest is done): serving_mesh_config gives its axes, every unnamed axis 1,
+    stage beside sequence too (a training mesh's check refuses that pair),
+    and a name that is no mesh axis raises ValueError. A training mesh of
+    (stage 2, tensor 2) is accepted: the training mesh's check passes it,
+    and 4 gloo ranks lay it out (stage coordinate, tensor rank, one batch
+    coordinate; row-major over (stage, tensor)). (Sharded serving runs in
+    tests/test_torch_sharded_serving.py; the 1B, an int8-weight decoder and
+    use_speculative on a tensor mesh: tests/test_torch_tensor_parallel_
+    rest.py; tensor-parallel training: tests/test_torch_tensor_train.py;
+    pipeline parallelism: tests/test_torch_pipeline_parallel.py.)"""
     from starvector_tpu_torch.parallel import tensor
     from starvector_tpu_torch.parallel.mesh import check_training_mesh
 
-    with pytest.raises(NotImplementedError, match=r"\{'stage': 2\}.*item 12"):
-        tensor.serving_mesh_config({"tensor": 2, "stage": 2})
+    assert tensor.serving_mesh_config({"tensor": 2, "stage": 2}).resolve(4) == \
+        (1, 1, 1, 1, 2, 2)
+    assert tensor.serving_mesh_config({"stage": 2, "sequence": 2, "tensor": 2}).resolve(8) == \
+        (1, 1, 1, 2, 2, 2)
+    with pytest.raises(ValueError, match="nest"):
+        check_training_mesh({"stage": 2, "sequence": 2})
+    with pytest.raises(ValueError, match="pipeline"):
+        tensor.serving_mesh_config({"pipeline": 2})
     check_training_mesh({"stage": 2, "tensor": 2})
     got = launch(HERE, "stage_layout", 4, {}, tmp_path)
     assert got["ranks"] == [(0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)]

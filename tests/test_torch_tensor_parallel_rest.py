@@ -124,7 +124,7 @@ def _engine_ids(name: str, params: dict, cfg, prompts: list, group=None, kv=None
     from starvector_tpu_torch.serve.engine import Request, ServeEngine
 
     engine = ServeEngine(params, cfg, name, max_batch=3, max_len=96, policy=_f32(),
-                         kv_cache_dtype=kv, device="cpu", tensor=group)
+                         kv_cache_dtype=kv, device="cpu", group=group)
     if group is not None and not group.is_leader:
         engine.follow()
         return engine.checked_steps
@@ -181,7 +181,7 @@ def _quantized_loads(ckpts: dict, group) -> dict:
     quantized by quantize_slices, against shard_tree of the whole load's
     quantize_tree, leaf for leaf; the same slices quantized by rank alone
     (quantize_tree of the rank's tree); and, for the 1B, from_pretrained
-    (quantize=True, tensor=group) at the default threshold. Returns, by
+    (quantize=True, group=group) at the default threshold. Returns, by
     name, whether each equals the whole tree's slices."""
     from starvector_tpu_torch.api import StarVectorForCausalLM
     from starvector_tpu_torch.models import builder
@@ -199,11 +199,11 @@ def _quantized_loads(ckpts: dict, group) -> dict:
     def whole_slices(whole, cfg, min_elems):
         q = {**whole, "svg_transformer": quantize_tree(whole["svg_transformer"], min_elems,
                                                        consume=False)}
-        return tsv.tensor_parallel(q, cfg, group)[0]["svg_transformer"]
+        return tsv.serving_params(q, cfg, group)[0]["svg_transformer"]
 
     def rank_load(ckpt):
         return builder.load_hf_starvector_checkpoint(ckpt, torch.float32, "cpu",
-                                                     tensor=group)[0]["svg_transformer"]
+                                                     group=group)[0]["svg_transformer"]
 
     out = {}
     for name, ckpt in ckpts.items():
@@ -213,11 +213,11 @@ def _quantized_loads(ckpts: dict, group) -> dict:
         every = [cfg.decoder_module.tensor_units(cfg.llm, group.size, r)
                  for r in range(group.size)]
         out[f"{name}_per_rank_load"] = same(
-            tensor.quantize_slices(rank_load(ckpt), rules, every, group, MIN_ELEMS), ref)
+            tensor.quantize_slices(rank_load(ckpt), rules, every, group.tensor, MIN_ELEMS), ref)
         out[f"{name}_rows_alone"] = same(quantize_tree(rank_load(ckpt), MIN_ELEMS), ref,
                                          marks=False)
         model = StarVectorForCausalLM.from_pretrained(ckpt, torch.float32, "cpu", quantize=True,
-                                                      tensor=group)
+                                                      group=group)
         out[f"{name}_from_pretrained"] = same(model.params["svg_transformer"],
                                               whole_slices(whole, cfg, 1 << 16))
         out[f"{name}_from_pretrained_int8"] = sum(
@@ -312,7 +312,7 @@ def _tensor_runs(group, trees: dict, qtrees: dict, emb: dict, toks: dict, prompt
                                                if name == "gpt_bigcode" else [])
         for label, tree in variants:
             params = tensor.shard_tree(convert.from_jax_params(tree), dec.partition_rules(),
-                                       units, group)
+                                       units, group.tensor)
             out[f"{name}_{label}"] = scenario(name, params, rcfg, emb[name], toks[name])
             kvs = ("bfloat16", "int8") if label == "fp32" else ("bfloat16",)
             for kv in kvs:
@@ -341,7 +341,7 @@ def _tensor_job(port: int, png: str, **refs) -> dict:
     out = {tp: _tensor_runs(tensor.serving_group(axes), **refs)
            for tp, axes in ((4, {"tensor": 4}), (2, {"data": 2, "tensor": 2}))}
     group = tensor.serving_group({"data": 2, "tensor": 2})
-    out[2]["row_dense"] = _row_dense(group)
+    out[2]["row_dense"] = _row_dense(group.tensor)
     out[2]["workers"] = _speculative_workers(refs["ckpts"], port, png)
     return out
 
@@ -693,7 +693,7 @@ def test_quantized_slices_are_the_whole_quantize_trees(refs, name, tp):
     ours = quantize_tree(convert.from_jax_params(refs["trees"][name]), MIN_ELEMS)
     rows = ("o_proj", "c_proj")  # the row-parallel projections of both decoders
     for r in range(tp):
-        group = tensor.TensorGroup(None, tp, r, 0)
+        group = tensor.TensorGroup(None, tp, r)
         units = dec.tensor_units(cfg, tp, r)
         local = tensor.shard_tree(ours, dec.partition_rules(), units, group)
         for part in ("attn", "mlp"):
