@@ -13,7 +13,12 @@ tensor mesh: its two tensor-parallel serve configs, one with int8 weights,
 and the 1B's, one with int8 weights and one with a use_speculative
 request; and over fsdp, sequence and stage meshes: the decoder's weights
 as ZeRO shards and stage blocks gathered at use) and training, on one
-NVIDIA H100, end to end through the hand-written kernels.
+NVIDIA H100, end to end through the hand-written kernels. Generation's
+decode loop and the single-process serving engine's tick run as captured
+CUDA graphs (generation/graphs.py), as the JAX package runs them as one
+jitted device loop; each graphed path is held to the same static steps run
+uncaptured, and the eager and graphed decode step's and serving tick's
+walls and device times are printed side by side.
 
     python3 chip_smoke.py [--timings] [--profile DIR]
     python3 chip_smoke.py --times-only ROOT
@@ -58,6 +63,11 @@ Phases, one line each (any failure raises and exits non-zero):
      T=8192), kernel 14 at the six 8B projections' four shapes (M = 1, 4,
      580, 2320), fp32 and bf16, bf16 bit for bit on relaunch; flash_prefill
      and decode at phase 4f's prefix lengths, B=2, S=T in {51, 198, 1026};
+     kernel 2 with its key bounds read from the device (bounds, the grid
+     planned at a larger t_cap) at G = 16 and 9, over a bf16/fp32 and an
+     int8 cache, t_end well inside t_cap and a window's t_begin > 0, and
+     one launch captured in a CUDA graph, replayed as the bounds move, bit
+     for bit against fresh launches;
      a tensor rank's shapes (phase 6e): flash_prefill at H = 9, 5, 4 over
      Hkv = 1 with the window and at the 1B's H = 8, 2 (B=2 S=T=1024,
      right-padded), decode at G = 9 over Hkv = 1 (32 slots), over an int8
@@ -472,8 +482,10 @@ QMM_PATHS = ("gemv_tc", "gemv", "wgmma", "f32_tile")
 
 
 def reset_counts(tfa) -> None:
+    from starvector_tpu_torch.generation import graphs
     from starvector_tpu_torch.ops import quantization as tq
 
+    graphs.reset_tally()
     for name in KERNEL_COUNTS:
         getattr(tfa, name).launches = 0
     tfa.decode_attention.int8_launches = 0
@@ -482,15 +494,47 @@ def reset_counts(tfa) -> None:
 
 
 def read_counts(tfa) -> dict:
-    """Every wrapper's launches: the attention kernels, the int8-cache share
-    of decode_attention, and quant_matmul in all and by path."""
+    """Every wrapper's launches since reset_counts: the attention kernels,
+    the int8-cache share of decode_attention, and quant_matmul in all and by
+    path. A CUDA graph's capture runs the wrappers (their counts move) but
+    launches nothing, and its replays launch without them: each graph
+    records what its capture counted, so the launches are the counts less
+    the captures' plus the replays' (generation/graphs.py::true_launches).
+    The wrappers are read where tfa holds them (a rehearsal may swap them)."""
+    from starvector_tpu_torch.generation import graphs
     from starvector_tpu_torch.ops import quantization as tq
 
     counts = {name: getattr(tfa, name).launches for name in KERNEL_COUNTS}
     counts["decode_attention_int8"] = tfa.decode_attention.int8_launches
     counts["quant_matmul"] = tq.quant_matmul.launches
     counts.update({f"quant_matmul_{k}": v for k, v in tq.quant_matmul.path_launches.items()})
-    return counts
+    return graphs.true_launches(counts)
+
+
+def graph_tally() -> str:
+    """The CUDA graphs captured and replayed since reset_counts."""
+    from starvector_tpu_torch.generation import graphs
+
+    t = graphs.tally()
+    return f"{t['captures']} graphs captured, {t['replays']} replays"
+
+
+def decode_steps(tokens: torch.Tensor, lengths: torch.Tensor) -> int:
+    """The decode steps generate ran for rows of these lengths out of n =
+    tokens.shape[1] new tokens: n - 1 while a row runs to n, else every step
+    up to the end of the block (generation/engine.py::decode_blocks) in
+    which the last row stopped, since the host reads `done` once a block."""
+    from starvector_tpu_torch.generation.engine import DECODE_GRAPH_STEPS, decode_blocks
+
+    n, last = tokens.shape[-1], int(lengths.max())
+    if last >= n:
+        return n - 1
+    end = 0
+    for steps in decode_blocks(n, DECODE_GRAPH_STEPS):
+        end += steps
+        if end >= last:
+            return end
+    return n - 1
 
 
 def kernel_tag(mangled: str) -> str:
@@ -940,6 +984,73 @@ def check_g9_int8_decode(tfa, dc, dev) -> float:
     log("kernels", f"decode_attention int8 cache G=9 P rounding: two visible keys of T=325: "
                    f"kernel {want!r} == plain == JAX's bf16(bf16(c p) / (1 + p)), not the "
                    f"v_scale-after-rounding or fp32-P values {others}")
+    return worst
+
+
+BOUNDS_CHECKS = (  # name, G, Hkv, B, cache slots T, t_begin, t_end, t_cap
+    ("1B step mid-request (t_end 390 of t_cap 512)", 16, 1, 4, 1024, 0, 390, 512),
+    ("1B step at the bucket's start (t_end 513 of t_cap 1024)", 16, 1, 4, 1024, 0, 513, 1024),
+    ("8B step past the window (t_begin 605, t_end 4700 of t_cap 8192)", 9, 4, 4, 8192, 605,
+     4700, 8192),
+    ("8B step early (t_end 700 of t_cap 1024)", 9, 4, 4, 8192, 0, 700, 1024),
+)
+
+
+def check_decode_bounds(tfa, dc, dev) -> float:
+    """Kernel 2 with its key bounds read from the device (`bounds`, int32
+    [t_begin, t_end]; the grid planned at t_cap keys, splits past t_end
+    writing empty partials) against its plain version with the same bounds,
+    DECODE_TOL, the self token merged: BOUNDS_CHECKS at fp32 and bf16
+    queries over a cache of their type and over int8 codes; then, for each
+    case, one launch captured in a CUDA graph and replayed as the device
+    bounds move to the other cases' (t_begin, t_end) under its t_cap, bit
+    for bit against fresh launches. Returns the worst max |diff|."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    D = 128
+    worst = 0.0
+    for name, G, Hkv, B, T, t_begin, t_end, t_cap in BOUNDS_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for quant in (False, True):
+                qg = torch.randn((B, Hkv, G, D), generator=g, device=dev).to(dtype)
+                kn, vn = (torch.randn((B, Hkv, D), generator=g, device=dev).to(dtype)
+                          for _ in "kv")
+                k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev) for _ in "kv")
+                ks = vs = None
+                if quant:
+                    (k, ks), (v, vs) = dc.quantize_kv(k), dc.quantize_kv(v)
+                else:
+                    k, v = k.to(dtype), v.to(dtype)
+                mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+                mask[0, :T // 9] = 0
+                mask[:, t_end // 2] = 0
+                bounds = torch.tensor([t_begin, t_end], dtype=torch.int32, device=dev)
+                kw = dict(k_new=kn, v_new=vn, k_scale=ks, v_scale=vs, t_end=t_cap,
+                          bounds=bounds)
+                out = tfa.decode_attention(qg, k, v, mask, **kw)
+                ref = tfa.decode_attention(qg, k, v, mask, kernels=False, **kw)
+                torch.cuda.synchronize()
+                what = f"decode bounds G={G} {name} {str(dtype)[6:]}{' int8' if quant else ''}"
+                err = compare(what, out, ref, dtype, tols=DECODE_TOL)
+                worst = max(worst, err)
+                # the launch in a graph, its bounds moved on the device
+                tfa.reserve_decode_scratch(dev, B, Hkv, G, D, t_cap)
+                static = torch.empty_like(out)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    static.copy_(tfa.decode_attention(qg, k, v, mask, **kw))
+                moved = [(b, min(e, t_cap)) for _, _, _, _, _, b, e, _ in BOUNDS_CHECKS
+                         if b < min(e, t_cap)] + [(t_begin, t_end)]
+                for lo, hi in moved:
+                    bounds.copy_(torch.tensor([lo, hi], dtype=torch.int32))
+                    graph.replay()
+                    fresh = tfa.decode_attention(qg, k, v, mask, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(static, fresh):
+                        raise AssertionError(f"{what}: the replayed launch at bounds "
+                                             f"{(lo, hi)} differs from a fresh launch")
+                del graph
+                log("kernels", f"{what}: max |diff| {err:.3e}; replayed in a CUDA graph at "
+                               f"{len(moved)} device bounds == fresh launches")
     return worst
 
 
@@ -1447,6 +1558,78 @@ KERNEL_CLASSES = (  # (label, substrings of the CUDA kernel's name), first match
 )
 
 
+def profiled_device_ms(fn) -> float:
+    """Device milliseconds of fn() by torch.profiler: the sum of every CUDA
+    kernel's time (graph replays' kernels included), 0 where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def step_times(card: str, label: str, dec_params, llm_cfg, emb, mask, policy,
+               new: int = 128) -> dict:
+    """generate's decode step at B = emb.shape[0], `new` greedy tokens with
+    no stop, graphed (a CUDA graph of one step a key bucket, captured in
+    each call, replayed DECODE_GRAPH_STEPS times between two reads of
+    `done`) against the same static steps uncaptured (cuda_graphs=False):
+    the wall a step is the host clock around a whole generate less a
+    prefill-only one (max_new_tokens=1), over the new - 1 steps, in turns
+    (uncaptured, graphed, graphed, uncaptured); for the graphed calls also
+    with their captures' host seconds taken out (what a replay costs); the
+    device time a step is torch.profiler's kernel time over the same two
+    calls; the busy share is device over wall. Returns {"uncaptured":
+    {...}, "graphed": {...}} of wall_ms, device_ms (None where the profiler
+    saw no kernel), busy."""
+    from starvector_tpu_torch.generation import graphs
+    from starvector_tpu_torch.generation.engine import GenerationConfig, generate
+
+    def run(n: int, graphed: bool) -> tuple[float, float]:
+        gen = GenerationConfig(max_new_tokens=n, min_new_tokens=n, do_sample=False,
+                               pad_token_id=0)
+        graphs.reset_tally()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generate(dec_params, llm_cfg, emb, mask, gen, policy=policy, cuda_graphs=graphed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, graphs.tally()["capture_s"]
+
+    for graphed in (False, True):
+        run(new, graphed)  # warm-up
+    walls = {False: [], True: []}
+    replay = []
+    for graphed in (False, True, True, False):
+        (full, cap), (short, _) = run(new, graphed), run(1, graphed)
+        walls[graphed].append((full - short) * 1e3 / (new - 1))
+        if graphed:
+            replay.append((full - cap - short) * 1e3 / (new - 1))
+    out = {}
+    for graphed, name in ((False, "uncaptured"), (True, "graphed")):
+        device = (profiled_device_ms(lambda: run(new, graphed))
+                  - profiled_device_ms(lambda: run(1, graphed))) / (new - 1)
+        wall = statistics.mean(walls[graphed])
+        out[name] = dict(wall_ms=wall, device_ms=device if device > 0 else None,
+                         busy=device / wall if device > 0 else None, walls=walls[graphed])
+    out["graphed"]["replay_wall_ms"] = statistics.mean(replay)
+    B = emb.shape[0]
+
+    def fmt(r):
+        dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.3f} ms"
+        busy = "" if r["busy"] is None else f", busy {r['busy']:.1%}"
+        return f"wall {r['wall_ms']:.3f} ms, device {dev}{busy}"
+
+    log("steps", f"{card}: {label} decode step, B={B}, {new} greedy tokens: uncaptured "
+                 f"(cuda_graphs=False) {fmt(out['uncaptured'])}; graphed {fmt(out['graphed'])} "
+                 f"({out['graphed']['replay_wall_ms']:.3f} ms a step without the call's "
+                 f"captures); walls a step in turns "
+                 f"{[round(w, 3) for w in out['uncaptured']['walls']]} uncaptured, "
+                 f"{[round(w, 3) for w in out['graphed']['walls']]} graphed")
+    return out
+
+
 def profile_request(request, card: str, out_dir: Path, label: str = "bf16") -> None:
     """Where the device time of a B=4, 128-token greedy request of the
     `label` model (bf16, or int8 weights and cache) goes:
@@ -1584,7 +1767,7 @@ def int8_slice(model, tfa, cfg, p16, p32, dev) -> dict:
     reset_counts(tfa)
     served = [request(synthetic_images(4, seed)) for seed in range(3)]
     counts = read_counts(tfa)
-    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    steps = [decode_steps(tokens, lengths) for tokens, lengths, _ in served]
     for tokens, lengths, _ in served:
         if tokens.shape != (4, 128) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.llm.vocab_size:
             raise AssertionError(f"int8: bad tokens {tuple(tokens.shape)} [{tokens.min()}, {tokens.max()}]")
@@ -1700,7 +1883,7 @@ def text2svg_slice(tfa, label: str, model, p32, cfg32, dev, depth_note: str) -> 
     reset_counts(tfa)
     served = [request([None] * 4), request([None])]
     counts = read_counts(tfa)
-    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    steps = [decode_steps(tokens, lengths) for tokens, lengths, _ in served]
     for tokens, lengths, _ in served:
         if tokens.shape[1] != 128 or int(tokens.min()) < 0 or \
                 int(tokens.max()) >= model.cfg.llm.vocab_size:
@@ -1749,9 +1932,9 @@ def serving_times(card: str, requests: dict, rounds: int = 2) -> dict:
             _, lengths, secs = request(synthetic_images(1, 100 + slot), prompt_ids=[PROMPT_IDS])
             rec["b1"].append(secs)
             rec["tokens"].append(int(lengths.max()))
-            _, lengths, secs = request(synthetic_images(4, 200 + slot))
+            tokens, lengths, secs = request(synthetic_images(4, 200 + slot))
             rec["full"].append(secs)
-            rec["steps"].append(int(lengths.max()) - 1)
+            rec["steps"].append(decode_steps(tokens, lengths))
             rec["prefill"].append(request(synthetic_images(4, 200 + slot), max_new_tokens=1)[2])
             slot += 1
     out = {}
@@ -2169,23 +2352,51 @@ def prefill_projection_times(tq, dev, card: str, layers: int = 24) -> dict:
 class BatchSpy:
     """Within `with BatchSpy(module) as spy:`, spy.rows lists the batch of
     every call of module.forward (the decoders' cached and training
-    forward), to show where a prefill ran at B rows and the steps at more."""
+    forward) and module.forward_decode_static (generate's decode steps), in
+    call order, to show where a prefill ran at B rows and the steps at
+    more. A graph replay calls neither: a captured block's rows, recorded
+    at its capture, are listed once a replay."""
+
+    NAMES = ("forward", "forward_decode_static")
 
     def __init__(self, module):
         self.module, self.rows = module, []
 
     def __enter__(self):
-        self.forward = self.module.forward
+        from starvector_tpu_torch.generation import graphs
 
-        def forward(params, cfg, x, *a, **kw):
-            self.rows.append(x.shape[0])
-            return self.forward(params, cfg, x, *a, **kw)
+        self.saved = {name: getattr(self.module, name) for name in self.NAMES}
+        self.init, self.replay = graphs.StepGraph.__init__, graphs.StepGraph.replay
+        capturing = []
 
-        self.module.forward = forward
+        def spied(fn):
+            def call(params, cfg, x, *a, **kw):
+                (capturing[-1] if capturing else self.rows).append(x.shape[0])
+                return fn(params, cfg, x, *a, **kw)
+            return call
+
+        def capture(graph, fn, *a, **kw):
+            capturing.append([])
+            try:
+                self.init(graph, fn, *a, **kw)
+            finally:
+                graph.spied_rows = capturing.pop()
+
+        def replay(graph):
+            self.rows.extend(getattr(graph, "spied_rows", []))
+            return self.replay(graph)
+
+        for name, fn in self.saved.items():
+            setattr(self.module, name, spied(fn))
+        graphs.StepGraph.__init__, graphs.StepGraph.replay = capture, replay
         return self
 
     def __exit__(self, *exc):
-        self.module.forward = self.forward
+        from starvector_tpu_torch.generation import graphs
+
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+        graphs.StepGraph.__init__, graphs.StepGraph.replay = self.init, self.replay
 
 
 def expect_counts(what: str, counts: dict, **expected) -> dict:
@@ -2308,7 +2519,7 @@ def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
     with BatchSpy(gpt_bigcode) as spy:
         tokens, lengths, _ = request(two, num_return_sequences=n, prompt_ids=[PROMPT_IDS] * 2)
     counts = read_counts(tfa)
-    steps = int(lengths.max()) - 1
+    steps = decode_steps(tokens, lengths)
     expect_counts("num_return_sequences", counts, flash_prefill=L, decode_attention=L * steps)
     if spy.rows != [2] + [2 * n] * steps or tokens.shape != (2 * n, 128):
         raise AssertionError(f"num_return_sequences: forwards at rows {spy.rows}")
@@ -2345,7 +2556,7 @@ def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
     reset_counts(tfa)
     tokens, lengths = int8_rep(q16, bf16, True, 128)
     counts = read_counts(tfa)
-    steps = int(lengths.max()) - 1
+    steps = decode_steps(tokens, lengths)
     got = expect_counts("num_return_sequences int8", counts, flash_prefill=L,
                         decode_attention=L * steps, decode_attention_int8=L * steps,
                         quant_matmul=4 * L * (1 + steps))
@@ -2946,6 +3157,73 @@ def profile_tick(engine_run, prefill_run, ticks: int, wall: float, wall0: float,
                    f"({ticks} ticks; table in {out_dir}/profile_serve_{label}.txt)")
 
 
+def tick_times(card: str, label: str, params, cfg, prefixes, policy, dev) -> dict:
+    """A serving tick (steps_per_tick 4, the prefixes submitted at once,
+    SERVE_NEW greedy tokens each with no stop) of the graphed engine against
+    its eager tick (cuda_graphs=False), each on its own warm engine (the
+    graphed one's graphs captured by the warm-up): the wall a tick is the
+    host clock around a serving run less an admission-only run (1 new
+    token: no tick), over the ticks, in turns (eager, graphed, graphed,
+    eager); the device time a tick torch.profiler's kernel time over the
+    same two runs; busy is device over wall."""
+    from starvector_tpu_torch.serve.engine import Request, ServeEngine
+
+    engines, runs = {}, {}
+    try:
+        for graphed in (False, True):
+            engine = ServeEngine(params["svg_transformer"], cfg.llm, cfg.decoder,
+                                 max_batch=max(8, len(prefixes)), max_len=2048, policy=policy,
+                                 steps_per_tick=4, device=dev, cuda_graphs=graphed)
+            engines[graphed] = engine
+
+            def run(n, engine=engine):
+                return serve_requests(engine, [Request(prefix_embeds=p, max_new_tokens=n,
+                                                       do_sample=False) for p in prefixes])
+
+            runs[graphed] = run
+            run(SERVE_NEW)  # warm-up: the allocator, the graphs
+            run(1)
+        walls = {False: [], True: []}
+        for graphed in (False, True, True, False):
+            engine = engines[graphed]
+            torch.cuda.synchronize()
+            ticks0, t = engine.stats()["ticks"], time.perf_counter()
+            runs[graphed](SERVE_NEW)
+            torch.cuda.synchronize()
+            full, ticks = time.perf_counter() - t, engine.stats()["ticks"] - ticks0
+            t = time.perf_counter()
+            runs[graphed](1)
+            torch.cuda.synchronize()
+            walls[graphed].append((full - (time.perf_counter() - t)) * 1e3 / ticks)
+        out = {}
+        for graphed, name in ((False, "eager"), (True, "graphed")):
+            ticks0 = engines[graphed].stats()["ticks"]
+            full = profiled_device_ms(lambda: runs[graphed](SERVE_NEW))
+            ticks = engines[graphed].stats()["ticks"] - ticks0
+            device = (full - profiled_device_ms(lambda: runs[graphed](1))) / ticks
+            wall = statistics.mean(walls[graphed])
+            out[name] = dict(wall_ms=wall, device_ms=device if device > 0 else None,
+                             busy=device / wall if device > 0 else None, ticks=ticks,
+                             walls=walls[graphed])
+        out["graphs"] = len(engines[True]._graphs)
+    finally:
+        for engine in engines.values():
+            engine.stop()
+
+    def fmt(r):
+        dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.3f} ms"
+        busy = "" if r["busy"] is None else f", busy {r['busy']:.1%}"
+        return f"wall {r['wall_ms']:.3f} ms, device {dev}{busy}"
+
+    log("serve", f"{card}: {label} serving tick, 4 steps at {len(prefixes)} slots, "
+                 f"{SERVE_NEW} greedy tokens a request ({out['graphed']['ticks']} ticks a run): "
+                 f"eager (cuda_graphs=False) {fmt(out['eager'])}; graphed {fmt(out['graphed'])} "
+                 f"({out['graphs']} graphs captured); walls a tick in turns "
+                 f"{[round(w, 3) for w in out['eager']['walls']]} eager, "
+                 f"{[round(w, 3) for w in out['graphed']['walls']]} graphed")
+    return out
+
+
 def serving_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None) -> dict:
     """Phase 4c, on phase 4's 1B weights: the continuous-batching engine's
     id checks with exact launch counts, a mixed bf16 batch, int8 serving,
@@ -3001,6 +3279,7 @@ def serving_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None
     imgs8 = processor_for_encoder(cfg.image_encoder_type, cfg.image_size, device=dev).batch(
         synthetic_images(8, 41))
     pre8 = serve_prefixes(p16, cfg, imgs8, bf16, prompts=(PROMPT_IDS,) * 8)
+    ticks_1b = tick_times(card, "1B bf16", p16, cfg, pre8, bf16, dev)
     runs, engines = throughput_runs(p16, cfg, pre8, bf16, dev)
     runs8, engines8 = throughput_runs(q16, cfg, pre8, bf16, dev, kv=torch.int8, steps=(4,),
                                       offline=False)
@@ -3040,7 +3319,7 @@ def serving_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None
                     quant_matmul_gemv_tc=c8["quant_matmul_gemv_tc"],
                     quant_matmul_gemv=c8["quant_matmul_gemv"],
                     quant_matmul_tile=c8["quant_matmul_wgmma"])
-    return dict(rates=rates, launches=launches)
+    return dict(rates=rates, launches=launches, ticks=ticks_1b)
 
 
 # ---------------------------------------------------------------------------
@@ -3276,7 +3555,7 @@ def eval_1b(tfa, cfg, p16, p32, dev, card: str) -> dict:
             avg, per = v.validate()
         wall = time.perf_counter() - t
         counts = read_counts(tfa)
-        steps = [int(lengths.max()) - 1 for _, lengths in spy.calls]
+        steps = [decode_steps(tokens, lengths) for tokens, lengths in spy.calls]
         expect_counts("eval bf16", counts, flash_prefill=L * len(spy.calls),
                       decode_attention=L * sum(steps))
         if len(spy.calls) != n // 2:
@@ -4584,7 +4863,7 @@ def towers_1b(sv, tfa, dc, cfg, p16, p32, dev, card: str) -> dict:
         _, toks, lengths = m16.generate_im2svg_ids({"image": images}, max_new_tokens=TOWER_NEW,
                                                    **req)
         torch.cuda.synchronize()
-        steps = int(lengths.max()) - 1
+        steps = decode_steps(toks, lengths)
         got = expect_counts(f"4f {t} bf16", read_counts(tfa),
                             flash_prefill=L if S > dc.CHUNK_STEP_MAX else 0,
                             decode_attention=L * steps)
@@ -4812,7 +5091,7 @@ def export_round_trip(sv, tfa, dev, train: dict, images, out: str) -> dict:
             .generate_im2svg_ids({"image": images}, **kw)
         torch.cuda.synchronize()
         counts = read_counts(tfa)
-        steps = int(lengths.max()) - 1
+        steps = decode_steps(ids[name], lengths)
         launches[name] = {k: counts[k] for k in ("flash_prefill", "decode_attention")}
         if launches[name] != {"flash_prefill": L, "decode_attention": L * steps} or steps < 1:
             raise AssertionError(f"export round trip, {name}: launches {launches[name]}, "
@@ -4901,9 +5180,9 @@ def entry_points_1b(tfa, dev, card: str, ckpt: str, work: Path) -> dict:
     counts = read_counts(tfa)
     printed = stdout.getvalue()
     (model, t_load), = load.calls
-    ((_, lengths), t_gen), = gen.calls
+    ((tokens, lengths), t_gen), = gen.calls
     L = model.cfg.llm.n_layer
-    steps = int(lengths.max()) - 1
+    steps = decode_steps(tokens, lengths)
     launches["quickstart"] = expect_counts("5c quickstart", counts, flash_prefill=L,
                                            decode_attention=L * steps)
     if not printed.startswith("<svg"):
@@ -5996,7 +6275,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     reset_counts(tfa)
     served = [request(synthetic_images(4, seed)) for seed in range(3)]
     counts = read_counts(tfa)
-    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    steps = [decode_steps(tokens, lengths) for tokens, lengths, _ in served]
     for tokens, lengths, _ in served:
         if tokens.shape != (4, 128) or int(tokens.min()) < 0 or \
                 int(tokens.max()) >= cfg.llm.vocab_size:
@@ -6014,7 +6293,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
               f"{[l.tolist() for _, l, _ in served]}, distinct ids per row {distinct}; launches "
               f"flash_prefill {got['flash_prefill']} = {L} x 3 prefills, decode_attention "
               f"{got['decode_attention']} = {L} x {sum(steps)} decode steps, no training or int8 "
-              f"kernel")
+              f"kernel ({graph_tally()})")
 
     # fp32 on a copy of the same weights
     f32 = DTypePolicy(torch.float32, torch.float32)
@@ -6050,8 +6329,19 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     if not torch.equal(ids[True], ids[False]):
         raise AssertionError(f"8B fp32 greedy ids differ:\n{ids[True].tolist()}\n"
                              f"{ids[False].tolist()}")
-    log("8b", f"fp32, B=2, 32 tokens, {depth}: greedy ids with the kernels == with the plain "
-              f"attention ({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+    _, uncaptured, _ = StarVectorForCausalLM(p32, cfg32, policy=f32, device=dev,
+                                             cuda_graphs=False).generate_im2svg_ids(
+        {"image": images[:2]}, **{**GREEDY, "prompt_ids": [PROMPT_IDS] * 2, "max_new_tokens": 32})
+    if not torch.equal(ids[True], uncaptured):
+        raise AssertionError(f"8B fp32 greedy ids, graphed {ids[True].tolist()} != uncaptured "
+                             f"{uncaptured.tolist()}")
+    log("8b", f"fp32, B=2, 32 tokens, {depth}: greedy ids with the kernels, the decode steps "
+              f"replayed as CUDA graphs == the same steps uncaptured (cuda_graphs=False), bit "
+              f"for bit, == with the plain attention "
+              f"({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+    steps_8b = step_times(card, f"8B bf16 ({depth})", p16["svg_transformer"], cfg.llm,
+                          *im2svg_prefix(p16, cfg, model.process_images(synthetic_images(4, 61)),
+                                         prompt, policy=bf16), bf16)
 
     # text2svg: captions through the v2 test tokenizer, the same bf16 weights;
     # its fp32 check on the fp32 copy above
@@ -6118,7 +6408,8 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
         timed_only("phase 6's serving and memory turns", t_times)
     if profile_dir is not None:
         profile_request(request, card, profile_dir, "8b")
-    out = dict(counts=got, weights=tree_bytes(p16), serve=serve_8b, pipelined=pipe_8b, tp=tp_8b)
+    out = dict(counts=got, weights=tree_bytes(p16), serve=serve_8b, pipelined=pipe_8b, tp=tp_8b,
+               steps=steps_8b)
     del request, served, t2s
     out["int8"] = int8_slice_8b(model, tfa, cfg, p16, dev, card, e2e, depth, profile_dir)
     del model, p16
@@ -6313,7 +6604,7 @@ def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict, depth: s
     reset_counts(tfa)
     served = [request(synthetic_images(4, 0)), request(synthetic_images(1, 1))]
     counts = read_counts(tfa)
-    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    steps = [decode_steps(tokens, lengths) for tokens, lengths, _ in served]
     for tokens, lengths, _ in served:
         if tokens.shape[1] != 128 or int(tokens.min()) < 0 or \
                 int(tokens.max()) >= cfg.llm.vocab_size:
@@ -7298,6 +7589,11 @@ def main() -> int:
     err_8b.update(qmm_gemv_tc_8b=qmm_8b["gemv_tc"], qmm_gemv_8b=qmm_8b["gemv"],
                   qmm_tile_8b=qmm_8b["tile"])
     err_8b.update(check_tp_shapes(tfa, dc, dev))
+    err_bounds = check_decode_bounds(tfa, dc, dev)
+    log("kernels", f"decode_attention with device bounds (G=16 and 9, fp32 and bf16, a cache "
+                   f"of q's type and int8 codes) matches its plain version (fp32 1e-4, bf16 "
+                   f"atol 2e-3 and rtol 2^-7) and replays in a CUDA graph as the bounds move; "
+                   f"max |diff| {err_bounds:.3e}")
     err_8b.update(check_quant_matmul_tp(tq, dev))
     log("kernels", f"the 8B's kernel shapes match their plain versions (decode G=9 over a bf16 "
                    f"or an int8 cache: fp32 1e-4, bf16 atol 2e-3 and rtol 2^-7; flash_prefill "
@@ -7336,7 +7632,7 @@ def main() -> int:
     n_prefill, n_decode = counts["flash_prefill"], counts["decode_attention"]
     if any(counts[k] for k in TRAIN_KERNELS + ("quant_matmul", "decode_attention_int8")):
         raise AssertionError(f"bf16 inference launched training or int8 kernels: {counts}")
-    steps = [int(lengths.max()) - 1 for _, lengths, _ in served]
+    steps = [decode_steps(tokens, lengths) for tokens, lengths, _ in served]
     for tokens, lengths, _ in served:
         if tokens.shape != (4, 128) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.llm.vocab_size:
             raise AssertionError(f"bad tokens {tuple(tokens.shape)} [{tokens.min()}, {tokens.max()}]")
@@ -7349,7 +7645,8 @@ def main() -> int:
     log("slice", f"3 requests x 4 images, greedy, 128 new tokens at full 1B width: decode steps "
                  f"{steps}, lengths {[l.tolist() for _, l, _ in served]}, distinct ids per row "
                  f"{distinct}; launches flash_prefill {n_prefill} = {L} x 3 prefills, "
-                 f"decode_attention {n_decode} = {L} x {sum(steps)} decode steps")
+                 f"decode_attention {n_decode} = {L} x {sum(steps)} decode steps ({graph_tally()}: "
+                 f"a replay's launches counted as the graph's capture counted them)")
 
     # fp32: greedy ids with the kernels against the plain attention
     images = model.process_images(synthetic_images(2, 7))
@@ -7360,8 +7657,22 @@ def main() -> int:
             {"image": images}, **{**greedy, "prompt_ids": [PROMPT_IDS] * 2, "max_new_tokens": 32})
     if not torch.equal(ids[True], ids[False]):
         raise AssertionError(f"fp32 greedy ids differ:\n{ids[True].tolist()}\n{ids[False].tolist()}")
-    log("slice", f"fp32, B=2, 32 tokens: greedy ids with the kernels == with the plain attention "
+    _, uncaptured, _ = StarVectorForCausalLM(p32, cfg, policy=f32, device=dev,
+                                             cuda_graphs=False).generate_im2svg_ids(
+        {"image": images}, **{**greedy, "prompt_ids": [PROMPT_IDS] * 2, "max_new_tokens": 32})
+    if not torch.equal(ids[True], uncaptured):
+        raise AssertionError(f"fp32 greedy ids, graphed {ids[True].tolist()} != uncaptured "
+                             f"{uncaptured.tolist()}")
+    log("slice", f"fp32, B=2, 32 tokens: greedy ids with the kernels, the decode steps replayed "
+                 f"as CUDA graphs == the same steps uncaptured (cuda_graphs=False), bit for bit, "
+                 f"== with the plain attention "
                  f"({[len(set(r.tolist())) for r in ids[True]]} distinct ids per row)")
+    from starvector_tpu_torch.generation.engine import im2svg_prefix as _prefix
+
+    steps_1b = step_times(card, f"1B bf16 ({L} layers)", p16["svg_transformer"], cfg.llm,
+                          *_prefix(p16, cfg, model.process_images(synthetic_images(4, 61)),
+                                   torch.tensor([PROMPT_IDS] * 4, device=dev), policy=bf16),
+                          bf16)
 
     # bf16: prefill last-position logits and greedy tokens, kernels against plain
     from starvector_tpu_torch.generation.engine import im2svg_prefix
@@ -7580,6 +7891,7 @@ def main() -> int:
                                  source="starvector_tpu_torch/csrc/decode_attention.cu",
                                  replaces="starvector_tpu/ops/flash_attention.py:2049",
                                  launches=launches, max_abs_err=err, **decode[label],
+                                 bounds_max_abs_err=err_bounds,
                                  serve_launches=serve_1b["launches"][name],
                                  pipelined_launches=pipe_1b["launches"][
                                      "bf16" if label == "bf16" else "int8 KV"][name],

@@ -64,17 +64,21 @@ def tokenizer_version(cfg: sv.StarVectorConfig) -> str:
 class StarVectorForCausalLM:
     def __init__(self, params: dict, cfg: sv.StarVectorConfig, tokenizer=None, *,
                  policy: DTypePolicy | None = None, device="cuda",
-                 generator: torch.Generator | None = None, kernels: bool = True):
+                 generator: torch.Generator | None = None, kernels: bool = True,
+                 cuda_graphs: bool = True):
         """`tokenizer` is a starvector_tpu_torch.models.tokenizer.SVGTokenizer,
         or None: then prompts and stop sequences are given as token ids.
         `kernels=False` runs the kernels' plain versions. Runs on the card;
-        `device="cpu"` asks for the CPU."""
+        `device="cpu"` asks for the CPU. Generation's decode steps replay as
+        CUDA graphs on the card (generation/engine.py::generate);
+        `cuda_graphs=False` runs the same steps uncaptured."""
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.policy = policy or DTypePolicy()
         self.device = require_device(device, 'device="cpu"')
         self.kernels = kernels
+        self.cuda_graphs = cuda_graphs
         self.processor = processor_for_encoder(cfg.image_encoder_type, cfg.image_size,
                                                device=self.device)
         self.generator = generator or torch.Generator(device=self.device).manual_seed(0)
@@ -215,7 +219,7 @@ class StarVectorForCausalLM:
             return prompt_ids, tokens, lengths, True
         tokens, lengths = generate(dec_params, self.cfg.llm, prefix, mask, gen, self.generator,
                                    prompt_ids=prompt_ids, policy=self.policy,
-                                   kernels=self.kernels)
+                                   kernels=self.kernels, cuda_graphs=self.cuda_graphs)
         return prompt_ids.repeat_interleave(gen.num_return_sequences, dim=0), tokens, lengths, False
 
     def generate_im2svg_ids(self, batch: dict, *, prompt_ids=None, stop_sequences=None,
@@ -259,7 +263,8 @@ class StarVectorForCausalLM:
                                             policy=self.policy)
         tokens, lengths = generate(self.params["svg_transformer"], self.cfg.llm, inputs_embeds,
                                    mask, gen, self.generator, prompt_ids=prompt_ids,
-                                   policy=self.policy, kernels=self.kernels)
+                                   policy=self.policy, kernels=self.kernels,
+                                   cuda_graphs=self.cuda_graphs)
         P = prompt_ids.shape[1]
         outputs = torch.cat([prompt_ids.repeat_interleave(gen.num_return_sequences, dim=0),
                              tokens], dim=1)
@@ -316,7 +321,7 @@ class StarVectorForCausalLM:
             return ids, tokens, lengths
         tokens, lengths = generate_text2svg(self.params, self.cfg, ids, mask, gen,
                                             self.generator, policy=self.policy,
-                                            kernels=self.kernels)
+                                            kernels=self.kernels, cuda_graphs=self.cuda_graphs)
         return ids.repeat_interleave(gen.num_return_sequences, dim=0), tokens, lengths
 
     def generate_text2svg(self, batch: dict, **kwargs) -> list[str]:

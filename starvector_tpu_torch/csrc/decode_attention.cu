@@ -20,6 +20,15 @@
 // cache (the JAX package's init_cache(dtype=int8)) holds codes with fp32
 // scales k_scale, v_scale (B, T, Hkv).
 //
+// Key bounds from the device: where `bounds` is given (an int32 [t_begin,
+// t_end] on the card), every block reads it at entry, and the host's t_end
+// is only a cap, t_cap >= t_end (the keys the grid was planned for). So one
+// launch serves every step of a decode loop captured in a CUDA graph: the
+// write index moves on the device, the launch's arguments stay the same.
+// t_lo is then t_begin rounded down to the 128-key tile, computed in the
+// kernel; a split whose chunk starts at or past t_end writes an empty
+// partial (m = -1e30, l = 0), which the merge weighs by exp(-1e30 - M) = 0.
+//
 // What bounds it on the H100: the visible cache, read once: 2 * B * T * Hkv
 // * D elements (bf16: 0.67 MB at the 1B decode, B = 4, T = 325: 0.2 us of
 // HBM time; 5.4 MB at B = 8, T = 1285: 1.6 us). The arithmetic is 4 G D
@@ -78,6 +87,10 @@
 // scores never reach exp: p is 0 by selection, the running max starts at
 // the finite -1e30, so a chunk or warp that sees no key keeps m = -1e30,
 // l = 0 and merges with weight exp(-1e30 - M), 0 or 1 times zeros.
+//
+// The ops/flash_attention.py grid plan for device bounds: decode_splits at
+// t_cap keys from slot 0, so splits x chunk >= t_cap >= t_end - t_lo
+// whatever t_begin the device holds.
 
 #include <stdint.h>
 
@@ -116,6 +129,7 @@ struct DecodeArgs {
   const void* k_new;  // null: no self token
   const void* v_new;
   const int* mask;
+  const int* bounds;     // null, or [t_begin, t_end] on the device (t_end below is then its cap)
   const float* k_scale;  // int8 cache only
   const float* v_scale;
   void* out;
@@ -132,6 +146,20 @@ struct DecodeArgs {
   int t_lo, chunk, splits;  // split s takes keys [t_lo + s chunk, t_lo + (s + 1) chunk)
   float scale;
 };
+
+// The keys a launch sees: [begin, end), its splits counted from lo. From
+// the arguments, or read from `bounds` on the device: begin clamped to
+// [0, end], end to the host's cap, lo begin rounded down to the key tile.
+struct KeyRange {
+  int begin, end, lo;
+};
+
+__device__ __forceinline__ KeyRange key_range(const DecodeArgs& a) {
+  if (a.bounds == nullptr) return {a.t_begin, a.t_end, a.t_lo};
+  const int end = max(min(__ldg(a.bounds + 1), a.t_end), 0);
+  const int begin = min(max(__ldg(a.bounds), 0), end);
+  return {begin, end, begin - begin % kKeyTile};
+}
 
 // ---------------------------------------------------------------------------
 // what both kernels share: the self token, the block's partial, the ticket,
@@ -328,8 +356,9 @@ __global__ void __launch_bounds__(kMmaThreads) decode_attention_bf16_kernel(cons
   const float* vsc = kQuant ? a.v_scale + b * a.vs_sb + hk * a.vs_sh : nullptr;
 
   // this block's keys, and this warp's 16-key groups in them: c0 + (w + 8 i) 16
-  const int c0 = a.t_lo + split * a.chunk;
-  const int c1 = min(c0 + a.chunk, a.t_end);
+  const KeyRange kr = key_range(a);
+  const int c0 = kr.lo + split * a.chunk;
+  const int c1 = min(c0 + a.chunk, kr.end);
   const int first = c0 + w * kSub;
   const int n_sub = first < c1 ? (c1 - first + kKeyTile - 1) / kKeyTile : 0;
   uint8_t* ring = rings + w * mma_warp_bytes<C>();  // [slot][K, V][kSub][row]
@@ -340,7 +369,7 @@ __global__ void __launch_bounds__(kMmaThreads) decode_attention_bf16_kernel(cons
   auto issue = [&](int i) -> unsigned {
     const int t0 = first + i * kKeyTile;
     const int t = t0 + (lane & (kSub - 1));
-    const bool vis = t >= a.t_begin && t < a.t_end && mask[t] != 0;
+    const bool vis = t >= kr.begin && t < kr.end && mask[t] != 0;
     const unsigned live = __ballot_sync(0xffffffffu, vis) & 0xffffu;
     if (live != 0u) {
       uint8_t* slot = ring + (i & 1) * 2 * kSub * kRowBytes;
@@ -595,11 +624,12 @@ __global__ void __launch_bounds__(kF32Threads) decode_attention_f32_kernel(const
   float* pw = Ps + w * G * 32;
 
   // this block's keys [c0, c1), 32 a warp step, one a lane
-  const int c0 = a.t_lo + split * a.chunk;
-  const int c1 = min(c0 + a.chunk, a.t_end);
+  const KeyRange kr = key_range(a);
+  const int c0 = kr.lo + split * a.chunk;
+  const int c1 = min(c0 + a.chunk, kr.end);
   for (int t0 = c0 + w * 32; t0 < c1; t0 += kF32Warps * 32) {
     const int t = t0 + lane;
-    const bool valid = t >= a.t_begin && t < c1 && mask[t] != 0;
+    const bool valid = t >= kr.begin && t < c1 && mask[t] != 0;
     const unsigned live = __ballot_sync(0xffffffffu, valid);
     if (live == 0u) continue;  // the whole tile is masked
 
@@ -731,9 +761,12 @@ int launch_group(int G, const DecodeArgs& a, cudaStream_t st) {
 // k_scale and v_scale set (they are ignored otherwise). ws holds B * Hkv *
 // splits * partial_floats(G, D) floats; tickets B * Hkv ints, zero on
 // entry, left zero on exit. bf16 q, k and v need 16-byte aligned rows.
+// bounds: null, or an int32 [t_begin, t_end] on the device that the kernel
+// reads (t_begin and t_lo are then unused, t_end is their cap and t_lo 0).
 extern "C" int sv_decode_attention(
     int dtype, int cache_dtype, int G, int D, const void* q, const void* k, const void* v,
-    const void* k_new, const void* v_new, const int* mask, const float* k_scale,
+    const void* k_new, const void* v_new, const int* mask, const int* bounds,
+    const float* k_scale,
     const float* v_scale, void* out, float* ws, int* tickets, int B, int Hkv,
     long long q_sb, long long q_sh, long long q_sg,
     long long k_sb, long long k_st, long long k_sh,
@@ -743,7 +776,8 @@ extern "C" int sv_decode_attention(
     long long vs_sb, long long vs_st, long long vs_sh,
     long long m_sb, int t_begin, int t_end, int t_lo, int chunk, int splits, float scale,
     void* stream) {
-  const sv::DecodeArgs a{q, k, v, k_new, v_new, mask, k_scale, v_scale, out, ws, tickets, B, Hkv,
+  const sv::DecodeArgs a{q, k, v, k_new, v_new, mask, bounds, k_scale, v_scale, out, ws, tickets,
+                         B, Hkv,
                          q_sb, q_sh, q_sg, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
                          kn_sb, kn_sh, vn_sb, vn_sh, ks_sb, ks_st, ks_sh, vs_sb, vs_st, vs_sh,
                          m_sb, t_begin, t_end, t_lo, chunk, splits, scale};
@@ -752,7 +786,7 @@ extern "C" int sv_decode_attention(
     return (int)cudaErrorInvalidValue;
   }
   if (splits < 1 || chunk < sv::kKeyTile || chunk % sv::kKeyTile != 0 || t_lo % sv::kKeyTile != 0 ||
-      (long long)t_lo + (long long)splits * chunk < t_end) {
+      (long long)t_lo + (long long)splits * chunk < t_end || (bounds != nullptr && t_lo != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool quant = cache_dtype == sv::kInt8;

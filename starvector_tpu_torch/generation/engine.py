@@ -1,11 +1,31 @@
-"""Autoregressive generation: one cached prefill, then a Python loop of
-cached decode steps (port of generate / generate_im2svg /
-generate_text2svg of starvector_tpu/generation/engine.py).
+"""Autoregressive generation: one cached prefill, then a loop of static
+decode steps, replayed as CUDA graphs on the card (port of generate /
+generate_im2svg / generate_text2svg of starvector_tpu/generation/engine.py).
 
 The first token is drawn from the prefill's last logits. Each row stops on
 its own when one of the stop sequences (the `</svg>` ids for im2svg) or eos
 ends its output; rows that are done emit pad tokens, and the loop ends when
 every row is done.
+
+The decode loop is the JAX package's jitted `lax.while_loop` (its
+engine.py:225) as the card runs it: every step samples a token
+(`BatchSampler.step`, with the token index `t` on the device) and runs the
+decoder's `forward_decode_static` (the write slot `pos` on the device,
+kernel 2 taking its key bounds from there), so no launch of a step depends
+on where the loop is. The first step runs eagerly, as the warm-up; every
+later step replays a CUDA graph of one step (generation/graphs.py),
+captured once a call for each power-of-two bucket of the keys a step reads
+(`step_cap`: the step's kernel-2 grid is planned there, so a long budget
+does not plan every step at its last key). The steps go in blocks of
+DECODE_GRAPH_STEPS replays back to back (`decode_blocks`), and the host tests
+`done` once a block, not once a token. A graph holds one step, not a
+block: a capture costs a step of host time in every call, and graphs of
+16 steps took 3.38 ms a step against 2.09 for one (1B bf16, B = 4, 128
+tokens, on an H100: scripts/graph_block_times.py), while back-to-back
+replays cost the device the same. Steps after every row is done emit pads and change neither
+tokens nor lengths; the last block is cut short, so no step runs past
+token n - 1. `cuda_graphs=False` runs the same steps uncaptured (the same
+launches, so the same bits); on the CPU they always run uncaptured.
 
 num_return_sequences = n > 1 prefills each distinct row once, then tiles
 the filled cache, the last logits and the prompt's presence table n times
@@ -34,10 +54,14 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from starvector_tpu_torch.generation import graphs
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.models import starvector as sv
 from starvector_tpu_torch.ops.layers import DTypePolicy
 from starvector_tpu_torch.ops.sampling import NEG_INF, sample_token
+
+# decode steps between two host reads of `done`
+DECODE_GRAPH_STEPS = 16
 
 
 def decoder_module(llm_cfg):
@@ -66,19 +90,29 @@ class GenerationConfig:
     max_top_k: int = 64
 
 
-def stop_hit(tokens: torch.Tensor, t: int, new_tok: torch.Tensor, stops: list[torch.Tensor],
+def stop_hit(tokens: torch.Tensor, t, new_tok: torch.Tensor, stops: list[torch.Tensor],
              eos_token_id: int | None, max_new_tokens: int) -> torch.Tensor:
     """(...,) bool: a stop sequence (`stops`, on the device) is a suffix of
     [tokens[..., :t], new_tok], or new_tok is eos; tokens (..., n), new_tok
-    (...,). A stop longer than max_new_tokens can never match."""
+    (...,). A stop longer than max_new_tokens can never match. `t` is an
+    int, or a (1,) int tensor on the device (read there, as the JAX
+    check_stops' dynamic slice)."""
     hit = torch.zeros_like(new_tok, dtype=torch.bool)
+    on_device = isinstance(t, torch.Tensor)
     for s in stops:
         L = len(s)
-        if L == 0 or L > max_new_tokens or t < L - 1:
+        if L == 0 or L > max_new_tokens or (not on_device and t < L - 1):
             continue
         match = new_tok == s[-1]
+        if on_device:
+            match &= t >= L - 1
         if L > 1:
-            match &= (tokens[..., t - (L - 1):t] == s[:-1]).all(dim=-1)
+            if on_device:
+                cols = torch.clamp(t - (L - 1) + torch.arange(L - 1, device=t.device), min=0)
+                window = tokens.index_select(-1, cols.long())
+            else:
+                window = tokens[..., t - (L - 1):t]
+            match &= (window == s[:-1]).all(dim=-1)
         hit |= match
     if eos_token_id is not None:
         hit |= new_tok == eos_token_id
@@ -102,7 +136,9 @@ class BatchSampler:
     body, shared by generate and generate_pipelined): the min-new-tokens eos
     mask, sample_token with the presence table, penalty counts and logit
     bias, pad tokens for rows that are done, and stop_hit. Holds tokens
-    (B, n), lengths (B,) and done (B,)."""
+    (B, n), lengths (B,), done (B,) and the next token's index t (1,) int32,
+    all on the device and all written in place, with the knobs as device
+    tensors: a step reads nothing back, so a CUDA graph can capture it."""
 
     def __init__(self, gen: GenerationConfig, B: int, V: int, device,
                  presence: torch.Tensor | None, generator: torch.Generator | None):
@@ -119,31 +155,39 @@ class BatchSampler:
         self.lengths = torch.full((B,), n, dtype=torch.int64, device=device)
         self.stops = [torch.tensor(s, dtype=torch.int64, device=device)
                       for s in gen.stop_sequences]
+        self.t = torch.zeros(1, dtype=torch.int32, device=device)
+        self.knobs = {name: torch.as_tensor(getattr(gen, name), device=device)
+                      for name in ("temperature", "top_p", "top_k", "min_p", "repetition_penalty",
+                                   "frequency_penalty", "presence_penalty")}
+        self.eos_col = None  # eos's column of the vocabulary, where min_new_tokens masks it
+        if gen.eos_token_id is not None and gen.min_new_tokens > 0:
+            self.eos_col = torch.arange(V, device=device) == gen.eos_token_id
 
-    def step(self, t: int, logits: torch.Tensor) -> torch.Tensor:
-        """Token t of every row (B,) from its logits (B, V); records it."""
-        gen = self.gen
-        if gen.eos_token_id is not None and t < gen.min_new_tokens:
-            logits = logits.clone()
-            logits[:, gen.eos_token_id] = NEG_INF
+    def step(self, logits: torch.Tensor) -> torch.Tensor:
+        """Token t of every row (B,) from its logits (B, V); records it and
+        advances t."""
+        gen, kn, t = self.gen, self.knobs, self.t
+        if self.eos_col is not None:
+            logits = torch.where(self.eos_col & (t < gen.min_new_tokens), NEG_INF, logits)
         nxt = sample_token(
-            logits, do_sample=gen.do_sample, temperature=gen.temperature, top_p=gen.top_p,
-            top_k=gen.top_k, min_p=gen.min_p, presence=self.presence,
-            repetition_penalty=gen.repetition_penalty if self.presence is not None else None,
-            counts=self.counts, frequency_penalty=gen.frequency_penalty,
-            presence_penalty=gen.presence_penalty, bias_ids=self.bias_ids,
+            logits, do_sample=gen.do_sample, temperature=kn["temperature"], top_p=kn["top_p"],
+            top_k=kn["top_k"], min_p=kn["min_p"], presence=self.presence,
+            repetition_penalty=kn["repetition_penalty"] if self.presence is not None else None,
+            counts=self.counts, frequency_penalty=kn["frequency_penalty"],
+            presence_penalty=kn["presence_penalty"], bias_ids=self.bias_ids,
             bias_vals=self.bias_vals, max_top_k=gen.max_top_k, generator=self.generator,
         )
-        nxt = torch.where(self.done, torch.full_like(nxt, gen.pad_token_id), nxt)
+        nxt = torch.where(self.done, gen.pad_token_id, nxt)
         newly_done = stop_hit(self.tokens, t, nxt, self.stops, gen.eos_token_id,
                               gen.max_new_tokens) & ~self.done
-        self.lengths = torch.where(newly_done, torch.full_like(self.lengths, t + 1), self.lengths)
-        self.tokens[:, t] = nxt
+        self.lengths.copy_(torch.where(newly_done, (t + 1).long(), self.lengths))
+        self.tokens.index_copy_(1, t.long(), nxt[:, None])
         if self.presence is not None:
             self.presence.scatter_(1, nxt[:, None], 1)
         if self.counts is not None:
             self.counts.scatter_add_(1, nxt[:, None], (~self.done).to(torch.int32)[:, None])
         self.done |= newly_done
+        t.add_(1)
         return nxt
 
 
@@ -165,6 +209,7 @@ def generate(
     policy: DTypePolicy = DTypePolicy(),
     kernels: bool = True,
     kv_cache_dtype: torch.dtype | None = None,
+    cuda_graphs: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens (B x num_return_sequences, max_new_tokens) int64,
     lengths (B x num_return_sequences,)): rows are pad-filled after their
@@ -172,7 +217,10 @@ def generate(
     sequences are adjacent rows. `kv_cache_dtype` is the cache's type
     (default: the compute dtype); torch.int8 stores it as codes with
     per-(position, head) scales, as the JAX generate's
-    `kv_cache_dtype=jnp.int8`."""
+    `kv_cache_dtype=jnp.int8`. On the card the decode steps replay as CUDA
+    graphs, DECODE_GRAPH_STEPS of them between two reads of `done` (see the
+    module docstring); `cuda_graphs=False` runs the same static steps
+    uncaptured."""
     _check_top_k(gen)
     dec = decoder_module(llm_cfg)
     B, P, _ = inputs_embeds.shape
@@ -192,17 +240,82 @@ def generate(
         B *= n_rep
 
     sampler = BatchSampler(gen, B, V, device, presence, generator)
-    ones = torch.ones((B, 1), dtype=torch.int32, device=device)
-    for t in range(n):
-        nxt = sampler.step(t, last_logits)
-        # the last token needs no forward; neither does a batch that is done
-        if t == n - 1 or bool(sampler.done.all()):
-            break
-        embeds = dec.embed_tokens(params, nxt[:, None]).to(policy.compute_dtype)
-        step_logits, cache = dec.forward(params, llm_cfg, embeds, attention_mask=ones,
-                                         cache=cache, policy=policy, kernels=kernels)
-        last_logits = step_logits[:, -1]
+    decode_static(params, llm_cfg, cache, P, last_logits, sampler, policy=policy,
+                  kernels=kernels, cuda_graphs=cuda_graphs and device.type == "cuda")
     return sampler.tokens, sampler.lengths
+
+
+def decode_blocks(n: int, K: int) -> list[int]:
+    """The static decode loop's n - 1 steps for n new tokens (the last token
+    needs no forward), in blocks between two host reads of `done`: the first
+    step alone (the warm-up), then blocks of K steps, the last one shorter
+    where n - 2 is no multiple of K."""
+    left = n - 1
+    blocks = [1] if left > 0 else []
+    left -= 1
+    while left > 0:
+        blocks.append(min(K, left))
+        left -= blocks[-1]
+    return blocks
+
+
+def step_cap(pos: int, T: int) -> int:
+    """Kernel 2's key cap for the decode step that writes slot pos (its keys
+    lie below pos) of a T-slot cache: the power-of-two bucket above pos, at
+    most T. The steps of one bucket share one captured graph."""
+    return min(graphs.bucket_len(pos + 1), T)
+
+
+def decode_static(params: dict, llm_cfg, cache: dict, P: int, last_logits: torch.Tensor,
+                  sampler: BatchSampler, *, policy: DTypePolicy, kernels: bool,
+                  cuda_graphs: bool) -> None:
+    """generate's decode loop over a linear cache prefilled with P slots,
+    from the prefill's last logits (B, V): each step samples a token
+    (sampler) and runs the decoder's forward_decode_static at the device
+    slot pos, its key cap step_cap(pos); the last token is sampled with no
+    forward. `cuda_graphs` (on the card) captures one step a key cap and
+    replays it for every later step of that cap; otherwise the steps run
+    uncaptured, with the same launches. The host reads `done` once a block
+    of decode_blocks."""
+    dec = decoder_module(llm_cfg)
+    device = last_logits.device
+    T = cache["k"].shape[2]
+    logits = last_logits.contiguous().clone()
+    pos = torch.full((1,), P, dtype=torch.int32, device=device)
+
+    def step(t_cap: int) -> None:
+        nxt = sampler.step(logits)
+        embeds = dec.embed_tokens(params, nxt[:, None]).to(policy.compute_dtype)
+        logits.copy_(dec.forward_decode_static(params, llm_cfg, embeds, cache, pos, t_cap=t_cap,
+                                               policy=policy, kernels=kernels))
+        pos.add_(1)
+
+    n = sampler.gen.max_new_tokens
+    blocks = decode_blocks(n, DECODE_GRAPH_STEPS)
+    captured, pool = {}, None
+    if cuda_graphs and blocks:
+        graphs.reserve_decode(device, llm_cfg, cache["k"].shape[1], step_cap(P + n - 2, T))
+        pool = torch.cuda.graph_pool_handle()
+    p = P
+    for i, n_steps in enumerate(blocks):
+        for _ in range(n_steps):
+            t_cap = step_cap(p, T)
+            if not cuda_graphs:
+                step(t_cap)
+            elif i == 0:
+                # the warm-up, a real step: the libraries' lazy set-up and
+                # the kernels' scratch (kernel 14's GEMV) on the capture stream
+                graphs.on_side_stream(device, lambda: step(t_cap))
+            else:
+                if t_cap not in captured:
+                    captured[t_cap] = graphs.StepGraph(lambda: step(t_cap), device, pool=pool,
+                                                       generators=(sampler.generator,))
+                captured[t_cap].replay()
+            p += 1
+        if bool(sampler.done.all()):
+            return
+    if n > 0:
+        sampler.step(logits)
 
 
 def _prefill_full(params: dict, llm_cfg, inputs_embeds: torch.Tensor,
@@ -243,13 +356,14 @@ def generate_im2svg(
     policy: DTypePolicy = DTypePolicy(),
     kernels: bool = True,
     kv_cache_dtype: torch.dtype | None = None,
+    cuda_graphs: bool = True,
 ):
     """Returns (tokens, lengths) of the NEW tokens; callers prepend the
     prompt ids before detokenizing."""
     inputs_embeds, mask = im2svg_prefix(params, cfg, images, prompt_ids, policy=policy)
     return generate(params["svg_transformer"], cfg.llm, inputs_embeds, mask, gen, generator,
                     prompt_ids=prompt_ids, policy=policy, kernels=kernels,
-                    kv_cache_dtype=kv_cache_dtype)
+                    kv_cache_dtype=kv_cache_dtype, cuda_graphs=cuda_graphs)
 
 
 def generate_text2svg(
@@ -263,6 +377,7 @@ def generate_text2svg(
     policy: DTypePolicy = DTypePolicy(),
     kernels: bool = True,
     kv_cache_dtype: torch.dtype | None = None,
+    cuda_graphs: bool = True,
 ):
     """text2svg: the caption's token embeddings are the whole prefix (no
     vision tower). The prompt ids, pads included, are `generate`'s
@@ -271,7 +386,7 @@ def generate_text2svg(
     embeds = cfg.decoder_module.embed_tokens(params["svg_transformer"], input_ids)
     return generate(params["svg_transformer"], cfg.llm, policy.cast(embeds), attention_mask,
                     gen, generator, prompt_ids=input_ids, policy=policy, kernels=kernels,
-                    kv_cache_dtype=kv_cache_dtype)
+                    kv_cache_dtype=kv_cache_dtype, cuda_graphs=cuda_graphs)
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +450,7 @@ def _decode_overlap(params: dict, llm_cfg, cache: dict, last_logits: torch.Tenso
     sampler = BatchSampler(gen, B, V, device, presence, generator)
     ones = torch.ones((B, 1), dtype=torch.int32, device=device)
     for t in range(n):
-        tok = sampler.step(t, last_logits)
+        tok = sampler.step(last_logits)
         decode = t < n - 1 and not bool(sampler.done.all())
         if not decode and t >= n_steps:
             break

@@ -31,6 +31,16 @@ and the admission that later takes the row overwrites all of it. The
 engine inserts under its lock, between two ticks, on the stream the ticks
 run on, so no tick reads a row while it is replaced.
 
+A static decode step (`static_decode_slots`, `write_new_kv_static`; the
+decoders' forward_decode_static) is the linear cache's decode step with
+nothing on the host: the write slot is a device int32 `pos` (1,), the key
+mask stays whole at max_len, and kernel 2 takes the visible slots as device
+`bounds` [t_begin, pos]. Every launch of the step is then the same from one
+token to the next, and generate captures blocks of such steps in a CUDA
+graph (generation/graphs.py), the counterpart of the JAX package's jitted
+while_loop. The serving engine's static tick does the same over the ragged
+cache (`ragged_static_masks`, `ragged_static_bounds`).
+
 The merged decode attention lives with kernel 2 in
 ops/flash_attention.py; the chunk step's attention (1 < S <= 64 new tokens,
 `merged_verify_attention`) is here, in plain PyTorch, as the JAX package
@@ -279,6 +289,28 @@ def write_new_kv_linear(cache: dict, news: dict, idx: int) -> None:
         cache[key][:, :, idx] = new.to(cache[key].dtype)
 
 
+def static_decode_slots(cache: dict, pos: torch.Tensor, window: int | None):
+    """A static decode step's slots on a linear cache, the write slot `pos`
+    an int32 (1,) device tensor: each row's position (B,) int32, the real
+    tokens its cache holds (the key mask's sum, taken before the new slot
+    shows), then the new slot shown in the key mask in place, and kernel
+    2's bounds (2,) int32 [t_begin, pos]: t_begin is max(pos - window + 1,
+    0) under a sliding window (StarCoder2's window_begin), else 0. No host
+    transfer."""
+    positions = cache["kv_mask"].sum(dim=-1, dtype=torch.int32)
+    cache["kv_mask"].index_fill_(1, pos.long(), 1)
+    begin = torch.zeros_like(pos) if window is None else torch.clamp(pos - (window - 1), min=0)
+    return positions, torch.cat([begin, pos])
+
+
+def write_new_kv_static(cache: dict, news: dict, pos: torch.Tensor) -> None:
+    """write_new_kv_linear at the device slot `pos` (1,): each key's
+    (L, B, Hkv[, D]) new-token stack, in place."""
+    idx = pos.long()
+    for key, new in news.items():
+        cache[key].index_copy_(2, idx, new.unsqueeze(2).to(cache[key].dtype))
+
+
 def write_new_kv_linear_multi(cache: dict, news: dict, idx: int) -> None:
     """Write each key's (L, B, W, Hkv[, D]) chunk stack at slots
     [idx, idx + W), in place."""
@@ -332,6 +364,40 @@ def ragged_step_masks(cache: dict, active: torch.Tensor, window: int | None):
         slot = torch.arange(T, device=lengths.device)[None, :]
         old_mask = old_mask * (slot > (lengths - window)[:, None])
     return write_pos, kv_mask, old_mask
+
+
+def ragged_static_masks(cache: dict, active: torch.Tensor, window: int | None):
+    """ragged_step_masks for a static step (the serving engine's captured
+    tick): (write_pos (B,), the old slots' visibility (B, T), kernel 2's
+    bounds (2,) int32), all from the device. The bounds are those the
+    engine's host bookkeeping gives an eager step: from the shortest active
+    row's window start (0 without a window) to the longest active row's
+    length. The cache is not changed; ragged_static_commit shows the new
+    slots after the layers."""
+    T = cache["kv_mask"].shape[1]
+    lengths = cache["lengths"]
+    write_pos = torch.clamp(lengths, 0, T - 1).long()
+    old_mask = cache["kv_mask"]
+    act = active > 0
+    t_hi = torch.where(act, lengths, 0).amax()
+    if window is None:
+        t_lo = torch.zeros_like(t_hi)
+    else:
+        slot = torch.arange(T, device=lengths.device)[None, :]
+        old_mask = old_mask * (slot > (lengths - window)[:, None])
+        shortest = torch.where(act, lengths, torch.iinfo(torch.int32).max).amin()
+        t_lo = torch.clamp(shortest - (window - 1), min=0)
+    return write_pos, old_mask, torch.stack([t_lo, t_hi]).to(torch.int32)
+
+
+def ragged_static_commit(cache: dict, active: torch.Tensor, write_pos: torch.Tensor) -> None:
+    """After a static ragged step's layers: each active row's new slot shown
+    in the key mask and its length advanced, in place (an inactive row's
+    slot stays hidden and its length put)."""
+    rows = torch.arange(write_pos.shape[0], device=write_pos.device)
+    kv_mask = cache["kv_mask"]
+    kv_mask[rows, write_pos] = torch.maximum(kv_mask[rows, write_pos], active.to(torch.int32))
+    cache["lengths"].add_(active.to(torch.int32))
 
 
 def ragged_key_bounds(cache: dict, key_bounds, window: int | None = None) -> tuple[int, int]:

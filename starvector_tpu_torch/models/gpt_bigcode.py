@@ -276,11 +276,13 @@ def _prefill_block(p, cfg, x, layer_cache, kv_mask, idx, policy, kernels):
     return _mlp(p, cfg, x, policy, kernels)
 
 
-def _decode_layer_fn(cfg: GPTBigCodeConfig, old_mask, idx: int, policy, kernels: bool):
+def _decode_layer_fn(cfg: GPTBigCodeConfig, old_mask, idx: int | None, policy, kernels: bool,
+                     bounds: torch.Tensor | None = None, t_cap: int | None = None):
     """Per-layer single-token decode for decode_common.decode_scan: ln_1 ->
     fused c_attn split -> merged-softmax attention (kernel 2) over the
     cache's first idx slots (with their scales for an int8 cache) ->
-    residual MLP."""
+    residual MLP. idx None: the whole cache, its visible slots kernel 2's
+    device `bounds` (a static step), t_cap their host cap."""
     H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
     scale = D**-0.5
 
@@ -292,7 +294,7 @@ def _decode_layer_fn(cfg: GPTBigCodeConfig, old_mask, idx: int, policy, kernels:
             q.unflatten(-1, (Hkv, H // Hkv, D)), k_new.unflatten(-1, (Hkv, D)),
             v_new.unflatten(-1, (Hkv, D)), lk[:, :idx], lv[:, :idx], old_mask, scale,
             None if lks is None else lks[:, :idx], None if lvs is None else lvs[:, :idx],
-            kernels=kernels,
+            bounds=bounds, t_cap=t_cap, kernels=kernels,
         )
         h = h + dense(layer_p["attn"]["c_proj"], out, policy, kernels=kernels)
         return (_mlp(layer_p, cfg, h, policy, kernels), k_new.unflatten(-1, (Hkv, D)),
@@ -468,6 +470,29 @@ def forward(
     return logits, cache
 
 
+def forward_decode_static(params: dict, cfg: GPTBigCodeConfig, inputs_embeds: torch.Tensor,
+                          cache: dict, pos: torch.Tensor, *, t_cap: int,
+                          policy: DTypePolicy = DTypePolicy(), kernels: bool = True):
+    """The cached decode step (forward's S == 1 branch) with nothing on the
+    host: the new token (B, 1, E) goes to slot `pos`, an int32 (1,) device
+    tensor, at the position its row's key mask counts; kernel 2 reads the
+    whole cache with the device bounds [0, pos], its grid planned at t_cap
+    >= pos (decode_common.static_decode_slots); the new k/v are written at
+    pos after the layers. The caller advances pos. Every launch is the same
+    from one step to the next, so generate replays these steps as a CUDA
+    graph. Returns the logits (B, V) fp32; the cache changes in place (its
+    host `index` is not read or moved)."""
+    x = policy.cast(inputs_embeds)
+    positions, bounds = dc.static_decode_slots(cache, pos, None)
+    position_ids = torch.clamp(positions[:, None], 0, cfg.n_positions - 1)
+    x = x + policy.cast(gathered(params["wpe"])[position_ids])
+    x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
+        cfg, cache["kv_mask"], None, policy, kernels, bounds=bounds, t_cap=t_cap))
+    dc.write_new_kv_static(cache, news, pos)
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(gathered(params["wte"])).T)[:, 0]
+
+
 def init_ragged_cache(cfg: GPTBigCodeConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                       device="cpu") -> dict:
     """Cache with per-row lengths (decode_common.init_ragged_cache)."""
@@ -501,6 +526,27 @@ def forward_ragged_decode(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     cache["lengths"] = cache["lengths"] + active.to(torch.int32)
     x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
     return matmul_f32(policy.cast(x), policy.cast(table).T)[:, 0], cache
+
+
+def forward_ragged_decode_static(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.Tensor,
+                                 cache: dict, active: torch.Tensor, *, t_cap: int,
+                                 policy: DTypePolicy = DTypePolicy(), kernels: bool = True):
+    """forward_ragged_decode with nothing on the host (the serving engine's
+    captured tick): kernel 2 reads the whole cache with the key bounds the
+    rows' lengths give on the device (decode_common.ragged_static_masks),
+    its grid planned at t_cap, at least every active row's length; the key
+    mask and lengths are written in place. Returns (B, V) fp32 logits."""
+    table = gathered(params["wte"])
+    x = policy.cast(table[token_ids[:, None]])  # (B, 1, E)
+    positions = torch.clamp(cache["lengths"], 0, cfg.n_positions - 1)[:, None]
+    x = x + policy.cast(gathered(params["wpe"])[positions])
+    write_pos, old_mask, bounds = dc.ragged_static_masks(cache, active, None)
+    x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
+        cfg, old_mask, None, policy, kernels, bounds=bounds, t_cap=t_cap))
+    dc.write_new_kv_ragged(cache, news, write_pos)
+    dc.ragged_static_commit(cache, active, write_pos)
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    return matmul_f32(policy.cast(x), policy.cast(table).T)[:, 0]
 
 
 def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.Tensor,

@@ -270,15 +270,20 @@ def window_begin(cfg: StarCoder2Config, idx: int) -> int:
     return 0 if cfg.sliding_window is None else max(idx - cfg.sliding_window + 1, 0)
 
 
-def _decode_layer_fn(cfg: StarCoder2Config, old_mask, idx: int, rope, policy, kernels: bool,
-                     t_begin: int | None = None):
+def _decode_layer_fn(cfg: StarCoder2Config, old_mask, idx: int | None, rope, policy,
+                     kernels: bool, t_begin: int | None = None,
+                     bounds: torch.Tensor | None = None, t_cap: int | None = None):
     """Per-layer single-token decode for decode_common.decode_scan:
     input_layernorm -> q/k/v with RoPE -> merged-softmax attention (kernel 2)
     over the cache slots [t_begin, idx) (t_begin: window_begin(idx) unless
-    given) -> residual MLP."""
+    given) -> residual MLP. idx None: the whole cache, its visible slots
+    kernel 2's device `bounds` (a static step), t_cap their host cap."""
     H, D, Hkv = cfg.num_attention_heads, cfg.head_dim, cfg.kv_heads
     scale = D**-0.5
-    t_begin = window_begin(cfg, idx) if t_begin is None else t_begin
+    if bounds is not None:
+        t_begin = 0
+    elif t_begin is None:
+        t_begin = window_begin(cfg, idx)
 
     def fn(layer_p, h, lk, lv, lks=None, lvs=None):
         B = h.shape[0]
@@ -287,7 +292,8 @@ def _decode_layer_fn(cfg: StarCoder2Config, old_mask, idx: int, rope, policy, ke
         out = merged_decode_attention(
             q[:, 0].reshape(B, Hkv, H // Hkv, D), k_new[:, 0], v_new[:, 0], lk[:, :idx],
             lv[:, :idx], old_mask, scale, None if lks is None else lks[:, :idx],
-            None if lvs is None else lvs[:, :idx], t_begin=t_begin, kernels=kernels)
+            None if lvs is None else lvs[:, :idx], t_begin=t_begin, bounds=bounds,
+            t_cap=t_cap, kernels=kernels)
         h = h + dense(layer_p["attn"]["o_proj"], out, policy, kernels=kernels)
         return _mlp(layer_p, cfg, h, policy, kernels), k_new[:, 0], v_new[:, 0]
 
@@ -449,6 +455,29 @@ def forward(
     return logits, cache
 
 
+def forward_decode_static(params: dict, cfg: StarCoder2Config, inputs_embeds: torch.Tensor,
+                          cache: dict, pos: torch.Tensor, *, t_cap: int,
+                          policy: DTypePolicy = DTypePolicy(), kernels: bool = True):
+    """The cached decode step (forward's S == 1 branch) with nothing on the
+    host, as gpt_bigcode.forward_decode_static: the new token at slot `pos`
+    (int32 (1,) on the device), RoPE at the position its row's key mask
+    counts, kernel 2 over the whole cache with the device bounds
+    [max(pos - window + 1, 0), pos] (window_begin on the device), its grid
+    planned at t_cap >= pos. Returns the logits (B, V) fp32; the cache
+    changes in place."""
+    x = policy.cast(inputs_embeds)
+    positions, bounds = dc.static_decode_slots(cache, pos, cfg.sliding_window)
+    positions = torch.clamp(positions[:, None], 0, cfg.max_position_embeddings - 1)
+    rope = rope_tables(positions, rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                                   device=x.device))
+    x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
+        cfg, cache["kv_mask"], None, rope, policy, kernels, bounds=bounds, t_cap=t_cap))
+    dc.write_new_kv_static(cache, news, pos)
+    x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
+    return matmul_f32(policy.cast(x),
+                      policy.cast(gathered(lm_head_table(params, cfg))).T)[:, 0]
+
+
 def forward_ragged_decode(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,
                           cache: dict, active: torch.Tensor, *,
                           policy: DTypePolicy = DTypePolicy(), kernels: bool = True,
@@ -474,6 +503,28 @@ def forward_ragged_decode(params: dict, cfg: StarCoder2Config, token_ids: torch.
     x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
     return matmul_f32(policy.cast(x),
                       policy.cast(gathered(lm_head_table(params, cfg))).T)[:, 0], cache
+
+
+def forward_ragged_decode_static(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,
+                                 cache: dict, active: torch.Tensor, *, t_cap: int,
+                                 policy: DTypePolicy = DTypePolicy(), kernels: bool = True):
+    """forward_ragged_decode with nothing on the host (the serving engine's
+    captured tick), as gpt_bigcode.forward_ragged_decode_static: RoPE at
+    each row's length, the window per row in its key mask and kernel 2's
+    device bounds from the shortest active row's window start
+    (decode_common.ragged_static_masks), the grid planned at t_cap; the key
+    mask and lengths written in place. Returns (B, V) fp32 logits."""
+    x = policy.cast(embed_tokens(params, token_ids[:, None]))  # (B, 1, E)
+    rope = rope_tables(cache["lengths"][:, None], rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                                                   device=x.device))
+    write_pos, old_mask, bounds = dc.ragged_static_masks(cache, active, cfg.sliding_window)
+    x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
+        cfg, old_mask, None, rope, policy, kernels, bounds=bounds, t_cap=t_cap))
+    dc.write_new_kv_ragged(cache, news, write_pos)
+    dc.ragged_static_commit(cache, active, write_pos)
+    x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
+    return matmul_f32(policy.cast(x),
+                      policy.cast(gathered(lm_head_table(params, cfg))).T)[:, 0]
 
 
 def forward_ragged_verify(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,

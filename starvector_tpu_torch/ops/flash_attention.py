@@ -29,7 +29,11 @@ Kernel 2, `decode_attention` (csrc/decode_attention.cu)
     (mma.sync, P rounded to bf16 before P V as the JAX function rounds it),
     fp32 queries on the CUDA cores (see the source's header). An int8 cache
     (codes with per (row, position, KV head) fp32 k_scale / v_scale, the JAX
-    package's init_cache(dtype=int8)) takes its own instantiations.
+    package's init_cache(dtype=int8)) takes its own instantiations. Its key
+    bounds may come from the device (`bounds`, an int32 [t_begin, t_end]
+    the kernel reads at entry; the grid planned at a host cap t_cap): the
+    static decode steps that generate and the serving engine replay as CUDA
+    graphs launch it so, with the write index on the device.
 
 Kernel 1 with the logsumexp, `flash_prefill_with_lse` (csrc/flash_prefill.cu)
     Replaces the Pallas TPU kernels `flash_prefill_with_lse` ->
@@ -504,12 +508,15 @@ def flash_prefill_trainable(q, k, v, kv_mask, q_offset: int = 0, *, causal: bool
 
 def decode_attention_plain(qg, k_cache, v_cache, kv_mask, *, k_new=None, v_new=None,
                            k_scale=None, v_scale=None, t_begin: int = 0,
-                           t_end: int | None = None, scale: float | None = None):
+                           t_end: int | None = None, bounds: torch.Tensor | None = None,
+                           scale: float | None = None):
     """Plain version of kernel 2, step for step the JAX
     merged_decode_attention: fp32 scores over the visible cache (times
     k_scale for an int8 cache), the self-score merged into one softmax, the
     probabilities (times v_scale for an int8 cache) cast to the compute
-    dtype for the product with V, the self term in fp32. Returns
+    dtype for the product with V, the self term in fp32. `bounds` (an int32
+    [t_begin, t_end] tensor) takes the key bounds from the device, with
+    tensor comparisons only (no host read), `t_end` then their cap. Returns
     (B, Hkv, G, D)."""
     B, Hkv, G, D = qg.shape
     T = k_cache.shape[1]
@@ -517,7 +524,11 @@ def decode_attention_plain(qg, k_cache, v_cache, kv_mask, *, k_new=None, v_new=N
     scale = D**-0.5 if scale is None else scale
     t_end = T if t_end is None else min(int(t_end), T)
     pos = torch.arange(T, device=qg.device)[None, :]
-    visible = (kv_mask > 0) & (pos >= int(t_begin)) & (pos < t_end)
+    visible = (kv_mask > 0) & (pos < t_end)
+    if bounds is None:
+        visible &= pos >= int(t_begin)
+    else:
+        visible &= (pos >= bounds[0]) & (pos < bounds[1])
     s_c = einsum_f32("bkgd,btkd->bkgt", qg, k_cache.to(dt)) * scale
     if k_scale is not None:
         s_c = s_c * k_scale.permute(0, 2, 1)[:, :, None, :]
@@ -603,6 +614,18 @@ def decode_splits(B: int, Hkv: int, T: int, sms: int) -> tuple[int, int]:
 _DECODE_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
+def reserve_decode_scratch(device: torch.device, B: int, Hkv: int, G: int, D: int,
+                           t_cap: int) -> None:
+    """Grow kernel 2's scratch for a launch of B rows over t_cap keys, the
+    largest a CUDA graph about to be captured will make (inside a capture
+    the scratch cannot grow). Nothing on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda" or B == 0:
+        return
+    splits, _ = decode_splits(B, Hkv, max(t_cap, 0), _sm_count(device))
+    _decode_scratch(device, B * Hkv, B * Hkv * splits * decode_partial_floats(G, D))
+
+
 def _decode_scratch(device: torch.device, n_tickets: int,
                     n_partials: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(tickets, workspace) for a launch of n_tickets (row, KV head) pairs
@@ -634,6 +657,7 @@ def decode_attention(
     v_scale: torch.Tensor | None = None,  # (B, T, Hkv) fp32
     t_begin: int = 0,
     t_end: int | None = None,
+    bounds: torch.Tensor | None = None,  # (2,) int32 [t_begin, t_end] on the device
     scale: float | None = None,
     kernels: bool = True,
 ) -> torch.Tensor:
@@ -641,16 +665,30 @@ def decode_attention(
     slots (t_begin <= t < t_end, kv_mask set), plus the self token when
     k_new/v_new are given. An int8 cache comes with its k_scale / v_scale.
     Returns (B, Hkv, G, D) in qg's dtype. The split-KV grid takes
-    decode_splits' chunks for this card."""
+    decode_splits' chunks for this card.
+
+    With `bounds` the kernel reads [t_begin, t_end] from the device at
+    entry: the host's `t_end` is then a cap t_cap >= the device's t_end
+    (default T), the grid is planned at t_cap keys, and `t_begin` must be
+    left 0. Nothing of the launch then depends on where the loop is, so a
+    CUDA graph can replay it step after step."""
     if (k_new is None) != (v_new is None):
         raise ValueError("decode_attention: give both k_new and v_new, or neither")
     B, Hkv, G, D = qg.shape
     T = k_cache.shape[1]
     _check_scales(k_cache, v_cache, k_scale, v_scale, B, T, Hkv, qg.device)
+    if bounds is not None:
+        if int(t_begin) != 0:
+            raise ValueError("decode_attention: t_begin comes from bounds; leave it 0")
+        if bounds.dtype != torch.int32 or tuple(bounds.shape) != (2,) or \
+                bounds.device != qg.device or bounds.stride(0) != 1:
+            raise ValueError(f"decode_attention: bounds must be a contiguous int32 (2,) on "
+                             f"{qg.device}, got {bounds.dtype} {tuple(bounds.shape)} on "
+                             f"{bounds.device}")
     if _use_plain(qg, kernels):
         return decode_attention_plain(qg, k_cache, v_cache, kv_mask, k_new=k_new, v_new=v_new,
                                       k_scale=k_scale, v_scale=v_scale, t_begin=t_begin,
-                                      t_end=t_end, scale=scale)
+                                      t_end=t_end, bounds=bounds, scale=scale)
     if k_cache.shape != (B, T, Hkv, D) or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: q {tuple(qg.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}")
@@ -679,7 +717,8 @@ def decode_attention(
     out = torch.empty((B, Hkv, G, D), dtype=qg.dtype, device=qg.device)
     if B == 0:
         return out
-    t_lo = t_begin - t_begin % DECODE_KEY_TILE
+    # device bounds: the grid covers [0, t_cap); the kernel finds its t_lo
+    t_lo = t_begin - t_begin % DECODE_KEY_TILE if bounds is None else 0
     splits, chunk = decode_splits(B, Hkv, max(t_end - t_lo, 0), _sm_count(qg.device))
     tickets, ws = _decode_scratch(qg.device, B * Hkv,
                                   B * Hkv * splits * decode_partial_floats(G, D))
@@ -693,7 +732,7 @@ def decode_attention(
         qg.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         None if k_new is None else k_new.data_ptr(),
         None if v_new is None else v_new.data_ptr(),
-        kv_mask.data_ptr(),
+        kv_mask.data_ptr(), None if bounds is None else bounds.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), B, Hkv,
         qg.stride(0), qg.stride(1), qg.stride(2),
@@ -716,18 +755,20 @@ decode_attention.int8_launches = 0  # of which with an int8 cache
 
 def merged_decode_attention(qg, k_new, v_new, k_cached, v_cached, old_mask, scale,
                             k_scale=None, v_scale=None, *, t_begin: int = 0,
+                            bounds: torch.Tensor | None = None, t_cap: int | None = None,
                             kernels: bool = True) -> torch.Tensor:
     """The JAX decoder's decode attention (decode_common.merged_decode_attention):
     qg (B, Hkv, G, D), the new token's k_new/v_new (B, Hkv, D), the cache
     before the new token (B, T, Hkv, D) and its visibility old_mask (B, T);
     an int8 cache with its k_scale / v_scale (B, T, Hkv). A sliding window
     comes as `t_begin`, the first visible slot (the JAX decoder folds it
-    into old_mask; the kernel then reads no slot before it). Returns
-    (B, 1, H*D)."""
+    into old_mask; the kernel then reads no slot before it). A static
+    decode step passes the whole cache and its slots [t_begin, t_end) as
+    device `bounds`, t_cap >= t_end. Returns (B, 1, H*D)."""
     B, Hkv, G, D = qg.shape
     out = decode_attention(qg, k_cached, v_cached, old_mask, k_new=k_new, v_new=v_new,
-                           k_scale=k_scale, v_scale=v_scale, t_begin=t_begin, scale=scale,
-                           kernels=kernels)
+                           k_scale=k_scale, v_scale=v_scale, t_begin=t_begin, t_end=t_cap,
+                           bounds=bounds, scale=scale, kernels=kernels)
     return out.reshape(B, 1, Hkv * G * D)
 
 

@@ -136,7 +136,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sv_decode_attention.restype = i32
     lib.sv_decode_attention.argtypes = [
         i32, i32, i32, i32,                  # dtype, cache dtype, G, D
-        vp, vp, vp, vp, vp, vp, vp, vp, vp,  # q, k, v, k_new, v_new, mask, k_scale, v_scale, out
+        vp, vp, vp, vp, vp, vp, vp,          # q, k, v, k_new, v_new, mask, bounds
+        vp, vp, vp,                          # k_scale, v_scale, out
         vp, vp, i32, i32,                             # workspace, tickets, B, Hkv
         i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q, k, v strides
         i64, i64, i64, i64,                           # k_new, v_new strides

@@ -4,7 +4,9 @@ starvector_tpu/ops/sampling.py).
 
 The logit transforms are pure functions of the logits and match the JAX
 package's. The categorical draw takes an explicit `torch.Generator`, so its
-random numbers differ from `jax.random`'s.
+random numbers differ from `jax.random`'s. Every op takes its knobs as
+numbers or as tensors on the logits' device and reads nothing back, so a
+decode step that samples can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -92,6 +94,16 @@ def apply_repetition_penalty(logits, presence, penalty):
     return torch.where(penalty == 1.0, logits, out)
 
 
+def categorical(probs: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """One draw a row (B,) from probs (B, V): the argmax of probs over
+    Exp(1) noise, which is torch.multinomial's own algorithm for one sample
+    (the same draws from the same generator state), without multinomial's
+    check of the probabilities, a host read that a CUDA graph cannot
+    capture."""
+    noise = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / noise, dim=-1)
+
+
 def pruned_slab(logits: torch.Tensor, *, temperature, top_p, top_k, min_p=None,
                 max_top_k: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX sample_token(pruned=True)'s filter chain: the top-max_top_k
@@ -150,13 +162,13 @@ def sample_token(
     if pruned:
         filtered, slab_ids = pruned_slab(logits, temperature=temperature, top_p=top_p,
                                          top_k=top_k, min_p=min_p, max_top_k=max_top_k)
-        pick = torch.multinomial(torch.softmax(filtered.float(), dim=-1), 1, generator=generator)
-        return torch.where(t <= 0.0, greedy, slab_ids.gather(1, pick)[:, 0])
+        pick = categorical(torch.softmax(filtered.float(), dim=-1), generator)
+        return torch.where(t <= 0.0, greedy, slab_ids.gather(1, pick[:, None])[:, 0])
     filtered = apply_temperature(logits, temperature)
     filtered = apply_top_k(filtered, top_k, max_top_k)
     filtered = apply_top_p(filtered, top_p)
     if min_p is not None:
         filtered = apply_min_p(filtered, min_p)
     probs = torch.softmax(filtered.float(), dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    sampled = categorical(probs, generator)
     return torch.where(t <= 0.0, greedy, sampled)

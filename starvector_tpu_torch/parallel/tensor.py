@@ -205,13 +205,15 @@ class ServingGroup:
 
 
 def serving_mesh_config(axes: dict) -> MeshConfig:
-    """The serving mesh of a serve config's `mesh:` block ({axis: size});
-    the unnamed axes 1 (fsdp too: a serving mesh absorbs no ranks).
-    Raises ValueError for a name that is not a mesh axis."""
+    """The serving mesh of a serve config's `mesh:` block ({axis: size}),
+    as the JAX worker's MeshConfig(**axes): the unnamed axes 1, except fsdp,
+    which stays -1 and absorbs the ranks the named axes leave ({"tensor": 4}
+    on 8 ranks is fsdp 2 x tensor 4). Raises ValueError for a name that is
+    not a mesh axis."""
     unknown = sorted(set(axes) - set(MESH_AXES))
     if unknown:
         raise ValueError(f"serving mesh axes {unknown}: not among {MESH_AXES}")
-    return MeshConfig(**{a: int(axes.get(a, 1)) for a in MESH_AXES})
+    return MeshConfig(**{a: int(v) for a, v in axes.items()})
 
 
 def serving_group(axes: dict, device_type: str | None = None) -> ServingGroup:

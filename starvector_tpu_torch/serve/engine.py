@@ -32,11 +32,27 @@ Iteration-level scheduling over a slot-based ragged KV cache:
     round emits 1 to spec_drafts + 1 tokens a slot; the engine times both
     tick kinds and falls back to plain ticks while verify ticks are slower.
 
-The JAX engine jits each device function and donates its buffers; here
-they run eagerly and write the ragged cache and the sampling tables in
-place. Both threads launch on the device's current stream, so an
-admission's prefill queues between two ticks' launches and its insert,
-taken under the lock, lands after the tick before it. Random draws come
+The JAX engine jits each device function and donates its buffers (its
+tick is one `lax.scan` over steps_per_tick steps, its engine.py:357); here
+the single-process engine's sampling tick is a static tick
+(`_static_ragged_step`: the decoders' forward_ragged_decode_static, kernel
+2's key bounds from the rows' lengths on the device, the knobs in static
+buffers that `_knobs` refills with copy_ when the slot composition
+changes), captured on the card as one CUDA graph per (power-of-two key
+bucket, greedy_only) (generation/graphs.py) and replayed, the first tick
+run uncaptured as the warm-up; on the CPU it runs uncaptured.
+`cuda_graphs=False` runs the eager tick (`_fused_ragged_step`, host key
+bounds) instead. Verify ticks, beam ticks and every tick of a serving
+group stay eager: a group's broadcasts and gathers go over gloo, which no
+CUDA graph can capture. An eager tick may rebind the cache's key mask and
+lengths; the next static tick copies them back into the tensors its graphs
+captured (`_pin_state`). Everything else runs eagerly and writes the
+ragged cache and the sampling tables in place. Both threads launch on the
+device's current stream (a capture runs on a side stream, ordered after
+the current one, and holds graphs.CAPTURE_LOCK, which an admission's
+prefill takes too), so an admission's prefill queues between two ticks'
+launches and its insert, taken under the lock, lands after the tick before
+it. Random draws come
 from two seeded torch.Generators on the device, one for the ticks and one
 for the admissions, so sampled tokens are reproducible for a seed but not
 equal to the JAX engine's.
@@ -68,6 +84,7 @@ import torch
 import torch.nn.functional as F
 
 from starvector_tpu_torch import require_device
+from starvector_tpu_torch.generation import graphs
 from starvector_tpu_torch.generation.beam import _top_k
 from starvector_tpu_torch.generation.speculative import (
     _append_accepted, _lookup_draft, generate_greedy_speculative,
@@ -185,20 +202,18 @@ class _BeamGroup:
         return max(cands, key=lambda x: x[0])[1]
 
 
-def _bucket_len(n: int, lo: int = 64) -> int:
-    """A prompt length rounded up to a power-of-two bucket (the JAX engine's
-    compile bound; here it keeps a request's padding, and so its ids,
-    independent of which requests share its admission)."""
-    b = lo
-    while b < n:
-        b *= 2
-    return b
+# a prompt length rounded up to a power-of-two bucket (the JAX engine's
+# compile bound; here it keeps a request's padding, and so its ids,
+# independent of which requests share its admission), and a static tick's
+# key bound
+_bucket_len = graphs.bucket_len
 
 
 @dataclasses.dataclass
 class _Knobs:
     """Per-slot sampling knobs on the device, (B,) each; bias (B, max_bias).
-    Rebuilt only when the slot composition changes."""
+    Static buffers, refilled (copy_) only when the slot composition
+    changes, so that a captured tick reads each new composition's."""
 
     active: torch.Tensor
     temps: torch.Tensor
@@ -296,6 +311,26 @@ def _fused_ragged_step(dec, params: dict, cfg, tokens, cache: dict, kn: _Knobs, 
         counts.index_put_((rows, tokens), kn.active, accumulate=True)
         out.append(tokens)
     return torch.stack(out, dim=1)
+
+
+def _static_ragged_step(dec, params: dict, cfg, tokens, out, cache: dict, kn: _Knobs, generator,
+                        counts, prompt_presence, *, policy: DTypePolicy, max_top_k: int,
+                        n_steps: int, kernels: bool, t_cap: int):
+    """_fused_ragged_step on static buffers, the tick a CUDA graph captures:
+    tokens (B,) in, overwritten with the last step's; out (B, n_steps) the
+    tick's tokens. Each step is forward_ragged_decode_static (kernel 2's
+    key bounds from the rows' lengths on the device, its grid planned at
+    t_cap, at least every active row's length after the tick), then the
+    slots' sampling; counts counts each active slot's tokens. Nothing is
+    allocated outside the step's own temporaries and nothing is read back."""
+    cur = tokens
+    for i in range(n_steps):
+        logits = dec.forward_ragged_decode_static(params, cfg, cur, cache, kn.active, t_cap=t_cap,
+                                                  policy=policy, kernels=kernels)
+        cur = _tick_sample(logits, kn, counts, prompt_presence, generator, max_top_k)
+        counts.scatter_add_(1, cur[:, None], kn.active[:, None])  # rows distinct: index_put_'s sum
+        out[:, i] = cur
+    tokens.copy_(cur)
 
 
 def _fused_verify_multi(dec, params: dict, cfg, tokens, cache: dict, ctx, ctx_len,
@@ -454,10 +489,13 @@ class ServeEngine:
         device="cuda",
         kernels: bool = True,
         group=None,               # parallel/tensor.py::ServingGroup of a sharded serving rank
+        cuda_graphs: bool = True,
     ):
         """`params` is the decoder's tree on `device`. Runs on the card;
         `device="cpu"` asks for the CPU. `kernels=False` runs the kernels'
-        plain versions.
+        plain versions. `cuda_graphs` (the default) runs the sampling ticks
+        of a single-process engine as static ticks, replayed as CUDA graphs
+        on the card (uncaptured on the CPU); False runs the eager tick.
 
         With a serving `group` of more than one rank, `params` and
         `llm_cfg` are this rank's (models/starvector.py::serving_params):
@@ -492,6 +530,7 @@ class ServeEngine:
         self.llm_cfg = llm_cfg
         self.policy = policy
         self.kernels = kernels
+        self.cuda_graphs = cuda_graphs
         self.max_batch = max_batch
         self.max_len = max_len
         self.max_top_k = max_top_k
@@ -937,7 +976,8 @@ class ServeEngine:
         rows = [F.pad(torch.as_tensor(e).to(self.device, self.policy.compute_dtype),
                       (0, 0, 0, max(Pb - P, 0)))[:, :Pb] for e, P in zip(embeds_list, lens)]
         embeds = torch.cat(rows, dim=0)                                        # (k, Pb, E)
-        with self._device_call("prefill", lens=lens, Pb=Pb) as seq:
+        # not beside a tick's capture, whose launch counts would take its kernels
+        with graphs.CAPTURE_LOCK, self._device_call("prefill", lens=lens, Pb=Pb) as seq:
             small, logits = self._prefill_embeds(self._share(embeds), lens, Pb)
         self._stats["prefill_chunks"] += max(Pb // self.prefill_chunk, 1)
         return small, logits, lens, seq
@@ -1088,6 +1128,17 @@ class ServeEngine:
             self._ctx = torch.full((B, C), -1, dtype=torch.int64, device=self.device)
             self._ctx_len = torch.zeros(B, dtype=torch.int64, device=self.device)
         self._knob_cache = None
+        # the static tick's buffers and its graphs, which capture them: the
+        # cache's tensors and the last tokens as allocated here (_pin_state),
+        # the tick's tokens, the knobs (allocated at the first _knobs)
+        self._pinned = dict(self.cache)
+        self._tick_tokens = self._last_tokens
+        self._tick_out = torch.zeros((B, self.steps_per_tick), dtype=torch.int64,
+                                     device=self.device)
+        self._knob_buf: dict | None = None
+        self._graphs: dict = {}
+        self._graph_pool = None
+        self._graph_warm = False
 
     def _bias_arrays(self, reqs):
         """Per-row logit_bias as (n, max_bias) id / value tensors (-1 = off)."""
@@ -1146,13 +1197,13 @@ class ServeEngine:
     def _knobs(self, reqs) -> _Knobs:
         if self._knob_cache is None:
             # request constants: to the device only when the slot
-            # composition changes
+            # composition changes, into the same buffers every time
             bias_ids, bias_vals = self._bias_arrays(reqs)
 
             def col(fn, dtype):
                 return torch.tensor([fn(r) for r in reqs], dtype=dtype, device=self.device)
 
-            self._knob_cache = _Knobs(
+            fresh = dict(
                 active=col(lambda r: 1 if r is not None else 0, torch.int32),
                 temps=col(lambda r: r.temperature if (r and r.do_sample) else 0.0, torch.float32),
                 top_ps=col(lambda r: r.top_p if r else 1.0, torch.float32),
@@ -1161,7 +1212,13 @@ class ServeEngine:
                 rep_pens=col(lambda r: r.repetition_penalty if r else 1.0, torch.float32),
                 freq_pens=col(lambda r: r.frequency_penalty if r else 0.0, torch.float32),
                 pres_pens=col(lambda r: r.presence_penalty if r else 0.0, torch.float32),
-                bias_ids=bias_ids, bias_vals=bias_vals,
+                bias_ids=bias_ids, bias_vals=bias_vals)
+            if self._knob_buf is None:
+                self._knob_buf = {k: torch.empty_like(v) for k, v in fresh.items()}
+            for k, v in fresh.items():
+                self._knob_buf[k].copy_(v)
+            self._knob_cache = _Knobs(
+                **self._knob_buf,
                 greedy_only=all((not r.do_sample) or r.temperature == 0.0
                                 for r in reqs if r is not None),
                 plain_greedy=all(((not r.do_sample) or r.temperature == 0.0)
@@ -1193,15 +1250,20 @@ class ServeEngine:
         live = [i for i, r in enumerate(reqs) if r is not None]
         self._stats["ticks"] += 1
         t_disp = time.time()
-        bounds = self._key_bounds(live)
-        with self._device_call("step", n=K, key_bounds=bounds, active=[
-                int(r is not None) for r in reqs], check=kn.plain_greedy):
-            nxt = _fused_ragged_step(
-                self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, kn,
-                self._tick_gen, self._counts, self._prompt_presence, policy=self.policy,
-                max_top_k=self.max_top_k, n_steps=K, kernels=self.kernels, key_bounds=bounds,
-                share=self._share)
-        self._last_tokens = nxt[:, -1]
+        if self.group is None and self.cuda_graphs:
+            nxt = self._static_tick(kn, live)
+        else:
+            # eager: a serving group's ticks (their collectives go over
+            # gloo, which no CUDA graph captures), or cuda_graphs=False
+            bounds = self._key_bounds(live)
+            with self._device_call("step", n=K, key_bounds=bounds, active=[
+                    int(r is not None) for r in reqs], check=kn.plain_greedy):
+                nxt = _fused_ragged_step(
+                    self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, kn,
+                    self._tick_gen, self._counts, self._prompt_presence, policy=self.policy,
+                    max_top_k=self.max_top_k, n_steps=K, kernels=self.kernels,
+                    key_bounds=bounds, share=self._share)
+            self._last_tokens = nxt[:, -1]
         nxt = nxt.cpu().numpy()  # (B, K): the tick's one host transfer
         self._stats["dispatch_s"] += time.time() - t_disp
         self._stats["dispatches"] += 1
@@ -1216,6 +1278,53 @@ class ServeEngine:
                     break  # tokens past the stop are discarded
         if self.spec_drafts > 0:
             self._update_tick_rate("plain", kn.greedy_only, tok0, t0)
+
+    def _pin_state(self) -> None:
+        """Put the state a static tick reads back into the tensors its graphs
+        captured: an eager tick (verify, beam, cuda_graphs=False) may have
+        rebound the cache's key mask and lengths and the last tokens."""
+        for key, t in self._pinned.items():
+            if self.cache[key] is not t:
+                t.copy_(self.cache[key])
+                self.cache[key] = t
+        if self._last_tokens is not self._tick_tokens:
+            self._tick_tokens.copy_(self._last_tokens)
+            self._last_tokens = self._tick_tokens
+
+    def _static_tick(self, kn: _Knobs, live: list[int]) -> torch.Tensor:
+        """steps_per_tick static ragged steps into self._tick_out (B, K). On
+        the card: the engine's first one uncaptured on the capture stream
+        (the warm-up), then a CUDA graph a (key bucket, greedy_only),
+        captured at its first use and replayed. The key bucket is the power
+        of two (at most max_len) above every live row's length after the
+        tick; the graphs' kernel-2 grids are planned at it. On the CPU the
+        steps run uncaptured."""
+        K = self.steps_per_tick
+        t_cap = min(_bucket_len(max(self._lens[i] for i in live) + K), self.max_len)
+        self._pin_state()
+
+        def run():
+            _static_ragged_step(
+                self.dec, self.params, self.llm_cfg, self._tick_tokens, self._tick_out,
+                self.cache, kn, self._tick_gen, self._counts, self._prompt_presence,
+                policy=self.policy, max_top_k=self.max_top_k, n_steps=K, kernels=self.kernels,
+                t_cap=t_cap)
+
+        if self.device.type != "cuda":
+            run()
+        elif not self._graph_warm:
+            graphs.on_side_stream(self.device, run)
+            self._graph_warm = True
+        else:
+            key = (t_cap, kn.greedy_only)
+            if key not in self._graphs:
+                graphs.reserve_decode(self.device, self.llm_cfg, self.max_batch, t_cap)
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graphs[key] = graphs.StepGraph(run, self.device, pool=self._graph_pool,
+                                                     generators=(self._tick_gen,))
+            self._graphs[key].replay()
+        return self._tick_out
 
     def _update_tick_rate(self, kind: str, greedy_only: bool, tok0: int, t0: float) -> None:
         """Per-composition EMA of emitted tokens/s for this tick kind. After a

@@ -86,11 +86,10 @@ def test_num_return_sequences_matches_jax(model, monkeypatch, B, cache):
     ref, ref_len = _jax(jcfg, jtree, ids, jkv, num_return_sequences=N_REP)
     one, one_len = _port(tcfg, params, ids, tkv)
 
-    rows = []  # the batch of every decoder call
-    forward = tgbc.forward
-    monkeypatch.setattr(tgbc, "forward",
-                        lambda p, c, x, *a, **kw: rows.append(x.shape[0]) or forward(p, c, x, *a,
-                                                                                      **kw))
+    rows = []  # the batch of every decoder call: the prefill, then the static decode steps
+    for name in ("forward", "forward_decode_static"):
+        monkeypatch.setattr(tgbc, name, lambda p, c, x, *a, _fn=getattr(tgbc, name), **kw:
+                            rows.append(x.shape[0]) or _fn(p, c, x, *a, **kw))
     tokens, lengths = _port(tcfg, params, ids, tkv, num_return_sequences=N_REP)
     np.testing.assert_array_equal(tokens, ref)
     np.testing.assert_array_equal(lengths, ref_len)

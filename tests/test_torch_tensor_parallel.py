@@ -697,5 +697,20 @@ def test_both_serve_configs_map_onto_their_meshes():
             {(128, 18432 // tp, 4608)}
 
 
+def test_serving_mesh_fsdp_absorbs_the_ranks_left():
+    """A serve leaf that does not name fsdp leaves it at -1, as the JAX
+    worker's MeshConfig(**axes) does: {"tensor": 4} on 8 ranks is fsdp 2 x
+    tensor 4 in both packages (it raised before), and named axes that
+    cover the ranks resolve as before."""
+    from starvector_tpu.parallel.mesh import MeshConfig as JMeshConfig
+    from starvector_tpu_torch.parallel.tensor import serving_mesh_config
+
+    assert serving_mesh_config({"tensor": 4}).resolve(8) == \
+        JMeshConfig(tensor=4).resolve(8) == (1, 1, 2, 1, 1, 4)
+    for axes, n in (({"tensor": 4, "data": 2}, 8), ({"stage": 2, "tensor": 2}, 8),
+                    ({"fsdp": 4}, 4), ({}, 1)):
+        assert serving_mesh_config(axes).resolve(n) == JMeshConfig(**axes).resolve(n)
+
+
 if __name__ == "__main__":
     worker_main(JOBS)
