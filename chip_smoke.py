@@ -3160,11 +3160,11 @@ def profile_tick(engine_run, prefill_run, ticks: int, wall: float, wall0: float,
 def tick_times(card: str, label: str, params, cfg, prefixes, policy, dev) -> dict:
     """A serving tick (steps_per_tick 4, the prefixes submitted at once,
     SERVE_NEW greedy tokens each with no stop) of the graphed engine against
-    its eager tick (cuda_graphs=False), each on its own warm engine (the
-    graphed one's graphs captured by the warm-up): the wall a tick is the
-    host clock around a serving run less an admission-only run (1 new
-    token: no tick), over the ticks, in turns (eager, graphed, graphed,
-    eager); the device time a tick torch.profiler's kernel time over the
+    the same static tick uncaptured (cuda_graphs=False), each on its own warm
+    engine (the graphed one's graphs captured by the warm-up): the wall a
+    tick is the host clock around a serving run less an admission-only run
+    (1 new token: no tick), over the ticks, in turns (uncaptured, graphed,
+    graphed, uncaptured); the device time a tick torch.profiler's kernel time over the
     same two runs; busy is device over wall."""
     from starvector_tpu_torch.serve.engine import Request, ServeEngine
 
@@ -3196,7 +3196,7 @@ def tick_times(card: str, label: str, params, cfg, prefixes, policy, dev) -> dic
             torch.cuda.synchronize()
             walls[graphed].append((full - (time.perf_counter() - t)) * 1e3 / ticks)
         out = {}
-        for graphed, name in ((False, "eager"), (True, "graphed")):
+        for graphed, name in ((False, "uncaptured"), (True, "graphed")):
             ticks0 = engines[graphed].stats()["ticks"]
             full = profiled_device_ms(lambda: runs[graphed](SERVE_NEW))
             ticks = engines[graphed].stats()["ticks"] - ticks0
@@ -3217,9 +3217,10 @@ def tick_times(card: str, label: str, params, cfg, prefixes, policy, dev) -> dic
 
     log("serve", f"{card}: {label} serving tick, 4 steps at {len(prefixes)} slots, "
                  f"{SERVE_NEW} greedy tokens a request ({out['graphed']['ticks']} ticks a run): "
-                 f"eager (cuda_graphs=False) {fmt(out['eager'])}; graphed {fmt(out['graphed'])} "
+                 f"uncaptured (cuda_graphs=False) {fmt(out['uncaptured'])}; graphed "
+                 f"{fmt(out['graphed'])} "
                  f"({out['graphs']} graphs captured); walls a tick in turns "
-                 f"{[round(w, 3) for w in out['eager']['walls']]} eager, "
+                 f"{[round(w, 3) for w in out['uncaptured']['walls']]} uncaptured, "
                  f"{[round(w, 3) for w in out['graphed']['walls']]} graphed")
     return out
 

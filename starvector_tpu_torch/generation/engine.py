@@ -21,8 +21,8 @@ DECODE_GRAPH_STEPS replays back to back (`decode_blocks`), and the host tests
 `done` once a block, not once a token. A graph holds one step, not a
 block: a capture costs a step of host time in every call, and graphs of
 16 steps took 3.38 ms a step against 2.09 for one (1B bf16, B = 4, 128
-tokens, on an H100: scripts/graph_block_times.py), while back-to-back
-replays cost the device the same. Steps after every row is done emit pads and change neither
+tokens, on an H100 80GB HBM3 at 700 W; PERF.md section 6), while
+back-to-back replays cost the device the same. Steps after every row is done emit pads and change neither
 tokens nor lengths; the last block is cut short, so no step runs past
 token n - 1. `cuda_graphs=False` runs the same steps uncaptured (the same
 launches, so the same bits); on the CPU they always run uncaptured.

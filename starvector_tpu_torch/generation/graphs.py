@@ -7,10 +7,13 @@ no host round trip a token.
 A `StepGraph` captures static decode steps (one of generate's, the
 decoders' `forward_decode_static`; or the serving engine's static tick:
 every loop-varying scalar on the device, every buffer allocated before the
-capture) once and replays it. Capture and warm-up run on one side stream per device, so that
-the libraries' lazy set-up (cuBLAS's workspace for that stream, the
-kernels' scratch) happens before a capture, never inside one. A capture
-that fails raises; nothing falls back to the eager loop.
+capture) once and replays it. Capture and warm-up run on one side stream
+per device, both under `CAPTURE_LOCK`, so that the libraries' lazy set-up
+(cuBLAS's workspace for that stream, the kernels' scratch) happens before
+a capture, never inside one. A graph holds the kernels' scratch buffers it
+launched with, which a later, larger launch replaces: they are freed only
+with the graph. A capture that fails raises; nothing falls back to the
+eager loop.
 
 Launch counts. A kernel wrapper counts a launch where it launches its
 kernel: inside a capture it runs once and adds one, but nothing is
@@ -120,13 +123,28 @@ def side_stream(device: torch.device) -> torch.cuda.Stream:
 def on_side_stream(device: torch.device, fn):
     """fn() on the side stream, ordered after the work queued on the current
     stream and before the work queued on it later (a warm-up step that
-    must run where the captures will)."""
-    stream, cur = side_stream(device), torch.cuda.current_stream(device)
-    stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
-        out = fn()
-    cur.wait_stream(stream)
+    must run where the captures will). Holds CAPTURE_LOCK, as a capture
+    does: the stream is the process's, and another thread's capture on it
+    would record fn's launches into its graph."""
+    with CAPTURE_LOCK:
+        stream, cur = side_stream(device), torch.cuda.current_stream(device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = fn()
+        cur.wait_stream(stream)
     return out
+
+
+def kernel_scratch() -> list[torch.Tensor]:
+    """The kernels' cached scratch buffers, on every device: kernel 2's
+    tickets and split partials, kernel 14's GEMV's. A launch passes them to
+    its kernel as raw addresses; a buffer that outgrows them replaces them
+    and frees the old ones."""
+    from starvector_tpu_torch.ops import flash_attention as tfa
+    from starvector_tpu_torch.ops import quantization as tq
+
+    return [t for cached in (tfa._DECODE_SCRATCH, tq._GEMV_SCRATCH)
+            for pair in cached.values() for t in pair]
 
 
 class StepGraph:
@@ -135,7 +153,10 @@ class StepGraph:
     `pool` (a torch.cuda.graph_pool_handle shared by graphs that never run
     at once), with the random state of each of `generators` registered, so
     that every replay draws fresh numbers from them as the eager steps
-    would. Raises where the capture fails."""
+    would. Raises where the capture fails. The graph holds the kernels'
+    scratch buffers as they were at its capture (kernel_scratch): its
+    launches keep their addresses, so the buffers live while it does, and
+    a replay after the scratch grew writes only into its own."""
 
     def __init__(self, fn, device: torch.device, *, pool=None, generators=()):
         device = torch.device(device)
@@ -163,6 +184,7 @@ class StepGraph:
                 self.graph.capture_end()
             cur.wait_stream(stream)
             after = launch_counts()
+        self.scratch = kernel_scratch()
         self.launches = collections.Counter(
             {k: v - before[k] for k, v in after.items() if v != before[k]})
         self.replays = 0

@@ -25,7 +25,10 @@ The serving engine (serve/engine.py) admits a prefilled linear cache into
 rows of its ragged cache (`insert_prefill_rows`: the whole row, its slots
 past the prefix zeroed and masked), and each ragged decode step writes
 every row's new token at that row's own length (`ragged_step_masks`,
-`write_new_kv_ragged`). A row that is not active is written at its length
+`write_new_kv_ragged`), then shows it in the key mask and advances the
+row's length, both in place (`ragged_step_commit`), as every commit of a
+ragged cache does: a CUDA graph of the engine's tick holds those tensors.
+A row that is not active is written at its length
 too, but neither its mask nor its length moves: the slot stays invisible,
 and the admission that later takes the row overwrites all of it. The
 engine inserts under its lock, between two ticks, on the stream the ticks
@@ -36,10 +39,10 @@ decoders' forward_decode_static) is the linear cache's decode step with
 nothing on the host: the write slot is a device int32 `pos` (1,), the key
 mask stays whole at max_len, and kernel 2 takes the visible slots as device
 `bounds` [t_begin, pos]. Every launch of the step is then the same from one
-token to the next, and generate captures blocks of such steps in a CUDA
-graph (generation/graphs.py), the counterpart of the JAX package's jitted
+token to the next, and generate captures such a step in a CUDA graph
+(generation/graphs.py), the counterpart of the JAX package's jitted
 while_loop. The serving engine's static tick does the same over the ragged
-cache (`ragged_static_masks`, `ragged_static_bounds`).
+cache (`ragged_static_masks`: kernel 2's bounds from the rows' lengths).
 
 The merged decode attention lives with kernel 2 in
 ops/flash_attention.py; the chunk step's attention (1 < S <= 64 new tokens,
@@ -343,7 +346,7 @@ def commit_verify(cache: dict, n_commit: torch.Tensor) -> None:
     new_len = torch.clamp(lengths + n_commit.to(torch.int32), max=T)
     slot = torch.arange(T, device=lengths.device)[None, :]
     cache["kv_mask"][(slot >= lengths[:, None]) & (slot < new_len[:, None])] = 1
-    cache["lengths"] = new_len
+    lengths.copy_(new_len)
 
 
 def ragged_step_masks(cache: dict, active: torch.Tensor, window: int | None):
@@ -372,7 +375,7 @@ def ragged_static_masks(cache: dict, active: torch.Tensor, window: int | None):
     bounds (2,) int32), all from the device. The bounds are those the
     engine's host bookkeeping gives an eager step: from the shortest active
     row's window start (0 without a window) to the longest active row's
-    length. The cache is not changed; ragged_static_commit shows the new
+    length. The cache is not changed; ragged_step_commit shows the new
     slots after the layers."""
     T = cache["kv_mask"].shape[1]
     lengths = cache["lengths"]
@@ -390,8 +393,8 @@ def ragged_static_masks(cache: dict, active: torch.Tensor, window: int | None):
     return write_pos, old_mask, torch.stack([t_lo, t_hi]).to(torch.int32)
 
 
-def ragged_static_commit(cache: dict, active: torch.Tensor, write_pos: torch.Tensor) -> None:
-    """After a static ragged step's layers: each active row's new slot shown
+def ragged_step_commit(cache: dict, active: torch.Tensor, write_pos: torch.Tensor) -> None:
+    """After a ragged decode step's layers: each active row's new slot shown
     in the key mask and its length advanced, in place (an inactive row's
     slot stays hidden and its length put)."""
     rows = torch.arange(write_pos.shape[0], device=write_pos.device)

@@ -517,13 +517,12 @@ def forward_ragged_decode(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     x = policy.cast(table[token_ids[:, None]])  # (B, 1, E)
     positions = torch.clamp(cache["lengths"], 0, cfg.n_positions - 1)[:, None]
     x = x + policy.cast(gathered(params["wpe"])[positions])
-    write_pos, kv_mask, old_mask = dc.ragged_step_masks(cache, active, None)
+    write_pos, _, old_mask = dc.ragged_step_masks(cache, active, None)
     t_hi = dc.ragged_key_bounds(cache, key_bounds)[1]
     x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
         cfg, old_mask[:, :t_hi], t_hi, policy, kernels))
     dc.write_new_kv_ragged(cache, news, write_pos)
-    cache["kv_mask"] = kv_mask
-    cache["lengths"] = cache["lengths"] + active.to(torch.int32)
+    dc.ragged_step_commit(cache, active, write_pos)
     x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
     return matmul_f32(policy.cast(x), policy.cast(table).T)[:, 0], cache
 
@@ -544,7 +543,7 @@ def forward_ragged_decode_static(params: dict, cfg: GPTBigCodeConfig, token_ids:
     x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
         cfg, old_mask, None, policy, kernels, bounds=bounds, t_cap=t_cap))
     dc.write_new_kv_ragged(cache, news, write_pos)
-    dc.ragged_static_commit(cache, active, write_pos)
+    dc.ragged_step_commit(cache, active, write_pos)
     x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
     return matmul_f32(policy.cast(x), policy.cast(table).T)[:, 0]
 

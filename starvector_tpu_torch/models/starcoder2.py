@@ -493,13 +493,12 @@ def forward_ragged_decode(params: dict, cfg: StarCoder2Config, token_ids: torch.
     lengths = cache["lengths"]
     rope = rope_tables(lengths[:, None], rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                                           device=x.device))
-    write_pos, kv_mask, old_mask = dc.ragged_step_masks(cache, active, cfg.sliding_window)
+    write_pos, _, old_mask = dc.ragged_step_masks(cache, active, cfg.sliding_window)
     t_lo, t_hi = dc.ragged_key_bounds(cache, key_bounds, cfg.sliding_window)
     x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
         cfg, old_mask[:, :t_hi], t_hi, rope, policy, kernels, t_begin=t_lo))
     dc.write_new_kv_ragged(cache, news, write_pos)
-    cache["kv_mask"] = kv_mask
-    cache["lengths"] = lengths + active.to(torch.int32)
+    dc.ragged_step_commit(cache, active, write_pos)
     x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
     return matmul_f32(policy.cast(x),
                       policy.cast(gathered(lm_head_table(params, cfg))).T)[:, 0], cache
@@ -521,7 +520,7 @@ def forward_ragged_decode_static(params: dict, cfg: StarCoder2Config, token_ids:
     x, news = dc.decode_scan(params["layers"], cache, x, _decode_layer_fn(
         cfg, old_mask, None, rope, policy, kernels, bounds=bounds, t_cap=t_cap))
     dc.write_new_kv_ragged(cache, news, write_pos)
-    dc.ragged_static_commit(cache, active, write_pos)
+    dc.ragged_step_commit(cache, active, write_pos)
     x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
     return matmul_f32(policy.cast(x),
                       policy.cast(gathered(lm_head_table(params, cfg))).T)[:, 0]

@@ -610,7 +610,8 @@ def decode_splits(B: int, Hkv: int, T: int, sms: int) -> tuple[int, int]:
 # and the fp32 workspace of the split partials; each grows to the largest
 # launch seen. The kernel leaves the tickets at zero, so launches (and graph
 # replays) share both. Two launches that could run at once (on two streams)
-# must not share them.
+# must not share them. Growing replaces the pair; a CUDA graph that launched
+# with the old one holds it (generation/graphs.py::StepGraph).
 _DECODE_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 

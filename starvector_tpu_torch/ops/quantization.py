@@ -72,6 +72,8 @@ GEMV_TC_COLS, GEMV_TC_K = 128, 64
 _GEMV_TC_SLOTS = _SMS
 _GEMV_TC_WIDE = 64
 _GEMV_TC_PARTIAL = 16 * GEMV_TC_COLS  # floats of one block's part of a shared tile
+# per device: the GEMV's (tickets, workspace), grown by replacement; a CUDA
+# graph that launched with the old pair holds it (generation/graphs.py)
 _GEMV_SCRATCH: dict = {}
 
 

@@ -14,9 +14,10 @@ Iteration-level scheduling over a slot-based ragged KV cache:
     (temperature, top-p, top-k, min-p, repetition / frequency / presence
     penalties, logit_bias) on the top-`max_top_k` slab, with the (B, V)
     count and presence tables on the device. A tick makes one host
-    transfer, of its (B, steps_per_tick) tokens; the slots each step may
-    read are bounded from the engine's host bookkeeping of every slot's
-    length, so no step reads a length back;
+    transfer, of its (B, steps_per_tick) tokens; kernel 2 reads each
+    step's key bounds from the rows' lengths on the device, its grid
+    planned at a power-of-two cap from the engine's host bookkeeping of
+    every slot's length, so no step reads a length back;
   * per-request stop sequences, eos and max tokens are checked on the host;
     emitted tokens stream into per-request queues; a failure fails the
     requests it touched, never the loops;
@@ -34,20 +35,18 @@ Iteration-level scheduling over a slot-based ragged KV cache:
 
 The JAX engine jits each device function and donates its buffers (its
 tick is one `lax.scan` over steps_per_tick steps, its engine.py:357); here
-the single-process engine's sampling tick is a static tick
-(`_static_ragged_step`: the decoders' forward_ragged_decode_static, kernel
-2's key bounds from the rows' lengths on the device, the knobs in static
-buffers that `_knobs` refills with copy_ when the slot composition
-changes), captured on the card as one CUDA graph per (power-of-two key
-bucket, greedy_only) (generation/graphs.py) and replayed, the first tick
-run uncaptured as the warm-up; on the CPU it runs uncaptured.
-`cuda_graphs=False` runs the eager tick (`_fused_ragged_step`, host key
-bounds) instead. Verify ticks, beam ticks and every tick of a serving
-group stay eager: a group's broadcasts and gathers go over gloo, which no
-CUDA graph can capture. An eager tick may rebind the cache's key mask and
-lengths; the next static tick copies them back into the tensors its graphs
-captured (`_pin_state`). Everything else runs eagerly and writes the
-ragged cache and the sampling tables in place. Both threads launch on the
+the sampling tick is a static tick (`_static_ragged_step`: the decoders'
+forward_ragged_decode_static, kernel 2's key bounds from the rows' lengths
+on the device, the knobs in static buffers that `_knobs` refills with
+copy_ when the slot composition changes). The single-process engine
+captures it on the card as one CUDA graph per (power-of-two key bucket,
+greedy_only) (generation/graphs.py) and replays it, the first tick run
+uncaptured as the warm-up. It runs uncaptured on the CPU, with
+`cuda_graphs=False`, and on a serving group, whose broadcasts and gathers
+go over gloo, which no CUDA graph can capture. Verify and beam ticks run
+eagerly. Every tick writes the ragged cache, its key mask and lengths,
+the last tokens and the sampling tables in place, so a graph's tensors
+stay the engine's. Both threads launch on the
 device's current stream (a capture runs on a side stream, ordered after
 the current one, and holds graphs.CAPTURE_LOCK, which an admission's
 prefill takes too), so an admission's prefill queues between two ticks'
@@ -290,44 +289,24 @@ def _same(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _fused_ragged_step(dec, params: dict, cfg, tokens, cache: dict, kn: _Knobs, generator,
-                       counts, prompt_presence, *, policy: DTypePolicy, max_top_k: int,
-                       n_steps: int, kernels: bool, key_bounds: tuple[int, int], share=_same):
-    """`n_steps` ragged decode steps with per-slot sampling: tokens (B,) in,
-    (B, n_steps) out, on the device. counts (B, V) counts each active slot's
-    tokens, in place. key_bounds (t_lo, t_hi): the slots any active row may
-    see at the first step; each step's t_hi is one more. `share` sends the
-    input tokens and each step's tokens to a serving group's followers
-    (_follow_step)."""
-    rows = torch.arange(tokens.shape[0], device=tokens.device)
-    t_lo, t_hi = key_bounds
-    out = []
-    tokens = share(tokens)
-    for i in range(n_steps):
-        logits, cache = dec.forward_ragged_decode(params, cfg, tokens, cache, kn.active,
-                                                  policy=policy, kernels=kernels,
-                                                  key_bounds=(t_lo, t_hi + i))
-        tokens = share(_tick_sample(logits, kn, counts, prompt_presence, generator, max_top_k))
-        counts.index_put_((rows, tokens), kn.active, accumulate=True)
-        out.append(tokens)
-    return torch.stack(out, dim=1)
-
-
 def _static_ragged_step(dec, params: dict, cfg, tokens, out, cache: dict, kn: _Knobs, generator,
                         counts, prompt_presence, *, policy: DTypePolicy, max_top_k: int,
-                        n_steps: int, kernels: bool, t_cap: int):
-    """_fused_ragged_step on static buffers, the tick a CUDA graph captures:
-    tokens (B,) in, overwritten with the last step's; out (B, n_steps) the
-    tick's tokens. Each step is forward_ragged_decode_static (kernel 2's
-    key bounds from the rows' lengths on the device, its grid planned at
-    t_cap, at least every active row's length after the tick), then the
-    slots' sampling; counts counts each active slot's tokens. Nothing is
-    allocated outside the step's own temporaries and nothing is read back."""
-    cur = tokens
+                        n_steps: int, kernels: bool, t_cap: int, share=_same):
+    """`n_steps` ragged decode steps with per-slot sampling on static
+    buffers, the tick a CUDA graph captures: tokens (B,) in, overwritten
+    with the last step's; out (B, n_steps) the tick's tokens. Each step is
+    forward_ragged_decode_static (kernel 2's key bounds from the rows'
+    lengths on the device, its grid planned at t_cap, at least every active
+    row's length after the tick), then the slots' sampling; counts (B, V)
+    counts each active slot's tokens. Nothing is allocated outside the
+    step's own temporaries and nothing is read back. `share` sends the
+    input tokens and each step's tokens to a serving group's followers
+    (_follow_step)."""
+    cur = share(tokens)
     for i in range(n_steps):
         logits = dec.forward_ragged_decode_static(params, cfg, cur, cache, kn.active, t_cap=t_cap,
                                                   policy=policy, kernels=kernels)
-        cur = _tick_sample(logits, kn, counts, prompt_presence, generator, max_top_k)
+        cur = share(_tick_sample(logits, kn, counts, prompt_presence, generator, max_top_k))
         counts.scatter_add_(1, cur[:, None], kn.active[:, None])  # rows distinct: index_put_'s sum
         out[:, i] = cur
     tokens.copy_(cur)
@@ -350,7 +329,8 @@ def _fused_verify_multi(dec, params: dict, cfg, tokens, cache: dict, ctx, ctx_le
     appended to ctx. Returns ((B, n_rounds, W) tokens, (B, n_rounds, W)
     cumulative accept flags as int32, the new ctx_len, the pending tokens
     (B,): each slot's last accepted sample); ctx, counts and the cache
-    change in place. key_bounds as in _fused_ragged_step, each round's t_hi
+    change in place. key_bounds (t_lo, t_hi): the slots any active row may
+    see at the first round (ServeEngine._key_bounds); each round's t_hi is
     W more. `share` sends each round's proposal and accepted counts to a
     serving group's followers (_follow_verify)."""
     B = tokens.shape[0]
@@ -493,9 +473,9 @@ class ServeEngine:
     ):
         """`params` is the decoder's tree on `device`. Runs on the card;
         `device="cpu"` asks for the CPU. `kernels=False` runs the kernels'
-        plain versions. `cuda_graphs` (the default) runs the sampling ticks
-        of a single-process engine as static ticks, replayed as CUDA graphs
-        on the card (uncaptured on the CPU); False runs the eager tick.
+        plain versions. `cuda_graphs` (the default) replays a single-process
+        engine's sampling ticks as CUDA graphs on the card; False runs the
+        same static ticks uncaptured, as the CPU and a serving group do.
 
         With a serving `group` of more than one rank, `params` and
         `llm_cfg` are this rank's (models/starvector.py::serving_params):
@@ -852,18 +832,17 @@ class ServeEngine:
                                torch.tensor(cmd["lens"]))
 
     def _follow_step(self, cmd: dict) -> None:
-        """_fused_ragged_step's forwards, fed the leader's tokens; with
+        """_static_ragged_step's forwards, fed the leader's tokens; with
         `check` (plain greedy traffic) each token must be this rank's own
         argmax on every active row."""
         B = self.max_batch
         active = torch.tensor(cmd["active"], dtype=torch.int32, device=self.device)
         tokens = self._receive((B,), torch.int64)
-        t_lo, t_hi = cmd["key_bounds"]
         agree = torch.ones(B, dtype=torch.bool, device=self.device)
-        for i in range(cmd["n"]):
-            logits, _ = self.dec.forward_ragged_decode(
-                self.params, self.llm_cfg, tokens, self.cache, active, policy=self.policy,
-                kernels=self.kernels, key_bounds=(t_lo, t_hi + i))
+        for _ in range(cmd["n"]):
+            logits = self.dec.forward_ragged_decode_static(
+                self.params, self.llm_cfg, tokens, self.cache, active, t_cap=cmd["t_cap"],
+                policy=self.policy, kernels=self.kernels)
             tokens = self._receive((B,), torch.int64)
             if cmd["check"]:
                 agree &= (logits.argmax(-1) == tokens) | (active == 0)
@@ -1128,11 +1107,8 @@ class ServeEngine:
             self._ctx = torch.full((B, C), -1, dtype=torch.int64, device=self.device)
             self._ctx_len = torch.zeros(B, dtype=torch.int64, device=self.device)
         self._knob_cache = None
-        # the static tick's buffers and its graphs, which capture them: the
-        # cache's tensors and the last tokens as allocated here (_pin_state),
-        # the tick's tokens, the knobs (allocated at the first _knobs)
-        self._pinned = dict(self.cache)
-        self._tick_tokens = self._last_tokens
+        # the static tick's graphs and the buffers they capture besides the
+        # above: the tick's tokens, the knobs (allocated at the first _knobs)
         self._tick_out = torch.zeros((B, self.steps_per_tick), dtype=torch.int64,
                                      device=self.device)
         self._knob_buf: dict | None = None
@@ -1175,8 +1151,9 @@ class ServeEngine:
         return done
 
     def _key_bounds(self, idxs) -> tuple[int, int]:
-        """(t_lo, t_hi) of the slots rows `idxs` may see now: from the
-        shortest row's window start to the longest row's length."""
+        """(t_lo, t_hi) of the slots rows `idxs` may see now (a verify or
+        beam tick's host key bounds): from the shortest row's window start
+        to the longest row's length."""
         lens = [self._lens[i] for i in idxs]
         t_lo = 0 if self.window is None else max(min(lens) - self.window + 1, 0)
         return t_lo, max(lens)
@@ -1250,20 +1227,12 @@ class ServeEngine:
         live = [i for i, r in enumerate(reqs) if r is not None]
         self._stats["ticks"] += 1
         t_disp = time.time()
-        if self.group is None and self.cuda_graphs:
-            nxt = self._static_tick(kn, live)
-        else:
-            # eager: a serving group's ticks (their collectives go over
-            # gloo, which no CUDA graph captures), or cuda_graphs=False
-            bounds = self._key_bounds(live)
-            with self._device_call("step", n=K, key_bounds=bounds, active=[
-                    int(r is not None) for r in reqs], check=kn.plain_greedy):
-                nxt = _fused_ragged_step(
-                    self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, kn,
-                    self._tick_gen, self._counts, self._prompt_presence, policy=self.policy,
-                    max_top_k=self.max_top_k, n_steps=K, kernels=self.kernels,
-                    key_bounds=bounds, share=self._share)
-            self._last_tokens = nxt[:, -1]
+        # kernel 2's key cap: the power of two (at most max_len) above every
+        # live row's length after the tick
+        t_cap = min(_bucket_len(max(self._lens[i] for i in live) + K), self.max_len)
+        with self._device_call("step", n=K, t_cap=t_cap, active=[
+                int(r is not None) for r in reqs], check=kn.plain_greedy):
+            nxt = self._static_tick(kn, t_cap)
         nxt = nxt.cpu().numpy()  # (B, K): the tick's one host transfer
         self._stats["dispatch_s"] += time.time() - t_disp
         self._stats["dispatches"] += 1
@@ -1279,38 +1248,22 @@ class ServeEngine:
         if self.spec_drafts > 0:
             self._update_tick_rate("plain", kn.greedy_only, tok0, t0)
 
-    def _pin_state(self) -> None:
-        """Put the state a static tick reads back into the tensors its graphs
-        captured: an eager tick (verify, beam, cuda_graphs=False) may have
-        rebound the cache's key mask and lengths and the last tokens."""
-        for key, t in self._pinned.items():
-            if self.cache[key] is not t:
-                t.copy_(self.cache[key])
-                self.cache[key] = t
-        if self._last_tokens is not self._tick_tokens:
-            self._tick_tokens.copy_(self._last_tokens)
-            self._last_tokens = self._tick_tokens
-
-    def _static_tick(self, kn: _Knobs, live: list[int]) -> torch.Tensor:
-        """steps_per_tick static ragged steps into self._tick_out (B, K). On
-        the card: the engine's first one uncaptured on the capture stream
-        (the warm-up), then a CUDA graph a (key bucket, greedy_only),
-        captured at its first use and replayed. The key bucket is the power
-        of two (at most max_len) above every live row's length after the
-        tick; the graphs' kernel-2 grids are planned at it. On the CPU the
-        steps run uncaptured."""
-        K = self.steps_per_tick
-        t_cap = min(_bucket_len(max(self._lens[i] for i in live) + K), self.max_len)
-        self._pin_state()
-
+    def _static_tick(self, kn: _Knobs, t_cap: int) -> torch.Tensor:
+        """steps_per_tick static ragged steps into self._tick_out (B, K),
+        kernel 2's grids planned at t_cap. On the card, for a single-process
+        engine with cuda_graphs: the engine's first tick uncaptured on the
+        capture stream (the warm-up), then a CUDA graph a (t_cap,
+        greedy_only), captured at its first use, after kernel 2's scratch is
+        reserved for max_len keys, and replayed. Otherwise (the CPU,
+        cuda_graphs=False, a serving group) the steps run uncaptured."""
         def run():
             _static_ragged_step(
-                self.dec, self.params, self.llm_cfg, self._tick_tokens, self._tick_out,
+                self.dec, self.params, self.llm_cfg, self._last_tokens, self._tick_out,
                 self.cache, kn, self._tick_gen, self._counts, self._prompt_presence,
-                policy=self.policy, max_top_k=self.max_top_k, n_steps=K, kernels=self.kernels,
-                t_cap=t_cap)
+                policy=self.policy, max_top_k=self.max_top_k, n_steps=self.steps_per_tick,
+                kernels=self.kernels, t_cap=t_cap, share=self._share)
 
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.cuda_graphs or self.group is not None:
             run()
         elif not self._graph_warm:
             graphs.on_side_stream(self.device, run)
@@ -1318,7 +1271,7 @@ class ServeEngine:
         else:
             key = (t_cap, kn.greedy_only)
             if key not in self._graphs:
-                graphs.reserve_decode(self.device, self.llm_cfg, self.max_batch, t_cap)
+                graphs.reserve_decode(self.device, self.llm_cfg, self.max_batch, self.max_len)
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
                 self._graphs[key] = graphs.StepGraph(run, self.device, pool=self._graph_pool,
@@ -1358,12 +1311,13 @@ class ServeEngine:
         t_disp = time.time()
         bounds = self._key_bounds(live)
         with self._device_call("verify", n=M, W=self.spec_drafts + 1, key_bounds=bounds):
-            toks, chain, self._ctx_len, self._last_tokens = _fused_verify_multi(
+            toks, chain, self._ctx_len, pending = _fused_verify_multi(
                 self.dec, self.params, self.llm_cfg, self._last_tokens, self.cache, self._ctx,
                 self._ctx_len, kn, self._tick_gen, self._counts, self._prompt_presence,
                 policy=self.policy, max_top_k=self.max_top_k, n_rounds=M,
                 draft_len=self.spec_drafts, accept_margin=self.spec_accept_margin,
                 kernels=self.kernels, key_bounds=bounds, share=self._share)
+            self._last_tokens.copy_(pending)  # in place: the static tick's graphs hold it
         both = torch.stack([toks, chain.to(toks.dtype)]).cpu().numpy()   # the one host transfer
         toks, chain = both[0], both[1]
         self._stats["dispatch_s"] += time.time() - t_disp

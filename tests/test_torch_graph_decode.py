@@ -11,7 +11,8 @@ numpy weights and inputs:
   * kernel 2's plain version with device `bounds` equals the host-int
     version bit for bit and the JAX merged_decode_attention over the same
     visible slots (2e-6), over a hypothesis sweep of (t_begin, t_end, t_cap),
-    int8 cache included;
+    int8 cache included; graphs.kernel_scratch names every cached kernel
+    scratch buffer (what a graph holds from its capture);
   * the static decode step equals the JAX decoder's cached decode step, the
     logits and the cache slot it writes, for a tiny 1B and a tiny 8B-shaped
     StarCoder2 past its window: fp32 at 1e-5, bf16 at the chunk step's
@@ -29,8 +30,9 @@ numpy weights and inputs:
     one row stopping early, and every row stopping before n (the loop then
     runs to the end of the block in which the last row stopped, and no
     further);
-  * the serving engine's static tick gives the eager tick's tokens, greedy
-    and sampled under one seed (the two ticks share every sampling op and
+  * the serving engine's static tick gives the tokens of the same tick with
+    each step the decoder's eager forward_ragged_decode (host key bounds),
+    greedy and sampled under one seed (the two share every sampling op and
     the generator's draws).
 """
 
@@ -55,6 +57,7 @@ from starvector_tpu_torch.models import decode_common as tdc
 from starvector_tpu_torch.models import gpt_bigcode as tgbc
 from starvector_tpu_torch.models import starcoder2 as tsc
 from starvector_tpu_torch.ops import flash_attention as tfa
+from starvector_tpu_torch.ops import quantization as tq
 from starvector_tpu_torch.ops.layers import DTypePolicy as TPolicy
 from starvector_tpu_torch.ops.quantization import quantize_tree
 from starvector_tpu_torch.serve.engine import Request, ServeEngine
@@ -134,6 +137,24 @@ def test_decode_plain_device_bounds_match_host_bounds(t_begin, t_len, slack, int
         *(jnp.asarray(a) for a in (qg, kn, vn, k, v)), jnp.asarray(visible.astype(np.int32)),
         qg.shape[-1] ** -0.5, *(None if a is None else jnp.asarray(a) for a in (ks, vs)))
     np.testing.assert_allclose(dev.reshape(2, 1, -1).numpy(), np.asarray(ref), rtol=0, atol=2e-6)
+
+
+def test_kernel_scratch_lists_the_cached_buffers():
+    """graphs.kernel_scratch, which a StepGraph holds from its capture, is
+    every cached kernel-2 and GEMV buffer; a larger launch's growth
+    replaces the workspace it names."""
+    dev = torch.device("cpu")
+    saved = tfa._DECODE_SCRATCH.pop(dev, None), tq._GEMV_SCRATCH.pop(dev, None)
+    try:
+        cached = (*tfa._decode_scratch(dev, 4, 100), *tq._gemv_scratch(dev, 4, 100))
+        assert all(any(t is h for h in graphs.kernel_scratch()) for t in cached)
+        tfa._decode_scratch(dev, 4, 10**5)
+        assert not any(cached[1] is h for h in graphs.kernel_scratch())
+    finally:
+        for cache, pair in zip((tfa._DECODE_SCRATCH, tq._GEMV_SCRATCH), saved):
+            cache.pop(dev, None)
+            if pair is not None:
+                cache[dev] = pair
 
 
 def test_decode_bounds_are_checked():
@@ -359,15 +380,27 @@ def test_static_generate_without_new_tokens_steps():
 
 
 # ---------------------------------------------------------------------------
-# the serving engine's static tick against its eager tick
+# the serving engine's static tick against eager steps
 # ---------------------------------------------------------------------------
 
-def _serve(name, tmod, tcfg, params, prefixes, cuda_graphs, **req):
+def _serve(name, tmod, tcfg, params, prefixes, eager, **req):
+    """Each prefix's tokens from a CPU engine, and the key caps its static
+    steps took. `eager`: every step of the tick runs the decoder's eager
+    forward_ragged_decode (host key bounds over the sliced key mask) in
+    place of the static step."""
     engine = ServeEngine(params, tcfg, name, max_batch=4, max_len=96, policy=TF32,
-                         device="cpu", seed=5, cuda_graphs=cuda_graphs)
+                         device="cpu", seed=5)
     static = []
     fn = tmod.forward_ragged_decode_static
-    tmod_calls = lambda *a, **k: static.append(k["t_cap"]) or fn(*a, **k)  # noqa: E731
+
+    def tmod_calls(params, cfg, tokens, cache, active, *, t_cap, policy, kernels):
+        if eager:
+            return tmod.forward_ragged_decode(params, cfg, tokens, cache, active, policy=policy,
+                                              kernels=kernels)[0]
+        static.append(t_cap)
+        return fn(params, cfg, tokens, cache, active, t_cap=t_cap, policy=policy,
+                  kernels=kernels)
+
     try:
         tmod.forward_ragged_decode_static = tmod_calls
         reqs = [engine.submit(Request(prefix_embeds=p, max_new_tokens=9, **req))
@@ -392,7 +425,8 @@ def test_static_tick_matches_eager_tick(decoder, mode):
     """Four requests admitted as one group (prompts of 5, 20, 12 and 9
     tokens: StarCoder2's longer ones past its window; queued before the
     engine starts, so that every run admits them at the same tick), 9
-    tokens each at 4 steps a tick: the static tick's tokens equal the eager tick's, greedy (and then
+    tokens each at 4 steps a tick: the static tick's tokens equal those of
+    the tick with eager steps (_serve's `eager`), greedy (and then
     the JAX package's offline greedy ids) and sampled at temperature 0.8,
     top-p 0.9 under one engine seed. The static ticks' key buckets hold
     every row's length."""
@@ -404,8 +438,8 @@ def test_static_tick_matches_eager_tick(decoder, mode):
     req = (dict(do_sample=False) if mode == "greedy"
            else dict(do_sample=True, temperature=0.8, top_p=0.9))
     params = convert.from_jax_params(tree)
-    static, caps = _serve(name, tmod, tcfg, params, prefixes, True, **req)
-    eager, none = _serve(name, tmod, tcfg, params, prefixes, False, **req)
+    static, caps = _serve(name, tmod, tcfg, params, prefixes, False, **req)
+    eager, none = _serve(name, tmod, tcfg, params, prefixes, True, **req)
     assert static == eager and not none and caps
     assert all(len(o) == 9 for o in static)
     assert set(caps) <= {64, 96}  # the bucket above 20 + 9 tokens, at most max_len

@@ -17,6 +17,9 @@ starvector_tpu on the same numpy weights and inputs, fp32.
   than one code apart, scales within 1e-5);
 - the key bounds from the caller (the engine's host bookkeeping) give what
   the bounds read from `lengths` give;
+- a step and a verify's commit_verify write the key mask and lengths into
+  the cache's own tensors (the serving engine's CUDA graphs hold them),
+  with JAX's values;
 - sample_token(pruned=True): the filtered top-64 slab equals JAX's chain
   on the same logits (1e-6), temperature 0 and top_k=1 are the argmax,
   and one seed draws the same tokens twice.
@@ -183,6 +186,29 @@ def test_forward_ragged_decode_matches_jax(decoder):
     tc, jc = _decode_both(decoder, int8=False)
     _assert_cache(tc, jc)
     assert tc["lengths"].tolist() == [16, 8, 0, 13]
+
+
+def test_ragged_step_and_commit_keep_the_cache_tensors(decoder):
+    """forward_ragged_decode (a beam round's step) and commit_verify (a
+    verify round's) advance the key mask and lengths in place, to JAX's
+    values: the serving engine's CUDA graphs hold those tensors, so an
+    eager round between two replays must leave its result there."""
+    _, jmod, jcfg, tmod, tcfg, tree = decoder
+    emb, mask = _rows(jmod, tree)
+    jc = _jax_ragged(jmod, jcfg, tree, emb, mask)
+    tc = _to_torch(jc)
+    held = {key: tc[key] for key in ("kv_mask", "lengths")}
+    toks, active = np.asarray([3, 5, 7, 11]), np.asarray([1, 0, 1, 1], np.int32)
+    _, jc = jmod.forward_ragged_decode(jax.tree_util.tree_map(jnp.asarray, tree), jcfg,
+                                       jnp.asarray(toks, jnp.int32), jc, jnp.asarray(active),
+                                       policy=JF32)
+    tmod.forward_ragged_decode(convert.from_jax_params(tree), tcfg, torch.from_numpy(toks), tc,
+                               torch.from_numpy(active), policy=TF32)
+    n_commit = np.asarray([2, 0, 1, 30])  # the last row's clamped at T
+    jc = jdc.commit_verify(jc, jnp.asarray(n_commit))
+    tdc.commit_verify(tc, torch.from_numpy(n_commit))
+    assert all(tc[key] is t for key, t in held.items())
+    _assert_cache(tc, jc)
 
 
 def test_forward_ragged_decode_int8_cache_matches_jax(decoder):
