@@ -14,18 +14,20 @@ and the 1B's, one with int8 weights and one with a use_speculative
 request; and over fsdp, sequence and stage meshes: the decoder's weights
 as ZeRO shards and stage blocks gathered at use) and training, on one
 NVIDIA H100, end to end through the hand-written kernels. Generation's
-decode loop and the single-process serving engine's tick run as captured
+decode loop, the single-process serving engine's tick, the pipelined
+streams' steps and speculative decoding's verify rounds run as captured
 CUDA graphs (generation/graphs.py), as the JAX package runs them as one
 jitted device loop; each graphed path is held to the same static steps run
-uncaptured, and the eager and graphed decode step's and serving tick's
-walls and device times are printed side by side.
+uncaptured, and each loop's uncaptured and graphed wall a step (or round)
+and device time are printed side by side.
 
     python3 chip_smoke.py [--timings] [--profile DIR]
     python3 chip_smoke.py --times-only ROOT
 
 --timings also runs the work whose only output is a time (TIMINGS: phase
 4's and 6's serving p50 / tokens/s and memory turns, 4b's request turns,
-4e's fused-step timing, phase 7's tile-plan and prefill-graph sweeps, the
+4e's fused-step timing, phase 6's serial against pipelined turns, phase
+7's tile-plan and prefill-graph sweeps, the
 siglip_512 prefix, the long-context backward and the head_split sweep);
 the default run keeps every check, launch count and kernel row.
 
@@ -107,8 +109,11 @@ Phases, one line each (any failure raises and exits non-zero):
      at 8; greedy groups identical, in fp32 equal to the n=1 rows), also
      over the int8 decoder and an int8 cache (kernel 14's GEMV at M = 8,
      kernel 2 over the tiled codes and scales); speculative decoding at B=1
-     and B=4 (flash_prefill only; n_forwards; fp32 ids == plain greedy; the
-     bf16 rows that part from it); B=1 latency of greedy, speculative and
+     and B=4, its verify rounds as CUDA graphs (flash_prefill only;
+     n_forwards; fp32 ids, lengths and n_forwards graphed == uncaptured,
+     ids == plain greedy; the bf16 rows that part from it; each loop's
+     uncaptured and graphed wall a round); with --timings B=1 latency of
+     greedy, speculative and
      beam, and B=4 tokens/s of greedy and speculative, in turns; then GRPO:
      one GRPOTrainer.step (B=2, G=4, 64 new tokens, a synthetic target
      raster, on its own tree at all 24 layers: the rollout's kernels 1 and
@@ -156,25 +161,31 @@ Phases, one line each (any failure raises and exits non-zero):
      layers (DEPTH_1B_EARLIER, since PR 21), before they are
      released: 4 batches of B=16, P=1024 random prompt embeddings, 128
      greedy tokens, C=8, through generate_pipelined (every step of a batch
-     but the last one fused decode+chunk forward: kernel 2 and the chunk
-     step); fp32 ids == per-batch generate's and == the plain attention's,
-     launches exactly 8 flash_prefill (batch 0) and 8 decode_attention a
-     decode step; bf16 launches and each row's first token parting from
-     per-batch generate; int8 weights over an fp32 cache, fp32 ids ==
+     but the last the static fused decode+chunk step: kernel 2 with its
+     bounds on the device and the chunk step; the last batch's static
+     decode steps; one CUDA graph a kind and key bucket, captured once a
+     stream: 4 batches capture as many as 2); fp32 ids graphed ==
+     uncaptured bit for bit with the same launches, == per-batch
+     generate's and == the plain attention's, launches exactly 8
+     flash_prefill (batch 0) and 8 decode_attention a decode step; bf16
+     launches and each row's first token parting from per-batch generate;
+     the stream's uncaptured and graphed wall a step beside its device
+     time; int8 weights over an fp32 cache, fp32 ids ==
      per-batch generate's; an int8 KV cache, and int8 weights with it, in
      fp32: 16 teacher-forced fused steps' logits, kernels against plain,
      within twice generate's route's own gap, and batch 1's first decode
-     step over the cache the chunk steps wrote, kernels against plain, to
+     step over the cache the fused steps wrote, kernels against plain, to
      TOL; bf16 launches exact over kernel 2' and kernel 14 (GEMV and tile
      by rows); generate_pipelined_spec over 3 batches of 8 right-padded
-     prompts (fp32 ids == generate_pipelined's
-     and per-batch generate's; bf16 rounds, tokens a round, launches: kernel
-     1 for batch 0 only, no kernel 2); tokens/s of serial generate,
-     generate_pipelined and its int8 KV, one run each (two rounds in turns
-     until PR 16); a fused step against
-     the unfused pair (the decode forward, then the chunk step), 10 pairs
-     of 8-step blocks in alternating order (with --profile DIR, a fused
-     step's and a decode-only step's wall against device time)
+     prompts, its rounds graphed (fp32 ids and rounds graphed ==
+     uncaptured, ids == generate_pipelined's and per-batch generate's;
+     bf16 rounds, tokens a round, launches: kernel 1 for batch 0 only, no
+     kernel 2; captures of 3 batches == 2's; its line); tokens/s of serial
+     generate, generate_pipelined and its int8 KV, one run each; with
+     --timings a fused step against the unfused pair (the decode forward,
+     then the chunk step), 10 pairs of 8-step blocks in alternating order
+     (with --profile DIR, a fused step's and a decode-only step's wall
+     against device time)
   4f. the other vision towers behind phase 4's 1B decoder (all 24 layers):
      vqgan, convnext and open-clip at 224, siglip_512 and siglip_256, each
      at its stock geometry with seeded random tower and adapter weights: the
@@ -264,7 +275,9 @@ Phases, one line each (any failure raises and exits non-zero):
      step; its fp32 check on the same fp32 copy); beam search (num_beams=2,
      B=1: flash_prefill over 2 rows, decode_attention at G = 9) and
      speculative decoding (B=1, and B=4 through StarCoder2's
-     forward_ragged_verify), fp32 ids kernels == plain on the same copy;
+     forward_ragged_verify; the rounds graphed: fp32 ids, lengths and
+     n_forwards == uncaptured, each loop's line), fp32 ids kernels ==
+     plain on the same copy;
      p50 B=1 latency, B=4
      tokens/s of im2svg and text2svg in turns, and memory. Then int8: the
      decoder through quantize_tree, consuming the bf16 tree, with an int8
@@ -274,12 +287,15 @@ Phases, one line each (any failure raises and exits non-zero):
      greedy ids with an fp32 KV cache and, with the int8 cache, the logits
      of both fed the same tokens (INT8_CACHE_LOGIT_TOL); weights and
      memory, p50 and tokens/s beside bf16's. Pipelined generation
-     (before 6d): 2 batches of B=2 prefixes, 32 tokens, each step the decode
-     forward and the chunk step (StarCoder2 has no fused forward): fp32 ids
-     == per-batch generate's and the plain attention's, bf16 launches 8
-     flash_prefill (batch 0) and 8 decode_attention a step; the port's
-     NotImplementedError from generate_pipelined_spec; tokens/s of serial
-     and pipelined at 3 batches of B=4, 128 tokens. 6d, serving on the same
+     (before 6d): batches of B=2 prefixes, 32 tokens, each step the static
+     decode step and the static chunk step (StarCoder2 has no fused
+     forward), as CUDA graphs: fp32, 2 batches, ids graphed == uncaptured
+     with the same launches, == per-batch generate's and the plain
+     attention's; bf16, 3 batches, launches 8 flash_prefill (batch 0) and 8
+     decode_attention a decode step, captures == 2 batches'; its line; the
+     port's NotImplementedError from generate_pipelined_spec; with
+     --timings tokens/s of serial and pipelined at 3 batches of B=4, 128
+     tokens. 6d, serving on the same
      weights: 4 concurrent bf16 requests (launches 8
      flash_prefill a chunk, 8 decode_attention at G = 9 a ragged step),
      fp32 engine ids equal offline generate's on the fp32 copy, the window
@@ -509,6 +525,13 @@ def read_counts(tfa) -> dict:
     counts["quant_matmul"] = tq.quant_matmul.launches
     counts.update({f"quant_matmul_{k}": v for k, v in tq.quant_matmul.path_launches.items()})
     return graphs.true_launches(counts)
+
+
+def graphs_captured() -> int:
+    """The CUDA graphs captured since reset_counts."""
+    from starvector_tpu_torch.generation import graphs
+
+    return graphs.tally()["captures"]
 
 
 def graph_tally() -> str:
@@ -2592,15 +2615,18 @@ def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
     x4 = model.process_images(four)
     prompt4 = torch.tensor([PROMPT_IDS] * 4, device=dev)
     spec = dict(use_speculative=True, draft_len=8)
+    tallies = {}
     for B in (1, 4):
         request(four[:B], max_new_tokens=8, prompt_ids=[PROMPT_IDS] * B, **spec)  # warm-up
         reset_counts(tfa)
         tokens, lengths, _ = request(four[:B], prompt_ids=[PROMPT_IDS] * B, **spec)
         expect_counts(f"speculative B={B}", read_counts(tfa), flash_prefill=L)
+        tallies[B] = graph_tally()
     log("decoding", f"speculative decoding through the API (use_speculative, draft_len 8), bf16, "
-                    f"B=1 and B=4, 128 new tokens: launches flash_prefill {L} a request (the "
-                    f"prefill), no decode_attention: each verify is the chunk step, plain PyTorch")
-    sp = speculative_checks("1B", cfg, p16, bf16, cfg, p32, f32, x4, prompt4)
+                    f"B=1 and B=4, 128 new tokens, the verify rounds as CUDA graphs ({tallies}): "
+                    f"launches flash_prefill {L} a request (the prefill), no decode_attention: "
+                    f"each verify is the chunk step, plain PyTorch")
+    sp = speculative_checks(tfa, "1B", cfg, p16, bf16, cfg, p32, f32, x4, prompt4, card)
     # --- times, in turns (--timings) ---
     b1 = b4 = None
     if TIMINGS:
@@ -2620,46 +2646,75 @@ def decoding_1b(tfa, model, cfg, p16, p32, q16, dev, card: str) -> dict:
     return dict(b1=b1, b4=b4, **sp)
 
 
-def speculative_checks(label: str, cfg, p16, bf16, cfg32, p32, f32, x, prompt) -> dict:
+def speculative_checks(tfa, label: str, cfg, p16, bf16, cfg32, p32, f32, x, prompt,
+                       card: str) -> dict:
     """Speculative decoding through generate_greedy_speculative (row 0) and
-    generate_greedy_speculative_batched (all rows of x), draft_len 8: in
-    bf16 at 128 new tokens, n_forwards, tokens a verify forward and the
-    rows that part from plain greedy generate (near-tie flips between the
-    verify's chunk arithmetic and the decode kernel's; printed, not
-    checked); in fp32 at 32 tokens on (cfg32, p32), ids and lengths equal
-    to plain greedy generate with the kernels (checked)."""
+    generate_greedy_speculative_batched (all rows of x), draft_len 8, each
+    a loop of static verify rounds replayed as CUDA graphs. In bf16 at 128
+    new tokens: each loop's line, uncaptured against graphed
+    (loop_times), the graphed call's launches exactly kernel 1's prefill
+    (every verify is the chunk step) and the uncaptured call's;
+    n_forwards, tokens a verify forward and the rows that part from plain
+    greedy generate (near-tie flips between the verify's chunk arithmetic
+    and the decode kernel's; printed, not checked). In fp32 at 32 tokens on
+    (cfg32, p32): ids, lengths and n_forwards graphed == uncaptured bit for
+    bit, and ids and lengths == plain greedy generate with the kernels
+    (checked)."""
     from starvector_tpu_torch.generation import speculative
     from starvector_tpu_torch.generation.engine import GenerationConfig, generate, im2svg_prefix
 
     out = {}
+    B = x.shape[0]
     for what, c, params, policy, new in (("bf16", cfg, p16, bf16, 128),
                                          ("fp32", cfg32, p32, f32, 32)):
         dec = params["svg_transformer"]
+        L = c.llm.n_layer if hasattr(c.llm, "n_layer") else c.llm.num_hidden_layers
         emb, mask = im2svg_prefix(params, c, x, prompt, policy=policy)
         ids = spec_ids(emb.shape[1], prompt)
         kw = dict(max_new_tokens=new, draft_len=8, stop_sequences=STOP_IDS, policy=policy)
         ref, ref_len = generate(dec, c.llm, emb, mask, GenerationConfig(
             max_new_tokens=new, do_sample=False, stop_sequences=STOP_IDS), policy=policy)
-        t1, l1, f1 = speculative.generate_greedy_speculative(dec, c.llm, emb[:1], mask[:1],
-                                                             ids[:1], **kw)
-        tb, lb, fb = speculative.generate_greedy_speculative_batched(dec, c.llm, emb, mask, ids,
-                                                                     **kw)
+        runs = {"B=1": lambda g: speculative.generate_greedy_speculative(
+                    dec, c.llm, emb[:1], mask[:1], ids[:1], cuda_graphs=g, **kw),
+                f"batched B={B}": lambda g: speculative.generate_greedy_speculative_batched(
+                    dec, c.llm, emb, mask, ids, cuda_graphs=g, **kw)}
+        res, captures = {}, {}
+        for name, run in runs.items():
+            if what == "bf16":
+                t = loop_times(card, f"{label} speculative {name}, bf16, draft_len 8, {new} new "
+                                     f"tokens", run, lambda r: r[2] - 1, "round", tfa=tfa)
+                g, u = t["graphed"], t["uncaptured"]
+                expect_counts(f"{label} speculative {name} bf16, graphed", g["counts"],
+                              flash_prefill=L)
+                if g["counts"] != u["counts"]:
+                    raise AssertionError(f"{label} speculative {name} bf16: launches graphed "
+                                         f"{g['counts']} != uncaptured {u['counts']}")
+                res[name], captures[name] = g["result"], g["captures"]
+            else:
+                res[name] = run(True)
+                same_run(f"{label} speculative {name} fp32 (ids, lengths, n_forwards), graphed "
+                         f"against uncaptured", res[name], run(False))
+        (t1, l1, f1), (tb, lb, fb) = res.values()
         same = same_as_greedy(t1, l1, ref[:1], ref_len[:1]) + same_as_greedy(tb, lb, ref, ref_len)
         parts = [first_parting(t, r) for t, r in zip(torch.cat([t1[:, :new], tb]),
                                                       torch.cat([ref[:1], ref]))]
         if what == "fp32" and not all(same):
             raise AssertionError(f"{label} speculative fp32 ids differ from greedy:\n"
                                  f"{t1.tolist()}\n{tb.tolist()}\n{ref.tolist()}")
-        B = x.shape[0]
-        log("decoding", f"{label} speculative decoding, {what}, draft_len 8, {new} new tokens: "
+        log("decoding", f"{label} speculative decoding, {what}, draft_len 8, {new} new tokens, "
+                        f"rounds replayed as CUDA graphs: "
                         f"B=1 length {int(l1[0])}, n_forwards {f1} "
                         f"({int(l1[0]) / max(f1 - 1, 1):.2f} tokens a verify forward); batched "
                         f"B={B}: lengths {lb.tolist()}, n_forwards {fb} "
                         f"({float(lb.sum()) / max(fb - 1, 1):.2f} tokens a round over {B} rows); "
-                        + (f"rows parting from plain greedy generate: B=1 {int(not same[0])} of 1, "
+                        + (f"graphs captured a call {captures}; launches flash_prefill {L} a call "
+                           f"(the prefill), nothing else, == the uncaptured calls'; rows parting "
+                           f"from plain greedy generate: B=1 {int(not same[0])} of 1, "
                            f"batched {same[1:].count(False)} of {B}, at token {parts} (None: "
                            f"never; bf16 near-tie flips between the verify and the decode step)"
-                           if what == "bf16" else "ids and lengths == plain greedy generate "
+                           if what == "bf16" else "ids, lengths and n_forwards graphed == "
+                                                  "uncaptured (cuda_graphs=False) bit for bit; "
+                                                  "ids and lengths == plain greedy generate "
                                                   "with the kernels, every row"))
         out[what] = dict(n_forwards=(f1, fb), lengths=(l1.tolist(), lb.tolist()), parts=parts)
     log("decoding", f"{label}: random weights, so the acceptance above is no forecast for real "
@@ -3693,20 +3748,68 @@ def cast_batches(batches: list, dtype) -> list:
     return [(e.to(dtype),) + tuple(rest) for e, *rest in batches]
 
 
-def pipelined_steps(outs: list, n_chunks: int) -> dict:
-    """Forwards of a generate_pipelined run by kind, from each batch's
-    lengths: a batch decodes max(length) - 1 steps and, but for the last,
-    carries n_chunks chunks of the next prompt; a step with both is fused,
-    one with a chunk only writes the chunk, one with a decode only decodes."""
-    counts = dict(decode=0, fused=0, chunk=0, decode_only=0)
+def pipelined_steps(outs: list, n_chunks: int, n: int) -> dict:
+    """Steps of a static generate_pipelined run by kind, from each batch's
+    lengths (generation/engine.py::_decode_overlap): every batch but the
+    last runs n_chunks fused steps (a decode and a chunk, whatever its
+    rows' state, as the JAX loop); then, while a row is live, decode-only
+    steps up to token n - 2, to the end of the block of DECODE_GRAPH_STEPS
+    in which the last row stopped (the host reads `done` once a block)."""
+    from starvector_tpu_torch.generation.engine import DECODE_GRAPH_STEPS
+
+    counts = dict(decode=0, fused=0, decode_only=0)
     for i, (_, lengths) in enumerate(outs):
-        d = int(lengths.max()) - 1
-        c = n_chunks if i + 1 < len(outs) else 0
-        counts["decode"] += d
-        counts["fused"] += min(d, c)
-        counts["chunk"] += max(c - d, 0)
-        counts["decode_only"] += max(d - c, 0)
+        t0 = n_chunks if i + 1 < len(outs) else 0
+        last, end = int(lengths.max()) - 1, t0  # the step that samples the last row's stop
+        while last >= t0 and end < n - 1:
+            end = min(end + DECODE_GRAPH_STEPS, n - 1)
+            if end > last:
+                break
+        counts["fused"] += t0
+        counts["decode_only"] += end - t0
+        counts["decode"] += end
     return counts
+
+
+def loop_times(card: str, label: str, run, steps_of, unit: str = "step", tfa=None) -> dict:
+    """One loop's line: run(graphed) -> result, steps_of(result) -> the
+    steps (or rounds) it ran. The wall a step is the host clock around a
+    whole synchronised call over its steps (the call's prefill included),
+    uncaptured (cuda_graphs=False) then graphed, the graphed one also
+    without its captures' host seconds; the device time a step is
+    torch.profiler's kernel time over one more graphed call (the same
+    kernels either way); busy is device over wall. Returns {"uncaptured":
+    ..., "graphed": ...} of wall_ms, device_ms, busy, each call's captures
+    and result, and with `tfa` its launches (read_counts)."""
+    from starvector_tpu_torch.generation import graphs
+
+    out = {}
+    for name, graphed in (("uncaptured", False), ("graphed", True)):
+        if tfa is None:
+            graphs.reset_tally()
+        else:
+            reset_counts(tfa)
+        res, wall = timed(lambda: run(graphed))
+        n = steps_of(res)
+        t = graphs.tally()
+        out[name] = dict(wall_ms=wall * 1e3 / n, steps=n, captures=t["captures"],
+                         replay_wall_ms=(wall - t["capture_s"]) * 1e3 / n, result=res,
+                         counts=None if tfa is None else read_counts(tfa))
+    device = profiled_device_ms(lambda: run(True)) / out["graphed"]["steps"]
+    for r in out.values():
+        r["device_ms"] = device if device > 0 else None
+        r["busy"] = device / r["wall_ms"] if device > 0 else None
+
+    def fmt(r):
+        dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.3f} ms"
+        busy = "" if r["busy"] is None else f", busy {r['busy']:.1%}"
+        return f"wall {r['wall_ms']:.3f} ms, device {dev}{busy}"
+
+    g = out["graphed"]
+    log("steps", f"{card}: {label}, {g['steps']} {unit}s: uncaptured (cuda_graphs=False) "
+                 f"{fmt(out['uncaptured'])}; graphed {fmt(g)} ({g['replay_wall_ms']:.3f} ms a "
+                 f"{unit} without the call's {g['captures']} captures)")
+    return out
 
 
 def timed(fn):
@@ -3725,6 +3828,21 @@ def same_ids(what: str, outs: list, refs: list) -> None:
             raise AssertionError(f"{what}, batch {i}: first parting per row "
                                  f"{[first_parting(a, b) for a, b in zip(t, rt)]}, lengths "
                                  f"{l.tolist()} vs {rl.tolist()}")
+
+
+def same_run(what: str, out, ref) -> None:
+    """Raise unless two runs' results (tensors, ints, and lists or tuples of
+    them) are equal, tensors bit for bit."""
+    if isinstance(out, torch.Tensor):
+        same = torch.equal(out, ref)
+    elif isinstance(out, (list, tuple)):
+        same = len(out) == len(ref)
+        for i, (a, b) in enumerate(zip(out, ref)):
+            same_run(f"{what} [{i}]", a, b)
+    else:
+        same = out == ref
+    if not same:
+        raise AssertionError(f"{what}: {out!r} != {ref!r}")
 
 
 def fused_step_logits(cfg, dec: dict, batches: list, policy, kernels: bool, kv,
@@ -3752,39 +3870,46 @@ def fused_step_logits(cfg, dec: dict, batches: list, policy, kernels: bool, kv,
 
 
 def chunk_written_decode(cfg, dec: dict, batches: list, policy, kv) -> tuple:
-    """Batch 1's decode over the cache that generate_pipelined's chunk
-    steps wrote: batch 0 prefilled and decoded by _decode_overlap (the
-    kernels on) with batch 1's n_chunks chunks fused into its steps; then
-    batch 1's first decode step over that cache, once with the kernels
-    (kernel 2, or 2' over an int8 cache) and once with the plain attention,
-    each on its own copy of the cache. Both read the same codes and scales
-    and the step's own k/v enter unquantized (the merged self token), so the
-    logits differ by fp32 sum order alone: held to TOL, not to a
-    quantization gap. Returns (max |diff|, a line for the log, batch 0's
-    greedy tokens (B, PIPE_NEW), generate_pipelined's batch 0)."""
+    """Batch 1's decode over the cache that generate_pipelined's fused steps
+    wrote: batch 0 prefilled, then its n_chunks fused steps
+    (forward_decode_with_chunk: the static fused step at the caches' host
+    indices, the kernels on), each fed batch 0's greedy token, writing batch
+    1's chunks; then batch 1's first decode step over that cache, once with
+    the kernels (kernel 2, or 2' over an int8 cache) and once with the plain
+    attention, each on its own copy of the cache. Both read the same codes
+    and scales and the step's own k/v enter unquantized (the merged self
+    token), so the logits differ by fp32 sum order alone: held to TOL, not
+    to a quantization gap. Returns (max |diff|, a line for the log, batch
+    0's greedy tokens (B, n_chunks))."""
     from starvector_tpu_torch.generation import engine
     from starvector_tpu_torch.models import gpt_bigcode
 
-    (e0, m0), nxt = batches[:2]
+    (e0, m0), (e1, m1) = batches[:2]
     B, Pn, _ = e0.shape
     C, n_chunks = engine._chunk_plan(Pn, PIPE_NEW, None)
-    gen = engine.GenerationConfig(max_new_tokens=PIPE_NEW, do_sample=False,
-                                  stop_sequences=STOP_IDS, eos_token_id=None, pad_token_id=0)
-    last, cache = engine._prefill_full(dec, cfg.llm, e0, m0, Pn + PIPE_NEW, policy, True, kv)
-    tokens, _, cache, last = engine._decode_overlap(dec, cfg.llm, cache, last, None, nxt, gen,
-                                                    None, C, n_chunks, policy, True, kv)
+    logits, cache = engine._prefill_full(dec, cfg.llm, e0, m0, Pn + PIPE_NEW, policy, True, kv)
+    nxt = gpt_bigcode.init_cache(cfg.llm, B, Pn + PIPE_NEW, dtype=kv or policy.compute_dtype,
+                                 device=e0.device)
+    tokens = []
+    for t in range(n_chunks):
+        tokens.append(logits.argmax(-1))
+        x = gpt_bigcode.embed_tokens(dec, tokens[-1][:, None]).to(policy.compute_dtype)
+        logits, cache, last, nxt = gpt_bigcode.forward_decode_with_chunk(
+            dec, cfg.llm, x, cache, policy.cast(e1[:, t * C:(t + 1) * C]),
+            m1[:, t * C:(t + 1) * C], nxt, policy=policy, kernels=True,
+            chunk_logits=t == n_chunks - 1)
     x = gpt_bigcode.embed_tokens(dec, last.argmax(-1)[:, None]).to(policy.compute_dtype)
     ones = torch.ones((B, 1), dtype=torch.int32, device=e0.device)
     logits = {k: gpt_bigcode.forward(dec, cfg.llm, x, attention_mask=ones,
                                      cache={n: v.clone() if torch.is_tensor(v) else v
-                                            for n, v in cache.items()},
+                                            for n, v in nxt.items()},
                                      policy=policy, kernels=k)[0][:, -1] for k in (True, False)}
     torch.cuda.synchronize()
     err = compare(f"batch 1's decode over the chunk-written {kv or 'fp32'} cache", logits[True],
                   logits[False], torch.float32)
-    return err, (f"batch 1's first decode step over the cache the {n_chunks} chunk steps wrote "
+    return err, (f"batch 1's first decode step over the cache the {n_chunks} fused steps wrote "
                  f"(B={B}, T={Pn + PIPE_NEW}), kernels against plain: logits max |diff| "
-                 f"{err:.3e} (TOL, fp32)"), tokens
+                 f"{err:.3e} (TOL, fp32)"), torch.stack(tokens, 1)
 
 
 def spec_batches(dec: dict, embed, dev, seed: int = 25) -> list:
@@ -3817,18 +3942,24 @@ def left_padded(batch) -> tuple:
 def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | None) -> dict:
     """Phase 4e, offline pipelined generation at full 1B width on phase 4's
     trees cut to their first DEPTH_1B_EARLIER layers (L; since PR 21, for
-    the script's time: the steps are host-bound, so the phase's wall goes
-    with the layers): PIPE_BATCHES batches of B=16, P=1024 random prompt
-    embeddings, 128 greedy new tokens, C = max(4, ceil(1024 / 128)) = 8,
-    every step of a batch but the last's one fused forward
-    (forward_decode_with_chunk: kernel 2 for the decode half, the chunk
-    step for the next prompt's chunk); batch 0 prefills through kernel 1.
-      * fp32: each batch's ids and lengths equal generate_pipelined's with
-        kernels=False, and the first two batches' per-batch generate's; launches
-        exactly L flash_prefill (batch 0) and L decode_attention a decode
-        step;
-      * bf16: the launches, and each batch's first token that parts from
-        per-batch generate (recorded: the fused GEMMs round M = 144 rows);
+    the script's time): PIPE_BATCHES batches of B=16, P=1024 random prompt
+    embeddings, 128 greedy new tokens, C = max(4, ceil(1024 / 128)) = 8, so
+    128 chunks: every step of a batch but the last is the static fused step
+    (forward_decode_with_chunk_static: kernel 2 for the decode half with
+    its key bounds on the device, the chunk step for the next prompt's
+    chunk), the last batch's are static decode steps, each kind and key
+    bucket one CUDA graph captured once a stream; batch 0 prefills
+    through kernel 1.
+      * fp32: each batch's ids and lengths graphed equal the uncaptured
+        stream's (cuda_graphs=False) bit for bit, with the same launches;
+        equal the plain attention's and the first two batches' per-batch
+        generate's; launches exactly L flash_prefill (batch 0) and L
+        decode_attention a decode step (pipelined_steps);
+      * bf16: the launches, the graphs a stream of 4 batches captures (no
+        more than one of 2: the loop line's), each batch's first token that
+        parts from per-batch generate (recorded: the fused GEMMs round M =
+        144 rows); the stream's line, uncaptured against graphed, over 2
+        batches (loop_times);
       * int8 weights over an fp32 cache: fp32 ids equal per-batch
         generate's. An int8 KV cache (fp32 weights), and int8 weights with
         it: per-batch int8 generate is no exact reference there (its one
@@ -3837,25 +3968,20 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
         teacher-forced fused steps' logits, kernels against plain, within
         twice what generate's route shows on the same tokens (both share
         batch 0's int8 prefill, where the two's k/v round to neighbouring
-        codes), and batch 1's first decode step over the cache the chunk
+        codes), and batch 1's first decode step over the cache the fused
         steps wrote, kernels against plain on one copy each of that cache,
-        to TOL (chunk_written_decode). In bf16 the
-        launches over kernel 2' and kernel 14 (4 L a forward: the tile at
-        M = 16 x 1024 for the prefill and 144 a fused step, the GEMV at
-        M = 16 a decode-only step);
-      * generate_pipelined_spec, 3 batches of 8 right-padded prompts of
-        165-256 ids from a set of 12, 64 new tokens, draft_len 8: fp32 ids
-        equal generate_pipelined's on the same rows left-padded, and per-
-        batch generate's (each row's plain greedy ids); in bf16 its rounds
-        a batch, tokens a round and launches (kernel 1 for batch 0's adopt,
-        no kernel 2: every verify is the chunk step);
-      * times in turns (serial, pipelined, pipelined int8 KV, and back):
-        tokens/s of each over the 4 batches; a fused step against the
-        unfused pair in alternating blocks (pipelined_step_times), and
-        with `profile_dir` a fused step's and a decode-only step's wall
-        against device time.
+        to TOL (chunk_written_decode). In bf16 the launches over kernel 2'
+        and kernel 14 (4 L a forward: the tile at M = 16 x 1024 for the
+        prefill and 144 a fused step, the GEMV at M = 16 a decode-only
+        step), graphed;
+      * generate_pipelined_spec (pipelined_spec_1b);
+      * tokens/s of serial per-batch generate, the stream and the stream
+        over an int8 KV cache (bf16, one run each, graphed); with --timings
+        or `profile_dir` a fused step against the unfused pair in
+        alternating blocks (pipelined_step_times), and with `profile_dir` a
+        fused step's and a decode-only step's wall against device time.
     Returns the launch counts of the checked bf16 runs, the stream's
-    tokens/s, the spec results and the step times."""
+    tokens/s, the captures, the spec results and the step times."""
     from starvector_tpu_torch.generation import engine
     from starvector_tpu_torch.models import gpt_bigcode
     from starvector_tpu_torch.ops import quantization as tq
@@ -3871,9 +3997,10 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     batches16 = cast_batches(batches32, torch.bfloat16)
     d32, d16, dq16 = (t["svg_transformer"] for t in (p32, p16, q16))
 
-    def pipelined(dec, batches, policy, kernels=True, kv=None):
+    def pipelined(dec, batches, policy, kernels=True, kv=None, graphed=True):
         return engine.generate_pipelined(dec, cfg.llm, batches, gen, policy=policy,
-                                         kernels=kernels, kv_cache_dtype=kv)
+                                         kernels=kernels, kv_cache_dtype=kv,
+                                         cuda_graphs=graphed)
 
     def serial(dec, batches, policy, kv=None):
         return [engine.generate(dec, cfg.llm, e, m, gen, policy=policy, kv_cache_dtype=kv)
@@ -3884,10 +4011,16 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
         out = fn()
         return out, read_counts(tfa)
 
-    # fp32: ids against per-batch generate and the plain attention
+    # fp32: graphed against uncaptured, per-batch generate and the plain attention
     out32, counts = counted(lambda: pipelined(d32, batches32, f32))
-    steps = pipelined_steps(out32, n_chunks)
+    tally32 = graph_tally()
+    steps = pipelined_steps(out32, n_chunks, PIPE_NEW)
     expect_counts("pipelined fp32", counts, flash_prefill=L, decode_attention=L * steps["decode"])
+    unc32, unc_counts = counted(lambda: pipelined(d32, batches32, f32, graphed=False))
+    same_ids("pipelined fp32, graphed against uncaptured", out32, unc32)
+    if unc_counts != counts:
+        raise AssertionError(f"pipelined fp32: launches graphed {counts} != uncaptured "
+                             f"{unc_counts}")
     # per-batch generate for the first two batches only: each batch is
     # generated alone, so the third and fourth would repeat the same check
     # (the script's time budget)
@@ -3898,11 +4031,12 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     log("pipelined", f"generate_pipelined, fp32, {PIPE_BATCHES} batches of B={PIPE_B}, P={PIPE_P}, "
                      f"{PIPE_NEW} new tokens, C={C} ({n_chunks} chunks a prompt): lengths per "
                      f"batch {[sorted(set(l.tolist())) for _, l in out32]}; {steps['fused']} fused "
-                     f"steps, {steps['chunk']} chunk-only, {steps['decode_only']} decode-only; "
+                     f"steps, {steps['decode_only']} decode-only, as CUDA graphs ({tally32}); "
                      f"launches flash_prefill {counts['flash_prefill']} = {L} x 1 (batch 0), "
                      f"decode_attention {counts['decode_attention']} = {L} x {steps['decode']} "
-                     f"decode steps; ids and lengths == the plain attention's, every batch, and "
-                     f"== per-batch generate's, batches 0 and 1")
+                     f"decode steps, == the uncaptured stream's; ids and lengths == the "
+                     f"uncaptured stream's (cuda_graphs=False) bit for bit, == the plain "
+                     f"attention's, every batch, and == per-batch generate's, batches 0 and 1")
 
     # int8 weights over an fp32 cache: fp32 ids against per-batch generate
     q32 = quantized(p32)["svg_transformer"]
@@ -3912,7 +4046,7 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     log("pipelined", "generate_pipelined, int8 weights and an fp32 cache, fp32, 2 batches: ids "
                      "and lengths == per-batch generate's")
     # an int8 KV cache, fp32: batch 1's first decode step over the cache the
-    # chunk steps wrote, kernels against plain on one cache, to TOL; then,
+    # fused steps wrote, kernels against plain on one cache, to TOL; then,
     # fed batch 0's tokens, teacher-forced fused steps, kernels against
     # plain, within twice generate's route's own gap on the same tokens (the
     # floor: both routes share batch 0's int8 prefill, where the two's k/v
@@ -3938,23 +4072,24 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     del q32
 
     # pipelined speculative decoding
-    spec = pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev)
+    spec = pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev, card)
 
-    # bf16, timed once each, one after the other beside the card (one
-    # round since PR 16: two, in turns, took 213-228 s of the script's
-    # time); each run also gives its launches and ids
+    # bf16, one run each, graphed, one after the other beside the card; each
+    # run also gives its launches, captures and ids
     runs = {"serial generate": lambda: serial(d16, batches16, bf16),
             "generate_pipelined": lambda: pipelined(d16, batches16, bf16),
             "generate_pipelined int8 KV": lambda: pipelined(d16, batches16, bf16, kv=torch.int8)}
-    med, first = {}, {}
+    med, first, captures, tallies = {}, {}, {}, {}
     for label, run in runs.items():
         reset_counts(tfa)
         out, wall = timed(run)
         first[label] = (out, read_counts(tfa))
+        captures[label], tallies[label] = graphs_captured(), graph_tally()
         med[label] = sum(float(l.sum()) for _, l in out) / wall
     log("times", f"{card}: 1B offline, {PIPE_BATCHES} batches of B={PIPE_B}, P={PIPE_P}, "
-                 f"{PIPE_NEW} greedy tokens, bf16, one run each (a, b, c), emitted tokens "
-                 f"/ wall: " + "; ".join(f"{k} {v:.1f} tokens/s" for k, v in med.items())
+                 f"{PIPE_NEW} greedy tokens, bf16, the steps as CUDA graphs, one run each (a, b, "
+                 f"c), emitted tokens / wall: "
+                 + "; ".join(f"{k} {v:.1f} tokens/s" for k, v in med.items())
                  + f"; pipelined / serial {med['generate_pipelined'] / med['serial generate']:.3f}"
                  f", int8 KV / serial "
                  f"{med['generate_pipelined int8 KV'] / med['serial generate']:.3f}")
@@ -3963,15 +4098,15 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
         """Exact launches of a bf16 run of the stream ("bf16", "int8 KV",
         "int8 weights + int8 KV"): kernel 1 for batch 0, kernel 2 (2' over
         the int8 cache) a decode step, kernel 14 (by rows: the GEMV up to
-        GEMV_MAX_ROWS, else the tile) 96 a forward."""
-        steps = pipelined_steps(out, n_chunks)
+        GEMV_MAX_ROWS, else the tile) 4 L a forward."""
+        steps = pipelined_steps(out, n_chunks, PIPE_NEW)
         int8, quant = label != "bf16", label.startswith("int8 weights")
-        fwd = 1 + steps["fused"] + steps["chunk"] + steps["decode_only"]
+        fwd = 1 + steps["fused"] + steps["decode_only"]
         got = expect_counts(f"pipelined bf16 {label}", counts, flash_prefill=L,
                             decode_attention=L * steps["decode"],
                             decode_attention_int8=L * steps["decode"] if int8 else 0,
                             quant_matmul=4 * L * fwd if quant else 0)
-        rows = {"decode_only": PIPE_B, "chunk": PIPE_B * C, "fused": PIPE_B * (1 + C)}
+        rows = {"decode_only": PIPE_B, "fused": PIPE_B * (1 + C)}
         by_path = gemv_counts(tq, [(K, N) for _, K, N in QMM_SHAPES],
                               [(m, L * steps[k]) for k, m in rows.items()
                                if m <= tq.GEMV_MAX_ROWS])
@@ -3983,15 +4118,13 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
                                  f"{by_path}, tile {tile}")
         text = (f"bf16 launches flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0), "
                 f"decode_attention {got['decode_attention']} = {L} x {steps['decode']} decode "
-                f"steps ({steps['fused']} fused, {steps['decode_only']} decode-only; "
-                f"{steps['chunk']} chunk-only steps)"
+                f"steps ({steps['fused']} fused, {steps['decode_only']} decode-only)"
                 + (f", of them over the int8 cache {got['decode_attention_int8']}" if int8 else "")
-                + (f", quant_matmul {got['quant_matmul']} = 96 x {fwd} forwards (tile {tile}: "
+                + (f", quant_matmul {got['quant_matmul']} = {4 * L} x {fwd} forwards (tile {tile}: "
                    f"the prefill at M = {PIPE_B * PIPE_P}, the fused steps at M = "
-                   f"{PIPE_B * (1 + C)}, the chunk-only at M = {PIPE_B * C}; GEMV {gemv}: the "
-                   f"decode-only steps at M = {PIPE_B}, tensor-core "
-                   f"{by_path['quant_matmul_gemv_tc']}, pair {by_path['quant_matmul_gemv']})"
-                   if quant else ""))
+                   f"{PIPE_B * (1 + C)}; GEMV {gemv}: the decode-only steps at M = {PIPE_B}, "
+                   f"tensor-core {by_path['quant_matmul_gemv_tc']}, pair "
+                   f"{by_path['quant_matmul_gemv']})" if quant else ""))
         return {**got, **({**by_path, "quant_matmul_wgmma": tile}
                           if quant else {})}, text
 
@@ -4001,27 +4134,49 @@ def pipelined_1b(tfa, cfg, p16, p32, q16, dev, card: str, profile_dir: Path | No
     ref16 = first["serial generate"][0]
     parts = [[first_parting(t, r) for t, r in zip(o[0], ref[0])] for o, ref in zip(out16, ref16)]
     agree = [round(float((o[0] == ref[0]).float().mean()), 4) for o, ref in zip(out16, ref16)]
-    log("pipelined", f"generate_pipelined, bf16: {text}; against per-batch generate, ids agree "
-                     f"on {agree} of each batch's positions; first parting token per row (None: "
-                     f"never; the fused GEMMs round M = {PIPE_B * (1 + C)} rows where a decode "
-                     f"step rounds {PIPE_B}, and the chunk step's attention is not kernel 1's): "
-                     f"{parts}")
+    # the stream's line over its first 2 batches; their captures against the 4 batches'
+    line = loop_times(card, f"1B generate_pipelined, bf16, 2 batches of B={PIPE_B}, "
+                            f"P={PIPE_P}, {PIPE_NEW} tokens, {L} layers",
+                      lambda g: pipelined(d16, batches16[:2], bf16, graphed=g),
+                      lambda out: sum(pipelined_steps(out, n_chunks, PIPE_NEW)[k]
+                                      for k in ("fused", "decode_only")))
+    n2, n4 = line["graphed"]["captures"], captures["generate_pipelined"]
+    if n4 != n2:
+        raise AssertionError(f"pipelined bf16: a stream of {PIPE_BATCHES} batches captured {n4} "
+                             f"graphs, one of 2 {n2}")
+    log("pipelined", f"generate_pipelined, bf16: {text}; {tallies['generate_pipelined']} for "
+                     f"{PIPE_BATCHES} batches, {n2} captured for 2; against per-batch generate, "
+                     f"ids agree on {agree} of each batch's positions; first parting token per "
+                     f"row (None: never; the fused GEMMs round M = {PIPE_B * (1 + C)} rows where "
+                     f"a decode step rounds {PIPE_B}, and the chunk step's attention is not "
+                     f"kernel 1's): {parts}")
     launches["int8 KV"], text = bf16_launches("int8 KV", *first["generate_pipelined int8 KV"])
-    log("pipelined", f"generate_pipelined, int8 KV: {int8_fp32['int8 KV']}; {text}")
+    log("pipelined", f"generate_pipelined, int8 KV: {int8_fp32['int8 KV']}; {text}; "
+                     f"{tallies['generate_pipelined int8 KV']}")
     label = "int8 weights + int8 KV"
     launches[label], text = bf16_launches(label, *counted(
         lambda: pipelined(dq16, batches16, bf16, kv=torch.int8)))
-    log("pipelined", f"generate_pipelined, {label}: {int8_fp32[label]}; {text}")
+    log("pipelined", f"generate_pipelined, {label}: {int8_fp32[label]}; {text}; {graph_tally()}")
     step_ms = None
     if TIMINGS or profile_dir is not None:
         t_times = time.perf_counter()
         step_ms = pipelined_step_times(cfg, d16, bf16, batches16, C, card, profile_dir)
         timed_only("4e's fused-step timing", t_times)
-    return dict(launches=launches, rates=med, spec=spec, step_ms=step_ms)
+    return dict(launches=launches, rates=med, spec=spec, step_ms=step_ms,
+                line={k: {n: v for n, v in r.items() if n != "result"}
+                      for k, r in line.items()}, captures=(n4, n2))
 
 
-def pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev) -> dict:
-    """generate_pipelined_spec on phase 4e's trees (see pipelined_1b)."""
+def pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev, card: str) -> dict:
+    """generate_pipelined_spec on phase 4e's trees (see pipelined_1b): 3
+    batches of 8 right-padded prompts of 165-256 ids from a set of 12, 64
+    new tokens, draft_len 8, every round static and replayed as a CUDA
+    graph. fp32: ids, lengths and rounds a batch graphed == uncaptured bit
+    for bit, ids == generate_pipelined's on the rows left-padded and ==
+    per-batch generate's. bf16: rounds a batch, tokens a round, launches
+    (kernel 1 for batch 0's adopt only: every verify is the chunk step),
+    the graphs the 3-batch stream captures against a 2-batch one's, and the
+    stream's line over 2 batches (loop_times)."""
     from starvector_tpu_torch.generation import engine, speculative
     from starvector_tpu_torch.models import gpt_bigcode
 
@@ -4029,8 +4184,18 @@ def pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev) -> dict:
     gen = engine.GenerationConfig(max_new_tokens=SPEC_NEW, do_sample=False,
                                   stop_sequences=STOP_IDS, eos_token_id=None, pad_token_id=0)
     batches32 = spec_batches(d32, gpt_bigcode.embed_tokens, dev)
-    out = speculative.generate_pipelined_spec(d32, cfg.llm, batches32, gen, policy=f32,
-                                         draft_len=SPEC_DRAFT)
+    batches16 = cast_batches(batches32, torch.bfloat16)
+
+    def spec(dec, batches, policy, graphed=True):
+        stats = []
+        out = speculative.generate_pipelined_spec(dec, cfg.llm, batches, gen, policy=policy,
+                                                  draft_len=SPEC_DRAFT, stats=stats,
+                                                  cuda_graphs=graphed)
+        return out, stats
+
+    out, stats32 = spec(d32, batches32, f32)
+    same_run("pipelined_spec fp32 (ids, lengths, rounds), graphed against uncaptured",
+             (out, stats32), spec(d32, batches32, f32, graphed=False))
     left = [left_padded(b) for b in batches32]
     pipe = engine.generate_pipelined(d32, cfg.llm, [b[:2] for b in left], gen, policy=f32)
     plain = [engine.generate(d32, cfg.llm, e, m, gen, policy=f32) for e, m, _ in left]
@@ -4038,22 +4203,33 @@ def pipelined_spec_1b(tfa, cfg, d16, d32, bf16, f32, dev) -> dict:
     same_ids("pipelined_spec fp32 against per-batch generate", out, plain)
     log("pipelined", f"generate_pipelined_spec, fp32, {SPEC_BATCHES} batches of {SPEC_B} "
                      f"right-padded rows of {min(SPEC_LENGTHS)}-{max(SPEC_LENGTHS)} ids from a set "
-                     f"of {len(SPEC_IDS)}, {SPEC_NEW} new tokens, draft_len {SPEC_DRAFT}: ids and "
-                     f"lengths == generate_pipelined's on the rows left-padded and == per-batch "
-                     f"generate's, every batch")
-    stats = []
+                     f"of {len(SPEC_IDS)}, {SPEC_NEW} new tokens, draft_len {SPEC_DRAFT}: rounds a "
+                     f"batch {stats32}; ids, lengths and rounds graphed == uncaptured "
+                     f"(cuda_graphs=False) bit for bit; ids and lengths == generate_pipelined's "
+                     f"on the rows left-padded and == per-batch generate's, every batch")
     reset_counts(tfa)
-    out16 = speculative.generate_pipelined_spec(d16, cfg.llm, cast_batches(batches32, torch.bfloat16),
-                                           gen, policy=bf16, draft_len=SPEC_DRAFT, stats=stats)
+    out16, stats = spec(d16, batches16, bf16)
     got = expect_counts("pipelined_spec bf16", read_counts(tfa), flash_prefill=L)
+    n3 = graphs_captured()
+    line = loop_times(card, f"1B generate_pipelined_spec, bf16, 2 batches of {SPEC_B}, "
+                            f"draft_len {SPEC_DRAFT}, {SPEC_NEW} tokens, {L} layers",
+                      lambda g: spec(d16, batches16[:2], bf16, graphed=g),
+                      lambda r: sum(r[1]), "round")
+    n2 = line["graphed"]["captures"]
+    if n3 != n2:
+        raise AssertionError(f"pipelined_spec bf16: a stream of {SPEC_BATCHES} batches captured "
+                             f"{n3} graphs, one of 2 {n2}")
     emitted = [int(l.sum()) for _, l in out16]
     per_round = [round(e / (r * SPEC_B), 3) for e, r in zip(emitted, stats)]
     log("pipelined", f"generate_pipelined_spec, bf16: rounds a batch {stats} (verify and "
                      f"chunk-only), emitted tokens {emitted}, {per_round} tokens a row a round; "
-                     f"launches flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0's adopt), "
+                     f"graphs captured {n3} for {SPEC_BATCHES} batches, {n2} for 2; launches "
+                     f"flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0's adopt), "
                      f"decode_attention {got['decode_attention']}: every verify is the chunk step; "
                      f"random weights, so the acceptance is no forecast for real SVG")
-    return dict(launches=got, rounds=stats, per_round=per_round)
+    return dict(launches=got, rounds=stats, per_round=per_round, captures=(n3, n2),
+                line={k: {n: v for n, v in r.items() if n != "result"}
+                      for k, r in line.items()})
 
 
 def pipelined_step_times(cfg, dec, policy, batches, C: int, card: str, out_dir: Path | None,
@@ -6351,7 +6527,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     t2s = text2svg_slice(tfa, "8B", StarVectorForCausalLM(p16, cfg, build_test_tokenizer("v2"),
                                                           policy=model.policy, device=dev),
                          p32, cfg32, dev, depth)
-    decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth)
+    decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth, card)
     t_pipe = time.perf_counter()
     pipe_8b = pipelined_8b(tfa, model, cfg, p16, p32, cfg32, dev, card, depth)
     log("phase", f"6 (StarVector-8B pipelined generation) took "
@@ -6419,7 +6595,7 @@ def slice_8b(sv, tfa, dev, card: str, profile_dir: Path | None = None) -> dict:
     return out
 
 
-def decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth: str) -> None:
+def decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth: str, card: str) -> None:
     """Phase 6's decoding variants on the 8B's bf16 tree (full width,
     `depth`) and its fp32 copy: beam search,
     num_beams=2 at B=1 through the API (flash_prefill once a layer over
@@ -6464,8 +6640,9 @@ def decoding_8b(tfa, model, cfg, p16, p32, cfg32, dev, depth: str) -> None:
         expect_counts(f"8B speculative B={B}", read_counts(tfa), flash_prefill=L)
     log("decoding", f"8B speculative decoding through the API, bf16, B=1 and B=4, 128 new "
                     f"tokens: launches flash_prefill {L} a request, no decode_attention")
-    speculative_checks("8B", cfg, p16, model.policy, cfg32, p32, f32,
-                       model.process_images(four), torch.tensor([PROMPT_IDS] * 4, device=dev))
+    speculative_checks(tfa, "8B", cfg, p16, model.policy, cfg32, p32, f32,
+                       model.process_images(four), torch.tensor([PROMPT_IDS] * 4, device=dev),
+                       card)
 
 
 PIPE_8B_NEW = 32  # new tokens of the 8B's checked pipelined runs
@@ -6473,17 +6650,21 @@ PIPE_8B_NEW = 32  # new tokens of the 8B's checked pipelined runs
 
 def pipelined_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -> dict:
     """Phase 6's offline pipelined generation on the 8B's bf16 tree (full
-    width, `depth`) and its fp32 copy:
-    StarCoder2 has no fused forward, so each step is the cached decode
-    forward (kernel 2 at G = 9) and then the next prompt's chunk through the
-    chunk step. 2 batches of B=2 im2svg prefixes, 32 greedy new tokens
-    (C = 19): fp32 ids and lengths equal per-batch generate's and the plain
-    attention's; bf16 launches exactly a flash_prefill a layer (batch 0)
-    and a decode_attention a layer a decode step; generate_pipelined_spec
-    raises the port's NotImplementedError; then tokens/s of serial
-    per-batch generate and generate_pipelined in turns (a, b, b, a) at 3
-    batches of B=4, 128 new tokens. Returns the bf16 launches and the
-    rates."""
+    width, `depth`) and its fp32 copy: StarCoder2 has no fused forward, so
+    while a batch carries chunks each step is the static decode step
+    (kernel 2 at G = 9, its key bounds on the device) and then the next
+    prompt's chunk through the static chunk step (the window in its device
+    mask), one CUDA graph a step kind and key bucket. Batches of B=2 im2svg
+    prefixes, 32 greedy new tokens (C = 19): fp32, 2 batches, ids and
+    lengths graphed == uncaptured (cuda_graphs=False) bit for bit with the
+    same launches, == per-batch generate's and the plain attention's; bf16,
+    3 batches: launches exactly a flash_prefill a layer (batch 0) and a
+    decode_attention a layer a decode step (pipelined_steps), the graphs
+    captured no more than a 2-batch stream's (the loop line's, loop_times);
+    generate_pipelined_spec raises the port's NotImplementedError; with
+    --timings, tokens/s of serial per-batch generate and generate_pipelined
+    in turns (a, b, b, a) at 3 batches of B=4, 128 new tokens. Returns the
+    bf16 launches, the line and the rates (None without --timings)."""
     from starvector_tpu_torch.generation import engine, speculative
     from starvector_tpu_torch.ops.layers import DTypePolicy
 
@@ -6503,9 +6684,21 @@ def pipelined_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -
                                        stop_sequences=STOP_IDS, eos_token_id=None,
                                        pad_token_id=0)
 
+    def counted(fn):
+        reset_counts(tfa)
+        out = fn()
+        return out, read_counts(tfa)
+
     d32, d16 = p32["svg_transformer"], p16["svg_transformer"]
     b32 = prefixes(p32, cfg32, f32, 2, 2, 71)
-    out = engine.generate_pipelined(d32, cfg32.llm, b32, gen(PIPE_8B_NEW), policy=f32)
+    out, counts = counted(lambda: engine.generate_pipelined(d32, cfg32.llm, b32, gen(PIPE_8B_NEW),
+                                                            policy=f32))
+    unc, unc_counts = counted(lambda: engine.generate_pipelined(
+        d32, cfg32.llm, b32, gen(PIPE_8B_NEW), policy=f32, cuda_graphs=False))
+    same_ids("8B pipelined fp32, graphed against uncaptured", out, unc)
+    if counts != unc_counts:
+        raise AssertionError(f"8B pipelined fp32: launches graphed {counts} != uncaptured "
+                             f"{unc_counts}")
     same_ids("8B pipelined fp32 against per-batch generate", out,
              [engine.generate(d32, cfg32.llm, e, m, gen(PIPE_8B_NEW), policy=f32)
               for e, m in b32])
@@ -6515,19 +6708,37 @@ def pipelined_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -
     P = b32[0][0].shape[1]
     C, n_chunks = engine._chunk_plan(P, PIPE_8B_NEW, None)
     del b32
-    b16 = prefixes(p16, cfg, bf16, 2, 2, 71)
+    b16 = prefixes(p16, cfg, bf16, 3, 2, 71)
+
+    def stream(bs, graphed=True):
+        return engine.generate_pipelined(d16, cfg.llm, bs, gen(PIPE_8B_NEW), policy=bf16,
+                                         cuda_graphs=graphed)
+
     reset_counts(tfa)
-    out = engine.generate_pipelined(d16, cfg.llm, b16, gen(PIPE_8B_NEW), policy=bf16)
-    steps = pipelined_steps(out, n_chunks)
+    out = stream(b16)
+    n3, tally = graphs_captured(), graph_tally()
+    steps = pipelined_steps(out, n_chunks, PIPE_8B_NEW)
     got = expect_counts("8B pipelined bf16", read_counts(tfa), flash_prefill=L,
                         decode_attention=L * steps["decode"])
-    log("pipelined", f"8B generate_pipelined, 2 batches of B=2 prefixes of {P} tokens, "
-                     f"{PIPE_8B_NEW} new tokens, C={C} ({n_chunks} chunks; no fused forward: "
-                     f"each step the decode forward, then the chunk step): fp32, {depth}: ids and "
-                     f"lengths == per-batch generate's and == the plain attention's; bf16: "
-                     f"launches flash_prefill {got['flash_prefill']} = {L} x 1 (batch 0), "
-                     f"decode_attention (G = 9) {got['decode_attention']} = {L} x "
-                     f"{steps['decode']} decode steps")
+    line = loop_times(card, f"8B generate_pipelined, bf16, 2 batches of B=2 prefixes of {P} "
+                            f"tokens, {PIPE_8B_NEW} tokens, {depth}",
+                      lambda g: stream(b16[:2], g),
+                      lambda o: sum(pipelined_steps(o, n_chunks, PIPE_8B_NEW)[k]
+                                    for k in ("fused", "decode_only")))
+    n2 = line["graphed"]["captures"]
+    if n3 != n2:
+        raise AssertionError(f"8B pipelined bf16: a stream of 3 batches captured {n3} graphs, "
+                             f"one of 2 {n2}")
+    log("pipelined", f"8B generate_pipelined, B=2 prefixes of {P} tokens, {PIPE_8B_NEW} new "
+                     f"tokens, C={C} ({n_chunks} chunks; no fused forward: each step the static "
+                     f"decode step, then the static chunk step), as CUDA graphs: fp32, 2 batches, "
+                     f"{depth}: ids and lengths == the uncaptured stream's (cuda_graphs=False) "
+                     f"bit for bit with the same launches, == per-batch generate's and == the "
+                     f"plain attention's; bf16, 3 batches: launches flash_prefill "
+                     f"{got['flash_prefill']} = {L} x 1 (batch 0), decode_attention (G = 9) "
+                     f"{got['decode_attention']} = {L} x {steps['decode']} decode steps "
+                     f"({steps['fused']} with a chunk, {steps['decode_only']} alone); {tally}, "
+                     f"{n2} captured for 2 batches")
     e, m = b16[0]
     ids = torch.full(m.shape, -1, dtype=torch.int64, device=dev)
     try:
@@ -6536,23 +6747,30 @@ def pipelined_8b(tfa, model, cfg, p16, p32, cfg32, dev, card: str, depth: str) -
         log("pipelined", f"8B generate_pipelined_spec raises NotImplementedError: {err}")
     else:
         raise AssertionError("8B generate_pipelined_spec ran without a fused verify forward")
-    b16 = prefixes(p16, cfg, bf16, 3, 4, 81)
-    runs = {"serial generate": lambda: [engine.generate(d16, cfg.llm, e, m, gen(128), policy=bf16)
-                                        for e, m in b16],
-            "generate_pipelined": lambda: engine.generate_pipelined(d16, cfg.llm, b16, gen(128),
-                                                                    policy=bf16)}
-    rates = {k: [] for k in runs}
-    for label in list(runs) + list(runs)[::-1]:
-        res, wall = timed(runs[label])
-        rates[label].append(sum(float(l.sum()) for _, l in res) / wall)
-    med = {k: statistics.median(v) for k, v in rates.items()}
-    log("times", f"{card}: 8B offline, {depth}, 3 batches of B=4 "
-                 f"prefixes of {P} tokens, 128 greedy tokens, bf16, in turns (a, b, b, a), "
-                 f"emitted tokens / wall: "
-                 + "; ".join(f"{k} {med[k]:.1f} tokens/s ({[round(x, 1) for x in v]})"
-                             for k, v in rates.items())
-                 + f"; pipelined / serial {med['generate_pipelined'] / med['serial generate']:.3f}")
-    return dict(launches=got, rates=med)
+    med = None
+    if TIMINGS:
+        t_times = time.perf_counter()
+        b16 = prefixes(p16, cfg, bf16, 3, 4, 81)
+        runs = {"serial generate": lambda: [engine.generate(d16, cfg.llm, e, m, gen(128),
+                                                            policy=bf16) for e, m in b16],
+                "generate_pipelined": lambda: engine.generate_pipelined(
+                    d16, cfg.llm, b16, gen(128), policy=bf16)}
+        rates = {k: [] for k in runs}
+        for label in list(runs) + list(runs)[::-1]:
+            res, wall = timed(runs[label])
+            rates[label].append(sum(float(l.sum()) for _, l in res) / wall)
+        med = {k: statistics.median(v) for k, v in rates.items()}
+        log("times", f"{card}: 8B offline, {depth}, 3 batches of B=4 "
+                     f"prefixes of {P} tokens, 128 greedy tokens, bf16, in turns (a, b, b, a), "
+                     f"emitted tokens / wall: "
+                     + "; ".join(f"{k} {med[k]:.1f} tokens/s ({[round(x, 1) for x in v]})"
+                                 for k, v in rates.items())
+                     + f"; pipelined / serial "
+                       f"{med['generate_pipelined'] / med['serial generate']:.3f}")
+        timed_only("phase 6's pipelined turns", t_times)
+    return dict(launches=got, rates=med, captures=(n3, n2),
+                line={k: {n: v for n, v in r.items() if n != "result"}
+                      for k, r in line.items()})
 
 
 def int8_slice_8b(model, tfa, cfg, p16, dev, card: str, bf16_e2e: dict, depth: str,

@@ -69,8 +69,9 @@ class StarVectorForCausalLM:
         """`tokenizer` is a starvector_tpu_torch.models.tokenizer.SVGTokenizer,
         or None: then prompts and stop sequences are given as token ids.
         `kernels=False` runs the kernels' plain versions. Runs on the card;
-        `device="cpu"` asks for the CPU. Generation's decode steps replay as
-        CUDA graphs on the card (generation/engine.py::generate);
+        `device="cpu"` asks for the CPU. Generation's decode steps and
+        speculative decoding's rounds replay as CUDA graphs on the card
+        (generation/engine.py::generate, generation/speculative.py);
         `cuda_graphs=False` runs the same steps uncaptured."""
         self.params = params
         self.cfg = cfg
@@ -173,7 +174,8 @@ class StarVectorForCausalLM:
     def _spec_kwargs(self, gen: GenerationConfig, kwargs: dict) -> dict:
         return dict(max_new_tokens=gen.max_new_tokens, draft_len=int(kwargs.get("draft_len", 8)),
                     stop_sequences=gen.stop_sequences, eos_token_id=gen.eos_token_id,
-                    pad_token_id=gen.pad_token_id, policy=self.policy, kernels=self.kernels)
+                    pad_token_id=gen.pad_token_id, policy=self.policy, kernels=self.kernels,
+                    cuda_graphs=self.cuda_graphs)
 
     def _im2svg_request(self, batch: dict, prompt_ids, stop_sequences, kwargs: dict):
         """(images, prompt_ids (B, Sp) on the device, GenerationConfig)."""

@@ -41,10 +41,14 @@ Offline pipelined generation over a stream of same-shaped batches,
 generate_pipelined: batch k + 1's left-padded prompt is prefilled C
 positions a step inside batch k's decode steps, so batch k + 1 starts
 decoding when batch k ends. GPTBigCode fuses each step into one forward
-(forward_decode_with_chunk: kernel 2 for the decode row, the chunk step's
-attention for the chunk, the projections shared); StarCoder2 has none (nor
-has the JAX package) and runs the decode forward and then the chunk step.
-Its speculative counterpart, generate_pipelined_spec, is in speculative.py.
+(forward_decode_with_chunk_static: kernel 2 for the decode row, the chunk
+step's attention for the chunk, the projections shared); StarCoder2 has
+none (nor has the JAX package) and runs the static decode step and then
+the static chunk step. Its steps are static too, the JAX _decode_overlap
+loop's (its engine.py:320) as the card runs it: the chunk's write index is
+on the device, so each step kind and key bucket is one graph, captured
+once a stream (graphs.StepLoop). Its speculative counterpart,
+generate_pipelined_spec, is in speculative.py.
 """
 
 from __future__ import annotations
@@ -163,6 +167,22 @@ class BatchSampler:
         if gen.eos_token_id is not None and gen.min_new_tokens > 0:
             self.eos_col = torch.arange(V, device=device) == gen.eos_token_id
 
+    def reset(self, prompt_ids: torch.Tensor | None = None) -> None:
+        """Start a new batch of the same shape in place (a pipelined
+        stream's next batch): tokens pad, lengths max_new_tokens, done
+        cleared, t 0, the penalty counts zeroed and the presence table set
+        to `prompt_ids`' ids (B, P)."""
+        self.tokens.fill_(self.gen.pad_token_id)
+        self.lengths.fill_(self.gen.max_new_tokens)
+        self.done.zero_()
+        self.t.zero_()
+        if self.counts is not None:
+            self.counts.zero_()
+        if self.presence is not None:
+            self.presence.zero_()
+            if prompt_ids is not None:
+                self.presence.scatter_(1, prompt_ids.long().to(self.presence.device), 1)
+
     def step(self, logits: torch.Tensor) -> torch.Tensor:
         """Token t of every row (B,) from its logits (B, V); records it and
         advances t."""
@@ -266,6 +286,14 @@ def step_cap(pos: int, T: int) -> int:
     return min(graphs.bucket_len(pos + 1), T)
 
 
+def chunk_cap(idx: int, T: int) -> int:
+    """The key span [0, chunk_cap) of a static chunk step (or verify) whose
+    keys lie below slot idx of a T-slot cache: 0 for a chunk at slot 0,
+    else the power-of-two bucket above idx, at most T. The steps of one
+    span share one captured graph."""
+    return 0 if idx <= 0 else min(graphs.bucket_len(idx), T)
+
+
 def decode_static(params: dict, llm_cfg, cache: dict, P: int, last_logits: torch.Tensor,
                   sampler: BatchSampler, *, policy: DTypePolicy, kernels: bool,
                   cuda_graphs: bool) -> None:
@@ -292,27 +320,16 @@ def decode_static(params: dict, llm_cfg, cache: dict, P: int, last_logits: torch
 
     n = sampler.gen.max_new_tokens
     blocks = decode_blocks(n, DECODE_GRAPH_STEPS)
-    captured, pool = {}, None
-    if cuda_graphs and blocks:
+    loop = graphs.StepLoop(device, cuda_graphs, (sampler.generator,))
+    if loop.enabled and blocks:
         graphs.reserve_decode(device, llm_cfg, cache["k"].shape[1], step_cap(P + n - 2, T))
-        pool = torch.cuda.graph_pool_handle()
     p = P
-    for i, n_steps in enumerate(blocks):
+    for n_steps in blocks:
         for _ in range(n_steps):
             t_cap = step_cap(p, T)
-            if not cuda_graphs:
-                step(t_cap)
-            elif i == 0:
-                # the warm-up, a real step: the libraries' lazy set-up and
-                # the kernels' scratch (kernel 14's GEMV) on the capture stream
-                graphs.on_side_stream(device, lambda: step(t_cap))
-            else:
-                if t_cap not in captured:
-                    captured[t_cap] = graphs.StepGraph(lambda: step(t_cap), device, pool=pool,
-                                                       generators=(sampler.generator,))
-                captured[t_cap].replay()
+            loop.run("decode", t_cap, lambda c=t_cap: step(c))
             p += 1
-        if bool(sampler.done.all()):
+        if graphs.host_read(sampler.done.all())[0]:
             return
     if n > 0:
         sampler.step(logits)
@@ -418,64 +435,81 @@ def pad_time(x: torch.Tensor, width: int, value=0, left: bool = True) -> torch.T
     return F.pad(x, (0, 0) * (x.ndim - 2) + pad, value=value)
 
 
-def _decode_overlap(params: dict, llm_cfg, cache: dict, last_logits: torch.Tensor,
-                    presence: torch.Tensor | None, nxt: tuple | None, gen: GenerationConfig,
-                    generator, C: int, n_chunks: int, policy: DTypePolicy, kernels: bool,
-                    kv_cache_dtype):
-    """Decode the current batch (prefilled into `cache`, its first logits
-    `last_logits`) while chunk-prefilling the next one, nxt = (embeds
-    (B, Pn, E), mask (B, Pn)) left-padded to n_chunks x C, or None for the
-    last batch. Step t samples token t; then, while a row is live and t <
-    max_new_tokens - 1, a decode forward, and while t < n_chunks, chunk t
-    of the next prompt: one fused forward where the decoder has one
-    (forward_decode_with_chunk), else the cached decode forward and then
-    the chunk through the cached forward (the chunk step for C <= 64). A
-    step whose batch is done writes its chunk alone. The next batch's
-    logits are the final chunk's last position (every row's last real
-    token: the prompts are left-padded).
-
-    Returns (tokens, lengths, the next batch's cache, its logits (B, V));
-    the last two None for the last batch."""
+def _decode_overlap(params: dict, llm_cfg, loop: graphs.StepLoop, sampler: BatchSampler,
+                    logits: torch.Tensor, cache: dict, P: int, pos: torch.Tensor,
+                    nxt: tuple | None, C: int, n_chunks: int, policy: DTypePolicy,
+                    kernels: bool) -> None:
+    """Decode one batch of a pipelined stream (its cache prefilled with P
+    slots, its first logits in `logits`, (B, V), the write slot pos at P)
+    while chunk-prefilling the next one, nxt = (its cache, the staged
+    prompt embeds (B, n_chunks x C, E) and mask, left-padded, the cache's
+    write index idx at 0, the buffer for its first logits), or None for the
+    last batch. The steps, as the JAX loop's `lax.cond` picks them: while t
+    < n_chunks, step t samples token t and runs the fused step
+    (forward_decode_with_chunk_static where the decoder has one, else the
+    static decode step and then the static chunk step), even after every row
+    is done (a done row emits pads); the last chunk's step also writes the
+    next batch's first logits (its last position: the prompts are
+    left-padded). Then, while a row is live, a token and a static decode
+    step a step up to token max_new_tokens - 1, which is sampled with no
+    forward. The host reads `done` once after the chunks and once a block of
+    DECODE_GRAPH_STEPS decode steps. Every step runs through `loop`: a
+    captured graph a (kind, key caps) on the card."""
     dec = decoder_module(llm_cfg)
-    B, V = last_logits.shape
-    device = last_logits.device
-    n = gen.max_new_tokens
-    fused = getattr(dec, "forward_decode_with_chunk", None)
-    next_cache = next_last = None
+    fused = getattr(dec, "forward_decode_with_chunk_static", None)
+    n = sampler.gen.max_new_tokens
+    T = cache["k"].shape[2]
+
+    def embed_next() -> torch.Tensor:
+        tok = sampler.step(logits)
+        return dec.embed_tokens(params, tok[:, None]).to(policy.compute_dtype)
+
+    def decode_step(t_cap: int) -> None:
+        logits.copy_(dec.forward_decode_static(params, llm_cfg, embed_next(), cache, pos,
+                                               t_cap=t_cap, policy=policy, kernels=kernels))
+        pos.add_(1)
+
+    t = 0
     if nxt is not None:
-        next_embeds, next_mask = nxt
-        next_cache = dec.init_cache(llm_cfg, B, next_embeds.shape[1] + n,
-                                    dtype=kv_cache_dtype or policy.compute_dtype, device=device)
-    n_steps = n_chunks if nxt is not None else 0  # steps that carry a chunk
-    sampler = BatchSampler(gen, B, V, device, presence, generator)
-    ones = torch.ones((B, 1), dtype=torch.int32, device=device)
-    for t in range(n):
-        tok = sampler.step(last_logits)
-        decode = t < n - 1 and not bool(sampler.done.all())
-        if not decode and t >= n_steps:
-            break
-        embeds = dec.embed_tokens(params, tok[:, None]).to(policy.compute_dtype)
-        if t < n_steps:
-            ce = policy.cast(next_embeds[:, t * C:(t + 1) * C])
-            cm = next_mask[:, t * C:(t + 1) * C]
-            final = t == n_chunks - 1
-        if decode and t < n_steps and fused is not None:
-            last_logits, cache, chunk_last, next_cache = fused(
-                params, llm_cfg, embeds, cache, ce, cm, next_cache, policy=policy,
-                kernels=kernels, chunk_logits=final)
-        else:
-            if decode:
-                step_logits, cache = dec.forward(params, llm_cfg, embeds, attention_mask=ones,
-                                                 cache=cache, policy=policy, kernels=kernels)
-                last_logits = step_logits[:, -1]
-            if t < n_steps:
-                out, next_cache = dec.forward(params, llm_cfg, ce, attention_mask=cm,
-                                              cache=next_cache, policy=policy, kernels=kernels,
-                                              return_hidden=not final, last_logits_only=True)
-                chunk_last = out[:, -1]
-        if t < n_steps and final:
-            next_last = chunk_last
-    return sampler.tokens, sampler.lengths, next_cache, next_last
+        cache_next, stage_e, stage_m, idx, next_last = nxt
+
+        def chunk_step(t_cap: int, c_cap: int, final: bool) -> None:
+            # every tensor a step reads is the stream's or the step's own: its
+            # graph is replayed in later batches, after this call's locals died
+            slots = idx.long() + torch.arange(C, device=idx.device)
+            ce, cm = stage_e.index_select(1, slots), stage_m.index_select(1, slots)
+            if fused is not None:
+                dec_logits, last = fused(params, llm_cfg, embed_next(), cache, pos, ce, cm,
+                                         cache_next, idx, t_cap=t_cap, chunk_cap=c_cap,
+                                         policy=policy, kernels=kernels, chunk_logits=final)
+                logits.copy_(dec_logits)
+                pos.add_(1)
+            else:
+                decode_step(t_cap)
+                last = dec.forward_chunk_static(params, llm_cfg, ce, cm, cache_next, idx,
+                                                t_cap=c_cap, policy=policy, kernels=kernels,
+                                                return_hidden=not final,
+                                                last_logits_only=True)[:, -1]
+            if final:
+                next_last.copy_(last)
+            idx.add_(C)
+
+        for t in range(n_chunks):
+            key = (step_cap(P + t, T), chunk_cap(t * C, T), t == n_chunks - 1)
+            loop.run("fused", key, lambda k=key: chunk_step(*k))
+        t = n_chunks
+        if graphs.host_read(sampler.done.all())[0]:
+            return
+    while t < n - 1:
+        end = min(t + DECODE_GRAPH_STEPS, n - 1)
+        for s in range(t, end):
+            t_cap = step_cap(P + s, T)
+            loop.run("decode", t_cap, lambda c=t_cap: decode_step(c))
+        t = end
+        if graphs.host_read(sampler.done.all())[0]:
+            return
+    if t == n - 1:
+        sampler.step(logits)
 
 
 @torch.no_grad()
@@ -491,6 +525,7 @@ def generate_pipelined(
     chunk_positions: int | None = None,
     kernels: bool = True,
     kv_cache_dtype: torch.dtype | None = None,
+    cuda_graphs: bool = True,
 ) -> list:
     """Generate over a stream of same-shaped batches, batch k + 1's prompt
     written into its cache C positions a decode step of batch k, so that
@@ -504,13 +539,23 @@ def generate_pipelined(
     one forward; StarCoder2 has no fused forward (in either package) and
     runs the two forwards. `kv_cache_dtype=torch.int8` stores both caches
     as codes and scales. Returns [(tokens, lengths), ...], generate's
-    per-batch result."""
+    per-batch result.
+
+    The steps are static (_decode_overlap): the stream allocates its two
+    caches, a staging buffer for the next prompt and the sampler once, and
+    between batches copies the chunk-filled cache into the current one's
+    place and resets the other in place (key mask zeroed), so every batch's
+    steps read and write the same buffers. On the card they replay as CUDA
+    graphs, one a step kind and key bucket, captured once a stream: a stream
+    of N same-shaped batches captures no more graphs than one of 2.
+    `cuda_graphs=False` runs the same steps uncaptured; the CPU always does."""
     if gen.num_return_sequences != 1:
         raise ValueError("generate_pipelined supports num_return_sequences=1")
     if not batches:
         return []
     _check_top_k(gen)
-    B, P, _ = batches[0][0].shape
+    dec = decoder_module(llm_cfg)
+    B, P, E = batches[0][0].shape
     V = llm_cfg.vocab_size
     n = gen.max_new_tokens
     C, n_chunks = _chunk_plan(P, n, chunk_positions)
@@ -524,15 +569,43 @@ def generate_pipelined(
     if max(widths) > Pn:  # before any forward, not at the batch that overflows
         raise ValueError(f"prompt widths {widths} exceed the {Pn} positions batch 0's fixes")
     e0, m0 = padded(0)
-    last_logits, cache = _prefill_full(params, llm_cfg, e0, m0, Pn + n, policy, kernels,
-                                       kv_cache_dtype)
+    device = e0.device
+    last, cache = _prefill_full(params, llm_cfg, e0, m0, Pn + n, policy, kernels,
+                                kv_cache_dtype)
+    logits = last.contiguous().clone()
+    pos = torch.zeros(1, dtype=torch.int32, device=device)
+    nxt = None
+    if len(batches) > 1:
+        nxt = (dec.init_cache(llm_cfg, B, Pn + n, dtype=kv_cache_dtype or policy.compute_dtype,
+                              device=device),
+               torch.zeros((B, Pn, E), dtype=policy.compute_dtype, device=device),
+               torch.zeros((B, Pn), dtype=torch.int32, device=device),
+               torch.zeros(1, dtype=torch.int32, device=device),
+               torch.zeros((B, V), dtype=torch.float32, device=device))
+    sampler = BatchSampler(gen, B, V, device, prompt_presence(gen, B, V, device, None),
+                           generator)
+    loop = graphs.StepLoop(device, cuda_graphs, (generator,))
+    if loop.enabled:
+        graphs.reserve_decode(device, llm_cfg, B, Pn + n)
     out = []
     for i in range(len(batches)):
-        nxt = padded(i + 1) if i + 1 < len(batches) else None
-        presence = prompt_presence(gen, B, V, e0.device,
-                                   None if prompt_ids is None else torch.as_tensor(prompt_ids[i]))
-        tokens, lengths, cache, last_logits = _decode_overlap(
-            params, llm_cfg, cache, last_logits, presence, nxt, gen, generator, C, n_chunks,
-            policy, kernels, kv_cache_dtype)
-        out.append((tokens, lengths))
+        if i > 0:
+            # the chunk-filled cache takes the current one's place; the other is emptied
+            cache_next, _, _, _, next_last = nxt
+            for key in dc.PAYLOAD_KEYS + ("kv_mask",):
+                if key in cache:
+                    cache[key].copy_(cache_next[key])
+            cache_next["kv_mask"].zero_()
+            logits.copy_(next_last)
+        has_next = i + 1 < len(batches)
+        if has_next:
+            embeds, mask = padded(i + 1)
+            nxt[1].copy_(policy.cast(embeds))
+            nxt[2].copy_(mask)
+            nxt[3].zero_()
+        sampler.reset(None if prompt_ids is None else torch.as_tensor(prompt_ids[i]))
+        pos.fill_(Pn)
+        _decode_overlap(params, llm_cfg, loop, sampler, logits, cache, Pn, pos,
+                        nxt if has_next else None, C, n_chunks, policy, kernels)
+        out.append((sampler.tokens.clone(), sampler.lengths.clone()))
     return out

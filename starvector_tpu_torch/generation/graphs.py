@@ -5,15 +5,19 @@ starvector_tpu/serve/engine.py:357), which run as one device program with
 no host round trip a token.
 
 A `StepGraph` captures static decode steps (one of generate's, the
-decoders' `forward_decode_static`; or the serving engine's static tick:
-every loop-varying scalar on the device, every buffer allocated before the
-capture) once and replays it. Capture and warm-up run on one side stream
-per device, both under `CAPTURE_LOCK`, so that the libraries' lazy set-up
-(cuBLAS's workspace for that stream, the kernels' scratch) happens before
-a capture, never inside one. A graph holds the kernels' scratch buffers it
-launched with, which a later, larger launch replaces: they are freed only
-with the graph. A capture that fails raises; nothing falls back to the
-eager loop.
+decoders' `forward_decode_static`; a pipelined stream's fused or
+decode-only step; a speculative round; or the serving engine's static
+tick: every loop-varying scalar on the device, every buffer allocated
+before the capture) once and replays it. A `StepLoop` runs one loop's
+steps by kind: the first of each kind as the warm-up, then one graph a
+(kind, key) captured at its first step and replayed for every later one;
+the loop reads the device once a block of steps (`host_read`). Capture
+and warm-up run on one side stream per device, both under `CAPTURE_LOCK`,
+so that the libraries' lazy set-up (cuBLAS's workspace for that stream,
+the kernels' scratch) happens before a capture, never inside one. A graph
+holds the kernels' scratch buffers it launched with, which a later, larger
+launch replaces: they are freed only with the graph. A capture that fails
+raises; nothing falls back to the eager loop.
 
 Launch counts. A kernel wrapper counts a launch where it launches its
 kernel: inside a capture it runs once and adds one, but nothing is
@@ -197,3 +201,51 @@ class StepGraph:
         self.replays += 1
         _TALLY["replayed"].update(self.launches)
         _TALLY["replays"] += 1
+
+
+class StepLoop:
+    """The static steps of one decode loop (generation/engine.py,
+    generation/speculative.py), by kind. On the card with `enabled`, the
+    first step of each kind runs uncaptured on the side stream, as the
+    warm-up (the libraries' lazy set-up, the kernels' scratch), and its
+    (kind, key) is captured right after it; every later step replays the
+    StepGraph of its (kind, key), captured at the first step that meets
+    it. So a key is captured in the first batch of a stream that meets it,
+    and a longer stream of the same batches captures nothing more. The
+    graphs share one pool (they never run at once; a step's buffers are
+    made before its capture and written in place). Otherwise every step
+    runs uncaptured, with the same launches. `fn` must be a step whose
+    launches depend on its key alone."""
+
+    def __init__(self, device, enabled: bool, generators=()):
+        self.device = torch.device(device)
+        self.enabled = enabled and self.device.type == "cuda"
+        self.generators = generators
+        self.graphs: dict = {}
+        self.warmed: set = set()
+        self.pool = torch.cuda.graph_pool_handle() if self.enabled else None
+
+    def run(self, kind: str, key, fn) -> None:
+        if not self.enabled:
+            fn()
+            return
+        warm_up = kind not in self.warmed
+        if warm_up:
+            self.warmed.add(kind)
+            on_side_stream(self.device, fn)
+        graph = self.graphs.get((kind, key))
+        if graph is None:
+            graph = self.graphs[(kind, key)] = StepGraph(
+                fn, self.device, pool=self.pool, generators=self.generators)
+        if not warm_up:
+            graph.replay()
+
+    @property
+    def captures(self) -> int:
+        return len(self.graphs)
+
+
+def host_read(*scalars: torch.Tensor) -> list[int]:
+    """The loops' one host read a block: one-element device tensors (a
+    `done.all()`, a length) as ints, in one transfer."""
+    return torch.stack([x.reshape(()).long() for x in scalars]).tolist()

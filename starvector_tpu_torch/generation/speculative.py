@@ -18,10 +18,9 @@ flip on a near-tie; `accept_margin` accepts a draft position only where the
 verify's top-1 logit leads the top-2 by at least that much.
 
 * generate_greedy_speculative, B = 1, the linear cache: the K slots are
-  written at the shared index, then the index is set back to saved + a and
-  the kv_mask slots from `saved` on to slot < saved + a, since the next
-  round's positions come from the mask's sum. `a` comes to the host once a
-  round.
+  written at the device index idx, then the key mask is cleared past idx +
+  a and idx advances by a (decode_common.rollback_verify), since the next
+  round's positions come from the mask's sum.
 * generate_greedy_speculative_batched, the ragged cache (per-row lengths):
   rows right-padded, each row's keys at [0, length); one
   forward_ragged_verify a round scores every row's proposal, each row
@@ -29,18 +28,35 @@ verify's top-1 logit leads the top-2 by at least that much.
   row commits nothing.
 Both return n_forwards, the decoder forwards run (the prefill included).
 * generate_pipelined_spec, offline over a stream of same-shaped batches:
-  generate_greedy_speculative_batched's rounds (RaggedRows) with a chunk
-  of the next batch's right-padded prompt fused into each round
-  (forward_ragged_verify_with_chunk, GPTBigCode only); batch 0 is
+  generate_greedy_speculative_batched's rounds with a chunk of the next
+  batch's right-padded prompt fused into each round
+  (forward_ragged_verify_with_chunk_static, GPTBigCode only); batch 0 is
   prefilled and adopted as a ragged cache by _spec_prefill_adopt, the
   adoption generate_greedy_speculative_batched also runs.
+
+Every round is static, the JAX while_loops' bodies with nothing read on
+the host: the per-row state (RaggedRows: pending tokens, draft context,
+emitted tokens, counts, done, lengths, the rounds run while a row was
+live) lives on the device and is written in place, the verify attends
+over a key span fixed per graph (forward_chunk_static at B = 1, the
+ragged verify given key_bounds (0, t_cap)). The rounds run in blocks of at
+most DECODE_GRAPH_STEPS (no more than the live rows can still need: a live
+round emits at least a token), the host reading done, the longest row and
+the least emitted count once a block (`_flags`) to plan the next block's
+key span; a round after every row is done changes nothing. On the card
+each (kind, key span) is a CUDA graph captured once a call
+(graphs.StepLoop); `cuda_graphs=False` runs the same rounds uncaptured, as
+the CPU and a serving group (whose rounds broadcast over gloo) do.
 """
 
 from __future__ import annotations
 
 import torch
 
-from starvector_tpu_torch.generation.engine import decoder_module, pad_time
+from starvector_tpu_torch.generation import graphs
+from starvector_tpu_torch.generation.engine import (
+    DECODE_GRAPH_STEPS, chunk_cap, decoder_module, pad_time,
+)
 from starvector_tpu_torch.models import decode_common as dc
 from starvector_tpu_torch.ops.layers import DTypePolicy, matmul_f32
 
@@ -81,7 +97,9 @@ def _append_accepted(buf: torch.Tensor, offs: torch.Tensor, proposal: torch.Tens
 def _find_stop_in(tok_buf: torch.Tensor, upto: torch.Tensor, stops, eos_token_id,
                   max_new_tokens: int):
     """(the end index of each row's first stop in tok_buf[:, :upto], else
-    max_new_tokens; whether one fired), for tok_buf (B, n), upto (B,)."""
+    max_new_tokens; whether one fired), for tok_buf (B, n), upto (B,);
+    `stops` id tuples or, for a captured round, tensors on tok_buf's
+    device."""
     n = tok_buf.shape[1]
     pos = torch.arange(n, device=tok_buf.device)[None, :]
     fire = torch.zeros(tok_buf.shape, dtype=torch.bool, device=tok_buf.device)
@@ -89,7 +107,7 @@ def _find_stop_in(tok_buf: torch.Tensor, upto: torch.Tensor, stops, eos_token_id
         L = len(stop)
         if L == 0 or L > max_new_tokens:
             continue
-        s = torch.tensor(stop, dtype=tok_buf.dtype, device=tok_buf.device)
+        s = torch.as_tensor(stop, dtype=tok_buf.dtype, device=tok_buf.device)
         windows = torch.stack([torch.roll(tok_buf, L - 1 - i, dims=1) for i in range(L)], dim=-1)
         fire |= (windows == s).all(dim=-1) & (pos >= L - 1)
     if eos_token_id is not None:
@@ -129,18 +147,21 @@ def generate_greedy_speculative(
     accept_margin: float = 0.0,
     kernels: bool = True,
     group=None,
+    cuda_graphs: bool = True,
 ):
     """B = 1 over the linear cache. Returns (tokens (1, max_new_tokens),
     lengths (1,), n_forwards). As in the JAX function, tokens past the
     length are not pad-filled: the last round's accepted tokens may run past
-    a stop.
+    a stop. Each round is the static chunk step (forward_chunk_static) of
+    [pending ‖ draft] at the device index, then the state's commit and the
+    cache's rollback, all on the device (see the module docstring).
 
     On a serving group (parallel/tensor.py::ServingGroup; params and
     llm_cfg this rank's) every rank runs this call on the same inputs, so
     that the decoder's all-reduces and gathers meet in the same forwards:
     each round the leader sends its accepted tokens and its next pending
     token, and a follower whose own differ raises (serve/engine.py runs the
-    call as one command of its group)."""
+    call as one command of its group). Its rounds run uncaptured."""
     dec = decoder_module(llm_cfg)
     _, P, _ = inputs_embeds.shape
     K = draft_len
@@ -151,40 +172,29 @@ def generate_greedy_speculative(
     logits, cache = dec.forward(params, llm_cfg, inputs_embeds, attention_mask=attention_mask,
                                 cache=cache, policy=policy, last_logits_only=True,
                                 kernels=kernels)
-    pending = logits[:, -1].float().argmax(dim=-1)                 # (1,)
     ctx = torch.full((1, total), -1, dtype=torch.int64, device=device)
     ctx[:, :prompt_ids.shape[1]] = prompt_ids
-    tokens = torch.full((1, max_new_tokens + K), pad_token_id, dtype=torch.int64, device=device)
+    state = RaggedRows(logits[:, -1].float().argmax(dim=-1), ctx,
+                       torch.full((1,), P, dtype=torch.int64, device=device),
+                       max_new_tokens=max_new_tokens, draft_len=K,
+                       stop_sequences=stop_sequences, eos_token_id=eos_token_id,
+                       pad_token_id=pad_token_id, accept_margin=accept_margin)
+    idx = torch.full((1,), P, dtype=torch.int32, device=device)
     ones = torch.ones((1, K), dtype=torch.int32, device=device)
-    t, n_ctx, n_fwd, length = 0, P, 1, max_new_tokens
-    while t < max_new_tokens:
-        proposal = torch.cat([pending[:, None], _lookup_draft(
-            ctx, torch.tensor([n_ctx], device=device), pending, K)], dim=1)   # (1, K)
-        saved = cache["index"]
-        lg, cache = dec.forward(params, llm_cfg, dec.embed_tokens(params, proposal).to(
-            policy.compute_dtype), attention_mask=ones, cache=cache, policy=policy,
-            kernels=kernels)
-        a, g = _accepted(proposal, lg, accept_margin)
-        if group is not None and group.size > 1:
+    grouped = group is not None and group.size > 1
+
+    def verify(t_cap: int) -> None:
+        proposal = state.proposal()
+        lg = dec.forward_chunk_static(params, llm_cfg, dec.embed_tokens(params, proposal).to(
+            policy.compute_dtype), ones, cache, idx, t_cap=t_cap, policy=policy, kernels=kernels)
+        a, g = state.commit(proposal, lg)
+        if grouped:
             _check_round(group, proposal, a, g)
-        a = int(a)
-        n_fwd += 1
-        # emit the a verified tokens; roll the cache back over the K - a rejected
-        tokens[:, t:t + a] = proposal[:, :a]
-        pending = g[:, a - 1]
-        cache["index"] = saved + a
-        cache["kv_mask"][:, saved + a:] = 0
-        ctx[:, n_ctx:n_ctx + a] = proposal[:, :a]
-        n_ctx += a
-        t += a
-        stop_at, fired = _find_stop_in(tokens, torch.tensor([min(t, max_new_tokens)],
-                                                             device=device),
-                                       stop_sequences, eos_token_id, max_new_tokens)
-        if bool(fired):
-            length = int(stop_at)
-            break
-        length = min(t, max_new_tokens)
-    return tokens[:, :max_new_tokens], torch.tensor([length], device=device), n_fwd
+        dc.rollback_verify(cache, idx, a, K)
+
+    _verify_rounds(graphs.StepLoop(device, cuda_graphs and not grouped), state, idx, total,
+                   verify)
+    return state.tokens[:, :max_new_tokens], state.lengths, 1 + graphs.host_read(state.rounds)[0]
 
 
 def _check_round(group, proposal: torch.Tensor, a: torch.Tensor, g: torch.Tensor) -> None:
@@ -240,60 +250,111 @@ def _spec_prefill_adopt(params: dict, llm_cfg, inputs_embeds: torch.Tensor,
 
 
 class RaggedRows:
-    """Batched speculative decoding's per-row state over a ragged cache
-    (the loop body of generate_greedy_speculative_batched and of
-    generate_pipelined_spec's verify rounds): pending tokens, the draft context
-    ctx (B, Cx) of which n_ctx (B,) are filled, the emitted tokens (B,
-    max_new_tokens + K), each row's count t, done and lengths."""
+    """Speculative decoding's per-row state (the loop body of the JAX
+    generate_greedy_speculative*, shared by the port's three loops), on the
+    device and written in place, so that a captured round keeps reading
+    and writing the same tensors: pending tokens, the draft context ctx
+    (B, Cx) of which n_ctx (B,) are filled, the emitted tokens (B,
+    max_new_tokens + K), each row's count t, done and lengths, and `rounds`
+    (1,), the rounds in which a row was live."""
 
     def __init__(self, pending: torch.Tensor, ctx: torch.Tensor, n_ctx: torch.Tensor, *,
                  max_new_tokens: int, draft_len: int, stop_sequences, eos_token_id,
                  pad_token_id: int, accept_margin: float):
         B = pending.shape[0]
         device = pending.device
-        self.pending, self.ctx, self.n_ctx = pending, ctx, n_ctx
+        self.pending, self.ctx, self.n_ctx = pending.clone(), ctx.clone(), n_ctx.clone()
         self.n, self.K = max_new_tokens, draft_len
-        self.stops, self.eos, self.pad = stop_sequences, eos_token_id, pad_token_id
+        self.stops = [torch.tensor(s, dtype=torch.int64, device=device) for s in stop_sequences]
+        self.eos, self.pad = eos_token_id, pad_token_id
         self.accept_margin = accept_margin
         self.tokens = torch.full((B, max_new_tokens + draft_len), pad_token_id,
                                  dtype=torch.int64, device=device)
         self.t = torch.zeros((B,), dtype=torch.int64, device=device)
         self.done = torch.zeros((B,), dtype=torch.bool, device=device)
         self.lengths = torch.full((B,), max_new_tokens, dtype=torch.int64, device=device)
+        self.rounds = torch.zeros((1,), dtype=torch.int32, device=device)
 
-    def live(self) -> bool:
-        return not bool(self.done.all())
+    def reset(self, pending: torch.Tensor, ctx: torch.Tensor, n_ctx: int) -> None:
+        """Start a new batch of the same shape in place (a pipelined
+        stream's next batch)."""
+        self.pending.copy_(pending)
+        self.ctx.copy_(ctx)
+        self.n_ctx.fill_(n_ctx)
+        self.tokens.fill_(self.pad)
+        self.t.zero_()
+        self.done.zero_()
+        self.lengths.fill_(self.n)
+        self.rounds.zero_()
 
     def proposal(self) -> torch.Tensor:
         """(B, K): [pending ‖ the looked-up draft]."""
         return torch.cat([self.pending[:, None],
                           _lookup_draft(self.ctx, self.n_ctx, self.pending, self.K)], dim=1)
 
-    def commit(self, cache: dict, proposal: torch.Tensor, logits: torch.Tensor) -> None:
+    def commit(self, proposal: torch.Tensor, logits: torch.Tensor):
         """Take each live row's accepted prefix of `proposal` by the verify
-        logits (B, K, V): commit it in the ragged cache, emit it, find the
-        stops; a done row commits nothing."""
+        logits (B, K, V): emit it, extend the context, find the stops; a
+        done row takes nothing. Returns (the accepted counts a (B,), 0 for a
+        done row: what the caller commits in its cache; the verify's argmax
+        (B, K))."""
         a, g = _accepted(proposal, logits, self.accept_margin)
         a = torch.where(self.done, 0, a)
-        dc.commit_verify(cache, a)
+        self.rounds.add_((~self.done).any().to(torch.int32))
         t_new = _append_accepted(self.tokens, self.t, proposal, a)
-        self.n_ctx = _append_accepted(self.ctx, self.n_ctx, proposal, a)
+        self.n_ctx.copy_(_append_accepted(self.ctx, self.n_ctx, proposal, a))
         rows = torch.arange(proposal.shape[0], device=proposal.device)
-        self.pending = torch.where(self.done, self.pending,
-                                   g[rows, torch.clamp(a - 1, 0, self.K - 1)])
+        self.pending.copy_(torch.where(self.done, self.pending,
+                                       g[rows, torch.clamp(a - 1, 0, self.K - 1)]))
         upto = torch.clamp(t_new, max=self.n)
         stop_at, fired = _find_stop_in(self.tokens, upto, self.stops, self.eos, self.n)
         newly = (fired | (t_new >= self.n)) & ~self.done
-        self.lengths = torch.where(newly, torch.where(fired, stop_at, upto), self.lengths)
+        self.lengths.copy_(torch.where(newly, torch.where(fired, stop_at, upto), self.lengths))
         self.done |= newly
-        self.t = t_new
+        self.t.copy_(t_new)
+        return a, g
 
     def result(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(tokens (B, max_new_tokens) pad-filled past each row's length,
-        lengths (B,))."""
+        lengths (B,)), copies of the state's."""
         tokens = self.tokens[:, :self.n]
         keep = torch.arange(self.n, device=tokens.device)[None, :] < self.lengths[:, None]
-        return torch.where(keep, tokens, self.pad), self.lengths
+        return torch.where(keep, tokens, self.pad), self.lengths.clone()
+
+
+def _flags(state: RaggedRows, keys: torch.Tensor) -> list[int]:
+    """The host's one read a block of rounds: [every row done, the most
+    keys a row's cache holds (keys.max()), the least a live row has
+    emitted]."""
+    return graphs.host_read(state.done.all(), keys.max(),
+                            torch.where(state.done, state.n, state.t).min())
+
+
+def _verify_rounds(loop: graphs.StepLoop, state: RaggedRows, keys: torch.Tensor, T: int,
+                   verify, flags: list[int] | None = None) -> None:
+    """verify(t_cap) rounds until every row is done, in blocks of at most
+    DECODE_GRAPH_STEPS rounds and no more than a live row can still need;
+    each block's key span t_cap covers the keys (`keys`: the cache's
+    lengths, or the linear cache's index) any row holds through its last
+    round, each round adding at most K."""
+    flags = flags or _flags(state, keys)
+    while not flags[0]:
+        rounds = min(DECODE_GRAPH_STEPS, state.n - flags[2])
+        t_cap = chunk_cap(flags[1] + (rounds - 1) * state.K, T)
+        for _ in range(rounds):
+            loop.run("verify", t_cap, lambda c=t_cap: verify(c))
+        flags = _flags(state, keys)
+
+
+def _ragged_verify(params: dict, llm_cfg, state: RaggedRows, rag: dict, t_cap: int,
+                   policy: DTypePolicy, kernels: bool) -> None:
+    """One static round over a ragged cache: the rows' proposals through
+    forward_ragged_verify over the key span [0, t_cap), then each row's
+    commit."""
+    proposal = state.proposal()
+    lg, _ = decoder_module(llm_cfg).forward_ragged_verify(
+        params, llm_cfg, proposal, rag, policy=policy, kernels=kernels, key_bounds=(0, t_cap))
+    dc.commit_verify(rag, state.commit(proposal, lg)[0])
 
 
 @torch.no_grad()
@@ -312,6 +373,7 @@ def generate_greedy_speculative_batched(
     policy: DTypePolicy = DTypePolicy(),
     accept_margin: float = 0.0,
     kernels: bool = True,
+    cuda_graphs: bool = True,
 ):
     """Batched over a ragged cache: each row accepts its own drafts, so a
     row that accepts fast never waits on a slow one. The prefill runs on a
@@ -319,14 +381,16 @@ def generate_greedy_speculative_batched(
     its hidden state read at each row's last prompt token; the cache then
     becomes ragged with lengths = the rows' prompt lengths
     (_spec_prefill_adopt). The draft's context is prompt_ids' whole
-    width per row. Returns (tokens (B, max_new_tokens) pad-filled past each
-    row's length, lengths (B,), n_forwards)."""
-    dec = decoder_module(llm_cfg)
+    width per row. The rounds are static (module docstring); n_forwards
+    counts a round only while a row was live. Returns (tokens (B,
+    max_new_tokens) pad-filled past each row's length, lengths (B,),
+    n_forwards)."""
     B, P, _ = inputs_embeds.shape
     K = draft_len
     device = inputs_embeds.device
+    total = P + max_new_tokens + K + 1
     cache, pending = _spec_prefill_adopt(params, llm_cfg, inputs_embeds, attention_mask,
-                                         P + max_new_tokens + K + 1, policy, kernels)
+                                         total, policy, kernels)
     Pi = prompt_ids.shape[1]
     ctx = torch.full((B, Pi + max_new_tokens + K), -1, dtype=torch.int64, device=device)
     ctx[:, :Pi] = prompt_ids
@@ -334,14 +398,10 @@ def generate_greedy_speculative_batched(
                        max_new_tokens=max_new_tokens, draft_len=K,
                        stop_sequences=stop_sequences, eos_token_id=eos_token_id,
                        pad_token_id=pad_token_id, accept_margin=accept_margin)
-    n_fwd = 1
-    while state.live():
-        proposal = state.proposal()
-        lg, cache = dec.forward_ragged_verify(params, llm_cfg, proposal, cache, policy=policy,
-                                              kernels=kernels)
-        n_fwd += 1
-        state.commit(cache, proposal, lg)
-    return (*state.result(), n_fwd)
+    _verify_rounds(graphs.StepLoop(device, cuda_graphs), state, cache["lengths"], total,
+                   lambda t_cap: _ragged_verify(params, llm_cfg, state, cache, t_cap, policy,
+                                                kernels))
+    return (*state.result(), 1 + graphs.host_read(state.rounds)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -349,73 +409,76 @@ def generate_greedy_speculative_batched(
 # of the next batch's prompt in every round
 # ---------------------------------------------------------------------------
 
-def _spec_overlap(params: dict, llm_cfg, rag: dict, pending: torch.Tensor, ctx: torch.Tensor,
-                  n_ctx: torch.Tensor, nxt: tuple | None, *, max_new_tokens: int,
-                  draft_len: int, stop_sequences, eos_token_id, pad_token_id: int, C: int,
-                  n_chunks: int, total: int, policy: DTypePolicy, kernels: bool,
-                  kv_cache_dtype, accept_margin: float):
+def _spec_overlap(params: dict, llm_cfg, loop: graphs.StepLoop, state: RaggedRows, rag: dict,
+                  nxt: tuple | None, C: int, n_chunks: int, policy: DTypePolicy,
+                  kernels: bool) -> int:
     """Speculative verify rounds over the current batch (ragged cache
-    `rag`, pending tokens, draft context ctx / n_ctx) with chunk r of the
-    next prompt, nxt = (embeds (B, Pn, E), mask (B, Pn)) right-padded, fused
-    into round r (forward_ragged_verify_with_chunk); rounds past the last
-    chunk verify alone (forward_ragged_verify). Each row captures its last
-    prompt position's hidden state when it lands in a chunk. Chunks left
-    when every row is done run through the cached forward alone. Returns
-    (tokens, lengths, the next batch's ragged cache, its pending tokens,
-    rounds run, the chunk-only ones included); the next two None for the
-    last batch."""
-    dec = decoder_module(llm_cfg)
-    B = pending.shape[0]
-    device = pending.device
-    rows = torch.arange(B, device=device)
-    state = RaggedRows(pending, ctx, n_ctx, max_new_tokens=max_new_tokens, draft_len=draft_len,
-                       stop_sequences=stop_sequences, eos_token_id=eos_token_id,
-                       pad_token_id=pad_token_id, accept_margin=accept_margin)
-    n_steps = n_chunks if nxt is not None else 0
+    `rag`, its rows' state reset in `state`) with chunk r of the next
+    prompt fused into round r while r < n_chunks
+    (forward_ragged_verify_with_chunk_static), nxt = (the next batch's
+    linear cache, its staged prompt embeds (B, n_chunks x C, E) and mask,
+    right-padded, the cache's write index idx at 0, each row's prompt
+    length, the buffer of each row's hidden state at its last prompt
+    position), or None for the last batch. Each round keeps the hidden
+    state of a row whose last prompt position its chunk holds. Rounds past
+    the last chunk verify alone; once every row is done, the chunks left
+    run alone (forward_chunk_static, the JAX tail loop). Returns the rounds
+    the JAX function counts: those with a live row, and at least n_chunks
+    where there is a next batch."""
+    T = rag["k"].shape[2]
+    flags = _flags(state, rag["lengths"])
+
+    def verify(t_cap: int) -> None:
+        _ragged_verify(params, llm_cfg, state, rag, t_cap, policy, kernels)
+
     if nxt is not None:
-        next_embeds, next_mask = nxt
-        cache_next = dec.init_cache(llm_cfg, B, total,
-                                    dtype=kv_cache_dtype or policy.compute_dtype, device=device)
-        n_prompt = next_mask.sum(dim=1, dtype=torch.int32)
-        h_last = torch.zeros((B, next_embeds.shape[2]), dtype=policy.compute_dtype,
-                             device=device)
+        dec = decoder_module(llm_cfg)
+        cache_next, stage_e, stage_m, idx, n_prompt, h_last = nxt
 
-    def capture(h_chunk, r):
-        """Keep each row's hidden state at its last prompt position if chunk r holds it."""
-        off = n_prompt - 1 - r * C
-        hit = (off >= 0) & (off < C)
-        h_sel = h_chunk[rows, torch.clamp(off, 0, C - 1).long()].to(h_last.dtype)
-        return torch.where(hit[:, None], h_sel, h_last)
+        # every tensor a round reads is the stream's or the round's own: its
+        # graph is replayed in later batches, after this call's locals died
+        def chunk() -> tuple[torch.Tensor, torch.Tensor]:
+            slots = idx.long() + torch.arange(C, device=idx.device)
+            return stage_e.index_select(1, slots), stage_m.index_select(1, slots)
 
-    r = 0
-    while state.live():
-        proposal = state.proposal()
-        if r < n_steps:
-            ce = policy.cast(next_embeds[:, r * C:(r + 1) * C])
-            cm = next_mask[:, r * C:(r + 1) * C]
-            lg, rag, h_chunk, cache_next = dec.forward_ragged_verify_with_chunk(
-                params, llm_cfg, proposal, rag, ce, cm, cache_next, policy=policy,
-                kernels=kernels)
-            h_last = capture(h_chunk, r)
-        else:
-            lg, rag = dec.forward_ragged_verify(params, llm_cfg, proposal, rag, policy=policy,
-                                                kernels=kernels)
-        state.commit(rag, proposal, lg)
-        r += 1
-    # the chunks left once every row is done, without the verify side
-    while r < n_steps:
-        ce = policy.cast(next_embeds[:, r * C:(r + 1) * C])
-        h_chunk, cache_next = dec.forward(params, llm_cfg, ce,
-                                          attention_mask=next_mask[:, r * C:(r + 1) * C],
-                                          cache=cache_next, policy=policy, return_hidden=True,
-                                          kernels=kernels)
-        h_last = capture(h_chunk, r)
-        r += 1
-    tokens, lengths = state.result()
-    if nxt is None:
-        return tokens, lengths, None, None, r
-    return (tokens, lengths, _as_ragged(cache_next, n_prompt),
-            _greedy_head(params, llm_cfg, h_last, policy), r)
+        def capture(h_chunk: torch.Tensor) -> None:
+            """Keep each row's hidden state at its last prompt position if
+            this chunk holds it; advance idx."""
+            off = n_prompt - 1 - idx
+            hit = (off >= 0) & (off < C)
+            rows = torch.arange(h_last.shape[0], device=idx.device)
+            h_sel = h_chunk[rows, torch.clamp(off, 0, C - 1).long()].to(h_last.dtype)
+            h_last.copy_(torch.where(hit[:, None], h_sel, h_last))
+            idx.add_(C)
+
+        def fused_round(t_cap: int, c_cap: int) -> None:
+            proposal = state.proposal()
+            lg, h = dec.forward_ragged_verify_with_chunk_static(
+                params, llm_cfg, proposal, rag, *chunk(), cache_next, idx, t_cap=t_cap,
+                chunk_cap=c_cap, policy=policy, kernels=kernels)
+            dc.commit_verify(rag, state.commit(proposal, lg)[0])
+            capture(h)
+
+        def chunk_round(c_cap: int) -> None:
+            capture(dec.forward_chunk_static(params, llm_cfg, *chunk(), cache_next, idx,
+                                             t_cap=c_cap, policy=policy, kernels=kernels,
+                                             return_hidden=True))
+
+        r = 0
+        while r < n_chunks and not flags[0]:
+            rounds = min(DECODE_GRAPH_STEPS, n_chunks - r)
+            t_cap = chunk_cap(flags[1] + (rounds - 1) * state.K, T)
+            for r in range(r, r + rounds):
+                key = (t_cap, chunk_cap(r * C, T))
+                loop.run("fused", key, lambda k=key: fused_round(*k))
+            r += 1
+            flags = _flags(state, rag["lengths"])
+        for r in range(r, n_chunks):  # every row done: the chunks alone
+            c_cap = chunk_cap(r * C, T)
+            loop.run("chunk", c_cap, lambda c=c_cap: chunk_round(c))
+    _verify_rounds(loop, state, rag["lengths"], T, verify, flags)
+    rounds = graphs.host_read(state.rounds)[0]
+    return max(rounds, n_chunks) if nxt is not None else rounds
 
 
 @torch.no_grad()
@@ -433,6 +496,7 @@ def generate_pipelined_spec(
     accept_margin: float = 0.0,
     stats: list | None = None,
     kernels: bool = True,
+    cuda_graphs: bool = True,
 ) -> list:
     """Greedy generation over a stream of same-shaped batches: batched
     prompt-lookup speculation (speculative.generate_greedy_speculative_
@@ -443,6 +507,16 @@ def generate_pipelined_spec(
     n_chunks x C. `stats` gets each batch's rounds (verify rounds and
     chunk-only ones). Returns [(tokens, lengths), ...] as `generate`.
 
+    The rounds are static (module docstring). The stream allocates its two
+    caches, the staging buffer of the next prompt and the rows' state once;
+    between batches the chunk-filled cache is copied into the ragged
+    cache's place (lengths the rows' prompt lengths) and the other's key
+    mask zeroed, so every batch's rounds use the same buffers and a stream
+    captures one graph a round kind and key span, not one a batch (a
+    verify's span is the bucket above the longest row, so a batch whose
+    rows run further can add a span, at most one a power of two up to the
+    cache's size).
+
     Greedy only (ValueError otherwise). StarCoder2 has no fused verify and
     chunk forward in the JAX package either, so a stream of more than one
     StarCoder2 batch raises NotImplementedError."""
@@ -452,12 +526,12 @@ def generate_pipelined_spec(
     if not batches:
         return []
     dec = decoder_module(llm_cfg)
-    if len(batches) > 1 and not hasattr(dec, "forward_ragged_verify_with_chunk"):
+    if len(batches) > 1 and not hasattr(dec, "forward_ragged_verify_with_chunk_static"):
         raise NotImplementedError(
             f"generate_pipelined_spec: {dec.__name__.rsplit('.', 1)[-1]} has no fused verify and "
             f"chunk forward (the JAX package has none for StarCoder2 either); run one batch at a "
             f"time, or generate_pipelined")
-    B, P, _ = batches[0][0].shape
+    B, P, E = batches[0][0].shape
     n, K = gen.max_new_tokens, draft_len
     C = chunk_positions or max(8, -(-2 * P // n))
     n_chunks = -(-P // C)
@@ -469,19 +543,47 @@ def generate_pipelined_spec(
                pad_time(torch.as_tensor(ids).long().to(embeds.device), Pn, value=-1, left=False))
               for embeds, mask, ids in batches]
     e0, m0, _ = padded[0]
+    device = e0.device
     rag, pending = _spec_prefill_adopt(params, llm_cfg, policy.cast(e0), m0, total, policy,
                                        kernels, kv_cache_dtype)
+    state = RaggedRows(pending, torch.full((B, CTX), -1, dtype=torch.int64, device=device),
+                       torch.zeros((B,), dtype=torch.int64, device=device), max_new_tokens=n,
+                       draft_len=K, stop_sequences=gen.stop_sequences,
+                       eos_token_id=gen.eos_token_id, pad_token_id=gen.pad_token_id,
+                       accept_margin=accept_margin)
+    nxt = None
+    if len(batches) > 1:
+        nxt = (dec.init_cache(llm_cfg, B, total, dtype=kv_cache_dtype or policy.compute_dtype,
+                              device=device),
+               torch.zeros((B, Pn, E), dtype=policy.compute_dtype, device=device),
+               torch.zeros((B, Pn), dtype=torch.int32, device=device),
+               torch.zeros(1, dtype=torch.int32, device=device),
+               torch.zeros((B,), dtype=torch.int32, device=device),
+               torch.zeros((B, E), dtype=policy.compute_dtype, device=device))
+    loop = graphs.StepLoop(device, cuda_graphs)
     out = []
     for i, (_, _, ids) in enumerate(padded):
-        nxt = padded[i + 1][:2] if i + 1 < len(batches) else None
-        tokens, lengths, rag, pending, rounds = _spec_overlap(
-            params, llm_cfg, rag, pending, pad_time(ids, CTX, value=-1, left=False),
-            torch.full((B,), Pn, dtype=torch.int64, device=e0.device), nxt,
-            max_new_tokens=n, draft_len=K, stop_sequences=gen.stop_sequences,
-            eos_token_id=gen.eos_token_id, pad_token_id=gen.pad_token_id, C=C,
-            n_chunks=n_chunks, total=total, policy=policy, kernels=kernels,
-            kv_cache_dtype=kv_cache_dtype, accept_margin=accept_margin)
+        if i > 0:
+            # the chunk-filled cache, adopted, takes the ragged cache's place
+            cache_next, _, _, _, n_prompt, h_last = nxt
+            for key in dc.PAYLOAD_KEYS + ("kv_mask",):
+                if key in rag:
+                    rag[key].copy_(cache_next[key])
+            rag["lengths"].copy_(n_prompt)
+            cache_next["kv_mask"].zero_()
+            pending = _greedy_head(params, llm_cfg, h_last, policy)
+        state.reset(pending, pad_time(ids, CTX, value=-1, left=False), Pn)
+        has_next = i + 1 < len(batches)
+        if has_next:
+            embeds, mask, _ = padded[i + 1]
+            nxt[1].copy_(policy.cast(embeds))
+            nxt[2].copy_(mask)
+            nxt[3].zero_()
+            nxt[4].copy_(mask.sum(dim=1))
+            nxt[5].zero_()
+        rounds = _spec_overlap(params, llm_cfg, loop, state, rag, nxt if has_next else None, C,
+                               n_chunks, policy, kernels)
         if stats is not None:
             stats.append(rounds)
-        out.append((tokens, lengths))
+        out.append(state.result())
     return out

@@ -44,6 +44,16 @@ token to the next, and generate captures such a step in a CUDA graph
 while_loop. The serving engine's static tick does the same over the ragged
 cache (`ragged_static_masks`: kernel 2's bounds from the rows' lengths).
 
+A static chunk step (`static_chunk_slots`, `write_new_kv_slots`; the
+decoders' forward_chunk_static) is the chunk step with its write index a
+device int32 `idx` (1,): the chunk's mask and k/v are written at idx +
+[0, C) by index ops, and its queries attend over a key span [0, t_cap)
+fixed per graph (generation/engine.py::chunk_cap), the slots below idx
+visible by a device mask. The pipelined streams and speculative decoding
+run their rounds from such steps (generation/engine.py,
+generation/speculative.py); `rollback_verify` is the B = 1 verify's
+rollback of the linear cache on the device.
+
 The merged decode attention lives with kernel 2 in
 ops/flash_attention.py; the chunk step's attention (1 < S <= 64 new tokens,
 `merged_verify_attention`) is here, in plain PyTorch, as the JAX package
@@ -309,9 +319,44 @@ def static_decode_slots(cache: dict, pos: torch.Tensor, window: int | None):
 def write_new_kv_static(cache: dict, news: dict, pos: torch.Tensor) -> None:
     """write_new_kv_linear at the device slot `pos` (1,): each key's
     (L, B, Hkv[, D]) new-token stack, in place."""
-    idx = pos.long()
+    write_new_kv_slots(cache, {key: new.unsqueeze(2) for key, new in news.items()}, pos.long())
+
+
+def static_chunk_slots(cache: dict, idx: torch.Tensor, chunk_mask: torch.Tensor, t_cap: int,
+                       window: int | None):
+    """A static chunk step's slots on a linear cache, the write index `idx`
+    an int32 (1,) device tensor, over the key span [0, t_cap) (t_cap >=
+    idx): the chunk's positions (B, C), after the real tokens each row's key
+    mask counts (pads at 1, as the chunk step derives them); the visible old
+    slots, slot < idx where the key mask shows one, (B, t_cap), or under a
+    sliding window per query, slot > idx + w - window for query w, (B, C,
+    t_cap); and the chunk's slots idx + [0, C) (C,) int64, clipped to the
+    cache. The chunk's mask is written at its slots, in place. No host
+    transfer."""
+    kv_mask = cache["kv_mask"]
+    T = kv_mask.shape[1]
+    C = chunk_mask.shape[1]
+    chunk_mask = chunk_mask.to(torch.int32)
+    prev = kv_mask.sum(dim=-1, dtype=torch.int32)
+    positions = prev[:, None] + torch.cumsum(chunk_mask, dim=-1, dtype=torch.int32) - 1
+    positions = torch.where(chunk_mask == 0, torch.ones_like(positions), positions)
+    slot = torch.arange(t_cap, device=kv_mask.device)
+    old_mask = kv_mask[:, :t_cap] * (slot < idx)
+    cols = torch.arange(C, device=kv_mask.device)
+    if window is not None:
+        query = idx + cols
+        old_mask = old_mask[:, None, :] * (slot[None, :] > (query - window)[:, None])
+    slots = torch.clamp(idx.long() + cols, max=T - 1)
+    kv_mask.index_copy_(1, slots, chunk_mask)
+    return positions, old_mask, slots
+
+
+def write_new_kv_slots(cache: dict, news: dict, slots: torch.Tensor) -> None:
+    """Write each key's (L, B, W, Hkv[, D]) stack at the device slots
+    `slots` (W,), in place (a static chunk step's, or a decode step's one
+    slot)."""
     for key, new in news.items():
-        cache[key].index_copy_(2, idx, new.unsqueeze(2).to(cache[key].dtype))
+        cache[key].index_copy_(2, slots, new.to(cache[key].dtype))
 
 
 def write_new_kv_linear_multi(cache: dict, news: dict, idx: int) -> None:
@@ -345,8 +390,19 @@ def commit_verify(cache: dict, n_commit: torch.Tensor) -> None:
     lengths = cache["lengths"]
     new_len = torch.clamp(lengths + n_commit.to(torch.int32), max=T)
     slot = torch.arange(T, device=lengths.device)[None, :]
-    cache["kv_mask"][(slot >= lengths[:, None]) & (slot < new_len[:, None])] = 1
+    cache["kv_mask"].masked_fill_((slot >= lengths[:, None]) & (slot < new_len[:, None]), 1)
     lengths.copy_(new_len)
+
+
+def rollback_verify(cache: dict, idx: torch.Tensor, n_commit: torch.Tensor, W: int) -> None:
+    """After a static verify of W tokens at the device index `idx` (1,) of
+    a linear cache (B = 1 speculative decoding): keep the first n_commit
+    (1,) of the W slots, hide the rest in the key mask, and advance idx by
+    n_commit, all in place (the next chunk overwrites the hidden slots)."""
+    slot = torch.arange(cache["kv_mask"].shape[1], device=idx.device)
+    end = idx + n_commit.to(idx.dtype)
+    cache["kv_mask"].masked_fill_(((slot >= end) & (slot < idx + W))[None, :], 0)
+    idx.copy_(end)
 
 
 def ragged_step_masks(cache: dict, active: torch.Tensor, window: int | None):

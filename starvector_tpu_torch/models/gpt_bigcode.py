@@ -34,15 +34,24 @@ row at its own position (kernel 2 with a per-row key mask), and
 `forward_ragged_verify` is speculative decoding's verify, each row's W
 tokens at its own positions through the chunk step's attention. Both take
 the slots any row may see as host integers (`key_bounds`), so a step makes
-no host transfer; without them they read the bounds from `lengths`.
+no host transfer; without them they read the bounds from `lengths`. A
+verify given (0, t_cap) is the static verify of speculative decoding's
+captured rounds.
 
-The offline pipelined engine (generation/engine.py::generate_pipelined and
-generate_pipelined_spec) runs two fused forwards: `forward_decode_with_chunk`
-(a decode step of the current batch and a chunk of the next batch's prompt)
-and `forward_ragged_verify_with_chunk` (a speculative verify and a chunk),
-each one pass over the layers with the projections shared by both row
-groups; the decode half is kernel 2, the chunk and the verify the chunk
-step's attention.
+The static steps take their write slots as device int32 tensors and read
+nothing on the host, so that their launches are the same from one step to
+the next and the loops replay them as CUDA graphs: `forward_decode_static`
+(a decode step), `forward_chunk_static` (the chunk step over a key span
+fixed per graph) and the offline pipelined engine's two fused forwards
+(generation/engine.py::generate_pipelined and
+generation/speculative.py::generate_pipelined_spec),
+`forward_decode_with_chunk_static` (a decode step of the current batch and a
+chunk of the next batch's prompt) and
+`forward_ragged_verify_with_chunk_static` (a speculative verify and a
+chunk), each one pass over the layers with the projections shared by both
+row groups; the decode half is kernel 2, the chunk and the verify the chunk
+step's attention. `forward_decode_with_chunk` and
+`forward_ragged_verify_with_chunk` run them at the caches' host indices.
 
 Without a cache, `forward` is the training forward: each layer's attention
 is `flash_prefill_trainable` (the forward-with-lse kernel and the backward
@@ -575,6 +584,34 @@ def forward_ragged_verify(params: dict, cfg: GPTBigCodeConfig, token_ids: torch.
     return matmul_f32(policy.cast(x), policy.cast(table).T), cache
 
 
+def forward_chunk_static(params: dict, cfg: GPTBigCodeConfig, inputs_embeds: torch.Tensor,
+                         attention_mask: torch.Tensor, cache: dict, idx: torch.Tensor, *,
+                         t_cap: int, policy: DTypePolicy = DTypePolicy(), kernels: bool = True,
+                         return_hidden: bool = False, last_logits_only: bool = False):
+    """The cached chunk step (forward's 1 < S <= 64 branch) with nothing on
+    the host: the C new tokens (B, C, E) with their mask (B, C) go to slots
+    idx + [0, C), `idx` an int32 (1,) device tensor, at the positions their
+    rows' key masks count; their queries attend over the key span [0,
+    t_cap) (t_cap >= idx, generation/engine.py::chunk_cap), the slots below idx
+    that the key mask shows, and causally over the chunk's real keys
+    (merged_verify_attention); the chunk's k/v are written after the
+    layers. The caller advances idx. Returns the logits (B, C|1, V) fp32, or
+    the final hidden states (B, C, E) if `return_hidden`; the cache changes
+    in place (its host `index` is not read or moved)."""
+    x = policy.cast(inputs_embeds)
+    positions, old_mask, slots = dc.static_chunk_slots(cache, idx, attention_mask, t_cap, None)
+    x = x + policy.cast(gathered(params["wpe"])[torch.clamp(positions, 0, cfg.n_positions - 1)])
+    x, news = dc.decode_scan(params["layers"], cache, x, _verify_layer_fn(
+        cfg, old_mask, t_cap, attention_mask.to(torch.int32), policy, kernels))
+    dc.write_new_kv_slots(cache, news, slots)
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    if return_hidden:
+        return x
+    if last_logits_only:
+        x = x[:, -1:]
+    return matmul_f32(policy.cast(x), policy.cast(gathered(params["wte"])).T)
+
+
 def _cached_slots(layer_cache: dict, t: int) -> tuple:
     """(k, v, k_scale, v_scale) of a layer's cache over the slots [0, t);
     the scales None for a bf16/fp32 cache."""
@@ -583,41 +620,33 @@ def _cached_slots(layer_cache: dict, t: int) -> tuple:
 
 
 def _chunk_side(wpe: torch.Tensor, cfg: GPTBigCodeConfig, cache_next: dict,
-                chunk_embeds: torch.Tensor, chunk_mask: torch.Tensor, policy: DTypePolicy):
-    """The next batch's chunk in a fused forward, as forward's cached branch
-    derives it: positions from the mask (pads at 1) after the real tokens
-    the cache holds, the chunk's mask written at the cache's index (`wpe`
-    the whole position table). Returns
-    (x (B, C, E) with wpe added, the mask of the cached slots before the
-    chunk, the chunk's mask (B, C) int32)."""
-    idx = cache_next["index"]
-    C = chunk_embeds.shape[1]
-    if idx + C > cache_next["k"].shape[2]:
-        raise ValueError(f"cache of {cache_next['k'].shape[2]} slots cannot take {C} tokens "
-                         f"at index {idx}")
+                chunk_embeds: torch.Tensor, chunk_mask: torch.Tensor, idx: torch.Tensor,
+                chunk_cap: int, policy: DTypePolicy):
+    """The next batch's chunk in a fused forward, as the static chunk step
+    derives it (decode_common.static_chunk_slots; `wpe` the whole position
+    table): its mask written at the device index idx. Returns (x (B, C, E)
+    with wpe added, the visible old slots (B, chunk_cap), the chunk's mask
+    (B, C) int32, its slots (C,))."""
     chunk_mask = chunk_mask.to(torch.int32)
-    prev = cache_next["kv_mask"].sum(dim=-1, dtype=torch.int32)
-    pos = prev[:, None] + compute_position_ids(chunk_mask)
-    pos = torch.where(chunk_mask == 0, torch.ones_like(pos), pos)
-    cache_next["kv_mask"][:, idx:idx + C] = chunk_mask
+    pos, old_mask, slots = dc.static_chunk_slots(cache_next, idx, chunk_mask, chunk_cap, None)
     x = policy.cast(chunk_embeds) + policy.cast(wpe[torch.clamp(pos, 0, cfg.n_positions - 1)])
-    return x, cache_next["kv_mask"][:, :idx], chunk_mask
+    return x, old_mask, chunk_mask, slots
 
 
 def _fused_scan(params: dict, cfg: GPTBigCodeConfig, x: torch.Tensor, W: int, cache: dict,
                 attend, cache_next: dict, old_mask_c: torch.Tensor, chunk_mask: torch.Tensor,
-                policy: DTypePolicy, kernels: bool):
+                chunk_cap: int, policy: DTypePolicy, kernels: bool):
     """The fused forwards' layer loop over x (B, W + C, E): each layer's
     LayerNorms and projections run once over all rows (one weight read, the
     point of fusing; kernel 14 for a quantized leaf); rows [0, W) attend by
     `attend(q (B, W, Hkv, G, D), k, v (B, W, Hkv, D), layer cache) ->
     (B, W, H*D)` over `cache`, rows [W, W + C), the next batch's chunk,
-    through merged_verify_attention over the first index slots of
-    cache_next (`old_mask_c`) and causally over the chunk's real keys.
-    Returns (x, the W rows' emitted k/v, the chunk's), each stacked over
-    the layers for the write after them (decode_common.emitted_kv)."""
+    through merged_verify_attention over the key span [0, chunk_cap) of
+    cache_next (`old_mask_c` its visible slots) and causally over the
+    chunk's real keys. Returns (x, the W rows' emitted k/v, the chunk's),
+    each stacked over the layers for the write after them
+    (decode_common.emitted_kv)."""
     H, D, Hkv = cfg.n_head, cfg.head_dim, cfg.kv_heads
-    idx_c = cache_next["index"]
     quant = "k_scale" in cache
     ka, va, kc, vc = [], [], [], []
     for i in range(cfg.n_layer):
@@ -627,7 +656,7 @@ def _fused_scan(params: dict, cfg: GPTBigCodeConfig, x: torch.Tensor, W: int, ca
         q = q.unflatten(-1, (Hkv, H // Hkv, D))
         k, v = k.unflatten(-1, (Hkv, D)), v.unflatten(-1, (Hkv, D))
         out_a = attend(q[:, :W], k[:, :W], v[:, :W], dc.layer_cache(cache, i))
-        k_c, v_c, ks, vs = _cached_slots(dc.layer_cache(cache_next, i), idx_c)
+        k_c, v_c, ks, vs = _cached_slots(dc.layer_cache(cache_next, i), chunk_cap)
         out_c = dc.merged_verify_attention(q[:, W:].movedim(1, 3), k[:, W:], v[:, W:], k_c, v_c,
                                            old_mask_c, D**-0.5, ks, vs, new_mask=chunk_mask)
         x = x + dense(p["attn"]["c_proj"], torch.cat([out_a, out_c], dim=1), policy,
@@ -645,6 +674,72 @@ def _check_cache_types(cache: dict, cache_next: dict, what: str) -> None:
         raise ValueError(f"fused {what}+chunk: cache dtypes must match")
 
 
+def _host_index(cache: dict, n: int, device) -> torch.Tensor:
+    """A linear cache's host index as the int32 (1,) device tensor a static
+    step takes, after checking that n more tokens fit."""
+    idx, T = cache["index"], cache["k"].shape[2]
+    if idx + n > T:
+        raise ValueError(f"cache of {T} slots cannot take {n} tokens at index {idx}")
+    return torch.tensor([idx], dtype=torch.int32, device=device)
+
+
+def forward_decode_with_chunk_static(
+    params: dict,
+    cfg: GPTBigCodeConfig,
+    dec_embeds: torch.Tensor,    # (B, 1, E) the next token's embeds (wpe added here)
+    cache: dict,                 # the current batch's linear cache
+    pos: torch.Tensor,           # int32 (1,): its write slot
+    chunk_embeds: torch.Tensor,  # (B, C, E) a chunk of the next batch's prompt
+    chunk_mask: torch.Tensor,    # (B, C)
+    cache_next: dict,            # the next batch's linear cache, being prefilled
+    idx: torch.Tensor,           # int32 (1,): its write index
+    *,
+    t_cap: int,
+    chunk_cap: int,
+    policy: DTypePolicy = DTypePolicy(),
+    kernels: bool = True,
+    chunk_logits: bool = False,
+):
+    """One pass over the layers that decodes the current batch and
+    prefills a chunk of the next batch's prompt, with nothing on the host
+    (the JAX forward_decode_with_chunk; generation/engine.py::
+    generate_pipelined): the projections run once over the (B, 1 + C)
+    rows. The decode row is forward_decode_static's (slot pos, kernel 2
+    over the whole cache with the device bounds [0, pos], its grid planned
+    at t_cap); the chunk is forward_chunk_static's (slots idx + [0, C),
+    merged_verify_attention over the key span [0, chunk_cap)). With int8
+    caches (both, or ValueError) the new k/v are quantized on write. Both
+    caches are written in place; the caller advances pos and idx.
+
+    Returns (decode logits (B, V) fp32, the chunk's last-position logits
+    (B, V) fp32: JAX's chunk_logits[:, -1], the only position the stream
+    reads, None unless `chunk_logits`)."""
+    _check_cache_types(cache, cache_next, "decode")
+    D = cfg.head_dim
+    positions, bounds = dc.static_decode_slots(cache, pos, None)
+    wpe = gathered(params["wpe"])
+    x_d = policy.cast(dec_embeds) + policy.cast(
+        wpe[torch.clamp(positions[:, None], 0, cfg.n_positions - 1)])
+    x_c, old_mask_c, chunk_mask, slots_c = _chunk_side(wpe, cfg, cache_next, chunk_embeds,
+                                                       chunk_mask, idx, chunk_cap, policy)
+    kv_mask = cache["kv_mask"]
+
+    def attend(q, k, v, layer_cache):
+        k_c, v_c, ks, vs = (layer_cache.get(key) for key in dc.PAYLOAD_KEYS)
+        return merged_decode_attention(q[:, 0], k[:, 0], v[:, 0], k_c, v_c, kv_mask, D**-0.5,
+                                       ks, vs, bounds=bounds, t_cap=t_cap, kernels=kernels)
+
+    x, news, news_c = _fused_scan(params, cfg, torch.cat([x_d, x_c], dim=1), 1, cache, attend,
+                                  cache_next, old_mask_c, chunk_mask, chunk_cap, policy, kernels)
+    dc.write_new_kv_slots(cache, news, pos.long())
+    dc.write_new_kv_slots(cache_next, news_c, slots_c)
+    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
+    table = policy.cast(gathered(params["wte"])).T
+    dec_logits = matmul_f32(policy.cast(x[:, 0]), table)
+    last = matmul_f32(policy.cast(x[:, -1]), table) if chunk_logits else None
+    return dec_logits, last
+
+
 def forward_decode_with_chunk(
     params: dict,
     cfg: GPTBigCodeConfig,
@@ -658,50 +753,82 @@ def forward_decode_with_chunk(
     kernels: bool = True,
     chunk_logits: bool = True,
 ):
-    """One pass over the layers that decodes the current batch and
-    prefills a chunk of the next batch's prompt (the JAX
-    forward_decode_with_chunk; generation/engine.py::generate_pipelined):
-    the projections run once over the (B, 1 + C) rows. The decode row
-    attends through kernel 2 (merged_decode_attention) over the cache's
-    first index slots plus itself, as a decode step; the chunk through
-    the chunk step's merged_verify_attention (plain PyTorch) over the next
-    cache. Positions and masks as forward's cached branch derives them.
-    With int8 caches (both, or ValueError) the new k/v are quantized on
-    write. Both caches are written in place, their indices advanced by 1
-    and C.
+    """forward_decode_with_chunk_static at the caches' host indices (the
+    JAX forward_decode_with_chunk's contract): the decode row's keys are the
+    first index slots of `cache`, the chunk's the first index slots of
+    cache_next. Both indices advance, by 1 and C.
 
     Returns (decode logits (B, V) fp32, cache, the chunk's last-position
-    logits (B, V) fp32 (JAX's chunk_logits[:, -1], the only position the
-    engine reads; None unless `chunk_logits`), cache_next)."""
+    logits (B, V) fp32, None unless `chunk_logits`, cache_next)."""
     _check_cache_types(cache, cache_next, "decode")
+    device = dec_embeds.device
+    C = chunk_embeds.shape[1]
+    pos, idx = _host_index(cache, 1, device), _host_index(cache_next, C, device)
+    dec_logits, last = forward_decode_with_chunk_static(
+        params, cfg, dec_embeds, cache, pos, chunk_embeds, chunk_mask, cache_next, idx,
+        t_cap=cache["index"] + 1, chunk_cap=cache_next["index"], policy=policy,
+        kernels=kernels, chunk_logits=chunk_logits)
+    cache["index"] += 1
+    cache_next["index"] += C
+    return dec_logits, cache, last, cache_next
+
+
+def forward_ragged_verify_with_chunk_static(
+    params: dict,
+    cfg: GPTBigCodeConfig,
+    token_ids: torch.Tensor,     # (B, W) [pending token ‖ drafts]
+    cache: dict,                 # the current batch's ragged cache
+    chunk_embeds: torch.Tensor,  # (B, C, E) a chunk of the next batch's prompt
+    chunk_mask: torch.Tensor,    # (B, C) right-padded rows: 1 = a real token
+    cache_next: dict,            # the next batch's linear cache, being prefilled
+    idx: torch.Tensor,           # int32 (1,): its write index
+    *,
+    t_cap: int,
+    chunk_cap: int,
+    policy: DTypePolicy = DTypePolicy(),
+    kernels: bool = True,
+):
+    """One pass over the layers that verifies the current batch's W-token
+    proposals and prefills a chunk of the next batch's prompt, with nothing
+    on the host (the JAX forward_ragged_verify_with_chunk;
+    generation/speculative.py::generate_pipelined_spec). The verify side is
+    forward_ragged_verify's over the key span [0, t_cap) (t_cap at least
+    every row's length; each row's key mask hides the rest): each row at
+    its own positions lengths + [0, W), its k/v written there, lengths and
+    kv_mask left for decode_common.commit_verify. The chunk side is
+    forward_chunk_static's at the device index idx over the key span [0,
+    chunk_cap). The projections run once over the (B, W + C) rows; both
+    attentions are merged_verify_attention, int8 scales folded in (both
+    caches int8, or ValueError). The caller advances idx.
+
+    Returns (verify logits (B, W, V) fp32, the chunk's final hidden states
+    (B, C, E) after ln_f: the caller projects only the positions it
+    needs)."""
+    _check_cache_types(cache, cache_next, "verify")
+    W = token_ids.shape[1]
     D = cfg.head_dim
-    idx = cache["index"]
-    if idx + 1 > cache["k"].shape[2]:
-        raise ValueError(f"cache of {cache['k'].shape[2]} slots cannot take 1 token at index {idx}")
-    pos = cache["kv_mask"].sum(dim=-1, dtype=torch.int32)[:, None]
-    cache["kv_mask"][:, idx] = 1
-    old_mask = cache["kv_mask"][:, :idx]
-    wpe = gathered(params["wpe"])
-    x_d = policy.cast(dec_embeds) + policy.cast(wpe[torch.clamp(pos, 0, cfg.n_positions - 1)])
-    x_c, old_mask_c, chunk_mask = _chunk_side(wpe, cfg, cache_next, chunk_embeds, chunk_mask,
-                                              policy)
+    positions = cache["lengths"][:, None] + torch.arange(W, device=token_ids.device)[None, :]
+    table, wpe = gathered(params["wte"]), gathered(params["wpe"])
+    x_v = policy.cast(table[token_ids]) + policy.cast(
+        wpe[torch.clamp(positions, 0, cfg.n_positions - 1)])
+    T = cache["k"].shape[2]
+    t_cap = min(t_cap, T)
+    old_mask = cache["kv_mask"][:, :t_cap]
+    x_c, old_mask_c, chunk_mask, slots_c = _chunk_side(wpe, cfg, cache_next, chunk_embeds,
+                                                       chunk_mask, idx, chunk_cap, policy)
 
     def attend(q, k, v, layer_cache):
-        k_c, v_c, ks, vs = _cached_slots(layer_cache, idx)
-        return merged_decode_attention(q[:, 0], k[:, 0], v[:, 0], k_c, v_c, old_mask, D**-0.5,
-                                       ks, vs, kernels=kernels)
+        k_c, v_c, ks, vs = _cached_slots(layer_cache, t_cap)
+        return dc.merged_verify_attention(q.movedim(1, 3), k, v, k_c, v_c, old_mask, D**-0.5,
+                                          ks, vs)
 
-    x, news, news_c = _fused_scan(params, cfg, torch.cat([x_d, x_c], dim=1), 1, cache, attend,
-                                  cache_next, old_mask_c, chunk_mask, policy, kernels)
-    dc.write_new_kv_linear_multi(cache, news, idx)
-    dc.write_new_kv_linear_multi(cache_next, news_c, cache_next["index"])
-    cache["index"] = idx + 1
-    cache_next["index"] += chunk_embeds.shape[1]
+    x, news, news_c = _fused_scan(params, cfg, torch.cat([x_v, x_c], dim=1), W, cache, attend,
+                                  cache_next, old_mask_c, chunk_mask, chunk_cap, policy, kernels)
+    dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
+    dc.write_new_kv_slots(cache_next, news_c, slots_c)
     x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
-    table = policy.cast(gathered(params["wte"])).T
-    dec_logits = matmul_f32(policy.cast(x[:, 0]), table)
-    last = matmul_f32(policy.cast(x[:, -1]), table) if chunk_logits else None
-    return dec_logits, cache, last, cache_next
+    logits = matmul_f32(policy.cast(x[:, :W]), policy.cast(table).T)
+    return logits, x[:, W:]
 
 
 def forward_ragged_verify_with_chunk(
@@ -716,46 +843,21 @@ def forward_ragged_verify_with_chunk(
     policy: DTypePolicy = DTypePolicy(),
     kernels: bool = True,
 ):
-    """One pass over the layers that verifies the current batch's W-token
-    proposals (forward_ragged_verify: each row at its own positions, the
-    chunk's k/v written at lengths + [0, W), lengths and kv_mask left for
-    decode_common.commit_verify) and prefills a chunk of the next batch's
-    prompt into its linear cache (the JAX forward_ragged_verify_with_chunk;
-    generation/engine.py::generate_pipelined_spec). The projections run
-    once over the (B, W + C) rows; both attentions are
-    merged_verify_attention, int8 scales folded in as in
-    forward_ragged_verify (both caches int8, or ValueError); the verify
-    side reads the slots below the longest row (from `lengths`).
+    """forward_ragged_verify_with_chunk_static with the verify's key span
+    read from `lengths` (a host transfer) and the chunk at cache_next's host
+    index, which advances by C (the JAX forward_ragged_verify_with_chunk's
+    contract).
 
     Returns (verify logits (B, W, V) fp32, cache, the chunk's final hidden
-    states (B, C, E) after ln_f (the caller projects only the positions it
-    needs), cache_next with its index advanced by C)."""
-    _check_cache_types(cache, cache_next, "verify")
-    W = token_ids.shape[1]
-    D = cfg.head_dim
-    positions = cache["lengths"][:, None] + torch.arange(W, device=token_ids.device)[None, :]
-    table, wpe = gathered(params["wte"]), gathered(params["wpe"])
-    x_v = policy.cast(table[token_ids]) + policy.cast(
-        wpe[torch.clamp(positions, 0, cfg.n_positions - 1)])
-    T = cache["k"].shape[2]
-    t_hi = dc.ragged_key_bounds(cache, None)[1]
-    old_mask = cache["kv_mask"][:, :t_hi]
-    x_c, old_mask_c, chunk_mask = _chunk_side(wpe, cfg, cache_next, chunk_embeds, chunk_mask,
-                                              policy)
-
-    def attend(q, k, v, layer_cache):
-        k_c, v_c, ks, vs = _cached_slots(layer_cache, t_hi)
-        return dc.merged_verify_attention(q.movedim(1, 3), k, v, k_c, v_c, old_mask, D**-0.5,
-                                          ks, vs)
-
-    x, news, news_c = _fused_scan(params, cfg, torch.cat([x_v, x_c], dim=1), W, cache, attend,
-                                  cache_next, old_mask_c, chunk_mask, policy, kernels)
-    dc.write_new_kv_ragged_multi(cache, news, torch.clamp(positions, 0, T - 1))
-    dc.write_new_kv_linear_multi(cache_next, news_c, cache_next["index"])
-    cache_next["index"] += chunk_embeds.shape[1]
-    x = layer_norm(gathered(params["ln_f"]), x, cfg.layer_norm_epsilon)
-    logits = matmul_f32(policy.cast(x[:, :W]), policy.cast(table).T)
-    return logits, cache, x[:, W:], cache_next
+    states (B, C, E) after ln_f, cache_next)."""
+    C = chunk_embeds.shape[1]
+    idx = _host_index(cache_next, C, token_ids.device)
+    logits, h = forward_ragged_verify_with_chunk_static(
+        params, cfg, token_ids, cache, chunk_embeds, chunk_mask, cache_next, idx,
+        t_cap=dc.ragged_key_bounds(cache, None)[1], chunk_cap=cache_next["index"],
+        policy=policy, kernels=kernels)
+    cache_next["index"] += C
+    return logits, cache, h, cache_next
 
 
 def lm_head_table(params: dict, cfg: GPTBigCodeConfig) -> torch.Tensor:

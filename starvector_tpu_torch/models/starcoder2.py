@@ -46,7 +46,16 @@ position and the window per row: kernel 2 takes one t_begin for all rows,
 so each row's window goes into its key mask, and t_begin is at most the
 shortest row's window start. `forward_ragged_verify` is speculative
 decoding's verify, with a per-query window over the cached slots. Both
-take the slots any row may see from the caller (`key_bounds`).
+take the slots any row may see from the caller (`key_bounds`); a verify
+given (0, t_cap) is static: it reads nothing on the host, every row's
+window in its per-query mask over [0, t_cap).
+
+The static steps (`forward_decode_static`, `forward_chunk_static`) take
+their write slot as a device int32 tensor and read nothing on the host, so
+that generation/engine.py and generation/speculative.py run their loops
+as captured CUDA graphs; StarCoder2 has no fused decode+chunk forward (nor
+has the JAX package), so its pipelined step is a decode step and then a
+chunk step.
 
 On a serving layout (parallel/zero.py; a serving mesh with fsdp, sequence
 or stage above 1) every cached path gathers each layer whole just before
@@ -476,6 +485,41 @@ def forward_decode_static(params: dict, cfg: StarCoder2Config, inputs_embeds: to
     x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
     return matmul_f32(policy.cast(x),
                       policy.cast(gathered(lm_head_table(params, cfg))).T)[:, 0]
+
+
+def forward_chunk_static(params: dict, cfg: StarCoder2Config, inputs_embeds: torch.Tensor,
+                         attention_mask: torch.Tensor, cache: dict, idx: torch.Tensor, *,
+                         t_cap: int, policy: DTypePolicy = DTypePolicy(), kernels: bool = True,
+                         return_hidden: bool = False, last_logits_only: bool = False):
+    """The cached chunk step (forward's 1 < S <= 64 branch) with nothing on
+    the host, as gpt_bigcode.forward_chunk_static: the C new tokens at slots
+    idx + [0, C) (`idx` int32 (1,) on the device), RoPE at the positions
+    their rows' key masks count, the queries over the key span [0, t_cap)
+    with the sliding window per query in the device mask (query w sees
+    slot t > idx + w - window, the chunk step's window without its host
+    t_lo). Raises ValueError when C exceeds the window (the within-chunk
+    attention assumes the chunk fits it). Returns the logits (B, C|1, V)
+    fp32, or the final hidden states (B, C, E) if `return_hidden`; the
+    cache changes in place."""
+    C = inputs_embeds.shape[1]
+    if cfg.sliding_window is not None and C > cfg.sliding_window:
+        raise ValueError(f"chunk ({C}) exceeds sliding window ({cfg.sliding_window}): "
+                         f"within-chunk visibility assumes the whole chunk fits the window")
+    x = policy.cast(inputs_embeds)
+    positions, old_mask, slots = dc.static_chunk_slots(cache, idx, attention_mask, t_cap,
+                                                       cfg.sliding_window)
+    positions = torch.clamp(positions, 0, cfg.max_position_embeddings - 1)
+    rope = rope_tables(positions, rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                                   device=x.device))
+    x, news = dc.decode_scan(params["layers"], cache, x, _verify_layer_fn(
+        cfg, old_mask, 0, t_cap, attention_mask.to(torch.int32), rope, policy, kernels))
+    dc.write_new_kv_slots(cache, news, slots)
+    x = layer_norm(gathered(params["norm"]), x, cfg.norm_epsilon)
+    if return_hidden:
+        return x
+    if last_logits_only:
+        x = x[:, -1:]
+    return matmul_f32(policy.cast(x), policy.cast(gathered(lm_head_table(params, cfg))).T)
 
 
 def forward_ragged_decode(params: dict, cfg: StarCoder2Config, token_ids: torch.Tensor,

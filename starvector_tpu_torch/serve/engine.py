@@ -1435,7 +1435,7 @@ class ServeEngine:
         mask = torch.ones(prefix.shape[:2], dtype=torch.int32, device=self.device)
         return generate_greedy_speculative(self.params, self.llm_cfg, prefix, mask, prompt_ids,
                                            policy=self.policy, kernels=self.kernels,
-                                           group=self.group, **kw)
+                                           group=self.group, cuda_graphs=self.cuda_graphs, **kw)
 
     # -- synchronous convenience ---------------------------------------------
     def generate_sync(self, req: Request, timeout: float = 600) -> list[int]:

@@ -155,8 +155,8 @@ def test_pipelined_matches_jax(bigcode, monkeypatch, case):
     kw = dict(prompt=rep, chunk_positions=chunk, gen=gen)
     ref = _jax_pipelined("gpt_bigcode", tree, batches, jnp.int8 if q_kv else None, **dict(kw))
     fused = []
-    forward = tgbc.forward_decode_with_chunk
-    monkeypatch.setattr(tgbc, "forward_decode_with_chunk",
+    forward = tgbc.forward_decode_with_chunk_static
+    monkeypatch.setattr(tgbc, "forward_decode_with_chunk_static",
                         lambda *a, **k: fused.append(1) or forward(*a, **k))
     out = _port_pipelined("gpt_bigcode", params, batches, torch.int8 if q_kv else None,
                           **dict(kw))
